@@ -1,0 +1,1 @@
+"""Command-line drivers of the port (``python -m repro_torch.launch.serve``)."""
