@@ -15,13 +15,22 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      mixing uniform and reachable pairs; verdicts held against the host
      merge on every query and against BFS truth on a sample; the kernels'
      launch counts read around exactly this run;
+  4b. the device wave build: ``build_oracle(g, device="cuda", impl="device")``
+     on the same graph, K2's launch count read around exactly this build; its
+     labels byte for byte against phase 4's reference build, phase 4's
+     queries served through K1 on it with the same verdicts and every
+     degradation counter 0; K2 against its plain version on a real slab and
+     frontier; the card's busy share over a profiled window of 500 waves;
   5. timing of each kernel and its plain version with CUDA events at the
-     serving shape, and the kernels JSON line;
+     main path's shapes, and the kernels JSON line;
   6. where a serving batch spends its time: the device's busy share over a
      window of the main path (torch.profiler) and the engine's spans;
   7. the serve driver (``repro_torch.launch.serve``) on a small graph, a
      second path on the card: its own launch counts, every degradation
      counter 0.
+
+``--only-device-build`` runs phases 1-3 and 4b alone, with 4b's own
+reference build, at ``--device-build-scale`` (default 1.0).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the repository beside it, the script
@@ -53,14 +62,20 @@ MAIN_SCALE = 1.0
 MAIN_QUERIES = 1 << 20
 BATCH = 4096
 BFS_SAMPLE = 4096
+PROFILED_WAVES = 500
+LABEL_FIELDS = ("L_out", "L_in", "out_len", "in_len", "hop_rank")
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+_T0 = time.perf_counter()
+
+
 def record(obj: dict) -> None:
-    print(json.dumps(obj), flush=True)
+    """One JSON line per phase, stamped with the seconds since the start."""
+    print(json.dumps({**obj, "at_seconds": time.perf_counter() - _T0}), flush=True)
 
 
 def check(cond: bool, what: str) -> None:
@@ -92,8 +107,13 @@ def phase_device():
 def phase_build():
     from repro_torch.kernels import build
 
+    from concurrent.futures import ThreadPoolExecutor
+
+    # one nvcc per source, all started together
     t0 = time.perf_counter()
-    info = {name: build.build(name) for name in build.SIGNATURES}
+    with ThreadPoolExecutor(len(build.SIGNATURES)) as pool:
+        futures = {name: pool.submit(build.build, name) for name in build.SIGNATURES}
+        info = {name: fut.result() for name, fut in futures.items()}
     seconds = time.perf_counter() - t0
     for name, rec in info.items():
         for line in rec["log"].splitlines():
@@ -170,9 +190,60 @@ def phase_kernel_vs_plain(device) -> dict:
                     check(B == 1 or bool(exp.any()) and not bool(exp.all()),
                           "the check needs hits and misses")
                     cases += 1
+    k2 = _frontier_or_vs_plain(rng, t)
     record({"phase": "kernel_vs_plain", "label_intersect_cases": cases,
-            "matches_plain": True})
-    return {"label_intersect": cases}
+            "frontier_or_cases": k2, "matches_plain": True})
+    return {"label_intersect": cases, "frontier_or": k2}
+
+
+def _check_frontier_or(nbr, f, rng, what: str) -> int:
+    """K2 against its plain version on one slab and frontier, in both forms
+    (a new output; OR into permuted rows of a running output with flags).
+    Exact equality: the words are bit patterns.  Returns the cases checked."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    got = ops.frontier_or(nbr, f)
+    exp = ref.frontier_or_ref(nbr, f)
+    torch.cuda.synchronize()
+    check(torch.equal(got, exp), f"frontier_or {what}")
+    r, wm = nbr.shape[0], f.shape[1]
+    n_out = r + 3
+    perm = torch.from_numpy(rng.permutation(n_out)[:r].astype(np.int64)).to(f.device)
+    out0 = torch.from_numpy(rng.integers(-2**31, 2**31, size=(n_out, wm),
+                                         dtype=np.int64).astype(np.int32)).to(f.device)
+    res = []
+    for fn in (ops.frontier_or, ref.frontier_or_ref):
+        out, flags = out0.clone(), torch.zeros(2, dtype=torch.int32, device=f.device)
+        fn(nbr, f, out=out, perm=perm, flags=flags)
+        res.append((out, flags))
+    torch.cuda.synchronize()
+    check(torch.equal(res[0][0], res[1][0]) and torch.equal(res[0][1], res[1][1]),
+          f"frontier_or fused form {what}")
+    return 2
+
+
+def _frontier_or_vs_plain(rng, t) -> int:
+    """K2 at the JAX package's sweep shapes and at the edges: all-INVALID
+    rows, r = 1 with wm = 8, ids at n_src - 1, bit 31 set in every word."""
+    cases = 0
+    shapes = [(13, 4, 50, 1), (128, 16, 200, 2), (1, 7, 9, 3), (1, 16, 40, 8),
+              (70001, 16, 90001, 8)]
+    for r, d, n_src, wm in shapes:
+        for edge in (None, "all_invalid", "last_id", "bit31"):
+            nbr = rng.integers(0, n_src, size=(r, d)).astype(np.int32)
+            nbr[rng.random((r, d)) < 0.35] = -1
+            f = rng.integers(0, 2**32, size=(n_src, wm), dtype=np.uint32)
+            if edge == "all_invalid":
+                nbr[: max(r // 2, 1)] = -1
+            elif edge == "last_id":
+                nbr[:, 0] = n_src - 1
+            elif edge == "bit31":
+                f |= np.uint32(1 << 31)
+            cases += _check_frontier_or(t(nbr), t(f.view(np.int32)), rng,
+                                        f"r={r} d={d} n_src={n_src} wm={wm} edge={edge}")
+    return cases
 
 
 # ------------------------------------------------------------------ phase 4
@@ -312,7 +383,183 @@ def phase_main_path(device):
             "prefiltered_share": 1.0 - rest.sum() / queries.shape[0],
             "positives": int(kernel_out.sum()), "tiers": tiers,
             "equal_host": True, "bfs_sample": BFS_SAMPLE, "equal_bfs": True})
-    return co, queries, cq[rest], launches
+    return co, queries, cq[rest], launches, kernel_out
+
+
+# ------------------------------------------------------------------ phase 4b
+
+
+def _device_window(dag, order, waves, device) -> dict:
+    """Profile the device build over the schedule's first ``len(waves)``
+    waves: the card's busy share between the first wave's start and the last
+    wave's end (the engine's ``build.wave`` spans, mirrored into
+    torch.profiler), with the device time by kind and the host's time in
+    CUDA runtime calls.  The same window is first run without the profiler, timed
+    by the tracer's own ``build.wave`` spans, since the profiler slows the
+    host."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.build.engine_device import distribution_labeling_device
+    from repro_torch.obs import trace
+
+    def wave_window_us(evs):
+        spans = [ev for ev in evs if ev.get("name") == "build.wave" and ev.get("ph") == "X"]
+        check(len(spans) == len(waves), f"{len(spans)} build.wave spans for {len(waves)} waves")
+        return (min(float(ev["ts"]) for ev in spans),
+                max(float(ev["ts"]) + float(ev["dur"]) for ev in spans))
+
+    trace.TRACER.clear()
+    distribution_labeling_device(dag, order=order, waves=waves, device=device)
+    torch.cuda.synchronize()
+    u0, u1 = wave_window_us(list(trace.TRACER.events))
+    trace.TRACER.clear()
+    trace.TRACER.profiler_annotations = True
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            distribution_labeling_device(dag, order=order, waves=waves, device=device)
+            torch.cuda.synchronize()
+    finally:
+        trace.TRACER.profiler_annotations = False
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = [ev for ev in json.loads(path.read_text()).get("traceEvents", [])
+                  if ev.get("ph") == "X"]
+    t0, t1 = wave_window_us([ev for ev in events if ev.get("cat") == "user_annotation"])
+    by_kind = {"frontier_or": 0.0, "other_kernels": 0.0, "memcpy": 0.0, "memset": 0.0}
+    for ev in events:
+        cat = ev.get("cat")
+        if cat not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        a, b = float(ev["ts"]), float(ev["ts"]) + float(ev.get("dur", 0.0))
+        us = max(0.0, min(b, t1) - max(a, t0))
+        if cat == "kernel":
+            key = "frontier_or" if "frontier_or_kernel" in ev.get("name", "") else "other_kernels"
+        else:
+            key = "memcpy" if cat == "gpu_memcpy" else "memset"
+        by_kind[key] += us
+    busy_us = sum(by_kind.values())
+    check(by_kind["frontier_or"] > 0, "the profiled window ran no frontier_or kernel")
+    # host time in CUDA runtime calls inside the window (leaf events: their
+    # durations are their own): launches, copies and synchronisations
+    runtime = {}
+    for ev in events:
+        if ev.get("cat") in ("cuda_runtime", "cuda_driver") and t0 <= float(ev["ts"]) <= t1:
+            ms, count = runtime.get(ev.get("name", ""), (0.0, 0))
+            runtime[ev.get("name", "")] = (ms + float(ev.get("dur", 0.0)) / 1e3, count + 1)
+    return {"waves": len(waves), "members": int(np.sum(waves)),
+            "window_ms": (t1 - t0) / 1e3, "device_busy_ms": busy_us / 1e3,
+            "device_busy_share": busy_us / (t1 - t0),
+            "device_ms_by_kind": {k: v / 1e3 for k, v in by_kind.items()},
+            "ms_per_wave": (t1 - t0) / 1e3 / len(waves),
+            "unprofiled_window_ms": (u1 - u0) / 1e3,
+            "unprofiled_ms_per_wave": (u1 - u0) / 1e3 / len(waves),
+            # the profiled device time over the unprofiled window: an estimate
+            # of the busy share without the profiler's host overhead
+            "device_busy_share_unprofiled_window": busy_us / (u1 - u0),
+            "host_runtime_calls": {k: {"ms": ms, "count": c} for k, (ms, c) in
+                                   sorted(runtime.items(), key=lambda x: -x[1][0])}}
+
+
+def phase_device_build(device, scale, ref_co=None, queries=None, verdicts=None):
+    """The device wave build of citeseer@``scale`` on the card, held byte for
+    byte against the reference build (phase 4's at full size, else its own)
+    and served through K1 with the reference oracle's verdicts.  Returns
+    (K2 launches of the build, K2 cases checked, the real slab and frontier
+    for phase 5)."""
+    import torch
+
+    from repro_torch.build import bitset
+    from repro_torch.build.waves import wave_schedule
+    from repro_torch.core.api import build_oracle
+    from repro_torch.core.order import get_order
+    from repro_torch.graph.generators import paper_dataset_analogue
+    from repro_torch.graph.scc import condense_to_dag
+    from repro_torch.kernels import ops, ref
+
+    g = paper_dataset_analogue(MAIN_DATASET, scale=scale)
+    rec = {"phase": "device_build", "dataset": MAIN_DATASET, "scale": scale,
+           "n": g.n, "m": g.m}
+    if ref_co is None:
+        t0 = time.perf_counter()
+        ref_co = build_oracle(g, device=device, impl="reference")
+        rec["reference_build_seconds"] = time.perf_counter() - t0
+        queries = np.random.default_rng(0).integers(0, g.n, (64 * BATCH, 2)).astype(np.int32)
+        verdicts, _ = serve_all(ref_co, queries, None)
+
+    # ---- the counted run: the device build
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    co = build_oracle(g, device=device, impl="device")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    # ----
+    st = co.oracle.build_stats
+    check(st["impl"] == "device", f"impl={st['impl']!r}")
+    check(launches["frontier_or"] > 0, "frontier_or never launched in the device build")
+    for f in LABEL_FIELDS:
+        a, b = getattr(ref_co.oracle, f), getattr(co.oracle, f)
+        check(a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes(),
+              f"device build {f} differs from the reference build")
+    co.engine.reset_stats()
+    ops.reset_launches()
+    got, t_serve = serve_all(co, queries, None)
+    serve_launches = dict(ops.LAUNCHES)
+    check(co.engine.last_stats["backend"] == "kernel", "the device-built oracle was not "
+          "served on the kernel backend")
+    check(serve_launches["label_intersect"] > 0, "label_intersect never launched")
+    check(np.array_equal(got, verdicts),
+          f"device-built oracle differs on {int((got != verdicts).sum())} verdicts")
+    check(not any(co.engine.degradation.values()),
+          f"degradation counters moved: {co.engine.degradation}")
+    dev = st["device"]
+    rec.update({
+        "build_seconds": t_build, "schedule_seconds": st["schedule_seconds"],
+        "sweep_seconds": st["sweep_seconds"], "n_waves": st["n_waves"],
+        "sweeps": dev["sweeps"], "bfs_levels": dev["levels"],
+        "host_reads": dev["host_reads"], "regrows": dev["regrows"],
+        "l_max": dev["l_max"], "member_width": dev["member_width"],
+        "launches": launches, "labels_equal_reference": True,
+        "sweep_ms_per_wave": st["sweep_seconds"] * 1e3 / st["n_waves"],
+        "served_queries": int(queries.shape[0]), "serve_seconds": t_serve,
+        "serve_launches": serve_launches, "verdicts_equal_reference": True,
+        "degradation": dict(co.engine.degradation)})
+    log(f"device build {MAIN_DATASET}@{scale}: {t_build:.3f} s, {st['n_waves']} waves, "
+        f"{dev['levels']} levels, {launches['frontier_or']} K2 launches")
+    del co
+
+    # K2 on a real slab and frontier: the out-slab (reverse sweeps) and the
+    # first wave's members expanded three unpruned levels
+    dag, _ = condense_to_dag(g)
+    order = get_order(dag, "degree_product")
+    perm, _, slabs = bitset.ell_slabs(dag.indptr.astype(np.int64),
+                                      dag.indices.astype(np.int64), dag.n, width=16)
+    waves = wave_schedule(dag, order, max_wave=256)
+    check(waves.shape[0] == st["n_waves"], "the schedule differs from the build's")
+    w = int(st["device"]["member_width"])
+    wm = (w + 31) // 32
+    slab = torch.from_numpy(slabs[0]).to(device)
+    perm_r = torch.from_numpy(perm[: slabs[0].shape[0]].copy()).to(device)
+    j = np.arange(int(waves[0]))
+    v = torch.zeros((dag.n, wm), dtype=torch.int32, device=device)
+    v[torch.from_numpy(order[: j.size]).to(device), torch.from_numpy(j // 32).to(device)] = \
+        torch.from_numpy((np.uint32(1) << (j % 32).astype(np.uint32)).view(np.int32)).to(device)
+    flags = torch.zeros(2, dtype=torch.int32, device=device)
+    for _ in range(3):
+        ref.frontier_or_ref(slab, v.clone(), out=v, perm=perm_r, flags=flags)
+    rng = np.random.default_rng(5)
+    cases = _check_frontier_or(slab, v, rng, "real out-slab and frontier")
+    rec["real_slab"] = {"r": int(slab.shape[0]), "d": int(slab.shape[1]), "wm": wm,
+                        "frontier_rows": int(v.ne(0).any(1).sum())}
+
+    rec["profiled_window"] = _device_window(dag, order, waves[:PROFILED_WAVES], device)
+    record(rec)
+    return launches["frontier_or"], cases, (slab, v, perm_r)
 
 
 # ------------------------------------------------------------------ phase 5
@@ -414,6 +661,68 @@ def phase_timing(co, rest: np.ndarray, launches: dict, cases: dict) -> list:
     }]
 
 
+def timing_frontier_or(real, launches: int, cases: int) -> dict:
+    """K2 and its plain version in the device build's fused form at the real
+    out-slab and frontier of phase 4b: out[perm[i]] |= OR of the frontier
+    words of row i's neighbors."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    slab, f, perm_r = real
+    out = f.clone()
+    flags = torch.zeros(2, dtype=torch.int32, device=f.device)
+    exp_out, exp_flags = out.clone(), flags.clone()
+    ops.frontier_or(slab, f, out=out, perm=perm_r, flags=flags)
+    ref.frontier_or_ref(slab, f, out=exp_out, perm=perm_r, flags=exp_flags)
+    torch.cuda.synchronize()
+    max_abs_err = int((out.long() - exp_out.long()).abs().max())
+    check(max_abs_err == 0 and torch.equal(flags, exp_flags),
+          "frontier_or disagrees with its plain version at the timed shape")
+    kern = lambda: ops.frontier_or(slab, f, out=out, perm=perm_r, flags=flags)  # noqa: E731
+    plain = lambda: ref.frontier_or_ref(slab, f, out=exp_out, perm=perm_r,  # noqa: E731
+                                        flags=exp_flags)
+    p1, k1, k2, p2 = (_event_ms(plain, 50), _event_ms(kern, 200),
+                      _event_ms(kern, 200), _event_ms(plain, 50))
+    _, events = _device_events(lambda: [kern() for _ in range(50)])
+    device_ms = sum(us for cat, name, us in events
+                    if cat == "kernel" and "frontier_or_kernel" in name) / 50 / 1e3
+    check(device_ms > 0, "torch.profiler recorded no frontier_or kernel")
+    r, d = slab.shape
+    wm = f.shape[1]
+    valid = int(slab.ne(-1).sum())
+    # ids once, the frontier words of every valid slot, perm, and the out rows
+    # read once; the timed calls write no word (the first call already ORed
+    # everything in), so no write is counted
+    bytes_moved = r * d * 4 + valid * wm * 4 + r * 8 + r * wm * 4
+    ops_needed = valid * wm  # one OR per gathered word
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops_needed / PEAK_INT32_OPS_PER_S * 1e3
+    return {
+        "name": "frontier_or",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/frontier_or.cu",
+        "replaces": "src/repro/kernels/frontier_ell.py:61",
+        "launches": launches,
+        "matches_plain": True,
+        "cases_checked": cases,
+        "max_abs_err": max_abs_err,
+        "shape": {"r": r, "d": d, "n_src": int(f.shape[0]), "wm": wm,
+                  "valid_slots": valid, "form": "fused"},
+        "ms": min(k1, k2),
+        "ms_runs": [k1, k2],
+        "device_ms": device_ms,
+        "plain_ms": min(p1, p2),
+        "plain_ms_runs": [p1, p2],
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": bytes_moved,
+        "operations": ops_needed,
+        # no single PyTorch call computes an OR-reduction gather
+        "library_ms": None,
+    }
+
+
 # ------------------------------------------------------------------ phase 6
 
 
@@ -478,9 +787,17 @@ def phase_driver():
             "mqps": {be: r["mqps"] for be, r in rec["backends"].items()}})
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device-build-scale", type=float, default=MAIN_SCALE,
+                    help="citeseer scale of the device build phase (4b)")
+    ap.add_argument("--only-device-build", action="store_true",
+                    help="run phases 1-3 and 4b only, with 4b's own reference build")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
@@ -491,14 +808,24 @@ def main() -> int:
     device = torch.device("cuda", 0)
     phase_build()
     cases = phase_kernel_vs_plain(device)
-    co, queries, rest, launches = phase_main_path(device)
-    kernels = phase_timing(co, rest, launches, cases)
-    phase_serving_profile(co, queries)
-    phase_driver()
+    if args.only_device_build:
+        phase_device_build(device, args.device_build_scale)
+        kernels = None
+    else:
+        co, queries, rest, launches, verdicts = phase_main_path(device)
+        same = args.device_build_scale == MAIN_SCALE
+        k2_launches, k2_cases, real = phase_device_build(
+            device, args.device_build_scale, *((co, queries, verdicts) if same else ()))
+        cases["frontier_or"] += k2_cases
+        kernels = phase_timing(co, rest, launches, cases)
+        kernels.append(timing_frontier_or(real, k2_launches, cases["frontier_or"]))
+        phase_serving_profile(co, queries)
+        phase_driver()
     record({"phase": "done", "seconds": time.perf_counter() - t_start,
             "card": smi_line})
     log(smi_line)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    if kernels is not None:
+        print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
         flush=True)

@@ -64,6 +64,9 @@ def build_oracle(
 ) -> CondensedOracle:
     """Condense SCCs, label with DL, wire up the serve engine on ``device``.
 
+    The build runs on ``device`` too when it uses the device engine
+    (``impl="device"``, or ``impl="auto"`` on a large sparse graph).
+
     Raises ``RuntimeError`` before any work when ``device`` is CUDA and
     torch sees no CUDA device."""
     device = resolve_device(device)
@@ -73,7 +76,7 @@ def build_oracle(
     if method != "distribution":
         raise ValueError(method)
     dag, comp = condense_to_dag(g)
-    oracle = distribution_labeling(dag, **kwargs)
+    oracle = distribution_labeling(dag, device=device, **kwargs)
     engine = QueryEngine(
         oracle,
         backend=backend,

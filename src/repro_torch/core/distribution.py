@@ -11,11 +11,13 @@ For each vertex v_i:
 
 Theorem 3: complete.  Theorem 4: non-redundant (no hop can be removed).
 
-Construction is owned by the ``repro_torch.build`` engine.  This slice of
-the port carries the scalar reference path (``impl="reference"``);
-``impl="auto"`` resolves to it and records that in ``build_stats["impl"]``.
-Its labels are byte-identical to every construction impl of the JAX
-package.  The wave, speculative and device engines are later slices.
+Construction is owned by the ``repro_torch.build`` engine: the scalar
+reference path (``impl="reference"``) and the device wave engine
+(``impl="device"``, on ``device``), with ``impl="auto"`` routing between
+them as ``build.engine`` says and recording its pick in
+``build_stats["impl"]``.  Their labels are byte-identical to every
+construction impl of the JAX package.  The host wave and speculative
+engines are a later slice.
 """
 from __future__ import annotations
 
@@ -31,13 +33,16 @@ def distribution_labeling(
     order: Optional[np.ndarray] = None,
     order_name: str = "degree_product",
     impl: str = "auto",
+    device="cuda",
     **engine_kwargs,
 ) -> ReachabilityOracle:
-    """Build the oracle for DAG ``g`` (int vertex ids 0..n-1)."""
+    """Build the oracle for DAG ``g`` (int vertex ids 0..n-1); the device
+    engine runs on ``device``."""
     # deferred: repro_torch.core's package init imports this module, while the
     # engine imports repro_torch.core.oracle — a top-level import would cycle
     from repro_torch.build.engine import build_distribution_labels
 
     return build_distribution_labels(
-        g, order=order, order_name=order_name, impl=impl, **engine_kwargs
+        g, order=order, order_name=order_name, impl=impl, device=device,
+        **engine_kwargs
     )

@@ -9,7 +9,7 @@ A wrapper checks device, dtype, shape and contiguity, then:
 There is no fall-back from the kernel to the plain version: which one runs
 depends only on where the tensors lie.  ``LAUNCHES`` counts kernel launches
 per kernel (the plain version is not counted), so a run can show that its
-serving path really went through the kernel.
+serving path and its device build really went through the kernels.
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ import torch
 from repro_torch.kernels import ref
 
 # kernel name -> launches since the last reset_launches()
-LAUNCHES = {"label_intersect": 0}
+LAUNCHES = {"label_intersect": 0, "frontier_or": 0}
 
 
 def reset_launches() -> None:
@@ -81,3 +81,74 @@ def tier_intersect(L_out: torch.Tensor, L_in: torch.Tensor,
     LAUNCHES["label_intersect"] += 1
     return out
 
+
+
+def frontier_or(nbr: torch.Tensor, f: torch.Tensor, out=None, perm=None,
+                flags=None) -> torch.Tensor:
+    """K2: one BFS level of every wave member over one ELL slab,
+    ``acc[i] = OR over s with nbr[i, s] != INVALID of f[nbr[i, s]]``.
+
+    nbr: int32[r, d] INVALID-padded neighbor ids, f: int32[n_src, wm] packed
+    member words (int32 bit patterns; the kernel reads them as uint32).
+
+    * ``out`` None: returns ``acc`` as a new int32[r, wm]; an id outside
+      [-1, n_src) raises ``ValueError`` (the kernel skips it and flags it,
+      and the wrapper reads the flag: one host read per call).
+    * ``out`` int32[n_out, wm] with ``perm`` int64[r] (distinct rows of
+      ``out``) and ``flags`` int32[2]: the device build's fused form, with
+      no host read.  ORs ``acc[i]`` into ``out[perm[i]]`` in place, sets
+      ``flags[0] = 1`` when a word of ``out`` gained a bit and ``flags[1] = 1``
+      when an id outside [-1, n_src) or a ``perm`` entry outside [0, n_out)
+      was met (and skipped).  The caller reads ``flags`` and must raise on
+      ``flags[1]``.  ``f`` must not share memory with ``out``.
+    """
+    _check_matrix("nbr", nbr)
+    if f.dtype != torch.int32 or f.dim() != 2 or not f.is_contiguous():
+        raise ValueError(f"f must be a contiguous 2-D int32 tensor, got "
+                         f"{f.dtype} {tuple(f.shape)} contiguous={f.is_contiguous()}")
+    dev = nbr.device
+    fused = out is not None
+    if fused:
+        _check_matrix("out", out)
+        if out.shape[1] != f.shape[1]:
+            raise ValueError(f"out has {out.shape[1]} words per row, f has {f.shape[1]}")
+        if (perm is None or perm.dtype != torch.int64 or perm.dim() != 1
+                or not perm.is_contiguous() or perm.shape[0] != nbr.shape[0]):
+            raise ValueError("the fused form needs perm as a contiguous int64[r]")
+        if (flags is None or flags.dtype != torch.int32 or flags.shape != (2,)
+                or not flags.is_contiguous()):
+            raise ValueError("the fused form needs flags as a contiguous int32[2]")
+        if out.data_ptr() == f.data_ptr():
+            raise ValueError("f must not share memory with out")
+        tensors = (f, out, perm, flags)
+    else:
+        if perm is not None or flags is not None:
+            raise ValueError("perm and flags belong to the fused form (out given)")
+        tensors = (f,)
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"tensors on different devices: {[str(t.device) for t in (nbr, *tensors)]}")
+    if dev.type == "cpu":
+        return ref.frontier_or_ref(nbr, f, out, perm, flags)
+    if dev.type != "cuda":
+        raise ValueError(f"frontier_or runs on cuda or cpu, not {dev}")
+    r, d = nbr.shape
+    n_src, wm = f.shape
+    if not fused:
+        out = torch.empty((r, wm), dtype=torch.int32, device=dev)
+        flags = torch.zeros(2, dtype=torch.int32, device=dev)
+    if r == 0:
+        return out
+    from repro_torch.kernels.build import library
+
+    launch = library("frontier_or")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = launch(nbr.data_ptr(), r, d, f.data_ptr(), n_src, wm,
+                    out.data_ptr(), out.shape[0],
+                    perm.data_ptr() if fused else None, flags.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"frontier_or launch failed: CUDA error {rc}")
+    LAUNCHES["frontier_or"] += 1
+    if not fused and int(flags[1]):
+        raise ValueError(f"frontier_or: neighbor ids outside [-1, {n_src})")
+    return out

@@ -29,6 +29,11 @@ import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
+# the modules of the device wave build must be among them
+for name in ("repro_torch.build.bitset", "repro_torch.build.waves",
+             "repro_torch.build.engine_device", "repro_torch.kernels.ops",
+             "repro_torch.kernels.ref", "repro_torch.kernels.build"):
+    assert name in names, name
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "repro" or m.startswith("repro."))
@@ -48,7 +53,7 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                        capture_output=True, text=True, timeout=240)
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
-    assert n_modules >= 25, r.stdout
+    assert n_modules >= 28, r.stdout
 
 
 def _no_cuda():

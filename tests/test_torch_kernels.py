@@ -80,7 +80,8 @@ def test_cpu_wrapper_runs_the_plain_version_without_counting(rng):
     q = torch.zeros((4, 2), dtype=torch.int32)
     ops.reset_launches()
     ops.tier_intersect(L, L, q, 8)
-    assert ops.LAUNCHES == {"label_intersect": 0}
+    ops.frontier_or(torch.tensor([[0, -1], [9, 3]], dtype=torch.int32), L)
+    assert ops.LAUNCHES == {"label_intersect": 0, "frontier_or": 0}
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "contiguous", "width", "queries", "n"])
