@@ -7,8 +7,19 @@ toolkit (``nvcc``).  Phases, each raising on failure:
 
   1. device: the card's name and power limit (from ``nvidia-smi``);
   2. build every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``;
-  3. each kernel against its plain PyTorch version on the card (exact
-     equality: verdicts are booleans) over edge shapes and widths;
+  3. each kernel against its plain PyTorch version on the card over edge
+     shapes and widths (exact for K1-K3, whose outputs are verdicts and bit
+     patterns; K4 at 2e-5 in float32 and one step in bfloat16, K5 and K6 at
+     1e-5);
+  3b. the kernel library (K3 bitset_mm, K4 flash_attention, K5 ell_spmm,
+     K6 embedding_bag), which no oracle path calls, at the widths of
+     configurations the repo has: the transitive closure of the "human"
+     analogue (byte for byte against ``transitive_closure_bits``),
+     attention at granite-3-2b prefill, h2o-danube-1.8b sliding-window
+     prefill and granite decode_32k, ELL SpMM at ogb_products, embedding
+     bags at xDeepFM's serve_bulk batch; the launch counts read around
+     exactly that drive; each kernel against its plain version, timed beside
+     its bound, its plain version and the PyTorch library call;
   4. the main path: the citeseer analogue at full size (n = 693,947) through
      ``repro_torch.core.api.build_oracle(g, device="cuda").serve(q)`` with
      ``backend="auto"`` (which must resolve to the kernel), about 1M queries
@@ -21,8 +32,8 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      queries served through K1 on it with the same verdicts and every
      degradation counter 0; K2 against its plain version on a real slab and
      frontier; the card's busy share over a profiled window of 500 waves;
-  5. timing of each kernel and its plain version with CUDA events at the
-     main path's shapes, and the kernels JSON line;
+  5. timing of K1 and K2 and their plain versions with CUDA events at the
+     main path's shapes, and the kernels JSON line (all six kernels);
   6. where a serving batch spends its time: the device's busy share over a
      window of the main path (torch.profiler) and the engine's spans;
   7. the serve driver (``repro_torch.launch.serve``) on a small graph, a
@@ -31,6 +42,7 @@ toolkit (``nvcc``).  Phases, each raising on failure:
 
 ``--only-device-build`` runs phases 1-3 and 4b alone, with 4b's own
 reference build, at ``--device-build-scale`` (default 1.0).
+``--only-kernels`` runs phases 1-3b alone.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the repository beside it, the script
@@ -43,6 +55,7 @@ import pathlib
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -56,6 +69,9 @@ sys.path.insert(0, str(ROOT / "src"))
 # lane per clock is 67e12 / 2 / 2
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT32_OPS_PER_S = 67e12 / 4
+# dense bf16 tensor-core rate (data sheet): K4's bound, though K4 runs on the
+# CUDA cores; K5 and K6 use the 67e12 float32 rate
+PEAK_BF16_FLOPS_PER_S = 989e12
 
 MAIN_DATASET = "citeseer"
 MAIN_SCALE = 1.0
@@ -191,9 +207,11 @@ def phase_kernel_vs_plain(device) -> dict:
                           "the check needs hits and misses")
                     cases += 1
     k2 = _frontier_or_vs_plain(rng, t)
+    library = _library_vs_plain(rng, device)
     record({"phase": "kernel_vs_plain", "label_intersect_cases": cases,
-            "frontier_or_cases": k2, "matches_plain": True})
-    return {"label_intersect": cases, "frontier_or": k2}
+            "frontier_or_cases": k2, **{f"{k}_cases": v for k, v in library.items()},
+            "matches_plain": True})
+    return {"label_intersect": cases, "frontier_or": k2, **library}
 
 
 def _check_frontier_or(nbr, f, rng, what: str) -> int:
@@ -244,6 +262,501 @@ def _frontier_or_vs_plain(rng, t) -> int:
             cases += _check_frontier_or(t(nbr), t(f.view(np.int32)), rng,
                                         f"r={r} d={d} n_src={n_src} wm={wm} edge={edge}")
     return cases
+
+
+# the JAX package's kernel sweeps (tests/test_kernels.py), then edge cases,
+# then the shapes of benchmarks/kernel_bench.py
+BITSET_CASES = [(16, 32, 32, None), (70, 90, 100, None), (128, 256, 64, None),
+                (1, 90, 8, None), (70, 90, 100, "bit31"), (70, 90, 100, "last"),
+                (70, 90, 100, "zero"), (1024, 1024, 1024, None)]
+ATTENTION_CASES = [(1, 2, 2, 128, 128, 32, True, None), (2, 4, 2, 256, 256, 64, True, None),
+                   (1, 4, 1, 128, 128, 64, True, 48), (2, 2, 2, 1, 256, 32, True, None),
+                   (1, 2, 2, 128, 256, 32, True, None), (1, 2, 2, 128, 128, 32, False, None),
+                   (1, 2, 1, 192, 64, 32, True, None),      # S > T: zero rows
+                   (1, 4, 2, 130, 97, 80, True, 40),        # D = 80, window < S
+                   (1, 2, 2, 64, 100, 128, False, 24),      # window without causal
+                   (1, 8, 2, 1024, 1024, 64, True, None)]
+SPMM_CASES = [(32, 4, 50, 8, None), (96, 7, 200, 32, None), (64, 1, 64, 128, None),
+              (96, 7, 200, 100, "all_padding"), (1, 9, 40, 100, None),
+              (96, 7, 200, 33, "last_id"), (4096, 16, 4096, 64, "no_padding")]
+BAG_CASES = [(100, 8, 32, 4, None), (500, 16, 64, 9, None), (64, 32, 16, 1, None),
+             (1000, 10, 300, 8, "all_padding"), (1000, 10, 1, 8, None),
+             (1000, 10, 300, 8, "last_id"), (100_000, 16, 8192, 8, "no_padding")]
+
+
+def _library_vs_plain(rng, device) -> dict:
+    """K3-K6 against their plain versions on the card: exact for K3 (bit
+    patterns); K4 against the float32 plain version on the same values
+    (``_attention_excess``: 2e-5 in float32, one bfloat16 step in
+    bfloat16); 1e-5 for K5 and K6.  Bad ids must raise.  Returns {kernel: cases}."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)  # noqa: E731
+    cases = dict.fromkeys(("bitset_mm", "flash_attention", "ell_spmm", "embedding_bag"), 0)
+    for n, k, m, edge in BITSET_CASES:
+        wk, wm = (k + 31) // 32, (m + 31) // 32
+        a = rng.integers(0, 2**32, size=(n, wk), dtype=np.uint32)
+        x = rng.integers(0, 2**32, size=(k, wm), dtype=np.uint32)
+        if edge == "bit31":
+            a &= np.uint32(1 << 31)
+        elif edge == "last":
+            a[:] = 0
+            a[:, -1] = np.uint32(1) << np.uint32((k - 1) % 32)
+        elif edge == "zero":
+            a[:] = 0
+        a, x = t(a.view(np.int32)), t(x.view(np.int32))
+        got = ops.bitset_mm(a, x)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref.bitset_mm_ref(a, x)), f"bitset_mm n={n} k={k} m={m} {edge}")
+        cases["bitset_mm"] += 1
+    for B, Hq, Hkv, S, T, D, causal, window in ATTENTION_CASES:
+        q = t(rng.standard_normal((B, Hq, S, D)).astype(np.float32))
+        k = t(rng.standard_normal((B, Hkv, T, D)).astype(np.float32))
+        v = t(rng.standard_normal((B, Hkv, T, D)).astype(np.float32))
+        for dtype in (torch.float32, torch.bfloat16):
+            qd, kd, vd = (x.to(dtype) for x in (q, k, v))
+            got = ops.flash_attention(qd, kd, vd, causal=causal, window=window)
+            exp = ref.flash_attention_ref(qd.float(), kd.float(), vd.float(), causal=causal,
+                                          window=window)
+            torch.cuda.synchronize()
+            what = f"flash_attention {dtype} B={B} Hq={Hq} Hkv={Hkv} S={S} T={T} D={D} " \
+                   f"causal={causal} window={window}"
+            check(_attention_excess(got, exp) <= 1, what)
+            check(not (causal and S > T) or not got[:, :, : S - T].any(), f"{what}: zero rows")
+            cases["flash_attention"] += 1
+    for n, d, ns, F, edge in SPMM_CASES:
+        nbr = rng.integers(0, ns, size=(n, d)).astype(np.int32)
+        if edge != "no_padding":
+            nbr[rng.random((n, d)) < 0.3] = -1
+        if edge == "all_padding":
+            nbr[: n // 2] = -1
+        elif edge == "last_id":
+            nbr[:, 0] = ns - 1
+        nbr = t(nbr)
+        wgt = t(rng.standard_normal((n, d)).astype(np.float32))
+        x = t(rng.standard_normal((ns, F)).astype(np.float32))
+        got = ops.ell_spmm(nbr, wgt, x)
+        torch.cuda.synchronize()
+        check(torch.allclose(got, ref.ell_spmm_ref(nbr, wgt, x), rtol=1e-5, atol=1e-5),
+              f"ell_spmm n={n} d={d} n_src={ns} F={F} {edge}")
+        check(edge != "all_padding" or not got[: n // 2].any(), "ell_spmm padding rows")
+        cases["ell_spmm"] += 1
+    for bad in (-2, 6):
+        try:
+            ops.ell_spmm(t(np.array([[0, bad]], np.int32)), t(np.ones((1, 2), np.float32)),
+                         t(np.ones((6, 4), np.float32)))
+        except ValueError:
+            cases["ell_spmm"] += 1
+        else:
+            check(False, f"ell_spmm accepted the id {bad}")
+    for V, D, B, bag, edge in BAG_CASES:
+        idx = rng.integers(0, V, size=(B, bag)).astype(np.int32)
+        if edge != "no_padding":
+            pad = rng.random((B, bag)) < 0.25
+            idx[pad] = rng.integers(-2**31, 0, size=int(pad.sum()))   # any negative pads
+        if edge == "all_padding":
+            idx[: B // 2] = -1
+        elif edge == "last_id":
+            idx[:, 0] = V - 1
+        idx = t(idx)
+        table = t(rng.standard_normal((V, D)).astype(np.float32))
+        got = ops.embedding_bag(table, idx)
+        torch.cuda.synchronize()
+        check(torch.allclose(got, ref.embedding_bag_ref(table, idx), rtol=1e-5, atol=1e-5),
+              f"embedding_bag V={V} D={D} B={B} bag={bag} {edge}")
+        check(edge != "all_padding" or not got[: B // 2].any(), "embedding_bag padding bags")
+        cases["embedding_bag"] += 1
+    try:
+        ops.embedding_bag(t(np.ones((6, 10), np.float32)), t(np.array([[0, 6]], np.int32)))
+    except ValueError:
+        cases["embedding_bag"] += 1
+    else:
+        check(False, "embedding_bag accepted the id V")
+    return cases
+
+
+# ------------------------------------------------------------------ phase 3b
+
+# K4 at the widths of two LM configurations of the repo (batch cut to 1 for
+# prefill) and of the decode_32k cell (src/repro/configs/lm_cells.py)
+ATTENTION_CONFIGS = [
+    ("granite-3-2b prefill (configs/granite_3_2b.py, train_4k length)",
+     dict(B=1, Hq=32, Hkv=8, S=4096, T=4096, D=64, causal=True, window=None)),
+    ("h2o-danube-1.8b SWA prefill (configs/h2o_danube_1_8b.py, window 4096)",
+     dict(B=1, Hq=32, Hkv=8, S=8192, T=8192, D=80, causal=True, window=4096)),
+    ("granite-3-2b decode_32k (configs/lm_cells.py)",
+     dict(B=128, Hq=32, Hkv=8, S=1, T=32768, D=64, causal=True, window=None)),
+]
+# K5 at ogb_products (src/repro/configs/gnn_cells.py): n, m, d_feat; ELL width 32
+PRODUCTS = dict(n=2_449_029, m=61_859_140, F=100, d=32)
+# K6 at xDeepFM's table (src/repro/configs/xdeepfm_cfg.py: 39 fields x
+# 1,000,000 rows, embed_dim 10) and its serve_bulk batch, bags of 8
+XDEEPFM = dict(V=39 * 1_000_000, D=10, B=262_144, bag=8, padding=0.25)
+PLAIN_CHUNK_BYTES = 1 << 30   # the plain versions' largest intermediate, per chunk
+# K4 against its float32 plain version, by output type (rtol, atol): float32
+# at the JAX package's 2e-5; bfloat16 against the plain result rounded to
+# bfloat16, from which a sound kernel differs by at most one step (2^-7 of the
+# value), with an atol far below a decode output (~0.009 at T = 32,768)
+ATTENTION_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2.0 ** -7, 1e-4)}
+
+
+def _timed_once(fn) -> tuple:
+    """(ms by CUDA events, result) of one call of ``fn``."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
+
+
+def _kernel_device_ms(fn, symbol: str, calls: int) -> float:
+    """torch.profiler's device time of kernel ``symbol`` per call of ``fn``."""
+    _, events = _device_events(lambda: [fn() for _ in range(calls)])
+    ms = sum(us for cat, name, us in events if cat == "kernel" and symbol in name) / calls / 1e3
+    check(ms > 0, f"torch.profiler recorded no {symbol}")
+    return ms
+
+
+def _library_kernels(fn) -> list:
+    """The kernels one call of a library function ran, by device time."""
+    _, events = _device_events(fn)
+    by_name = {}
+    for cat, name, us in events:
+        if cat == "kernel":
+            by_name[name] = by_name.get(name, 0.0) + us
+    return [name[:120] for name, _ in sorted(by_name.items(), key=lambda x: -x[1])[:3]]
+
+
+def _bound(bytes_moved: int, operations: int, peak_ops: float) -> dict:
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = operations / peak_ops * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": bytes_moved, "operations": operations}
+
+
+def _rows_chunked(fn, n: int, rows: int):
+    """fn(slice) over row chunks of ``rows``, concatenated."""
+    import torch
+
+    return torch.cat([fn(slice(i, min(i + rows, n))) for i in range(0, n, rows)])
+
+
+def _attention_excess(got, exp) -> float:
+    """The check of K4's output ``got`` against the float32 plain result
+    ``exp``: max |got - exp'| / (atol + rtol |exp'|), exp' being exp rounded
+    to got's type; the check passes at 1 or less."""
+    rtol, atol = ATTENTION_TOL[str(got.dtype).removeprefix("torch.")]
+    exp = exp.to(got.dtype).float()
+    return float(((got.float() - exp).abs() / (atol + rtol * exp.abs())).max())
+
+
+def _attention_pairs(S: int, T: int, causal: bool, window) -> int:
+    """The (query, key) pairs the masks keep: what the computation needs."""
+    qpos = np.arange(S, dtype=np.int64) + T - S
+    hi = np.minimum(qpos, T - 1) if causal else np.full(S, T - 1)
+    lo = np.maximum(qpos - window + 1, 0) if window is not None else np.zeros(S, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def _attention_plain_chunked(q, k, v, causal, window):
+    """K4's plain version over (batch, kv head) chunks, so no chunk's float32
+    logits exceed PLAIN_CHUNK_BYTES; returns the whole output."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    B, Hq, S, _ = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    rep = Hq // Hkv
+    per_pair = max(rep * S * T * 4 * 3, T * k.shape[3] * 4 * 2)   # logits, mask, exp; k, v
+    units = max(1, PLAIN_CHUNK_BYTES // per_pair)
+    hc = min(Hkv, units)
+    bc = max(1, units // Hkv) if hc == Hkv else 1
+    out = torch.empty_like(q)
+    for b0 in range(0, B, bc):
+        for h0 in range(0, Hkv, hc):
+            b1, h1 = min(b0 + bc, B), min(h0 + hc, Hkv)
+            out[b0:b1, h0 * rep:h1 * rep] = ref.flash_attention_ref(
+                q[b0:b1, h0 * rep:h1 * rep], k[b0:b1, h0:h1], v[b0:b1, h0:h1],
+                causal=causal, window=window)
+    return out
+
+
+def phase_kernel_library(device, cases: dict) -> list:
+    """The kernel library (K3-K6) at the widths of configurations the repo
+    has, through ``repro_torch.kernels.ops``: the transitive closure of the
+    "human" analogue by repeated ``R | bitset_mm(R, R)``; attention at
+    granite-3-2b prefill, h2o-danube-1.8b sliding-window prefill and granite
+    decode_32k; ELL SpMM at ogb_products; embedding bags at xDeepFM's table
+    and serve_bulk batch.  The launch counts are read around exactly that
+    drive.  Then each kernel against its plain version (chunked where its
+    intermediate would be large) and its timing beside its bound, the plain
+    version and the library call.  Returns the four kernel records."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.graph.generators import paper_dataset_analogue
+    from repro_torch.graph.reach import adjacency_bits, transitive_closure_bits
+    from repro_torch.kernels import ops, ref
+
+    t_start = time.perf_counter()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(13)
+
+    # ---- inputs, made on the card from the seed (K3's from the graph)
+    human = paper_dataset_analogue("human", scale=1.0)
+    A = torch.from_numpy(adjacency_bits(human).view(np.int32)).to(device)
+    att = []
+    for label, c in ATTENTION_CONFIGS:
+        shape_q = (c["B"], c["Hq"], c["S"], c["D"])
+        shape_kv = (c["B"], c["Hkv"], c["T"], c["D"])
+        att.append((label, c, *(torch.randn(sh, generator=gen, device=device,
+                                            dtype=torch.bfloat16)
+                                for sh in (shape_q, shape_kv, shape_kv))))
+    P = PRODUCTS
+    lens = torch.randint(18, 33, (P["n"],), generator=gen, device=device)
+    deficit = P["m"] - int(lens.sum())
+    room = (lens < P["d"]).nonzero().flatten()
+    check(0 <= deficit <= room.numel(), f"cannot reach {P['m']} valid slots")
+    lens[room[torch.randperm(room.numel(), generator=gen, device=device)[:deficit]]] += 1
+    slot = torch.arange(P["d"], device=device)[None, :]
+    nbr = torch.randint(0, P["n"], (P["n"], P["d"]), generator=gen, device=device,
+                        dtype=torch.int32)
+    nbr[slot >= lens[:, None]] = -1        # the valid slots first, as an ELL row lies
+    wgt = torch.randn((P["n"], P["d"]), generator=gen, device=device)
+    x = torch.randn((P["n"], P["F"]), generator=gen, device=device)
+    X = XDEEPFM
+    table = torch.randn((X["V"], X["D"]), generator=gen, device=device)
+    idx = torch.randint(0, X["V"], (X["B"], X["bag"]), generator=gen, device=device,
+                        dtype=torch.int32)
+    pad = torch.rand((X["B"], X["bag"]), generator=gen, device=device) < X["padding"]
+    idx[pad] = -1 - torch.randint(0, 2**31 - 1, (int(pad.sum()),), generator=gen,
+                                  device=device, dtype=torch.int32)
+    torch.cuda.synchronize()
+    t_inputs = time.perf_counter() - t_start
+
+    # ---- the counted run: each kernel once at its configuration's widths
+    ops.reset_launches()
+    R, steps = A, 0
+    while True:
+        new = R | ops.bitset_mm(R, R)
+        steps += 1
+        if torch.equal(new, R):
+            break
+        R = new
+    att_out = [ops.flash_attention(q, k, v, causal=c["causal"], window=c["window"])
+               for _, c, q, k, v in att]
+    spmm_out = ops.ell_spmm(nbr, wgt, x)
+    bag_out = ops.embedding_bag(table, idx)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    # ----
+    for name in ("bitset_mm", "flash_attention", "ell_spmm", "embedding_bag"):
+        check(launches[name] > 0, f"{name} never launched in the kernel library phase")
+    records = []
+
+    # ---- K3: the closure, byte for byte; one step against the plain version
+    truth = transitive_closure_bits(human)
+    check(np.array_equal(R.cpu().numpy().view(np.uint32), truth),
+          "the bitset_mm closure of the human analogue differs from transitive_closure_bits")
+    n, wm = R.shape
+    kern = lambda: ops.bitset_mm(R, R)  # noqa: E731
+    plain = lambda: _rows_chunked(lambda sl: ref.bitset_mm_ref(R[sl], R), n, 256)  # noqa: E731
+    p1, exp = _timed_once(plain)
+    got = kern()
+    torch.cuda.synchronize()
+    check(torch.equal(got, exp), "bitset_mm differs from its plain version on the closure step")
+    k1, k2 = _event_ms(kern, 20, warmup=3), _event_ms(kern, 20, warmup=3)
+    p2, _ = _timed_once(plain)
+    set_bits = sum(int(ref.unpack_bits(R[i:i + 4096], n).sum()) for i in range(0, n, 4096))
+    records.append({
+        "name": "bitset_mm", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/bitset_mm.cu",
+        "replaces": "src/repro/kernels/bitset_mm.py:67",
+        "launches": launches["bitset_mm"], "matches_plain": True,
+        "cases_checked": cases["bitset_mm"] + 1, "max_abs_err": 0,
+        "config": 'closure of paper_dataset_analogue("human", 1.0)',
+        "shape": {"n": n, "k": n, "wm": wm, "set_bits": set_bits, "closure_steps": steps,
+                  "closure_equal": True},
+        "ms": min(k1, k2), "ms_runs": [k1, k2],
+        "device_ms": _kernel_device_ms(kern, "bitset_mm_kernel", 10),
+        "plain_ms": min(p1, p2), "plain_ms_runs": [p1, p2],
+        # R is both a and x: read once, out written once; one OR per set bit
+        # and word
+        **_bound(2 * n * wm * 4, set_bits * wm, PEAK_INT32_OPS_PER_S),
+        # no PyTorch call computes an OR-AND product of packed words
+        "library_ms": None})
+    del A, R, new, got, exp
+    torch.cuda.empty_cache()
+
+    # ---- K4: each configuration against the float32 plain version and SDPA
+    configs = []
+    for (label, c, q, k, v), out in zip(att, att_out):
+        exp = _attention_plain_chunked(q.float(), k.float(), v.float(), c["causal"],
+                                       c["window"])
+        err = float((out.float() - exp).abs().max())
+        excess = _attention_excess(out, exp)
+        check(excess <= 1, f"flash_attention differs from its plain version at {label}: "
+                           f"max abs error {err}, {excess} times the tolerance")
+        # controls the check must reject: a zeroed output and, at decode, the
+        # output without every fourth 32-key chunk (one warp's keys), taken
+        # on the first 8 batch entries
+        controls = {"zeroed": _attention_excess(torch.zeros_like(out), exp)}
+        if c["S"] == 1:
+            keep = (torch.arange(c["T"], device=device) // 32) % 4 != 0
+            part = _attention_plain_chunked(q[:8].float(), k[:8, :, keep].float(),
+                                            v[:8, :, keep].float(), c["causal"], c["window"])
+            controls["one_warp_of_keys_left_out"] = _attention_excess(part.to(out.dtype),
+                                                                      exp[:8])
+            del part
+        check(all(x > 1 for x in controls.values()),
+              f"the flash_attention check at {label} passes a wrong output: {controls}")
+        exp_rms = float(exp.pow(2).mean().sqrt())
+        del exp
+        kern = lambda: ops.flash_attention(q, k, v, causal=c["causal"],  # noqa: E731
+                                           window=c["window"])
+        plain = lambda: _attention_plain_chunked(q, k, v, c["causal"], c["window"])  # noqa: E731
+        check(c["S"] == c["T"] or c["S"] == 1, "SDPA aligns causal masks top-left")
+        if c["window"] is None:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, is_causal=c["causal"] and c["S"] > 1, enable_gqa=True)
+        else:
+            mask = ref.attention_mask(c["S"], c["T"], c["causal"], c["window"], device)
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, attn_mask=mask, enable_gqa=True)
+        lib_err = float((lib().float() - out.float()).abs().max())
+        p1, _ = _timed_once(plain)
+        k1, k2 = _event_ms(kern, 3, warmup=1), _event_ms(kern, 3, warmup=1)
+        p2, _ = _timed_once(plain)
+        l1, l2 = _event_ms(lib, 3, warmup=1), _event_ms(lib, 3, warmup=1)
+        pairs = _attention_pairs(c["S"], c["T"], c["causal"], c["window"])
+        flops = 4 * pairs * c["D"] * c["Hq"] * c["B"]
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel())
+        configs.append({
+            "config": label, "shape": c, "dtype": "bfloat16", "visible_pairs": pairs,
+            "max_abs_err": err, "max_excess": excess, "controls_excess": controls,
+            "exp_rms": exp_rms,
+            "tolerance": {"rtol": ATTENTION_TOL["bfloat16"][0],
+                          "atol": ATTENTION_TOL["bfloat16"][1],
+                          "against": "the float32 plain result rounded to bfloat16"},
+            "ms": min(k1, k2), "ms_runs": [k1, k2],
+            "device_ms": _kernel_device_ms(kern, "flash_attention_kernel", 2),
+            "plain_ms": min(p1, p2), "plain_ms_runs": [p1, p2],
+            **_bound(nbytes, flops, PEAK_BF16_FLOPS_PER_S),
+            "library_ms": min(l1, l2), "library_ms_runs": [l1, l2],
+            "library": "F.scaled_dot_product_attention(enable_gqa=True"
+                       + (", explicit mask)" if c["window"] is not None else ")"),
+            "library_kernels": _library_kernels(lib), "library_max_abs_diff": lib_err})
+        log(f"K4 {label}: {min(k1, k2):.3f} ms, plain {min(p1, p2):.3f} ms, "
+            f"SDPA {min(l1, l2):.3f} ms, bound {configs[-1]['bound_ms']:.4f} ms")
+    del att, att_out
+    torch.cuda.empty_cache()
+    head = configs[0]
+    records.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:110",
+        "launches": launches["flash_attention"], "matches_plain": True,
+        "cases_checked": cases["flash_attention"] + len(configs),
+        **{k: head[k] for k in ("config", "shape", "max_abs_err", "ms", "ms_runs",
+                                "device_ms", "plain_ms", "plain_ms_runs", "bound_ms",
+                                "bound_by", "bytes", "operations", "library_ms")},
+        "configs": configs})
+
+    # ---- K5: ogb_products against the plain version (row chunks) and CSR SpMM
+    n, d = nbr.shape
+    valid = int(lens.sum())
+    kern = lambda: ops.ell_spmm(nbr, wgt, x)  # noqa: E731
+    plain = lambda: _rows_chunked(  # noqa: E731
+        lambda sl: ref.ell_spmm_ref(nbr[sl], wgt[sl], x), n, 1 << 17)
+    p1, exp = _timed_once(plain)
+    err = float((spmm_out - exp).abs().max())
+    check(torch.allclose(spmm_out, exp, rtol=1e-5, atol=1e-5),
+          f"ell_spmm differs from its plain version at ogb_products: {err}")
+    del exp
+    k1, k2 = _event_ms(kern, 10, warmup=2), _event_ms(kern, 10, warmup=2)
+    p2, _ = _timed_once(plain)
+    keep = nbr >= 0
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=device)
+    crow[1:] = keep.sum(1).cumsum(0)
+    with warnings.catch_warnings():   # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore")
+        csr = torch.sparse_csr_tensor(crow, nbr[keep].long(), wgt[keep], size=(n, x.shape[0]))
+    lib = lambda: torch.sparse.mm(csr, x)  # noqa: E731
+    lib_err = float((lib() - spmm_out).abs().max())
+    l1, l2 = _event_ms(lib, 10, warmup=2), _event_ms(lib, 10, warmup=2)
+    F_ = x.shape[1]
+    records.append({
+        "name": "ell_spmm", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ell_spmm.cu",
+        "replaces": "src/repro/kernels/ell_spmm.py:61",
+        "launches": launches["ell_spmm"], "matches_plain": True,
+        "cases_checked": cases["ell_spmm"] + 1, "max_abs_err": err,
+        "config": "ogb_products (configs/gnn_cells.py)",
+        "shape": {"n": n, "d": d, "n_src": x.shape[0], "F": F_, "valid_slots": valid},
+        "ms": min(k1, k2), "ms_runs": [k1, k2],
+        "device_ms": _kernel_device_ms(kern, "ell_spmm_kernel", 5),
+        "plain_ms": min(p1, p2), "plain_ms_runs": [p1, p2],
+        # ids, weights and out once, and x once; one multiply-add per valid
+        # slot and feature
+        **_bound(n * d * 8 + n * F_ * 4 + x.numel() * 4, 2 * valid * F_, 67e12),
+        "gather_bytes_no_reuse": valid * F_ * 4,
+        "library_ms": min(l1, l2), "library_ms_runs": [l1, l2],
+        "library": "torch.sparse.mm(CSR built outside the timed window, x)",
+        "library_kernels": _library_kernels(lib), "library_max_abs_diff": lib_err})
+    del nbr, wgt, x, spmm_out, csr, keep, crow, lens
+    torch.cuda.empty_cache()
+
+    # ---- K6: xDeepFM's table and serve_bulk batch
+    B, bag = idx.shape
+    valid = int((idx >= 0).sum())
+    kern = lambda: ops.embedding_bag(table, idx)  # noqa: E731
+    plain = lambda: ref.embedding_bag_ref(table, idx)  # noqa: E731
+    p1, exp = _timed_once(plain)
+    err = float((bag_out - exp).abs().max())
+    check(torch.allclose(bag_out, exp, rtol=1e-5, atol=1e-5),
+          f"embedding_bag differs from its plain version at serve_bulk: {err}")
+    k1, k2 = _event_ms(kern, 50), _event_ms(kern, 50)
+    p2, _ = _timed_once(plain)
+    idx_lib, weights = idx.clamp_min(0).long(), (idx >= 0).float()
+    lib = lambda: F.embedding_bag(idx_lib, table, mode="sum",  # noqa: E731
+                                  per_sample_weights=weights)
+    lib_err = float((lib() - bag_out).abs().max())
+    l1, l2 = _event_ms(lib, 50), _event_ms(lib, 50)
+    D = table.shape[1]
+    records.append({
+        "name": "embedding_bag", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
+        "replaces": "src/repro/kernels/embedding_bag.py:52",
+        "launches": launches["embedding_bag"], "matches_plain": True,
+        "cases_checked": cases["embedding_bag"] + 1, "max_abs_err": err,
+        "config": "xDeepFM table, serve_bulk batch (configs/xdeepfm_cfg.py)",
+        "shape": {"V": table.shape[0], "D": D, "B": B, "bag": bag, "valid_slots": valid},
+        # the wrapper's call includes its one host read of the bad-id flag
+        "ms": min(k1, k2), "ms_runs": [k1, k2],
+        "device_ms": _kernel_device_ms(kern, "embedding_bag_kernel", 20),
+        "plain_ms": min(p1, p2), "plain_ms_runs": [p1, p2],
+        # ids once, one table row per valid slot, out once; one add per value
+        **_bound(B * bag * 4 + valid * D * 4 + B * D * 4, valid * D, 67e12),
+        "library_ms": min(l1, l2), "library_ms_runs": [l1, l2],
+        "library": "F.embedding_bag(idx.clamp_min(0), table, mode='sum', "
+                   "per_sample_weights=(idx >= 0)), both made outside the timed window",
+        "library_kernels": _library_kernels(lib), "library_max_abs_diff": lib_err})
+    del table, idx, bag_out, exp, idx_lib, weights
+    torch.cuda.empty_cache()
+
+    record({"phase": "kernel_library", "seconds": time.perf_counter() - t_start,
+            "inputs_seconds": t_inputs, "launches": launches, "closure_steps": steps,
+            "kernels": records})
+    return records
 
 
 # ------------------------------------------------------------------ phase 4
@@ -565,10 +1078,10 @@ def phase_device_build(device, scale, ref_co=None, queries=None, verdicts=None):
 # ------------------------------------------------------------------ phase 5
 
 
-def _event_ms(fn, reps: int) -> float:
+def _event_ms(fn, reps: int, warmup: int = 10) -> float:
     import torch
 
-    for _ in range(10):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -627,16 +1140,9 @@ def phase_timing(co, rest: np.ndarray, launches: dict, cases: dict) -> list:
     p1, k1, k2, p2 = (_event_ms(plain, 200), _event_ms(kern, 200),
                       _event_ms(kern, 200), _event_ms(plain, 200))
     kern()
-    _, events = _device_events(lambda: [kern() for _ in range(50)])
-    device_ms = sum(us for cat, name, us in events
-                    if cat == "kernel" and "label_intersect_kernel" in name) / 50 / 1e3
-    check(device_ms > 0, "torch.profiler recorded no label_intersect kernel")
+    device_ms = _kernel_device_ms(kern, "label_intersect_kernel", 50)
     wa, wb = min(width, L_out.shape[1]), min(width, L_in.shape[1])
     B = BATCH
-    bytes_moved = B * (8 + 4 * (wa + wb)) + B
-    ops_needed = B * wa * wb
-    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops_needed / PEAK_INT32_OPS_PER_S * 1e3
     return [{
         "name": "label_intersect",
         "route": "cuda",
@@ -653,10 +1159,9 @@ def phase_timing(co, rest: np.ndarray, launches: dict, cases: dict) -> list:
         "device_ms": device_ms,
         "plain_ms": min(p1, p2),
         "plain_ms_runs": [p1, p2],
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "bytes": bytes_moved,
-        "operations": ops_needed,
+        # two ids and two truncated rows read, a verdict byte written; one
+        # int32 compare per pair of entries
+        **_bound(B * (8 + 4 * (wa + wb)) + B, B * wa * wb, PEAK_INT32_OPS_PER_S),
         "library_ms": None,
     }]
 
@@ -684,10 +1189,7 @@ def timing_frontier_or(real, launches: int, cases: int) -> dict:
                                         flags=exp_flags)
     p1, k1, k2, p2 = (_event_ms(plain, 50), _event_ms(kern, 200),
                       _event_ms(kern, 200), _event_ms(plain, 50))
-    _, events = _device_events(lambda: [kern() for _ in range(50)])
-    device_ms = sum(us for cat, name, us in events
-                    if cat == "kernel" and "frontier_or_kernel" in name) / 50 / 1e3
-    check(device_ms > 0, "torch.profiler recorded no frontier_or kernel")
+    device_ms = _kernel_device_ms(kern, "frontier_or_kernel", 50)
     r, d = slab.shape
     wm = f.shape[1]
     valid = int(slab.ne(-1).sum())
@@ -696,8 +1198,6 @@ def timing_frontier_or(real, launches: int, cases: int) -> dict:
     # everything in), so no write is counted
     bytes_moved = r * d * 4 + valid * wm * 4 + r * 8 + r * wm * 4
     ops_needed = valid * wm  # one OR per gathered word
-    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops_needed / PEAK_INT32_OPS_PER_S * 1e3
     return {
         "name": "frontier_or",
         "route": "cuda",
@@ -714,10 +1214,7 @@ def timing_frontier_or(real, launches: int, cases: int) -> dict:
         "device_ms": device_ms,
         "plain_ms": min(p1, p2),
         "plain_ms_runs": [p1, p2],
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "bytes": bytes_moved,
-        "operations": ops_needed,
+        **_bound(bytes_moved, ops_needed, PEAK_INT32_OPS_PER_S),
         # no single PyTorch call computes an OR-reduction gather
         "library_ms": None,
     }
@@ -797,6 +1294,8 @@ def main(argv=None) -> int:
                     help="citeseer scale of the device build phase (4b)")
     ap.add_argument("--only-device-build", action="store_true",
                     help="run phases 1-3 and 4b only, with 4b's own reference build")
+    ap.add_argument("--only-kernels", action="store_true",
+                    help="run phases 1-3 and 3b (the kernel library) only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -811,7 +1310,10 @@ def main(argv=None) -> int:
     if args.only_device_build:
         phase_device_build(device, args.device_build_scale)
         kernels = None
+    elif args.only_kernels:
+        kernels = phase_kernel_library(device, cases)
     else:
+        library = phase_kernel_library(device, cases)
         co, queries, rest, launches, verdicts = phase_main_path(device)
         same = args.device_build_scale == MAIN_SCALE
         k2_launches, k2_cases, real = phase_device_build(
@@ -819,6 +1321,7 @@ def main(argv=None) -> int:
         cases["frontier_or"] += k2_cases
         kernels = phase_timing(co, rest, launches, cases)
         kernels.append(timing_frontier_or(real, k2_launches, cases["frontier_or"]))
+        kernels += library
         phase_serving_profile(co, queries)
         phase_driver()
     record({"phase": "done", "seconds": time.perf_counter() - t_start,

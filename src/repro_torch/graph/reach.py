@@ -32,6 +32,16 @@ def transitive_closure_bits(g: CSRGraph) -> np.ndarray:
     return tc
 
 
+def adjacency_bits(g: CSRGraph) -> np.ndarray:
+    """Bit-packed adjacency, uint32[n, ceil(n/32)]: bit j of row i set iff
+    the edge i -> j exists; the start of ``R <- R | bitset_mm(R, R)``, whose
+    fixpoint is ``transitive_closure_bits``."""
+    A = np.zeros((g.n, (g.n + 31) // 32), dtype=np.uint32)
+    src, dst = g.edges()
+    np.bitwise_or.at(A, (src, dst >> 5), np.uint32(1) << (dst & 31).astype(np.uint32))
+    return A
+
+
 def reaches_bit(tc: np.ndarray, u: int, v: int) -> bool:
     return bool((tc[u, v >> 5] >> np.uint32(v & 31)) & np.uint32(1))
 

@@ -43,6 +43,23 @@ SIGNATURES = {
         _C.c_void_p, _C.c_int64, _C.c_int32, _C.c_void_p, _C.c_int64, _C.c_int32,
         _C.c_void_p, _C.c_int64, _C.c_void_p, _C.c_void_p, _C.c_void_p,
     ], _C.c_int),
+    "bitset_mm": ("bitset_mm_launch", [
+        _C.c_void_p, _C.c_int64, _C.c_int32, _C.c_void_p, _C.c_int64, _C.c_int32,
+        _C.c_void_p, _C.c_void_p,
+    ], _C.c_int),
+    "ell_spmm": ("ell_spmm_launch", [
+        _C.c_void_p, _C.c_void_p, _C.c_int64, _C.c_int32, _C.c_void_p, _C.c_int64,
+        _C.c_int32, _C.c_void_p, _C.c_void_p, _C.c_void_p,
+    ], _C.c_int),
+    "embedding_bag": ("embedding_bag_launch", [
+        _C.c_void_p, _C.c_int64, _C.c_int32, _C.c_void_p, _C.c_int64, _C.c_int32,
+        _C.c_void_p, _C.c_void_p, _C.c_void_p,
+    ], _C.c_int),
+    "flash_attention": ("flash_attention_launch", [
+        _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_int32,
+        _C.c_int64, _C.c_int64, _C.c_int64, _C.c_int64, _C.c_int64, _C.c_int64,
+        _C.c_int32, _C.c_int32, _C.c_int64, _C.c_float, _C.c_void_p,
+    ], _C.c_int),
 }
 
 _LOCK = threading.Lock()

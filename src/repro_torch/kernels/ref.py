@@ -6,9 +6,12 @@ and ``chip_smoke.py`` hold each kernel against its plain version on the same
 inputs.  The serve engine's ``dense`` backend is ``tier_intersect_ref`` on
 the engine's device; its ``kernel`` backend, the main path on a card, never
 calls them there.  ``frontier_or_ref`` is K2's, the device wave build's
-expansion when the build runs on the CPU.
+expansion when the build runs on the CPU.  The last four (K3-K6) are the
+plain versions of the kernel library, which no oracle path calls.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -83,3 +86,115 @@ def frontier_or_ref(nbr: torch.Tensor, f: torch.Tensor, out=None, perm=None,
     flags[1] |= (bad_id.any() | bad_dst.any()).to(torch.int32)
     out[dst] = old | acc
     return out
+
+
+# ----------------------------------------------------------- kernel library
+# The plain versions of the four kernels that only the public kernel API
+# reaches (``repro.kernels.ops``): K3 bitset_mm, K4 flash_attention, K5
+# ell_spmm and K6 embedding_bag.
+
+
+def unpack_bits(words: torch.Tensor, k: int) -> torch.Tensor:
+    """int32[n, ceil(k/32)] packed words (int32 bit patterns) -> bool[n, k]:
+    bit j of word w is column 32w + j.  Shifts of int32 are arithmetic, so
+    each bit is masked with ``& 1`` after the shift (bit 31 reads as 1, not
+    as -1)."""
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    bits = (words[:, :, None] >> shifts) & 1
+    return bits.reshape(words.shape[0], -1)[:, :k].bool()
+
+
+def bitset_mm_ref(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """K3's plain version, the OR-AND boolean product of bit-packed operands
+    (the counterpart of ``repro.kernels.ref.bitset_mm_ref``):
+    ``out[i] = OR over j < k with bit j of a[i] set of x[j]``.
+
+    a: int32[n, ceil(k/32)], x: int32[k, wm] (int32 bit patterns) ->
+    int32[n, wm].  Bits of ``a`` at or beyond ``k`` are ignored.  The OR runs
+    over the columns that some row of ``a`` sets, which is every column a
+    dense ``a`` sets; the ``[n, columns, wm]`` select is held whole, so a
+    caller with a large ``a`` passes it in row chunks."""
+    k = x.shape[0]
+    if a.shape[1] != (k + 31) // 32:
+        raise ValueError(f"a has {a.shape[1]} words per row, k = {k} needs {(k + 31) // 32}")
+    a_bool = unpack_bits(a, k)                               # [n, k]
+    cols = a_bool.any(dim=0).nonzero().flatten()
+    sel = torch.where(a_bool[:, cols, None], x[cols][None], 0)   # [n, cols, wm]
+    return or_reduce(sel, dim=1)
+
+
+def ell_spmm_ref(nbr: torch.Tensor, wgt: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """K5's plain version, the weighted ELL SpMM (the counterpart of
+    ``repro.kernels.ref.ell_spmm_ref``):
+    ``out[i] = sum over s with nbr[i, s] != INVALID of wgt[i, s] * x[nbr[i, s]]``.
+
+    nbr: int32[n, d] (only -1 is padding), wgt: float32[n, d], x:
+    float32[n_src, F] -> float32[n, F].  Any other id outside [0, n_src)
+    raises ``ValueError``.  Holds the ``[n, d, F]`` gather whole."""
+    n_src = x.shape[0]
+    ids = nbr.long()
+    pad = ids == INVALID
+    if bool((~pad & ((ids < 0) | (ids >= n_src))).any()):
+        raise ValueError(f"ell_spmm: neighbor ids outside [-1, {n_src})")
+    gathered = x[torch.where(pad, 0, ids)]                   # [n, d, F]
+    w = torch.where(pad, 0.0, wgt)
+    return torch.einsum("nd,ndf->nf", w, gathered)
+
+
+def embedding_bag_ref(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """K6's plain version, the sum of each bag's rows (the counterpart of
+    ``repro.kernels.ref.embedding_bag_ref`` with ``offsets_mask = idx >= 0``):
+    ``out[b] = sum over s with idx[b, s] >= 0 of table[idx[b, s]]``.
+
+    table: float32[V, D], idx: int32[B, bag] (every negative id is padding)
+    -> float32[B, D].  An id >= V raises ``ValueError``."""
+    V = table.shape[0]
+    ids = idx.long()
+    valid = ids >= 0
+    if bool((ids >= V).any()):
+        raise ValueError(f"embedding_bag: ids >= V = {V}")
+    rows = table[torch.where(valid, ids, 0)]                 # [B, bag, D]
+    return torch.where(valid[:, :, None], rows, 0.0).sum(dim=1)
+
+
+def attention_mask(S: int, T: int, causal: bool, window, device) -> torch.Tensor:
+    """bool[S, T], true where query s may see key t.  Query positions are
+    right-aligned to the keys (``qpos = s + T - S``); ``causal`` keeps
+    ``t <= qpos`` and ``window`` keeps ``t > qpos - window`` (a bound from
+    below only, also when ``causal`` is False)."""
+    qpos = torch.arange(S, device=device)[:, None] + (T - S)
+    kpos = torch.arange(T, device=device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window=None, scale=None) -> torch.Tensor:
+    """K4's plain version: softmax attention in float32 with the semantics of
+    ``repro.kernels.ops.flash_attention`` (the Pallas kernel's), not of
+    ``repro.kernels.ref.flash_attention_ref``: a query row with no visible
+    key gives 0 (the kernel divides by 1 when the softmax sum is 0; the jnp
+    reference gives NaN there).
+
+    q: [B, Hq, S, D], k and v: [B, Hkv, T, D] (float32 or bfloat16; Hq a
+    multiple of Hkv, q head h reads kv head ``h // (Hq // Hkv)``) -> q's
+    dtype [B, Hq, S, D].  ``scale`` defaults to ``1/sqrt(D)``.  Holds the
+    ``[B, Hq, S, T]`` logits whole."""
+    B, Hq, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    rep = Hq // Hkv
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    qg = q.float().reshape(B, Hkv, rep, S, D)       # q heads grouped by kv head
+    logits = torch.einsum("bhgsd,bhtd->bhgst", qg, k.float()) * scale
+    mask = attention_mask(S, T, causal, window, q.device)
+    logits = logits.masked_fill(~mask, -math.inf)
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - torch.where(torch.isinf(m), 0.0, m))   # masked -> 0
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhgst,bhtd->bhgsd", p, v.float()) / torch.where(l == 0, 1.0, l)
+    return out.reshape(B, Hq, S, D).to(q.dtype)

@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card, against their plain versions.
 
 K1 (label_intersect) and K2 (frontier_or) against their plain versions,
-and the device wave build on the card against the reference build.
+the device wave build on the card against the reference build, and the
+kernel library (K3 bitset_mm, K4 flash_attention, K5 ell_spmm, K6
+embedding_bag) against its plain versions.
 
 These tests need a CUDA card and the CUDA toolkit (the kernels build with
 ``nvcc`` on first use); they carry the ``cuda`` marker and, without a card,
@@ -179,3 +181,153 @@ def test_device_build_label_growth_on_the_card(cuda):
     assert ops.LAUNCHES["frontier_or"] > 0
     assert dev_co.oracle.build_stats["device"]["regrows"] > 0
     _assert_same_labels(ref_co.oracle, dev_co.oracle, "l_max growth")
+
+
+# ------------------------------------------------------------ kernel library
+
+
+def _launched(name, fn):
+    """fn() through the wrapper, which must count exactly one launch."""
+    before = ops.LAUNCHES[name]
+    out = fn()
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[name] == before + 1, name
+    return out
+
+
+def _u32(rng, shape):
+    return rng.integers(0, 2**32, size=shape, dtype=np.uint32).view(np.int32)
+
+
+@pytest.mark.parametrize("n,k,m", [(16, 32, 32), (70, 90, 100), (128, 256, 64), (1, 90, 8),
+                                   (1024, 1024, 1024), (300, 70, 9000)])
+def test_bitset_mm_kernel_matches_plain(cuda, rng, n, k, m):
+    wk, wm = (k + 31) // 32, (m + 31) // 32
+    a = torch.from_numpy(_u32(rng, (n, wk))).to(cuda)
+    x = torch.from_numpy(_u32(rng, (k, wm))).to(cuda)
+    got = _launched("bitset_mm", lambda: ops.bitset_mm(a, x))
+    assert got.dtype == torch.int32 and got.shape == (n, wm)
+    assert torch.equal(got, ref.bitset_mm_ref(a, x))
+    # sparse rows, bit 31 in every word, rows with no bit
+    sparse = torch.from_numpy(np.where(rng.random((n, wk)) < 0.2, _u32(rng, (n, wk)) | -2**31,
+                                       0).astype(np.int32)).to(cuda)
+    got = _launched("bitset_mm", lambda: ops.bitset_mm(sparse, x))
+    assert torch.equal(got, ref.bitset_mm_ref(sparse, x))
+
+
+def test_bitset_mm_kernel_closure(cuda):
+    from repro_torch.graph.reach import adjacency_bits, transitive_closure_bits
+
+    g = paper_dataset_analogue("reactome", 1.0)
+    R = torch.from_numpy(adjacency_bits(g).view(np.int32)).to(cuda)
+    for _ in range(g.n.bit_length() + 2):
+        new = R | ops.bitset_mm(R, R)
+        if torch.equal(new, R):
+            break
+        R = new
+    assert (R.cpu().numpy().view(np.uint32) == transitive_closure_bits(g)).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,Hq,Hkv,S,T,D,causal,window",
+    [
+        (1, 2, 2, 128, 128, 32, True, None),
+        (2, 4, 2, 256, 256, 64, True, None),
+        (1, 4, 1, 128, 128, 64, True, 48),
+        (2, 2, 2, 1, 256, 32, True, None),
+        (1, 2, 2, 128, 256, 32, True, None),
+        (1, 2, 2, 128, 128, 32, False, None),
+        (1, 2, 1, 192, 64, 32, True, None),       # S > T: zero rows
+        (1, 4, 2, 130, 97, 80, True, 40),          # D = 80, ragged S and T, window < S
+        (1, 2, 2, 64, 100, 128, False, 24),        # window without causal, D = 128
+        (3, 32, 8, 1, 1000, 64, True, None),       # decode, GQA 4
+        (1, 8, 2, 1024, 1024, 64, True, None),     # kernel_bench's shape
+        (1, 4, 4, 5, 300, 8, True, 0),             # window 0: no key at all
+    ],
+)
+def test_flash_attention_kernel_matches_plain(cuda, rng, B, Hq, Hkv, S, T, D, causal, window,
+                                              dtype):
+    q = torch.from_numpy(rng.standard_normal((B, Hq, S, D)).astype(np.float32)).to(cuda)
+    k = torch.from_numpy(rng.standard_normal((B, Hkv, T, D)).astype(np.float32)).to(cuda)
+    v = torch.from_numpy(rng.standard_normal((B, Hkv, T, D)).astype(np.float32)).to(cuda)
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    got = _launched("flash_attention",
+                    lambda: ops.flash_attention(q, k, v, causal=causal, window=window))
+    assert got.dtype == dtype and got.shape == (B, Hq, S, D)
+    # the plain version in float32 on the same (rounded) inputs, its result
+    # rounded as the kernel's is: bfloat16 outputs may differ by one step
+    exp = ref.flash_attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                                  window=window)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, exp, rtol=2e-5, atol=2e-5)
+    else:
+        torch.testing.assert_close(got.float(), exp.to(dtype).float(), rtol=2**-7, atol=1e-4)
+
+
+def test_flash_attention_kernel_refuses_misaligned_kv(cuda, rng):
+    """k or v one element into its storage: a ValueError before the launch
+    (the kernel's 16-byte loads would fault), and the card still works."""
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 64, 32)).astype(np.float32))
+               .to(cuda).to(torch.bfloat16) for _ in range(3))
+    buf = torch.empty(k.numel() + 1, dtype=k.dtype, device=cuda)
+    shifted = buf[1:].view(k.shape)
+    shifted.copy_(k)
+    ops.reset_launches()
+    for args in ((q, shifted, v), (q, k, shifted)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            ops.flash_attention(*args)
+    assert ops.LAUNCHES["flash_attention"] == 0
+    got = _launched("flash_attention", lambda: ops.flash_attention(q, k, v))
+    exp = ref.flash_attention_ref(q.float(), k.float(), v.float())
+    torch.testing.assert_close(got.float(), exp.to(q.dtype).float(), rtol=2**-7, atol=1e-4)
+
+
+@pytest.mark.parametrize("n,d,ns,F", [(32, 4, 50, 8), (96, 7, 200, 32), (64, 1, 64, 128),
+                                      (4096, 16, 4096, 64), (1000, 40, 3000, 100),
+                                      (7, 3, 9, 6), (1, 32, 5, 1)])
+def test_ell_spmm_kernel_matches_plain(cuda, rng, n, d, ns, F):
+    nbr = rng.integers(0, ns, size=(n, d)).astype(np.int32)
+    nbr[rng.random((n, d)) < 0.3] = -1
+    nbr[: max(n // 8, 1) // 2] = -1
+    nbr[-1, 0] = ns - 1
+    nbr, wgt = torch.from_numpy(nbr).to(cuda), torch.randn(n, d, device=cuda)
+    x = torch.randn(ns, F, device=cuda)
+    got = _launched("ell_spmm", lambda: ops.ell_spmm(nbr, wgt, x))
+    torch.testing.assert_close(got, ref.ell_spmm_ref(nbr, wgt, x), rtol=1e-5, atol=1e-5)
+    # rows not 16-byte aligned: the 4-byte path
+    buf = torch.empty(ns * F + 1, device=cuda)
+    x1 = buf[1:].view(ns, F)
+    x1.copy_(x)
+    got = _launched("ell_spmm", lambda: ops.ell_spmm(nbr, wgt, x1))
+    torch.testing.assert_close(got, ref.ell_spmm_ref(nbr, wgt, x), rtol=1e-5, atol=1e-5)
+
+
+def test_ell_spmm_kernel_refuses_bad_ids(cuda):
+    x = torch.randn(6, 8, device=cuda)
+    w = torch.ones(1, 2, device=cuda)
+    for bad in (6, -2):
+        nbr = torch.tensor([[0, bad]], dtype=torch.int32, device=cuda)
+        with pytest.raises(ValueError, match="outside"):
+            ops.ell_spmm(nbr, w, x)
+
+
+@pytest.mark.parametrize("V,D,B,bag", [(100, 8, 32, 4), (500, 16, 64, 9), (64, 32, 16, 1),
+                                       (100_000, 16, 8192, 8), (1000, 10, 5000, 8),
+                                       (50, 3, 1, 5)])
+def test_embedding_bag_kernel_matches_plain(cuda, rng, V, D, B, bag):
+    idx = rng.integers(0, V, size=(B, bag)).astype(np.int32)
+    pad = rng.random((B, bag)) < 0.25
+    idx[pad] = rng.integers(-2**31, 0, size=int(pad.sum()))   # any negative id pads
+    idx[0] = -1
+    idx[-1, -1] = V - 1
+    idx, table = torch.from_numpy(idx).to(cuda), torch.randn(V, D, device=cuda)
+    got = _launched("embedding_bag", lambda: ops.embedding_bag(table, idx))
+    torch.testing.assert_close(got, ref.embedding_bag_ref(table, idx), rtol=1e-5, atol=1e-5)
+
+
+def test_embedding_bag_kernel_refuses_bad_ids(cuda):
+    table = torch.randn(6, 10, device=cuda)
+    with pytest.raises(ValueError, match=">= V"):
+        ops.embedding_bag(table, torch.tensor([[0, 6]], dtype=torch.int32, device=cuda))
+

@@ -34,6 +34,11 @@ for name in ("repro_torch.build.bitset", "repro_torch.build.waves",
              "repro_torch.build.engine_device", "repro_torch.kernels.ops",
              "repro_torch.kernels.ref", "repro_torch.kernels.build"):
     assert name in names, name
+# the kernel library's wrappers, and a build entry for every CUDA source
+from repro_torch.kernels import build, ops
+for fn in ("bitset_mm", "flash_attention", "ell_spmm", "embedding_bag"):
+    assert callable(getattr(ops, fn)) and fn in ops.LAUNCHES, fn
+assert sorted(p.stem for p in build.CSRC.glob("*.cu")) == sorted(build.SIGNATURES)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "repro" or m.startswith("repro."))

@@ -81,7 +81,8 @@ def test_cpu_wrapper_runs_the_plain_version_without_counting(rng):
     ops.reset_launches()
     ops.tier_intersect(L, L, q, 8)
     ops.frontier_or(torch.tensor([[0, -1], [9, 3]], dtype=torch.int32), L)
-    assert ops.LAUNCHES == {"label_intersect": 0, "frontier_or": 0}
+    assert ops.LAUNCHES["label_intersect"] == 0 and ops.LAUNCHES["frontier_or"] == 0
+    assert not any(ops.LAUNCHES.values())
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "contiguous", "width", "queries", "n"])
