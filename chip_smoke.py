@@ -9,17 +9,19 @@ toolkit (``nvcc``).  Phases, each raising on failure:
   2. build every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``;
   3. each kernel against its plain PyTorch version on the card over edge
      shapes and widths (exact for K1-K3, whose outputs are verdicts and bit
-     patterns; K4 at 2e-5 in float32 and one step in bfloat16, K5 and K6 at
-     1e-5);
+     patterns; K4 at 2e-5 in float32 and one step in bfloat16, each case
+     through the kernel of its dtype, K5 and K6 at 1e-5);
   3b. the kernel library (K3 bitset_mm, K4 flash_attention, K5 ell_spmm,
      K6 embedding_bag), which no oracle path calls, at the widths of
      configurations the repo has: the transitive closure of the "human"
      analogue (byte for byte against ``transitive_closure_bits``),
-     attention at granite-3-2b prefill, h2o-danube-1.8b sliding-window
-     prefill and granite decode_32k, ELL SpMM at ogb_products, embedding
-     bags at xDeepFM's serve_bulk batch; the launch counts read around
-     exactly that drive; each kernel against its plain version, timed beside
-     its bound, its plain version and the PyTorch library call;
+     attention in bfloat16 (the tensor-core kernel ``flash_attention_sm90``)
+     at granite-3-2b prefill, h2o-danube-1.8b sliding-window prefill and
+     granite decode_32k and in float32 (the CUDA-core kernel
+     ``flash_attention``) at granite prefill, ELL SpMM at ogb_products,
+     embedding bags at xDeepFM's serve_bulk batch; the launch counts read
+     around exactly that drive; each kernel against its plain version, timed
+     beside its bound, its plain version and the PyTorch library call;
   4. the main path: the citeseer analogue at full size (n = 693,947) through
      ``repro_torch.core.api.build_oracle(g, device="cuda").serve(q)`` with
      ``backend="auto"`` (which must resolve to the kernel), about 1M queries
@@ -33,7 +35,8 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      degradation counter 0; K2 against its plain version on a real slab and
      frontier; the card's busy share over a profiled window of 500 waves;
   5. timing of K1 and K2 and their plain versions with CUDA events at the
-     main path's shapes, and the kernels JSON line (all six kernels);
+     main path's shapes, and the kernels JSON line (all seven kernels: K4
+     has two);
   6. where a serving batch spends its time: the device's busy share over a
      window of the main path (torch.profiler) and the engine's spans;
   7. the serve driver (``repro_torch.launch.serve``) on a small graph, a
@@ -69,9 +72,11 @@ sys.path.insert(0, str(ROOT / "src"))
 # lane per clock is 67e12 / 2 / 2
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT32_OPS_PER_S = 67e12 / 4
-# dense bf16 tensor-core rate (data sheet): K4's bound, though K4 runs on the
-# CUDA cores; K5 and K6 use the 67e12 float32 rate
+# dense bf16 tensor-core rate (data sheet): K4's bound in bfloat16, on the
+# tensor cores; K4 in float32 runs on the CUDA cores and is bound at their
+# 67 TFLOP/s float32 rate (data sheet), which K5 and K6 use too
 PEAK_BF16_FLOPS_PER_S = 989e12
+PEAK_F32_FLOPS_PER_S = 67e12
 
 MAIN_DATASET = "citeseer"
 MAIN_SCALE = 1.0
@@ -275,7 +280,26 @@ ATTENTION_CASES = [(1, 2, 2, 128, 128, 32, True, None), (2, 4, 2, 256, 256, 64, 
                    (1, 2, 1, 192, 64, 32, True, None),      # S > T: zero rows
                    (1, 4, 2, 130, 97, 80, True, 40),        # D = 80, window < S
                    (1, 2, 2, 64, 100, 128, False, 24),      # window without causal
-                   (1, 8, 2, 1024, 1024, 64, True, None)]
+                   (1, 8, 2, 1024, 1024, 64, True, None),
+                   # the bfloat16 kernel's tile edges (64 packed query rows, 64 keys)
+                   (1, 4, 4, 100, 100, 64, True, None),     # rep 1, ragged S and T
+                   (1, 2, 2, 256, 256, 64, True, 63),       # window one key inside a tile
+                   (1, 2, 2, 256, 256, 64, True, 64),       # window on a tile boundary
+                   (1, 2, 2, 256, 256, 64, True, 65),       # window one key past it
+                   (1, 2, 2, 128, 192, 32, False, 64),      # window without causal, T > S
+                   (1, 8, 1, 77, 200, 64, True, None),      # rep 8
+                   (2, 8, 2, 33, 129, 8, True, None),       # D = 8, T one past a tile
+                   (1, 4, 2, 70, 130, 24, False, 33),       # D = 24
+                   (1, 4, 2, 70, 127, 80, True, 65),        # D = 80, T one short of a tile
+                   (1, 4, 1, 50, 190, 128, True, None),     # D = 128
+                   (2, 32, 8, 1, 777, 64, True, None),      # decode, ragged last key tile
+                   (2, 32, 8, 1, 4097, 128, True, 1000),    # decode, window, D = 128
+                   (1, 4, 2, 150, 70, 24, True, None),      # S > T
+                   (1, 4, 2, 40, 20, 8, True, None),        # T under one key tile
+                   (1, 4, 2, 70, 100, 40, True, None),      # D = 40
+                   (1, 2, 1, 64, 90, 72, False, None),      # D = 72
+                   (1, 4, 2, 64, 64, 96, True, None),       # D = 96
+                   (1, 2, 2, 65, 65, 112, True, 30)]        # D = 112
 SPMM_CASES = [(32, 4, 50, 8, None), (96, 7, 200, 32, None), (64, 1, 64, 128, None),
               (96, 7, 200, 100, "all_padding"), (1, 9, 40, 100, None),
               (96, 7, 200, 33, "last_id"), (4096, 16, 4096, 64, "no_padding")]
@@ -288,13 +312,17 @@ def _library_vs_plain(rng, device) -> dict:
     """K3-K6 against their plain versions on the card: exact for K3 (bit
     patterns); K4 against the float32 plain version on the same values
     (``_attention_excess``: 2e-5 in float32, one bfloat16 step in
-    bfloat16); 1e-5 for K5 and K6.  Bad ids must raise.  Returns {kernel: cases}."""
+    bfloat16), each case through the kernel of its dtype
+    (``ops.attention_kernel``: bfloat16 on the tensor cores, float32 on the
+    CUDA cores); 1e-5 for K5 and K6.  Bad ids must raise.  Returns {kernel:
+    cases}."""
     import torch
 
     from repro_torch.kernels import ops, ref
 
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)  # noqa: E731
-    cases = dict.fromkeys(("bitset_mm", "flash_attention", "ell_spmm", "embedding_bag"), 0)
+    cases = dict.fromkeys(("bitset_mm", "flash_attention", "flash_attention_sm90", "ell_spmm",
+                           "embedding_bag"), 0)
     for n, k, m, edge in BITSET_CASES:
         wk, wm = (k + 31) // 32, (m + 31) // 32
         a = rng.integers(0, 2**32, size=(n, wk), dtype=np.uint32)
@@ -317,15 +345,19 @@ def _library_vs_plain(rng, device) -> dict:
         v = t(rng.standard_normal((B, Hkv, T, D)).astype(np.float32))
         for dtype in (torch.float32, torch.bfloat16):
             qd, kd, vd = (x.to(dtype) for x in (q, k, v))
+            name = ops.attention_kernel(dtype)
+            before = dict(ops.LAUNCHES)
             got = ops.flash_attention(qd, kd, vd, causal=causal, window=window)
             exp = ref.flash_attention_ref(qd.float(), kd.float(), vd.float(), causal=causal,
                                           window=window)
             torch.cuda.synchronize()
             what = f"flash_attention {dtype} B={B} Hq={Hq} Hkv={Hkv} S={S} T={T} D={D} " \
                    f"causal={causal} window={window}"
+            check({n: ops.LAUNCHES[n] - before[n] for n in before} ==
+                  {n: int(n == name) for n in before}, f"{what}: not one launch of {name}")
             check(_attention_excess(got, exp) <= 1, what)
             check(not (causal and S > T) or not got[:, :, : S - T].any(), f"{what}: zero rows")
-            cases["flash_attention"] += 1
+            cases[name] += 1
     for n, d, ns, F, edge in SPMM_CASES:
         nbr = rng.integers(0, ns, size=(n, d)).astype(np.int32)
         if edge != "no_padding":
@@ -380,14 +412,22 @@ def _library_vs_plain(rng, device) -> dict:
 # ------------------------------------------------------------------ phase 3b
 
 # K4 at the widths of two LM configurations of the repo (batch cut to 1 for
-# prefill) and of the decode_32k cell (src/repro/configs/lm_cells.py)
+# prefill) and of the decode_32k cell (src/repro/configs/lm_cells.py), in
+# bfloat16 (the tensor-core kernel); granite prefill once more in float32
+# (the CUDA-core kernel)
 ATTENTION_CONFIGS = [
     ("granite-3-2b prefill (configs/granite_3_2b.py, train_4k length)",
-     dict(B=1, Hq=32, Hkv=8, S=4096, T=4096, D=64, causal=True, window=None)),
+     dict(B=1, Hq=32, Hkv=8, S=4096, T=4096, D=64, causal=True, window=None,
+          dtype="bfloat16")),
     ("h2o-danube-1.8b SWA prefill (configs/h2o_danube_1_8b.py, window 4096)",
-     dict(B=1, Hq=32, Hkv=8, S=8192, T=8192, D=80, causal=True, window=4096)),
+     dict(B=1, Hq=32, Hkv=8, S=8192, T=8192, D=80, causal=True, window=4096,
+          dtype="bfloat16")),
     ("granite-3-2b decode_32k (configs/lm_cells.py)",
-     dict(B=128, Hq=32, Hkv=8, S=1, T=32768, D=64, causal=True, window=None)),
+     dict(B=128, Hq=32, Hkv=8, S=1, T=32768, D=64, causal=True, window=None,
+          dtype="bfloat16")),
+    ("granite-3-2b prefill in float32 (configs/granite_3_2b.py, train_4k length)",
+     dict(B=1, Hq=32, Hkv=8, S=4096, T=4096, D=64, causal=True, window=None,
+          dtype="float32")),
 ]
 # K5 at ogb_products (src/repro/configs/gnn_cells.py): n, m, d_feat; ELL width 32
 PRODUCTS = dict(n=2_449_029, m=61_859_140, F=100, d=32)
@@ -417,11 +457,14 @@ def _timed_once(fn) -> tuple:
 
 
 def _kernel_device_ms(fn, symbol: str, calls: int) -> float:
-    """torch.profiler's device time of kernel ``symbol`` per call of ``fn``."""
+    """torch.profiler's device time of kernel ``symbol`` per launch, over
+    ``calls`` calls of ``fn`` (one launch each).  The mean is taken over the
+    launches the trace holds: a trace has been seen to hold one of two."""
     _, events = _device_events(lambda: [fn() for _ in range(calls)])
-    ms = sum(us for cat, name, us in events if cat == "kernel" and symbol in name) / calls / 1e3
-    check(ms > 0, f"torch.profiler recorded no {symbol}")
-    return ms
+    times = [us for cat, name, us in events if cat == "kernel" and symbol in name]
+    check(1 <= len(times) <= calls, f"torch.profiler recorded {len(times)} launches of "
+                                    f"{symbol} in {calls} calls")
+    return sum(times) / len(times) / 1e3
 
 
 def _library_kernels(fn) -> list:
@@ -495,11 +538,12 @@ def phase_kernel_library(device, cases: dict) -> list:
     has, through ``repro_torch.kernels.ops``: the transitive closure of the
     "human" analogue by repeated ``R | bitset_mm(R, R)``; attention at
     granite-3-2b prefill, h2o-danube-1.8b sliding-window prefill and granite
-    decode_32k; ELL SpMM at ogb_products; embedding bags at xDeepFM's table
-    and serve_bulk batch.  The launch counts are read around exactly that
-    drive.  Then each kernel against its plain version (chunked where its
-    intermediate would be large) and its timing beside its bound, the plain
-    version and the library call.  Returns the four kernel records."""
+    decode_32k in bfloat16 and granite prefill in float32; ELL SpMM at
+    ogb_products; embedding bags at xDeepFM's table and serve_bulk batch.
+    The launch counts are read around exactly that drive.  Then each kernel
+    against its plain version (chunked where its intermediate would be
+    large) and its timing beside its bound, the plain version and the
+    library call.  Returns the five kernel records (K4 has two kernels)."""
     import torch
     import torch.nn.functional as F
 
@@ -519,7 +563,7 @@ def phase_kernel_library(device, cases: dict) -> list:
         shape_q = (c["B"], c["Hq"], c["S"], c["D"])
         shape_kv = (c["B"], c["Hkv"], c["T"], c["D"])
         att.append((label, c, *(torch.randn(sh, generator=gen, device=device,
-                                            dtype=torch.bfloat16)
+                                            dtype=getattr(torch, c["dtype"]))
                                 for sh in (shape_q, shape_kv, shape_kv))))
     P = PRODUCTS
     lens = torch.randint(18, 33, (P["n"],), generator=gen, device=device)
@@ -559,7 +603,8 @@ def phase_kernel_library(device, cases: dict) -> list:
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     # ----
-    for name in ("bitset_mm", "flash_attention", "ell_spmm", "embedding_bag"):
+    for name in ("bitset_mm", "flash_attention", "flash_attention_sm90", "ell_spmm",
+                 "embedding_bag"):
         check(launches[name] > 0, f"{name} never launched in the kernel library phase")
     records = []
 
@@ -597,9 +642,13 @@ def phase_kernel_library(device, cases: dict) -> list:
     del A, R, new, got, exp
     torch.cuda.empty_cache()
 
-    # ---- K4: each configuration against the float32 plain version and SDPA
+    # ---- K4: each configuration against the float32 plain version and SDPA,
+    # through the kernel of its dtype (the plain version's products in full
+    # float32: TF32 stays off)
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
     configs = []
     for (label, c, q, k, v), out in zip(att, att_out):
+        kernel = ops.attention_kernel(q.dtype)
         exp = _attention_plain_chunked(q.float(), k.float(), v.float(), c["causal"],
                                        c["window"])
         err = float((out.float() - exp).abs().max())
@@ -607,15 +656,14 @@ def phase_kernel_library(device, cases: dict) -> list:
         check(excess <= 1, f"flash_attention differs from its plain version at {label}: "
                            f"max abs error {err}, {excess} times the tolerance")
         # controls the check must reject: a zeroed output and, at decode, the
-        # output without every fourth 32-key chunk (one warp's keys), taken
-        # on the first 8 batch entries
+        # output without every fourth 32-key chunk, taken on the first 8
+        # batch entries
         controls = {"zeroed": _attention_excess(torch.zeros_like(out), exp)}
         if c["S"] == 1:
             keep = (torch.arange(c["T"], device=device) // 32) % 4 != 0
             part = _attention_plain_chunked(q[:8].float(), k[:8, :, keep].float(),
                                             v[:8, :, keep].float(), c["causal"], c["window"])
-            controls["one_warp_of_keys_left_out"] = _attention_excess(part.to(out.dtype),
-                                                                      exp[:8])
+            controls["dropped_chunks"] = _attention_excess(part.to(out.dtype), exp[:8])
             del part
         check(all(x > 1 for x in controls.values()),
               f"the flash_attention check at {label} passes a wrong output: {controls}")
@@ -637,39 +685,47 @@ def phase_kernel_library(device, cases: dict) -> list:
         k1, k2 = _event_ms(kern, 3, warmup=1), _event_ms(kern, 3, warmup=1)
         p2, _ = _timed_once(plain)
         l1, l2 = _event_ms(lib, 3, warmup=1), _event_ms(lib, 3, warmup=1)
+        device_ms = _kernel_device_ms(kern, f"{kernel}_kernel", 2)
         pairs = _attention_pairs(c["S"], c["T"], c["causal"], c["window"])
         flops = 4 * pairs * c["D"] * c["Hq"] * c["B"]
-        nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel())
+        nbytes = q.element_size() * (q.numel() + k.numel() + v.numel() + out.numel())
+        bound = _bound(nbytes, flops, PEAK_BF16_FLOPS_PER_S if q.dtype == torch.bfloat16
+                       else PEAK_F32_FLOPS_PER_S)
         configs.append({
-            "config": label, "shape": c, "dtype": "bfloat16", "visible_pairs": pairs,
+            "kernel": kernel, "config": label, "shape": c, "dtype": c["dtype"],
+            "visible_pairs": pairs,
             "max_abs_err": err, "max_excess": excess, "controls_excess": controls,
             "exp_rms": exp_rms,
-            "tolerance": {"rtol": ATTENTION_TOL["bfloat16"][0],
-                          "atol": ATTENTION_TOL["bfloat16"][1],
-                          "against": "the float32 plain result rounded to bfloat16"},
-            "ms": min(k1, k2), "ms_runs": [k1, k2],
-            "device_ms": _kernel_device_ms(kern, "flash_attention_kernel", 2),
-            "plain_ms": min(p1, p2), "plain_ms_runs": [p1, p2],
-            **_bound(nbytes, flops, PEAK_BF16_FLOPS_PER_S),
+            "tolerance": dict(zip(("rtol", "atol"), ATTENTION_TOL[c["dtype"]]),
+                              against=f"the float32 plain result rounded to {c['dtype']}"),
+            "ms": min(k1, k2), "ms_runs": [k1, k2], "device_ms": device_ms,
+            "plain_ms": min(p1, p2), "plain_ms_runs": [p1, p2], **bound,
+            # the rates the kernel reached on the device, and its share of the bound
+            "tflop_per_s": flops / device_ms / 1e9, "gb_per_s": nbytes / device_ms / 1e6,
+            "bound_share": bound["bound_ms"] / device_ms,
             "library_ms": min(l1, l2), "library_ms_runs": [l1, l2],
             "library": "F.scaled_dot_product_attention(enable_gqa=True"
                        + (", explicit mask)" if c["window"] is not None else ")"),
             "library_kernels": _library_kernels(lib), "library_max_abs_diff": lib_err})
-        log(f"K4 {label}: {min(k1, k2):.3f} ms, plain {min(p1, p2):.3f} ms, "
-            f"SDPA {min(l1, l2):.3f} ms, bound {configs[-1]['bound_ms']:.4f} ms")
+        log(f"K4 {kernel} {label}: {min(k1, k2):.3f} ms (device {device_ms:.3f} ms, "
+            f"{configs[-1]['tflop_per_s']:.1f} TFLOP/s), plain {min(p1, p2):.3f} ms, "
+            f"SDPA {min(l1, l2):.3f} ms, bound {bound['bound_ms']:.4f} ms")
     del att, att_out
     torch.cuda.empty_cache()
-    head = configs[0]
-    records.append({
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:110",
-        "launches": launches["flash_attention"], "matches_plain": True,
-        "cases_checked": cases["flash_attention"] + len(configs),
-        **{k: head[k] for k in ("config", "shape", "max_abs_err", "ms", "ms_runs",
-                                "device_ms", "plain_ms", "plain_ms_runs", "bound_ms",
-                                "bound_by", "bytes", "operations", "library_ms")},
-        "configs": configs})
+    for kernel, source in (("flash_attention_sm90", "flash_attention_sm90.cu"),
+                           ("flash_attention", "flash_attention.cu")):
+        mine = [rec for rec in configs if rec["kernel"] == kernel]
+        head = mine[0]
+        records.append({
+            "name": kernel, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": "src/repro/kernels/flash_attention.py:110",
+            "launches": launches[kernel], "matches_plain": True,
+            "cases_checked": cases[kernel] + len(mine),
+            **{k: head[k] for k in ("config", "shape", "max_abs_err", "ms", "ms_runs",
+                                    "device_ms", "plain_ms", "plain_ms_runs", "bound_ms",
+                                    "bound_by", "bytes", "operations", "library_ms")},
+            "configs": mine})
 
     # ---- K5: ogb_products against the plain version (row chunks) and CSR SpMM
     n, d = nbr.shape

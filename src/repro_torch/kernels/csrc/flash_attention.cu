@@ -1,23 +1,24 @@
-// K4 flash_attention: online-softmax attention with causal, sliding-window and GQA masks.
+// K4 flash_attention, float32: online-softmax attention with causal, sliding-window and GQA
+// masks on the CUDA cores.
 //
-// Replaces the TPU kernel src/repro/kernels/flash_attention.py::flash_attention_pallas,
-// with the semantics of its wrapper repro.kernels.ops.flash_attention (the public kernel
-// API).
+// Replaces the TPU kernel src/repro/kernels/flash_attention.py::flash_attention_pallas
+// for float32 inputs, with the semantics of its wrapper repro.kernels.ops.flash_attention
+// (the public kernel API).  bfloat16 inputs go to flash_attention_sm90.cu, on the tensor
+// cores; float32 stays here because the tensor cores would run it as TF32, which cannot
+// meet the float32 contract's 2e-5.
 //
-// Computes, for q [B, Hq, S, D] and k, v [B, Hkv, T, D] (float32 or bfloat16, Hq a
-// multiple of Hkv), every query row (b, h, s) against kv head h / (Hq / Hkv):
+// Computes, for q [B, Hq, S, D] and k, v [B, Hkv, T, D] in float32 (Hq a multiple of
+// Hkv), every query row (b, h, s) against kv head h / (Hq / Hkv):
 //     out[b, h, s] = sum_t softmax_t(scale * q[b, h, s] . k[b, kvh, t]) v[b, kvh, t]
 // over the keys t the masks keep.  Query positions are right-aligned to the keys,
 // qpos = s + T - S (one kernel for training, chunked prefill and decode); causal keeps
 // t <= qpos, a window keeps t > qpos - window (from below only, also without causal).  A
 // row that keeps no key gives 0, as the TPU kernel's division by 1 when the sum is 0
-// does.  Logits, the softmax and the output are accumulated in float32; the output is
-// written in q's type.
+// does.  Logits, the softmax and the output are accumulated in float32.
 //
 // Bound on an H100: 4 S T D Hq B operations (two products), halved for causal, against
-// the 989 TFLOP/s of the bf16 tensor cores, or the bytes of q, k, v and out: prefill is
-// bound by operations, decode (S = 1) by the bytes of k and v.  This kernel runs on the
-// CUDA cores (67 TFLOP/s in float32), not on the tensor cores.
+// the 67 TFLOP/s of float32 outside the tensor cores, or the bytes of q, k, v and out:
+// prefill is bound by operations, decode (S = 1) by the bytes of k and v.
 //
 // Design.  The TPU kernel runs a sequential grid (head, query block, key block) with the
 // running max, sum and accumulator in VMEM scratch, carried from one key block to the
@@ -35,7 +36,6 @@
 // Only the kv head index is computed for GQA: k and v are not copied per q head.
 #include <cstdint>
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
 
 namespace {
@@ -59,9 +59,7 @@ struct Params {
 };
 
 __device__ __forceinline__ float as_float(float x) { return x; }
-__device__ __forceinline__ float as_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 // 16 bytes of elements -> float
 __device__ __forceinline__ void unpack(const uint4 raw, float* f, float) {
@@ -69,14 +67,6 @@ __device__ __forceinline__ void unpack(const uint4 raw, float* f, float) {
   f[1] = __uint_as_float(raw.y);
   f[2] = __uint_as_float(raw.z);
   f[3] = __uint_as_float(raw.w);
-}
-__device__ __forceinline__ void unpack(const uint4 raw, float* f, __nv_bfloat16) {
-  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {  // a bfloat16 is the top half of a float32
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
 }
 
 __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
@@ -317,12 +307,11 @@ int launch_t(const Params& p, int64_t B, cudaStream_t stream) {
 
 }  // namespace
 
-// Launches on `stream` and returns a CUDA error code as an int (0 = success).
-// dtype: 0 float32, 1 bfloat16 (q, k, v and out alike).  All pointers are device
-// pointers to contiguous tensors; the caller has checked the shapes (Hq % Hkv == 0,
+// Launches on `stream` and returns a CUDA error code as an int (0 = success).  All
+// pointers are device pointers to contiguous float32 tensors; the caller has checked the shapes (Hq % Hkv == 0,
 // D % 8 == 0, 8 <= D <= 128, B and Hkv at most 65,535, S and T at least 1).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
-                                      int32_t dtype, int64_t B, int64_t Hq, int64_t Hkv,
+                                      int64_t B, int64_t Hq, int64_t Hkv,
                                       int64_t S, int64_t T, int64_t D, int32_t causal,
                                       int32_t has_window, int64_t window, float scale,
                                       void* stream) {
@@ -330,5 +319,5 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   Params p{q, k, v, out, Hq, Hkv, S, T, D, Hq / Hkv, (Hq / Hkv) * S,
            causal, has_window, window, scale * kLog2e};
   const auto s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? launch_t<float>(p, B, s) : launch_t<__nv_bfloat16>(p, B, s);
+  return launch_t<float>(p, B, s);
 }

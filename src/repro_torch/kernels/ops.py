@@ -12,9 +12,10 @@ per kernel (the plain version is not counted), so a run can show that its
 serving path and its device build really went through the kernels.
 
 ``tier_intersect`` (K1) serves queries and ``frontier_or`` (K2) expands the
-device wave build.  ``bitset_mm`` (K3), ``flash_attention`` (K4),
-``ell_spmm`` (K5) and ``embedding_bag`` (K6) are the kernel library, the
-counterpart of ``repro.kernels.ops``: no oracle path calls them.
+device wave build.  ``bitset_mm`` (K3), ``flash_attention`` (K4: two
+kernels, chosen by dtype in ``attention_kernel``), ``ell_spmm`` (K5) and
+``embedding_bag`` (K6) are the kernel library, the counterpart of
+``repro.kernels.ops``: no oracle path calls them.
 """
 from __future__ import annotations
 
@@ -26,7 +27,8 @@ from repro_torch.kernels import ref
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES = {"label_intersect": 0, "frontier_or": 0, "bitset_mm": 0,
-            "flash_attention": 0, "ell_spmm": 0, "embedding_bag": 0}
+            "flash_attention": 0, "flash_attention_sm90": 0, "ell_spmm": 0,
+            "embedding_bag": 0}
 
 
 def reset_launches() -> None:
@@ -242,6 +244,20 @@ def embedding_bag(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# K4's kernel for each input dtype: bfloat16 on the tensor cores (wgmma),
+# float32 on the CUDA cores (the tensor cores would run it as TF32)
+ATTENTION_KERNELS = {torch.bfloat16: "flash_attention_sm90", torch.float32: "flash_attention"}
+
+
+def attention_kernel(dtype: torch.dtype) -> str:
+    """The kernel ``flash_attention`` launches for inputs of ``dtype``: a
+    dispatch by dtype alone, never a fall-back from one kernel to the other."""
+    try:
+        return ATTENTION_KERNELS[dtype]
+    except KeyError:
+        raise ValueError(f"flash_attention takes float32 or bfloat16, not {dtype}") from None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window=None, scale=None) -> torch.Tensor:
     """K4: softmax attention with causal, sliding-window and GQA masks, the
@@ -254,9 +270,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (None or an int) keeps ``t > qpos - window``, also without ``causal``.
     A row that keeps no key gives 0.  ``scale`` defaults to ``1/sqrt(D)``
     (taken in float32).  Needs Hq a multiple of Hkv, ``D % 8 == 0`` with
-    ``8 <= D <= 128``, S, T >= 1, and k and v 16-byte aligned (on either
-    device, so both take the same inputs).  Logits and the output
-    accumulate in float32."""
+    ``8 <= D <= 128``, S, T >= 1, and q, k and v 16-byte aligned (on either
+    device, so both take the same inputs).  Logits, the softmax and the
+    output accumulate in float32.
+
+    On the card, bfloat16 runs ``csrc/flash_attention_sm90.cu`` (both
+    products on the tensor cores, counted as ``flash_attention_sm90``) and
+    float32 ``csrc/flash_attention.cu`` (the CUDA cores, counted as
+    ``flash_attention``); ``attention_kernel`` picks by dtype."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if (t.dim() != 4 or not t.is_contiguous()
                 or t.dtype not in (torch.float32, torch.bfloat16)):
@@ -276,10 +297,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"head dim D = {D} must be a multiple of 8 in [8, 128]")
     if S < 1 or T < 1:
         raise ValueError(f"S = {S} and T = {T} must be at least 1")
-    for name, t in (("k", k), ("v", v)):
+    for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
-            # the kernel reads k and v 16 bytes at a time; a misaligned read
-            # would fault and end the CUDA context instead of raising here
+            # the sm90 kernel reads q, k and v 16 bytes at a time (k and v by
+            # TMA, which needs a 16-byte aligned base), the float32 kernel k
+            # and v; a misaligned read would fault and end the CUDA context
+            # instead of raising here
             raise ValueError(f"{name} must start at a 16-byte aligned address, got "
                              f"{t.data_ptr() % 16} bytes past one")
     scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
@@ -288,10 +311,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale)
     if B > 65535 or Hkv > 65535:
         raise ValueError(f"B = {B} and Hkv = {Hkv} must be at most 65,535 (grid size)")
-    out = torch.empty_like(q)
+    kernel = attention_kernel(q.dtype)
+    out = torch.empty_like(q)   # aligned: the sm90 kernel writes 16 bytes at a time
     if B:
-        _launch("flash_attention", dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                out.data_ptr(), 0 if q.dtype == torch.float32 else 1, B, Hq, Hkv, S, T, D,
-                int(bool(causal)), window is not None, 0 if window is None else int(window),
-                scale)
+        _launch(kernel, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                B, Hq, Hkv, S, T, D, int(bool(causal)), window is not None,
+                0 if window is None else int(window), scale)
     return out

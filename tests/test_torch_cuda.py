@@ -244,6 +244,28 @@ def test_bitset_mm_kernel_closure(cuda):
         (3, 32, 8, 1, 1000, 64, True, None),       # decode, GQA 4
         (1, 8, 2, 1024, 1024, 64, True, None),     # kernel_bench's shape
         (1, 4, 4, 5, 300, 8, True, 0),             # window 0: no key at all
+        # the bfloat16 kernel's tile edges: 64-row query tiles of rep * S packed
+        # rows and 64-key tiles; S and T off the tiles, windows one key either
+        # side of a tile boundary, rep 1, 4 and 8, D from 8 to 128 (padded to
+        # 16, 32, 64, 80, 96 or 128), decode with a ragged last key tile, S > T
+        (1, 4, 4, 100, 100, 64, True, None),       # rep 1, ragged S and T
+        (1, 2, 2, 256, 256, 64, True, 63),         # window one key inside a tile
+        (1, 2, 2, 256, 256, 64, True, 64),         # window on a tile boundary
+        (1, 2, 2, 256, 256, 64, True, 65),         # window one key past it
+        (1, 2, 2, 128, 192, 32, False, 64),        # window without causal, T > S
+        (1, 8, 1, 77, 200, 64, True, None),        # rep 8
+        (2, 8, 2, 33, 129, 8, True, None),         # rep 4, D = 8, T one past a tile
+        (1, 4, 2, 70, 130, 24, False, 33),         # D = 24
+        (1, 4, 2, 70, 127, 80, True, 65),          # D = 80, T one short of a tile
+        (1, 4, 1, 50, 190, 128, True, None),       # D = 128
+        (2, 32, 8, 1, 777, 64, True, None),        # decode, ragged last key tile
+        (2, 32, 8, 1, 4097, 128, True, 1000),      # decode, window, D = 128
+        (1, 4, 2, 150, 70, 24, True, None),        # S > T: the first 80 rows see nothing
+        (1, 4, 2, 40, 20, 8, True, None),          # T under one key tile, S > T
+        (1, 4, 2, 70, 100, 40, True, None),        # D = 40: columns 40-63 zero-filled
+        (1, 2, 1, 64, 90, 72, False, None),        # D = 72: a 16-column second chunk
+        (1, 4, 2, 64, 64, 96, True, None),         # D = 96: a 32-column second chunk
+        (1, 2, 2, 65, 65, 112, True, 30),          # D = 112
     ],
 )
 def test_flash_attention_kernel_matches_plain(cuda, rng, B, Hq, Hkv, S, T, D, causal, window,
@@ -252,7 +274,7 @@ def test_flash_attention_kernel_matches_plain(cuda, rng, B, Hq, Hkv, S, T, D, ca
     k = torch.from_numpy(rng.standard_normal((B, Hkv, T, D)).astype(np.float32)).to(cuda)
     v = torch.from_numpy(rng.standard_normal((B, Hkv, T, D)).astype(np.float32)).to(cuda)
     q, k, v = (t.to(dtype) for t in (q, k, v))
-    got = _launched("flash_attention",
+    got = _launched(ops.attention_kernel(dtype),
                     lambda: ops.flash_attention(q, k, v, causal=causal, window=window))
     assert got.dtype == dtype and got.shape == (B, Hq, S, D)
     # the plain version in float32 on the same (rounded) inputs, its result
@@ -263,6 +285,8 @@ def test_flash_attention_kernel_matches_plain(cuda, rng, B, Hq, Hkv, S, T, D, ca
         torch.testing.assert_close(got, exp, rtol=2e-5, atol=2e-5)
     else:
         torch.testing.assert_close(got.float(), exp.to(dtype).float(), rtol=2**-7, atol=1e-4)
+    if causal and S > T:
+        assert not got[:, :, : S - T].any()   # qpos < 0: no key, zero rows
 
 
 def test_flash_attention_kernel_refuses_misaligned_kv(cuda, rng):
@@ -277,10 +301,45 @@ def test_flash_attention_kernel_refuses_misaligned_kv(cuda, rng):
     for args in ((q, shifted, v), (q, k, shifted)):
         with pytest.raises(ValueError, match="16-byte aligned"):
             ops.flash_attention(*args)
-    assert ops.LAUNCHES["flash_attention"] == 0
-    got = _launched("flash_attention", lambda: ops.flash_attention(q, k, v))
+    assert ops.LAUNCHES["flash_attention"] == ops.LAUNCHES["flash_attention_sm90"] == 0
+    got = _launched("flash_attention_sm90", lambda: ops.flash_attention(q, k, v))
     exp = ref.flash_attention_ref(q.float(), k.float(), v.float())
     torch.testing.assert_close(got.float(), exp.to(q.dtype).float(), rtol=2**-7, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_refuses_misaligned_q(cuda, rng, dtype):
+    """q one element into its storage: a ValueError before either kernel
+    launches (the sm90 kernel reads q 16 bytes at a time)."""
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 4, 70, 24)).astype(np.float32))
+               .to(cuda).to(dtype) for _ in range(3))
+    buf = torch.empty(q.numel() + 1, dtype=dtype, device=cuda)
+    shifted = buf[1:].view(q.shape)
+    shifted.copy_(q)
+    ops.reset_launches()
+    with pytest.raises(ValueError, match="q must start at a 16-byte aligned"):
+        ops.flash_attention(shifted, k, v)
+    assert not any(ops.LAUNCHES.values())
+    got = _launched(ops.attention_kernel(dtype), lambda: ops.flash_attention(q, k, v))
+    exp = ref.flash_attention_ref(q.float(), k.float(), v.float())
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, exp, rtol=2e-5, atol=2e-5)
+    else:
+        torch.testing.assert_close(got.float(), exp.to(dtype).float(), rtol=2**-7, atol=1e-4)
+
+
+def test_flash_attention_dispatches_by_dtype(cuda, rng):
+    """A bfloat16 call launches the tensor-core kernel and never the CUDA-core
+    one; a float32 call the other way round."""
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 8, 40, 64)).astype(np.float32))
+               .to(cuda) for _ in range(3))
+    for dtype, name, other in ((torch.bfloat16, "flash_attention_sm90", "flash_attention"),
+                               (torch.float32, "flash_attention", "flash_attention_sm90")):
+        ops.reset_launches()
+        got = ops.flash_attention(*(t.to(dtype) for t in (q, k, v)))
+        torch.cuda.synchronize()
+        assert got.dtype == dtype
+        assert ops.LAUNCHES[name] == 1 and ops.LAUNCHES[other] == 0, dict(ops.LAUNCHES)
 
 
 @pytest.mark.parametrize("n,d,ns,F", [(32, 4, 50, 8), (96, 7, 200, 32), (64, 1, 64, 128),

@@ -8,7 +8,9 @@ checks against the JAX package on the same numpy inputs:
     (the words are bit patterns), and its closure fixpoint against
     ``repro.graph.reach.transitive_closure_bits``;
   * K4 ``flash_attention`` against the Pallas kernel in interpret mode, at
-    the JAX package's own tolerances (2e-5 in float32, 0.05 in bfloat16);
+    the JAX package's own tolerances (2e-5 in float32, 0.05 in bfloat16),
+    on shapes that include the tile edges of the card's bfloat16 kernel, and
+    the choice of its kernel by dtype;
   * K5 ``ell_spmm`` and K6 ``embedding_bag`` against the jnp references at
     1e-5: their Pallas kernels do not run under the installed JAX (``pl.load``
     is gone), so the references are what the JAX package can still run.
@@ -136,13 +138,23 @@ def _qkv(rng, B, Hq, Hkv, S, T, D):
         (1, 2, 1, 192, 64, 32, True, None),       # S > T: the first 128 rows see no key
         (1, 4, 2, 128, 128, 80, True, 40),        # D = 80 (h2o-danube) + SWA
         (1, 2, 2, 64, 128, 16, False, 24),        # a window without causal
+        # the tile edges of the card's bfloat16 kernel (64 packed query rows,
+        # 64 keys; D padded to 16, 32, 64, 80, 96 or 128)
+        (1, 4, 4, 100, 100, 64, True, None),      # rep 1, ragged S and T
+        (1, 2, 2, 130, 130, 32, True, 63),        # window one key inside a tile
+        (1, 2, 2, 130, 130, 32, True, 65),        # window one key past a tile boundary
+        (1, 8, 1, 33, 129, 8, True, None),        # rep 8, D = 8, T one past a tile
+        (1, 4, 2, 70, 127, 24, False, 33),        # D = 24, T one short of a tile
+        (1, 2, 1, 40, 90, 72, True, None),        # D = 72
+        (2, 8, 2, 1, 777, 40, True, None),        # decode, ragged last key tile
     ],
 )
 def test_flash_attention_matches_pallas_interpret(B, Hq, Hkv, S, T, D, causal, window, rng):
     q, k, v = _qkv(rng, B, Hq, Hkv, S, T, D)
+    # the Pallas kernel tiles T evenly: a ragged T takes one key block
     exp = np.asarray(jops.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                                           causal=causal, window=window, block_q=64,
-                                          block_k=64, interpret=True))
+                                          block_k=64 if T % 64 == 0 else T, interpret=True))
     got = ops.flash_attention(_t(q), _t(k), _t(v), causal=causal, window=window)
     assert got.dtype == torch.float32 and got.shape == (B, Hq, S, D)
     np.testing.assert_allclose(got.numpy(), exp, rtol=2e-5, atol=2e-5)
@@ -166,6 +178,24 @@ def test_flash_attention_bf16():
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), pallas, rtol=0.05, atol=0.05)
     np.testing.assert_allclose(got.float().numpy(), f32, rtol=0.05, atol=0.05)
+
+
+@pytest.mark.parametrize("dtype,kernel", [(torch.bfloat16, "flash_attention_sm90"),
+                                          (torch.float32, "flash_attention"),
+                                          (torch.float16, None), (torch.float64, None),
+                                          (torch.int32, None)])
+def test_attention_kernel_is_chosen_by_dtype(dtype, kernel):
+    """bfloat16 goes to the tensor-core kernel, float32 to the CUDA-core one
+    (each with its own launch count and build entry); any other dtype is
+    refused, not sent to either."""
+    from repro_torch.kernels import build
+
+    if kernel is None:
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            ops.attention_kernel(dtype)
+    else:
+        assert ops.attention_kernel(dtype) == kernel
+        assert kernel in ops.LAUNCHES and kernel in build.SIGNATURES
 
 
 def test_flash_attention_empty_rows_give_zero_where_the_jnp_reference_gives_nan(rng):
@@ -298,6 +328,13 @@ def test_wrappers_check_inputs_and_count_no_cpu_launch(rng):
         ops.flash_attention(q, k.to(torch.bfloat16), v)
     with pytest.raises(ValueError, match="contiguous"):
         ops.flash_attention(q.transpose(2, 3), k, v)
+    for dtype in (torch.float32, torch.bfloat16):   # q one element into its storage
+        buf = torch.empty(q.numel() + 1, dtype=dtype)
+        shifted = buf[1:].view(q.shape)
+        shifted.copy_(q)
+        with pytest.raises(ValueError, match="q must start at a 16-byte aligned"):
+            ops.flash_attention(shifted, k.to(dtype), v.to(dtype))
+    assert ops.flash_attention(q, k, v).data_ptr() % 16 == 0
     ops.bitset_mm(A, X)
     ops.ell_spmm(nbr, wgt, x)
     ops.embedding_bag(x, nbr)
