@@ -10,7 +10,11 @@ toolkit (``nvcc``).  Phases, each raising on failure:
   3. each kernel against its plain PyTorch version on the card over edge
      shapes and widths (exact for K1-K3, whose outputs are verdicts and bit
      patterns; K4 at 2e-5 in float32 and one step in bfloat16, each case
-     through the kernel of its dtype, K5 and K6 at 1e-5);
+     through the kernel of its dtype, K5 and K6 at 1e-5).  K2 has two
+     kernels: its slab form ``frontier_or`` (the counterpart of
+     ``repro.kernels.ops.frontier_or``) and its frontier form
+     ``frontier_expand`` (the device build's BFS level), whose cases are
+     ``tests/frontier_cases.py``'s;
   3b. the kernel library (K3 bitset_mm, K4 flash_attention, K5 ell_spmm,
      K6 embedding_bag), which no oracle path calls, at the widths of
      configurations the repo has: the transitive closure of the "human"
@@ -29,14 +33,18 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      merge on every query and against BFS truth on a sample; the kernels'
      launch counts read around exactly this run;
   4b. the device wave build: ``build_oracle(g, device="cuda", impl="device")``
-     on the same graph, K2's launch count read around exactly this build; its
+     on the same graph, the launch counts read around exactly this build
+     (``frontier_expand`` once a BFS level, ``frontier_or`` never); its
      labels byte for byte against phase 4's reference build, phase 4's
      queries served through K1 on it with the same verdicts and every
-     degradation counter 0; K2 against its plain version on a real slab and
-     frontier; the card's busy share over a profiled window of 500 waves;
-  5. timing of K1 and K2 and their plain versions with CUDA events at the
-     main path's shapes, and the kernels JSON line (all seven kernels: K4
-     has two);
+     degradation counter 0; its build seconds, host reads a wave and cone
+     rows a sweep; K2's slab form against its plain version on a real slab
+     and frontier; launches a wave and the card's busy share over a
+     profiled window of 500 waves;
+  5. timing of K1, K2's two kernels and their plain versions with CUDA
+     events at the main path's shapes (``frontier_expand`` at a real level
+     from the middle of the build's schedule), and the kernels JSON line
+     (all eight kernels: K2 and K4 have two each);
   6. where a serving batch spends its time: the device's busy share over a
      window of the main path (torch.profiler) and the engine's spans;
   7. the serve driver (``repro_torch.launch.serve``) on a small graph, a
@@ -44,7 +52,8 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      counter 0.
 
 ``--only-device-build`` runs phases 1-3 and 4b alone, with 4b's own
-reference build, at ``--device-build-scale`` (default 1.0).
+reference build, at ``--device-build-scale`` (default 1.0), and times
+``frontier_expand``.
 ``--only-kernels`` runs phases 1-3b alone.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
@@ -64,6 +73,8 @@ import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# tests/frontier_cases.py: frontier_expand's edge cases, shared with the card tests
+sys.path.insert(1, str(ROOT / "tests"))
 
 # H100 SXM peaks.  HBM bytes/s: NVIDIA's data sheet.  The data sheet gives
 # no INT32 rate; its 67 TFLOP/s float32 rate counts an FMA as two operations
@@ -212,11 +223,57 @@ def phase_kernel_vs_plain(device) -> dict:
                           "the check needs hits and misses")
                     cases += 1
     k2 = _frontier_or_vs_plain(rng, t)
+    k2f = _frontier_expand_vs_plain(device)
     library = _library_vs_plain(rng, device)
     record({"phase": "kernel_vs_plain", "label_intersect_cases": cases,
-            "frontier_or_cases": k2, **{f"{k}_cases": v for k, v in library.items()},
-            "matches_plain": True})
-    return {"label_intersect": cases, "frontier_or": k2, **library}
+            "frontier_or_cases": k2, "frontier_expand_cases": k2f,
+            **{f"{k}_cases": v for k, v in library.items()}, "matches_plain": True})
+    return {"label_intersect": cases, "frontier_or": k2, "frontier_expand": k2f, **library}
+
+
+def _check_frontier_expand(case: dict, device, what: str) -> dict:
+    """frontier_expand against its plain version on one level's inputs (a
+    dict of numpy arrays and ints, ``frontier_cases.ORDER``), on the card:
+    every word, stamp and count exactly, the ring's and the cone's new
+    entries as sets.  The kernel must launch once unless the level is
+    empty.  Returns the kernel's outputs as numpy."""
+    import frontier_cases as fc
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    res = []
+    for fn in (ops.frontier_expand, ref.frontier_expand_ref):
+        args = {k: (torch.from_numpy(case[k].copy()).to(device) if k in fc.ARRAYS
+                    else case[k]) for k in fc.ORDER}
+        before = ops.LAUNCHES["frontier_expand"]
+        fn(*(args[k] for k in fc.ORDER))
+        torch.cuda.synchronize()
+        launched = ops.LAUNCHES["frontier_expand"] - before
+        check(launched == int(fn is ops.frontier_expand and case["hi"] > case["lo"]),
+              f"frontier_expand {what}: {launched} launches")
+        res.append({k: (args[k].cpu().numpy() if k in fc.ARRAYS else args[k])
+                    for k in fc.ORDER})
+    try:
+        fc.assert_same_level(case, res[0], res[1], what)
+    except AssertionError as e:
+        raise AssertionError(f"frontier_expand differs from its plain version: {e}") from None
+    return res[0]
+
+
+def _frontier_expand_vs_plain(device) -> int:
+    """K2's frontier form on the edge cases of ``tests/frontier_cases.py``:
+    an empty frontier, every row, contention on one target, wm of 1, 2 and
+    8, rows of degree 0, a hub of 1,500 neighbors, a bad neighbor id and a
+    bad frontier id (both must set the flag), fully pruned rows."""
+    import frontier_cases as fc
+
+    for i, name in enumerate(fc.CASES):
+        case = fc.make_case(np.random.default_rng(i), name)
+        out = _check_frontier_expand(case, device, name)
+        check(int(out["counts"][2]) == int(name.startswith("bad_")),
+              f"frontier_expand {name}: bad-id flag {int(out['counts'][2])}")
+    return len(fc.CASES)
 
 
 def _check_frontier_or(nbr, f, rng, what: str) -> int:
@@ -456,14 +513,19 @@ def _timed_once(fn) -> tuple:
     return start.elapsed_time(end), out
 
 
-def _kernel_device_ms(fn, symbol: str, calls: int) -> float:
+def _kernel_device_ms(fn, symbol: str, calls: int, attempts: int = 3) -> float:
     """torch.profiler's device time of kernel ``symbol`` per launch, over
     ``calls`` calls of ``fn`` (one launch each).  The mean is taken over the
-    launches the trace holds: a trace has been seen to hold one of two."""
-    _, events = _device_events(lambda: [fn() for _ in range(calls)])
-    times = [us for cat, name, us in events if cat == "kernel" and symbol in name]
+    launches the trace holds: a trace has been seen to hold one of two, and
+    once none of 50, so a trace that holds none is taken again, up to
+    ``attempts`` times."""
+    for _ in range(attempts):
+        _, events = _device_events(lambda: [fn() for _ in range(calls)])
+        times = [us for cat, name, us in events if cat == "kernel" and symbol in name]
+        if times:
+            break
     check(1 <= len(times) <= calls, f"torch.profiler recorded {len(times)} launches of "
-                                    f"{symbol} in {calls} calls")
+                                    f"{symbol} in {calls} calls, {attempts} times")
     return sum(times) / len(times) / 1e3
 
 
@@ -962,10 +1024,10 @@ def _device_window(dag, order, waves, device) -> dict:
     """Profile the device build over the schedule's first ``len(waves)``
     waves: the card's busy share between the first wave's start and the last
     wave's end (the engine's ``build.wave`` spans, mirrored into
-    torch.profiler), with the device time by kind and the host's time in
-    CUDA runtime calls.  The same window is first run without the profiler, timed
-    by the tracer's own ``build.wave`` spans, since the profiler slows the
-    host."""
+    torch.profiler), with the device time by kind, the host's time in CUDA
+    runtime calls and its time by operator.  The same window is first run
+    without the profiler, timed by the tracer's own ``build.wave`` spans,
+    since the profiler slows the host."""
     import tempfile
 
     import torch
@@ -998,7 +1060,7 @@ def _device_window(dag, order, waves, device) -> dict:
         events = [ev for ev in json.loads(path.read_text()).get("traceEvents", [])
                   if ev.get("ph") == "X"]
     t0, t1 = wave_window_us([ev for ev in events if ev.get("cat") == "user_annotation"])
-    by_kind = {"frontier_or": 0.0, "other_kernels": 0.0, "memcpy": 0.0, "memset": 0.0}
+    by_kind = {"frontier_expand": 0.0, "other_kernels": 0.0, "memcpy": 0.0, "memset": 0.0}
     for ev in events:
         cat = ev.get("cat")
         if cat not in ("kernel", "gpu_memcpy", "gpu_memset"):
@@ -1006,12 +1068,13 @@ def _device_window(dag, order, waves, device) -> dict:
         a, b = float(ev["ts"]), float(ev["ts"]) + float(ev.get("dur", 0.0))
         us = max(0.0, min(b, t1) - max(a, t0))
         if cat == "kernel":
-            key = "frontier_or" if "frontier_or_kernel" in ev.get("name", "") else "other_kernels"
+            key = ("frontier_expand" if "frontier_expand_kernel" in ev.get("name", "")
+                   else "other_kernels")
         else:
             key = "memcpy" if cat == "gpu_memcpy" else "memset"
         by_kind[key] += us
     busy_us = sum(by_kind.values())
-    check(by_kind["frontier_or"] > 0, "the profiled window ran no frontier_or kernel")
+    check(by_kind["frontier_expand"] > 0, "the profiled window ran no frontier_expand kernel")
     # host time in CUDA runtime calls inside the window (leaf events: their
     # durations are their own): launches, copies and synchronisations
     runtime = {}
@@ -1019,7 +1082,12 @@ def _device_window(dag, order, waves, device) -> dict:
         if ev.get("cat") in ("cuda_runtime", "cuda_driver") and t0 <= float(ev["ts"]) <= t1:
             ms, count = runtime.get(ev.get("name", ""), (0.0, 0))
             runtime[ev.get("name", "")] = (ms + float(ev.get("dur", 0.0)) / 1e3, count + 1)
+    # the host's time by operator over the whole profiled build (the torch
+    # ops and CUDA runtime calls that cost it the most, self time)
+    ops_by_host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:12]
     return {"waves": len(waves), "members": int(np.sum(waves)),
+            "host_ops": [{"name": e.key, "count": e.count, "self_ms": e.self_cpu_time_total / 1e3}
+                         for e in ops_by_host],
             "window_ms": (t1 - t0) / 1e3, "device_busy_ms": busy_us / 1e3,
             "device_busy_share": busy_us / (t1 - t0),
             "device_ms_by_kind": {k: v / 1e3 for k, v in by_kind.items()},
@@ -1033,12 +1101,52 @@ def _device_window(dag, order, waves, device) -> dict:
                                    sorted(runtime.items(), key=lambda x: -x[1][0])}}
 
 
-def phase_device_build(device, scale, ref_co=None, queries=None, verdicts=None):
+class _LevelCapture:
+    """Wraps ``ops.FrontierExpand.__call__`` (the build's one call a level)
+    for one build and keeps a copy of the inputs of one real level: the
+    first with at least ``min_rows`` frontier rows at or after sweep
+    ``sweep_at`` (a sweep's first level starts at ring position 0), in the
+    order of ``frontier_expand``'s arguments.  The wrapped call runs
+    unchanged and counts its launch as before; the copies are
+    device-to-device copies, not kernel launches."""
+
+    def __init__(self, sweep_at: int, min_rows: int = 8):
+        self.sweep_at, self.min_rows = sweep_at, min_rows
+        self.sweeps, self.args, self.at = 0, None, None
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        self.wrapped = ops.FrontierExpand.__call__
+        capture = self
+
+        def call(ex, lo, hi, delta_cur, delta_next, L_tgt, sweep, level):
+            capture.sweeps += lo == 0
+            if (capture.args is None and capture.sweeps > capture.sweep_at
+                    and hi - lo >= capture.min_rows):
+                capture.args = [t.clone() if hasattr(t, "clone") else t for t in (
+                    ex.frontier, lo, hi, ex.indptr, ex.indices, ex.v, ex.pruned, delta_cur,
+                    delta_next, L_tgt, ex.hop_mask, ex.stamps, sweep, level, ex.cone,
+                    ex.counts)]
+                capture.at = {"sweep": capture.sweeps - 1, "frontier_rows": hi - lo}
+            return capture.wrapped(ex, lo, hi, delta_cur, delta_next, L_tgt, sweep, level)
+
+        ops.FrontierExpand.__call__ = call
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+
+        ops.FrontierExpand.__call__ = self.wrapped
+
+
+def phase_device_build(device, scale, ref_co=None, queries=None, verdicts=None) -> dict:
     """The device wave build of citeseer@``scale`` on the card, held byte for
     byte against the reference build (phase 4's at full size, else its own)
     and served through K1 with the reference oracle's verdicts.  Returns
-    (K2 launches of the build, K2 cases checked, the real slab and frontier
-    for phase 5)."""
+    {"launches": the build's kernel launches, "frontier_or_cases": K2 slab
+    cases checked, "real_slab": a real slab and frontier for phase 5,
+    "level": a real level's inputs from the middle of the schedule}."""
     import torch
 
     from repro_torch.build import bitset
@@ -1058,19 +1166,31 @@ def phase_device_build(device, scale, ref_co=None, queries=None, verdicts=None):
         rec["reference_build_seconds"] = time.perf_counter() - t0
         queries = np.random.default_rng(0).integers(0, g.n, (64 * BATCH, 2)).astype(np.int32)
         verdicts, _ = serve_all(ref_co, queries, None)
+    dag, _ = condense_to_dag(g)
+    order = get_order(dag, "degree_product")
+    waves = wave_schedule(dag, order, max_wave=256)
 
-    # ---- the counted run: the device build
+    # ---- the counted run: the device build (a copy of one level's inputs
+    # is kept from the middle sweep on, for phase 5)
     torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.perf_counter()
-    co = build_oracle(g, device=device, impl="device")
-    torch.cuda.synchronize()
+    with _LevelCapture(sweep_at=waves.shape[0]) as level:
+        co = build_oracle(g, device=device, impl="device")
+        torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     # ----
     st = co.oracle.build_stats
+    dev = st["device"]
     check(st["impl"] == "device", f"impl={st['impl']!r}")
-    check(launches["frontier_or"] > 0, "frontier_or never launched in the device build")
+    check(launches["frontier_expand"] > 0, "frontier_expand never launched in the device build")
+    check(launches["frontier_expand"] == dev["levels"],
+          f"{launches['frontier_expand']} frontier_expand launches for {dev['levels']} levels")
+    check(launches["frontier_or"] == 0, "the device build launched the slab-form frontier_or")
+    check(dev["host_reads"] == dev["levels"] + dev["sweeps"],
+          f"{dev['host_reads']} host reads for {dev['levels']} levels and {dev['sweeps']} sweeps")
+    check(level.args is not None, "no level of the middle sweeps was captured")
     for f in LABEL_FIELDS:
         a, b = getattr(ref_co.oracle, f), getattr(co.oracle, f)
         check(a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes(),
@@ -1086,31 +1206,29 @@ def phase_device_build(device, scale, ref_co=None, queries=None, verdicts=None):
           f"device-built oracle differs on {int((got != verdicts).sum())} verdicts")
     check(not any(co.engine.degradation.values()),
           f"degradation counters moved: {co.engine.degradation}")
-    dev = st["device"]
+    check(waves.shape[0] == st["n_waves"], "the schedule differs from the build's")
     rec.update({
         "build_seconds": t_build, "schedule_seconds": st["schedule_seconds"],
         "sweep_seconds": st["sweep_seconds"], "n_waves": st["n_waves"],
         "sweeps": dev["sweeps"], "bfs_levels": dev["levels"],
         "host_reads": dev["host_reads"], "regrows": dev["regrows"],
+        "host_reads_per_wave": dev["host_reads"] / st["n_waves"],
+        "levels_per_sweep": dev["levels"] / dev["sweeps"],
+        "cone_rows_per_sweep": {"mean": dev["cone_rows_mean"], "p99": dev["cone_rows_p99"],
+                                "max": dev["cone_rows_max"]},
         "l_max": dev["l_max"], "member_width": dev["member_width"],
         "launches": launches, "labels_equal_reference": True,
         "sweep_ms_per_wave": st["sweep_seconds"] * 1e3 / st["n_waves"],
         "served_queries": int(queries.shape[0]), "serve_seconds": t_serve,
         "serve_launches": serve_launches, "verdicts_equal_reference": True,
-        "degradation": dict(co.engine.degradation)})
-    log(f"device build {MAIN_DATASET}@{scale}: {t_build:.3f} s, {st['n_waves']} waves, "
-        f"{dev['levels']} levels, {launches['frontier_or']} K2 launches")
+        "degradation": dict(co.engine.degradation), "timed_level": level.at})
     del co
 
-    # K2 on a real slab and frontier: the out-slab (reverse sweeps) and the
-    # first wave's members expanded three unpruned levels
-    dag, _ = condense_to_dag(g)
-    order = get_order(dag, "degree_product")
+    # K2's slab form on a real slab and frontier: the out-slab (reverse
+    # sweeps) and the first wave's members expanded three unpruned levels
     perm, _, slabs = bitset.ell_slabs(dag.indptr.astype(np.int64),
                                       dag.indices.astype(np.int64), dag.n, width=16)
-    waves = wave_schedule(dag, order, max_wave=256)
-    check(waves.shape[0] == st["n_waves"], "the schedule differs from the build's")
-    w = int(st["device"]["member_width"])
+    w = int(dev["member_width"])
     wm = (w + 31) // 32
     slab = torch.from_numpy(slabs[0]).to(device)
     perm_r = torch.from_numpy(perm[: slabs[0].shape[0]].copy()).to(device)
@@ -1126,9 +1244,20 @@ def phase_device_build(device, scale, ref_co=None, queries=None, verdicts=None):
     rec["real_slab"] = {"r": int(slab.shape[0]), "d": int(slab.shape[1]), "wm": wm,
                         "frontier_rows": int(v.ne(0).any(1).sum())}
 
-    rec["profiled_window"] = _device_window(dag, order, waves[:PROFILED_WAVES], device)
+    win = rec["profiled_window"] = _device_window(dag, order, waves[:PROFILED_WAVES], device)
+    calls = win["host_runtime_calls"]
+    rec["launches_per_wave"] = {name: calls[name]["count"] / win["waves"]
+                                for name in ("cudaLaunchKernel", "cudaLaunchKernelExC")
+                                if name in calls}
     record(rec)
-    return launches["frontier_or"], cases, (slab, v, perm_r)
+    log(f"device build {MAIN_DATASET}@{scale}: build_seconds {t_build:.3f}, "
+        f"{st['n_waves']} waves, {dev['levels']} levels, {launches['frontier_expand']} "
+        f"frontier_expand launches; launches a wave {rec['launches_per_wave']} (first "
+        f"{win['waves']} waves); host reads a wave {rec['host_reads_per_wave']:.3f}; cone "
+        f"rows a sweep mean {dev['cone_rows_mean']:.2f} p99 {dev['cone_rows_p99']:.1f}; "
+        f"busy {win['device_busy_share']:.4f} profiled")
+    return {"launches": launches, "frontier_or_cases": cases, "real_slab": (slab, v, perm_r),
+            "level": level.args}
 
 
 # ------------------------------------------------------------------ phase 5
@@ -1223,9 +1352,10 @@ def phase_timing(co, rest: np.ndarray, launches: dict, cases: dict) -> list:
 
 
 def timing_frontier_or(real, launches: int, cases: int) -> dict:
-    """K2 and its plain version in the device build's fused form at the real
-    out-slab and frontier of phase 4b: out[perm[i]] |= OR of the frontier
-    words of row i's neighbors."""
+    """K2's slab form and its plain version, fused, at the real out-slab and
+    frontier of phase 4b: out[perm[i]] |= OR of the frontier words of row
+    i's neighbors.  No build path launches it since the frontier form; its
+    bound counts the whole slab."""
     import torch
 
     from repro_torch.kernels import ops, ref
@@ -1272,6 +1402,96 @@ def timing_frontier_or(real, launches: int, cases: int) -> dict:
         "plain_ms_runs": [p1, p2],
         **_bound(bytes_moved, ops_needed, PEAK_INT32_OPS_PER_S),
         # no single PyTorch call computes an OR-reduction gather
+        "library_ms": None,
+    }
+
+
+def timing_frontier_expand(level: list, launches: int, cases: int) -> dict:
+    """K2's frontier form and its plain version at a real level of phase
+    4b's build (a sweep in the middle of the schedule): checked against the
+    plain version, then each call timed alone with CUDA events after the
+    level's state is restored (a level runs once, and the build reads the
+    host after every level, so calls do not overlap)."""
+    import frontier_cases as fc
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    base = dict(zip(fc.ORDER, level))
+    case = {k: (base[k].cpu().numpy() if k in fc.ARRAYS else base[k]) for k in fc.ORDER}
+    out = _check_frontier_expand(case, base["v"].device, "a real level of the build")
+    state = {k: base[k].clone() for k in ("frontier", "v", "pruned", "delta_cur", "delta_next",
+                                          "stamps", "cone", "counts")}
+    args = [state.get(k, base[k]) for k in fc.ORDER]
+
+    def restore():
+        for k, t in state.items():
+            t.copy_(base[k])
+
+    def per_call_ms(fn, reps: int) -> list:
+        times = []
+        for _ in range(reps):
+            restore()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn(*args)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return times
+
+    p1, k1 = per_call_ms(ref.frontier_expand_ref, 20), per_call_ms(ops.frontier_expand, 200)
+    k2, p2 = per_call_ms(ops.frontier_expand, 200), per_call_ms(ref.frontier_expand_ref, 20)
+    device_ms = _kernel_device_ms(lambda: (restore(), ops.frontier_expand(*args)),
+                                  "frontier_expand_kernel", 50)
+
+    # the work this level needs (each input read once, each output written
+    # once): the frontier rows' ids, CSR offsets, verdict stamps, pushed and
+    # cleared words and verdicts; the label rows and the distinct hop-mask
+    # rows of the rows that compute a verdict; each edge's neighbor id; the
+    # distinct targets' visited words (read, and written where they gained),
+    # the gained rows' delta words and stamps, the claims' ring and cone
+    # entries; one OR per edge word and per hop word
+    lo, hi, cap = case["lo"], case["hi"], case["frontier"].shape[0]
+    rows = case["frontier"][np.arange(lo, hi) % cap].astype(np.int64)
+    k = rows.size
+    n, wm = case["v"].shape
+    l_max = case["L_tgt"].shape[1]
+    fresh = rows[case["stamps"][1, rows] != case["sweep"]]
+    hops = case["L_tgt"][fresh].ravel()
+    n_hop = np.unique(hops[hops >= 0]).size
+    e0, e1 = case["indptr"][rows], case["indptr"][rows + 1]
+    edges = np.concatenate([np.arange(a, b) for a, b in zip(e0, e1)]) if k else np.zeros(0, int)
+    targets = np.unique(case["indices"][edges])
+    gained = int((out["v"] != case["v"]).any(1).sum())
+    claims = int(out["counts"][0] - case["counts"][0])
+    joined = int(out["counts"][1] - case["counts"][1])
+    nbytes = (k * (4 + 16 + 4 + 3 * wm * 4) + fresh.size * (l_max * 4 + wm * 4 + 4)
+              + n_hop * wm * 4 + edges.size * 4 + targets.size * wm * 4
+              + gained * (3 * wm * 4 + 4) + claims * 8 + joined * 8 + 24)
+    ops_needed = (edges.size + fresh.size * l_max) * wm
+    return {
+        "name": "frontier_expand",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/frontier_expand.cu",
+        "replaces": "src/repro/kernels/frontier_ell.py:61",
+        "launches": launches,
+        "matches_plain": True,
+        "cases_checked": cases,
+        "max_abs_err": 0,
+        "shape": {"n": n, "wm": wm, "l_max": l_max, "frontier_rows": k,
+                  "verdict_rows": int(fresh.size), "hop_rows": n_hop,
+                  "edges": int(edges.size), "targets": int(targets.size),
+                  "gained_rows": gained, "claims": claims, "cone_joins": joined},
+        "ms": float(np.median(k1 + k2)), "ms_min": min(k1 + k2),
+        "ms_runs": [float(np.median(k1)), float(np.median(k2))],
+        "device_ms": device_ms,
+        "plain_ms": float(np.median(p1 + p2)), "plain_ms_runs": [float(np.median(p1)),
+                                                                  float(np.median(p2))],
+        **_bound(nbytes, ops_needed, PEAK_INT32_OPS_PER_S),
+        # no PyTorch call pushes packed words over a CSR with claims
         "library_ms": None,
     }
 
@@ -1364,19 +1584,24 @@ def main(argv=None) -> int:
     phase_build()
     cases = phase_kernel_vs_plain(device)
     if args.only_device_build:
-        phase_device_build(device, args.device_build_scale)
-        kernels = None
+        built = phase_device_build(device, args.device_build_scale)
+        kernels = [timing_frontier_expand(built["level"], built["launches"]["frontier_expand"],
+                                          cases["frontier_expand"] + 1)]
     elif args.only_kernels:
         kernels = phase_kernel_library(device, cases)
     else:
         library = phase_kernel_library(device, cases)
         co, queries, rest, launches, verdicts = phase_main_path(device)
         same = args.device_build_scale == MAIN_SCALE
-        k2_launches, k2_cases, real = phase_device_build(
+        built = phase_device_build(
             device, args.device_build_scale, *((co, queries, verdicts) if same else ()))
-        cases["frontier_or"] += k2_cases
+        cases["frontier_or"] += built["frontier_or_cases"]
         kernels = phase_timing(co, rest, launches, cases)
-        kernels.append(timing_frontier_or(real, k2_launches, cases["frontier_or"]))
+        kernels.append(timing_frontier_expand(built["level"],
+                                              built["launches"]["frontier_expand"],
+                                              cases["frontier_expand"] + 1))
+        kernels.append(timing_frontier_or(built["real_slab"], built["launches"]["frontier_or"],
+                                          cases["frontier_or"]))
         kernels += library
         phase_serving_profile(co, queries)
         phase_driver()

@@ -6,28 +6,31 @@ runs one sweep per direction, and a sweep is the same three steps:
 
   1. prune:   pruned[u] = OR_{h in L(u)} hop_mask[h]      (gather + OR-fold)
   2. reach:   masked multi-source BFS from the wave members where pruned
-              member-bits do not expand                    (K2, ELL OR-gather)
+              member-bits do not expand                    (K2, frontier push)
   3. append:  labeled = visited & ~pruned -> rank appends  (segment scatter)
 
-Everything inside a sweep runs on the build's device:
+Everything inside a sweep runs on the build's device, and its cost tracks
+the sweep's cone (the rows it reaches), not n:
 
-  * frontier expansion is K2 (``kernels.ops.frontier_or``) over the
-    degree-sorted neighbor slabs of ``bitset.ell_slabs``, in its fused form:
-    each slab ORs straight into the visited words at the slab rows' vertices
-    (JAX's ``out_perm[:r] |= part`` then ``out_perm[pos]``), and sets a
-    device flag when a word gained a bit.  On a CUDA device that is the
-    hand-written kernel; on the CPU its plain version;
-  * JAX's ``lax.while_loop`` becomes a Python loop over BFS levels with two
-    host reads per level: the size of the needy rows' ``nonzero`` (it picks
-    the sparse or the dense prune, JAX's ``lax.cond``) and the K2 flags (the
-    fixpoint's "changed" test, and the bad-id check).  One more read per
-    sweep fetches the overflow flag;
-  * the append runs only over the rows the sweep visited (every other row
-    appends nothing), with the ranks scattered into the dense label matrix.
-    JAX's ``mode="drop"`` has no torch counterpart, so the label matrices
-    carry one parking row (row n) that takes the appends JAX drops, and the
-    hop mask two (row n stays zero for INVALID label entries, row n + 1 takes
-    the scatter of INVALID member label entries).
+  * a BFS level is one launch of K2's frontier form
+    (``kernels.ops.frontier_expand``): the rows the last level reached push
+    the bits they gained over the CSR, compute their prune verdict the first
+    time they push, and claim the rows that gain a bit for the next level
+    and for the sweep's cone.  On a CUDA device that is the hand-written
+    kernel; on the CPU its plain version.  Each bit of a row is pushed once,
+    when the row gains it, so every level gives the same visited words as
+    JAX's dense level ``v | expand(v & ~pruned)``;
+  * JAX's ``lax.while_loop`` becomes a Python loop over BFS levels with one
+    host read per level (the ring position, which says whether the level
+    claimed a row, the cone length and the bad-id flag) and one per sweep
+    (the overflow flag);
+  * the append runs over the cone, with the ranks scattered into the dense
+    label matrix.  JAX's ``mode="drop"`` has no torch counterpart, so the
+    label matrices carry one parking row (row n) that takes the appends JAX
+    drops, and the hop mask two (row n stays zero, row n + 1 takes the
+    scatter of INVALID member label entries);
+  * the state (``_SweepState``) is allocated once per build, and a sweep
+    resets only the rows it touched.
 
 Packed member words are int32 bit patterns: ``torch.uint32`` lacks ``~``,
 ``>>`` and ``index_put_(accumulate=True)``.  Bit 31 is the sign bit, so
@@ -71,117 +74,135 @@ def _member_consts(w: int, device) -> tuple:
             torch.from_numpy((j % 32).astype(np.int32)).to(device))
 
 
-def _expand_fn(slabs, perm, device):
-    """Build the per-level expansion: ``expand(f, out, flags)`` ORs one BFS
-    step of every member, from frontier words ``f`` int32[n, wm], into
-    ``out`` int32[n, wm] in place (row i of a slab is vertex ``perm[i]``)."""
-    slab_t = [torch.from_numpy(np.ascontiguousarray(s)).to(device) for s in slabs]
-    perm_t = torch.from_numpy(np.ascontiguousarray(perm, dtype=np.int64)).to(device)
+class _SweepState:
+    """The sweep's device state, allocated once per build (``wm`` words a
+    row).  Between sweeps ``v``, ``delta`` and ``hop_mask`` are zero: a sweep
+    resets only the rows it touched.  ``pruned`` keeps old verdicts, which
+    the verdict stamps mark as stale.
 
-    def expand(f, out, flags):
-        for slab in slab_t:
-            ops.frontier_or(slab, f, out=out, perm=perm_t[: slab.shape[0]], flags=flags)
+      v, pruned          int32[n, wm]  visited words and prune verdicts
+      delta              int32[2, n, wm]  the bits rows gained in the last
+                         level and in this one (``frontier_expand`` clears
+                         the first as it reads it, so both are zero again
+                         when a sweep ends)
+      hop_mask           int32[n + 2, wm]  row n stays zero, row n + 1 takes
+                         the members' INVALID label entries
+      stamps             int32[3, n]  level claims, verdict sweeps, cone
+                         sweeps: ids that only grow, so they need no reset
+      frontier           int32[2n]  the ring of level rows
+      cone, counts       int32[n], int64[3]  the sweep's distinct rows; the
+                         ring position, cone length and bad-id flag"""
 
-    return expand
+    def __init__(self, n: int, w: int, device):
+        wm = (w + 31) // 32
+        z = dict(dtype=torch.int32, device=device)
+        self.v = torch.zeros((n, wm), **z)
+        self.pruned = torch.zeros((n, wm), **z)
+        self.delta = torch.zeros((2, n, wm), **z)
+        self.deltas = (self.delta[0], self.delta[1])
+        self.hop_mask = torch.zeros((n + 2, wm), **z)
+        self.stamps = torch.full((3, n), -1, **z)
+        self.frontier = torch.zeros(2 * n, **z)
+        self.cone = torch.zeros(n, **z)
+        self.counts = torch.zeros(3, dtype=torch.int64, device=device)
+        self.sweep = 0
+        self.level = 0
+        self.consts = _member_consts(w, device)
+        self._bit_rows = {}
+
+    def expander(self, indptr, indices) -> ops.FrontierExpand:
+        """``frontier_expand`` bound to this state and the CSR (indptr int64[n
+        + 1], indices int32[m]) that a sweep pushes the member bits over."""
+        return ops.FrontierExpand(self.frontier, indptr, indices, self.v, self.pruned,
+                                  self.hop_mask, self.stamps, self.cone, self.counts)
+
+    def bit_rows(self, l_max: int) -> torch.Tensor:
+        """int32[w, l_max]: member j's bit in every column of its row."""
+        if l_max not in self._bit_rows:
+            bit = self.consts[1]
+            self._bit_rows[l_max] = bit[:, None].expand(bit.shape[0], l_max).contiguous()
+        return self._bit_rows[l_max]
 
 
-def _make_wave_step(n, w, l_max, expand, consts, prune_cap=None, counts=None):
+def _sweep(st: _SweepState, expand: ops.FrontierExpand, L_src, L_tgt, len_tgt, members, ranks,
+           counts: dict) -> bool:
     """One direction of Algorithm 2 for a whole wave, on the device.
 
-    ``prune_cap``: prune verdicts are computed lazily per level for the rows
-    the BFS just visited — a gather of those rows when they number at most
-    ``prune_cap`` (cost tracks cone size, not n), the dense all-rows fold on
-    levels that visit more.  The step updates the target label matrix and
-    lengths in place and returns ``(overflow, len_prev)``: the pre-wave
-    lengths let an overflowing sweep be undone.  ``counts`` (a dict) adds up
-    levels and host reads."""
-    wm = (w + 31) // 32
-    word_all, bit_all, shift_all = consts
-    if prune_cap is None:
-        prune_cap = max(256, n // 8)
-    prune_cap = min(prune_cap, n)
+    ``expand`` pushes the member bits over the sweep's CSR
+    (``st.expander``); ``members`` int64[wlen] and ``ranks`` int32[wlen].
+    Appends to ``L_tgt`` and ``len_tgt`` in place and returns whether the
+    sweep overflowed ``L_tgt``'s width: then ``len_tgt`` still holds the
+    pre-wave lengths and the appends it made are undone by ``_undo``.
+    ``counts`` adds up levels, host reads and the sweep's cone rows.
 
-    def wave_step(L_src, L_tgt, len_tgt, members, ranks):
-        dev = L_tgt.device
-        wlen = members.shape[0]
-        word, bit, shift = word_all[:wlen], bit_all[:wlen], shift_all[:wlen]
+    The sweep's torch ops take indices as int64 tensors and scalars as
+    kernel arguments (``scatter_``, ``index_fill_``, ``masked_fill_``): an
+    ``index_put_`` or a ``torch.where`` with a Python scalar costs host
+    syncs, bound checks or a host-to-device copy."""
+    n, wm = st.v.shape
+    l_max = L_tgt.shape[1]
+    wlen = members.shape[0]
+    word, bit, shift = (c[:wlen] for c in st.consts)
+    sweep = st.sweep
+    st.sweep += 1
 
-        # 1. hop_mask[h] = member words of members whose prune row holds h.
-        #    Scatter-ADD is exact: each (member, hop) pair is unique, and
-        #    distinct members in one word carry distinct bits, so add == OR.
-        #    Row n stays zero (INVALID gathers park there); row n + 1 takes
-        #    the INVALID entries of the members' rows.
-        rows_src = L_src[members]                                   # [wlen, l_max]
-        hops = torch.where(rows_src != _INVALID, rows_src, n + 1).long()
-        hop_mask = torch.zeros((n + 2, wm), dtype=torch.int32, device=dev)
-        hop_mask.index_put_((hops, word[:, None].expand_as(hops)),
-                            bit[:, None].expand_as(hops), accumulate=True)
+    # 1. hop_mask[h] = member words of members whose prune row holds h.
+    #    Scatter-ADD is exact: each (member, hop) pair is unique, and
+    #    distinct members in one word carry distinct bits, so add == OR.
+    hops = L_src[members].long()                                # [wlen, l_max]
+    hops.masked_fill_(hops == _INVALID, n + 1)
+    st.hop_mask.view(-1).scatter_add_(0, (hops * wm + word[:, None]).view(-1),
+                                      st.bit_rows(l_max)[:wlen].view(-1))
 
-        # 2. fixpoint masked reach.  Verdicts are filled in lazily: each level
-        #    computes them for the rows the previous level visited, so the
-        #    loop ends only after every visited row has its verdict — the
-        #    final level makes no change.
-        v = torch.zeros((n, wm), dtype=torch.int32, device=dev)
-        v[members, word] = bit
-        pruned = torch.zeros((n, wm), dtype=torch.int32, device=dev)
-        computed = torch.zeros(n, dtype=torch.bool, device=dev)
-        flags = torch.zeros(2, dtype=torch.int32, device=dev)
-        visited_rows = []
-        tgt_hops = None
-        while True:
-            need = v.ne(0).any(1) & ~computed
-            # host read 1 of the level: nonzero's size (sparse or dense prune)
-            idx = need.nonzero().squeeze(1)
-            k = idx.shape[0]
-            if k:
-                visited_rows.append(idx)
-                if k <= prune_cap:
-                    th = L_tgt[idx]
-                    th = torch.where(th != _INVALID, th, n).long()
-                    pruned[idx] = or_reduce(hop_mask[th], dim=1)
-                else:
-                    if tgt_hops is None:  # L_tgt does not change within the fixpoint
-                        lt = L_tgt[:n]
-                        tgt_hops = torch.where(lt != _INVALID, lt, n).long()
-                    verd = or_reduce(hop_mask[tgt_hops], dim=1)
-                    pruned = torch.where(need[:, None], verd, pruned)
-                computed |= need
-            flags.zero_()
-            expand(v & ~pruned, v, flags)
-            # host read 2 of the level: K2's flags (changed, bad id)
-            changed, bad = flags.tolist()
-            if counts is not None:
-                counts["levels"] += 1
-                counts["host_reads"] += 2
-            if bad:
-                raise RuntimeError("frontier_or met a neighbor id or row outside the graph")
-            if not changed:
-                break
+    # 2. fixpoint masked reach, a level at a time from the rows the last
+    #    level reached.  The members are level 0's frontier and the cone's
+    #    first rows; each level is one frontier_expand launch and one host
+    #    read (ring position, cone length, bad-id flag), and the fixpoint
+    #    ends when a level claims no row.  counts[2] is 0 here: a sweep that
+    #    sets it raises.
+    flat = members * wm + word
+    st.v.view(-1).scatter_(0, flat, bit)
+    st.deltas[0].view(-1).scatter_(0, flat, bit)
+    st.frontier[:wlen].copy_(members)
+    st.cone[:wlen].copy_(members)
+    st.stamps[2].index_fill_(0, members, sweep)
+    st.counts[:2].fill_(wlen)
+    lo, hi, cur = 0, wlen, 0
+    while True:
+        expand(lo, hi, st.deltas[cur], st.deltas[1 - cur], L_tgt, sweep, st.level)
+        st.level += 1
+        ring, n_cone, bad = st.counts.tolist()
+        counts["levels"] += 1
+        counts["host_reads"] += 1
+        if bad:
+            raise RuntimeError("frontier_expand met a row, neighbor or label id "
+                               "outside the graph")
+        if ring == hi:
+            break
+        lo, hi, cur = hi, ring, 1 - cur
+    counts["cone_rows"].append(n_cone)
 
-        # 3. segment-scatter append over the visited rows: member bits ->
-        #    (row, len + prefix-popcount) columns.  Appends that JAX drops
-        #    (a column at or past l_max) park in row n, column 0.
-        len_prev = len_tgt.clone()
-        overflow = False
-        if visited_rows:
-            rows = torch.cat(visited_rows)        # distinct: need excludes computed rows
-            lab = v[rows] & ~pruned[rows]         # [k, wm]
-            bits = (lab[:, word] >> shift) & 1    # [k, wlen] int32
-            prefix = bits.cumsum(1, dtype=torch.int32) - bits
-            pos = len_tgt[rows][:, None] + prefix
-            on = bits.ne(0)
-            fits = on & (pos < l_max)
-            r_idx = torch.where(fits, rows[:, None], n)
-            c_idx = torch.where(fits, pos, 0).long()
-            L_tgt.index_put_((r_idx, c_idx), ranks[None, :].expand_as(pos))
-            len_tgt.index_add_(0, rows, bits.sum(1, dtype=torch.int32))
-            # the one host read of the sweep: the overflow flag
-            overflow = bool((on & ~fits).any())
-            if counts is not None:
-                counts["host_reads"] += 1
-        return overflow, len_prev
+    # 3. segment-scatter append over the cone (its rows are distinct):
+    #    member bits -> (row, len + prefix-popcount) columns.  Appends that
+    #    JAX drops (a column at or past l_max) park in row n, column 0.
+    rows = st.cone[:n_cone].long()
+    lab = st.v[rows] & ~st.pruned[rows]       # [k, wm]
+    bits = (lab[:, word] >> shift) & 1        # [k, wlen] int32
+    cnt = bits.sum(1, dtype=torch.int32)
+    ln = len_tgt[rows]
+    pos = ln[:, None] + bits.cumsum(1, dtype=torch.int32) - bits
+    dst = (rows[:, None] * l_max + pos).masked_fill_((bits == 0) | (pos >= l_max), n * l_max)
+    L_tgt.view(-1).scatter_(0, dst.view(-1), ranks.repeat(rows.shape[0]))
+    # the one host read of the sweep beside the levels': a row outgrew l_max
+    overflow = bool((ln + cnt > l_max).any())
+    counts["host_reads"] += 1
+    if not overflow:
+        len_tgt.index_add_(0, rows, cnt)
 
-    return wave_step
+    # 4. leave the state zero: the cone's words and the members' hop rows
+    st.v.index_fill_(0, rows, 0)
+    st.hop_mask.index_fill_(0, hops.view(-1), 0)
+    return overflow
 
 
 def _undo(L, len_prev):
@@ -257,15 +278,18 @@ def distribution_labeling_device(
     """Full device wave build (host loop over waves, device sweeps).
 
     ``l_max`` is the starting label-matrix width: overflowing sweeps grow it
-    geometrically and run again after a watermark undo.  ``prune_cap``
-    bounds the per-level sparse prune gather (default max(256, n // 8)).
-    ``device`` is where the sweeps run: K2 on a CUDA device, its plain
+    geometrically and run again after a watermark undo.  ``device`` is where
+    the sweeps run: ``frontier_expand``'s kernel on a CUDA device, its plain
     version on the CPU.  ``stats_out`` (a dict) receives the counts of
-    sweeps, BFS levels, host reads and regrows.
+    sweeps, BFS levels, host reads and regrows, and the cone rows a sweep.
 
-    JAX's ``expand``, ``interpret``, ``block_n``, ``donate`` and ``mesh``
-    have no counterpart: which expansion runs is set by where the tensors
-    lie, and the sharded expansion is ROADMAP.md Queue 1 item 11."""
+    ``ell_width`` and ``prune_cap`` keep JAX's signature and change
+    nothing: the levels push over the CSR, not over ELL slabs, and every
+    verdict is computed once, for the rows a level claimed, where JAX picks
+    between a gather of at most ``prune_cap`` rows and a dense fold.  JAX's
+    ``expand``, ``interpret``, ``block_n``, ``donate`` and ``mesh`` have no
+    counterpart: which expansion runs is set by where the tensors lie, and
+    the sharded expansion is ROADMAP.md Queue 1 item 11."""
     from repro_torch.build.engine import _hop_rank
 
     dev = resolve_device(device)
@@ -283,20 +307,16 @@ def distribution_labeling_device(
     max_wave = ((max_wave + 31) // 32) * 32 if max_wave > 32 else max_wave
     g_rev = g.reverse()
 
-    # reverse pass expands u -> in-neighbors w (edge w -> u): destination-
-    # stationary rows = packed OUT-neighbor slabs; forward pass symmetric
-    # with the reverse graph's rows
-    perm_out, _, slabs_out = bitset.ell_slabs(
-        g.indptr.astype(np.int64), g.indices.astype(np.int64), n, width=ell_width)
-    perm_in, _, slabs_in = bitset.ell_slabs(
-        g_rev.indptr.astype(np.int64), g_rev.indices.astype(np.int64), n, width=ell_width)
+    # the reverse sweep pushes a row's bits to its in-neighbors (the
+    # reverse graph's CSR), the forward sweep to its out-neighbors
+    def csr(h):
+        return (torch.from_numpy(np.ascontiguousarray(h.indptr, dtype=np.int64)).to(dev),
+                torch.from_numpy(np.ascontiguousarray(h.indices, dtype=np.int32)).to(dev))
 
     w = int(max_wave)
-    consts = _member_consts(w, dev)
-    ex_out = _expand_fn(slabs_out, perm_out, dev)
-    ex_in = _expand_fn(slabs_in, perm_in, dev)
-    counts = {"sweeps": 0, "levels": 0, "host_reads": 0, "regrows": 0}
-    step_rev = step_fwd = None  # rebuilt when l_max grows
+    st = _SweepState(n, w, dev)
+    ex_rev, ex_fwd = st.expander(*csr(g_rev)), st.expander(*csr(g))
+    counts = {"sweeps": 0, "levels": 0, "host_reads": 0, "regrows": 0, "cone_rows": []}
 
     # row n of each label matrix parks the appends JAX drops
     L_out = torch.full((n + 1, l_max), _INVALID, dtype=torch.int32, device=dev)
@@ -319,38 +339,37 @@ def distribution_labeling_device(
             # the member's own rank, which the reverse sweep just appended
             for direction in ("rev", "fwd"):
                 while True:
-                    if step_rev is None:
-                        step_rev = _make_wave_step(n, w, l_max, ex_out, consts,
-                                                   prune_cap=prune_cap, counts=counts)
-                        step_fwd = _make_wave_step(n, w, l_max, ex_in, consts,
-                                                   prune_cap=prune_cap, counts=counts)
                     counts["sweeps"] += 1
                     if direction == "rev":
-                        overflow, len_prev = step_rev(L_in, L_out, out_len, members, ranks)
+                        overflow = _sweep(st, ex_rev, L_in, L_out, out_len, members, ranks,
+                                          counts)
                     else:
-                        overflow, len_prev = step_fwd(L_out, L_in, in_len, members, ranks)
+                        overflow = _sweep(st, ex_fwd, L_out, L_in, in_len, members, ranks,
+                                          counts)
                     if not overflow:
                         break
                     # overflow: watermark-undo the partial appends (they only
-                    # wrote columns past the pre-wave lengths), grow the label
+                    # wrote columns past the pre-wave lengths, which the
+                    # overflowing sweep left as they were), grow the label
                     # matrices, and run this sweep again
                     if ON.enabled:
                         sp.event("overflow_regrow", l_max=l_max * 2)
                     if direction == "rev":
-                        _undo(L_out, len_prev)
-                        out_len.copy_(len_prev)
+                        _undo(L_out, out_len)
                     else:
-                        _undo(L_in, len_prev)
-                        in_len.copy_(len_prev)
+                        _undo(L_in, in_len)
                     pad = torch.full((n + 1, l_max), _INVALID, dtype=torch.int32, device=dev)
                     L_out, L_in = torch.cat([L_out, pad], 1), torch.cat([L_in, pad], 1)
                     l_max *= 2
                     counts["regrows"] += 1
-                    step_rev = step_fwd = None
         base += wlen
 
     if stats_out is not None:
-        stats_out.update(counts, device=str(dev), l_max=l_max, member_width=w)
+        cone = np.asarray(counts.pop("cone_rows"), dtype=np.int64)
+        stats_out.update(counts, device=str(dev), l_max=l_max, member_width=w,
+                         cone_rows_mean=float(cone.mean()) if cone.size else 0.0,
+                         cone_rows_p99=float(np.percentile(cone, 99)) if cone.size else 0.0,
+                         cone_rows_max=int(cone.max()) if cone.size else 0)
     return ReachabilityOracle(
         L_out=_finalize_side(L_out, out_len, n),
         L_in=_finalize_side(L_in, in_len, n),

@@ -43,6 +43,12 @@ SIGNATURES = {
         _C.c_void_p, _C.c_int64, _C.c_int32, _C.c_void_p, _C.c_int64, _C.c_int32,
         _C.c_void_p, _C.c_int64, _C.c_void_p, _C.c_void_p, _C.c_void_p,
     ], _C.c_int),
+    "frontier_expand": ("frontier_expand_launch", [
+        _C.c_void_p, _C.c_int64, _C.c_int64, _C.c_int64, _C.c_void_p, _C.c_void_p,
+        _C.c_int64, _C.c_int64, _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,
+        _C.c_int32, _C.c_void_p, _C.c_int32, _C.c_void_p, _C.c_int64, _C.c_void_p,
+        _C.c_int32, _C.c_int32, _C.c_void_p, _C.c_void_p, _C.c_void_p,
+    ], _C.c_int),
     "bitset_mm": ("bitset_mm_launch", [
         _C.c_void_p, _C.c_int64, _C.c_int32, _C.c_void_p, _C.c_int64, _C.c_int32,
         _C.c_void_p, _C.c_void_p,

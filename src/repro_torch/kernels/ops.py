@@ -11,10 +11,11 @@ depends only on where the tensors lie.  ``LAUNCHES`` counts kernel launches
 per kernel (the plain version is not counted), so a run can show that its
 serving path and its device build really went through the kernels.
 
-``tier_intersect`` (K1) serves queries and ``frontier_or`` (K2) expands the
-device wave build.  ``bitset_mm`` (K3), ``flash_attention`` (K4: two
-kernels, chosen by dtype in ``attention_kernel``), ``ell_spmm`` (K5) and
-``embedding_bag`` (K6) are the kernel library, the counterpart of
+``tier_intersect`` (K1) serves queries and ``frontier_expand`` (K2's
+frontier form) runs each BFS level of the device wave build.
+``frontier_or`` (K2's slab form), ``bitset_mm`` (K3), ``flash_attention``
+(K4: two kernels, chosen by dtype in ``attention_kernel``), ``ell_spmm``
+(K5) and ``embedding_bag`` (K6) are the counterparts of
 ``repro.kernels.ops``: no oracle path calls them.
 """
 from __future__ import annotations
@@ -26,7 +27,7 @@ import torch
 from repro_torch.kernels import ref
 
 # kernel name -> launches since the last reset_launches()
-LAUNCHES = {"label_intersect": 0, "frontier_or": 0, "bitset_mm": 0,
+LAUNCHES = {"label_intersect": 0, "frontier_expand": 0, "frontier_or": 0, "bitset_mm": 0,
             "flash_attention": 0, "flash_attention_sm90": 0, "ell_spmm": 0,
             "embedding_bag": 0}
 
@@ -61,9 +62,11 @@ def _launch(name: str, dev: torch.device, *args) -> None:
     from repro_torch.kernels.build import library
 
     launch = library(name)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = launch(*args, stream)
+    if torch.cuda.current_device() == dev.index:   # the common case: no device switch
+        rc = launch(*args, torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = launch(*args, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1
@@ -160,6 +163,107 @@ def frontier_or(nbr: torch.Tensor, f: torch.Tensor, out=None, perm=None,
     if not fused and int(flags[1]):
         raise ValueError(f"frontier_or: neighbor ids outside [-1, {n_src})")
     return out
+
+
+# the kernel stages a row's pushed words in shared memory: 8 warps x wm words
+FRONTIER_EXPAND_MAX_WORDS = 1024
+
+
+def _check_vector(name: str, t: torch.Tensor, dtype, size=None) -> None:
+    if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous() or \
+            (size is not None and t.shape[0] != size):
+        raise ValueError(f"{name} must be a contiguous 1-D {dtype} tensor"
+                         + (f" of {size}" if size is not None else "")
+                         + f", got {t.dtype} {tuple(t.shape)}")
+
+
+class FrontierExpand:
+    """K2's frontier form bound to one build's state: the tensors that stay
+    the same from level to level are checked once, here, and each call
+    checks only what changes (the ring slice, the two delta matrices, the
+    target label matrix and the ids) before it launches.  The device build
+    makes one call per BFS level; ``frontier_expand`` is one call of a
+    fresh binding.
+
+    frontier int32[cap] (a ring), indptr int64[n + 1], indices int32[m],
+    v / pruned int32[n, wm] (bit patterns), hop_mask int32[n_hop, wm],
+    stamps int32[3, n], cone int32[n], counts int64[3] (ring position, cone
+    length, bad-id flag)."""
+
+    def __init__(self, frontier, indptr, indices, v, pruned, hop_mask, stamps, cone, counts):
+        _check_matrix("v", v)
+        n, wm = v.shape
+        for name, t in (("pruned", pruned), ("hop_mask", hop_mask)):
+            _check_matrix(name, t)
+            if t.shape[1] != wm or (name == "pruned" and t.shape[0] != n):
+                raise ValueError(f"{name} is {tuple(t.shape)}, v is {tuple(v.shape)}")
+        if wm > FRONTIER_EXPAND_MAX_WORDS:
+            raise ValueError(f"wm = {wm} words exceeds {FRONTIER_EXPAND_MAX_WORDS}")
+        _check_matrix("stamps", stamps)
+        if stamps.shape != (3, n):
+            raise ValueError(f"stamps must be int32[3, {n}], got {tuple(stamps.shape)}")
+        _check_vector("frontier", frontier, torch.int32)
+        _check_vector("indptr", indptr, torch.int64, n + 1)
+        _check_vector("indices", indices, torch.int32)
+        _check_vector("cone", cone, torch.int32, n)
+        _check_vector("counts", counts, torch.int64, 3)
+        self.dev = _device("frontier_expand", frontier, indptr, indices, v, pruned, hop_mask,
+                           stamps, cone, counts)
+        self.n, self.wm = n, wm
+        self.frontier, self.indptr, self.indices, self.v, self.pruned = \
+            frontier, indptr, indices, v, pruned
+        self.hop_mask, self.stamps, self.cone, self.counts = hop_mask, stamps, cone, counts
+
+    def __call__(self, lo: int, hi: int, delta_cur, delta_next, L_tgt, sweep: int,
+                 level: int) -> None:
+        """One BFS level pushed from ``frontier[lo:hi]`` (distinct rows, cap >=
+        hi - lo + n), in place and with no host read: the caller reads
+        ``counts`` and must raise on ``counts[2]``.  delta_cur and
+        delta_next int32[n, wm] (apart), L_tgt int32[>= n, l_max]; ``sweep``
+        and ``level`` are int32 ids."""
+        n, wm, dev = self.n, self.wm, self.dev
+        for name, t in (("delta_cur", delta_cur), ("delta_next", delta_next)):
+            if (t.dtype != torch.int32 or t.shape != (n, wm) or not t.is_contiguous()
+                    or t.device != dev):
+                raise ValueError(f"{name} must be a contiguous int32[{n}, {wm}] tensor on "
+                                 f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+        if delta_cur.data_ptr() == delta_next.data_ptr():
+            raise ValueError("delta_cur must not share memory with delta_next")
+        if (L_tgt.dtype != torch.int32 or L_tgt.dim() != 2 or not L_tgt.is_contiguous()
+                or L_tgt.shape[0] < n or L_tgt.shape[1] < 1 or L_tgt.device != dev):
+            raise ValueError(f"L_tgt must be a contiguous int32[>= {n}, l_max] tensor on "
+                             f"{dev}, got {L_tgt.dtype} {tuple(L_tgt.shape)} on {L_tgt.device}")
+        if not 0 <= lo <= hi or self.frontier.shape[0] < hi - lo + n:
+            raise ValueError(f"the ring of {self.frontier.shape[0]} cannot hold rows "
+                             f"[{lo}, {hi}) and the next level's up to n = {n}")
+        if not (0 <= sweep < 2**31 and 0 <= level < 2**31):
+            raise ValueError(f"sweep {sweep} and level {level} must be int32 ids >= 0")
+        if dev.type == "cpu":
+            ref.frontier_expand_ref(self.frontier, lo, hi, self.indptr, self.indices, self.v,
+                                    self.pruned, delta_cur, delta_next, L_tgt, self.hop_mask,
+                                    self.stamps, sweep, level, self.cone, self.counts)
+            return
+        if hi == lo:
+            return
+        _launch("frontier_expand", dev, self.frontier.data_ptr(), self.frontier.shape[0], lo,
+                hi, self.indptr.data_ptr(), self.indices.data_ptr(), n,
+                self.indices.shape[0], self.v.data_ptr(), self.pruned.data_ptr(),
+                delta_cur.data_ptr(), delta_next.data_ptr(), wm, L_tgt.data_ptr(),
+                L_tgt.shape[1], self.hop_mask.data_ptr(), self.hop_mask.shape[0],
+                self.stamps.data_ptr(), sweep, level, self.cone.data_ptr(),
+                self.counts.data_ptr())
+
+
+def frontier_expand(frontier, lo: int, hi: int, indptr, indices, v, pruned, delta_cur,
+                    delta_next, L_tgt, hop_mask, stamps, sweep: int, level: int, cone,
+                    counts) -> None:
+    """K2's frontier form: one BFS level of a construction wave, pushed from
+    the rows ``frontier[lo:hi]`` over the CSR ``(indptr, indices)``, in
+    place, with no host read (the caller reads ``counts``).
+    ``csrc/frontier_expand.cu``'s header and ``ref.frontier_expand_ref``
+    define it; ``FrontierExpand`` names the arguments."""
+    FrontierExpand(frontier, indptr, indices, v, pruned, hop_mask, stamps, cone, counts)(
+        int(lo), int(hi), delta_cur, delta_next, L_tgt, int(sweep), int(level))
 
 
 # ----------------------------------------------------------- kernel library

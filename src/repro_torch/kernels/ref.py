@@ -5,9 +5,12 @@ wrappers in ``ops`` run these for tensors on the CPU; on the card, the tests
 and ``chip_smoke.py`` hold each kernel against its plain version on the same
 inputs.  The serve engine's ``dense`` backend is ``tier_intersect_ref`` on
 the engine's device; its ``kernel`` backend, the main path on a card, never
-calls them there.  ``frontier_or_ref`` is K2's, the device wave build's
-expansion when the build runs on the CPU.  The last four (K3-K6) are the
-plain versions of the kernel library, which no oracle path calls.
+calls them there.  ``frontier_expand_ref`` is K2's frontier form, the
+device wave build's BFS level when the build runs on the CPU;
+``frontier_or_ref`` is K2's slab form, the counterpart of
+``repro.kernels.ops.frontier_or``, which no build path calls any more.  The
+last four (K3-K6) are the plain versions of the kernel library, which no
+oracle path calls.
 """
 from __future__ import annotations
 
@@ -86,6 +89,98 @@ def frontier_or_ref(nbr: torch.Tensor, f: torch.Tensor, out=None, perm=None,
     flags[1] |= (bad_id.any() | bad_dst.any()).to(torch.int32)
     out[dst] = old | acc
     return out
+
+
+def _or_by_index(index: torch.Tensor, src: torch.Tensor, size: int) -> torch.Tensor:
+    """``out[i] = OR of src[j] over j with index[j] == i`` (zeros elsewhere):
+    int64[k] indices in [0, size), int32[k, wm] rows -> int32[size, wm].
+    torch's scatters have no bitwise OR, so the rows are sorted by index
+    and ORed in one pass per multiplicity (a pass never writes one row
+    twice)."""
+    out = torch.zeros((size, src.shape[1]), dtype=src.dtype, device=src.device)
+    if index.numel() == 0:
+        return out
+    order = torch.argsort(index, stable=True)
+    index, src = index[order], src[order]
+    mult = torch.bincount(index, minlength=size)
+    rank = torch.arange(index.numel(), device=index.device) - (mult.cumsum(0) - mult)[index]
+    for r in range(int(mult.max())):
+        sel = rank == r
+        out[index[sel]] |= src[sel]
+    return out
+
+
+def frontier_expand_ref(frontier, lo, hi, indptr, indices, v, pruned, delta_cur, delta_next,
+                        L_tgt, hop_mask, stamps, sweep, level, cone, counts) -> None:
+    """K2's frontier form, plain: one BFS level pushed from the rows
+    ``frontier[lo:hi]`` (positions mod ``frontier.shape[0]``), in place.  The
+    function of ``csrc/frontier_expand.cu``, whose header defines every
+    argument; in short, for each frontier row y:
+
+      1. unless ``stamps[1, y] == sweep``: ``pruned[y] = OR over h in L_tgt[y]
+         (h != INVALID) of hop_mask[h]`` and ``stamps[1, y] = sweep``;
+      2. ``bits = delta_cur[y] & ~pruned[y]``; ``delta_cur[y] = 0``;
+      3. every CSR neighbor x of y gets ``v[x] |= bits``; the bits x gained
+         are ORed into ``delta_next[x]``, and x, if it gained any, is
+         claimed for the next level once (``stamps[0, x] != level``): written
+         at ring position ``counts[0]`` (then incremented) and, the first
+         time in the sweep (``stamps[2, x] != sweep``), appended to ``cone``
+         at ``counts[1]``.
+
+    A frontier id, neighbor id or label entry outside its range, or a CSR
+    row outside ``indices``, is skipped and sets ``counts[2] = 1``.  Claims
+    are taken in ascending row order (the kernel's order varies from run to
+    run; both are read as sets)."""
+    n = v.shape[0]
+    m = indices.shape[0]
+    cap = frontier.shape[0]
+    dev = v.device
+    ys = frontier[torch.arange(lo, hi, device=dev) % cap].long()
+    bad = bool(((ys < 0) | (ys >= n)).any())
+    ys = ys[(ys >= 0) & (ys < n)]
+    # 1. the verdicts of rows that have none in this sweep
+    fresh = ys[stamps[1, ys] != sweep]
+    if fresh.numel():
+        hops = L_tgt[fresh].long()                                   # [k, l_max]
+        ok = (hops >= 0) & (hops < hop_mask.shape[0])
+        bad |= bool(((hops != INVALID) & ~ok).any())
+        rows = hop_mask[torch.where(ok, hops, 0)]                    # [k, l_max, wm]
+        pruned[fresh] = or_reduce(torch.where(ok[:, :, None], rows, 0), dim=1)
+        stamps[1, fresh] = sweep
+    # 2. the bits each row pushes
+    bits = delta_cur[ys] & ~pruned[ys]
+    delta_cur[ys] = 0
+    # 3. the pushes over the rows' CSR neighbors
+    e0, e1 = indptr[ys], indptr[ys + 1]
+    row_ok = (e0 >= 0) & (e1 <= m) & (e1 >= e0)
+    bad |= bool((~row_ok).any())
+    deg = torch.where(row_ok, e1 - e0, 0)
+    src = torch.repeat_interleave(torch.arange(ys.numel(), device=dev), deg)
+    slot = torch.arange(src.numel(), device=dev) - (deg.cumsum(0) - deg)[src]
+    xs = indices[e0[src] + slot].long()
+    x_ok = (xs >= 0) & (xs < n)
+    bad |= bool((~x_ok).any())
+    src, xs = src[x_ok], xs[x_ok]
+    targets, inv = torch.unique(xs, return_inverse=True)
+    acc = _or_by_index(inv, bits[src], targets.numel())
+    old = v[targets]
+    gained = acc & ~old
+    v[targets] = old | acc
+    delta_next[targets] |= gained
+    claimed = targets[gained.ne(0).any(1) & (stamps[0, targets] != level)]
+    stamps[0, claimed] = level
+    p = int(counts[0])
+    frontier[(p + torch.arange(claimed.numel(), device=dev)) % cap] = claimed.to(frontier.dtype)
+    counts[0] = p + claimed.numel()
+    joined = claimed[stamps[2, claimed] != sweep]
+    stamps[2, joined] = sweep
+    c = int(counts[1])
+    room = max(0, min(joined.numel(), n - c))
+    cone[c: c + room] = joined[:room].to(cone.dtype)
+    counts[1] = c + joined.numel()
+    bad |= room < joined.numel()
+    if bad:
+        counts[2] = 1
 
 
 # ----------------------------------------------------------- kernel library

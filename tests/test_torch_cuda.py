@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card, against their plain versions.
 
-K1 (label_intersect) and K2 (frontier_or) against their plain versions,
-the device wave build on the card against the reference build, and the
+K1 (label_intersect) and K2 (its slab form frontier_or and its frontier form
+frontier_expand) against their plain versions, the device wave build on the
+card (through frontier_expand) against the reference build, and the
 kernel library (K3 bitset_mm, K4 flash_attention, K5 ell_spmm, K6
 embedding_bag) against its plain versions.
 
@@ -16,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from frontier_cases import ARRAYS, CASES, ORDER, assert_same_level, make_case
 from repro_torch.core.api import build_oracle
 from repro_torch.graph.generators import paper_dataset_analogue
 from repro_torch.kernels import ops, ref
@@ -134,6 +136,29 @@ def test_frontier_or_kernel_refuses_bad_ids(cuda):
             ops.frontier_or(nbr, f)
 
 
+# ------------------------------------------------ K2 frontier_expand
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_frontier_expand_kernel_matches_plain(cuda, name):
+    """The kernel against its plain version on one level's edge cases
+    (tests/frontier_cases.py): words, stamps and counts exactly, the ring's
+    and the cone's new entries as sets."""
+    case = make_case(np.random.default_rng(CASES.index(name)), name)
+    res = []
+    for fn in (ops.frontier_expand, ref.frontier_expand_ref):
+        t = {k: (torch.from_numpy(case[k].copy()).to(cuda) if k in ARRAYS else case[k])
+             for k in ORDER}
+        before = ops.LAUNCHES["frontier_expand"]
+        fn(*(t[k] for k in ORDER))
+        torch.cuda.synchronize()
+        launched = ops.LAUNCHES["frontier_expand"] - before
+        assert launched == int(fn is ops.frontier_expand and case["hi"] > case["lo"]), name
+        res.append({k: (t[k].cpu().numpy() if k in ARRAYS else t[k]) for k in ORDER})
+    assert_same_level(case, res[0], res[1], name)
+    assert int(res[0]["counts"][2]) == int(name.startswith("bad_")), name
+
+
 def _dag_families():
     """The five construction families of tests/test_build_engine.py, made
     with the port's generators (equal graphs for equal seeds)."""
@@ -163,12 +188,15 @@ def test_device_build_on_the_card(cuda, family):
     ref_co = build_oracle(g, impl="reference")
     ops.reset_launches()
     dev_co = build_oracle(g, impl="device")
-    assert ops.LAUNCHES["frontier_or"] > 0
-    assert dev_co.oracle.build_stats["device"]["device"].startswith("cuda")
+    assert ops.LAUNCHES["frontier_expand"] > 0 and ops.LAUNCHES["frontier_or"] == 0
+    st = dev_co.oracle.build_stats["device"]
+    assert st["device"].startswith("cuda")
+    assert ops.LAUNCHES["frontier_expand"] == st["levels"]
+    assert st["host_reads"] == st["levels"] + st["sweeps"]
     _assert_same_labels(ref_co.oracle, dev_co.oracle, name)
-    # prune_cap=1: levels that visit more than one row take the dense prune
+    # prune_cap (JAX's dense-prune switch) changes nothing in the frontier form
     _assert_same_labels(ref_co.oracle, build_oracle(g, impl="device", prune_cap=1).oracle,
-                        f"{name} dense prune")
+                        f"{name} prune_cap=1")
 
 
 def test_device_build_label_growth_on_the_card(cuda):
@@ -178,7 +206,7 @@ def test_device_build_label_growth_on_the_card(cuda):
     ref_co = build_oracle(g, impl="reference")
     ops.reset_launches()
     dev_co = build_oracle(g, impl="device", max_wave=16, l_max=2)
-    assert ops.LAUNCHES["frontier_or"] > 0
+    assert ops.LAUNCHES["frontier_expand"] > 0 and ops.LAUNCHES["frontier_or"] == 0
     assert dev_co.oracle.build_stats["device"]["regrows"] > 0
     _assert_same_labels(ref_co.oracle, dev_co.oracle, "l_max growth")
 
