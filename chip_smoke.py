@@ -8,9 +8,13 @@ toolkit (``nvcc``).  Phases, each raising on failure:
   1. device: the card's name and power limit (from ``nvidia-smi``);
   2. build every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``;
   3. each kernel against its plain PyTorch version on the card over edge
-     shapes and widths (exact for K1-K3, whose outputs are verdicts and bit
-     patterns; K4 at 2e-5 in float32 and one step in bfloat16, each case
-     through the kernel of its dtype, K5 and K6 at 1e-5).  K2 has two
+     shapes and widths (exact for K1-K3, whose outputs are verdicts, codes
+     and bit patterns; K4 at 2e-5 in float32 and one step in bfloat16, each
+     case through the kernel of its dtype, K5 and K6 at 1e-5).  K1 has two
+     kernels: its batch form ``serve_batch`` (the engine's kernel backend,
+     a whole batch in one launch), whose cases are
+     ``tests/serve_batch_cases.py``'s, and its tier form ``label_intersect``
+     (the counterpart of ``repro.kernels.ops.label_intersect``).  K2 has two
      kernels: its slab form ``frontier_or`` (the counterpart of
      ``repro.kernels.ops.frontier_or``) and its frontier form
      ``frontier_expand`` (the device build's BFS level), whose cases are
@@ -29,24 +33,29 @@ toolkit (``nvcc``).  Phases, each raising on failure:
   4. the main path: the citeseer analogue at full size (n = 693,947) through
      ``repro_torch.core.api.build_oracle(g, device="cuda").serve(q)`` with
      ``backend="auto"`` (which must resolve to the kernel), about 1M queries
-     mixing uniform and reachable pairs; verdicts held against the host
-     merge on every query and against BFS truth on a sample; the kernels'
-     launch counts read around exactly this run;
+     mixing uniform and reachable pairs, in batches of 4,096; verdicts held
+     against the host merge on every query and against BFS truth on a
+     sample; the kernels' launch counts read around exactly this run
+     (``serve_batch`` once a batch, ``label_intersect`` never); the batch
+     latency p50/p99 of this run;
   4b. the device wave build: ``build_oracle(g, device="cuda", impl="device")``
      on the same graph, the launch counts read around exactly this build
      (``frontier_expand`` once a BFS level, ``frontier_or`` never); its
      labels byte for byte against phase 4's reference build, phase 4's
-     queries served through K1 on it with the same verdicts and every
+     queries served through ``serve_batch`` on it with the same verdicts and every
      degradation counter 0; its build seconds, host reads a wave and cone
      rows a sweep; K2's slab form against its plain version on a real slab
      and frontier; launches a wave and the card's busy share over a
      profiled window of 500 waves;
-  5. timing of K1, K2's two kernels and their plain versions with CUDA
-     events at the main path's shapes (``frontier_expand`` at a real level
+  5. timing of K1's and K2's two kernels and their plain versions with CUDA
+     events at the main path's shapes (``serve_batch`` at a batch of 4,096
+     and at the whole traffic in one call, with the bytes, compares and
+     32-byte sectors its queries need; ``frontier_expand`` at a real level
      from the middle of the build's schedule), and the kernels JSON line
-     (all eight kernels: K2 and K4 have two each);
+     (all nine kernels: K1, K2 and K4 have two each);
   6. where a serving batch spends its time: the device's busy share over a
-     window of the main path (torch.profiler) and the engine's spans;
+     window of the main path (torch.profiler), the host's CUDA calls a
+     batch, and the engine's spans (``device_call`` is the fused call);
   7. the serve driver (``repro_torch.launch.serve``) on a small graph, a
      second path on the card: its own launch counts, every degradation
      counter 0.
@@ -222,13 +231,55 @@ def phase_kernel_vs_plain(device) -> dict:
                     check(B == 1 or bool(exp.any()) and not bool(exp.all()),
                           "the check needs hits and misses")
                     cases += 1
+    k1b = _serve_batch_vs_plain(device)
     k2 = _frontier_or_vs_plain(rng, t)
     k2f = _frontier_expand_vs_plain(device)
     library = _library_vs_plain(rng, device)
-    record({"phase": "kernel_vs_plain", "label_intersect_cases": cases,
-            "frontier_or_cases": k2, "frontier_expand_cases": k2f,
+    record({"phase": "kernel_vs_plain", "serve_batch_cases": k1b,
+            "label_intersect_cases": cases, "frontier_or_cases": k2,
+            "frontier_expand_cases": k2f,
             **{f"{k}_cases": v for k, v in library.items()}, "matches_plain": True})
-    return {"label_intersect": cases, "frontier_or": k2, "frontier_expand": k2f, **library}
+    return {"serve_batch": k1b, "label_intersect": cases, "frontier_or": k2,
+            "frontier_expand": k2f, **library}
+
+
+def _serve_batch_vs_plain(device) -> int:
+    """K1's batch form on the edge cases of ``tests/serve_batch_cases.py``:
+    B = 0, 1 and 4,097, every query prefiltered and none, no level, one and
+    three tiers, ids 0 and n - 1, rows full to their width, an INVALID inside
+    a row, ids in [-n, 0), rows wider than a lane group's 16 entries, widths
+    not a multiple of 4 (the one-entry-a-lane loop), a truncating last tier,
+    and ids n and -n - 1, which must raise.  Codes byte for byte against the
+    plain version and the numpy loop; one launch a non-empty call."""
+    import serve_batch_cases as sc
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    for i, name in enumerate(sc.CASES):
+        case = sc.make_case(np.random.default_rng(i), name)
+        args = [None if case[k] is None else torch.from_numpy(case[k]).to(device)
+                for k in sc.BINDING] + [case["widths"]]
+        sb = ops.ServeBatch(*args)
+        q = case["queries"]
+        before = ops.LAUNCHES["serve_batch"]
+        if name.startswith("bad_"):
+            try:
+                sb(q)
+            except IndexError:
+                pass
+            else:
+                check(False, f"serve_batch {name}: an id outside [-n, n) did not raise")
+            continue
+        got = sb(q)
+        check(ops.LAUNCHES["serve_batch"] - before == int(q.shape[0] > 0),
+              f"serve_batch {name}: {ops.LAUNCHES['serve_batch'] - before} launches")
+        exp = ref.serve_batch_ref(*args, torch.from_numpy(q).to(device)).cpu().numpy()
+        check(got.dtype == np.uint8 and np.array_equal(got, exp),
+              f"serve_batch {name}: {int((got != exp).sum())} codes differ from the plain "
+              "version")
+        check(np.array_equal(got, sc.numpy_codes(case)), f"serve_batch {name}: the numpy loop")
+    return len(sc.CASES)
 
 
 def _check_frontier_expand(case: dict, device, what: str) -> dict:
@@ -916,14 +967,21 @@ def make_traffic(g, co, n_queries: int, seed: int = 0) -> np.ndarray:
     return q[rng.permutation(q.shape[0])]
 
 
-def serve_all(co, queries: np.ndarray, backend) -> tuple:
+def serve_all(co, queries: np.ndarray, backend, latencies=None) -> tuple:
+    """Serve ``queries`` in batches of BATCH; (verdicts, seconds).  With a
+    list given, each batch's host-clock seconds are appended to it (every
+    backend returns host verdicts, so a batch's call ends with its work)."""
     import torch
 
+    outs = []
     t0 = time.perf_counter()
-    out = np.concatenate([co.serve(queries[i:i + BATCH], backend=backend)
-                          for i in range(0, queries.shape[0], BATCH)])
+    for i in range(0, queries.shape[0], BATCH):
+        t_batch = time.perf_counter()
+        outs.append(co.serve(queries[i:i + BATCH], backend=backend))
+        if latencies is not None:
+            latencies.append(time.perf_counter() - t_batch)
     torch.cuda.synchronize()
-    return out, time.perf_counter() - t0
+    return np.concatenate(outs), time.perf_counter() - t0
 
 
 def tier_outcomes(co, cq: np.ndarray, rest: np.ndarray, verdicts: np.ndarray) -> dict:
@@ -973,14 +1031,19 @@ def phase_main_path(device):
     eng.reset_stats()
 
     # ---- the counted run: the main path, backend auto
+    latencies = []
     ops.reset_launches()
-    kernel_out, t_kernel = serve_all(co, queries, None)
+    kernel_out, t_kernel = serve_all(co, queries, None, latencies)
     launches = dict(ops.LAUNCHES)
     degradation = dict(eng.degradation)
     last = eng.last_stats
     # ----
+    n_batches = len(latencies)
     check(last["backend"] == "kernel", f"served on {last['backend']!r}")
-    check(launches["label_intersect"] > 0, "label_intersect never launched on the main path")
+    check(launches["serve_batch"] == n_batches,
+          f"serve_batch launched {launches['serve_batch']} times for {n_batches} batches")
+    check(launches["label_intersect"] == 0,
+          f"the tier form label_intersect launched {launches['label_intersect']} times")
     check(not any(degradation.values()), f"degradation counters moved: {degradation}")
 
     dense_out, t_dense = serve_all(co, queries, "dense")
@@ -1009,12 +1072,19 @@ def phase_main_path(device):
             "traffic_seconds": t_traffic, "backend": last["backend"],
             "launches": launches, "degradation": degradation,
             "kernel_qps": queries.shape[0] / t_kernel,
+            "batches": n_batches,
+            "batch_ms": {"p50": float(np.percentile(latencies, 50)) * 1e3,
+                         "p99": float(np.percentile(latencies, 99)) * 1e3,
+                         "max": max(latencies) * 1e3, "mean": t_kernel / n_batches * 1e3},
             "dense_qps": queries.shape[0] / t_dense,
             "host_qps": queries.shape[0] / t_host,
             "prefiltered_share": 1.0 - rest.sum() / queries.shape[0],
             "positives": int(kernel_out.sum()), "tiers": tiers,
             "equal_host": True, "bfs_sample": BFS_SAMPLE, "equal_bfs": True})
-    return co, queries, cq[rest], launches, kernel_out
+    log(f"main path: kernel {queries.shape[0] / t_kernel:.1f} queries/s, batch p50 "
+        f"{np.percentile(latencies, 50) * 1e3:.4f} ms p99 {np.percentile(latencies, 99) * 1e3:.4f} "
+        f"ms, serve_batch launches {launches['serve_batch']}")
+    return co, queries, cq, rest, launches, kernel_out
 
 
 # ------------------------------------------------------------------ phase 4b
@@ -1201,7 +1271,9 @@ def phase_device_build(device, scale, ref_co=None, queries=None, verdicts=None) 
     serve_launches = dict(ops.LAUNCHES)
     check(co.engine.last_stats["backend"] == "kernel", "the device-built oracle was not "
           "served on the kernel backend")
-    check(serve_launches["label_intersect"] > 0, "label_intersect never launched")
+    check(serve_launches["serve_batch"] == -(-queries.shape[0] // BATCH),
+          f"serve_batch launched {serve_launches['serve_batch']} times")
+    check(serve_launches["label_intersect"] == 0, "the tier form label_intersect launched")
     check(np.array_equal(got, verdicts),
           f"device-built oracle differs on {int((got != verdicts).sum())} verdicts")
     check(not any(co.engine.degradation.values()),
@@ -1279,9 +1351,11 @@ def _event_ms(fn, reps: int, warmup: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_events(fn) -> tuple:
+def _device_events(fn, runtime: bool = False) -> tuple:
     """Run ``fn`` once under torch.profiler; returns (wall ms, [(category,
-    name, device us)] of every kernel, copy and memset the card ran)."""
+    name, device us)] of every kernel, copy and memset the card ran), and
+    with ``runtime`` the host's CUDA runtime and driver calls as well (their
+    host us)."""
     import tempfile
 
     import torch
@@ -1296,9 +1370,131 @@ def _device_events(fn) -> tuple:
         path = pathlib.Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(path))
         events = json.loads(path.read_text()).get("traceEvents", [])
+    cats = ("kernel", "gpu_memcpy", "gpu_memset") + (
+        ("cuda_runtime", "cuda_driver") if runtime else ())
     return wall_ms, [(ev["cat"], ev.get("name", ""), float(ev.get("dur", 0.0)))
-                     for ev in events if ev.get("ph") == "X"
-                     and ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+                     for ev in events if ev.get("ph") == "X" and ev.get("cat") in cats]
+
+
+def _serve_batch_work(args: list, q: np.ndarray, codes: np.ndarray) -> dict:
+    """What one ``serve_batch`` call on queries ``q`` with result ``codes``
+    needs, each input byte read once and each output byte written once: the
+    ids, the four scalars of every query (two without levels), the label rows
+    of the queries that reach intersection cut to min(length, tier width), a
+    code byte a query; the int32 compares of a row-major all-pairs scan that
+    stops at the first shared value; and the distinct 32-byte sectors the
+    kernel's loads touch (ids, scalars, each query's first row vectors, which
+    it loads before the prefilters decide, and the rest of the intersected
+    rows' vectors) and its stores."""
+    import torch
+
+    L_out, L_in, out_len, in_len, level, widths = args
+    dev = L_out.device
+    (n, Lo), Li = L_out.shape, L_in.shape[1]
+    qt = torch.from_numpy(q).to(dev).long()
+    qt = torch.where(qt < 0, qt + n, qt)
+    fate = torch.from_numpy(codes).to(dev).long() >> 1
+    sel = fate > 0
+    u, v = qt[sel, 0], qt[sel, 1]
+    w = torch.tensor(widths, device=dev)[fate[sel] - 1]
+    la, lb = torch.minimum(out_len[u].long(), w), torch.minimum(in_len[v].long(), w)
+    B = q.shape[0]
+    scalars = 2 if level is None else 4
+    compares = 0
+    for i in range(0, u.numel(), 1 << 16):
+        a, b = L_out[u[i:i + (1 << 16)]], L_in[v[i:i + (1 << 16)]]
+        ca, cb = la[i:i + (1 << 16)], lb[i:i + (1 << 16)]
+        av = (torch.arange(Lo, device=dev)[None, :] < ca[:, None]) & (a != -1)
+        bv = torch.arange(Li, device=dev)[None, :] < cb[:, None]
+        eq = ((a[:, :, None] == b[:, None, :]) & av[:, :, None] & bv[:, None, :]).flatten(1)
+        first = eq.int().argmax(1)
+        compares += int(torch.where(eq.any(1), (first // Li) * cb + first % Li + 1,
+                                    ca * cb).sum())
+
+    def row_sectors(base_elems, ncols, row_elems):
+        """Distinct sectors of rows starting at ``base_elems`` (int32 offsets)
+        read over their first ``ncols`` columns (int64 per row)."""
+        start = base_elems * 4 // 32
+        end = (base_elems * 4 + torch.clamp(ncols, min=1) * 4 - 1) // 32
+        span = int((end - start).max()) + 1 if start.numel() else 0
+        ids = start[:, None] + torch.arange(span, device=dev)[None, :]
+        return int(torch.unique(ids[(ids <= end[:, None]) & (ncols[:, None] > 0)]).numel())
+
+    round4 = lambda x: (x + 3) // 4 * 4  # noqa: E731
+    # first vectors: columns [0, min(width, 16)) of every query's rows; the
+    # intersected rows' later vectors run to their cut length, rounded up
+    first_o = torch.full((B,), min(Lo, 16), device=dev, dtype=torch.long)
+    first_i = torch.full((B,), min(Li, 16), device=dev, dtype=torch.long)
+    first_o[sel] = torch.maximum(first_o[sel], round4(la))
+    first_i[sel] = torch.maximum(first_i[sel], round4(lb))
+    both = torch.cat([qt[:, 0], qt[:, 1]])
+    sectors = {
+        "ids": -(-B * 8 // 32),
+        "scalars": (int(torch.unique(qt[:, 0] * 4 // 32).numel())
+                    + int(torch.unique(qt[:, 1] * 4 // 32).numel())
+                    + (0 if level is None else int(torch.unique(both * 4 // 32).numel()))),
+        "label_rows": row_sectors(qt[:, 0] * Lo, first_o, Lo) + row_sectors(qt[:, 1] * Li,
+                                                                              first_i, Li),
+        "codes": -(-B // 32) + 1}
+    return {"bytes": B * 8 + B * scalars * 4 + int((la + lb).sum()) * 4 + B,
+            "compares": compares, "intersected": int(sel.sum()), "sectors": sectors,
+            "sector_bytes": 32 * sum(sectors.values())}
+
+
+def timing_serve_batch(co, cq: np.ndarray, launches: int, cases: int) -> dict:
+    """K1's batch form and its plain version at the main path's binding (the
+    engine's resident citeseer@1.0 labels, lengths, levels and widths): on
+    the first batch of the traffic (B = 4096, condensation ids) and on the
+    whole traffic in one call (B = 1,048,576).  The call (copy in, launch,
+    copy out, one synchronise) by CUDA events, the kernel's device time by
+    torch.profiler, the bound from the work these queries need."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    sb = co.engine._serve_batch_op()
+    args = [sb.L_out, sb.L_in, sb.out_len, sb.in_len, sb.level, sb.widths]
+    dev = sb.L_out.device
+    configs = []
+    for B, reps in ((BATCH, 200), (cq.shape[0], 10)):
+        q = np.ascontiguousarray(cq[:B], dtype=np.int32)
+        qd = torch.from_numpy(q).to(dev)
+        got = sb(q)
+        exp = ref.serve_batch_ref(*args, qd).cpu().numpy()
+        check(np.array_equal(got, exp), f"serve_batch differs from its plain version at "
+                                        f"B={B} on {int((got != exp).sum())} queries")
+        kern = lambda: sb(q)  # noqa: E731
+        plain = lambda: ref.serve_batch_ref(*args, qd)  # noqa: E731
+        # plain, kernel, kernel, plain: both sides see the same card state
+        p1, k1, k2, p2 = (_event_ms(plain, max(reps // 4, 3), warmup=2), _event_ms(kern, reps),
+                          _event_ms(kern, reps), _event_ms(plain, max(reps // 4, 3), warmup=2))
+        device_ms = _kernel_device_ms(kern, "serve_batch_kernel", min(reps, 50))
+        work = _serve_batch_work(args, q, got)
+        bound = _bound(work["bytes"], work["compares"], PEAK_INT32_OPS_PER_S)
+        fates = np.bincount(got >> 1, minlength=1 + len(sb.widths))
+        configs.append({
+            "B": B, "shape": {"B": B, "L_out": list(sb.L_out.shape), "L_in": list(sb.L_in.shape),
+                              "widths": sb.widths, "level": sb.level is not None,
+                              "prefiltered": int(fates[0]), "tiers": fates[1:].tolist()},
+            "ms": min(k1, k2), "ms_runs": [k1, k2], "device_ms": device_ms,
+            "plain_ms": min(p1, p2), "plain_ms_runs": [p1, p2], "launches": launches,
+            **bound, **work, "bound_share_device": bound["bound_ms"] / device_ms,
+            # no PyTorch call computes prefilters, tiers and intersection in one
+            "library_ms": None})
+        log(f"serve_batch B={B}: {min(k1, k2):.6f} ms a call (device {device_ms:.6f} ms), "
+            f"plain {min(p1, p2):.6f} ms, bound {configs[-1]['bound_ms']:.6f} ms "
+            f"({configs[-1]['bound_by']}), {work['sector_bytes']} sector bytes")
+    head = configs[0]
+    return {
+        "name": "serve_batch", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/serve_batch.cu",
+        "replaces": "src/repro/kernels/label_intersect.py:48",
+        "launches": launches, "matches_plain": True, "cases_checked": cases + len(configs),
+        "max_abs_err": 0,
+        **{k: head[k] for k in ("shape", "ms", "ms_runs", "device_ms", "plain_ms",
+                                "plain_ms_runs", "bound_ms", "bound_by", "bytes",
+                                "operations", "library_ms")},
+        "configs": configs}
 
 
 def phase_timing(co, rest: np.ndarray, launches: dict, cases: dict) -> list:
@@ -1508,10 +1704,14 @@ def phase_serving_profile(co, queries: np.ndarray, n_batches: int = 64) -> None:
 
     window = queries[:n_batches * BATCH]
     serve_all(co, window[:BATCH], None)
-    wall_ms, events = _device_events(lambda: serve_all(co, window, None))
-    device_us = {}
-    for cat, _, us in events:
-        device_us[cat] = device_us.get(cat, 0.0) + us
+    wall_ms, events = _device_events(lambda: serve_all(co, window, None), runtime=True)
+    device_us, runtime = {}, {}
+    for cat, name, us in events:
+        if cat in ("cuda_runtime", "cuda_driver"):
+            ms, count = runtime.get(name, (0.0, 0))
+            runtime[name] = (ms + us / 1e3, count + 1)
+        else:
+            device_us[cat] = device_us.get(cat, 0.0) + us
     # the engine's spans, from an unprofiled run of the same window
     trace.TRACER.clear()
     t0 = time.perf_counter()
@@ -1530,7 +1730,11 @@ def phase_serving_profile(co, queries: np.ndarray, n_batches: int = 64) -> None:
             "device_ms_by_kind": {k: v / 1e3 for k, v in device_us.items()},
             "wall_ms": plain_wall_ms, "span_ms": spans,
             "device_call_share_of_batch": (spans.get("device_call", 0.0)
-                                           / spans["engine.batch"])})
+                                           / spans["engine.batch"]),
+            # the host's CUDA calls a batch (launches, copies, synchronisations)
+            "runtime_calls_per_batch": {k: {"count": c / n_batches, "ms": ms / n_batches}
+                                        for k, (ms, c) in sorted(runtime.items(),
+                                                                 key=lambda x: -x[1][0])}})
 
 
 # ------------------------------------------------------------------ phase 7
@@ -1547,8 +1751,8 @@ def phase_driver():
     rec = serve.main(["--dataset", "kegg", "--scale", "1.0", "--n-queries", "20000",
                       "--backend", "all", "--device", "cuda"])
     launches = dict(ops.LAUNCHES)
-    check(launches["label_intersect"] > 0,
-          "label_intersect never launched in the serve driver's sweep")
+    check(launches["serve_batch"] > 0,
+          "serve_batch never launched in the serve driver's sweep")
     check(set(rec["backends"]) == {"host", "dense", "kernel"},
           f"the sweep served {sorted(rec['backends'])}")
     for be, r in rec["backends"].items():
@@ -1591,12 +1795,14 @@ def main(argv=None) -> int:
         kernels = phase_kernel_library(device, cases)
     else:
         library = phase_kernel_library(device, cases)
-        co, queries, rest, launches, verdicts = phase_main_path(device)
+        co, queries, cq, rest, launches, verdicts = phase_main_path(device)
         same = args.device_build_scale == MAIN_SCALE
         built = phase_device_build(
             device, args.device_build_scale, *((co, queries, verdicts) if same else ()))
         cases["frontier_or"] += built["frontier_or_cases"]
-        kernels = phase_timing(co, rest, launches, cases)
+        kernels = [timing_serve_batch(co, cq, launches["serve_batch"],
+                                      cases["serve_batch"])]
+        kernels += phase_timing(co, cq[rest], launches, cases)
         kernels.append(timing_frontier_expand(built["level"],
                                               built["launches"]["frontier_expand"],
                                               cases["frontier_expand"] + 1))

@@ -2,7 +2,9 @@
 //
 // Replaces the TPU kernel src/repro/kernels/label_intersect.py::label_intersect_pallas
 // together with the gather and tier-width truncation around it in
-// src/repro/serve/engine.py::_tier_intersect (use_kernel=True).
+// src/repro/serve/engine.py::_tier_intersect (use_kernel=True): K1's tier form, behind
+// ops.tier_intersect and serve_step.  The serve engine's kernel backend runs K1's batch
+// form, serve_batch.cu, which also takes the prefilters and the tier choice.
 //
 // Computes, for every query i of queries int32[B, 2] = (u, v):
 //     out[i] = L_out[u, :wa] and L_in[v, :wb] share a value that is not INVALID (-1)
@@ -25,7 +27,7 @@
 // kernel exactly (INVALID entries are skipped, not taken as the end of the row), so
 // the kernel agrees with the plain version on any input, sorted or not.  Row offsets
 // are computed in int64.  An id outside [0, n) never reads memory: its verdict is
-// false (the engine only sends valid ids; the planner's pad rows use vertex 0).
+// false.
 #include <cstdint>
 #include <cuda_runtime.h>
 

@@ -11,24 +11,30 @@ depends only on where the tensors lie.  ``LAUNCHES`` counts kernel launches
 per kernel (the plain version is not counted), so a run can show that its
 serving path and its device build really went through the kernels.
 
-``tier_intersect`` (K1) serves queries and ``frontier_expand`` (K2's
-frontier form) runs each BFS level of the device wave build.
-``frontier_or`` (K2's slab form), ``bitset_mm`` (K3), ``flash_attention``
+``ServeBatch`` (K1's batch form) serves each batch of the engine's
+``kernel`` backend in one launch and ``frontier_expand`` (K2's frontier
+form) runs each BFS level of the device wave build.  ``tier_intersect``
+(K1's tier form, the counterpart of ``repro.kernels.ops.label_intersect``
+and the JAX engine's ``_tier_intersect``), ``frontier_or`` (K2's slab
+form), ``bitset_mm`` (K3), ``flash_attention``
 (K4: two kernels, chosen by dtype in ``attention_kernel``), ``ell_spmm``
 (K5) and ``embedding_bag`` (K6) are the counterparts of
 ``repro.kernels.ops``: no oracle path calls them.
 """
 from __future__ import annotations
 
+import ctypes
 import math
+import threading
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ref
 
 # kernel name -> launches since the last reset_launches()
-LAUNCHES = {"label_intersect": 0, "frontier_expand": 0, "frontier_or": 0, "bitset_mm": 0,
-            "flash_attention": 0, "flash_attention_sm90": 0, "ell_spmm": 0,
+LAUNCHES = {"serve_batch": 0, "label_intersect": 0, "frontier_expand": 0, "frontier_or": 0,
+            "bitset_mm": 0, "flash_attention": 0, "flash_attention_sm90": 0, "ell_spmm": 0,
             "embedding_bag": 0}
 
 
@@ -56,17 +62,20 @@ def _device(name: str, *tensors: torch.Tensor) -> torch.device:
     return dev
 
 
-def _launch(name: str, dev: torch.device, *args) -> None:
-    """Launch kernel ``name`` on the current stream of ``dev`` (building it on
-    first use), raise on a nonzero launch code, count the launch."""
+def _launch(name: str, dev: torch.device, *args, stream=None) -> None:
+    """Launch kernel ``name`` on ``stream`` (default: the current stream of
+    ``dev``), building it on first use; raise on a nonzero launch code, count
+    the launch."""
     from repro_torch.kernels.build import library
 
     launch = library(name)
+    if stream is None:
+        stream = torch.cuda.current_stream(dev)
     if torch.cuda.current_device() == dev.index:   # the common case: no device switch
-        rc = launch(*args, torch.cuda.current_stream(dev).cuda_stream)
+        rc = launch(*args, stream.cuda_stream)
     else:
         with torch.cuda.device(dev):
-            rc = launch(*args, torch.cuda.current_stream(dev).cuda_stream)
+            rc = launch(*args, stream.cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1
@@ -104,6 +113,114 @@ def tier_intersect(L_out: torch.Tensor, L_in: torch.Tensor,
     _launch("label_intersect", dev, L_out.data_ptr(), L_in.data_ptr(), n, Lo, Li,
             queries.data_ptr(), B, min(width, Lo), min(width, Li), out.data_ptr())
     return out
+
+
+# the kernel takes the tier widths as launch parameters: at most this many
+SERVE_BATCH_MAX_TIERS = 16
+# the flag word leads the codes in the output buffers (kCodesAt in the source)
+_FLAG_BYTES = 16
+# rows a construction-time layout check reads at once
+_CHECK_ROWS = 1 << 20
+
+
+class ServeBatch:
+    """K1's batch form bound to one engine's resident state: one call serves
+    a whole batch of condensation-id queries, ``codes = sb(queries)``, in one
+    copy in, one launch (``csrc/serve_batch.cu``) and one copy out.
+
+    L_out int32[n, Lo], L_in int32[n, Li] (INVALID after each row's length,
+    checked here), out_len / in_len int32[n], level None or int32[n], widths
+    the engine's ascending tier widths.  The resident state is checked once,
+    here; a call checks only its queries.  ``ref.serve_batch_ref`` defines
+    the codes: ``2 * fate + verdict``, fate 0 for a prefiltered query and
+    1 + t for one intersected in tier t.
+
+    On CUDA tensors a call stages the queries in a pinned host buffer and
+    makes one foreign call, which issues on the current stream, without
+    blocking, the copy of the ids to a device buffer, the launch and one copy
+    back of the kernel's bad-id flag and the codes; then it synchronises once
+    on that stream.  The buffers grow by powers of two.  A lock serialises
+    calls, which share the buffers.  On CPU tensors it runs
+    ``ref.serve_batch_ref``.  An id outside [-n, n) raises ``IndexError``
+    (the kernel flags it and reads nothing)."""
+
+    def __init__(self, L_out, L_in, out_len, in_len, level, widths):
+        _check_matrix("L_out", L_out)
+        _check_matrix("L_in", L_in)
+        n = L_out.shape[0]
+        if L_in.shape[0] != n:
+            raise ValueError(f"L_out and L_in disagree on n: {n} vs {L_in.shape[0]}")
+        if n >= 2**31:
+            raise ValueError(f"n = {n} does not fit int32 ids")
+        _check_vector("out_len", out_len, torch.int32, n)
+        _check_vector("in_len", in_len, torch.int32, n)
+        if level is not None:
+            _check_vector("level", level, torch.int32, n)
+        widths = [int(w) for w in widths]
+        if not 1 <= len(widths) <= SERVE_BATCH_MAX_TIERS or widths[0] < 1 or \
+                any(b <= a for a, b in zip(widths, widths[1:])):
+            raise ValueError(f"widths must be 1 to {SERVE_BATCH_MAX_TIERS} ascending "
+                             f"positive ints, got {widths}")
+        self.dev = _device("serve_batch", L_out, L_in, out_len, in_len,
+                           *(() if level is None else (level,)))
+        # the kernel compares a row up to its length: nothing valid may lie past it
+        for name, L, lens in (("L_out", L_out, out_len), ("L_in", L_in, in_len)):
+            if bool(((lens < 0) | (lens > L.shape[1])).any()):
+                raise ValueError(f"{name} lengths outside [0, {L.shape[1]}]")
+            cols = torch.arange(L.shape[1], device=self.dev)[None, :]
+            for i in range(0, n, _CHECK_ROWS):
+                rows = slice(i, i + _CHECK_ROWS)
+                if bool(((cols >= lens[rows, None]) & (L[rows] != ref.INVALID)).any()):
+                    raise ValueError(f"{name} holds a label entry at or after its row's length")
+        self.L_out, self.L_in, self.out_len, self.in_len, self.level = \
+            L_out, L_in, out_len, in_len, level
+        self.widths = widths
+        self._widths_c = (ctypes.c_int32 * len(widths))(*widths)   # read at each launch
+        # the launch's leading arguments, the same every call
+        self._bound_args = (
+            L_out.data_ptr(), L_in.data_ptr(), n, L_out.shape[1], L_in.shape[1],
+            out_len.data_ptr(), in_len.data_ptr(), None if level is None else level.data_ptr(),
+            ctypes.addressof(self._widths_c), len(widths))
+        self._lock = threading.Lock()
+        self._cap = 0
+
+    def _grow(self, B: int) -> None:
+        cap = 1 << max(B - 1, 0).bit_length()
+        self._h_q = torch.empty((cap, 2), dtype=torch.int32, pin_memory=True)
+        self._d_q = torch.empty((cap, 2), dtype=torch.int32, device=self.dev)
+        self._h_out = torch.zeros(_FLAG_BYTES + cap, dtype=torch.uint8, pin_memory=True)
+        self._d_out = torch.zeros(_FLAG_BYTES + cap, dtype=torch.uint8, device=self.dev)
+        self._h_q_np, self._h_out_np = self._h_q.numpy(), self._h_out.numpy()
+        self._cap = cap
+
+    def __call__(self, queries: np.ndarray) -> np.ndarray:
+        """uint8[B] codes of int32[B, 2] host queries (condensation ids)."""
+        if not (isinstance(queries, np.ndarray) and queries.dtype == np.int32
+                and queries.ndim == 2 and queries.shape[1] == 2):
+            raise ValueError("queries must be a numpy int32[B, 2] array, got "
+                             f"{getattr(queries, 'dtype', type(queries))} "
+                             f"{getattr(queries, 'shape', '')}")
+        if self.dev.type == "cpu":
+            return ref.serve_batch_ref(self.L_out, self.L_in, self.out_len, self.in_len,
+                                       self.level, self.widths,
+                                       torch.from_numpy(queries)).numpy()
+        B = queries.shape[0]
+        if B == 0:
+            return np.zeros(0, dtype=np.uint8)
+        stream = torch.cuda.current_stream(self.dev)
+        with self._lock:
+            if B > self._cap:
+                self._grow(B)
+            self._h_q_np[:B] = queries
+            _launch("serve_batch", self.dev, *self._bound_args, self._h_q.data_ptr(),
+                    self._d_q.data_ptr(), B, self._h_out.data_ptr(), self._d_out.data_ptr(),
+                    stream=stream)
+            stream.synchronize()
+            if self._h_out_np[:4].view(np.int32)[0]:
+                self._d_out[:4].zero_()
+                n = self.L_out.shape[0]
+                raise IndexError(f"query ids outside [-{n}, {n})")
+            return self._h_out_np[_FLAG_BYTES:_FLAG_BYTES + B].copy()
 
 
 def frontier_or(nbr: torch.Tensor, f: torch.Tensor, out=None, perm=None,

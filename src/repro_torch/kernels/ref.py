@@ -4,8 +4,9 @@ Each function computes what its kernel computes, in torch ops.  The kernel
 wrappers in ``ops`` run these for tensors on the CPU; on the card, the tests
 and ``chip_smoke.py`` hold each kernel against its plain version on the same
 inputs.  The serve engine's ``dense`` backend is ``tier_intersect_ref`` on
-the engine's device; its ``kernel`` backend, the main path on a card, never
-calls them there.  ``frontier_expand_ref`` is K2's frontier form, the
+the engine's device; its ``kernel`` backend runs ``serve_batch_ref`` (K1's
+batch form) on a CPU engine and, on a card, never calls them.
+``frontier_expand_ref`` is K2's frontier form, the
 device wave build's BFS level when the build runs on the CPU;
 ``frontier_or_ref`` is K2's slab form, the counterpart of
 ``repro.kernels.ops.frontier_or``, which no build path calls any more.  The
@@ -41,6 +42,41 @@ def tier_intersect_ref(L_out: torch.Tensor, L_in: torch.Tensor,
     a = L_out.index_select(0, q[:, 0])[:, :width]
     b = L_in.index_select(0, q[:, 1])[:, :width]
     return label_intersect_ref(a, b)
+
+
+def serve_batch_ref(L_out: torch.Tensor, L_in: torch.Tensor, out_len: torch.Tensor,
+                    in_len: torch.Tensor, level, widths, queries: torch.Tensor) -> torch.Tensor:
+    """K1's batch form, plain: one code byte per query of a whole serving
+    batch, ``2 * fate + verdict`` (the function of ``csrc/serve_batch.cu``).
+
+    queries: int[B, 2] condensation ids; an id in [-n, 0) counts from the
+    end, as a numpy index does, and any other id outside [0, n) raises
+    ``IndexError``.  ``fate`` is 0 where ``serve.prefilter.apply_prefilters``
+    decides the query (its verdict), else 1 + t for the tier t that
+    ``serve.planner.plan_batch`` assigns, ``searchsorted(widths, max(out_len[u],
+    in_len[v]), side="left")`` clamped to the last tier, with the verdict of
+    ``tier_intersect_ref`` at ``widths[t]``.  ``level`` is None or int32[n];
+    ``widths`` ascending ints."""
+    from repro_torch.serve.prefilter import apply_prefilters   # serve imports kernels
+
+    n = L_out.shape[0]
+    q = queries.long()
+    bad = (q < -n) | (q >= n)
+    if bool(bad.any()):
+        raise IndexError(f"query ids outside [-{n}, {n}): "
+                         f"{q[bad.any(1)][:4].tolist()}")
+    q = torch.where(q < 0, q + n, q)
+    pf = apply_prefilters(q, out_len, in_len, level)
+    need = torch.maximum(out_len[q[:, 0]], in_len[q[:, 1]]).long()
+    edges = torch.as_tensor(list(widths), dtype=torch.int64, device=q.device)
+    tier = torch.searchsorted(edges, need).clamp_max(edges.numel() - 1)
+    fate = torch.where(pf.decided, 0, tier + 1)
+    verdict = pf.decided & pf.value
+    for t, width in enumerate(widths):
+        sel = (fate == t + 1).nonzero().flatten()
+        if sel.numel():
+            verdict[sel] = tier_intersect_ref(L_out, L_in, q[sel], int(width))
+    return (2 * fate + verdict).to(torch.uint8)
 
 
 def or_reduce(x: torch.Tensor, dim: int) -> torch.Tensor:

@@ -12,8 +12,10 @@ Backends:
   host    per-query sorted merge on the CPU (searchsorted + rank-ordered
           early exit; the reference path)
   dense   all-pairs compare in torch ops on the engine's device
-  kernel  the hand-written CUDA kernel ``kernels.ops.tier_intersect`` (on a
-          CPU engine the wrapper runs the kernel's plain version)
+  kernel  the hand-written CUDA kernel ``kernels.ops.ServeBatch`` (K1's batch
+          form): the id range check, the prefilters, the tier choice and the
+          intersection of a whole batch in one launch, with one copy in and
+          one copy out (on a CPU engine the wrapper runs its plain version)
 
 ``backend="auto"`` picks ``kernel`` when the engine's device is CUDA and
 ``dense`` on the CPU.  The multi-device ``sharded`` / ``sharded_hop``
@@ -39,7 +41,7 @@ from repro_torch.graph.csr import INVALID
 from repro_torch.kernels import ops, ref
 from repro_torch.obs import metrics, trace
 from repro_torch.obs.state import ON
-from repro_torch.serve.planner import plan_batch, tier_widths
+from repro_torch.serve.planner import plan_batch, tier_stats, tier_widths
 from repro_torch.serve.prefilter import apply_prefilters
 
 BACKENDS = ("host", "dense", "kernel")
@@ -194,6 +196,7 @@ class QueryEngine:
         self.degradation = dict(_ZERO_DEGRADATION)
         self._stats_lock = threading.Lock()
         self.search_node_budget = search_node_budget
+        self._serve_batch = None   # ops.ServeBatch, made on the first kernel batch
 
     # ------------------------------------------------------- observability
 
@@ -311,6 +314,10 @@ class QueryEngine:
         ``deadline`` (absolute ``time.monotonic()`` seconds): a batch already
         past it skips the device attempt and takes the host merge (counted
         as ``deadline_to_host``).  Deadlines never change verdicts.
+
+        The ``kernel`` backend serves the batch's label queries in one call
+        of ``ops.ServeBatch`` (prefilters, tier choice and intersection in
+        one launch); the others run the prefilters and the planner here.
         """
         queries = self._map_ids(np.asarray(queries))
         queries = np.ascontiguousarray(np.asarray(queries, dtype=np.int32))
@@ -322,7 +329,7 @@ class QueryEngine:
         # ladder rung 0 (when needed): queries touching quarantined label
         # rows bypass the prefilters too — they read the very state that
         # failed verification
-        label_idx = np.arange(queries.shape[0])
+        label_idx = None   # None: every query reads labels
         if self.quarantine_out is not None or self.quarantine_in is not None:
             qm = np.zeros(queries.shape[0], dtype=bool)
             if self.quarantine_out is not None:
@@ -335,23 +342,29 @@ class QueryEngine:
                 degraded["searched"] += int(q_idx.size)
                 out[q_idx] = self._search_batch(queries[q_idx])
                 label_idx = np.nonzero(~qm)[0]
+        lq = queries if label_idx is None else queries[label_idx]
 
-        pf = apply_prefilters(queries[label_idx], o.out_len, o.in_len, self.level)
-        out[label_idx] = pf.decided & pf.value
-        rest_idx = label_idx[~pf.decided]
         stats = {
             "backend": backend,
             "n_queries": int(queries.shape[0]),
-            "n_prefiltered": int(label_idx.shape[0] - rest_idx.size),
+            "n_prefiltered": 0,
             "tiers": [],
             "degraded": degraded,
         }
+        # a batch past its deadline takes the host path below, kernel or not
+        fused = backend == "kernel" and (deadline is None or time.monotonic() <= deadline)
+        if not fused:
+            pf = apply_prefilters(lq, o.out_len, o.in_len, self.level)
+            lout = pf.decided & pf.value
+            rest_idx = np.nonzero(~pf.decided)[0]
+            stats["n_prefiltered"] = int(lq.shape[0] - rest_idx.size)
         sp = trace.span("engine.batch", cat="engine", args={
-            "backend": backend, "n": stats["n_queries"],
-            "prefiltered": stats["n_prefiltered"]}) if ON.enabled else trace.NOOP_SPAN
+            "backend": backend, "n": stats["n_queries"]}) if ON.enabled else trace.NOOP_SPAN
         with sp:
-            if rest_idx.size:
-                rest = queries[rest_idx]
+            if fused:
+                lout = self._fused_batch(lq, stats, sp)
+            elif rest_idx.size:
+                rest = lq[rest_idx]
                 if backend == "host":
                     res = self._host_batch(rest)
                 elif deadline is not None and time.monotonic() > deadline:
@@ -360,20 +373,29 @@ class QueryEngine:
                     res = self._host_batch(rest)
                 else:
                     try:
-                        res = self._device_batch(
-                            rest, use_kernel=backend == "kernel", stats=stats)
+                        res = self._device_batch(rest, stats=stats)
                     except inject.SimulatedFailure as e:  # ladder: device -> host merge
-                        degraded["device_to_host"] += int(rest.shape[0])
-                        sp.event("degrade", kind="device_to_host",
-                                 n=int(rest.shape[0]), error=type(e).__name__)
-                        warnings.warn(
-                            f"{backend!r} backend failed ({type(e).__name__}: {e}); "
-                            f"serving {rest.shape[0]} queries on the host merge path",
-                            stacklevel=2)
-                        res = self._host_batch(rest)
-                out[rest_idx] = res
+                        res = self._degrade_to_host(rest, backend, e, degraded, sp)
+                lout[rest_idx] = res
+            if label_idx is None:
+                out = lout
+            else:
+                out[label_idx] = lout
+            sp.set(prefiltered=stats["n_prefiltered"])
             self._tally(stats, degraded)
             return out
+
+    def _degrade_to_host(self, rest: np.ndarray, backend: str, e: Exception, degraded: dict,
+                         sp) -> np.ndarray:
+        """The ladder's device -> host rung: ``rest`` on the host merge."""
+        degraded["device_to_host"] += int(rest.shape[0])
+        sp.event("degrade", kind="device_to_host", n=int(rest.shape[0]),
+                 error=type(e).__name__)
+        warnings.warn(
+            f"{backend!r} backend failed ({type(e).__name__}: {e}); "
+            f"serving {rest.shape[0]} queries on the host merge path",
+            stacklevel=3)
+        return self._host_batch(rest)
 
     def _host_batch(self, rest: np.ndarray) -> np.ndarray:
         o = self.oracle
@@ -394,21 +416,62 @@ class QueryEngine:
 
     # ------------------------------------------------------------ backends
 
+    def _serve_batch_op(self) -> "ops.ServeBatch":
+        """K1's batch form bound to this engine's labels, lengths, levels and
+        widths, made (and its layout checked) on the first kernel batch."""
+        if self._serve_batch is None:
+            with self._stats_lock:
+                if self._serve_batch is None:
+                    o, dev = self.oracle, self.device
+
+                    def t(a):
+                        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
+
+                    self._serve_batch = ops.ServeBatch(
+                        self._lo, self._li, t(o.out_len), t(o.in_len),
+                        None if self.level is None else t(self.level), self.widths)
+        return self._serve_batch
+
+    def _fused_batch(self, lq: np.ndarray, stats: dict, sp) -> np.ndarray:
+        """The ``kernel`` backend: every label query of the batch decided in
+        one ``ServeBatch`` call, its codes turned into verdicts and stats."""
+        sb = self._serve_batch_op()
+        with trace.span("device_call", cat="device", annotate=True,
+                        args={"rows": int(lq.shape[0])} if ON.enabled else None):
+            codes = sb(lq)
+        fates = np.bincount(codes >> 1, minlength=1 + len(self.widths))
+        stats["n_prefiltered"] = int(fates[0])
+        verdict = (codes & 1).view(bool)
+        if fates[0] == codes.size:
+            return verdict
+        try:
+            # chaos hook, once per batch with a residue, as in _device_batch
+            inject.fire("serve.device_dispatch", backend="kernel")
+        except inject.SimulatedFailure as e:  # ladder: device -> host merge
+            rest_idx = np.nonzero(codes > 1)[0]
+            verdict[rest_idx] = self._degrade_to_host(lq[rest_idx], "kernel", e,
+                                                      stats["degraded"], sp)
+            return verdict
+        if self.bucketing:
+            stats["tiers"] = tier_stats(fates[1:], self.widths, self.min_tile)
+        return verdict
+
     def _to_device(self, q: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(q, dtype=np.int32)).to(self.device)
 
-    def _device_batch(self, rest: np.ndarray, use_kernel: bool,
-                      stats: Optional[dict] = None) -> np.ndarray:
+    def _device_batch(self, rest: np.ndarray, stats: Optional[dict] = None) -> np.ndarray:
+        """The ``dense`` backend: the planner's tiers through
+        ``ref.tier_intersect_ref`` on the engine's device."""
         # chaos hook: an injected device failure here exercises the ladder's
         # device -> host downgrade in query_batch
-        inject.fire("serve.device_dispatch", backend="kernel" if use_kernel else "dense")
+        inject.fire("serve.device_dispatch", backend="dense")
         if stats is None:
             stats = {"tiers": []}   # direct callers outside query_batch
         o, lo, li, widths = self.oracle, self._lo, self._li, self.widths
         if not self.bucketing:
             with trace.span("device_call", cat="device", annotate=True,
                             args={"rows": int(rest.shape[0])} if ON.enabled else None):
-                r = serve_step(lo, li, self._to_device(rest), use_kernel=use_kernel)
+                r = serve_step(lo, li, self._to_device(rest))
             return r.cpu().numpy()
         plan = plan_batch(rest, o.out_len, o.in_len, widths, min_tile=self.min_tile)
         results = []
@@ -417,7 +480,7 @@ class QueryEngine:
             with trace.span("device_call", cat="device", annotate=True,
                             args={"width": tier.width, "rows": tier.rows}
                             if ON.enabled else None):
-                results.append(_tier_intersect(lo, li, q, tier.width, use_kernel))
+                results.append(ref.tier_intersect_ref(lo, li, q, tier.width))
             stats["tiers"].append(
                 {"width": tier.width, "count": int(tier.idx.size), "rows": tier.rows}
             )

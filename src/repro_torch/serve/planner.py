@@ -53,6 +53,20 @@ def tier_widths(
     return [w for w in widths if w < full] + [full]
 
 
+def tile_rows(count: int, min_tile: int) -> int:
+    """Padded row count of a tier of ``count`` queries: the power-of-two
+    tile at least ``min_tile``.  The one rule behind ``TierPlan.rows`` and
+    the ``rows`` of every tier record in the engine's stats."""
+    return _pow2_at_least(max(int(count), min_tile))
+
+
+def tier_stats(counts: Sequence[int], widths: Sequence[int], min_tile: int) -> List[dict]:
+    """The engine's per-batch tier records, ``{"width", "count", "rows"}`` for
+    each non-empty tier, from the query count of every tier."""
+    return [{"width": int(w), "count": int(c), "rows": tile_rows(c, min_tile)}
+            for w, c in zip(widths, counts) if c]
+
+
 @dataclasses.dataclass(frozen=True)
 class TierPlan:
     idx: np.ndarray   # int32[k] positions into the original query batch
@@ -103,6 +117,5 @@ def plan_batch(
         idx = np.nonzero(tier_of == t)[0].astype(np.int32)
         if idx.size == 0:
             continue
-        rows = _pow2_at_least(max(int(idx.size), min_tile))
-        tiers.append(TierPlan(idx=idx, width=int(w), rows=rows))
+        tiers.append(TierPlan(idx=idx, width=int(w), rows=tile_rows(idx.size, min_tile)))
     return BatchPlan(tiers=tiers, n_queries=int(queries.shape[0]))

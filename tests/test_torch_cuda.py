@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card, against their plain versions.
 
-K1 (label_intersect) and K2 (its slab form frontier_or and its frontier form
-frontier_expand) against their plain versions, the device wave build on the
+K1 (its batch form serve_batch and its tier form label_intersect) and K2
+(its slab form frontier_or and its frontier form frontier_expand) against
+their plain versions, the device wave build on the
 card (through frontier_expand) against the reference build, and the
 kernel library (K3 bitset_mm, K4 flash_attention, K5 ell_spmm, K6
 embedding_bag) against its plain versions.
@@ -18,6 +19,10 @@ import pytest
 import torch
 
 from frontier_cases import ARRAYS, CASES, ORDER, assert_same_level, make_case
+from serve_batch_cases import BINDING as SERVE_BINDING
+from serve_batch_cases import CASES as SERVE_CASES
+from serve_batch_cases import make_case as make_serve_case
+from serve_batch_cases import numpy_codes as numpy_serve_codes
 from repro_torch.core.api import build_oracle
 from repro_torch.graph.generators import paper_dataset_analogue
 from repro_torch.kernels import ops, ref
@@ -80,9 +85,39 @@ def test_main_path_serves_through_the_kernel(cuda):
     q = np.random.default_rng(0).integers(0, g.n, (8192, 2)).astype(np.int32)
     ops.reset_launches()
     got = co.serve(q)
-    assert ops.LAUNCHES["label_intersect"] > 0
+    # one serve_batch launch for the one non-empty batch; the tier form none
+    assert ops.LAUNCHES["serve_batch"] == 1
+    assert ops.LAUNCHES["label_intersect"] == 0
     assert (got == co.serve(q, backend="host")).all()
     assert not any(co.engine.degradation.values())
+
+
+# ------------------------------------------------------- K1's batch form
+
+
+@pytest.mark.parametrize("name", SERVE_CASES)
+def test_serve_batch_kernel_matches_plain(cuda, name):
+    """The kernel against its plain version on the edge cases of
+    tests/serve_batch_cases.py, code byte for code byte; a bad id raises."""
+    case = make_serve_case(np.random.default_rng(SERVE_CASES.index(name)), name)
+    args = [None if case[k] is None else torch.from_numpy(case[k]).to(cuda)
+            for k in SERVE_BINDING] + [case["widths"]]
+    sb = ops.ServeBatch(*args)
+    q = case["queries"]
+    before = ops.LAUNCHES["serve_batch"]
+    if name.startswith("bad_"):
+        with pytest.raises(IndexError, match="outside"):
+            sb(q)
+        assert ops.LAUNCHES["serve_batch"] == before + 1
+        good = q[q.min(1) >= 0] % args[0].shape[0]   # the flag clears after a raise
+        assert (sb(good) == ref.serve_batch_ref(*args, torch.from_numpy(good).to(cuda))
+                .cpu().numpy()).all()
+        return
+    got = sb(q)
+    assert ops.LAUNCHES["serve_batch"] == before + int(q.shape[0] > 0)
+    exp = ref.serve_batch_ref(*args, torch.from_numpy(q).to(cuda)).cpu().numpy()
+    assert got.dtype == np.uint8 and (got == exp).all(), int((got != exp).sum())
+    assert (got == numpy_serve_codes(case)).all()
 
 
 # ------------------------------------------------------------ K2 frontier_or

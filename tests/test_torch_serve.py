@@ -122,21 +122,31 @@ def test_degradation_ladder_matches_jax(built, fam):
         {k: js[k] for k in ("epoch", "widths", "n_quarantined", "budget")}
 
 
-@pytest.mark.parametrize("backend,target", [("kernel", "ops"), ("dense", "ref")])
+@pytest.mark.parametrize("backend,target", [("kernel", "ops"), ("dense", "ref"),
+                                            ("kernel", "build")])
 def test_real_device_failure_raises_instead_of_degrading(built, monkeypatch, backend, target):
     """Only an injected failure takes the device -> host rung.  A real one
     (the kernel does not build, a launch fails) is raised: the port never
-    serves a failed device path's sub-batch on the CPU."""
+    serves a failed device path's sub-batch on the CPU.  The ``kernel``
+    backend serves through ``ops.ServeBatch``: its launch fails ("ops"), or
+    binding it to the engine fails ("build", on a fresh engine binding)."""
     name, g, _, tco = built[0]
     q = _queries(g, 40)
 
     def broken(*args, **kwargs):
-        raise RuntimeError("label_intersect launch failed: CUDA error 700")
+        if target == "build":
+            raise RuntimeError("kernel build failed: serve_batch: nvcc exited 1")
+        raise RuntimeError("launch failed: CUDA error 700")
 
-    monkeypatch.setattr(getattr(tengine, target),
-                        "tier_intersect" if target == "ops" else "tier_intersect_ref", broken)
+    if target == "ops":
+        monkeypatch.setattr(tengine.ops.ServeBatch, "__call__", broken)
+    elif target == "build":
+        monkeypatch.setattr(tco.engine, "_serve_batch", None)
+        monkeypatch.setattr(tengine.ops, "ServeBatch", broken)
+    else:
+        monkeypatch.setattr(tengine.ref, "tier_intersect_ref", broken)
     tco.engine.reset_stats()
-    with pytest.raises(RuntimeError, match="launch failed"):
+    with pytest.raises(RuntimeError, match="(launch|build) failed"):
         tco.serve(q, backend=backend)
     assert not any(tco.engine.stats()["degradation"].values())
 
