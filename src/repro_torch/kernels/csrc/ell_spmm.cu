@@ -11,16 +11,27 @@
 // Bound on an H100: it must read the ids and weights, write out, and read each source
 // row x[j] at least once, so it is bound by bytes.  At ogb_products (n = n_src =
 // 2,449,029, d = 32, F = 100, 61,859,140 valid slots) that is about 2.59 GB, 0.77 ms at
-// 3.35 TB/s; x (980 MB) does not fit the 50 MB L2, so a gather with no reuse reads
-// 400 bytes a valid slot, 24.7 GB.
+// 3.35 TB/s.  But x (980 MB) does not fit the 50 MB L2 and the ids are uniform, so no
+// schedule reuses a source row from L2 and a gather reads 400 bytes a valid slot: with
+// the ids, weights and out, 26.35 GB, 7.87 ms at 3.35 TB/s (the gather floor).  A
+// 400-byte row spans 13 32-byte sectors wherever it starts, so the card moves 416.
 //
 // Design.  The TPU kernel owns a tile of destination rows and pulls one source row per
 // (slot, row) with a dynamic slice, the scalar core issuing every read.  On the card a
-// warp owns one destination row: lane s reads the ids and weights of slot s (one
-// coalesced read per 32 slots), the warp walks the slots in order with the id and weight
-// broadcast by shuffle, and its lanes read the source row at consecutive features, 16
+// warp owns one destination row; lane s reads the id and weight of slot s (one
+// coalesced, evict-first read per 32 slots), and a ballot of the valid ids gives the
+// slots in order, so padding and bad slots cost no read of x and no step of the walk.
+// The warp takes the valid slots kGroup at a time: each slot's id and weight are
+// broadcast by shuffle and its source row's load is issued at once, then the
+// multiply-adds run in slot order.  The lanes read a row at consecutive features, 16
 // bytes a lane when F % 4 == 0 and the rows are 16-byte aligned (F = 100: 25 lanes cover
-// the row in one load), 4 bytes a lane otherwise.  Padding slots cost no read of x.
+// the row in one load; a 100-wide row leaves 7 of 32 lanes idle under any split into
+// 16-byte pieces), 4 bytes a lane otherwise; out is written with streaming stores.
+// What bounds it is the card's rate of random 416-byte reads, about 2.7 TB/s on an
+// NVIDIA H100 80GB HBM3 at 700.00 W: there, at ogb_products, more rows in flight a warp
+// measured slower, whether as kGroup 8 or 16 (more registers, fewer warps) or as a ring
+// of rows in shared memory filled ahead by TMA bulk copies (cp.async.bulk on mbarriers)
+// or by cp.async (PERF.md, §6).  Offsets are int64 and a grid-stride loop covers any n.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -29,6 +40,7 @@ namespace {
 constexpr int32_t kInvalid = -1;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kGroup = 4;  // source rows a warp loads before it adds them
 constexpr int64_t kMaxBlocks = int64_t{1} << 20;
 
 template <int VEC>
@@ -50,44 +62,51 @@ struct Vec<4> {
 };
 
 template <int VEC>
-__global__ void ell_spmm_kernel(const int32_t* __restrict__ nbr,
-                                const float* __restrict__ wgt, int64_t n, int32_t d,
-                                const float* __restrict__ x, int64_t n_src, int32_t F,
-                                float* __restrict__ out, int32_t* __restrict__ flags) {
+__global__ void __launch_bounds__(kThreads)
+    ell_spmm_kernel(const int32_t* __restrict__ nbr, const float* __restrict__ wgt,
+                    int64_t n, int32_t d, const float* __restrict__ x, int64_t n_src,
+                    int32_t F, float* __restrict__ out, int32_t* __restrict__ flags) {
   using V = typename Vec<VEC>::type;
   const int lane = threadIdx.x & 31;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kWarps;
+  bool bad = false;  // this lane saw an id outside [-1, n_src)
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5); i < n;
        i += stride) {
     const int32_t* ids = nbr + i * d;
     const float* ws = wgt + i * d;
-    bool bad = false;
     for (int32_t f0 = 0; f0 < F; f0 += 32 * VEC) {  // warp-uniform
       const int32_t f = f0 + lane * VEC;
       const bool active = f < F;
       V acc{};
       for (int32_t s0 = 0; s0 < d; s0 += 32) {
-        const int32_t mine = s0 + lane < d ? __ldg(ids + s0 + lane) : kInvalid;
-        const float my_w = s0 + lane < d ? __ldg(ws + s0 + lane) : 0.0f;
-        const int32_t cnt = min(32, d - s0);
-        for (int32_t s = 0; s < cnt; ++s) {
-          const int64_t id = __shfl_sync(0xffffffffu, mine, s);
-          const float w = __shfl_sync(0xffffffffu, my_w, s);
-          if (id == kInvalid) continue;
-          if (id < 0 || id >= n_src) {
-            bad = true;
-            continue;
+        const bool in_row = s0 + lane < d;
+        const int32_t mine = in_row ? __ldcs(ids + s0 + lane) : kInvalid;
+        const float my_w = in_row ? __ldcs(ws + s0 + lane) : 0.0f;
+        const bool valid = mine >= 0 && mine < n_src;
+        bad |= !valid && mine != kInvalid;
+        uint32_t todo = __ballot_sync(0xffffffffu, valid);
+        while (todo) {  // warp-uniform: kGroup slots a round
+          const int m = min(__popc(todo), kGroup);
+          V v[kGroup];
+          float w[kGroup];
+#pragma unroll
+          for (int j = 0; j < kGroup; ++j) {
+            const int src = j < m ? __ffs(todo) - 1 : 0;
+            todo &= todo - 1;
+            const int64_t id = __shfl_sync(0xffffffffu, mine, src);
+            w[j] = __shfl_sync(0xffffffffu, my_w, src);
+            v[j] = V{};
+            if (j < m && active) v[j] = __ldg(reinterpret_cast<const V*>(x + id * F + f));
           }
-          if (active) {
-            const V v = __ldg(reinterpret_cast<const V*>(x + id * F + f));
-            Vec<VEC>::fma(acc, w, v);
-          }
+#pragma unroll
+          for (int j = 0; j < kGroup; ++j)
+            if (j < m) Vec<VEC>::fma(acc, w[j], v[j]);
         }
       }
-      if (active) *reinterpret_cast<V*>(out + i * F + f) = acc;
+      if (active) __stcs(reinterpret_cast<V*>(out + i * F + f), acc);
     }
-    if (bad && lane == 0) flags[0] = 1;
   }
+  if (__any_sync(0xffffffffu, bad) && lane == 0) flags[0] = 1;
 }
 
 }  // namespace

@@ -19,6 +19,8 @@ import pytest
 import torch
 
 from frontier_cases import ARRAYS, CASES, ORDER, assert_same_level, make_case
+from library_cases import (BITSET_CASES, SPMM_CASES, case_id, make_bitset_case,
+                           make_spmm_case, padding_rows)
 from serve_batch_cases import BINDING as SERVE_BINDING
 from serve_batch_cases import CASES as SERVE_CASES
 from serve_batch_cases import make_case as make_serve_case
@@ -278,6 +280,13 @@ def test_bitset_mm_kernel_matches_plain(cuda, rng, n, k, m):
     assert torch.equal(got, ref.bitset_mm_ref(sparse, x))
 
 
+@pytest.mark.parametrize("case", BITSET_CASES, ids=case_id)
+def test_bitset_mm_kernel_edges(cuda, rng, case):
+    a, x = (torch.from_numpy(v).to(cuda) for v in make_bitset_case(rng, *case))
+    got = _launched("bitset_mm", lambda: ops.bitset_mm(a, x))
+    assert torch.equal(got, ref.bitset_mm_ref(a, x))
+
+
 def test_bitset_mm_kernel_closure(cuda):
     from repro_torch.graph.reach import adjacency_bits, transitive_closure_bits
 
@@ -425,6 +434,17 @@ def test_ell_spmm_kernel_matches_plain(cuda, rng, n, d, ns, F):
     torch.testing.assert_close(got, ref.ell_spmm_ref(nbr, wgt, x), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("case", SPMM_CASES, ids=case_id)
+def test_ell_spmm_kernel_edges(cuda, rng, case):
+    n, d, ns, F, edge = case
+    nbr, wgt, x = (torch.from_numpy(v).to(cuda) for v in make_spmm_case(rng, *case))
+    if edge == "unaligned":   # rows off 16-byte lines: the 4-byte loads
+        x = torch.empty(ns * F + 1, device=cuda)[1:].view(ns, F).copy_(x)
+    got = _launched("ell_spmm", lambda: ops.ell_spmm(nbr, wgt, x))
+    torch.testing.assert_close(got, ref.ell_spmm_ref(nbr, wgt, x), rtol=1e-5, atol=1e-5)
+    assert not got[padding_rows(n, edge)].any()
+
+
 def test_ell_spmm_kernel_refuses_bad_ids(cuda):
     x = torch.randn(6, 8, device=cuda)
     w = torch.ones(1, 2, device=cuda)
@@ -432,6 +452,11 @@ def test_ell_spmm_kernel_refuses_bad_ids(cuda):
         nbr = torch.tensor([[0, bad]], dtype=torch.int32, device=cuda)
         with pytest.raises(ValueError, match="outside"):
             ops.ell_spmm(nbr, w, x)
+    # past the first 32 slots of a row, beside good rows, at F = 100
+    nbr = torch.zeros(3, 40, dtype=torch.int32, device=cuda)
+    nbr[1, 37] = 6
+    with pytest.raises(ValueError, match="outside"):
+        ops.ell_spmm(nbr, torch.ones(3, 40, device=cuda), torch.randn(6, 100, device=cuda))
 
 
 @pytest.mark.parametrize("V,D,B,bag", [(100, 8, 32, 4), (500, 16, 64, 9), (64, 32, 16, 1),
