@@ -22,18 +22,45 @@
 //
 // Design.  The TPU kernel runs a sequential grid (head, query block, key block) with the
 // running max, sum and accumulator in VMEM scratch, carried from one key block to the
-// next.  On the card the blocks run in parallel with nothing carried between them, so a
-// block owns R query rows of one kv head (the rows of the Hq / Hkv q heads that share it,
-// position-major, so one K/V tile serves all of them) and splits the keys across its
-// four warps: warp w takes the 32-key chunks w, w + 4, ...; each warp keeps its own
-// running max, sum and accumulator and the block merges the four at the end.  Inside a
-// warp, lane j computes the R logits of key j (its K row staged in shared memory with
-// one 16-byte pad per row, so the lanes' 16-byte reads do not collide), the warp takes
-// the max, rescales, and then walks the 32 keys with each lane accumulating the columns
-// lane, lane + 32, ... of every row (V staged beside K).  Decode (S = 1) has only Hq/Hkv
-// rows a block, but still 128 threads that share its keys, not one.  Key chunks that no
-// row of the block can see (past the causal end, before the window) are never loaded.
-// Only the kv head index is computed for GQA: k and v are not copied per q head.
+// next.  On the card the blocks run in parallel with nothing carried between them, and
+// a block owns query rows of one kv head: the rows of the Hq / Hkv q heads that share it,
+// packed position-major (row r is position r / rep of q head kvh * rep + r % rep), so one
+// K/V tile serves all of them.  Only the kv head index is computed for GQA: k and v are
+// not copied per q head.  Key tiles that no row of a block can see (past the causal
+// end, before the window) are never loaded.  Two kernels, chosen by the rows a (batch,
+// kv head) has:
+//
+// Tiled (rows >= 64: prefill), flash_attention_tiled_kernel, tiled as an SGEMM on the
+// CUDA cores is.  A block of 128 threads owns 64 packed rows and walks 64-key tiles;
+// the whole block shares each K/V tile, so a value loaded from L2 serves 64 rows.  K and
+// V tiles come in by cp.async (16 bytes a lane, rows past T zero-filled) into two
+// shared-memory stages, tile j + 1 loading while tile j computes.  Thread (g, c), g =
+// tid / 16 and c = tid % 16, owns rows 8g .. 8g + 7: it computes their logits against
+// keys c, c + 16, c + 32, c + 48 (a register micro-tile of 8 x 4 from 16-byte loads of
+// q rows and K rows, 128 FMAs for 12 loads; K rows padded by 16 bytes so the lanes'
+// loads do not collide), then their output columns 4c .. 4c + 3 (and 64 + 4c .. for D
+// > 64) from P, written once to shared memory transposed, and V: 32 or 64 FMAs for 3 or
+// 4 loads a key.  The running max is reduced once a tile over the 16 lanes that share a
+// row, by shuffles; each lane keeps its own partial sum, reduced once at the end.
+// Masks apply only on tiles that straddle the causal edge, the window edge or T.  Row
+// tiles are launched from the last, so under a causal mask the longest run first.
+// D is a template parameter (one instantiation for each multiple of 8 from 8 to 128), so
+// the loops over it unroll whole.  Shared memory: q, two stages of K and V (64 x (D + 4)
+// floats each) and P (64 x 68), 104,448 bytes at D = 64 (two blocks an SM), 186,368 at
+// D = 128.  At granite-3-2b prefill it takes 1.85-1.90 ms on an NVIDIA H100 80GB HBM3 at
+// 700 W, 54-55% of its bound; three blocks an SM (P in K's stage, one V stage) measured
+// no faster, so what is left is the instruction mix: about 84% FFMA, the rest mostly
+// shared-memory loads (PERF.md §6).
+//
+// Short rows (rows < 64: decode, S = 1 with rep rows, and chunked prefill of a few
+// positions), flash_attention_kernel: a block owns R query rows and splits the keys
+// across its four warps: warp w takes the 32-key chunks w, w + 4, ...; each warp keeps
+// its own running max, sum and accumulator and the block merges the four at the end.
+// Inside a warp, lane j computes the R logits of key j (its K row staged in shared
+// memory with one 16-byte pad per row), the warp takes the max, rescales, and then
+// walks the 32 keys with each lane accumulating the columns lane, lane + 32, ... of
+// every row (V staged beside K).  Decode has only Hq/Hkv rows a block, but still 128
+// threads that share its keys, not one.
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -305,6 +332,283 @@ int launch_t(const Params& p, int64_t B, cudaStream_t stream) {
   return p.rows <= 4 ? launch_r<T, 4>(p, B, stream) : launch_r<T, 8>(p, B, stream);
 }
 
+// ---- the tiled kernel (rows >= kTileRows)
+
+constexpr int kTileRows = 64;      // packed query rows a block
+constexpr int kTileKeys = 64;      // keys a tile
+constexpr int kTiledThreads = 128;
+constexpr int kPadP = kTileRows + 4;  // a row of P transposed, padded by 16 bytes
+
+size_t tiled_smem_bytes(int64_t D) {
+  // q, two stages of K and two of V, each [64][D + 4]; P transposed [64][kPadP]
+  return static_cast<size_t>(5 * kTileRows * (D + 4) + kTileKeys * kPadP) * sizeof(float);
+}
+
+// a 16-byte copy from global to shared memory that does not block; zeros if !valid
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// keys t0 .. t0 + 63 of K and V into ks and vs ([64][D + 4]), 16 bytes a copy; rows
+// past T are zero-filled.  Commits one cp.async group.
+template <int D>
+__device__ __forceinline__ void load_kv_tile(float* ks, float* vs, const float* kb,
+                                             const float* vb, int64_t t0, int64_t T) {
+  constexpr int vecs = D / 4, DP = D + 4;
+  for (int e = threadIdx.x; e < kTileKeys * vecs; e += kTiledThreads) {
+    const int j = e / vecs, d = (e - j * vecs) * 4;
+    const bool ok = t0 + j < T;
+    const int64_t off = ok ? (t0 + j) * D + d : 0;
+    cp_async16(ks + j * DP + d, kb + off, ok);
+    cp_async16(vs + j * DP + d, vb + off, ok);
+  }
+  cp_async_commit();
+}
+
+__device__ __forceinline__ float half_warp_max(float x) {  // over the 16 lanes of a row group
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float half_warp_sum(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// D: the head dim, a compile-time constant so the loops over it unroll whole.  The grid
+// is one dimension: block L owns row tile tiles - 1 - L / heads of (batch, kv head)
+// L % heads.
+template <int D>
+__global__ void __launch_bounds__(kTiledThreads)
+    flash_attention_tiled_kernel(const Params p, const int64_t tiles, const int64_t heads) {
+  constexpr int C4 = (D + 63) / 64;  // 16-byte column chunks of the output a thread holds
+  constexpr int DP = D + 4;
+  extern __shared__ float4 smem4[];
+  float* q_s = reinterpret_cast<float*>(smem4);  // [64][DP], scaled
+  float* k_s = q_s + kTileRows * DP;             // [2][64][DP]
+  float* v_s = k_s + 2 * kTileKeys * DP;         // [2][64][DP]
+  float* p_s = v_s + 2 * kTileKeys * DP;         // [64 keys][kPadP]
+
+  const int tid = threadIdx.x;
+  const int g = tid >> 4;   // row group: rows 8g .. 8g + 7
+  const int c = tid & 15;   // keys c + 16 i; output columns 4c + 64 j
+  const int64_t bh = static_cast<int64_t>(blockIdx.x) % heads;  // b * Hkv + kvh
+  const int64_t r0 = (tiles - 1 - static_cast<int64_t>(blockIdx.x) / heads) * kTileRows;
+  const int64_t b = bh / p.Hkv, kvh = bh - b * p.Hkv;
+  const int64_t nr = min64(kTileRows, p.rows - r0);
+  const float* q = static_cast<const float*>(p.q);
+  const float* kb = static_cast<const float*>(p.k) + bh * p.T * D;
+  const float* vb = static_cast<const float*>(p.v) + bh * p.T * D;
+  constexpr int vecs = D / 4;  // 16-byte vectors a row
+
+  // the keys some row of the block can see, [k_begin, k_end); the last key the first
+  // row sees and the first key the last row sees bound the tiles that need no mask
+  const int64_t shift = p.T - p.S;
+  const int64_t s_first = r0 / p.rep, s_last = (r0 + nr - 1) / p.rep;
+  const int64_t k_end = p.causal ? min64(p.T, s_last + shift + 1) : p.T;
+  const int64_t k_begin = p.has_window ? max64(0, s_first + shift - p.window + 1) : 0;
+  const int64_t hi_min = p.causal ? min64(p.T - 1, s_first + shift) : p.T - 1;
+  const int64_t lo_max = p.has_window ? s_last + shift - p.window + 1 : 0;
+  const int64_t t_first = (k_begin / kTileKeys) * kTileKeys;
+
+  if (t_first < k_end) load_kv_tile<D>(k_s, v_s, kb, vb, t_first, p.T);
+
+  // stage the block's query rows, scaled into the base-2 softmax, while tile 0 loads
+  for (int e = tid; e < kTileRows * vecs; e += kTiledThreads) {
+    const int r = e / vecs, d = (e - r * vecs) * 4;
+    float4 val = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (r < nr) {
+      const int64_t s = (r0 + r) / p.rep, gq = (r0 + r) - s * p.rep;
+      val = __ldg(reinterpret_cast<const float4*>(
+          q + ((b * p.Hq + kvh * p.rep + gq) * p.S + s) * D + d));
+      val.x *= p.scale_log2;
+      val.y *= p.scale_log2;
+      val.z *= p.scale_log2;
+      val.w *= p.scale_log2;
+    }
+    *reinterpret_cast<float4*>(q_s + r * DP + d) = val;
+  }
+
+  bool col_ok[C4];
+#pragma unroll
+  for (int j = 0; j < C4; ++j) col_ok[j] = 4 * c + 64 * j < D;
+  float m[8], l[8], o[8][4 * C4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 4 * C4; ++j) o[i][j] = 0.0f;
+  }
+  const float* q_g = q_s + 8 * g * DP;
+
+  int stage = 0;
+  for (int64_t t0 = t_first; t0 < k_end; t0 += kTileKeys, stage ^= 1) {
+    if (t0 + kTileKeys < k_end) {  // block-uniform
+      const int next = (stage ^ 1) * kTileKeys * DP;
+      load_kv_tile<D>(k_s + next, v_s + next, kb, vb, t0 + kTileKeys, p.T);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile t0 (and, the first time, q) is in shared memory
+    const float* ks = k_s + stage * kTileKeys * DP;
+    const float* vs = v_s + stage * kTileKeys * DP;
+
+    // logits of rows 8g + i against keys c + 16 k, base 2, already scaled
+    float sc[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) sc[i][k] = 0.0f;
+#pragma unroll
+    for (int d = 0; d < D; d += 4) {
+      float4 kf[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        kf[k] = *reinterpret_cast<const float4*>(ks + (c + 16 * k) * DP + d);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 qf = *reinterpret_cast<const float4*>(q_g + i * DP + d);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          sc[i][k] = fmaf(qf.x, kf[k].x, sc[i][k]);
+          sc[i][k] = fmaf(qf.y, kf[k].y, sc[i][k]);
+          sc[i][k] = fmaf(qf.z, kf[k].z, sc[i][k]);
+          sc[i][k] = fmaf(qf.w, kf[k].w, sc[i][k]);
+        }
+      }
+    }
+    if (t0 < lo_max || t0 + kTileKeys - 1 > hi_min) {  // a tile on an edge (block-uniform)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int64_t qpos = (r0 + 8 * g + i) / p.rep + shift;
+        const int64_t hi = p.causal ? min64(p.T - 1, qpos) : p.T - 1;
+        const int64_t lo = p.has_window ? qpos - p.window + 1 : 0;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int64_t key = t0 + c + 16 * k;
+          if (key < lo || key > hi) sc[i][k] = -INFINITY;
+        }
+      }
+    }
+    // online softmax, once a tile: probabilities into sc, rescale of o and l
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float mx = half_warp_max(fmaxf(fmaxf(sc[i][0], sc[i][1]), fmaxf(sc[i][2], sc[i][3])));
+      const float mn = fmaxf(m[i], mx);
+      const float base = mn == -INFINITY ? 0.0f : mn;  // a row that sees nothing yet
+      const float alpha = exp2f(m[i] - base);
+      m[i] = mn;
+      float sum = 0.0f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        sc[i][k] = exp2f(sc[i][k] - base);
+        sum += sc[i][k];
+      }
+      l[i] = l[i] * alpha + sum;
+#pragma unroll
+      for (int j = 0; j < 4 * C4; ++j) o[i][j] *= alpha;
+    }
+    // P transposed: key c + 16 k, rows 8g .. 8g + 7 as two 16-byte stores
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      float4* dst = reinterpret_cast<float4*>(p_s + (c + 16 * k) * kPadP + 8 * g);
+      dst[0] = make_float4(sc[0][k], sc[1][k], sc[2][k], sc[3][k]);
+      dst[1] = make_float4(sc[4][k], sc[5][k], sc[6][k], sc[7][k]);
+    }
+    __syncthreads();  // P is whole
+    // o[i] += sum_key P[i, key] v[key], columns 4c + 64 j
+#pragma unroll 16
+    for (int key = 0; key < kTileKeys; ++key) {
+      const float4* pp = reinterpret_cast<const float4*>(p_s + key * kPadP + 8 * g);
+      const float4 p0 = pp[0], p1 = pp[1];
+      const float pr[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+#pragma unroll
+      for (int j = 0; j < C4; ++j) {
+        if (!col_ok[j]) continue;
+        const float4 vv = *reinterpret_cast<const float4*>(vs + key * DP + 4 * c + 64 * j);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          o[i][4 * j] = fmaf(pr[i], vv.x, o[i][4 * j]);
+          o[i][4 * j + 1] = fmaf(pr[i], vv.y, o[i][4 * j + 1]);
+          o[i][4 * j + 2] = fmaf(pr[i], vv.z, o[i][4 * j + 2]);
+          o[i][4 * j + 3] = fmaf(pr[i], vv.w, o[i][4 * j + 3]);
+        }
+      }
+    }
+    __syncthreads();  // this stage and P are free for the next tile
+  }
+
+  float* out = static_cast<float*>(p.out);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float den = half_warp_sum(l[i]);
+    const int64_t r = 8 * g + i;
+    if (r >= nr) continue;
+    const int64_t s = (r0 + r) / p.rep, gq = (r0 + r) - s * p.rep;
+    float* orow = out + ((b * p.Hq + kvh * p.rep + gq) * p.S + s) * D;
+#pragma unroll
+    for (int j = 0; j < C4; ++j) {
+      if (!col_ok[j]) continue;
+      float4 val = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (den > 0.0f) {
+        val = make_float4(o[i][4 * j] / den, o[i][4 * j + 1] / den, o[i][4 * j + 2] / den,
+                          o[i][4 * j + 3] / den);
+      }
+      *reinterpret_cast<float4*>(orow + 4 * c + 64 * j) = val;
+    }
+  }
+}
+
+template <int D>
+int launch_tiled(const Params& p, int64_t B, cudaStream_t stream) {
+  const size_t smem = tiled_smem_bytes(D);
+  auto kernel = flash_attention_tiled_kernel<D>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t tiles = (p.rows + kTileRows - 1) / kTileRows;
+  const int64_t heads = B * p.Hkv;
+  if (tiles * heads > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
+  kernel<<<static_cast<unsigned int>(tiles * heads), kTiledThreads, smem, stream>>>(
+      p, tiles, heads);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_tiled_d(const Params& p, int64_t B, cudaStream_t stream) {
+  switch (p.D) {
+    case 8: return launch_tiled<8>(p, B, stream);
+    case 16: return launch_tiled<16>(p, B, stream);
+    case 24: return launch_tiled<24>(p, B, stream);
+    case 32: return launch_tiled<32>(p, B, stream);
+    case 40: return launch_tiled<40>(p, B, stream);
+    case 48: return launch_tiled<48>(p, B, stream);
+    case 56: return launch_tiled<56>(p, B, stream);
+    case 64: return launch_tiled<64>(p, B, stream);
+    case 72: return launch_tiled<72>(p, B, stream);
+    case 80: return launch_tiled<80>(p, B, stream);
+    case 88: return launch_tiled<88>(p, B, stream);
+    case 96: return launch_tiled<96>(p, B, stream);
+    case 104: return launch_tiled<104>(p, B, stream);
+    case 112: return launch_tiled<112>(p, B, stream);
+    case 120: return launch_tiled<120>(p, B, stream);
+    case 128: return launch_tiled<128>(p, B, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // Launches on `stream` and returns a CUDA error code as an int (0 = success).  All
@@ -319,5 +623,5 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   Params p{q, k, v, out, Hq, Hkv, S, T, D, Hq / Hkv, (Hq / Hkv) * S,
            causal, has_window, window, scale * kLog2e};
   const auto s = static_cast<cudaStream_t>(stream);
-  return launch_t<float>(p, B, s);
+  return p.rows < kTileRows ? launch_t<float>(p, B, s) : launch_tiled_d(p, B, s);
 }

@@ -439,6 +439,22 @@ def ell_spmm(nbr: torch.Tensor, wgt: torch.Tensor, x: torch.Tensor) -> torch.Ten
     return out
 
 
+# device -> embedding_bag's flag word there: (pinned host memory, which the
+# kernel writes through its mapping, its numpy view, the lock the calls on
+# the device share)
+_FLAG_WORDS: dict = {}
+_FLAG_WORDS_LOCK = threading.Lock()
+
+
+def _flag_word(dev: torch.device) -> tuple:
+    with _FLAG_WORDS_LOCK:
+        word = _FLAG_WORDS.get(dev)
+        if word is None:
+            host = torch.zeros(1, dtype=torch.int32, pin_memory=True)
+            word = _FLAG_WORDS[dev] = (host, host.numpy(), threading.Lock())
+    return word
+
+
 def embedding_bag(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """K6: the sum of each bag's rows,
     ``out[b] = sum over s with idx[b, s] >= 0 of table[idx[b, s]]``,
@@ -446,8 +462,9 @@ def embedding_bag(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
     table: float32[V, D], idx: int32[B, bag] -> float32[B, D].  Every
     negative id is padding; an id >= V raises ``ValueError`` (the kernel
-    skips and flags it; the wrapper reads the flag, one host read per
-    call)."""
+    skips it and sets a flag word in pinned host memory).  On the card a
+    call is one launch on the current stream and one synchronisation of
+    that stream, after which the flag is read on the host."""
     _check_matrix("table", table, torch.float32)
     _check_matrix("idx", idx)
     dev = _device("embedding_bag", table, idx)
@@ -457,10 +474,15 @@ def embedding_bag(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     out = torch.empty((B, D), dtype=torch.float32, device=dev)
     if B == 0:
         return out
-    flags = torch.zeros(1, dtype=torch.int32, device=dev)
-    _launch("embedding_bag", dev, table.data_ptr(), V, D, idx.data_ptr(), B, bag,
-            out.data_ptr(), flags.data_ptr())
-    if int(flags[0]):
+    flag, flag_np, lock = _flag_word(dev)
+    stream = torch.cuda.current_stream(dev)
+    with lock:
+        flag_np[0] = 0
+        _launch("embedding_bag", dev, table.data_ptr(), V, D, idx.data_ptr(), B, bag,
+                out.data_ptr(), flag.data_ptr(), stream=stream)
+        stream.synchronize()
+        bad = bool(flag_np[0])
+    if bad:
         raise ValueError(f"embedding_bag: ids >= V = {V}")
     return out
 

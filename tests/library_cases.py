@@ -1,13 +1,20 @@
-"""Inputs of the kernel library's K3 ``bitset_mm`` and K5 ``ell_spmm`` at
-their edges: the JAX package's kernel sweeps (``tests/test_kernels.py``),
-then the edges of the card's designs (``kernels/csrc/bitset_mm.cu``: 2,048
-words of ``a`` a range, 2,048 set columns a list, 2,048 output words a
-column chunk; ``kernels/csrc/ell_spmm.cu``: 32 slots a read, 16-byte
-loads only on 16-byte aligned rows), then the shapes of
+"""Inputs of the kernel library's K3 ``bitset_mm``, K4 ``flash_attention``
+in float32, K5 ``ell_spmm`` and K6 ``embedding_bag`` at their edges: the JAX
+package's kernel sweeps (``tests/test_kernels.py``), then the edges of the
+card's designs (``kernels/csrc/bitset_mm.cu``: 2,048 words of ``a`` a range,
+2,048 set columns a list, 2,048 output words a column chunk;
+``kernels/csrc/flash_attention.cu``: 64 packed query rows and 64 keys a
+tile, fewer rows a (batch, kv head) on the short-row kernel, masks only on
+edge tiles, 16-byte output chunks to D = 64 and past it;
+``kernels/csrc/ell_spmm.cu``: 32 slots a read, 16-byte loads only on
+16-byte aligned rows; ``kernels/csrc/embedding_bag.cu``: 8, 16 or 32 lanes a
+bag, 8 slots a group, 8-byte loads only for even D on 8-byte aligned
+tables, rows wider than 32 loads in column chunks), then the shapes of
 ``benchmarks/kernel_bench.py``.
 
 Shared by ``test_torch_cuda.py`` and ``chip_smoke.py`` (each kernel against
-its plain version, on the card).  numpy only.
+its plain version, on the card) and ``test_torch_kernel_library.py`` (the
+plain versions against the JAX package on the CPU).  numpy only.
 """
 import numpy as np
 
@@ -33,6 +40,41 @@ SPMM_CASES = [(32, 4, 50, 8, None), (96, 7, 200, 32, None), (64, 1, 64, 128, Non
               (64, 40, 300, 33, "alternate"), (96, 33, 200, 128, "alternate"),
               (50, 40, 100, 260, None), (96, 7, 200, 100, "unaligned"),
               (64, 40, 300, 128, "unaligned")]
+
+
+# (B, Hq, Hkv, S, T, D, causal, window): K4 in float32 at the edges of its
+# tiled kernel (64 packed rows rep * S a block, 64 keys a tile)
+ATTENTION_F32_CASES = [(1, 2, 2, 63, 63, 64, True, None),      # 63 rows: short-row kernel
+                       (1, 2, 2, 64, 64, 64, True, None),      # 64 rows: one tile
+                       (1, 2, 2, 65, 65, 64, True, None),      # 65: a tile and one row
+                       (1, 8, 2, 16, 100, 32, True, None),     # rep 4, 64 rows, S < T
+                       (2, 8, 1, 9, 200, 16, True, None),      # rep 8, 72 rows
+                       (1, 4, 2, 100, 150, 8, True, None),     # D = 8, S and T off tiles
+                       (1, 4, 4, 130, 190, 72, False, None),   # D = 72, rep 1, no mask
+                       (1, 4, 1, 70, 300, 128, True, None),    # D = 128, rep 4
+                       (1, 4, 2, 200, 200, 64, True, 10),      # window under one tile
+                       (1, 4, 2, 200, 260, 64, False, 10),     # the same without causal
+                       (1, 2, 1, 150, 100, 64, True, None),    # S > T: rows see no key
+                       (1, 4, 2, 100, 100, 32, True, 0),       # window 0: no row sees one
+                       (1, 4, 2, 129, 257, 64, True, 65),      # window one past a tile
+                       (2, 8, 2, 256, 256, 64, True, None),    # many row tiles, causal
+                       (3, 32, 8, 1, 300, 64, True, None),     # decode, rep 4
+                       (1, 8, 1, 1, 129, 128, True, 64)]       # decode, rep 8, window
+
+# (V, D, B, bag, edge): table float32[V, D], idx int32[B, bag]; the first
+# cases were chip_smoke.py's
+BAG_CASES = [(100, 8, 32, 4, None), (500, 16, 64, 9, None), (64, 32, 16, 1, None),
+             (1000, 10, 300, 8, "all_padding"), (1000, 10, 1, 8, None),
+             (1000, 10, 300, 8, "last_id"), (100_000, 16, 8192, 8, "no_padding"),
+             # D = 1 (8 lanes a bag, 1 reads), 10 (5 float2 loads), 11 (odd: 4-byte
+             # loads), 64 (32 lanes a bag) and past one column chunk (130, 129);
+             # bag 1, 8, 9 (a second slot group) and 40; a table off 8-byte lines
+             (50, 1, 37, 1, None), (300, 1, 70, 9, "last_id"), (1000, 10, 333, 9, None),
+             (5000, 10, 1000, 40, "all_padding"), (1000, 11, 100, 8, "all_padding"),
+             (700, 11, 50, 40, "last_id"), (200, 11, 300, 1, None),
+             (2000, 64, 100, 40, None), (500, 64, 33, 1, "all_padding"),
+             (128, 130, 20, 9, None), (100, 129, 10, 8, "last_id"),
+             (1000, 10, 300, 8, "unaligned")]
 
 
 def case_id(case) -> str:
@@ -82,3 +124,21 @@ def padding_rows(n, edge) -> slice:
     """The rows of a case whose every slot is padding (out must be 0 there)."""
     return {"all_padding": slice(0, n // 2), "alternate": slice(0, n, 2)}.get(edge,
                                                                                 slice(0, 0))
+
+
+def make_bag_case(rng, V, D, B, bag, edge):
+    """(table, idx); ``edge`` None (a quarter of the slots padding, with ids
+    from the whole negative range), "no_padding", "all_padding" (the first
+    half of the bags all padding), "last_id" (slot 0 is V - 1) or
+    "unaligned" (a quarter padding; the caller moves the table off 8-byte
+    lines)."""
+    idx = rng.integers(0, V, size=(B, bag)).astype(np.int32)
+    if edge != "no_padding":
+        pad = rng.random((B, bag)) < 0.25
+        idx[pad] = rng.integers(-2**31, 0, size=int(pad.sum()))   # any negative pads
+    if edge == "all_padding":
+        idx[: B // 2] = -1
+    elif edge == "last_id":
+        idx[:, 0] = V - 1
+    table = rng.standard_normal((V, D)).astype(np.float32)
+    return table, idx

@@ -19,8 +19,8 @@ import pytest
 import torch
 
 from frontier_cases import ARRAYS, CASES, ORDER, assert_same_level, make_case
-from library_cases import (BITSET_CASES, SPMM_CASES, case_id, make_bitset_case,
-                           make_spmm_case, padding_rows)
+from library_cases import (ATTENTION_F32_CASES, BAG_CASES, BITSET_CASES, SPMM_CASES, case_id,
+                           make_bag_case, make_bitset_case, make_spmm_case, padding_rows)
 from serve_batch_cases import BINDING as SERVE_BINDING
 from serve_batch_cases import CASES as SERVE_CASES
 from serve_batch_cases import make_case as make_serve_case
@@ -361,6 +361,26 @@ def test_flash_attention_kernel_matches_plain(cuda, rng, B, Hq, Hkv, S, T, D, ca
         assert not got[:, :, : S - T].any()   # qpos < 0: no key, zero rows
 
 
+@pytest.mark.parametrize("case", ATTENTION_F32_CASES, ids=case_id)
+def test_flash_attention_f32_kernel_edges(cuda, rng, case):
+    """float32 at the edges of the tiled kernel: rows a (batch, kv head)
+    under, at and over one 64-row tile, S and T off the tiles, D = 8, 72 and
+    128, rep 1, 4 and 8, no mask, windows under one tile, rows that see no
+    key, decode."""
+    B, Hq, Hkv, S, T, D, causal, window = case
+    q = torch.from_numpy(rng.standard_normal((B, Hq, S, D)).astype(np.float32)).to(cuda)
+    k = torch.from_numpy(rng.standard_normal((B, Hkv, T, D)).astype(np.float32)).to(cuda)
+    v = torch.from_numpy(rng.standard_normal((B, Hkv, T, D)).astype(np.float32)).to(cuda)
+    got = _launched("flash_attention",
+                    lambda: ops.flash_attention(q, k, v, causal=causal, window=window))
+    exp = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got, exp, rtol=2e-5, atol=2e-5)
+    if causal and S > T:
+        assert not got[:, :, : S - T].any()
+    if window == 0:
+        assert not got.any()
+
+
 def test_flash_attention_kernel_refuses_misaligned_kv(cuda, rng):
     """k or v one element into its storage: a ValueError before the launch
     (the kernel's 16-byte loads would fault), and the card still works."""
@@ -473,8 +493,28 @@ def test_embedding_bag_kernel_matches_plain(cuda, rng, V, D, B, bag):
     torch.testing.assert_close(got, ref.embedding_bag_ref(table, idx), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("case", BAG_CASES, ids=case_id)
+def test_embedding_bag_kernel_edges(cuda, rng, case):
+    V, D, B, bag, edge = case
+    table, idx = (torch.from_numpy(v).to(cuda) for v in make_bag_case(rng, *case))
+    if edge == "unaligned":   # rows off 8-byte lines: the 4-byte loads
+        table = torch.empty(V * D + 1, device=cuda)[1:].view(V, D).copy_(table)
+    got = _launched("embedding_bag", lambda: ops.embedding_bag(table, idx))
+    torch.testing.assert_close(got, ref.embedding_bag_ref(table, idx), rtol=1e-5, atol=1e-5)
+    assert not got[padding_rows(B, edge)].any()
+
+
 def test_embedding_bag_kernel_refuses_bad_ids(cuda):
     table = torch.randn(6, 10, device=cuda)
     with pytest.raises(ValueError, match=">= V"):
         ops.embedding_bag(table, torch.tensor([[0, 6]], dtype=torch.int32, device=cuda))
+    # in a later slot group of a 40-slot bag beside good bags, at D = 11 and 64
+    for D, bag, slot in ((11, 40, 37), (64, 9, 8)):
+        idx = torch.zeros(3, bag, dtype=torch.int32, device=cuda)
+        idx[1, slot] = 6
+        with pytest.raises(ValueError, match=">= V"):
+            ops.embedding_bag(torch.randn(6, D, device=cuda), idx)
+    # the flag is cleared by the next call: a good call after a bad one passes
+    idx = torch.tensor([[0, 5, -1]], dtype=torch.int32, device=cuda)
+    torch.testing.assert_close(ops.embedding_bag(table, idx), table[0:1] + table[5:6])
 

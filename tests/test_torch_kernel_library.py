@@ -9,10 +9,12 @@ checks against the JAX package on the same numpy inputs:
     ``repro.graph.reach.transitive_closure_bits``;
   * K4 ``flash_attention`` against the Pallas kernel in interpret mode, at
     the JAX package's own tolerances (2e-5 in float32, 0.05 in bfloat16),
-    on shapes that include the tile edges of the card's bfloat16 kernel, and
-    the choice of its kernel by dtype;
+    on shapes that include the tile edges of the card's bfloat16 kernel and
+    of its float32 tiled kernel (``tests/library_cases.py``), and the choice
+    of its kernel by dtype;
   * K5 ``ell_spmm`` and K6 ``embedding_bag`` against the jnp references at
-    1e-5: their Pallas kernels do not run under the installed JAX (``pl.load``
+    1e-5, K6 also on the edges of its card kernel (``tests/library_cases.py``):
+    their Pallas kernels do not run under the installed JAX (``pl.load``
     is gone), so the references are what the JAX package can still run.
 
 The CUDA kernels themselves are held against these plain versions on the
@@ -28,6 +30,7 @@ from repro.graph.generators import random_dag as jax_random_dag
 from repro.graph.reach import transitive_closure_bits
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from library_cases import ATTENTION_F32_CASES, BAG_CASES, case_id, make_bag_case, padding_rows
 from repro_torch.graph.generators import paper_dataset_analogue, random_dag
 from repro_torch.graph.reach import adjacency_bits
 from repro_torch.kernels import ops, ref
@@ -160,6 +163,23 @@ def test_flash_attention_matches_pallas_interpret(B, Hq, Hkv, S, T, D, causal, w
     np.testing.assert_allclose(got.numpy(), exp, rtol=2e-5, atol=2e-5)
     if causal and S > T:
         assert not got[:, :, : S - T].any()   # qpos < 0: no key, zero rows
+
+
+@pytest.mark.parametrize("case", ATTENTION_F32_CASES, ids=case_id)
+def test_flash_attention_f32_edges_match_pallas_interpret(case, rng):
+    """The float32 cases at the card's tiled kernel's edges
+    (``tests/library_cases.py``): the plain version against the Pallas kernel
+    in interpret mode at 2e-5."""
+    B, Hq, Hkv, S, T, D, causal, window = case
+    q, k, v = _qkv(rng, B, Hq, Hkv, S, T, D)
+    exp = np.asarray(jops.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                          causal=causal, window=window, block_q=64,
+                                          block_k=64 if T % 64 == 0 else T, interpret=True))
+    got = ops.flash_attention(_t(q), _t(k), _t(v), causal=causal, window=window)
+    assert got.dtype == torch.float32 and got.shape == (B, Hq, S, D)
+    np.testing.assert_allclose(got.numpy(), exp, rtol=2e-5, atol=2e-5)
+    if window == 0:
+        assert not got.any()
 
 
 def test_flash_attention_bf16():
@@ -296,6 +316,23 @@ def test_embedding_bag_every_negative_id_is_padding(rng):
     bad[5, 1] = V
     with pytest.raises(ValueError, match=">= V"):
         ops.embedding_bag(_t(table), _t(bad))
+
+
+@pytest.mark.parametrize("case", BAG_CASES, ids=case_id)
+def test_embedding_bag_edges_match_jax_reference(case, rng):
+    """K6's cases at the card kernel's edges (``tests/library_cases.py``):
+    the plain version against the JAX package's reference at 1e-5."""
+    V, D, B, bag, edge = case
+    table, idx = make_bag_case(rng, *case)
+    exp = np.asarray(jref.embedding_bag_ref(jnp.asarray(table), jnp.asarray(idx),
+                                            jnp.asarray(idx >= 0)))
+    tt = _t(table)
+    if edge == "unaligned":   # off 8-byte lines, as the card test moves it
+        tt = torch.empty(V * D + 1)[1:].view(V, D).copy_(tt)
+    got = ops.embedding_bag(tt, _t(idx))
+    assert got.dtype == torch.float32 and got.shape == (B, D)
+    np.testing.assert_allclose(got.numpy(), exp, rtol=1e-5, atol=1e-5)
+    assert not got[padding_rows(B, edge)].any()
 
 
 # ------------------------------------------------------------------ wrappers
