@@ -34,13 +34,17 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      K5 and K6 also beside their gather floor: the bytes a gather moves when
      no source row is reused from L2, K6's in whole 32-byte sectors);
   4. the main path: the citeseer analogue at full size (n = 693,947) through
-     ``repro_torch.core.api.build_oracle(g, device="cuda").serve(q)`` with
-     ``backend="auto"`` (which must resolve to the kernel), about 1M queries
-     mixing uniform and reachable pairs, in batches of 4,096; verdicts held
-     against the host merge on every query and against BFS truth on a
-     sample; the kernels' launch counts read around exactly this run
-     (``serve_batch`` once a batch, ``label_intersect`` never); the batch
-     latency p50/p99 of this run;
+     ``repro_torch.core.api.build_oracle(g, device="cuda").serve(q)``: the
+     build with ``impl="auto"``, which must resolve to the host
+     ``speculative`` engine with the JAX package's 2,965 schedule boundaries
+     and speculation counts (``SPEC_COUNTS``) and labels byte for byte equal
+     to a ``reference`` build of the same graph (the truth of phases 4-4c);
+     serving with ``backend="auto"`` (which must resolve to the kernel),
+     about 1M queries mixing uniform and reachable pairs, in batches of
+     4,096; verdicts held against the host merge on every query and against
+     BFS truth on a sample; the kernels' launch counts read around exactly
+     this run (``serve_batch`` once a batch, ``label_intersect`` never); the
+     batch latency p50/p99 of this run;
   4b. the device wave build: ``build_oracle(g, device="cuda", impl="device")``
      on the same graph, the launch counts read around exactly this build
      (``frontier_expand`` once a BFS level, ``frontier_or`` never); its
@@ -50,6 +54,13 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      rows a sweep; K2's slab form against its plain version on a real slab
      and frontier; launches a wave and the card's busy share over a
      profiled window of 500 waves;
+  4c. the host batched engines on the same graph, each byte for byte
+     against phase 4's reference build: ``impl="wave"`` (46,883 waves), and
+     a speculative build with a checkpoint every ``CKPT_EVERY`` boundaries,
+     killed by an injected failure at chunk ``KILL_AT_CHUNK`` and resumed
+     from its last checkpoint with phase 4's speculation counts; the
+     seconds of each build, to the kill and of the resume, the checkpoints'
+     seconds, count and bytes on disk;
   5. timing of K1's and K2's two kernels and their plain versions with CUDA
      events at the main path's shapes (``serve_batch`` at a batch of 4,096
      and at the whole traffic in one call, with the bytes, compares and
@@ -110,6 +121,23 @@ BATCH = 4096
 BFS_SAMPLE = 4096
 PROFILED_WAVES = 500
 LABEL_FIELDS = ("L_out", "L_in", "out_len", "in_len", "hop_rank")
+# citeseer@1.0's builds as the JAX package (repro.build.engine) counts them on
+# a host: impl="auto" resolves to its speculative engine with these schedule
+# boundaries and speculation counts, and its exact wave schedule has
+# WAVE_BOUNDARIES waves.  The counts are deterministic; the port's host
+# engines must reproduce them exactly.  ``tools/build_counts.py --scale 1.0``
+# prints them from both packages where JAX is installed.
+SPEC_BOUNDARIES = 2965
+WAVE_BOUNDARIES = 46883
+SPEC_COUNTS = {"spec_waves": 9144, "spec_members": 401152, "clean_waves": 753,
+               "violations": 33576, "replayed_members": 33576, "replayed_sides": 33576,
+               "exact_waves": 1398, "annotated_pairs": 51676, "violation_rate": 0.0837,
+               "scalar_bailout": False}
+# phase 4c's killed speculative build: a checkpoint every 1,024 of its 10,542
+# boundaries (a save holds the whole label store, ~94 MB at this size), and
+# the kill at the 6,001st optimistic chunk, past the middle of the build
+CKPT_EVERY = 1024
+KILL_AT_CHUNK = 6000
 
 
 def log(msg: str) -> None:
@@ -1040,12 +1068,28 @@ def tier_outcomes(co, cq: np.ndarray, rest: np.ndarray, verdicts: np.ndarray) ->
             for i, w in enumerate(eng.widths)}
 
 
+def check_labels(want, got, what: str) -> None:
+    """The five label fields of ``got`` byte for byte against ``want``."""
+    for f in LABEL_FIELDS:
+        a, b = getattr(want, f), getattr(got, f)
+        check(a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes(),
+              f"{what}: {f} differs from the reference build")
+
+
+def check_spec_counts(spec: dict, what: str) -> None:
+    """A citeseer@1.0 speculative build's counts against the JAX package's."""
+    got = {k: spec[k] for k in SPEC_COUNTS}
+    check(got == SPEC_COUNTS, f"{what}: speculation counts {got} != {SPEC_COUNTS}")
+
+
 def phase_main_path(device):
     import torch
 
+    from repro_torch.build.engine import build_distribution_labels
     from repro_torch.core.api import build_oracle
     from repro_torch.graph.generators import paper_dataset_analogue
     from repro_torch.graph.reach import reachable_set
+    from repro_torch.graph.scc import condense_to_dag
     from repro_torch.kernels import ops
     from repro_torch.serve.prefilter import apply_prefilters
 
@@ -1058,13 +1102,26 @@ def phase_main_path(device):
     t_build = time.perf_counter() - t0
     o, eng = co.oracle, co.engine
     check(eng.backend == "kernel", f"backend auto resolved to {eng.backend!r}, not kernel")
-    check(o.build_stats["impl"] == "reference", "auto build must resolve to reference")
+    st = o.build_stats
+    check(st["impl"] == "speculative", f"auto build resolved to {st['impl']!r}, not speculative")
+    check(st["n_waves"] == SPEC_BOUNDARIES,
+          f"speculative schedule has {st['n_waves']} boundaries, not {SPEC_BOUNDARIES}")
+    check_spec_counts(st["speculation"], "the auto build")
+    # the truth: the scalar reference build of the same condensation DAG
+    dag, _ = condense_to_dag(g)
+    t0 = time.perf_counter()
+    ref_labels = build_distribution_labels(dag, impl="reference")
+    t_ref = time.perf_counter() - t0
+    check_labels(ref_labels, o, "the speculative auto build")
     record({"phase": "build_oracle", "dataset": MAIN_DATASET, "scale": MAIN_SCALE,
             "n": g.n, "m": g.m, "graph_seconds": t_graph, "build_seconds": t_build,
-            "build_stats": o.build_stats,
+            "build_stats": st, "reference_build_seconds": t_ref,
+            "reference_build_stats": ref_labels.build_stats, "labels_equal_reference": True,
             "L_out": list(o.L_out.shape), "L_in": list(o.L_in.shape),
             "label_bytes": int(o.L_out.nbytes + o.L_in.nbytes),
             "label_ints": o.total_label_size, "tier_widths": eng.widths})
+    log(f"build: speculative {t_build:.3f} s (build_oracle), reference {t_ref:.3f} s, "
+        f"{st['n_waves']} boundaries, labels equal")
 
     t0 = time.perf_counter()
     queries = make_traffic(g, co, MAIN_QUERIES)
@@ -1127,7 +1184,7 @@ def phase_main_path(device):
     log(f"main path: kernel {queries.shape[0] / t_kernel:.1f} queries/s, batch p50 "
         f"{np.percentile(latencies, 50) * 1e3:.4f} ms p99 {np.percentile(latencies, 99) * 1e3:.4f} "
         f"ms, serve_batch launches {launches['serve_batch']}")
-    return co, queries, cq, rest, launches, kernel_out
+    return co, queries, cq, rest, launches, kernel_out, ref_labels, dag
 
 
 # ------------------------------------------------------------------ phase 4b
@@ -1253,10 +1310,11 @@ class _LevelCapture:
         ops.FrontierExpand.__call__ = self.wrapped
 
 
-def phase_device_build(device, scale, ref_co=None, queries=None, verdicts=None) -> dict:
+def phase_device_build(device, scale, ref_labels=None, queries=None, verdicts=None) -> dict:
     """The device wave build of citeseer@``scale`` on the card, held byte for
-    byte against the reference build (phase 4's at full size, else its own)
-    and served through K1 with the reference oracle's verdicts.  Returns
+    byte against the reference build ``ref_labels`` (phase 4's at full size,
+    else its own) and served through K1 with phase 4's verdicts (else the
+    reference oracle's).  Returns
     {"launches": the build's kernel launches, "frontier_or_cases": K2 slab
     cases checked, "real_slab": a real slab and frontier for phase 5,
     "level": a real level's inputs from the middle of the schedule}."""
@@ -1273,12 +1331,13 @@ def phase_device_build(device, scale, ref_co=None, queries=None, verdicts=None) 
     g = paper_dataset_analogue(MAIN_DATASET, scale=scale)
     rec = {"phase": "device_build", "dataset": MAIN_DATASET, "scale": scale,
            "n": g.n, "m": g.m}
-    if ref_co is None:
+    if ref_labels is None:
         t0 = time.perf_counter()
         ref_co = build_oracle(g, device=device, impl="reference")
         rec["reference_build_seconds"] = time.perf_counter() - t0
         queries = np.random.default_rng(0).integers(0, g.n, (64 * BATCH, 2)).astype(np.int32)
         verdicts, _ = serve_all(ref_co, queries, None)
+        ref_labels = ref_co.oracle
     dag, _ = condense_to_dag(g)
     order = get_order(dag, "degree_product")
     waves = wave_schedule(dag, order, max_wave=256)
@@ -1304,10 +1363,7 @@ def phase_device_build(device, scale, ref_co=None, queries=None, verdicts=None) 
     check(dev["host_reads"] == dev["levels"] + dev["sweeps"],
           f"{dev['host_reads']} host reads for {dev['levels']} levels and {dev['sweeps']} sweeps")
     check(level.args is not None, "no level of the middle sweeps was captured")
-    for f in LABEL_FIELDS:
-        a, b = getattr(ref_co.oracle, f), getattr(co.oracle, f)
-        check(a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes(),
-              f"device build {f} differs from the reference build")
+    check_labels(ref_labels, co.oracle, "the device build")
     co.engine.reset_stats()
     ops.reset_launches()
     got, t_serve = serve_all(co, queries, None)
@@ -1373,6 +1429,85 @@ def phase_device_build(device, scale, ref_co=None, queries=None, verdicts=None) 
         f"busy {win['device_busy_share']:.4f} profiled")
     return {"launches": launches, "frontier_or_cases": cases, "real_slab": (slab, v, perm_r),
             "level": level.args}
+
+
+# ------------------------------------------------------------------ phase 4c
+
+
+def _dir_bytes(path: pathlib.Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def phase_host_engines(ref_labels, dag) -> None:
+    """The host batched engines at citeseer@1.0, each held byte for byte
+    against phase 4's reference build ``ref_labels`` of ``dag``:
+    ``impl="wave"`` with its exact schedule, then a checkpointed speculative
+    build killed by an injected failure at a chunk boundary past the middle
+    and resumed from its last checkpoint, with the uninterrupted run's
+    speculation counts."""
+    import tempfile
+
+    from repro_torch.build.engine import build_distribution_labels
+    from repro_torch.ft import inject
+
+    t_phase = time.perf_counter()
+    rec = {"phase": "host_engines", "dataset": MAIN_DATASET, "scale": MAIN_SCALE, "n": dag.n}
+
+    t0 = time.perf_counter()
+    wave = build_distribution_labels(dag, impl="wave")
+    t_wave = time.perf_counter() - t0
+    st = wave.build_stats
+    check(st["impl"] == "wave", f"impl={st['impl']!r}")
+    check(st["n_waves"] == WAVE_BOUNDARIES,
+          f"the wave build has {st['n_waves']} waves, not {WAVE_BOUNDARIES}")
+    check_labels(ref_labels, wave, "the wave build")
+    rec["wave"] = {"seconds": t_wave, "build_stats": st, "labels_equal_reference": True}
+    del wave
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        d = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        killed = False
+        try:
+            with inject.active(inject.Injector({"build.chunk": KILL_AT_CHUNK})):
+                build_distribution_labels(dag, impl="speculative", checkpoint_dir=tmp,
+                                          checkpoint_every=CKPT_EVERY)
+        except inject.SimulatedFailure:
+            killed = True
+        t_kill = time.perf_counter() - t0
+        check(killed, f"the injected failure at chunk {KILL_AT_CHUNK} never fired")
+        kept = sorted(p.name for p in d.iterdir() if p.name.startswith("ckpt_"))
+        check(bool(kept), "the killed build left no checkpoint")
+        kept_bytes = _dir_bytes(d)
+        last = int(kept[-1].split("_")[1])
+
+        t0 = time.perf_counter()
+        spec = build_distribution_labels(dag, impl="speculative", checkpoint_dir=tmp,
+                                         checkpoint_every=CKPT_EVERY)
+        t_resume = time.perf_counter() - t0
+        st = spec.build_stats
+        ck = st["checkpoint"]
+        check(st["impl"] == "speculative", f"impl={st['impl']!r}")
+        check(ck["resumed_from"] == last,
+              f"resumed from {ck['resumed_from']}, not the last checkpoint {last}")
+        check(st["n_waves"] == SPEC_BOUNDARIES, f"{st['n_waves']} boundaries")
+        check_spec_counts(st["speculation"], "the resumed build")
+        check_labels(ref_labels, spec, "the killed and resumed speculative build")
+        rec["killed_and_resumed"] = {
+            "checkpoint_every": CKPT_EVERY, "kill_at_chunk": KILL_AT_CHUNK,
+            "seconds_to_kill": t_kill, "checkpoints_kept_at_kill": kept,
+            "checkpoint_bytes_at_kill": kept_bytes, "resume_seconds": t_resume,
+            "resumed_from": ck["resumed_from"], "written_by_resume": ck["written"],
+            "checkpoint_seconds_in_resume": st["stages"]["checkpoint"],
+            "checkpoint_bytes_after": _dir_bytes(d), "build_stats": st,
+            "labels_equal_reference": True, "speculation_equal_uninterrupted": True}
+    rec["seconds"] = time.perf_counter() - t_phase
+    record(rec)
+    k = rec["killed_and_resumed"]
+    log(f"host engines: wave {t_wave:.3f} s ({WAVE_BOUNDARIES} waves); speculative killed "
+        f"after {t_kill:.3f} s with {kept} ({kept_bytes} bytes), resumed from "
+        f"{k['resumed_from']} in {t_resume:.3f} s ({k['written_by_resume']} checkpoints, "
+        f"{k['checkpoint_seconds_in_resume']} s); labels equal; phase {rec['seconds']:.3f} s")
 
 
 # ------------------------------------------------------------------ phase 5
@@ -1838,10 +1973,12 @@ def main(argv=None) -> int:
         kernels = phase_kernel_library(device, cases)
     else:
         library = phase_kernel_library(device, cases)
-        co, queries, cq, rest, launches, verdicts = phase_main_path(device)
+        co, queries, cq, rest, launches, verdicts, ref_labels, dag = phase_main_path(device)
         same = args.device_build_scale == MAIN_SCALE
         built = phase_device_build(
-            device, args.device_build_scale, *((co, queries, verdicts) if same else ()))
+            device, args.device_build_scale, *((ref_labels, queries, verdicts) if same else ()))
+        phase_host_engines(ref_labels, dag)
+        del ref_labels, dag
         cases["frontier_or"] += built["frontier_or_cases"]
         kernels = [timing_serve_batch(co, cq, launches["serve_batch"],
                                       cases["serve_batch"])]

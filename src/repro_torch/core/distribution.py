@@ -11,13 +11,19 @@ For each vertex v_i:
 
 Theorem 3: complete.  Theorem 4: non-redundant (no hop can be removed).
 
-Construction is owned by the ``repro_torch.build`` engine: the scalar
-reference path (``impl="reference"``) and the device wave engine
-(``impl="device"``, on ``device``), with ``impl="auto"`` routing between
-them as ``build.engine`` says and recording its pick in
-``build_stats["impl"]``.  Their labels are byte-identical to every
-construction impl of the JAX package.  The host wave and speculative
-engines are a later slice.
+Construction is owned by the ``repro_torch.build`` engine: ``impl="wave"``
+runs the host wave-scheduled bit-parallel sweep, ``impl="speculative"`` the
+host optimistic-chunk path for dense-reachability orders (sweep
+rank-consecutive chunks without proving mutual unreachability, certify
+prune-order violations exactly with word-level masks, correct violated
+members from the chunk's append log), ``impl="device"`` the device wave
+engine on ``device``, ``impl="reference"`` the scalar sets+deque path — all
+produce labels byte-identical to each other and to every construction impl
+of the JAX package.  ``impl="auto"`` (default) picks: reference below ~4k
+vertices; speculative when a sampled reach-density probe (or a degenerate
+exact schedule) flags the dense-reachability wall; otherwise the device
+engine on the build's device.  It records its pick in
+``build_stats["impl"]``.
 """
 from __future__ import annotations
 
@@ -37,7 +43,8 @@ def distribution_labeling(
     **engine_kwargs,
 ) -> ReachabilityOracle:
     """Build the oracle for DAG ``g`` (int vertex ids 0..n-1); the device
-    engine runs on ``device``."""
+    engine runs on ``device``.  ``engine_kwargs`` go to
+    ``build_distribution_labels`` (``max_wave=``, ``checkpoint_dir=``, ...)."""
     # deferred: repro_torch.core's package init imports this module, while the
     # engine imports repro_torch.core.oracle — a top-level import would cycle
     from repro_torch.build.engine import build_distribution_labels

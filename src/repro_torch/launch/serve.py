@@ -8,8 +8,10 @@ the dense/kernel backends' plain torch paths on the CPU), streams uniform
 random queries through each backend, and checks a BFS correctness sample.
 Exits non-zero when a sampled verdict is wrong or a degradation counter
 moved (this driver injects no faults, so a clean run degrades nothing).
-The JAX driver's daemon mode, snapshot/state-dir lifecycle and fault flags
-come with their slices of the port (ROADMAP.md Queue 1 items 6-8).
+``--checkpoint-dir`` makes the build crash-safe (the host batched engines'
+wave-granular checkpoints; a re-run resumes).  The JAX driver's daemon
+mode, snapshot/state-dir lifecycle and fault flags come with their slices
+of the port (ROADMAP.md Queue 1 items 6-8).
 """
 from __future__ import annotations
 
@@ -38,14 +40,25 @@ def make_graph(args):
 
 
 def build(args, g):
+    ckpt_kwargs = {}
+    if args.checkpoint_dir:
+        # crash-safe build: wave-granular checkpoints; a re-run with the same
+        # flags resumes from the latest complete one and finishes byte-identical
+        ckpt_kwargs = dict(checkpoint_dir=args.checkpoint_dir,
+                           checkpoint_every=args.checkpoint_every)
     t0 = time.perf_counter()
-    co = build_oracle(g, bucketing=not args.no_bucketing, device=args.device)
+    co = build_oracle(g, bucketing=not args.no_bucketing, device=args.device,
+                      **ckpt_kwargs)
     t_build = time.perf_counter() - t0
     print(
         f"DL build: {t_build:.2f}s  label ints={co.total_label_size} "
         f"(avg {co.total_label_size / g.n:.1f}/vertex)  "
         f"tier widths={co.engine.widths}  device={co.engine.device}"
     )
+    ck = co.oracle.build_stats.get("checkpoint")
+    if ck is not None:
+        print(f"checkpoints: resumed_from={ck['resumed_from']} "
+              f"written={ck['written']} -> {args.checkpoint_dir}")
     return co
 
 
@@ -167,6 +180,11 @@ def main(argv=None) -> dict:
                     help="write results to this JSON file")
     ap.add_argument("--device", default="cuda",
                     help="where labels live and dense/kernel run (cuda|cpu)")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="wave-granular build checkpoints; re-running with the "
+                         "same flags resumes from the latest complete one")
+    ap.add_argument("--checkpoint-every", type=int, default=16,
+                    help="schedule boundaries between checkpoints")
     return run_sweep(ap.parse_args(argv))
 
 

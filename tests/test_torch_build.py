@@ -61,13 +61,12 @@ def test_auto_resolves_to_reference_and_records_it():
     assert o.n == g.n
 
 
-@pytest.mark.parametrize("impl", ["wave", "speculative", "device"])
+@pytest.mark.parametrize("impl", ["device"])
 def test_unported_impls_raise_naming_their_roadmap_item(impl):
     g = tcsr.from_edges(4, [0, 1], [1, 2])
     # the device engine is ported; its sharded expansion (mesh=) is not
-    kw = {"device": "cpu", "mesh": object()} if impl == "device" else {}
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
-        tengine.build_distribution_labels(g, impl=impl, **kw)
+        tengine.build_distribution_labels(g, impl=impl, device="cpu", mesh=object())
     with pytest.raises(ValueError, match="unknown construction impl"):
         tengine.build_distribution_labels(g, impl="bogus")
 

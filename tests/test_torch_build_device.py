@@ -9,8 +9,8 @@ JAX's ``distribution_labeling_device(expand="xla")`` (the Pallas expansion
 does not run under the installed JAX), its ``reference`` and its ``wave``
 builds on the five construction families, the order variants, the
 ``l_max`` growth cases and multi-word waves.  ``impl="auto"``
-routes as JAX does, with ``reference`` where JAX picks its ``speculative``
-engine (not ported yet).
+routes as JAX does, with ``device`` where JAX, without an accelerator,
+picks its host ``wave`` engine.
 """
 import numpy as np
 import pytest
@@ -161,16 +161,23 @@ def test_auto_routes_tree_family_to_device():
     _assert_same_labels(j, t, "xmark auto")
 
 
-def test_auto_routes_citeseer_to_reference():
-    """citeseer@0.01 (n = 6,939): mean exact wave under 24, so JAX picks
-    ``speculative``; the port, without that engine, builds ``reference``."""
+def test_auto_routes_citeseer_to_speculative():
+    """citeseer@0.01 (n = 6,939): mean exact wave under 24, so both packages
+    pick their host ``speculative`` engine, with the same schedule and
+    speculation counts."""
     g = jgen.paper_dataset_analogue("citeseer", 0.01)
     dag, _ = jscc.condense_to_dag(g)
     j = jengine.build_distribution_labels(dag, impl="auto")
     assert j.build_impl == "speculative"
     t = tengine.build_distribution_labels(_port(dag), impl="auto")  # no card needed
-    assert t.build_impl == t.build_stats["impl"] == "reference"
-    assert t.build_stats["auto_wanted"] == "speculative"
+    assert t.build_impl == t.build_stats["impl"] == "speculative"
+    assert "auto_wanted" not in t.build_stats
+    assert t.build_stats["n_waves"] == j.build_stats["n_waves"]
+    js, ts = j.build_stats["speculation"], t.build_stats["speculation"]
+    assert set(js) == set(ts)
+    for k, v in js.items():
+        if not isinstance(v, float):
+            assert ts[k] == v, k
     _assert_same_labels(j, t, "citeseer auto")
 
 

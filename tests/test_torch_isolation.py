@@ -29,10 +29,12 @@ import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-# the modules of the device wave build must be among them
+# the modules of the device wave build and of the host engines' build
+# checkpoints must be among them
 for name in ("repro_torch.build.bitset", "repro_torch.build.waves",
              "repro_torch.build.engine_device", "repro_torch.kernels.ops",
-             "repro_torch.kernels.ref", "repro_torch.kernels.build"):
+             "repro_torch.kernels.ref", "repro_torch.kernels.build",
+             "repro_torch.persist", "repro_torch.persist.blocks"):
     assert name in names, name
 # the kernel library's wrappers, and a build entry for every CUDA source
 from repro_torch.kernels import build, ops
@@ -58,7 +60,7 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                        capture_output=True, text=True, timeout=240)
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
-    assert n_modules >= 28, r.stdout
+    assert n_modules >= 30, r.stdout
 
 
 def _no_cuda():
