@@ -61,10 +61,25 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      from its last checkpoint with phase 4's speculation counts; the
      seconds of each build, to the kill and of the resume, the checkpoints'
      seconds, count and bytes on disk;
+  4d. cold start and budget, on phase 4's oracle and traffic: the oracle
+     saved (``persist.save_oracle``) and cold-started
+     (``core.api.oracle_from_snapshot``), labels byte for byte and every
+     verdict equal to phase 4's through ``serve_batch``; one row block
+     corrupted: a strict load raises, quarantine mode answers 4,096 queries
+     on the corrupt rows through exact search; phase 4's engine under a
+     ``BudgetController`` at 0.75 of the full label bytes (``rank_cut``
+     theta*, 44,412,608 resident bytes), phase 4's traffic (a prefix when
+     its searches pass 60 s or would end the script past 330 s, said in
+     ``prefix_why``) through ``serve_batch`` with the truncation
+     masks, the kernel's uncertain marks held against the plain version and
+     every verdict equal to phase 4's; at 0.5 the padded floor on one batch;
+     the cut store saved and reloaded byte for byte; ``apply(None)`` and
+     ``refresh`` back to phase 4's verdicts; the launch counts read around
+     each of the three served paths;
   5. timing of K1's and K2's two kernels and their plain versions with CUDA
      events at the main path's shapes (``serve_batch`` at a batch of 4,096
-     and at the whole traffic in one call, with the bytes, compares and
-     32-byte sectors its queries need; ``frontier_expand`` at a real level
+     and at the whole traffic in one call, each also under phase 4d's
+     budget, with the bytes, compares and 32-byte sectors its queries need; ``frontier_expand`` at a real level
      from the middle of the build's schedule), and the kernels JSON line
      (all nine kernels: K1, K2 and K4 have two each);
   6. where a serving batch spends its time: the device's busy share over a
@@ -282,8 +297,11 @@ def _serve_batch_vs_plain(device) -> int:
     three tiers, ids 0 and n - 1, rows full to their width, an INVALID inside
     a row, ids in [-n, 0), rows wider than a lane group's 16 entries, widths
     not a multiple of 4 (the one-entry-a-lane loop), a truncating last tier,
-    and ids n and -n - 1, which must raise.  Codes byte for byte against the
-    plain version and the numpy loop; one launch a non-empty call."""
+    ids n and -n - 1, which must raise, and under a budget's truncation
+    masks a random cut, rows cut to length 0, u == v and level[u] >=
+    level[v] with both rows cut, one side cut only, no level and a partial
+    last mask byte.  Codes byte for byte against the plain version and the
+    numpy loop; one launch a non-empty call."""
     import serve_batch_cases as sc
     import torch
 
@@ -293,7 +311,9 @@ def _serve_batch_vs_plain(device) -> int:
         case = sc.make_case(np.random.default_rng(i), name)
         args = [None if case[k] is None else torch.from_numpy(case[k]).to(device)
                 for k in sc.BINDING] + [case["widths"]]
-        sb = ops.ServeBatch(*args)
+        masks = {k: None if case[k] is None else torch.from_numpy(case[k]).to(device)
+                 for k in sc.MASKS}
+        sb = ops.ServeBatch(*args, **masks)
         q = case["queries"]
         before = ops.LAUNCHES["serve_batch"]
         if name.startswith("bad_"):
@@ -307,7 +327,8 @@ def _serve_batch_vs_plain(device) -> int:
         got = sb(q)
         check(ops.LAUNCHES["serve_batch"] - before == int(q.shape[0] > 0),
               f"serve_batch {name}: {ops.LAUNCHES['serve_batch'] - before} launches")
-        exp = ref.serve_batch_ref(*args, torch.from_numpy(q).to(device)).cpu().numpy()
+        exp = ref.serve_batch_ref(*args, torch.from_numpy(q).to(device),
+                                  **masks).cpu().numpy()
         check(got.dtype == np.uint8 and np.array_equal(got, exp),
               f"serve_batch {name}: {int((got != exp).sum())} codes differ from the plain "
               "version")
@@ -1184,7 +1205,7 @@ def phase_main_path(device):
     log(f"main path: kernel {queries.shape[0] / t_kernel:.1f} queries/s, batch p50 "
         f"{np.percentile(latencies, 50) * 1e3:.4f} ms p99 {np.percentile(latencies, 99) * 1e3:.4f} "
         f"ms, serve_batch launches {launches['serve_batch']}")
-    return co, queries, cq, rest, launches, kernel_out, ref_labels, dag
+    return g, co, queries, cq, rest, launches, kernel_out, ref_labels, dag
 
 
 # ------------------------------------------------------------------ phase 4b
@@ -1510,6 +1531,261 @@ def phase_host_engines(ref_labels, dag) -> None:
         f"{k['checkpoint_seconds_in_resume']} s); labels equal; phase {rec['seconds']:.3f} s")
 
 
+# ------------------------------------------------------------------ phase 4d
+
+# the full store at citeseer@1.0 (L_out 16 wide, L_in 8) and the padded floor
+# both sides reach at any budget below 2/3 of it: 8 + 8 int32 columns a row
+FULL_LABEL_BYTES = 66_618_912
+FLOOR_LABEL_BYTES = 44_412_608
+QUARANTINE_QUERIES = 4096
+BUDGET_SEARCH_SECONDS = 60.0   # the budgeted run serves a prefix past this
+# ... or past the point where the whole script would end later than its
+# target (330 s), with this much left for the phases after 4d (~3 s seen)
+SCRIPT_TARGET_SECONDS = 330.0
+AFTER_4D_SECONDS = 10.0
+
+
+def phase_cold_start_and_budget(g, co, queries: np.ndarray, verdicts: np.ndarray) -> dict:
+    """Phase 4's oracle saved and cold-started, a corrupt snapshot served in
+    quarantine mode, then phase 4's engine under a memory budget, each
+    against phase 4's verdicts (``verdicts`` of ``queries``).  Returns the
+    budgeted ``ServeBatch`` op and the launches of its run, for phase 5."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.core.api import oracle_from_snapshot
+    from repro_torch.ft import inject
+    from repro_torch.kernels import ops, ref
+    from repro_torch.persist import (CorruptSnapshotError, load_budgeted, load_oracle,
+                                     save_budgeted, save_oracle)
+    from repro_torch.serve.budget import BudgetController, label_bytes, truncate_store
+
+    t_phase = time.perf_counter()
+    eng, o = co.engine, co.oracle
+    full = label_bytes(o)
+    check(full == FULL_LABEL_BYTES, f"full store {full} bytes, not {FULL_LABEL_BYTES}")
+    rec = {"phase": "cold_start_budget", "dataset": MAIN_DATASET, "scale": MAIN_SCALE,
+           "full_label_bytes": full}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_snap_") as tmp:
+        d = pathlib.Path(tmp)
+        # ---- 1. save, cold start, serve phase 4's traffic
+        t0 = time.perf_counter()
+        path = save_oracle(str(d / "oracle"), o)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        load_oracle(path)
+        t_load = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cold = oracle_from_snapshot(g, path, device=eng.device)
+        torch.cuda.synchronize()
+        t_cold = time.perf_counter() - t0
+        check_labels(o, cold.oracle, "the cold-started oracle")
+        check(cold.engine.backend == "kernel",
+              f"auto resolved to {cold.engine.backend!r} after a cold start")
+        cold.serve(queries[:BATCH])
+        ops.reset_launches()
+        # ---- the cold-started path
+        cold_out, t_serve = serve_all(cold, queries, None)
+        cold_launches = dict(ops.LAUNCHES)
+        # ----
+        n_batches = -(-queries.shape[0] // BATCH)
+        check(np.array_equal(cold_out, verdicts),
+              f"cold start != phase 4 on {int((cold_out != verdicts).sum())} queries")
+        check(cold_launches["serve_batch"] == n_batches and
+              cold_launches["label_intersect"] == 0, f"cold start launches {cold_launches}")
+        check(not any(cold.engine.degradation.values()),
+              f"degradation after a cold start: {cold.engine.degradation}")
+        rec["cold_start"] = {"save_seconds": t_save, "bytes_on_disk": _dir_bytes(d / "oracle"),
+                             "load_seconds": t_load, "cold_start_seconds": t_cold,
+                             "serve_qps": queries.shape[0] / t_serve,
+                             "launches": cold_launches, "labels_equal": True,
+                             "verdicts_equal": True}
+        del cold
+
+        # ---- 2. a corrupt row block: strict refuses, quarantine serves it
+        cq = co.comp[queries]
+        per_block = np.bincount(cq[:, 0] // 4096)
+        k = int(per_block.argmax())
+        bad = shutil.copytree(path, d / "corrupt")
+        inject.flip_bit(str(bad / f"L_out.{k:05d}.npy"), seed=5)
+        try:
+            oracle_from_snapshot(g, str(bad), device=eng.device)
+        except CorruptSnapshotError:
+            pass
+        else:
+            check(False, "a strict load of a corrupt snapshot did not raise")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            quar = oracle_from_snapshot(g, str(bad), mode="quarantine", device=eng.device)
+        rows = quar.engine.stats()["n_quarantined"]
+        check(rows == min(4096, o.n - 4096 * k), f"{rows} rows quarantined")
+        touch = np.flatnonzero(cq[:, 0] // 4096 == k)[:QUARANTINE_QUERIES]
+        check(touch.size == QUARANTINE_QUERIES, f"only {touch.size} queries touch block {k}")
+        t0 = time.perf_counter()
+        q_out = quar.serve(queries[touch])
+        t_quar = time.perf_counter() - t0
+        deg = quar.engine.stats()["degradation"]
+        check(np.array_equal(q_out, verdicts[touch]), "quarantine mode differs from phase 4")
+        check(deg["quarantined"] == deg["searched"] == QUARANTINE_QUERIES
+              and deg["uncertain"] == 0 and deg["device_to_host"] == 0,
+              f"quarantine counters {deg}")
+        rec["quarantine"] = {"block": f"L_out.{k:05d}", "rows": rows,
+                             "queries": int(touch.size), "seconds": t_quar,
+                             "degradation": deg, "verdicts_equal": True}
+        del quar
+
+        # ---- 3. phase 4's engine under 0.75 x the full store
+        budget = int(0.75 * full)
+        ctl = BudgetController(eng)
+        t0 = time.perf_counter()
+        store = truncate_store(ctl.full_oracle(), budget_bytes=budget)
+        t_cut = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        mem_before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        eng.set_budget(store)
+        torch.cuda.synchronize()
+        t_upload = time.perf_counter() - t0
+        mem_after = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        ctl.apply(budget)          # the governor's own re-truncation (cut + upload)
+        torch.cuda.synchronize()
+        t_retrunc = time.perf_counter() - t0
+        store = eng.budget_store
+        # theta*: the largest threshold keeping every row within 8 entries,
+        # the smallest rank value in a 9th column
+        theta = min(int(m[lens > 8, 8].min()) for m, lens in
+                    ((o.L_out, o.out_len), (o.L_in, o.in_len)) if (lens > 8).any())
+        check(store.rank_cut == theta, f"rank_cut {store.rank_cut}, not theta* {theta}")
+        check(store.resident_bytes == FLOOR_LABEL_BYTES,
+              f"resident {store.resident_bytes} bytes, not {FLOOR_LABEL_BYTES}")
+        bv = eng._budget_view
+        co.serve(queries[:BATCH])   # warm-up, outside the count
+        eng.reset_stats()
+        latencies, outs = [], []
+        ops.reset_launches()
+        # ---- the budgeted path: batches of phase 4's traffic until its end,
+        # BUDGET_SEARCH_SECONDS, or the script's target, whichever comes first
+        t0 = time.perf_counter()
+        left = SCRIPT_TARGET_SECONDS - AFTER_4D_SECONDS - (t0 - _T0)
+        cap = min(BUDGET_SEARCH_SECONDS, left)
+        for i in range(0, queries.shape[0], BATCH):
+            t_batch = time.perf_counter()
+            outs.append(co.serve(queries[i:i + BATCH]))
+            latencies.append(time.perf_counter() - t_batch)
+            if time.perf_counter() - t0 > cap:
+                break
+        t_budget = time.perf_counter() - t0
+        budget_launches = dict(ops.LAUNCHES)
+        degradation = dict(eng.degradation)
+        # ----
+        b_out = np.concatenate(outs)
+        served = b_out.size
+        check(eng.last_stats["backend"] == "kernel", "the budgeted run left the kernel")
+        check(budget_launches["serve_batch"] == len(latencies)
+              and budget_launches["label_intersect"] == 0,
+              f"budgeted launches {budget_launches} for {len(latencies)} batches")
+        check(np.array_equal(b_out, verdicts[:served]),
+              f"budgeted verdicts differ from the full store's on "
+              f"{int((b_out != verdicts[:served]).sum())} queries")
+        # the kernel's marks against the plain version on the same batches
+        sb = bv.serve_batch
+        args = [sb.L_out, sb.L_in, sb.out_len, sb.in_len, sb.level, sb.widths]
+        marked = 0
+        for i in range(0, served, BATCH):
+            qb = np.ascontiguousarray(cq[i:i + BATCH], dtype=np.int32)
+            got = sb(qb)
+            exp = ref.serve_batch_ref(*args, torch.from_numpy(qb).to(eng.device),
+                                      sb.trunc_out, sb.trunc_in).cpu().numpy()
+            check(np.array_equal(got, exp), f"budgeted serve_batch != plain at batch {i}")
+            marked += int((got >> 7).sum())
+        check(degradation["uncertain"] > 0, "no query was uncertain under the budget")
+        check(degradation["uncertain"] == marked == degradation["searched"],
+              f"uncertain {degradation['uncertain']}, marked {marked}, "
+              f"searched {degradation['searched']}")
+        check(not any(v for k, v in degradation.items() if k not in ("uncertain", "searched")),
+              f"degradation {degradation}")
+        rec["budget_0_75"] = {
+            "budget_bytes": budget, "rank_cut": store.rank_cut, "theta_star": theta,
+            "resident_bytes": store.resident_bytes, "dropped_ints": store.dropped_ints,
+            "truncated_rows": {"out": int(store.truncated_out.sum()),
+                               "in": int(store.truncated_in.sum())},
+            "cut_seconds": t_cut, "upload_seconds": t_upload, "retruncate_seconds": t_retrunc,
+            "memory_allocated": {"before_set_budget": mem_before,
+                                 "after_set_budget": mem_after,
+                                 "added": mem_after - mem_before},
+            "served": int(served), "of": int(queries.shape[0]),
+            "prefix_why": None if served == queries.shape[0] else
+            f"searching the uncertain queries passed {BUDGET_SEARCH_SECONDS} s"
+            if cap == BUDGET_SEARCH_SECONDS else
+            f"the script had {left:.1f} s left before its {SCRIPT_TARGET_SECONDS} s target",
+            "kernel_qps": served / t_budget,
+            "batch_ms": {"p50": float(np.percentile(latencies, 50)) * 1e3,
+                         "p99": float(np.percentile(latencies, 99)) * 1e3,
+                         "max": max(latencies) * 1e3},
+            "launches": budget_launches, "degradation": degradation,
+            "uncertain_marked_by_kernel": marked, "verdicts_equal_full": True}
+        budgeted = {"op": sb, "launches": budget_launches["serve_batch"]}
+
+        # ---- 4. 0.5 x full: the padded floor, one batch
+        ctl.apply(int(0.5 * full))
+        st = eng.budget_store
+        check(st.rank_cut == 0 and st.resident_bytes == FLOOR_LABEL_BYTES > int(0.5 * full),
+              f"at 0.5: rank_cut {st.rank_cut}, resident {st.resident_bytes}")
+        eng.reset_stats()
+        t0 = time.perf_counter()
+        half = co.serve(queries[:BATCH])
+        t_half = time.perf_counter() - t0
+        check(np.array_equal(half, verdicts[:BATCH]), "verdicts at the floor differ")
+        rec["budget_0_5"] = {"budget_bytes": int(0.5 * full), "rank_cut": st.rank_cut,
+                             "resident_bytes": st.resident_bytes, "queries": BATCH,
+                             "seconds": t_half, "degradation": dict(eng.degradation),
+                             "verdicts_equal_full": True}
+
+        # ---- 5. the 0.75 store saved and loaded, byte for byte
+        t0 = time.perf_counter()
+        bpath = save_budgeted(str(d / "budgeted"), store)
+        back = load_budgeted(bpath)
+        t_bsnap = time.perf_counter() - t0
+        for a, b in zip(store.packed_masks(), back.packed_masks()):
+            check(a.tobytes() == b.tobytes(), "budgeted masks differ after a reload")
+        check_labels(store.oracle, back.oracle, "the reloaded budgeted store")
+        check((back.rank_cut, back.resident_bytes, back.dropped_ints)
+              == (store.rank_cut, store.resident_bytes, store.dropped_ints),
+              "budgeted store meta differs after a reload")
+        rec["budgeted_snapshot"] = {"seconds": t_bsnap, "bytes_on_disk": _dir_bytes(d / "budgeted"),
+                                    "equal": True}
+
+    # ---- 6. the full store again: apply(None), then refresh
+    ctl.apply(None)
+    check(eng.budget_store is None, "apply(None) left a budget")
+    epoch = eng.epoch
+    eng.refresh(o)
+    check(eng.epoch == epoch + 1 and eng._serve_batch is None, "refresh kept the old binding")
+    eng.reset_stats()
+    ops.reset_launches()
+    again, _ = serve_all(co, queries, None)
+    again_launches = dict(ops.LAUNCHES)
+    check(np.array_equal(again, verdicts), "after refresh the verdicts differ from phase 4's")
+    check(again_launches["serve_batch"] == n_batches and not any(eng.degradation.values()),
+          f"after refresh: launches {again_launches}, degradation {eng.degradation}")
+    rec["refreshed"] = {"epoch": eng.epoch, "launches": again_launches,
+                        "degradation": dict(eng.degradation), "verdicts_equal": True}
+    rec["seconds"] = time.perf_counter() - t_phase
+    record(rec)
+    b = rec["budget_0_75"]
+    log(f"cold start: save {t_save:.3f} s ({rec['cold_start']['bytes_on_disk']} bytes), load "
+        f"{t_load:.3f} s, cold start {t_cold:.3f} s, labels and verdicts equal; quarantine "
+        f"{QUARANTINE_QUERIES} queries in {t_quar:.3f} s; budget 0.75: rank_cut "
+        f"{b['rank_cut']}, resident {b['resident_bytes']}, {b['served']} queries at "
+        f"{b['kernel_qps']:.1f} queries/s, uncertain {degradation['uncertain']}, batch p50 "
+        f"{b['batch_ms']['p50']:.4f} ms p99 {b['batch_ms']['p99']:.4f} ms, memory +"
+        f"{mem_after - mem_before} bytes; phase {rec['seconds']:.3f} s")
+    return budgeted
+
+
 # ------------------------------------------------------------------ phase 5
 
 
@@ -1554,12 +1830,14 @@ def _device_events(fn, runtime: bool = False) -> tuple:
                      for ev in events if ev.get("ph") == "X" and ev.get("cat") in cats]
 
 
-def _serve_batch_work(args: list, q: np.ndarray, codes: np.ndarray) -> dict:
+def _serve_batch_work(args: list, q: np.ndarray, codes: np.ndarray,
+                      masks: bool = False) -> dict:
     """What one ``serve_batch`` call on queries ``q`` with result ``codes``
     needs, each input byte read once and each output byte written once: the
-    ids, the four scalars of every query (two without levels), the label rows
-    of the queries that reach intersection cut to min(length, tier width), a
-    code byte a query; the int32 compares of a row-major all-pairs scan that
+    ids, the four scalars of every query (two without levels), under a
+    budget its two truncation-mask bits, the label rows of the queries that
+    reach intersection cut to min(length, tier width), a code byte a query;
+    the int32 compares of a row-major all-pairs scan that
     stops at the first shared value; and the distinct 32-byte sectors the
     kernel's loads touch (ids, scalars, each query's first row vectors, which
     it loads before the prefilters decide, and the rest of the intersected
@@ -1571,7 +1849,7 @@ def _serve_batch_work(args: list, q: np.ndarray, codes: np.ndarray) -> dict:
     (n, Lo), Li = L_out.shape, L_in.shape[1]
     qt = torch.from_numpy(q).to(dev).long()
     qt = torch.where(qt < 0, qt + n, qt)
-    fate = torch.from_numpy(codes).to(dev).long() >> 1
+    fate = (torch.from_numpy(codes).to(dev).long() & 0x7F) >> 1
     sel = fate > 0
     u, v = qt[sel, 0], qt[sel, 1]
     w = torch.tensor(widths, device=dev)[fate[sel] - 1]
@@ -1614,54 +1892,68 @@ def _serve_batch_work(args: list, q: np.ndarray, codes: np.ndarray) -> dict:
         "label_rows": row_sectors(qt[:, 0] * Lo, first_o, Lo) + row_sectors(qt[:, 1] * Li,
                                                                               first_i, Li),
         "codes": -(-B // 32) + 1}
-    return {"bytes": B * 8 + B * scalars * 4 + int((la + lb).sum()) * 4 + B,
+    if masks:   # one byte of each mask a query, read with the scalars
+        sectors["masks"] = (int(torch.unique(qt[:, 0] // 256).numel())
+                            + int(torch.unique(qt[:, 1] // 256).numel()))
+    return {"bytes": B * 8 + B * scalars * 4 + (-(-2 * B // 8) if masks else 0)
+            + int((la + lb).sum()) * 4 + B,
             "compares": compares, "intersected": int(sel.sum()), "sectors": sectors,
             "sector_bytes": 32 * sum(sectors.values())}
 
 
-def timing_serve_batch(co, cq: np.ndarray, launches: int, cases: int) -> dict:
+def timing_serve_batch(co, cq: np.ndarray, launches: int, cases: int, budgeted) -> dict:
     """K1's batch form and its plain version at the main path's binding (the
     engine's resident citeseer@1.0 labels, lengths, levels and widths): on
     the first batch of the traffic (B = 4096, condensation ids) and on the
-    whole traffic in one call (B = 1,048,576).  The call (copy in, launch,
-    copy out, one synchronise) by CUDA events, the kernel's device time by
-    torch.profiler, the bound from the work these queries need."""
+    whole traffic in one call (B = 1,048,576); then the same two under phase
+    4d's budget (``budgeted``: its ``ServeBatch`` op, bound to the cut store
+    and its truncation masks, and the launches of phase 4d's budgeted run).  The call (copy in, launch, copy out, one
+    synchronise) by CUDA events, the kernel's device time by torch.profiler,
+    the bound from the work these queries need."""
     import torch
 
     from repro_torch.kernels import ref
 
-    sb = co.engine._serve_batch_op()
-    args = [sb.L_out, sb.L_in, sb.out_len, sb.in_len, sb.level, sb.widths]
-    dev = sb.L_out.device
     configs = []
-    for B, reps in ((BATCH, 200), (cq.shape[0], 10)):
+    full = co.engine._serve_batch_op()
+    for sb, B, reps, n_launch in ((full, BATCH, 200, launches),
+                                  (full, cq.shape[0], 10, launches),
+                                  (budgeted["op"], BATCH, 200, budgeted["launches"]),
+                                  (budgeted["op"], cq.shape[0], 10, budgeted["launches"])):
+        args = [sb.L_out, sb.L_in, sb.out_len, sb.in_len, sb.level, sb.widths]
+        masks = (sb.trunc_out, sb.trunc_in)
+        dev = sb.L_out.device
         q = np.ascontiguousarray(cq[:B], dtype=np.int32)
         qd = torch.from_numpy(q).to(dev)
         got = sb(q)
-        exp = ref.serve_batch_ref(*args, qd).cpu().numpy()
+        exp = ref.serve_batch_ref(*args, qd, *masks).cpu().numpy()
         check(np.array_equal(got, exp), f"serve_batch differs from its plain version at "
                                         f"B={B} on {int((got != exp).sum())} queries")
         kern = lambda: sb(q)  # noqa: E731
-        plain = lambda: ref.serve_batch_ref(*args, qd)  # noqa: E731
+        plain = lambda: ref.serve_batch_ref(*args, qd, *masks)  # noqa: E731
         # plain, kernel, kernel, plain: both sides see the same card state
         p1, k1, k2, p2 = (_event_ms(plain, max(reps // 4, 3), warmup=2), _event_ms(kern, reps),
                           _event_ms(kern, reps), _event_ms(plain, max(reps // 4, 3), warmup=2))
         device_ms = _kernel_device_ms(kern, "serve_batch_kernel", min(reps, 50))
-        work = _serve_batch_work(args, q, got)
+        budget = sb.trunc_out is not None
+        work = _serve_batch_work(args, q, got, masks=budget)
         bound = _bound(work["bytes"], work["compares"], PEAK_INT32_OPS_PER_S)
-        fates = np.bincount(got >> 1, minlength=1 + len(sb.widths))
+        fates = np.bincount((got & 0x7F) >> 1, minlength=1 + len(sb.widths))
         configs.append({
-            "B": B, "shape": {"B": B, "L_out": list(sb.L_out.shape), "L_in": list(sb.L_in.shape),
-                              "widths": sb.widths, "level": sb.level is not None,
-                              "prefiltered": int(fates[0]), "tiers": fates[1:].tolist()},
+            "B": B, "budgeted": budget,
+            "uncertain": int((got >> 7).sum()),
+            "shape": {"B": B, "L_out": list(sb.L_out.shape), "L_in": list(sb.L_in.shape),
+                      "widths": sb.widths, "level": sb.level is not None,
+                      "prefiltered": int(fates[0]), "tiers": fates[1:].tolist()},
             "ms": min(k1, k2), "ms_runs": [k1, k2], "device_ms": device_ms,
-            "plain_ms": min(p1, p2), "plain_ms_runs": [p1, p2], "launches": launches,
+            "plain_ms": min(p1, p2), "plain_ms_runs": [p1, p2], "launches": n_launch,
             **bound, **work, "bound_share_device": bound["bound_ms"] / device_ms,
             # no PyTorch call computes prefilters, tiers and intersection in one
             "library_ms": None})
-        log(f"serve_batch B={B}: {min(k1, k2):.6f} ms a call (device {device_ms:.6f} ms), "
-            f"plain {min(p1, p2):.6f} ms, bound {configs[-1]['bound_ms']:.6f} ms "
-            f"({configs[-1]['bound_by']}), {work['sector_bytes']} sector bytes")
+        log(f"serve_batch B={B}{' budgeted' if budget else ''}: {min(k1, k2):.6f} ms a call "
+            f"(device {device_ms:.6f} ms), plain {min(p1, p2):.6f} ms, bound "
+            f"{configs[-1]['bound_ms']:.6f} ms ({configs[-1]['bound_by']}), "
+            f"{work['sector_bytes']} sector bytes")
     head = configs[0]
     return {
         "name": "serve_batch", "route": "cuda",
@@ -1672,6 +1964,8 @@ def timing_serve_batch(co, cq: np.ndarray, launches: int, cases: int) -> dict:
         **{k: head[k] for k in ("shape", "ms", "ms_runs", "device_ms", "plain_ms",
                                 "plain_ms_runs", "bound_ms", "bound_by", "bytes",
                                 "operations", "library_ms")},
+        "budgeted_ms": configs[2]["ms"], "budgeted_device_ms": configs[2]["device_ms"],
+        "budgeted_bound_ms": configs[2]["bound_ms"], "budgeted_launches": budgeted["launches"],
         "configs": configs}
 
 
@@ -1973,15 +2267,16 @@ def main(argv=None) -> int:
         kernels = phase_kernel_library(device, cases)
     else:
         library = phase_kernel_library(device, cases)
-        co, queries, cq, rest, launches, verdicts, ref_labels, dag = phase_main_path(device)
+        g, co, queries, cq, rest, launches, verdicts, ref_labels, dag = phase_main_path(device)
         same = args.device_build_scale == MAIN_SCALE
         built = phase_device_build(
             device, args.device_build_scale, *((ref_labels, queries, verdicts) if same else ()))
         phase_host_engines(ref_labels, dag)
         del ref_labels, dag
+        budgeted = phase_cold_start_and_budget(g, co, queries, verdicts)
         cases["frontier_or"] += built["frontier_or_cases"]
         kernels = [timing_serve_batch(co, cq, launches["serve_batch"],
-                                      cases["serve_batch"])]
+                                      cases["serve_batch"], budgeted)]
         kernels += phase_timing(co, cq[rest], launches, cases)
         kernels.append(timing_frontier_expand(built["level"],
                                               built["launches"]["frontier_expand"],

@@ -5,12 +5,12 @@ one call, served on the card.
     oracle.query(u, v)                      # original vertex ids
     oracle.serve(queries)                   # batched engine path
     oracle.serve(queries, backend="dense")  # pick the intersection backend
+    oracle = oracle_from_snapshot(graph, path)  # cold start, no rebuild
 
 The counterpart of ``repro.core.api``: SCC condensation, Distribution-
-Labeling on the condensation, and a ``repro_torch.serve.QueryEngine``
-(prefilters + length bucketing + pluggable backends) whose label matrices
-live on ``device``.  Cold start from a snapshot (``oracle_from_snapshot``)
-comes with the persist slice (ROADMAP.md Queue 1 item 6).
+Labeling on the condensation (or a ``persist`` snapshot of its labels), and
+a ``repro_torch.serve.QueryEngine`` (prefilters + length bucketing +
+pluggable backends) whose label matrices live on ``device``.
 """
 from __future__ import annotations
 
@@ -91,4 +91,52 @@ def build_oracle(
     # queries reach the engine in original ids; the engine reads the comp
     # array through the oracle at call time (never a private cached copy)
     engine.comp_source = lambda: co.comp
+    return co
+
+
+def oracle_from_snapshot(
+    g: CSRGraph,
+    path: str,
+    mode: Literal["strict", "quarantine"] = "strict",
+    backend: str = "auto",
+    bucketing: bool = True,
+    device="cuda",
+) -> CondensedOracle:
+    """Cold-start serving: wire a persisted label snapshot to ``g``'s
+    condensation instead of rebuilding the index, with the engine on
+    ``device``.
+
+    ``mode="strict"`` raises ``persist.CorruptSnapshotError`` on any
+    checksum mismatch; ``mode="quarantine"`` loads anyway, zeroes the
+    corrupt row blocks, and arms the engine's quarantine masks so queries
+    touching them degrade to exact online search over the condensation DAG.
+
+    The caller vouches that ``path`` was saved from THIS graph's
+    condensation (``save_oracle(path, co.oracle)``, by either package); a
+    snapshot of a different graph fails the cheap shape check here and
+    answers garbage past it.  Raises ``RuntimeError`` before any work when
+    ``device`` is CUDA and torch sees no CUDA device."""
+    from repro_torch.persist import load_oracle
+
+    device = resolve_device(device)
+    if mode not in ("strict", "quarantine"):
+        raise ValueError(f"mode must be strict|quarantine, got {mode!r}")
+    dag, comp = condense_to_dag(g)
+    report = None
+    if mode == "strict":
+        oracle = load_oracle(path, strict=True)
+    else:
+        oracle, report = load_oracle(path, strict=False)
+    if oracle.n != dag.n:
+        raise ValueError(
+            f"snapshot at {path} indexes {oracle.n} vertices but the "
+            f"graph's condensation has {dag.n} — wrong snapshot for this graph")
+    engine = QueryEngine(
+        oracle, backend=backend, level=topo_levels(dag), bucketing=bucketing,
+        fallback_graph=dag, device=device,
+    )
+    co = CondensedOracle(oracle=oracle, comp=comp, engine=engine)
+    engine.comp_source = lambda: co.comp
+    if report is not None and not report.clean:
+        engine.set_quarantine(report.quarantine_out, report.quarantine_in)
     return co

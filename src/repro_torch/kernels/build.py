@@ -41,8 +41,8 @@ SIGNATURES = {
     ], _C.c_int),
     "serve_batch": ("serve_batch_launch", [
         _C.c_void_p, _C.c_void_p, _C.c_int64, _C.c_int32, _C.c_int32, _C.c_void_p,
-        _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_int32, _C.c_void_p, _C.c_void_p,
-        _C.c_int64, _C.c_void_p, _C.c_void_p, _C.c_void_p,
+        _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_int32,
+        _C.c_void_p, _C.c_void_p, _C.c_int64, _C.c_void_p, _C.c_void_p, _C.c_void_p,
     ], _C.c_int),
     "frontier_or": ("frontier_or_launch", [
         _C.c_void_p, _C.c_int64, _C.c_int32, _C.c_void_p, _C.c_int64, _C.c_int32,

@@ -20,13 +20,22 @@
 //                   searchsorted(widths, need, side="left")): verdict = L_out[u, :w]
 //                   and L_in[v, :w] share a value that is not INVALID (-1), w =
 //                   widths[t].
+//   * under a memory budget (truncation masks given for both sides, the packed bit
+//     masks of serve/budget.py's TruncatedStore: np.packbits order, row i is bit
+//     7 - (i & 7) of byte i >> 3), bit 7 of the code (kUncertain) marks a query whose
+//     false verdict the cut labels cannot prove: decided false by the emptiness
+//     prefilter or by the intersection, with both rows truncated, u != v and (level
+//     given) level[u] < level[v].  It is the JAX engine's three-valued epilogue
+//     (src/repro/serve/engine.py: QueryEngine.query_batch); fate and verdict keep
+//     their bits, and without masks no code has bit 7 set.
 // The labels keep INVALID at and after each row's length (the wrapper checks this
 // once), so the compare runs to min(len, w) of each row instead of the padded width;
 // it still skips any INVALID it meets inside a row, as the all-pairs compare does.
 //
 // Bound on an H100: a query moves 8 bytes of ids, 16 bytes of lengths and levels and,
 // when it reaches intersection, 4 * (la + lb) bytes of labels in, one byte out, and
-// does at most la * lb int32 compares, so it is bound by bytes.  At the serving batch
+// does at most la * lb int32 compares, so it is bound by bytes (a budgeted call adds
+// one mask bit a side: the byte of each, read with the lengths).  At the serving batch
 // (B = 4096, L_out 16 and L_in 8 wide) that is ~0.2 MB, well under a microsecond at
 // 3.35 TB/s: a launch is bound by its latency, and the design gains by making one
 // launch, one copy in and one copy out a batch where the tier form made one launch,
@@ -63,6 +72,7 @@ constexpr int32_t kInvalid = -1;
 constexpr int kGroup = 4;       // lanes per query
 constexpr int kThreads = 128;   // 32 queries a block
 constexpr int kMaxTiers = 16;   // the planner makes at most 3
+constexpr uint8_t kUncertain = 0x80;   // 2 * fate + verdict stays below it
 
 struct Tiers {
   int32_t count;
@@ -77,6 +87,8 @@ struct Args {
   const int32_t* out_len;
   const int32_t* in_len;
   const int32_t* level;   // nullptr: no level prefilter
+  const uint8_t* trunc_out;   // nullptr (both): no budget
+  const uint8_t* trunc_in;
   const int32_t* queries;
   int64_t B;
   uint8_t* out;
@@ -193,6 +205,11 @@ __global__ void __launch_bounds__(kThreads) serve_batch_kernel(const Args a) {
     hu = __ldg(a.level + u);
     hv = __ldg(a.level + v);
   }
+  uint8_t tu = 0, tv = 0;
+  if (a.trunc_out != nullptr) {
+    tu = __ldg(a.trunc_out + (u >> 3));
+    tv = __ldg(a.trunc_in + (v >> 3));
+  }
   const int32_t c0 = lane * VEC;
   int32_t x0[VEC], y0[VEC];
   load_or_invalid<VEC>(ra, c0, a.Lo, x0);
@@ -221,6 +238,11 @@ __global__ void __launch_bounds__(kThreads) serve_batch_kernel(const Args a) {
     const bool hit = intersect<VEC>(ra, la, rb, lb, x0, y0, lane, gmask);
     code = static_cast<uint8_t>(((t + 1) << 1) | (hit ? 1 : 0));
   }
+  // a false verdict is u != v; hu < hv leaves out the level prefilter's, which is a
+  // graph fact, exact at any budget
+  if (a.trunc_out != nullptr && !(code & 1) && hu < hv &&
+      ((tu >> (7 - (u & 7))) & (tv >> (7 - (v & 7))) & 1))
+    code |= kUncertain;
   if (lane == 0) a.out[i] = code;
 }
 
@@ -234,11 +256,13 @@ constexpr int64_t kCodesAt = 16;
 // (kCodesAt + B bytes) from `dev_out` back to `host_out` (pinned).  Returns the first
 // CUDA error as an int (0 = success).  `widths` is host memory (n_tiers entries,
 // ascending); the other pointers without `host_` are device pointers; `level` may be
-// null.  The caller has checked shapes, types and the labels' layout, and keeps the
+// null, and `trunc_out` / `trunc_in` (uint8[ceil(n / 8)] each) are both null or both
+// given.  The caller has checked shapes, types and the labels' layout, and keeps the
 // flag word 0 between calls.
 extern "C" int serve_batch_launch(const int32_t* L_out, const int32_t* L_in, int64_t n,
                                   int32_t Lo, int32_t Li, const int32_t* out_len,
                                   const int32_t* in_len, const int32_t* level,
+                                  const uint8_t* trunc_out, const uint8_t* trunc_in,
                                   const int32_t* widths, int32_t n_tiers,
                                   const int32_t* host_queries, int32_t* dev_queries, int64_t B,
                                   uint8_t* host_out, uint8_t* dev_out, void* stream) {
@@ -248,7 +272,9 @@ extern "C" int serve_batch_launch(const int32_t* L_out, const int32_t* L_in, int
   cudaError_t e = cudaMemcpyAsync(dev_queries, host_queries, B * 2 * sizeof(int32_t),
                                   cudaMemcpyHostToDevice, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  Args a{L_out, L_in, n, Lo, Li, out_len, in_len, level, dev_queries, B,
+  if ((trunc_out == nullptr) != (trunc_in == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{L_out, L_in, n, Lo, Li, out_len, in_len, level, trunc_out, trunc_in, dev_queries, B,
          dev_out + kCodesAt, reinterpret_cast<int32_t*>(dev_out), {}};
   a.tiers.count = n_tiers;
   for (int k = 0; k < kMaxTiers; ++k) a.tiers.width[k] = widths[k < n_tiers ? k : n_tiers - 1];

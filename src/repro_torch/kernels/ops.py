@@ -117,6 +117,8 @@ def tier_intersect(L_out: torch.Tensor, L_in: torch.Tensor,
 
 # the kernel takes the tier widths as launch parameters: at most this many
 SERVE_BATCH_MAX_TIERS = 16
+# bit 7 of a serve_batch code: a false verdict the truncated labels cannot prove
+SERVE_BATCH_UNCERTAIN = ref.SERVE_BATCH_UNCERTAIN
 # the flag word leads the codes in the output buffers (kCodesAt in the source)
 _FLAG_BYTES = 16
 # rows a construction-time layout check reads at once
@@ -133,7 +135,14 @@ class ServeBatch:
     the engine's ascending tier widths.  The resident state is checked once,
     here; a call checks only its queries.  ``ref.serve_batch_ref`` defines
     the codes: ``2 * fate + verdict``, fate 0 for a prefiltered query and
-    1 + t for one intersected in tier t.
+    1 + t for one intersected in tier t.  Under a memory budget
+    ``trunc_out`` / ``trunc_in`` (both or neither) are the store's packed
+    truncation masks, uint8[ceil(n / 8)] in ``np.packbits`` order
+    (``TruncatedStore.packed_masks``), and ``SERVE_BATCH_UNCERTAIN`` (bit 7)
+    marks the false verdicts they leave unproven.  ``unread_out`` /
+    ``unread_in`` (bool[n] or None) name rows no call reads, which the
+    layout check skips: the engine's quarantined rows, zero-filled by a
+    non-strict snapshot load, whose queries it sends to exact search.
 
     On CUDA tensors a call stages the queries in a pinned host buffer and
     makes one foreign call, which issues on the current stream, without
@@ -144,7 +153,8 @@ class ServeBatch:
     ``ref.serve_batch_ref``.  An id outside [-n, n) raises ``IndexError``
     (the kernel flags it and reads nothing)."""
 
-    def __init__(self, L_out, L_in, out_len, in_len, level, widths):
+    def __init__(self, L_out, L_in, out_len, in_len, level, widths, trunc_out=None,
+                 trunc_in=None, unread_out=None, unread_in=None):
         _check_matrix("L_out", L_out)
         _check_matrix("L_in", L_in)
         n = L_out.shape[0]
@@ -161,25 +171,39 @@ class ServeBatch:
                 any(b <= a for a, b in zip(widths, widths[1:])):
             raise ValueError(f"widths must be 1 to {SERVE_BATCH_MAX_TIERS} ascending "
                              f"positive ints, got {widths}")
+        if (trunc_out is None) != (trunc_in is None):
+            raise ValueError("trunc_out and trunc_in are both given or both None")
+        masks = () if trunc_out is None else (trunc_out, trunc_in)
+        for name, m in zip(("trunc_out", "trunc_in"), masks):
+            _check_vector(name, m, torch.uint8, (n + 7) // 8)
         self.dev = _device("serve_batch", L_out, L_in, out_len, in_len,
-                           *(() if level is None else (level,)))
-        # the kernel compares a row up to its length: nothing valid may lie past it
-        for name, L, lens in (("L_out", L_out, out_len), ("L_in", L_in, in_len)):
-            if bool(((lens < 0) | (lens > L.shape[1])).any()):
+                           *(() if level is None else (level,)), *masks)
+        # the kernel compares a row up to its length: nothing valid may lie past
+        # it in a row that a call reads
+        for name, L, lens, unread in (("L_out", L_out, out_len, unread_out),
+                                      ("L_in", L_in, in_len, unread_in)):
+            if unread is None:
+                unread = torch.zeros(n, dtype=torch.bool, device=self.dev)
+            else:
+                _check_vector(f"unread_{name[2:]}", unread, torch.bool, n)
+            if bool((((lens < 0) | (lens > L.shape[1])) & ~unread).any()):
                 raise ValueError(f"{name} lengths outside [0, {L.shape[1]}]")
             cols = torch.arange(L.shape[1], device=self.dev)[None, :]
             for i in range(0, n, _CHECK_ROWS):
                 rows = slice(i, i + _CHECK_ROWS)
-                if bool(((cols >= lens[rows, None]) & (L[rows] != ref.INVALID)).any()):
+                past = (cols >= lens[rows, None]) & (L[rows] != ref.INVALID)
+                if bool((past & ~unread[rows, None]).any()):
                     raise ValueError(f"{name} holds a label entry at or after its row's length")
         self.L_out, self.L_in, self.out_len, self.in_len, self.level = \
             L_out, L_in, out_len, in_len, level
+        self.trunc_out, self.trunc_in = trunc_out, trunc_in
         self.widths = widths
         self._widths_c = (ctypes.c_int32 * len(widths))(*widths)   # read at each launch
         # the launch's leading arguments, the same every call
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         self._bound_args = (
             L_out.data_ptr(), L_in.data_ptr(), n, L_out.shape[1], L_in.shape[1],
-            out_len.data_ptr(), in_len.data_ptr(), None if level is None else level.data_ptr(),
+            out_len.data_ptr(), in_len.data_ptr(), ptr(level), ptr(trunc_out), ptr(trunc_in),
             ctypes.addressof(self._widths_c), len(widths))
         self._lock = threading.Lock()
         self._cap = 0
@@ -202,8 +226,8 @@ class ServeBatch:
                              f"{getattr(queries, 'shape', '')}")
         if self.dev.type == "cpu":
             return ref.serve_batch_ref(self.L_out, self.L_in, self.out_len, self.in_len,
-                                       self.level, self.widths,
-                                       torch.from_numpy(queries)).numpy()
+                                       self.level, self.widths, torch.from_numpy(queries),
+                                       self.trunc_out, self.trunc_in).numpy()
         B = queries.shape[0]
         if B == 0:
             return np.zeros(0, dtype=np.uint8)

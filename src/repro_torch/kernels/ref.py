@@ -44,8 +44,19 @@ def tier_intersect_ref(L_out: torch.Tensor, L_in: torch.Tensor,
     return label_intersect_ref(a, b)
 
 
+# bit 7 of a serve_batch code: a false verdict the truncated labels cannot prove
+SERVE_BATCH_UNCERTAIN = 0x80
+
+
+def _mask_bits(packed: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` of a bit mask packed as ``np.packbits`` packs it: row i is
+    bit 7 - (i & 7) of byte i >> 3."""
+    return ((packed[idx >> 3].long() >> (7 - (idx & 7))) & 1).bool()
+
+
 def serve_batch_ref(L_out: torch.Tensor, L_in: torch.Tensor, out_len: torch.Tensor,
-                    in_len: torch.Tensor, level, widths, queries: torch.Tensor) -> torch.Tensor:
+                    in_len: torch.Tensor, level, widths, queries: torch.Tensor,
+                    trunc_out=None, trunc_in=None) -> torch.Tensor:
     """K1's batch form, plain: one code byte per query of a whole serving
     batch, ``2 * fate + verdict`` (the function of ``csrc/serve_batch.cu``).
 
@@ -56,7 +67,14 @@ def serve_batch_ref(L_out: torch.Tensor, L_in: torch.Tensor, out_len: torch.Tens
     ``serve.planner.plan_batch`` assigns, ``searchsorted(widths, max(out_len[u],
     in_len[v]), side="left")`` clamped to the last tier, with the verdict of
     ``tier_intersect_ref`` at ``widths[t]``.  ``level`` is None or int32[n];
-    ``widths`` ascending ints."""
+    ``widths`` ascending ints.
+
+    Under a memory budget ``trunc_out`` / ``trunc_in`` are the store's packed
+    truncation masks (uint8[ceil(n / 8)], ``np.packbits`` order), and
+    ``SERVE_BATCH_UNCERTAIN`` is set on a query with a false verdict, both
+    rows truncated, ``u != v`` and (level given) ``level[u] < level[v]``: the
+    JAX engine's three-valued epilogue, which leaves the same-vertex and
+    level prefilters' verdicts exact."""
     from repro_torch.serve.prefilter import apply_prefilters   # serve imports kernels
 
     n = L_out.shape[0]
@@ -76,7 +94,14 @@ def serve_batch_ref(L_out: torch.Tensor, L_in: torch.Tensor, out_len: torch.Tens
         sel = (fate == t + 1).nonzero().flatten()
         if sel.numel():
             verdict[sel] = tier_intersect_ref(L_out, L_in, q[sel], int(width))
-    return (2 * fate + verdict).to(torch.uint8)
+    code = 2 * fate + verdict
+    if trunc_out is not None:
+        u, v = q[:, 0], q[:, 1]
+        unc = _mask_bits(trunc_out, u) & _mask_bits(trunc_in, v) & ~verdict & (u != v)
+        if level is not None:
+            unc &= level[u] < level[v]
+        code = torch.where(unc, code | SERVE_BATCH_UNCERTAIN, code)
+    return code.to(torch.uint8)
 
 
 def or_reduce(x: torch.Tensor, dim: int) -> torch.Tensor:

@@ -7,22 +7,29 @@ Builds the oracle on ``--device`` (default ``cuda``; ``--device cpu`` runs
 the dense/kernel backends' plain torch paths on the CPU), streams uniform
 random queries through each backend, and checks a BFS correctness sample.
 Exits non-zero when a sampled verdict is wrong or a degradation counter
-moved (this driver injects no faults, so a clean run degrades nothing).
+moved (this driver injects no faults, so a clean run degrades nothing but
+the rows a ``--load-mode quarantine`` cold start quarantined).
 ``--checkpoint-dir`` makes the build crash-safe (the host batched engines'
-wave-granular checkpoints; a re-run resumes).  The JAX driver's daemon
-mode, snapshot/state-dir lifecycle and fault flags come with their slices
-of the port (ROADMAP.md Queue 1 items 6-8).
+wave-granular checkpoints; a re-run resumes).
+
+Lifecycle, in ``repro``'s order: ``--snapshot-dir`` cold-starts from a
+``persist.save_oracle`` snapshot when the directory exists
+(``--load-mode quarantine`` arms the degradation ladder instead of refusing
+a corrupt snapshot) and saves one after a fresh build.  ``--state-dir`` (a
+durable dynamic oracle) comes with ROADMAP.md Queue 1 item 9, and the JAX
+driver's daemon mode and fault flags with item 8.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import numpy as np
 import torch
 
-from repro_torch.core.api import build_oracle
+from repro_torch.core.api import build_oracle, oracle_from_snapshot
 from repro_torch.device import resolve_device
 from repro_torch.graph.generators import paper_dataset_analogue, random_dag
 from repro_torch.graph.reach import reachable_set
@@ -62,6 +69,29 @@ def build(args, g):
     return co
 
 
+def build_target(args, g):
+    """Resolve the serving target through the lifecycle ladder: snapshot
+    cold start > fresh build (saving a snapshot when ``--snapshot-dir`` is
+    given).  Returns (CondensedOracle, lifecycle record)."""
+    if args.snapshot_dir and os.path.isdir(args.snapshot_dir):
+        t0 = time.perf_counter()
+        co = oracle_from_snapshot(g, args.snapshot_dir, mode=args.load_mode,
+                                  bucketing=not args.no_bucketing, device=args.device)
+        seconds = time.perf_counter() - t0
+        nq = co.engine.stats()["n_quarantined"]
+        print(f"cold start from snapshot {args.snapshot_dir} in {seconds:.2f}s"
+              + (f" ({nq} rows quarantined)" if nq else ""))
+        return co, {"cold_start_seconds": seconds, "n_quarantined": nq}
+    co = build(args, g)
+    if args.snapshot_dir:
+        from repro_torch.persist import save_oracle
+
+        save_oracle(args.snapshot_dir, co.oracle)
+        print(f"saved index snapshot -> {args.snapshot_dir}")
+        return co, {"saved_snapshot": args.snapshot_dir}
+    return co, {}
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -97,7 +127,12 @@ def check_sample(g, queries: np.ndarray, pred: np.ndarray, n_check: int = 200) -
 def run_sweep(args) -> dict:
     """Sweep the backends; returns the run's record (the ``--json-out``
     payload).  Raises ``SystemExit(1)`` on a wrong sampled verdict or a
-    moved degradation counter."""
+    moved degradation counter (other than the quarantine rung of a
+    quarantine-mode cold start)."""
+    if args.state_dir:
+        raise NotImplementedError(
+            "--state-dir (a durable dynamic oracle) is not ported yet: "
+            "ROADMAP.md Queue 1 item 9")
     backends = list(BACKENDS) if args.backend == "all" else [args.backend]
     device = resolve_device(args.device)
     for be in backends:
@@ -107,7 +142,10 @@ def run_sweep(args) -> dict:
             raise SystemExit(str(e))
 
     g = make_graph(args)
-    co = build(args, g)
+    co, lifecycle = build_target(args, g)
+    # a quarantine-mode cold start sends the quarantined rows' queries to
+    # exact search: those two counters may move, together, and no other
+    quarantine_rung = co.engine.stats()["n_quarantined"] > 0
     rng = np.random.default_rng(args.seed)
     queries = rng.integers(0, g.n, size=(args.n_queries, 2)).astype(np.int32)
 
@@ -131,7 +169,9 @@ def run_sweep(args) -> dict:
         bad = check_sample(g, queries, pred)
         n_check = min(200, args.n_queries)
         print(f"[{stats['backend']}] correctness sample: {n_check - bad}/{n_check} ok")
-        failed |= bad > 0 or any(deg.values())
+        unexpected = {k: v for k, v in deg.items()
+                      if v and not (quarantine_rung and k in ("quarantined", "searched"))}
+        failed |= bad > 0 or bool(unexpected) or deg["searched"] != deg["quarantined"]
         records[stats["backend"]] = {
             "mqps": round(mqps, 4),
             "ns_per_query": round(dt / args.n_queries * 1e9, 1),
@@ -149,6 +189,7 @@ def run_sweep(args) -> dict:
         "batch": args.batch,
         "label_ints": co.total_label_size,
         "tier_widths": co.engine.widths,
+        "lifecycle": lifecycle,
         "torch_device": str(device),
         "device_name": (torch.cuda.get_device_name(device)
                         if device.type == "cuda" else "cpu"),
@@ -185,6 +226,15 @@ def main(argv=None) -> dict:
                          "same flags resumes from the latest complete one")
     ap.add_argument("--checkpoint-every", type=int, default=16,
                     help="schedule boundaries between checkpoints")
+    ap.add_argument("--snapshot-dir", default=None,
+                    help="cold-start from this persist.save_oracle snapshot "
+                         "when it exists; save one after a fresh build")
+    ap.add_argument("--load-mode", default="strict", choices=["strict", "quarantine"],
+                    help="strict: refuse a corrupt snapshot; quarantine: "
+                         "serve around corrupt rows via the degradation ladder")
+    ap.add_argument("--state-dir", default=None,
+                    help="serve a durable dynamic oracle out of this WAL+snapshot "
+                         "dir (not ported yet: ROADMAP.md Queue 1 item 9)")
     return run_sweep(ap.parse_args(argv))
 
 

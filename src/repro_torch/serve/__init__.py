@@ -1,8 +1,17 @@
-"""The port's serve subsystem: QueryEngine + batching planner + prefilters.
+"""The port's serve subsystem: QueryEngine + batching planner + prefilters
++ the memory-budgeted tier (truncated rank-prefix labels under a byte
+budget and its pressure governor).
 
-The serving daemon, open-loop driver and memory-budget tier of
-``repro.serve`` are later slices of the port (ROADMAP.md Queue 1 items 7-8).
+The serving daemon and open-loop driver of ``repro.serve`` are a later
+slice of the port (ROADMAP.md Queue 1 item 8).
 """
+from repro_torch.serve.budget import (
+    BudgetController,
+    PressureConfig,
+    TruncatedStore,
+    rank_cut_for_budget,
+    truncate_store,
+)
 from repro_torch.serve.engine import (
     BACKENDS,
     QueryEngine,
@@ -15,6 +24,11 @@ from repro_torch.serve.prefilter import PrefilterResult, apply_prefilters, topo_
 
 __all__ = [
     "BACKENDS",
+    "BudgetController",
+    "PressureConfig",
+    "TruncatedStore",
+    "rank_cut_for_budget",
+    "truncate_store",
     "QueryEngine",
     "select_backend",
     "serve_step",

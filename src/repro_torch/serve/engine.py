@@ -21,6 +21,11 @@ Backends:
 ``dense`` on the CPU.  The multi-device ``sharded`` / ``sharded_hop``
 backends are not ported yet (ROADMAP.md Queue 1 item 11).
 
+Under a memory budget (``set_budget``, ``serve.budget``) every backend reads
+the truncated store and verdicts become three-valued: a false verdict with
+both rows truncated is uncertain and goes to exact search.  ``host`` and
+``dense`` mark those queries on the host, ``kernel`` in K1's batch form.
+
 Verdicts, prefilter counts, tier stats and degradation counters equal the
 JAX engine's on the same labels and queries.
 """
@@ -30,7 +35,7 @@ import copy
 import threading
 import time
 import warnings
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -101,7 +106,7 @@ _ZERO_DEGRADATION = {
     "deadline_to_host": 0, # batch past deadline -> skip device
     "searched": 0,         # labels unusable -> exact bidirectional search
     "quarantined": 0,      # queries that touched quarantined label rows
-    "uncertain": 0,        # budget-truncated miss (budget tier not ported yet)
+    "uncertain": 0,        # budget-truncated miss, BOTH rows cut -> search
 }
 
 _M_QUERIES = metrics.counter(
@@ -113,6 +118,23 @@ _M_DEGRADED = metrics.counter(
 _DEGRADED_KIND = {k: _M_DEGRADED.labels(kind=k) for k in _ZERO_DEGRADATION}
 _M_EPOCH = metrics.gauge(
     "engine_epoch", "label-snapshot epoch the engine currently serves")
+_M_UNCERTAIN = metrics.counter(
+    "engine_verdict_uncertain_total",
+    "budget-truncated label misses that could not be proven NO and routed "
+    "to the exact-search rung")
+
+
+class _BudgetView(NamedTuple):
+    """Everything a batch reads under a budget, made whole in ``set_budget``
+    and read once per batch: a re-truncation landing between two batches
+    can never serve one from new labels with old widths or masks."""
+    store: object                 # serve.budget.TruncatedStore
+    L_out: torch.Tensor           # the store's labels on the engine's device
+    L_in: torch.Tensor
+    widths: list                  # tier widths of the truncated lengths
+    serve_batch: "ops.ServeBatch"  # K1's batch form bound to all of it
+    trunc_out: torch.Tensor       # packed truncation masks on the device
+    trunc_in: torch.Tensor
 
 
 class QueryEngine:
@@ -153,9 +175,10 @@ class QueryEngine:
     JAX engine's catch-all would hide a broken kernel behind correct
     verdicts.
     a query touching a *quarantined* label row (``set_quarantine``) skips
-    labels entirely and runs the exact online search.  Every rung returns
-    correct verdicts; ``self.degradation`` counts how often each downgrade
-    fired.  The memory-budget tier (``set_budget``) is not ported yet.
+    labels entirely and runs the exact online search.  Under a budget
+    (``set_budget``) a false verdict with both rows truncated is uncertain
+    and runs the exact online search too.  Every rung returns correct
+    verdicts; ``self.degradation`` counts how often each downgrade fired.
     """
 
     def __init__(
@@ -197,13 +220,43 @@ class QueryEngine:
         self._stats_lock = threading.Lock()
         self.search_node_budget = search_node_budget
         self._serve_batch = None   # ops.ServeBatch, made on the first kernel batch
+        self._budget_view: Optional[_BudgetView] = None
+
+    # ---------------------------------------------------------- publishing
+
+    def refresh(self, oracle, level: Optional[np.ndarray] = None,
+                epoch: Optional[int] = None, fallback_graph=None) -> None:
+        """Swap in a newly published label snapshot (epoch invalidation).
+
+        Device labels, the tier-width plan and the cached ``ServeBatch`` op
+        refresh ONLY here, never mid-batch.  The previous epoch's fallback
+        graph, load-time quarantine and budget view (cut from the OLD
+        labels; a ``BudgetController`` re-applies its budget) are dropped.
+        """
+        with self._stats_lock:   # a kernel batch may be making the op
+            self.oracle = oracle
+            if level is not None:
+                self.level = np.array(level, dtype=np.int32)  # copy: see __init__
+            self._lo, self._li = oracle.device_labels(self.device)
+            self.widths = tier_widths(
+                oracle.out_len, oracle.in_len, oracle.max_label_len, n_tiers=self.n_tiers
+            )
+            self._serve_batch = None
+        self.epoch = self.epoch + 1 if epoch is None else int(epoch)
+        _M_EPOCH.set(self.epoch)
+        if fallback_graph is not None:
+            self._fallback_graph = fallback_graph
+        self._fallback_csr = None
+        self.quarantine_out = None
+        self.quarantine_in = None
+        self._budget_view = None
 
     # ------------------------------------------------------- observability
 
     def stats(self) -> dict:
         """Consistent snapshot of the engine's serving state, key for key
-        the JAX engine's (``budget`` stays None until the budget tier is
-        ported)."""
+        the JAX engine's."""
+        bv = self._budget_view
         with self._stats_lock:
             return {
                 "epoch": self.epoch,
@@ -212,7 +265,13 @@ class QueryEngine:
                 "n_quarantined": int(
                     (0 if self.quarantine_out is None else int(self.quarantine_out.sum()))
                     + (0 if self.quarantine_in is None else int(self.quarantine_in.sum()))),
-                "budget": None,
+                "budget": None if bv is None else {
+                    "budget_bytes": bv.store.budget_bytes,
+                    "resident_bytes": bv.store.resident_bytes,
+                    "rank_cut": bv.store.rank_cut,
+                    "n_truncated_rows": int(bv.store.truncated_out.sum()
+                                            + bv.store.truncated_in.sum()),
+                },
                 "degradation": dict(self.degradation),
                 "last_batch": copy.deepcopy(self.last_stats),
             }
@@ -237,19 +296,38 @@ class QueryEngine:
 
         self.quarantine_out = _norm(quarantine_out)
         self.quarantine_in = _norm(quarantine_in)
+        # K1's batch form skips the quarantined rows' layout check (a
+        # non-strict load zero-fills them): rebind it to the new quarantine
+        with self._stats_lock:
+            self._serve_batch = None
+        bv = self._budget_view
+        if bv is not None:
+            self.set_budget(bv.store)
 
     @property
     def budget_store(self):
-        """The active budget store: always None until the tier is ported."""
-        return None
+        """The active ``TruncatedStore`` (None = serving the full labels)."""
+        bv = self._budget_view
+        return None if bv is None else bv.store
 
     def set_budget(self, store) -> None:
-        """Removing a budget (``None``) is a no-op; installing one needs the
-        budget tier (ROADMAP.md Queue 1 item 7), not ported yet."""
-        if store is not None:
-            raise NotImplementedError(
-                "memory-budgeted serving is not ported yet: ROADMAP.md "
-                "Queue 1 item 7 (serve/budget.py)")
+        """Install (or with None, remove) a budget-truncated label store.
+
+        The engine keeps serving ``self.oracle``'s graph; only the label
+        matrices the backends read switch to the truncated store, uploaded
+        to the engine's device with its packed truncation masks, a tier-width
+        plan fit to the truncated lengths and K1's batch form bound to them.
+        All of it swaps as one tuple, read once per batch.  The full store's
+        device copy stays, as in the JAX engine."""
+        if store is None:
+            self._budget_view = None
+            return
+        t = store.oracle
+        lo, li = t.device_labels(self.device)
+        widths = tier_widths(t.out_len, t.in_len, t.max_label_len, n_tiers=self.n_tiers)
+        masks = [torch.from_numpy(m).to(self.device) for m in store.packed_masks()]
+        sb = self._make_serve_batch(t, lo, li, widths, *masks)
+        self._budget_view = _BudgetView(store, lo, li, widths, sb, *masks)
 
     def _fallback(self):
         """Resolve the fallback graph to a cached (g, g_rev) pair."""
@@ -301,10 +379,22 @@ class QueryEngine:
             return bool(self._search_batch(np.asarray([[u, v]]))[0])
         if self.level is not None and self.level[u] >= self.level[v]:
             return False
-        o = self.oracle
-        if o.out_len[u] == 0 or o.in_len[v] == 0:
-            return False
-        return o.query(u, v)
+        bv = self._budget_view
+        o = self.oracle if bv is None else bv.store.oracle
+        # an empty TRUNCATED row is only a proven miss when at most one side
+        # was cut: fall through to the uncertain check
+        if o.out_len[u] != 0 and o.in_len[v] != 0 and o.query(u, v):
+            return True          # hits on surviving prefixes are proven YES
+        if bv is not None and bv.store.truncated_out[u] and bv.store.truncated_in[v]:
+            # miss with BOTH rows cut: uncertain -> exact search rung
+            with self._stats_lock:
+                self.degradation["uncertain"] += 1
+                self.degradation["searched"] += 1
+            _DEGRADED_KIND["uncertain"].inc()
+            _DEGRADED_KIND["searched"].inc()
+            _M_UNCERTAIN.inc()
+            return bool(self._search_batch(np.asarray([[u, v]]))[0])
+        return False
 
     def query_batch(self, queries: np.ndarray, backend: Optional[str] = None,
                     deadline: Optional[float] = None) -> np.ndarray:
@@ -316,13 +406,17 @@ class QueryEngine:
         as ``deadline_to_host``).  Deadlines never change verdicts.
 
         The ``kernel`` backend serves the batch's label queries in one call
-        of ``ops.ServeBatch`` (prefilters, tier choice and intersection in
-        one launch); the others run the prefilters and the planner here.
+        of ``ops.ServeBatch`` (prefilters, tier choice, intersection and,
+        under a budget, the uncertain mark in one launch); the others run
+        the prefilters, the planner and the budget's epilogue here.
         """
         queries = self._map_ids(np.asarray(queries))
         queries = np.ascontiguousarray(np.asarray(queries, dtype=np.int32))
         backend = self.backend if backend is None else select_backend(backend, self.device)
-        o = self.oracle
+        # the budget view, captured ONCE: the batch reads one store, its
+        # widths, masks and op, whatever set_budget does meanwhile
+        bv = self._budget_view
+        o = self.oracle if bv is None else bv.store.oracle
         out = np.zeros(queries.shape[0], dtype=bool)
         degraded = dict(_ZERO_DEGRADATION)
 
@@ -361,22 +455,39 @@ class QueryEngine:
         sp = trace.span("engine.batch", cat="engine", args={
             "backend": backend, "n": stats["n_queries"]}) if ON.enabled else trace.NOOP_SPAN
         with sp:
+            unc_idx = None   # uncertain label queries (indices into lq)
             if fused:
-                lout = self._fused_batch(lq, stats, sp)
+                lout, unc_idx = self._fused_batch(lq, stats, sp, bv)
             elif rest_idx.size:
                 rest = lq[rest_idx]
                 if backend == "host":
-                    res = self._host_batch(rest)
+                    res = self._host_batch(rest, o)
                 elif deadline is not None and time.monotonic() > deadline:
                     degraded["deadline_to_host"] += int(rest.shape[0])
                     sp.event("degrade", kind="deadline_to_host", n=int(rest.shape[0]))
-                    res = self._host_batch(rest)
+                    res = self._host_batch(rest, o)
                 else:
                     try:
-                        res = self._device_batch(rest, stats=stats)
+                        res = self._device_batch(rest, stats=stats, view=bv)
                     except inject.SimulatedFailure as e:  # ladder: device -> host merge
-                        res = self._degrade_to_host(rest, backend, e, degraded, sp)
+                        res = self._degrade_to_host(rest, backend, e, degraded, sp, o)
                 lout[rest_idx] = res
+            if not fused and bv is not None and bv.store.any_truncated:
+                # three-valued epilogue: a false verdict from the labels
+                # (backend miss OR emptiness prefilter on a cut-to-empty row)
+                # is only proven when at most one row was truncated; the
+                # same-vertex and level prefilters are graph facts, exact
+                unc = (bv.store.truncated_out[lq[:, 0]]
+                       & bv.store.truncated_in[lq[:, 1]] & ~lout)
+                unc &= lq[:, 0] != lq[:, 1]
+                if self.level is not None:
+                    unc &= self.level[lq[:, 0]] < self.level[lq[:, 1]]
+                unc_idx = np.flatnonzero(unc)
+            if unc_idx is not None and unc_idx.size:
+                degraded["uncertain"] += int(unc_idx.size)
+                degraded["searched"] += int(unc_idx.size)
+                sp.event("degrade", kind="uncertain", n=int(unc_idx.size))
+                lout[unc_idx] = self._search_batch(lq[unc_idx])
             if label_idx is None:
                 out = lout
             else:
@@ -386,7 +497,7 @@ class QueryEngine:
             return out
 
     def _degrade_to_host(self, rest: np.ndarray, backend: str, e: Exception, degraded: dict,
-                         sp) -> np.ndarray:
+                         sp, o) -> np.ndarray:
         """The ladder's device -> host rung: ``rest`` on the host merge."""
         degraded["device_to_host"] += int(rest.shape[0])
         sp.event("degrade", kind="device_to_host", n=int(rest.shape[0]),
@@ -395,10 +506,9 @@ class QueryEngine:
             f"{backend!r} backend failed ({type(e).__name__}: {e}); "
             f"serving {rest.shape[0]} queries on the host merge path",
             stacklevel=3)
-        return self._host_batch(rest)
+        return self._host_batch(rest, o)
 
-    def _host_batch(self, rest: np.ndarray) -> np.ndarray:
-        o = self.oracle
+    def _host_batch(self, rest: np.ndarray, o) -> np.ndarray:
         return np.fromiter((o.query(int(u), int(v)) for u, v in rest), dtype=bool,
                            count=rest.shape[0])
 
@@ -413,61 +523,85 @@ class QueryEngine:
         for k, v in degraded.items():
             if v:
                 _DEGRADED_KIND[k].inc(v)
+        if degraded["uncertain"]:
+            _M_UNCERTAIN.inc(degraded["uncertain"])
 
     # ------------------------------------------------------------ backends
 
+    def _make_serve_batch(self, o, lo, li, widths, trunc_out=None,
+                          trunc_in=None) -> "ops.ServeBatch":
+        """K1's batch form bound to labels ``lo``/``li`` of ``o`` on the
+        engine's device, its lengths, the engine's levels and ``widths``
+        (the quarantined rows, which no kernel batch reads, left unchecked)."""
+        def t(a, dtype=np.int32):
+            if a is None:
+                return None
+            return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(self.device)
+
+        return ops.ServeBatch(lo, li, t(o.out_len), t(o.in_len), t(self.level), widths,
+                              trunc_out, trunc_in, unread_out=t(self.quarantine_out, bool),
+                              unread_in=t(self.quarantine_in, bool))
+
     def _serve_batch_op(self) -> "ops.ServeBatch":
-        """K1's batch form bound to this engine's labels, lengths, levels and
-        widths, made (and its layout checked) on the first kernel batch."""
+        """K1's batch form bound to the full labels, made (and its layout
+        checked) on the first unbudgeted kernel batch."""
         if self._serve_batch is None:
             with self._stats_lock:
                 if self._serve_batch is None:
-                    o, dev = self.oracle, self.device
-
-                    def t(a):
-                        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
-
-                    self._serve_batch = ops.ServeBatch(
-                        self._lo, self._li, t(o.out_len), t(o.in_len),
-                        None if self.level is None else t(self.level), self.widths)
+                    self._serve_batch = self._make_serve_batch(
+                        self.oracle, self._lo, self._li, self.widths)
         return self._serve_batch
 
-    def _fused_batch(self, lq: np.ndarray, stats: dict, sp) -> np.ndarray:
+    def _fused_batch(self, lq: np.ndarray, stats: dict, sp,
+                     bv: Optional[_BudgetView]) -> tuple:
         """The ``kernel`` backend: every label query of the batch decided in
-        one ``ServeBatch`` call, its codes turned into verdicts and stats."""
-        sb = self._serve_batch_op()
+        one ``ServeBatch`` call (the budget view's, under a budget), its codes
+        turned into verdicts, stats and the indices of the queries the kernel
+        marked uncertain (None without a budget)."""
+        sb = self._serve_batch_op() if bv is None else bv.serve_batch
         with trace.span("device_call", cat="device", annotate=True,
                         args={"rows": int(lq.shape[0])} if ON.enabled else None):
             codes = sb(lq)
-        fates = np.bincount(codes >> 1, minlength=1 + len(self.widths))
+        unc_idx = None
+        if bv is not None:
+            unc_idx = np.flatnonzero(codes & ops.SERVE_BATCH_UNCERTAIN)
+            codes &= ~np.uint8(ops.SERVE_BATCH_UNCERTAIN)
+        fates = np.bincount(codes >> 1, minlength=1 + len(sb.widths))
         stats["n_prefiltered"] = int(fates[0])
         verdict = (codes & 1).view(bool)
         if fates[0] == codes.size:
-            return verdict
+            return verdict, unc_idx
         try:
             # chaos hook, once per batch with a residue, as in _device_batch
             inject.fire("serve.device_dispatch", backend="kernel")
         except inject.SimulatedFailure as e:  # ladder: device -> host merge
+            # the host merge reads the same labels, so the kernel's marks hold
             rest_idx = np.nonzero(codes > 1)[0]
+            o = self.oracle if bv is None else bv.store.oracle
             verdict[rest_idx] = self._degrade_to_host(lq[rest_idx], "kernel", e,
-                                                      stats["degraded"], sp)
-            return verdict
+                                                      stats["degraded"], sp, o)
+            return verdict, unc_idx
         if self.bucketing:
-            stats["tiers"] = tier_stats(fates[1:], self.widths, self.min_tile)
-        return verdict
+            stats["tiers"] = tier_stats(fates[1:], sb.widths, self.min_tile)
+        return verdict, unc_idx
 
     def _to_device(self, q: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(q, dtype=np.int32)).to(self.device)
 
-    def _device_batch(self, rest: np.ndarray, stats: Optional[dict] = None) -> np.ndarray:
+    def _device_batch(self, rest: np.ndarray, stats: Optional[dict] = None,
+                      view: Optional[_BudgetView] = None) -> np.ndarray:
         """The ``dense`` backend: the planner's tiers through
-        ``ref.tier_intersect_ref`` on the engine's device."""
+        ``ref.tier_intersect_ref`` on the engine's device (over the budget
+        view's store when one is given)."""
         # chaos hook: an injected device failure here exercises the ladder's
         # device -> host downgrade in query_batch
         inject.fire("serve.device_dispatch", backend="dense")
         if stats is None:
             stats = {"tiers": []}   # direct callers outside query_batch
-        o, lo, li, widths = self.oracle, self._lo, self._li, self.widths
+        if view is not None:
+            o, lo, li, widths = view.store.oracle, view.L_out, view.L_in, view.widths
+        else:
+            o, lo, li, widths = self.oracle, self._lo, self._li, self.widths
         if not self.bucketing:
             with trace.span("device_call", cat="device", annotate=True,
                             args={"rows": int(rest.shape[0])} if ON.enabled else None):

@@ -1,8 +1,10 @@
 """The port's CUDA kernels on the card, against their plain versions.
 
-K1 (its batch form serve_batch and its tier form label_intersect) and K2
-(its slab form frontier_or and its frontier form frontier_expand) against
-their plain versions, the device wave build on the
+K1 (its batch form serve_batch, with and without a budget's truncation
+masks, and its tier form label_intersect) and K2 (its slab form frontier_or
+and its frontier form frontier_expand) against their plain versions, the
+budgeted and the cold-started kernel engine on the card against the host
+merge and BFS truth, the device wave build on the
 card (through frontier_expand) against the reference build, and the
 kernel library (K3 bitset_mm, K4 flash_attention, K5 ell_spmm, K6
 embedding_bag) against its plain versions.
@@ -23,6 +25,7 @@ from library_cases import (ATTENTION_F32_CASES, BAG_CASES, BITSET_CASES, SPMM_CA
                            make_bag_case, make_bitset_case, make_spmm_case, padding_rows)
 from serve_batch_cases import BINDING as SERVE_BINDING
 from serve_batch_cases import CASES as SERVE_CASES
+from serve_batch_cases import MASKS as SERVE_MASKS
 from serve_batch_cases import make_case as make_serve_case
 from serve_batch_cases import numpy_codes as numpy_serve_codes
 from repro_torch.core.api import build_oracle
@@ -100,11 +103,14 @@ def test_main_path_serves_through_the_kernel(cuda):
 @pytest.mark.parametrize("name", SERVE_CASES)
 def test_serve_batch_kernel_matches_plain(cuda, name):
     """The kernel against its plain version on the edge cases of
-    tests/serve_batch_cases.py, code byte for code byte; a bad id raises."""
+    tests/serve_batch_cases.py (the ``mask_`` ones under a budget), code byte
+    for code byte; a bad id raises."""
     case = make_serve_case(np.random.default_rng(SERVE_CASES.index(name)), name)
     args = [None if case[k] is None else torch.from_numpy(case[k]).to(cuda)
             for k in SERVE_BINDING] + [case["widths"]]
-    sb = ops.ServeBatch(*args)
+    masks = {k: None if case[k] is None else torch.from_numpy(case[k]).to(cuda)
+             for k in SERVE_MASKS}
+    sb = ops.ServeBatch(*args, **masks)
     q = case["queries"]
     before = ops.LAUNCHES["serve_batch"]
     if name.startswith("bad_"):
@@ -117,9 +123,88 @@ def test_serve_batch_kernel_matches_plain(cuda, name):
         return
     got = sb(q)
     assert ops.LAUNCHES["serve_batch"] == before + int(q.shape[0] > 0)
-    exp = ref.serve_batch_ref(*args, torch.from_numpy(q).to(cuda)).cpu().numpy()
+    exp = ref.serve_batch_ref(*args, torch.from_numpy(q).to(cuda), **masks).cpu().numpy()
     assert got.dtype == np.uint8 and (got == exp).all(), int((got != exp).sum())
     assert (got == numpy_serve_codes(case)).all()
+
+
+def _truth(g, q):
+    from repro_torch.graph.reach import reachable_set
+
+    return np.array([u == v or bool(reachable_set(g, int(u))[v]) for u, v in q])
+
+
+@pytest.mark.parametrize("frac", [0.25, 0.5, 0.75])
+@pytest.mark.parametrize("family", range(5))
+def test_budgeted_kernel_engine_on_the_card(cuda, family, frac):
+    """Under a budget the kernel engine marks the uncertain queries in
+    serve_batch (one launch a batch) and searches exactly those: verdicts
+    and counters as the host backend's numpy epilogue, verdicts as BFS
+    truth, marks as the plain version's with the same masks."""
+    from repro_torch.serve.budget import label_bytes, truncate_store
+
+    name, g = _dag_families()[family]
+    co = build_oracle(g)
+    st = truncate_store(co.oracle, budget_bytes=int(label_bytes(co.oracle) * frac))
+    co.engine.set_budget(st)
+    q = np.random.default_rng(family).integers(0, g.n, (1500, 2)).astype(np.int32)
+    ops.reset_launches()
+    got = co.serve(q)
+    assert ops.LAUNCHES["serve_batch"] == 1 and co.engine.last_stats["backend"] == "kernel"
+    kern = dict(co.engine.last_stats["degraded"])
+    assert (got == co.serve(q, backend="host")).all() and (got == _truth(g, q)).all()
+    assert co.engine.last_stats["degraded"] == kern
+    assert kern["searched"] == kern["uncertain"]
+    sb = co.engine._budget_view.serve_batch
+    cq = np.ascontiguousarray(co.comp[q], dtype=np.int32)
+    codes = sb(cq)
+    exp = ref.serve_batch_ref(sb.L_out, sb.L_in, sb.out_len, sb.in_len, sb.level, sb.widths,
+                              torch.from_numpy(cq).to(cuda), sb.trunc_out, sb.trunc_in)
+    assert (codes == exp.cpu().numpy()).all()
+    assert int((codes & ops.SERVE_BATCH_UNCERTAIN != 0).sum()) == kern["uncertain"]
+    co.engine.set_budget(None)
+
+
+@pytest.mark.parametrize("mode", ["strict", "quarantine"])
+@pytest.mark.parametrize("family", range(5))
+def test_cold_started_kernel_engine_on_the_card(cuda, family, mode, tmp_path):
+    """oracle_from_snapshot on the card: the built oracle's labels, its
+    verdicts through serve_batch; with a corrupt row block, quarantine mode
+    answers the corrupt rows through exact search."""
+    from repro_torch.core.api import oracle_from_snapshot
+    from repro_torch.ft.inject import flip_bit
+    from repro_torch.persist import save_oracle
+
+    name, g = _dag_families()[family]
+    built = build_oracle(g)
+    path = save_oracle(str(tmp_path / "snap"), built.oracle, row_block=16)
+    rng = np.random.default_rng(family)
+    q = rng.integers(0, g.n, (1500, 2)).astype(np.int32)
+    if mode == "quarantine":
+        k = (built.oracle.n - 1) // 16   # the last row block
+        rows = np.arange(16 * k, built.oracle.n)
+        flip_bit(str(tmp_path / "snap" / f"L_out.{k:05d}.npy"), seed=family)
+        with pytest.warns(UserWarning):
+            co = oracle_from_snapshot(g, path, mode=mode)
+        assert co.engine.stats()["n_quarantined"] == rows.size
+        q[:64, 0] = rng.choice(np.flatnonzero(np.isin(co.comp, rows)), 64)
+    else:
+        co = oracle_from_snapshot(g, path)
+        _assert_same_labels(built.oracle, co.oracle, name)
+    assert co.engine.backend == "kernel" and co.engine.device.type == "cuda"
+    ops.reset_launches()
+    got = co.serve(q)
+    # one launch for the batch, unless the quarantine takes every query
+    # (the cyclic family's condensation is one block)
+    labelled = co.engine.quarantine_out is None or \
+        (~co.engine.quarantine_out[co.comp[q[:, 0]]]).any()
+    assert ops.LAUNCHES["serve_batch"] == int(labelled)
+    assert (got == built.serve(q, backend="host")).all() and (got == _truth(g, q)).all()
+    deg = co.engine.stats()["degradation"]
+    if mode == "quarantine":
+        assert deg["quarantined"] >= 64 and deg["searched"] == deg["quarantined"]
+    else:
+        assert not any(deg.values())
 
 
 # ------------------------------------------------------------ K2 frontier_or

@@ -29,13 +29,19 @@ import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-# the modules of the device wave build and of the host engines' build
-# checkpoints must be among them
+# the modules of the device wave build, of the host engines' build
+# checkpoints, of oracle snapshots, the WAL and the budget tier must be
+# among them
 for name in ("repro_torch.build.bitset", "repro_torch.build.waves",
              "repro_torch.build.engine_device", "repro_torch.kernels.ops",
              "repro_torch.kernels.ref", "repro_torch.kernels.build",
-             "repro_torch.persist", "repro_torch.persist.blocks"):
+             "repro_torch.persist", "repro_torch.persist.blocks",
+             "repro_torch.persist.oracle_io", "repro_torch.persist.wal",
+             "repro_torch.serve.budget"):
     assert name in names, name
+from repro_torch.core.api import oracle_from_snapshot
+from repro_torch.serve import BudgetController, TruncatedStore
+from repro_torch.persist import WriteAheadLog, load_budgeted
 # the kernel library's wrappers, and a build entry for every CUDA source
 from repro_torch.kernels import build, ops
 for fn in ("bitset_mm", "flash_attention", "ell_spmm", "embedding_bag"):
@@ -60,7 +66,7 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                        capture_output=True, text=True, timeout=240)
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
-    assert n_modules >= 30, r.stdout
+    assert n_modules >= 40, r.stdout
 
 
 def _no_cuda():

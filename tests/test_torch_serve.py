@@ -21,6 +21,7 @@ import repro_torch.ft.inject as tinject
 import repro_torch.graph.csr as tcsr
 import repro_torch.serve.engine as tengine
 from repro_torch.core.oracle import oracle_from_arrays
+from repro_torch.serve.budget import truncate_store
 from repro_torch.serve.prefilter import topo_levels
 from test_serve_engine import _graph_families, _truth_matrix
 
@@ -174,8 +175,13 @@ def test_backend_selection():
     assert co.engine.backend == "dense"
     co.engine.set_budget(None)
     assert co.engine.budget_store is None
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        co.engine.set_budget(object())
+    # a real TruncatedStore installs (the budget tier is ported), None clears it
+    st = truncate_store(co.oracle, rank_cut=1)
+    co.engine.set_budget(st)
+    assert co.engine.budget_store is st and co.engine.stats()["budget"]["rank_cut"] == 1
+    assert co.serve(np.array([[0, 2], [2, 0]]), backend="kernel").tolist() == [True, False]
+    co.engine.set_budget(None)
+    assert co.engine.budget_store is None and co.engine.stats()["budget"] is None
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         tapi.build_oracle(tcsr.from_edges(5, [0, 1], [1, 2]), method="hierarchical",
                           device="cpu")

@@ -37,7 +37,7 @@ from repro_torch.core.oracle import oracle_from_arrays
 from repro_torch.kernels import ops, ref
 from repro_torch.serve.planner import tier_widths
 from repro_torch.serve.prefilter import topo_levels
-from serve_batch_cases import BINDING, CASES, make_case, numpy_codes
+from serve_batch_cases import BINDING, CASES, MASKS, UNCERTAIN, make_case, numpy_codes
 from test_serve_engine import _graph_families
 
 FAMILIES = _graph_families(np.random.default_rng(0))
@@ -121,11 +121,15 @@ def _case_args(case):
         [case["widths"]]
 
 
+def _case_masks(case):
+    return {k: None if case[k] is None else torch.from_numpy(case[k]) for k in MASKS}
+
+
 @pytest.mark.parametrize("name", CASES)
 def test_plain_version_and_wrapper_match_numpy_loop(name):
     case = make_case(np.random.default_rng(CASES.index(name)), name)
-    args = _case_args(case)
-    sb = ops.ServeBatch(*args)
+    args, masks = _case_args(case), _case_masks(case)
+    sb = ops.ServeBatch(*args, **masks)
     q = case["queries"]
     if name.startswith("bad_"):
         with pytest.raises(IndexError):
@@ -136,11 +140,27 @@ def test_plain_version_and_wrapper_match_numpy_loop(name):
             sb(q)
         return
     exp = numpy_codes(case)
-    got = ref.serve_batch_ref(*args, torch.from_numpy(q))
+    got = ref.serve_batch_ref(*args, torch.from_numpy(q), **masks)
     assert got.dtype == torch.uint8 and got.shape == (q.shape[0],)
     assert (got.numpy() == exp).all(), int((got.numpy() != exp).sum())
     assert (sb(q) == exp).all()
-    fates = exp >> 1
+    unc = (exp & UNCERTAIN) != 0
+    # the masks add the mark and change no fate or verdict
+    plain = ref.serve_batch_ref(*args, torch.from_numpy(q)).numpy()
+    assert (exp & ~np.uint8(UNCERTAIN) == plain).all() and not (plain & UNCERTAIN).any()
+    assert unc.any() == (name.startswith("mask_") and name != "mask_one_side"), name
+    fates = (exp & ~np.uint8(UNCERTAIN)) >> 1
+    u, v = q[:, 0].astype(np.int64) % case["L_out"].shape[0], q[:, 1] % case["L_out"].shape[0]
+    if name == "mask_empty_rows":   # the emptiness prefilter's false, both rows cut
+        empty = (case["out_len"][u] == 0) | (case["in_len"][v] == 0)
+        assert (unc & (fates == 0) & empty).any()
+    elif name == "mask_same_vertex":
+        assert (u == v).any() and not unc[u == v].any()
+    elif name == "mask_level_ge":
+        ge = (case["level"][u] >= case["level"][v]) & (u != v)
+        assert ge.any() and not unc[ge].any()
+    elif name == "mask_partial_byte":   # the last byte's rows are read and marked
+        assert unc[(u >= 296) & (v >= 296)].any()
     if name == "all_prefiltered":
         assert (fates == 0).all()
     elif name == "none_prefiltered":
@@ -150,9 +170,19 @@ def test_plain_version_and_wrapper_match_numpy_loop(name):
 
 
 @pytest.mark.parametrize("bad", ["widths_order", "widths_zero", "widths_many", "past_len",
-                                 "len_range", "level_shape", "queries_dtype", "queries_shape"])
+                                 "len_range", "level_shape", "queries_dtype", "queries_shape",
+                                 "one_mask", "mask_size", "mask_dtype"])
 def test_serve_batch_refuses_a_bad_binding_or_batch(bad):
     case = make_case(np.random.default_rng(0), "one")
+    if bad in ("one_mask", "mask_size", "mask_dtype"):
+        n = case["L_out"].shape[0]
+        m = {"one_mask": np.zeros((n + 7) // 8, np.uint8),
+             "mask_size": np.zeros((n + 7) // 8 + 1, np.uint8),
+             "mask_dtype": np.zeros((n + 7) // 8, np.int32)}[bad]
+        with pytest.raises(ValueError, match="trunc"):
+            ops.ServeBatch(*_case_args(case), trunc_out=torch.from_numpy(m),
+                           trunc_in=None if bad == "one_mask" else torch.from_numpy(m))
+        return
     if bad == "past_len":   # a valid entry after a row's length
         row = int(np.flatnonzero(case["out_len"] < case["L_out"].shape[1])[0])
         case["L_out"][row, case["out_len"][row]] = 5
