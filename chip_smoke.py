@@ -46,12 +46,13 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      this run (``serve_batch`` once a batch, ``label_intersect`` never); the
      batch latency p50/p99 of this run;
   4b. the device wave build: ``build_oracle(g, device="cuda", impl="device")``
-     on the same graph, the launch counts read around exactly this build
-     (``frontier_expand`` once a BFS level, ``frontier_or`` never); its
-     labels byte for byte against phase 4's reference build, phase 4's
-     queries served through ``serve_batch`` on it with the same verdicts and every
-     degradation counter 0; its build seconds, host reads a wave and cone
-     rows a sweep; K2's slab form against its plain version on a real slab
+     on the citeseer analogue at ``FULL_RUN_DEVICE_BUILD_SCALE`` (0.5; 1.0
+     with ``--only-device-build``), the launch counts read around exactly this
+     build (``frontier_expand`` once a BFS level, ``frontier_or`` never); its
+     labels byte for byte against its own reference build (phase 4's at
+     1.0), queries served through ``serve_batch`` on it with the reference's
+     verdicts (phase 4's at 1.0) and every degradation counter 0; its build
+     seconds, host reads a wave and cone rows a sweep; K2's slab form against its plain version on a real slab
      and frontier; launches a wave and the card's busy share over a
      profiled window of 500 waves;
   4c. the host batched engines on the same graph, each byte for byte
@@ -61,6 +62,28 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      from its last checkpoint with phase 4's speculation counts; the
      seconds of each build, to the kill and of the resume, the checkpoints'
      seconds, count and bytes on disk;
+  4e. Hierarchical-Labeling of phase 4's graph,
+     ``build_oracle(g, method="hierarchical", device="cuda")``: the JAX
+     package's level sizes, label shapes, label ints and sha256
+     (``HL_LEVEL_SIZES``, ``HL_SHAPE``, ``HL_LABEL_INTS``, ``HL_SHA256``);
+     phase 4's traffic served with ``backend="auto"`` (``serve_batch`` once a
+     batch, ``label_intersect`` never, every degradation counter 0), every
+     verdict equal to phase 4's DL verdict; the build's seconds by stage,
+     ``kernel_qps``, batch p50/p99, the resident label bytes;
+  4f. the ported quickstart at amaze: the five §6 baselines, ``OnlineBFS``,
+     DL and HL (served on the card) agree on 2,000 queries, each index's
+     size; ``examples/quickstart_torch.py`` on the card;
+  4g. the serving daemon over phase 4's oracle through ``run_open_loop`` at
+     the JAX driver's defaults (400 arrivals/s of 64 queries, 3 s, deadline
+     150 ms, ``max_batch`` 4,096, a 2 ms window): clean; with the driver's
+     ``--inject-device-latency 2-6:60 --inject-device-failure 8-10`` (the
+     breaker trips, its host-rung batches counted); under a
+     ``BudgetController`` whose pressure watermark is 0.75 of the full label
+     bytes at 100 arrivals/s for 2 s (at least one step down).  In each run
+     every dispatched answer equals phase 4's oracle's, the registry's
+     counters equal the daemon's books, ``serve_batch`` launched once for
+     each warm-up rung and each dispatch that reached the kernel; sheds
+     printed, not asserted.  Phases 4e-4g run before 4d;
   4d. cold start and budget, on phase 4's oracle and traffic: the oracle
      saved (``persist.save_oracle``) and cold-started
      (``core.api.oracle_from_snapshot``), labels byte for byte and every
@@ -81,7 +104,8 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      and at the whole traffic in one call, each also under phase 4d's
      budget, with the bytes, compares and 32-byte sectors its queries need; ``frontier_expand`` at a real level
      from the middle of the build's schedule), and the kernels JSON line
-     (all nine kernels: K1, K2 and K4 have two each);
+     (all nine kernels: K1, K2 and K4 have two each; K1's batch form
+     counts the launches of phases 4, 4e, 4f and 4g);
   6. where a serving batch spends its time: the device's busy share over a
      window of the main path (torch.profiler), the host's CUDA calls a
      batch, and the engine's spans (``device_call`` is the fused call);
@@ -91,7 +115,7 @@ toolkit (``nvcc``).  Phases, each raising on failure:
 
 ``--only-device-build`` runs phases 1-3 and 4b alone, with 4b's own
 reference build, at ``--device-build-scale`` (default 1.0), and times
-``frontier_expand``.
+``frontier_expand``; in the full script the flag sets phase 4b's scale.
 ``--only-kernels`` runs phases 1-3b alone.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
@@ -148,11 +172,24 @@ SPEC_COUNTS = {"spec_waves": 9144, "spec_members": 401152, "clean_waves": 753,
                "violations": 33576, "replayed_members": 33576, "replayed_sides": 33576,
                "exact_waves": 1398, "annotated_pairs": 51676, "violation_rate": 0.0837,
                "scalar_bailout": False}
+# citeseer@1.0's Hierarchical-Labeling as the JAX package labels it
+# (repro.core.hierarchy on a host): decompose's level sizes, the label
+# matrices' shape, the label ints and the sha256 of L_out.tobytes() +
+# L_in.tobytes().  ``tools/hl_counts.py --scale 1.0`` prints them from both
+# packages (``--package repro_torch`` where JAX is absent).
+HL_LEVEL_SIZES = [693947, 72149, 3263, 21]
+HL_SHAPE = (693947, 16)
+HL_LABEL_INTS = 1991740
+HL_SHA256 = "ec4fa5ca0a742737c74f01dae1ee23eea2d790831fb9125337fc9dfa39307790"
 # phase 4c's killed speculative build: a checkpoint every 1,024 of its 10,542
 # boundaries (a save holds the whole label store, ~94 MB at this size), and
 # the kill at the 6,001st optimistic chunk, past the middle of the build
 CKPT_EVERY = 1024
 KILL_AT_CHUNK = 6000
+# the device build (phase 4b) of the full script at half the main graph, with
+# its own reference build: at 1.0 it took 77-153 s of a script that must end
+# within 330 s; ``--only-device-build`` keeps 1.0 as its default
+FULL_RUN_DEVICE_BUILD_SCALE = 0.5
 
 
 def log(msg: str) -> None:
@@ -1349,6 +1386,7 @@ def phase_device_build(device, scale, ref_labels=None, queries=None, verdicts=No
     from repro_torch.graph.scc import condense_to_dag
     from repro_torch.kernels import ops, ref
 
+    t_phase = time.perf_counter()
     g = paper_dataset_analogue(MAIN_DATASET, scale=scale)
     rec = {"phase": "device_build", "dataset": MAIN_DATASET, "scale": scale,
            "n": g.n, "m": g.m}
@@ -1359,9 +1397,11 @@ def phase_device_build(device, scale, ref_labels=None, queries=None, verdicts=No
         queries = np.random.default_rng(0).integers(0, g.n, (64 * BATCH, 2)).astype(np.int32)
         verdicts, _ = serve_all(ref_co, queries, None)
         ref_labels = ref_co.oracle
+    t0 = time.perf_counter()
     dag, _ = condense_to_dag(g)
     order = get_order(dag, "degree_product")
     waves = wave_schedule(dag, order, max_wave=256)
+    rec["host_schedule_seconds"] = time.perf_counter() - t0
 
     # ---- the counted run: the device build (a copy of one level's inputs
     # is kept from the middle sweep on, for phase 5)
@@ -1418,6 +1458,7 @@ def phase_device_build(device, scale, ref_labels=None, queries=None, verdicts=No
 
     # K2's slab form on a real slab and frontier: the out-slab (reverse
     # sweeps) and the first wave's members expanded three unpruned levels
+    t0 = time.perf_counter()
     perm, _, slabs = bitset.ell_slabs(dag.indptr.astype(np.int64),
                                       dag.indices.astype(np.int64), dag.n, width=16)
     w = int(dev["member_width"])
@@ -1436,11 +1477,15 @@ def phase_device_build(device, scale, ref_labels=None, queries=None, verdicts=No
     rec["real_slab"] = {"r": int(slab.shape[0]), "d": int(slab.shape[1]), "wm": wm,
                         "frontier_rows": int(v.ne(0).any(1).sum())}
 
+    rec["slab_check_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     win = rec["profiled_window"] = _device_window(dag, order, waves[:PROFILED_WAVES], device)
+    rec["window_seconds"] = time.perf_counter() - t0
     calls = win["host_runtime_calls"]
     rec["launches_per_wave"] = {name: calls[name]["count"] / win["waves"]
                                 for name in ("cudaLaunchKernel", "cudaLaunchKernelExC")
                                 if name in calls}
+    rec["seconds"] = time.perf_counter() - t_phase
     record(rec)
     log(f"device build {MAIN_DATASET}@{scale}: build_seconds {t_build:.3f}, "
         f"{st['n_waves']} waves, {dev['levels']} levels, {launches['frontier_expand']} "
@@ -1529,6 +1574,282 @@ def phase_host_engines(ref_labels, dag) -> None:
         f"after {t_kill:.3f} s with {kept} ({kept_bytes} bytes), resumed from "
         f"{k['resumed_from']} in {t_resume:.3f} s ({k['written_by_resume']} checkpoints, "
         f"{k['checkpoint_seconds_in_resume']} s); labels equal; phase {rec['seconds']:.3f} s")
+
+
+# ------------------------------------------------------------------ phase 4e
+
+
+def phase_hierarchical(device, g, queries: np.ndarray, verdicts: np.ndarray) -> dict:
+    """Hierarchical-Labeling of phase 4's graph at full width through
+    ``build_oracle(method="hierarchical")`` on the card: the JAX package's
+    level sizes, label matrices and their sha256, then phase 4's traffic
+    served with ``backend="auto"`` (K1's batch form, one launch a batch)
+    with phase 4's DL verdicts, both being exact.  Returns the launches."""
+    import hashlib
+
+    import torch
+
+    from repro_torch.core.api import build_oracle
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    co = build_oracle(g, method="hierarchical", device=device)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    o, eng, st = co.oracle, co.engine, co.oracle.build_stats
+    check(st["level_sizes"] == HL_LEVEL_SIZES,
+          f"HL levels {st['level_sizes']}, not {HL_LEVEL_SIZES}")
+    check(o.L_out.shape == HL_SHAPE and o.L_in.shape == HL_SHAPE,
+          f"HL labels {o.L_out.shape} x {o.L_in.shape}, not {HL_SHAPE} x 2")
+    check(o.total_label_size == HL_LABEL_INTS,
+          f"HL has {o.total_label_size} label ints, not {HL_LABEL_INTS}")
+    sha = hashlib.sha256(o.L_out.tobytes() + o.L_in.tobytes()).hexdigest()
+    check(sha == HL_SHA256, f"HL labels' sha256 {sha} differs from the JAX package's")
+    check(o.hop_rank is None, "HL labels must live in vertex-id space")
+    check(eng.backend == "kernel", f"backend auto resolved to {eng.backend!r}, not kernel")
+    co.serve(queries[:BATCH])                     # warm-up, outside the count
+    torch.cuda.synchronize()
+    eng.reset_stats()
+    # ---- the counted run: HL served, backend auto
+    latencies = []
+    ops.reset_launches()
+    out, t_serve = serve_all(co, queries, None, latencies)
+    launches = dict(ops.LAUNCHES)
+    degradation = dict(eng.degradation)
+    # ----
+    n_batches = len(latencies)
+    check(eng.last_stats["backend"] == "kernel", f"HL served on {eng.last_stats['backend']!r}")
+    check(launches["serve_batch"] == n_batches and launches["label_intersect"] == 0,
+          f"HL serving launched {launches} for {n_batches} batches")
+    check(not any(degradation.values()), f"HL degradation counters moved: {degradation}")
+    check(np.array_equal(out, verdicts),
+          f"HL differs from phase 4's DL verdicts on {int((out != verdicts).sum())} queries")
+    rec = {"phase": "hierarchical", "dataset": MAIN_DATASET, "scale": MAIN_SCALE,
+           "build_seconds": t_build, "stage_seconds": st["stages"],
+           "level_sizes": st["level_sizes"], "L_out": list(o.L_out.shape),
+           "L_in": list(o.L_in.shape), "label_ints": o.total_label_size, "sha256": sha,
+           "label_bytes": int(o.L_out.nbytes + o.L_in.nbytes), "tier_widths": eng.widths,
+           "n_queries": int(queries.shape[0]), "batches": n_batches,
+           "kernel_qps": queries.shape[0] / t_serve,
+           "batch_ms": {"p50": float(np.percentile(latencies, 50)) * 1e3,
+                        "p99": float(np.percentile(latencies, 99)) * 1e3,
+                        "max": max(latencies) * 1e3},
+           "launches": launches, "degradation": degradation, "verdicts_equal_dl": True}
+    record(rec)
+    stages = ", ".join(f"{k} {v:.3f} s" for k, v in st["stages"].items())
+    log(f"HL: build {t_build:.3f} s ({stages}), levels {st['level_sizes']}, "
+        f"{o.total_label_size} label ints, sha256 equal; {queries.shape[0] / t_serve:.1f} "
+        f"queries/s, batch p50 {rec['batch_ms']['p50']:.4f} ms p99 "
+        f"{rec['batch_ms']['p99']:.4f} ms, resident {rec['label_bytes']} bytes, "
+        f"verdicts equal DL's")
+    return launches
+
+
+# ------------------------------------------------------------------ phase 4f
+
+
+QUICKSTART_QUERIES = 2000
+
+
+def phase_quickstart(device) -> dict:
+    """The ported quickstart at amaze: the five §6 baselines, ``OnlineBFS``,
+    DL and HL (both served on the card) agree on every query, and
+    ``examples/quickstart_torch.py`` runs.  Returns the launches."""
+    import importlib.util
+
+    from repro_torch.core import baselines
+    from repro_torch.core.api import build_oracle
+    from repro_torch.graph.generators import paper_dataset_analogue
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    g = paper_dataset_analogue("amaze")
+    q = np.random.default_rng(0).integers(0, g.n, size=(QUICKSTART_QUERIES, 2)).astype(np.int32)
+    sizes, build_s = {}, {}
+    answers = {}
+    ops.reset_launches()
+    for method in ("distribution", "hierarchical"):
+        t0 = time.perf_counter()
+        co = build_oracle(g, method=method, device=device,
+                          **({"core_max": 512} if method == "hierarchical" else {}))
+        build_s[method] = time.perf_counter() - t0
+        answers[method] = co.serve(q)
+        check(co.engine.last_stats["backend"] == "kernel", f"{method} left the kernel")
+        sizes[method] = co.total_label_size
+    launches = dict(ops.LAUNCHES)
+    check(launches["serve_batch"] == 2, f"quickstart serving launched {launches}")
+    for name in ("OnlineBFS", "Grail", "IntervalTC", "PWAHBitvector", "KReach", "TwoHopSetCover"):
+        t0 = time.perf_counter()
+        idx = getattr(baselines, name)(g)
+        build_s[name] = time.perf_counter() - t0
+        sizes[name] = idx.index_size_ints
+        answers[name] = np.array([idx.query(int(u), int(v)) for u, v in q])
+    for name, a in answers.items():
+        check(np.array_equal(a, answers["OnlineBFS"]),
+              f"{name} disagrees with OnlineBFS on {int((a != answers['OnlineBFS']).sum())} "
+              f"of {QUICKSTART_QUERIES} queries")
+    spec = importlib.util.spec_from_file_location(
+        "quickstart_torch", ROOT / "examples" / "quickstart_torch.py")
+    demo = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(demo)
+    demo.main(["--device", str(device)])
+    rec = {"phase": "quickstart", "dataset": "amaze", "n": g.n, "m": g.m,
+           "queries": QUICKSTART_QUERIES, "positives": int(answers["OnlineBFS"].sum()),
+           "index_size_ints": sizes, "build_seconds": build_s, "all_agree": True,
+           "launches": launches, "seconds": time.perf_counter() - t_phase}
+    record(rec)
+    log(f"quickstart amaze: {len(answers)} indexes agree on {QUICKSTART_QUERIES} queries; "
+        f"index ints {sizes}; phase {rec['seconds']:.3f} s")
+    return launches
+
+
+# ------------------------------------------------------------------ phase 4g
+
+
+class _DispatchBook:
+    """The daemon's target: phase 4's oracle, with a book of every dispatch
+    (its queries and answers, and whether it reached the kernel: a device
+    dispatch not past its deadline at the engine's entry)."""
+
+    def __init__(self, co):
+        self.co, self.engine = co, co.engine
+        self.calls = []
+
+    def serve(self, q, backend=None, deadline=None):
+        fresh = deadline is None or time.monotonic() <= deadline
+        ans = self.co.serve(q, backend=backend, deadline=deadline)
+        st = self.engine.last_stats
+        kernel = (st["backend"] == "kernel" and fresh
+                  and st["degraded"]["deadline_to_host"] == 0)
+        self.calls.append((np.array(q, copy=True), ans.copy(), kernel))
+        return ans
+
+
+DAEMON_RUNS = (
+    # (name, rate, duration, fault flags of launch/serve.py, pressure watermark)
+    ("clean", 400.0, 3.0, None, None),
+    ("faulted", 400.0, 3.0, ("2-6:60", "8-10"), None),
+    ("pressure", 100.0, 2.0, None, 0.75),
+)
+
+
+def phase_daemon(g, co) -> dict:
+    """The serving daemon over phase 4's oracle through ``run_open_loop`` at
+    the JAX driver's defaults (64 queries an arrival, deadline 150 ms,
+    ``max_batch`` 4,096, a 2 ms window), three runs: clean; with the
+    driver's ``--inject-device-latency 2-6:60 --inject-device-failure 8-10``
+    (the breaker trips); under a ``BudgetController`` whose pressure
+    watermark is 0.75 of the full label bytes (it steps down).  In each
+    run every dispatched answer equals phase 4's oracle's host merge, the
+    registry's counters equal the daemon's books, and ``serve_batch``
+    launched once for each warm-up rung and each dispatch that reached the
+    kernel.  Returns the launches of the three runs."""
+    import argparse
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import fault_plan_from_args
+    from repro_torch.obs import metrics
+    from repro_torch.serve.budget import BudgetController, PressureConfig
+    from repro_torch.serve.daemon import DaemonConfig
+    from repro_torch.serve.openloop import run_open_loop
+
+    total = {}
+    runs = {}
+    rungs = (DaemonConfig().max_batch // 64).bit_length()   # 64, 128, ..., 4096
+    for name, rate, duration, faults, watermark in DAEMON_RUNS:
+        book = _DispatchBook(co)
+        plan = None if faults is None else fault_plan_from_args(argparse.Namespace(
+            inject_device_latency=faults[0], inject_device_failure=faults[1]))
+        ctl = None if watermark is None else BudgetController(
+            co.engine, pressure=PressureConfig(watermark_bytes=int(watermark * FULL_LABEL_BYTES)))
+        metrics.REGISTRY.reset()
+        co.engine.reset_stats()
+        # ---- the counted run
+        ops.reset_launches()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")   # the injected failures' ladder warnings
+            rep = run_open_loop(book, g, rate_arrivals_per_s=rate, arrival_batch=64,
+                                duration_s=duration, deadline_ms=150.0,
+                                config=DaemonConfig(deadline_ms=150.0), fault_plan=plan,
+                                seed=0, budget_ctl=ctl)
+        launches = dict(ops.LAUNCHES)
+        # ----
+        budget = None if ctl is None else ctl.snapshot()
+        if ctl is not None:
+            ctl.apply(None)
+        reached = sum(k for _, _, k in book.calls)
+        check(launches["serve_batch"] == rungs + reached and launches["label_intersect"] == 0,
+              f"daemon {name}: launches {launches}, {rungs} warm-up rungs and {reached} "
+              f"dispatches that reached the kernel")
+        check(rep["sample_errors"] == 0, f"daemon {name}: {rep['sample_errors']} sampled errors")
+        q = np.concatenate([c[0] for c in book.calls])
+        got = np.concatenate([c[1] for c in book.calls])
+        want = co.serve(q, backend="host")
+        check(np.array_equal(got, want),
+              f"daemon {name}: {int((got != want).sum())} of {q.shape[0]} dispatched answers "
+              f"differ from phase 4's oracle")
+        reg = metrics.REGISTRY
+        books = {
+            "answered": (reg.counter_value("daemon_requests_total", event="answered"),
+                         rep["answered"]),
+            "submitted": (reg.counter_value("daemon_requests_total", event="submitted"),
+                          rep["submitted"]),
+            "shed": (sum(reg.counter_value("daemon_shed_total", reason=r) for r in
+                         ("queue_full", "deadline", "draining", "expired", "killed")),
+                     sum(rep["shed"].values())),
+            "batches": (reg.counter_value("daemon_batches_total", rung="all"), rep["batches"]),
+            "device_batches": (reg.counter_value("daemon_batches_total", rung="device"),
+                               rep["device_batches"]),
+            "breaker_host_batches": (reg.counter_value("daemon_batches_total",
+                                                       rung="breaker_host"),
+                                     rep["breaker_host_batches"]),
+            "breaker_trips": (reg.counter_value("daemon_breaker_trips_total"),
+                              rep["breaker"]["trips"]),
+        }
+        if budget is not None:
+            books["budget_steps_down"] = (
+                reg.counter_value("daemon_budget_steps_total", direction="down"),
+                budget["steps_down"])
+        for k, (a, b) in books.items():
+            check(a == b, f"daemon {name}: registry {k} {a} != the daemon's books {b}")
+        check(rep["answered"] > 0, f"daemon {name} answered nothing")
+        if name == "faulted":
+            check(rep["breaker"]["trips"] >= 1 and rep["breaker_host_batches"] > 0,
+                  f"the faulted run did not trip the breaker: {rep['breaker']}, "
+                  f"{rep['breaker_host_batches']} host batches")
+            check(rep["degradation"]["device_to_host"] > 0, "no device -> host rung taken")
+            check(not any(v for k, v in rep["degradation"].items()
+                          if k not in ("device_to_host", "deadline_to_host")),
+                  f"daemon {name}: degradation {rep['degradation']}")
+        elif name == "pressure":
+            check(budget["steps_down"] >= 1, f"the pressure run took no step down: {budget}")
+            check(not any(v for k, v in rep["degradation"].items()
+                          if k not in ("uncertain", "searched", "deadline_to_host")),
+                  f"daemon {name}: degradation {rep['degradation']}")
+        else:
+            check(not any(v for k, v in rep["degradation"].items() if k != "deadline_to_host"),
+                  f"daemon {name}: degradation {rep['degradation']}")
+        runs[name] = {k: rep[k] for k in (
+            "offered_qps", "sustained_qps", "n_arrivals", "submitted", "answered", "shed",
+            "shed_rate", "p50_ms", "p99_ms", "p99_within_deadline", "breaker", "batches",
+            "device_batches", "breaker_host_batches", "degradation", "faults")}
+        runs[name].update({"dispatches": len(book.calls), "kernel_dispatches": reached,
+                           "dispatched_queries": int(q.shape[0]), "launches": launches,
+                           "budget": budget, "answers_equal_phase_4": True,
+                           "registry_equals_books": True})
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        log(f"daemon {name}: {rep['answered']} of {rep['submitted']} answered, "
+            f"{rep['sustained_qps']} queries/s sustained of {rep['offered_qps']} offered, "
+            f"shed {rep['shed']}, p50 {rep['p50_ms']} ms p99 {rep['p99_ms']} ms, "
+            f"{rep['device_batches']} device and {rep['breaker_host_batches']} breaker-host "
+            f"batches, trips {rep['breaker']['trips']}, serve_batch {launches['serve_batch']}"
+            + ("" if budget is None else f", budget steps down {budget['steps_down']}, "
+               f"resident {budget['resident_bytes']}"))
+    co.engine.reset_stats()
+    record({"phase": "daemon", "dataset": MAIN_DATASET, "scale": MAIN_SCALE,
+            "warmup_rungs": rungs, "runs": runs, "launches": total})
+    return total
 
 
 # ------------------------------------------------------------------ phase 4d
@@ -1901,7 +2222,7 @@ def _serve_batch_work(args: list, q: np.ndarray, codes: np.ndarray,
             "sector_bytes": 32 * sum(sectors.values())}
 
 
-def timing_serve_batch(co, cq: np.ndarray, launches: int, cases: int, budgeted) -> dict:
+def timing_serve_batch(co, cq: np.ndarray, launches: dict, cases: int, budgeted) -> dict:
     """K1's batch form and its plain version at the main path's binding (the
     engine's resident citeseer@1.0 labels, lengths, levels and widths): on
     the first batch of the traffic (B = 4096, condensation ids) and on the
@@ -1916,8 +2237,8 @@ def timing_serve_batch(co, cq: np.ndarray, launches: int, cases: int, budgeted) 
 
     configs = []
     full = co.engine._serve_batch_op()
-    for sb, B, reps, n_launch in ((full, BATCH, 200, launches),
-                                  (full, cq.shape[0], 10, launches),
+    for sb, B, reps, n_launch in ((full, BATCH, 200, launches["main_path"]),
+                                  (full, cq.shape[0], 10, launches["main_path"]),
                                   (budgeted["op"], BATCH, 200, budgeted["launches"]),
                                   (budgeted["op"], cq.shape[0], 10, budgeted["launches"])):
         args = [sb.L_out, sb.L_in, sb.out_len, sb.in_len, sb.level, sb.widths]
@@ -1959,7 +2280,10 @@ def timing_serve_batch(co, cq: np.ndarray, launches: int, cases: int, budgeted) 
         "name": "serve_batch", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/serve_batch.cu",
         "replaces": "src/repro/kernels/label_intersect.py:48",
-        "launches": launches, "matches_plain": True, "cases_checked": cases + len(configs),
+        # every path of the script that serves through it, each read around
+        # its own run: phase 4, HL (4e), the quickstart (4f), the daemon (4g)
+        "launches": sum(launches.values()), "launches_by_path": launches,
+        "matches_plain": True, "cases_checked": cases + len(configs),
         "max_abs_err": 0,
         **{k: head[k] for k in ("shape", "ms", "ms_runs", "device_ms", "plain_ms",
                                 "plain_ms_runs", "bound_ms", "bound_by", "bytes",
@@ -2242,8 +2566,10 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--device-build-scale", type=float, default=MAIN_SCALE,
-                    help="citeseer scale of the device build phase (4b)")
+    ap.add_argument("--device-build-scale", type=float, default=None,
+                    help="citeseer scale of the device build phase (4b); default "
+                         f"{FULL_RUN_DEVICE_BUILD_SCALE} in the full script, "
+                         f"{MAIN_SCALE} with --only-device-build")
     ap.add_argument("--only-device-build", action="store_true",
                     help="run phases 1-3 and 4b only, with 4b's own reference build")
     ap.add_argument("--only-kernels", action="store_true",
@@ -2260,7 +2586,7 @@ def main(argv=None) -> int:
     phase_build()
     cases = phase_kernel_vs_plain(device)
     if args.only_device_build:
-        built = phase_device_build(device, args.device_build_scale)
+        built = phase_device_build(device, args.device_build_scale or MAIN_SCALE)
         kernels = [timing_frontier_expand(built["level"], built["launches"]["frontier_expand"],
                                           cases["frontier_expand"] + 1)]
     elif args.only_kernels:
@@ -2268,15 +2594,23 @@ def main(argv=None) -> int:
     else:
         library = phase_kernel_library(device, cases)
         g, co, queries, cq, rest, launches, verdicts, ref_labels, dag = phase_main_path(device)
-        same = args.device_build_scale == MAIN_SCALE
+        scale = args.device_build_scale or FULL_RUN_DEVICE_BUILD_SCALE
+        same = scale == MAIN_SCALE
         built = phase_device_build(
-            device, args.device_build_scale, *((ref_labels, queries, verdicts) if same else ()))
+            device, scale, *((ref_labels, queries, verdicts) if same else ()))
         phase_host_engines(ref_labels, dag)
         del ref_labels, dag
+        # the paths of this slice, each with its own counts: HL, the
+        # quickstart, the daemon; before 4d, whose budgeted run is cut to
+        # the script's target on the clock they leave
+        k1_launches = {"main_path": launches["serve_batch"],
+                       "hierarchical": phase_hierarchical(device, g, queries,
+                                                          verdicts)["serve_batch"],
+                       "quickstart": phase_quickstart(device)["serve_batch"],
+                       "daemon": phase_daemon(g, co)["serve_batch"]}
         budgeted = phase_cold_start_and_budget(g, co, queries, verdicts)
         cases["frontier_or"] += built["frontier_or_cases"]
-        kernels = [timing_serve_batch(co, cq, launches["serve_batch"],
-                                      cases["serve_batch"], budgeted)]
+        kernels = [timing_serve_batch(co, cq, k1_launches, cases["serve_batch"], budgeted)]
         kernels += phase_timing(co, cq[rest], launches, cases)
         kernels.append(timing_frontier_expand(built["level"],
                                               built["launches"]["frontier_expand"],

@@ -8,7 +8,8 @@ one call, served on the card.
     oracle = oracle_from_snapshot(graph, path)  # cold start, no rebuild
 
 The counterpart of ``repro.core.api``: SCC condensation, Distribution-
-Labeling on the condensation (or a ``persist`` snapshot of its labels), and
+Labeling (default) or Hierarchical-Labeling on the condensation (or a
+``persist`` snapshot of its labels), and
 a ``repro_torch.serve.QueryEngine`` (prefilters + length bucketing +
 pluggable backends) whose label matrices live on ``device``.
 """
@@ -20,6 +21,7 @@ from typing import Literal, Optional
 import numpy as np
 
 from repro_torch.core.distribution import distribution_labeling
+from repro_torch.core.hierarchy import hierarchical_labeling
 from repro_torch.core.oracle import ReachabilityOracle
 from repro_torch.device import resolve_device
 from repro_torch.graph.csr import CSRGraph
@@ -62,21 +64,24 @@ def build_oracle(
     device="cuda",
     **kwargs,
 ) -> CondensedOracle:
-    """Condense SCCs, label with DL, wire up the serve engine on ``device``.
+    """Condense SCCs, label with DL (default) or HL, wire up the serve
+    engine on ``device``.
 
-    The build runs on ``device`` too when it uses the device engine
-    (``impl="device"``, or ``impl="auto"`` on a large sparse graph).
+    The DL build runs on ``device`` too when it uses the device engine
+    (``impl="device"``, or ``impl="auto"`` on a large sparse graph); HL's
+    levels build on the host and its core through DL.
 
     Raises ``RuntimeError`` before any work when ``device`` is CUDA and
     torch sees no CUDA device."""
     device = resolve_device(device)
-    if method == "hierarchical":
-        raise NotImplementedError(
-            "Hierarchical-Labeling is not ported yet: ROADMAP.md Queue 1 item 5")
-    if method != "distribution":
+    if method == "distribution":
+        label = distribution_labeling
+    elif method == "hierarchical":
+        label = hierarchical_labeling
+    else:
         raise ValueError(method)
     dag, comp = condense_to_dag(g)
-    oracle = distribution_labeling(dag, device=device, **kwargs)
+    oracle = label(dag, device=device, **kwargs)
     engine = QueryEngine(
         oracle,
         backend=backend,

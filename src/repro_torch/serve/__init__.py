@@ -1,9 +1,8 @@
 """The port's serve subsystem: QueryEngine + batching planner + prefilters
 + the memory-budgeted tier (truncated rank-prefix labels under a byte
-budget and its pressure governor).
-
-The serving daemon and open-loop driver of ``repro.serve`` are a later
-slice of the port (ROADMAP.md Queue 1 item 8).
+budget and its pressure governor) + the overload-safe serving daemon
+(admission control, deadline shedding, circuit-broken degradation) and its
+open-loop workload driver.
 """
 from repro_torch.serve.budget import (
     BudgetController,
@@ -12,6 +11,7 @@ from repro_torch.serve.budget import (
     rank_cut_for_budget,
     truncate_store,
 )
+from repro_torch.serve.daemon import CircuitBreaker, DaemonConfig, ServeDaemon, ShedError
 from repro_torch.serve.engine import (
     BACKENDS,
     QueryEngine,
@@ -19,6 +19,7 @@ from repro_torch.serve.engine import (
     select_backend,
     serve_step,
 )
+from repro_torch.serve.openloop import check_truth, run_open_loop
 from repro_torch.serve.planner import BatchPlan, TierPlan, plan_batch, tier_widths
 from repro_torch.serve.prefilter import PrefilterResult, apply_prefilters, topo_levels
 
@@ -29,6 +30,12 @@ __all__ = [
     "TruncatedStore",
     "rank_cut_for_budget",
     "truncate_store",
+    "CircuitBreaker",
+    "DaemonConfig",
+    "ServeDaemon",
+    "ShedError",
+    "check_truth",
+    "run_open_loop",
     "QueryEngine",
     "select_backend",
     "serve_step",

@@ -3,8 +3,8 @@
 K1 (its batch form serve_batch, with and without a budget's truncation
 masks, and its tier form label_intersect) and K2 (its slab form frontier_or
 and its frontier form frontier_expand) against their plain versions, the
-budgeted and the cold-started kernel engine on the card against the host
-merge and BFS truth, the device wave build on the
+budgeted and the cold-started kernel engine, Hierarchical-Labeling's and
+one open-loop daemon run on the card against the host merge and BFS truth, the device wave build on the
 card (through frontier_expand) against the reference build, and the
 kernel library (K3 bitset_mm, K4 flash_attention, K5 ell_spmm, K6
 embedding_bag) against its plain versions.
@@ -163,6 +163,48 @@ def test_budgeted_kernel_engine_on_the_card(cuda, family, frac):
     assert (codes == exp.cpu().numpy()).all()
     assert int((codes & ops.SERVE_BATCH_UNCERTAIN != 0).sum()) == kern["uncertain"]
     co.engine.set_budget(None)
+
+
+@pytest.mark.parametrize("family", range(5))
+def test_hierarchical_served_through_serve_batch(cuda, family):
+    """Hierarchical-Labeling (vertex-id labels, 16/16 wide at full size)
+    served on the card: one serve_batch launch, its codes equal to the plain
+    version's on the same binding, verdicts equal to the host merge and BFS
+    truth, no degradation."""
+    name, g = _dag_families()[family]
+    co = build_oracle(g, method="hierarchical", core_max=16)
+    assert co.oracle.hop_rank is None and co.engine.backend == "kernel"
+    q = np.random.default_rng(family).integers(0, g.n, (1500, 2)).astype(np.int32)
+    ops.reset_launches()
+    got = co.serve(q)
+    assert ops.LAUNCHES["serve_batch"] == 1 and ops.LAUNCHES["label_intersect"] == 0
+    assert (got == co.serve(q, backend="host")).all() and (got == _truth(g, q)).all()
+    assert not any(co.engine.degradation.values())
+    sb = co.engine._serve_batch_op()
+    cq = np.ascontiguousarray(co.comp[q], dtype=np.int32)
+    exp = ref.serve_batch_ref(sb.L_out, sb.L_in, sb.out_len, sb.in_len, sb.level, sb.widths,
+                              torch.from_numpy(cq).to(cuda))
+    assert (sb(cq) == exp.cpu().numpy()).all()
+
+
+def test_daemon_round_trip_on_the_card(cuda):
+    """One open-loop daemon run on the card: every device dispatch is one
+    serve_batch launch, answers exact, the registry equal to the books."""
+    from repro_torch.obs import metrics
+    from repro_torch.serve.openloop import run_open_loop
+
+    g = paper_dataset_analogue("citeseer", scale=0.02)
+    co = build_oracle(g)
+    metrics.REGISTRY.reset()
+    ops.reset_launches()
+    rep = run_open_loop(co, g, rate_arrivals_per_s=200.0, duration_s=0.5,
+                        deadline_ms=5000.0, seed=1, n_truth=200)
+    assert rep["sample_errors"] == 0 and rep["answered"] == rep["submitted"] > 0
+    assert rep["device_batches"] == rep["batches"] and not any(rep["degradation"].values())
+    # the seven warm-up rungs (64 .. 4,096), then one launch a dispatch
+    assert ops.LAUNCHES["serve_batch"] == 7 + rep["device_batches"]
+    assert metrics.REGISTRY.counter_value("daemon_requests_total", event="answered") == \
+        rep["answered"]
 
 
 @pytest.mark.parametrize("mode", ["strict", "quarantine"])

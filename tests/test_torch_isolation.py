@@ -37,9 +37,19 @@ for name in ("repro_torch.build.bitset", "repro_torch.build.waves",
              "repro_torch.kernels.ref", "repro_torch.kernels.build",
              "repro_torch.persist", "repro_torch.persist.blocks",
              "repro_torch.persist.oracle_io", "repro_torch.persist.wal",
-             "repro_torch.serve.budget"):
+             "repro_torch.serve.budget",
+             # Hierarchical-Labeling, the backbone, the §6 baselines, the
+             # daemon and its open-loop driver
+             "repro_torch.core.hierarchy", "repro_torch.core.backbone",
+             "repro_torch.core.baselines.grail", "repro_torch.core.baselines.interval",
+             "repro_torch.core.baselines.kreach", "repro_torch.core.baselines.pwah",
+             "repro_torch.core.baselines.twohop", "repro_torch.serve.daemon",
+             "repro_torch.serve.openloop"):
     assert name in names, name
 from repro_torch.core.api import oracle_from_snapshot
+from repro_torch.core import hierarchical_labeling
+from repro_torch.core.baselines import Grail, IntervalTC, KReach, PWAHBitvector, TwoHopSetCover
+from repro_torch.serve import ServeDaemon, run_open_loop
 from repro_torch.serve import BudgetController, TruncatedStore
 from repro_torch.persist import WriteAheadLog, load_budgeted
 # the kernel library's wrappers, and a build entry for every CUDA source
@@ -99,6 +109,8 @@ def test_serve_driver_refuses_without_cuda():
     _no_cuda()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tserve.main(["--dataset", "kegg", "--scale", "0.05", "--n-queries", "100"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tserve.main(["--mode", "daemon", "--dataset", "kegg", "--scale", "0.05"])
 
 
 def test_serve_driver_runs_on_cpu(tmp_path):

@@ -182,9 +182,14 @@ def test_backend_selection():
     assert co.serve(np.array([[0, 2], [2, 0]]), backend="kernel").tolist() == [True, False]
     co.engine.set_budget(None)
     assert co.engine.budget_store is None and co.engine.stats()["budget"] is None
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        tapi.build_oracle(tcsr.from_edges(5, [0, 1], [1, 2]), method="hierarchical",
-                          device="cpu")
+    # Hierarchical-Labeling builds (labels in vertex-id space) and serves
+    hl = tapi.build_oracle(tcsr.from_edges(5, [0, 1], [1, 2]), method="hierarchical",
+                           device="cpu")
+    assert hl.oracle.hop_rank is None and hl.oracle.build_stats["impl"] == "hierarchical"
+    for backend in BACKENDS:
+        assert hl.serve(np.array([[0, 2], [2, 0]]), backend=backend).tolist() == [True, False]
+    with pytest.raises(ValueError):
+        tapi.build_oracle(tcsr.from_edges(5, [0, 1], [1, 2]), method="nope", device="cpu")
 
 
 def test_device_labels_memoized_per_device():
