@@ -44,9 +44,11 @@ failure signal is the engine's ``device_to_host`` (taken only for an
 injected ``ft.inject.SimulatedFailure``; a real kernel failure raises
 through the request futures) and ``deadline_to_host`` rungs, or an SLO miss.
 Pinned-epoch routing serves any target with ``snapshot`` + ``publish``; the
-port's dynamic oracle comes with ROADMAP.md Queue 1 item 9.  One difference
-from ``repro``: a pressure tick that ``drain``/``kill`` cancels while its
-thread runs is still counted, so the books always match the controller's.
+port's dynamic oracle comes with ROADMAP.md Queue 1 item 9.  Two
+differences from ``repro``: the pinned epoch's device -> host rung, too, is
+taken only for ``SimulatedFailure`` (``repro`` takes it for any exception);
+and a pressure tick that ``drain``/``kill`` cancels while its thread runs
+is still counted, so the books always match the controller's.
 """
 from __future__ import annotations
 
@@ -59,6 +61,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from repro_torch.ft import inject
 from repro_torch.obs import metrics, trace
 from repro_torch.obs.state import ON
 
@@ -590,7 +593,9 @@ class ServeDaemon:
                             args={"rung": "pinned_epoch", "padded": int(q.shape[0])}):
                 try:
                     return pin.query_batch(q)[:n]
-                except Exception:
+                except inject.SimulatedFailure:
+                    # only an injected fault takes this rung; a real kernel
+                    # failure raises through the request futures
                     self._count("pinned_device_to_host")
                     return pin.query_batch(q, device=False)[:n]
         use_device = (self.cfg.backend != "host"

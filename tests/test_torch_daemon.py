@@ -39,6 +39,7 @@ import repro_torch.graph.csr as tcsr
 import repro_torch.serve.budget as tbudget
 import repro_torch.serve.daemon as tdaemon
 import repro_torch.serve.openloop as topenloop
+from repro_torch.dynamic.workload import poisson_times as tpoisson_times
 from repro_torch.ft import inject
 from repro_torch.graph.scc import condense_to_dag
 from repro_torch.launch import serve as tserve
@@ -346,6 +347,58 @@ def test_publish_pins_epoch_and_new_epoch_serves_after(rng):
     assert (after == truth[q[:, 0], q[:, 1]]).all()
 
 
+class _FailingPin(_Pin):
+    """A pinned epoch whose device path raises ``exc`` on every call."""
+
+    def __init__(self, exc, *args):
+        super().__init__(*args)
+        self._exc = exc
+
+    def query_batch(self, q, device=True):
+        if device:
+            raise self._exc("pinned epoch's device path failed")
+        return super().query_batch(q, device=False)
+
+
+@pytest.mark.parametrize("exc", [inject.SimulatedFailure, RuntimeError])
+def test_pinned_epoch_host_rung_only_for_injected_failure(rng, exc):
+    """Only an injected fault takes the pinned epoch's device -> host rung;
+    a real failure reaches the client and is never re-served on the host."""
+    g = _port_graph(random_dag(200, 600, seed=3))
+    dyn = _DuckDynamic(g)
+    dyn.snapshot = lambda: _FailingPin(exc, dyn.engine.oracle, dyn.comp,
+                                       dyn.engine.level, dyn._dag)
+    q = rng.integers(0, g.n, size=(256, 2)).astype(np.int32)
+    want_old = dyn.serve(q)
+    plan = inject.Injector(latency={"dynamic.publish": ([0], 0.2)})
+
+    async def go():
+        daemon = ServeDaemon(dyn, DaemonConfig(batch_window_ms=1.0,
+                                               deadline_ms=10_000.0))
+        await daemon.start()
+        with inject.active(plan):
+            pub = asyncio.ensure_future(daemon.publish())
+            await asyncio.sleep(0.05)    # publish pinned + stalled
+            assert daemon.health()["publishing"] is True
+            try:
+                during = await daemon.submit(q)
+            except RuntimeError as e:
+                during = e
+            await pub
+        await daemon.drain()
+        return daemon, during
+
+    daemon, during = asyncio.run(go())
+    assert daemon.counters["pinned_epoch_batches"] >= 1
+    if exc is inject.SimulatedFailure:
+        assert daemon.counters["pinned_device_to_host"] >= 1
+        assert (during == want_old).all()
+    else:
+        assert type(during) is RuntimeError
+        assert "pinned epoch's device path failed" in str(during)
+        assert daemon.counters["pinned_device_to_host"] == 0
+
+
 def test_publish_refused_on_a_static_target(co):
     async def go():
         daemon = ServeDaemon(co, DaemonConfig())
@@ -536,7 +589,7 @@ def test_check_truth_matches_jax(co):
 
 def test_poisson_arrivals_match_jax():
     for rate, dur, seed in ((400.0, 3.0, 0), (120.0, 4.0, 1), (5.0, 0.5, 7)):
-        a, b = topenloop.poisson_times(rate, dur, seed=seed), jpoisson_times(rate, dur, seed=seed)
+        a, b = tpoisson_times(rate, dur, seed=seed), jpoisson_times(rate, dur, seed=seed)
         assert a.dtype == b.dtype and np.array_equal(a, b)
 
 

@@ -239,3 +239,24 @@ def test_hl_snapshot_across_packages(built, writer, reader, tmp_path):
     q = _queries(g, 5)
     for backend in BACKENDS:
         assert (cold.serve(q, backend=backend) == jco.serve(q, backend=backend)).all()
+
+
+def test_build_counts_tool_hierarchical_agrees_at_a_cut_scale(capsys):
+    """``tools/build_counts.py --method hierarchical`` (the origin of
+    ``chip_smoke.py``'s ``HL_*`` constants) labels with both packages and
+    reports the same levels, shapes, label ints and sha256."""
+    import importlib.util
+    import json
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools" / "build_counts.py"
+    spec = importlib.util.spec_from_file_location("build_counts", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    assert tool.main(["--method", "hierarchical", "--scale", "0.01"]) == 0
+    recs = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert [r["package"] for r in recs] == ["repro", "repro_torch"]
+    assert recs[1]["equal_to_repro"], recs
+    keys = ("level_sizes", "shape_out", "shape_in", "label_ints", "sha256")
+    assert {k: recs[0][k] for k in keys} == {k: recs[1][k] for k in keys}
+    assert recs[0]["level_sizes"][0] == recs[0]["n"] and len(recs[0]["sha256"]) == 64

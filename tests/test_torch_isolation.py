@@ -44,7 +44,7 @@ for name in ("repro_torch.build.bitset", "repro_torch.build.waves",
              "repro_torch.core.baselines.grail", "repro_torch.core.baselines.interval",
              "repro_torch.core.baselines.kreach", "repro_torch.core.baselines.pwah",
              "repro_torch.core.baselines.twohop", "repro_torch.serve.daemon",
-             "repro_torch.serve.openloop"):
+             "repro_torch.serve.openloop", "repro_torch.dynamic.workload"):
     assert name in names, name
 from repro_torch.core.api import oracle_from_snapshot
 from repro_torch.core import hierarchical_labeling
