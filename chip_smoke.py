@@ -38,7 +38,9 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      build with ``impl="auto"``, which must resolve to the host
      ``speculative`` engine with the JAX package's 2,965 schedule boundaries
      and speculation counts (``SPEC_COUNTS``) and labels byte for byte equal
-     to a ``reference`` build of the same graph (the truth of phases 4-4c);
+     to a ``reference`` build of the same graph, by their sha256
+     (``DL_SHA256``, printed by ``tools/build_counts.py``; the truth of
+     phases 4-4c);
      serving with ``backend="auto"`` (which must resolve to the kernel),
      about 1M queries mixing uniform and reachable pairs, in batches of
      4,096; verdicts held against the host merge on every query and against
@@ -49,19 +51,25 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      on the citeseer analogue at ``FULL_RUN_DEVICE_BUILD_SCALE`` (0.5; 1.0
      with ``--only-device-build``), the launch counts read around exactly this
      build (``frontier_expand`` once a BFS level, ``frontier_or`` never); its
-     labels byte for byte against its own reference build (phase 4's at
-     1.0), queries served through ``serve_batch`` on it with the reference's
-     verdicts (phase 4's at 1.0) and every degradation counter 0; its build
+     labels byte for byte against the reference build (``DL_SHA256`` at 0.5;
+     phase 4's oracle at 1.0; its own reference build with
+     ``--only-device-build``), queries served through ``serve_batch`` on it
+     with the reference's
+     verdicts (phase 4's at 1.0; at 0.5 the host merge of the labels the
+     sha256 holds) and every degradation counter 0; its build
      seconds, host reads a wave and cone rows a sweep; K2's slab form against its plain version on a real slab
      and frontier; launches a wave and the card's busy share over a
      profiled window of ``PROFILED_WAVES`` (100) waves;
-  4c. the host batched engines on the same graph, each byte for byte
-     against phase 4's reference build: ``impl="wave"`` (46,883 waves), and
-     a speculative build with a checkpoint every ``CKPT_EVERY`` boundaries,
-     killed by an injected failure at chunk ``KILL_AT_CHUNK`` and resumed
-     from its last checkpoint with phase 4's speculation counts; the
-     seconds of each build, to the kill and of the resume, the checkpoints'
-     seconds, count and bytes on disk;
+  4c. the host batched engines at citeseer@0.5 (``HOST_ENGINES_SCALE``), in
+     a child process of the script that runs beside phases 1-4b (the kernel
+     builds leave most cores idle) and is waited for after 4b, each build
+     byte for byte against the reference build there (``DL_SHA256``):
+     ``impl="wave"`` (23,423 waves), and a speculative build with a
+     checkpoint every ``CKPT_EVERY`` boundaries, killed by an injected
+     failure at chunk ``KILL_AT_CHUNK`` and resumed from its last checkpoint
+     with the JAX package's speculation counts at that scale
+     (``HALF_SPEC_COUNTS``); the seconds of each build, to the kill and of
+     the resume, the checkpoints' seconds, count and bytes on disk;
   4e. Hierarchical-Labeling of phase 4's graph,
      ``build_oracle(g, method="hierarchical", device="cuda")``: the JAX
      package's level sizes, label shapes, label ints and sha256
@@ -83,7 +91,26 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      every dispatched answer equals phase 4's oracle's, the registry's
      counters equal the daemon's books, ``serve_batch`` launched once for
      each warm-up rung and each dispatch that reached the kernel; sheds
-     printed, not asserted.  Phases 4e-4g run before 4d;
+     printed, not asserted;
+  4h. the dynamic oracle on phase 4's graph: ``DurableDynamicOracle(g,
+     state_dir, device="cuda")``, whose epoch 0 gives phase 4's verdict on
+     all of phase 4's traffic; ``DYN_ROUNDS`` (10) rounds of ``DYN_UPDATES``
+     (100) DAG-preserving updates at insert share 0.6, each applied and
+     published (a repair publish, a snapshot and a WAL marker), then 4,096
+     of phase 4's queries on the current epoch (``serve_batch``, one launch)
+     and on the epoch before it, pinned (K1's tier form ``label_intersect``,
+     one launch, equal to that epoch's host merge), 1,024 of them against
+     BFS truth of the mutated graph; the seconds of apply, publish stage and
+     commit, snapshot, refresh and the first ``ServeBatch`` rebuild;
+     ``memory_allocated`` after each publish (within the epoch window's
+     label copies); one more batch acknowledged in the WAL only, a crash,
+     ``recover`` on the card with the never-crashed oracle's verdicts; the
+     daemon over the recovered oracle through ``run_open_loop`` (400
+     arrivals/s of 64 queries for 2 s, one ``daemon.publish`` 1 s in,
+     stalled 0.2 s at its fault site): pinned batches > 0, each through
+     ``label_intersect``, every answer equal to the host merge of the epoch
+     that served it, the registry equal to the daemon's books.  Phases 4e-4h
+     run before 4d;
   4d. cold start and budget, on phase 4's oracle and traffic: the oracle
      saved (``persist.save_oracle``) and cold-started
      (``core.api.oracle_from_snapshot``), labels byte for byte and every
@@ -105,7 +132,8 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      budget, with the bytes, compares and 32-byte sectors its queries need; ``frontier_expand`` at a real level
      from the middle of the build's schedule), and the kernels JSON line
      (all nine kernels: K1, K2 and K4 have two each; K1's batch form
-     counts the launches of phases 4, 4e, 4f and 4g);
+     counts the launches of phases 4, 4e, 4f, 4g and 4h, its tier form
+     those of phase 4h's pinned epochs, timed at their batch size);
   6. where a serving batch spends its time: the device's busy share over a
      window of the main path (torch.profiler), the host's CUDA calls a
      batch, and the engine's spans (``device_call`` is the fused call);
@@ -116,7 +144,8 @@ toolkit (``nvcc``).  Phases, each raising on failure:
 ``--only-device-build`` runs phases 1-3 and 4b alone, with 4b's own
 reference build, at ``--device-build-scale`` (default 1.0), and times
 ``frontier_expand``; in the full script the flag sets phase 4b's scale.
-``--only-kernels`` runs phases 1-3b alone.
+``--only-kernels`` runs phases 1-3b alone; ``--only-dynamic`` phases 1-3,
+4 and 4h, and times K1's tier form.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the repository beside it, the script
@@ -125,6 +154,7 @@ exits non-zero before printing any result.
 from __future__ import annotations
 
 import json
+import os
 import pathlib
 import re
 import subprocess
@@ -137,8 +167,9 @@ import numpy as np
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 # tests/frontier_cases.py, serve_batch_cases.py and library_cases.py: edge cases
-# shared with the card tests
+# shared with the card tests; tools/build_counts.py's labels_sha256
 sys.path.insert(1, str(ROOT / "tests"))
+sys.path.insert(2, str(ROOT / "tools"))
 
 # H100 SXM peaks.  HBM bytes/s: NVIDIA's data sheet.  The data sheet gives
 # no INT32 rate; its 67 TFLOP/s float32 rate counts an FMA as two operations
@@ -164,16 +195,33 @@ PROFILED_WAVES = 100
 LABEL_FIELDS = ("L_out", "L_in", "out_len", "in_len", "hop_rank")
 # citeseer@1.0's builds as the JAX package (repro.build.engine) counts them on
 # a host: impl="auto" resolves to its speculative engine with these schedule
-# boundaries and speculation counts, and its exact wave schedule has
-# WAVE_BOUNDARIES waves.  The counts are deterministic; the port's host
-# engines must reproduce them exactly.  ``tools/build_counts.py --scale 1.0``
-# prints them from both packages where JAX is installed.
+# boundaries and speculation counts.  The counts are deterministic; the port's
+# host engines must reproduce them exactly.  ``tools/build_counts.py --scale
+# 1.0`` prints them from both packages where JAX is installed.
 SPEC_BOUNDARIES = 2965
-WAVE_BOUNDARIES = 46883
 SPEC_COUNTS = {"spec_waves": 9144, "spec_members": 401152, "clean_waves": 753,
                "violations": 33576, "replayed_members": 33576, "replayed_sides": 33576,
                "exact_waves": 1398, "annotated_pairs": 51676, "violation_rate": 0.0837,
                "scalar_bailout": False}
+# the sha256 of the five label fields of citeseer's Distribution-Labeling
+# (tools/build_counts.py's labels_sha256), by scale: at 1.0 printed by
+# ``tools/build_counts.py --scale 1.0 --package repro_torch --impl reference``
+# on the card machine's host (equal to the port's auto and wave builds there),
+# at 0.5 by ``--scale 0.5 --package both`` (the two packages equal).  Phase 4
+# holds its auto build to it in place of a reference build of its own.
+DL_SHA256 = {1.0: "7168b6766ec19b8c4e564c3a445567e3465a8cec40edcf7bdebb4ec6377d01f6",
+             0.5: "21dbb15a4e65983ef94b29b3501f29ee79c0e1f4dbbcd2132637998ab021007c"}
+# phase 4c's host engines at citeseer@0.5, against phase 4b's reference build
+# there (``tools/build_counts.py --scale 0.5 --package both``: both packages
+# give these counts and equal labels): auto -> speculative with these
+# boundaries and counts, the exact wave schedule with HALF_WAVE_BOUNDARIES
+HOST_ENGINES_SCALE = 0.5
+HALF_SPEC_BOUNDARIES = 1477
+HALF_WAVE_BOUNDARIES = 23423
+HALF_SPEC_COUNTS = {"spec_waves": 4500, "spec_members": 202752, "clean_waves": 350,
+                    "violations": 16942, "replayed_members": 16942, "replayed_sides": 16942,
+                    "exact_waves": 685, "annotated_pairs": 26022, "violation_rate": 0.0836,
+                    "scalar_bailout": False}
 # citeseer@1.0's Hierarchical-Labeling as the JAX package labels it
 # (repro.core.hierarchy on a host): decompose's level sizes, the label
 # matrices' shape, the label ints and the sha256 of L_out.tobytes() +
@@ -184,11 +232,11 @@ HL_LEVEL_SIZES = [693947, 72149, 3263, 21]
 HL_SHAPE = (693947, 16)
 HL_LABEL_INTS = 1991740
 HL_SHA256 = "ec4fa5ca0a742737c74f01dae1ee23eea2d790831fb9125337fc9dfa39307790"
-# phase 4c's killed speculative build: a checkpoint every 1,024 of its 10,542
-# boundaries (a save holds the whole label store, ~94 MB at this size), and
-# the kill at the 6,001st optimistic chunk, past the middle of the build
-CKPT_EVERY = 1024
-KILL_AT_CHUNK = 6000
+# phase 4c's killed speculative build at citeseer@0.5: a checkpoint every 512
+# of its 5,185 boundaries (a save holds the whole label store), and the kill
+# at the 3,001st optimistic chunk, past the middle of the build
+CKPT_EVERY = 512
+KILL_AT_CHUNK = 3000
 # the device build (phase 4b) of the full script at half the main graph, with
 # its own reference build: at 1.0 it took 77-153 s of a script that must end
 # within 330 s; ``--only-device-build`` keeps 1.0 as its default
@@ -1137,20 +1185,27 @@ def check_labels(want, got, what: str) -> None:
               f"{what}: {f} differs from the reference build")
 
 
-def check_spec_counts(spec: dict, what: str) -> None:
-    """A citeseer@1.0 speculative build's counts against the JAX package's."""
-    got = {k: spec[k] for k in SPEC_COUNTS}
-    check(got == SPEC_COUNTS, f"{what}: speculation counts {got} != {SPEC_COUNTS}")
+def check_spec_counts(spec: dict, what: str, want: dict = SPEC_COUNTS) -> None:
+    """A speculative build's counts against the JAX package's (citeseer@1.0's
+    by default)."""
+    got = {k: spec[k] for k in want}
+    check(got == want, f"{what}: speculation counts {got} != {want}")
+
+
+def check_sha256(o, scale: float, what: str) -> None:
+    from build_counts import labels_sha256
+
+    got = labels_sha256(o)
+    check(got == DL_SHA256[scale],
+          f"{what}: label sha256 {got} != the reference build's {DL_SHA256[scale]}")
 
 
 def phase_main_path(device):
     import torch
 
-    from repro_torch.build.engine import build_distribution_labels
     from repro_torch.core.api import build_oracle
     from repro_torch.graph.generators import paper_dataset_analogue
     from repro_torch.graph.reach import reachable_set
-    from repro_torch.graph.scc import condense_to_dag
     from repro_torch.kernels import ops
     from repro_torch.serve.prefilter import apply_prefilters
 
@@ -1168,21 +1223,17 @@ def phase_main_path(device):
     check(st["n_waves"] == SPEC_BOUNDARIES,
           f"speculative schedule has {st['n_waves']} boundaries, not {SPEC_BOUNDARIES}")
     check_spec_counts(st["speculation"], "the auto build")
-    # the truth: the scalar reference build of the same condensation DAG
-    dag, _ = condense_to_dag(g)
-    t0 = time.perf_counter()
-    ref_labels = build_distribution_labels(dag, impl="reference")
-    t_ref = time.perf_counter() - t0
-    check_labels(ref_labels, o, "the speculative auto build")
+    # the truth: the reference build's labels, by their sha256
+    check_sha256(o, MAIN_SCALE, "the speculative auto build")
     record({"phase": "build_oracle", "dataset": MAIN_DATASET, "scale": MAIN_SCALE,
             "n": g.n, "m": g.m, "graph_seconds": t_graph, "build_seconds": t_build,
-            "build_stats": st, "reference_build_seconds": t_ref,
-            "reference_build_stats": ref_labels.build_stats, "labels_equal_reference": True,
+            "build_stats": st, "labels_sha256": DL_SHA256[MAIN_SCALE],
+            "labels_equal_reference": True,
             "L_out": list(o.L_out.shape), "L_in": list(o.L_in.shape),
             "label_bytes": int(o.L_out.nbytes + o.L_in.nbytes),
             "label_ints": o.total_label_size, "tier_widths": eng.widths})
-    log(f"build: speculative {t_build:.3f} s (build_oracle), reference {t_ref:.3f} s, "
-        f"{st['n_waves']} boundaries, labels equal")
+    log(f"build: speculative {t_build:.3f} s (build_oracle), {st['n_waves']} boundaries, "
+        f"labels equal the reference build's (sha256)")
 
     t0 = time.perf_counter()
     queries = make_traffic(g, co, MAIN_QUERIES)
@@ -1245,7 +1296,7 @@ def phase_main_path(device):
     log(f"main path: kernel {queries.shape[0] / t_kernel:.1f} queries/s, batch p50 "
         f"{np.percentile(latencies, 50) * 1e3:.4f} ms p99 {np.percentile(latencies, 99) * 1e3:.4f} "
         f"ms, serve_batch launches {launches['serve_batch']}")
-    return g, co, queries, cq, rest, launches, kernel_out, ref_labels, dag
+    return g, co, queries, cq, rest, launches, kernel_out
 
 
 # ------------------------------------------------------------------ phase 4b
@@ -1371,11 +1422,16 @@ class _LevelCapture:
         ops.FrontierExpand.__call__ = self.wrapped
 
 
-def phase_device_build(device, scale, ref_labels=None, queries=None, verdicts=None) -> dict:
+def phase_device_build(device, scale, ref_labels=None, queries=None, verdicts=None,
+                       own_reference=True) -> dict:
     """The device wave build of citeseer@``scale`` on the card, held byte for
-    byte against the reference build ``ref_labels`` (phase 4's at full size,
-    else its own) and served through K1 with phase 4's verdicts (else the
-    reference oracle's).  Returns
+    byte against the reference build ``ref_labels`` (phase 4's oracle at full
+    size, whose labels phase 4 held to the reference build's sha256), else
+    against the reference build's sha256 ``DL_SHA256[scale]`` when
+    ``own_reference`` is false and the scale has one, else against a
+    reference build of its own; served through K1 with phase 4's verdicts
+    (else the reference oracle's, or the host merge of the sha-checked
+    labels).  Returns
     {"launches": the build's kernel launches, "frontier_or_cases": K2 slab
     cases checked, "real_slab": a real slab and frontier for phase 5,
     "level": a real level's inputs from the middle of the schedule}."""
@@ -1393,13 +1449,16 @@ def phase_device_build(device, scale, ref_labels=None, queries=None, verdicts=No
     g = paper_dataset_analogue(MAIN_DATASET, scale=scale)
     rec = {"phase": "device_build", "dataset": MAIN_DATASET, "scale": scale,
            "n": g.n, "m": g.m}
-    if ref_labels is None:
+    by_sha = ref_labels is None and not own_reference and scale in DL_SHA256
+    if ref_labels is None and not by_sha:
         t0 = time.perf_counter()
         ref_co = build_oracle(g, device=device, impl="reference")
         rec["reference_build_seconds"] = time.perf_counter() - t0
         queries = np.random.default_rng(0).integers(0, g.n, (64 * BATCH, 2)).astype(np.int32)
         verdicts, _ = serve_all(ref_co, queries, None)
         ref_labels = ref_co.oracle
+        if scale in DL_SHA256:
+            check_sha256(ref_labels, scale, "phase 4b's reference build")
     t0 = time.perf_counter()
     dag, _ = condense_to_dag(g)
     order = get_order(dag, "degree_product")
@@ -1427,7 +1486,12 @@ def phase_device_build(device, scale, ref_labels=None, queries=None, verdicts=No
     check(dev["host_reads"] == dev["levels"] + dev["sweeps"],
           f"{dev['host_reads']} host reads for {dev['levels']} levels and {dev['sweeps']} sweeps")
     check(level.args is not None, "no level of the middle sweeps was captured")
-    check_labels(ref_labels, co.oracle, "the device build")
+    if by_sha:
+        check_sha256(co.oracle, scale, "the device build")
+        queries = np.random.default_rng(0).integers(0, g.n, (64 * BATCH, 2)).astype(np.int32)
+        verdicts, _ = serve_all(co, queries, "host")
+    else:
+        check_labels(ref_labels, co.oracle, "the device build")
     co.engine.reset_stats()
     ops.reset_launches()
     got, t_serve = serve_all(co, queries, None)
@@ -1507,29 +1571,36 @@ def _dir_bytes(path: pathlib.Path) -> int:
     return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
 
 
-def phase_host_engines(ref_labels, dag) -> None:
-    """The host batched engines at citeseer@1.0, each held byte for byte
-    against phase 4's reference build ``ref_labels`` of ``dag``:
-    ``impl="wave"`` with its exact schedule, then a checkpointed speculative
-    build killed by an injected failure at a chunk boundary past the middle
-    and resumed from its last checkpoint, with the uninterrupted run's
-    speculation counts."""
+def phase_host_engines() -> None:
+    """The host batched engines at citeseer@``HOST_ENGINES_SCALE``, each held
+    byte for byte against the reference build there by its labels' sha256
+    (``DL_SHA256``, which phase 4b's reference build of the same graph is
+    held to as well): ``impl="wave"`` with its exact schedule, then a
+    checkpointed speculative build killed by an injected failure at a chunk
+    boundary past the middle and resumed from its last checkpoint, with the
+    JAX package's speculation counts.  Host work only: the full script runs
+    it in a child process beside phases 1-4b."""
     import tempfile
 
     from repro_torch.build.engine import build_distribution_labels
     from repro_torch.ft import inject
+    from repro_torch.graph.generators import paper_dataset_analogue
+    from repro_torch.graph.scc import condense_to_dag
 
     t_phase = time.perf_counter()
-    rec = {"phase": "host_engines", "dataset": MAIN_DATASET, "scale": MAIN_SCALE, "n": dag.n}
+    rec = {"phase": "host_engines", "dataset": MAIN_DATASET, "scale": HOST_ENGINES_SCALE,
+           "in": "a child process, beside phases 1-4b"}
+    dag, _ = condense_to_dag(paper_dataset_analogue(MAIN_DATASET, scale=HOST_ENGINES_SCALE))
+    rec["n"] = dag.n
 
     t0 = time.perf_counter()
     wave = build_distribution_labels(dag, impl="wave")
     t_wave = time.perf_counter() - t0
     st = wave.build_stats
     check(st["impl"] == "wave", f"impl={st['impl']!r}")
-    check(st["n_waves"] == WAVE_BOUNDARIES,
-          f"the wave build has {st['n_waves']} waves, not {WAVE_BOUNDARIES}")
-    check_labels(ref_labels, wave, "the wave build")
+    check(st["n_waves"] == HALF_WAVE_BOUNDARIES,
+          f"the wave build has {st['n_waves']} waves, not {HALF_WAVE_BOUNDARIES}")
+    check_sha256(wave, HOST_ENGINES_SCALE, "the wave build")
     rec["wave"] = {"seconds": t_wave, "build_stats": st, "labels_equal_reference": True}
     del wave
 
@@ -1559,9 +1630,9 @@ def phase_host_engines(ref_labels, dag) -> None:
         check(st["impl"] == "speculative", f"impl={st['impl']!r}")
         check(ck["resumed_from"] == last,
               f"resumed from {ck['resumed_from']}, not the last checkpoint {last}")
-        check(st["n_waves"] == SPEC_BOUNDARIES, f"{st['n_waves']} boundaries")
-        check_spec_counts(st["speculation"], "the resumed build")
-        check_labels(ref_labels, spec, "the killed and resumed speculative build")
+        check(st["n_waves"] == HALF_SPEC_BOUNDARIES, f"{st['n_waves']} boundaries")
+        check_spec_counts(st["speculation"], "the resumed build", HALF_SPEC_COUNTS)
+        check_sha256(spec, HOST_ENGINES_SCALE, "the killed and resumed speculative build")
         rec["killed_and_resumed"] = {
             "checkpoint_every": CKPT_EVERY, "kill_at_chunk": KILL_AT_CHUNK,
             "seconds_to_kill": t_kill, "checkpoints_kept_at_kill": kept,
@@ -1573,10 +1644,54 @@ def phase_host_engines(ref_labels, dag) -> None:
     rec["seconds"] = time.perf_counter() - t_phase
     record(rec)
     k = rec["killed_and_resumed"]
-    log(f"host engines: wave {t_wave:.3f} s ({WAVE_BOUNDARIES} waves); speculative killed "
+    log(f"host engines at {HOST_ENGINES_SCALE}: wave {t_wave:.3f} s ({HALF_WAVE_BOUNDARIES} "
+        f"waves); speculative killed "
         f"after {t_kill:.3f} s with {kept} ({kept_bytes} bytes), resumed from "
         f"{k['resumed_from']} in {t_resume:.3f} s ({k['written_by_resume']} checkpoints, "
         f"{k['checkpoint_seconds_in_resume']} s); labels equal; phase {rec['seconds']:.3f} s")
+
+
+def _host_engines_child(out_path: str) -> None:
+    import contextlib
+
+    with open(out_path, "w") as f, contextlib.redirect_stdout(f):
+        phase_host_engines()
+
+
+def start_host_engines():
+    """Start phase 4c in a spawned child process, its standard output to a
+    temporary file; ``finish_host_engines`` waits for it and relays it."""
+    import multiprocessing
+    import tempfile
+
+    fd, out_path = tempfile.mkstemp(prefix="chip_smoke_4c_", suffix=".log")
+    os.close(fd)
+    child = multiprocessing.get_context("spawn").Process(
+        target=_host_engines_child, args=(out_path,))
+    child.start()
+    return child, out_path
+
+
+def finish_host_engines(started, timeout: float = 300.0) -> None:
+    """Wait for phase 4c's child, relay its lines, fail if it failed."""
+    child, out_path = started
+    child.join(timeout)
+    with open(out_path) as f:
+        text = f.read()
+    os.unlink(out_path)
+    for line in text.splitlines():
+        print(line, flush=True)
+    check(child.exitcode == 0,
+          f"phase 4c (host engines) failed in its child process, exit {child.exitcode}")
+
+
+def stop_host_engines(started) -> None:
+    child, out_path = started
+    if child.is_alive():
+        child.kill()
+    child.join()
+    if os.path.exists(out_path):
+        os.unlink(out_path)
 
 
 # ------------------------------------------------------------------ phase 4e
@@ -1855,6 +1970,415 @@ def phase_daemon(g, co) -> dict:
     record({"phase": "daemon", "dataset": MAIN_DATASET, "scale": MAIN_SCALE,
             "warmup_rungs": rungs, "runs": runs, "launches": total})
     return total
+
+
+# ------------------------------------------------------------------ phase 4h
+
+# benchmarks/dynamic_sweep.py's defaults: 10 rounds of 100 DAG-preserving
+# updates at an insert share of 0.6
+DYN_ROUNDS = 10
+DYN_UPDATES = 100
+DYN_INSERT_FRAC = 0.6
+DYN_SEED = 0
+DYN_QUERIES = 4096   # a round's queries, on the current and on the pinned epoch
+DYN_TRUTH = 1024     # of them held against BFS truth of the mutated graph
+# the daemon over the recovered oracle: 400 arrivals/s of 64 queries for
+# 2 s, one publish 1 s in, stalled DYN_PUBLISH_STALL s at its fault site
+# (``dynamic.publish``, as the daemon tests stall it): the rest of a publish
+# is the host's Python and holds the interpreter lock, so without the stall
+# whether the loop dispatches during it depends on the host
+DYN_DAEMON_RATE, DYN_DAEMON_SECONDS, DYN_PUBLISH_AT, DYN_PUBLISH_STALL = 400.0, 2.0, 1.0, 0.2
+
+
+def _bfs_truth(adj, q: np.ndarray) -> np.ndarray:
+    """BFS truth over adjacency sets (the dynamic oracle's live edge log),
+    stopping at the target."""
+    out = np.empty(q.shape[0], dtype=bool)
+    for i, (u, v) in enumerate(q.tolist()):
+        seen, stack = {u}, [u]
+        while stack and v not in seen:
+            for w in adj[stack.pop()]:
+                if w not in seen:
+                    seen.add(w)
+                    stack.append(w)
+        out[i] = v in seen
+    return out
+
+
+def _timed(obj, name: str, into: dict) -> None:
+    """Wrap ``obj.name`` (an instance attribute from here on) so each call
+    adds its seconds to ``into[name]``."""
+    fn = getattr(obj, name)
+
+    def wrapper(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            into[name] = into.get(name, 0.0) + time.perf_counter() - t0
+
+    setattr(obj, name, wrapper)
+
+
+def _last_span_s(name: str) -> float:
+    from repro_torch.obs import trace
+
+    for ev in reversed(trace.TRACER.events):
+        if ev.get("name") == name and ev.get("ph") == "X":
+            return ev["dur"] / 1e6
+    raise AssertionError(f"no {name} span in the trace ring")
+
+
+class _EpochBook:
+    """The daemon's target in phase 4h: the durable oracle, with a book of
+    every dispatch (the epoch that served it, the rung, its queries and
+    answers, and the K1 launches it made).  An engine dispatch holds the
+    daemon's engine lock, which a publish holds too, so the engine's epoch
+    cannot change under it; a pinned dispatch serves its snapshot's epoch."""
+
+    def __init__(self, dyn):
+        from repro_torch.kernels import ops
+
+        self.dyn, self.engine, self.launches = dyn, dyn.engine, ops.LAUNCHES
+        self.calls = []
+
+    @property
+    def epoch(self) -> int:
+        return self.dyn.epoch
+
+    def _book(self, epoch: int, rung: str, q, fn):
+        before = dict(self.launches)
+        ans = fn()
+        self.calls.append((epoch, rung, np.array(q, copy=True), ans.copy(),
+                           {k: self.launches[k] - before[k]
+                            for k in ("serve_batch", "label_intersect")}))
+        return ans
+
+    def serve(self, q, backend=None, deadline=None):
+        return self._book(self.dyn.engine.epoch, "engine", q,
+                          lambda: self.dyn.serve(q, backend=backend, deadline=deadline))
+
+    def snapshot(self, epoch=None):
+        book, snap = self, self.dyn.snapshot(epoch)
+
+        class _Pin:
+            def query_batch(self, q, device=True):
+                return book._book(snap.epoch, "pinned" if device else "pinned_host", q,
+                                  lambda: snap.query_batch(q, device=device))
+
+        return _Pin()
+
+    def apply(self, batch):
+        return self.dyn.apply(batch)
+
+    def publish(self) -> int:
+        return self.dyn.publish()
+
+
+def phase_dynamic(device, g, queries: np.ndarray, verdicts: np.ndarray) -> dict:
+    """The dynamic oracle at citeseer@1.0 on the card: a
+    ``DurableDynamicOracle`` built on phase 4's graph (epoch 0 gives phase
+    4's verdict on all of phase 4's traffic), ``DYN_ROUNDS`` rounds of
+    ``DYN_UPDATES`` DAG-preserving updates, each applied and published (a
+    repair publish, a snapshot and a WAL marker), then ``DYN_QUERIES`` of
+    phase 4's queries on the current epoch through ``serve_batch`` and on the
+    epoch before it, pinned, through K1's tier form ``label_intersect``
+    (equal to that epoch's host merge), ``DYN_TRUTH`` of them against BFS
+    truth of the mutated graph; one more batch applied and never published,
+    a crash, ``recover`` on the card with the never-crashed oracle's
+    verdicts; the daemon over the recovered oracle through ``run_open_loop``
+    with one publish mid-run, every answer equal to the host merge of the
+    epoch that served it, the registry equal to the daemon's books.
+    Returns the K1 launches of the phase and the pinned batches' residue
+    sizes."""
+    import asyncio
+    import gc
+    import tempfile
+
+    import torch
+
+    import repro_torch.serve.openloop as openloop
+    from repro_torch.dynamic import DurableDynamicOracle, DynamicOracle, generate_trace
+    from repro_torch.ft import inject
+    from repro_torch.kernels import ops
+    from repro_torch.obs import metrics
+    from repro_torch.serve.daemon import DaemonConfig, ServeDaemon
+    from repro_torch.serve.prefilter import apply_prefilters
+
+    t_phase = time.perf_counter()
+    rec = {"phase": "dynamic", "dataset": MAIN_DATASET, "scale": MAIN_SCALE, "n": g.n,
+           "m": g.m, "rounds": DYN_ROUNDS, "updates_per_round": DYN_UPDATES,
+           "insert_frac": DYN_INSERT_FRAC, "queries_per_round": DYN_QUERIES}
+    k1 = {"serve_batch": 0, "label_intersect": 0}
+
+    def add(launches):
+        for k in k1:
+            k1[k] += launches[k]
+
+    t0 = time.perf_counter()
+    # the rounds' batches, the crash tail and the daemon's publish
+    trace_ops = generate_trace(g, rounds=DYN_ROUNDS + 2, updates_per_round=DYN_UPDATES,
+                               queries_per_round=1, insert_frac=DYN_INSERT_FRAC,
+                               dag_preserving=True, seed=DYN_SEED)
+    batches = [op.batch for op in trace_ops if op.kind == "update"]
+    rec["trace_seconds"] = time.perf_counter() - t0
+    check(queries.shape[0] >= (DYN_ROUNDS + 1) * DYN_QUERIES, "too little traffic for 4h")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_state_") as tmp:
+        # ---- 1. start: epoch 0 = phase 4's oracle on phase 4's traffic
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated(device)
+        t0 = time.perf_counter()
+        dur = DurableDynamicOracle(g, state_dir=tmp, device=device)
+        torch.cuda.synchronize()
+        rec["construct_seconds"] = time.perf_counter() - t0
+        eng = dur.engine
+        check(eng.backend == "kernel" and dur.snapshot().device.type == "cuda",
+              f"the dynamic oracle serves on {eng.backend!r} / {dur.snapshot().device}")
+        # ---- the counted run: epoch 0 on phase 4's traffic
+        ops.reset_launches()
+        out0, t_serve0 = serve_all(dur, queries, None)
+        launches = dict(ops.LAUNCHES)
+        # ----
+        add(launches)
+        n_batches = -(-queries.shape[0] // BATCH)
+        check(launches["serve_batch"] == n_batches and launches["label_intersect"] == 0,
+              f"epoch 0: launches {launches} for {n_batches} batches")
+        check(np.array_equal(out0, verdicts),
+              f"epoch 0 differs from phase 4's verdicts on {int((out0 != verdicts).sum())} "
+              f"of {queries.shape[0]} queries")
+        rec["epoch0"] = {"queries": int(queries.shape[0]), "serve_seconds": t_serve0,
+                         "launches": launches, "verdicts_equal_phase_4": True,
+                         "label_ints": dur.total_label_size,
+                         "memory_allocated": torch.cuda.memory_allocated(device),
+                         "memory_before": mem0}
+        log(f"dynamic: DurableDynamicOracle built in {rec['construct_seconds']:.3f} s, "
+            f"epoch 0 = phase 4 on {queries.shape[0]} queries")
+
+        # ---- 2. rounds: apply, publish, current and pinned epochs, BFS truth
+        timings = {}
+        _timed(eng, "refresh", timings)
+        _timed(dur, "_snapshot_state", timings)
+        rounds, residues = [], []
+        rng = np.random.default_rng(DYN_SEED)
+        for r in range(DYN_ROUNDS):
+            q = queries[r * DYN_QUERIES:(r + 1) * DYN_QUERIES]
+            timings.clear()
+            t0 = time.perf_counter()
+            st = dur.apply(batches[r])
+            t_apply = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            e = dur.publish()
+            t_publish = time.perf_counter() - t0
+            stage, commit = _last_span_s("publish.stage"), _last_span_s("publish.commit")
+            torch.cuda.synchronize()
+            mem = torch.cuda.memory_allocated(device)
+            t0 = time.perf_counter()
+            eng._serve_batch_op()        # the first kernel batch's rebuild, timed alone
+            t_rebuild = time.perf_counter() - t0
+            check(not st.rebuild_pending and st.structural == 0,
+                  f"round {r}: the DAG-preserving batch asked for a rebuild: {st}")
+            # ---- the counted run: the current epoch, then the pinned one
+            ops.reset_launches()
+            cur = dur.serve(q)
+            cur_launches = dict(ops.LAUNCHES)
+            ops.reset_launches()
+            old = dur.serve(q, epoch=e - 1)
+            pin_launches = dict(ops.LAUNCHES)
+            # ----
+            add(cur_launches)
+            add(pin_launches)
+            snap = dur.snapshot(e - 1)
+            cq = snap.comp[q]
+            rest = int((~apply_prefilters(cq, snap.oracle.out_len, snap.oracle.in_len,
+                                          snap.level).decided).sum())
+            residues.append(rest)
+            check(cur_launches["serve_batch"] == 1 and cur_launches["label_intersect"] == 0,
+                  f"round {r}: the current epoch launched {cur_launches}")
+            check(pin_launches["label_intersect"] == int(rest > 0)
+                  and pin_launches["serve_batch"] == 0,
+                  f"round {r}: the pinned epoch launched {pin_launches} for {rest} queries "
+                  "past the prefilters")
+            host_old = snap.query_batch(q, device=False)
+            check(np.array_equal(old, host_old),
+                  f"round {r}: the pinned epoch {e - 1} differs from its host merge on "
+                  f"{int((old != host_old).sum())} queries")
+            pick = rng.choice(DYN_QUERIES, DYN_TRUTH, replace=False)
+            t0 = time.perf_counter()
+            truth = _bfs_truth(dur.delta.out_adj, q[pick])
+            t_truth = time.perf_counter() - t0
+            check(np.array_equal(cur[pick], truth),
+                  f"round {r}: epoch {e} differs from BFS truth on "
+                  f"{int((cur[pick] != truth).sum())} of {DYN_TRUTH} queries")
+            check(not any(eng.degradation.values()), f"degradation {eng.degradation}")
+            gl = dur.growth_log[-1]
+            rounds.append({
+                "epoch": e, "apply_seconds": t_apply, "publish_seconds": t_publish,
+                "stage_seconds": stage, "commit_seconds": commit,
+                "refresh_seconds": timings["refresh"],
+                "snapshot_seconds": timings["_snapshot_state"],
+                "serve_batch_rebuild_seconds": t_rebuild, "truth_seconds": t_truth,
+                "repaired_inserts": st.repaired_inserts, "repaired_deletes": st.repaired_deletes,
+                "noop": st.noop, "label_ints": gl["label_ints"], "appends": gl["appends"],
+                "drops": gl["drops"], "growth_rate": gl["growth_rate"],
+                "memory_allocated": mem, "pinned_residue": rest,
+                "positives": int(cur.sum())})
+        del eng.refresh, dur._snapshot_state
+        rec["round"] = rounds
+        check(max(r["memory_allocated"] for r in rounds)
+              <= rec["epoch0"]["memory_allocated"] + (dur.keep_epochs + 1) * FULL_LABEL_BYTES,
+              "device memory grew past the epoch window's copies: "
+              f"{[r['memory_allocated'] for r in rounds]}")
+        log(f"dynamic: {DYN_ROUNDS} rounds, publish "
+            f"{np.mean([r['publish_seconds'] for r in rounds]):.3f} s mean (stage "
+            f"{np.mean([r['stage_seconds'] for r in rounds]):.3f}, snapshot "
+            f"{np.mean([r['snapshot_seconds'] for r in rounds]):.3f}), pinned residues "
+            f"{residues}, memory {rounds[-1]['memory_allocated']}")
+
+        # ---- 3. crash and recover: the tail acknowledged in the WAL only
+        qc = queries[DYN_ROUNDS * DYN_QUERIES:(DYN_ROUNDS + 1) * DYN_QUERIES]
+        dur.apply(batches[DYN_ROUNDS])
+        # the never-crashed oracle publishes the tail in memory (the crash
+        # window between a publish and its snapshot); then the crash
+        DynamicOracle.publish(dur)
+        want = dur.serve(qc)
+        k1["serve_batch"] += 1
+        del dur, eng, snap
+        # the crashed oracle is cyclic garbage (its engine holds its comp
+        # source): collect it here, so the recovery's time is the recovery's
+        t0 = time.perf_counter()
+        gc.collect()
+        rec["crash_collect_seconds"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec_dyn = DurableDynamicOracle.recover(tmp, device=device)
+        torch.cuda.synchronize()
+        t_recover = time.perf_counter() - t0
+        ops.reset_launches()
+        got = rec_dyn.serve(qc)
+        launches = dict(ops.LAUNCHES)
+        add(launches)
+        check(rec_dyn.recovered_records >= DYN_UPDATES // 2,
+              f"recovery replayed {rec_dyn.recovered_records} WAL records")
+        check(np.array_equal(got, want),
+              f"the recovered oracle differs from the never-crashed one on "
+              f"{int((got != want).sum())} of {qc.shape[0]} queries")
+        rec["recovery"] = {"seconds": t_recover, "wal_records": rec_dyn.recovered_records,
+                           "epoch": rec_dyn.epoch, "launches": launches,
+                           "verdicts_equal_never_crashed": True}
+        log(f"dynamic: recovered epoch {rec_dyn.epoch} in {t_recover:.3f} s, "
+            f"{rec_dyn.recovered_records} WAL records replayed")
+
+        # ---- 4. the daemon over the recovered oracle, one publish mid-run
+        book = _EpochBook(rec_dyn)
+        pub_batch = batches[DYN_ROUNDS + 1]
+
+        held = {}
+
+        class _PublishingDaemon(ServeDaemon):
+            """run_open_loop's daemon, publishing ``pub_batch`` once,
+            ``DYN_PUBLISH_AT`` seconds after it starts; its drain awaits the
+            publish first."""
+
+            async def start(self):
+                await super().start()
+                held["daemon"] = self
+
+                async def later():
+                    await asyncio.sleep(DYN_PUBLISH_AT)
+                    return await self.publish(pub_batch)
+
+                self._pub = asyncio.ensure_future(later())
+
+            async def drain(self):
+                await self._pub
+                return await super().drain()
+
+        metrics.REGISTRY.reset()
+        rec_dyn.engine.reset_stats()
+        epoch_before = rec_dyn.epoch
+        openloop.ServeDaemon = _PublishingDaemon
+        # ---- the counted run
+        ops.reset_launches()
+        try:
+            rep = openloop.run_open_loop(
+                book, g, rate_arrivals_per_s=DYN_DAEMON_RATE, arrival_batch=64,
+                duration_s=DYN_DAEMON_SECONDS, deadline_ms=150.0,
+                config=DaemonConfig(deadline_ms=150.0), seed=1, n_truth=0,
+                fault_plan=inject.Injector(
+                    latency={"dynamic.publish": ([0], DYN_PUBLISH_STALL)}))
+        finally:
+            openloop.ServeDaemon = ServeDaemon
+        launches = dict(ops.LAUNCHES)
+        # ----
+        add(launches)
+        rungs = (DaemonConfig().max_batch // 64).bit_length()
+        check(rec_dyn.epoch == epoch_before + 1, "the daemon's publish did not land")
+        check(rep["faults"]["stalled"] == ["dynamic.publish[0]"],
+              f"the publish stall did not fire as planned: {rep['faults']}")
+        by_rung = {}
+        for epoch, rung, q, ans, lc in book.calls:
+            want = rec_dyn.snapshot(epoch).query_batch(q, device=False)
+            check(np.array_equal(ans, want),
+                  f"daemon: a {rung} dispatch on epoch {epoch} differs from that epoch's "
+                  f"host merge on {int((ans != want).sum())} queries")
+            b = by_rung.setdefault(rung, {"dispatches": 0, "serve_batch": 0,
+                                          "label_intersect": 0, "epochs": set()})
+            b["dispatches"] += 1
+            b["epochs"].add(epoch)
+            for k in lc:
+                b[k] += lc[k]
+        pinned = by_rung.get("pinned", {"dispatches": 0, "label_intersect": 0})
+        engine_sb = by_rung.get("engine", {}).get("serve_batch", 0)
+        counters = held["daemon"].counters
+        reg = metrics.REGISTRY
+        books = {
+            "answered": (reg.counter_value("daemon_requests_total", event="answered"),
+                         rep["answered"]),
+            "submitted": (reg.counter_value("daemon_requests_total", event="submitted"),
+                          rep["submitted"]),
+            "batches": (reg.counter_value("daemon_batches_total", rung="all"), rep["batches"]),
+            "device_batches": (reg.counter_value("daemon_batches_total", rung="device"),
+                               rep["device_batches"]),
+            "pinned_epoch_batches": (reg.counter_value("daemon_batches_total",
+                                                       rung="pinned_epoch"),
+                                     counters["pinned_epoch_batches"]),
+            "publishes": (reg.counter_value("daemon_publishes_total"), counters["publishes"]),
+        }
+        for k, (a, b) in books.items():
+            check(a == b, f"daemon: registry {k} {a} != the daemon's books {b}")
+        check(counters["publishes"] == 1, f"{counters['publishes']} publishes")
+        check(pinned["dispatches"] == counters["pinned_epoch_batches"] > 0,
+              f"{pinned['dispatches']} pinned dispatches booked, the daemon counted "
+              f"{counters['pinned_epoch_batches']}")
+        check("pinned_host" not in by_rung, "a pinned batch took the host rung")
+        check(pinned["label_intersect"] > 0 and pinned["label_intersect"] <= pinned["dispatches"],
+              f"pinned dispatches launched label_intersect {pinned['label_intersect']} times "
+              f"for {pinned['dispatches']} dispatches")
+        check(launches["serve_batch"] == rungs + engine_sb
+              and launches["label_intersect"] == pinned["label_intersect"],
+              f"daemon launches {launches}: {rungs} warm-up rungs, {engine_sb} engine and "
+              f"{pinned['label_intersect']} pinned launches booked")
+        check(not any(v for k, v in rep["degradation"].items() if k != "deadline_to_host"),
+              f"daemon degradation {rep['degradation']}")
+        rec["daemon"] = {k: rep[k] for k in (
+            "offered_qps", "sustained_qps", "n_arrivals", "submitted", "answered", "shed",
+            "shed_rate", "p50_ms", "p99_ms", "p99_within_deadline", "batches",
+            "device_batches", "degradation")}
+        rec["daemon"].update({
+            "publish_at_s": DYN_PUBLISH_AT, "publish_stall_s": DYN_PUBLISH_STALL,
+            "epochs": [epoch_before, rec_dyn.epoch],
+            "pinned_epoch_batches": pinned["dispatches"],
+            "by_rung": {k: {**v, "epochs": sorted(v["epochs"])} for k, v in by_rung.items()},
+            "launches": launches, "answers_equal_their_epoch": True,
+            "registry_equals_books": True})
+        log(f"dynamic daemon: {rep['answered']} of {rep['submitted']} answered, p50 "
+            f"{rep['p50_ms']} ms p99 {rep['p99_ms']} ms, {pinned['dispatches']} pinned "
+            f"batches ({pinned['label_intersect']} label_intersect launches), shed {rep['shed']}")
+        del rec_dyn, book, held
+    rec["launches"] = k1
+    rec["seconds"] = time.perf_counter() - t_phase
+    record(rec)
+    return {"launches": k1, "residues": residues}
 
 
 # ------------------------------------------------------------------ phase 4d
@@ -2298,10 +2822,12 @@ def timing_serve_batch(co, cq: np.ndarray, launches: dict, cases: int, budgeted)
         "configs": configs}
 
 
-def phase_timing(co, rest: np.ndarray, launches: dict, cases: dict) -> list:
-    """K1 and its plain version at the serving shape: B = 4096 queries of
-    the main path's intersection residue ``rest`` (condensation ids),
-    width 16, on its label matrices."""
+def phase_timing(co, rest: np.ndarray, launches: dict, cases: dict, pinned_b: int) -> list:
+    """K1's tier form and its plain version on the main path's label
+    matrices at width 16 (``serve_step``'s full width on them): at the
+    pinned batch size of phase 4h, ``pinned_b`` queries of the main path's
+    intersection residue ``rest`` (condensation ids), and at B = 4096.
+    ``launches``: its launches by path (phase 4 and phase 4h)."""
     import torch
 
     from repro_torch.kernels import ops, ref
@@ -2310,41 +2836,50 @@ def phase_timing(co, rest: np.ndarray, launches: dict, cases: dict) -> list:
     check(rest.shape[0] >= BATCH, "too few intersection queries to time")
     width = 16
     L_out, L_in = o.device_labels(eng.device)
-    q = torch.from_numpy(np.ascontiguousarray(rest[:BATCH])).to(eng.device)
-    got = ops.tier_intersect(L_out, L_in, q, width)
-    exp = ref.tier_intersect_ref(L_out, L_in, q, width)
-    torch.cuda.synchronize()
-    max_abs_err = int((got.to(torch.int32) - exp.to(torch.int32)).abs().max())
-    check(max_abs_err == 0, "kernel disagrees with its plain version at the timed shape")
-    kern = lambda: ops.tier_intersect(L_out, L_in, q, width)  # noqa: E731
-    plain = lambda: ref.tier_intersect_ref(L_out, L_in, q, width)  # noqa: E731
-    # plain, kernel, kernel, plain: both sides see the same card state
-    p1, k1, k2, p2 = (_event_ms(plain, 200), _event_ms(kern, 200),
-                      _event_ms(kern, 200), _event_ms(plain, 200))
-    kern()
-    device_ms = _kernel_device_ms(kern, "label_intersect_kernel", 50)
     wa, wb = min(width, L_out.shape[1]), min(width, L_in.shape[1])
-    B = BATCH
+    configs = []
+    for B in (pinned_b, BATCH):
+        q = torch.from_numpy(np.ascontiguousarray(rest[:B])).to(eng.device)
+        got = ops.tier_intersect(L_out, L_in, q, width)
+        exp = ref.tier_intersect_ref(L_out, L_in, q, width)
+        torch.cuda.synchronize()
+        max_abs_err = int((got.to(torch.int32) - exp.to(torch.int32)).abs().max())
+        check(max_abs_err == 0, f"kernel disagrees with its plain version at B={B}")
+        kern = lambda: ops.tier_intersect(L_out, L_in, q, width)  # noqa: E731
+        plain = lambda: ref.tier_intersect_ref(L_out, L_in, q, width)  # noqa: E731
+        # plain, kernel, kernel, plain: both sides see the same card state
+        p1, k1, k2, p2 = (_event_ms(plain, 200), _event_ms(kern, 200),
+                          _event_ms(kern, 200), _event_ms(plain, 200))
+        kern()
+        configs.append({
+            "B": B, "max_abs_err": max_abs_err,
+            "ms": min(k1, k2), "ms_runs": [k1, k2],
+            "device_ms": _kernel_device_ms(kern, "label_intersect_kernel", 50),
+            "plain_ms": min(p1, p2), "plain_ms_runs": [p1, p2],
+            # two ids and two truncated rows read, a verdict byte written; one
+            # int32 compare per pair of entries
+            **_bound(B * (8 + 4 * (wa + wb)) + B, B * wa * wb, PEAK_INT32_OPS_PER_S),
+            "library_ms": None})
+        log(f"label_intersect B={B}: {configs[-1]['ms']:.6f} ms a call (device "
+            f"{configs[-1]['device_ms']:.6f} ms), plain {configs[-1]['plain_ms']:.6f} ms")
+    head = configs[0]
     return [{
         "name": "label_intersect",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/label_intersect.cu",
         "replaces": "src/repro/kernels/label_intersect.py:48",
-        "launches": launches["label_intersect"],
+        # phase 4 (none: its kernel backend runs the batch form) and the
+        # pinned epochs of phase 4h, each read around its own run
+        "launches": sum(launches.values()), "launches_by_path": launches,
         "matches_plain": True,
-        "cases_checked": cases["label_intersect"],
-        "max_abs_err": max_abs_err,
-        "shape": {"B": B, "width": width, "wa": wa, "wb": wb,
-                  "L_out": list(L_out.shape), "L_in": list(L_in.shape)},
-        "ms": min(k1, k2),
-        "ms_runs": [k1, k2],
-        "device_ms": device_ms,
-        "plain_ms": min(p1, p2),
-        "plain_ms_runs": [p1, p2],
-        # two ids and two truncated rows read, a verdict byte written; one
-        # int32 compare per pair of entries
-        **_bound(B * (8 + 4 * (wa + wb)) + B, B * wa * wb, PEAK_INT32_OPS_PER_S),
-        "library_ms": None,
+        "cases_checked": cases["label_intersect"] + len(configs),
+        "max_abs_err": max(c["max_abs_err"] for c in configs),
+        "shape": {"B": head["B"], "width": width, "wa": wa, "wb": wb,
+                  "L_out": list(L_out.shape), "L_in": list(L_in.shape),
+                  "at": "the pinned batch size of phase 4h"},
+        **{k: head[k] for k in ("ms", "ms_runs", "device_ms", "plain_ms", "plain_ms_runs",
+                                "bound_ms", "bound_by", "bytes", "operations", "library_ms")},
+        "configs": configs,
     }]
 
 
@@ -2579,12 +3114,32 @@ def main(argv=None) -> int:
                     help="run phases 1-3 and 4b only, with 4b's own reference build")
     ap.add_argument("--only-kernels", action="store_true",
                     help="run phases 1-3 and 3b (the kernel library) only")
+    ap.add_argument("--only-dynamic", action="store_true",
+                    help="run phases 1-3, 4 and 4h (the dynamic oracle) only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
     # the port must be importable from this checkout before anything prints
     import repro_torch.core.api  # noqa: F401
+    # the full script runs phase 4c's host engines in a child process beside
+    # phases 1-4b (the kernel builds leave most cores idle); it stops it on
+    # the way out, however the run ends
+    child = None
+    if not (args.only_device_build or args.only_kernels or args.only_dynamic):
+        child = start_host_engines()
+    try:
+        return run(args, child)
+    finally:
+        if child is not None:
+            stop_host_engines(child)
+
+
+def run(args, host_engines) -> int:
+    """The phases of ``main``'s arguments; ``host_engines`` is phase 4c's
+    child process in the full script."""
+    import torch
+
     t_start = time.perf_counter()
     name, smi_line = phase_device()
     device = torch.device("cuda", 0)
@@ -2596,27 +3151,38 @@ def main(argv=None) -> int:
                                           cases["frontier_expand"] + 1)]
     elif args.only_kernels:
         kernels = phase_kernel_library(device, cases)
+    elif args.only_dynamic:
+        g, co, queries, cq, rest, launches, verdicts = phase_main_path(device)
+        dyn = phase_dynamic(device, g, queries, verdicts)
+        kernels = phase_timing(co, cq[rest], {"main_path": launches["label_intersect"],
+                                              "dynamic": dyn["launches"]["label_intersect"]},
+                               cases, int(np.median(dyn["residues"])))
     else:
         library = phase_kernel_library(device, cases)
-        g, co, queries, cq, rest, launches, verdicts, ref_labels, dag = phase_main_path(device)
+        g, co, queries, cq, rest, launches, verdicts = phase_main_path(device)
         scale = args.device_build_scale or FULL_RUN_DEVICE_BUILD_SCALE
-        same = scale == MAIN_SCALE
+        # phase 4's oracle is the reference at full size (its labels are the
+        # reference build's, by sha256); at 0.5 the sha256 stands in for it
         built = phase_device_build(
-            device, scale, *((ref_labels, queries, verdicts) if same else ()))
-        phase_host_engines(ref_labels, dag)
-        del ref_labels, dag
+            device, scale, *((co.oracle, queries, verdicts) if scale == MAIN_SCALE else ()),
+            own_reference=False)
+        finish_host_engines(host_engines)
         # the paths of this slice, each with its own counts: HL, the
-        # quickstart, the daemon; before 4d, whose budgeted run is cut to
-        # the script's target on the clock they leave
+        # quickstart, the daemon, the dynamic oracle; before 4d, whose
+        # budgeted run is cut to the script's target on the clock they leave
         k1_launches = {"main_path": launches["serve_batch"],
                        "hierarchical": phase_hierarchical(device, g, queries,
                                                           verdicts)["serve_batch"],
                        "quickstart": phase_quickstart(device)["serve_batch"],
                        "daemon": phase_daemon(g, co)["serve_batch"]}
+        dyn = phase_dynamic(device, g, queries, verdicts)
+        k1_launches["dynamic"] = dyn["launches"]["serve_batch"]
         budgeted = phase_cold_start_and_budget(g, co, queries, verdicts)
         cases["frontier_or"] += built["frontier_or_cases"]
         kernels = [timing_serve_batch(co, cq, k1_launches, cases["serve_batch"], budgeted)]
-        kernels += phase_timing(co, cq[rest], launches, cases)
+        kernels += phase_timing(co, cq[rest], {"main_path": launches["label_intersect"],
+                                               "dynamic": dyn["launches"]["label_intersect"]},
+                                cases, int(np.median(dyn["residues"])))
         kernels.append(timing_frontier_expand(built["level"],
                                               built["launches"]["frontier_expand"],
                                               cases["frontier_expand"] + 1))

@@ -89,7 +89,10 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from repro_torch.build import bitset
-from repro_torch.build.traverse import pruned_bfs_distribute
+# cone_resume_sweep is the engine's cone-scoped construction entry point
+# (repro_torch.dynamic repairs labels through it); it lives in traverse.py
+# beside the sibling scalar sweep it generalizes
+from repro_torch.build.traverse import cone_resume_sweep, pruned_bfs_distribute  # noqa: F401
 from repro_torch.build.waves import speculative_schedule, wave_schedule
 from repro_torch.core.oracle import ReachabilityOracle, finalize_labels
 from repro_torch.core.order import get_order

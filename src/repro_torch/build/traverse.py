@@ -1,9 +1,10 @@
 """Scalar traversal helpers of the port's construction code.
 
 ``pruned_bfs_distribute`` is the loop the reference Distribution-Labeling
-build runs twice per vertex (reverse, then forward pass); ``khop_out`` and
+build runs twice per vertex (reverse, then forward pass);
+``cone_resume_sweep`` resumes one direction of it from an arbitrary seed,
+the entry ``repro_torch.dynamic`` repairs labels through; ``khop_out`` and
 ``batched_union_rows`` serve the backbone builder and Hierarchical-Labeling.
-The cone-resume sweep comes with the dynamic repair slice.
 """
 from __future__ import annotations
 
@@ -47,6 +48,77 @@ def pruned_bfs_distribute(
             if visited[w] != stamp:
                 visited[w] = stamp
                 dq.append(int(w))
+
+
+def cone_resume_sweep(
+    neighbors,
+    labels,
+    hop: int,
+    hop_vertex: int,
+    seed: int,
+    side: str,
+    stop_at_present: bool,
+) -> int:
+    """Resume one direction of Algorithm 2's pruned BFS from an arbitrary
+    seed — the cone-scoped construction entry (re-exported by
+    ``build.engine``) that ``repro_torch.dynamic`` repairs labels through.
+
+    The same prune-or-expand loop as ``pruned_bfs_distribute``, generalized
+    for the dynamic path: the prune probe and the label append go through
+    the ``labels`` object (rank-restricted, idempotent) instead of raw
+    sets/lists, because repairs run against finalized rank-space labels.
+
+    Where the wave engine runs every BFS of a wave from its own hop vertex
+    over the whole graph, a dynamic repair restarts a single hop's sweep
+    inside the affected cone only: after inserting DAG edge (u, v), hop h in
+    L_in(u) resumes its FORWARD sweep at seed v (``side="in"``: distributing
+    h into L_in of v's cone), and hop h in L_out(v) resumes its REVERSE sweep
+    at seed u (``side="out"``).  Cones are tiny relative to n, so the scalar
+    level loop beats re-running the batched wave sweep; the prune test is the
+    same Algorithm 2 probe, restricted to ranks at least as high as ``hop``
+    (numerically ``<= hop`` in rank space) so the verdicts match what the
+    sequential §5.2 loop would have produced — repaired labels stay
+    non-redundant per Theorem 4 up to covers that later edge updates created.
+
+    Parameters
+    ----------
+    neighbors : callable v -> iterable of neighbor vertex ids
+        Forward adjacency for ``side="in"``, reverse for ``side="out"``.
+    labels : MutableLabels-protocol
+        Must provide ``prune(vertex, hop, hop_vertex, side, include_equal)``
+        (the restricted intersection probe; with ``include_equal`` an
+        already-present hop also prunes) and ``add(side, vertex, hop)``
+        (idempotent sorted insert).
+    hop : int
+        Rank-space value being distributed.
+    hop_vertex : int
+        The vertex whose rank is ``hop`` (its opposite-side row feeds the
+        prune probe).
+    seed : int
+        Cone apex the sweep restarts from.
+    side : str
+        "in": write L_in rows (forward sweep); "out": write L_out rows.
+    stop_at_present : bool
+        True for insert repairs (a vertex already holding ``hop`` was fully
+        explored when the hop first reached it — prune and do not expand);
+        False for delete repairs (rows beyond a present vertex may have been
+        invalidated and must be revisited).
+
+    Returns the number of label appends performed.
+    """
+    appended = 0
+    dq = deque([seed])
+    seen = {seed}
+    while dq:
+        w = dq.popleft()
+        if labels.prune(w, hop, hop_vertex, side, include_equal=stop_at_present):
+            continue
+        appended += labels.add(side, w, hop)
+        for x in neighbors(w):
+            if x not in seen:
+                seen.add(x)
+                dq.append(x)
+    return appended
 
 
 def khop_out(g, v: int, k: int) -> Set[int]:

@@ -23,8 +23,10 @@ wave-granular checkpoints; a re-run resumes).
 Lifecycle, in ``repro``'s order: ``--snapshot-dir`` cold-starts from a
 ``persist.save_oracle`` snapshot when the directory exists
 (``--load-mode quarantine`` arms the degradation ladder instead of refusing
-a corrupt snapshot) and saves one after a fresh build.  ``--state-dir`` (a
-durable dynamic oracle) comes with ROADMAP.md Queue 1 item 9.
+a corrupt snapshot) and saves one after a fresh build.  ``--state-dir``
+serves a ``DurableDynamicOracle``, recovering snapshot + WAL when the
+directory holds a snapshot (either package's) and starting one there when
+it does not.
 ``--inject-device-failure`` / ``--inject-device-latency`` aim deterministic
 faults at the dispatch path; ``--budget-mb`` / ``--pressure-watermark``
 serve the daemon under a memory budget.
@@ -87,9 +89,32 @@ def build(args, g):
 
 
 def build_target(args, g):
-    """Resolve the serving target through the lifecycle ladder: snapshot
-    cold start > fresh build (saving a snapshot when ``--snapshot-dir`` is
-    given).  Returns (CondensedOracle, lifecycle record)."""
+    """Resolve the serving target through the lifecycle ladder:
+    durable-dynamic recovery > snapshot cold start > fresh build (saving a
+    snapshot when ``--snapshot-dir`` is given).  Returns (target, lifecycle
+    record); the target is a ``DurableDynamicOracle`` with ``--state-dir``,
+    else a ``CondensedOracle``."""
+    if args.state_dir:
+        from repro_torch.dynamic import DurableDynamicOracle
+
+        has_state = os.path.isdir(args.state_dir) and any(
+            name.startswith("snap_") for name in os.listdir(args.state_dir))
+        if has_state:
+            t0 = time.perf_counter()
+            dyn = DurableDynamicOracle.recover(
+                args.state_dir, bucketing=not args.no_bucketing, device=args.device)
+            seconds = time.perf_counter() - t0
+            print(f"recovered durable oracle from {args.state_dir} in "
+                  f"{seconds:.2f}s (epoch={dyn.epoch}, "
+                  f"wal records replayed={dyn.recovered_records})")
+            return dyn, {"recover_seconds": seconds, "epoch": dyn.epoch,
+                         "wal_records_replayed": dyn.recovered_records}
+        t0 = time.perf_counter()
+        dyn = DurableDynamicOracle(g, state_dir=args.state_dir,
+                                   bucketing=not args.no_bucketing, device=args.device)
+        print(f"durable oracle initialized at {args.state_dir}")
+        return dyn, {"initialized_state_dir": args.state_dir,
+                     "init_seconds": time.perf_counter() - t0}
     if args.snapshot_dir and os.path.isdir(args.snapshot_dir):
         t0 = time.perf_counter()
         co = oracle_from_snapshot(g, args.snapshot_dir, mode=args.load_mode,
@@ -448,8 +473,8 @@ def main(argv=None) -> dict:
                     help="strict: refuse a corrupt snapshot; quarantine: "
                          "serve around corrupt rows via the degradation ladder")
     ap.add_argument("--state-dir", default=None,
-                    help="serve a durable dynamic oracle out of this WAL+snapshot "
-                         "dir (not ported yet: ROADMAP.md Queue 1 item 9)")
+                    help="serve a DurableDynamicOracle out of this WAL+snapshot "
+                         "dir (recovers when non-empty)")
     # daemon knobs
     ap.add_argument("--rate", type=float, default=400.0,
                     help="daemon mode: Poisson arrival rate (arrivals/sec)")
@@ -494,10 +519,6 @@ def main(argv=None) -> dict:
                          "(obs.disable(); the overhead-guard baseline)")
     args = ap.parse_args(argv)
 
-    if args.state_dir:
-        raise NotImplementedError(
-            "--state-dir (a durable dynamic oracle) is not ported yet: "
-            "ROADMAP.md Queue 1 item 9")
     if args.no_obs:
         obs.disable()
     if args.mode == "daemon":

@@ -17,8 +17,8 @@ either package loads in the other).
 The construction engine's wave-granular checkpoints
 (``repro_torch.build.engine``), cold start (``core.api.oracle_from_snapshot``)
 and the budget governor's snapshot reload (``serve.budget``) are its
-consumers.  ``LabelEpoch`` snapshots and the WAL's consumer, the durable
-dynamic oracle, come with ROADMAP.md Queue 1 item 9.
+consumers, with ``LabelEpoch`` snapshots and the WAL's consumer, the
+durable dynamic oracle (``repro_torch.dynamic.durable``).
 """
 from repro_torch.persist.blocks import (
     CorruptSnapshotError,

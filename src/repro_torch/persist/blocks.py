@@ -24,6 +24,7 @@ keep serving the rest.
 from __future__ import annotations
 
 import hashlib
+import itertools
 import json
 import os
 import shutil
@@ -160,17 +161,18 @@ def snapshot_meta(path: str) -> dict:
 # ---------------------------------------------------------------- ragged
 
 def pack_ragged(rows: Sequence[Sequence[int]], dtype=np.int32) -> Tuple[np.ndarray, np.ndarray]:
-    """Python list-of-lists -> (values, offsets int64[k+1]) block pair."""
+    """Python list-of-lists -> (values, offsets int64[k+1]) block pair.
+
+    The arrays of ``repro.persist.blocks.pack_ragged``, built in one pass
+    over the rows (the dynamic oracle packs ~700k member lists a snapshot)."""
     offsets = np.zeros(len(rows) + 1, dtype=np.int64)
-    np.cumsum([len(r) for r in rows], out=offsets[1:])
-    if offsets[-1]:
-        values = np.concatenate([np.asarray(r, dtype=dtype) for r in rows if len(r)])
-    else:
-        values = np.empty(0, dtype=dtype)
-    return values.astype(dtype, copy=False), offsets
+    np.cumsum(np.fromiter(map(len, rows), dtype=np.int64, count=len(rows)), out=offsets[1:])
+    values = np.fromiter(itertools.chain.from_iterable(rows), dtype=dtype,
+                         count=int(offsets[-1]))
+    return values, offsets
 
 
 def unpack_ragged(values: np.ndarray, offsets: np.ndarray) -> List[list]:
     """Inverse of ``pack_ragged`` (plain python lists)."""
-    return [values[offsets[i]: offsets[i + 1]].tolist()
-            for i in range(offsets.shape[0] - 1)]
+    vals, offs = values.tolist(), offsets.tolist()
+    return [vals[offs[i]: offs[i + 1]] for i in range(len(offs) - 1)]

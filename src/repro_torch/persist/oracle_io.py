@@ -26,9 +26,9 @@ Per-row-block corruption semantics by block kind:
     side is treated as truncated (all-True mask): truncation marks only
     route misses to the exact-search rung, so over-marking is always safe.
 
-``LabelEpoch`` snapshots (``save_epoch`` / ``load_epoch``) need the dynamic
-oracle and come with it (ROADMAP.md Queue 1 item 9); until then they raise
-``NotImplementedError``.
+``LabelEpoch`` snapshots (``save_epoch`` / ``load_epoch``) add the epoch's
+``comp`` and ``level`` blocks: a corrupt ``comp`` is fatal even when not
+strict, a corrupt ``level`` disables the level prefilter.
 """
 from __future__ import annotations
 
@@ -212,14 +212,44 @@ def load_budgeted(path: str, strict: bool = True):
 
 # ------------------------------------------------------------- LabelEpoch
 
-_EPOCH = "ROADMAP.md Queue 1 item 9 (dynamic/versioned.py's LabelEpoch)"
-
-
 def save_epoch(path: str, epoch, row_block: int = ROW_BLOCK) -> str:
-    """Snapshot a ``LabelEpoch``: needs the dynamic oracle, not ported yet."""
-    raise NotImplementedError(f"LabelEpoch snapshots are not ported yet: {_EPOCH}")
+    """Snapshot a ``repro_torch.dynamic.versioned.LabelEpoch`` (oracle + comp
+    + level + epoch number) in one checksummed directory."""
+    arrays, meta = _oracle_arrays(epoch.oracle, row_block)
+    arrays["comp"] = np.asarray(epoch.comp, dtype=np.int32)
+    arrays["level"] = np.asarray(epoch.level, dtype=np.int32)
+    meta.update(kind="LabelEpoch", epoch=int(epoch.epoch))
+    return save_blocks(path, arrays, meta)
 
 
-def load_epoch(path: str, strict: bool = True):
-    """Load a ``LabelEpoch`` snapshot: needs the dynamic oracle, not ported yet."""
-    raise NotImplementedError(f"LabelEpoch snapshots are not ported yet: {_EPOCH}")
+def load_epoch(path: str, strict: bool = True, device="cuda"):
+    """Load + verify a LabelEpoch snapshot (see ``load_oracle`` for the
+    strictness contract).  A corrupt ``comp`` block is fatal regardless of
+    ``strict`` — there is no safe fallback for the id map.  The epoch serves
+    on ``device`` (default ``"cuda"``; ``RuntimeError`` without a card)."""
+    from repro_torch.device import resolve_device
+    from repro_torch.dynamic.versioned import LabelEpoch
+
+    device = resolve_device(device)
+    arrays, meta, bad = load_blocks(path, strict=strict)
+    if meta.get("kind") != "LabelEpoch":
+        raise CorruptSnapshotError(
+            f"{path}: expected a LabelEpoch snapshot, found {meta.get('kind')!r}")
+    comp = arrays.get("comp")
+    if comp is None:
+        raise CorruptSnapshotError(
+            f"{path}: comp block corrupt — a LabelEpoch cannot serve without "
+            "its vertex->condensation map")
+    level = arrays.get("level")
+    if level is None:
+        warnings.warn(f"{path}: level block corrupt; level prefilter disabled",
+                      stacklevel=2)
+    oracle, report = _load_oracle_parts(arrays, meta, bad)
+    ep = LabelEpoch(
+        epoch=int(meta["epoch"]),
+        oracle=oracle,
+        comp=np.asarray(comp, dtype=np.int32),
+        level=None if level is None else np.asarray(level, dtype=np.int32),
+        device=device,
+    )
+    return ep if strict else (ep, report)

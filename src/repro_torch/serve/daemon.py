@@ -43,8 +43,10 @@ the engine's device and that device's current stream.  The breaker's
 failure signal is the engine's ``device_to_host`` (taken only for an
 injected ``ft.inject.SimulatedFailure``; a real kernel failure raises
 through the request futures) and ``deadline_to_host`` rungs, or an SLO miss.
-Pinned-epoch routing serves any target with ``snapshot`` + ``publish``; the
-port's dynamic oracle comes with ROADMAP.md Queue 1 item 9.  Two
+Pinned-epoch routing serves any target with ``snapshot`` + ``publish``, the
+port's ``dynamic.DynamicOracle`` among them; on the card a pinned batch is
+one launch of K1's tier form (``LabelEpoch.query_batch``), issued from the
+executor thread on the epoch's device and that device's current stream.  Two
 differences from ``repro``: the pinned epoch's device -> host rung, too, is
 taken only for ``SimulatedFailure`` (``repro`` takes it for any exception);
 and a pressure tick that ``drain``/``kill`` cancels while its thread runs

@@ -24,7 +24,6 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from repro_torch.dynamic.workload import poisson_times
 from repro_torch.ft import inject
 from repro_torch.obs import trace
 from repro_torch.obs.state import ON
@@ -97,6 +96,10 @@ def run_open_loop(
     under a memory budget; when it carries a PressureConfig the daemon's
     pressure loop runs live, and the report's ``budget`` section records
     the governor's final state (steps taken, resident bytes)."""
+    # deferred: repro_torch.dynamic imports repro_torch.build, which imports
+    # repro_torch.serve; a module-level import here would close that cycle
+    from repro_torch.dynamic.workload import poisson_times
+
     cfg = config or DaemonConfig(deadline_ms=deadline_ms)
     rng = np.random.default_rng(seed)
     arrivals = poisson_times(rate_arrivals_per_s, duration_s, seed=seed)

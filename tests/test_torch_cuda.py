@@ -4,7 +4,10 @@ K1 (its batch form serve_batch, with and without a budget's truncation
 masks, and its tier form label_intersect) and K2 (its slab form frontier_or
 and its frontier form frontier_expand) against their plain versions, the
 budgeted and the cold-started kernel engine, Hierarchical-Labeling's and
-one open-loop daemon run on the card against the host merge and BFS truth, the device wave build on the
+one open-loop daemon run on the card against the host merge and BFS truth,
+the dynamic oracle (current epochs through serve_batch, pinned ones through
+label_intersect), a durable crash and recovery and the six chaos scenarios
+on the card, the device wave build on the
 card (through frontier_expand) against the reference build, and the
 kernel library (K3 bitset_mm, K4 flash_attention, K5 ell_spmm, K6
 embedding_bag) against its plain versions.
@@ -373,6 +376,149 @@ def test_device_build_label_growth_on_the_card(cuda):
     assert ops.LAUNCHES["frontier_expand"] > 0 and ops.LAUNCHES["frontier_or"] == 0
     assert dev_co.oracle.build_stats["device"]["regrows"] > 0
     _assert_same_labels(ref_co.oracle, dev_co.oracle, "l_max growth")
+
+
+# --------------------------------------------------------- dynamic oracle
+
+
+def _raw_families():
+    """The five serve-test families (tests/test_serve_engine.py), cycles and
+    isolated vertices kept, made with the port's generators."""
+    from repro_torch.graph.csr import from_edges
+    from repro_torch.graph.generators import layered_dag, random_dag, tree_dag
+
+    rng = np.random.default_rng(0)
+    fams = [("random_dag", random_dag(70, 200, seed=1)),
+            ("layered_dag", layered_dag(80, avg_out=2.5, seed=2)),
+            ("tree_dag", tree_dag(90, branching=4, seed=3))]
+    src, dst = rng.integers(0, 60, 170), rng.integers(0, 60, 170)
+    fams.append(("cyclic", from_edges(60, src, dst)))
+    src, dst = rng.integers(0, 40, 60), rng.integers(0, 40, 60)
+    fams.append(("isolated", from_edges(80, src, dst)))
+    return fams
+
+
+def _truth_adj(adj, q):
+    """BFS truth over adjacency sets (the dynamic oracle's live edge log)."""
+    out = np.empty(q.shape[0], dtype=bool)
+    for i, (u, v) in enumerate(q):
+        seen, stack = {int(u)}, [int(u)]
+        while stack and int(v) not in seen:
+            for w in adj[stack.pop()]:
+                if w not in seen:
+                    seen.add(w)
+                    stack.append(w)
+        out[i] = int(v) in seen
+    return out
+
+
+def _repair_updates(dyn, rng, k=12):
+    """DAG-preserving updates: inserts oriented by the condensation's levels,
+    deletes of edges between two SCCs."""
+    comp, lvl = dyn.delta.comp, dyn.level
+    ups = []
+    for _ in range(k):
+        a, b = (int(x) for x in rng.integers(0, comp.size, 2))
+        if lvl[comp[a]] != lvl[comp[b]]:
+            ups.append((a, b) if lvl[comp[a]] < lvl[comp[b]] else (b, a))
+    cross = [(u, w) for u in range(comp.size) for w in sorted(dyn.delta.out_adj[u])
+             if comp[u] != comp[w]]
+    dels = [cross[int(i)] for i in rng.integers(0, len(cross), 4)] if cross else []
+    return ups, dels
+
+
+@pytest.mark.parametrize("publish", ["repair", "structural"])
+@pytest.mark.parametrize("family", range(5))
+def test_dynamic_oracle_on_the_card(cuda, family, publish):
+    """A DynamicOracle on the card after a repair publish or a structural
+    (SCC merge -> compacting rebuild) publish: the current epoch through
+    serve_batch (one launch), the pinned epoch before it through K1's tier
+    form label_intersect (one launch), each equal to its plain version, to
+    the host merge and to BFS truth of its own graph."""
+    from repro_torch.dynamic import DynamicOracle, UpdateBatch
+    from repro_torch.serve.prefilter import apply_prefilters
+
+    name, g = _raw_families()[family]
+    rng = np.random.default_rng(family)
+    dyn = DynamicOracle(g)
+    assert dyn.engine.backend == "kernel" and dyn.snapshot().device.type == "cuda"
+    q = rng.integers(0, g.n, (1500, 2)).astype(np.int32)
+    adj0 = [set(s) for s in dyn.delta.out_adj]
+    if publish == "repair":
+        ins, dels = _repair_updates(dyn, rng)
+    else:
+        comp = dyn.delta.comp
+        a, b = next((u, w) for u in range(g.n) for w in sorted(dyn.delta.out_adj[u])
+                    if comp[u] != comp[w])
+        ins, dels = [(b, a)], []   # closes a cycle: a merge
+    st = dyn.apply(UpdateBatch.of(ins, dels))
+    assert (st.structural > 0) == (publish == "structural") and st.rebuild_pending == \
+        (publish == "structural"), st
+    e1 = dyn.publish()
+    assert dyn.growth_log[-1]["rebuilt"] == (publish == "structural")
+    # the current epoch: K1's batch form
+    ops.reset_launches()
+    cur = dyn.serve(q)
+    assert ops.LAUNCHES["serve_batch"] == 1 and ops.LAUNCHES["label_intersect"] == 0
+    assert (cur == dyn.serve(q, backend="dense")).all()
+    assert (cur == dyn.serve(q, backend="host")).all()
+    assert (cur == _truth_adj(dyn.delta.out_adj, q)).all()
+    # the pinned epoch: K1's tier form
+    snap = dyn.snapshot(e1 - 1)
+    cq = snap.comp[q]
+    o = snap.oracle
+    rest = ~apply_prefilters(cq, o.out_len, o.in_len, snap.level).decided
+    ops.reset_launches()
+    old = dyn.serve(q, epoch=e1 - 1)
+    assert ops.LAUNCHES["label_intersect"] == int(rest.any())
+    assert ops.LAUNCHES["serve_batch"] == 0
+    assert (old == snap.query_batch(q, device=False)).all()
+    assert (old == _truth_adj(adj0, q)).all()
+    lo, li = o.device_labels(cuda)
+    width = max(lo.shape[1], li.shape[1])
+    qd = torch.from_numpy(np.ascontiguousarray(cq[rest], dtype=np.int32)).to(cuda)
+    assert torch.equal(ops.tier_intersect(lo, li, qd, width),
+                       ref.tier_intersect_ref(lo, li, qd, width))
+    assert not any(dyn.engine.degradation.values())
+
+
+def test_durable_crash_and_recovery_on_the_card(cuda, tmp_path):
+    """A durable oracle on the card: published batches, an acknowledged tail
+    never published, a crash; the recovery on the card serves the
+    never-crashed oracle's verdicts through serve_batch."""
+    from repro_torch.dynamic import DurableDynamicOracle, DynamicOracle, UpdateBatch
+
+    g = paper_dataset_analogue("citeseer", scale=0.02)
+    rng = np.random.default_rng(3)
+    ref_dyn = DynamicOracle(g)
+    dur = DurableDynamicOracle(g, state_dir=str(tmp_path))
+    batches = []
+    for _ in range(3):
+        ins, dels = _repair_updates(ref_dyn, rng, k=40)
+        batches.append(UpdateBatch.of(ins, dels))
+        ref_dyn.apply(batches[-1])
+    for b in batches[:2]:
+        dur.apply(b)
+        dur.publish()
+    dur.apply(batches[2])
+    del dur
+    ref_dyn.publish()
+    rec = DurableDynamicOracle.recover(str(tmp_path))
+    assert rec.recovered_records > 0 and rec.engine.device.type == "cuda"
+    q = rng.integers(0, g.n, (4096, 2)).astype(np.int32)
+    ops.reset_launches()
+    got = rec.serve(q)
+    assert ops.LAUNCHES["serve_batch"] == 1
+    assert (got == ref_dyn.serve(q)).all()
+    assert (got[:500] == _truth_adj(rec.delta.out_adj, q[:500])).all()
+
+
+@pytest.mark.parametrize("scenario", ["build", "corrupt", "serve", "dynamic", "daemon",
+                                      "budget"])
+def test_chaos_scenarios_on_the_card(cuda, scenario):
+    from repro_torch.launch import chaos
+
+    assert chaos.SCENARIOS[scenario](0, cuda)
 
 
 # ------------------------------------------------------------ kernel library

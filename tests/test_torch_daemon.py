@@ -3,9 +3,9 @@
 Every test of ``tests/test_daemon.py`` has its counterpart here, over the
 port's ``CondensedOracle`` (admission and shedding, deadlines, the circuit
 breaker, pinned-epoch publishes, drain/kill, the stats and health
-surfaces).  The pinned-epoch test runs on a minimal duck-typed dynamic
-target (``snapshot`` / ``apply`` / ``publish``); the port's dynamic oracle
-comes with ROADMAP.md Queue 1 item 9.
+surfaces).  The pinned-epoch tests run on a minimal duck-typed dynamic
+target (``snapshot`` / ``apply`` / ``publish``) and on the port's
+``DynamicOracle``, as ``tests/test_daemon.py`` runs them on ``repro``'s.
 
 Then differential tests against ``repro``'s daemon on the same inputs: the
 same request stream with shedding off gives equal answers; under the same
@@ -345,6 +345,89 @@ def test_publish_pins_epoch_and_new_epoch_serves_after(rng):
     truth = _truth_matrix(g.n, np.concatenate([src, edges[:, 0]]),
                           np.concatenate([dst, edges[:, 1]]))
     assert (after == truth[q[:, 0], q[:, 1]]).all()
+
+
+def test_publish_pins_epoch_on_a_dynamic_oracle(rng):
+    """``tests/test_daemon.py``'s publish test on the port's DynamicOracle:
+    the batch served mid-publish is the pinned epoch's (pinned epochs serve
+    through K1's tier form; its plain version here), the new epoch serves
+    after, and both equal ``repro``'s DynamicOracle on the same updates."""
+    import repro.dynamic as jdyn
+    import repro_torch.dynamic as tdyn
+
+    jg = random_dag(200, 600, seed=3)
+    dyn = tdyn.DynamicOracle(_port_graph(jg), device="cpu")
+    q = rng.integers(0, jg.n, size=(256, 2)).astype(np.int32)
+    want_old = dyn.serve(q)
+    topo_edges = [(int(u), int(v)) for u, v in
+                  zip(rng.integers(0, jg.n // 2, 8),
+                      rng.integers(jg.n // 2, jg.n, 8)) if u != v]
+    batch = tdyn.UpdateBatch.of(inserts=topo_edges)
+    plan = inject.Injector(latency={"dynamic.publish": ([0], 0.2)})
+
+    async def go():
+        daemon = ServeDaemon(dyn, DaemonConfig(batch_window_ms=1.0,
+                                               deadline_ms=10_000.0))
+        await daemon.start()
+        with inject.active(plan):
+            pub = asyncio.ensure_future(daemon.publish(batch))
+            await asyncio.sleep(0.05)    # publish pinned + stalled
+            assert daemon.health()["publishing"] is True
+            during = await daemon.submit(q)
+            epoch = await pub
+        after = await daemon.submit(q)
+        await daemon.drain()
+        return daemon, during, after, epoch
+
+    daemon, during, after, epoch = asyncio.run(go())
+    assert daemon.counters["pinned_epoch_batches"] >= 1
+    assert daemon.counters["pinned_device_to_host"] == 0
+    assert (during == want_old).all()
+    assert epoch == dyn.epoch == 1
+    assert daemon.counters["publishes"] == 1
+    ref = jdyn.DynamicOracle(jg)
+    assert (want_old == ref.serve(q)).all()
+    ref.apply(jdyn.UpdateBatch.of(inserts=topo_edges))
+    ref.publish()
+    assert (after == ref.serve(q)).all()
+    assert (dyn.serve(q, epoch=0) == want_old).all()
+
+
+def test_pinned_epoch_injected_failure_on_a_dynamic_oracle(rng, monkeypatch):
+    """An injected failure on a real pinned epoch's device path takes the
+    pinned host rung, counted, with the pinned epoch's verdicts."""
+    import repro_torch.dynamic as tdyn
+    import repro_torch.dynamic.versioned as tversioned
+
+    g = _port_graph(random_dag(200, 600, seed=5))
+    dyn = tdyn.DynamicOracle(g, device="cpu")
+    q = rng.integers(0, g.n, size=(256, 2)).astype(np.int32)
+    want_old = dyn.serve(q)
+    orig = tversioned.LabelEpoch.query_batch
+
+    def failing(self, queries, device=True):
+        if device:
+            raise inject.SimulatedFailure("pinned device path")
+        return orig(self, queries, device=False)
+
+    plan = inject.Injector(latency={"dynamic.publish": ([0], 0.2)})
+
+    async def go():
+        daemon = ServeDaemon(dyn, DaemonConfig(batch_window_ms=1.0, deadline_ms=10_000.0))
+        await daemon.start()
+        with inject.active(plan):
+            pub = asyncio.ensure_future(daemon.publish(tdyn.UpdateBatch.of(inserts=[(0, 199)])))
+            await asyncio.sleep(0.05)
+            during = await daemon.submit(q)
+            await pub
+        await daemon.drain()
+        return daemon, during
+
+    monkeypatch.setattr(tversioned.LabelEpoch, "query_batch", failing)
+    daemon, during = asyncio.run(go())
+    assert daemon.counters["pinned_epoch_batches"] >= 1
+    assert daemon.counters["pinned_device_to_host"] >= 1
+    assert (during == want_old).all()
 
 
 class _FailingPin(_Pin):
@@ -715,8 +798,14 @@ def test_serve_driver_daemon_mode_runs_on_cpu(tmp_path, capsys):
     b = rec["report"]["budget"]
     assert rec["report"]["sample_errors"] == 0 and b["steps_down"] >= 1
     assert b["resident_bytes"] < b["full_bytes"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        tserve.main(["--mode", "daemon", "--device", "cpu", "--state-dir", str(tmp_path)])
+    # over a durable dynamic oracle: started in the state dir, then recovered
+    state = str(tmp_path / "state")
+    for line in ("durable oracle initialized at", "recovered durable oracle from"):
+        rec = tserve.main(argv + ["--state-dir", state])
+        assert line in capsys.readouterr().out
+        assert rec["report"]["sample_errors"] == 0
+        assert rec["report"]["answered"] == rec["report"]["submitted"]
+        assert rec["health"]["dynamic"] is True and rec["health"]["epoch"] == 0
 
 
 def test_serve_driver_sweep_takes_an_injected_failure(capsys):

@@ -2,8 +2,9 @@
 
   * importing every module of the port loads neither ``jax`` nor any module
     of the JAX package ``repro`` (checked in a fresh interpreter);
-  * the entry points raise ``RuntimeError`` on a box without CUDA unless the
-    caller passes ``device="cpu"``;
+  * the entry points (the dynamic oracle's and the chaos driver's too) raise
+    ``RuntimeError`` on a box without CUDA unless the caller passes
+    ``device="cpu"``;
   * the serve driver runs end to end with ``--device cpu``.
 """
 import os
@@ -44,14 +45,20 @@ for name in ("repro_torch.build.bitset", "repro_torch.build.waves",
              "repro_torch.core.baselines.grail", "repro_torch.core.baselines.interval",
              "repro_torch.core.baselines.kreach", "repro_torch.core.baselines.pwah",
              "repro_torch.core.baselines.twohop", "repro_torch.serve.daemon",
-             "repro_torch.serve.openloop", "repro_torch.dynamic.workload"):
+             "repro_torch.serve.openloop", "repro_torch.dynamic.workload",
+             # the dynamic oracle, its durable form and the chaos driver
+             "repro_torch.dynamic", "repro_torch.dynamic.delta",
+             "repro_torch.dynamic.repair", "repro_torch.dynamic.versioned",
+             "repro_torch.dynamic.durable", "repro_torch.launch.chaos"):
     assert name in names, name
 from repro_torch.core.api import oracle_from_snapshot
 from repro_torch.core import hierarchical_labeling
 from repro_torch.core.baselines import Grail, IntervalTC, KReach, PWAHBitvector, TwoHopSetCover
 from repro_torch.serve import ServeDaemon, run_open_loop
 from repro_torch.serve import BudgetController, TruncatedStore
-from repro_torch.persist import WriteAheadLog, load_budgeted
+from repro_torch.persist import WriteAheadLog, load_budgeted, load_epoch, save_epoch
+from repro_torch.dynamic import DurableDynamicOracle, DynamicOracle, LabelEpoch
+from repro_torch.build.engine import cone_resume_sweep
 # the kernel library's wrappers, and a build entry for every CUDA source
 from repro_torch.kernels import build, ops
 for fn in ("bitset_mm", "flash_attention", "ell_spmm", "embedding_bag"):
@@ -76,7 +83,7 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                        capture_output=True, text=True, timeout=240)
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
-    assert n_modules >= 40, r.stdout
+    assert n_modules >= 56, r.stdout
 
 
 def _no_cuda():
@@ -111,6 +118,25 @@ def test_serve_driver_refuses_without_cuda():
         tserve.main(["--dataset", "kegg", "--scale", "0.05", "--n-queries", "100"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tserve.main(["--mode", "daemon", "--dataset", "kegg", "--scale", "0.05"])
+
+
+def test_dynamic_entry_points_refuse_without_cuda(tmp_path):
+    _no_cuda()
+    from repro_torch.dynamic import DurableDynamicOracle, DynamicOracle
+    from repro_torch.launch import chaos
+    from repro_torch.persist import load_epoch
+
+    g = tcsr.from_edges(4, [0, 1], [1, 2])
+    for call in (lambda: DynamicOracle(g),
+                 lambda: DurableDynamicOracle(g, state_dir=str(tmp_path / "s")),
+                 lambda: DurableDynamicOracle.recover(str(tmp_path / "s")),
+                 lambda: load_epoch(str(tmp_path / "e")),
+                 lambda: chaos.main([]),
+                 lambda: tserve.main(["--dataset", "kegg", "--scale", "0.05",
+                                      "--state-dir", str(tmp_path / "d")])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert DynamicOracle(g, device="cpu").query(0, 2)
 
 
 def test_serve_driver_runs_on_cpu(tmp_path):

@@ -12,9 +12,9 @@
     serve-test families gives the JAX engine's verdicts and degradation
     counters, whichever package wrote the snapshot.
 
-The counterparts of ``tests/test_persist.py``'s oracle and WAL tests (its
-``LabelEpoch`` test goes with the dynamic oracle, ROADMAP.md Queue 1 item 9:
-the port's ``save_epoch`` / ``load_epoch`` raise until then).
+The counterparts of ``tests/test_persist.py``'s oracle, WAL and
+``LabelEpoch`` tests, and the serve driver's ``--snapshot-dir`` and
+``--state-dir`` lifecycles.
 """
 import contextlib
 import os
@@ -26,6 +26,7 @@ import repro.core.api as japi
 import repro.ft.inject as jinject
 import repro.persist as jpersist
 from repro.build.engine import build_distribution_labels as jbuild
+from repro.graph.csr import from_edges as jfrom_edges
 from repro.graph.generators import random_dag as jrandom_dag
 import repro_torch.core.api as tapi
 import repro_torch.ft.inject as tinject
@@ -127,10 +128,56 @@ def test_wrong_kind_refused(oracles, pkg, tmp_path):
 
 
 def test_epoch_snapshots_wait_for_the_dynamic_oracle(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        tpersist.save_epoch(str(tmp_path / "epoch"), object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        tpersist.load_epoch(str(tmp_path / "epoch"))
+    """``LabelEpoch`` snapshots, ported with the dynamic oracle: an epoch
+    saved by either package loads in the other byte for byte (both write
+    the same bytes); a corrupt ``comp`` is fatal in both even when not
+    strict, a corrupt ``level`` disables the level prefilter in both."""
+    import repro.dynamic as jdyn
+    import repro_torch.dynamic as tdyn
+
+    rng = np.random.default_rng(3)
+    n = 60
+    src, dst = rng.integers(0, n, 170), rng.integers(0, n, 170)
+    dyns = {"repro": jdyn.DynamicOracle(jfrom_edges(n, src, dst)),
+            "repro_torch": tdyn.DynamicOracle(tcsr.from_edges(n, src, dst), device="cpu")}
+    for pkg, m in (("repro", jdyn), ("repro_torch", tdyn)):
+        dyns[pkg].apply(m.UpdateBatch.of(inserts=[(0, 59), (7, 3)]))
+        dyns[pkg].publish()
+    kw = {"repro": {}, "repro_torch": {"device": "cpu"}}
+    q = rng.integers(0, n, size=(400, 2)).astype(np.int32)
+    for writer, reader in WAYS:
+        ep = dyns[writer].snapshot()
+        p = PACKAGES[writer].save_epoch(str(tmp_path / f"{writer}_{reader}"), ep, row_block=16)
+        got = PACKAGES[reader].load_epoch(p, **kw[reader])
+        assert type(got).__module__ == f"{reader}.dynamic.versioned"
+        assert got.epoch == ep.epoch == 1
+        assert got.comp.tobytes() == ep.comp.tobytes()
+        assert got.level.tobytes() == ep.level.tobytes()
+        _same_oracle(ep.oracle, got.oracle, f"{writer} -> {reader}")
+        assert np.array_equal(got.query_batch(q), ep.query_batch(q, device=False))
+        p2 = PACKAGES[reader].save_epoch(str(tmp_path / f"again_{writer}"),
+                                         dyns[reader].snapshot(), row_block=16)
+        _same_dir(p, p2)
+    # corruption, read by both packages
+    for block in ("comp", "level"):
+        p = tpersist.save_epoch(str(tmp_path / block), dyns["repro_torch"].snapshot())
+        tinject.flip_bit(os.path.join(p, f"{block}.npy"), seed=5)
+        for pkg in PACKAGES:
+            if block == "comp":
+                with pytest.raises(PACKAGES[pkg].CorruptSnapshotError, match="comp"):
+                    PACKAGES[pkg].load_epoch(p, strict=False, **kw[pkg])
+            else:
+                with pytest.warns(UserWarning, match="level prefilter disabled"):
+                    ep, report = PACKAGES[pkg].load_epoch(p, strict=False, **kw[pkg])
+                assert ep.level is None and report.bad_blocks == ["level"]
+                want = dyns["repro_torch"].snapshot().query_batch(q, device=False)
+                assert np.array_equal(ep.query_batch(q, device=False), want)
+            with pytest.raises(PACKAGES[pkg].CorruptSnapshotError, match=block):
+                PACKAGES[pkg].load_epoch(p, **kw[pkg])
+    with pytest.raises(tpersist.CorruptSnapshotError, match="expected a LabelEpoch"):
+        tpersist.load_epoch(tpersist.save_oracle(str(tmp_path / "plain"),
+                                                 dyns["repro_torch"].snapshot().oracle),
+                            device="cpu")
 
 
 # --------------------------------------------------------------------- WAL
@@ -280,7 +327,9 @@ def test_oracle_from_snapshot_refuses_a_wrong_graph(snapshots, tmp_path):
 
 def test_serve_driver_cold_starts_from_its_snapshot(tmp_path, capsys):
     """``--snapshot-dir``: the first run builds and saves, the second
-    cold-starts with the same verdicts; ``--state-dir`` raises naming item 9."""
+    cold-starts with the same verdicts; ``--state-dir``: the first run starts
+    a durable oracle there, the second recovers it with the same verdicts,
+    and a state dir written by ``repro`` recovers too."""
     from repro_torch.launch import serve as tserve
 
     snap = str(tmp_path / "snap")
@@ -296,5 +345,29 @@ def test_serve_driver_cold_starts_from_its_snapshot(tmp_path, capsys):
     assert second["tier_widths"] == first["tier_widths"]
     for rec in second["backends"].values():
         assert rec["sample_errors"] == 0 and not any(rec["degradation"].values())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        tserve.main(argv + ["--state-dir", str(tmp_path / "state")])
+    state = str(tmp_path / "state")
+    argv = argv[:-2] + ["--state-dir", state]
+    third = tserve.main(argv)
+    assert f"durable oracle initialized at {state}" in capsys.readouterr().out
+    fourth = tserve.main(argv)
+    assert "recovered durable oracle from" in capsys.readouterr().out
+    assert fourth["lifecycle"]["epoch"] == 0
+    for rec in (third, fourth):
+        assert rec["label_ints"] == first["label_ints"]
+        for r in rec["backends"].values():
+            assert r["sample_errors"] == 0 and not any(r["degradation"].values())
+    # a state dir that repro's durable oracle wrote, with a published batch
+    # and an acknowledged tail
+    import repro.dynamic as jdyn
+    from repro.graph.generators import paper_dataset_analogue
+
+    jstate = str(tmp_path / "jstate")
+    dur = jdyn.DurableDynamicOracle(paper_dataset_analogue("kegg", scale=0.2),
+                                    state_dir=jstate)
+    dur.apply(jdyn.UpdateBatch.of(inserts=[(0, 5)]))
+    dur.publish()
+    dur.apply(jdyn.UpdateBatch.of(deletes=[(0, 5)]))
+    del dur
+    rec = tserve.main(argv[:-1] + [jstate])
+    assert "recovered durable oracle from" in capsys.readouterr().out
+    assert rec["lifecycle"]["epoch"] == 2 and rec["lifecycle"]["wal_records_replayed"] > 0

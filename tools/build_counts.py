@@ -14,9 +14,10 @@ differ; the JAX package runs wherever JAX is installed, the port anywhere.
 ``--method distribution`` (the default) runs ``build_distribution_labels(g,
 impl=...)`` for each ``--impl`` and prints the impl it resolved to,
 ``n_waves`` and the integer speculation counts (``build_stats
-["speculation"]`` without its ``*_seconds``): the counts ``chip_smoke.py``
-holds the port to at citeseer@1.0 (``SPEC_BOUNDARIES``, ``WAVE_BOUNDARIES``,
-``SPEC_COUNTS``).
+["speculation"]`` without its ``*_seconds``) and the sha256 of the five
+label fields (``L_out``, ``L_in``, ``out_len``, ``in_len``, ``hop_rank``):
+the counts ``chip_smoke.py`` holds the port to at citeseer@1.0 and @0.5
+(``SPEC_BOUNDARIES``, ``WAVE_BOUNDARIES``, ``SPEC_COUNTS``, ``DL_SHA256``).
 
 ``--method hierarchical`` runs ``hierarchical_labeling(g)`` and prints the
 level sizes of ``decompose``, the label matrices' shapes, the label ints
@@ -36,12 +37,19 @@ import time
 FIELDS = ("L_out", "L_in", "out_len", "in_len", "hop_rank")
 
 
+def labels_sha256(o) -> str:
+    """sha256 of a Distribution-Labeling oracle's five label fields, in
+    ``FIELDS`` order (``chip_smoke.py``'s ``DL_SHA256``)."""
+    return hashlib.sha256(b"".join(getattr(o, f).tobytes() for f in FIELDS)).hexdigest()
+
+
 def _counts(o) -> dict:
     s = o.build_stats
     spec = s.get("speculation")
     return {"impl": s["impl"], "n_waves": s["n_waves"],
             "speculation": None if spec is None else
-            {k: v for k, v in spec.items() if not k.endswith("_seconds")}}
+            {k: v for k, v in spec.items() if not k.endswith("_seconds")},
+            "sha256": labels_sha256(o)}
 
 
 def _hl_counts(o, level_sizes) -> dict:
