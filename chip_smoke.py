@@ -51,12 +51,11 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      on the citeseer analogue at ``FULL_RUN_DEVICE_BUILD_SCALE`` (0.5; 1.0
      with ``--only-device-build``), the launch counts read around exactly this
      build (``frontier_expand`` once a BFS level, ``frontier_or`` never); its
-     labels byte for byte against the reference build (``DL_SHA256`` at 0.5;
-     phase 4's oracle at 1.0; its own reference build with
-     ``--only-device-build``), queries served through ``serve_batch`` on it
-     with the reference's
-     verdicts (phase 4's at 1.0; at 0.5 the host merge of the labels the
-     sha256 holds) and every degradation counter 0; its build
+     labels byte for byte against the reference build (by ``DL_SHA256``
+     where the scale has one, else a reference build of its own), queries
+     served through ``serve_batch`` on it with the reference's verdicts (the
+     host merge of the labels the sha256 holds) and every degradation
+     counter 0; its build
      seconds, host reads a wave and cone rows a sweep; K2's slab form against its plain version on a real slab
      and frontier; launches a wave and the card's busy share over a
      profiled window of ``PROFILED_WAVES`` (100) waves;
@@ -106,11 +105,12 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      label copies); one more batch acknowledged in the WAL only, a crash,
      ``recover`` on the card with the never-crashed oracle's verdicts; the
      daemon over the recovered oracle through ``run_open_loop`` (400
-     arrivals/s of 64 queries for 2 s, one ``daemon.publish`` 1 s in,
-     stalled 0.2 s at its fault site): pinned batches > 0, each through
-     ``label_intersect``, every answer equal to the host merge of the epoch
-     that served it, the registry equal to the daemon's books.  Phases 4e-4h
-     run before 4d;
+     arrivals/s of 64 queries for 2 s, one ``daemon.publish`` 1 s in; with
+     ``--publish-stall S`` stalled S seconds more at its fault site): pinned
+     batches > 0, each through ``label_intersect``, every answer equal to
+     the host merge of the epoch that served it, the registry equal to the
+     daemon's books; the dispatches, the event loop's lag and the
+     collector's passes during the publish.  Phases 4e-4h run before 4d;
   4d. cold start and budget, on phase 4's oracle and traffic: the oracle
      saved (``persist.save_oracle``) and cold-started
      (``core.api.oracle_from_snapshot``), labels byte for byte and every
@@ -141,8 +141,8 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      second path on the card: its own launch counts, every degradation
      counter 0.
 
-``--only-device-build`` runs phases 1-3 and 4b alone, with 4b's own
-reference build, at ``--device-build-scale`` (default 1.0), and times
+``--only-device-build`` runs phases 1-3 and 4b alone, at
+``--device-build-scale`` (default 1.0), and times
 ``frontier_expand``; in the full script the flag sets phase 4b's scale.
 ``--only-kernels`` runs phases 1-3b alone; ``--only-dynamic`` phases 1-3,
 4 and 4h, and times K1's tier form.
@@ -153,6 +153,8 @@ exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import os
 import pathlib
@@ -204,11 +206,15 @@ SPEC_COUNTS = {"spec_waves": 9144, "spec_members": 401152, "clean_waves": 753,
                "exact_waves": 1398, "annotated_pairs": 51676, "violation_rate": 0.0837,
                "scalar_bailout": False}
 # the sha256 of the five label fields of citeseer's Distribution-Labeling
-# (tools/build_counts.py's labels_sha256), by scale: at 1.0 printed by
+# (tools/build_counts.py's labels_sha256), by scale.  At 1.0: the port's
+# ``reference`` build (the scalar one, a pruned BFS from each vertex, where
+# the speculative, wave and device engines these constants check batch the
+# same labeling each their own way), printed by
 # ``tools/build_counts.py --scale 1.0 --package repro_torch --impl reference``
-# on the card machine's host (equal to the port's auto and wave builds there),
-# at 0.5 by ``--scale 0.5 --package both`` (the two packages equal).  Phase 4
-# holds its auto build to it in place of a reference build of its own.
+# on an H100 machine's host, where JAX is absent (15.2 s there).  At 0.5:
+# ``--scale 0.5 --package both``, the two packages' reference and auto
+# builds equal.  Phase 4 holds its auto build to it in place of a reference
+# build of its own; 4b its device build, 4c its host engines.
 DL_SHA256 = {1.0: "7168b6766ec19b8c4e564c3a445567e3465a8cec40edcf7bdebb4ec6377d01f6",
              0.5: "21dbb15a4e65983ef94b29b3501f29ee79c0e1f4dbbcd2132637998ab021007c"}
 # phase 4c's host engines at citeseer@0.5, against phase 4b's reference build
@@ -1422,16 +1428,12 @@ class _LevelCapture:
         ops.FrontierExpand.__call__ = self.wrapped
 
 
-def phase_device_build(device, scale, ref_labels=None, queries=None, verdicts=None,
-                       own_reference=True) -> dict:
+def phase_device_build(device, scale) -> dict:
     """The device wave build of citeseer@``scale`` on the card, held byte for
-    byte against the reference build ``ref_labels`` (phase 4's oracle at full
-    size, whose labels phase 4 held to the reference build's sha256), else
-    against the reference build's sha256 ``DL_SHA256[scale]`` when
-    ``own_reference`` is false and the scale has one, else against a
-    reference build of its own; served through K1 with phase 4's verdicts
-    (else the reference oracle's, or the host merge of the sha-checked
-    labels).  Returns
+    byte against the reference build: by its sha256 ``DL_SHA256[scale]``
+    where the scale has one, else against a reference build of its own;
+    served through K1 with the reference's verdicts (the host merge of the
+    sha-checked labels, or the reference oracle's).  Returns
     {"launches": the build's kernel launches, "frontier_or_cases": K2 slab
     cases checked, "real_slab": a real slab and frontier for phase 5,
     "level": a real level's inputs from the middle of the schedule}."""
@@ -1449,16 +1451,14 @@ def phase_device_build(device, scale, ref_labels=None, queries=None, verdicts=No
     g = paper_dataset_analogue(MAIN_DATASET, scale=scale)
     rec = {"phase": "device_build", "dataset": MAIN_DATASET, "scale": scale,
            "n": g.n, "m": g.m}
-    by_sha = ref_labels is None and not own_reference and scale in DL_SHA256
-    if ref_labels is None and not by_sha:
+    queries = np.random.default_rng(0).integers(0, g.n, (64 * BATCH, 2)).astype(np.int32)
+    by_sha = scale in DL_SHA256
+    if not by_sha:
         t0 = time.perf_counter()
         ref_co = build_oracle(g, device=device, impl="reference")
         rec["reference_build_seconds"] = time.perf_counter() - t0
-        queries = np.random.default_rng(0).integers(0, g.n, (64 * BATCH, 2)).astype(np.int32)
         verdicts, _ = serve_all(ref_co, queries, None)
         ref_labels = ref_co.oracle
-        if scale in DL_SHA256:
-            check_sha256(ref_labels, scale, "phase 4b's reference build")
     t0 = time.perf_counter()
     dag, _ = condense_to_dag(g)
     order = get_order(dag, "degree_product")
@@ -1488,7 +1488,6 @@ def phase_device_build(device, scale, ref_labels=None, queries=None, verdicts=No
     check(level.args is not None, "no level of the middle sweeps was captured")
     if by_sha:
         check_sha256(co.oracle, scale, "the device build")
-        queries = np.random.default_rng(0).integers(0, g.n, (64 * BATCH, 2)).astype(np.int32)
         verdicts, _ = serve_all(co, queries, "host")
     else:
         check_labels(ref_labels, co.oracle, "the device build")
@@ -1651,9 +1650,9 @@ def phase_host_engines() -> None:
         f"{k['checkpoint_seconds_in_resume']} s); labels equal; phase {rec['seconds']:.3f} s")
 
 
-def _host_engines_child(out_path: str) -> None:
-    import contextlib
-
+def _host_engines_child(out_path: str, t0: float) -> None:
+    global _T0
+    _T0 = t0   # the parent's start: perf_counter is the machine's monotonic clock
     with open(out_path, "w") as f, contextlib.redirect_stdout(f):
         phase_host_engines()
 
@@ -1667,7 +1666,7 @@ def start_host_engines():
     fd, out_path = tempfile.mkstemp(prefix="chip_smoke_4c_", suffix=".log")
     os.close(fd)
     child = multiprocessing.get_context("spawn").Process(
-        target=_host_engines_child, args=(out_path,))
+        target=_host_engines_child, args=(out_path, _T0))
     child.start()
     return child, out_path
 
@@ -1983,11 +1982,29 @@ DYN_SEED = 0
 DYN_QUERIES = 4096   # a round's queries, on the current and on the pinned epoch
 DYN_TRUTH = 1024     # of them held against BFS truth of the mutated graph
 # the daemon over the recovered oracle: 400 arrivals/s of 64 queries for
-# 2 s, one publish 1 s in, stalled DYN_PUBLISH_STALL s at its fault site
-# (``dynamic.publish``, as the daemon tests stall it): the rest of a publish
-# is the host's Python and holds the interpreter lock, so without the stall
-# whether the loop dispatches during it depends on the host
-DYN_DAEMON_RATE, DYN_DAEMON_SECONDS, DYN_PUBLISH_AT, DYN_PUBLISH_STALL = 400.0, 2.0, 1.0, 0.2
+# 2 s, one publish 1 s in (``--publish-stall S`` stalls it S seconds more at
+# its fault site ``dynamic.publish``, as the daemon tests do; 0 by default)
+DYN_DAEMON_RATE, DYN_DAEMON_SECONDS, DYN_PUBLISH_AT = 400.0, 2.0, 1.0
+DYN_LAG_TICK = 0.002   # the event loop's heartbeat in the daemon run
+
+
+@contextlib.contextmanager
+def _gc_paused_then_frozen():
+    """The cyclic collector paused while a dynamic oracle is built or
+    recovered (hundreds of thousands of int sets and lists, where the
+    collector's passes over the growing heap cost more than the
+    allocations), and the heap moved to its permanent generation after
+    (``gc.freeze``), so a later collection, in whatever thread runs it (the
+    daemon's publish), scans only what is new.  ``gc.unfreeze`` gives the
+    heap back to the collector."""
+    was_enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        gc.freeze()
+        if was_enabled:
+            gc.enable()
 
 
 def _bfs_truth(adj, q: np.ndarray) -> np.ndarray:
@@ -2041,6 +2058,7 @@ class _EpochBook:
 
         self.dyn, self.engine, self.launches = dyn, dyn.engine, ops.LAUNCHES
         self.calls = []
+        self.publish_window = None   # (start, end) on the perf_counter clock
 
     @property
     def epoch(self) -> int:
@@ -2048,10 +2066,12 @@ class _EpochBook:
 
     def _book(self, epoch: int, rung: str, q, fn):
         before = dict(self.launches)
+        t0 = time.perf_counter()
         ans = fn()
         self.calls.append((epoch, rung, np.array(q, copy=True), ans.copy(),
                            {k: self.launches[k] - before[k]
-                            for k in ("serve_batch", "label_intersect")}))
+                            for k in ("serve_batch", "label_intersect")},
+                           t0, time.perf_counter()))
         return ans
 
     def serve(self, q, backend=None, deadline=None):
@@ -2069,13 +2089,19 @@ class _EpochBook:
         return _Pin()
 
     def apply(self, batch):
+        self._t_apply = time.perf_counter()
         return self.dyn.apply(batch)
 
     def publish(self) -> int:
-        return self.dyn.publish()
+        t0 = getattr(self, "_t_apply", time.perf_counter())
+        try:
+            return self.dyn.publish()
+        finally:
+            self.publish_window = (t0, time.perf_counter())
 
 
-def phase_dynamic(device, g, queries: np.ndarray, verdicts: np.ndarray) -> dict:
+def phase_dynamic(device, g, queries: np.ndarray, verdicts: np.ndarray,
+                  publish_stall: float = 0.0) -> dict:
     """The dynamic oracle at citeseer@1.0 on the card: a
     ``DurableDynamicOracle`` built on phase 4's graph (epoch 0 gives phase
     4's verdict on all of phase 4's traffic), ``DYN_ROUNDS`` rounds of
@@ -2087,12 +2113,13 @@ def phase_dynamic(device, g, queries: np.ndarray, verdicts: np.ndarray) -> dict:
     truth of the mutated graph; one more batch applied and never published,
     a crash, ``recover`` on the card with the never-crashed oracle's
     verdicts; the daemon over the recovered oracle through ``run_open_loop``
-    with one publish mid-run, every answer equal to the host merge of the
-    epoch that served it, the registry equal to the daemon's books.
+    with one publish mid-run (stalled ``publish_stall`` seconds at its fault
+    site if that is not 0), every answer equal to the host merge of the
+    epoch that served it, the registry equal to the daemon's books, and
+    what the event loop and the collector did during the publish.
     Returns the K1 launches of the phase and the pinned batches' residue
     sizes."""
     import asyncio
-    import gc
     import tempfile
 
     import torch
@@ -2128,7 +2155,8 @@ def phase_dynamic(device, g, queries: np.ndarray, verdicts: np.ndarray) -> dict:
         torch.cuda.synchronize()
         mem0 = torch.cuda.memory_allocated(device)
         t0 = time.perf_counter()
-        dur = DurableDynamicOracle(g, state_dir=tmp, device=device)
+        with _gc_paused_then_frozen():
+            dur = DurableDynamicOracle(g, state_dir=tmp, device=device)
         torch.cuda.synchronize()
         rec["construct_seconds"] = time.perf_counter() - t0
         eng = dur.engine
@@ -2240,17 +2268,26 @@ def phase_dynamic(device, g, queries: np.ndarray, verdicts: np.ndarray) -> dict:
         # the never-crashed oracle publishes the tail in memory (the crash
         # window between a publish and its snapshot); then the crash
         DynamicOracle.publish(dur)
+        # ---- the counted run: the never-crashed oracle's verdicts
+        ops.reset_launches()
         want = dur.serve(qc)
-        k1["serve_batch"] += 1
+        want_launches = dict(ops.LAUNCHES)
+        # ----
+        add(want_launches)
+        check(want_launches["serve_batch"] == 1 and want_launches["label_intersect"] == 0,
+              f"the never-crashed oracle launched {want_launches}")
         del dur, eng, snap
         # the crashed oracle is cyclic garbage (its engine holds its comp
-        # source): collect it here, so the recovery's time is the recovery's
+        # source): give the heap back to the collector and collect it here,
+        # so the recovery's time is the recovery's
         t0 = time.perf_counter()
+        gc.unfreeze()
         gc.collect()
         rec["crash_collect_seconds"] = time.perf_counter() - t0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        rec_dyn = DurableDynamicOracle.recover(tmp, device=device)
+        with _gc_paused_then_frozen():
+            rec_dyn = DurableDynamicOracle.recover(tmp, device=device)
         torch.cuda.synchronize()
         t_recover = time.perf_counter() - t0
         ops.reset_launches()
@@ -2264,6 +2301,7 @@ def phase_dynamic(device, g, queries: np.ndarray, verdicts: np.ndarray) -> dict:
               f"{int((got != want).sum())} of {qc.shape[0]} queries")
         rec["recovery"] = {"seconds": t_recover, "wal_records": rec_dyn.recovered_records,
                            "epoch": rec_dyn.epoch, "launches": launches,
+                           "never_crashed_launches": want_launches,
                            "verdicts_equal_never_crashed": True}
         log(f"dynamic: recovered epoch {rec_dyn.epoch} in {t_recover:.3f} s, "
             f"{rec_dyn.recovered_records} WAL records replayed")
@@ -2272,11 +2310,12 @@ def phase_dynamic(device, g, queries: np.ndarray, verdicts: np.ndarray) -> dict:
         book = _EpochBook(rec_dyn)
         pub_batch = batches[DYN_ROUNDS + 1]
 
-        held = {}
+        held = {"lag": []}
 
         class _PublishingDaemon(ServeDaemon):
             """run_open_loop's daemon, publishing ``pub_batch`` once,
-            ``DYN_PUBLISH_AT`` seconds after it starts; its drain awaits the
+            ``DYN_PUBLISH_AT`` seconds after it starts, with a heartbeat
+            that books how late the event loop wakes; its drain awaits the
             publish first."""
 
             async def start(self):
@@ -2287,16 +2326,30 @@ def phase_dynamic(device, g, queries: np.ndarray, verdicts: np.ndarray) -> dict:
                     await asyncio.sleep(DYN_PUBLISH_AT)
                     return await self.publish(pub_batch)
 
+                async def heartbeat():
+                    while True:
+                        t = time.perf_counter()
+                        await asyncio.sleep(DYN_LAG_TICK)
+                        held["lag"].append((t, time.perf_counter() - t - DYN_LAG_TICK))
+
                 self._pub = asyncio.ensure_future(later())
+                self._beat = asyncio.ensure_future(heartbeat())
 
             async def drain(self):
                 await self._pub
+                self._beat.cancel()
                 return await super().drain()
+
+        collections = []
+
+        def on_gc(phase, info):
+            collections.append((phase, info["generation"], time.perf_counter()))
 
         metrics.REGISTRY.reset()
         rec_dyn.engine.reset_stats()
         epoch_before = rec_dyn.epoch
         openloop.ServeDaemon = _PublishingDaemon
+        gc.callbacks.append(on_gc)
         # ---- the counted run
         ops.reset_launches()
         try:
@@ -2304,19 +2357,20 @@ def phase_dynamic(device, g, queries: np.ndarray, verdicts: np.ndarray) -> dict:
                 book, g, rate_arrivals_per_s=DYN_DAEMON_RATE, arrival_batch=64,
                 duration_s=DYN_DAEMON_SECONDS, deadline_ms=150.0,
                 config=DaemonConfig(deadline_ms=150.0), seed=1, n_truth=0,
-                fault_plan=inject.Injector(
-                    latency={"dynamic.publish": ([0], DYN_PUBLISH_STALL)}))
+                fault_plan=None if not publish_stall else inject.Injector(
+                    latency={"dynamic.publish": ([0], publish_stall)}))
         finally:
             openloop.ServeDaemon = ServeDaemon
+            gc.callbacks.remove(on_gc)
         launches = dict(ops.LAUNCHES)
         # ----
         add(launches)
         rungs = (DaemonConfig().max_batch // 64).bit_length()
         check(rec_dyn.epoch == epoch_before + 1, "the daemon's publish did not land")
-        check(rep["faults"]["stalled"] == ["dynamic.publish[0]"],
+        check(not publish_stall or rep["faults"]["stalled"] == ["dynamic.publish[0]"],
               f"the publish stall did not fire as planned: {rep['faults']}")
         by_rung = {}
-        for epoch, rung, q, ans, lc in book.calls:
+        for epoch, rung, q, ans, lc, _, _ in book.calls:
             want = rec_dyn.snapshot(epoch).query_batch(q, device=False)
             check(np.array_equal(ans, want),
                   f"daemon: a {rung} dispatch on epoch {epoch} differs from that epoch's "
@@ -2360,12 +2414,39 @@ def phase_dynamic(device, g, queries: np.ndarray, verdicts: np.ndarray) -> dict:
               f"{pinned['label_intersect']} pinned launches booked")
         check(not any(v for k, v in rep["degradation"].items() if k != "deadline_to_host"),
               f"daemon degradation {rep['degradation']}")
+        # what served and what held the event loop during the publish: each
+        # rung's dispatches that ended inside it, the longest dispatch, the
+        # loop's wake-up lag, the collector's passes
+        p0, p1 = book.publish_window
+        inside = [c for c in book.calls if p0 <= c[6] <= p1]
+        lag_in = [dt for t, dt in held["lag"] if p0 <= t <= p1]
+        lag_out = [dt for t, dt in held["lag"] if not p0 <= t <= p1]
+        starts = {}
+        gc_runs = []
+        for ph, gen, t in collections:
+            if ph == "start":
+                starts[gen] = t
+            elif gen in starts:
+                gc_runs.append((gen, starts.pop(gen), t))
+        during_publish = {
+            "seconds": p1 - p0,
+            "dispatches": {r: sum(1 for c in inside if c[1] == r)
+                           for r in sorted({c[1] for c in inside})},
+            "longest_dispatch_ms": 1e3 * max((c[6] - c[5] for c in inside), default=0.0),
+            "loop_lag_max_ms": 1e3 * max(lag_in, default=0.0),
+            "loop_lag_p50_ms": 1e3 * float(np.median(lag_in)) if lag_in else None,
+            "loop_lag_max_ms_outside": 1e3 * max(lag_out, default=0.0),
+            "gc_passes": {f"gen{k}": sum(1 for gn, a, b in gc_runs if gn == k and p0 <= a <= p1)
+                          for k in range(3)},
+            "gc_ms": 1e3 * sum(b - a for gn, a, b in gc_runs if p0 <= a <= p1),
+        }
         rec["daemon"] = {k: rep[k] for k in (
             "offered_qps", "sustained_qps", "n_arrivals", "submitted", "answered", "shed",
             "shed_rate", "p50_ms", "p99_ms", "p99_within_deadline", "batches",
             "device_batches", "degradation")}
         rec["daemon"].update({
-            "publish_at_s": DYN_PUBLISH_AT, "publish_stall_s": DYN_PUBLISH_STALL,
+            "publish_at_s": DYN_PUBLISH_AT, "publish_stall_s": publish_stall,
+            "during_publish": during_publish,
             "epochs": [epoch_before, rec_dyn.epoch],
             "pinned_epoch_batches": pinned["dispatches"],
             "by_rung": {k: {**v, "epochs": sorted(v["epochs"])} for k, v in by_rung.items()},
@@ -2373,8 +2454,13 @@ def phase_dynamic(device, g, queries: np.ndarray, verdicts: np.ndarray) -> dict:
             "registry_equals_books": True})
         log(f"dynamic daemon: {rep['answered']} of {rep['submitted']} answered, p50 "
             f"{rep['p50_ms']} ms p99 {rep['p99_ms']} ms, {pinned['dispatches']} pinned "
-            f"batches ({pinned['label_intersect']} label_intersect launches), shed {rep['shed']}")
+            f"batches ({pinned['label_intersect']} label_intersect launches), shed "
+            f"{rep['shed']}; during the {during_publish['seconds']:.3f} s publish (stall "
+            f"{publish_stall} s): dispatches {during_publish['dispatches']}, loop lag max "
+            f"{during_publish['loop_lag_max_ms']:.1f} ms, collector "
+            f"{during_publish['gc_passes']} {during_publish['gc_ms']:.1f} ms")
         del rec_dyn, book, held
+        gc.unfreeze()
     rec["launches"] = k1
     rec["seconds"] = time.perf_counter() - t_phase
     record(rec)
@@ -3111,11 +3197,14 @@ def main(argv=None) -> int:
                          f"{FULL_RUN_DEVICE_BUILD_SCALE} in the full script, "
                          f"{MAIN_SCALE} with --only-device-build")
     ap.add_argument("--only-device-build", action="store_true",
-                    help="run phases 1-3 and 4b only, with 4b's own reference build")
+                    help="run phases 1-3 and 4b only")
     ap.add_argument("--only-kernels", action="store_true",
                     help="run phases 1-3 and 3b (the kernel library) only")
     ap.add_argument("--only-dynamic", action="store_true",
                     help="run phases 1-3, 4 and 4h (the dynamic oracle) only")
+    ap.add_argument("--publish-stall", type=float, default=0.0, metavar="S",
+                    help="stall phase 4h's daemon publish S seconds more at its fault "
+                         "site dynamic.publish (default 0: the publish as it is)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -3153,19 +3242,15 @@ def run(args, host_engines) -> int:
         kernels = phase_kernel_library(device, cases)
     elif args.only_dynamic:
         g, co, queries, cq, rest, launches, verdicts = phase_main_path(device)
-        dyn = phase_dynamic(device, g, queries, verdicts)
+        dyn = phase_dynamic(device, g, queries, verdicts, args.publish_stall)
         kernels = phase_timing(co, cq[rest], {"main_path": launches["label_intersect"],
                                               "dynamic": dyn["launches"]["label_intersect"]},
                                cases, int(np.median(dyn["residues"])))
     else:
         library = phase_kernel_library(device, cases)
         g, co, queries, cq, rest, launches, verdicts = phase_main_path(device)
-        scale = args.device_build_scale or FULL_RUN_DEVICE_BUILD_SCALE
-        # phase 4's oracle is the reference at full size (its labels are the
-        # reference build's, by sha256); at 0.5 the sha256 stands in for it
-        built = phase_device_build(
-            device, scale, *((co.oracle, queries, verdicts) if scale == MAIN_SCALE else ()),
-            own_reference=False)
+        built = phase_device_build(device, args.device_build_scale
+                                   or FULL_RUN_DEVICE_BUILD_SCALE)
         finish_host_engines(host_engines)
         # the paths of this slice, each with its own counts: HL, the
         # quickstart, the daemon, the dynamic oracle; before 4d, whose
@@ -3175,7 +3260,7 @@ def run(args, host_engines) -> int:
                                                           verdicts)["serve_batch"],
                        "quickstart": phase_quickstart(device)["serve_batch"],
                        "daemon": phase_daemon(g, co)["serve_batch"]}
-        dyn = phase_dynamic(device, g, queries, verdicts)
+        dyn = phase_dynamic(device, g, queries, verdicts, args.publish_stall)
         k1_launches["dynamic"] = dyn["launches"]["serve_batch"]
         budgeted = phase_cold_start_and_budget(g, co, queries, verdicts)
         cases["frontier_or"] += built["frontier_or_cases"]

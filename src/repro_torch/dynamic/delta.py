@@ -29,9 +29,7 @@ updates touch one edge twice builds the ordered ``UpdateBatch`` itself.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-import gc
 import itertools
 from typing import Dict, Iterable, List, Set, Tuple
 
@@ -46,25 +44,6 @@ DAG_INSERT = "dag_insert"   # new condensation edge, still a DAG -> repairable
 DAG_DELETE = "dag_delete"   # condensation edge vanished            -> repairable
 MERGE = "merge"             # insertion closed a cycle              -> structural
 SPLIT = "split"             # deletion split an SCC                 -> structural
-
-
-@contextlib.contextmanager
-def gc_paused():
-    """Pause the cyclic garbage collector while a constructor allocates
-    hundreds of thousands of int sets and lists (none of them can form a
-    cycle): at citeseer@1.0 the collector's passes over the growing heap
-    cost more than the allocations themselves.  One full collection runs on
-    the way out, so the new objects reach the oldest generation here rather
-    than in passes that a later allocation would trigger in whatever thread
-    makes it (a serving daemon's, say)."""
-    was_enabled = gc.isenabled()
-    gc.disable()
-    try:
-        yield
-    finally:
-        if was_enabled:
-            gc.enable()
-            gc.collect()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,38 +97,37 @@ class CondensationState:
     """
 
     def __init__(self, g: CSRGraph):
-        with gc_paused():
-            self.n_orig = g.n
-            # python-int copies of the CSR and the comp map: the loops below are
-            # repro's, in its order, without a numpy scalar per element
-            ptr, idx = g.indptr.tolist(), g.indices.tolist()
-            self.out_adj: List[Set[int]] = [set(idx[ptr[v]:ptr[v + 1]])
-                                            for v in range(g.n)]
-            self.in_adj: List[Set[int]] = [set() for _ in range(g.n)]
-            for u in range(g.n):
-                for w in self.out_adj[u]:
-                    self.in_adj[w].add(u)
-            comp, k = tarjan_scc(g)
-            self.comp = comp.astype(np.int32).copy()
-            self.n_comp = int(k)
-            comp = self.comp.tolist()
-            self.members: List[List[int]] = [[] for _ in range(k)]
-            for v in range(g.n):
-                self.members[comp[v]].append(v)
-            self.dead: Set[int] = set()
-            self.edge_mult: Dict[Tuple[int, int], int] = {}
-            for u in range(g.n):
-                cu = comp[u]
-                for w in self.out_adj[u]:
-                    cw = comp[w]
-                    if cu != cw:
-                        key = (cu, cw)
-                        self.edge_mult[key] = self.edge_mult.get(key, 0) + 1
-            self.dag_out: List[Set[int]] = [set() for _ in range(k)]
-            self.dag_in: List[Set[int]] = [set() for _ in range(k)]
-            for (a, b) in self.edge_mult:
-                self.dag_out[a].add(b)
-                self.dag_in[b].add(a)
+        self.n_orig = g.n
+        # python-int copies of the CSR and the comp map: the loops below are
+        # repro's, in its order, without a numpy scalar per element
+        ptr, idx = g.indptr.tolist(), g.indices.tolist()
+        self.out_adj: List[Set[int]] = [set(idx[ptr[v]:ptr[v + 1]])
+                                        for v in range(g.n)]
+        self.in_adj: List[Set[int]] = [set() for _ in range(g.n)]
+        for u in range(g.n):
+            for w in self.out_adj[u]:
+                self.in_adj[w].add(u)
+        comp, k = tarjan_scc(g)
+        self.comp = comp.astype(np.int32).copy()
+        self.n_comp = int(k)
+        comp = self.comp.tolist()
+        self.members: List[List[int]] = [[] for _ in range(k)]
+        for v in range(g.n):
+            self.members[comp[v]].append(v)
+        self.dead: Set[int] = set()
+        self.edge_mult: Dict[Tuple[int, int], int] = {}
+        for u in range(g.n):
+            cu = comp[u]
+            for w in self.out_adj[u]:
+                cw = comp[w]
+                if cu != cw:
+                    key = (cu, cw)
+                    self.edge_mult[key] = self.edge_mult.get(key, 0) + 1
+        self.dag_out: List[Set[int]] = [set() for _ in range(k)]
+        self.dag_in: List[Set[int]] = [set() for _ in range(k)]
+        for (a, b) in self.edge_mult:
+            self.dag_out[a].add(b)
+            self.dag_in[b].add(a)
 
     # ------------------------------------------------------------ queries
 
@@ -179,14 +157,13 @@ class CondensationState:
         assignments depend on it), and the DAG edge multiplicities.
         ``in_adj``, ``dag_out``/``dag_in`` and ``dead`` are derived on load
         (dead ids are exactly the memberless ones)."""
-        from repro_torch.persist.blocks import pack_ragged
+        from repro_torch.persist.blocks import concat_rows, pack_ragged, row_lengths
 
         # repro's arrays, built in bulk: a vertex id per out-edge, each
         # vertex's targets sorted, and the multiplicities sorted by key
-        lens = np.fromiter(map(len, self.out_adj), dtype=np.int64, count=self.n_orig)
+        lens = row_lengths(self.out_adj)
         src = np.repeat(np.arange(self.n_orig, dtype=np.int64), lens)
-        dst = np.fromiter(itertools.chain.from_iterable(map(sorted, self.out_adj)),
-                          dtype=np.int64, count=int(lens.sum()))
+        dst = concat_rows(self.out_adj, np.int64, sorted)
         mem_vals, mem_offs = pack_ragged(self.members, dtype=np.int64)
         if self.edge_mult:
             em = np.fromiter(
@@ -207,28 +184,27 @@ class CondensationState:
         """Rebuild the exact state saved by ``to_arrays`` — no Tarjan run
         (a fresh SCC pass could assign different comp ids than the
         incrementally maintained ones the saved labels are written in)."""
-        with gc_paused():
-            self = object.__new__(cls)
-            self.n_orig = int(meta["n_orig"])
-            self.out_adj = [set() for _ in range(self.n_orig)]
-            self.in_adj = [set() for _ in range(self.n_orig)]
-            for u, w in zip(arrays["edges_src"].tolist(), arrays["edges_dst"].tolist()):
-                self.out_adj[u].add(w)
-                self.in_adj[w].add(u)
-            self.comp = np.asarray(arrays["comp"], dtype=np.int32).copy()
-            self.n_comp = int(meta["n_comp"])
-            from repro_torch.persist.blocks import unpack_ragged
+        self = object.__new__(cls)
+        self.n_orig = int(meta["n_orig"])
+        self.out_adj = [set() for _ in range(self.n_orig)]
+        self.in_adj = [set() for _ in range(self.n_orig)]
+        for u, w in zip(arrays["edges_src"].tolist(), arrays["edges_dst"].tolist()):
+            self.out_adj[u].add(w)
+            self.in_adj[w].add(u)
+        self.comp = np.asarray(arrays["comp"], dtype=np.int32).copy()
+        self.n_comp = int(meta["n_comp"])
+        from repro_torch.persist.blocks import unpack_ragged
 
-            self.members = unpack_ragged(arrays["members_vals"], arrays["members_offs"])
-            self.dead = {c for c in range(self.n_comp) if not self.members[c]}
-            self.edge_mult = {
-                (a, b): c for a, b, c in np.asarray(arrays["edge_mult"]).tolist()}
-            self.dag_out = [set() for _ in range(self.n_comp)]
-            self.dag_in = [set() for _ in range(self.n_comp)]
-            for (a, b) in self.edge_mult:
-                self.dag_out[a].add(b)
-                self.dag_in[b].add(a)
-            return self
+        self.members = unpack_ragged(arrays["members_vals"], arrays["members_offs"])
+        self.dead = {c for c in range(self.n_comp) if not self.members[c]}
+        self.edge_mult = {
+            (a, b): c for a, b, c in np.asarray(arrays["edge_mult"]).tolist()}
+        self.dag_out = [set() for _ in range(self.n_comp)]
+        self.dag_in = [set() for _ in range(self.n_comp)]
+        for (a, b) in self.edge_mult:
+            self.dag_out[a].add(b)
+            self.dag_in[b].add(a)
+        return self
 
     def _dag_reaches(self, a: int, b: int) -> bool:
         """BFS a ->* b over the condensation (scoped cycle probe)."""

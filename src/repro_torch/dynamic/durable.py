@@ -38,7 +38,7 @@ import numpy as np
 
 from repro_torch.core.oracle import ReachabilityOracle
 from repro_torch.device import resolve_device
-from repro_torch.dynamic.delta import CondensationState, EdgeUpdate, UpdateBatch, gc_paused
+from repro_torch.dynamic.delta import CondensationState, EdgeUpdate, UpdateBatch
 from repro_torch.dynamic.repair import MutableLabels
 from repro_torch.dynamic.versioned import DynamicOracle
 from repro_torch.graph.csr import CSRGraph
@@ -149,50 +149,48 @@ class DurableDynamicOracle(DynamicOracle):
                 f"no verifiable snapshot in {state_dir} "
                 f"(found {len(names)}, all corrupt or none present)")
 
-        # one collection at the end of the restore (delta.gc_paused)
-        with gc_paused():
-            self = object.__new__(cls)
-            self.state_dir = state_dir
-            self.snapshot_keep = 2
-            self._replaying = False
-            self.staleness_budget = float(staleness_budget)
-            self.max_cone_frac = float(max_cone_frac)
-            self.keep_epochs = int(keep_epochs)
-            self.build_impl = build_impl
-            self.device = device
-            self.delta = CondensationState.from_arrays(
-                {k[len("delta_"):]: v for k, v in arrays.items()
-                 if k.startswith("delta_")},
-                meta["delta"])
-            oracle = ReachabilityOracle(
-                L_out=np.ascontiguousarray(arrays["L_out"], dtype=np.int32),
-                L_in=np.ascontiguousarray(arrays["L_in"], dtype=np.int32),
-                out_len=np.ascontiguousarray(arrays["out_len"], dtype=np.int32),
-                in_len=np.ascontiguousarray(arrays["in_len"], dtype=np.int32),
-                hop_rank=np.ascontiguousarray(arrays["hop_rank"], dtype=np.int32),
-            )
-            # no rebuild: the snapshot was taken at a publish boundary, where the
-            # working rows equal the published oracle's rows exactly
-            self.hop_rank = oracle.hop_rank
-            self.inv_rank = np.argsort(self.hop_rank).astype(np.int32)
-            self.labels = MutableLabels.from_oracle(oracle)
-            self.level = np.ascontiguousarray(arrays["level"], dtype=np.int32)
-            self._base_oracle = oracle
-            self._rebuild_pending = False  # publish boundaries never carry one
-            self._churn = int(meta["churn"])
-            self.rebuild_count = int(meta["rebuild_count"])
-            self.repair_count = int(meta["repair_count"])
-            self.growth_log: List[dict] = []
-            self._last_ints = int(meta["last_ints"])
-            self._epochs = OrderedDict()
-            self._epoch = int(meta["epoch"])
-            self._install_epoch(oracle)
-            self.engine = QueryEngine(
-                oracle, backend=backend, bucketing=bucketing,
-                level=self.level, comp_source=self._current_comp,
-                epoch=self._epoch, fallback_graph=self.delta.dag_csr(),
-                device=device,
-            )
+        self = object.__new__(cls)
+        self.state_dir = state_dir
+        self.snapshot_keep = 2
+        self._replaying = False
+        self.staleness_budget = float(staleness_budget)
+        self.max_cone_frac = float(max_cone_frac)
+        self.keep_epochs = int(keep_epochs)
+        self.build_impl = build_impl
+        self.device = device
+        self.delta = CondensationState.from_arrays(
+            {k[len("delta_"):]: v for k, v in arrays.items()
+             if k.startswith("delta_")},
+            meta["delta"])
+        oracle = ReachabilityOracle(
+            L_out=np.ascontiguousarray(arrays["L_out"], dtype=np.int32),
+            L_in=np.ascontiguousarray(arrays["L_in"], dtype=np.int32),
+            out_len=np.ascontiguousarray(arrays["out_len"], dtype=np.int32),
+            in_len=np.ascontiguousarray(arrays["in_len"], dtype=np.int32),
+            hop_rank=np.ascontiguousarray(arrays["hop_rank"], dtype=np.int32),
+        )
+        # no rebuild: the snapshot was taken at a publish boundary, where the
+        # working rows equal the published oracle's rows exactly
+        self.hop_rank = oracle.hop_rank
+        self.inv_rank = np.argsort(self.hop_rank).astype(np.int32)
+        self.labels = MutableLabels.from_oracle(oracle)
+        self.level = np.ascontiguousarray(arrays["level"], dtype=np.int32)
+        self._base_oracle = oracle
+        self._rebuild_pending = False  # publish boundaries never carry one
+        self._churn = int(meta["churn"])
+        self.rebuild_count = int(meta["rebuild_count"])
+        self.repair_count = int(meta["repair_count"])
+        self.growth_log: List[dict] = []
+        self._last_ints = int(meta["last_ints"])
+        self._epochs = OrderedDict()
+        self._epoch = int(meta["epoch"])
+        self._install_epoch(oracle)
+        self.engine = QueryEngine(
+            oracle, backend=backend, bucketing=bucketing,
+            level=self.level, comp_source=self._current_comp,
+            epoch=self._epoch, fallback_graph=self.delta.dag_csr(),
+            device=device,
+        )
 
         self.wal = WriteAheadLog(os.path.join(state_dir, _WAL_NAME))
         tail = self.wal.replay(after_seq=int(meta["wal_seq"]))

@@ -49,7 +49,6 @@ from typing import Dict, List, Set
 import numpy as np
 
 from repro_torch.build.engine import cone_resume_sweep
-from repro_torch.dynamic.delta import gc_paused
 
 
 class MutableLabels:
@@ -90,8 +89,7 @@ class MutableLabels:
             flat = iter(L[np.arange(L.shape[1])[None, :] < lens[:, None]].tolist())
             return [list(itertools.islice(flat, k)) for k in lens.tolist()]
 
-        with gc_paused():
-            return cls(rows(oracle.L_out, oracle.out_len), rows(oracle.L_in, oracle.in_len))
+        return cls(rows(oracle.L_out, oracle.out_len), rows(oracle.L_in, oracle.in_len))
 
     # ------------------------------------------------------------- reads
 

@@ -177,34 +177,32 @@ class DynamicOracle:
                 "the sharded serve backends (mesh=) are not ported yet: "
                 "ROADMAP.md Queue 1 item 11 (multi-device modes)")
         self.device = resolve_device(device)
-        # one collection at the end of the construction (delta.gc_paused)
-        with delta_mod.gc_paused():
-            self.delta = CondensationState(g)
-            self.staleness_budget = float(staleness_budget)
-            self.max_cone_frac = float(max_cone_frac)
-            self.keep_epochs = int(keep_epochs)
-            self.build_impl = build_impl
-            self._rebuild_pending = False
-            self._churn = 0
-            self.rebuild_count = 0
-            self.repair_count = 0
-            # per-publish label-ints trajectory (rank-drift observability)
-            self.growth_log: List[dict] = []
-            self._last_ints = 0
-            self._rebuild_labels()
-            self._last_ints = self.labels.label_ints()
-            self._epochs: "OrderedDict[int, LabelEpoch]" = OrderedDict()
-            self._epoch = 0
-            self.engine = QueryEngine(
-                self._snapshot_oracle(), backend=backend,
-                bucketing=bucketing, level=self.level,
-                comp_source=self._current_comp, epoch=0,
-                # frozen materialization of the initial condensation DAG: the
-                # degradation ladder's search rung must answer against the
-                # SERVED epoch's graph, never the live mutating delta
-                fallback_graph=self.delta.dag_csr(), device=self.device,
-            )
-            self._install_epoch(self._snapshot_oracle())
+        self.delta = CondensationState(g)
+        self.staleness_budget = float(staleness_budget)
+        self.max_cone_frac = float(max_cone_frac)
+        self.keep_epochs = int(keep_epochs)
+        self.build_impl = build_impl
+        self._rebuild_pending = False
+        self._churn = 0
+        self.rebuild_count = 0
+        self.repair_count = 0
+        # per-publish label-ints trajectory (rank-drift observability)
+        self.growth_log: List[dict] = []
+        self._last_ints = 0
+        self._rebuild_labels()
+        self._last_ints = self.labels.label_ints()
+        self._epochs: "OrderedDict[int, LabelEpoch]" = OrderedDict()
+        self._epoch = 0
+        self.engine = QueryEngine(
+            self._snapshot_oracle(), backend=backend,
+            bucketing=bucketing, level=self.level,
+            comp_source=self._current_comp, epoch=0,
+            # frozen materialization of the initial condensation DAG: the
+            # degradation ladder's search rung must answer against the
+            # SERVED epoch's graph, never the live mutating delta
+            fallback_graph=self.delta.dag_csr(), device=self.device,
+        )
+        self._install_epoch(self._snapshot_oracle())
 
     # ----------------------------------------------------------- internals
 

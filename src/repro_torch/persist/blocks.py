@@ -160,16 +160,39 @@ def snapshot_meta(path: str) -> dict:
 
 # ---------------------------------------------------------------- ragged
 
+# rows that one C-level pass over python rows takes at a time: a pass holds
+# the interpreter lock throughout, and a dynamic oracle's publish packs its
+# state in a worker thread while the serving thread waits for that lock
+ROWS_PER_PASS = 1 << 14
+
+
+def row_lengths(rows: Sequence[Sequence[int]]) -> np.ndarray:
+    """``len`` of every row, int64, a pass of ``ROWS_PER_PASS`` rows at a time."""
+    parts = [np.fromiter(map(len, rows[i:i + ROWS_PER_PASS]), dtype=np.int64)
+             for i in range(0, len(rows), ROWS_PER_PASS)]
+    return np.concatenate(parts) if parts else np.empty(0, dtype=np.int64)
+
+
+def concat_rows(rows: Sequence[Iterable[int]], dtype, fn=None) -> np.ndarray:
+    """The rows' values (each row mapped through ``fn`` first, if given) end
+    to end, a pass of ``ROWS_PER_PASS`` rows at a time."""
+    parts = []
+    for i in range(0, len(rows), ROWS_PER_PASS):
+        part = rows[i:i + ROWS_PER_PASS]
+        if fn is not None:
+            part = map(fn, part)
+        parts.append(np.fromiter(itertools.chain.from_iterable(part), dtype=dtype))
+    return np.concatenate(parts) if parts else np.empty(0, dtype=dtype)
+
+
 def pack_ragged(rows: Sequence[Sequence[int]], dtype=np.int32) -> Tuple[np.ndarray, np.ndarray]:
     """Python list-of-lists -> (values, offsets int64[k+1]) block pair.
 
-    The arrays of ``repro.persist.blocks.pack_ragged``, built in one pass
-    over the rows (the dynamic oracle packs ~700k member lists a snapshot)."""
+    The arrays of ``repro.persist.blocks.pack_ragged``, built in passes over
+    the rows (the dynamic oracle packs ~700k member lists a snapshot)."""
     offsets = np.zeros(len(rows) + 1, dtype=np.int64)
-    np.cumsum(np.fromiter(map(len, rows), dtype=np.int64, count=len(rows)), out=offsets[1:])
-    values = np.fromiter(itertools.chain.from_iterable(rows), dtype=dtype,
-                         count=int(offsets[-1]))
-    return values, offsets
+    np.cumsum(row_lengths(rows), out=offsets[1:])
+    return concat_rows(rows, dtype), offsets
 
 
 def unpack_ragged(values: np.ndarray, offsets: np.ndarray) -> List[list]:

@@ -581,3 +581,52 @@ def test_durable_files_are_byte_equal(tmp_path):
         for f in files:
             pa, pb = (a, b) if f is None else (a / f, b / f)
             assert pa.read_bytes() == pb.read_bytes(), (name, f)
+
+
+@pytest.mark.parametrize("rows_per_pass", [1, 5, 1 << 14])
+def test_snapshot_arrays_in_passes_equal_repro(rows_per_pass, monkeypatch):
+    """``CondensationState.to_arrays`` takes its rows in passes of
+    ``persist.blocks.ROWS_PER_PASS`` (so a publish does not hold the
+    interpreter lock for a whole pass over the graph); the arrays equal
+    ``repro``'s byte for byte at any pass size, merges and splits included."""
+    import repro_torch.persist.blocks as tblocks
+
+    monkeypatch.setattr(tblocks, "ROWS_PER_PASS", rows_per_pass)
+    for family in ("random_dag", "cyclic"):
+        g, tg, rng = _family(family, seed=5)
+        batches = _mode_batches("mixed", g, rng, k=2, per=8)
+        states = {"repro": jdelta.CondensationState(g),
+                  "repro_torch": tdyn.CondensationState(tg)}
+        for ups in batches:
+            for pkg, st in states.items():
+                st.apply(_batch(pkg, ups))
+            (ja, jm), (ta, tm) = (states[p].to_arrays() for p in ("repro", "repro_torch"))
+            assert jm == tm and sorted(ja) == sorted(ta)
+            for k in ja:
+                assert ja[k].dtype == ta[k].dtype and ja[k].shape == ta[k].shape, (family, k)
+                assert ja[k].tobytes() == ta[k].tobytes(), (family, k)
+
+
+def test_publish_lock_probe_tool_runs(capsys, monkeypatch):
+    """``tools/publish_lock_probe.py`` (where a publish holds the interpreter
+    lock) runs on the CPU at a cut scale: one line a publish and a summary."""
+    import importlib.util
+    import json
+    import pathlib
+
+    import repro_torch.persist.blocks as tblocks
+
+    # the tool sets the pass size for its process; put it back afterwards
+    monkeypatch.setattr(tblocks, "ROWS_PER_PASS", tblocks.ROWS_PER_PASS)
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools" / "publish_lock_probe.py"
+    spec = importlib.util.spec_from_file_location("publish_lock_probe", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    assert tool.main(["--scale", "0.01", "--device", "cpu", "--rounds", "2",
+                      "--updates", "20", "--rows-per-pass", "0"]) == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [x.get("round") for x in lines[:2]] == [0, 1] and lines[-1]["summary"]
+    assert lines[0]["rows_per_pass"] == "all" and lines[0]["n"] > 0
+    for x in lines[:2]:
+        assert x["seconds"] > 0 and set(x["gc_passes"]) == {"gen0", "gen1", "gen2"}
+        assert len(x["longest"]) <= 5 and x["gaps_over"] >= len(x["longest"])

@@ -371,3 +371,24 @@ def test_serve_driver_cold_starts_from_its_snapshot(tmp_path, capsys):
     rec = tserve.main(argv[:-1] + [jstate])
     assert "recovered durable oracle from" in capsys.readouterr().out
     assert rec["lifecycle"]["epoch"] == 2 and rec["lifecycle"]["wal_records_replayed"] > 0
+
+
+@pytest.mark.parametrize("rows_per_pass", [1, 4, 1 << 14])
+def test_pack_ragged_in_passes_equals_repro(rows_per_pass, monkeypatch):
+    """``pack_ragged`` packs its rows ``ROWS_PER_PASS`` at a time: the blocks
+    equal ``repro``'s byte for byte at any pass size, empty rows, no rows
+    and all-empty rows included, and ``unpack_ragged`` gives the rows back."""
+    import repro_torch.persist.blocks as tblocks
+
+    monkeypatch.setattr(tblocks, "ROWS_PER_PASS", rows_per_pass)
+    rng = np.random.default_rng(11)
+    cases = [[rng.integers(-5, 1000, int(k)).tolist() for k in rng.integers(0, 6, 37)],
+             [], [[], [], []], [[7]]]
+    for rows in cases:
+        for dtype in (np.int32, np.int64):
+            jv, jo = jpersist.pack_ragged(rows, dtype=dtype)
+            tv, to = tpersist.pack_ragged(rows, dtype=dtype)
+            assert (jv.dtype, jo.dtype, jv.shape, jo.shape) == (tv.dtype, to.dtype, tv.shape,
+                                                                to.shape)
+            assert jv.tobytes() == tv.tobytes() and jo.tobytes() == to.tobytes()
+            assert tpersist.unpack_ragged(tv, to) == rows
