@@ -211,14 +211,14 @@ SPEC_COUNTS = {"spec_waves": 9144, "spec_members": 401152, "clean_waves": 753,
 # the speculative, wave and device engines these constants check batch the
 # same labeling each their own way), printed by
 # ``tools/build_counts.py --scale 1.0 --package repro_torch --impl reference``
-# on an H100 machine's host, where JAX is absent (15.2 s there).  At 0.5:
+# on an H100 machine's host, where JAX is absent (15.2-17.0 s there).  At 0.5:
 # ``--scale 0.5 --package both``, the two packages' reference and auto
 # builds equal.  Phase 4 holds its auto build to it in place of a reference
 # build of its own; 4b its device build, 4c its host engines.
 DL_SHA256 = {1.0: "7168b6766ec19b8c4e564c3a445567e3465a8cec40edcf7bdebb4ec6377d01f6",
              0.5: "21dbb15a4e65983ef94b29b3501f29ee79c0e1f4dbbcd2132637998ab021007c"}
-# phase 4c's host engines at citeseer@0.5, against phase 4b's reference build
-# there (``tools/build_counts.py --scale 0.5 --package both``: both packages
+# phase 4c's host engines at citeseer@0.5, held to DL_SHA256[0.5]
+# (``tools/build_counts.py --scale 0.5 --package both``: both packages
 # give these counts and equal labels): auto -> speculative with these
 # boundaries and counts, the exact wave schedule with HALF_WAVE_BOUNDARIES
 HOST_ENGINES_SCALE = 0.5
