@@ -10,8 +10,10 @@ is git-ignored):
 (``-Xptxas -v`` puts each kernel's registers and spills into the log that
 ``build`` returns.)
 
-The hash covers the source and the flags, so an edited kernel rebuilds and
-an unchanged one loads from the previous build.  Nothing here runs at
+The hash covers the source, every ``csrc/*.cuh`` header and the flags, so
+an edited kernel or header rebuilds and an unchanged one loads from the
+previous build (an edited header rebuilds also the kernels that do not
+include it).  Nothing here runs at
 import time: the CPU tests import every module on a box without ``nvcc``.
 """
 from __future__ import annotations
@@ -96,9 +98,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{key}.so"
+    digest = hashlib.sha256()
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> dict:

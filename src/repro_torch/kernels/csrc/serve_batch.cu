@@ -50,10 +50,12 @@
 //      each lane holding four consecutive entries of the L_out row, so a 16-wide row
 //      is one load per lane; the L_in row's vectors are shared across the group by
 //      shuffles and the verdict is taken by a group vote.  4,096 queries make 16,384
-//      threads, 128 blocks, which spreads over 128 of the 132 SMs (the tier form ran
-//      a thread per query: 32 blocks).  Rows wider than a group's 16 entries loop.
-//      Rows whose widths are not a multiple of 4 (or an unaligned base) take the same
-//      loop with one entry a lane (VEC = 1).
+//      threads, 128 blocks, which spreads over 128 of the 132 SMs (a thread per query
+//      would make 32 blocks).  Rows wider than a group's 16 entries loop.  Rows whose
+//      widths are not a multiple of 4 (or an unaligned base) take the same loop with
+//      one entry a lane (VEC = 1).  The loop and its loads (load_or_invalid, cut,
+//      intersect) live in label_rows.cuh, which the tier form label_intersect.cu
+//      shares.
 //   3. Early exit at the first shared value, checked after each step of the loop.
 //      The compare stays all-pairs: no sorted merge, so the verdict equals the tier
 //      form on any rows, sorted or not.
@@ -66,10 +68,10 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "label_rows.cuh"
+
 namespace {
 
-constexpr int32_t kInvalid = -1;
-constexpr int kGroup = 4;       // lanes per query
 constexpr int kThreads = 128;   // 32 queries a block
 constexpr int kMaxTiers = 16;   // the planner makes at most 3
 constexpr uint8_t kUncertain = 0x80;   // 2 * fate + verdict stays below it
@@ -95,83 +97,6 @@ struct Args {
   int32_t* flag;
   Tiers tiers;
 };
-
-// VEC entries of a row from column `col`, or INVALID where col >= limit.  The caller
-// keeps col a multiple of VEC and limit <= the row's width, and for VEC = 4 the
-// width a multiple of 4, so a load never leaves the row.
-template <int VEC>
-__device__ __forceinline__ void load_or_invalid(const int32_t* row, int32_t col,
-                                                int32_t limit, int32_t (&x)[VEC]) {
-  if (col >= limit) {
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) x[k] = kInvalid;
-    return;
-  }
-  if constexpr (VEC == 4) {
-    const int4 t = __ldg(reinterpret_cast<const int4*>(row + col));
-    x[0] = t.x; x[1] = t.y; x[2] = t.z; x[3] = t.w;
-  } else {
-    x[0] = __ldg(row + col);
-  }
-}
-
-// entries at column `col` + k >= len become INVALID
-template <int VEC>
-__device__ __forceinline__ void cut(int32_t col, int32_t len, int32_t (&x)[VEC]) {
-#pragma unroll
-  for (int k = 0; k < VEC; ++k)
-    if (col + k >= len) x[k] = kInvalid;
-}
-
-// Does L_out row `ra` cut to la share a valid value with L_in row `rb` cut to lb?
-// All kGroup lanes of the query call it with the same la and lb.  x0 and y0 are the
-// lane's first vectors of the two rows, loaded before the prefilter, already cut.
-template <int VEC>
-__device__ bool intersect(const int32_t* ra, int32_t la, const int32_t* rb, int32_t lb,
-                          const int32_t (&x0)[VEC], const int32_t (&y0)[VEC], int lane,
-                          unsigned gmask) {
-  constexpr int kSpan = kGroup * VEC;   // columns a group covers in one step
-  int32_t x[VEC];
-  for (int32_t ca = 0; ca < la; ca += kSpan) {
-    const int32_t xa = ca + lane * VEC;
-    if (ca == 0) {
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) x[k] = x0[k];
-    } else {
-      load_or_invalid<VEC>(ra, xa, la, x);
-      cut<VEC>(xa, la, x);
-    }
-    for (int32_t cb = 0; cb < lb; cb += kSpan) {
-      int32_t y[VEC];
-      const int32_t yb = cb + lane * VEC;
-      if (cb == 0) {
-#pragma unroll
-        for (int k = 0; k < VEC; ++k) y[k] = y0[k];
-      } else {
-        load_or_invalid<VEC>(rb, yb, lb, y);
-        cut<VEC>(yb, lb, y);
-      }
-      bool hit = false;
-      // each lane's L_out entries against the group's whole L_in chunk: lane j's
-      // vector, broadcast by shuffle; vectors past lb are skipped (uniform in the group)
-#pragma unroll
-      for (int j = 0; j < kGroup; ++j) {
-        if (cb + j * VEC >= lb) break;
-        int32_t b[VEC];
-#pragma unroll
-        for (int k = 0; k < VEC; ++k) b[k] = __shfl_sync(gmask, y[k], j, kGroup);
-#pragma unroll
-        for (int p = 0; p < VEC; ++p) {
-          if (x[p] == kInvalid) continue;
-#pragma unroll
-          for (int k = 0; k < VEC; ++k) hit |= x[p] == b[k];
-        }
-      }
-      if (__any_sync(gmask, hit)) return true;
-    }
-  }
-  return false;
-}
 
 template <int VEC>
 __global__ void __launch_bounds__(kThreads) serve_batch_kernel(const Args a) {

@@ -31,6 +31,7 @@ from serve_batch_cases import CASES as SERVE_CASES
 from serve_batch_cases import MASKS as SERVE_MASKS
 from serve_batch_cases import make_case as make_serve_case
 from serve_batch_cases import numpy_codes as numpy_serve_codes
+import tier_slab_cases as tsc
 from repro_torch.core.api import build_oracle
 from repro_torch.graph.generators import paper_dataset_analogue
 from repro_torch.kernels import ops, ref
@@ -84,6 +85,48 @@ def test_label_intersect_kernel_matches_plain(cuda, rng, B, La, Lb):
     assert torch.equal(got, ref.label_intersect_ref(a, b))
     pad = torch.full((16, 8), -1, dtype=torch.int32, device=cuda)
     assert not ops.tier_intersect(pad, pad, ident(16).contiguous(), 8).any()
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("layout", tsc.TIER_LAYOUTS)
+@pytest.mark.parametrize("Lo,Li", tsc.TIER_SHAPES)
+def test_tier_intersect_kernel_edges(cuda, rng, Lo, Li, layout, aligned):
+    """The one-entry-a-lane loop (widths not a multiple of 4, a base 4 bytes
+    into its buffer) beside the 16-byte one, INVALID before valid values, a
+    width above both matrices, B off every block size; unaligned, the
+    queries also start 4 bytes into their buffer (the two-word id read)."""
+    n = tsc.TIER_N
+    L_out = torch.from_numpy(tsc.tier_rows(rng, n, Lo, layout)).to(cuda)
+    L_in = torch.from_numpy(tsc.tier_rows(rng, n, Li, layout)).to(cuda)
+    if not aligned:
+        L_out, L_in = tsc.unaligned(L_out), tsc.unaligned(L_in)
+        assert L_out.data_ptr() % 16 and L_out.is_contiguous()
+    for B in tsc.TIER_BATCHES:
+        q = torch.from_numpy(tsc.tier_queries(rng, n, B)).to(cuda)
+        if not aligned:
+            q = tsc.unaligned(q)
+            assert q.data_ptr() % 8 and q.is_contiguous()
+        for width in tsc.TIER_WIDTHS:
+            before = ops.LAUNCHES["label_intersect"]
+            got = ops.tier_intersect(L_out, L_in, q, width)
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES["label_intersect"] == before + 1
+            assert torch.equal(got, ref.tier_intersect_ref(L_out, L_in, q, width)), (B, width)
+
+
+@pytest.mark.parametrize("Lo,Li", tsc.TIER_SHAPES)
+def test_tier_intersect_kernel_bad_ids_answer_false(cuda, rng, Lo, Li):
+    """Ids -1, n and 2**31 - 1 read no memory and answer false; the other
+    queries of the batch are answered as the plain version answers them."""
+    n = tsc.TIER_N
+    L_out = torch.from_numpy(tsc.tier_rows(rng, n, Lo, "holes")).to(cuda)
+    L_in = torch.from_numpy(tsc.tier_rows(rng, n, Li, "holes")).to(cuda)
+    q, bad = tsc.bad_id_queries(rng, n, 4099)
+    got = ops.tier_intersect(L_out, L_in, torch.from_numpy(q).to(cuda), 16)
+    torch.cuda.synchronize()
+    exp = ref.tier_intersect_ref(L_out, L_in, torch.from_numpy(q[~bad]).to(cuda), 16)
+    assert not got[torch.from_numpy(bad).to(cuda)].any()
+    assert torch.equal(got[torch.from_numpy(~bad).to(cuda)], exp)
 
 
 def test_main_path_serves_through_the_kernel(cuda):
@@ -268,6 +311,24 @@ def _frontier_case(rng, r, d, n_src, wm, edge):
     return nbr, f.view(np.int32)
 
 
+def _frontier_or_both_forms(nbr, f, perm, out0):
+    """The kernel and the plain version in both forms, then a second fused
+    pass of the kernel over its own result, which must add no bit."""
+    assert torch.equal(ops.frontier_or(nbr, f), ref.frontier_or_ref(nbr, f))
+    outs, flags = [], []
+    for fn in (ops.frontier_or, ref.frontier_or_ref):
+        out, fl = out0.clone(), torch.zeros(2, dtype=torch.int32, device=f.device)
+        fn(nbr, f, out=out, perm=perm, flags=fl)
+        outs.append(out)
+        flags.append(fl)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1]) and torch.equal(flags[0], flags[1])
+    fl = torch.zeros(2, dtype=torch.int32, device=f.device)
+    ops.frontier_or(nbr, f, out=outs[0], perm=perm, flags=fl)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1]) and fl.tolist() == [0, 0]
+
+
 @pytest.mark.parametrize("edge", [None, "all_invalid", "last_id", "bit31"])
 @pytest.mark.parametrize("r,d,n_src,wm", [(13, 4, 50, 1), (128, 16, 200, 2), (1, 7, 9, 3),
                                           (1, 16, 40, 8), (5000, 16, 9000, 8)])
@@ -279,12 +340,45 @@ def test_frontier_or_kernel_matches_plain(cuda, rng, r, d, n_src, wm, edge):
     torch.cuda.synchronize()
     assert ops.LAUNCHES["frontier_or"] == before + 1
     assert got.dtype == torch.int32 and got.device.type == "cuda"
-    assert torch.equal(got, ref.frontier_or_ref(nbr, f))
     # the fused form: OR into permuted rows of a running output, with flags
     n_out = r + 7
     perm = torch.from_numpy(rng.permutation(n_out)[:r].astype(np.int64)).to(cuda)
     out0 = torch.from_numpy(rng.integers(-2**31, 2**31, size=(n_out, wm),
                                          dtype=np.int64).astype(np.int32)).to(cuda)
+    _frontier_or_both_forms(nbr, f, perm, out0)
+
+
+@pytest.mark.parametrize("d", tsc.SLAB_D)
+@pytest.mark.parametrize("wm", tsc.SLAB_WM)
+def test_frontier_or_kernel_edges(cuda, rng, wm, d):
+    """Every wm of 1, 3, 8, 9, 32 (one word a thread, or four) with every d
+    of 1, 7, 16, 20, 32, 33 (ids 16 slots at a time, in one chunk or more)."""
+    r, n_src = tsc.SLAB_R, tsc.SLAB_N_SRC
+    nbr, f = tsc.slab_case(rng, r, d, n_src, wm)
+    perm, out0 = tsc.fused_case(rng, r, wm)
+    to = lambda x: torch.from_numpy(x).to(cuda)  # noqa: E731
+    _frontier_or_both_forms(to(nbr), to(f.view(np.int32)), to(perm), to(out0.view(np.int32)))
+
+
+def test_frontier_or_kernel_unaligned(cuda, rng):
+    """A slab and f 4 bytes into their buffers: the one-word loop with ids
+    read 4 bytes at a time."""
+    r, n_src = tsc.SLAB_R, tsc.SLAB_N_SRC
+    nbr, f = tsc.slab_case(rng, r, 16, n_src, 8)
+    perm, out0 = tsc.fused_case(rng, r, 8)
+    to = lambda x: torch.from_numpy(x).to(cuda)  # noqa: E731
+    nbr, f = tsc.unaligned(to(nbr)), tsc.unaligned(to(f.view(np.int32)))
+    assert nbr.data_ptr() % 16 and f.data_ptr() % 16
+    _frontier_or_both_forms(nbr, f, to(perm), to(out0.view(np.int32)))
+
+
+@pytest.mark.parametrize("wm,d", [(8, 16), (3, 7)])
+def test_frontier_or_kernel_fused_skips_bad_ids(cuda, rng, wm, d):
+    """Ids n_src and -2 and a perm entry n_out: skipped and flagged in
+    flags[1] in the fused form, as the plain version does."""
+    nbr, f, perm, out0 = tsc.bad_slab(rng, tsc.SLAB_R, d, tsc.SLAB_N_SRC, wm)
+    nbr, f, perm, out0 = (torch.from_numpy(x).to(cuda)
+                          for x in (nbr, f.view(np.int32), perm, out0.view(np.int32)))
     outs, flags = [], []
     for fn in (ops.frontier_or, ref.frontier_or_ref):
         out, fl = out0.clone(), torch.zeros(2, dtype=torch.int32, device=cuda)
@@ -293,6 +387,7 @@ def test_frontier_or_kernel_matches_plain(cuda, rng, r, d, n_src, wm, edge):
         flags.append(fl)
     torch.cuda.synchronize()
     assert torch.equal(outs[0], outs[1]) and torch.equal(flags[0], flags[1])
+    assert flags[0].tolist()[1] == 1
 
 
 def test_frontier_or_kernel_refuses_bad_ids(cuda):

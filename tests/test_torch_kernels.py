@@ -9,14 +9,17 @@ use_kernel=True)``.  Every comparison is exact: verdicts are booleans.
 The CUDA kernel itself is held against its plain version on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
+import shutil
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import tier_slab_cases as tsc
 from repro.kernels import ops as jops
 from repro.serve.engine import _tier_intersect as jax_tier_intersect
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import build, ops, ref
 
 
 def _rows(rng, B, L, sorted_prefix):
@@ -57,12 +60,22 @@ def test_label_intersect_all_padding():
 
 
 @pytest.mark.parametrize("width", [8, 16, 24, 128])
-@pytest.mark.parametrize("Lo,Li", [(16, 8), (40, 24)])
-def test_tier_intersect_matches_jax_tier_intersect(Lo, Li, width, rng):
+@pytest.mark.parametrize("Lo,Li,layout", [
+    pytest.param(16, 8, "prefix", id="16-8"), pytest.param(40, 24, "prefix", id="40-24"),
+    # widths not a multiple of 4: the card kernel's one-entry-a-lane loop
+    pytest.param(13, 7, "prefix", id="13-7"), pytest.param(17, 5, "prefix", id="17-5"),
+    # INVALID inside rows, before valid values in half of them
+    pytest.param(16, 8, "holes", id="16-8-holes"), pytest.param(13, 7, "holes", id="13-7-holes"),
+    pytest.param(17, 5, "holes", id="17-5-holes")])
+def test_tier_intersect_matches_jax_tier_intersect(Lo, Li, layout, width, rng):
     """The fused gather + per-side width clamp, including width > Li (the
-    citeseer shape: widest tier 16, L_in 8 wide) and width > both."""
+    citeseer shape: widest tier 16, L_in 8 wide) and width > both, on the
+    shapes of ``tests/tier_slab_cases.py`` too."""
     n, B = 200, 257
-    L_out, L_in = _rows(rng, n, Lo, True), _rows(rng, n, Li, True)
+    if layout == "prefix":
+        L_out, L_in = _rows(rng, n, Lo, True), _rows(rng, n, Li, True)
+    else:
+        L_out, L_in = tsc.tier_rows(rng, n, Lo, layout), tsc.tier_rows(rng, n, Li, layout)
     q = rng.integers(0, n, size=(B, 2)).astype(np.int32)
     q[-1] = (n - 1, n - 1)
     exp = np.asarray(jax_tier_intersect(jnp.asarray(L_out), jnp.asarray(L_in),
@@ -105,3 +118,18 @@ def test_wrapper_rejects_bad_inputs(bad):
     with pytest.raises(ValueError):
         ops.tier_intersect(**args)
 
+
+@pytest.mark.parametrize("name", ["serve_batch", "label_intersect"])
+def test_build_key_covers_the_included_header(name, tmp_path, monkeypatch):
+    """K1's two kernels include csrc/label_rows.cuh: an edit of the header
+    alone gives them a new build key, so no stale library loads."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    before = build._lib_path(name)
+    header = csrc / "label_rows.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = build._lib_path(name)
+    assert after != before and after.parent == tmp_path / "_build"
+    assert after.name.startswith(f"{name}-")

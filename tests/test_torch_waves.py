@@ -145,7 +145,10 @@ def _case(rng, r, d, n_src, wm, edge):
     return nbr, f
 
 
-SHAPES = [(13, 4, 50, 1), (128, 16, 200, 2), (1, 7, 9, 3), (1, 16, 40, 8), (300, 16, 500, 8)]
+SHAPES = [(13, 4, 50, 1), (128, 16, 200, 2), (1, 7, 9, 3), (1, 16, 40, 8), (300, 16, 500, 8),
+          # the card kernel's edges (tests/tier_slab_cases.py): wm not a multiple
+          # of 4, d past its 16 slots a chunk and not a multiple of 4
+          (257, 33, 300, 9), (257, 33, 300, 32), (257, 7, 300, 3)]
 EDGES = [None, "all_invalid", "last_id", "bit31"]
 
 

@@ -1,7 +1,7 @@
 """Time versions of one of the port's CUDA kernels on one card, in turns.
 
-    python3 tools/kernel_ab.py {bitset_mm,ell_spmm,flash_attention,embedding_bag} \
-        SOURCE.cu [SOURCE.cu ...]
+    python3 tools/kernel_ab.py {bitset_mm,ell_spmm,flash_attention,embedding_bag,
+                                label_intersect,frontier_or} SOURCE.cu [SOURCE.cu ...]
 
 Each SOURCE exports the launch function that ``kernels/build.py``'s
 ``SIGNATURES`` gives the kernel: this checkout's ``csrc/<kernel>.cu``, an
@@ -11,17 +11,27 @@ memory, which sources from before it moved there write through its
 mapping as they wrote a device word (only on a bad id); a source whose
 launch function takes one more parameter is given a device flag word
 before it (cleared and copied back by the launch function).  All are
-compiled at once with build.py's ``nvcc`` flags and loaded with ctypes;
-each is held against the kernel's plain version at ``chip_smoke.py``'s
-phase 3b shape (the closure step of the "human" analogue for bitset_mm,
-exact; ogb_products for ell_spmm, 1e-5; granite-3-2b prefill in float32
-for flash_attention, 2e-5; xDeepFM's serve_bulk batch for embedding_bag,
-1e-5), then all are timed by CUDA events, first to last and back, twice, so
-every version sees the same card, and each one's kernel time is read from
-torch.profiler; a call (the launch function, then a synchronisation of the
-stream) is also timed on the host clock, its median over 200.  Prints one
-JSON line per source (its ptxas line, its error, its four times in ms, its
-device ms, its call ms), then the card's name and power limit.
+compiled at once with build.py's ``nvcc`` flags (and ``-I`` of each
+source's own directory, for the ``csrc/*.cuh`` headers a copy of it
+includes) and loaded with ctypes; each is held against the kernel's plain
+version at ``chip_smoke.py``'s shapes (phase 3b's: the closure step of the
+"human" analogue for bitset_mm, exact; ogb_products for ell_spmm, 1e-5;
+granite-3-2b prefill in float32 for flash_attention, 2e-5; xDeepFM's
+serve_bulk batch for embedding_bag, 1e-5; phase 5's, exact:
+label_intersect on citeseer@1.0's labels from a host build at width 16, B =
+2,293, 4,096 and 2^20 queries of phase 4's intersection residue;
+frontier_or, fused, on the out-slab and first-wave frontier of citeseer@1.0
+and of citeseer@0.5, built as ``chip_smoke.real_out_slab`` builds them),
+then at each shape all are timed by CUDA events, first to last and back,
+twice, so every version sees the same card, and each one's kernel time is
+read from torch.profiler (for label_intersect and frontier_or also with
+the L2 flushed before every call, the time their shares of the DRAM-rate
+bound are taken from); a call (the launch function, then a
+synchronisation of the stream) is also timed on the host clock, its median
+over 200.  Prints one JSON line per shape and source (its ptxas line, its
+error, its four times in ms, its device ms, its call ms, the shape's bound
+and the device time's share of it, label_intersect's gather floor and its
+share), then the card's name and power limit.
 ``--bag-width D`` gives embedding_bag's table another row width with the
 same ids.  Needs a CUDA card and ``nvcc``; the port never calls it.
 """
@@ -45,13 +55,17 @@ import numpy as np
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
-REPS = {"bitset_mm": 20, "ell_spmm": 10, "flash_attention": 5, "embedding_bag": 50}
+REPS = {"bitset_mm": 20, "ell_spmm": 10, "flash_attention": 5, "embedding_bag": 50,
+        "label_intersect": 200, "frontier_or": 200}
+TIER_BATCHES = (2293, 4096, 1 << 20)   # phase 4h's median pinned residue, a batch, 2^20
+SLAB_SCALES = (1.0, 0.5)
+MAX_WAVE = 256   # the device build's wave size: 8 frontier words a row
 
 
-def _build(src: pathlib.Path, out: pathlib.Path) -> str:
+def _build(src: pathlib.Path, out: pathlib.Path, include: pathlib.Path) -> str:
     from repro_torch.kernels.build import NVCC_FLAGS, _nvcc
 
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)],
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", str(include), "-o", str(out), str(src)],
                           capture_output=True, text=True)
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
@@ -68,7 +82,7 @@ def _arity(src: pathlib.Path, symbol: str) -> int:
     return len(found.group(1).split(","))
 
 
-def _inputs(kernel: str, device, bag_width=None):
+def _library_inputs(kernel: str, device, bag_width=None):
     """(arguments of one launch but the stream, output, plain result,
     check(out, exp) -> max abs error, tensors to keep)."""
     import torch
@@ -134,6 +148,100 @@ def _inputs(kernel: str, device, bag_width=None):
     return args, out, exp, close(1e-5), (table, idx, flag)
 
 
+def _tier_inputs(device) -> list:
+    """K1's tier form at phase 5's shapes: citeseer@1.0's labels from a host
+    build (``impl="auto"``), width 16, B of ``TIER_BATCHES`` queries of
+    phase 4's intersection residue (repeated past its end)."""
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.core.api import build_oracle
+    from repro_torch.graph.generators import paper_dataset_analogue
+    from repro_torch.kernels import ref
+    from repro_torch.serve.prefilter import apply_prefilters
+
+    g = paper_dataset_analogue(cs.MAIN_DATASET, scale=cs.MAIN_SCALE)
+    co = build_oracle(g, device=device)
+    o, eng = co.oracle, co.engine
+    cq = co.comp[cs.make_traffic(g, co, cs.MAIN_QUERIES)]
+    rest = cq[~apply_prefilters(cq, o.out_len, o.in_len, eng.level).decided]
+    L_out, L_in = o.device_labels(device)
+    (n, Lo), Li, width = L_out.shape, L_in.shape[1], 16
+    wa, wb = min(width, Lo), min(width, Li)
+
+    def exact(out, exp):
+        cs.check(torch.equal(out, exp), "label_intersect differs from tier_intersect_ref")
+        return 0
+    shapes = []
+    for B in TIER_BATCHES:
+        q = torch.from_numpy(np.resize(rest, (B, 2))).to(device)
+        out = torch.empty(B, dtype=torch.uint8, device=device)
+        exp = ref.tier_intersect_ref(L_out, L_in, q, width).to(torch.uint8)
+        shapes.append({
+            "shape": {"B": B, "width": width, "L_out": [n, Lo], "L_in": [n, Li]},
+            "args": [L_out.data_ptr(), L_in.data_ptr(), n, Lo, Li, q.data_ptr(), B, wa, wb,
+                     out.data_ptr()],
+            "out": out, "exp": exp, "check": exact, "reset": out.zero_,
+            "keep": (L_out, L_in, q), "bound": cs.tier_intersect_bound(L_out, L_in, q, width)})
+    return shapes
+
+
+def _slab_inputs(device) -> list:
+    """K2's slab form, fused, on the out-slab and first-wave frontier of
+    citeseer at each of ``SLAB_SCALES``, as phase 4b builds them
+    (``chip_smoke.real_out_slab``, waves of at most 256 members)."""
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.build.waves import wave_schedule
+    from repro_torch.core.order import get_order
+    from repro_torch.graph.generators import paper_dataset_analogue
+    from repro_torch.graph.scc import condense_to_dag
+    from repro_torch.kernels import ref
+
+    shapes = []
+    for scale in SLAB_SCALES:
+        dag, _ = condense_to_dag(paper_dataset_analogue(cs.MAIN_DATASET, scale=scale))
+        order = get_order(dag, "degree_product")
+        waves = wave_schedule(dag, order, max_wave=MAX_WAVE)
+        slab, f, perm = cs.real_out_slab(dag, order, waves, MAX_WAVE, device)
+        (r, d), (n_src, wm) = slab.shape, f.shape
+        out, flags = f.clone(), torch.zeros(2, dtype=torch.int32, device=device)
+        exp_out, exp_flags = f.clone(), flags.clone()
+        ref.frontier_or_ref(slab, f, out=exp_out, perm=perm, flags=exp_flags)
+
+        def reset(out=out, flags=flags, f=f):
+            out.copy_(f)
+            flags.zero_()
+
+        def exact(got, exp, flags=flags, exp_flags=exp_flags):
+            cs.check(torch.equal(got, exp) and torch.equal(flags, exp_flags),
+                     "frontier_or differs from frontier_or_ref")
+            return 0
+        shapes.append({
+            "shape": {"scale": scale, "r": r, "d": d, "n_src": n_src, "wm": wm,
+                      "valid_slots": int(slab.ne(-1).sum()), "form": "fused"},
+            "args": [slab.data_ptr(), r, d, f.data_ptr(), n_src, wm, out.data_ptr(), n_src,
+                     perm.data_ptr(), flags.data_ptr()],
+            "out": out, "exp": exp_out, "check": exact, "reset": reset,
+            "keep": (slab, f, perm, flags), "bound": cs.frontier_or_bound(slab, wm)})
+    return shapes
+
+
+def _inputs(kernel: str, device, bag_width=None) -> list:
+    """One dict a shape: the arguments of one launch but the stream, the
+    output, the plain result, check(out, exp) -> max abs error, reset() of
+    the output before a check, tensors to keep and, for the kernels of the
+    oracle's paths, the shape and its bound."""
+    if kernel == "label_intersect":
+        return _tier_inputs(device)
+    if kernel == "frontier_or":
+        return _slab_inputs(device)
+    args, out, exp, check, keep = _library_inputs(kernel, device, bag_width)
+    return [{"shape": None, "args": args, "out": out, "exp": exp, "check": check,
+             "reset": out.zero_, "keep": keep, "bound": None}]
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -157,33 +265,19 @@ def main(argv=None) -> int:
             srcs.append(pathlib.Path(tmp) / f"v{i}_{src.name}")
             shutil.copy(src, srcs[-1])
         with ThreadPoolExecutor(len(srcs)) as pool:
-            ptxas = list(pool.map(lambda s: _build(s, s.with_suffix(".so")), srcs))
+            ptxas = list(pool.map(lambda s: _build(s[1], s[1].with_suffix(".so"),
+                                                   s[0].resolve().parent),
+                                  zip(args.sources, srcs)))
         libs = [ctypes.CDLL(str(s.with_suffix(".so"))) for s in srcs]
-    launch_args, out, exp, check_out, keep = _inputs(args.kernel, device, args.bag_width)
-    launches = []
-    for src, lib in zip(args.sources, libs):
-        fn = getattr(lib, symbol)
-        fn.argtypes, fn.restype = argtypes, restype
-        full = launch_args
-        if _arity(src, symbol) == len(argtypes) + 1:   # a device flag word before the last
-            d_flag = torch.zeros(1, dtype=torch.int32, device=device)
-            keep += (d_flag,)
-            fn.argtypes = argtypes[:-2] + [ctypes.c_void_p] + argtypes[-2:]
-            full = launch_args[:-1] + [d_flag.data_ptr()] + launch_args[-1:]
-        launches.append(lambda fn=fn, full=full: fn(
-            *full, torch.cuda.current_stream(device).cuda_stream))
+    stream = torch.cuda.current_stream(device)
+    # a call launches one of these kernels
+    symbols = cs.ATTENTION_SYMBOLS.get(args.kernel, f"{args.kernel}_kernel")
+    reps = REPS[args.kernel]
+    flush = cs._l2_flush(device)
 
     def call(launch):
         rc = launch()
         cs.check(rc == 0, f"launch failed: CUDA error {rc}")
-
-    errors = []
-    for src, launch in zip(args.sources, launches):
-        out.zero_()
-        call(launch)
-        torch.cuda.synchronize()
-        errors.append(check_out(out, exp))
-    stream = torch.cuda.current_stream(device)
 
     def call_ms(launch) -> list:
         ts = []
@@ -194,22 +288,50 @@ def main(argv=None) -> int:
             ts.append((time.perf_counter() - t0) * 1e3)
         return ts
 
-    order = list(range(len(launches)))
-    times = [[] for _ in order]
-    calls = [[] for _ in order]
-    for i in (order + order[::-1]) * 2:
-        times[i].append(cs._event_ms(lambda: call(launches[i]), REPS[args.kernel], warmup=2))
-        calls[i] += call_ms(launches[i]) if args.kernel == "embedding_bag" else []
-    # a call launches one of these kernels
-    symbols = cs.ATTENTION_SYMBOLS.get(args.kernel, f"{args.kernel}_kernel")
-    device_ms = [cs._kernel_device_ms(lambda: call(launch), symbols, REPS[args.kernel])
-                 for launch in launches]
-    for src, regs, err, ms, dev_ms, cm in zip(args.sources, ptxas, errors, times, device_ms,
-                                              calls):
-        print(json.dumps({"kernel": args.kernel, "source": str(src), "ptxas": regs,
-                          "max_abs_err": err, "ms": min(ms), "ms_runs": ms,
-                          "device_ms": dev_ms,
-                          "call_ms": float(np.median(cm)) if cm else None}), flush=True)
+    for shape in _inputs(args.kernel, device, args.bag_width):
+        launches = []
+        for src, lib in zip(args.sources, libs):
+            fn = getattr(lib, symbol)
+            fn.argtypes, fn.restype = argtypes, restype
+            full = shape["args"]
+            if _arity(src, symbol) == len(argtypes) + 1:   # a device flag word before the last
+                d_flag = torch.zeros(1, dtype=torch.int32, device=device)
+                shape["keep"] += (d_flag,)
+                fn.argtypes = argtypes[:-2] + [ctypes.c_void_p] + argtypes[-2:]
+                full = full[:-1] + [d_flag.data_ptr()] + full[-1:]
+            launches.append(lambda fn=fn, full=full: fn(*full, stream.cuda_stream))
+        errors = []
+        for launch in launches:
+            shape["reset"]()
+            call(launch)
+            torch.cuda.synchronize()
+            errors.append(shape["check"](shape["out"], shape["exp"]))
+        order = list(range(len(launches)))
+        times = [[] for _ in order]
+        calls = [[] for _ in order]
+        for i in (order + order[::-1]) * 2:
+            times[i].append(cs._event_ms(lambda: call(launches[i]), reps, warmup=2))
+            calls[i] += (call_ms(launches[i])
+                         if args.kernel in ("embedding_bag", "label_intersect") else [])
+        device_ms = [cs._kernel_device_ms(lambda: call(launch), symbols, min(reps, 50))
+                     for launch in launches]
+        bound = shape["bound"] or {}
+        cold_ms = [cs._cold_device_ms(lambda: call(launch), symbols, min(reps, 50), flush)
+                   for launch in launches] if bound else [None] * len(launches)
+        for src, regs, err, ms, dev_ms, cold, cm in zip(args.sources, ptxas, errors, times,
+                                                        device_ms, cold_ms, calls):
+            line = {"kernel": args.kernel, "source": str(src), "shape": shape["shape"],
+                    "ptxas": regs, "max_abs_err": err, "ms": min(ms), "ms_runs": ms,
+                    "device_ms": dev_ms, "call_ms": float(np.median(cm)) if cm else None}
+            if bound:
+                line.update({"device_ms_l2_flushed": cold, "bound_ms": bound["bound_ms"],
+                             "bound_by": bound["bound_by"], "bytes": bound["bytes"],
+                             "bound_share": bound["bound_ms"] / cold,
+                             "bound_share_l2_warm": bound["bound_ms"] / dev_ms})
+            if "gather_floor_ms" in bound:
+                line.update({"gather_floor_bytes": bound["gather_floor_bytes"],
+                             "gather_floor_share": bound["gather_floor_ms"] / cold})
+            print(json.dumps(line), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
     return 0
