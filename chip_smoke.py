@@ -113,6 +113,22 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      the host merge of the epoch that served it, the registry equal to the
      daemon's books; the dispatches, the event loop's lag and the
      collector's passes during the publish.  Phases 4e-4h run before 4d;
+  4i. the multi-device modes.  (a) Phase 4's oracle cold-started from its
+     snapshot (``oracle_from_snapshot(mesh=)``) behind a (1, 1) mesh over a
+     one-rank NCCL process group in this process: all of phase 4's traffic
+     through ``sharded`` and then ``sharded_hop``, every verdict equal to
+     phase 4's, K1's tier form ``label_intersect`` launched once a batch a
+     backend (512, read around exactly that run), each backend's batch
+     p50/p99.  (b) ``MESH_SHAPE`` (2, 2) ranks over gloo on the one card
+     (NCCL puts no two ranks on one device), spawned once the kernels are
+     built (they load those builds) and running beside phases 3-4h: the
+     ``mesh=`` device build of citeseer@``MESH_BUILD_SCALE`` (0.02), its
+     labels equal to ``DL_SHA256`` there on every rank and K2's slab form
+     ``frontier_or`` launched once a slab call (read around exactly that
+     build); then phase 4's snapshot cold-started on every rank and its
+     first ``MESH_PREFIX_QUERIES`` (65,536) queries through both sharded
+     backends with the column blocks really split, every verdict equal to
+     phase 4's on every rank;
   4d. cold start and budget, on phase 4's oracle and traffic: the oracle
      saved (``persist.save_oracle``) and cold-started
      (``core.api.oracle_from_snapshot``), labels byte for byte and every
@@ -135,8 +151,10 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      from the middle of the build's schedule), and the kernels JSON line
      (all nine kernels: K1, K2 and K4 have two each; K1's batch form
      counts the launches of phases 4, 4e, 4f, 4g and 4h, its tier form
-     those of phase 4h's pinned epochs, timed at their batch size, at
-     4,096 and at 2^20 queries, where its byte bound binds; K1's tier form
+     those of phase 4h's pinned epochs and of phase 4i's sharded backends
+     (every rank's), timed at phase 4h's pinned batch size, at 4,096 and at
+     2^20 queries, where its byte bound binds; K2's slab form those of
+     phase 4i's mesh= build (every rank's); K1's tier form
      and K2's slab form also after an L2 flush, the time their shares of
      the DRAM-rate bound are taken from, the tier form beside its gather
      floor too);
@@ -151,7 +169,9 @@ toolkit (``nvcc``).  Phases, each raising on failure:
 ``--device-build-scale`` (default 1.0), and times
 ``frontier_expand``; in the full script the flag sets phase 4b's scale.
 ``--only-kernels`` runs phases 1-3b alone; ``--only-dynamic`` phases 1-3,
-4 and 4h, and times K1's tier form.
+4 and 4h, and times K1's tier form; ``--only-multi-device`` phases 1-4 and
+4i, and times K1's tier form and K2's slab form (at the mesh= build's
+graph).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the repository beside it, the script
@@ -222,7 +242,9 @@ SPEC_COUNTS = {"spec_waves": 9144, "spec_members": 401152, "clean_waves": 753,
 # builds equal.  Phase 4 holds its auto build to it in place of a reference
 # build of its own; 4b its device build, 4c its host engines.
 DL_SHA256 = {1.0: "7168b6766ec19b8c4e564c3a445567e3465a8cec40edcf7bdebb4ec6377d01f6",
-             0.5: "21dbb15a4e65983ef94b29b3501f29ee79c0e1f4dbbcd2132637998ab021007c"}
+             0.5: "21dbb15a4e65983ef94b29b3501f29ee79c0e1f4dbbcd2132637998ab021007c",
+             # phase 4i's mesh= build: ``--scale 0.02 --package both``
+             0.02: "935b2f82fa6fd7575bf3d0efd999fa5b37bd5e5f64146369d9ab3a2b542d9174"}
 # phase 4c's host engines at citeseer@0.5, held to DL_SHA256[0.5]
 # (``tools/build_counts.py --scale 0.5 --package both``: both packages
 # give these counts and equal labels): auto -> speculative with these
@@ -1599,6 +1621,21 @@ def real_out_slab(dag, order, waves, member_width: int, device) -> tuple:
     return slab, v, perm_r
 
 
+def mesh_build_slab(device) -> tuple:
+    """``real_out_slab`` of phase 4i's mesh= build graph (citeseer@
+    ``MESH_BUILD_SCALE``), for ``--only-multi-device``'s timing of K2's
+    slab form."""
+    from repro_torch.build.waves import wave_schedule
+    from repro_torch.core.order import get_order
+    from repro_torch.graph.generators import paper_dataset_analogue
+    from repro_torch.graph.scc import condense_to_dag
+
+    dag, _ = condense_to_dag(paper_dataset_analogue(MAIN_DATASET, scale=MESH_BUILD_SCALE))
+    order = get_order(dag, "degree_product")
+    waves = wave_schedule(dag, order, max_wave=256)
+    return real_out_slab(dag, order, waves, 256, device)
+
+
 def phase_device_build(device, scale) -> dict:
     """The device wave build of citeseer@``scale`` on the card, held byte for
     byte against the reference build: by its sha256 ``DL_SHA256[scale]``
@@ -1848,6 +1885,274 @@ def stop_host_engines(started) -> None:
     child.join()
     if os.path.exists(out_path):
         os.unlink(out_path)
+
+
+# ------------------------------------------------------------------ phase 4i
+
+# (b): a (2, 2) mesh of gloo ranks on the one card (NCCL puts no two ranks
+# on one device), each rank a process; its mesh= build at citeseer@
+# MESH_BUILD_SCALE, held to DL_SHA256 there, and this many of phase 4's
+# queries served through both sharded backends
+MESH_SHAPE = (2, 2)
+MESH_BUILD_SCALE = 0.02
+MESH_PREFIX_QUERIES = 16 * BATCH
+MESH_RANK_TIMEOUT_S = 120      # a rank left in a collective raises after this
+MESH_WAIT_S = 420.0            # how long a rank waits for phase 4's snapshot
+MESH_BACKENDS = ("sharded", "sharded_hop")
+
+
+def _serve_sharded(co, queries: np.ndarray, backend: str) -> tuple:
+    """``queries`` through ``backend`` in batches of BATCH after one warm-up
+    batch (which makes the collectives' communicators), counted from a
+    fresh launch count: (verdicts, batch seconds, launches, residues)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    co.serve(queries[:BATCH], backend=backend)       # warm-up, outside the count
+    torch.cuda.synchronize()
+    co.engine.reset_stats()
+    latencies, outs, residues = [], [], []
+    ops.reset_launches()
+    for i in range(0, queries.shape[0], BATCH):
+        t_batch = time.perf_counter()
+        outs.append(co.serve(queries[i:i + BATCH], backend=backend))
+        latencies.append(time.perf_counter() - t_batch)
+        last = co.engine.last_stats
+        residues.append(last["n_queries"] - last["n_prefiltered"])
+    launches = dict(ops.LAUNCHES)
+    check(co.engine.last_stats["backend"] == backend, f"served on {co.engine.last_stats}")
+    check(launches["label_intersect"] == len(latencies) and launches["serve_batch"] == 0,
+          f"[{backend}] launches {launches} for {len(latencies)} batches")
+    check(all(residues), f"[{backend}] a batch had no intersection residue")
+    check(not any(co.engine.degradation.values()),
+          f"[{backend}] degradation counters moved: {co.engine.degradation}")
+    return np.concatenate(outs), latencies, launches, residues
+
+
+def _latency_ms(latencies: list) -> dict:
+    return {"p50": float(np.percentile(latencies, 50)) * 1e3,
+            "p99": float(np.percentile(latencies, 99)) * 1e3,
+            "max": max(latencies) * 1e3}
+
+
+def share_main_path(started, co, queries: np.ndarray, verdicts: np.ndarray) -> None:
+    """Phase 4's oracle saved (``persist.save_oracle``) with its queries and
+    verdicts, for the mesh ranks of phase 4i (b) to cold-start from; the
+    ``ready`` marker last, atomically."""
+    from repro_torch.persist import save_oracle
+
+    if started is None:
+        return
+    d = pathlib.Path(started[1])
+    t0 = time.perf_counter()
+    save_oracle(str(d / "snap"), co.oracle)
+    np.save(d / "queries.npy", queries[:MESH_PREFIX_QUERIES])
+    np.save(d / "verdicts.npy", verdicts[:MESH_PREFIX_QUERIES])
+    (d / "ready.tmp").write_text(json.dumps({"saved_seconds": time.perf_counter() - t0}))
+    os.replace(d / "ready.tmp", d / "ready")
+
+
+def phase_multi_device_one_rank(device, g, co, queries: np.ndarray,
+                                verdicts: np.ndarray, snap_dir: str) -> dict:
+    """Phase 4i (a): phase 4's oracle cold-started from its snapshot
+    (``oracle_from_snapshot(mesh=)``) behind a (1, 1) mesh over a one-rank
+    NCCL process group in this process; all of phase 4's traffic through
+    ``sharded`` and then ``sharded_hop``, every verdict equal to phase 4's,
+    K1's tier form launched once a batch a backend (read around exactly
+    that run), each backend's batch p50/p99."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.api import oracle_from_snapshot
+    from repro_torch.launch.mesh import form_mesh
+
+    t_phase = time.perf_counter()
+    rec = {"phase": "multi_device_one_rank", "mesh": [1, 1], "process_group": "nccl",
+           "n_queries": int(queries.shape[0])}
+    torch.cuda.set_device(device)   # the communicator's device, before the mesh
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=MESH_RANK_TIMEOUT_S))
+    try:
+        mesh = form_mesh((1, 1), ("data", "model"))
+        t0 = time.perf_counter()
+        mco = oracle_from_snapshot(g, snap_dir, mesh=mesh, device=device)
+        torch.cuda.synchronize()
+        rec["cold_start_seconds"] = time.perf_counter() - t0
+        check(mco.engine.backend == "sharded",
+              f"backend auto resolved to {mco.engine.backend!r} with a mesh")
+        launches, residues = {}, []
+        for be in MESH_BACKENDS:
+            got, lat, launches[be], res = _serve_sharded(mco, queries, be)
+            check(np.array_equal(got, verdicts),
+                  f"[{be}] differs from phase 4 on {int((got != verdicts).sum())} queries")
+            rec[be] = {"qps": queries.shape[0] / sum(lat), "batches": len(lat),
+                       "batch_ms": _latency_ms(lat), "launches": launches[be],
+                       "residue_mean": float(np.mean(res)), "verdicts_equal_phase_4": True}
+            residues += res
+            log(f"4i one-rank NCCL [{be}]: {rec[be]['qps']:.1f} queries/s, batch p50 "
+                f"{rec[be]['batch_ms']['p50']:.4f} ms p99 {rec[be]['batch_ms']['p99']:.4f} ms, "
+                f"label_intersect {launches[be]['label_intersect']} launches")
+        del mco
+    finally:
+        dist.destroy_process_group()
+    rec["label_intersect"] = sum(launches[be]["label_intersect"] for be in MESH_BACKENDS)
+    rec["seconds"] = time.perf_counter() - t_phase
+    record(rec)
+    return {"label_intersect": rec["label_intersect"],
+            "residue_median": int(np.median(residues))}
+
+
+def _mesh_rank(rank: int, tmp: str, t0: float) -> None:
+    """Phase 4i (b), one rank of ``MESH_SHAPE`` (spawned): the mesh= build,
+    then phase 4's snapshot cold-started and a prefix of its traffic served
+    through both sharded backends; exits non-zero on any failure."""
+    global _T0
+    _T0 = t0
+    d = pathlib.Path(tmp)
+    world = MESH_SHAPE[0] * MESH_SHAPE[1]
+    with open(d / f"rank{rank}.log", "w") as logf, contextlib.redirect_stdout(logf):
+        try:
+            _mesh_rank_phases(rank, world, d)
+        except BaseException:
+            import traceback
+
+            traceback.print_exc(file=logf)
+            logf.flush()
+            os._exit(1)
+
+
+def _mesh_rank_phases(rank: int, world: int, d: pathlib.Path) -> None:
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.build.engine import build_distribution_labels
+    from repro_torch.core.api import oracle_from_snapshot
+    from repro_torch.graph.generators import paper_dataset_analogue
+    from repro_torch.graph.scc import condense_to_dag
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import form_mesh
+
+    torch.set_num_threads(1)
+    torch.cuda.set_device(0)
+    timeout = datetime.timedelta(seconds=MESH_RANK_TIMEOUT_S)
+    dist.init_process_group("gloo", store=dist.FileStore(str(d / "store"), world), rank=rank,
+                            world_size=world, timeout=timeout)
+    try:
+        mesh = form_mesh(MESH_SHAPE, ("data", "model"), device_type="cuda", timeout=timeout)
+        rec = {"phase": "multi_device_ranks", "rank": rank, "mesh": list(MESH_SHAPE),
+               "coordinate": list(mesh.get_coordinate()), "process_group": "gloo"}
+        # ---- the mesh= build, its launches read around exactly it
+        dag, _ = condense_to_dag(paper_dataset_analogue(MAIN_DATASET, scale=MESH_BUILD_SCALE))
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        o = build_distribution_labels(dag, impl="device", mesh=mesh, device="cuda")
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        # ----
+        st = o.build_stats["device"]
+        check_sha256(o, MESH_BUILD_SCALE, f"rank {rank}'s mesh= build")
+        check(launches["frontier_or"] == st["slab_calls"] > 0,
+              f"frontier_or launched {launches['frontier_or']} times for "
+              f"{st['slab_calls']} slab calls")
+        check(launches["frontier_expand"] == 0, "the mesh= build launched frontier_expand")
+        check(st["collectives"] == st["levels"], f"{st['collectives']} collectives for "
+              f"{st['levels']} levels")
+        rec["build"] = {"scale": MESH_BUILD_SCALE, "n": dag.n, "seconds": t_build,
+                        "n_waves": o.build_stats["n_waves"], "launches": launches,
+                        "levels": st["levels"], "slab_calls": st["slab_calls"],
+                        "collectives": st["collectives"], "host_reads": st["host_reads"],
+                        "ms_per_level": t_build * 1e3 / st["levels"],
+                        "labels_sha256": DL_SHA256[MESH_BUILD_SCALE]}
+        del o
+        # ---- phase 4's snapshot, once the parent has written it
+        t0 = time.perf_counter()
+        while not (d / "ready").exists():
+            check(time.perf_counter() - t0 < MESH_WAIT_S, "phase 4's snapshot never came")
+            time.sleep(0.2)
+        rec["waited_for_phase_4_seconds"] = time.perf_counter() - t0
+        queries, verdicts = np.load(d / "queries.npy"), np.load(d / "verdicts.npy")
+        g = paper_dataset_analogue(MAIN_DATASET, scale=MAIN_SCALE)
+        t0 = time.perf_counter()
+        co = oracle_from_snapshot(g, str(d / "snap"), mesh=mesh, device="cuda")
+        rec["cold_start_seconds"] = time.perf_counter() - t0
+        for be in MESH_BACKENDS:
+            got, lat, served_launches, _ = _serve_sharded(co, queries, be)
+            check(np.array_equal(got, verdicts),
+                  f"[{be}] rank {rank} differs from phase 4 on "
+                  f"{int((got != verdicts).sum())} queries")
+            rec[be] = {"n_queries": int(queries.shape[0]), "batches": len(lat),
+                       "batch_ms": _latency_ms(lat), "launches": served_launches,
+                       "verdicts_equal_phase_4": True}
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    (d / f"rank{rank}.json").write_text(json.dumps(rec))
+
+
+def start_mesh_ranks():
+    """Start phase 4i (b)'s ranks (spawned processes, their output to files
+    in a temporary directory, where phase 4 leaves its snapshot for them);
+    ``finish_mesh_ranks`` waits for them."""
+    import multiprocessing
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_4i_")
+    ctx = multiprocessing.get_context("spawn")
+    ranks = [ctx.Process(target=_mesh_rank, args=(r, tmp, _T0), daemon=True)
+             for r in range(MESH_SHAPE[0] * MESH_SHAPE[1])]
+    for p in ranks:
+        p.start()
+    return ranks, tmp
+
+
+def finish_mesh_ranks(started, timeout: float = 300.0) -> dict:
+    """Wait for phase 4i (b)'s ranks, relay their records, fail if any
+    failed; returns the launches their paths made, summed over the ranks."""
+    ranks, tmp = started
+    t_end = time.perf_counter() + timeout
+    for p in ranks:
+        p.join(max(t_end - time.perf_counter(), 0.0))
+    d = pathlib.Path(tmp)
+    recs = []
+    for r, p in enumerate(ranks):
+        out = d / f"rank{r}.json"
+        if p.exitcode != 0 or not out.exists():
+            log((d / f"rank{r}.log").read_text() if (d / f"rank{r}.log").exists() else "")
+        check(p.exitcode == 0 and out.exists(),
+              f"phase 4i rank {r} failed, exit {p.exitcode}")
+        recs.append(json.loads(out.read_text()))
+    rec = {"phase": "multi_device_ranks", "mesh": list(MESH_SHAPE), "process_group": "gloo",
+           "ranks": recs}
+    record(rec)
+    r0 = recs[0]
+    for be in MESH_BACKENDS:
+        log(f"4i {MESH_SHAPE} gloo ranks [{be}]: {r0[be]['n_queries']} queries equal phase "
+            f"4's on every rank, rank 0 batch p50 {r0[be]['batch_ms']['p50']:.4f} ms p99 "
+            f"{r0[be]['batch_ms']['p99']:.4f} ms")
+    log(f"4i mesh= build citeseer@{MESH_BUILD_SCALE}: {r0['build']['seconds']:.3f} s, "
+        f"{r0['build']['levels']} levels, frontier_or {r0['build']['launches']['frontier_or']} "
+        f"launches on rank 0, labels equal DL_SHA256")
+    return {"label_intersect": sum(r[be]["launches"]["label_intersect"]
+                                   for r in recs for be in MESH_BACKENDS),
+            "frontier_or": sum(r["build"]["launches"]["frontier_or"] for r in recs)}
+
+
+def stop_mesh_ranks(started) -> None:
+    import shutil
+
+    ranks, tmp = started
+    for p in ranks:
+        if p.is_alive():
+            p.kill()
+        p.join()
+    shutil.rmtree(tmp, ignore_errors=True)
 
 
 # ------------------------------------------------------------------ phase 4e
@@ -2633,9 +2938,10 @@ FLOOR_LABEL_BYTES = 44_412_608
 QUARANTINE_QUERIES = 4096
 BUDGET_SEARCH_SECONDS = 60.0   # the budgeted run serves a prefix past this
 # ... or past the point where the whole script would end later than its
-# target (330 s), with this much left for the phases after 4d (~3 s seen)
+# target (330 s), with this much left for what follows the budgeted run
+# (the rest of 4d and phases 5-7)
 SCRIPT_TARGET_SECONDS = 330.0
-AFTER_4D_SECONDS = 10.0
+AFTER_4D_SECONDS = 20.0
 
 
 def phase_cold_start_and_budget(g, co, queries: np.ndarray, verdicts: np.ndarray) -> dict:
@@ -3141,11 +3447,12 @@ def phase_timing(co, rest: np.ndarray, launches: dict, cases: dict, pinned_b: in
     }]
 
 
-def timing_frontier_or(real, launches: int, cases: int) -> dict:
-    """K2's slab form and its plain version, fused, at the real out-slab and
-    frontier of phase 4b: out[perm[i]] |= OR of the frontier words of row
-    i's neighbors.  No build path launches it since the frontier form; its
-    bound counts the whole slab."""
+def timing_frontier_or(real, launches: dict, cases: int) -> dict:
+    """K2's slab form and its plain version, fused, at a real out-slab and
+    frontier (phase 4b's): out[perm[i]] |= OR of the frontier words of row
+    i's neighbors.  ``launches``: its launches by path (the device build,
+    none since the frontier form; phase 4i's mesh= build).  Its bound
+    counts the whole slab."""
     import torch
 
     from repro_torch.kernels import ops, ref
@@ -3176,7 +3483,7 @@ def timing_frontier_or(real, launches: int, cases: int) -> dict:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/frontier_or.cu",
         "replaces": "src/repro/kernels/frontier_ell.py:61",
-        "launches": launches,
+        "launches": sum(launches.values()), "launches_by_path": launches,
         "matches_plain": True,
         "cases_checked": cases,
         "max_abs_err": max_abs_err,
@@ -3375,6 +3682,8 @@ def main(argv=None) -> int:
                     help="run phases 1-3 and 3b (the kernel library) only")
     ap.add_argument("--only-dynamic", action="store_true",
                     help="run phases 1-3, 4 and 4h (the dynamic oracle) only")
+    ap.add_argument("--only-multi-device", action="store_true",
+                    help="run phases 1-4 and 4i (the multi-device modes) only")
     ap.add_argument("--publish-stall", type=float, default=0.0, metavar="S",
                     help="stall phase 4h's daemon publish S seconds more at its fault "
                          "site dynamic.publish (default 0: the publish as it is)")
@@ -3388,24 +3697,32 @@ def main(argv=None) -> int:
     # phases 1-4b (the kernel builds leave most cores idle); it stops it on
     # the way out, however the run ends
     child = None
-    if not (args.only_device_build or args.only_kernels or args.only_dynamic):
+    if not (args.only_device_build or args.only_kernels or args.only_dynamic
+            or args.only_multi_device):
         child = start_host_engines()
+    children = {"host_engines": child, "mesh_ranks": None}
     try:
-        return run(args, child)
+        return run(args, children)
     finally:
         if child is not None:
             stop_host_engines(child)
+        if children["mesh_ranks"] is not None:
+            stop_mesh_ranks(children["mesh_ranks"])
 
 
-def run(args, host_engines) -> int:
-    """The phases of ``main``'s arguments; ``host_engines`` is phase 4c's
-    child process in the full script."""
+def run(args, children: dict) -> int:
+    """The phases of ``main``'s arguments; ``children`` holds phase 4c's
+    child process (the full script) and phase 4i's ranks, started here
+    once the kernels are built (they load those builds)."""
     import torch
 
     t_start = time.perf_counter()
     name, smi_line = phase_device()
     device = torch.device("cuda", 0)
     phase_build()
+    mesh_ranks = None
+    if not (args.only_device_build or args.only_kernels or args.only_dynamic):
+        mesh_ranks = children["mesh_ranks"] = start_mesh_ranks()
     cases = phase_kernel_vs_plain(device)
     if args.only_device_build:
         built = phase_device_build(device, args.device_build_scale or MAIN_SCALE)
@@ -3419,12 +3736,28 @@ def run(args, host_engines) -> int:
         kernels = phase_timing(co, cq[rest], {"main_path": launches["label_intersect"],
                                               "dynamic": dyn["launches"]["label_intersect"]},
                                cases, int(np.median(dyn["residues"])))
+    elif args.only_multi_device:
+        g, co, queries, cq, rest, launches, verdicts = phase_main_path(device)
+        share_main_path(mesh_ranks, co, queries, verdicts)
+        one = phase_multi_device_one_rank(device, g, co, queries, verdicts,
+                                          str(pathlib.Path(mesh_ranks[1]) / "snap"))
+        ranks = finish_mesh_ranks(mesh_ranks)
+        kernels = phase_timing(co, cq[rest], {"main_path": launches["label_intersect"],
+                                              "multi_device_one_rank": one["label_intersect"],
+                                              "multi_device_ranks": ranks["label_intersect"]},
+                               cases, one["residue_median"])
+        kernels.append(timing_frontier_or(mesh_build_slab(device),
+                                          {"mesh_build": ranks["frontier_or"]},
+                                          cases["frontier_or"]))
     else:
         library = phase_kernel_library(device, cases)
         g, co, queries, cq, rest, launches, verdicts = phase_main_path(device)
+        share_main_path(mesh_ranks, co, queries, verdicts)
+        one = phase_multi_device_one_rank(device, g, co, queries, verdicts,
+                                          str(pathlib.Path(mesh_ranks[1]) / "snap"))
         built = phase_device_build(device, args.device_build_scale
                                    or FULL_RUN_DEVICE_BUILD_SCALE)
-        finish_host_engines(host_engines)
+        finish_host_engines(children["host_engines"])
         # the paths of this slice, each with its own counts: HL, the
         # quickstart, the daemon, the dynamic oracle; before 4d, whose
         # budgeted run is cut to the script's target on the clock they leave
@@ -3435,16 +3768,21 @@ def run(args, host_engines) -> int:
                        "daemon": phase_daemon(g, co)["serve_batch"]}
         dyn = phase_dynamic(device, g, queries, verdicts, args.publish_stall)
         k1_launches["dynamic"] = dyn["launches"]["serve_batch"]
+        ranks = finish_mesh_ranks(mesh_ranks)
         budgeted = phase_cold_start_and_budget(g, co, queries, verdicts)
         cases["frontier_or"] += built["frontier_or_cases"]
         kernels = [timing_serve_batch(co, cq, k1_launches, cases["serve_batch"], budgeted)]
         kernels += phase_timing(co, cq[rest], {"main_path": launches["label_intersect"],
-                                               "dynamic": dyn["launches"]["label_intersect"]},
+                                               "dynamic": dyn["launches"]["label_intersect"],
+                                               "multi_device_one_rank": one["label_intersect"],
+                                               "multi_device_ranks": ranks["label_intersect"]},
                                 cases, int(np.median(dyn["residues"])))
         kernels.append(timing_frontier_expand(built["level"],
                                               built["launches"]["frontier_expand"],
                                               cases["frontier_expand"] + 1))
-        kernels.append(timing_frontier_or(built["real_slab"], built["launches"]["frontier_or"],
+        kernels.append(timing_frontier_or(built["real_slab"],
+                                          {"device_build": built["launches"]["frontier_or"],
+                                           "mesh_build": ranks["frontier_or"]},
                                           cases["frontier_or"]))
         kernels += library
         phase_serving_profile(co, queries)

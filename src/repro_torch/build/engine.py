@@ -52,7 +52,8 @@ labels:
     The device wave engine (``engine_device.py``, the port of
     ``repro.build.engine_jax``): the wave schedule of ``waves.wave_schedule``
     with each wave's sweeps on the build's ``device`` — through the
-    hand-written K2 kernel on a card, its plain version on the CPU.
+    hand-written K2 kernel on a card, its plain version on the CPU; with
+    ``mesh=`` each BFS level is split over the mesh's data axes.
 
 The host engines (``reference``, ``wave``, ``speculative``) are numpy
 copies of the JAX package's and run on the host whatever ``device`` says.
@@ -118,8 +119,8 @@ _AUTO_DENSE_REACH = 0.02
 # the optimistic sweep (prune gather, certify, cleanup) runs on flat
 # single-word arrays
 _SPEC_CAP = 64
-# the device engine's tuning knobs; any other extra kwarg is a TypeError
-_DEVICE_KWARGS = frozenset({"l_max", "ell_width", "prune_cap"})
+# the device engine's knobs and its mesh; any other extra kwarg is a TypeError
+_DEVICE_KWARGS = frozenset({"l_max", "ell_width", "prune_cap", "mesh"})
 
 # Registry families for construction progress.  Stage attribution also lands
 # in ``build_stats["stages"]`` / ``["stage_shares"]``; the registry mirror
@@ -173,18 +174,15 @@ def build_distribution_labels(
     raises ``RuntimeError`` without a card); the host engines run on the
     host whatever it says.  ``waves`` hands the device engine a schedule
     instead of computing one.  ``device_kwargs`` (``l_max=``,
-    ``ell_width=``, ``prune_cap=``) go to the device engine; any other
-    name, or any of them with a host impl, is a ``TypeError`` — a typo'd
-    tuning knob must not silently no-op — and ``mesh=`` raises
-    ``NotImplementedError`` (ROADMAP.md Queue 1 item 11).
+    ``ell_width=``, ``prune_cap=``, ``mesh=``) go to the device engine; any
+    other name, or any of them with a host impl, is a ``TypeError`` — a
+    typo'd tuning knob must not silently no-op.  ``mesh=`` (a
+    ``DeviceMesh`` from ``repro_torch.launch.mesh``) splits each BFS level
+    over the mesh's data axes, every rank building the same labels.
     """
     if impl not in ("auto", "reference", "ref", "wave", "bitset", "speculative",
                     "device"):
         raise ValueError(f"unknown construction impl {impl!r}")
-    if "mesh" in device_kwargs:
-        raise NotImplementedError(
-            "the sharded device expansion (mesh=) is not ported yet: "
-            "ROADMAP.md Queue 1 item 11 (multi-device modes)")
     unknown = sorted(set(device_kwargs) - _DEVICE_KWARGS)
     if unknown:
         raise TypeError(f"unknown device-engine kwargs {unknown}; the device "

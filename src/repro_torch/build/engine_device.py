@@ -32,6 +32,16 @@ the sweep's cone (the rows it reaches), not n:
   * the state (``_SweepState``) is allocated once per build, and a sweep
     resets only the rows it touched.
 
+With ``mesh=`` the build runs on every rank of a ``DeviceMesh`` (one
+process a rank, ``repro_torch.launch.mesh``) as JAX's ``mesh=`` build runs
+under ``shard_map``: the waves stay sequential, each BFS level is JAX's
+dense level ``v | expand(v & ~pruned)`` with the expansion split by
+destination rows over the mesh's data axes (``_MeshExpand``: K2's slab
+form ``kernels.ops.frontier_or``, fused, over this rank's share of each ELL
+slab of ``bitset.ell_slabs``, then one collective that gathers the row
+blocks and ORs the flags), and the hop mask, the verdicts and the append
+run alike on every rank.
+
 Packed member words are int32 bit patterns: ``torch.uint32`` lacks ``~``,
 ``>>`` and ``index_put_(accumulate=True)``.  Bit 31 is the sign bit, so
 ``(x >> s) & 1`` reads it under an arithmetic shift, and the hop-mask
@@ -91,20 +101,25 @@ class _SweepState:
                          sweeps: ids that only grow, so they need no reset
       frontier           int32[2n]  the ring of level rows
       cone, counts       int32[n], int64[3]  the sweep's distinct rows; the
-                         ring position, cone length and bad-id flag"""
+                         ring position, cone length and bad-id flag
 
-    def __init__(self, n: int, w: int, device):
+    ``delta``, ``stamps``, ``frontier``, ``cone`` and ``counts`` serve the
+    frontier push alone: with ``push=False`` (the mesh build, whose levels
+    are dense) they are not allocated."""
+
+    def __init__(self, n: int, w: int, device, push: bool = True):
         wm = (w + 31) // 32
         z = dict(dtype=torch.int32, device=device)
         self.v = torch.zeros((n, wm), **z)
         self.pruned = torch.zeros((n, wm), **z)
-        self.delta = torch.zeros((2, n, wm), **z)
-        self.deltas = (self.delta[0], self.delta[1])
         self.hop_mask = torch.zeros((n + 2, wm), **z)
-        self.stamps = torch.full((3, n), -1, **z)
-        self.frontier = torch.zeros(2 * n, **z)
-        self.cone = torch.zeros(n, **z)
-        self.counts = torch.zeros(3, dtype=torch.int64, device=device)
+        if push:
+            self.delta = torch.zeros((2, n, wm), **z)
+            self.deltas = (self.delta[0], self.delta[1])
+            self.stamps = torch.full((3, n), -1, **z)
+            self.frontier = torch.zeros(2 * n, **z)
+            self.cone = torch.zeros(n, **z)
+            self.counts = torch.zeros(3, dtype=torch.int64, device=device)
         self.sweep = 0
         self.level = 0
         self.consts = _member_consts(w, device)
@@ -140,19 +155,11 @@ def _sweep(st: _SweepState, expand: ops.FrontierExpand, L_src, L_tgt, len_tgt, m
     ``index_put_`` or a ``torch.where`` with a Python scalar costs host
     syncs, bound checks or a host-to-device copy."""
     n, wm = st.v.shape
-    l_max = L_tgt.shape[1]
     wlen = members.shape[0]
-    word, bit, shift = (c[:wlen] for c in st.consts)
+    word, bit, _ = (c[:wlen] for c in st.consts)
     sweep = st.sweep
     st.sweep += 1
-
-    # 1. hop_mask[h] = member words of members whose prune row holds h.
-    #    Scatter-ADD is exact: each (member, hop) pair is unique, and
-    #    distinct members in one word carry distinct bits, so add == OR.
-    hops = L_src[members].long()                                # [wlen, l_max]
-    hops.masked_fill_(hops == _INVALID, n + 1)
-    st.hop_mask.view(-1).scatter_add_(0, (hops * wm + word[:, None]).view(-1),
-                                      st.bit_rows(l_max)[:wlen].view(-1))
+    hops = _scatter_hop_mask(st, L_src, members)
 
     # 2. fixpoint masked reach, a level at a time from the rows the last
     #    level reached.  The members are level 0's frontier and the cone's
@@ -181,11 +188,36 @@ def _sweep(st: _SweepState, expand: ops.FrontierExpand, L_src, L_tgt, len_tgt, m
             break
         lo, hi, cur = hi, ring, 1 - cur
     counts["cone_rows"].append(n_cone)
+    return _append(st, st.cone[:n_cone].long(), L_tgt, len_tgt, ranks, hops, counts)
 
-    # 3. segment-scatter append over the cone (its rows are distinct):
-    #    member bits -> (row, len + prefix-popcount) columns.  Appends that
-    #    JAX drops (a column at or past l_max) park in row n, column 0.
-    rows = st.cone[:n_cone].long()
+
+def _scatter_hop_mask(st: _SweepState, L_src, members) -> torch.Tensor:
+    """Step 1 of a sweep: hop_mask[h] = member words of the members whose
+    prune row holds h.  Scatter-ADD is exact: each (member, hop) pair is
+    unique, and distinct members in one word carry distinct bits, so add ==
+    OR.  Returns the hop ids scattered (INVALID entries parked at row n +
+    1), which ``_append`` resets."""
+    n, wm = st.v.shape
+    l_max = L_src.shape[1]
+    wlen = members.shape[0]
+    hops = L_src[members].long()                                # [wlen, l_max]
+    hops.masked_fill_(hops == _INVALID, n + 1)
+    st.hop_mask.view(-1).scatter_add_(0, (hops * wm + st.consts[0][:wlen, None]).view(-1),
+                                      st.bit_rows(l_max)[:wlen].view(-1))
+    return hops
+
+
+def _append(st: _SweepState, rows, L_tgt, len_tgt, ranks, hops, counts: dict) -> bool:
+    """Steps 3 and 4 of a sweep: the segment-scatter append over ``rows``
+    (the sweep's cone: the distinct rows it visited), member bits -> (row,
+    len + prefix-popcount) columns, then the state left zero (the cone's
+    words and the members' hop rows).  Appends that JAX drops (a column at
+    or past l_max) park in row n, column 0.  Returns whether a row
+    outgrew ``L_tgt``'s width: then ``len_tgt`` keeps the pre-wave lengths
+    and ``_undo`` rolls the appends back."""
+    n = st.v.shape[0]
+    l_max = L_tgt.shape[1]
+    word, _, shift = (c[:ranks.shape[0]] for c in st.consts)
     lab = st.v[rows] & ~st.pruned[rows]       # [k, wm]
     bits = (lab[:, word] >> shift) & 1        # [k, wlen] int32
     cnt = bits.sum(1, dtype=torch.int32)
@@ -199,10 +231,103 @@ def _sweep(st: _SweepState, expand: ops.FrontierExpand, L_src, L_tgt, len_tgt, m
     if not overflow:
         len_tgt.index_add_(0, rows, cnt)
 
-    # 4. leave the state zero: the cone's words and the members' hop rows
     st.v.index_fill_(0, rows, 0)
     st.hop_mask.index_fill_(0, hops.view(-1), 0)
     return overflow
+
+
+class _MeshExpand:
+    """One BFS level of every wave member over a mesh: K2's slab form,
+    fused, over this rank's share of each ``bitset.ell_slabs`` slab, then
+    the row blocks gathered over the mesh's data axes (the counterpart of
+    ``engine_jax._expand_fn`` with ``mesh=``).
+
+    The slabs' rows are permuted by degree, and slab s spans the first r_s
+    of them (r_0: every row with a neighbor).  JAX pads each slab to a
+    multiple of the data shards and gives shard d the d-th equal block of
+    its rows.  Here the blocks of slab 0, ``chunk = ceil(r_0 / shards)``
+    rows, are cut once, and shard d takes rows [d * chunk, (d + 1) * chunk)
+    of every slab (the padded rows, all INVALID, add nothing and are left
+    out).  So each destination row has one owner over all slabs, and a level
+    is one collective: the owner ORs the row's slab gathers into its copy
+    of the row (``frontier_or``'s fused form, ``perm`` the row's place in
+    the block) and the blocks go to every rank by ``gather_rows``, with
+    each rank's two flags (a word gained a bit; an id outside the graph)
+    riding at the end of its block, so the sum over the ranks ORs them.
+    The model axis, if any, replicates the work, as in JAX."""
+
+    def __init__(self, indptr: np.ndarray, indices: np.ndarray, n: int, wm: int,
+                 ell_width: int, mesh, device):
+        from repro_torch.launch.mesh import axes_except, axis_group
+
+        self.dg = axis_group(mesh, axes_except(mesh))
+        perm, _, slabs = bitset.ell_slabs(indptr.astype(np.int64), indices.astype(np.int64),
+                                          n, width=ell_width)
+        r0 = slabs[0].shape[0] if slabs else 0
+        self.wm, self.r0 = wm, r0
+        self.chunk = -(-r0 // self.dg.size)
+        lo = min(self.dg.index * self.chunk, r0)
+        hi = min(lo + self.chunk, r0)
+        # this rank's rows of v, the rows every rank scatters the blocks to
+        self.own = torch.from_numpy(perm[lo:hi]).to(device)
+        self.head = torch.from_numpy(perm[:r0]).to(device)
+        self.shares = []
+        for slab in slabs:
+            top = min(hi, slab.shape[0])
+            if top > lo:
+                self.shares.append((torch.from_numpy(slab[lo:top]).to(device),
+                                    torch.arange(top - lo, dtype=torch.int64, device=device)))
+        self.part = torch.zeros((1, self.chunk * wm + 2), dtype=torch.int32, device=device)
+        self.block = self.part[0, :self.chunk * wm].view(self.chunk, wm)
+        self.flags = self.part[0, self.chunk * wm:]
+
+    def __call__(self, v: torch.Tensor, f: torch.Tensor, counts: dict) -> bool:
+        """``v |= expand(f)`` in place on every rank; whether ``v`` gained a
+        bit anywhere (the same answer on every rank, so the level loop ends
+        on all at once)."""
+        from repro_torch.launch.mesh import gather_rows
+
+        self.part.zero_()
+        self.block[:self.own.shape[0]] = v[self.own]
+        for nbr, at in self.shares:
+            ops.frontier_or(nbr, f, self.block, at, self.flags)
+            counts["slab_calls"] += 1
+        blocks = gather_rows(self.part, self.dg)            # [shards, chunk * wm + 2]
+        counts["collectives"] += 1
+        v.index_copy_(0, self.head, blocks[:, :self.chunk * self.wm]
+                      .reshape(-1, self.wm)[:self.r0])
+        gained, bad = blocks[:, self.chunk * self.wm:].sum(0).tolist()
+        counts["host_reads"] += 1
+        if bad:
+            raise RuntimeError("frontier_or met a neighbor id outside the graph")
+        return gained > 0
+
+
+def _sweep_mesh(st: _SweepState, expand: _MeshExpand, L_src, L_tgt, len_tgt, members, ranks,
+                counts: dict) -> bool:
+    """``_sweep`` over a mesh, mirroring JAX's ``_make_wave_step``: the
+    fixpoint masked reach as dense levels ``v |= expand(v & ~pruned)``, each
+    split over the data axes by ``expand``, until a level adds no bit.  The
+    prune verdicts of every row are computed once, at the start (JAX
+    computes them lazily, for the rows each level reaches; a sweep's hop
+    mask and target labels do not change, so they are the same).  The rest
+    of the sweep runs alike on every rank."""
+    n, wm = st.v.shape
+    wlen = members.shape[0]
+    word, bit, _ = (c[:wlen] for c in st.consts)
+    hops = _scatter_hop_mask(st, L_src, members)
+    tgt = L_tgt[:n].long()
+    tgt.masked_fill_(tgt == _INVALID, n)                # row n of the hop mask is zero
+    st.pruned.copy_(or_reduce(st.hop_mask[tgt], dim=1))
+    st.v.view(-1).scatter_(0, members * wm + word, bit)
+    while True:
+        counts["levels"] += 1
+        if not expand(st.v, st.v & ~st.pruned, counts):
+            break
+    rows = st.v.ne(0).any(1).nonzero().squeeze(1)     # a host read: the cone's size
+    counts["host_reads"] += 1
+    counts["cone_rows"].append(rows.shape[0])
+    return _append(st, rows, L_tgt, len_tgt, ranks, hops, counts)
 
 
 def _undo(L, len_prev):
@@ -274,22 +399,33 @@ def distribution_labeling_device(
     prune_cap: Optional[int] = None,
     device="cuda",
     stats_out: Optional[dict] = None,
+    mesh=None,
 ) -> ReachabilityOracle:
     """Full device wave build (host loop over waves, device sweeps).
 
     ``l_max`` is the starting label-matrix width: overflowing sweeps grow it
     geometrically and run again after a watermark undo.  ``device`` is where
-    the sweeps run: ``frontier_expand``'s kernel on a CUDA device, its plain
-    version on the CPU.  ``stats_out`` (a dict) receives the counts of
-    sweeps, BFS levels, host reads and regrows, and the cone rows a sweep.
+    the sweeps run: the kernels on a CUDA device, their plain versions on
+    the CPU.  ``stats_out`` (a dict) receives the counts of sweeps, BFS
+    levels, host reads and regrows, and the cone rows a sweep.
 
-    ``ell_width`` and ``prune_cap`` keep JAX's signature and change
-    nothing: the levels push over the CSR, not over ELL slabs, and every
-    verdict is computed once, for the rows a level claimed, where JAX picks
-    between a gather of at most ``prune_cap`` rows and a dense fold.  JAX's
-    ``expand``, ``interpret``, ``block_n``, ``donate`` and ``mesh`` have no
-    counterpart: which expansion runs is set by where the tensors lie, and
-    the sharded expansion is ROADMAP.md Queue 1 item 11."""
+    Without ``mesh`` a level pushes from the rows the last level reached
+    (``frontier_expand``).  With ``mesh`` (a ``DeviceMesh`` from
+    ``repro_torch.launch.mesh``; every rank of it calls this with the same
+    graph) the waves stay sequential and each level is JAX's dense level,
+    its slab expansion split by destination rows over the mesh's data
+    axes (``_MeshExpand``: ``frontier_or`` on this rank's share of each
+    ``ell_width`` slab, one collective a level); the rest of the sweep runs
+    alike on every rank, and every rank returns the same labels.
+    ``stats_out`` then also counts the slab calls and the collectives.
+
+    ``prune_cap`` keeps JAX's signature and changes nothing: every verdict
+    is computed once a sweep (for the rows a level claimed, or for every
+    row under a mesh), where JAX picks per level between a gather of at
+    most ``prune_cap`` rows and a dense fold.  ``ell_width`` sets the
+    slabs of the mesh build; the push reads the CSR.  JAX's ``expand``,
+    ``interpret``, ``block_n`` and ``donate`` have no counterpart: which
+    expansion runs is set by ``mesh`` and by where the tensors lie."""
     from repro_torch.build.engine import _hop_rank
 
     dev = resolve_device(device)
@@ -314,9 +450,19 @@ def distribution_labeling_device(
                 torch.from_numpy(np.ascontiguousarray(h.indices, dtype=np.int32)).to(dev))
 
     w = int(max_wave)
-    st = _SweepState(n, w, dev)
-    ex_rev, ex_fwd = st.expander(*csr(g_rev)), st.expander(*csr(g))
+    st = _SweepState(n, w, dev, push=mesh is None)
     counts = {"sweeps": 0, "levels": 0, "host_reads": 0, "regrows": 0, "cone_rows": []}
+    if mesh is None:
+        sweep = _sweep
+        ex_rev, ex_fwd = st.expander(*csr(g_rev)), st.expander(*csr(g))
+    else:
+        # the reverse sweep gathers a row's bits from its out-neighbors (the
+        # graph's slabs), the forward sweep from its in-neighbors
+        sweep = _sweep_mesh
+        wm = (w + 31) // 32
+        ex_rev = _MeshExpand(g.indptr, g.indices, n, wm, ell_width, mesh, dev)
+        ex_fwd = _MeshExpand(g_rev.indptr, g_rev.indices, n, wm, ell_width, mesh, dev)
+        counts.update(slab_calls=0, collectives=0)
 
     # row n of each label matrix parks the appends JAX drops
     L_out = torch.full((n + 1, l_max), _INVALID, dtype=torch.int32, device=dev)
@@ -341,11 +487,11 @@ def distribution_labeling_device(
                 while True:
                     counts["sweeps"] += 1
                     if direction == "rev":
-                        overflow = _sweep(st, ex_rev, L_in, L_out, out_len, members, ranks,
-                                          counts)
+                        overflow = sweep(st, ex_rev, L_in, L_out, out_len, members, ranks,
+                                         counts)
                     else:
-                        overflow = _sweep(st, ex_fwd, L_out, L_in, in_len, members, ranks,
-                                          counts)
+                        overflow = sweep(st, ex_fwd, L_out, L_in, in_len, members, ranks,
+                                         counts)
                     if not overflow:
                         break
                     # overflow: watermark-undo the partial appends (they only

@@ -60,6 +60,7 @@ def build_oracle(
     g: CSRGraph,
     method: Literal["distribution", "hierarchical"] = "distribution",
     backend: str = "auto",
+    mesh=None,
     bucketing: bool = True,
     device="cuda",
     **kwargs,
@@ -69,7 +70,10 @@ def build_oracle(
 
     The DL build runs on ``device`` too when it uses the device engine
     (``impl="device"``, or ``impl="auto"`` on a large sparse graph); HL's
-    levels build on the host and its core through DL.
+    levels build on the host and its core through DL.  ``mesh`` (a
+    ``DeviceMesh`` from ``repro_torch.launch.mesh``) goes to the engine for
+    the sharded backends, as in the JAX package; every rank of it calls
+    this with the same graph.
 
     Raises ``RuntimeError`` before any work when ``device`` is CUDA and
     torch sees no CUDA device."""
@@ -86,6 +90,7 @@ def build_oracle(
         oracle,
         backend=backend,
         level=topo_levels(dag),
+        mesh=mesh,
         bucketing=bucketing,
         # degradation ladder bottom rung: the condensation DAG the labels
         # index, so corrupted/missing rows degrade to exact online search
@@ -104,6 +109,7 @@ def oracle_from_snapshot(
     path: str,
     mode: Literal["strict", "quarantine"] = "strict",
     backend: str = "auto",
+    mesh=None,
     bucketing: bool = True,
     device="cuda",
 ) -> CondensedOracle:
@@ -119,7 +125,8 @@ def oracle_from_snapshot(
     The caller vouches that ``path`` was saved from THIS graph's
     condensation (``save_oracle(path, co.oracle)``, by either package); a
     snapshot of a different graph fails the cheap shape check here and
-    answers garbage past it.  Raises ``RuntimeError`` before any work when
+    answers garbage past it.  ``mesh`` goes to the engine, as in
+    ``build_oracle``.  Raises ``RuntimeError`` before any work when
     ``device`` is CUDA and torch sees no CUDA device."""
     from repro_torch.persist import load_oracle
 
@@ -137,8 +144,8 @@ def oracle_from_snapshot(
             f"snapshot at {path} indexes {oracle.n} vertices but the "
             f"graph's condensation has {dag.n} — wrong snapshot for this graph")
     engine = QueryEngine(
-        oracle, backend=backend, level=topo_levels(dag), bucketing=bucketing,
-        fallback_graph=dag, device=device,
+        oracle, backend=backend, level=topo_levels(dag), mesh=mesh,
+        bucketing=bucketing, fallback_graph=dag, device=device,
     )
     co = CondensedOracle(oracle=oracle, comp=comp, engine=engine)
     engine.comp_source = lambda: co.comp

@@ -128,10 +128,6 @@ class DurableDynamicOracle(DynamicOracle):
         replay.  Raises ``CorruptSnapshotError`` when no snapshot passes
         verification (loud failure — a silently empty oracle would serve
         wrong verdicts)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "the sharded serve backends (mesh=) are not ported yet: "
-                "ROADMAP.md Queue 1 item 11 (multi-device modes)")
         device = resolve_device(device)
         names = sorted((d for d in os.listdir(state_dir) if _SNAP_RE.match(d)),
                        reverse=True)
@@ -186,7 +182,7 @@ class DurableDynamicOracle(DynamicOracle):
         self._epoch = int(meta["epoch"])
         self._install_epoch(oracle)
         self.engine = QueryEngine(
-            oracle, backend=backend, bucketing=bucketing,
+            oracle, backend=backend, mesh=mesh, bucketing=bucketing,
             level=self.level, comp_source=self._current_comp,
             epoch=self._epoch, fallback_graph=self.delta.dag_csr(),
             device=device,

@@ -38,7 +38,9 @@ The counterpart of ``repro.dynamic.versioned``: ``apply``, ``publish``, the
 staleness budget, ``growth_log``, the epoch window and the metric families
 are ``repro``'s.  The port adds ``device`` (default ``"cuda"``; the engine,
 the builds and the pinned epochs run there, and ``"cpu"`` runs the plain
-versions of the kernels) and has no ``mesh`` expansion yet.
+versions of the kernels); ``mesh`` goes to the engine, whose sharded
+backends serve the current epoch over it (pinned epochs serve on this
+rank's device).
 """
 from __future__ import annotations
 
@@ -140,9 +142,7 @@ class DynamicOracle:
     g : CSRGraph
         Initial digraph (cycles allowed — SCCs are condensed and maintained
         incrementally from then on).
-    backend, bucketing : forwarded to the QueryEngine.
-    mesh : not ported yet (``NotImplementedError``: ROADMAP.md Queue 1
-        item 11).
+    backend, mesh, bucketing : forwarded to the QueryEngine.
     staleness_budget : float
         Fraction of the index (in label ints) the incremental repairs may
         churn before the next publish compacts via a full rebuild.
@@ -172,10 +172,6 @@ class DynamicOracle:
         build_impl: str = "auto",
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the sharded serve backends (mesh=) are not ported yet: "
-                "ROADMAP.md Queue 1 item 11 (multi-device modes)")
         self.device = resolve_device(device)
         self.delta = CondensationState(g)
         self.staleness_budget = float(staleness_budget)
@@ -194,7 +190,7 @@ class DynamicOracle:
         self._epochs: "OrderedDict[int, LabelEpoch]" = OrderedDict()
         self._epoch = 0
         self.engine = QueryEngine(
-            self._snapshot_oracle(), backend=backend,
+            self._snapshot_oracle(), backend=backend, mesh=mesh,
             bucketing=bucketing, level=self.level,
             comp_source=self._current_comp, epoch=0,
             # frozen materialization of the initial condensation DAG: the

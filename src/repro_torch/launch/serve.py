@@ -51,8 +51,12 @@ from repro_torch.graph.generators import paper_dataset_analogue, random_dag
 from repro_torch.graph.reach import reachable_set
 from repro_torch.obs import metrics, trace
 from repro_torch.serve.daemon import DaemonConfig, ServeDaemon
-from repro_torch.serve.engine import BACKENDS, select_backend
+from repro_torch.serve.engine import select_backend
 from repro_torch.serve.openloop import run_open_loop
+
+# the backends ``--backend all`` sweeps: those of one device (the sharded
+# ones need a mesh of ranks), as ``repro.launch.serve.HOST_BACKENDS``
+HOST_BACKENDS = ("host", "dense", "kernel")
 
 
 def make_graph(args):
@@ -172,12 +176,12 @@ def run_sweep(args) -> dict:
     moved degradation counter (other than the quarantine rung of a
     quarantine-mode cold start, and the device -> host rung that
     ``--inject-device-failure`` aims at)."""
-    backends = list(BACKENDS) if args.backend == "all" else [args.backend]
+    backends = list(HOST_BACKENDS) if args.backend == "all" else [args.backend]
     device = resolve_device(args.device)
     for be in backends:
         try:
             select_backend(be, device)
-        except (ValueError, NotImplementedError) as e:
+        except ValueError as e:
             raise SystemExit(str(e))
 
     g = make_graph(args)

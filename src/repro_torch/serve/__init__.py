@@ -16,6 +16,8 @@ from repro_torch.serve.engine import (
     BACKENDS,
     QueryEngine,
     intersect_rows,
+    make_hop_sharded_serve_step,
+    make_sharded_serve_step,
     select_backend,
     serve_step,
 )
@@ -40,6 +42,8 @@ __all__ = [
     "select_backend",
     "serve_step",
     "intersect_rows",
+    "make_sharded_serve_step",
+    "make_hop_sharded_serve_step",
     "BatchPlan",
     "TierPlan",
     "plan_batch",

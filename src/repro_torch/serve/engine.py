@@ -17,9 +17,22 @@ Backends:
           intersection of a whole batch in one launch, with one copy in and
           one copy out (on a CPU engine the wrapper runs its plain version)
 
-``backend="auto"`` picks ``kernel`` when the engine's device is CUDA and
-``dense`` on the CPU.  The multi-device ``sharded`` / ``sharded_hop``
-backends are not ported yet (ROADMAP.md Queue 1 item 11).
+  sharded      labels whole on every rank, the batch split over the mesh's
+               data axes: each data rank answers its slice with K1's tier
+               form (``kernels.ops.tier_intersect``) and the slices are
+               gathered, so every rank gets the whole answer
+  sharded_hop  each model rank holds a contiguous column block of both
+               label matrices (the labels-larger-than-one-device mode): it
+               gathers its block of the slice's rows, all-gathers the
+               ``L_in`` rows over the model axis, intersects with the tier
+               form, and the hits are ORed over the model axis, then
+               gathered over the data axes
+
+``backend="auto"`` picks ``sharded`` when a mesh is given, ``kernel`` when
+the engine's device is CUDA and ``dense`` on the CPU.  The sharded backends
+run one process a rank (``repro_torch.launch.mesh``): every rank of the
+mesh makes the same calls on the same queries, where JAX's engine runs the
+mesh from one controller.
 
 Under a memory budget (``set_budget``, ``serve.budget``) every backend reads
 the truncated store and verdicts become three-valued: a false verdict with
@@ -35,7 +48,7 @@ import copy
 import threading
 import time
 import warnings
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -49,22 +62,20 @@ from repro_torch.obs.state import ON
 from repro_torch.serve.planner import plan_batch, tier_stats, tier_widths
 from repro_torch.serve.prefilter import apply_prefilters
 
-BACKENDS = ("host", "dense", "kernel")
-_NOT_PORTED = {
-    "sharded": "ROADMAP.md Queue 1 item 11 (multi-device modes)",
-    "sharded_hop": "ROADMAP.md Queue 1 item 11 (multi-device modes)",
-}
+BACKENDS = ("host", "dense", "kernel", "sharded", "sharded_hop")
 
 
-def select_backend(name: Optional[str] = None, device="cuda") -> str:
-    """Resolve a backend name ('auto'/None = kernel on CUDA, dense on CPU)."""
+def select_backend(name: Optional[str] = None, device="cuda", mesh=None) -> str:
+    """Resolve a backend name ('auto'/None = sharded with a mesh, else
+    kernel on CUDA and dense on CPU)."""
     if name in (None, "auto"):
+        if mesh is not None:
+            return "sharded"
         return "kernel" if torch.device(device).type == "cuda" else "dense"
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"backend {name!r} is not ported yet: {_NOT_PORTED[name]}")
     if name not in BACKENDS:
         raise ValueError(f"unknown backend {name!r}; expected one of {BACKENDS}")
+    if name in ("sharded", "sharded_hop") and mesh is None:
+        raise ValueError(f"backend {name!r} requires a mesh")
     return name
 
 
@@ -94,6 +105,118 @@ def serve_step(L_out: torch.Tensor, L_in: torch.Tensor, queries: torch.Tensor,
     """
     width = max(L_out.shape[1], L_in.shape[1])
     return _tier_intersect(L_out, L_in, queries, width, use_kernel)
+
+
+# ------------------------------------------------------------ sharded modes
+
+
+def _placements(mesh, sharded: dict) -> tuple:
+    """DTensor placements over ``mesh``'s axes: ``sharded`` maps an axis to
+    the ``Shard`` dim it splits, every other axis ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return tuple(Shard(sharded[ax]) if ax in sharded else Replicate()
+                 for ax in mesh.mesh_dim_names)
+
+
+def _data_slice(queries: torch.Tensor, dg) -> torch.Tensor:
+    """This data rank's contiguous slice of a batch padded to a multiple of
+    the data shards."""
+    B = queries.shape[0]
+    if B % dg.size:
+        raise ValueError(f"a batch of {B} does not split over {dg.size} data shards; "
+                         "pad it to a multiple (QueryEngine does)")
+    b = B // dg.size
+    return queries[dg.index * b:(dg.index + 1) * b]
+
+
+def make_sharded_serve_step(mesh, data_axes=("pod", "data")):
+    """Production serve step: labels whole on every rank, queries split over
+    ``data_axes``.  Returns ``(fn, in_placements, out_placement)``, JAX's
+    triple with DTensor placements as its descriptive second and third
+    items.
+
+    ``fn(L_out, L_in, queries)`` takes int32 label matrices and an int32[B,
+    2] batch (B a multiple of the data shards) on this rank's device, answers
+    its data slice with K1's tier form at the full width and returns the
+    whole bool[B] on every rank (the slices gathered over ``data_axes``).
+    Every rank calls it with the same arguments."""
+    from repro_torch.launch.mesh import axis_group, gather_rows
+
+    dg = axis_group(mesh, data_axes)
+    data = {ax: 0 for ax in data_axes}
+
+    def fn(L_out, L_in, queries):
+        q = _data_slice(queries, dg)
+        hit = ops.tier_intersect(L_out, L_in, q, max(L_out.shape[1], L_in.shape[1]))
+        return gather_rows(hit, dg)
+
+    labels = _placements(mesh, {})
+    return fn, (labels, labels, _placements(mesh, data)), _placements(mesh, data)
+
+
+class _ColumnBlocks:
+    """This model rank's contiguous column blocks of the label matrices it
+    was last given, cut once a matrix pair (and again when the engine
+    swaps labels: a refresh, a budget)."""
+
+    def __init__(self, mg):
+        self.mg = mg
+        self._key = None
+        self._blocks = None
+
+    def __call__(self, L_out: torch.Tensor, L_in: torch.Tensor) -> tuple:
+        if self._key is None or self._key[0] is not L_out or self._key[1] is not L_in:
+            blocks = []
+            for name, L in (("L_out", L_out), ("L_in", L_in)):
+                w = L.shape[1]
+                if w % self.mg.size:
+                    # JAX's jit refuses the sharding too (a ValueError, which
+                    # its engine's catch-all serves on the host)
+                    raise ValueError(
+                        f"the model axis ({self.mg.size} ranks) does not divide the "
+                        f"width of {name} ({w})")
+                c = w // self.mg.size
+                blocks.append(L[:, self.mg.index * c:(self.mg.index + 1) * c].contiguous())
+            self._key, self._blocks = (L_out, L_in), tuple(blocks)
+        return self._blocks
+
+
+def make_hop_sharded_serve_step(mesh, model_axis="model", data_axes=("pod", "data")):
+    """Large-graph variant: label MATRICES split over ``model_axis`` along
+    the hop dimension (each model rank holds a contiguous column block of
+    every row), queries over ``data_axes``.  Returns ``(fn, in_placements,
+    out_placement)`` as ``make_sharded_serve_step`` does.
+
+    ``fn(L_out, L_in, queries)``: for its data slice a rank gathers its
+    column block of the ``L_out`` rows and of the ``L_in`` rows, gathers the
+    ``L_in`` rows' blocks over the model axis (JAX's implicit all-gather),
+    intersects its ``L_out`` block with the whole ``L_in`` rows in K1's tier
+    form, ORs the hits over the model axis and gathers them over the data
+    axes.  The model axis must divide both label widths (``ValueError``).
+    The blocks are cut from the matrices on first use and kept."""
+    from repro_torch.launch.mesh import axis_group, gather_rows, or_over
+
+    dg = axis_group(mesh, data_axes)
+    mg = axis_group(mesh, (model_axis,))
+    blocks = _ColumnBlocks(mg)
+
+    def fn(L_out, L_in, queries):
+        lo, li = blocks(L_out, L_in)
+        q = _data_slice(queries, dg).long()
+        a = lo.index_select(0, q[:, 0])                       # [b, Lo / M]
+        b_part = li.index_select(0, q[:, 1])                  # [b, Li / M]
+        # the model ranks' blocks side by side: [M, b, Li / M] -> [b, Li]
+        b_full = gather_rows(b_part.unsqueeze(0), mg).permute(1, 0, 2)
+        b_full = b_full.reshape(b_part.shape[0], -1).contiguous()
+        rows = torch.arange(q.shape[0], dtype=torch.int32, device=q.device)
+        hit = ops.tier_intersect(a, b_full, torch.stack([rows, rows], 1),
+                                 max(a.shape[1], b_full.shape[1]))
+        return gather_rows(or_over(hit, mg), dg)
+
+    data = {ax: 0 for ax in data_axes}
+    labels = _placements(mesh, {model_axis: 1})
+    return fn, (labels, labels, _placements(mesh, data)), _placements(mesh, data)
 
 
 # ----------------------------------------------------------------- engine
@@ -149,6 +272,13 @@ class QueryEngine:
         One of BACKENDS or "auto".
     level : optional int32[n]
         Topological levels for the level prefilter (``prefilter.topo_levels``).
+    mesh : optional ``DeviceMesh`` (``repro_torch.launch.mesh.form_mesh``)
+        Required for the sharded backends; every rank of it runs this engine
+        on the same labels and makes the same calls.
+    data_axes, model_axis
+        The mesh axes the batch and (``sharded_hop``) the label columns are
+        split over; ``data_axes`` defaults to every axis but
+        ``model_axis``, as in the JAX engine.
     bucketing : bool
         Length-bucketed micro-batching for dense/kernel backends.
     comp_source : optional callable -> int32[n_original]
@@ -161,9 +291,10 @@ class QueryEngine:
         of the degradation ladder (exact bidirectional online search when
         labels cannot be trusted).
     device : str or torch.device
-        Where the label matrices live and the dense/kernel backends run.
-        Defaults to ``"cuda"``; raises ``RuntimeError`` when torch sees no
-        CUDA device, unless ``device="cpu"`` is given.
+        Where the label matrices live and the dense/kernel/sharded backends
+        run (this rank's card under a mesh).  Defaults to ``"cuda"``; raises
+        ``RuntimeError`` when torch sees no CUDA device, unless
+        ``device="cpu"`` is given.
 
     Degradation ladder
     ------------------
@@ -171,10 +302,11 @@ class QueryEngine:
     downgrades the whole sub-batch to the host merge path (same labels,
     same verdicts, counted as ``device_to_host``, as the JAX engine counts
     it).  A real failure of the device path (the kernel does not build, a
-    launch or a CUDA call fails) is raised, never served on the CPU: the
-    JAX engine's catch-all would hide a broken kernel behind correct
-    verdicts.
-    a query touching a *quarantined* label row (``set_quarantine``) skips
+    launch, a CUDA call or a collective fails) is raised, never served on
+    the CPU: the JAX engine's catch-all would hide a broken kernel behind
+    correct verdicts.  Under a mesh the hook fires before the first
+    collective, so an injected failure takes every rank down the same rung.
+    A query touching a *quarantined* label row (``set_quarantine``) skips
     labels entirely and runs the exact online search.  Under a budget
     (``set_budget``) a false verdict with both rows truncated is uncertain
     and runs the exact online search too.  Every rung returns correct
@@ -186,6 +318,9 @@ class QueryEngine:
         oracle,
         backend: str = "auto",
         level: Optional[np.ndarray] = None,
+        mesh=None,
+        data_axes: Optional[Sequence[str]] = None,
+        model_axis: str = "model",
         bucketing: bool = True,
         n_tiers: int = 3,
         min_tile: int = 256,
@@ -197,12 +332,20 @@ class QueryEngine:
     ):
         self.device = resolve_device(device)
         self.oracle = oracle
-        self.backend = select_backend(backend, self.device)
+        self.mesh = mesh
+        self.backend = select_backend(backend, self.device, mesh)
         # own copy: the owner may keep mutating its working level array
         self.level = None if level is None else np.array(level, dtype=np.int32)
         self.bucketing = bucketing
         self.min_tile = int(min_tile)
         self.n_tiers = int(n_tiers)
+        if data_axes is None and mesh is not None:
+            from repro_torch.launch.mesh import axes_except
+
+            data_axes = axes_except(mesh, model_axis)
+        self.data_axes = data_axes
+        self.model_axis = model_axis
+        self._sharded_fns: dict = {}
         self.comp_source = comp_source
         self.epoch = int(epoch)
         self._lo, self._li = oracle.device_labels(self.device)
@@ -412,7 +555,8 @@ class QueryEngine:
         """
         queries = self._map_ids(np.asarray(queries))
         queries = np.ascontiguousarray(np.asarray(queries, dtype=np.int32))
-        backend = self.backend if backend is None else select_backend(backend, self.device)
+        backend = self.backend if backend is None else select_backend(
+            backend, self.device, self.mesh)
         # the budget view, captured ONCE: the batch reads one store, its
         # widths, masks and op, whatever set_budget does meanwhile
         bv = self._budget_view
@@ -468,7 +612,10 @@ class QueryEngine:
                     res = self._host_batch(rest, o)
                 else:
                     try:
-                        res = self._device_batch(rest, stats=stats, view=bv)
+                        if backend == "dense":
+                            res = self._device_batch(rest, stats=stats, view=bv)
+                        else:
+                            res = self._sharded_batch(rest, backend, view=bv)
                     except inject.SimulatedFailure as e:  # ladder: device -> host merge
                         res = self._degrade_to_host(rest, backend, e, degraded, sp, o)
                 lout[rest_idx] = res
@@ -619,3 +766,31 @@ class QueryEngine:
                 {"width": tier.width, "count": int(tier.idx.size), "rows": tier.rows}
             )
         return plan.scatter([r.cpu().numpy() for r in results])
+
+    def _sharded_batch(self, rest: np.ndarray, backend: str,
+                       view: Optional[_BudgetView] = None) -> np.ndarray:
+        """The ``sharded`` and ``sharded_hop`` backends: the batch padded with
+        zero rows to a multiple of the data shards (as the JAX engine pads
+        it), answered over the mesh, every rank getting every verdict."""
+        from repro_torch.launch.mesh import axis_group
+
+        # chaos hook, before the first collective: every rank fires alike
+        inject.fire("serve.device_dispatch", backend=backend)
+        lo, li = (self._lo, self._li) if view is None else (view.L_out, view.L_in)
+        fn = self._sharded_fns.get(backend)
+        if fn is None:
+            if backend == "sharded":
+                fn, _, _ = make_sharded_serve_step(self.mesh, data_axes=self.data_axes)
+            else:
+                fn, _, _ = make_hop_sharded_serve_step(
+                    self.mesh, model_axis=self.model_axis, data_axes=self.data_axes)
+            self._sharded_fns[backend] = fn
+        shards = axis_group(self.mesh, self.data_axes).size
+        B = rest.shape[0]
+        pad = (-B) % shards
+        if pad:
+            rest = np.concatenate([rest, np.zeros((pad, 2), dtype=rest.dtype)], axis=0)
+        with trace.span("device_call", cat="device", annotate=True,
+                        args={"rows": int(rest.shape[0])} if ON.enabled else None):
+            res = fn(lo, li, self._to_device(rest))
+        return res[:B].cpu().numpy()

@@ -14,6 +14,7 @@ import repro.graph.scc as jscc
 import repro_torch.build.engine as tengine
 import repro_torch.graph.csr as tcsr
 from repro_torch.core.oracle import oracle_from_arrays
+from mesh_ranks import one_rank_mesh
 from test_serve_engine import _graph_families
 
 FIELDS = ("L_out", "L_in", "out_len", "in_len", "hop_rank")
@@ -63,9 +64,19 @@ def test_auto_resolves_to_reference_and_records_it():
 
 @pytest.mark.parametrize("impl", ["device"])
 def test_unported_impls_raise_naming_their_roadmap_item(impl):
+    """Every impl is ported now, the device engine's ``mesh=`` expansion too
+    (it took ``NotImplementedError`` until the multi-device modes came):
+    ``mesh=`` reaches the device engine as JAX's device kwargs do, a mesh
+    of one rank builds the reference's labels, an object that is not a
+    mesh raises, and an unknown impl still raises."""
     g = tcsr.from_edges(4, [0, 1], [1, 2])
-    # the device engine is ported; its sharded expansion (mesh=) is not
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
+    with one_rank_mesh() as mesh:
+        o = tengine.build_distribution_labels(g, impl=impl, device="cpu", mesh=mesh)
+    ref = tengine.build_distribution_labels(g, impl="reference")
+    for f in FIELDS:
+        assert getattr(o, f).tobytes() == getattr(ref, f).tobytes(), f
+    assert o.build_stats["device"]["collectives"] == o.build_stats["device"]["levels"] > 0
+    with pytest.raises(ValueError, match="not a mesh made by form_mesh"):
         tengine.build_distribution_labels(g, impl=impl, device="cpu", mesh=object())
     with pytest.raises(ValueError, match="unknown construction impl"):
         tengine.build_distribution_labels(g, impl="bogus")

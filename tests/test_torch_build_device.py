@@ -25,6 +25,7 @@ import repro_torch.build.engine_device as tengine_device
 import repro_torch.graph.csr as tcsr
 from repro_torch.core.api import build_oracle
 from repro_torch.kernels import ops
+from mesh_ranks import one_rank_mesh
 from test_build_engine import _dag_families
 
 FIELDS = ("L_out", "L_in", "out_len", "in_len", "hop_rank")
@@ -140,7 +141,13 @@ def test_engine_kwargs_are_checked():
         tengine.build_distribution_labels(g, impl="device", device="cpu", expand="xla")
     with pytest.raises(TypeError, match="accepts no extra kwargs"):
         tengine.build_distribution_labels(g, impl="reference", l_max=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
+    # mesh= is a device-engine kwarg, as in JAX: a mesh of one rank builds
+    # the same labels through K2's slab form; anything else is no mesh
+    with one_rank_mesh() as mesh:
+        _assert_same_labels(tengine.build_distribution_labels(g, impl="reference"),
+                            tengine.build_distribution_labels(g, impl="device", device="cpu",
+                                                              mesh=mesh))
+    with pytest.raises(ValueError, match="not a mesh made by form_mesh"):
         tengine.build_distribution_labels(g, impl="device", device="cpu", mesh=object())
     waves = np.array([1] * g.n, dtype=np.int64)  # a caller-given schedule
     t = tengine.build_distribution_labels(g, impl="device", device="cpu", waves=waves)

@@ -8,8 +8,9 @@ one open-loop daemon run on the card against the host merge and BFS truth,
 the dynamic oracle (current epochs through serve_batch, pinned ones through
 label_intersect), a durable crash and recovery and the six chaos scenarios
 on the card, the device wave build on the
-card (through frontier_expand) against the reference build, and the
-kernel library (K3 bitset_mm, K4 flash_attention, K5 ell_spmm, K6
+card (through frontier_expand) against the reference build, the sharded
+serve backends and the ``mesh=`` device build over a one-rank NCCL mesh,
+and the kernel library (K3 bitset_mm, K4 flash_attention, K5 ell_spmm, K6
 embedding_bag) against its plain versions.
 
 These tests need a CUDA card and the CUDA toolkit (the kernels build with
@@ -32,6 +33,7 @@ from serve_batch_cases import MASKS as SERVE_MASKS
 from serve_batch_cases import make_case as make_serve_case
 from serve_batch_cases import numpy_codes as numpy_serve_codes
 import tier_slab_cases as tsc
+from mesh_ranks import one_rank_mesh
 from repro_torch.core.api import build_oracle
 from repro_torch.graph.generators import paper_dataset_analogue
 from repro_torch.kernels import ops, ref
@@ -471,6 +473,45 @@ def test_device_build_label_growth_on_the_card(cuda):
     assert ops.LAUNCHES["frontier_expand"] > 0 and ops.LAUNCHES["frontier_or"] == 0
     assert dev_co.oracle.build_stats["device"]["regrows"] > 0
     _assert_same_labels(ref_co.oracle, dev_co.oracle, "l_max growth")
+
+
+# ------------------------------------------------------ multi-device modes
+
+
+def test_sharded_engine_one_rank_nccl(cuda):
+    """Both sharded backends over a one-rank NCCL mesh: K1's tier form once
+    a batch a backend, the host merge's verdicts, no degradation."""
+    g = paper_dataset_analogue("citeseer", scale=0.01)
+    q = np.random.default_rng(0).integers(0, g.n, (3 * 4096, 2)).astype(np.int32)
+    with one_rank_mesh("nccl") as mesh:
+        co = build_oracle(g, mesh=mesh)
+        assert co.engine.backend == "sharded"
+        exp = co.serve(q, backend="host")
+        for be in ("sharded", "sharded_hop"):
+            ops.reset_launches()
+            got = np.concatenate([co.serve(q[i:i + 4096], backend=be)
+                                  for i in range(0, q.shape[0], 4096)])
+            assert ops.LAUNCHES["label_intersect"] == 3 and ops.LAUNCHES["serve_batch"] == 0
+            assert (got == exp).all(), be
+        assert not any(co.engine.degradation.values())
+
+
+@pytest.mark.parametrize("family", range(5))
+def test_mesh_build_one_rank_nccl(cuda, family):
+    """The ``mesh=`` device build over a one-rank NCCL mesh: K2's slab form
+    once a slab call, one collective a level, the reference's labels."""
+    from repro_torch.build.engine import build_distribution_labels
+
+    name, g = _dag_families()[family]
+    ref_o = build_distribution_labels(g, impl="reference")
+    with one_rank_mesh("nccl") as mesh:
+        ops.reset_launches()
+        o = build_distribution_labels(g, impl="device", mesh=mesh)
+    st = o.build_stats["device"]
+    assert ops.LAUNCHES["frontier_or"] == st["slab_calls"] > 0
+    assert ops.LAUNCHES["frontier_expand"] == 0
+    assert st["collectives"] == st["levels"] > 0
+    _assert_same_labels(ref_o, o, name)
 
 
 # --------------------------------------------------------- dynamic oracle

@@ -36,6 +36,7 @@ from repro.graph.generators import layered_dag
 from repro_torch.core.api import build_oracle
 from repro_torch.graph.generators import layered_dag as tlayered_dag
 from repro_torch.graph.generators import random_dag as trandom_dag
+from mesh_ranks import one_rank_mesh
 from test_dynamic import _graph_families, _mirror, _truth_matrix
 
 HOST_BACKENDS = ("host", "dense", "kernel")
@@ -367,15 +368,36 @@ def test_mutable_labels_roundtrip_and_tally():
     assert labels.take_dirty() == ({}, {})
 
 
-def test_device_defaults_to_cuda_and_mesh_is_not_ported():
+def test_device_defaults_to_cuda_and_mesh_is_not_ported(tmp_path):
+    """The device still defaults to CUDA.  ``mesh=`` (it took
+    ``NotImplementedError`` until the multi-device modes came) goes to the
+    engine, as in ``repro.dynamic``: over a mesh of one rank the oracle and
+    its durable recovery serve ``sharded`` by default, with the JAX
+    oracle's verdicts on a one-device mesh, before and after a publish."""
+    import jax
     import torch
 
     g = tcsr.from_edges(3, [0], [1])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tdyn.DynamicOracle(g)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tdyn.DynamicOracle(g, mesh=object(), device="cpu")
+    jg = layered_dag(60, avg_out=2.0, seed=3)
+    tg = tcsr.CSRGraph(jg.indptr.copy(), jg.indices.copy())
+    q = np.random.default_rng(1).integers(0, jg.n, (700, 2)).astype(np.int32)
+    jo = jdyn.DynamicOracle(jg, mesh=jax.make_mesh((1, 1), ("data", "model")))
+    with one_rank_mesh() as mesh:
+        to = tdyn.DurableDynamicOracle(tg, str(tmp_path / "state"), mesh=mesh, device="cpu")
+        assert to.engine.backend == jo.engine.backend == "sharded"
+        for be in ("sharded", "sharded_hop"):
+            assert (to.serve(q, backend=be) == jo.serve(q, backend=be)).all()
+        to.apply(tdyn.UpdateBatch.of(inserts=[(0, 59), (7, 41)]))
+        jo.apply(jdyn.UpdateBatch.of(inserts=[(0, 59), (7, 41)]))
+        assert to.publish() == jo.publish()
+        assert (to.serve(q) == jo.serve(q)).all()
+        back = tdyn.DurableDynamicOracle.recover(str(tmp_path / "state"), mesh=mesh,
+                                                 device="cpu")
+        assert back.engine.backend == "sharded"
+        assert (back.serve(q, backend="sharded_hop") == jo.serve(q)).all()
 
 
 # ---------------------------------------------------------------------------

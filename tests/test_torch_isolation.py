@@ -49,7 +49,9 @@ for name in ("repro_torch.build.bitset", "repro_torch.build.waves",
              # the dynamic oracle, its durable form and the chaos driver
              "repro_torch.dynamic", "repro_torch.dynamic.delta",
              "repro_torch.dynamic.repair", "repro_torch.dynamic.versioned",
-             "repro_torch.dynamic.durable", "repro_torch.launch.chaos"):
+             "repro_torch.dynamic.durable", "repro_torch.launch.chaos",
+             # the multi-device modes and the vertex-wise device DL
+             "repro_torch.launch.mesh", "repro_torch.core.distribution_device"):
     assert name in names, name
 from repro_torch.core.api import oracle_from_snapshot
 from repro_torch.core import hierarchical_labeling
@@ -59,6 +61,8 @@ from repro_torch.serve import BudgetController, TruncatedStore
 from repro_torch.persist import WriteAheadLog, load_budgeted, load_epoch, save_epoch
 from repro_torch.dynamic import DurableDynamicOracle, DynamicOracle, LabelEpoch
 from repro_torch.build.engine import cone_resume_sweep
+from repro_torch.core import distribution_labeling_torch, oracle_from_snapshot
+from repro_torch.serve import make_hop_sharded_serve_step, make_sharded_serve_step
 # the kernel library's wrappers, and a build entry for every CUDA source
 from repro_torch.kernels import build, ops
 for fn in ("bitset_mm", "flash_attention", "ell_spmm", "embedding_bag"):

@@ -167,8 +167,13 @@ def test_backend_selection():
     assert tengine.select_backend("auto", "cpu") == "dense"
     assert tengine.select_backend(None, "cuda") == "kernel"
     assert tengine.select_backend("host", "cuda") == "host"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    # as tests/test_serve_engine.py::test_backend_selection: no mesh
+    with pytest.raises(ValueError, match="requires a mesh"):
         tengine.select_backend("sharded", "cpu")
+    with pytest.raises(ValueError, match="requires a mesh"):
+        tengine.select_backend("sharded_hop", "cpu")
+    assert tengine.select_backend("auto", "cpu", mesh=object()) == "sharded"
+    assert jengine.select_backend("auto", mesh=object()) == "sharded"
     with pytest.raises(ValueError):
         tengine.select_backend("nope", "cpu")
     co = tapi.build_oracle(tcsr.from_edges(5, [0, 1], [1, 2]), device="cpu")
