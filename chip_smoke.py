@@ -120,15 +120,17 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      phase 4's, K1's tier form ``label_intersect`` launched once a batch a
      backend (512, read around exactly that run), each backend's batch
      p50/p99.  (b) ``MESH_SHAPE`` (2, 2) ranks over gloo on the one card
-     (NCCL puts no two ranks on one device), spawned once the kernels are
-     built (they load those builds) and running beside phases 3-4h: the
-     ``mesh=`` device build of citeseer@``MESH_BUILD_SCALE`` (0.02), its
-     labels equal to ``DL_SHA256`` there on every rank and K2's slab form
-     ``frontier_or`` launched once a slab call (read around exactly that
-     build); then phase 4's snapshot cold-started on every rank and its
-     first ``MESH_PREFIX_QUERIES`` (65,536) queries through both sharded
-     backends with the column blocks really split, every verdict equal to
-     phase 4's on every rank;
+     (NCCL puts no two ranks on one device), spawned once (a) has ended
+     (they load the kernels the script built), building and cold-starting
+     beside phase 4b alone and serving once 4b has ended, so that no
+     measured window of another phase runs beside them and their serving
+     runs beside nothing: the ``mesh=`` device build of citeseer@
+     ``MESH_BUILD_SCALE`` (0.02), its labels equal to ``DL_SHA256`` there
+     on every rank and K2's slab form ``frontier_or`` launched once a slab
+     call (read around exactly that build); then phase 4's snapshot
+     cold-started on every rank and its first ``MESH_PREFIX_QUERIES``
+     (65,536) queries through both sharded backends with the column blocks
+     really split, every verdict equal to phase 4's on every rank;
   4d. cold start and budget, on phase 4's oracle and traffic: the oracle
      saved (``persist.save_oracle``) and cold-started
      (``core.api.oracle_from_snapshot``), labels byte for byte and every
@@ -1897,7 +1899,7 @@ MESH_SHAPE = (2, 2)
 MESH_BUILD_SCALE = 0.02
 MESH_PREFIX_QUERIES = 16 * BATCH
 MESH_RANK_TIMEOUT_S = 120      # a rank left in a collective raises after this
-MESH_WAIT_S = 420.0            # how long a rank waits for phase 4's snapshot
+MESH_SERVE_WAIT_S = 300.0      # how long a rank waits for the script to let it serve
 MESH_BACKENDS = ("sharded", "sharded_hop")
 
 
@@ -1936,21 +1938,20 @@ def _latency_ms(latencies: list) -> dict:
             "max": max(latencies) * 1e3}
 
 
-def share_main_path(started, co, queries: np.ndarray, verdicts: np.ndarray) -> None:
+def share_main_path(co, queries: np.ndarray, verdicts: np.ndarray) -> tuple:
     """Phase 4's oracle saved (``persist.save_oracle``) with its queries and
-    verdicts, for the mesh ranks of phase 4i (b) to cold-start from; the
-    ``ready`` marker last, atomically."""
+    verdicts in a temporary directory, for phase 4i (a) and (b)'s ranks to
+    cold-start from; returns ``([], directory)``, the ranks' handle, which
+    ``start_mesh_ranks`` fills."""
+    import tempfile
+
     from repro_torch.persist import save_oracle
 
-    if started is None:
-        return
-    d = pathlib.Path(started[1])
-    t0 = time.perf_counter()
+    d = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_4i_"))
     save_oracle(str(d / "snap"), co.oracle)
     np.save(d / "queries.npy", queries[:MESH_PREFIX_QUERIES])
     np.save(d / "verdicts.npy", verdicts[:MESH_PREFIX_QUERIES])
-    (d / "ready.tmp").write_text(json.dumps({"saved_seconds": time.perf_counter() - t0}))
-    os.replace(d / "ready.tmp", d / "ready")
+    return [], str(d)
 
 
 def phase_multi_device_one_rank(device, g, co, queries: np.ndarray,
@@ -2071,17 +2072,18 @@ def _mesh_rank_phases(rank: int, world: int, d: pathlib.Path) -> None:
                         "ms_per_level": t_build * 1e3 / st["levels"],
                         "labels_sha256": DL_SHA256[MESH_BUILD_SCALE]}
         del o
-        # ---- phase 4's snapshot, once the parent has written it
-        t0 = time.perf_counter()
-        while not (d / "ready").exists():
-            check(time.perf_counter() - t0 < MESH_WAIT_S, "phase 4's snapshot never came")
-            time.sleep(0.2)
-        rec["waited_for_phase_4_seconds"] = time.perf_counter() - t0
+        # ---- phase 4's snapshot, which the parent wrote before it started us
         queries, verdicts = np.load(d / "queries.npy"), np.load(d / "verdicts.npy")
         g = paper_dataset_analogue(MAIN_DATASET, scale=MAIN_SCALE)
         t0 = time.perf_counter()
         co = oracle_from_snapshot(g, str(d / "snap"), mesh=mesh, device="cuda")
         rec["cold_start_seconds"] = time.perf_counter() - t0
+        # ---- serve once the script runs nothing beside us (release_mesh_ranks)
+        t0 = time.perf_counter()
+        while not (d / "serve").exists():
+            check(time.perf_counter() - t0 < MESH_SERVE_WAIT_S, "the script never let us serve")
+            time.sleep(0.05)
+        rec["waited_to_serve_seconds"] = time.perf_counter() - t0
         for be in MESH_BACKENDS:
             got, lat, served_launches, _ = _serve_sharded(co, queries, be)
             check(np.array_equal(got, verdicts),
@@ -2096,20 +2098,24 @@ def _mesh_rank_phases(rank: int, world: int, d: pathlib.Path) -> None:
     (d / f"rank{rank}.json").write_text(json.dumps(rec))
 
 
-def start_mesh_ranks():
+def start_mesh_ranks(started) -> None:
     """Start phase 4i (b)'s ranks (spawned processes, their output to files
-    in a temporary directory, where phase 4 leaves its snapshot for them);
-    ``finish_mesh_ranks`` waits for them."""
+    in the directory of ``share_main_path``'s handle ``started``, which
+    holds phase 4's snapshot); ``finish_mesh_ranks`` waits for them."""
     import multiprocessing
-    import tempfile
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_4i_")
+    ranks, tmp = started
     ctx = multiprocessing.get_context("spawn")
-    ranks = [ctx.Process(target=_mesh_rank, args=(r, tmp, _T0), daemon=True)
-             for r in range(MESH_SHAPE[0] * MESH_SHAPE[1])]
+    ranks += [ctx.Process(target=_mesh_rank, args=(r, tmp, _T0), daemon=True)
+              for r in range(MESH_SHAPE[0] * MESH_SHAPE[1])]
     for p in ranks:
         p.start()
-    return ranks, tmp
+
+
+def release_mesh_ranks(started) -> None:
+    """Let phase 4i (b)'s ranks serve their batches: the script runs
+    nothing beside them from here until ``finish_mesh_ranks`` returns."""
+    (pathlib.Path(started[1]) / "serve").touch()
 
 
 def finish_mesh_ranks(started, timeout: float = 300.0) -> dict:
@@ -3713,16 +3719,13 @@ def main(argv=None) -> int:
 def run(args, children: dict) -> int:
     """The phases of ``main``'s arguments; ``children`` holds phase 4c's
     child process (the full script) and phase 4i's ranks, started here
-    once the kernels are built (they load those builds)."""
+    after 4i (a) (they load the kernels the script built)."""
     import torch
 
     t_start = time.perf_counter()
     name, smi_line = phase_device()
     device = torch.device("cuda", 0)
     phase_build()
-    mesh_ranks = None
-    if not (args.only_device_build or args.only_kernels or args.only_dynamic):
-        mesh_ranks = children["mesh_ranks"] = start_mesh_ranks()
     cases = phase_kernel_vs_plain(device)
     if args.only_device_build:
         built = phase_device_build(device, args.device_build_scale or MAIN_SCALE)
@@ -3738,9 +3741,11 @@ def run(args, children: dict) -> int:
                                cases, int(np.median(dyn["residues"])))
     elif args.only_multi_device:
         g, co, queries, cq, rest, launches, verdicts = phase_main_path(device)
-        share_main_path(mesh_ranks, co, queries, verdicts)
+        mesh_ranks = children["mesh_ranks"] = share_main_path(co, queries, verdicts)
         one = phase_multi_device_one_rank(device, g, co, queries, verdicts,
                                           str(pathlib.Path(mesh_ranks[1]) / "snap"))
+        start_mesh_ranks(mesh_ranks)
+        release_mesh_ranks(mesh_ranks)
         ranks = finish_mesh_ranks(mesh_ranks)
         kernels = phase_timing(co, cq[rest], {"main_path": launches["label_intersect"],
                                               "multi_device_one_rank": one["label_intersect"],
@@ -3752,12 +3757,18 @@ def run(args, children: dict) -> int:
     else:
         library = phase_kernel_library(device, cases)
         g, co, queries, cq, rest, launches, verdicts = phase_main_path(device)
-        share_main_path(mesh_ranks, co, queries, verdicts)
+        mesh_ranks = children["mesh_ranks"] = share_main_path(co, queries, verdicts)
         one = phase_multi_device_one_rank(device, g, co, queries, verdicts,
                                           str(pathlib.Path(mesh_ranks[1]) / "snap"))
+        # 4i (b)'s ranks build and cold-start beside 4b alone, and serve
+        # with nothing beside them: no measured window of another phase, nor
+        # their own serving, shares the host or the card
+        start_mesh_ranks(mesh_ranks)
         built = phase_device_build(device, args.device_build_scale
                                    or FULL_RUN_DEVICE_BUILD_SCALE)
         finish_host_engines(children["host_engines"])
+        release_mesh_ranks(mesh_ranks)
+        ranks = finish_mesh_ranks(mesh_ranks)
         # the paths of this slice, each with its own counts: HL, the
         # quickstart, the daemon, the dynamic oracle; before 4d, whose
         # budgeted run is cut to the script's target on the clock they leave
@@ -3768,7 +3779,6 @@ def run(args, children: dict) -> int:
                        "daemon": phase_daemon(g, co)["serve_batch"]}
         dyn = phase_dynamic(device, g, queries, verdicts, args.publish_stall)
         k1_launches["dynamic"] = dyn["launches"]["serve_batch"]
-        ranks = finish_mesh_ranks(mesh_ranks)
         budgeted = phase_cold_start_and_budget(g, co, queries, verdicts)
         cases["frontier_or"] += built["frontier_or_cases"]
         kernels = [timing_serve_batch(co, cq, k1_launches, cases["serve_batch"], budgeted)]

@@ -253,7 +253,8 @@ class _MeshExpand:
     of the row (``frontier_or``'s fused form, ``perm`` the row's place in
     the block) and the blocks go to every rank by ``gather_rows``, with
     each rank's two flags (a word gained a bit; an id outside the graph)
-    riding at the end of its block, so the sum over the ranks ORs them.
+    riding at the end of its block, so their sum over the gathered blocks
+    ORs them.
     The model axis, if any, replicates the work, as in JAX."""
 
     def __init__(self, indptr: np.ndarray, indices: np.ndarray, n: int, wm: int,

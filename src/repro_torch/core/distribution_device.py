@@ -43,8 +43,10 @@ class LabelState(NamedTuple):
     overflow: torch.Tensor  # bool[] — any label row exceeded Lmax
 
 
-def init_state(n: int, l_max: int, device="cpu") -> LabelState:
-    dev = torch.device(device)
+def init_state(n: int, l_max: int, device="cuda") -> LabelState:
+    """An empty label state on ``device`` (``"cuda"`` by default;
+    ``RuntimeError`` without a card unless ``device="cpu"``)."""
+    dev = resolve_device(device)
     return LabelState(
         L_out=torch.full((n, l_max), _INVALID, dtype=torch.int32, device=dev),
         L_in=torch.full((n, l_max), _INVALID, dtype=torch.int32, device=dev),

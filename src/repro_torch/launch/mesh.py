@@ -5,20 +5,24 @@ controller; the port runs one process a rank (``torch.distributed``), and
 every rank runs the same program on the same inputs.  A mesh is a
 ``torch.distributed.device_mesh.DeviceMesh`` with JAX's axis names
 (``"data"``, ``"model"``, and ``"pod"`` on a multi-pod mesh).  Local shards
-are plain tensors and every exchange is an explicit collective, written on
-``all_reduce`` alone: NCCL has no bitwise-OR reduction, and gloo takes
-CUDA tensors for ``all_reduce`` (and ``broadcast``) but not for
-``all_gather``.  So
+are plain tensors and every exchange is an explicit collective that both
+gloo (on CPU and CUDA tensors) and NCCL take:
 
-  * an OR of bool or uint8 results is a ``MAX`` (``or_over``);
-  * a gather of row blocks that each rank owns alone is a ``SUM`` into a
-    zero-filled buffer (``gather_rows``).
+  * an OR of bool or uint8 results is an ``all_reduce`` ``MAX``
+    (``or_over``): NCCL has no bitwise-OR reduction;
+  * a gather of row blocks that each rank owns alone is an
+    ``all_gather_into_tensor`` (``gather_rows``), bool travelling as uint8.
 
 The meshes are made by FUNCTIONS, never at import: importing this module
 touches no process group.  ``form_mesh`` (the counterpart of
 ``jax.make_mesh``) lays a mesh of a given shape over an initialised process
-group and makes, on every rank at once, a process group for every set of
-its axes, each with ``timeout``: a rank left waiting in a collective by a
+group.  The groups ``DeviceMesh`` makes for its axes take the backend's
+default timeout (30 min under gloo, 10 under NCCL): a mesh sets another
+only through backend-specific process-group options, which change from one
+torch release to the next.  So ``form_mesh`` and ``make_production_mesh``
+make, on every rank at once, the two groups the multi-device modes run
+their collectives in, each with ``timeout``: the data axes (every axis but
+``"model"``) and the model axis.  A rank left waiting in a collective by a
 rank that failed raises after it (gloo) or is ended by the watchdog (NCCL)
 instead of hanging.
 """
@@ -26,7 +30,6 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
-import itertools
 import math
 import weakref
 from typing import Optional, Sequence
@@ -49,29 +52,31 @@ class AxisGroup:
     index: int
 
 
+MODEL_AXIS = "model"
+
 # mesh -> {axes: AxisGroup}; weak, so a dropped mesh drops its entries
 _GROUPS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 def _register(mesh, timeout: datetime.timedelta):
-    """Make the process group of every nonempty set of ``mesh``'s axes.
-    Collective: every rank of the mesh calls it, in the same order."""
+    """Make the process groups of ``mesh``'s data axes and of its model
+    axis (where it has one).  Collective: every rank of the mesh calls it,
+    in the same order."""
     names = tuple(mesh.mesh_dim_names)
     ranks = mesh.mesh.cpu()
-    coord = mesh.get_coordinate()
     entry = {}
-    for k in range(1, len(names) + 1):
-        for axes in itertools.combinations(names, k):
-            dims = [names.index(a) for a in axes]
-            rest = [d for d in range(len(names)) if d not in dims]
-            # one row per group: the other axes' coordinates fixed, ``axes``
-            # varying row-major
-            table = ranks.permute(*rest, *dims).reshape(-1, math.prod(ranks.shape[d] for d in dims))
-            group, _ = dist.new_subgroups_by_enumeration(table.tolist(), timeout=timeout)
-            index = 0
-            for d in dims:
-                index = index * ranks.shape[d] + coord[d]
-            entry[axes] = AxisGroup(axes, group, table.shape[1], index)
+    data = tuple(a for a in names if a != MODEL_AXIS)
+    for axes in (data, (MODEL_AXIS,) if MODEL_AXIS in names else ()):
+        if not axes:
+            continue
+        dims = [names.index(a) for a in axes]
+        rest = [d for d in range(len(names)) if d not in dims]
+        # one row per group: the other axes' coordinates fixed, ``axes``
+        # varying row-major (ascending ranks, so a rank's place in its row
+        # is its rank in the group, the order of ``all_gather_into_tensor``)
+        table = ranks.permute(*rest, *dims).reshape(-1, math.prod(ranks.shape[d] for d in dims))
+        group, _ = dist.new_subgroups_by_enumeration(table.tolist(), timeout=timeout)
+        entry[axes] = AxisGroup(axes, group, table.shape[1], dist.get_rank(group))
     _GROUPS[mesh] = entry
     return mesh
 
@@ -143,14 +148,18 @@ def axes_except(mesh, axis: str = "model") -> tuple:
 
 def axis_group(mesh, axes: Sequence[str]) -> AxisGroup:
     """This rank's group over ``axes`` of a mesh made by ``form_mesh`` or
-    ``make_production_mesh``; ``ValueError`` for another mesh or an axis
-    the mesh lacks."""
+    ``make_production_mesh``: its data axes or its model axis.
+    ``ValueError`` for another mesh, an axis the mesh lacks or another set
+    of axes."""
     entry = _groups(mesh)
     axes, names = tuple(axes), tuple(mesh.mesh_dim_names)
     if not axes or any(a not in names for a in axes):
         raise ValueError(f"axes {axes} are not axes of the mesh {names}")
     # the groups are keyed by the mesh's axis order
-    return entry[tuple(a for a in names if a in axes)]
+    key = tuple(a for a in names if a in axes)
+    if key not in entry:
+        raise ValueError(f"the mesh has groups for {sorted(entry)} only, not for {key}")
+    return entry[key]
 
 
 def or_over(t: torch.Tensor, ag: AxisGroup) -> torch.Tensor:
@@ -165,13 +174,10 @@ def or_over(t: torch.Tensor, ag: AxisGroup) -> torch.Tensor:
 
 def gather_rows(part: torch.Tensor, ag: AxisGroup) -> torch.Tensor:
     """Every rank's ``part`` (the same shape on each, at least 1-D) stacked
-    in the group's order along dim 0: an ``all_reduce`` SUM into a
-    zero-filled buffer whose block ``ag.index`` holds this rank's part,
-    exact because no two ranks write one element.  Bool parts travel as
-    uint8."""
-    wire = torch.uint8 if part.dtype == torch.bool else part.dtype
-    buf = torch.zeros((ag.size,) + tuple(part.shape), dtype=wire, device=part.device)
-    buf[ag.index].copy_(part)
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=ag.group)
-    buf = buf.reshape((ag.size * part.shape[0],) + tuple(part.shape[1:]))
+    in the group's order along dim 0, by ``all_gather_into_tensor``.  Bool
+    parts travel as uint8."""
+    wire = part.to(torch.uint8) if part.dtype == torch.bool else part
+    buf = torch.empty((ag.size * part.shape[0],) + tuple(part.shape[1:]), dtype=wire.dtype,
+                      device=part.device)
+    dist.all_gather_into_tensor(buf, wire.contiguous(), group=ag.group)
     return buf.bool() if part.dtype == torch.bool else buf

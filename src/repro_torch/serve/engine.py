@@ -606,7 +606,7 @@ class QueryEngine:
                 rest = lq[rest_idx]
                 if backend == "host":
                     res = self._host_batch(rest, o)
-                elif deadline is not None and time.monotonic() > deadline:
+                elif deadline is not None and self._past_deadline(deadline, backend):
                     degraded["deadline_to_host"] += int(rest.shape[0])
                     sp.event("degrade", kind="deadline_to_host", n=int(rest.shape[0]))
                     res = self._host_batch(rest, o)
@@ -642,6 +642,24 @@ class QueryEngine:
             sp.set(prefiltered=stats["n_prefiltered"])
             self._tally(stats, degraded)
             return out
+
+    def _past_deadline(self, deadline: float, backend: str) -> bool:
+        """Whether the batch is past ``deadline``.  On a sharded backend the
+        ranks of the mesh agree first (an OR over the data axes, then over
+        the model axis), before any collective of the batch: one rank past
+        its deadline takes every rank to the host merge, so no rank waits in
+        a collective that another skipped, or pairs it with its next
+        batch's, and every rank counts the batch alike."""
+        past = time.monotonic() > deadline
+        if backend not in ("sharded", "sharded_hop"):
+            return past
+        from repro_torch.launch.mesh import axis_group, or_over
+
+        flag = or_over(torch.tensor([past], device=self.device),
+                       axis_group(self.mesh, self.data_axes))
+        if self.model_axis in self.mesh.mesh_dim_names:
+            flag = or_over(flag, axis_group(self.mesh, (self.model_axis,)))
+        return bool(flag[0])
 
     def _degrade_to_host(self, rest: np.ndarray, backend: str, e: Exception, degraded: dict,
                          sp, o) -> np.ndarray:

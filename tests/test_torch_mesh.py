@@ -13,8 +13,8 @@ What is held, exactly, with no tolerance:
     labels and under ``truncate_store`` at 0.5 of the label bytes: every
     rank's verdicts, ``stats()["last_batch"]`` (prefiltered and tier counts)
     and degradation counters equal the JAX engine's, and BFS truth; an
-    injected device failure takes every rank down the host rung, counted as
-    JAX counts it;
+    injected device failure, and a deadline that one rank alone is past,
+    take every rank down the host rung, counted as JAX counts it;
   * a model axis that does not divide the label width (a (1, 3) mesh):
     JAX's jit refuses the sharding and its engine's catch-all serves the
     batch on the host; the port raises ``ValueError`` on every rank (only
@@ -58,7 +58,7 @@ LABEL_FIELDS = ("L_out", "L_in", "out_len", "in_len", "hop_rank")
 RUN_TIMEOUT = 240
 
 JAX_SNIPPET = """
-import os, pickle, sys
+import os, pickle, sys, time
 os.environ['XLA_FLAGS'] = '--xla_force_host_platform_device_count=8'
 import jax, numpy as np
 from jax.sharding import Mesh
@@ -70,7 +70,7 @@ from repro.graph.scc import condense_to_dag
 from repro.serve.budget import label_bytes, truncate_store
 job = pickle.load(open(sys.argv[1], 'rb'))
 mesh = jax.make_mesh((4, 2), ('data', 'model'))
-res = {'serve': {}, 'inject': {}, 'build': {}}
+res = {'serve': {}, 'inject': {}, 'deadline': {}, 'build': {}}
 for name, indptr, indices, q in job['graphs']:
     g = CSRGraph(indptr, indices)
     co = build_oracle(g, mesh=mesh)
@@ -89,6 +89,10 @@ for name, indptr, indices, q in job['graphs']:
             pred = co.serve(q, backend=be)
         st = co.engine.stats()
         res['inject'][(name, be)] = (pred, st['last_batch'], st['degradation'])
+        co.engine.reset_stats()
+        pred = co.serve(q, backend=be, deadline=time.monotonic() - 1.0)
+        st = co.engine.stats()
+        res['deadline'][(name, be)] = (pred, st['last_batch'], st['degradation'])
     dag, _ = condense_to_dag(g)
     # jax.make_mesh's Explicit axes make the build's scatter ambiguous on JAX
     # 0.9; a Mesh of the same devices (Auto axes) is what its own test uses
@@ -214,6 +218,20 @@ def test_injected_failure_takes_every_rank_down_the_same_rung(runs, shape, backe
             _same(res["inject"][(name, backend)], exp, (shape, rank, name, backend))
 
 
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("shape", MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_one_rank_past_its_deadline_takes_every_rank_to_the_host(runs, shape, backend):
+    """Rank 0 alone is past its deadline: the ranks agree before the first
+    collective, and every rank serves the batch on the host merge, counted
+    as JAX counts a batch past its deadline."""
+    for name in FAMILIES:
+        exp = runs["jax"]["deadline"][(name, backend)]
+        assert exp[2]["deadline_to_host"] > 0
+        assert np.array_equal(exp[0], runs["truth"][name])
+        for rank, res in enumerate(runs["port"][shape]):
+            _same(res["deadline"][(name, backend)], exp, (shape, rank, name, backend))
+
+
 def test_model_axis_that_does_not_divide_the_width_raises_on_every_rank(runs):
     """JAX: ValueError from jit's in_shardings, served by the catch-all on
     the host (device_to_host).  The port raises it instead, on every rank,
@@ -279,12 +297,25 @@ def test_distribution_labeling_torch_row_extract_modes():
     jg = random_dag(30, 60, seed=2)
     g = tcsr.CSRGraph(jg.indptr.copy(), jg.indices.copy())
     args = [torch.from_numpy(x.astype(np.int64)) for x in (*g.edges(), *g.reverse().edges())]
-    a = b = dd.init_state(g.n, 16)
+    a = b = dd.init_state(g.n, 16, device="cpu")
     for vi in (5, 0, 17):
         a = dd.distribute_one(a, vi, *args, g.n, g.n, row_extract="gather")
         b = dd.distribute_one(b, vi, *args, g.n, g.n, row_extract="onehot")
     for f in a._fields:
         assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal without a card")
+def test_distribution_state_defaults_to_the_card():
+    """``init_state`` runs on the card unless asked for the CPU: without a
+    card a bare call raises, as ``distribution_labeling_torch`` does."""
+    from repro_torch.core import distribution_device as dd
+
+    with pytest.raises(RuntimeError, match="no CUDA"):
+        dd.init_state(4, 2)
+    with pytest.raises(RuntimeError, match="no CUDA"):
+        distribution_labeling_torch(tcsr.CSRGraph(np.zeros(2, np.int32), np.zeros(0, np.int32)))
+    assert dd.init_state(4, 2, device="cpu").L_out.device.type == "cpu"
 
 
 def test_select_backend_and_mesh_helpers():
@@ -359,8 +390,12 @@ def test_serve_steps_and_mesh_helpers_on_a_one_rank_mesh():
         assert torch.equal(fn(lo, li, q), exp)
         with pytest.raises(ValueError, match="not axes of the mesh"):
             tengine.make_sharded_serve_step(mesh)          # JAX's default ("pod", "data")
-        g = tmesh.axis_group(mesh, ("data", "model"))
+        g = tmesh.axis_group(mesh, ("data",))
         assert (g.size, g.index) == (1, 0)
+        assert tmesh.axis_group(mesh, ("model",)).size == 1
+        # the groups are the data axes' and the model axis'
+        with pytest.raises(ValueError, match="groups for"):
+            tmesh.axis_group(mesh, ("data", "model"))
         assert torch.equal(tmesh.or_over(torch.tensor([True, False]), g),
                            torch.tensor([True, False]))
         assert torch.equal(tmesh.gather_rows(torch.arange(6).view(3, 2), g),

@@ -7,8 +7,8 @@ file store in a temporary directory) and tries each collective that
 ``repro_torch.launch.mesh`` could be written on, on int32 and uint8 CUDA
 tensors, checking the result; prints one JSON line: each op, whether it
 ran and gave the right answer, and the error of those that did not.  The
-multi-device modes use ``all_reduce`` (SUM and MAX) alone, which NCCL takes
-too.  Exits non-zero without a card.
+multi-device modes use ``all_reduce`` MAX and ``all_gather_into_tensor``,
+which NCCL takes too.  Exits non-zero without a card.
 """
 from __future__ import annotations
 
