@@ -10,7 +10,10 @@ toolkit (``nvcc``).  Phases, each raising on failure:
   3. each kernel against its plain PyTorch version on the card over edge
      shapes and widths (exact for K1-K3, whose outputs are verdicts, codes
      and bit patterns; K4 at 2e-5 in float32 and one step in bfloat16, each
-     case through the kernel of its dtype, K5 and K6 at 1e-5).  K1 has two
+     case through the kernel of its dtype, also over a preallocated cache
+     with ``kv_len`` 1, a 64-key tile's edge and one past it and T, NaN past
+     kv_len (``tests/library_cases.py``'s ``KV_LEN_CASES``), K5 and K6 at
+     1e-5).  K1 has two
      kernels: its batch form ``serve_batch`` (the engine's kernel backend,
      a whole batch in one launch), whose cases are
      ``tests/serve_batch_cases.py``'s, and its tier form ``label_intersect``
@@ -50,7 +53,7 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      this run (``serve_batch`` once a batch, ``label_intersect`` never); the
      batch latency p50/p99 of this run;
   4b. the device wave build: ``build_oracle(g, device="cuda", impl="device")``
-     on the citeseer analogue at ``FULL_RUN_DEVICE_BUILD_SCALE`` (0.5; 1.0
+     on the citeseer analogue at ``FULL_RUN_DEVICE_BUILD_SCALE`` (0.25; 1.0
      with ``--only-device-build``), the launch counts read around exactly this
      build (``frontier_expand`` once a BFS level, ``frontier_or`` never); its
      labels byte for byte against the reference build (by ``DL_SHA256``
@@ -112,7 +115,7 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      batches > 0, each through ``label_intersect``, every answer equal to
      the host merge of the epoch that served it, the registry equal to the
      daemon's books; the dispatches, the event loop's lag and the
-     collector's passes during the publish.  Phases 4e-4h run before 4d;
+     collector's passes during the publish.  Phases 4e-4h and 4j run before 4d;
   4i. the multi-device modes.  (a) Phase 4's oracle cold-started from its
      snapshot (``oracle_from_snapshot(mesh=)``) behind a (1, 1) mesh over a
      one-rank NCCL process group in this process: all of phase 4's traffic
@@ -131,6 +134,34 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      cold-started on every rank and its first ``MESH_PREFIX_QUERIES``
      (65,536) queries through both sharded backends with the column blocks
      really split, every verdict equal to phase 4's on every rank;
+  4j. the substrate's serving paths, before 4d, at ``full_config()`` widths
+     with weights from the port's ``init_params`` and a seeded generator:
+     granite-3-2b in bfloat16 (prefill 1 x 4,096 and 1 x 32,768, its
+     logits at 4,096 against the same model through K4's plain version,
+     max abs and top-1 agreement within ``SUBSTRATE_BF16``; 8 prompts of
+     256 fed through ``decode_step`` and 64 greedy tokens, a cache of 320),
+     h2o-danube-1.8b (prefill 1 x 8,192, where the window cuts),
+     deepseek-7b and granite-moe-1b-a400m (1 x 4,096), these three then
+     16 decode steps at batch 8 over a cache filled with random keys and
+     values to 4,160 positions.  Each LM's check step (a step of its decode
+     once more, granite's at kv_len 300, the others' at 4,161) against the
+     plain version, a dense LM's within ``SUBSTRATE_BF16``'s max abs, which
+     must reject the step through an attention that drops chunks of keys;
+     the step under torch.profiler: K4's share of the device time.  granite
+     and the MoE once more in float32 on K4's CUDA-core kernel (the check
+     step; granite's prefill 1 x 4,096, its logits against the plain
+     version and decode against forward) within ``SUBSTRATE_F32_ATOL``;
+     xDeepFM serve_p99 (200 batches of 512, p50/p99, a batch's logits
+     against the plain gathers within 1e-5), serve_bulk (262,144 rows in
+     slabs of 16,384) and retrieval_cand (1 x 1,000,000 in chunks of
+     25,000; the first chunk equal to forward on the broadcast ids).
+     Launch counts read around exactly each call: K4 n_layers a prefill
+     and a decode step, K6 2 a forward.  Then K4 at the last layer's call
+     of every prefill (a 32k one on its last 1,024 query rows) and check
+     step, the path's own inputs and output, and K6's two gathers of a
+     serve_bulk slab, each against its plain version with its controls,
+     timed beside its bound, its plain version and the PyTorch call; these
+     and the counts become K4's and K6's entries of the kernels line;
   4d. cold start and budget, on phase 4's oracle and traffic: the oracle
      saved (``persist.save_oracle``) and cold-started
      (``core.api.oracle_from_snapshot``), labels byte for byte and every
@@ -156,7 +187,8 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      those of phase 4h's pinned epochs and of phase 4i's sharded backends
      (every rank's), timed at phase 4h's pinned batch size, at 4,096 and at
      2^20 queries, where its byte bound binds; K2's slab form those of
-     phase 4i's mesh= build (every rank's); K1's tier form
+     phase 4i's mesh= build (every rank's); K4's and K6's those of phase
+     4j (phase 3b's beside them); K1's tier form
      and K2's slab form also after an L2 flush, the time their shares of
      the DRAM-rate bound are taken from, the tier form beside its gather
      floor too);
@@ -170,7 +202,8 @@ toolkit (``nvcc``).  Phases, each raising on failure:
 ``--only-device-build`` runs phases 1-3 and 4b alone, at
 ``--device-build-scale`` (default 1.0), and times
 ``frontier_expand``; in the full script the flag sets phase 4b's scale.
-``--only-kernels`` runs phases 1-3b alone; ``--only-dynamic`` phases 1-3,
+``--only-kernels`` runs phases 1-3b alone; ``--only-substrate`` phases
+1-3b and 4j; ``--only-dynamic`` phases 1-3,
 4 and 4h, and times K1's tier form; ``--only-multi-device`` phases 1-4 and
 4i, and times K1's tier form and K2's slab form (at the mesh= build's
 graph).
@@ -245,6 +278,9 @@ SPEC_COUNTS = {"spec_waves": 9144, "spec_members": 401152, "clean_waves": 753,
 # build of its own; 4b its device build, 4c its host engines.
 DL_SHA256 = {1.0: "7168b6766ec19b8c4e564c3a445567e3465a8cec40edcf7bdebb4ec6377d01f6",
              0.5: "21dbb15a4e65983ef94b29b3501f29ee79c0e1f4dbbcd2132637998ab021007c",
+             # phase 4b's device build: ``--scale 0.25 --impl reference auto
+             # --package both`` (both packages, both impls equal)
+             0.25: "2fe11bfe8066e54ac280caf9c69faa2e73d14db01f525add04a7cad6bc611f09",
              # phase 4i's mesh= build: ``--scale 0.02 --package both``
              0.02: "935b2f82fa6fd7575bf3d0efd999fa5b37bd5e5f64146369d9ab3a2b542d9174"}
 # phase 4c's host engines at citeseer@0.5, held to DL_SHA256[0.5]
@@ -273,10 +309,11 @@ HL_SHA256 = "ec4fa5ca0a742737c74f01dae1ee23eea2d790831fb9125337fc9dfa39307790"
 # at the 3,001st optimistic chunk, past the middle of the build
 CKPT_EVERY = 512
 KILL_AT_CHUNK = 3000
-# the device build (phase 4b) of the full script at half the main graph, with
-# its own reference build: at 1.0 it took 77-153 s of a script that must end
-# within 330 s; ``--only-device-build`` keeps 1.0 as its default
-FULL_RUN_DEVICE_BUILD_SCALE = 0.5
+# the device build (phase 4b) of the full script at a quarter of the main
+# graph, held to DL_SHA256 there: at 1.0 it took 77-153 s and at 0.5 62-76 s
+# of a script that must end within 330 s beside phase 4j;
+# ``--only-device-build`` keeps 1.0 as its default
+FULL_RUN_DEVICE_BUILD_SCALE = 0.25
 
 
 def log(msg: str) -> None:
@@ -715,6 +752,23 @@ def _library_vs_plain(rng, device) -> dict:
             check(_attention_excess(got, exp) <= 1, what)
             check(not (causal and S > T) or not got[:, :, : S - T].any(), f"{what}: zero rows")
             cases[name] += 1
+    # over a preallocated cache (the decode path's call), NaN past kv_len
+    for B, Hq, Hkv, S, T, kv_len, D, window in lc.KV_LEN_CASES:
+        q, k, v = (t(x) for x in lc.make_kv_len_case(rng, B, Hq, Hkv, S, T, kv_len, D))
+        for dtype in (torch.float32, torch.bfloat16):
+            qd, kd, vd = (x.to(dtype) for x in (q, k, v))
+            name = ops.attention_kernel(dtype)
+            before = ops.LAUNCHES[name]
+            got = ops.flash_attention(qd, kd, vd, causal=True, window=window, kv_len=kv_len)
+            exp = ref.flash_attention_ref(qd.float(), kd.float(), vd.float(), causal=True,
+                                          window=window, kv_len=kv_len)
+            torch.cuda.synchronize()
+            what = f"flash_attention {dtype} B={B} Hq={Hq} Hkv={Hkv} S={S} T={T} " \
+                   f"kv_len={kv_len} D={D} window={window}"
+            check(ops.LAUNCHES[name] == before + 1, f"{what}: not one launch of {name}")
+            check(bool(torch.isfinite(got).all()), f"{what}: a key past kv_len was read")
+            check(_attention_excess(got, exp) <= 1, what)
+            cases[name] += 1
     for B, Hq, Hkv, S, T, D, causal, window in lc.ATTENTION_F32_CASES:
         q = t(rng.standard_normal((B, Hq, S, D)).astype(np.float32))
         k = t(rng.standard_normal((B, Hkv, T, D)).astype(np.float32))
@@ -881,9 +935,10 @@ def _kernel_device_ms(fn, symbols, calls: int, attempts: int = 3) -> float:
     return sum(times) / len(times) / 1e3
 
 
-def _library_kernels(fn) -> list:
-    """The kernels one call of a library function ran, by device time."""
-    _, events = _device_events(fn)
+def _library_kernels(fn, calls: int = 10) -> list:
+    """The kernels a call of a library function runs, by device time over
+    ``calls`` calls (a trace of one call has been seen to hold none)."""
+    _, events = _device_events(lambda: [fn() for _ in range(calls)])
     by_name = {}
     for cat, name, us in events:
         if cat == "kernel":
@@ -965,12 +1020,30 @@ def _attention_excess(got, exp) -> float:
     return float(((got.float() - exp).abs() / (atol + rtol * exp.abs())).max())
 
 
-def _attention_pairs(S: int, T: int, causal: bool, window) -> int:
-    """The (query, key) pairs the masks keep: what the computation needs."""
+def _attention_rows(S: int, T: int, causal: bool, window) -> tuple:
+    """Each query's lowest and highest visible key (queries right-aligned
+    to the T keys); a row whose highest is below its lowest sees none."""
     qpos = np.arange(S, dtype=np.int64) + T - S
     hi = np.minimum(qpos, T - 1) if causal else np.full(S, T - 1)
     lo = np.maximum(qpos - window + 1, 0) if window is not None else np.zeros(S, np.int64)
+    return lo, hi
+
+
+def _attention_pairs(S: int, T: int, causal: bool, window) -> int:
+    """The (query, key) pairs the masks keep: what the computation needs."""
+    lo, hi = _attention_rows(S, T, causal, window)
     return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def _attention_keys(S: int, T: int, causal: bool, window) -> int:
+    """The keys some query sees, the union of the mask's rows: what the
+    computation must read of k and v."""
+    lo, hi = _attention_rows(S, T, causal, window)
+    ok = hi >= lo
+    edges = np.zeros(T + 1, np.int64)
+    np.add.at(edges, lo[ok], 1)
+    np.add.at(edges, hi[ok] + 1, -1)
+    return int((np.cumsum(edges[:T]) > 0).sum())
 
 
 def _attention_plain_chunked(q, k, v, causal, window):
@@ -995,6 +1068,153 @@ def _attention_plain_chunked(q, k, v, causal, window):
                 q[b0:b1, h0 * rep:h1 * rep], k[b0:b1, h0:h1], v[b0:b1, h0:h1],
                 causal=causal, window=window)
     return out
+
+
+# the keys of a kernel record taken from its head configuration
+HEAD_KEYS = ("config", "shape", "max_abs_err", "ms", "ms_runs", "device_ms", "plain_ms",
+             "plain_ms_runs", "bound_ms", "bound_by", "bytes", "operations", "library_ms")
+
+
+def _attention_record(label: str, c: dict, q, k, v, out, device) -> dict:
+    """K4's output ``out`` at one configuration against the float32 plain
+    version (``_attention_excess``) and the controls it must reject; then the
+    wrapper's time, its device time, the plain version's and SDPA's, and the
+    bound.  ``c`` holds B, Hq, Hkv, S, T, D, causal, window, dtype and, for a
+    call over a preallocated cache, kv_len: the plain version and SDPA then
+    take the contiguous prefix.  Only the keys some query sees count as
+    bytes (``_attention_keys``): a window cuts the rest of the prefix."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    kv_len = c.get("kv_len") or c["T"]
+    kp, vp = k[:, :, :kv_len], v[:, :, :kv_len]      # what exists
+    kernel = ops.attention_kernel(q.dtype)
+    exp = _attention_plain_chunked(q.float(), kp.float(), vp.float(), c["causal"], c["window"])
+    err = float((out.float() - exp).abs().max())
+    excess = _attention_excess(out, exp)
+    check(excess <= 1, f"flash_attention differs from its plain version at {label}: "
+                       f"max abs error {err}, {excess} times the tolerance")
+    # controls the check must reject: a zeroed output and, at decode, the
+    # output without every fourth 32-key chunk, taken on the first 8 batch
+    # entries
+    controls = {"zeroed": _attention_excess(torch.zeros_like(out), exp)}
+    if c["S"] == 1:
+        keep = (torch.arange(kv_len, device=device) // 32) % 4 != 0
+        part = _attention_plain_chunked(q[:8].float(), kp[:8, :, keep].float(),
+                                        vp[:8, :, keep].float(), c["causal"], c["window"])
+        controls["dropped_chunks"] = _attention_excess(part.to(out.dtype), exp[:8])
+        del part
+    check(all(x > 1 for x in controls.values()),
+          f"the flash_attention check at {label} passes a wrong output: {controls}")
+    exp_rms = float(exp.pow(2).mean().sqrt())
+    del exp
+    kern = lambda: ops.flash_attention(q, k, v, causal=c["causal"],  # noqa: E731
+                                       window=c["window"], kv_len=c.get("kv_len"))
+    plain = lambda: _attention_plain_chunked(q, kp, vp, c["causal"], c["window"])  # noqa: E731
+    # SDPA aligns a causal mask top-left: a query block shorter than the
+    # keys and longer than one row takes the right-aligned mask explicitly
+    explicit = c["window"] is not None or (c["causal"] and c["S"] not in (1, kv_len))
+    if not explicit:
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, kp, vp, is_causal=c["causal"] and c["S"] > 1, enable_gqa=True)
+    else:
+        mask = ref.attention_mask(c["S"], kv_len, c["causal"], c["window"], device)
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, kp, vp, attn_mask=mask, enable_gqa=True)
+    lib_err = float((lib().float() - out.float()).abs().max())
+    p1, _ = _timed_once(plain)
+    k1, k2 = _event_ms(kern, 3, warmup=1), _event_ms(kern, 3, warmup=1)
+    p2, _ = _timed_once(plain)
+    l1, l2 = _event_ms(lib, 3, warmup=1), _event_ms(lib, 3, warmup=1)
+    pairs = _attention_pairs(c["S"], kv_len, c["causal"], c["window"])
+    flops = 4 * pairs * c["D"] * c["Hq"] * c["B"]
+    keys = _attention_keys(c["S"], kv_len, c["causal"], c["window"])
+    nbytes = q.element_size() * (q.numel() + 2 * c["B"] * c["Hkv"] * keys * c["D"]
+                                 + out.numel())
+    bound = _bound(nbytes, flops, PEAK_BF16_FLOPS_PER_S if q.dtype == torch.bfloat16
+                   else PEAK_F32_FLOPS_PER_S)
+    # a trace of two launches has been seen to hold none, three times in a
+    # row, both of a 10 us decode call and, late in the script, of a 1 ms
+    # prefill call (alone in a process, two of the latter are traced); fifty
+    # have always been traced
+    device_ms = _kernel_device_ms(kern, ATTENTION_SYMBOLS[kernel], 50)
+    rec = {
+        "kernel": kernel, "config": label, "shape": c, "dtype": c["dtype"],
+        "visible_pairs": pairs, "visible_keys": keys,
+        "max_abs_err": err, "max_excess": excess, "controls_excess": controls,
+        "exp_rms": exp_rms,
+        "tolerance": dict(zip(("rtol", "atol"), ATTENTION_TOL[c["dtype"]]),
+                          against=f"the float32 plain result rounded to {c['dtype']}"),
+        "ms": min(k1, k2), "ms_runs": [k1, k2], "device_ms": device_ms,
+        "plain_ms": min(p1, p2), "plain_ms_runs": [p1, p2], **bound,
+        # the rates the kernel reached on the device, and its share of the bound
+        "tflop_per_s": flops / device_ms / 1e9, "gb_per_s": nbytes / device_ms / 1e6,
+        "bound_share": bound["bound_ms"] / device_ms,
+        "library_ms": min(l1, l2), "library_ms_runs": [l1, l2],
+        "library": "F.scaled_dot_product_attention(enable_gqa=True"
+                   + (", explicit mask" if explicit else "")
+                   + (", the filled prefix of the cache)" if c.get("kv_len") else ")"),
+        "library_kernels": _library_kernels(lib), "library_max_abs_diff": lib_err}
+    log(f"K4 {kernel} {label}: {min(k1, k2):.3f} ms (device {device_ms:.3f} ms, "
+        f"{rec['tflop_per_s']:.1f} TFLOP/s), plain {min(p1, p2):.3f} ms, "
+        f"SDPA {min(l1, l2):.3f} ms, bound {bound['bound_ms']:.4f} ms")
+    return rec
+
+
+def _bag_record(label: str, table, idx, out) -> dict:
+    """K6's output ``out`` = ``ops.embedding_bag(table, idx)`` against its
+    plain version within 1e-5; then the wrapper's time (one launch and one
+    synchronisation), its device time, the plain version's and
+    ``F.embedding_bag``'s, the bound and the gather floor."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    B, bag = idx.shape
+    valid = int((idx >= 0).sum())
+    kern = lambda: ops.embedding_bag(table, idx)  # noqa: E731
+    plain = lambda: ref.embedding_bag_ref(table, idx)  # noqa: E731
+    p1, exp = _timed_once(plain)
+    err = float((out - exp).abs().max())
+    check(torch.allclose(out, exp, rtol=1e-5, atol=1e-5),
+          f"embedding_bag differs from its plain version at {label}: {err}")
+    del exp
+    k1, k2 = _event_ms(kern, 50), _event_ms(kern, 50)
+    p2, _ = _timed_once(plain)
+    idx_lib, weights = idx.clamp_min(0).long(), (idx >= 0).float()
+    lib = lambda: F.embedding_bag(idx_lib, table, mode="sum",  # noqa: E731
+                                  per_sample_weights=weights)
+    lib_err = float((lib() - out).abs().max())
+    l1, l2 = _event_ms(lib, 50), _event_ms(lib, 50)
+    D = table.shape[1]
+    device_ms = _kernel_device_ms(kern, "embedding_bag_kernel", 20)
+    # a gather reads the ids, the 32-byte sectors each valid slot's row spans
+    # (no row reused from L2: the tables are 1.56 GB and 156 MB), and writes out
+    start = idx[idx >= 0].long() * (D * 4)
+    sectors = int(((start + D * 4 - 1) // 32 - start // 32 + 1).sum())
+    floor_bytes = B * bag * 4 + sectors * 32 + B * D * 4
+    floor_ms = floor_bytes / PEAK_BYTES_PER_S * 1e3
+    log(f"K6 embedding_bag {label}: {min(k1, k2):.3f} ms (device {device_ms:.4f} ms), "
+        f"plain {min(p1, p2):.3f} ms, F.embedding_bag {min(l1, l2):.3f} ms")
+    return {
+        "config": label, "max_abs_err": err,
+        "shape": {"V": table.shape[0], "D": D, "B": B, "bag": bag, "valid_slots": valid},
+        # the wrapper's call: one launch, whose kernel writes the bad-id flag
+        # to pinned host memory, and one synchronisation
+        "ms": min(k1, k2), "ms_runs": [k1, k2],
+        "device_ms": device_ms,
+        "plain_ms": min(p1, p2), "plain_ms_runs": [p1, p2],
+        # ids once, one table row per valid slot, out once; one add per value
+        **_bound(B * bag * 4 + valid * D * 4 + B * D * 4, valid * D, 67e12),
+        "gather_floor_bytes": floor_bytes, "gather_floor_ms": floor_ms,
+        "gather_floor_share": floor_ms / device_ms,
+        "library_ms": min(l1, l2), "library_ms_runs": [l1, l2],
+        "library": "F.embedding_bag(idx.clamp_min(0), table, mode='sum', "
+                   "per_sample_weights=(idx >= 0)), both made outside the timed window",
+        "library_kernels": _library_kernels(lib), "library_max_abs_diff": lib_err}
 
 
 def phase_kernel_library(device, cases: dict) -> list:
@@ -1098,70 +1318,8 @@ def phase_kernel_library(device, cases: dict) -> list:
     # through the kernel of its dtype (the plain version's products in full
     # float32: TF32 stays off)
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
-    configs = []
-    for (label, c, q, k, v), out in zip(att, att_out):
-        kernel = ops.attention_kernel(q.dtype)
-        exp = _attention_plain_chunked(q.float(), k.float(), v.float(), c["causal"],
-                                       c["window"])
-        err = float((out.float() - exp).abs().max())
-        excess = _attention_excess(out, exp)
-        check(excess <= 1, f"flash_attention differs from its plain version at {label}: "
-                           f"max abs error {err}, {excess} times the tolerance")
-        # controls the check must reject: a zeroed output and, at decode, the
-        # output without every fourth 32-key chunk, taken on the first 8
-        # batch entries
-        controls = {"zeroed": _attention_excess(torch.zeros_like(out), exp)}
-        if c["S"] == 1:
-            keep = (torch.arange(c["T"], device=device) // 32) % 4 != 0
-            part = _attention_plain_chunked(q[:8].float(), k[:8, :, keep].float(),
-                                            v[:8, :, keep].float(), c["causal"], c["window"])
-            controls["dropped_chunks"] = _attention_excess(part.to(out.dtype), exp[:8])
-            del part
-        check(all(x > 1 for x in controls.values()),
-              f"the flash_attention check at {label} passes a wrong output: {controls}")
-        exp_rms = float(exp.pow(2).mean().sqrt())
-        del exp
-        kern = lambda: ops.flash_attention(q, k, v, causal=c["causal"],  # noqa: E731
-                                           window=c["window"])
-        plain = lambda: _attention_plain_chunked(q, k, v, c["causal"], c["window"])  # noqa: E731
-        check(c["S"] == c["T"] or c["S"] == 1, "SDPA aligns causal masks top-left")
-        if c["window"] is None:
-            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                q, k, v, is_causal=c["causal"] and c["S"] > 1, enable_gqa=True)
-        else:
-            mask = ref.attention_mask(c["S"], c["T"], c["causal"], c["window"], device)
-            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                q, k, v, attn_mask=mask, enable_gqa=True)
-        lib_err = float((lib().float() - out.float()).abs().max())
-        p1, _ = _timed_once(plain)
-        k1, k2 = _event_ms(kern, 3, warmup=1), _event_ms(kern, 3, warmup=1)
-        p2, _ = _timed_once(plain)
-        l1, l2 = _event_ms(lib, 3, warmup=1), _event_ms(lib, 3, warmup=1)
-        device_ms = _kernel_device_ms(kern, ATTENTION_SYMBOLS[kernel], 2)
-        pairs = _attention_pairs(c["S"], c["T"], c["causal"], c["window"])
-        flops = 4 * pairs * c["D"] * c["Hq"] * c["B"]
-        nbytes = q.element_size() * (q.numel() + k.numel() + v.numel() + out.numel())
-        bound = _bound(nbytes, flops, PEAK_BF16_FLOPS_PER_S if q.dtype == torch.bfloat16
-                       else PEAK_F32_FLOPS_PER_S)
-        configs.append({
-            "kernel": kernel, "config": label, "shape": c, "dtype": c["dtype"],
-            "visible_pairs": pairs,
-            "max_abs_err": err, "max_excess": excess, "controls_excess": controls,
-            "exp_rms": exp_rms,
-            "tolerance": dict(zip(("rtol", "atol"), ATTENTION_TOL[c["dtype"]]),
-                              against=f"the float32 plain result rounded to {c['dtype']}"),
-            "ms": min(k1, k2), "ms_runs": [k1, k2], "device_ms": device_ms,
-            "plain_ms": min(p1, p2), "plain_ms_runs": [p1, p2], **bound,
-            # the rates the kernel reached on the device, and its share of the bound
-            "tflop_per_s": flops / device_ms / 1e9, "gb_per_s": nbytes / device_ms / 1e6,
-            "bound_share": bound["bound_ms"] / device_ms,
-            "library_ms": min(l1, l2), "library_ms_runs": [l1, l2],
-            "library": "F.scaled_dot_product_attention(enable_gqa=True"
-                       + (", explicit mask)" if c["window"] is not None else ")"),
-            "library_kernels": _library_kernels(lib), "library_max_abs_diff": lib_err})
-        log(f"K4 {kernel} {label}: {min(k1, k2):.3f} ms (device {device_ms:.3f} ms, "
-            f"{configs[-1]['tflop_per_s']:.1f} TFLOP/s), plain {min(p1, p2):.3f} ms, "
-            f"SDPA {min(l1, l2):.3f} ms, bound {bound['bound_ms']:.4f} ms")
+    configs = [_attention_record(label, c, q, k, v, out, device)
+               for (label, c, q, k, v), out in zip(att, att_out)]
     del att, att_out
     torch.cuda.empty_cache()
     for kernel, source in (("flash_attention_sm90", "flash_attention_sm90.cu"),
@@ -1174,10 +1332,7 @@ def phase_kernel_library(device, cases: dict) -> list:
             "replaces": "src/repro/kernels/flash_attention.py:110",
             "launches": launches[kernel], "matches_plain": True,
             "cases_checked": cases[kernel] + len(mine),
-            **{k: head[k] for k in ("config", "shape", "max_abs_err", "ms", "ms_runs",
-                                    "device_ms", "plain_ms", "plain_ms_runs", "bound_ms",
-                                    "bound_by", "bytes", "operations", "library_ms")},
-            "configs": mine})
+            **{k: head[k] for k in HEAD_KEYS}, "configs": mine})
 
     # ---- K5: ogb_products against the plain version (row chunks) and CSR SpMM
     n, d = nbr.shape
@@ -1229,51 +1384,16 @@ def phase_kernel_library(device, cases: dict) -> list:
     torch.cuda.empty_cache()
 
     # ---- K6: xDeepFM's table and serve_bulk batch
-    B, bag = idx.shape
-    valid = int((idx >= 0).sum())
-    kern = lambda: ops.embedding_bag(table, idx)  # noqa: E731
-    plain = lambda: ref.embedding_bag_ref(table, idx)  # noqa: E731
-    p1, exp = _timed_once(plain)
-    err = float((bag_out - exp).abs().max())
-    check(torch.allclose(bag_out, exp, rtol=1e-5, atol=1e-5),
-          f"embedding_bag differs from its plain version at serve_bulk: {err}")
-    k1, k2 = _event_ms(kern, 50), _event_ms(kern, 50)
-    p2, _ = _timed_once(plain)
-    idx_lib, weights = idx.clamp_min(0).long(), (idx >= 0).float()
-    lib = lambda: F.embedding_bag(idx_lib, table, mode="sum",  # noqa: E731
-                                  per_sample_weights=weights)
-    lib_err = float((lib() - bag_out).abs().max())
-    l1, l2 = _event_ms(lib, 50), _event_ms(lib, 50)
-    D = table.shape[1]
-    device_ms = _kernel_device_ms(kern, "embedding_bag_kernel", 20)
-    # a gather reads the ids, the 32-byte sectors each valid slot's row spans
-    # (no row reused from L2: the table is 1.56 GB), and writes out
-    start = idx[idx >= 0].long() * (D * 4)
-    sectors = int(((start + D * 4 - 1) // 32 - start // 32 + 1).sum())
-    floor_bytes = B * bag * 4 + sectors * 32 + B * D * 4
-    floor_ms = floor_bytes / PEAK_BYTES_PER_S * 1e3
+    bag_rec = _bag_record("xDeepFM table, serve_bulk batch, bags of 8 (configs/xdeepfm_cfg.py)",
+                          table, idx, bag_out)
     records.append({
         "name": "embedding_bag", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
         "replaces": "src/repro/kernels/embedding_bag.py:52",
         "launches": launches["embedding_bag"], "matches_plain": True,
-        "cases_checked": cases["embedding_bag"] + 1, "max_abs_err": err,
-        "config": "xDeepFM table, serve_bulk batch (configs/xdeepfm_cfg.py)",
-        "shape": {"V": table.shape[0], "D": D, "B": B, "bag": bag, "valid_slots": valid},
-        # the wrapper's call: one launch, whose kernel writes the bad-id flag
-        # to pinned host memory, and one synchronisation
-        "ms": min(k1, k2), "ms_runs": [k1, k2],
-        "device_ms": device_ms,
-        "plain_ms": min(p1, p2), "plain_ms_runs": [p1, p2],
-        # ids once, one table row per valid slot, out once; one add per value
-        **_bound(B * bag * 4 + valid * D * 4 + B * D * 4, valid * D, 67e12),
-        "gather_floor_bytes": floor_bytes, "gather_floor_ms": floor_ms,
-        "gather_floor_share": floor_ms / device_ms,
-        "library_ms": min(l1, l2), "library_ms_runs": [l1, l2],
-        "library": "F.embedding_bag(idx.clamp_min(0), table, mode='sum', "
-                   "per_sample_weights=(idx >= 0)), both made outside the timed window",
-        "library_kernels": _library_kernels(lib), "library_max_abs_diff": lib_err})
-    del table, idx, bag_out, exp, idx_lib, weights, start
+        "cases_checked": cases["embedding_bag"] + 1,
+        **{k: bag_rec[k] for k in HEAD_KEYS}, "configs": [bag_rec]})
+    del table, idx, bag_out
     torch.cuda.empty_cache()
 
     record({"phase": "kernel_library", "seconds": time.perf_counter() - t_start,
@@ -2935,6 +3055,606 @@ def phase_dynamic(device, g, queries: np.ndarray, verdicts: np.ndarray,
     return {"launches": k1, "residues": residues}
 
 
+# ------------------------------------------------------------------ phase 4j
+
+# The substrate's serving paths at full_config() widths (src/repro/configs/),
+# weights from the port's init_params and a seeded torch.Generator.  Each LM:
+# prefill at batch 1 (granite at train_4k's length and at prefill_32k's, its
+# batch cut from 32; danube at 8,192, where its window of 4,096 cuts; the
+# others at 4,096), then decode at batch 8 (decode_32k's batch cut from 128):
+# granite feeds 8 prompts of 256 tokens through decode_step and then 64
+# greedy tokens (a cache of 320), the others take 16 steps over a cache
+# filled with random keys and values to 4,160 positions (past danube's
+# window).  Then the check step: one step of that decode once more (granite's
+# at kv_len 300 of its 320, the others' first, 4,161 of 4,176).  The last
+# layer's K4 call of each prefill and of the check step is kept for K4's
+# records.  granite and the MoE once more in float32 (fresh weights, the
+# check step over the same cache; granite's prefill at 4,096 and decode
+# against forward over 2 x 64 tokens).  xDeepFM: serve_p99 (200 batches of
+# 512), serve_bulk (262,144 rows in slabs of 16,384: a slab's CIN
+# intermediate is 5.1 GB, the whole batch's 82 GB) and retrieval_cand (1 user
+# x 1,000,000 candidates in the JAX package's chunks of 25,000).
+SUBSTRATE_LMS = {
+    # arch: prefill lengths, how the decode cache is filled, the bfloat16
+    # logits of a prefill against K4's plain version, a float32 re-check
+    "granite-3-2b": {"prefill": (4096, 32768), "fill": "prompt",
+                     "logits_vs_plain": True, "float32": True},
+    "h2o-danube-1.8b": {"prefill": (8192,), "fill": "random",
+                        "logits_vs_plain": False, "float32": False},
+    "deepseek-7b": {"prefill": (4096,), "fill": "random",
+                    "logits_vs_plain": False, "float32": False},
+    "granite-moe-1b-a400m": {"prefill": (4096,), "fill": "random",
+                             "logits_vs_plain": False, "float32": True},
+}
+LM_DECODE_BATCH = 8
+GRANITE_PROMPT, GRANITE_GREEDY, GRANITE_CHECK_KV_LEN = 256, 64, 300
+CACHE_FILLED, FILLED_STEPS = 4160, 16
+F32_DECODE_TOKENS = (2, 64)
+# a prefill's K4 call past 8,192 query rows is held to its plain version on
+# its last rows only (the plain version of a 32k call would hold 137 GB of
+# logits)
+K4_RECORD_ROWS = 1024
+XDEEPFM_P99 = (200, 512)
+XDEEPFM_BULK = (262_144, 16_384)
+XDEEPFM_CANDIDATES, XDEEPFM_CHUNK = 1_000_000, 25_000
+# the checks' bounds: float32 logits through K4 against the same weights and
+# tokens through K4's plain version, and decode against forward (each
+# attention agrees to 2e-5; 40 layers of residual adds keep the logits, rms
+# ~1, within 1e-3).  bfloat16 logits against the plain version: each
+# attention output is within one bfloat16 step of the plain one, and 24-40
+# layers of random weights in bfloat16 carry such a step on, so the bound is
+# relative to the logits' rms (max abs; deepseek-7b's first decode step
+# measured 0.20 of it on an H100), with, over the 4,096 positions of a prefill, the
+# share whose top-1 token agrees (a wrong mask or a wrong key would leave
+# next to none).  The check step holds the bound against wrong attentions
+# too (WRONG_ATTENTION): it must reject the one that drops chunks of keys.
+# K4 itself is held at ATTENTION_TOL at every captured call.
+SUBSTRATE_F32_ATOL = 1e-3
+SUBSTRATE_BF16 = {"max_abs_over_rms": 0.5, "top1": 0.8}
+WRONG_ATTENTION = ("dropped_chunks", "kv_len_minus_1")
+XDEEPFM_ATOL = 1e-5
+
+
+def _plain(name: str):
+    """Patch ``ops.<name>`` with its plain version for the block: the same
+    model over the same weights with K4 or K6 replaced, the yardstick."""
+    from unittest import mock
+
+    from repro_torch.kernels import ops, ref
+
+    plain = {"flash_attention": ref.flash_attention_ref,
+             "embedding_bag": ref.embedding_bag_ref}[name]
+    return mock.patch.object(ops, name, plain)
+
+
+def _wrong_attention(kind: str):
+    """Patch ``ops.flash_attention`` for the block with a wrong attention, a
+    control for the model-level bound: the plain version without every
+    fourth 32-key chunk of the prefix from the second on ("dropped_chunks")
+    or without the newest key ("kv_len_minus_1")."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    def attend(q, k, v, causal=True, window=None, kv_len=None):
+        n = k.shape[2] if kv_len is None else kv_len
+        if kind == "kv_len_minus_1":
+            return ref.flash_attention_ref(q, k, v, causal=causal, window=window, kv_len=n - 1)
+        keep = (torch.arange(n, device=k.device) // 32) % 4 != 1
+        return ref.flash_attention_ref(q, k[:, :, :n][:, :, keep], v[:, :, :n][:, :, keep],
+                                       causal=causal, window=window)
+
+    return mock.patch.object(ops, "flash_attention", attend)
+
+
+class _Capture:
+    """``ops.flash_attention`` for the block, keeping the inputs and output
+    of its last call (a model's last layer); a cache's keys and values are
+    cloned, since the steps after it write them."""
+
+    def __enter__(self):
+        from unittest import mock
+
+        from repro_torch.kernels import ops
+
+        kernel = ops.flash_attention
+
+        def call(q, k, v, **kw):
+            out = kernel(q, k, v, **kw)
+            if kw.get("kv_len") is not None:
+                k, v = k.clone(), v.clone()
+            self.last = (q, k, v, kw, out)
+            return out
+
+        self._patch = mock.patch.object(ops, "flash_attention", call)
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.stop()
+
+    def k4_call(self, label: str, rows=None) -> tuple:
+        """(label, configuration, q, k, v, out) of the last call, for
+        ``_attention_record``; with ``rows``, q and out are cut to their last
+        ``rows`` query rows (the queries stay right-aligned to the keys)."""
+        q, k, v, kw, out = self.last
+        if rows is not None and q.shape[2] > rows:
+            q, out = q[:, :, -rows:], out[:, :, -rows:]
+            label += f", its last {rows} query rows"
+        q, out = q.contiguous(), out.contiguous()
+        B, Hq, S, D = q.shape
+        c = dict(B=B, Hq=Hq, Hkv=k.shape[1], S=S, T=k.shape[2], D=D, causal=kw["causal"],
+                 window=kw.get("window"), dtype=str(q.dtype).removeprefix("torch."))
+        if kw.get("kv_len") is not None:
+            c["kv_len"] = kw["kv_len"]
+        return f"{label} (phase 4j)", c, q, k, v, out
+
+
+class _Counted:
+    """Launch counts read around exactly each counted call, summed."""
+
+    def __init__(self):
+        self.total: dict = {}
+
+    def __call__(self, fn, want: dict, what: str):
+        import torch
+
+        from repro_torch.kernels import ops
+
+        ops.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: v for k, v in ops.LAUNCHES.items() if v}
+        check(got == want, f"{what}: launches {got}, not {want}")
+        for k, v in got.items():
+            self.total[k] = self.total.get(k, 0) + v
+        return out
+
+
+def _host_ms(fn, reps: int) -> list:
+    """Host-clock ms of ``reps`` calls, each ended by a synchronise."""
+    import torch
+
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def _agreement(got, exp) -> dict:
+    """max |got - exp| and the share of rows whose argmax agrees."""
+    return {"max_abs": float((got - exp).abs().max()),
+            "exp_rms": float(exp.pow(2).mean().sqrt()),
+            "top1": float((got.argmax(-1) == exp.argmax(-1)).float().mean())}
+
+
+def _within(agree: dict, top1: bool) -> bool:
+    """``_agreement`` within SUBSTRATE_BF16: max abs, and with ``top1`` the
+    top-1 share too."""
+    return (agree["max_abs"] <= SUBSTRATE_BF16["max_abs_over_rms"] * agree["exp_rms"]
+            and (not top1 or agree["top1"] >= SUBSTRATE_BF16["top1"]))
+
+
+def _lm_prefill(count, cfg, params, gen, device, S: int, vocab: int) -> dict:
+    """Prefill at batch 1 x S: launches read around the first call, then two
+    timed calls (one past 8,192 tokens); ms and tokens/s."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+
+    toks = torch.randint(0, vocab, (1, S), generator=gen, device=device, dtype=torch.int32)
+    out = count(lambda: tf.prefill(cfg, params, toks),
+                {ops.attention_kernel(cfg.dtype): cfg.n_layers}, f"{cfg.name} prefill 1 x {S}")
+    check(out.shape == (1, 1, cfg.vocab) and bool(torch.isfinite(out).all()),
+          f"{cfg.name} prefill 1 x {S}: logits {tuple(out.shape)} not finite")
+    runs = _host_ms(lambda: tf.prefill(cfg, params, toks), 2 if S <= 8192 else 1)
+    return {"S": S, "ms": min(runs), "ms_runs": runs, "tokens_per_s": S / min(runs) * 1e3}
+
+
+def _logits_vs_plain(cfg, params, gen, device, vocab: int, S: int) -> dict:
+    """forward's logits over 1 x S random tokens against the same model
+    through K4's plain version: within SUBSTRATE_F32_ATOL in float32, within
+    SUBSTRATE_BF16 (max abs and top-1) in bfloat16."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    toks = torch.randint(0, vocab, (1, S), generator=gen, device=device, dtype=torch.int32)
+    got = tf.forward(cfg, params, toks)[0][0]
+    with _plain("flash_attention"):
+        exp = tf.forward(cfg, params, toks)[0][0]
+    agree = _agreement(got, exp)
+    if cfg.dtype == torch.float32:
+        check(agree["max_abs"] <= SUBSTRATE_F32_ATOL, f"{cfg.name} float32 logits against "
+              f"K4's plain version: {agree}, atol {SUBSTRATE_F32_ATOL}")
+        return {**agree, "tokens": S, "atol": SUBSTRATE_F32_ATOL}
+    check(_within(agree, top1=True), f"{cfg.name} bfloat16 logits against K4's plain "
+          f"version: {agree}, bound {SUBSTRATE_BF16}")
+    return {**agree, "tokens": S, "bound": SUBSTRATE_BF16}
+
+
+def _lm_decode(count, cfg, params, gen, device, vocab: int, fill: str) -> tuple:
+    """The request batch through decode_step, each step on the host clock.
+    ``fill`` "prompt": GRANITE_PROMPT prompt tokens into an empty cache, then
+    GRANITE_GREEDY greedy ones; "random": FILLED_STEPS random tokens into a
+    cache filled with random keys and values to CACHE_FILLED.  Returns the
+    cache, the tokens fed [B, steps] (the first at the record's ``start``)
+    and the record."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+
+    B = LM_DECODE_BATCH
+    start, n_feed, greedy = ((0, GRANITE_PROMPT, GRANITE_GREEDY) if fill == "prompt"
+                             else (CACHE_FILLED, FILLED_STEPS, 0))
+    feed = torch.randint(0, vocab, (B, n_feed), generator=gen, device=device, dtype=torch.int32)
+    n = n_feed + greedy
+    cache = tf.init_cache(cfg, B, start + n, device)
+    for name in ("k", "v"):
+        cache[name][:, :, :, :start].normal_(generator=gen)
+    cache["pos"] = start
+    fed, step_ms = [], []
+
+    def drive():
+        tok = None
+        for t in range(n):
+            inp = feed[:, t:t + 1] if t < n_feed else tok
+            fed.append(inp)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits, _ = tf.decode_step(cfg, params, cache, inp)
+            tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+        return logits
+
+    last = count(drive, {ops.attention_kernel(cfg.dtype): n * cfg.n_layers},
+                 f"{cfg.name} decode {n} steps at batch {B}")
+    fed = torch.cat(fed, dim=1)
+    check(cache["pos"] == start + n and bool(torch.isfinite(last).all())
+          and bool(((fed >= 0) & (fed < cfg.vocab)).all()),
+          f"{cfg.name} decode: pos {cache['pos']}, logits not finite or tokens out of range")
+    rec = {"batch": B, "fill": fill, "start": start, "fed": n_feed, "greedy": greedy,
+           "cache": start + n, "window_cuts": cfg.window is not None and cfg.window < start + n,
+           "step_ms_p50": float(np.median(step_ms)),
+           "step_ms_p99": float(np.percentile(step_ms, 99)),
+           "tokens_per_s": B / float(np.median(step_ms)) * 1e3}
+    if greedy:
+        rec.update(step_ms_p50_fed=float(np.median(step_ms[:n_feed])),
+                   step_ms_p50_greedy=float(np.median(step_ms[n_feed:])),
+                   distinct_greedy_tokens=int(torch.unique(fed[:, n_feed:]).numel()))
+    else:
+        rec["step_ms_runs"] = step_ms
+    return cache, fed, rec
+
+
+def _decode_profile(name: str, step, kernel: str) -> dict:
+    """One decode step under torch.profiler: K4's share of the device time
+    and the device's busy share of the step."""
+    wall_ms, events = _device_events(step)
+    pattern = re.compile("|".join(rf"(?<!\w){s}[<(]" for s in ATTENTION_SYMBOLS[kernel]))
+    busy = sum(us for cat, _, us in events if cat == "kernel")
+    k4 = sum(us for cat, name_, us in events if cat == "kernel" and pattern.search(name_))
+    check(k4 > 0, f"{name}: the profiled decode step shows no {kernel}")
+    return {"wall_ms": wall_ms, "device_busy_ms": busy / 1e3, "k4_device_ms": k4 / 1e3,
+            "k4_share_of_device": k4 / busy, "device_busy_share": busy / 1e3 / wall_ms,
+            "kernels": sum(1 for cat, _, _ in events if cat == "kernel")}
+
+
+def _lm_check_step(count, cfg, params, cache, tok, kv_len: int) -> tuple:
+    """The decode step at ``kv_len`` once more over the cache the request
+    batch wrote (its token ``tok``, so the same keys and values at its
+    position): read for launches, its last layer's K4 call captured, its
+    logits against the same step through K4's plain version.  A dense LM's
+    are held to SUBSTRATE_BF16's max abs, which must reject the step through
+    the attention that drops chunks of keys (WRONG_ATTENTION, both
+    reported); a MoE's difference is reported (routing is discrete: a
+    bfloat16 step of difference moves tokens between experts and past the
+    capacity) and its float32 re-check holds the bound.  Then the step under
+    torch.profiler.  Returns the record and the captured call."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+
+    kernel = ops.attention_kernel(cfg.dtype)
+    end = cache["pos"]
+
+    def step():
+        cache["pos"] = kv_len - 1
+        return tf.decode_step(cfg, params, cache, tok)[0][:, 0]
+
+    with _plain("flash_attention"):
+        exp = step()
+    with _Capture() as cap:
+        got = count(step, {kernel: cfg.n_layers}, f"{cfg.name} decode step at kv_len {kv_len}")
+    rec = {"kv_len": kv_len, "vs_plain": _agreement(got, exp)}
+    if cfg.moe is None:
+        controls = {}
+        for kind in WRONG_ATTENTION:
+            with _wrong_attention(kind):
+                controls[kind] = _agreement(step(), exp)
+            controls[kind]["rejected"] = not _within(controls[kind], top1=False)
+        check(_within(rec["vs_plain"], top1=False), f"{cfg.name} decode step against K4's "
+              f"plain version: {rec['vs_plain']}, bound {SUBSTRATE_BF16}")
+        check(controls["dropped_chunks"]["rejected"], f"{cfg.name}: the decode step's bound "
+              f"passes an attention that drops chunks of keys: {controls}")
+        rec.update(bound=SUBSTRATE_BF16, controls=controls)
+    rec["profiled_step"] = _decode_profile(cfg.name, step, kernel)
+    cache["pos"] = end
+    window = f", window {cfg.window}" if cfg.window is not None else ""
+    return rec, cap.k4_call(f"{cfg.name} decode step at batch {tok.shape[0]}, kv_len {kv_len} "
+                            f"of a {cache['k'].shape[3]} cache{window}")
+
+
+def _lm_float32(count, mod, gen, device, cache, tok, kv_len: int) -> tuple:
+    """The LM once more in float32 at the same width, on K4's CUDA-core
+    kernel, with fresh weights: the check step over the bfloat16 run's cache
+    against the same step through K4's plain version, within
+    SUBSTRATE_F32_ATOL; a dense LM also prefill at 4,096 (its last layer's
+    K4 call captured), its logits against the plain version, and decode
+    against forward over F32_DECODE_TOKENS.  Returns the record and the
+    captured calls."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(mod.full_config(), dtype=torch.float32)
+    V = getattr(mod, "VOCAB_REAL", cfg.vocab)
+    params = tf.init_params(cfg, gen, device)
+    cache32 = {"k": cache["k"].float(), "v": cache["v"].float()}
+
+    def step():
+        cache32["pos"] = kv_len - 1
+        return tf.decode_step(cfg, params, cache32, tok)[0][:, 0]
+
+    with _plain("flash_attention"):
+        exp = step()
+    agree = _agreement(count(step, {"flash_attention": cfg.n_layers},
+                             f"{cfg.name} float32 decode step at kv_len {kv_len}"), exp)
+    check(agree["max_abs"] <= SUBSTRATE_F32_ATOL, f"{cfg.name} float32 decode step against "
+          f"K4's plain version: {agree}, atol {SUBSTRATE_F32_ATOL}")
+    rec = {"check_step": {**agree, "kv_len": kv_len, "atol": SUBSTRATE_F32_ATOL}}
+    del cache32, exp
+    calls = []
+    if cfg.moe is None:
+        with _Capture() as cap:
+            rec["prefill"] = _lm_prefill(count, cfg, params, gen, device, 4096, V)
+        calls.append(cap.k4_call(f"{cfg.name} float32 prefill 1 x 4096, the last layer's call"))
+        rec["vs_plain_4096"] = _logits_vs_plain(cfg, params, gen, device, V, 4096)
+        b, n = F32_DECODE_TOKENS
+        toks = torch.randint(0, V, (b, n), generator=gen, device=device, dtype=torch.int32)
+        fwd = tf.forward(cfg, params, toks)[0]
+        dec_cache = tf.init_cache(cfg, b, n, device)
+        dec = count(lambda: torch.cat([tf.decode_step(cfg, params, dec_cache, toks[:, t:t + 1])[0]
+                                       for t in range(n)], dim=1),
+                    {"flash_attention": n * cfg.n_layers}, f"{cfg.name} float32 decode")
+        agree = _agreement(dec, fwd)
+        check(agree["max_abs"] <= SUBSTRATE_F32_ATOL, f"{cfg.name} float32 decode against "
+              f"forward: {agree}, atol {SUBSTRATE_F32_ATOL}")
+        rec["decode_vs_forward"] = {**agree, "tokens": [b, n], "atol": SUBSTRATE_F32_ATOL}
+        del fwd, dec, dec_cache
+    del params
+    torch.cuda.empty_cache()
+    return rec, calls
+
+
+def _lm(count, device, gen, mod) -> tuple:
+    """An LM at full_config() in bfloat16, as SUBSTRATE_LMS says: prefill at
+    each length (its last layer's K4 call captured), the logits of a prefill
+    against K4's plain version, the request batch through decode_step, the
+    check step, and the float32 re-check.  Returns the record and the
+    captured K4 calls."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    run = SUBSTRATE_LMS[mod.ARCH_ID]
+    cfg = mod.full_config()
+    V = getattr(mod, "VOCAB_REAL", cfg.vocab)
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, gen, device)
+    torch.cuda.synchronize()
+    rec = {"arch": cfg.name, "dtype": "bfloat16", "init_seconds": time.perf_counter() - t0,
+           "param_count": cfg.param_count(), "active_param_count": cfg.active_param_count(),
+           "prefill": []}
+    calls = []
+    for S in run["prefill"]:
+        with _Capture() as cap:
+            rec["prefill"].append(_lm_prefill(count, cfg, params, gen, device, S, V))
+        calls.append(cap.k4_call(f"{cfg.name} prefill 1 x {S}, the last layer's call",
+                                 K4_RECORD_ROWS if S > 8192 else None))
+    if run["logits_vs_plain"]:
+        rec["vs_plain_4096"] = _logits_vs_plain(cfg, params, gen, device, V, 4096)
+    cache, fed, rec["decode"] = _lm_decode(count, cfg, params, gen, device, V, run["fill"])
+    kv_len = GRANITE_CHECK_KV_LEN if run["fill"] == "prompt" else CACHE_FILLED + 1
+    at = kv_len - 1 - rec["decode"]["start"]
+    tok = fed[:, at:at + 1]
+    rec["decode"]["check_step"], call = _lm_check_step(count, cfg, params, cache, tok, kv_len)
+    calls.append(call)
+    del params
+    torch.cuda.empty_cache()
+    if run["float32"]:
+        rec["float32"], mine = _lm_float32(count, mod, gen, device, cache, tok, kv_len)
+        calls += mine
+    del cache
+    torch.cuda.empty_cache()
+    record({"phase": "substrate_model", **rec})
+    return rec, calls
+
+
+def _xdeepfm(count, device, gen) -> tuple:
+    """xDeepFM at full_config(): serve_p99, serve_bulk in slabs and
+    retrieval_cand in chunks, each read for launches (2 a forward); a
+    batch's logits against the plain gathers; retrieval against forward on
+    the broadcast ids for its first chunk.  Returns the record and the two
+    gathers of a serve_bulk slab (label, table, ids), for K6's kernel record."""
+    import torch
+
+    from repro_torch.configs import xdeepfm_cfg
+    from repro_torch.models.recsys import xdeepfm
+
+    cfg = xdeepfm_cfg.full_config()
+    t0 = time.perf_counter()
+    params = xdeepfm.init_params(cfg, gen, device)
+    torch.cuda.synchronize()
+    rec = {"arch": cfg.name, "init_seconds": time.perf_counter() - t0,
+           "table_bytes": params["table"].numel() * 4}
+
+    def ids(B):
+        return torch.randint(0, cfg.vocab_per_field, (B, cfg.n_fields), generator=gen,
+                             device=device, dtype=torch.int32)
+
+    def fwd(x):
+        return xdeepfm.forward(cfg, params, x)
+
+    # serve_p99: batches of 512, a host clock around each (ended by a synchronise)
+    nb, B = XDEEPFM_P99
+    batches = [ids(B) for _ in range(nb)]
+    fwd(batches[0])
+    lat = []
+
+    def serve():
+        for x in batches:
+            lat.extend(_host_ms(lambda: fwd(x), 1))
+
+    count(serve, {"embedding_bag": 2 * nb}, f"xDeepFM serve_p99 {nb} x {B}")
+    got = fwd(batches[0])
+    with _plain("embedding_bag"):
+        exp = fwd(batches[0])
+    err = float((got - exp).abs().max())
+    check(got.shape == (B,) and bool(torch.isfinite(got).all()) and err <= XDEEPFM_ATOL,
+          f"xDeepFM logits against the plain gathers: {err}, atol {XDEEPFM_ATOL}")
+    rec["serve_p99"] = {"batches": nb, "batch": B, "p50_ms": float(np.percentile(lat, 50)),
+                        "p99_ms": float(np.percentile(lat, 99)), "max_ms": max(lat),
+                        "vs_plain_max_abs": err, "atol": XDEEPFM_ATOL}
+
+    # serve_bulk: 262,144 rows in slabs
+    n, slab = XDEEPFM_BULK
+    bulk = ids(n)
+    fwd(bulk[:slab])
+    outs = []
+    secs = _host_ms(lambda: outs.append(count(
+        lambda: torch.cat([fwd(bulk[i:i + slab]) for i in range(0, n, slab)]),
+        {"embedding_bag": 2 * (n // slab)}, f"xDeepFM serve_bulk {n} in slabs of {slab}")), 1)
+    check(outs[0].shape == (n,) and bool(torch.isfinite(outs[0]).all()),
+          "xDeepFM serve_bulk: logits not finite")
+    rec["serve_bulk"] = {"rows": n, "slab": slab, "seconds": secs[0] / 1e3,
+                         "rows_per_s": n / secs[0] * 1e3}
+    rows = xdeepfm._field_ids(cfg, bulk[:slab]).contiguous()
+    bags = [("xDeepFM serve_bulk slab: the embedding rows, bags of one id (phase 4j)",
+             params["table"], rows.view(-1, 1)),
+            ("xDeepFM serve_bulk slab: the linear term, one bag of 39 ids (phase 4j)",
+             params["linear"].view(-1, 1), rows)]
+    del outs, bulk
+
+    # retrieval_cand: one user against 1,000,000 candidates in chunks of 25,000
+    user = ids(1)
+    cands = torch.randint(0, cfg.vocab_per_field, (XDEEPFM_CANDIDATES,), generator=gen,
+                          device=device, dtype=torch.int32)
+    chunk = XDEEPFM_CHUNK
+    out = []
+    secs = _host_ms(lambda: out.append(count(
+        lambda: xdeepfm.retrieval_score(cfg, params, user, cands, chunk=chunk),
+        {"embedding_bag": 2 * -(-XDEEPFM_CANDIDATES // chunk)},
+        f"xDeepFM retrieval_cand 1 x {XDEEPFM_CANDIDATES}")), 1)
+    scores = out[0]
+    m = min(chunk, XDEEPFM_CANDIDATES)
+    first = user.expand(m, cfg.n_fields).clone()
+    first[:, 0] = cands[:m]
+    err = float((fwd(first) - scores[:m]).abs().max())
+    check(scores.shape == (XDEEPFM_CANDIDATES,) and bool(torch.isfinite(scores).all())
+          and err <= 1e-6, f"xDeepFM retrieval against forward on its first chunk: {err}")
+    rec["retrieval_cand"] = {"candidates": XDEEPFM_CANDIDATES, "chunk": chunk,
+                             "seconds": secs[0] / 1e3, "vs_forward_first_chunk": err}
+    record({"phase": "substrate_model", **rec})
+    return rec, bags
+
+
+def phase_substrate(device, smi: str) -> dict:
+    """Phase 4j: the LM family's prefill and KV-cache decode on K4 and
+    xDeepFM's online, bulk and retrieval scoring on K6, at full_config()
+    widths on the card, each call's launch counts read around exactly it;
+    ``smi`` is the card's name and power limit, printed beside every time.
+    Returns {"launches": the counted calls' sums, "configs": {kernel: its
+    records at the path's shapes}}."""
+    import torch
+
+    from repro_torch.configs import (deepseek_7b, granite_3_2b, granite_moe_1b_a400m,
+                                     h2o_danube_1_8b)
+    from repro_torch.kernels import ops
+
+    t_start = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(25)
+    count = _Counted()
+    lm, calls = [], []
+    for mod in (granite_3_2b, h2o_danube_1_8b, deepseek_7b, granite_moe_1b_a400m):
+        rec, mine = _lm(count, device, gen, mod)
+        lm.append(rec)
+        calls += mine
+    xrec, bags = _xdeepfm(count, device, gen)
+    launches = dict(count.total)
+    torch.cuda.empty_cache()
+    # K4 at every captured call of the path, K6 at a serve_bulk slab's two
+    # gathers, each against its plain version
+    configs = {"flash_attention_sm90": [], "flash_attention": [], "embedding_bag": []}
+    for label, c, q, k, v, out in calls:
+        configs[ops.attention_kernel(q.dtype)].append(
+            _attention_record(label, c, q, k, v, out, device))
+    for label, table, idx in bags:
+        configs["embedding_bag"].append(_bag_record(label, table, idx,
+                                                    ops.embedding_bag(table, idx)))
+    del calls, bags
+    torch.cuda.empty_cache()
+    record({"phase": "substrate", "seconds": time.perf_counter() - t_start, "card": smi,
+            "launches": launches, "models": [r["arch"] for r in lm] + [xrec["arch"]]})
+    for r in lm:
+        pre = ", ".join(f"1 x {p['S']} {p['ms']:.1f} ms ({p['tokens_per_s']:.0f} tok/s)"
+                        for p in r["prefill"])
+        chk = r["decode"]["check_step"]
+        against = ", ".join(f"{k} {v['max_abs'] / v['exp_rms']:.3f}"
+                            for k, v in chk.get("controls", {}).items())
+        log(f"4j {r['arch']}: prefill {pre}; decode p50 {r['decode']['step_ms_p50']:.2f} ms "
+            f"a step at batch {r['decode']['batch']}; check step max abs / rms "
+            f"{chk['vs_plain']['max_abs'] / chk['vs_plain']['exp_rms']:.3f}"
+            + (f" (controls: {against})" if against else "") + f" [{smi}]")
+    log(f"4j xdeepfm: serve_p99 p50 {xrec['serve_p99']['p50_ms']:.3f} ms, p99 "
+        f"{xrec['serve_p99']['p99_ms']:.3f} ms; serve_bulk "
+        f"{xrec['serve_bulk']['rows_per_s']:.0f} rows/s; retrieval "
+        f"{xrec['retrieval_cand']['seconds']:.2f} s [{smi}]")
+    return {"launches": launches, "configs": configs}
+
+
+def merge_substrate(library: list, sub: dict) -> None:
+    """K4's and K6's records of phase 3b take phase 4j as their main path:
+    its launch counts (the kernel library's beside them) and its
+    configurations; K6's head becomes the serve_bulk slab's embedding
+    gather, the main path's shape (K4's head, granite prefill at 4,096, is
+    already the path's)."""
+    for rec in library:
+        name = rec["name"]
+        if name not in ("flash_attention_sm90", "flash_attention", "embedding_bag"):
+            continue
+        rec["launches_by_path"] = {"kernel_library": rec["launches"],
+                                   "substrate": sub["launches"].get(name, 0)}
+        rec["launches"] = sub["launches"].get(name, 0)
+        mine = sub["configs"].get(name, [])
+        rec["configs"] = rec["configs"] + mine
+        rec["cases_checked"] += len(mine)
+        if name == "embedding_bag":
+            rec.update({k: mine[0][k] for k in HEAD_KEYS})
+
+
 # ------------------------------------------------------------------ phase 4d
 
 # the full store at citeseer@1.0 (L_out 16 wide, L_in 8) and the padded floor
@@ -3686,6 +4406,8 @@ def main(argv=None) -> int:
                     help="run phases 1-3 and 4b only")
     ap.add_argument("--only-kernels", action="store_true",
                     help="run phases 1-3 and 3b (the kernel library) only")
+    ap.add_argument("--only-substrate", action="store_true",
+                    help="run phases 1-3b and 4j (the LM family and xDeepFM) only")
     ap.add_argument("--only-dynamic", action="store_true",
                     help="run phases 1-3, 4 and 4h (the dynamic oracle) only")
     ap.add_argument("--only-multi-device", action="store_true",
@@ -3704,7 +4426,7 @@ def main(argv=None) -> int:
     # the way out, however the run ends
     child = None
     if not (args.only_device_build or args.only_kernels or args.only_dynamic
-            or args.only_multi_device):
+            or args.only_multi_device or args.only_substrate):
         child = start_host_engines()
     children = {"host_engines": child, "mesh_ranks": None}
     try:
@@ -3733,6 +4455,9 @@ def run(args, children: dict) -> int:
                                           cases["frontier_expand"] + 1)]
     elif args.only_kernels:
         kernels = phase_kernel_library(device, cases)
+    elif args.only_substrate:
+        kernels = phase_kernel_library(device, cases)
+        merge_substrate(kernels, phase_substrate(device, smi_line))
     elif args.only_dynamic:
         g, co, queries, cq, rest, launches, verdicts = phase_main_path(device)
         dyn = phase_dynamic(device, g, queries, verdicts, args.publish_stall)
@@ -3779,6 +4504,7 @@ def run(args, children: dict) -> int:
                        "daemon": phase_daemon(g, co)["serve_batch"]}
         dyn = phase_dynamic(device, g, queries, verdicts, args.publish_stall)
         k1_launches["dynamic"] = dyn["launches"]["serve_batch"]
+        merge_substrate(library, phase_substrate(device, smi_line))
         budgeted = phase_cold_start_and_budget(g, co, queries, verdicts)
         cases["frontier_or"] += built["frontier_or_cases"]
         kernels = [timing_serve_batch(co, cq, k1_launches, cases["serve_batch"], budgeted)]

@@ -17,7 +17,9 @@
                     build path calls it)
   bitset_mm, flash_attention, ell_spmm, embedding_bag
                   : the kernel library, the counterpart of
-                    ``repro.kernels.ops``; no oracle path calls them
+                    ``repro.kernels.ops``; no oracle path calls them, the
+                    substrate's models call flash_attention (the LM family)
+                    and embedding_bag (xDeepFM)
 
 ``ops`` holds the wrappers (kernel on CUDA tensors, plain version on CPU
 tensors, launch counts), ``ref`` the plain versions, ``build`` the ``nvcc``

@@ -10,8 +10,10 @@
 // Computes, for q [B, Hq, S, D] and k, v [B, Hkv, T, D] in float32 (Hq a multiple of
 // Hkv), every query row (b, h, s) against kv head h / (Hq / Hkv):
 //     out[b, h, s] = sum_t softmax_t(scale * q[b, h, s] . k[b, kvh, t]) v[b, kvh, t]
-// over the keys t the masks keep.  Query positions are right-aligned to the keys,
-// qpos = s + T - S (one kernel for training, chunked prefill and decode); causal keeps
+// over the keys t the masks keep.  Only the first L = kv_len <= T keys of a head exist
+// (T is the heads' stride: a decode step passes its preallocated cache and the filled
+// length); keys t >= L are never read.  Query positions are right-aligned to them,
+// qpos = s + L - S (one kernel for training, chunked prefill and decode); causal keeps
 // t <= qpos, a window keeps t > qpos - window (from below only, also without causal).  A
 // row that keeps no key gives 0, as the TPU kernel's division by 1 when the sum is 0
 // does.  Logits, the softmax and the output are accumulated in float32.
@@ -33,7 +35,7 @@
 // Tiled (rows >= 64: prefill), flash_attention_tiled_kernel, tiled as an SGEMM on the
 // CUDA cores is.  A block of 128 threads owns 64 packed rows and walks 64-key tiles;
 // the whole block shares each K/V tile, so a value loaded from L2 serves 64 rows.  K and
-// V tiles come in by cp.async (16 bytes a lane, rows past T zero-filled) into two
+// V tiles come in by cp.async (16 bytes a lane, rows past kv_len zero-filled) into two
 // shared-memory stages, tile j + 1 loading while tile j computes.  Thread (g, c), g =
 // tid / 16 and c = tid % 16, owns rows 8g .. 8g + 7: it computes their logits against
 // keys c, c + 16, c + 32, c + 48 (a register micro-tile of 8 x 4 from 16-byte loads of
@@ -42,7 +44,7 @@
 // > 64) from P, written once to shared memory transposed, and V: 32 or 64 FMAs for 3 or
 // 4 loads a key.  The running max is reduced once a tile over the 16 lanes that share a
 // row, by shuffles; each lane keeps its own partial sum, reduced once at the end.
-// Masks apply only on tiles that straddle the causal edge, the window edge or T.  Row
+// Masks apply only on tiles that straddle the causal edge, the window edge or kv_len.  Row
 // tiles are launched from the last, so under a causal mask the longest run first.
 // D is a template parameter (one instantiation for each multiple of 8 from 8 to 128), so
 // the loops over it unroll whole.  Shared memory: q, two stages of K and V (64 x (D + 4)
@@ -78,6 +80,7 @@ struct Params {
   const void* v;
   void* out;
   int64_t Hq, Hkv, S, T, D;
+  int64_t L;     // kv_len: the keys that exist, the first L of each head's T rows
   int64_t rep;   // Hq / Hkv
   int64_t rows;  // rep * S query rows per (batch, kv head)
   int32_t causal, has_window;
@@ -153,9 +156,9 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   // the keys some row of the block can see: [k_begin, k_end)
-  const int64_t shift = p.T - p.S;
+  const int64_t shift = p.L - p.S;
   const int64_t s_first = r0 / p.rep, s_last = (r0 + nr - 1) / p.rep;
-  const int64_t k_end = p.causal ? min64(p.T, s_last + shift + 1) : p.T;
+  const int64_t k_end = p.causal ? min64(p.L, s_last + shift + 1) : p.L;
   const int64_t k_begin = p.has_window ? max64(0, s_first + shift - p.window + 1) : 0;
   int64_t qpos[R];
 #pragma unroll
@@ -359,14 +362,14 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // keys t0 .. t0 + 63 of K and V into ks and vs ([64][D + 4]), 16 bytes a copy; rows
-// past T are zero-filled.  Commits one cp.async group.
+// past L (kv_len) are zero-filled, not read.  Commits one cp.async group.
 template <int D>
 __device__ __forceinline__ void load_kv_tile(float* ks, float* vs, const float* kb,
-                                             const float* vb, int64_t t0, int64_t T) {
+                                             const float* vb, int64_t t0, int64_t L) {
   constexpr int vecs = D / 4, DP = D + 4;
   for (int e = threadIdx.x; e < kTileKeys * vecs; e += kTiledThreads) {
     const int j = e / vecs, d = (e - j * vecs) * 4;
-    const bool ok = t0 + j < T;
+    const bool ok = t0 + j < L;
     const int64_t off = ok ? (t0 + j) * D + d : 0;
     cp_async16(ks + j * DP + d, kb + off, ok);
     cp_async16(vs + j * DP + d, vb + off, ok);
@@ -413,15 +416,15 @@ __global__ void __launch_bounds__(kTiledThreads)
 
   // the keys some row of the block can see, [k_begin, k_end); the last key the first
   // row sees and the first key the last row sees bound the tiles that need no mask
-  const int64_t shift = p.T - p.S;
+  const int64_t shift = p.L - p.S;
   const int64_t s_first = r0 / p.rep, s_last = (r0 + nr - 1) / p.rep;
-  const int64_t k_end = p.causal ? min64(p.T, s_last + shift + 1) : p.T;
+  const int64_t k_end = p.causal ? min64(p.L, s_last + shift + 1) : p.L;
   const int64_t k_begin = p.has_window ? max64(0, s_first + shift - p.window + 1) : 0;
-  const int64_t hi_min = p.causal ? min64(p.T - 1, s_first + shift) : p.T - 1;
+  const int64_t hi_min = p.causal ? min64(p.L - 1, s_first + shift) : p.L - 1;
   const int64_t lo_max = p.has_window ? s_last + shift - p.window + 1 : 0;
   const int64_t t_first = (k_begin / kTileKeys) * kTileKeys;
 
-  if (t_first < k_end) load_kv_tile<D>(k_s, v_s, kb, vb, t_first, p.T);
+  if (t_first < k_end) load_kv_tile<D>(k_s, v_s, kb, vb, t_first, p.L);
 
   // stage the block's query rows, scaled into the base-2 softmax, while tile 0 loads
   for (int e = tid; e < kTileRows * vecs; e += kTiledThreads) {
@@ -456,7 +459,7 @@ __global__ void __launch_bounds__(kTiledThreads)
   for (int64_t t0 = t_first; t0 < k_end; t0 += kTileKeys, stage ^= 1) {
     if (t0 + kTileKeys < k_end) {  // block-uniform
       const int next = (stage ^ 1) * kTileKeys * DP;
-      load_kv_tile<D>(k_s + next, v_s + next, kb, vb, t0 + kTileKeys, p.T);
+      load_kv_tile<D>(k_s + next, v_s + next, kb, vb, t0 + kTileKeys, p.L);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -493,7 +496,7 @@ __global__ void __launch_bounds__(kTiledThreads)
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const int64_t qpos = (r0 + 8 * g + i) / p.rep + shift;
-        const int64_t hi = p.causal ? min64(p.T - 1, qpos) : p.T - 1;
+        const int64_t hi = p.causal ? min64(p.L - 1, qpos) : p.L - 1;
         const int64_t lo = p.has_window ? qpos - p.window + 1 : 0;
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
@@ -612,15 +615,17 @@ int launch_tiled_d(const Params& p, int64_t B, cudaStream_t stream) {
 }  // namespace
 
 // Launches on `stream` and returns a CUDA error code as an int (0 = success).  All
-// pointers are device pointers to contiguous float32 tensors; the caller has checked the shapes (Hq % Hkv == 0,
-// D % 8 == 0, 8 <= D <= 128, B and Hkv at most 65,535, S and T at least 1).
+// pointers are device pointers to contiguous float32 tensors; the caller has checked the
+// shapes (Hq % Hkv == 0, D % 8 == 0, 8 <= D <= 128, B and Hkv at most 65,535, S and T at
+// least 1, 1 <= kv_len <= T).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                                       int64_t B, int64_t Hq, int64_t Hkv,
-                                      int64_t S, int64_t T, int64_t D, int32_t causal,
-                                      int32_t has_window, int64_t window, float scale,
-                                      void* stream) {
+                                      int64_t S, int64_t T, int64_t kv_len, int64_t D,
+                                      int32_t causal, int32_t has_window, int64_t window,
+                                      float scale, void* stream) {
   if (B <= 0 || S <= 0) return 0;
-  Params p{q, k, v, out, Hq, Hkv, S, T, D, Hq / Hkv, (Hq / Hkv) * S,
+  if (kv_len < 1 || kv_len > T) return static_cast<int>(cudaErrorInvalidValue);
+  Params p{q, k, v, out, Hq, Hkv, S, T, D, kv_len, Hq / Hkv, (Hq / Hkv) * S,
            causal, has_window, window, scale * kLog2e};
   const auto s = static_cast<cudaStream_t>(stream);
   return p.rows < kTileRows ? launch_t<float>(p, B, s) : launch_tiled_d(p, B, s);

@@ -9,9 +9,11 @@
 // Computes, for q [B, Hq, S, D] and k, v [B, Hkv, T, D] in bfloat16 (Hq a multiple of
 // Hkv, D % 8 == 0, 8 <= D <= 128), every query row (b, h, s) against kv head h / (Hq / Hkv):
 //     out[b, h, s] = sum_t softmax_t(scale * q[b, h, s] . k[b, kvh, t]) v[b, kvh, t]
-// over the keys the masks keep.  Query positions are right-aligned to the keys,
-// qpos = s + T - S; causal keeps t <= qpos, a window keeps t > qpos - window (also without
-// causal).  A row that keeps no key gives 0.  Logits, the softmax statistics and the
+// over the keys the masks keep.  Only the first L = kv_len <= T keys of a head exist (T is
+// the heads' stride: a decode step passes its preallocated cache and the filled length);
+// keys t >= L are never read, the tensor maps ending at L.  Query positions are
+// right-aligned to them, qpos = s + L - S; causal keeps t <= qpos, a window keeps
+// t > qpos - window (also without causal).  A row that keeps no key gives 0.  Logits, the softmax statistics and the
 // accumulator are float32; the output is bfloat16.
 //
 // Bound on an H100: prefill by operations, 4 D Hq B (visible pairs) at the 989 TFLOP/s of
@@ -22,12 +24,12 @@
 // the group), so one K/V tile serves every q head that shares it and decode is one partly
 // filled tile a (batch, kv head).  The block stages its Q tile once in shared memory and
 // walks 64-key tiles of K and V, which thread 0 loads by TMA through 3-D tensor maps over
-// [B * Hkv, T, D] (keys past T and columns past D zero-fill inside the head) into two
+// [B * Hkv, L, D] (keys past L and columns past D zero-fill inside the head) into two
 // buffers, each completing on an mbarrier: one tile loads while the block computes on the
 // other, and the shared memory a deeper ring would take goes to more blocks an SM, which
 // is what keeps decode's bytes in flight.  Key tiles that no row of the block can see
 // (past the causal end, before the window) are never loaded; the masks are applied only
-// on tiles that straddle an edge or T.
+// on tiles that straddle an edge or L.
 //   * S = Q K^T: wgmma m64n64k16, Q and K both K-major in shared memory.
 //   * Online softmax in registers, in base 2 (scale * log2 e folded into the logits), each
 //     row's max and sum kept by the four threads (a quad) that hold it.
@@ -64,6 +66,7 @@ struct Params {
   const __nv_bfloat16* q;
   __nv_bfloat16* out;
   int64_t Hq, Hkv, S, T, D;
+  int64_t L;     // kv_len: the keys that exist, the first L of each head's T rows
   int64_t rep;   // Hq / Hkv
   int64_t rows;  // rep * S query rows per (batch, kv head)
   int64_t row_tiles;
@@ -280,9 +283,9 @@ __global__ void __launch_bounds__(kThreads, DP <= 80 ? 4 : 1)
   const int head = static_cast<int>(b * p.Hkv + kvh);
 
   // the keys some row of the tile can see, [k_begin, k_end), in whole key tiles
-  const int64_t shift = p.T - p.S;
+  const int64_t shift = p.L - p.S;
   const int64_t qpos_lo = r0 / p.rep + shift, qpos_hi = (r0 + nr - 1) / p.rep + shift;
-  const int64_t k_end = p.causal ? min64(p.T, qpos_hi + 1) : p.T;
+  const int64_t k_end = p.causal ? min64(p.L, qpos_hi + 1) : p.L;
   const int64_t k_begin = p.has_window ? max64(0, qpos_lo - p.window + 1) : 0;
   const int64_t kt0 = k_begin / kKeys;
   const int n_tiles =
@@ -348,9 +351,9 @@ __global__ void __launch_bounds__(kThreads, DP <= 80 ? 4 : 1)
     wgmma_wait_all();
     pin<kKeys / 2>(s);
 
-    // ---- masks (only on a tile that straddles an edge or T) and the online softmax
+    // ---- masks (only on a tile that straddles an edge or L) and the online softmax
     const int64_t key0 = (kt0 + j) * kKeys;
-    const bool whole = key0 + kKeys <= p.T && (!p.causal || key0 + kKeys - 1 <= qpos_lo) &&
+    const bool whole = key0 + kKeys <= p.L && (!p.causal || key0 + kKeys - 1 <= qpos_lo) &&
                        (!p.has_window || key0 > qpos_hi - p.window);
     float mx[2] = {m[0], m[1]};
 #pragma unroll
@@ -362,7 +365,7 @@ __global__ void __launch_bounds__(kThreads, DP <= 80 ? 4 : 1)
           float v = s[4 * i + 2 * h + x] * p.scale_log2;
           if (!whole) {
             const int64_t t = key0 + 8 * i + col0 + x;
-            const bool keep = t < p.T && (!p.causal || t <= qpos[h]) &&
+            const bool keep = t < p.L && (!p.causal || t <= qpos[h]) &&
                               (!p.has_window || t > qpos[h] - p.window);
             v = keep ? v : -INFINITY;
           }
@@ -491,12 +494,14 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a 3-D tensor map over a contiguous [B * Hkv, T, D] bfloat16 tensor: boxes of {w columns,
-// kKeys keys, 1 head} with the swizzle of a 2 w-byte row; zero fill past T and past D
-int tensor_map(CUtensorMap* map, const void* base, int64_t heads, int64_t T, int64_t D, int w) {
+// a 3-D tensor map over the first L keys of each head of a contiguous [B * Hkv, T, D]
+// bfloat16 tensor: boxes of {w columns, kKeys keys, 1 head} with the swizzle of a 2 w-byte
+// row; zero fill past L and past D, so no key t >= L is read
+int tensor_map(CUtensorMap* map, const void* base, int64_t heads, int64_t T, int64_t L,
+               int64_t D, int w) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(T),
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(L),
                               static_cast<cuuint64_t>(heads)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D * 2),
                                  static_cast<cuuint64_t>(T * D * 2)};
@@ -520,8 +525,8 @@ int launch(const Params& p, const void* k, const void* v, int64_t B, cudaStream_
   Maps maps;
   for (int c = 0; c < 2; ++c) {  // a single chunk maps chunk 0 twice (chunk 1 is never read)
     const int w = Chunks<DP>::width(c < Chunks<DP>::n ? c : 0);
-    int rc = tensor_map(&maps.m[c], k, B * p.Hkv, p.T, p.D, w);
-    if (rc == 0) rc = tensor_map(&maps.m[2 + c], v, B * p.Hkv, p.T, p.D, w);
+    int rc = tensor_map(&maps.m[c], k, B * p.Hkv, p.T, p.L, p.D, w);
+    if (rc == 0) rc = tensor_map(&maps.m[2 + c], v, B * p.Hkv, p.T, p.L, p.D, w);
     if (rc != 0) return rc;
   }
   const size_t smem = 1024 + static_cast<size_t>(kRows) * DP * 2 +
@@ -542,20 +547,21 @@ int launch(const Params& p, const void* k, const void* v, int64_t B, cudaStream_
 // the CUresult of cuTensorMapEncodeTiled when a tensor map cannot be made.  All pointers
 // are device pointers to contiguous bfloat16 tensors, 16-byte aligned; the caller has
 // checked the shapes (Hq % Hkv == 0, D % 8 == 0, 8 <= D <= 128, B and Hkv at most 65,535,
-// S and T at least 1).
+// S and T at least 1, 1 <= kv_len <= T).
 extern "C" int flash_attention_sm90_launch(const void* q, const void* k, const void* v,
                                            void* out, int64_t B, int64_t Hq, int64_t Hkv,
-                                           int64_t S, int64_t T, int64_t D, int32_t causal,
-                                           int32_t has_window, int64_t window, float scale,
-                                           void* stream) {
+                                           int64_t S, int64_t T, int64_t kv_len, int64_t D,
+                                           int32_t causal, int32_t has_window, int64_t window,
+                                           float scale, void* stream) {
   if (B <= 0 || S <= 0) return 0;
+  if (kv_len < 1 || kv_len > T) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t rows = (Hq / Hkv) * S;
   const int64_t row_tiles = (rows + kRows - 1) / kRows;
   if (row_tiles > 0x7fffffff || T > 0x7fffffff || B * Hkv > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   const Params p{static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(out),
-                 Hq, Hkv, S, T, D, Hq / Hkv, rows, row_tiles, causal, has_window, window,
-                 scale * kLog2e};
+                 Hq, Hkv, S, T, D, kv_len, Hq / Hkv, rows, row_tiles, causal, has_window,
+                 window, scale * kLog2e};
   const auto s = static_cast<cudaStream_t>(stream);
   if (D <= 16) return launch<16>(p, k, v, B, s);
   if (D <= 32) return launch<32>(p, k, v, B, s);

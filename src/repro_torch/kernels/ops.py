@@ -19,7 +19,9 @@ and the JAX engine's ``_tier_intersect``), ``frontier_or`` (K2's slab
 form), ``bitset_mm`` (K3), ``flash_attention``
 (K4: two kernels, chosen by dtype in ``attention_kernel``), ``ell_spmm``
 (K5) and ``embedding_bag`` (K6) are the counterparts of
-``repro.kernels.ops``: no oracle path calls them.
+``repro.kernels.ops``.  The substrate's models call K4 (every attention of
+the LM family, decode over its preallocated cache through ``kv_len``) and
+K6 (xDeepFM's two gathers); K3 and K5 have no caller yet.
 """
 from __future__ import annotations
 
@@ -526,7 +528,8 @@ def attention_kernel(dtype: torch.dtype) -> str:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, window=None, scale=None) -> torch.Tensor:
+                    causal: bool = True, window=None, scale=None,
+                    kv_len=None) -> torch.Tensor:
     """K4: softmax attention with causal, sliding-window and GQA masks, the
     semantics of ``repro.kernels.ops.flash_attention``.
 
@@ -536,7 +539,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (``qpos = s + T - S``); ``causal`` keeps keys ``t <= qpos``; ``window``
     (None or an int) keeps ``t > qpos - window``, also without ``causal``.
     A row that keeps no key gives 0.  ``scale`` defaults to ``1/sqrt(D)``
-    (taken in float32).  Needs Hq a multiple of Hkv, ``D % 8 == 0`` with
+    (taken in float32).  ``kv_len`` (default T) is the number of keys that
+    exist: keys ``t >= kv_len`` are neither read nor seen and the queries are
+    right-aligned to ``kv_len`` (``qpos = s + kv_len - S``), so a decode step
+    attends over the filled prefix of a preallocated ``[B, Hkv, T, D]``
+    cache without copying it.  Needs Hq a multiple of Hkv, ``D % 8 == 0`` with
     ``8 <= D <= 128``, S, T >= 1, and q, k and v 16-byte aligned (on either
     device, so both take the same inputs).  Logits, the softmax and the
     output accumulate in float32.
@@ -564,6 +571,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"head dim D = {D} must be a multiple of 8 in [8, 128]")
     if S < 1 or T < 1:
         raise ValueError(f"S = {S} and T = {T} must be at least 1")
+    kv_len = T if kv_len is None else int(kv_len)
+    if not 1 <= kv_len <= T:
+        raise ValueError(f"kv_len = {kv_len} must be in [1, T = {T}]")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             # the sm90 kernel reads q, k and v 16 bytes at a time (k and v by
@@ -575,13 +585,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
     dev = _device("flash_attention", q, k, v)
     if dev.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale,
+                                       kv_len=kv_len)
     if B > 65535 or Hkv > 65535:
         raise ValueError(f"B = {B} and Hkv = {Hkv} must be at most 65,535 (grid size)")
     kernel = attention_kernel(q.dtype)
     out = torch.empty_like(q)   # aligned: the sm90 kernel writes 16 bytes at a time
     if B:
         _launch(kernel, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                B, Hq, Hkv, S, T, D, int(bool(causal)), window is not None,
+                B, Hq, Hkv, S, T, kv_len, D, int(bool(causal)), window is not None,
                 0 if window is None else int(window), scale)
     return out

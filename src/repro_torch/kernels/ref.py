@@ -329,7 +329,8 @@ def attention_mask(S: int, T: int, causal: bool, window, device) -> torch.Tensor
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True, window=None, scale=None) -> torch.Tensor:
+                        causal: bool = True, window=None, scale=None,
+                        kv_len=None) -> torch.Tensor:
     """K4's plain version: softmax attention in float32 with the semantics of
     ``repro.kernels.ops.flash_attention`` (the Pallas kernel's), not of
     ``repro.kernels.ref.flash_attention_ref``: a query row with no visible
@@ -338,8 +339,13 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q: [B, Hq, S, D], k and v: [B, Hkv, T, D] (float32 or bfloat16; Hq a
     multiple of Hkv, q head h reads kv head ``h // (Hq // Hkv)``) -> q's
-    dtype [B, Hq, S, D].  ``scale`` defaults to ``1/sqrt(D)``.  Holds the
-    ``[B, Hq, S, T]`` logits whole."""
+    dtype [B, Hq, S, D].  ``scale`` defaults to ``1/sqrt(D)``.  Only keys
+    ``t < kv_len`` (default T) exist: the queries are right-aligned to
+    ``kv_len`` and the rest of k and v is never read, which is attention over
+    the contiguous prefix ``k[:, :, :kv_len]``.  Holds the
+    ``[B, Hq, S, kv_len]`` logits whole."""
+    if kv_len is not None:
+        k, v = k[:, :, :kv_len], v[:, :, :kv_len]
     B, Hq, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     rep = Hq // Hkv

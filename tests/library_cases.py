@@ -142,3 +142,26 @@ def make_bag_case(rng, V, D, B, bag, edge):
         idx[:, 0] = V - 1
     table = rng.standard_normal((V, D)).astype(np.float32)
     return table, idx
+
+
+# (B, Hq, Hkv, S, T, kv_len, D, window): K4 over a preallocated cache of T keys
+# of which kv_len exist (the decode path's call): kv_len 1, a 64-key tile's
+# edge and one past it, T; danube's window cutting, deepseek-7b's heads (rep
+# 1, D = 128), and S > 1 on the float32 tiled kernel.  Callers put NaN past
+# kv_len, so a kernel that read a key there fails
+KV_LEN_CASES = [(2, 32, 8, 1, 320, 1, 64, None), (2, 32, 8, 1, 320, 63, 64, None),
+                (2, 32, 8, 1, 320, 64, 64, None), (2, 32, 8, 1, 320, 65, 64, None),
+                (2, 32, 8, 1, 320, 320, 64, None),
+                (2, 32, 8, 1, 4176, 4161, 80, 4096),
+                (2, 32, 32, 1, 300, 129, 128, None),
+                (1, 4, 2, 100, 300, 229, 64, None),
+                (1, 4, 2, 100, 300, 129, 64, 65)]
+
+
+def make_kv_len_case(rng, B, Hq, Hkv, S, T, kv_len, D):
+    """(q, k, v) float32, k and v NaN at the keys t >= kv_len."""
+    q = rng.standard_normal((B, Hq, S, D)).astype(np.float32)
+    kv = rng.standard_normal((2, B, Hkv, T, D)).astype(np.float32)
+    kv[:, :, :, kv_len:] = np.nan
+    return q, kv[0], kv[1]
+

@@ -10,8 +10,10 @@ label_intersect), a durable crash and recovery and the six chaos scenarios
 on the card, the device wave build on the
 card (through frontier_expand) against the reference build, the sharded
 serve backends and the ``mesh=`` device build over a one-rank NCCL mesh,
-and the kernel library (K3 bitset_mm, K4 flash_attention, K5 ell_spmm, K6
-embedding_bag) against its plain versions.
+the kernel library (K3 bitset_mm, K4 flash_attention, also over a
+preallocated cache with ``kv_len``, K5 ell_spmm, K6 embedding_bag) against
+its plain versions, and the LM family's and xDeepFM's smoke configs on the
+card against the same weights on the CPU.
 
 These tests need a CUDA card and the CUDA toolkit (the kernels build with
 ``nvcc`` on first use); they carry the ``cuda`` marker and, without a card,
@@ -25,8 +27,9 @@ import pytest
 import torch
 
 from frontier_cases import ARRAYS, CASES, ORDER, assert_same_level, make_case
-from library_cases import (ATTENTION_F32_CASES, BAG_CASES, BITSET_CASES, SPMM_CASES, case_id,
-                           make_bag_case, make_bitset_case, make_spmm_case, padding_rows)
+from library_cases import (ATTENTION_F32_CASES, BAG_CASES, BITSET_CASES, KV_LEN_CASES,
+                           SPMM_CASES, case_id, make_bag_case, make_bitset_case,
+                           make_kv_len_case, make_spmm_case, padding_rows)
 from serve_batch_cases import BINDING as SERVE_BINDING
 from serve_batch_cases import CASES as SERVE_CASES
 from serve_batch_cases import MASKS as SERVE_MASKS
@@ -788,6 +791,85 @@ def test_flash_attention_f32_kernel_edges(cuda, rng, case):
         assert not got[:, :, : S - T].any()
     if window == 0:
         assert not got.any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", KV_LEN_CASES, ids=case_id)
+def test_flash_attention_kv_len_matches_plain(cuda, rng, case, dtype):
+    """Both K4 kernels over a preallocated cache: only the first kv_len keys
+    exist (NaN past them would reach the output if read), the queries
+    right-aligned to them."""
+    B, Hq, Hkv, S, T, kv_len, D, window = case
+    q, k, v = (torch.from_numpy(x).to(cuda).to(dtype)
+               for x in make_kv_len_case(rng, B, Hq, Hkv, S, T, kv_len, D))
+    got = _launched(ops.attention_kernel(dtype), lambda: ops.flash_attention(
+        q, k, v, causal=True, window=window, kv_len=kv_len))
+    assert torch.isfinite(got).all()
+    exp = ref.flash_attention_ref(q.float(), k.float(), v.float(), causal=True, window=window,
+                                  kv_len=kv_len)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, exp, rtol=2e-5, atol=2e-5)
+    else:
+        torch.testing.assert_close(got.float(), exp.to(dtype).float(), rtol=2**-7, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", ["granite-3-2b", "h2o-danube-1.8b", "deepseek-7b",
+                                  "granite-moe-1b-a400m"])
+def test_lm_smoke_on_card_matches_cpu(cuda, arch, dtype):
+    """An LM's smoke config on the card (K4, n_layers launches a forward and
+    a decode step) against the same weights and tokens on the CPU (K4's plain
+    version): float32 within 1e-4, bfloat16 within 5e-2 (the two devices'
+    matrix products round differently)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(get_arch(arch).smoke_config(), dtype=dtype)
+    params = tf.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    on_card = {"embed": params["embed"].to(cuda), "final_ln": params["final_ln"].to(cuda),
+               "layers": {k: v.to(cuda) for k, v in params["layers"].items()}}
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (2, 48),
+                                                              dtype=np.int32))
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    kernel = ops.attention_kernel(dtype)
+    ops.reset_launches()
+    got = tf.forward(cfg, on_card, toks.to(cuda))[0]
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[kernel] == cfg.n_layers
+    torch.testing.assert_close(got.cpu(), tf.forward(cfg, params, toks)[0], rtol=0, atol=tol)
+    cache, cpu_cache = tf.init_cache(cfg, 2, 48, cuda), tf.init_cache(cfg, 2, 48, "cpu")
+    for t in range(48):
+        ops.reset_launches()
+        got = tf.decode_step(cfg, on_card, cache, toks[:, t:t + 1].to(cuda))[0]
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES[kernel] == cfg.n_layers
+        exp = tf.decode_step(cfg, params, cpu_cache, toks[:, t:t + 1])[0]
+        torch.testing.assert_close(got.cpu(), exp, rtol=0, atol=tol)
+
+
+def test_xdeepfm_smoke_on_card_matches_cpu(cuda):
+    """xDeepFM's smoke config on the card (K6, two launches a forward)
+    against the same weights and ids on the CPU, within 1e-5."""
+    from repro_torch.configs import xdeepfm_cfg
+    from repro_torch.models.recsys import xdeepfm
+
+    cfg = xdeepfm_cfg.smoke_config()
+    params = xdeepfm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    on_card = {k: ([w.to(cuda) for w in v] if k == "cin" else
+                   [{n: t.to(cuda) for n, t in l.items()} for l in v] if k == "mlp" else
+                   v.to(cuda)) for k, v in params.items()}
+    ids = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_per_field, (300, cfg.n_fields), dtype=np.int32))
+    ops.reset_launches()
+    got = xdeepfm.forward(cfg, on_card, ids.to(cuda))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["embedding_bag"] == 2
+    torch.testing.assert_close(got.cpu(), xdeepfm.forward(cfg, params, ids), rtol=0, atol=1e-5)
+    got = xdeepfm.retrieval_score(cfg, on_card, ids[:1].to(cuda), ids[:, 0].to(cuda), chunk=100)
+    exp = xdeepfm.retrieval_score(cfg, params, ids[:1], ids[:, 0], chunk=100)
+    torch.testing.assert_close(got.cpu(), exp, rtol=0, atol=1e-5)
 
 
 def test_flash_attention_kernel_refuses_misaligned_kv(cuda, rng):

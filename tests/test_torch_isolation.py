@@ -2,7 +2,8 @@
 
   * importing every module of the port loads neither ``jax`` nor any module
     of the JAX package ``repro`` (checked in a fresh interpreter);
-  * the entry points (the dynamic oracle's and the chaos driver's too) raise
+  * the entry points (the dynamic oracle's, the chaos driver's and the
+    substrate models' too) raise
     ``RuntimeError`` on a box without CUDA unless the caller passes
     ``device="cpu"``;
   * the serve driver runs end to end with ``--device cpu``.
@@ -51,7 +52,15 @@ for name in ("repro_torch.build.bitset", "repro_torch.build.waves",
              "repro_torch.dynamic.repair", "repro_torch.dynamic.versioned",
              "repro_torch.dynamic.durable", "repro_torch.launch.chaos",
              # the multi-device modes and the vertex-wise device DL
-             "repro_torch.launch.mesh", "repro_torch.core.distribution_device"):
+             "repro_torch.launch.mesh", "repro_torch.core.distribution_device",
+             # the substrate's serving paths: the LM family and xDeepFM on K4
+             # and K6, and the architecture registry
+             "repro_torch.models", "repro_torch.models.transformer",
+             "repro_torch.models.recsys", "repro_torch.models.recsys.xdeepfm",
+             "repro_torch.configs", "repro_torch.configs.lm_cells",
+             "repro_torch.configs.granite_3_2b", "repro_torch.configs.h2o_danube_1_8b",
+             "repro_torch.configs.deepseek_7b", "repro_torch.configs.granite_moe_1b_a400m",
+             "repro_torch.configs.deepseek_v2_lite_16b", "repro_torch.configs.xdeepfm_cfg"):
     assert name in names, name
 from repro_torch.core.api import oracle_from_snapshot
 from repro_torch.core import hierarchical_labeling
@@ -63,6 +72,9 @@ from repro_torch.dynamic import DurableDynamicOracle, DynamicOracle, LabelEpoch
 from repro_torch.build.engine import cone_resume_sweep
 from repro_torch.core import distribution_labeling_torch, oracle_from_snapshot
 from repro_torch.serve import make_hop_sharded_serve_step, make_sharded_serve_step
+from repro_torch.configs import ALL_ARCHS, get_arch
+for arch in ALL_ARCHS:
+    get_arch(arch).full_config()
 # the kernel library's wrappers, and a build entry for every CUDA source
 from repro_torch.kernels import build, ops
 for fn in ("bitset_mm", "flash_attention", "ell_spmm", "embedding_bag"):
@@ -141,6 +153,31 @@ def test_dynamic_entry_points_refuse_without_cuda(tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert DynamicOracle(g, device="cpu").query(0, 2)
+
+
+def test_substrate_entry_points_refuse_without_cuda():
+    """The LM family's and xDeepFM's entry points that make tensors default
+    to the card; with ``device="cpu"`` they run."""
+    _no_cuda()
+    from repro_torch.configs import granite_3_2b, xdeepfm_cfg
+    from repro_torch.models import transformer
+    from repro_torch.models.recsys import xdeepfm
+
+    lm, rs = granite_3_2b.smoke_config(), xdeepfm_cfg.smoke_config()
+    gen = torch.Generator().manual_seed(0)
+    for call in (lambda: transformer.init_params(lm, gen),
+                 lambda: transformer.init_cache(lm, 1, 8),
+                 lambda: transformer.params_from_jax(lm, {}),
+                 lambda: xdeepfm.init_params(rs, gen),
+                 lambda: xdeepfm.params_from_jax(rs, {})):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    params = transformer.init_params(lm, gen, device="cpu")
+    cache = transformer.init_cache(lm, 1, 8, device="cpu")
+    logits, _ = transformer.decode_step(lm, params, cache, torch.zeros((1, 1), dtype=torch.int32))
+    assert logits.device.type == "cpu" and cache["pos"] == 1
+    p = xdeepfm.init_params(rs, gen, device="cpu")
+    assert xdeepfm.forward(rs, p, torch.zeros((2, rs.n_fields), dtype=torch.int32)).shape == (2,)
 
 
 def test_serve_driver_runs_on_cpu(tmp_path):

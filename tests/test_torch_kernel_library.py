@@ -229,6 +229,65 @@ def test_flash_attention_empty_rows_give_zero_where_the_jnp_reference_gives_nan(
     assert np.isnan(jnp_ref).all()
 
 
+# K4 with kv_len: (B, Hq, Hkv, T, D, pos, window), a decode step at position
+# pos over a preallocated cache of T (kv_len = pos + 1); the window cuts where
+# it is under pos + 1, as JAX's decode slices its cache
+KV_LEN_CASES = [(2, 4, 2, 100, 16, 0, None), (2, 4, 2, 100, 16, 37, None),
+                (2, 4, 2, 100, 16, 99, None), (1, 8, 2, 130, 32, 64, None),
+                (2, 4, 2, 100, 16, 70, 32), (2, 4, 2, 100, 16, 20, 32),
+                (1, 4, 4, 200, 64, 150, 64), (1, 8, 2, 96, 80, 95, 40),
+                (1, 4, 2, 64, 16, 63, 64), (1, 4, 2, 70, 16, 69, 100)]
+
+
+def _jax_decode_attention(q, k, v, pos, window):
+    """JAX's decode attention over the whole cache (``repro.models.transformer
+    ._decode_layer``): a window under the cache length takes its
+    ``window``-long slice, else the whole cache masked to keys <= pos."""
+    from repro.models import transformer as jtf
+
+    T = k.shape[2]
+    q, k, v = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    if window is not None and window < T:
+        start = max(pos - window + 1, 0)
+        kw = k[:, :, start:start + window]
+        vw = v[:, :, start:start + window]
+        return np.asarray(jtf._masked_decode_attn(q, kw, vw, jnp.arange(window) <= pos - start))
+    return np.asarray(jtf._masked_decode_attn(q, k, v, jnp.arange(T) <= pos))
+
+
+@pytest.mark.parametrize("case", KV_LEN_CASES, ids=case_id)
+def test_flash_attention_kv_len_matches_jax_masked_decode(case, rng):
+    """K4's plain version with ``kv_len = pos + 1`` over a whole cache: JAX's
+    masked decode attention over the whole masked cache, within 2e-5, and
+    exactly itself on the contiguous prefix; the keys past kv_len are never
+    read (NaN there changes nothing)."""
+    B, Hq, Hkv, T, D, pos, window = case
+    q, k, v = _qkv(rng, B, Hq, Hkv, 1, T, D)
+    exp = _jax_decode_attention(q, k, v, pos, window)
+    k[:, :, pos + 1:] = np.nan
+    v[:, :, pos + 1:] = np.nan
+    got = ops.flash_attention(_t(q), _t(k), _t(v), causal=True, window=window, kv_len=pos + 1)
+    np.testing.assert_allclose(got.numpy(), exp, rtol=2e-5, atol=2e-5)
+    prefix = ops.flash_attention(_t(q), _t(k[:, :, :pos + 1]), _t(v[:, :, :pos + 1]),
+                                 causal=True, window=window)
+    assert torch.equal(got, prefix)
+
+
+def test_flash_attention_kv_len_right_aligns_the_queries(rng):
+    """S > 1 queries with kv_len: the last query sits at key kv_len - 1, as
+    attention over the contiguous prefix has it (chunked prefill)."""
+    q, k, v = _qkv(rng, 1, 4, 2, 5, 64, 16)
+    for kv_len, window in ((9, None), (40, 7), (64, None), (3, None)):
+        got = ops.flash_attention(_t(q), _t(k), _t(v), causal=True, window=window, kv_len=kv_len)
+        exp = ops.flash_attention(_t(q), _t(k[:, :, :kv_len]), _t(v[:, :, :kv_len]),
+                                  causal=True, window=window)
+        assert torch.equal(got, exp)
+    with pytest.raises(ValueError, match="kv_len"):
+        ops.flash_attention(_t(q), _t(k), _t(v), kv_len=0)
+    with pytest.raises(ValueError, match="kv_len"):
+        ops.flash_attention(_t(q), _t(k), _t(v), kv_len=65)
+
+
 # ------------------------------------------------------------------ K5
 
 

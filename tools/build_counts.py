@@ -17,7 +17,8 @@ impl=...)`` for each ``--impl`` and prints the impl it resolved to,
 ["speculation"]`` without its ``*_seconds``) and the sha256 of the five
 label fields (``L_out``, ``L_in``, ``out_len``, ``in_len``, ``hop_rank``):
 the counts ``chip_smoke.py`` holds the port to at citeseer@1.0 and @0.5
-(``SPEC_BOUNDARIES``, ``WAVE_BOUNDARIES``, ``SPEC_COUNTS``, ``DL_SHA256``).
+(``SPEC_BOUNDARIES``, ``WAVE_BOUNDARIES``, ``SPEC_COUNTS``, ``DL_SHA256``;
+the latter also at @0.25 and @0.02).
 
 ``--method hierarchical`` runs ``hierarchical_labeling(g)`` and prints the
 level sizes of ``decompose``, the label matrices' shapes, the label ints
