@@ -12,8 +12,9 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      and bit patterns; K4 at 2e-5 in float32 and one step in bfloat16, each
      case through the kernel of its dtype, also over a preallocated cache
      with ``kv_len`` 1, a 64-key tile's edge and one past it and T, NaN past
-     kv_len (``tests/library_cases.py``'s ``KV_LEN_CASES``), K5 and K6 at
-     1e-5).  K1 has two
+     kv_len (``tests/library_cases.py``'s ``KV_LEN_CASES``), and with a value
+     width of its own, MLA's D = 192 and Dv = 128 among them
+     (``ATTENTION_DV_CASES``, also over a cache), K5 and K6 at 1e-5).  K1 has two
      kernels: its batch form ``serve_batch`` (the engine's kernel backend,
      a whole batch in one launch), whose cases are
      ``tests/serve_batch_cases.py``'s, and its tier form ``label_intersect``
@@ -141,27 +142,37 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      max abs and top-1 agreement within ``SUBSTRATE_BF16``; 8 prompts of
      256 fed through ``decode_step`` and 64 greedy tokens, a cache of 320),
      h2o-danube-1.8b (prefill 1 x 8,192, where the window cuts),
-     deepseek-7b and granite-moe-1b-a400m (1 x 4,096), these three then
-     16 decode steps at batch 8 over a cache filled with random keys and
-     values to 4,160 positions.  Each LM's check step (a step of its decode
+     deepseek-7b, granite-moe-1b-a400m and deepseek-v2-lite-16b (1 x 4,096;
+     MLA through K4 at D = 192, Dv = 128), these four then 16 decode steps
+     at batch 8 over a cache filled with random keys and values (MLA: random
+     latents) to 4,160 positions.  Each non-MLA LM's check step (a step of its decode
      once more, granite's at kv_len 300, the others' at 4,161) against the
      plain version, a dense LM's within ``SUBSTRATE_BF16``'s max abs, which
      must reject the step through an attention that drops chunks of keys;
      the step under torch.profiler: K4's share of the device time.  granite
      and the MoE once more in float32 on K4's CUDA-core kernel (the check
      step; granite's prefill 1 x 4,096, its logits against the plain
-     version and decode against forward) within ``SUBSTRATE_F32_ATOL``;
+     version and decode against forward) within ``SUBSTRATE_F32_ATOL``, and
+     deepseek-v2-lite at 2 of its layers with no token dropped (prefill, its
+     logits against the plain version, decode against forward); the GNN
+     family: GCN at full_graph_sm and ogb_products (K5, 2 launches a
+     forward, against its forward through K5's plain version within 1e-5),
+     gatedgcn and schnet against the same forward on the CPU (1e-4) and
+     graphcast in bfloat16 against its float32 re-run (``GRAPHCAST_BF16``),
+     each forward's ms, nodes/s and edges/s;
      xDeepFM serve_p99 (200 batches of 512, p50/p99, a batch's logits
      against the plain gathers within 1e-5), serve_bulk (262,144 rows in
      slabs of 16,384) and retrieval_cand (1 x 1,000,000 in chunks of
      25,000; the first chunk equal to forward on the broadcast ids).
      Launch counts read around exactly each call: K4 n_layers a prefill
-     and a decode step, K6 2 a forward.  Then K4 at the last layer's call
-     of every prefill (a 32k one on its last 1,024 query rows) and check
-     step, the path's own inputs and output, and K6's two gathers of a
-     serve_bulk slab, each against its plain version with its controls,
-     timed beside its bound, its plain version and the PyTorch call; these
-     and the counts become K4's and K6's entries of the kernels line;
+     and a decode step (MLA's decode step none), K5 2 a GCN forward, K6 2
+     a forward.  Then K4 at the last layer's call of every prefill (a 32k
+     one on its last 1,024 query rows) and check step, K5 at GCN's two
+     calls at ogb_products (F = 16 and 7), the path's own inputs and output,
+     and K6's two gathers of a serve_bulk slab, each against its plain
+     version with its controls, timed beside its bound, its plain version
+     and the PyTorch call; these and the counts become K4's, K5's and K6's
+     entries of the kernels line;
   4d. cold start and budget, on phase 4's oracle and traffic: the oracle
      saved (``persist.save_oracle``) and cold-started
      (``core.api.oracle_from_snapshot``), labels byte for byte and every
@@ -187,8 +198,8 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      those of phase 4h's pinned epochs and of phase 4i's sharded backends
      (every rank's), timed at phase 4h's pinned batch size, at 4,096 and at
      2^20 queries, where its byte bound binds; K2's slab form those of
-     phase 4i's mesh= build (every rank's); K4's and K6's those of phase
-     4j (phase 3b's beside them); K1's tier form
+     phase 4i's mesh= build (every rank's); K4's, K5's and K6's those of
+     phase 4j (phase 3b's beside them); K1's tier form
      and K2's slab form also after an L2 flush, the time their shares of
      the DRAM-rate bound are taken from, the tier form beside its gather
      floor too);
@@ -769,6 +780,25 @@ def _library_vs_plain(rng, device) -> dict:
             check(bool(torch.isfinite(got).all()), f"{what}: a key past kv_len was read")
             check(_attention_excess(got, exp) <= 1, what)
             cases[name] += 1
+    # a value width of its own (MLA's prefill: D = 192, Dv = 128), also over a cache
+    for B, Hq, Hkv, S, T, kv_len, D, Dv, causal, window in lc.ATTENTION_DV_CASES:
+        q, k, v = (t(x) for x in lc.make_kv_len_case(rng, B, Hq, Hkv, S, T, kv_len or T, D,
+                                                     Dv))
+        for dtype in (torch.float32, torch.bfloat16):
+            qd, kd, vd = (x.to(dtype) for x in (q, k, v))
+            name = ops.attention_kernel(dtype)
+            before = ops.LAUNCHES[name]
+            got = ops.flash_attention(qd, kd, vd, causal=causal, window=window, kv_len=kv_len)
+            exp = ref.flash_attention_ref(qd.float(), kd.float(), vd.float(), causal=causal,
+                                          window=window, kv_len=kv_len)
+            torch.cuda.synchronize()
+            what = f"flash_attention {dtype} B={B} Hq={Hq} Hkv={Hkv} S={S} T={T} " \
+                   f"kv_len={kv_len} D={D} Dv={Dv} causal={causal} window={window}"
+            check(ops.LAUNCHES[name] == before + 1, f"{what}: not one launch of {name}")
+            check(got.shape == (B, Hq, S, Dv) and bool(torch.isfinite(got).all()),
+                  f"{what}: shape {tuple(got.shape)} or a key past kv_len was read")
+            check(_attention_excess(got, exp) <= 1, what)
+            cases[name] += 1
     for B, Hq, Hkv, S, T, D, causal, window in lc.ATTENTION_F32_CASES:
         q = t(rng.standard_normal((B, Hq, S, D)).astype(np.float32))
         k = t(rng.standard_normal((B, Hkv, T, D)).astype(np.float32))
@@ -1056,11 +1086,12 @@ def _attention_plain_chunked(q, k, v, causal, window):
     B, Hq, S, _ = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     rep = Hq // Hkv
-    per_pair = max(rep * S * T * 4 * 3, T * k.shape[3] * 4 * 2)   # logits, mask, exp; k, v
+    # logits, mask, exp; k, v
+    per_pair = max(rep * S * T * 4 * 3, T * (k.shape[3] + v.shape[3]) * 4)
     units = max(1, PLAIN_CHUNK_BYTES // per_pair)
     hc = min(Hkv, units)
     bc = max(1, units // Hkv) if hc == Hkv else 1
-    out = torch.empty_like(q)
+    out = q.new_empty((B, Hq, S, v.shape[3]))
     for b0 in range(0, B, bc):
         for h0 in range(0, Hkv, hc):
             b1, h1 = min(b0 + bc, B), min(h0 + hc, Hkv)
@@ -1079,10 +1110,11 @@ def _attention_record(label: str, c: dict, q, k, v, out, device) -> dict:
     """K4's output ``out`` at one configuration against the float32 plain
     version (``_attention_excess``) and the controls it must reject; then the
     wrapper's time, its device time, the plain version's and SDPA's, and the
-    bound.  ``c`` holds B, Hq, Hkv, S, T, D, causal, window, dtype and, for a
-    call over a preallocated cache, kv_len: the plain version and SDPA then
-    take the contiguous prefix.  Only the keys some query sees count as
-    bytes (``_attention_keys``): a window cuts the rest of the prefix."""
+    bound.  ``c`` holds B, Hq, Hkv, S, T, D, causal, window, dtype, v's width
+    Dv where it differs from D (MLA) and, for a call over a preallocated
+    cache, kv_len: the plain version and SDPA then take the contiguous
+    prefix.  Only the keys some query sees count as bytes
+    (``_attention_keys``): a window cuts the rest of the prefix."""
     import torch
     import torch.nn.functional as F
 
@@ -1129,9 +1161,11 @@ def _attention_record(label: str, c: dict, q, k, v, out, device) -> dict:
     p2, _ = _timed_once(plain)
     l1, l2 = _event_ms(lib, 3, warmup=1), _event_ms(lib, 3, warmup=1)
     pairs = _attention_pairs(c["S"], kv_len, c["causal"], c["window"])
-    flops = 4 * pairs * c["D"] * c["Hq"] * c["B"]
+    D, Dv = c["D"], c.get("Dv", c["D"])
+    # two products: q k^T over D, p v over Dv, a multiply and an add each
+    flops = 2 * pairs * (D + Dv) * c["Hq"] * c["B"]
     keys = _attention_keys(c["S"], kv_len, c["causal"], c["window"])
-    nbytes = q.element_size() * (q.numel() + 2 * c["B"] * c["Hkv"] * keys * c["D"]
+    nbytes = q.element_size() * (q.numel() + c["B"] * c["Hkv"] * keys * (D + Dv)
                                  + out.numel())
     bound = _bound(nbytes, flops, PEAK_BF16_FLOPS_PER_S if q.dtype == torch.bfloat16
                    else PEAK_F32_FLOPS_PER_S)
@@ -1214,6 +1248,59 @@ def _bag_record(label: str, table, idx, out) -> dict:
         "library_ms": min(l1, l2), "library_ms_runs": [l1, l2],
         "library": "F.embedding_bag(idx.clamp_min(0), table, mode='sum', "
                    "per_sample_weights=(idx >= 0)), both made outside the timed window",
+        "library_kernels": _library_kernels(lib), "library_max_abs_diff": lib_err}
+
+
+def _spmm_record(label: str, nbr, wgt, x, out, device) -> dict:
+    """K5's output ``out`` = ``ops.ell_spmm(nbr, wgt, x)`` against its plain
+    version (in row chunks) within 1e-5; then the wrapper's time, its device
+    time, the plain version's and ``torch.sparse.mm``'s over the same rows
+    as CSR, the bound and the gather floor."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    n, d = nbr.shape
+    keep = nbr >= 0
+    valid = int(keep.sum())
+    kern = lambda: ops.ell_spmm(nbr, wgt, x)  # noqa: E731
+    plain = lambda: _rows_chunked(  # noqa: E731
+        lambda sl: ref.ell_spmm_ref(nbr[sl], wgt[sl], x), n, 1 << 17)
+    p1, exp = _timed_once(plain)
+    err = float((out - exp).abs().max())
+    check(torch.allclose(out, exp, rtol=1e-5, atol=1e-5),
+          f"ell_spmm differs from its plain version at {label}: {err}")
+    del exp
+    k1, k2 = _event_ms(kern, 10, warmup=2), _event_ms(kern, 10, warmup=2)
+    p2, _ = _timed_once(plain)
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=device)
+    crow[1:] = keep.sum(1).cumsum(0)
+    with warnings.catch_warnings():   # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore")
+        csr = torch.sparse_csr_tensor(crow, nbr[keep].long(), wgt[keep], size=(n, x.shape[0]))
+    lib = lambda: torch.sparse.mm(csr, x)  # noqa: E731
+    lib_err = float((lib() - out).abs().max())
+    l1, l2 = _event_ms(lib, 10, warmup=2), _event_ms(lib, 10, warmup=2)
+    F_ = x.shape[1]
+    device_ms = _kernel_device_ms(kern, "ell_spmm_kernel", 5)
+    # ids, weights and out once, and one source row per valid slot: uniform ids
+    # leave x no reuse from the 50 MB L2 where it is larger
+    floor_ms = (n * d * 8 + n * F_ * 4 + valid * F_ * 4) / PEAK_BYTES_PER_S * 1e3
+    log(f"K5 ell_spmm {label}: {min(k1, k2):.3f} ms (device {device_ms:.4f} ms), "
+        f"plain {min(p1, p2):.3f} ms, torch.sparse.mm {min(l1, l2):.3f} ms")
+    return {
+        "config": label, "max_abs_err": err,
+        "shape": {"n": n, "d": d, "n_src": x.shape[0], "F": F_, "valid_slots": valid},
+        "ms": min(k1, k2), "ms_runs": [k1, k2],
+        "device_ms": device_ms,
+        "plain_ms": min(p1, p2), "plain_ms_runs": [p1, p2],
+        # ids, weights and out once, and x once; one multiply-add per valid
+        # slot and feature
+        **_bound(n * d * 8 + n * F_ * 4 + x.numel() * 4, 2 * valid * F_, 67e12),
+        "gather_bytes_no_reuse": valid * F_ * 4,
+        "gather_floor_ms": floor_ms, "gather_floor_share": floor_ms / device_ms,
+        "library_ms": min(l1, l2), "library_ms_runs": [l1, l2],
+        "library": "torch.sparse.mm(CSR built outside the timed window, x)",
         "library_kernels": _library_kernels(lib), "library_max_abs_diff": lib_err}
 
 
@@ -1335,52 +1422,16 @@ def phase_kernel_library(device, cases: dict) -> list:
             **{k: head[k] for k in HEAD_KEYS}, "configs": mine})
 
     # ---- K5: ogb_products against the plain version (row chunks) and CSR SpMM
-    n, d = nbr.shape
-    valid = int(lens.sum())
-    kern = lambda: ops.ell_spmm(nbr, wgt, x)  # noqa: E731
-    plain = lambda: _rows_chunked(  # noqa: E731
-        lambda sl: ref.ell_spmm_ref(nbr[sl], wgt[sl], x), n, 1 << 17)
-    p1, exp = _timed_once(plain)
-    err = float((spmm_out - exp).abs().max())
-    check(torch.allclose(spmm_out, exp, rtol=1e-5, atol=1e-5),
-          f"ell_spmm differs from its plain version at ogb_products: {err}")
-    del exp
-    k1, k2 = _event_ms(kern, 10, warmup=2), _event_ms(kern, 10, warmup=2)
-    p2, _ = _timed_once(plain)
-    keep = nbr >= 0
-    crow = torch.zeros(n + 1, dtype=torch.int64, device=device)
-    crow[1:] = keep.sum(1).cumsum(0)
-    with warnings.catch_warnings():   # "sparse CSR support is in beta"
-        warnings.simplefilter("ignore")
-        csr = torch.sparse_csr_tensor(crow, nbr[keep].long(), wgt[keep], size=(n, x.shape[0]))
-    lib = lambda: torch.sparse.mm(csr, x)  # noqa: E731
-    lib_err = float((lib() - spmm_out).abs().max())
-    l1, l2 = _event_ms(lib, 10, warmup=2), _event_ms(lib, 10, warmup=2)
-    F_ = x.shape[1]
-    device_ms = _kernel_device_ms(kern, "ell_spmm_kernel", 5)
-    # ids, weights and out once, and one source row per valid slot: uniform ids
-    # leave x (980 MB) no reuse from the 50 MB L2
-    floor_ms = (n * d * 8 + n * F_ * 4 + valid * F_ * 4) / PEAK_BYTES_PER_S * 1e3
+    spmm_rec = _spmm_record("ogb_products, random rows of 18-32 slots (configs/gnn_cells.py)",
+                            nbr, wgt, x, spmm_out, device)
     records.append({
         "name": "ell_spmm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ell_spmm.cu",
         "replaces": "src/repro/kernels/ell_spmm.py:61",
         "launches": launches["ell_spmm"], "matches_plain": True,
-        "cases_checked": cases["ell_spmm"] + 1, "max_abs_err": err,
-        "config": "ogb_products (configs/gnn_cells.py)",
-        "shape": {"n": n, "d": d, "n_src": x.shape[0], "F": F_, "valid_slots": valid},
-        "ms": min(k1, k2), "ms_runs": [k1, k2],
-        "device_ms": device_ms,
-        "plain_ms": min(p1, p2), "plain_ms_runs": [p1, p2],
-        # ids, weights and out once, and x once; one multiply-add per valid
-        # slot and feature
-        **_bound(n * d * 8 + n * F_ * 4 + x.numel() * 4, 2 * valid * F_, 67e12),
-        "gather_bytes_no_reuse": valid * F_ * 4,
-        "gather_floor_ms": floor_ms, "gather_floor_share": floor_ms / device_ms,
-        "library_ms": min(l1, l2), "library_ms_runs": [l1, l2],
-        "library": "torch.sparse.mm(CSR built outside the timed window, x)",
-        "library_kernels": _library_kernels(lib), "library_max_abs_diff": lib_err})
-    del nbr, wgt, x, spmm_out, csr, keep, crow, lens
+        "cases_checked": cases["ell_spmm"] + 1,
+        **{k: spmm_rec[k] for k in HEAD_KEYS}, "configs": [spmm_rec]})
+    del nbr, wgt, x, spmm_out, lens
     torch.cuda.empty_cache()
 
     # ---- K6: xDeepFM's table and serve_bulk batch
@@ -3070,7 +3121,12 @@ def phase_dynamic(device, g, queries: np.ndarray, verdicts: np.ndarray,
 # layer's K4 call of each prefill and of the check step is kept for K4's
 # records.  granite and the MoE once more in float32 (fresh weights, the
 # check step over the same cache; granite's prefill at 4,096 and decode
-# against forward over 2 x 64 tokens).  xDeepFM: serve_p99 (200 batches of
+# against forward over 2 x 64 tokens).  deepseek-v2-lite (MLA): prefill 1 x
+# 4,096 through K4 at a query/key width of 192 and a value width of 128, 16
+# decode steps over a compressed cache filled with random latents to 4,160
+# (its decode is float32 einsums, no K4: there is no check step against K4's
+# plain version); float32 at 2 of its layers: prefill, its logits against
+# the plain version, decode against forward.  xDeepFM: serve_p99 (200 batches of
 # 512), serve_bulk (262,144 rows in slabs of 16,384: a slab's CIN
 # intermediate is 5.1 GB, the whole batch's 82 GB) and retrieval_cand (1 user
 # x 1,000,000 candidates in the JAX package's chunks of 25,000).
@@ -3085,7 +3141,13 @@ SUBSTRATE_LMS = {
                     "logits_vs_plain": False, "float32": False},
     "granite-moe-1b-a400m": {"prefill": (4096,), "fill": "random",
                              "logits_vs_plain": False, "float32": True},
+    "deepseek-v2-lite-16b": {"prefill": (4096,), "fill": "random",
+                             "logits_vs_plain": False, "float32": True},
 }
+# deepseek-v2-lite's float32 re-check keeps 2 of its 27 layers (27 would be
+# 64 GB of float32 weights) and a capacity factor of E / k, so that no token
+# is dropped: decode against forward holds only where both route alike
+MLA_F32_LAYERS = 2
 LM_DECODE_BATCH = 8
 GRANITE_PROMPT, GRANITE_GREEDY, GRANITE_CHECK_KV_LEN = 256, 64, 300
 CACHE_FILLED, FILLED_STEPS = 4160, 16
@@ -3113,16 +3175,34 @@ SUBSTRATE_F32_ATOL = 1e-3
 SUBSTRATE_BF16 = {"max_abs_over_rms": 0.5, "top1": 0.8}
 WRONG_ATTENTION = ("dropped_chunks", "kv_len_minus_1")
 XDEEPFM_ATOL = 1e-5
+# The GNN family at full_config() widths (src/repro/configs/gcn_cora.py,
+# gatedgcn_cfg.py, schnet_cfg.py, graphcast_cfg.py): GCN on K5 at
+# full_graph_sm (a random DAG of Cora's n and m, edges padded by _pad_to,
+# d_in 1,433) and at ogb_products (the shape's n and m padded by _pad_to,
+# edges and features d 100 drawn on the card, 61,859,140 of the padded edges
+# valid), each forward read for its n_layers = 2 K5 launches and held against
+# the same forward through K5's plain version; gatedgcn at full_graph_sm and
+# schnet at molecule (128 molecules of 30 atoms and 64 edges), float32, each
+# held against the same forward on the CPU; graphcast in bfloat16 at
+# full_graph_sm's mesh_dims held against its float32 re-run on the card.
+GCN_PLAIN_TOL = 1e-5        # rtol and atol: K5 and its plain version sum in other orders
+GNN_CPU_TOL = 1e-4          # rtol and atol: the card's index_add_ sums as its atomics land
+# graphcast's decoded delta in bfloat16 against the float32 re-run, relative
+# to the float32 delta's rms: the largest difference and the rms of the
+# difference (random weights grow the residual stream ~16x a layer; bfloat16
+# keeps about 3 digits a product)
+GRAPHCAST_BF16 = {"max_abs_over_rms": 0.5, "rms_over_rms": 0.05}
+MOLECULES, MOLECULE_ATOMS, MOLECULE_EDGES, ATOM_TYPES = 128, 30, 64, 10
 
 
 def _plain(name: str):
     """Patch ``ops.<name>`` with its plain version for the block: the same
-    model over the same weights with K4 or K6 replaced, the yardstick."""
+    model over the same weights with K4, K5 or K6 replaced, the yardstick."""
     from unittest import mock
 
     from repro_torch.kernels import ops, ref
 
-    plain = {"flash_attention": ref.flash_attention_ref,
+    plain = {"flash_attention": ref.flash_attention_ref, "ell_spmm": ref.ell_spmm_ref,
              "embedding_bag": ref.embedding_bag_ref}[name]
     return mock.patch.object(ops, name, plain)
 
@@ -3149,31 +3229,49 @@ def _wrong_attention(kind: str):
     return mock.patch.object(ops, "flash_attention", attend)
 
 
-class _Capture:
-    """``ops.flash_attention`` for the block, keeping the inputs and output
-    of its last call (a model's last layer); a cache's keys and values are
-    cloned, since the steps after it write them."""
+class _Calls:
+    """``ops.<name>`` for the block, keeping the arguments and output of
+    every call."""
+
+    def __init__(self, name: str):
+        self.name, self.calls = name, []
+
+    def keep(self, args, kw, out) -> None:
+        self.calls.append((args, out))
 
     def __enter__(self):
         from unittest import mock
 
         from repro_torch.kernels import ops
 
-        kernel = ops.flash_attention
+        kernel = getattr(ops, self.name)
 
-        def call(q, k, v, **kw):
-            out = kernel(q, k, v, **kw)
-            if kw.get("kv_len") is not None:
-                k, v = k.clone(), v.clone()
-            self.last = (q, k, v, kw, out)
+        def call(*args, **kw):
+            out = kernel(*args, **kw)
+            self.keep(args, kw, out)
             return out
 
-        self._patch = mock.patch.object(ops, "flash_attention", call)
+        self._patch = mock.patch.object(ops, self.name, call)
         self._patch.start()
         return self
 
     def __exit__(self, *exc):
         self._patch.stop()
+
+
+class _Capture(_Calls):
+    """``ops.flash_attention`` for the block, keeping the inputs and output
+    of its last call (a model's last layer); a cache's keys and values are
+    cloned, since the steps after it write them."""
+
+    def __init__(self):
+        super().__init__("flash_attention")
+
+    def keep(self, args, kw, out) -> None:
+        q, k, v = args
+        if kw.get("kv_len") is not None:
+            k, v = k.clone(), v.clone()
+        self.last = (q, k, v, kw, out)
 
     def k4_call(self, label: str, rows=None) -> tuple:
         """(label, configuration, q, k, v, out) of the last call, for
@@ -3185,8 +3283,9 @@ class _Capture:
             label += f", its last {rows} query rows"
         q, out = q.contiguous(), out.contiguous()
         B, Hq, S, D = q.shape
-        c = dict(B=B, Hq=Hq, Hkv=k.shape[1], S=S, T=k.shape[2], D=D, causal=kw["causal"],
-                 window=kw.get("window"), dtype=str(q.dtype).removeprefix("torch."))
+        c = dict(B=B, Hq=Hq, Hkv=k.shape[1], S=S, T=k.shape[2], D=D, Dv=v.shape[3],
+                 causal=kw["causal"], window=kw.get("window"),
+                 dtype=str(q.dtype).removeprefix("torch."))
         if kw.get("kv_len") is not None:
             c["kv_len"] = kw["kv_len"]
         return f"{label} (phase 4j)", c, q, k, v, out
@@ -3298,8 +3397,9 @@ def _lm_decode(count, cfg, params, gen, device, vocab: int, fill: str) -> tuple:
     feed = torch.randint(0, vocab, (B, n_feed), generator=gen, device=device, dtype=torch.int32)
     n = n_feed + greedy
     cache = tf.init_cache(cfg, B, start + n, device)
-    for name in ("k", "v"):
-        cache[name][:, :, :, :start].normal_(generator=gen)
+    for name in ("c_kv", "k_rope") if cfg.mla is not None else ("k", "v"):
+        # positions are axis 2 of MLA's [L, B, T, w], axis 3 of [L, B, Hkv, T, Dh]
+        cache[name].narrow(2 if cfg.mla is not None else 3, 0, start).normal_(generator=gen)
     cache["pos"] = start
     fed, step_ms = [], []
 
@@ -3316,8 +3416,7 @@ def _lm_decode(count, cfg, params, gen, device, vocab: int, fill: str) -> tuple:
             step_ms.append((time.perf_counter() - t1) * 1e3)
         return logits
 
-    last = count(drive, {ops.attention_kernel(cfg.dtype): n * cfg.n_layers},
-                 f"{cfg.name} decode {n} steps at batch {B}")
+    last = count(drive, _decode_launches(cfg, n), f"{cfg.name} decode {n} steps at batch {B}")
     fed = torch.cat(fed, dim=1)
     check(cache["pos"] == start + n and bool(torch.isfinite(last).all())
           and bool(((fed >= 0) & (fed < cfg.vocab)).all()),
@@ -3334,6 +3433,14 @@ def _lm_decode(count, cfg, params, gen, device, vocab: int, fill: str) -> tuple:
     else:
         rec["step_ms_runs"] = step_ms
     return cache, fed, rec
+
+
+def _decode_launches(cfg, steps: int) -> dict:
+    """K4's launches over ``steps`` decode steps: n_layers a step, MLA's none
+    (its decode is float32 einsums over the compressed cache)."""
+    from repro_torch.kernels import ops
+
+    return {} if cfg.mla is not None else {ops.attention_kernel(cfg.dtype): steps * cfg.n_layers}
 
 
 def _decode_profile(name: str, step, kernel: str) -> dict:
@@ -3397,10 +3504,11 @@ def _lm_float32(count, mod, gen, device, cache, tok, kv_len: int) -> tuple:
     """The LM once more in float32 at the same width, on K4's CUDA-core
     kernel, with fresh weights: the check step over the bfloat16 run's cache
     against the same step through K4's plain version, within
-    SUBSTRATE_F32_ATOL; a dense LM also prefill at 4,096 (its last layer's
-    K4 call captured), its logits against the plain version, and decode
-    against forward over F32_DECODE_TOKENS.  Returns the record and the
-    captured calls."""
+    SUBSTRATE_F32_ATOL; a dense LM and MLA (at MLA_F32_LAYERS of its layers,
+    no token dropped) also prefill at 4,096 (its last layer's K4 call
+    captured), its logits against the plain version, and decode against
+    forward over F32_DECODE_TOKENS.  Returns the record and the captured
+    calls."""
     import dataclasses
 
     import torch
@@ -3408,24 +3516,31 @@ def _lm_float32(count, mod, gen, device, cache, tok, kv_len: int) -> tuple:
     from repro_torch.models import transformer as tf
 
     cfg = dataclasses.replace(mod.full_config(), dtype=torch.float32)
+    rec = {}
+    if cfg.mla is not None:
+        mo = cfg.moe
+        cfg = dataclasses.replace(cfg, n_layers=MLA_F32_LAYERS, moe=dataclasses.replace(
+            mo, capacity_factor=mo.n_experts / mo.top_k))
+        rec["cut"] = {"n_layers": MLA_F32_LAYERS, "capacity_factor": cfg.moe.capacity_factor}
     V = getattr(mod, "VOCAB_REAL", cfg.vocab)
     params = tf.init_params(cfg, gen, device)
-    cache32 = {"k": cache["k"].float(), "v": cache["v"].float()}
+    if cfg.mla is None:   # MLA's decode step calls no K4: its check is decode vs forward
+        cache32 = {"k": cache["k"].float(), "v": cache["v"].float()}
 
-    def step():
-        cache32["pos"] = kv_len - 1
-        return tf.decode_step(cfg, params, cache32, tok)[0][:, 0]
+        def step():
+            cache32["pos"] = kv_len - 1
+            return tf.decode_step(cfg, params, cache32, tok)[0][:, 0]
 
-    with _plain("flash_attention"):
-        exp = step()
-    agree = _agreement(count(step, {"flash_attention": cfg.n_layers},
-                             f"{cfg.name} float32 decode step at kv_len {kv_len}"), exp)
-    check(agree["max_abs"] <= SUBSTRATE_F32_ATOL, f"{cfg.name} float32 decode step against "
-          f"K4's plain version: {agree}, atol {SUBSTRATE_F32_ATOL}")
-    rec = {"check_step": {**agree, "kv_len": kv_len, "atol": SUBSTRATE_F32_ATOL}}
-    del cache32, exp
+        with _plain("flash_attention"):
+            exp = step()
+        agree = _agreement(count(step, {"flash_attention": cfg.n_layers},
+                                 f"{cfg.name} float32 decode step at kv_len {kv_len}"), exp)
+        check(agree["max_abs"] <= SUBSTRATE_F32_ATOL, f"{cfg.name} float32 decode step "
+              f"against K4's plain version: {agree}, atol {SUBSTRATE_F32_ATOL}")
+        rec["check_step"] = {**agree, "kv_len": kv_len, "atol": SUBSTRATE_F32_ATOL}
+        del cache32, exp
     calls = []
-    if cfg.moe is None:
+    if cfg.moe is None or cfg.mla is not None:
         with _Capture() as cap:
             rec["prefill"] = _lm_prefill(count, cfg, params, gen, device, 4096, V)
         calls.append(cap.k4_call(f"{cfg.name} float32 prefill 1 x 4096, the last layer's call"))
@@ -3436,7 +3551,7 @@ def _lm_float32(count, mod, gen, device, cache, tok, kv_len: int) -> tuple:
         dec_cache = tf.init_cache(cfg, b, n, device)
         dec = count(lambda: torch.cat([tf.decode_step(cfg, params, dec_cache, toks[:, t:t + 1])[0]
                                        for t in range(n)], dim=1),
-                    {"flash_attention": n * cfg.n_layers}, f"{cfg.name} float32 decode")
+                    _decode_launches(cfg, n), f"{cfg.name} float32 decode")
         agree = _agreement(dec, fwd)
         check(agree["max_abs"] <= SUBSTRATE_F32_ATOL, f"{cfg.name} float32 decode against "
               f"forward: {agree}, atol {SUBSTRATE_F32_ATOL}")
@@ -3478,8 +3593,10 @@ def _lm(count, device, gen, mod) -> tuple:
     kv_len = GRANITE_CHECK_KV_LEN if run["fill"] == "prompt" else CACHE_FILLED + 1
     at = kv_len - 1 - rec["decode"]["start"]
     tok = fed[:, at:at + 1]
-    rec["decode"]["check_step"], call = _lm_check_step(count, cfg, params, cache, tok, kv_len)
-    calls.append(call)
+    if cfg.mla is None:   # MLA's decode step calls no K4: nothing to hold it against here
+        rec["decode"]["check_step"], call = _lm_check_step(count, cfg, params, cache, tok,
+                                                           kv_len)
+        calls.append(call)
     del params
     torch.cuda.empty_cache()
     if run["float32"]:
@@ -3579,8 +3696,194 @@ def _xdeepfm(count, device, gen) -> tuple:
     return rec, bags
 
 
+def _tree_map(fn, tree):
+    """``fn`` over the tensors of a params tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _graph_rates(name: str, fn, n: int, m: int, smi: str) -> dict:
+    """Two host-clock runs of a forward (each ended by a synchronise): ms,
+    nodes/s and edges/s of the faster, the card beside them."""
+    runs = _host_ms(fn, 2)
+    ms = min(runs)
+    log(f"4j {name}: {ms:.3f} ms a forward, {n / ms * 1e3:.4g} nodes/s, "
+        f"{m / ms * 1e3:.4g} edges/s [{smi}]")
+    return {"ms": ms, "ms_runs": runs, "nodes": n, "edges": m,
+            "nodes_per_s": n / ms * 1e3, "edges_per_s": m / ms * 1e3}
+
+
+def _gcn(count, device, gen, shape: str, smi: str) -> tuple:
+    """GCN at full_config() on one shape: its ELL built, the forward read for
+    its two K5 launches and held against the forward through K5's plain
+    version within GCN_PLAIN_TOL, timed.  Returns the record and the two K5
+    calls (label, nbr, wgt, h, out)."""
+    import torch
+
+    from repro_torch.configs import gcn_cora
+    from repro_torch.configs.gnn_cells import GNN_SHAPES, shape_dims
+    from repro_torch.data.synth import graph_batch_from_csr
+    from repro_torch.graph.generators import random_dag
+    from repro_torch.models.gnn import gcn
+    from repro_torch.models.gnn.layers import GraphBatch
+
+    info = GNN_SHAPES[shape]
+    n_pad, m_pad, d_feat = shape_dims(shape)
+    if shape == "full_graph_sm":
+        g = graph_batch_from_csr(random_dag(info["n"], info["m"], seed=0), d_feat,
+                                 n_classes=7, pad_edges_to=m_pad, device=device)
+    else:   # drawn on the card: the shape is too large for a host graph
+        n, m = info["n"], info["m"]
+        ids = lambda: torch.randint(0, n, (m_pad,), generator=gen, device=device,  # noqa: E731
+                                    dtype=torch.int32)
+        g = GraphBatch(
+            x=torch.randn((n_pad, d_feat), generator=gen, device=device),
+            edge_src=ids(), edge_dst=ids(),
+            edge_mask=torch.arange(m_pad, device=device) < m,
+            node_mask=torch.arange(n_pad, device=device) < n,
+            y=torch.randint(0, 7, (n_pad,), generator=gen, device=device, dtype=torch.int32))
+    cfg = gcn_cora.full_config(d_in=d_feat)
+    params = gcn.init_params(cfg, gen, device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ell = gcn.graph_ell(g)
+    torch.cuda.synchronize()
+    ell_s = time.perf_counter() - t0
+    with _Calls("ell_spmm") as cap:
+        got = count(lambda: gcn.forward(cfg, params, g, ell), {"ell_spmm": cfg.n_layers},
+                    f"GCN forward at {shape}")
+    with _plain("ell_spmm"):
+        exp = gcn.forward(cfg, params, g, ell)
+    err = float((got - exp).abs().max())
+    n, m = g.x.shape[0], int(g.edge_mask.sum())
+    check(got.shape == (n, cfg.n_classes) and bool(torch.isfinite(got).all())
+          and torch.allclose(got, exp, rtol=GCN_PLAIN_TOL, atol=GCN_PLAIN_TOL),
+          f"GCN at {shape} against its forward through K5's plain version: {err}")
+    rec = {"arch": cfg.name, "shape": shape, "n": n, "edges": m, "edges_padded": g.edge_src.numel(),
+           "d_in": d_feat, "ell_width": ell[0].shape[1], "ell_seconds": ell_s,
+           "vs_plain_max_abs": err, "tol": GCN_PLAIN_TOL,
+           **_graph_rates(f"GCN {shape}", lambda: gcn.forward(cfg, params, g, ell), n, m, smi)}
+    calls = [(f"GCN {shape} layer {i + 1}, F = {args[2].shape[1]} (phase 4j)", *args, out)
+             for i, (args, out) in enumerate(cap.calls)]
+    return rec, calls
+
+
+def _vs_cpu(name: str, mod, cfg, params, batch, *extra) -> dict:
+    """A GNN forward on the card against the same forward on the CPU, within
+    GNN_CPU_TOL."""
+    import torch
+
+    cpu = lambda t: None if t is None else t.cpu()  # noqa: E731
+    got = mod.forward(cfg, params, batch, *extra)
+    exp = mod.forward(cfg, _tree_map(cpu, params), type(batch)(*(cpu(a) for a in batch)),
+                      *extra)
+    err = float((got.cpu() - exp).abs().max())
+    check(bool(torch.isfinite(got).all())
+          and torch.allclose(got.cpu(), exp, rtol=GNN_CPU_TOL, atol=GNN_CPU_TOL),
+          f"{name} on the card against the CPU: {err}, tol {GNN_CPU_TOL}")
+    return {"vs_cpu_max_abs": err, "tol": GNN_CPU_TOL}
+
+
+def _gnns(count, device, gen, smi: str) -> tuple:
+    """The GNN family at full_config() (see GCN_PLAIN_TOL's comment): each
+    forward read for its launches (GCN 2 of K5, the others none).  Returns
+    the records and GCN's K5 calls at ogb_products."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import gatedgcn_cfg, graphcast_cfg, schnet_cfg
+    from repro_torch.configs.gnn_cells import GNN_SHAPES, shape_dims
+    from repro_torch.data.synth import graph_batch_from_csr
+    from repro_torch.graph.generators import random_dag
+    from repro_torch.models.gnn import gatedgcn, graphcast, schnet
+    from repro_torch.models.gnn.layers import GraphBatch
+
+    recs = []
+    small, _ = _gcn(count, device, gen, "full_graph_sm", smi)
+    big, calls = _gcn(count, device, gen, "ogb_products", smi)
+    recs += [small, big]
+    torch.cuda.empty_cache()
+
+    # gatedgcn at full_graph_sm, float32
+    info, (_, m_pad, d_feat) = GNN_SHAPES["full_graph_sm"], shape_dims("full_graph_sm")
+    cfg = gatedgcn_cfg.full_config(d_in=d_feat)
+    g = graph_batch_from_csr(random_dag(info["n"], info["m"], seed=0), d_feat,
+                             n_classes=cfg.n_classes, d_edge=gatedgcn_cfg.D_EDGE,
+                             pad_edges_to=m_pad, device=device)
+    params = gatedgcn.init_params(cfg, gen, device)
+    count(lambda: gatedgcn.forward(cfg, params, g), {}, "gatedgcn forward at full_graph_sm")
+    rec = _vs_cpu("gatedgcn at full_graph_sm", gatedgcn, cfg, params, g)
+    n, m = g.x.shape[0], int(g.edge_mask.sum())
+    recs.append({"arch": cfg.name, "shape": "full_graph_sm", **rec,
+                 **_graph_rates("gatedgcn full_graph_sm",
+                                lambda: gatedgcn.forward(cfg, params, g), n, m, smi)})
+
+    # schnet at molecule: 128 molecules of 30 atoms and 64 edges each, float32
+    cfg = schnet_cfg.full_config()
+    rng = np.random.default_rng(26)
+    B, A, E = MOLECULES, MOLECULE_ATOMS, MOLECULE_EDGES
+    base = np.repeat(np.arange(B) * A, E)
+    src = (base + rng.integers(0, A, B * E)).astype(np.int32)
+    dst = (base + rng.integers(0, A, B * E)).astype(np.int32)
+    x = np.zeros((B * A, 16), np.float32)
+    x[:, 0] = rng.integers(0, ATOM_TYPES, B * A)
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    g = GraphBatch(x=t(x), edge_src=t(src), edge_dst=t(dst),
+                   edge_mask=torch.ones(B * E, dtype=torch.bool, device=device),
+                   node_mask=torch.ones(B * A, dtype=torch.bool, device=device),
+                   pos=t(3.0 * rng.standard_normal((B * A, 3)).astype(np.float32)),
+                   y=t(rng.standard_normal(B * A).astype(np.float32)))
+    params = schnet.init_params(cfg, gen, device)
+    count(lambda: schnet.forward(cfg, params, g), {}, "schnet forward at molecule")
+    rec = _vs_cpu("schnet at molecule", schnet, cfg, params, g)
+    recs.append({"arch": cfg.name, "shape": "molecule", **rec,
+                 **_graph_rates("schnet molecule", lambda: schnet.forward(cfg, params, g),
+                                B * A, B * E, smi)})
+
+    # graphcast at full_graph_sm's mesh_dims in bfloat16, against float32
+    cfg = graphcast_cfg.full_config()
+    n_g, n_m, m_g2m, m_mesh, m_m2g = graphcast_cfg.mesh_dims("full_graph_sm")
+    ri = lambda hi, m: torch.randint(0, hi, (m,), generator=gen, device=device,  # noqa: E731
+                                     dtype=torch.int32)
+    b = graphcast.MeshBatch(
+        grid_x=torch.randn((n_g, cfg.n_vars), generator=gen, device=device),
+        g2m_src=ri(n_g, m_g2m), g2m_dst=ri(n_m, m_g2m), mesh_src=ri(n_m, m_mesh),
+        mesh_dst=ri(n_m, m_mesh), m2g_src=ri(n_m, m_m2g), m2g_dst=ri(n_g, m_m2g),
+        target=torch.randn((n_g, cfg.n_vars), generator=gen, device=device))
+    params = graphcast.init_params(cfg, gen, device)
+    out = count(lambda: graphcast.forward(cfg, params, b, n_m), {},
+                "graphcast forward at full_graph_sm's mesh")
+
+    out32 = graphcast.forward(dataclasses.replace(cfg, dtype=torch.float32),
+                              _tree_map(lambda t: t.float(), params), b, n_m)
+    delta, delta32 = out - b.grid_x, out32 - b.grid_x
+    rms = float(delta32.pow(2).mean().sqrt())
+    agree = {"max_abs_over_rms": float((delta - delta32).abs().max()) / rms,
+             "rms_over_rms": float((delta - delta32).pow(2).mean().sqrt()) / rms,
+             "delta32_rms": rms}
+    check(bool(torch.isfinite(out).all())
+          and all(agree[k] <= v for k, v in GRAPHCAST_BF16.items()),
+          f"graphcast bfloat16 against its float32 re-run: {agree}, bound {GRAPHCAST_BF16}")
+    recs.append({"arch": cfg.name, "shape": "full_graph_sm mesh_dims", "dtype": "bfloat16",
+                 "mesh_dims": [n_g, n_m, m_g2m, m_mesh, m_m2g], "vs_float32": agree,
+                 "bound": GRAPHCAST_BF16,
+                 **_graph_rates("graphcast full_graph_sm mesh",
+                                lambda: graphcast.forward(cfg, params, b, n_m),
+                                n_g + n_m, m_g2m + m_mesh * cfg.n_layers + m_m2g, smi)})
+    del params, out, out32
+    torch.cuda.empty_cache()
+    for r in recs:
+        record({"phase": "substrate_model", **r})
+    return recs, calls
+
+
 def phase_substrate(device, smi: str) -> dict:
-    """Phase 4j: the LM family's prefill and KV-cache decode on K4 and
+    """Phase 4j: the LM family's prefill and KV-cache decode on K4 (MLA's
+    prefill at D = 192, Dv = 128), the GNN family's forward (GCN on K5) and
     xDeepFM's online, bulk and retrieval scoring on K6, at full_config()
     widths on the card, each call's launch counts read around exactly it;
     ``smi`` is the card's name and power limit, printed beside every time.
@@ -3588,8 +3891,8 @@ def phase_substrate(device, smi: str) -> dict:
     records at the path's shapes}}."""
     import torch
 
-    from repro_torch.configs import (deepseek_7b, granite_3_2b, granite_moe_1b_a400m,
-                                     h2o_danube_1_8b)
+    from repro_torch.configs import (deepseek_7b, deepseek_v2_lite_16b, granite_3_2b,
+                                     granite_moe_1b_a400m, h2o_danube_1_8b)
     from repro_torch.kernels import ops
 
     t_start = time.perf_counter()
@@ -3598,36 +3901,46 @@ def phase_substrate(device, smi: str) -> dict:
     gen.manual_seed(25)
     count = _Counted()
     lm, calls = [], []
-    for mod in (granite_3_2b, h2o_danube_1_8b, deepseek_7b, granite_moe_1b_a400m):
+    for mod in (granite_3_2b, h2o_danube_1_8b, deepseek_7b, granite_moe_1b_a400m,
+                deepseek_v2_lite_16b):
         rec, mine = _lm(count, device, gen, mod)
         lm.append(rec)
         calls += mine
+    gnn, spmm = _gnns(count, device, gen, smi)
     xrec, bags = _xdeepfm(count, device, gen)
     launches = dict(count.total)
     torch.cuda.empty_cache()
-    # K4 at every captured call of the path, K6 at a serve_bulk slab's two
-    # gathers, each against its plain version
-    configs = {"flash_attention_sm90": [], "flash_attention": [], "embedding_bag": []}
+    # K4 at every captured call of the path, K5 at GCN's two calls at
+    # ogb_products, K6 at a serve_bulk slab's two gathers, each against its
+    # plain version
+    configs = {"flash_attention_sm90": [], "flash_attention": [], "ell_spmm": [],
+               "embedding_bag": []}
     for label, c, q, k, v, out in calls:
         configs[ops.attention_kernel(q.dtype)].append(
             _attention_record(label, c, q, k, v, out, device))
+    for label, nbr, wgt, h, out in spmm:
+        configs["ell_spmm"].append(_spmm_record(label, nbr, wgt, h, out, device))
     for label, table, idx in bags:
         configs["embedding_bag"].append(_bag_record(label, table, idx,
                                                     ops.embedding_bag(table, idx)))
-    del calls, bags
+    del calls, spmm, bags
     torch.cuda.empty_cache()
     record({"phase": "substrate", "seconds": time.perf_counter() - t_start, "card": smi,
-            "launches": launches, "models": [r["arch"] for r in lm] + [xrec["arch"]]})
+            "launches": launches,
+            "models": [r["arch"] for r in lm] + [r["arch"] for r in gnn] + [xrec["arch"]]})
     for r in lm:
         pre = ", ".join(f"1 x {p['S']} {p['ms']:.1f} ms ({p['tokens_per_s']:.0f} tok/s)"
                         for p in r["prefill"])
-        chk = r["decode"]["check_step"]
-        against = ", ".join(f"{k} {v['max_abs'] / v['exp_rms']:.3f}"
-                            for k, v in chk.get("controls", {}).items())
+        chk = r["decode"].get("check_step")
+        tail = ""
+        if chk is not None:
+            against = ", ".join(f"{k} {v['max_abs'] / v['exp_rms']:.3f}"
+                                for k, v in chk.get("controls", {}).items())
+            tail = (f"; check step max abs / rms "
+                    f"{chk['vs_plain']['max_abs'] / chk['vs_plain']['exp_rms']:.3f}"
+                    + (f" (controls: {against})" if against else ""))
         log(f"4j {r['arch']}: prefill {pre}; decode p50 {r['decode']['step_ms_p50']:.2f} ms "
-            f"a step at batch {r['decode']['batch']}; check step max abs / rms "
-            f"{chk['vs_plain']['max_abs'] / chk['vs_plain']['exp_rms']:.3f}"
-            + (f" (controls: {against})" if against else "") + f" [{smi}]")
+            f"a step at batch {r['decode']['batch']}{tail} [{smi}]")
     log(f"4j xdeepfm: serve_p99 p50 {xrec['serve_p99']['p50_ms']:.3f} ms, p99 "
         f"{xrec['serve_p99']['p99_ms']:.3f} ms; serve_bulk "
         f"{xrec['serve_bulk']['rows_per_s']:.0f} rows/s; retrieval "
@@ -3636,14 +3949,14 @@ def phase_substrate(device, smi: str) -> dict:
 
 
 def merge_substrate(library: list, sub: dict) -> None:
-    """K4's and K6's records of phase 3b take phase 4j as their main path:
-    its launch counts (the kernel library's beside them) and its
-    configurations; K6's head becomes the serve_bulk slab's embedding
-    gather, the main path's shape (K4's head, granite prefill at 4,096, is
-    already the path's)."""
+    """K4's, K5's and K6's records of phase 3b take phase 4j as their main
+    path: its launch counts (the kernel library's beside them) and its
+    configurations; K5's head becomes GCN's first call at ogb_products (F =
+    16) and K6's the serve_bulk slab's embedding gather, the main path's
+    shapes (K4's head, granite prefill at 4,096, is already the path's)."""
     for rec in library:
         name = rec["name"]
-        if name not in ("flash_attention_sm90", "flash_attention", "embedding_bag"):
+        if name not in ("flash_attention_sm90", "flash_attention", "ell_spmm", "embedding_bag"):
             continue
         rec["launches_by_path"] = {"kernel_library": rec["launches"],
                                    "substrate": sub["launches"].get(name, 0)}
@@ -3651,7 +3964,7 @@ def merge_substrate(library: list, sub: dict) -> None:
         mine = sub["configs"].get(name, [])
         rec["configs"] = rec["configs"] + mine
         rec["cases_checked"] += len(mine)
-        if name == "embedding_bag":
+        if name in ("ell_spmm", "embedding_bag"):
             rec.update({k: mine[0][k] for k in HEAD_KEYS})
 
 

@@ -3,14 +3,14 @@ architecture, under the JAX package's ids.
 
 Each arch module exposes:
   ARCH_ID        str
-  FAMILY         'lm' | 'recsys'
+  FAMILY         'lm' | 'gnn' | 'recsys'
   full_config()  the published config
   smoke_config() a reduced same-family config (CPU tests)
   SHAPES         tuple of shape names valid for this arch
 
 The JAX package's ``cells`` (dry-run lowering specs) are not ported.  The
-ids of the JAX package's registry that are not ported yet raise
-``KeyError`` in ``get_arch``, naming the ROADMAP item that ports them.
+one id of the JAX package's registry that is not ported yet raises
+``KeyError`` in ``get_arch``, naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -22,15 +22,15 @@ _ARCH_MODULES = {
     "deepseek-7b": "repro_torch.configs.deepseek_7b",
     "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
     "granite-moe-1b-a400m": "repro_torch.configs.granite_moe_1b_a400m",
+    "gcn-cora": "repro_torch.configs.gcn_cora",
+    "graphcast": "repro_torch.configs.graphcast_cfg",
+    "schnet": "repro_torch.configs.schnet_cfg",
+    "gatedgcn": "repro_torch.configs.gatedgcn_cfg",
     "xdeepfm": "repro_torch.configs.xdeepfm_cfg",
 }
 # the JAX registry's other ids -> what ports them
 _NOT_PORTED = {
-    "gcn-cora": "the GNN family on K5 (ROADMAP.md Queue 1, item 12)",
-    "graphcast": "the GNN family on K5 (ROADMAP.md Queue 1, item 12)",
-    "schnet": "the GNN family on K5 (ROADMAP.md Queue 1, item 12)",
-    "gatedgcn": "the GNN family on K5 (ROADMAP.md Queue 1, item 12)",
-    "reachability-oracle": "the dry run and its cells (ROADMAP.md Queue 1, item 12)",
+    "reachability-oracle": "the dry run and its cells (ROADMAP.md Queue 1, item 12.5)",
 }
 
 ALL_ARCHS = tuple(_ARCH_MODULES)

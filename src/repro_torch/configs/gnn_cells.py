@@ -1,0 +1,42 @@
+"""The GNN family's shapes, the port of ``repro.configs.gnn_cells``'s
+``GNN_SHAPES``, ``_pad_to`` and ``shape_dims``.
+
+Shapes (assignment):
+  full_graph_sm  n=2,708   m=10,556       d_feat=1,433  (full-batch, Cora)
+  minibatch_lg   n=232,965 m=114,615,892  batch=1,024 fanout 15-10 (sampled)
+  ogb_products   n=2,449,029 m=61,859,140 d_feat=100    (full-batch-large)
+  molecule       30 nodes / 64 edges x batch 128        (batched-small)
+
+Sampled training takes the per-step block (1024 seeds -> 16,384 1-hop ->
+153,600 2-hop nodes, 168,960 edges) that the neighbour sampler
+(``repro_torch.graph.sampler``) produces.  ``gnn_train_cell`` and
+``graph_specs`` (the dry run's lowering specs) wait for the dry-run port.
+"""
+from __future__ import annotations
+
+from repro_torch.graph.sampler import block_shapes
+
+GNN_SHAPES = {
+    "full_graph_sm": dict(n=2708, m=10556, d_feat=1433, kind="train"),
+    "minibatch_lg": dict(
+        n=232_965, m=114_615_892, batch_nodes=1024, fanout=(15, 10),
+        d_feat=602, kind="train",
+    ),
+    "ogb_products": dict(n=2_449_029, m=61_859_140, d_feat=100, kind="train"),
+    "molecule": dict(n=30 * 128, m=64 * 128, d_feat=16, kind="train"),
+}
+
+
+def _pad_to(x: int, mult: int = 512) -> int:
+    """Node/edge counts pad to a DP-divisible multiple (the data pipeline
+    pads with masked entries; 512 covers every mesh's DP extent)."""
+    return ((x + mult - 1) // mult) * mult
+
+
+def shape_dims(shape: str):
+    """(n, m, d_feat) of a shape, n and m padded."""
+    info = GNN_SHAPES[shape]
+    if shape == "minibatch_lg":
+        n, m = block_shapes(info["batch_nodes"], info["fanout"])
+        return _pad_to(n), _pad_to(m), info["d_feat"]
+    return _pad_to(info["n"]), _pad_to(info["m"]), info["d_feat"]

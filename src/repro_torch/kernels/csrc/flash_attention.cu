@@ -7,8 +7,9 @@
 // cores; float32 stays here because the tensor cores would run it as TF32, which cannot
 // meet the float32 contract's 2e-5.
 //
-// Computes, for q [B, Hq, S, D] and k, v [B, Hkv, T, D] in float32 (Hq a multiple of
-// Hkv), every query row (b, h, s) against kv head h / (Hq / Hkv):
+// Computes, for q [B, Hq, S, D], k [B, Hkv, T, D] and v [B, Hkv, T, Dv] in float32 (Hq a
+// multiple of Hkv; D and Dv multiples of 8, 8 <= Dv <= D <= 192 and Dv <= 128: MLA's
+// prefill is D = 192, Dv = 128), every query row (b, h, s) against kv head h / (Hq / Hkv):
 //     out[b, h, s] = sum_t softmax_t(scale * q[b, h, s] . k[b, kvh, t]) v[b, kvh, t]
 // over the keys t the masks keep.  Only the first L = kv_len <= T keys of a head exist
 // (T is the heads' stride: a decode step passes its preallocated cache and the filled
@@ -18,7 +19,7 @@
 // row that keeps no key gives 0, as the TPU kernel's division by 1 when the sum is 0
 // does.  Logits, the softmax and the output are accumulated in float32.
 //
-// Bound on an H100: 4 S T D Hq B operations (two products), halved for causal, against
+// Bound on an H100: 2 S T (D + Dv) Hq B operations (two products), halved for causal, against
 // the 67 TFLOP/s of float32 outside the tensor cores, or the bytes of q, k, v and out:
 // prefill is bound by operations, decode (S = 1) by the bytes of k and v.
 //
@@ -42,14 +43,20 @@
 // q rows and K rows, 128 FMAs for 12 loads; K rows padded by 16 bytes so the lanes'
 // loads do not collide), then their output columns 4c .. 4c + 3 (and 64 + 4c .. for D
 // > 64) from P, written once to shared memory transposed, and V: 32 or 64 FMAs for 3 or
-// 4 loads a key.  The running max is reduced once a tile over the 16 lanes that share a
+// 4 loads a key.  The template takes the widths DK and DV that shared memory holds; the
+// rows in device memory are D and Dv wide, and the columns past them zero-fill.  Where
+// they are the same (EXACT), D and Dv are compile-time constants too, so no load and no
+// output column carries a runtime bound.  The running max is reduced once a tile over the 16 lanes that share a
 // row, by shuffles; each lane keeps its own partial sum, reduced once at the end.
 // Masks apply only on tiles that straddle the causal edge, the window edge or kv_len.  Row
 // tiles are launched from the last, so under a causal mask the longest run first.
-// D is a template parameter (one instantiation for each multiple of 8 from 8 to 128), so
-// the loops over it unroll whole.  Shared memory: q, two stages of K and V (64 x (D + 4)
+// (DK, DV) are template parameters, so the loops over them unroll whole: (D, D), exact,
+// for each multiple of 8 from 8 to 128, and (192, 128) for every other pair (MLA's; a
+// Dv < D; D > 128), which zero-fills past D and Dv.  Shared memory: q, two stages of K and V (64 x (DK + 4) and 64 x (DV + 4)
 // floats each) and P (64 x 68), 104,448 bytes at D = 64 (two blocks an SM), 186,368 at
-// D = 128.  At granite-3-2b prefill it takes 1.85-1.90 ms on an NVIDIA H100 80GB HBM3 at
+// D = 128.  At (192, 128) that would be 235,520 bytes, past the 232,448 a block may have,
+// so there P takes the stage of the K tile it was computed from (the block syncs once more,
+// after the logits, before P overwrites it): 218,112 bytes, one block an SM.  At granite-3-2b prefill it takes 1.85-1.90 ms on an NVIDIA H100 80GB HBM3 at
 // 700 W, 54-55% of its bound; three blocks an SM (P in K's stage, one V stage) measured
 // no faster, so what is left is the instruction mix: about 84% FFMA, the rest mostly
 // shared-memory loads (PERF.md §6).
@@ -61,8 +68,9 @@
 // Inside a warp, lane j computes the R logits of key j (its K row staged in shared
 // memory with one 16-byte pad per row), the warp takes the max, rescales, and then
 // walks the 32 keys with each lane accumulating the columns lane, lane + 32, ... of
-// every row (V staged beside K).  Decode has only Hq/Hkv rows a block, but still 128
-// threads that share its keys, not one.
+// every row (V staged beside K, Dv wide).  Decode has only Hq/Hkv rows a block, but still
+// 128 threads that share its keys, not one.  At (192, 128) a block of 8 rows takes 178,176
+// bytes of shared memory, one block an SM.
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -79,7 +87,7 @@ struct Params {
   const void* k;
   const void* v;
   void* out;
-  int64_t Hq, Hkv, S, T, D;
+  int64_t Hq, Hkv, S, T, D, Dv;
   int64_t L;     // kv_len: the keys that exist, the first L of each head's T rows
   int64_t rep;   // Hq / Hkv
   int64_t rows;  // rep * S query rows per (batch, kv head)
@@ -114,24 +122,25 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 template <typename T, int R>
-constexpr size_t smem_bytes(int64_t D) {
+constexpr size_t smem_bytes(int64_t D, int64_t Dv) {
   // q rows (float) + probabilities (float) + K and V chunks of every warp (T, padded)
   return static_cast<size_t>(R * D) * 4 + static_cast<size_t>(kWarps * kKeys * R) * 4 +
-         static_cast<size_t>(kWarps * 2 * kKeys) * (D + 16 / sizeof(T)) * sizeof(T);
+         static_cast<size_t>(kWarps * kKeys) * (D + Dv + 2 * (16 / sizeof(T))) * sizeof(T);
 }
 
-// T: element type; R: query rows a block (a multiple of 4); C: head-dim columns a lane
-// holds in the output accumulator (D <= 32 C)
+// T: element type; R: query rows a block (a multiple of 4); C: value columns a lane holds
+// in the output accumulator (Dv <= 32 C)
 template <typename T, int R, int C>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_kernel(const Params p) {
   constexpr int E = 16 / sizeof(T);  // elements in 16 bytes
   extern __shared__ float4 smem4[];
-  const int64_t D = p.D;
-  const int64_t DP = D + E;  // padded row of a K/V chunk
+  const int64_t D = p.D, Dv = p.Dv;
+  const int64_t DPK = D + E, DPV = Dv + E;  // padded rows of a K and a V chunk
   float* q_s = reinterpret_cast<float*>(smem4);   // [R][D]
   float* p_s = q_s + R * D;                       // [kWarps][kKeys][R]
-  T* kv_s = reinterpret_cast<T*>(p_s + kWarps * kKeys * R);  // [kWarps][2][kKeys][DP]
+  // [kWarps][kKeys][DPK] of K, then [kKeys][DPV] of V, a warp
+  T* kv_s = reinterpret_cast<T*>(p_s + kWarps * kKeys * R);
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -141,7 +150,7 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t nr = min64(R, p.rows - r0);
   const T* q = static_cast<const T*>(p.q);
   const T* kb = static_cast<const T*>(p.k) + (b * p.Hkv + kvh) * p.T * D;
-  const T* vb = static_cast<const T*>(p.v) + (b * p.Hkv + kvh) * p.T * D;
+  const T* vb = static_cast<const T*>(p.v) + (b * p.Hkv + kvh) * p.T * Dv;
 
   // stage the block's query rows, scaled into the base-2 softmax; row r is position
   // (r0 + r) / rep of q head kvh * rep + (r0 + r) % rep
@@ -173,10 +182,10 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int c = 0; c < C; ++c) o[r][c] = 0.0f;
   }
-  T* ks = kv_s + warp * 2 * kKeys * DP;
-  T* vs = ks + kKeys * DP;
+  T* ks = kv_s + warp * kKeys * (DPK + DPV);
+  T* vs = ks + kKeys * DPK;
   float* pw = p_s + warp * kKeys * R;
-  const int64_t vecs = D / E;  // 16-byte vectors a row
+  const int64_t vecs = D / E, v_vecs = Dv / E;  // 16-byte vectors a K and a V row
 
   for (int64_t c0 = (k_begin / kKeys) * kKeys + warp * kKeys; c0 < k_end;
        c0 += kWarps * kKeys) {
@@ -186,14 +195,15 @@ __global__ void __launch_bounds__(kThreads)
     // rows past the end are zero, so no garbage reaches a product
     for (int64_t e = lane; e < kKeys * vecs; e += 32) {
       const int64_t j = e / vecs, dv = e - j * vecs;
-      uint4 kk = make_uint4(0u, 0u, 0u, 0u), vv = kk;
-      if (j < nk) {
-        const int64_t off = (c0 + j) * D + dv * E;
-        kk = __ldg(reinterpret_cast<const uint4*>(kb + off));
-        vv = __ldg(reinterpret_cast<const uint4*>(vb + off));
-      }
-      *reinterpret_cast<uint4*>(ks + j * DP + dv * E) = kk;
-      *reinterpret_cast<uint4*>(vs + j * DP + dv * E) = vv;
+      uint4 kk = make_uint4(0u, 0u, 0u, 0u);
+      if (j < nk) kk = __ldg(reinterpret_cast<const uint4*>(kb + (c0 + j) * D + dv * E));
+      *reinterpret_cast<uint4*>(ks + j * DPK + dv * E) = kk;
+    }
+    for (int64_t e = lane; e < kKeys * v_vecs; e += 32) {
+      const int64_t j = e / v_vecs, dv = e - j * v_vecs;
+      uint4 vv = make_uint4(0u, 0u, 0u, 0u);
+      if (j < nk) vv = __ldg(reinterpret_cast<const uint4*>(vb + (c0 + j) * Dv + dv * E));
+      *reinterpret_cast<uint4*>(vs + j * DPV + dv * E) = vv;
     }
     __syncwarp();
 
@@ -201,7 +211,7 @@ __global__ void __launch_bounds__(kThreads)
     float s[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) s[r] = 0.0f;
-    const T* krow = ks + lane * DP;
+    const T* krow = ks + lane * DPK;
     for (int64_t d = 0; d < D; d += E) {
       float kf[E];
       unpack(*reinterpret_cast<const uint4*>(krow + d), kf, T());
@@ -247,11 +257,11 @@ __global__ void __launch_bounds__(kThreads)
         pj[4 * r4 + 2] = pp.z;
         pj[4 * r4 + 3] = pp.w;
       }
-      const T* vrow = vs + j * DP;
+      const T* vrow = vs + j * DPV;
 #pragma unroll
       for (int c = 0; c < C; ++c) {
         const int64_t d = lane + 32 * c;
-        const float vf = d < D ? as_float(vrow[d]) : 0.0f;
+        const float vf = d < Dv ? as_float(vrow[d]) : 0.0f;
 #pragma unroll
         for (int r = 0; r < R; ++r) o[r][c] += pj[r] * vf;
       }
@@ -262,15 +272,15 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int r = 0; r < R; ++r) l[r] = warp_sum(l[r]);
   __syncthreads();
-  float* o_part = reinterpret_cast<float*>(kv_s);  // [kWarps][R][D]
-  float* m_part = o_part + kWarps * R * D;         // [kWarps][R]
+  float* o_part = reinterpret_cast<float*>(kv_s);  // [kWarps][R][Dv]
+  float* m_part = o_part + kWarps * R * Dv;        // [kWarps][R]
   float* l_part = m_part + kWarps * R;             // [kWarps][R]
 #pragma unroll
   for (int r = 0; r < R; ++r) {
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       const int64_t d = lane + 32 * c;
-      if (d < D) o_part[(warp * R + r) * D + d] = o[r][c];
+      if (d < Dv) o_part[(warp * R + r) * Dv + d] = o[r][c];
     }
     if (lane == 0) {
       m_part[warp * R + r] = m[r];
@@ -279,8 +289,8 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
   T* out = static_cast<T*>(p.out);
-  for (int64_t e = threadIdx.x; e < nr * D; e += kThreads) {
-    const int64_t r = e / D, d = e - r * D;
+  for (int64_t e = threadIdx.x; e < nr * Dv; e += kThreads) {
+    const int64_t r = e / Dv, d = e - r * Dv;
     float mx = -INFINITY;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, m_part[w * R + r]);
@@ -293,18 +303,18 @@ __global__ void __launch_bounds__(kThreads)
         if (mw == -INFINITY) continue;
         const float sc = exp2f(mw - mx);
         den += sc * l_part[w * R + r];
-        num += sc * o_part[(w * R + r) * D + d];
+        num += sc * o_part[(w * R + r) * Dv + d];
       }
       val = den > 0.0f ? num / den : 0.0f;
     }
     const int64_t s = (r0 + r) / p.rep, g = (r0 + r) - s * p.rep;
-    store(out + ((b * p.Hq + kvh * p.rep + g) * p.S + s) * D + d, val);
+    store(out + ((b * p.Hq + kvh * p.rep + g) * p.S + s) * Dv + d, val);
   }
 }
 
 template <typename T, int R, int C>
 int launch(const Params& p, int64_t B, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T, R>(p.D);
+  const size_t smem = smem_bytes<T, R>(p.D, p.Dv);
   auto kernel = flash_attention_kernel<T, R, C>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -320,7 +330,7 @@ int launch(const Params& p, int64_t B, cudaStream_t stream) {
 
 template <typename T, int R>
 int launch_r(const Params& p, int64_t B, cudaStream_t stream) {
-  switch ((p.D + 31) / 32) {
+  switch ((p.Dv + 31) / 32) {
     case 1: return launch<T, R, 1>(p, B, stream);
     case 2: return launch<T, R, 2>(p, B, stream);
     case 3: return launch<T, R, 3>(p, B, stream);
@@ -341,10 +351,16 @@ constexpr int kTileRows = 64;      // packed query rows a block
 constexpr int kTileKeys = 64;      // keys a tile
 constexpr int kTiledThreads = 128;
 constexpr int kPadP = kTileRows + 4;  // a row of P transposed, padded by 16 bytes
+constexpr size_t kMaxSmem = 232448;   // the shared memory a block may have on an H100
 
-size_t tiled_smem_bytes(int64_t D) {
-  // q, two stages of K and two of V, each [64][D + 4]; P transposed [64][kPadP]
-  return static_cast<size_t>(5 * kTileRows * (D + 4) + kTileKeys * kPadP) * sizeof(float);
+// q and two stages of K, each [64][DK + 4], two stages of V, each [64][DV + 4], and P
+// transposed, [64][kPadP], in a buffer of its own or (in_k) in the K stage it came from
+__host__ __device__ constexpr size_t tiled_smem_bytes(int DK, int DV, bool in_k) {
+  return static_cast<size_t>(3 * kTileRows * (DK + 4) + 2 * kTileKeys * (DV + 4) +
+                             (in_k ? 0 : kTileKeys * kPadP)) * sizeof(float);
+}
+__host__ __device__ constexpr bool p_in_k(int DK, int DV) {
+  return tiled_smem_bytes(DK, DV, false) > kMaxSmem;
 }
 
 // a 16-byte copy from global to shared memory that does not block; zeros if !valid
@@ -361,18 +377,31 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// keys t0 .. t0 + 63 of K and V into ks and vs ([64][D + 4]), 16 bytes a copy; rows
-// past L (kv_len) are zero-filled, not read.  Commits one cp.async group.
-template <int D>
+// keys t0 .. t0 + 63 of K (D wide) and V (Dv wide) into ks ([64][DK + 4]) and vs
+// ([64][DV + 4]), 16 bytes a copy; rows past L (kv_len) and columns past D or Dv are
+// zero-filled, not read.  Commits one cp.async group.
+template <int DK, int DV>
 __device__ __forceinline__ void load_kv_tile(float* ks, float* vs, const float* kb,
-                                             const float* vb, int64_t t0, int64_t L) {
-  constexpr int vecs = D / 4, DP = D + 4;
-  for (int e = threadIdx.x; e < kTileKeys * vecs; e += kTiledThreads) {
-    const int j = e / vecs, d = (e - j * vecs) * 4;
-    const bool ok = t0 + j < L;
-    const int64_t off = ok ? (t0 + j) * D + d : 0;
-    cp_async16(ks + j * DP + d, kb + off, ok);
-    cp_async16(vs + j * DP + d, vb + off, ok);
+                                             const float* vb, int64_t t0, int64_t L,
+                                             int64_t D, int64_t Dv) {
+  if constexpr (DK == DV) {  // one index computation for both copies
+    for (int e = threadIdx.x; e < kTileKeys * (DK / 4); e += kTiledThreads) {
+      const int j = e / (DK / 4), d = (e - j * (DK / 4)) * 4;
+      const bool row = t0 + j < L, ok_k = row && d < D, ok_v = row && d < Dv;
+      cp_async16(ks + j * (DK + 4) + d, kb + (ok_k ? (t0 + j) * D + d : 0), ok_k);
+      cp_async16(vs + j * (DV + 4) + d, vb + (ok_v ? (t0 + j) * Dv + d : 0), ok_v);
+    }
+  } else {
+    for (int e = threadIdx.x; e < kTileKeys * (DK / 4); e += kTiledThreads) {
+      const int j = e / (DK / 4), d = (e - j * (DK / 4)) * 4;
+      const bool ok = t0 + j < L && d < D;
+      cp_async16(ks + j * (DK + 4) + d, kb + (ok ? (t0 + j) * D + d : 0), ok);
+    }
+    for (int e = threadIdx.x; e < kTileKeys * (DV / 4); e += kTiledThreads) {
+      const int j = e / (DV / 4), d = (e - j * (DV / 4)) * 4;
+      const bool ok = t0 + j < L && d < Dv;
+      cp_async16(vs + j * (DV + 4) + d, vb + (ok ? (t0 + j) * Dv + d : 0), ok);
+    }
   }
   cp_async_commit();
 }
@@ -388,19 +417,21 @@ __device__ __forceinline__ float half_warp_sum(float x) {
   return x;
 }
 
-// D: the head dim, a compile-time constant so the loops over it unroll whole.  The grid
-// is one dimension: block L owns row tile tiles - 1 - L / heads of (batch, kv head)
-// L % heads.
-template <int D>
+// DK, DV: the widths of q and k, and of v, that shared memory holds (D <= DK, Dv <= DV),
+// compile-time constants so the loops over them unroll whole; EXACT: D = DK and Dv = DV.
+// The grid is one dimension: block L owns row tile tiles - 1 - L / heads of (batch, kv
+// head) L % heads.
+template <int DK, int DV, bool EXACT>
 __global__ void __launch_bounds__(kTiledThreads)
     flash_attention_tiled_kernel(const Params p, const int64_t tiles, const int64_t heads) {
-  constexpr int C4 = (D + 63) / 64;  // 16-byte column chunks of the output a thread holds
-  constexpr int DP = D + 4;
+  constexpr int C4 = (DV + 63) / 64;  // 16-byte column chunks of the output a thread holds
+  constexpr int DP = DK + 4, DPV = DV + 4;
+  constexpr bool kPInK = p_in_k(DK, DV);
   extern __shared__ float4 smem4[];
   float* q_s = reinterpret_cast<float*>(smem4);  // [64][DP], scaled
   float* k_s = q_s + kTileRows * DP;             // [2][64][DP]
-  float* v_s = k_s + 2 * kTileKeys * DP;         // [2][64][DP]
-  float* p_s = v_s + 2 * kTileKeys * DP;         // [64 keys][kPadP]
+  float* v_s = k_s + 2 * kTileKeys * DP;         // [2][64][DPV]
+  float* p_buf = v_s + 2 * kTileKeys * DPV;      // [64 keys][kPadP], unless kPInK
 
   const int tid = threadIdx.x;
   const int g = tid >> 4;   // row group: rows 8g .. 8g + 7
@@ -410,9 +441,10 @@ __global__ void __launch_bounds__(kTiledThreads)
   const int64_t b = bh / p.Hkv, kvh = bh - b * p.Hkv;
   const int64_t nr = min64(kTileRows, p.rows - r0);
   const float* q = static_cast<const float*>(p.q);
+  const int64_t D = EXACT ? DK : p.D, Dv = EXACT ? DV : p.Dv;
   const float* kb = static_cast<const float*>(p.k) + bh * p.T * D;
-  const float* vb = static_cast<const float*>(p.v) + bh * p.T * D;
-  constexpr int vecs = D / 4;  // 16-byte vectors a row
+  const float* vb = static_cast<const float*>(p.v) + bh * p.T * Dv;
+  constexpr int vecs = DK / 4;  // 16-byte vectors a row of q
 
   // the keys some row of the block can see, [k_begin, k_end); the last key the first
   // row sees and the first key the last row sees bound the tiles that need no mask
@@ -424,13 +456,13 @@ __global__ void __launch_bounds__(kTiledThreads)
   const int64_t lo_max = p.has_window ? s_last + shift - p.window + 1 : 0;
   const int64_t t_first = (k_begin / kTileKeys) * kTileKeys;
 
-  if (t_first < k_end) load_kv_tile<D>(k_s, v_s, kb, vb, t_first, p.L);
+  if (t_first < k_end) load_kv_tile<DK, DV>(k_s, v_s, kb, vb, t_first, p.L, D, Dv);
 
   // stage the block's query rows, scaled into the base-2 softmax, while tile 0 loads
   for (int e = tid; e < kTileRows * vecs; e += kTiledThreads) {
     const int r = e / vecs, d = (e - r * vecs) * 4;
     float4 val = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (r < nr) {
+    if (r < nr && d < D) {
       const int64_t s = (r0 + r) / p.rep, gq = (r0 + r) - s * p.rep;
       val = __ldg(reinterpret_cast<const float4*>(
           q + ((b * p.Hq + kvh * p.rep + gq) * p.S + s) * D + d));
@@ -444,7 +476,7 @@ __global__ void __launch_bounds__(kTiledThreads)
 
   bool col_ok[C4];
 #pragma unroll
-  for (int j = 0; j < C4; ++j) col_ok[j] = 4 * c + 64 * j < D;
+  for (int j = 0; j < C4; ++j) col_ok[j] = 4 * c + 64 * j < Dv;
   float m[8], l[8], o[8][4 * C4];
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -458,15 +490,16 @@ __global__ void __launch_bounds__(kTiledThreads)
   int stage = 0;
   for (int64_t t0 = t_first; t0 < k_end; t0 += kTileKeys, stage ^= 1) {
     if (t0 + kTileKeys < k_end) {  // block-uniform
-      const int next = (stage ^ 1) * kTileKeys * DP;
-      load_kv_tile<D>(k_s + next, v_s + next, kb, vb, t0 + kTileKeys, p.L);
+      load_kv_tile<DK, DV>(k_s + (stage ^ 1) * kTileKeys * DP,
+                           v_s + (stage ^ 1) * kTileKeys * DPV, kb, vb, t0 + kTileKeys, p.L, D,
+                           Dv);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();  // tile t0 (and, the first time, q) is in shared memory
     const float* ks = k_s + stage * kTileKeys * DP;
-    const float* vs = v_s + stage * kTileKeys * DP;
+    const float* vs = v_s + stage * kTileKeys * DPV;
 
     // logits of rows 8g + i against keys c + 16 k, base 2, already scaled
     float sc[8][4];
@@ -475,7 +508,7 @@ __global__ void __launch_bounds__(kTiledThreads)
 #pragma unroll
       for (int k = 0; k < 4; ++k) sc[i][k] = 0.0f;
 #pragma unroll
-    for (int d = 0; d < D; d += 4) {
+    for (int d = 0; d < DK; d += 4) {
       float4 kf[4];
 #pragma unroll
       for (int k = 0; k < 4; ++k)
@@ -523,7 +556,13 @@ __global__ void __launch_bounds__(kTiledThreads)
 #pragma unroll
       for (int j = 0; j < 4 * C4; ++j) o[i][j] *= alpha;
     }
-    // P transposed: key c + 16 k, rows 8g .. 8g + 7 as two 16-byte stores
+    // P transposed: key c + 16 k, rows 8g .. 8g + 7 as two 16-byte stores; in the K stage
+    // of this tile once every thread is done with its logits
+    float* p_s = p_buf;
+    if constexpr (kPInK) {
+      p_s = k_s + stage * kTileKeys * DP;
+      __syncthreads();
+    }
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       float4* dst = reinterpret_cast<float4*>(p_s + (c + 16 * k) * kPadP + 8 * g);
@@ -540,7 +579,7 @@ __global__ void __launch_bounds__(kTiledThreads)
 #pragma unroll
       for (int j = 0; j < C4; ++j) {
         if (!col_ok[j]) continue;
-        const float4 vv = *reinterpret_cast<const float4*>(vs + key * DP + 4 * c + 64 * j);
+        const float4 vv = *reinterpret_cast<const float4*>(vs + key * DPV + 4 * c + 64 * j);
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
           o[i][4 * j] = fmaf(pr[i], vv.x, o[i][4 * j]);
@@ -560,7 +599,7 @@ __global__ void __launch_bounds__(kTiledThreads)
     const int64_t r = 8 * g + i;
     if (r >= nr) continue;
     const int64_t s = (r0 + r) / p.rep, gq = (r0 + r) - s * p.rep;
-    float* orow = out + ((b * p.Hq + kvh * p.rep + gq) * p.S + s) * D;
+    float* orow = out + ((b * p.Hq + kvh * p.rep + gq) * p.S + s) * Dv;
 #pragma unroll
     for (int j = 0; j < C4; ++j) {
       if (!col_ok[j]) continue;
@@ -574,10 +613,11 @@ __global__ void __launch_bounds__(kTiledThreads)
   }
 }
 
-template <int D>
+template <int DK, int DV, bool EXACT>
 int launch_tiled(const Params& p, int64_t B, cudaStream_t stream) {
-  const size_t smem = tiled_smem_bytes(D);
-  auto kernel = flash_attention_tiled_kernel<D>;
+  constexpr size_t smem = tiled_smem_bytes(DK, DV, p_in_k(DK, DV));
+  static_assert(smem <= kMaxSmem, "the tiled kernel's shared memory");
+  auto kernel = flash_attention_tiled_kernel<DK, DV, EXACT>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem));
@@ -590,24 +630,26 @@ int launch_tiled(const Params& p, int64_t B, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// (D, D) exact where Dv = D <= 128, (192, 128) for every other pair
 int launch_tiled_d(const Params& p, int64_t B, cudaStream_t stream) {
+  if (p.Dv != p.D || p.D > 128) return launch_tiled<192, 128, false>(p, B, stream);
   switch (p.D) {
-    case 8: return launch_tiled<8>(p, B, stream);
-    case 16: return launch_tiled<16>(p, B, stream);
-    case 24: return launch_tiled<24>(p, B, stream);
-    case 32: return launch_tiled<32>(p, B, stream);
-    case 40: return launch_tiled<40>(p, B, stream);
-    case 48: return launch_tiled<48>(p, B, stream);
-    case 56: return launch_tiled<56>(p, B, stream);
-    case 64: return launch_tiled<64>(p, B, stream);
-    case 72: return launch_tiled<72>(p, B, stream);
-    case 80: return launch_tiled<80>(p, B, stream);
-    case 88: return launch_tiled<88>(p, B, stream);
-    case 96: return launch_tiled<96>(p, B, stream);
-    case 104: return launch_tiled<104>(p, B, stream);
-    case 112: return launch_tiled<112>(p, B, stream);
-    case 120: return launch_tiled<120>(p, B, stream);
-    case 128: return launch_tiled<128>(p, B, stream);
+    case 8: return launch_tiled<8, 8, true>(p, B, stream);
+    case 16: return launch_tiled<16, 16, true>(p, B, stream);
+    case 24: return launch_tiled<24, 24, true>(p, B, stream);
+    case 32: return launch_tiled<32, 32, true>(p, B, stream);
+    case 40: return launch_tiled<40, 40, true>(p, B, stream);
+    case 48: return launch_tiled<48, 48, true>(p, B, stream);
+    case 56: return launch_tiled<56, 56, true>(p, B, stream);
+    case 64: return launch_tiled<64, 64, true>(p, B, stream);
+    case 72: return launch_tiled<72, 72, true>(p, B, stream);
+    case 80: return launch_tiled<80, 80, true>(p, B, stream);
+    case 88: return launch_tiled<88, 88, true>(p, B, stream);
+    case 96: return launch_tiled<96, 96, true>(p, B, stream);
+    case 104: return launch_tiled<104, 104, true>(p, B, stream);
+    case 112: return launch_tiled<112, 112, true>(p, B, stream);
+    case 120: return launch_tiled<120, 120, true>(p, B, stream);
+    case 128: return launch_tiled<128, 128, true>(p, B, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -616,16 +658,17 @@ int launch_tiled_d(const Params& p, int64_t B, cudaStream_t stream) {
 
 // Launches on `stream` and returns a CUDA error code as an int (0 = success).  All
 // pointers are device pointers to contiguous float32 tensors; the caller has checked the
-// shapes (Hq % Hkv == 0, D % 8 == 0, 8 <= D <= 128, B and Hkv at most 65,535, S and T at
-// least 1, 1 <= kv_len <= T).
+// shapes (Hq % Hkv == 0, D and Dv multiples of 8, 8 <= Dv <= D <= 192, Dv <= 128, B and
+// Hkv at most 65,535, S and T at least 1, 1 <= kv_len <= T).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                                       int64_t B, int64_t Hq, int64_t Hkv,
                                       int64_t S, int64_t T, int64_t kv_len, int64_t D,
-                                      int32_t causal, int32_t has_window, int64_t window,
-                                      float scale, void* stream) {
+                                      int64_t Dv, int32_t causal, int32_t has_window,
+                                      int64_t window, float scale, void* stream) {
   if (B <= 0 || S <= 0) return 0;
-  if (kv_len < 1 || kv_len > T) return static_cast<int>(cudaErrorInvalidValue);
-  Params p{q, k, v, out, Hq, Hkv, S, T, D, kv_len, Hq / Hkv, (Hq / Hkv) * S,
+  if (kv_len < 1 || kv_len > T || D > 192 || Dv < 8 || Dv > D || Dv > 128)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p{q, k, v, out, Hq, Hkv, S, T, D, Dv, kv_len, Hq / Hkv, (Hq / Hkv) * S,
            causal, has_window, window, scale * kLog2e};
   const auto s = static_cast<cudaStream_t>(stream);
   return p.rows < kTileRows ? launch_t<float>(p, B, s) : launch_tiled_d(p, B, s);

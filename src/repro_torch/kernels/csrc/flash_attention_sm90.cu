@@ -6,8 +6,9 @@
 // (float32 inputs stay on the CUDA-core kernel in flash_attention.cu: on the tensor cores
 // float32 would run as TF32).
 //
-// Computes, for q [B, Hq, S, D] and k, v [B, Hkv, T, D] in bfloat16 (Hq a multiple of
-// Hkv, D % 8 == 0, 8 <= D <= 128), every query row (b, h, s) against kv head h / (Hq / Hkv):
+// Computes, for q [B, Hq, S, D], k [B, Hkv, T, D] and v [B, Hkv, T, Dv] in bfloat16 (Hq a
+// multiple of Hkv, D and Dv multiples of 8, 8 <= Dv <= D <= 192, Dv <= 128: MLA's prefill
+// is D = 192, Dv = 128), every query row (b, h, s) against kv head h / (Hq / Hkv):
 //     out[b, h, s] = sum_t softmax_t(scale * q[b, h, s] . k[b, kvh, t]) v[b, kvh, t]
 // over the keys the masks keep.  Only the first L = kv_len <= T keys of a head exist (T is
 // the heads' stride: a decode step passes its preallocated cache and the filled length);
@@ -16,15 +17,16 @@
 // t > qpos - window (also without causal).  A row that keeps no key gives 0.  Logits, the softmax statistics and the
 // accumulator are float32; the output is bfloat16.
 //
-// Bound on an H100: prefill by operations, 4 D Hq B (visible pairs) at the 989 TFLOP/s of
-// the bf16 tensor cores; decode (S = 1) by bytes, K and V read once at 3.35 TB/s.
+// Bound on an H100: prefill by operations, 2 (D + Dv) Hq B (visible pairs) at the 989
+// TFLOP/s of the bf16 tensor cores; decode (S = 1) by bytes, K and V read once at 3.35 TB/s.
 //
 // Design.  A block is one warpgroup (128 threads) and owns a 64-row tile of the rep * S
 // query rows of one (batch, kv head), packed position-major (row = s * rep + q head in
 // the group), so one K/V tile serves every q head that shares it and decode is one partly
 // filled tile a (batch, kv head).  The block stages its Q tile once in shared memory and
 // walks 64-key tiles of K and V, which thread 0 loads by TMA through 3-D tensor maps over
-// [B * Hkv, L, D] (keys past L and columns past D zero-fill inside the head) into two
+// [B * Hkv, L, D] and [B * Hkv, L, Dv] (keys past L and columns past D or Dv zero-fill
+// inside the head) into two
 // buffers, each completing on an mbarrier: one tile loads while the block computes on the
 // other, and the shared memory a deeper ring would take goes to more blocks an SM, which
 // is what keeps decode's bytes in flight.  Key tiles that no row of the block can see
@@ -33,20 +35,25 @@
 //   * S = Q K^T: wgmma m64n64k16, Q and K both K-major in shared memory.
 //   * Online softmax in registers, in base 2 (scale * log2 e folded into the logits), each
 //     row's max and sum kept by the four threads (a quad) that hold it.
-//   * O += P V: wgmma m64nNk16 with P as the register A operand and V MN-major ([T, D]
-//     row-major, transposed B), one instruction per column chunk (below).  bf16 P alone
+//   * O += P V: wgmma m64nNk16 with P as the register A operand and V MN-major ([T, Dv]
+//     row-major, transposed B), one instruction per column chunk of V (below).  bf16 P alone
 //     (rounded to 2^-8 of each value) would put an error of up to 2^-8 of max |v| into
 //     an output, above the contract's tolerance for outputs near 0, so P is split into a
 //     bf16 high part and a bf16 low part (P - high) and both are multiplied: the error
 //     falls to 2^-16, for 1.5x the tensor work of a single bf16 P.
 //   * Epilogue: divide by the row sum (0 -> output 0), round to bf16 in shared memory and
-//     store each row's D values 16 bytes at a time.
-// Layout.  A tile's D columns, padded to DP (16, 32, 64, 80, 96 or 128), lie in one or two
-// column chunks of 64, 32 or 16 columns; each chunk holds the tile's rows at 128, 64 or
-// 32 bytes a row with the matching TMA and wgmma swizzle (128B, 64B or 32B), so a TMA box
-// row is a whole chunk row; the unswizzled layout would need boxes 16 bytes wide, each
-// row a copy request of its own, and on an H100 held the copies to about 1.9 TB/s.  The
-// heaviest row tiles (the latest positions under causal) are scheduled first.
+//     store each row's Dv values 16 bytes at a time.
+// Layout.  A tile's D columns, padded to DP, lie in column chunks of 64 columns and a last
+// one of 64, 32 or 16; each chunk holds the tile's rows at 128, 64 or 32 bytes a row with
+// the matching TMA and wgmma swizzle (128B, 64B or 32B), so a TMA box row is a whole chunk
+// row; the unswizzled layout would need boxes 16 bytes wide, each row a copy request of
+// its own, and on an H100 held the copies to about 1.9 TB/s.  V's Dv columns, padded to
+// DV, lie in chunks the same way.  The pairs (DP, DV) built: (16, 16), (32, 32), (64, 64),
+// (80, 80), (96, 96), (128, 128) for D <= 128 (a Dv < D zero-fills V's columns past Dv),
+// and (192, 128) for D > 128: MLA's 192-wide q and k in three chunks and its 128-wide v in
+// two.  There a block holds 1 KB + 24 KB of Q + two stages of 24 KB of K and 16 KB of V,
+// 107.5 KB, so two blocks fit an SM where D = 128 (81 KB) fits two as well and D <= 80
+// four.  The heaviest row tiles (the latest positions under causal) are scheduled first.
 #include <cstdint>
 #include <cuda.h>  // CUtensorMap and cuTensorMapEncodeTiled's types; the function itself is
                    // found through the runtime, so the library needs no -lcuda
@@ -65,7 +72,7 @@ constexpr int kTensorMapError = 100000;  // + CUresult: the launch code of a fai
 struct Params {
   const __nv_bfloat16* q;
   __nv_bfloat16* out;
-  int64_t Hq, Hkv, S, T, D;
+  int64_t Hq, Hkv, S, T, D, Dv;
   int64_t L;     // kv_len: the keys that exist, the first L of each head's T rows
   int64_t rep;   // Hq / Hkv
   int64_t rows;  // rep * S query rows per (batch, kv head)
@@ -94,18 +101,16 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t sbo, int layout
          (static_cast<uint64_t>(layout) << 62);
 }
 
-// the column chunks of a tile with DP padded columns: chunk 0 holds min(DP, 64) columns,
-// chunk 1 the rest; a chunk of w columns has rows of 2 w bytes
+// the column chunks of a tile with DP padded columns: every chunk but the last holds 64
+// columns, the last the rest (64, 32 or 16); a chunk of w columns has rows of 2 w bytes
 template <int DP>
 struct Chunks {
-  static constexpr int n = DP > 64 ? 2 : 1;
-  __host__ __device__ static constexpr int width(int c) {
-    return c == 0 ? (DP < 64 ? DP : 64) : DP - 64;
-  }
+  static constexpr int n = (DP + 63) / 64;
+  __host__ __device__ static constexpr int width(int c) { return c < n - 1 ? 64 : DP - 64 * c; }
   // byte offset of chunk c in a tile of `rows` rows (1024-byte aligned: the swizzle
   // pattern repeats every 1024 bytes)
   __host__ __device__ static constexpr uint32_t offset(int c, int rows) {
-    return c == 0 ? 0u : rows * 128u;
+    return static_cast<uint32_t>(c) * rows * 128u;
   }
 };
 __host__ __device__ constexpr int swizzle_layout(int w) { return w == 64 ? 1 : w == 32 ? 2 : 3; }
@@ -118,7 +123,7 @@ __device__ __forceinline__ uint32_t swizzle(uint32_t a, int w) {
 // byte offset of the 16-byte unit u (columns 8 u ... 8 u + 7) of row r in a tile
 template <int DP>
 __device__ __forceinline__ uint32_t unit_offset(int r, int u, int rows) {
-  const int c = u >= 8 ? 1 : 0;
+  const int c = u / 8;
   const int w = Chunks<DP>::width(c);
   return Chunks<DP>::offset(c, rows) + swizzle(r * w * 2 + (u - 8 * c) * 16, w);
 }
@@ -240,46 +245,65 @@ __device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a, uint64
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-// the K and V tiles of keys key0 ... key0 + 63 into a stage: one TMA box a column chunk
-// and tensor, {chunk width, 64 keys, 1 head} at column 64 c
-template <int DP>
-__device__ __forceinline__ void load_tile(uint8_t* stage, uint32_t bar, const CUtensorMap* maps,
+struct Maps {
+  CUtensorMap k[3];  // K's column chunks (a chunk past K's last maps chunk 0 again)
+  CUtensorMap v[2];  // V's
+};
+
+// the K and V tiles of keys key0 ... key0 + 63 into a stage (K's tile, then V's): one TMA
+// box a column chunk and tensor, {chunk width, 64 keys, 1 head} at column 64 c
+template <int DP, int DV>
+__device__ __forceinline__ void load_tile(uint8_t* stage, uint32_t bar, const Maps& maps,
                                           int key0, int head) {
-  constexpr uint32_t kTileBytes = kKeys * DP * 2;
+  constexpr uint32_t kKBytes = kKeys * DP * 2;
   const uint32_t dst = smem_u32(stage);
-  mbar_expect_tx(bar, 2u * kTileBytes);
+  mbar_expect_tx(bar, kKBytes + kKeys * DV * 2u);
 #pragma unroll
-  for (int c = 0; c < Chunks<DP>::n; ++c) {
-    const uint32_t off = Chunks<DP>::offset(c, kKeys);
-    tma_load_3d(dst + off, &maps[c], bar, 64 * c, key0, head);
-    tma_load_3d(dst + kTileBytes + off, &maps[2 + c], bar, 64 * c, key0, head);
+  for (int c = 0; c < Chunks<DP>::n; ++c)
+    tma_load_3d(dst + Chunks<DP>::offset(c, kKeys), &maps.k[c], bar, 64 * c, key0, head);
+#pragma unroll
+  for (int c = 0; c < Chunks<DV>::n; ++c)
+    tma_load_3d(dst + kKBytes + Chunks<DV>::offset(c, kKeys), &maps.v[c], bar, 64 * c, key0,
+                head);
+}
+
+// O += P V for key step ks, V's column chunk C and the chunks after it: the chunk's key
+// rows 2 w bytes apart, its accumulator elements from 32 C
+template <int DV, int C>
+__device__ __forceinline__ void pv_chunks(float* o, const uint32_t* p_hi, const uint32_t* p_lo,
+                                          uint32_t v_addr, int ks) {
+  if constexpr (C < Chunks<DV>::n) {
+    constexpr int w = Chunks<DV>::width(C);
+    const uint64_t vd = desc(v_addr + Chunks<DV>::offset(C, kKeys) + ks * 16 * w * 2, 16 * w,
+                             swizzle_layout(w));
+    wgmma_rs<w>(o + 32 * C, p_hi, vd);
+    wgmma_rs<w>(o + 32 * C, p_lo, vd);
+    pv_chunks<DV, C + 1>(o, p_hi, p_lo, v_addr, ks);
   }
 }
 
-struct Maps {
-  CUtensorMap m[4];  // K chunk 0, K chunk 1, V chunk 0, V chunk 1
-};
-
-// DP: D padded to 16, 32, 64, 80, 96 or 128; STAGES: K/V tiles in the ring.  Up to D = 80
-// the registers are held to 128 a thread, so that four blocks fit on an SM
-template <int DP, int STAGES>
+// DP: D padded (16, 32, 64, 80, 96, 128 or 192); DV: Dv padded (DP, or 128 beside 192);
+// STAGES: K/V tiles in the ring.  Up to D = 80 the registers are held to 128 a thread, so
+// that four blocks fit on an SM
+template <int DP, int DV, int STAGES>
 __global__ void __launch_bounds__(kThreads, DP <= 80 ? 4 : 1)
     flash_attention_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
   constexpr int kUnits = DP / 8;                   // 16-byte units a row
   constexpr uint32_t kQBytes = kRows * DP * 2;
-  constexpr uint32_t kTileBytes = kKeys * DP * 2;  // one K or one V tile
+  constexpr uint32_t kKBytes = kKeys * DP * 2;     // one K tile
+  constexpr uint32_t kStageBytes = kKBytes + kKeys * DV * 2;  // a K tile and a V tile
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   // the swizzle patterns repeat every 1024 bytes of the shared address: align the base
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* q_s = smem;              // the Q tile; the output tile at the end
   uint8_t* kv_s = smem + kQBytes;   // stage st: the K tile, then the V tile
-  uint64_t* bars = reinterpret_cast<uint64_t*>(kv_s + 2 * STAGES * kTileBytes);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(kv_s + STAGES * kStageBytes);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int64_t b = blockIdx.z, kvh = blockIdx.y;
   const int64_t r0 = (p.row_tiles - 1 - blockIdx.x) * kRows;  // heaviest tiles first
   const int64_t nr = min64(kRows, p.rows - r0);
-  const int units = static_cast<int>(p.D / 8);
+  const int units = static_cast<int>(p.D / 8), v_units = static_cast<int>(p.Dv / 8);
   const int head = static_cast<int>(b * p.Hkv + kvh);
 
   // the keys some row of the tile can see, [k_begin, k_end), in whole key tiles
@@ -311,8 +335,8 @@ __global__ void __launch_bounds__(kThreads, DP <= 80 ? 4 : 1)
   __syncthreads();
   if (tid == 0)
     for (int j = 0; j < STAGES && j < n_tiles; ++j)
-      load_tile<DP>(kv_s + 2 * j * kTileBytes, smem_u32(bars + j), maps.m,
-                    static_cast<int>((kt0 + j) * kKeys), head);
+      load_tile<DP, DV>(kv_s + j * kStageBytes, smem_u32(bars + j), maps,
+                        static_cast<int>((kt0 + j) * kKeys), head);
 
   // this thread's accumulator elements: e = 4 i + 2 h + x is row row0 + 8 h, column
   // 8 i + col0 + x (the wgmma accumulator layout)
@@ -320,16 +344,16 @@ __global__ void __launch_bounds__(kThreads, DP <= 80 ? 4 : 1)
   int64_t qpos[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) qpos[h] = (r0 + row0 + 8 * h) / p.rep + shift;
-  float o[DP / 2];
+  float o[DV / 2];
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) o[i] = 0.0f;
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.0f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
   const uint32_t q_addr = smem_u32(q_s);
 
   for (int j = 0; j < n_tiles; ++j) {
     const int st = j % STAGES;
     mbar_wait(smem_u32(bars + st), (j / STAGES) & 1);
-    const uint32_t k_addr = smem_u32(kv_s + 2 * st * kTileBytes), v_addr = k_addr + kTileBytes;
+    const uint32_t k_addr = smem_u32(kv_s + st * kStageBytes), v_addr = k_addr + kKBytes;
 
     // ---- S = Q K^T
     float s[kKeys / 2];
@@ -340,7 +364,7 @@ __global__ void __launch_bounds__(kThreads, DP <= 80 ? 4 : 1)
 #pragma unroll
     for (int ks = 0; ks < DP / 16; ++ks) {
       // k-step ks: columns 16 ks ... in chunk c, 32 bytes a step along its rows
-      const int c = ks >= 4 ? 1 : 0, w = Chunks<DP>::width(c);
+      const int c = ks / 4, w = Chunks<DP>::width(c);
       const uint32_t off = (16 * ks - 64 * c) * 2;
       wgmma_ss<kKeys>(s,
                       desc(q_addr + Chunks<DP>::offset(c, kRows) + off, 16 * w, swizzle_layout(w)),
@@ -394,7 +418,7 @@ __global__ void __launch_bounds__(kThreads, DP <= 80 ? 4 : 1)
 #pragma unroll
     for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + sum[h];
 #pragma unroll
-    for (int i = 0; i < DP / 8; ++i)
+    for (int i = 0; i < DV / 8; ++i)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         o[4 * i + 2 * h] *= alpha[h];
@@ -414,38 +438,25 @@ __global__ void __launch_bounds__(kThreads, DP <= 80 ? 4 : 1)
         p_lo[ks][jj] = bf16x2_bits(__floats2bfloat162_rn(a - hf.x, c - hf.y));
       }
 
-    // ---- O += P V, V MN-major: a chunk's key rows 2 w bytes apart, one instruction per
-    // chunk (columns 64 c ..., accumulator elements from 32 c)
-    pin<DP / 2>(o);
+    // ---- O += P V, V MN-major: one instruction per column chunk of V (columns 64 c ...,
+    // accumulator elements from 32 c)
+    pin<DV / 2>(o);
     pin<kKeys / 4>(&p_hi[0][0]);
     pin<kKeys / 4>(&p_lo[0][0]);
     wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < kKeys / 16; ++ks) {
-      {
-        constexpr int w = Chunks<DP>::width(0);
-        const uint64_t vd = desc(v_addr + ks * 16 * w * 2, 16 * w, swizzle_layout(w));
-        wgmma_rs<w>(o, p_hi[ks], vd);
-        wgmma_rs<w>(o, p_lo[ks], vd);
-      }
-      if constexpr (Chunks<DP>::n == 2) {
-        constexpr int w = Chunks<DP>::width(1);
-        const uint64_t vd = desc(v_addr + Chunks<DP>::offset(1, kKeys) + ks * 16 * w * 2, 16 * w,
-                                 swizzle_layout(w));
-        wgmma_rs<w>(o + 32, p_hi[ks], vd);
-        wgmma_rs<w>(o + 32, p_lo[ks], vd);
-      }
-    }
+    for (int ks = 0; ks < kKeys / 16; ++ks) pv_chunks<DV, 0>(o, p_hi[ks], p_lo[ks], v_addr, ks);
     wgmma_commit();
     wgmma_wait_all();
-    pin<DP / 2>(o);
+    pin<DV / 2>(o);
     __syncthreads();  // every warp is done with stage st: refill it
     if (tid == 0 && j + STAGES < n_tiles)
-      load_tile<DP>(kv_s + 2 * st * kTileBytes, smem_u32(bars + st), maps.m,
-                    static_cast<int>((kt0 + j + STAGES) * kKeys), head);
+      load_tile<DP, DV>(kv_s + st * kStageBytes, smem_u32(bars + st), maps,
+                        static_cast<int>((kt0 + j + STAGES) * kKeys), head);
   }
 
-  // ---- epilogue: o / l in bf16 into the Q area, then 16 bytes a thread to out
+  // ---- epilogue: o / l in bf16 into the Q area (laid out as a DV-wide tile, which fits:
+  // DV <= DP), then 16 bytes a thread to out
   float inv[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -455,19 +466,20 @@ __global__ void __launch_bounds__(kThreads, DP <= 80 ? 4 : 1)
   }
   __syncthreads();  // no wgmma reads the Q tile any more
 #pragma unroll
-  for (int i = 0; i < DP / 8; ++i)
+  for (int i = 0; i < DV / 8; ++i)
 #pragma unroll
     for (int h = 0; h < 2; ++h)
-      *reinterpret_cast<__nv_bfloat162*>(q_s + unit_offset<DP>(row0 + 8 * h, i, kRows) +
+      *reinterpret_cast<__nv_bfloat162*>(q_s + unit_offset<DV>(row0 + 8 * h, i, kRows) +
                                          col0 * 2) =
           __floats2bfloat162_rn(o[4 * i + 2 * h] * inv[h], o[4 * i + 2 * h + 1] * inv[h]);
   __syncthreads();
-  for (int e = tid; e < kRows * units; e += kThreads) {
-    const int u = e % units, r = e / units;
+  for (int e = tid; e < kRows * v_units; e += kThreads) {
+    const int u = e % v_units, r = e / v_units;
     if (r < nr) {
       const int64_t R = r0 + r, s = R / p.rep, g = R - s * p.rep;
-      *reinterpret_cast<uint4*>(p.out + ((b * p.Hq + kvh * p.rep + g) * p.S + s) * p.D + 8 * u) =
-          *reinterpret_cast<const uint4*>(q_s + unit_offset<DP>(r, u, kRows));
+      *reinterpret_cast<uint4*>(p.out + ((b * p.Hq + kvh * p.rep + g) * p.S + s) * p.Dv +
+                                8 * u) =
+          *reinterpret_cast<const uint4*>(q_s + unit_offset<DV>(r, u, kRows));
     }
   }
 }
@@ -495,8 +507,8 @@ EncodeTiled encode_tiled() {
 }
 
 // a 3-D tensor map over the first L keys of each head of a contiguous [B * Hkv, T, D]
-// bfloat16 tensor: boxes of {w columns, kKeys keys, 1 head} with the swizzle of a 2 w-byte
-// row; zero fill past L and past D, so no key t >= L is read
+// bfloat16 tensor (D: K's width or V's): boxes of {w columns, kKeys keys, 1 head} with the
+// swizzle of a 2 w-byte row; zero fill past L and past D, so no key t >= L is read
 int tensor_map(CUtensorMap* map, const void* base, int64_t heads, int64_t T, int64_t L,
                int64_t D, int w) {
   const EncodeTiled encode = encode_tiled();
@@ -516,22 +528,27 @@ int tensor_map(CUtensorMap* map, const void* base, int64_t heads, int64_t T, int
   return r == CUDA_SUCCESS ? 0 : kTensorMapError + static_cast<int>(r);
 }
 
-template <int DP>
+template <int DP, int DV>
 int launch(const Params& p, const void* k, const void* v, int64_t B, cudaStream_t stream) {
   // two stages: one tile loads while the other is used; the shared memory a deeper ring
   // would take fits a fourth block on an SM, which keeps more bytes in flight and more
   // warps to hide latency
   constexpr int STAGES = 2;
   Maps maps;
-  for (int c = 0; c < 2; ++c) {  // a single chunk maps chunk 0 twice (chunk 1 is never read)
-    const int w = Chunks<DP>::width(c < Chunks<DP>::n ? c : 0);
-    int rc = tensor_map(&maps.m[c], k, B * p.Hkv, p.T, p.L, p.D, w);
-    if (rc == 0) rc = tensor_map(&maps.m[2 + c], v, B * p.Hkv, p.T, p.L, p.D, w);
+  // a chunk past the last is never read: it maps chunk 0 again
+  for (int c = 0; c < 3; ++c) {
+    const int rc = tensor_map(&maps.k[c], k, B * p.Hkv, p.T, p.L, p.D,
+                              Chunks<DP>::width(c < Chunks<DP>::n ? c : 0));
+    if (rc != 0) return rc;
+  }
+  for (int c = 0; c < 2; ++c) {
+    const int rc = tensor_map(&maps.v[c], v, B * p.Hkv, p.T, p.L, p.Dv,
+                              Chunks<DV>::width(c < Chunks<DV>::n ? c : 0));
     if (rc != 0) return rc;
   }
   const size_t smem = 1024 + static_cast<size_t>(kRows) * DP * 2 +
-                      2 * STAGES * static_cast<size_t>(kKeys) * DP * 2 + STAGES * 8;
-  auto kernel = flash_attention_sm90_kernel<DP, STAGES>;
+                      STAGES * static_cast<size_t>(kKeys) * (DP + DV) * 2 + STAGES * 8;
+  auto kernel = flash_attention_sm90_kernel<DP, DV, STAGES>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -546,28 +563,30 @@ int launch(const Params& p, const void* k, const void* v, int64_t B, cudaStream_
 // Launches on `stream` and returns 0, a CUDA runtime error code, or kTensorMapError plus
 // the CUresult of cuTensorMapEncodeTiled when a tensor map cannot be made.  All pointers
 // are device pointers to contiguous bfloat16 tensors, 16-byte aligned; the caller has
-// checked the shapes (Hq % Hkv == 0, D % 8 == 0, 8 <= D <= 128, B and Hkv at most 65,535,
-// S and T at least 1, 1 <= kv_len <= T).
+// checked the shapes (Hq % Hkv == 0, D and Dv multiples of 8, 8 <= Dv <= D <= 192,
+// Dv <= 128, B and Hkv at most 65,535, S and T at least 1, 1 <= kv_len <= T).
 extern "C" int flash_attention_sm90_launch(const void* q, const void* k, const void* v,
                                            void* out, int64_t B, int64_t Hq, int64_t Hkv,
                                            int64_t S, int64_t T, int64_t kv_len, int64_t D,
-                                           int32_t causal, int32_t has_window, int64_t window,
-                                           float scale, void* stream) {
+                                           int64_t Dv, int32_t causal, int32_t has_window,
+                                           int64_t window, float scale, void* stream) {
   if (B <= 0 || S <= 0) return 0;
-  if (kv_len < 1 || kv_len > T) return static_cast<int>(cudaErrorInvalidValue);
+  if (kv_len < 1 || kv_len > T || Dv < 8 || Dv > D || Dv > 128)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int64_t rows = (Hq / Hkv) * S;
   const int64_t row_tiles = (rows + kRows - 1) / kRows;
   if (row_tiles > 0x7fffffff || T > 0x7fffffff || B * Hkv > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   const Params p{static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(out),
-                 Hq, Hkv, S, T, D, kv_len, Hq / Hkv, rows, row_tiles, causal, has_window,
+                 Hq, Hkv, S, T, D, Dv, kv_len, Hq / Hkv, rows, row_tiles, causal, has_window,
                  window, scale * kLog2e};
   const auto s = static_cast<cudaStream_t>(stream);
-  if (D <= 16) return launch<16>(p, k, v, B, s);
-  if (D <= 32) return launch<32>(p, k, v, B, s);
-  if (D <= 64) return launch<64>(p, k, v, B, s);
-  if (D <= 80) return launch<80>(p, k, v, B, s);
-  if (D <= 96) return launch<96>(p, k, v, B, s);
-  if (D <= 128) return launch<128>(p, k, v, B, s);
+  if (D <= 16) return launch<16, 16>(p, k, v, B, s);
+  if (D <= 32) return launch<32, 32>(p, k, v, B, s);
+  if (D <= 64) return launch<64, 64>(p, k, v, B, s);
+  if (D <= 80) return launch<80, 80>(p, k, v, B, s);
+  if (D <= 96) return launch<96, 96>(p, k, v, B, s);
+  if (D <= 128) return launch<128, 128>(p, k, v, B, s);
+  if (D <= 192) return launch<192, 128>(p, k, v, B, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

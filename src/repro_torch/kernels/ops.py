@@ -533,18 +533,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K4: softmax attention with causal, sliding-window and GQA masks, the
     semantics of ``repro.kernels.ops.flash_attention``.
 
-    q: [B, Hq, S, D], k and v: [B, Hkv, T, D], all float32 or all bfloat16,
-    contiguous -> q's dtype [B, Hq, S, D].  q head h reads kv head
+    q: [B, Hq, S, D], k: [B, Hkv, T, D] and v: [B, Hkv, T, Dv], all float32
+    or all bfloat16, contiguous -> q's dtype [B, Hq, S, Dv].  q head h reads kv head
     ``h // (Hq // Hkv)``.  Query positions are right-aligned to the keys
     (``qpos = s + T - S``); ``causal`` keeps keys ``t <= qpos``; ``window``
     (None or an int) keeps ``t > qpos - window``, also without ``causal``.
-    A row that keeps no key gives 0.  ``scale`` defaults to ``1/sqrt(D)``
-    (taken in float32).  ``kv_len`` (default T) is the number of keys that
+    A row that keeps no key gives 0.  ``scale`` defaults to ``1/sqrt(D)``,
+    q's width (taken in float32).  ``kv_len`` (default T) is the number of keys that
     exist: keys ``t >= kv_len`` are neither read nor seen and the queries are
     right-aligned to ``kv_len`` (``qpos = s + kv_len - S``), so a decode step
     attends over the filled prefix of a preallocated ``[B, Hkv, T, D]``
-    cache without copying it.  Needs Hq a multiple of Hkv, ``D % 8 == 0`` with
-    ``8 <= D <= 128``, S, T >= 1, and q, k and v 16-byte aligned (on either
+    cache without copying it.  Needs Hq a multiple of Hkv, D and Dv multiples
+    of 8 with ``8 <= Dv <= D <= 192`` and ``Dv <= 128`` (MLA's prefill is
+    D = 192, Dv = 128), S, T >= 1, and q, k and v 16-byte aligned (on either
     device, so both take the same inputs).  Logits, the softmax and the
     output accumulate in float32.
 
@@ -561,14 +562,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k and v differ in dtype: {q.dtype}, {k.dtype}, {v.dtype}")
     B, Hq, S, D = q.shape
-    Hkv, T = k.shape[1], k.shape[2]
-    if v.shape != k.shape or k.shape[0] != B or k.shape[3] != D:
+    Hkv, T, Dv = k.shape[1], k.shape[2], v.shape[3]
+    if v.shape[:3] != k.shape[:3] or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} must be "
-                         f"[{B}, Hkv, T, {D}]")
+                         f"[{B}, Hkv, T, {D}] and [{B}, Hkv, T, Dv]")
     if Hkv < 1 or Hq % Hkv:
         raise ValueError(f"Hq = {Hq} must be a multiple of Hkv = {Hkv}")
-    if D % 8 or not 8 <= D <= 128:
-        raise ValueError(f"head dim D = {D} must be a multiple of 8 in [8, 128]")
+    if D % 8 or not 8 <= D <= 192:
+        raise ValueError(f"head dim D = {D} must be a multiple of 8 in [8, 192]")
+    if Dv % 8 or not 8 <= Dv <= min(D, 128):
+        raise ValueError(f"value head dim Dv = {Dv} must be a multiple of 8 in "
+                         f"[8, min(D, 128)], D = {D}")
     if S < 1 or T < 1:
         raise ValueError(f"S = {S} and T = {T} must be at least 1")
     kv_len = T if kv_len is None else int(kv_len)
@@ -590,9 +594,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if B > 65535 or Hkv > 65535:
         raise ValueError(f"B = {B} and Hkv = {Hkv} must be at most 65,535 (grid size)")
     kernel = attention_kernel(q.dtype)
-    out = torch.empty_like(q)   # aligned: the sm90 kernel writes 16 bytes at a time
+    # aligned: the sm90 kernel writes 16 bytes at a time
+    out = torch.empty((B, Hq, S, Dv), dtype=q.dtype, device=dev)
     if B:
         _launch(kernel, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                B, Hq, Hkv, S, T, kv_len, D, int(bool(causal)), window is not None,
+                B, Hq, Hkv, S, T, kv_len, D, Dv, int(bool(causal)), window is not None,
                 0 if window is None else int(window), scale)
     return out

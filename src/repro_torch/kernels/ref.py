@@ -337,9 +337,10 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     key gives 0 (the kernel divides by 1 when the softmax sum is 0; the jnp
     reference gives NaN there).
 
-    q: [B, Hq, S, D], k and v: [B, Hkv, T, D] (float32 or bfloat16; Hq a
-    multiple of Hkv, q head h reads kv head ``h // (Hq // Hkv)``) -> q's
-    dtype [B, Hq, S, D].  ``scale`` defaults to ``1/sqrt(D)``.  Only keys
+    q: [B, Hq, S, D], k: [B, Hkv, T, D], v: [B, Hkv, T, Dv] (float32 or
+    bfloat16; Hq a multiple of Hkv, q head h reads kv head ``h // (Hq //
+    Hkv)``) -> q's dtype [B, Hq, S, Dv].  ``scale`` defaults to
+    ``1/sqrt(D)``, q's width.  Only keys
     ``t < kv_len`` (default T) exist: the queries are right-aligned to
     ``kv_len`` and the rest of k and v is never read, which is attention over
     the contiguous prefix ``k[:, :, :kv_len]``.  Holds the
@@ -359,4 +360,4 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.exp(logits - torch.where(torch.isinf(m), 0.0, m))   # masked -> 0
     l = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bhgst,bhtd->bhgsd", p, v.float()) / torch.where(l == 0, 1.0, l)
-    return out.reshape(B, Hq, S, D).to(q.dtype)
+    return out.reshape(B, Hq, S, v.shape[3]).to(q.dtype)

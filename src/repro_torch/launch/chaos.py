@@ -15,6 +15,7 @@ and are deterministic in ``--seed``.  The counterpart of
 from __future__ import annotations
 
 import argparse
+import asyncio
 import sys
 import tempfile
 import warnings
@@ -249,6 +250,21 @@ def scenario_daemon(seed: int, device="cuda") -> bool:
     return ok
 
 
+class _FirstFire:
+    """An injector that injects nothing: it sets ``event`` (on ``loop``, from
+    whatever thread fires) when ``site`` first fires."""
+
+    def __init__(self, site: str, loop):
+        self.site, self.loop = site, loop
+        self.event = asyncio.Event()
+        self._fired = False
+
+    def fire(self, site: str, **info) -> None:
+        if site == self.site and not self._fired:
+            self._fired = True
+            self.loop.call_soon_threadsafe(self.event.set)
+
+
 def scenario_budget(seed: int, device="cuda") -> bool:
     """Drive a memory-pressure step-down mid-serve: the budget governor must
     re-truncate the label store IN PLACE (no rebuild — the engine's full
@@ -294,14 +310,20 @@ def scenario_budget(seed: int, device="cuda") -> bool:
         # in-flight batches, never tear one.  The first arrival goes alone,
         # so the phase spans at least two stalled batches: a dispatch on the
         # card or the CPU is fast enough to take all ten in one batch, and
-        # then there would be no gap for the step to land in
+        # then there would be no gap for the step to land in.  The other
+        # nine are submitted once its dispatch has reached the device (the
+        # watcher sees the injection site fire), however long the loop, the
+        # batcher or the executor take to get it there
         sig["bytes"] = float(full)
         plan = inject.Injector(
             latency={"serve.device_dispatch": (list(range(6)), 0.05)})
-        with inject.active(plan):
+        began = _FirstFire("serve.device_dispatch", asyncio.get_running_loop())
+        batches = daemon.counters["batches"]
+        with inject.active(began), inject.active(plan):   # began sees the fire first
             first = asyncio.ensure_future(ask(10))
-            await asyncio.sleep(0.005)
+            await asyncio.wait_for(began.event.wait(), 60.0)
             await asyncio.gather(first, *(ask(i) for i in range(11, 20)))
+        report["batches_mid_serve"] = daemon.counters["batches"] - batches
         report["steps_down_mid_serve"] = daemon.counters["budget_steps_down"]
         store = co.engine.budget_store
         report["truncated"] = store is not None and store.any_truncated
@@ -325,7 +347,8 @@ def scenario_budget(seed: int, device="cuda") -> bool:
         report["uncertain_searched"] = co.engine.degradation["uncertain"]
 
     asyncio.run(run())
-    ok = (report["steps_down_mid_serve"] > 0 and report["truncated"]
+    ok = (report["batches_mid_serve"] >= 2 and report["steps_down_mid_serve"] > 0
+          and report["truncated"]
           and report["stepped_back_up"] and report["verdicts_match"]
           and report["no_rebuild"] and report["shed"] == 0
           and report["answered"] == report["admitted"])

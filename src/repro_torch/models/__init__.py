@@ -1,13 +1,11 @@
 """The substrate's model zoo, the port of ``repro.models`` (plain torch
 functions over params dicts; the kernels K4 and K6 on the card).
 
-transformer.py : decoder LMs (dense GQA, SWA, MoE); MLA raises until ported
+transformer.py : decoder LMs (dense GQA, SWA, MoE, MLA)
+gnn/           : GCN (its aggregation on K5), GatedGCN, SchNet, GraphCast
 recsys/        : xDeepFM
-
-The GNN family (``repro.models.gnn``) is not ported yet (ROADMAP.md Queue 1,
-item 12).
 """
-from repro_torch.models import transformer
+from repro_torch.models import gnn, transformer
 from repro_torch.models.recsys import xdeepfm
 
-__all__ = ["transformer", "xdeepfm"]
+__all__ = ["gnn", "transformer", "xdeepfm"]

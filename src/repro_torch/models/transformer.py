@@ -4,13 +4,10 @@ Plain functions over a params dict, as the JAX package has them:
 
   * dense GQA (granite-3-2b, deepseek-7b)
   * GQA + sliding-window attention (h2o-danube-1.8b)
-  * MoE with GShard-style capacity dispatch (granite-moe-1b-a400m)
-
-MLA (deepseek-v2-lite-16b) is not ported: its prefill attention has a
-query/key width of 192 and a value width of 128, which K4 does not take.
-Every entry point raises ``NotImplementedError`` for ``cfg.mla`` (ROADMAP.md
-Queue 1, item 12: MLA with K4 widened); nothing falls back to a plain
-attention.
+  * MoE with GShard-style capacity dispatch (granite-moe-1b-a400m,
+    deepseek-v2-lite-16b)
+  * MLA, multi-head latent attention with a compressed KV cache
+    (deepseek-v2-lite-16b)
 
 Layer weights are stacked ``[L, ...]`` as in the JAX package, and the layer
 stack is a Python loop over them.  Attention, in ``forward``/``prefill``
@@ -19,10 +16,17 @@ and in every ``decode_step``, is K4 (``repro_torch.kernels.ops
 version on the CPU).  The JAX package attends through the XLA mirror
 ``_attention_scores`` instead; the functions are the same.
 
-Decode keeps a preallocated ``[L, B, Hkv, max_len, Dh]`` cache, written in
-place (``decode_step`` returns the cache it was given), with ``pos`` a
-Python int: K4 attends over the filled prefix through ``kv_len`` without a
-copy and without a host read a step.  ``remat``, ``attn_impl``, ``chunk_q``,
+MLA's prefill attends through K4 at a query/key width of 192 (128 without
+rope, 64 with it, the rope key shared by the heads) and a value width of 128.
+Its decode is the JAX package's absorbed attention: float32 einsums over the
+compressed cache, in no kernel (the JAX package has none there either).
+
+Decode keeps a preallocated ``[L, B, Hkv, max_len, Dh]`` cache (MLA: the
+compressed ``c_kv`` ``[L, B, max_len, kv_lora]`` and ``k_rope``
+``[L, B, max_len, rope]``), written in place (``decode_step`` returns the
+cache it was given), with ``pos`` a Python int: attention reads the filled
+prefix (K4 through ``kv_len``, MLA through a view) without a copy and
+without a host read a step.  ``remat``, ``attn_impl``, ``chunk_q``,
 ``chunk_k`` and ``logical_batch_axes`` are kept so that configs read the
 same; they change nothing here.  The cast points are the JAX package's:
 ``rms_norm`` and ``rope`` in float32, the router in float32, the logits in
@@ -40,9 +44,7 @@ import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
-
-MLA_TODO = ("MLA attention is not ported yet (ROADMAP.md Queue 1, item 12: MLA with K4 "
-            "widened to a query/key width of 192 and a value width of 128)")
+from repro_torch.models.jax_params import tree_from_jax
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,11 +128,6 @@ class LMConfig:
         return full - all_experts + active
 
 
-def _no_mla(cfg: LMConfig) -> None:
-    if cfg.mla is not None:
-        raise NotImplementedError(f"{cfg.name}: {MLA_TODO}")
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -138,30 +135,46 @@ def _no_mla(cfg: LMConfig) -> None:
 def _dense(gen, shape, dtype, device, layers=None, scale=None):
     """JAX's ``_dense``: normal x 1/sqrt(fan_in), fan_in the first dim of one
     layer's shape; drawn in float32 and cast.  ``layers`` stacks that many
-    draws on a new axis 0."""
+    draws on a new axis 0, drawn one layer at a time (deepseek-v2-lite's
+    ``[27, 64, 2048, 1408]`` expert leaves whole would pass through a 20 GB
+    float32 temporary)."""
     fan_in = shape[0] if len(shape) >= 2 else 1
     s = scale if scale is not None else 1.0 / np.sqrt(fan_in)
-    full = shape if layers is None else (layers, *shape)
-    return torch.randn(full, generator=gen, device=device).mul_(s).to(dtype)
+    if layers is None:
+        return torch.randn(shape, generator=gen, device=device).mul_(s).to(dtype)
+    out = torch.empty((layers, *shape), dtype=dtype, device=device)
+    for l in range(layers):
+        out[l] = torch.randn(shape, generator=gen, device=device).mul_(s)
+    return out
 
 
 def init_params(cfg: LMConfig, generator: torch.Generator, device="cuda") -> Dict[str, Any]:
     """Random weights with JAX's shapes, dtypes and scales, drawn from
     ``generator`` (a ``torch.Generator`` on ``device``; its numbers are not
     ``jax.random``'s).  Layer leaves are stacked ``[L, ...]``."""
-    _no_mla(cfg)
     dev = resolve_device(device)
     d, hd, L, dt = cfg.d_model, cfg.head_dim, cfg.n_layers, cfg.dtype
 
     def stack(shape, dtype=dt):
         return _dense(generator, shape, dtype, dev, layers=L)
 
-    layer: Dict[str, Any] = {
-        "wq": stack((d, cfg.n_heads * hd)),
-        "wk": stack((d, cfg.n_kv_heads * hd)),
-        "wv": stack((d, cfg.n_kv_heads * hd)),
-        "wo": stack((cfg.n_heads * hd, d)),
-    }
+    if cfg.mla is None:
+        layer: Dict[str, Any] = {
+            "wq": stack((d, cfg.n_heads * hd)),
+            "wk": stack((d, cfg.n_kv_heads * hd)),
+            "wv": stack((d, cfg.n_kv_heads * hd)),
+            "wo": stack((cfg.n_heads * hd, d)),
+        }
+    else:
+        m = cfg.mla
+        layer = {
+            "wq": stack((d, cfg.n_heads * (m.qk_nope_dim + m.qk_rope_dim))),
+            "w_dkv": stack((d, m.kv_lora)),
+            "w_krope": stack((d, m.qk_rope_dim)),
+            "w_uk": stack((m.kv_lora, cfg.n_heads * m.qk_nope_dim)),
+            "w_uv": stack((m.kv_lora, cfg.n_heads * m.v_dim)),
+            "wo": stack((cfg.n_heads * m.v_dim, d)),
+        }
     if cfg.moe is None:
         layer["w_in"] = stack((d, cfg.d_ff))
         layer["w_gate"] = stack((d, cfg.d_ff))
@@ -186,25 +199,11 @@ def init_params(cfg: LMConfig, generator: torch.Generator, device="cuda") -> Dic
     }
 
 
-def _tensor(a: np.ndarray, device) -> torch.Tensor:
-    """A numpy array of the JAX package as a torch tensor on ``device``;
-    bfloat16 (ml_dtypes') goes through its bit pattern.  A copy: the
-    arrays of JAX's params are read-only views."""
-    a = np.array(a, order="C")
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
-    return torch.from_numpy(a).to(device)
-
-
 def params_from_jax(cfg: LMConfig, params, device="cuda") -> Dict[str, Any]:
     """The JAX package's params (``init_params``'s tree, its leaves as numpy
     arrays) as the port's, on ``device``: the same keys, the stacked
-    ``[L, ...]`` layer leaves kept, the same dtypes."""
-    _no_mla(cfg)
-    dev = resolve_device(device)
-    return {"embed": _tensor(params["embed"], dev),
-            "final_ln": _tensor(params["final_ln"], dev),
-            "layers": {k: _tensor(v, dev) for k, v in params["layers"].items()}}
+    ``[L, ...]`` layer leaves kept (MLA's too), the same dtypes."""
+    return tree_from_jax(params, resolve_device(device))
 
 
 # ---------------------------------------------------------------------------
@@ -318,16 +317,41 @@ def _heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
     return t.reshape(B, S, n, hd).transpose(1, 2).contiguous()
 
 
+def _rope_dim(cfg: LMConfig) -> int:
+    """The width rope rotates: the head dim, MLA's qk_rope_dim."""
+    return cfg.head_dim if cfg.mla is None else cfg.mla.qk_rope_dim
+
+
+def _mla_qkv(cfg: LMConfig, lw, h: torch.Tensor, cos, sin) -> tuple:
+    """MLA's attention inputs over the full sequence: q [B, H, S, nope +
+    rope] (its rope part rotated), k [B, H, S, nope + rope] (the up-projected
+    latent, then the one rope key every head shares) and v [B, H, S, v_dim],
+    each contiguous: K4 takes them as they are."""
+    m = cfg.mla
+    B, S = h.shape[:2]
+    H, nope = cfg.n_heads, m.qk_nope_dim
+    q = _heads(h @ lw["wq"], H, nope + m.qk_rope_dim)
+    q = torch.cat([q[..., :nope], _rotate(q[..., nope:], cos, sin)], dim=-1)
+    c_kv = h @ lw["w_dkv"]                                          # [B, S, kv_lora]
+    k_rope = _rotate((h @ lw["w_krope"])[:, None], cos, sin)        # [B, 1, S, rope]
+    k = torch.cat([_heads(c_kv @ lw["w_uk"], H, nope),
+                   k_rope.expand(B, H, S, m.qk_rope_dim)], dim=-1)
+    return q, k, _heads(c_kv @ lw["w_uv"], H, m.v_dim)
+
+
 def _layer(cfg: LMConfig, lw, x: torch.Tensor, cos, sin) -> Tuple[torch.Tensor, torch.Tensor]:
     """One transformer block over the full sequence; attention through K4."""
     B, S, d = x.shape
-    hd = cfg.head_dim
     h = rms_norm(x, lw["ln1"], cfg.norm_eps)
-    q = _rotate(_heads(h @ lw["wq"], cfg.n_heads, hd), cos, sin)
-    k = _rotate(_heads(h @ lw["wk"], cfg.n_kv_heads, hd), cos, sin)
-    v = _heads(h @ lw["wv"], cfg.n_kv_heads, hd)
+    if cfg.mla is None:
+        hd = cfg.head_dim
+        q = _rotate(_heads(h @ lw["wq"], cfg.n_heads, hd), cos, sin)
+        k = _rotate(_heads(h @ lw["wk"], cfg.n_kv_heads, hd), cos, sin)
+        v = _heads(h @ lw["wv"], cfg.n_kv_heads, hd)
+    else:
+        q, k, v = _mla_qkv(cfg, lw, h, cos, sin)
     attn = ops.flash_attention(q, k, v, causal=True, window=cfg.window)
-    x = x + attn.transpose(1, 2).reshape(B, S, cfg.n_heads * hd) @ lw["wo"]
+    x = x + attn.transpose(1, 2).reshape(B, S, -1) @ lw["wo"]
     return _ffn(cfg, lw, x)
 
 
@@ -338,10 +362,9 @@ def _layer_weights(params, l: int) -> Dict[str, torch.Tensor]:
 def _hidden(cfg: LMConfig, params, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The residual stream after the last layer, [B, S, d], and the summed
     aux loss."""
-    _no_mla(cfg)
     B, S = tokens.shape
     x = params["embed"][tokens.long()]
-    cos, sin = _angles(torch.arange(S, device=x.device), cfg.head_dim, cfg.rope_theta)
+    cos, sin = _angles(torch.arange(S, device=x.device), _rope_dim(cfg), cfg.rope_theta)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for l in range(cfg.n_layers):
         x, a = _layer(cfg, _layer_weights(params, l), x, cos, sin)
@@ -376,11 +399,19 @@ def prefill(cfg: LMConfig, params, tokens: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int, device="cuda") -> Dict[str, Any]:
-    """An empty KV cache: ``k`` and ``v`` zeros [L, batch, Hkv, max_len, Dh]
-    in the model dtype, ``pos`` 0 (a Python int)."""
-    _no_mla(cfg)
+    """An empty KV cache in the model dtype, ``pos`` 0 (a Python int): ``k``
+    and ``v`` zeros [L, batch, Hkv, max_len, Dh]; MLA's compressed cache
+    ``c_kv`` [L, batch, max_len, kv_lora] and ``k_rope`` [L, batch, max_len,
+    rope]."""
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+    L = cfg.n_layers
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {"c_kv": torch.zeros((L, batch, max_len, m.kv_lora), dtype=cfg.dtype, device=dev),
+                "k_rope": torch.zeros((L, batch, max_len, m.qk_rope_dim), dtype=cfg.dtype,
+                                      device=dev),
+                "pos": 0}
+    shape = (L, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
             "pos": 0}
@@ -403,21 +434,49 @@ def _decode_layer(cfg: LMConfig, lw, x: torch.Tensor, ck: torch.Tensor, cv: torc
     return _ffn(cfg, lw, x)[0]
 
 
+def _decode_layer_mla(cfg: LMConfig, lw, x: torch.Tensor, c_kv: torch.Tensor,
+                      k_rope: torch.Tensor, pos: int, cos, sin) -> torch.Tensor:
+    """MLA's block for a single new token at position ``pos``, JAX's absorbed
+    attention. x: [B, 1, d]; c_kv [B, max_len, kv_lora] and k_rope [B,
+    max_len, rope]: this layer's compressed cache, written in place at
+    ``pos``.  W_uk folds into the query and W_uv into the context, so the
+    scores and the context are float32 einsums over the latent prefix
+    ``[:pos + 1]`` (a view: JAX masks the whole cache instead, the same
+    softmax).  No kernel: the JAX package runs this step in none."""
+    m = cfg.mla
+    B, H, nope = x.shape[0], cfg.n_heads, m.qk_nope_dim
+    h = rms_norm(x, lw["ln1"], cfg.norm_eps)
+    q = _heads(h @ lw["wq"], H, nope + m.qk_rope_dim)               # [B, H, 1, qk]
+    q_nope, q_rope = q[..., :nope], _rotate(q[..., nope:], cos, sin)
+    c_kv[:, pos:pos + 1] = h @ lw["w_dkv"]
+    k_rope[:, pos:pos + 1] = _rotate(h @ lw["w_krope"], cos, sin)
+    c, kr = c_kv[:, :pos + 1].float(), k_rope[:, :pos + 1].float()
+    q_lat = torch.einsum("bhsd,khd->bhsk", q_nope, lw["w_uk"].view(m.kv_lora, H, nope))
+    logits = (torch.einsum("bhsk,btk->bhst", q_lat.float(), c)
+              + torch.einsum("bhsd,btd->bhst", q_rope.float(), kr))
+    logits *= 1.0 / np.sqrt(nope + m.qk_rope_dim)
+    ctx = torch.einsum("bhst,btk->bhsk", torch.softmax(logits, dim=-1), c)
+    w_uv = lw["w_uv"].view(m.kv_lora, H, m.v_dim).float()
+    attn = torch.einsum("bhsk,khd->bhsd", ctx, w_uv).to(x.dtype)
+    x = x + attn.transpose(1, 2).reshape(B, 1, H * m.v_dim) @ lw["wo"]
+    return _ffn(cfg, lw, x)[0]
+
+
 @torch.no_grad()
 def decode_step(cfg: LMConfig, params, cache: Dict[str, Any], tokens: torch.Tensor):
     """One-token decode. tokens: int[B, 1] -> (logits float32[B, 1, V],
     cache).  The new keys and values are written into ``cache`` in place and
     ``cache["pos"]`` advances by one; the cache returned is the one given."""
-    _no_mla(cfg)
     pos = int(cache["pos"])
-    max_len = cache["k"].shape[3]
+    mla = cfg.mla is not None
+    max_len = cache["c_kv"].shape[2] if mla else cache["k"].shape[3]
     if pos >= max_len:
         raise ValueError(f"the cache is full: pos {pos} of max_len {max_len}")
     x = params["embed"][tokens.long()]
-    cos, sin = _angles(torch.arange(pos, pos + 1, device=x.device), cfg.head_dim,
+    cos, sin = _angles(torch.arange(pos, pos + 1, device=x.device), _rope_dim(cfg),
                        cfg.rope_theta)
+    layer, a, b = ((_decode_layer_mla, "c_kv", "k_rope") if mla else (_decode_layer, "k", "v"))
     for l in range(cfg.n_layers):
-        x = _decode_layer(cfg, _layer_weights(params, l), x, cache["k"][l], cache["v"][l],
-                          pos, cos, sin)
+        x = layer(cfg, _layer_weights(params, l), x, cache[a][l], cache[b][l], pos, cos, sin)
     cache["pos"] = pos + 1
     return _logits(cfg, params, x), cache

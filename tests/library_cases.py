@@ -158,10 +158,31 @@ KV_LEN_CASES = [(2, 32, 8, 1, 320, 1, 64, None), (2, 32, 8, 1, 320, 63, 64, None
                 (1, 4, 2, 100, 300, 129, 64, 65)]
 
 
-def make_kv_len_case(rng, B, Hq, Hkv, S, T, kv_len, D):
-    """(q, k, v) float32, k and v NaN at the keys t >= kv_len."""
+def make_kv_len_case(rng, B, Hq, Hkv, S, T, kv_len, D, Dv=None):
+    """(q, k, v) float32, v ``Dv`` wide (default D), k and v NaN at the keys
+    t >= kv_len."""
     q = rng.standard_normal((B, Hq, S, D)).astype(np.float32)
-    kv = rng.standard_normal((2, B, Hkv, T, D)).astype(np.float32)
-    kv[:, :, :, kv_len:] = np.nan
-    return q, kv[0], kv[1]
+    k = rng.standard_normal((B, Hkv, T, D)).astype(np.float32)
+    v = rng.standard_normal((B, Hkv, T, Dv or D)).astype(np.float32)
+    k[:, :, kv_len:] = np.nan
+    v[:, :, kv_len:] = np.nan
+    return q, k, v
+
+
+# (B, Hq, Hkv, S, T, kv_len, D, Dv, causal, window): K4 with a value width of
+# its own, MLA's prefill (D = 192 = 128 + 64 with rope, Dv = 128, 16 heads) and
+# its edges: 64-row tiles, ragged S and T, a window, a float32 head of fewer
+# than 64 rows (the short-row kernel), a decode step and S > 1 over a cache
+# (kv_len; callers put NaN past it), D padded to 192 and Dv to 128, and Dv < D
+# at D <= 128 (V's columns past Dv zero-filled)
+ATTENTION_DV_CASES = [(1, 16, 16, 256, 256, None, 192, 128, True, None),
+                      (1, 4, 4, 130, 130, None, 192, 128, True, None),
+                      (1, 4, 2, 70, 127, None, 192, 128, True, 65),
+                      (1, 2, 2, 63, 63, None, 192, 128, True, None),
+                      (1, 4, 4, 64, 200, None, 192, 128, False, None),
+                      (2, 16, 16, 1, 320, 129, 192, 128, True, None),
+                      (1, 4, 4, 100, 300, 229, 192, 128, True, None),
+                      (1, 2, 1, 100, 100, None, 136, 64, False, None),
+                      (1, 4, 2, 100, 100, None, 128, 64, True, None),
+                      (1, 4, 2, 64, 90, None, 24, 8, True, 33)]
 

@@ -158,6 +158,23 @@ def test_chaos_scenario_passes(name):
         assert jok and report == jreport, (report, jreport)
 
 
+def test_chaos_budget_splits_its_stalled_phase_under_a_slow_batcher(monkeypatch):
+    """The budget scenario's second phase must send its first arrival as a
+    stalled batch of its own whatever the timing: with the daemon's batcher
+    made slow (a 30 ms window instead of 1 ms, as on a loaded host) a fixed
+    sleep before the other nine would let all ten land in one batch; the
+    scenario waits for the first dispatch to reach the device instead, and
+    passes with every check, at least two batches in that phase among them."""
+    from repro_torch.serve import daemon
+
+    real = daemon.DaemonConfig
+    monkeypatch.setattr(daemon, "DaemonConfig",
+                        lambda **kw: real(**{**kw, "batch_window_ms": 30.0}))
+    ok, report = _run(tchaos.SCENARIOS["budget"], 0, "cpu")
+    assert ok, report
+    assert "'batches_mid_serve': " in report and "PASS" in report.splitlines()[-1]
+
+
 def test_chaos_scenarios_are_repro_s():
     assert list(tchaos.SCENARIOS) == list(jchaos.SCENARIOS)
 

@@ -11,9 +11,10 @@ on the card, the device wave build on the
 card (through frontier_expand) against the reference build, the sharded
 serve backends and the ``mesh=`` device build over a one-rank NCCL mesh,
 the kernel library (K3 bitset_mm, K4 flash_attention, also over a
-preallocated cache with ``kv_len``, K5 ell_spmm, K6 embedding_bag) against
-its plain versions, and the LM family's and xDeepFM's smoke configs on the
-card against the same weights on the CPU.
+preallocated cache with ``kv_len`` and at MLA's widths, D = 192 and
+Dv = 128, K5 ell_spmm, K6 embedding_bag) against its plain versions, and the
+LM family's (MLA included), the GNN family's and xDeepFM's smoke configs on
+the card against the same weights on the CPU.
 
 These tests need a CUDA card and the CUDA toolkit (the kernels build with
 ``nvcc`` on first use); they carry the ``cuda`` marker and, without a card,
@@ -27,8 +28,8 @@ import pytest
 import torch
 
 from frontier_cases import ARRAYS, CASES, ORDER, assert_same_level, make_case
-from library_cases import (ATTENTION_F32_CASES, BAG_CASES, BITSET_CASES, KV_LEN_CASES,
-                           SPMM_CASES, case_id, make_bag_case, make_bitset_case,
+from library_cases import (ATTENTION_DV_CASES, ATTENTION_F32_CASES, BAG_CASES, BITSET_CASES,
+                           KV_LEN_CASES, SPMM_CASES, case_id, make_bag_case, make_bitset_case,
                            make_kv_len_case, make_spmm_case, padding_rows)
 from serve_batch_cases import BINDING as SERVE_BINDING
 from serve_batch_cases import CASES as SERVE_CASES
@@ -814,13 +815,33 @@ def test_flash_attention_kv_len_matches_plain(cuda, rng, case, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ATTENTION_DV_CASES, ids=case_id)
+def test_flash_attention_value_width_matches_plain(cuda, rng, case, dtype):
+    """Both K4 kernels with a value width of its own (MLA's prefill, D = 192
+    and Dv = 128, and the edges of ``ATTENTION_DV_CASES``), also over a
+    preallocated cache with NaN past kv_len: [B, Hq, S, Dv] out."""
+    B, Hq, Hkv, S, T, kv_len, D, Dv, causal, window = case
+    q, k, v = (torch.from_numpy(x).to(cuda).to(dtype)
+               for x in make_kv_len_case(rng, B, Hq, Hkv, S, T, kv_len or T, D, Dv))
+    got = _launched(ops.attention_kernel(dtype), lambda: ops.flash_attention(
+        q, k, v, causal=causal, window=window, kv_len=kv_len))
+    assert got.shape == (B, Hq, S, Dv) and torch.isfinite(got).all()
+    exp = ref.flash_attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                                  window=window, kv_len=kv_len)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, exp, rtol=2e-5, atol=2e-5)
+    else:
+        torch.testing.assert_close(got.float(), exp.to(dtype).float(), rtol=2**-7, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("arch", ["granite-3-2b", "h2o-danube-1.8b", "deepseek-7b",
-                                  "granite-moe-1b-a400m"])
+                                  "granite-moe-1b-a400m", "deepseek-v2-lite-16b"])
 def test_lm_smoke_on_card_matches_cpu(cuda, arch, dtype):
     """An LM's smoke config on the card (K4, n_layers launches a forward and
-    a decode step) against the same weights and tokens on the CPU (K4's plain
-    version): float32 within 1e-4, bfloat16 within 5e-2 (the two devices'
-    matrix products round differently)."""
+    a decode step; MLA's decode step none) against the same weights and
+    tokens on the CPU (K4's plain version): float32 within 1e-4, bfloat16
+    within 5e-2 (the two devices' matrix products round differently)."""
     import dataclasses
 
     from repro_torch.configs import get_arch
@@ -844,9 +865,55 @@ def test_lm_smoke_on_card_matches_cpu(cuda, arch, dtype):
         ops.reset_launches()
         got = tf.decode_step(cfg, on_card, cache, toks[:, t:t + 1].to(cuda))[0]
         torch.cuda.synchronize()
-        assert ops.LAUNCHES[kernel] == cfg.n_layers
+        assert ops.LAUNCHES[kernel] == (0 if cfg.mla is not None else cfg.n_layers)
         exp = tf.decode_step(cfg, params, cpu_cache, toks[:, t:t + 1])[0]
         torch.testing.assert_close(got.cpu(), exp, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("arch", ["gcn-cora", "gatedgcn", "schnet", "graphcast"])
+def test_gnn_smoke_on_card_matches_cpu(cuda, arch):
+    """A GNN's smoke config on the card (GCN: K5, n_layers launches a
+    forward) against the same weights and graph on the CPU, within 1e-4 (the
+    card's index_add_ sums in the order its atomics land)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synth import graph_batch_from_csr
+    from repro_torch.graph.generators import random_dag
+    from repro_torch.models.gnn import gatedgcn, gcn, graphcast, schnet
+
+    mod = {"gcn-cora": gcn, "gatedgcn": gatedgcn, "schnet": schnet, "graphcast": graphcast}[arch]
+    cfg = get_arch(arch).smoke_config()
+    params = mod.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    on_card = _to(params, cuda)
+    if arch == "graphcast":
+        rng = np.random.default_rng(0)
+        n_g, extra = 48, (16,)
+        ids = {"g2m_src": n_g, "g2m_dst": 16, "mesh_src": 16, "mesh_dst": 16, "m2g_src": 16,
+               "m2g_dst": n_g}
+        arrays = {"grid_x": rng.standard_normal((n_g, cfg.n_vars)).astype(np.float32),
+                  **{k: rng.integers(0, hi, 96).astype(np.int32) for k, hi in ids.items()},
+                  "target": rng.standard_normal((n_g, cfg.n_vars)).astype(np.float32)}
+        batch = graphcast.MeshBatch(**{k: torch.from_numpy(v) for k, v in arrays.items()})
+    else:
+        g, extra = random_dag(64, 200, seed=0), ()
+        batch = graph_batch_from_csr(
+            g, 1 if arch == "schnet" else cfg.d_in, with_pos=arch == "schnet",
+            d_edge=cfg.d_edge_in if arch == "gatedgcn" else None, pad_edges_to=g.m + 37,
+            device="cpu")
+    card_batch = type(batch)(*(None if a is None else a.to(cuda) for a in batch))
+    ops.reset_launches()
+    got = mod.forward(cfg, on_card, card_batch, *extra)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ell_spmm"] == (cfg.n_layers if arch == "gcn-cora" else 0)
+    torch.testing.assert_close(got.cpu(), mod.forward(cfg, params, batch, *extra),
+                               rtol=1e-4, atol=1e-4)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
 
 
 def test_xdeepfm_smoke_on_card_matches_cpu(cuda):

@@ -11,7 +11,10 @@ checks against the JAX package on the same numpy inputs:
     the JAX package's own tolerances (2e-5 in float32, 0.05 in bfloat16),
     on shapes that include the tile edges of the card's bfloat16 kernel and
     of its float32 tiled kernel (``tests/library_cases.py``), and the choice
-    of its kernel by dtype;
+    of its kernel by dtype; with a value width of its own (MLA's prefill,
+    D = 192 and Dv = 128) against ``repro.models.transformer
+    ._attention_scores``, the function MLA calls in the JAX package (its
+    Pallas kernel ties v's width to D);
   * K5 ``ell_spmm`` and K6 ``embedding_bag`` against the jnp references at
     1e-5, K6 also on the edges of its card kernel (``tests/library_cases.py``):
     their Pallas kernels do not run under the installed JAX (``pl.load``
@@ -30,7 +33,9 @@ from repro.graph.generators import random_dag as jax_random_dag
 from repro.graph.reach import transitive_closure_bits
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from library_cases import ATTENTION_F32_CASES, BAG_CASES, case_id, make_bag_case, padding_rows
+from library_cases import (ATTENTION_DV_CASES, ATTENTION_F32_CASES, BAG_CASES, case_id,
+                           make_bag_case, make_kv_len_case, padding_rows)
+from repro.models.transformer import _attention_scores
 from repro_torch.graph.generators import paper_dataset_analogue, random_dag
 from repro_torch.graph.reach import adjacency_bits
 from repro_torch.kernels import ops, ref
@@ -180,6 +185,23 @@ def test_flash_attention_f32_edges_match_pallas_interpret(case, rng):
     np.testing.assert_allclose(got.numpy(), exp, rtol=2e-5, atol=2e-5)
     if window == 0:
         assert not got.any()
+
+
+@pytest.mark.parametrize("case", ATTENTION_DV_CASES, ids=case_id)
+def test_flash_attention_value_width_matches_jax_attention_scores(case, rng):
+    """K4 with v narrower than q and k (``tests/library_cases.py``'s
+    ``ATTENTION_DV_CASES``): the plain version against JAX's naive
+    ``_attention_scores`` over the filled prefix (``t_total = kv_len``), at
+    2e-5; the keys past kv_len are NaN and never read; scale 1/sqrt(D)."""
+    B, Hq, Hkv, S, T, kv_len, D, Dv, causal, window = case
+    L = kv_len or T
+    q, k, v = make_kv_len_case(rng, B, Hq, Hkv, S, T, L, D, Dv)
+    exp = np.asarray(_attention_scores(jnp.asarray(q), jnp.asarray(k[:, :, :L]),
+                                       jnp.asarray(v[:, :, :L]), causal=causal, window=window,
+                                       t_total=L, impl="naive"))
+    got = ops.flash_attention(_t(q), _t(k), _t(v), causal=causal, window=window, kv_len=kv_len)
+    assert got.dtype == torch.float32 and got.shape == (B, Hq, S, Dv) == exp.shape
+    np.testing.assert_allclose(got.numpy(), exp, rtol=2e-5, atol=2e-5)
 
 
 def test_flash_attention_bf16():
@@ -420,6 +442,16 @@ def test_wrappers_check_inputs_and_count_no_cpu_launch(rng):
     with pytest.raises(ValueError, match="head dim"):
         ops.flash_attention(q[..., :12].contiguous(), k[..., :12].contiguous(),
                             v[..., :12].contiguous())
+    with pytest.raises(ValueError, match="value head dim"):
+        ops.flash_attention(q, k, v[..., :12].contiguous())      # Dv not a multiple of 8
+    with pytest.raises(ValueError, match="value head dim"):
+        ops.flash_attention(q[..., :8].contiguous(), k[..., :8].contiguous(), v)   # Dv > D
+    wide = torch.zeros((1, 2, 4, 200))
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(wide, wide[:, :1].contiguous(), wide[:, :1, :, :128].contiguous())
+    with pytest.raises(ValueError, match="value head dim"):
+        ops.flash_attention(wide[..., :192].contiguous(), wide[:, :1, :, :192].contiguous(),
+                            wide[:, :1, :, :136].contiguous())   # Dv past 128
     with pytest.raises(ValueError, match="differ in dtype"):
         ops.flash_attention(q, k.to(torch.bfloat16), v)
     with pytest.raises(ValueError, match="contiguous"):

@@ -3,7 +3,8 @@ JAX package's (``repro.models.transformer``) on the CPU.
 
 The JAX package's params (``init_params`` with ``jax.random``) go through
 ``params_from_jax``, and the same numpy-made tokens through both, for the
-four architectures without MLA at their ``smoke_config()``:
+five LM architectures at their ``smoke_config()`` (deepseek-v2-lite's MLA
+included):
 
   * ``forward`` logits and aux against JAX's at ``attn_impl="naive"`` and
     ``"chunked"``, within 1e-4 absolute (float32);
@@ -15,9 +16,11 @@ four architectures without MLA at their ``smoke_config()``:
   * granite in bfloat16 in both packages, at a bound stated below;
   * attention goes through K4's wrapper ``ops.flash_attention``, exactly
     ``n_layers`` calls a forward and a decode step (on the CPU the wrapper
-    runs K4's plain version and counts no launch);
-  * MLA raises ``NotImplementedError``; the registry's configs equal JAX's
-    field by field, with the dtype mapped.
+    runs K4's plain version and counts no launch); MLA's forward calls it
+    with a query/key width of qk_nope + qk_rope and a value width of v_dim,
+    and its decode step (the absorbed float32 einsums) never;
+  * the registry's LM and recsys configs equal JAX's field by field, with
+    the dtype mapped (the GNN family's: ``tests/test_torch_gnn.py``).
 """
 import dataclasses
 from unittest import mock
@@ -35,7 +38,9 @@ from repro_torch.configs import ALL_ARCHS, get_arch
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as tf
 
-LM_ARCHS = ["granite-3-2b", "h2o-danube-1.8b", "deepseek-7b", "granite-moe-1b-a400m"]
+LM_ARCHS = ["granite-3-2b", "h2o-danube-1.8b", "deepseek-7b", "granite-moe-1b-a400m",
+            "deepseek-v2-lite-16b"]
+GNN_ARCHS = ("gcn-cora", "graphcast", "schnet", "gatedgcn")
 ATOL = 1e-4          # float32 logits, both packages
 SEQ = 48             # past danube's smoke window (32)
 BATCH = 2
@@ -70,15 +75,30 @@ def _tokens(cfg, seed=1, batch=BATCH, seq=SEQ):
 
 
 class _Count:
-    """Counts the calls of ``ops.flash_attention`` (K4's wrapper)."""
+    """Counts the calls of ``ops.flash_attention`` (K4's wrapper) and keeps
+    the widths (D, Dv) of q and v of each."""
 
     def __init__(self):
         self.calls = 0
+        self.widths = set()
         self._real = ops.flash_attention
 
-    def __call__(self, *a, **kw):
+    def __call__(self, q, k, v, **kw):
         self.calls += 1
-        return self._real(*a, **kw)
+        self.widths.add((q.shape[-1], v.shape[-1]))
+        return self._real(q, k, v, **kw)
+
+
+def _k4_widths(cfg) -> set:
+    """The (D, Dv) every K4 call of a forward takes."""
+    if cfg.mla is None:
+        return {(cfg.head_dim, cfg.head_dim)}
+    m = cfg.mla
+    return {(m.qk_nope_dim + m.qk_rope_dim, m.v_dim)}
+
+
+def _cache_names(cfg) -> tuple:
+    return ("c_kv", "k_rope") if cfg.mla is not None else ("k", "v")
 
 
 @pytest.mark.parametrize("impl", ["naive", "chunked"])
@@ -90,7 +110,7 @@ def test_forward_matches_jax(arch, impl):
     count = _Count()
     with mock.patch.object(ops, "flash_attention", count):
         got, aux = tf.forward(tcfg, tp, torch.from_numpy(toks))
-    assert count.calls == tcfg.n_layers
+    assert count.calls == tcfg.n_layers and count.widths == _k4_widths(tcfg)
     assert got.dtype == torch.float32 and got.shape == (BATCH, SEQ, tcfg.vocab)
     np.testing.assert_allclose(got.numpy(), np.asarray(exp), rtol=0, atol=ATOL)
     np.testing.assert_allclose(float(aux), float(exp_aux), rtol=1e-5, atol=1e-6)
@@ -112,12 +132,14 @@ def test_prefill_matches_jax(arch):
 def test_decode_steps_match_jax(arch):
     """Token by token over a cache of SEQ: every step's logits, the position
     and, at the end, the cache itself against JAX's ``decode_step``; the port
-    writes its cache in place."""
+    writes its cache in place.  A step calls K4 once a layer, MLA's never."""
     jcfg, tcfg, jp, tp = _setup(arch)
+    names = _cache_names(tcfg)
     toks = _tokens(jcfg, seed=3)
     jcache = jtf.init_cache(jcfg, BATCH, SEQ)
     cache = tf.init_cache(tcfg, BATCH, SEQ, device="cpu")
-    k_buf = cache["k"]
+    assert set(cache) == set(jcache)
+    k_buf = cache[names[0]]
     step = jax.jit(lambda c, t: jtf.decode_step(jcfg, jp, c, t))
     count = _Count()
     for t in range(SEQ):
@@ -127,9 +149,9 @@ def test_decode_steps_match_jax(arch):
         assert out_cache is cache and cache["pos"] == t + 1 == int(jcache["pos"])
         np.testing.assert_allclose(got.numpy(), np.asarray(exp), rtol=0, atol=ATOL,
                                    err_msg=f"step {t}")
-    assert count.calls == SEQ * tcfg.n_layers
-    assert cache["k"] is k_buf
-    for name in ("k", "v"):
+    assert count.calls == (0 if tcfg.mla is not None else SEQ * tcfg.n_layers)
+    assert cache[names[0]] is k_buf
+    for name in names:
         np.testing.assert_allclose(cache[name].numpy(), np.asarray(jcache[name]),
                                    rtol=0, atol=1e-5)
     with pytest.raises(ValueError, match="cache is full"):
@@ -225,19 +247,51 @@ def test_rms_norm_and_rope_match_jax():
                                    rtol=tol, atol=tol)
 
 
-def test_mla_raises_not_implemented():
-    cfg = get_arch("deepseek-v2-lite-16b").smoke_config()
-    assert cfg.mla is not None
-    gen = torch.Generator().manual_seed(0)
-    toks = torch.zeros((1, 4), dtype=torch.int32)
-    for call in (lambda: tf.init_params(cfg, gen, device="cpu"),
-                 lambda: tf.init_cache(cfg, 1, 8, device="cpu"),
-                 lambda: tf.forward(cfg, {}, toks),
-                 lambda: tf.prefill(cfg, {}, toks),
-                 lambda: tf.decode_step(cfg, {}, {"pos": 0}, toks[:, :1]),
-                 lambda: tf.params_from_jax(cfg, {}, device="cpu")):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            call()
+def test_mla_decode_continues_a_prefill_like_jax():
+    """MLA: four decode steps after a cache that forward's prompt filled
+    token by token in both packages, then the aux of a forward at 1e-5; and
+    the layer's attention inputs: the rope key shared by every head, q's
+    rope part rotated at its own width (qk_rope_dim, not head_dim)."""
+    jcfg, tcfg, jp, tp = _setup("deepseek-v2-lite-16b")
+    m = tcfg.mla
+    toks = _tokens(jcfg, seed=9, seq=12)
+    jcache = jtf.init_cache(jcfg, BATCH, 12)
+    cache = tf.init_cache(tcfg, BATCH, 12, device="cpu")
+    for t in range(8):
+        _, jcache = jtf.decode_step(jcfg, jp, jcache, jnp.asarray(toks[:, t:t + 1]))
+        tf.decode_step(tcfg, tp, cache, torch.from_numpy(toks[:, t:t + 1]))
+    for t in range(8, 12):
+        exp, jcache = jtf.decode_step(jcfg, jp, jcache, jnp.asarray(toks[:, t:t + 1]))
+        got, _ = tf.decode_step(tcfg, tp, cache, torch.from_numpy(toks[:, t:t + 1]))
+        np.testing.assert_allclose(got.numpy(), np.asarray(exp), rtol=0, atol=ATOL)
+    _, exp_aux = jtf.forward(jcfg, jp, jnp.asarray(toks))
+    _, aux = tf.forward(tcfg, tp, torch.from_numpy(toks))
+    np.testing.assert_allclose(float(aux), float(exp_aux), rtol=1e-5, atol=1e-5)
+    h = torch.from_numpy(np.random.default_rng(10).standard_normal(
+        (BATCH, 12, tcfg.d_model)).astype(np.float32))
+    cos, sin = tf._angles(torch.arange(12), m.qk_rope_dim, tcfg.rope_theta)
+    q, k, v = tf._mla_qkv(tcfg, {n: a[0] for n, a in tp["layers"].items()}, h, cos, sin)
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    assert q.shape == k.shape == (BATCH, tcfg.n_heads, 12, qk) and k.is_contiguous()
+    assert v.shape == (BATCH, tcfg.n_heads, 12, m.v_dim) and v.is_contiguous()
+    assert torch.equal(k[:, :1, :, m.qk_nope_dim:].expand(-1, tcfg.n_heads, -1, -1),
+                       k[..., m.qk_nope_dim:])
+
+
+def test_mla_params_from_jax_keep_the_tree():
+    """MLA's layer leaves (wq, w_dkv, w_krope, w_uk, w_uv, wo and the MoE's)
+    cross whole; ``init_params`` draws the same tree with JAX's shapes."""
+    arch = "deepseek-v2-lite-16b"
+    cfg = jax_arch(arch).smoke_config()
+    jp = _np_tree(_jax_params(cfg))
+    tp = tf.params_from_jax(get_arch(arch).smoke_config(), jp, device="cpu")
+    assert {"w_dkv", "w_krope", "w_uk", "w_uv"} <= set(jp["layers"]) == set(tp["layers"])
+    for name, a in jp["layers"].items():
+        np.testing.assert_array_equal(tp["layers"][name].numpy(), a)
+    mine = tf.init_params(get_arch(arch).smoke_config(), torch.Generator().manual_seed(0),
+                          device="cpu")
+    assert {n: tuple(t.shape) for n, t in mine["layers"].items()} == {
+        n: a.shape for n, a in jp["layers"].items()}
 
 
 def _fields(cfg) -> dict:
@@ -246,7 +300,7 @@ def _fields(cfg) -> dict:
     return out
 
 
-@pytest.mark.parametrize("arch", ALL_ARCHS)
+@pytest.mark.parametrize("arch", [a for a in ALL_ARCHS if a not in GNN_ARCHS])
 def test_registry_configs_equal_jax(arch):
     """Every ported config equals the JAX package's field by field (nested
     MoE and MLA configs too), the dtype mapped by name; so do the shapes."""
@@ -274,7 +328,7 @@ def test_registry_configs_equal_jax(arch):
 def test_registry_names_what_is_not_ported():
     assert set(ALL_ARCHS) < set(JAX_ARCHS)
     for arch in set(JAX_ARCHS) - set(ALL_ARCHS):
-        with pytest.raises(KeyError, match="ROADMAP.md Queue 1, item 12"):
+        with pytest.raises(KeyError, match="ROADMAP.md Queue 1"):
             get_arch(arch)
 
 
