@@ -14,7 +14,12 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      with ``kv_len`` 1, a 64-key tile's edge and one past it and T, NaN past
      kv_len (``tests/library_cases.py``'s ``KV_LEN_CASES``), and with a value
      width of its own, MLA's D = 192 and Dv = 128 among them
-     (``ATTENTION_DV_CASES``, also over a cache), K5 and K6 at 1e-5).  K1 has two
+     (``ATTENTION_DV_CASES``, also over a cache), K5 and K6 at 1e-5); the
+     backwards of K4 (``flash_attention_bwd``, both dtypes, within
+     ``ATTENTION_BWD_TOL``, rows that see no key without a gradient, a dk
+     missing its last key tile rejected), K5 (its transposed launch) and K6
+     (``embedding_bag_bwd``, repeated ids) at 1e-5 on ``ATTENTION_BWD_CASES``,
+     ``SPMM_BWD_CASES`` and ``BAG_BWD_CASES``.  K1 has two
      kernels: its batch form ``serve_batch`` (the engine's kernel backend,
      a whole batch in one launch), whose cases are
      ``tests/serve_batch_cases.py``'s, and its tier form ``label_intersect``
@@ -116,7 +121,8 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      batches > 0, each through ``label_intersect``, every answer equal to
      the host merge of the epoch that served it, the registry equal to the
      daemon's books; the dispatches, the event loop's lag and the
-     collector's passes during the publish.  Phases 4e-4h and 4j run before 4d;
+     collector's passes during the publish.  Phases 4e-4h, 4j and 4k run
+     before 4d;
   4i. the multi-device modes.  (a) Phase 4's oracle cold-started from its
      snapshot (``oracle_from_snapshot(mesh=)``) behind a (1, 1) mesh over a
      one-rank NCCL process group in this process: all of phase 4's traffic
@@ -173,6 +179,25 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      version with its controls, timed beside its bound, its plain version
      and the PyTorch call; these and the counts become K4's, K5's and K6's
      entries of the kernels line;
+  4k. training at ``full_config()`` widths through ``repro_torch.launch.train``
+     (``TRAIN_LM``): granite-3-2b, one step's gradients through K4 and its
+     backward kernel against the same step through their plain versions in
+     float32 at 2 layers (``TRAIN_F32_REL``, which the step with every dk's
+     last key tile dropped must exceed) and in bfloat16 at 40
+     (``TRAIN_BF16_REL``), then ``launch.train.main`` for 4 steps of 4 x
+     1,024 tokens with every plain version refused (K4 2 x 40 launches a
+     step with the layers recomputed, its backward 40), the step time and the
+     peak memory; xDeepFM over its whole table at batch 4,096 and GCN at
+     d_in 1,433 on ``random_dag(50,000, 150,000)``, each checked the same way
+     in float32 and trained (K6 and its backward 2 a step each, K5 and its
+     transposed launch 2 a step each), GCN then through ``--ckpt-dir
+     --fail-at 3``, resuming to the same losses; then the three backward
+     kernels at the path's own calls against their plain versions, timed
+     beside their bound, their plain versions and the PyTorch call (SDPA's
+     backward, ``F.embedding_bag``'s, ``torch.sparse.mm`` on the
+     transpose): the kernels line's ``flash_attention_bwd``,
+     ``embedding_bag_bwd`` and ``ell_spmm_bwd``, and 4k's launches join the
+     forward kernels' counts;
   4d. cold start and budget, on phase 4's oracle and traffic: the oracle
      saved (``persist.save_oracle``) and cold-started
      (``core.api.oracle_from_snapshot``), labels byte for byte and every
@@ -193,13 +218,14 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      and at the whole traffic in one call, each also under phase 4d's
      budget, with the bytes, compares and 32-byte sectors its queries need; ``frontier_expand`` at a real level
      from the middle of the build's schedule), and the kernels JSON line
-     (all nine kernels: K1, K2 and K4 have two each; K1's batch form
+     (all twelve kernels: K1, K2 and K4 have two each, and phase 4k's three
+     backward kernels; K1's batch form
      counts the launches of phases 4, 4e, 4f, 4g and 4h, its tier form
      those of phase 4h's pinned epochs and of phase 4i's sharded backends
      (every rank's), timed at phase 4h's pinned batch size, at 4,096 and at
      2^20 queries, where its byte bound binds; K2's slab form those of
      phase 4i's mesh= build (every rank's); K4's, K5's and K6's those of
-     phase 4j (phase 3b's beside them); K1's tier form
+     phases 4j and 4k (phase 3b's beside them); K1's tier form
      and K2's slab form also after an L2 flush, the time their shares of
      the DRAM-rate bound are taken from, the tier form beside its gather
      floor too);
@@ -214,7 +240,7 @@ toolkit (``nvcc``).  Phases, each raising on failure:
 ``--device-build-scale`` (default 1.0), and times
 ``frontier_expand``; in the full script the flag sets phase 4b's scale.
 ``--only-kernels`` runs phases 1-3b alone; ``--only-substrate`` phases
-1-3b and 4j; ``--only-dynamic`` phases 1-3,
+1-3b and 4j; ``--only-training`` phases 1-3 and 4k; ``--only-dynamic`` phases 1-3,
 4 and 4h, and times K1's tier form; ``--only-multi-device`` phases 1-4 and
 4i, and times K1's tier form and K2's slab form (at the mesh= build's
 graph).
@@ -852,7 +878,91 @@ def _library_vs_plain(rng, device) -> dict:
             cases["embedding_bag"] += 1
         else:
             check(False, f"embedding_bag accepted the id V in slot {slot}")
+    cases.update(_backwards_vs_plain(rng, device))
     return cases
+
+
+def _backwards_vs_plain(rng, device) -> dict:
+    """The backwards of K4, K5 and K6 against their plain backwards on the
+    card, on ``tests/library_cases.py``'s backward cases: K4's
+    ``flash_attention_bwd`` in float32 and bfloat16 (causal, windows, GQA,
+    MLA's (192, 128), rows that see no key: no gradient there) within
+    ``ATTENTION_BWD_TOL``, and a control it must reject (the dk of the last
+    key tile zeroed); K6's ``embedding_bag_bwd`` (repeated ids, padding,
+    xDeepFM's two layouts) and K5 over the transposed rows (empty rows, a
+    row past a warp's slots) within 1e-5, each through its autograd Function
+    too, one launch counted under its own name.  Returns {kernel: cases}."""
+    import library_cases as lc
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)  # noqa: E731
+    tol = lc.SPMM_BAG_BWD_TOL
+    cases = dict.fromkeys(("flash_attention_bwd", "embedding_bag_bwd", "ell_spmm_bwd"), 0)
+    for case in lc.ATTENTION_BWD_CASES:
+        B, Hq, Hkv, S, T, D, Dv, causal, window = case
+        arrays = lc.make_attention_bwd_case(rng, *case)
+        blind = t(~lc.attention_rows_seeing_a_key(S, T, causal, window))
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = (t(a).to(dtype) for a in arrays)
+            o = ops.flash_attention(q, k, v, causal=causal, window=window)
+            before = ops.LAUNCHES["flash_attention_bwd"]
+            got = ops.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+            torch.cuda.synchronize()
+            what = f"flash_attention_bwd {dtype} {lc.case_id(case)}"
+            check(ops.LAUNCHES["flash_attention_bwd"] == before + 1, f"{what}: not one launch")
+            exp = ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal, window=window)
+            excess = [_bwd_excess(g, e) for g, e in zip(got, exp)]
+            check(max(excess) <= 1, f"{what}: dq, dk, dv at {excess} x the tolerance")
+            check(not got[0][:, :, blind].any(), f"{what}: a row that sees no key has a dq")
+            if T >= 128 and bool(exp[1][:, :, -64:].abs().max() > 0):
+                cut = got[1].clone()
+                cut[:, :, -64:] = 0
+                check(_bwd_excess(cut, exp[1]) > 1,
+                      f"{what}: the check passes a dk without its last key tile")
+            cases["flash_attention_bwd"] += 1
+    for case in lc.BAG_BWD_CASES:
+        V = case[0]
+        idx, dout = (t(a) for a in lc.make_bag_bwd_case(rng, *case))
+        before = ops.LAUNCHES["embedding_bag_bwd"]
+        got = ops.embedding_bag_bwd(idx, dout, V)
+        torch.cuda.synchronize()
+        exp = ref.embedding_bag_bwd_ref(idx, dout, V)
+        check(ops.LAUNCHES["embedding_bag_bwd"] == before + 1 and
+              torch.allclose(got, exp, rtol=tol, atol=tol),
+              f"embedding_bag_bwd {lc.case_id(case)}: {float((got - exp).abs().max())}")
+        table = torch.zeros((V, case[1]), device=device, requires_grad=True)
+        (ops.embedding_bag(table, idx) * dout).sum().backward()
+        check(torch.allclose(table.grad, exp, rtol=tol, atol=tol),
+              f"embedding_bag's autograd Function {lc.case_id(case)}")
+        cases["embedding_bag_bwd"] += 1
+    for case in lc.SPMM_BWD_CASES:
+        nbr, wgt, nbr_t, wgt_t, x, dout = (t(a) for a in lc.make_spmm_bwd_case(rng, *case))
+        x.requires_grad_(True)
+        before = dict(ops.LAUNCHES)
+        (ops.ell_spmm(nbr, wgt, x, nbr_t, wgt_t) * dout).sum().backward()
+        torch.cuda.synchronize()
+        exp = ref.ell_spmm_ref(nbr_t, wgt_t, dout)
+        check(ops.LAUNCHES["ell_spmm_bwd"] == before["ell_spmm_bwd"] + 1
+              and ops.LAUNCHES["ell_spmm"] == before["ell_spmm"] + 1,
+              f"ell_spmm_bwd {lc.case_id(case)}: not one launch each way")
+        check(torch.allclose(x.grad, exp, rtol=tol, atol=tol),
+              f"ell_spmm_bwd {lc.case_id(case)}: {float((x.grad - exp).abs().max())}")
+        cases["ell_spmm_bwd"] += 1
+    return cases
+
+
+def _bwd_excess(got, exp) -> float:
+    """A gradient of K4's backward against the plain one: max |got - exp| /
+    (atol max|exp| + rtol |exp|) by ``ATTENTION_BWD_TOL`` of got's dtype (the
+    plain one rounded to it); the check passes at 1 or less."""
+    import library_cases as lc
+
+    rtol, atol = lc.ATTENTION_BWD_TOL[str(got.dtype).removeprefix("torch.")]
+    exp = exp.to(got.dtype).float()
+    scale = max(float(exp.abs().max()), 1e-30)
+    return float(((got.float() - exp).abs() / (atol * scale + rtol * exp.abs())).max())
 
 
 # ------------------------------------------------------------------ phase 3b
@@ -1282,7 +1392,9 @@ def _spmm_record(label: str, nbr, wgt, x, out, device) -> dict:
     lib_err = float((lib() - out).abs().max())
     l1, l2 = _event_ms(lib, 10, warmup=2), _event_ms(lib, 10, warmup=2)
     F_ = x.shape[1]
-    device_ms = _kernel_device_ms(kern, "ell_spmm_kernel", 5)
+    # fifty calls, as K4's record traces: a trace of five held none of GCN's F = 16
+    # launches three times running once
+    device_ms = _kernel_device_ms(kern, "ell_spmm_kernel", 50)
     # ids, weights and out once, and one source row per valid slot: uniform ids
     # leave x no reuse from the 50 MB L2 where it is larger
     floor_ms = (n * d * 8 + n * F_ * 4 + valid * F_ * 4) / PEAK_BYTES_PER_S * 1e3
@@ -3202,7 +3314,9 @@ def _plain(name: str):
 
     from repro_torch.kernels import ops, ref
 
-    plain = {"flash_attention": ref.flash_attention_ref, "ell_spmm": ref.ell_spmm_ref,
+    plain = {"flash_attention": ref.flash_attention_ref,
+             # GCN passes the transposed rows too, for its backward
+             "ell_spmm": lambda nbr, wgt, x, *transposed: ref.ell_spmm_ref(nbr, wgt, x),
              "embedding_bag": ref.embedding_bag_ref}[name]
     return mock.patch.object(ops, name, plain)
 
@@ -3763,10 +3877,11 @@ def _gcn(count, device, gen, shape: str, smi: str) -> tuple:
           and torch.allclose(got, exp, rtol=GCN_PLAIN_TOL, atol=GCN_PLAIN_TOL),
           f"GCN at {shape} against its forward through K5's plain version: {err}")
     rec = {"arch": cfg.name, "shape": shape, "n": n, "edges": m, "edges_padded": g.edge_src.numel(),
-           "d_in": d_feat, "ell_width": ell[0].shape[1], "ell_seconds": ell_s,
+           "d_in": d_feat, "ell_width": ell.nbr.shape[1],
+           "ell_width_transposed": ell.nbr_t.shape[1], "ell_seconds": ell_s,
            "vs_plain_max_abs": err, "tol": GCN_PLAIN_TOL,
            **_graph_rates(f"GCN {shape}", lambda: gcn.forward(cfg, params, g, ell), n, m, smi)}
-    calls = [(f"GCN {shape} layer {i + 1}, F = {args[2].shape[1]} (phase 4j)", *args, out)
+    calls = [(f"GCN {shape} layer {i + 1}, F = {args[2].shape[1]} (phase 4j)", *args[:3], out)
              for i, (args, out) in enumerate(cap.calls)]
     return rec, calls
 
@@ -3966,6 +4081,590 @@ def merge_substrate(library: list, sub: dict) -> None:
         rec["cases_checked"] += len(mine)
         if name in ("ell_spmm", "embedding_bag"):
             rec.update({k: mine[0][k] for k in HEAD_KEYS})
+
+
+# ------------------------------------------------------------------ phase 4k
+
+# Training at full_config() widths (src/repro/configs/granite_3_2b.py,
+# xdeepfm_cfg.py, gcn_cora.py), through launch.train's setup and step, the
+# weights from a seed.  granite-3-2b in bfloat16 at all 40 layers, 4 steps of
+# 4 x 1,024 tokens through the entry point itself (launch.train.main), so
+# K4's backward sees 16 key tiles under the causal mask; xDeepFM 3 steps at
+# batch 4,096 over its whole 39M-row table; GCN 6 steps on random_dag(N, 3N)
+# at d_in 1,433 (launch.train's graph; N cut to TRAIN_GCN_NODES, the host
+# draws x), then the same 6 with --ckpt-dir --fail-at 3 restarting to the
+# same losses.
+TRAIN_LM = dict(batch=4, seq=1024, steps=4)
+TRAIN_XDEEPFM = dict(batch=4096, steps=3)
+TRAIN_GCN_NODES, TRAIN_GCN_STEPS, TRAIN_GCN_FAIL_AT = 50_000, 6, 3
+TRAIN_F32_LAYERS = 2
+# One step's gradients through the kernels against the same step through the
+# plain versions (K4, K5, K6 forward and backward in kernels/ref.py), each
+# leaf's ||g - g_plain|| / ||g_plain||: float32 (granite at 2 layers, xDeepFM,
+# GCN) within TRAIN_F32_REL, float32 sums in other orders (K4's forward
+# agrees to 2e-5, its backward to 1e-4 of the largest gradient; K6's
+# backward adds in atomic order: 3.1e-6, 9.4e-8 and 8.0e-8 measured on an
+# H100); bfloat16 granite at 40 layers within TRAIN_BF16_REL, each backward
+# kernel within one bfloat16 step of its plain version, carried through 40
+# layers of random weights (0.022 measured).  The control: the float32 step
+# with the dk of every call's last key tile zeroed (a kernel that drops a key
+# tile) must exceed TRAIN_F32_REL on some leaf (0.023 measured); at bfloat16
+# the same control moves the gradients by no more than bfloat16 does
+# (0.025 against 0.022), so it is reported there, not held.
+TRAIN_F32_REL = 1e-4
+TRAIN_BF16_REL = 0.05
+
+
+def _plain_training():
+    """Patch ``ops.flash_attention``, ``ops.ell_spmm`` and
+    ``ops.embedding_bag`` for the block with autograd Functions of their
+    plain versions, forward and backward (``kernels/ref.py``): the same
+    training step with every kernel replaced, the yardstick of its
+    gradients."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    class Attention(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, causal, window):
+            o = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+            ctx.save_for_backward(q, k, v, o)
+            ctx.masks = (causal, window)
+            return o
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, o = ctx.saved_tensors
+            causal, window = ctx.masks
+            return (*ref.flash_attention_bwd_ref(q, k, v, o, do.contiguous(), causal=causal,
+                                                 window=window), None, None)
+
+    class Spmm(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, nbr, wgt, x, nbr_t, wgt_t):
+            ctx.transposed = (nbr_t, wgt_t)
+            return ref.ell_spmm_ref(nbr, wgt, x)
+
+        @staticmethod
+        def backward(ctx, dout):
+            return None, None, ref.ell_spmm_ref(*ctx.transposed, dout), None, None
+
+    class Bag(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, table, idx):
+            ctx.save_for_backward(idx)
+            ctx.V = table.shape[0]
+            return ref.embedding_bag_ref(table, idx)
+
+        @staticmethod
+        def backward(ctx, dout):
+            (idx,) = ctx.saved_tensors
+            return ref.embedding_bag_bwd_ref(idx, dout, ctx.V), None
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(
+        ops, "flash_attention",
+        lambda q, k, v, causal=True, window=None: Attention.apply(q, k, v, causal, window)))
+    stack.enter_context(mock.patch.object(
+        ops, "ell_spmm", lambda nbr, wgt, x, nbr_t=None, wgt_t=None: Spmm.apply(
+            nbr, wgt, x, nbr_t, wgt_t)))
+    stack.enter_context(mock.patch.object(ops, "embedding_bag", Bag.apply))
+    return stack
+
+
+def _no_plain():
+    """Patch every plain version the training path could take, forward and
+    backward, to raise for the block: what runs there is the kernels."""
+    import contextlib
+    from unittest import mock
+
+    from repro_torch.kernels import ref
+
+    def refuse(*a, **kw):
+        raise AssertionError("a plain version ran on the card's training path")
+
+    stack = contextlib.ExitStack()
+    for name in ("flash_attention_ref", "flash_attention_bwd_ref", "ell_spmm_ref",
+                 "embedding_bag_ref", "embedding_bag_bwd_ref"):
+        stack.enter_context(mock.patch.object(ref, name, refuse))
+    return stack
+
+
+def _dropped_key_tile():
+    """Patch ``ops.flash_attention_bwd`` for the block with the kernel whose dk
+    loses its last 64-key tile: the control the gradient bound must reject."""
+    from unittest import mock
+
+    from repro_torch.kernels import ops
+
+    kernel = ops.flash_attention_bwd
+
+    def cut(*a, **kw):
+        dq, dk, dv = kernel(*a, **kw)
+        dk[:, :, -64:] = 0
+        return dq, dk, dv
+
+    return mock.patch.object(ops, "flash_attention_bwd", cut)
+
+
+class _LastCall(_Calls):
+    """``ops.<name>`` for the block, keeping the arguments and output of its
+    last call that ``when(args)`` accepts (one call's tensors, not every
+    call's)."""
+
+    def __init__(self, name: str, when=lambda args: True):
+        super().__init__(name)
+        self.when, self.last = when, None
+
+    def keep(self, args, kw, out) -> None:
+        if self.when(args):
+            self.last = (args, kw, out)
+
+
+def _grads(loss_of, params) -> tuple:
+    """(loss, gradients) of one step: every leaf of ``params``, as the
+    training step takes them."""
+    import torch
+
+    from repro_torch.tree import tree_leaves
+
+    leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+    loss = loss_of(params)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+    torch.cuda.synchronize()
+    return float(loss.detach()), grads
+
+
+def _grad_agreement(got, exp) -> list:
+    """Each leaf's ||got - exp|| / ||exp|| (float32 norms)."""
+    out = []
+    for g, e in zip(got, exp):
+        e32 = e.float()
+        out.append(float((g.float() - e32).norm() / e32.norm().clamp_min(1e-30)))
+    return out
+
+
+def _grad_check(name: str, loss_of, params, bound: float, control: bool = False) -> dict:
+    """One step's gradients through the kernels (the launch counts read
+    around it) against the same step through the plain versions: every
+    leaf's relative error within ``bound``; with ``control``, the step with
+    K4's dk missing its last key tile must exceed it."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    ops.reset_launches()
+    loss, got = _grads(loss_of, params)
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    with _plain_training():
+        ops.reset_launches()
+        plain_loss, exp = _grads(loss_of, params)
+        check(not any(ops.LAUNCHES.values()), f"{name}: the plain step launched {ops.LAUNCHES}")
+    rel = _grad_agreement(got, exp)
+    del got
+    rec = {"loss": loss, "plain_loss": plain_loss, "launches": launches, "bound": bound,
+           "max_rel": max(rel), "rel_by_leaf": rel}
+    check(all(np.isfinite([loss, plain_loss])) and max(rel) <= bound,
+          f"{name}: gradients through the kernels at {max(rel)} of the plain step's, "
+          f"bound {bound} (loss {loss} against {plain_loss})")
+    if control:
+        with _dropped_key_tile():
+            _, cut = _grads(loss_of, params)
+        rec["control_dropped_key_tile_max_rel"] = max(_grad_agreement(cut, exp))
+        del cut
+    del exp
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _attention_bwd_record(label: str, args: tuple, kw: dict, out: tuple, device) -> dict:
+    """K4's backward at one captured call of the training path: against its
+    plain version (``ATTENTION_BWD_TOL``); the wrapper's time (three launches
+    a call), its device time (the three kernels' sum), the plain version's
+    and SDPA's backward through autograd on the same inputs; the bound."""
+    import library_cases as lc
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    q, k, v, o, do = (x.detach() for x in args)   # the backward's saved tensors
+    out = tuple(g.detach() for g in out)
+    causal, window = kw.get("causal", True), kw.get("window")
+    B, Hq, S, D = q.shape
+    Hkv, T, Dv = k.shape[1], k.shape[2], v.shape[3]
+    kern = lambda: ops.flash_attention_bwd(q, k, v, o, do, causal=causal,  # noqa: E731
+                                           window=window)
+    plain = lambda: ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,  # noqa: E731
+                                                window=window)
+    p1, exp = _timed_once(plain)
+    excess = [_bwd_excess(g, e) for g, e in zip(out, exp)]
+    err = max(float((g.float() - e.float()).abs().max()) for g, e in zip(out, exp))
+    check(max(excess) <= 1, f"flash_attention_bwd differs from its plain version at {label}: "
+                            f"{excess} x the tolerance")
+    del exp
+    k1, k2 = _event_ms(kern, 3, warmup=1), _event_ms(kern, 3, warmup=1)
+    p2, _ = _timed_once(plain)
+    qs, ks, vs = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    check(window is None, "SDPA's yardstick here takes a causal mask alone")
+    lib_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal, enable_gqa=True)
+    lib = lambda: torch.autograd.grad(lib_out, (qs, ks, vs), do,  # noqa: E731
+                                      retain_graph=True)
+    lib_err = max(float((g.float() - e.float()).abs().max()) for g, e in zip(lib(), out))
+    l1, l2 = _event_ms(lib, 3, warmup=1), _event_ms(lib, 3, warmup=1)
+    symbols = ("attention_bwd_pre_kernel", "attention_bwd_dkdv_kernel",
+               "attention_bwd_dq_kernel")
+    device_ms = sum(_kernel_device_ms(kern, sym, 50) for sym in symbols)
+    pairs = _attention_pairs(S, T, causal, window)
+    # five products, a multiply and an add each: over D q k^T (recomputed),
+    # ds k and ds^T q; over Dv do v^T and p^T do
+    flops = 2 * pairs * (3 * D + 2 * Dv) * Hq * B
+    nbytes = q.element_size() * 2 * (q.numel() + k.numel() + v.numel()) \
+        + q.element_size() * (o.numel() + do.numel())
+    bound = _bound(nbytes, flops, PEAK_BF16_FLOPS_PER_S if q.dtype == torch.bfloat16
+                   else PEAK_F32_FLOPS_PER_S)
+    dtype = str(q.dtype).removeprefix("torch.")
+    log(f"K4 flash_attention_bwd {label}: {min(k1, k2):.3f} ms (device {device_ms:.3f} ms), "
+        f"plain {min(p1, p2):.3f} ms, SDPA backward {min(l1, l2):.3f} ms, "
+        f"bound {bound['bound_ms']:.4f} ms")
+    return {
+        "config": label, "shape": dict(B=B, Hq=Hq, Hkv=Hkv, S=S, T=T, D=D, Dv=Dv,
+                                       causal=causal, window=window, dtype=dtype),
+        "visible_pairs": pairs, "max_abs_err": err, "max_excess": max(excess),
+        "tolerance": dict(zip(("rtol", "atol_of_largest"), lc.ATTENTION_BWD_TOL[dtype])),
+        "ms": min(k1, k2), "ms_runs": [k1, k2], "device_ms": device_ms,
+        "plain_ms": min(p1, p2), "plain_ms_runs": [p1, p2], **bound,
+        "tflop_per_s": flops / device_ms / 1e9, "bound_share": bound["bound_ms"] / device_ms,
+        "library_ms": min(l1, l2), "library_ms_runs": [l1, l2],
+        "library": "torch.autograd.grad through F.scaled_dot_product_attention(is_causal, "
+                   "enable_gqa=True), its forward outside the timed window",
+        "library_kernels": _library_kernels(lib), "library_max_abs_diff": lib_err}
+
+
+def _bag_bwd_record(label: str, idx, dout, V: int, out) -> dict:
+    """K6's backward at one captured call of the training path: against its
+    plain version within 1e-5; the wrapper's time (the zeroing and one
+    launch), its device time, the plain version's and ``F.embedding_bag``'s
+    backward through autograd; the bound (the table written once)."""
+    import library_cases as lc
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    B, bag = idx.shape
+    D = dout.shape[1]
+    valid = int((idx >= 0).sum())
+    kern = lambda: ops.embedding_bag_bwd(idx, dout, V)  # noqa: E731
+    plain = lambda: ref.embedding_bag_bwd_ref(idx, dout, V)  # noqa: E731
+    p1, exp = _timed_once(plain)
+    err = float((out - exp).abs().max())
+    check(torch.allclose(out, exp, rtol=lc.SPMM_BAG_BWD_TOL, atol=lc.SPMM_BAG_BWD_TOL),
+          f"embedding_bag_bwd differs from its plain version at {label}: {err}")
+    del exp
+    k1, k2 = _event_ms(kern, 5, warmup=1), _event_ms(kern, 5, warmup=1)
+    p2, _ = _timed_once(plain)
+    table = torch.zeros((V, D), device=idx.device, requires_grad=True)
+    lib_out = F.embedding_bag(idx.clamp_min(0).long(), table, mode="sum",
+                              per_sample_weights=(idx >= 0).float())
+    lib = lambda: torch.autograd.grad(lib_out, table, dout, retain_graph=True)[0]  # noqa: E731
+    lib_err = float((lib() - out).abs().max())
+    l1, l2 = _event_ms(lib, 5, warmup=1), _event_ms(lib, 5, warmup=1)
+    def call():   # each call's table freed at once: fifty kept would fill the card
+        kern()
+
+    device_ms = _kernel_device_ms(call, "embedding_bag_bwd_kernel", 50)
+    log(f"K6 embedding_bag_bwd {label}: {min(k1, k2):.3f} ms (device {device_ms:.4f} ms "
+        f"without the zeroing), plain {min(p1, p2):.3f} ms, F.embedding_bag backward "
+        f"{min(l1, l2):.3f} ms")
+    return {
+        "config": label, "max_abs_err": err,
+        "shape": {"V": V, "D": D, "B": B, "bag": bag, "valid_slots": valid},
+        # the device time of the adds; the zeroing is a memset beside them
+        "ms": min(k1, k2), "ms_runs": [k1, k2], "device_ms": device_ms,
+        "plain_ms": min(p1, p2), "plain_ms_runs": [p1, p2],
+        # ids and dout read once, the table written once; one add per valid value
+        **_bound(B * bag * 4 + B * D * 4 + V * D * 4, valid * D, PEAK_F32_FLOPS_PER_S),
+        "library_ms": min(l1, l2), "library_ms_runs": [l1, l2],
+        "library": "torch.autograd.grad through F.embedding_bag(idx.clamp_min(0), table, "
+                   "mode='sum', per_sample_weights=(idx >= 0)), its forward outside the "
+                   "timed window",
+        "library_kernels": _library_kernels(lib), "library_max_abs_diff": lib_err}
+
+
+def _train_main(argv: list, what: str, want: dict, capture: "_LastCall") -> tuple:
+    """``launch.train.main(argv)``, the entry point itself, with every plain
+    version refused and the launch counts read around exactly it (``want``);
+    every loss finite.  Returns (its metrics log, the captured call)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    ops.reset_launches()
+    with _no_plain(), capture as cap:
+        log_ = train.main(argv)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    check(launches == want, f"{what} training launches {launches}, not {want}")
+    check(all(np.isfinite([m["loss"] for m in log_])), f"{what} losses {log_}")
+    return log_, cap.last
+
+
+def _lm_training(device, gen, smi: str) -> tuple:
+    """granite-3-2b: the float32 check at TRAIN_F32_LAYERS layers (and its
+    control), the bfloat16 check at 40, then launch.train.main for
+    TRAIN_LM's steps; the step times and the peak memory; a profiled step.
+    Returns the record and the last K4 backward call of the run (for its
+    kernel record)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import granite_3_2b
+    from repro_torch.data.synth import lm_batch
+    from repro_torch.models import transformer as tf
+
+    rec = {"arch": "granite-3-2b", **TRAIN_LM}
+    full = granite_3_2b.full_config()
+    B, S, steps = TRAIN_LM["batch"], TRAIN_LM["seq"], TRAIN_LM["steps"]
+    batch = lm_batch(0, 0, B, S, full.vocab, device=device)
+    # float32 at 2 layers: a tight bound, and the control it must reject
+    cfg = dataclasses.replace(full, n_layers=TRAIN_F32_LAYERS, dtype=torch.float32)
+    params = tf.init_params(cfg, gen, device)
+    f32 = rec["float32_check"] = _grad_check(
+        "granite-3-2b float32", lambda p: tf.lm_loss(cfg, p, batch), params, TRAIN_F32_REL,
+        control=True)
+    check(f32["launches"] == {"flash_attention": 2 * cfg.n_layers,
+                              "flash_attention_bwd": cfg.n_layers},
+          f"granite float32 step launches {f32['launches']}")
+    check(f32["control_dropped_key_tile_max_rel"] > TRAIN_F32_REL,
+          f"the float32 gradient bound passes a dk without its last key tile: "
+          f"{f32['control_dropped_key_tile_max_rel']}")
+    del params
+    # bfloat16 at all 40 layers
+    params = tf.init_params(full, gen, device)
+    bf16 = rec["bfloat16_check"] = _grad_check(
+        "granite-3-2b bfloat16", lambda p: tf.lm_loss(full, p, batch), params, TRAIN_BF16_REL,
+        control=True)
+    check(bf16["launches"] == {"flash_attention_sm90": 2 * full.n_layers,
+                               "flash_attention_bwd": full.n_layers},
+          f"granite bfloat16 step launches {bf16['launches']}")
+    del params, batch
+    torch.cuda.empty_cache()
+    # python -m repro_torch.launch.train --arch granite-3-2b --steps 4 --batch 4 --seq 1024
+    argv = ["--arch", "granite-3-2b", "--steps", str(steps), "--batch", str(B),
+            "--seq", str(S), "--device", str(device)]
+    # K4 twice a layer (remat runs the forward again in the backward), its backward once
+    want = {"flash_attention_sm90": 2 * full.n_layers * steps,
+            "flash_attention_bwd": full.n_layers * steps}
+    torch.cuda.reset_peak_memory_stats()
+    log_, call = _train_main(argv, "granite-3-2b", want, _LastCall("flash_attention_bwd"))
+    secs = [m["sec"] for m in log_]
+    rec.update(argv=" ".join(argv), launches=want,
+               losses=[m["loss"] for m in log_], step_seconds=secs,
+               grad_norms=[m["grad_norm"] for m in log_],
+               peak_memory_bytes=torch.cuda.max_memory_allocated(),
+               tokens_per_s=B * S / min(secs[1:]), card=smi)
+    log(f"4k granite-3-2b: {steps} steps of {B} x {S} tokens, step {min(secs[1:]):.3f} s "
+        f"({rec['tokens_per_s']:.0f} tokens/s; first {secs[0]:.3f} s), peak memory "
+        f"{rec['peak_memory_bytes'] / 2**30:.2f} GiB, losses {rec['losses']} [{smi}]")
+    torch.cuda.empty_cache()
+    prof = rec["profiled_step"] = _train_step_profile(argv)
+    log(f"4k granite-3-2b profiled step: {prof['wall_ms']:.1f} ms, the card "
+        f"{prof['device_busy_share']:.1%} busy; device ms by kind "
+        + ", ".join(f"{k} {v:.1f}" for k, v in prof["device_ms_by_kind"].items())
+        + f" [{smi}]")
+    torch.cuda.empty_cache()
+    return rec, call
+
+
+# xDeepFM's and GCN's launches in ``steps`` steps: two gathers, two layers'
+# aggregations, each forward and backward
+_TRAIN_LAUNCHES = {
+    "xdeepfm": lambda steps: {"embedding_bag": 2 * steps, "embedding_bag_bwd": 2 * steps},
+    "gcn-cora": lambda steps: {"ell_spmm": 2 * steps, "ell_spmm_bwd": 2 * steps}}
+
+
+# a training step's kernels by kind, by name (cuBLAS's products on an H100 run
+# as sm90_xmma / nvjet / cutlass kernels)
+STEP_KINDS = (("k4_backward", r"attention_bwd_(pre|dkdv|dq)_kernel"),
+              ("k4_forward", r"flash_attention(_sm90|_tiled)?_kernel"),
+              ("matmul", r"gemm|xmma|nvjet|cutlass"))
+
+
+def _train_step_profile(argv: list) -> dict:
+    """One training step of ``argv``'s arch (launch.train's setup and step,
+    after one step outside the trace) under torch.profiler: the wall time,
+    the device's busy time and share, and the device time by kind
+    (``STEP_KINDS``, the rest "other": norms, rope, the loss, AdamW)."""
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw_init
+
+    args = train.parse_args(argv)
+    _, params, loss_of, batch_fn, wd = train.setup(args)
+    state, step = (params, adamw_init(params)), train.make_step(loss_of, args, wd)
+    del params
+    with _no_plain():
+        state, _ = step(state, batch_fn(0))
+        box = [state]
+
+        def one():
+            box[0], m = step(box[0], batch_fn(1))
+            float(m["loss"])
+
+        wall_ms, events = _device_events(one)
+    del state, box
+    kernels = [(name, us) for cat, name, us in events if cat == "kernel"]
+    busy = sum(us for _, us in kernels)
+    by_kind = dict.fromkeys([k for k, _ in STEP_KINDS] + ["other"], 0.0)
+    for name, us in kernels:
+        kind = next((k for k, pat in STEP_KINDS if re.search(pat, name)), "other")
+        by_kind[kind] += us
+    check(by_kind["k4_backward"] > 0, "the profiled training step shows no K4 backward")
+    return {"wall_ms": wall_ms, "device_busy_ms": busy / 1e3, "device_busy_share":
+            busy / 1e3 / wall_ms, "kernels": len(kernels),
+            "device_ms_by_kind": {k: v / 1e3 for k, v in by_kind.items()},
+            "share_of_device_by_kind": {k: v / busy for k, v in by_kind.items()}}
+
+
+def _xdeepfm_training(device, smi: str) -> tuple:
+    """xDeepFM at full_config(): the float32 check, then launch.train.main
+    for TRAIN_XDEEPFM's steps.  Returns the record and the last K6 backward
+    call of the embedding rows (bags of one id, the larger of the two)."""
+    from repro_torch.launch import train
+
+    steps = TRAIN_XDEEPFM["steps"]
+    argv = ["--arch", "xdeepfm", "--steps", str(steps), "--batch",
+            str(TRAIN_XDEEPFM["batch"]), "--device", str(device)]
+    _, params, loss_of, batch_fn, _ = train.setup(train.parse_args(argv))
+    batch = batch_fn(0)
+    rec = {"arch": "xdeepfm", **TRAIN_XDEEPFM, "argv": " ".join(argv)}
+    rec["float32_check"] = _grad_check("xdeepfm", lambda p: loss_of(p, batch), params,
+                                       TRAIN_F32_REL)
+    check(rec["float32_check"]["launches"] == _TRAIN_LAUNCHES["xdeepfm"](1),
+          f"xDeepFM step launches {rec['float32_check']['launches']}")
+    del params, batch
+    log_, call = _train_main(argv, "xDeepFM", _TRAIN_LAUNCHES["xdeepfm"](steps),
+                             _LastCall("embedding_bag_bwd", lambda a: a[0].shape[1] == 1))
+    secs = [m["sec"] for m in log_]
+    rec.update(launches=_TRAIN_LAUNCHES["xdeepfm"](steps), losses=[m["loss"] for m in log_],
+               step_seconds=secs, rows_per_s=TRAIN_XDEEPFM["batch"] / min(secs[1:]), card=smi)
+    log(f"4k xdeepfm: {steps} steps at batch {TRAIN_XDEEPFM['batch']}, step "
+        f"{min(secs[1:]) * 1e3:.1f} ms, losses {rec['losses']} [{smi}]")
+    return rec, call
+
+
+def _gcn_training(device, smi: str) -> tuple:
+    """GCN at full_config() on launch.train's graph at TRAIN_GCN_NODES: the
+    float32 check, launch.train.main for TRAIN_GCN_STEPS steps, then the
+    same with --ckpt-dir --fail-at: each step's loss equal to the
+    uninterrupted run's.  Returns the record and the last K5 backward call
+    (the first layer's: the transposed launch)."""
+    import tempfile
+
+    from repro_torch.launch import train
+
+    steps = TRAIN_GCN_STEPS
+    argv = ["--arch", "gcn-cora", "--steps", str(steps), "--gnn-nodes", str(TRAIN_GCN_NODES),
+            "--device", str(device)]
+    t0 = time.perf_counter()
+    cfg, params, loss_of, _, _ = train.setup(train.parse_args(argv))
+    rec = {"arch": "gcn-cora", "nodes": TRAIN_GCN_NODES, "edges": 3 * TRAIN_GCN_NODES,
+           "d_in": cfg.d_in, "argv": " ".join(argv), "setup_seconds": time.perf_counter() - t0}
+    rec["float32_check"] = _grad_check("gcn-cora", lambda p: loss_of(p, None), params,
+                                       TRAIN_F32_REL)
+    check(rec["float32_check"]["launches"] == _TRAIN_LAUNCHES["gcn-cora"](1),
+          f"GCN step launches {rec['float32_check']['launches']}")
+    del params
+    log_, call = _train_main(argv, "GCN", _TRAIN_LAUNCHES["gcn-cora"](steps),
+                             _LastCall("_ell_spmm", lambda a: a[3:] == ("ell_spmm_bwd",)))
+    losses = [m["loss"] for m in log_]
+    with tempfile.TemporaryDirectory() as ck:
+        ft = train.main(argv + ["--ckpt-dir", ck, "--ckpt-every", "2",
+                                "--fail-at", str(TRAIN_GCN_FAIL_AT)])
+    by_step = {m["step"]: m["loss"] for m in ft}   # the loop counts the steps done
+    resumed = [by_step.get(s + 1) for s in range(steps)]
+    check(resumed == losses, f"GCN --fail-at {TRAIN_GCN_FAIL_AT} resumed to {resumed}, "
+                             f"not the uninterrupted {losses}")
+    secs = [m["sec"] for m in log_]
+    rec.update(launches=_TRAIN_LAUNCHES["gcn-cora"](steps), losses=losses, step_seconds=secs,
+               resumed_losses=resumed, ell_width_transposed=int(call[0][0].shape[1]), card=smi)
+    log(f"4k gcn-cora: {steps} steps on random_dag({TRAIN_GCN_NODES}, "
+        f"{3 * TRAIN_GCN_NODES}), step {min(secs[1:]) * 1e3:.2f} ms, losses {losses}; "
+        f"--fail-at {TRAIN_GCN_FAIL_AT} resumed to the same [{smi}]")
+    return rec, call
+
+
+def phase_training(device, smi: str) -> dict:
+    """Phase 4k: training at full_config() widths on the card, each path's
+    launch counts read around exactly it (see TRAIN_LM's comment), the
+    gradient checks against the plain versions and their control (see
+    TRAIN_F32_REL's comment), then the three backward kernels at the path's
+    own calls against their plain versions, timed beside their bound, their
+    plain versions and the PyTorch call.  Returns {"launches": the paths'
+    sums, "records": the backward kernels' kernel records}."""
+    import torch
+
+    t_start = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(27)
+    lm, k4_call = _lm_training(device, gen, smi)
+    xd, k6_call = _xdeepfm_training(device, smi)
+    gc, k5_call = _gcn_training(device, smi)
+    launches = {}
+    for r in (lm, xd, gc):
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    # the backward kernels at the path's calls
+    (q, k, v, o, do), kw, out = k4_call
+    k4 = _attention_bwd_record("granite-3-2b training, layer 0's backward, 4 x 1,024 "
+                               "(phase 4k)", (q, k, v, o, do), kw, out, device)
+    (idx, dout, V), _, out6 = k6_call
+    k6 = _bag_bwd_record("xDeepFM training, the embedding rows' backward, batch 4,096 "
+                         "(phase 4k)", idx, dout, V, out6)
+    (nbr_t, wgt_t, dx, _), _, out5 = k5_call
+    k5 = _spmm_record(f"GCN training, the first layer's backward: K5 over the transposed "
+                      f"rows of random_dag({TRAIN_GCN_NODES}, {3 * TRAIN_GCN_NODES}) "
+                      f"(phase 4k)", nbr_t, wgt_t, dx, out5, device)
+    k5["library"] = "torch.sparse.mm(the transpose as CSR, built outside the timed window, dout)"
+    del k4_call, k6_call, k5_call
+    torch.cuda.empty_cache()
+    records = []
+    for name, source, of, rec in (
+            ("flash_attention_bwd", "flash_attention_bwd.cu",
+             "src/repro/kernels/flash_attention.py:110", k4),
+            ("embedding_bag_bwd", "embedding_bag_bwd.cu",
+             "src/repro/kernels/embedding_bag.py:52", k6),
+            ("ell_spmm_bwd", "ell_spmm.cu", "src/repro/kernels/ell_spmm.py:61", k5)):
+        records.append({
+            "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
+            # the TPU kernel has no backward: the kernel it is the backward of
+            "replaces": of, "backward_of": of, "launches": launches.get(name, 0),
+            "matches_plain": True, **{kk: rec.get(kk) for kk in HEAD_KEYS}, "configs": [rec]})
+    record({"phase": "training", "seconds": time.perf_counter() - t_start, "card": smi,
+            "launches": launches, "granite": lm, "xdeepfm": xd, "gcn": gc})
+    return {"launches": launches, "records": records}
+
+
+def merge_training(library: list, train: dict, cases: dict) -> None:
+    """The forward kernels' records count phase 4k's launches beside their
+    other paths'; the backward kernels' records join the list with their
+    phase 3 cases."""
+    for rec in library:
+        n = train["launches"].get(rec["name"], 0)
+        if n:
+            rec.setdefault("launches_by_path", {"kernel_library": rec["launches"]})
+            rec["launches_by_path"]["training"] = n
+            rec["launches"] += n
+    for rec in train["records"]:
+        rec["cases_checked"] = cases.get(rec["name"], 0) + 1
+        library.append(rec)
 
 
 # ------------------------------------------------------------------ phase 4d
@@ -4721,6 +5420,8 @@ def main(argv=None) -> int:
                     help="run phases 1-3 and 3b (the kernel library) only")
     ap.add_argument("--only-substrate", action="store_true",
                     help="run phases 1-3b and 4j (the LM family and xDeepFM) only")
+    ap.add_argument("--only-training", action="store_true",
+                    help="run phases 1-3 and 4k (training: the backward kernels) only")
     ap.add_argument("--only-dynamic", action="store_true",
                     help="run phases 1-3, 4 and 4h (the dynamic oracle) only")
     ap.add_argument("--only-multi-device", action="store_true",
@@ -4739,7 +5440,7 @@ def main(argv=None) -> int:
     # the way out, however the run ends
     child = None
     if not (args.only_device_build or args.only_kernels or args.only_dynamic
-            or args.only_multi_device or args.only_substrate):
+            or args.only_multi_device or args.only_substrate or args.only_training):
         child = start_host_engines()
     children = {"host_engines": child, "mesh_ranks": None}
     try:
@@ -4771,6 +5472,9 @@ def run(args, children: dict) -> int:
     elif args.only_substrate:
         kernels = phase_kernel_library(device, cases)
         merge_substrate(kernels, phase_substrate(device, smi_line))
+    elif args.only_training:
+        kernels = []
+        merge_training(kernels, phase_training(device, smi_line), cases)
     elif args.only_dynamic:
         g, co, queries, cq, rest, launches, verdicts = phase_main_path(device)
         dyn = phase_dynamic(device, g, queries, verdicts, args.publish_stall)
@@ -4818,6 +5522,7 @@ def run(args, children: dict) -> int:
         dyn = phase_dynamic(device, g, queries, verdicts, args.publish_stall)
         k1_launches["dynamic"] = dyn["launches"]["serve_batch"]
         merge_substrate(library, phase_substrate(device, smi_line))
+        merge_training(library, phase_training(device, smi_line), cases)
         budgeted = phase_cold_start_and_budget(g, co, queries, verdicts)
         cases["frontier_or"] += built["frontier_or_cases"]
         kernels = [timing_serve_batch(co, cq, k1_launches, cases["serve_batch"], budgeted)]

@@ -1,7 +1,7 @@
 """gatedgcn [arXiv:2003.00982]: 16 layers, d_hidden=70, gated aggregator.
 
 The port of ``repro.configs.gatedgcn_cfg``; ``cells`` (and its dst-local
-variant) waits for the dry-run and training ports.
+variant) waits for the dry-run port and for training's multi-device half.
 """
 from __future__ import annotations
 

@@ -71,9 +71,27 @@
 // every row (V staged beside K, Dv wide).  Decode has only Hq/Hkv rows a block, but still
 // 128 threads that share its keys, not one.  At (192, 128) a block of 8 rows takes 178,176
 // bytes of shared memory, one block an SM.
+//
+// Build.  The 17 tiled instantiations dominate the compile (about 50 s in one nvcc on the
+// card's host), so kernels/build.py compiles this file as K4_PARTS translation units at once,
+// each with -DK4_PART=i, and links them into one library: part 0 holds the launch function
+// and the short-row kernels, parts 1 .. K4_PARTS - 1 the tiled widths, width i in part
+// 1 + i % (K4_PARTS - 1), each exported as flash_attention_tiled_part<i> (it returns -1 for a
+// width it does not hold).  Compiled whole (no K4_PARTS), the file holds everything.
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#ifndef K4_PARTS
+#define K4_PARTS 1
+#endif
+#ifndef K4_PART
+#define K4_PART 0
+#endif
+// whether this translation unit holds tiled width i (0 .. 16: D = 8 (i + 1) exact, then 192)
+#define K4_MINE(i) (K4_PARTS == 1 || (K4_PART != 0 && (i) % (K4_PARTS - 1) + 1 == K4_PART))
+#define K4_CAT(a, b) a##b
+#define K4_PART_FN(n) K4_CAT(flash_attention_tiled_part, n)
 
 namespace {
 
@@ -630,28 +648,111 @@ int launch_tiled(const Params& p, int64_t B, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// (D, D) exact where Dv = D <= 128, (192, 128) for every other pair
-int launch_tiled_d(const Params& p, int64_t B, cudaStream_t stream) {
-  if (p.Dv != p.D || p.D > 128) return launch_tiled<192, 128, false>(p, B, stream);
-  switch (p.D) {
-    case 8: return launch_tiled<8, 8, true>(p, B, stream);
-    case 16: return launch_tiled<16, 16, true>(p, B, stream);
-    case 24: return launch_tiled<24, 24, true>(p, B, stream);
-    case 32: return launch_tiled<32, 32, true>(p, B, stream);
-    case 40: return launch_tiled<40, 40, true>(p, B, stream);
-    case 48: return launch_tiled<48, 48, true>(p, B, stream);
-    case 56: return launch_tiled<56, 56, true>(p, B, stream);
-    case 64: return launch_tiled<64, 64, true>(p, B, stream);
-    case 72: return launch_tiled<72, 72, true>(p, B, stream);
-    case 80: return launch_tiled<80, 80, true>(p, B, stream);
-    case 88: return launch_tiled<88, 88, true>(p, B, stream);
-    case 96: return launch_tiled<96, 96, true>(p, B, stream);
-    case 104: return launch_tiled<104, 104, true>(p, B, stream);
-    case 112: return launch_tiled<112, 112, true>(p, B, stream);
-    case 120: return launch_tiled<120, 120, true>(p, B, stream);
-    case 128: return launch_tiled<128, 128, true>(p, B, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+// (D, D) exact where Dv = D <= 128, (192, 128) for every other pair; -1 where this
+// translation unit does not hold the instantiation
+int launch_tiled_mine(const Params& p, int64_t B, cudaStream_t stream) {
+  if (p.Dv != p.D || p.D > 128) {
+#if K4_MINE(16)
+    return launch_tiled<192, 128, false>(p, B, stream);
+#else
+    return -1;
+#endif
   }
+  switch (p.D) {
+#if K4_MINE(0)
+    case 8: return launch_tiled<8, 8, true>(p, B, stream);
+#endif
+#if K4_MINE(1)
+    case 16: return launch_tiled<16, 16, true>(p, B, stream);
+#endif
+#if K4_MINE(2)
+    case 24: return launch_tiled<24, 24, true>(p, B, stream);
+#endif
+#if K4_MINE(3)
+    case 32: return launch_tiled<32, 32, true>(p, B, stream);
+#endif
+#if K4_MINE(4)
+    case 40: return launch_tiled<40, 40, true>(p, B, stream);
+#endif
+#if K4_MINE(5)
+    case 48: return launch_tiled<48, 48, true>(p, B, stream);
+#endif
+#if K4_MINE(6)
+    case 56: return launch_tiled<56, 56, true>(p, B, stream);
+#endif
+#if K4_MINE(7)
+    case 64: return launch_tiled<64, 64, true>(p, B, stream);
+#endif
+#if K4_MINE(8)
+    case 72: return launch_tiled<72, 72, true>(p, B, stream);
+#endif
+#if K4_MINE(9)
+    case 80: return launch_tiled<80, 80, true>(p, B, stream);
+#endif
+#if K4_MINE(10)
+    case 88: return launch_tiled<88, 88, true>(p, B, stream);
+#endif
+#if K4_MINE(11)
+    case 96: return launch_tiled<96, 96, true>(p, B, stream);
+#endif
+#if K4_MINE(12)
+    case 104: return launch_tiled<104, 104, true>(p, B, stream);
+#endif
+#if K4_MINE(13)
+    case 112: return launch_tiled<112, 112, true>(p, B, stream);
+#endif
+#if K4_MINE(14)
+    case 120: return launch_tiled<120, 120, true>(p, B, stream);
+#endif
+#if K4_MINE(15)
+    case 128: return launch_tiled<128, 128, true>(p, B, stream);
+#endif
+    default: return -1;
+  }
+}
+
+}  // namespace
+
+#if K4_PART != 0
+// a part's tiled widths, called from part 0's launch function
+extern "C" int K4_PART_FN(K4_PART)(const void* p, int64_t B, void* stream) {
+  return launch_tiled_mine(*static_cast<const Params*>(p), B, static_cast<cudaStream_t>(stream));
+}
+#else
+#if K4_PARTS > 1
+extern "C" int flash_attention_tiled_part1(const void* p, int64_t B, void* stream);
+#endif
+#if K4_PARTS > 2
+extern "C" int flash_attention_tiled_part2(const void* p, int64_t B, void* stream);
+#endif
+#if K4_PARTS > 3
+extern "C" int flash_attention_tiled_part3(const void* p, int64_t B, void* stream);
+#endif
+#if K4_PARTS > 4
+extern "C" int flash_attention_tiled_part4(const void* p, int64_t B, void* stream);
+#endif
+#if K4_PARTS > 5
+#error "K4_PARTS is at most 5"
+#endif
+
+namespace {
+
+// the tiled kernel of (D, Dv), from whichever translation unit holds it
+int launch_tiled_d(const Params& p, int64_t B, cudaStream_t stream) {
+  int rc = launch_tiled_mine(p, B, stream);
+#if K4_PARTS > 1
+  if (rc == -1) rc = flash_attention_tiled_part1(&p, B, stream);
+#endif
+#if K4_PARTS > 2
+  if (rc == -1) rc = flash_attention_tiled_part2(&p, B, stream);
+#endif
+#if K4_PARTS > 3
+  if (rc == -1) rc = flash_attention_tiled_part3(&p, B, stream);
+#endif
+#if K4_PARTS > 4
+  if (rc == -1) rc = flash_attention_tiled_part4(&p, B, stream);
+#endif
+  return rc == -1 ? static_cast<int>(cudaErrorInvalidValue) : rc;
 }
 
 }  // namespace
@@ -673,3 +774,4 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   const auto s = static_cast<cudaStream_t>(stream);
   return p.rows < kTileRows ? launch_t<float>(p, B, s) : launch_tiled_d(p, B, s);
 }
+#endif  // K4_PART

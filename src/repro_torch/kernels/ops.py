@@ -20,8 +20,16 @@ form), ``bitset_mm`` (K3), ``flash_attention``
 (K4: two kernels, chosen by dtype in ``attention_kernel``), ``ell_spmm``
 (K5) and ``embedding_bag`` (K6) are the counterparts of
 ``repro.kernels.ops``.  The substrate's models call K4 (every attention of
-the LM family, decode over its preallocated cache through ``kv_len``) and
-K6 (xDeepFM's two gathers); K3 and K5 have no caller yet.
+the LM family, decode over its preallocated cache through ``kv_len``), K5
+(GCN's aggregation) and K6 (xDeepFM's two gathers); K3 has no caller.
+
+K4, K5 and K6 are ``torch.autograd.Function``s, so training differentiates
+through the kernels: K4's backward is ``flash_attention_bwd``
+(``csrc/flash_attention_bwd.cu``), K5's is K5 itself over the transposed
+rows, K6's is ``embedding_bag_bwd`` (``csrc/embedding_bag_bwd.cu``).  A
+backward, like a forward, launches its kernel for CUDA tensors and runs its
+plain version for CPU tensors; its launches count under its own name
+(``flash_attention_bwd``, ``ell_spmm_bwd``, ``embedding_bag_bwd``).
 """
 from __future__ import annotations
 
@@ -37,7 +45,8 @@ from repro_torch.kernels import ref
 # kernel name -> launches since the last reset_launches()
 LAUNCHES = {"serve_batch": 0, "label_intersect": 0, "frontier_expand": 0, "frontier_or": 0,
             "bitset_mm": 0, "flash_attention": 0, "flash_attention_sm90": 0, "ell_spmm": 0,
-            "embedding_bag": 0}
+            "embedding_bag": 0, "flash_attention_bwd": 0, "ell_spmm_bwd": 0,
+            "embedding_bag_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -64,10 +73,10 @@ def _device(name: str, *tensors: torch.Tensor) -> torch.device:
     return dev
 
 
-def _launch(name: str, dev: torch.device, *args, stream=None) -> None:
+def _launch(name: str, dev: torch.device, *args, stream=None, count=None) -> None:
     """Launch kernel ``name`` on ``stream`` (default: the current stream of
     ``dev``), building it on first use; raise on a nonzero launch code, count
-    the launch."""
+    the launch under ``count`` (default ``name``)."""
     from repro_torch.kernels.build import library
 
     launch = library(name)
@@ -80,7 +89,7 @@ def _launch(name: str, dev: torch.device, *args, stream=None) -> None:
             rc = launch(*args, stream.cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
+    LAUNCHES[count or name] += 1
 
 
 def tier_intersect(L_out: torch.Tensor, L_in: torch.Tensor,
@@ -436,20 +445,10 @@ def bitset_mm(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def ell_spmm(nbr: torch.Tensor, wgt: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """K5: the weighted ELL SpMM,
-    ``out[i] = sum over s with nbr[i, s] != -1 of wgt[i, s] * x[nbr[i, s]]``,
-    accumulated in float32 in slot order.
-
-    nbr: int32[n, d], wgt: float32[n, d], x: float32[n_src, F] ->
-    float32[n, F].  Only -1 is padding: any other id outside [0, n_src)
-    raises ``ValueError`` (the kernel skips and flags it; the wrapper reads
-    the flag, one host read per call)."""
-    _check_matrix("nbr", nbr)
-    _check_matrix("wgt", wgt, torch.float32)
-    _check_matrix("x", x, torch.float32)
-    if wgt.shape != nbr.shape:
-        raise ValueError(f"wgt {tuple(wgt.shape)} must match nbr {tuple(nbr.shape)}")
+def _ell_spmm(nbr: torch.Tensor, wgt: torch.Tensor, x: torch.Tensor,
+              count: str = "ell_spmm") -> torch.Tensor:
+    """K5 on checked inputs: the kernel on the card (counted as ``count``),
+    the plain version on the CPU."""
     dev = _device("ell_spmm", nbr, wgt, x)
     if dev.type == "cpu":
         return ref.ell_spmm_ref(nbr, wgt, x)
@@ -459,10 +458,63 @@ def ell_spmm(nbr: torch.Tensor, wgt: torch.Tensor, x: torch.Tensor) -> torch.Ten
         return out
     flags = torch.zeros(1, dtype=torch.int32, device=dev)
     _launch("ell_spmm", dev, nbr.data_ptr(), wgt.data_ptr(), n, d, x.data_ptr(), n_src, F,
-            out.data_ptr(), flags.data_ptr())
+            out.data_ptr(), flags.data_ptr(), count=count)
     if int(flags[0]):
         raise ValueError(f"ell_spmm: neighbor ids outside [-1, {n_src})")
     return out
+
+
+class _EllSpmm(torch.autograd.Function):
+    """K5 with its backward: ``dx = K5(nbr_t, wgt_t, dout)``, one launch over
+    the transposed rows (counted as ``ell_spmm_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, nbr, wgt, x, nbr_t, wgt_t):
+        ctx.transposed = (nbr_t, wgt_t)
+        return _ell_spmm(nbr, wgt, x)
+
+    @staticmethod
+    def backward(ctx, dout):
+        nbr_t, wgt_t = ctx.transposed
+        if nbr_t is None:
+            raise ValueError("ell_spmm's backward needs the transposed rows: pass nbr_t "
+                             "and wgt_t")
+        return None, None, _ell_spmm(nbr_t, wgt_t, dout.contiguous(), "ell_spmm_bwd"), None, None
+
+
+def ell_spmm(nbr: torch.Tensor, wgt: torch.Tensor, x: torch.Tensor,
+             nbr_t=None, wgt_t=None) -> torch.Tensor:
+    """K5: the weighted ELL SpMM,
+    ``out[i] = sum over s with nbr[i, s] != -1 of wgt[i, s] * x[nbr[i, s]]``,
+    accumulated in float32 in slot order.
+
+    nbr: int32[n, d], wgt: float32[n, d], x: float32[n_src, F] ->
+    float32[n, F].  Only -1 is padding: any other id outside [0, n_src)
+    raises ``ValueError`` (the kernel skips and flags it; the wrapper reads
+    the flag, one host read per call).
+
+    Differentiable in ``x`` (not in ``wgt``, fixed coefficients: a ``wgt``
+    that requires grad raises): the backward is K5 over the same matrix
+    transposed, ``nbr_t`` int32[n_src, d_t] and ``wgt_t`` float32[n_src, d_t]
+    (the rows by source: ``layers.ell_from_edges`` with source and
+    destination swapped), ``dx = ell_spmm(nbr_t, wgt_t, dout)``; a backward
+    without them raises."""
+    _check_matrix("nbr", nbr)
+    _check_matrix("wgt", wgt, torch.float32)
+    _check_matrix("x", x, torch.float32)
+    if wgt.shape != nbr.shape:
+        raise ValueError(f"wgt {tuple(wgt.shape)} must match nbr {tuple(nbr.shape)}")
+    if wgt.requires_grad:
+        raise ValueError("ell_spmm's wgt is fixed coefficients: it takes no gradient")
+    if (nbr_t is None) != (wgt_t is None):
+        raise ValueError("pass both nbr_t and wgt_t, or neither")
+    if nbr_t is not None:
+        _check_matrix("nbr_t", nbr_t)
+        _check_matrix("wgt_t", wgt_t, torch.float32)
+        if wgt_t.shape != nbr_t.shape or nbr_t.shape[0] != x.shape[0]:
+            raise ValueError(f"nbr_t {tuple(nbr_t.shape)} and wgt_t {tuple(wgt_t.shape)} must "
+                             f"be [n_src = {x.shape[0]}, d_t]")
+    return _EllSpmm.apply(nbr, wgt, x, nbr_t, wgt_t)
 
 
 # device -> embedding_bag's flag word there: (pinned host memory, which the
@@ -481,18 +533,9 @@ def _flag_word(dev: torch.device) -> tuple:
     return word
 
 
-def embedding_bag(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """K6: the sum of each bag's rows,
-    ``out[b] = sum over s with idx[b, s] >= 0 of table[idx[b, s]]``,
-    accumulated in float32 in slot order.
-
-    table: float32[V, D], idx: int32[B, bag] -> float32[B, D].  Every
-    negative id is padding; an id >= V raises ``ValueError`` (the kernel
-    skips it and sets a flag word in pinned host memory).  On the card a
-    call is one launch on the current stream and one synchronisation of
-    that stream, after which the flag is read on the host."""
-    _check_matrix("table", table, torch.float32)
-    _check_matrix("idx", idx)
+def _embedding_bag(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """K6 on checked inputs: the kernel on the card, the plain version on the
+    CPU."""
     dev = _device("embedding_bag", table, idx)
     if dev.type == "cpu":
         return ref.embedding_bag_ref(table, idx)
@@ -511,6 +554,61 @@ def embedding_bag(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if bad:
         raise ValueError(f"embedding_bag: ids >= V = {V}")
     return out
+
+
+class _EmbeddingBag(torch.autograd.Function):
+    """K6 with its backward ``embedding_bag_bwd``."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.V = table.shape[0]
+        return _embedding_bag(table, idx)
+
+    @staticmethod
+    def backward(ctx, dout):
+        (idx,) = ctx.saved_tensors
+        return embedding_bag_bwd(idx, dout.contiguous(), ctx.V), None
+
+
+def embedding_bag(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """K6: the sum of each bag's rows,
+    ``out[b] = sum over s with idx[b, s] >= 0 of table[idx[b, s]]``,
+    accumulated in float32 in slot order.
+
+    table: float32[V, D], idx: int32[B, bag] -> float32[B, D].  Every
+    negative id is padding; an id >= V raises ``ValueError`` (the kernel
+    skips it and sets a flag word in pinned host memory).  On the card a
+    call is one launch on the current stream and one synchronisation of
+    that stream, after which the flag is read on the host.  Differentiable
+    in ``table``: the backward is ``embedding_bag_bwd``."""
+    _check_matrix("table", table, torch.float32)
+    _check_matrix("idx", idx)
+    return _EmbeddingBag.apply(table, idx)
+
+
+def embedding_bag_bwd(idx: torch.Tensor, dout: torch.Tensor, V: int) -> torch.Tensor:
+    """K6's backward, the gradient of ``embedding_bag`` by its table:
+    ``dtable[v] = sum over (b, s) with idx[b, s] == v of dout[b]`` over the
+    ids ``>= 0`` (an id >= V, which the forward refuses, is skipped).
+
+    idx: int32[B, bag], dout: float32[B, D] -> float32[V, D].  On the card
+    ``csrc/embedding_bag_bwd.cu`` zeroes the table and adds with float32
+    atomics (their order, so a row's last bits, vary from run to run); on
+    the CPU ``ref.embedding_bag_bwd_ref``."""
+    _check_matrix("idx", idx)
+    _check_matrix("dout", dout, torch.float32)
+    if dout.shape[0] != idx.shape[0]:
+        raise ValueError(f"dout {tuple(dout.shape)} must have idx's {idx.shape[0]} bags")
+    V = int(V)
+    dev = _device("embedding_bag_bwd", idx, dout)
+    if dev.type == "cpu":
+        return ref.embedding_bag_bwd_ref(idx, dout, V)
+    (B, bag), D = idx.shape, dout.shape[1]
+    dtable = torch.empty((V, D), dtype=torch.float32, device=dev)
+    _launch("embedding_bag_bwd", dev, idx.data_ptr(), B, bag, dout.data_ptr(), D,
+            dtable.data_ptr(), V)
+    return dtable
 
 
 # K4's kernel for each input dtype: bfloat16 on the tensor cores (wgmma),
@@ -552,7 +650,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     On the card, bfloat16 runs ``csrc/flash_attention_sm90.cu`` (both
     products on the tensor cores, counted as ``flash_attention_sm90``) and
     float32 ``csrc/flash_attention.cu`` (the CUDA cores, counted as
-    ``flash_attention``); ``attention_kernel`` picks by dtype."""
+    ``flash_attention``); ``attention_kernel`` picks by dtype.
+    Differentiable in q, k and v where ``kv_len`` is T: the backward is
+    ``flash_attention_bwd``."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if (t.dim() != 4 or not t.is_contiguous()
                 or t.dtype not in (torch.float32, torch.bfloat16)):
@@ -588,11 +688,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{t.data_ptr() % 16} bytes past one")
     scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
     dev = _device("flash_attention", q, k, v)
-    if dev.type == "cpu":
+    if dev.type == "cuda" and (B > 65535 or Hkv > 65535):
+        raise ValueError(f"B = {B} and Hkv = {Hkv} must be at most 65,535 (grid size)")
+    return _FlashAttention.apply(q, k, v, bool(causal), window, scale, kv_len)
+
+
+def _flash_attention(q, k, v, causal: bool, window, scale: float, kv_len: int) -> torch.Tensor:
+    """K4's forward on checked inputs: the kernel of q's dtype on the card,
+    the plain version on the CPU."""
+    if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale,
                                        kv_len=kv_len)
-    if B > 65535 or Hkv > 65535:
-        raise ValueError(f"B = {B} and Hkv = {Hkv} must be at most 65,535 (grid size)")
+    dev = q.device
+    B, Hq, S, D = q.shape
+    Hkv, T, Dv = k.shape[1], k.shape[2], v.shape[3]
     kernel = attention_kernel(q.dtype)
     # aligned: the sm90 kernel writes 16 bytes at a time
     out = torch.empty((B, Hq, S, Dv), dtype=q.dtype, device=dev)
@@ -601,3 +710,68 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 B, Hq, Hkv, S, T, kv_len, D, Dv, int(bool(causal)), window is not None,
                 0 if window is None else int(window), scale)
     return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K4 with its backward ``flash_attention_bwd`` (over all T keys: a call
+    with ``kv_len < T``, a decode step's, has no backward)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, kv_len):
+        out = _flash_attention(q, k, v, causal, window, scale, kv_len)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.args = (causal, window, scale, kv_len)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        causal, window, scale, kv_len = ctx.args
+        if kv_len != k.shape[2]:
+            raise ValueError(f"flash_attention's backward takes kv_len = T only, not "
+                             f"{kv_len} of {k.shape[2]}")
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(), causal=causal,
+                                         window=window, scale=scale)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                        do: torch.Tensor, causal: bool = True, window=None,
+                        scale=None) -> tuple:
+    """K4's backward: the gradients (dq, dk, dv) of ``flash_attention(q, k,
+    v, causal, window, scale)`` over all T keys, given its output ``o`` and
+    the output's gradient ``do`` ([B, Hq, S, Dv], q's dtype).  dk and dv sum
+    over each GQA group; a row that sees no key adds nothing.  Each gradient
+    is in its input's dtype, accumulated in float32.
+
+    On the card ``csrc/flash_attention_bwd.cu`` (three launches from one
+    call, counted once as ``flash_attention_bwd``: each row's log-sum-exp and
+    ``rowsum(do o o)`` into float32 scratch, then dk and dv a key tile, then
+    dq a query tile, no atomics); on the CPU ``ref.flash_attention_bwd_ref``."""
+    B, Hq, S, D = q.shape
+    Hkv, T, Dv = k.shape[1], k.shape[2], v.shape[3]
+    for name, t, shape in (("k", k, (B, Hkv, T, D)), ("v", v, (B, Hkv, T, Dv)),
+                           ("o", o, (B, Hq, S, Dv)), ("do", do, (B, Hq, S, Dv))):
+        if tuple(t.shape) != shape or t.dtype != q.dtype or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {q.dtype} {shape}, got {t.dtype} "
+                             f"{tuple(t.shape)} contiguous={t.is_contiguous()}")
+    if not q.is_contiguous() or Hkv < 1 or Hq % Hkv:
+        raise ValueError(f"q must be contiguous and Hq = {Hq} a multiple of Hkv = {Hkv}")
+    if D % 8 or Dv % 8 or not 8 <= Dv <= min(D, 128) or D > 192:
+        raise ValueError(f"widths D = {D}, Dv = {Dv} outside 8 <= Dv <= D <= 192, Dv <= 128")
+    scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
+    dev = _device("flash_attention_bwd", q, k, v, o, do)
+    if dev.type == "cpu":
+        return ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal, window=window,
+                                           scale=scale)
+    attention_kernel(q.dtype)   # float32 or bfloat16
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=dev)
+    delta = torch.empty_like(lse)
+    if B:
+        _launch("flash_attention_bwd", dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                o.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), B, Hq, Hkv, S, T, D, Dv,
+                int(q.dtype == torch.bfloat16), int(bool(causal)), window is not None,
+                0 if window is None else int(window), scale)
+    return dq, dk, dv

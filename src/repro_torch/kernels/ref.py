@@ -11,7 +11,9 @@ device wave build's BFS level when the build runs on the CPU;
 ``frontier_or_ref`` is K2's slab form, the counterpart of
 ``repro.kernels.ops.frontier_or``, which no build path calls any more.  The
 last four (K3-K6) are the plain versions of the kernel library, which no
-oracle path calls.
+oracle path calls.  ``embedding_bag_bwd_ref`` and ``flash_attention_bwd_ref``
+are the plain backwards of K6 and K4 (training); K5's backward is
+``ell_spmm_ref`` over the transposed rows.
 """
 from __future__ import annotations
 
@@ -313,6 +315,20 @@ def embedding_bag_ref(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.where(valid[:, :, None], rows, 0.0).sum(dim=1)
 
 
+def embedding_bag_bwd_ref(idx: torch.Tensor, dout: torch.Tensor, V: int) -> torch.Tensor:
+    """K6's plain backward, the gradient of ``embedding_bag_ref`` by its table:
+    ``dtable[v] = sum over (b, s) with idx[b, s] == v of dout[b]``, the ids
+    ``>= 0`` only (``index_add_``; a repeated id, in one bag or across bags,
+    adds once a slot).
+
+    idx: int32[B, bag], dout: float32[B, D] -> float32[V, D]."""
+    ids = idx.long()
+    valid = ids >= 0
+    bags = torch.arange(ids.shape[0], device=ids.device)[:, None].expand_as(ids)
+    dtable = torch.zeros((V, dout.shape[1]), dtype=torch.float32, device=dout.device)
+    return dtable.index_add_(0, ids[valid], dout.float()[bags[valid]])
+
+
 def attention_mask(S: int, T: int, causal: bool, window, device) -> torch.Tensor:
     """bool[S, T], true where query s may see key t.  Query positions are
     right-aligned to the keys (``qpos = s + T - S``); ``causal`` keeps
@@ -361,3 +377,40 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     l = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bhgst,bhtd->bhgsd", p, v.float()) / torch.where(l == 0, 1.0, l)
     return out.reshape(B, Hq, S, v.shape[3]).to(q.dtype)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            o: torch.Tensor, do: torch.Tensor, causal: bool = True,
+                            window=None, scale=None) -> tuple:
+    """K4's plain backward: the gradients (dq, dk, dv) of
+    ``flash_attention_ref(q, k, v, causal, window, scale)`` (over all T keys)
+    given its output ``o`` and the output's gradient ``do``, in float32 by
+    the explicit formulas: P recomputed, ``delta = rowsum(dO o O)``,
+    ``dV = P^T dO``, ``dS = P o (dO V^T - delta)``, ``dQ = dS K scale``,
+    ``dK = dS^T Q scale``; dK and dV summed over each GQA group.  A row that
+    sees no key has P = 0 and so no gradient, as its output is 0.
+
+    Shapes as ``flash_attention_ref``'s, ``o`` and ``do`` [B, Hq, S, Dv];
+    each gradient in its input's dtype.  Holds the ``[B, Hq, S, T]`` logits
+    whole."""
+    B, Hq, S, D = q.shape
+    Hkv, T, Dv = k.shape[1], k.shape[2], v.shape[3]
+    rep = Hq // Hkv
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    qg = q.float().reshape(B, Hkv, rep, S, D)
+    kf, vf = k.float(), v.float()
+    dog = do.float().reshape(B, Hkv, rep, S, Dv)
+    logits = torch.einsum("bhgsd,bhtd->bhgst", qg, kf) * scale
+    mask = attention_mask(S, T, causal, window, q.device)
+    logits = logits.masked_fill(~mask, -math.inf)
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - torch.where(torch.isinf(m), 0.0, m))   # masked -> 0
+    l = p.sum(dim=-1, keepdim=True)
+    p = p / torch.where(l == 0, 1.0, l)
+    delta = (dog * o.float().reshape(B, Hkv, rep, S, Dv)).sum(dim=-1, keepdim=True)
+    dv = torch.einsum("bhgst,bhgsd->bhtd", p, dog)
+    ds = p * (torch.einsum("bhgsd,bhtd->bhgst", dog, vf) - delta)
+    dq = torch.einsum("bhgst,bhtd->bhgsd", ds, kf) * scale
+    dk = torch.einsum("bhgst,bhgsd->bhtd", ds, qg) * scale
+    return dq.reshape(B, Hq, S, D).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

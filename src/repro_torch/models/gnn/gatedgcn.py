@@ -10,7 +10,7 @@ Assigned config: 16 layers, d_hidden=70, gated aggregator.
 The messages are per-feature vectors (eta is [m, d]), not one weight an
 edge, so the aggregation is torch's ``index_add_`` (``segment_agg``), not K5.
 The JAX package's dst-local distributed loss (``make_dstlocal_loss``) waits
-for the training port.
+for the multi-device half of training (ROADMAP.md Queue 1, item 12.3).
 """
 from __future__ import annotations
 
@@ -65,7 +65,6 @@ def _norm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x - mu) * torch.rsqrt(var + 1e-5) * w
 
 
-@torch.no_grad()
 def forward(cfg: GatedGCNConfig, params, g: GraphBatch) -> torch.Tensor:
     """[n, n_classes] logits."""
     n = g.x.shape[0]
@@ -86,7 +85,6 @@ def forward(cfg: GatedGCNConfig, params, g: GraphBatch) -> torch.Tensor:
     return h @ params["readout"]
 
 
-@torch.no_grad()
 def loss_fn(cfg: GatedGCNConfig, params, g: GraphBatch) -> torch.Tensor:
     logp = torch.log_softmax(forward(cfg, params, g).float(), dim=-1)
     ll = logp.gather(1, g.y.long()[:, None])[:, 0]

@@ -6,12 +6,15 @@ h[src[e]]`` with the symmetric normalisation ``gcn_sym_coeff``, is one K5
 launch (``repro_torch.kernels.ops.ell_spmm``, a hand-written CUDA kernel on
 the card, its plain version on the CPU) over the graph's ELL rows
 (``ell_from_edges``, built once a graph), where the JAX package gathers
-and segment-sums: ``n_layers`` K5 launches a forward.
+and segment-sums: ``n_layers`` K5 launches a forward.  The forward and
+``loss_fn`` are differentiable: each aggregation's backward is K5 over the
+same graph's rows by source (``graph_ell``'s transposed pair), one launch,
+so a GCN layer's input gradient is ``K5^T(dX) + dX``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -48,32 +51,43 @@ def params_from_jax(cfg: GCNConfig, params, device="cuda") -> list:
     return tree_from_jax(params, resolve_device(device))
 
 
-def graph_ell(g: GraphBatch) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The ELL rows (nbr, wgt) of ``g``'s aggregation: its valid in-edges by
-    destination, weighted by ``gcn_sym_coeff``."""
+class GraphELL(NamedTuple):
+    """A graph's aggregation as K5's rows: ``nbr``/``wgt`` by destination
+    (the forward's) and ``nbr_t``/``wgt_t`` by source (its backward's)."""
+
+    nbr: torch.Tensor
+    wgt: torch.Tensor
+    nbr_t: torch.Tensor
+    wgt_t: torch.Tensor
+
+
+def graph_ell(g: GraphBatch) -> GraphELL:
+    """The ELL rows of ``g``'s aggregation: its valid in-edges by
+    destination, weighted by ``gcn_sym_coeff``, and the same edges by source
+    (``ell_from_edges`` with source and destination swapped; its width is
+    the largest out-degree)."""
     n = g.x.shape[0]
     coeff = gcn_sym_coeff(g.edge_src, g.edge_dst, g.edge_mask, n)
-    return ell_from_edges(g.edge_src, g.edge_dst, g.edge_mask, coeff, n)
+    fwd = ell_from_edges(g.edge_src, g.edge_dst, g.edge_mask, coeff, n)
+    return GraphELL(*fwd, *ell_from_edges(g.edge_dst, g.edge_src, g.edge_mask, coeff, n))
 
 
-@torch.no_grad()
 def forward(cfg: GCNConfig, params, g: GraphBatch,
-            ell: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+            ell: Optional[GraphELL] = None) -> torch.Tensor:
     """[n, n_classes] logits.  ``ell`` is ``graph_ell(g)``, made here when
     not given (a caller running several forwards over one graph makes it
     once).  Each layer: h = x W, x = K5(h) + h (the self loop), relu but
     after the last."""
-    nbr, wgt = graph_ell(g) if ell is None else ell
+    ell = graph_ell(g) if ell is None else ell
     x = g.x.to(cfg.dtype)
     for i, layer in enumerate(params):
         h = x @ layer["w"]
-        x = ops.ell_spmm(nbr, wgt, h) + h
+        x = ops.ell_spmm(ell.nbr, ell.wgt, h, ell.nbr_t, ell.wgt_t) + h
         if i < len(params) - 1:
             x = F.relu(x)
     return x
 
 
-@torch.no_grad()
 def loss_fn(cfg: GCNConfig, params, g: GraphBatch, ell=None) -> torch.Tensor:
     """Node classification cross-entropy over ``g.node_mask``'s nodes."""
     logp = torch.log_softmax(forward(cfg, params, g, ell).float(), dim=-1)

@@ -81,7 +81,6 @@ def _mp(edge_mlp, node_mlp, h_src_nodes, h_dst_nodes, src, dst, n_dst):
     return h_dst_nodes + mlp_apply(node_mlp, torch.cat([h_dst_nodes, agg], dim=-1))
 
 
-@torch.no_grad()
 def forward(cfg: GraphCastConfig, params, b: MeshBatch, n_mesh: int) -> torch.Tensor:
     """The next state, grid_x + the decoded delta: [n_g, n_vars] in grid_x's
     dtype."""
@@ -101,6 +100,5 @@ def forward(cfg: GraphCastConfig, params, b: MeshBatch, n_mesh: int) -> torch.Te
     return b.grid_x + delta.to(b.grid_x.dtype)
 
 
-@torch.no_grad()
 def loss_fn(cfg: GraphCastConfig, params, b: MeshBatch, n_mesh: int) -> torch.Tensor:
     return ((forward(cfg, params, b, n_mesh) - b.target) ** 2).mean()

@@ -43,9 +43,15 @@ class GraphBatch(NamedTuple):
 
 
 def segment_sum(messages: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
-    """``out[i] = sum of messages[e] over e with seg[e] == i``: [n, *rest]."""
-    out = messages.new_zeros((n, *messages.shape[1:]))
-    return out.index_add_(0, seg.long(), messages)
+    """``out[i] = sum of messages[e] over e with seg[e] == i``: [n, *rest] in
+    messages' dtype.  bfloat16 and float16 messages are summed in float32
+    and the sums rounded once: summed in their own type, each add would
+    round, in the order the card's atomics land, which varies from run to
+    run (graphcast in bfloat16 moved by 0.39-0.59 of its float32 re-run's
+    rms so)."""
+    acc = messages.float() if messages.dtype in (torch.bfloat16, torch.float16) else messages
+    out = acc.new_zeros((n, *messages.shape[1:]))
+    return out.index_add_(0, seg.long(), acc).to(messages.dtype)
 
 
 def segment_agg(messages: torch.Tensor, edge_dst: torch.Tensor, edge_mask: torch.Tensor,

@@ -61,7 +61,6 @@ def _ssp(x: torch.Tensor) -> torch.Tensor:  # shifted softplus, SchNet's activat
     return F.softplus(x) - math.log(2.0)
 
 
-@torch.no_grad()
 def forward(cfg: SchNetConfig, params, g: GraphBatch) -> torch.Tensor:
     """g.x holds integer atom types in column 0, g.pos the coordinates.
     Returns each node's energy [n, 1], 0 at masked nodes."""
@@ -83,7 +82,6 @@ def forward(cfg: SchNetConfig, params, g: GraphBatch) -> torch.Tensor:
     return torch.where(g.node_mask[:, None], e_atom, 0.0)
 
 
-@torch.no_grad()
 def loss_fn(cfg: SchNetConfig, params, g: GraphBatch) -> torch.Tensor:
     """Energy regression: the per-node energies sum to the target."""
     total = forward(cfg, params, g).sum()

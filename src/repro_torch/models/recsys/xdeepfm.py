@@ -106,10 +106,10 @@ def _cin(cfg: XDeepFMConfig, params, x0: torch.Tensor) -> torch.Tensor:
     return torch.cat(pooled, dim=-1)
 
 
-@torch.no_grad()
 def forward(cfg: XDeepFMConfig, params, ids: torch.Tensor) -> torch.Tensor:
     """ids: int32[B, n_fields] -> logits float32[B].  Two K6 launches: the
-    embedding rows and the linear term."""
+    embedding rows and the linear term; differentiable in ``params`` (K6's
+    backward scatters into the table and the linear weights)."""
     B, m = ids.shape
     rows = _field_ids(cfg, ids.to(torch.int32)).contiguous()
     emb = ops.embedding_bag(params["table"], rows.view(B * m, 1)).view(B, m, cfg.embed_dim)
@@ -124,6 +124,16 @@ def forward(cfg: XDeepFMConfig, params, ids: torch.Tensor) -> torch.Tensor:
     return logit.float()
 
 
+def loss_fn(cfg: XDeepFMConfig, params, batch) -> torch.Tensor:
+    """batch: {ids int32[B, m], y float32[B]}: the mean binary cross-entropy
+    with logits (JAX's ``loss_fn``)."""
+    logit = forward(cfg, params, batch["ids"])
+    y = batch["y"].float()
+    return torch.mean(torch.clamp_min(logit, 0) - logit * y
+                      + torch.log1p(torch.exp(-logit.abs())))
+
+
+@torch.no_grad()
 def retrieval_score(cfg: XDeepFMConfig, params, user_ids: torch.Tensor,
                     cand_ids: torch.Tensor, chunk: int = 25_000) -> torch.Tensor:
     """Score one user context against C candidates (the retrieval_cand shape).

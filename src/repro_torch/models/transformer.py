@@ -26,7 +26,10 @@ compressed ``c_kv`` ``[L, B, max_len, kv_lora]`` and ``k_rope``
 ``[L, B, max_len, rope]``), written in place (``decode_step`` returns the
 cache it was given), with ``pos`` a Python int: attention reads the filled
 prefix (K4 through ``kv_len``, MLA through a view) without a copy and
-without a host read a step.  ``remat``, ``attn_impl``, ``chunk_q``,
+without a host read a step.  ``forward`` and ``lm_loss`` are differentiable
+(K4's autograd Function runs its backward kernel on the card); ``remat``
+recomputes each layer in the backward (``torch.utils.checkpoint``, as JAX's
+``jax.checkpoint``), and only there.  ``attn_impl``, ``chunk_q``,
 ``chunk_k`` and ``logical_batch_axes`` are kept so that configs read the
 same; they change nothing here.  The cast points are the JAX package's:
 ``rms_norm`` and ``rope`` in float32, the router in float32, the logits in
@@ -41,6 +44,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
@@ -82,7 +86,7 @@ class LMConfig:
     mla: Optional[MLACfg] = None
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
-    remat: bool = True           # no effect in the port (no autograd here)
+    remat: bool = True           # recompute each layer in the backward
     attn_impl: str = "naive"     # no effect: attention is always K4
     chunk_q: int = 512           # no effect
     chunk_k: int = 1024          # no effect
@@ -361,13 +365,24 @@ def _layer_weights(params, l: int) -> Dict[str, torch.Tensor]:
 
 def _hidden(cfg: LMConfig, params, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The residual stream after the last layer, [B, S, d], and the summed
-    aux loss."""
+    aux loss.  The stacked layer leaves are unbound once, so a backward
+    stacks each leaf's gradient once (a select a layer would add a whole
+    [L, ...] zero-filled gradient a layer); with ``remat`` and autograd on,
+    each layer is a ``torch.utils.checkpoint`` (its activations recomputed
+    in the backward)."""
     B, S = tokens.shape
     x = params["embed"][tokens.long()]
     cos, sin = _angles(torch.arange(S, device=x.device), _rope_dim(cfg), cfg.rope_theta)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    layers = {k: v.unbind(0) for k, v in params["layers"].items()}
+    remat = cfg.remat and torch.is_grad_enabled()
     for l in range(cfg.n_layers):
-        x, a = _layer(cfg, _layer_weights(params, l), x, cos, sin)
+        lw = {k: v[l] for k, v in layers.items()}
+        if remat:
+            x, a = checkpoint(_layer, cfg, lw, x, cos, sin, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            x, a = _layer(cfg, lw, x, cos, sin)
         aux = aux + a
     return x, aux
 
@@ -377,11 +392,24 @@ def _logits(cfg: LMConfig, params, x: torch.Tensor) -> torch.Tensor:
     return (x @ params["embed"].T).float()
 
 
-@torch.no_grad()
 def forward(cfg: LMConfig, params, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens: int[B, S] -> (logits float32[B, S, V], aux_loss)."""
+    """tokens: int[B, S] -> (logits float32[B, S, V], aux_loss);
+    differentiable in ``params``."""
     x, aux = _hidden(cfg, params, tokens)
     return _logits(cfg, params, x), aux
+
+
+def lm_loss(cfg: LMConfig, params, batch) -> torch.Tensor:
+    """batch: {tokens int[B, S], labels int[B, S]}: the next-token
+    cross-entropy over the labels ``>= 0``, plus 0.01 x the aux loss (JAX's
+    ``lm_loss``)."""
+    logits, aux = forward(cfg, params, batch["tokens"])
+    labels = batch["labels"].long()
+    mask = labels >= 0
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = logp.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    ce = -torch.where(mask, ll, 0.0).sum() / mask.sum().clamp_min(1)
+    return ce + 0.01 * aux
 
 
 @torch.no_grad()

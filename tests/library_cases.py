@@ -186,3 +186,117 @@ ATTENTION_DV_CASES = [(1, 16, 16, 256, 256, None, 192, 128, True, None),
                       (1, 4, 2, 100, 100, None, 128, 64, True, None),
                       (1, 4, 2, 64, 90, None, 24, 8, True, 33)]
 
+
+
+# (B, Hq, Hkv, S, T, D, Dv, causal, window): K4's backward
+# (kernels/csrc/flash_attention_bwd.cu: 64 query rows by 64 keys a tile, the
+# widths padded to (64, 64), (128, 128) or (192, 128)) at its edges: one tile,
+# a tile and one row, GQA, deepseek-7b's width, danube's (80, padded to 128)
+# under a window, S < T, MLA's (192, 128), rows that see no key (S > T causal;
+# window 0), no mask with Dv < D, D = 8 with a window alone
+ATTENTION_BWD_CASES = [(1, 2, 2, 64, 64, 64, 64, True, None),
+                       (1, 2, 2, 65, 65, 64, 64, True, None),
+                       (2, 8, 2, 130, 130, 64, 64, True, None),
+                       (1, 4, 1, 100, 100, 128, 128, True, None),
+                       (1, 4, 2, 200, 200, 80, 80, True, 64),
+                       (1, 4, 2, 129, 257, 64, 64, True, 65),
+                       (1, 4, 4, 130, 130, 192, 128, True, None),
+                       (1, 4, 2, 70, 127, 192, 128, True, 33),
+                       (1, 2, 1, 150, 100, 64, 64, True, None),
+                       (1, 4, 2, 100, 100, 32, 32, True, 0),
+                       (1, 4, 4, 64, 200, 24, 8, False, None),
+                       (1, 2, 2, 33, 33, 8, 8, False, 5)]
+
+
+def make_attention_bwd_case(rng, B, Hq, Hkv, S, T, D, Dv, causal, window):
+    """(q, k, v, do) float32: the inputs and an output gradient."""
+    q = rng.standard_normal((B, Hq, S, D)).astype(np.float32)
+    k = rng.standard_normal((B, Hkv, T, D)).astype(np.float32)
+    v = rng.standard_normal((B, Hkv, T, Dv)).astype(np.float32)
+    do = rng.standard_normal((B, Hq, S, Dv)).astype(np.float32)
+    return q, k, v, do
+
+
+def attention_rows_seeing_a_key(S, T, causal, window) -> np.ndarray:
+    """bool[S]: the query rows that see at least one key (right-aligned)."""
+    qpos = np.arange(S)[:, None] + (T - S)
+    t = np.arange(T)[None, :]
+    mask = np.ones((S, T), bool)
+    if causal:
+        mask &= t <= qpos
+    if window is not None:
+        mask &= t > qpos - window
+    return mask.any(axis=1)
+
+
+# (V, D, B, bag, edge): K6's backward (kernels/csrc/embedding_bag_bwd.cu: a
+# thread a (bag, slot, column), float32 atomics into a zeroed table):
+# make_bag_case's edges, "repeat" (ids from a range of 5: repeats within a bag
+# and across bags), xDeepFM's two layouts at small V (bags of one id at
+# D = 10; bags of 39 ids over a [V, 1] view) and a bag wider than a warp
+BAG_BWD_CASES = [(100, 8, 32, 4, None), (64, 32, 16, 1, None), (50, 10, 40, 9, "repeat"),
+                 (20, 1, 30, 39, "repeat"), (1000, 10, 300, 8, "all_padding"),
+                 (3900, 10, 390, 1, None), (3900, 1, 10, 39, "no_padding"),
+                 (1000, 11, 64, 40, "last_id"), (128, 130, 20, 9, None)]
+
+
+def make_bag_bwd_case(rng, V, D, B, bag, edge):
+    """(idx, dout): ``make_bag_case``'s ids ("repeat": ids in [0, 5), a
+    quarter padding) and a float32[B, D] output gradient."""
+    _, idx = make_bag_case(rng, V, D, B, bag, None if edge == "repeat" else edge)
+    if edge == "repeat":
+        idx = np.where(idx >= 0, idx % 5, idx).astype(np.int32)
+    return idx, rng.standard_normal((B, D)).astype(np.float32)
+
+
+# (n, m, F, edge): K5's backward, K5 over the transposed rows: a random graph
+# of n nodes and m edges laid out by destination and by source; "empty" puts
+# every edge into the second half of the nodes (rows of the first half empty
+# both ways), "hub" sends a third of the edges to node 0 (a row wider than a
+# warp's 32 slots), "masked" drops a third of the edges by the mask
+SPMM_BWD_CASES = [(50, 200, 8, None), (64, 300, 16, "empty"), (100, 600, 7, "hub"),
+                  (80, 240, 33, "masked"), (1, 1, 4, None), (300, 2000, 128, None)]
+
+
+def ell_rows(src, dst, w, n):
+    """numpy ``ell_from_edges``: the edges by destination, in edge order, as
+    (nbr int32[n, width], wgt float32[n, width]), -1 and 0 past a row's
+    edges; width the largest in-degree, at least 1."""
+    order = np.argsort(dst, kind="stable")
+    d = dst[order]
+    counts = np.bincount(d, minlength=n)
+    width = max(1, int(counts.max()) if d.size else 1)
+    slot = np.arange(d.size) - (np.cumsum(counts) - counts)[d]
+    nbr = np.full((n, width), -1, np.int32)
+    wgt = np.zeros((n, width), np.float32)
+    nbr[d, slot] = src[order]
+    wgt[d, slot] = w[order]
+    return nbr, wgt
+
+
+def make_spmm_bwd_case(rng, n, m, F, edge):
+    """(nbr, wgt, nbr_t, wgt_t, x, dout): a graph's rows by destination and
+    by source (the same coefficients), x float32[n, F] and an output
+    gradient float32[n, F]."""
+    src, dst = rng.integers(0, n, m), rng.integers(0, n, m)
+    if edge == "empty":
+        src, dst = n // 2 + src % (n - n // 2), n // 2 + dst % (n - n // 2)
+    elif edge == "hub":
+        dst[: m // 3] = 0
+    keep = rng.random(m) >= (1 / 3 if edge == "masked" else 0)
+    src, dst = src[keep], dst[keep]
+    w = rng.standard_normal(src.size).astype(np.float32)
+    nbr, wgt = ell_rows(src, dst, w, n)
+    nbr_t, wgt_t = ell_rows(dst, src, w, n)
+    x = rng.standard_normal((n, F)).astype(np.float32)
+    return nbr, wgt, nbr_t, wgt_t, x, rng.standard_normal((n, F)).astype(np.float32)
+
+
+# K4's backward against its plain version on the same inputs, as (rtol, atol
+# relative to the gradient's largest |value|): float32 1e-4 (both sum in
+# float32, in other orders, over up to 257 rows or keys); bfloat16 one
+# bfloat16 step (2^-7 relative: both round float32 sums that differ in their
+# last bits) and 1e-3 of the largest.  K5's and K6's backwards: 1e-5 (rtol
+# and atol), float32 sums in other orders (K6's in atomic order).
+ATTENTION_BWD_TOL = {"float32": (0.0, 1e-4), "bfloat16": (2.0 ** -7, 1e-3)}
+SPMM_BAG_BWD_TOL = 1e-5

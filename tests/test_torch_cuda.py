@@ -12,9 +12,11 @@ card (through frontier_expand) against the reference build, the sharded
 serve backends and the ``mesh=`` device build over a one-rank NCCL mesh,
 the kernel library (K3 bitset_mm, K4 flash_attention, also over a
 preallocated cache with ``kv_len`` and at MLA's widths, D = 192 and
-Dv = 128, K5 ell_spmm, K6 embedding_bag) against its plain versions, and the
-LM family's (MLA included), the GNN family's and xDeepFM's smoke configs on
-the card against the same weights on the CPU.
+Dv = 128, K5 ell_spmm, K6 embedding_bag) against its plain versions, the
+backwards of K4, K5 and K6 (training) against theirs, the LM family's (MLA
+included), the GNN family's and xDeepFM's smoke configs on the card against
+the same weights on the CPU, and a training step of granite-3-2b's,
+xDeepFM's and GCN's on the card against the CPU's.
 
 These tests need a CUDA card and the CUDA toolkit (the kernels build with
 ``nvcc`` on first use); they carry the ``cuda`` marker and, without a card,
@@ -28,9 +30,13 @@ import pytest
 import torch
 
 from frontier_cases import ARRAYS, CASES, ORDER, assert_same_level, make_case
-from library_cases import (ATTENTION_DV_CASES, ATTENTION_F32_CASES, BAG_CASES, BITSET_CASES,
-                           KV_LEN_CASES, SPMM_CASES, case_id, make_bag_case, make_bitset_case,
-                           make_kv_len_case, make_spmm_case, padding_rows)
+from library_cases import (ATTENTION_BWD_CASES, ATTENTION_BWD_TOL, ATTENTION_DV_CASES,
+                           ATTENTION_F32_CASES, BAG_BWD_CASES, BAG_CASES, BITSET_CASES,
+                           KV_LEN_CASES, SPMM_BAG_BWD_TOL, SPMM_BWD_CASES, SPMM_CASES,
+                           attention_rows_seeing_a_key, case_id, make_attention_bwd_case,
+                           make_bag_bwd_case, make_bag_case, make_bitset_case,
+                           make_kv_len_case, make_spmm_bwd_case, make_spmm_case,
+                           padding_rows)
 from serve_batch_cases import BINDING as SERVE_BINDING
 from serve_batch_cases import CASES as SERVE_CASES
 from serve_batch_cases import MASKS as SERVE_MASKS
@@ -1076,3 +1082,126 @@ def test_embedding_bag_kernel_refuses_bad_ids(cuda):
     idx = torch.tensor([[0, 5, -1]], dtype=torch.int32, device=cuda)
     torch.testing.assert_close(ops.embedding_bag(table, idx), table[0:1] + table[5:6])
 
+
+
+# ------------------------------------------------------------------ backwards
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ATTENTION_BWD_CASES, ids=case_id)
+def test_flash_attention_bwd_kernel_matches_plain(cuda, rng, case, dtype):
+    """K4's backward (one ``flash_attention_bwd`` launch) against its plain
+    version on the same inputs and output, within ATTENTION_BWD_TOL; rows
+    that see no key get no gradient."""
+    B, Hq, Hkv, S, T, D, Dv, causal, window = case
+    q, k, v, do = (torch.from_numpy(a).to(cuda, dtype)
+                   for a in make_attention_bwd_case(rng, *case))
+    o = ops.flash_attention(q, k, v, causal=causal, window=window)
+    got = _launched("flash_attention_bwd",
+                    lambda: ops.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                                    window=window))
+    exp = ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal, window=window)
+    rtol, atol = ATTENTION_BWD_TOL[str(dtype).removeprefix("torch.")]
+    for name, g, e in zip(("dq", "dk", "dv"), got, exp):
+        assert g.dtype == dtype and g.shape == e.shape, name
+        e = e.float()
+        torch.testing.assert_close(g.float(), e, rtol=rtol,
+                                   atol=atol * max(float(e.abs().max()), 1e-30), msg=name)
+    blind = torch.from_numpy(~attention_rows_seeing_a_key(S, T, causal, window)).to(cuda)
+    assert not got[0][:, :, blind].any()
+
+
+def test_flash_attention_bwd_through_autograd_on_the_card(cuda, rng):
+    """``loss.backward()`` through ``ops.flash_attention`` launches the
+    backward kernel once and no plain version; a call over a kv_len prefix
+    has no backward."""
+    from unittest import mock
+
+    q, k, v, do = (torch.from_numpy(a).to(cuda).requires_grad_(True)
+                   for a in make_attention_bwd_case(rng, 1, 4, 2, 100, 100, 64, 64, True, 20))
+    with mock.patch.object(ref, "flash_attention_bwd_ref", side_effect=AssertionError), \
+            mock.patch.object(ref, "flash_attention_ref", side_effect=AssertionError):
+        ops.reset_launches()
+        (ops.flash_attention(q, k, v, causal=True, window=20) * do.detach()).sum().backward()
+        torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 1 and ops.LAUNCHES["flash_attention_bwd"] == 1
+    exp = ref.flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(),
+                                      ref.flash_attention_ref(q.detach(), k.detach(), v.detach(),
+                                                              window=20), do.detach(), window=20)
+    for g, e in zip((q.grad, k.grad, v.grad), exp):
+        torch.testing.assert_close(g, e, rtol=0, atol=1e-4 * float(e.abs().max()))
+    out = ops.flash_attention(q, k, v, kv_len=50)
+    with pytest.raises(ValueError, match="kv_len"):
+        out.sum().backward()
+
+
+@pytest.mark.parametrize("case", BAG_BWD_CASES, ids=case_id)
+def test_embedding_bag_bwd_kernel_matches_plain(cuda, rng, case):
+    """K6's backward (one ``embedding_bag_bwd`` launch: a zeroed table and
+    float32 atomics) against ``index_add_``, repeated ids within and across
+    bags among the cases; and through autograd."""
+    V, D, B, bag, edge = case
+    idx, dout = (torch.from_numpy(a).to(cuda) for a in make_bag_bwd_case(rng, *case))
+    got = _launched("embedding_bag_bwd", lambda: ops.embedding_bag_bwd(idx, dout, V))
+    exp = ref.embedding_bag_bwd_ref(idx, dout, V)
+    torch.testing.assert_close(got, exp, rtol=SPMM_BAG_BWD_TOL, atol=SPMM_BAG_BWD_TOL)
+    table = torch.randn(V, D, device=cuda, requires_grad=True)
+    ops.reset_launches()
+    (ops.embedding_bag(table, idx) * dout).sum().backward()
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["embedding_bag"] == 1 and ops.LAUNCHES["embedding_bag_bwd"] == 1
+    torch.testing.assert_close(table.grad, exp, rtol=SPMM_BAG_BWD_TOL, atol=SPMM_BAG_BWD_TOL)
+
+
+@pytest.mark.parametrize("case", SPMM_BWD_CASES, ids=case_id)
+def test_ell_spmm_bwd_is_k5_over_the_transposed_rows(cuda, rng, case):
+    """K5's backward through autograd: one ``ell_spmm`` launch over the
+    transposed rows (counted as ``ell_spmm_bwd``), against the plain
+    version's autograd gradient; a wgt that requires grad raises."""
+    nbr, wgt, nbr_t, wgt_t, x, dout = (torch.from_numpy(a).to(cuda)
+                                       for a in make_spmm_bwd_case(rng, *case))
+    x.requires_grad_(True)
+    ops.reset_launches()
+    (ops.ell_spmm(nbr, wgt, x, nbr_t, wgt_t) * dout).sum().backward()
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ell_spmm"] == 1 and ops.LAUNCHES["ell_spmm_bwd"] == 1
+    xp = x.detach().clone().requires_grad_(True)
+    (ref.ell_spmm_ref(nbr, wgt, xp) * dout).sum().backward()
+    torch.testing.assert_close(x.grad, xp.grad, rtol=SPMM_BAG_BWD_TOL, atol=SPMM_BAG_BWD_TOL)
+    with pytest.raises(ValueError, match="wgt"):
+        ops.ell_spmm(nbr, wgt.clone().requires_grad_(True), x, nbr_t, wgt_t)
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "xdeepfm", "gcn-cora"])
+def test_train_steps_on_card_match_cpu(cuda, arch):
+    """Three training steps (``launch.train``'s setup and step) at the smoke
+    config, float32, from the same weights on the card (K4, K5, K6 and their
+    backward kernels) and on the CPU: the losses within 1e-4, the gradient
+    norms within 1e-3, and the backward kernel launched every step."""
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_map
+
+    argv = ["--arch", arch, "--smoke", "--steps", "3", "--batch", "4", "--seq", "64",
+            "--gnn-nodes", "200"]
+    bwd = {"granite-3-2b": "flash_attention_bwd", "xdeepfm": "embedding_bag_bwd",
+           "gcn-cora": "ell_spmm_bwd"}[arch]
+    logs, start = {}, None
+    for dev in ("cpu", "cuda"):
+        args = train.parse_args(argv + ["--device", dev])
+        _, params, loss_of, batch_fn, wd = train.setup(args)
+        if start is None:   # the CPU's weights, kept before its steps update them in place
+            start = tree_map(lambda p: p.detach().clone(), params)
+        else:
+            params = tree_map(lambda p: p.to(cuda), start)
+        state, step = (params, adamw_init(params)), train.make_step(loss_of, args, wd)
+        logs[dev] = []
+        for s in range(3):
+            ops.reset_launches()
+            state, metrics = step(state, batch_fn(s))
+            logs[dev].append({k: float(v) for k, v in metrics.items()})
+            if dev == "cuda":
+                assert ops.LAUNCHES[bwd] >= 1, ops.LAUNCHES
+    for g, e in zip(logs["cuda"], logs["cpu"]):
+        np.testing.assert_allclose(g["loss"], e["loss"], rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(g["grad_norm"], e["grad_norm"], rtol=1e-3, atol=1e-4)

@@ -60,7 +60,11 @@ for name in ("repro_torch.build.bitset", "repro_torch.build.waves",
              "repro_torch.configs", "repro_torch.configs.lm_cells",
              "repro_torch.configs.granite_3_2b", "repro_torch.configs.h2o_danube_1_8b",
              "repro_torch.configs.deepseek_7b", "repro_torch.configs.granite_moe_1b_a400m",
-             "repro_torch.configs.deepseek_v2_lite_16b", "repro_torch.configs.xdeepfm_cfg"):
+             "repro_torch.configs.deepseek_v2_lite_16b", "repro_torch.configs.xdeepfm_cfg",
+             # training: the optimizer, checkpoints, the loop, trees, the driver
+             "repro_torch.tree", "repro_torch.optim", "repro_torch.optim.adamw",
+             "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt", "repro_torch.ft.loop",
+             "repro_torch.launch.train", "repro_torch.data.synth"):
     assert name in names, name
 from repro_torch.core.api import oracle_from_snapshot
 from repro_torch.core import hierarchical_labeling
@@ -75,10 +79,19 @@ from repro_torch.serve import make_hop_sharded_serve_step, make_sharded_serve_st
 from repro_torch.configs import ALL_ARCHS, get_arch
 for arch in ALL_ARCHS:
     get_arch(arch).full_config()
-# the kernel library's wrappers, and a build entry for every CUDA source
+from repro_torch.optim import AdamWState, adamw_init, adamw_update, cosine_schedule, global_norm
+from repro_torch.checkpoint import (AsyncCheckpointer, latest_step, restore_checkpoint,
+                                    save_checkpoint)
+from repro_torch.ft import FaultTolerantLoop
+from repro_torch.data.synth import lm_batch, recsys_batch
+from repro_torch.models.transformer import lm_loss
+from repro_torch.models.recsys.xdeepfm import loss_fn
+# the kernel library's wrappers and the backwards', and a build entry for every CUDA source
 from repro_torch.kernels import build, ops
-for fn in ("bitset_mm", "flash_attention", "ell_spmm", "embedding_bag"):
+for fn in ("bitset_mm", "flash_attention", "ell_spmm", "embedding_bag", "flash_attention_bwd",
+           "embedding_bag_bwd"):
     assert callable(getattr(ops, fn)) and fn in ops.LAUNCHES, fn
+assert "ell_spmm_bwd" in ops.LAUNCHES
 assert sorted(p.stem for p in build.CSRC.glob("*.cu")) == sorted(build.SIGNATURES)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
@@ -178,6 +191,22 @@ def test_substrate_entry_points_refuse_without_cuda():
     assert logits.device.type == "cpu" and cache["pos"] == 1
     p = xdeepfm.init_params(rs, gen, device="cpu")
     assert xdeepfm.forward(rs, p, torch.zeros((2, rs.n_fields), dtype=torch.int32)).shape == (2,)
+
+
+def test_training_entry_points_refuse_without_cuda():
+    """The training driver and the synthetic batches default to the card;
+    with ``--device cpu`` / ``device="cpu"`` they run."""
+    _no_cuda()
+    from repro_torch.data.synth import lm_batch, recsys_batch
+    from repro_torch.launch import train
+
+    for call in (lambda: train.main(["--arch", "gcn-cora", "--smoke", "--steps", "1"]),
+                 lambda: lm_batch(0, 0, 2, 8, 100),
+                 lambda: recsys_batch(0, 0, 2, 3, 100)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    log = train.main(["--arch", "gcn-cora", "--smoke", "--steps", "1", "--device", "cpu"])
+    assert len(log) == 1 and log[0]["loss"] > 0
 
 
 def test_serve_driver_runs_on_cpu(tmp_path):
