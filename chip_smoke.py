@@ -15,9 +15,12 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      kv_len (``tests/library_cases.py``'s ``KV_LEN_CASES``), and with a value
      width of its own, MLA's D = 192 and Dv = 128 among them
      (``ATTENTION_DV_CASES``, also over a cache), K5 and K6 at 1e-5); the
-     backwards of K4 (``flash_attention_bwd``, both dtypes, within
-     ``ATTENTION_BWD_TOL``, rows that see no key without a gradient, a dk
-     missing its last key tile rejected), K5 (its transposed launch) and K6
+     backwards of K4 (``flash_attention_bwd``, both dtypes, each through the
+     kernel of its dtype: bfloat16 ``flash_attention_bwd_sm90`` on the
+     tensor cores, reading the lse K4's bfloat16 forward keeps (held to the
+     plain lse within ``ATTENTION_LSE_TOL``), float32 on the CUDA cores;
+     within ``ATTENTION_BWD_TOL``, rows that see no key without a gradient, a
+     dk missing its last key tile rejected), K5 (its transposed launch) and K6
      (``embedding_bag_bwd``, repeated ids) at 1e-5 on ``ATTENTION_BWD_CASES``,
      ``SPMM_BWD_CASES`` and ``BAG_BWD_CASES``.  K1 has two
      kernels: its batch form ``serve_batch`` (the engine's kernel backend,
@@ -40,7 +43,10 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      granite decode_32k and in float32 (the CUDA-core kernel
      ``flash_attention``) at granite prefill, ELL SpMM at ogb_products,
      embedding bags at xDeepFM's serve_bulk batch; the launch counts read
-     around exactly that drive; each kernel against its plain version, timed
+     around exactly that drive; K4's bfloat16 backward at deepseek-7b's
+     heads of 128 and MLA's (192, 128), 1 x 4,096 causal
+     (``ATTENTION_BWD_CONFIGS``, comparison launches, beside SDPA's
+     backward); each kernel against its plain version, timed
      beside its bound, its plain version and the PyTorch library call (K3,
      K5 and K6 also beside their gather floor: the bytes a gather moves when
      no source row is reused from L2, K6's in whole 32-byte sectors);
@@ -59,7 +65,7 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      this run (``serve_batch`` once a batch, ``label_intersect`` never); the
      batch latency p50/p99 of this run;
   4b. the device wave build: ``build_oracle(g, device="cuda", impl="device")``
-     on the citeseer analogue at ``FULL_RUN_DEVICE_BUILD_SCALE`` (0.25; 1.0
+     on the citeseer analogue at ``FULL_RUN_DEVICE_BUILD_SCALE`` (0.15; 1.0
      with ``--only-device-build``), the launch counts read around exactly this
      build (``frontier_expand`` once a BFS level, ``frontier_or`` never); its
      labels byte for byte against the reference build (by ``DL_SHA256``
@@ -184,9 +190,12 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      backward kernel against the same step through their plain versions in
      float32 at 2 layers (``TRAIN_F32_REL``, which the step with every dk's
      last key tile dropped must exceed) and in bfloat16 at 40
-     (``TRAIN_BF16_REL``), then ``launch.train.main`` for 4 steps of 4 x
-     1,024 tokens with every plain version refused (K4 2 x 40 launches a
-     step with the layers recomputed, its backward 40), the step time and the
+     (``TRAIN_BF16_REL``; each of the step's 40 K4 backward calls held to
+     its plain version at ``ATTENTION_BWD_TOL`` as it happens, a dk without
+     its last key tile rejected on each), then ``launch.train.main`` for 4
+     steps of 4 x 1,024 tokens with every plain version refused (K4 2 x 40
+     launches a step with the layers recomputed, its backward 40, each on
+     the tensor cores: ``flash_attention_bwd_sm90``), the step time and the
      peak memory; xDeepFM over its whole table at batch 4,096 and GCN at
      d_in 1,433 on ``random_dag(50,000, 150,000)``, each checked the same way
      in float32 and trained (K6 and its backward 2 a step each, K5 and its
@@ -254,6 +263,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import math
 import os
 import pathlib
 import re
@@ -316,8 +326,9 @@ SPEC_COUNTS = {"spec_waves": 9144, "spec_members": 401152, "clean_waves": 753,
 DL_SHA256 = {1.0: "7168b6766ec19b8c4e564c3a445567e3465a8cec40edcf7bdebb4ec6377d01f6",
              0.5: "21dbb15a4e65983ef94b29b3501f29ee79c0e1f4dbbcd2132637998ab021007c",
              # phase 4b's device build: ``--scale 0.25 --impl reference auto
-             # --package both`` (both packages, both impls equal)
+             # --package both`` (both packages, both impls equal), and 0.15 the same way
              0.25: "2fe11bfe8066e54ac280caf9c69faa2e73d14db01f525add04a7cad6bc611f09",
+             0.15: "047490a39da4915250a1fbcbf4bb3275b7ac06b73e368bcef3464d2d4865090c",
              # phase 4i's mesh= build: ``--scale 0.02 --package both``
              0.02: "935b2f82fa6fd7575bf3d0efd999fa5b37bd5e5f64146369d9ab3a2b542d9174"}
 # phase 4c's host engines at citeseer@0.5, held to DL_SHA256[0.5]
@@ -346,11 +357,11 @@ HL_SHA256 = "ec4fa5ca0a742737c74f01dae1ee23eea2d790831fb9125337fc9dfa39307790"
 # at the 3,001st optimistic chunk, past the middle of the build
 CKPT_EVERY = 512
 KILL_AT_CHUNK = 3000
-# the device build (phase 4b) of the full script at a quarter of the main
-# graph, held to DL_SHA256 there: at 1.0 it took 77-153 s and at 0.5 62-76 s
-# of a script that must end within 330 s beside phase 4j;
-# ``--only-device-build`` keeps 1.0 as its default
-FULL_RUN_DEVICE_BUILD_SCALE = 0.25
+# the device build (phase 4b) of the full script at 0.15 of the main graph,
+# held to DL_SHA256 there: at 1.0 it took 77-153 s, at 0.5 62-76 s and at
+# 0.25 34-48 s of a script that must end within 330 s beside phases 4j and
+# 4k; ``--only-device-build`` keeps 1.0 as its default
+FULL_RUN_DEVICE_BUILD_SCALE = 0.15
 
 
 def log(msg: str) -> None:
@@ -402,13 +413,52 @@ def phase_build():
         futures = {name: pool.submit(build.build, name) for name in build.SIGNATURES}
         info = {name: fut.result() for name, fut in futures.items()}
     seconds = time.perf_counter() - t0
-    for name, rec in info.items():
-        for line in rec["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[{name}] {line.strip()}")
+    resources = {name: _ptxas_resources(rec["log"]) for name, rec in info.items()}
+    for name, entries in resources.items():
+        for entry, r in entries.items():
+            log(f"[{name}] {entry}: {r['registers']} registers, {r['spill_stores']} bytes "
+                f"spill stores, {r['spill_loads']} bytes spill loads")
     record({"phase": "build", "seconds": seconds,
-            "kernels": {k: {"seconds": v["seconds"], "cached": v["cached"]}
-                        for k, v in info.items()}})
+            "kernels": {k: {"seconds": v["seconds"], "cached": v["cached"],
+                            "resources": resources[k]} for k, v in info.items()}})
+
+
+def _ptxas_resources(build_log: str) -> dict:
+    """Each entry function's registers and spill bytes from ``nvcc -Xptxas
+    -v``'s log, by a short name: the kernel and its integer template
+    arguments (``attention_bwd_sm90_kernel<64,64>``)."""
+    out, entry = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = _entry_name(m.group(1))
+            out[entry] = {"registers": None, "spill_stores": 0, "spill_loads": 0}
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[entry]["spill_stores"], out[entry]["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[entry]["registers"] = int(m.group(1))
+    return out
+
+
+def _entry_name(mangled: str) -> str:
+    """A mangled kernel name's identifier ending in "kernel" (found by its
+    length prefix) and integer template arguments; else the name as given."""
+    for m in re.finditer(r"\d+", mangled):
+        at = m.end()
+        for i in range(m.start(), at):   # the run may begin with the digits before it
+            n = int(mangled[i:at])
+            name = mangled[at:at + n]
+            if len(name) == n and re.fullmatch(r"[A-Za-z_]\w*kernel", name):
+                args = []
+                if mangled[at + n:at + n + 1] == "I":
+                    args = re.findall(r"Li(\d+)E", mangled[at + n:].split("EE")[0] + "E")
+                return name + (f"<{','.join(args)}>" if args else "")
+    return mangled
 
 
 # ------------------------------------------------------------------ phase 3
@@ -886,9 +936,12 @@ def _backwards_vs_plain(rng, device) -> dict:
     """The backwards of K4, K5 and K6 against their plain backwards on the
     card, on ``tests/library_cases.py``'s backward cases: K4's
     ``flash_attention_bwd`` in float32 and bfloat16 (causal, windows, GQA,
-    MLA's (192, 128), rows that see no key: no gradient there) within
-    ``ATTENTION_BWD_TOL``, and a control it must reject (the dk of the last
-    key tile zeroed); K6's ``embedding_bag_bwd`` (repeated ids, padding,
+    MLA's (192, 128), rows that see no key: no gradient there; the bfloat16
+    kernel also counted as ``flash_attention_bwd_sm90``, with the lse it
+    reads made by K4's bfloat16 forward, held against the plain lse within
+    ``ATTENTION_LSE_TOL``) within ``ATTENTION_BWD_TOL``, the plain backward
+    recomputing its softmax, and a control it must reject (the dk of the
+    last key tile zeroed); K6's ``embedding_bag_bwd`` (repeated ids, padding,
     xDeepFM's two layouts) and K5 over the transposed rows (empty rows, a
     row past a warp's slots) within 1e-5, each through its autograd Function
     too, one launch counted under its own name.  Returns {kernel: cases}."""
@@ -907,11 +960,22 @@ def _backwards_vs_plain(rng, device) -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, do = (t(a).to(dtype) for a in arrays)
             o = ops.flash_attention(q, k, v, causal=causal, window=window)
-            before = ops.LAUNCHES["flash_attention_bwd"]
+            before = dict(ops.LAUNCHES)
             got = ops.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
             torch.cuda.synchronize()
             what = f"flash_attention_bwd {dtype} {lc.case_id(case)}"
-            check(ops.LAUNCHES["flash_attention_bwd"] == before + 1, f"{what}: not one launch")
+            own = ops.attention_bwd_kernel(dtype)
+            check(ops.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+                  and ops.LAUNCHES[own] == before[own] + 1, f"{what}: not one launch")
+            if dtype == torch.bfloat16:
+                _, lse = ops._flash_attention(q, k, v, causal, window, 1 / math.sqrt(D), T,
+                                              return_lse=True)
+                _, exp_lse = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                                     return_lse=True)
+                seen = torch.isfinite(exp_lse)
+                check(torch.equal(torch.isfinite(lse), seen) and not bool(
+                    (lse[seen] - exp_lse[seen]).abs().gt(lc.ATTENTION_LSE_TOL).any()),
+                      f"{what}: the forward's lse differs from the plain lse")
             exp = ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal, window=window)
             excess = [_bwd_excess(g, e) for g, e in zip(got, exp)]
             check(max(excess) <= 1, f"{what}: dq, dk, dv at {excess} x the tolerance")
@@ -984,6 +1048,15 @@ ATTENTION_CONFIGS = [
     ("granite-3-2b prefill in float32 (configs/granite_3_2b.py, train_4k length)",
      dict(B=1, Hq=32, Hkv=8, S=4096, T=4096, D=64, causal=True, window=None,
           dtype="float32")),
+]
+# K4's backward at the widths of two more LM configurations than training's
+# granite (batch cut to 1): deepseek-7b's heads of 128 and deepseek-v2-lite's
+# MLA (q and k 192 wide, v 128), bfloat16, causal
+ATTENTION_BWD_CONFIGS = [
+    ("deepseek-7b backward (configs/deepseek_7b.py: 32 heads of 128), 1 x 4,096",
+     dict(B=1, Hq=32, Hkv=32, S=4096, T=4096, D=128, Dv=128)),
+    ("deepseek-v2-lite MLA backward (configs/deepseek_v2_lite_16b.py: 16 heads, D 192, "
+     "Dv 128), 1 x 4,096", dict(B=1, Hq=16, Hkv=16, S=4096, T=4096, D=192, Dv=128)),
 ]
 # the kernels each K4 kernel name counts: float32 has a tiled kernel for
 # heads of 64 packed rows or more and one for fewer (decode)
@@ -1073,6 +1146,24 @@ def _kernel_device_ms(fn, symbols, calls: int, attempts: int = 3) -> float:
     check(1 <= len(times) <= calls, f"torch.profiler recorded {len(times)} launches of "
                                     f"{symbols} in {calls} calls, {attempts} times")
     return sum(times) / len(times) / 1e3
+
+
+def _each_kernel_device_ms(fn, symbols: tuple, calls: int, attempts: int = 3) -> dict:
+    """``_kernel_device_ms`` of each of the kernels ``symbols`` that every
+    call of ``fn`` launches (K4's backward launches three), from one trace:
+    {symbol: its mean device ms}.  A trace that misses one is taken again,
+    up to ``attempts`` times."""
+    patterns = {s: re.compile(rf"(?<!\w){re.escape(s)}[<(]") for s in symbols}
+    for _ in range(attempts):
+        _, events = _device_events(lambda: [fn() for _ in range(calls)])
+        times = {s: [us for cat, name, us in events if cat == "kernel" and pat.search(name)]
+                 for s, pat in patterns.items()}
+        if all(times.values()):
+            break
+    check(all(1 <= len(t) <= calls for t in times.values()),
+          f"torch.profiler recorded {({s: len(t) for s, t in times.items()})} launches of "
+          f"{symbols} in {calls} calls, {attempts} times")
+    return {s: sum(t) / len(t) / 1e3 for s, t in times.items()}
 
 
 def _library_kernels(fn, calls: int = 10) -> list:
@@ -1533,6 +1624,35 @@ def phase_kernel_library(device, cases: dict) -> list:
             "cases_checked": cases[kernel] + len(mine),
             **{k: head[k] for k in HEAD_KEYS}, "configs": mine})
 
+    # ---- K4's backward at ATTENTION_BWD_CONFIGS: inputs from the seed, the
+    # forward's output and lse through K4 (comparison launches, not counted)
+    t_bwd = time.perf_counter()
+    bwd = []
+    for label, c in ATTENTION_BWD_CONFIGS:
+        q, k, v, do = (torch.randn(sh, generator=gen, device=device, dtype=torch.bfloat16)
+                       for sh in ((c["B"], c["Hq"], c["S"], c["D"]),
+                                  (c["B"], c["Hkv"], c["T"], c["D"]),
+                                  (c["B"], c["Hkv"], c["T"], c["Dv"]),
+                                  (c["B"], c["Hq"], c["S"], c["Dv"])))
+        o, lse = ops._flash_attention(q, k, v, True, None, 1 / math.sqrt(c["D"]), c["T"],
+                                      return_lse=True)
+        kw = dict(causal=True, window=None, lse=lse)
+        got = ops.flash_attention_bwd(q, k, v, o, do, **kw)
+        bwd.append(_attention_bwd_record(label + " (phase 3b)", (q, k, v, o, do), kw, got,
+                                         device))
+        del q, k, v, do, o, lse, got
+        torch.cuda.empty_cache()
+    records.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:110",
+        "backward_of": "src/repro/kernels/flash_attention.py:110",
+        # no path of this phase trains: phase 4k's training counts its launches
+        "launches": 0, "matches_plain": True,
+        "cases_checked": cases["flash_attention_bwd"] + len(bwd),
+        **{k: bwd[0][k] for k in HEAD_KEYS}, "configs": bwd})
+    t_bwd = time.perf_counter() - t_bwd
+
     # ---- K5: ogb_products against the plain version (row chunks) and CSR SpMM
     spmm_rec = _spmm_record("ogb_products, random rows of 18-32 slots (configs/gnn_cells.py)",
                             nbr, wgt, x, spmm_out, device)
@@ -1560,7 +1680,8 @@ def phase_kernel_library(device, cases: dict) -> list:
     torch.cuda.empty_cache()
 
     record({"phase": "kernel_library", "seconds": time.perf_counter() - t_start,
-            "inputs_seconds": t_inputs, "launches": launches, "closure_steps": steps,
+            "inputs_seconds": t_inputs, "backward_seconds": t_bwd, "launches": launches,
+            "closure_steps": steps,
             "kernels": records})
     return records
 
@@ -4110,7 +4231,10 @@ TRAIN_F32_LAYERS = 2
 # with the dk of every call's last key tile zeroed (a kernel that drops a key
 # tile) must exceed TRAIN_F32_REL on some leaf (0.023 measured); at bfloat16
 # the same control moves the gradients by no more than bfloat16 does
-# (0.025 against 0.022), so it is reported there, not held.
+# (0.025 against 0.022), so it is reported there, not held: there each of
+# the step's 40 K4 backward calls is held to its plain version at
+# ATTENTION_BWD_TOL as it happens (_EveryBwdCall), which rejects a dk
+# without its last key tile on every call.
 TRAIN_F32_REL = 1e-4
 TRAIN_BF16_REL = 0.05
 
@@ -4118,8 +4242,9 @@ TRAIN_BF16_REL = 0.05
 def _plain_training():
     """Patch ``ops.flash_attention``, ``ops.ell_spmm`` and
     ``ops.embedding_bag`` for the block with autograd Functions of their
-    plain versions, forward and backward (``kernels/ref.py``): the same
-    training step with every kernel replaced, the yardstick of its
+    plain versions, forward and backward (``kernels/ref.py``; K4's carrying
+    the forward's lse to its backward, as the port's Function does): the
+    same training step with every kernel replaced, the yardstick of its
     gradients."""
     import contextlib
     from unittest import mock
@@ -4131,17 +4256,18 @@ def _plain_training():
     class Attention(torch.autograd.Function):
         @staticmethod
         def forward(ctx, q, k, v, causal, window):
-            o = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
-            ctx.save_for_backward(q, k, v, o)
+            o, lse = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                             return_lse=True)
+            ctx.save_for_backward(q, k, v, o, lse)
             ctx.masks = (causal, window)
             return o
 
         @staticmethod
         def backward(ctx, do):
-            q, k, v, o = ctx.saved_tensors
+            q, k, v, o, lse = ctx.saved_tensors
             causal, window = ctx.masks
             return (*ref.flash_attention_bwd_ref(q, k, v, o, do.contiguous(), causal=causal,
-                                                 window=window), None, None)
+                                                 window=window, lse=lse), None, None)
 
     class Spmm(torch.autograd.Function):
         @staticmethod
@@ -4225,6 +4351,37 @@ class _LastCall(_Calls):
             self.last = (args, kw, out)
 
 
+class _EveryBwdCall(_Calls):
+    """``ops.flash_attention_bwd`` for the block, each call held as it
+    happens against the plain backward on its own inputs (recomputing the
+    softmax: the forward's lse is checked with it) at ``ATTENTION_BWD_TOL``,
+    and a dk without its last 64-key tile rejected on each call where that
+    tile has a gradient: the largest excess and the smallest control excess
+    over the calls."""
+
+    def __init__(self):
+        super().__init__("flash_attention_bwd")
+        self.excess, self.control = [], []
+
+    def keep(self, args, kw, out) -> None:
+        from repro_torch.kernels import ref
+
+        q, k, v, o, do = args
+        exp = ref.flash_attention_bwd_ref(q, k, v, o, do, causal=kw.get("causal", True),
+                                          window=kw.get("window"), scale=kw.get("scale"))
+        self.excess.append(max(_bwd_excess(g, e) for g, e in zip(out, exp)))
+        if bool(exp[1][:, :, -64:].abs().max() > 0):
+            cut = out[1].clone()
+            cut[:, :, -64:] = 0
+            self.control.append(_bwd_excess(cut, exp[1]))
+        del exp
+
+    def summary(self) -> dict:
+        return {"calls": len(self.excess), "max_excess": max(self.excess, default=None),
+                "excess_by_call": self.excess,
+                "control_dropped_key_tile_min_excess": min(self.control, default=None)}
+
+
 def _grads(loss_of, params) -> tuple:
     """(loss, gradients) of one step: every leaf of ``params``, as the
     training step takes them."""
@@ -4248,17 +4405,20 @@ def _grad_agreement(got, exp) -> list:
     return out
 
 
-def _grad_check(name: str, loss_of, params, bound: float, control: bool = False) -> dict:
+def _grad_check(name: str, loss_of, params, bound: float, control: bool = False,
+                every_call=None) -> dict:
     """One step's gradients through the kernels (the launch counts read
-    around it) against the same step through the plain versions: every
-    leaf's relative error within ``bound``; with ``control``, the step with
-    K4's dk missing its last key tile must exceed it."""
+    around it; ``every_call``, a context such as ``_EveryBwdCall``, around
+    it too) against the same step through the plain versions: every leaf's
+    relative error within ``bound``; with ``control``, the step with K4's dk
+    missing its last key tile must exceed it."""
     import torch
 
     from repro_torch.kernels import ops
 
     ops.reset_launches()
-    loss, got = _grads(loss_of, params)
+    with every_call or contextlib.nullcontext():
+        loss, got = _grads(loss_of, params)
     launches = {k: v for k, v in ops.LAUNCHES.items() if v}
     with _plain_training():
         ops.reset_launches()
@@ -4281,24 +4441,35 @@ def _grad_check(name: str, loss_of, params, bound: float, control: bool = False)
     return rec
 
 
+# the kernels a K4 backward call launches, by dtype
+ATTENTION_BWD_SYMBOLS = {
+    "bfloat16": ("attention_bwd_sm90_delta_kernel", "attention_bwd_sm90_kernel",
+                 "attention_bwd_sm90_dq_kernel"),
+    "float32": ("attention_bwd_pre_kernel", "attention_bwd_dkdv_kernel",
+                "attention_bwd_dq_kernel")}
+
+
 def _attention_bwd_record(label: str, args: tuple, kw: dict, out: tuple, device) -> dict:
-    """K4's backward at one captured call of the training path: against its
-    plain version (``ATTENTION_BWD_TOL``); the wrapper's time (three launches
-    a call), its device time (the three kernels' sum), the plain version's
-    and SDPA's backward through autograd on the same inputs; the bound."""
+    """K4's backward at one call (captured on the training path, or made
+    beside it): against its plain version (``ATTENTION_BWD_TOL``, the plain
+    version recomputing its softmax); the wrapper's time with the call's
+    lse (three launches a call), its device time (the three kernels' sum),
+    the plain version's and SDPA's backward through autograd on the same
+    inputs; the bound."""
     import library_cases as lc
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
 
+    t_rec = time.perf_counter()
     q, k, v, o, do = (x.detach() for x in args)   # the backward's saved tensors
     out = tuple(g.detach() for g in out)
-    causal, window = kw.get("causal", True), kw.get("window")
+    causal, window, lse = kw.get("causal", True), kw.get("window"), kw.get("lse")
     B, Hq, S, D = q.shape
     Hkv, T, Dv = k.shape[1], k.shape[2], v.shape[3]
     kern = lambda: ops.flash_attention_bwd(q, k, v, o, do, causal=causal,  # noqa: E731
-                                           window=window)
+                                           window=window, lse=lse)
     plain = lambda: ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,  # noqa: E731
                                                 window=window)
     p1, exp = _timed_once(plain)
@@ -4316,9 +4487,9 @@ def _attention_bwd_record(label: str, args: tuple, kw: dict, out: tuple, device)
                                       retain_graph=True)
     lib_err = max(float((g.float() - e.float()).abs().max()) for g, e in zip(lib(), out))
     l1, l2 = _event_ms(lib, 3, warmup=1), _event_ms(lib, 3, warmup=1)
-    symbols = ("attention_bwd_pre_kernel", "attention_bwd_dkdv_kernel",
-               "attention_bwd_dq_kernel")
-    device_ms = sum(_kernel_device_ms(kern, sym, 50) for sym in symbols)
+    dtype = str(q.dtype).removeprefix("torch.")
+    device_ms_by_kernel = _each_kernel_device_ms(kern, ATTENTION_BWD_SYMBOLS[dtype], 50)
+    device_ms = sum(device_ms_by_kernel.values())
     pairs = _attention_pairs(S, T, causal, window)
     # five products, a multiply and an add each: over D q k^T (recomputed),
     # ds k and ds^T q; over Dv do v^T and p^T do
@@ -4327,22 +4498,24 @@ def _attention_bwd_record(label: str, args: tuple, kw: dict, out: tuple, device)
         + q.element_size() * (o.numel() + do.numel())
     bound = _bound(nbytes, flops, PEAK_BF16_FLOPS_PER_S if q.dtype == torch.bfloat16
                    else PEAK_F32_FLOPS_PER_S)
-    dtype = str(q.dtype).removeprefix("torch.")
     log(f"K4 flash_attention_bwd {label}: {min(k1, k2):.3f} ms (device {device_ms:.3f} ms), "
         f"plain {min(p1, p2):.3f} ms, SDPA backward {min(l1, l2):.3f} ms, "
         f"bound {bound['bound_ms']:.4f} ms")
     return {
-        "config": label, "shape": dict(B=B, Hq=Hq, Hkv=Hkv, S=S, T=T, D=D, Dv=Dv,
-                                       causal=causal, window=window, dtype=dtype),
+        "config": label, "kernel": ops.attention_bwd_kernel(q.dtype),
+        "shape": dict(B=B, Hq=Hq, Hkv=Hkv, S=S, T=T, D=D, Dv=Dv, causal=causal, window=window,
+                      dtype=dtype),
         "visible_pairs": pairs, "max_abs_err": err, "max_excess": max(excess),
         "tolerance": dict(zip(("rtol", "atol_of_largest"), lc.ATTENTION_BWD_TOL[dtype])),
         "ms": min(k1, k2), "ms_runs": [k1, k2], "device_ms": device_ms,
+        "device_ms_by_kernel": device_ms_by_kernel,
         "plain_ms": min(p1, p2), "plain_ms_runs": [p1, p2], **bound,
         "tflop_per_s": flops / device_ms / 1e9, "bound_share": bound["bound_ms"] / device_ms,
         "library_ms": min(l1, l2), "library_ms_runs": [l1, l2],
         "library": "torch.autograd.grad through F.scaled_dot_product_attention(is_causal, "
                    "enable_gqa=True), its forward outside the timed window",
-        "library_kernels": _library_kernels(lib), "library_max_abs_diff": lib_err}
+        "library_kernels": _library_kernels(lib), "library_max_abs_diff": lib_err,
+        "record_seconds": time.perf_counter() - t_rec}
 
 
 def _bag_bwd_record(label: str, idx, dout, V: int, out) -> dict:
@@ -4430,6 +4603,7 @@ def _lm_training(device, gen, smi: str) -> tuple:
     from repro_torch.models import transformer as tf
 
     rec = {"arch": "granite-3-2b", **TRAIN_LM}
+    marks = [("start", time.perf_counter())]
     full = granite_3_2b.full_config()
     B, S, steps = TRAIN_LM["batch"], TRAIN_LM["seq"], TRAIN_LM["steps"]
     batch = lm_batch(0, 0, B, S, full.vocab, device=device)
@@ -4446,22 +4620,39 @@ def _lm_training(device, gen, smi: str) -> tuple:
           f"the float32 gradient bound passes a dk without its last key tile: "
           f"{f32['control_dropped_key_tile_max_rel']}")
     del params
-    # bfloat16 at all 40 layers
+    marks.append(("float32_check", time.perf_counter()))
+    # bfloat16 at all 40 layers, every K4 backward call held to its plain version
     params = tf.init_params(full, gen, device)
+    every = _EveryBwdCall()
     bf16 = rec["bfloat16_check"] = _grad_check(
         "granite-3-2b bfloat16", lambda p: tf.lm_loss(full, p, batch), params, TRAIN_BF16_REL,
-        control=True)
+        control=True, every_call=every)
     check(bf16["launches"] == {"flash_attention_sm90": 2 * full.n_layers,
-                               "flash_attention_bwd": full.n_layers},
+                               "flash_attention_bwd": full.n_layers,
+                               "flash_attention_bwd_sm90": full.n_layers},
           f"granite bfloat16 step launches {bf16['launches']}")
+    calls = bf16["k4_bwd_every_call"] = every.summary()
+    check(calls["calls"] == full.n_layers and calls["max_excess"] <= 1,
+          f"granite bfloat16 step: K4's backward calls at {calls['excess_by_call']} x "
+          f"ATTENTION_BWD_TOL")
+    check(calls["control_dropped_key_tile_min_excess"] is not None
+          and calls["control_dropped_key_tile_min_excess"] > 1,
+          f"the per-call check passes a dk without its last key tile: "
+          f"{calls['control_dropped_key_tile_min_excess']}")
+    log(f"4k granite-3-2b bfloat16 step: {calls['calls']} K4 backward calls, the largest "
+        f"{calls['max_excess']:.3f} x ATTENTION_BWD_TOL (a dropped key tile at least "
+        f"{calls['control_dropped_key_tile_min_excess']:.1f} x); gradients {bf16['max_rel']:.4f} "
+        f"of the plain step's (the dropped tile {bf16['control_dropped_key_tile_max_rel']:.4f})")
     del params, batch
     torch.cuda.empty_cache()
+    marks.append(("bfloat16_check", time.perf_counter()))
     # python -m repro_torch.launch.train --arch granite-3-2b --steps 4 --batch 4 --seq 1024
     argv = ["--arch", "granite-3-2b", "--steps", str(steps), "--batch", str(B),
             "--seq", str(S), "--device", str(device)]
     # K4 twice a layer (remat runs the forward again in the backward), its backward once
     want = {"flash_attention_sm90": 2 * full.n_layers * steps,
-            "flash_attention_bwd": full.n_layers * steps}
+            "flash_attention_bwd": full.n_layers * steps,
+            "flash_attention_bwd_sm90": full.n_layers * steps}
     torch.cuda.reset_peak_memory_stats()
     log_, call = _train_main(argv, "granite-3-2b", want, _LastCall("flash_attention_bwd"))
     secs = [m["sec"] for m in log_]
@@ -4474,12 +4665,15 @@ def _lm_training(device, gen, smi: str) -> tuple:
         f"({rec['tokens_per_s']:.0f} tokens/s; first {secs[0]:.3f} s), peak memory "
         f"{rec['peak_memory_bytes'] / 2**30:.2f} GiB, losses {rec['losses']} [{smi}]")
     torch.cuda.empty_cache()
+    marks.append(("train_main", time.perf_counter()))
     prof = rec["profiled_step"] = _train_step_profile(argv)
     log(f"4k granite-3-2b profiled step: {prof['wall_ms']:.1f} ms, the card "
         f"{prof['device_busy_share']:.1%} busy; device ms by kind "
         + ", ".join(f"{k} {v:.1f}" for k, v in prof["device_ms_by_kind"].items())
         + f" [{smi}]")
     torch.cuda.empty_cache()
+    marks.append(("profiled_step", time.perf_counter()))
+    rec["seconds_by_part"] = {b: t - a for (_, a), (b, t) in zip(marks, marks[1:])}
     return rec, call
 
 
@@ -4492,7 +4686,7 @@ _TRAIN_LAUNCHES = {
 
 # a training step's kernels by kind, by name (cuBLAS's products on an H100 run
 # as sm90_xmma / nvjet / cutlass kernels)
-STEP_KINDS = (("k4_backward", r"attention_bwd_(pre|dkdv|dq)_kernel"),
+STEP_KINDS = (("k4_backward", r"attention_bwd_\w*kernel"),
               ("k4_forward", r"flash_attention(_sm90|_tiled)?_kernel"),
               ("matmul", r"gemm|xmma|nvjet|cutlass"))
 
@@ -4615,8 +4809,11 @@ def phase_training(device, smi: str) -> dict:
     gen = torch.Generator(device=device)
     gen.manual_seed(27)
     lm, k4_call = _lm_training(device, gen, smi)
+    t_lm = time.perf_counter()
     xd, k6_call = _xdeepfm_training(device, smi)
+    t_xd = time.perf_counter()
     gc, k5_call = _gcn_training(device, smi)
+    t_gc = time.perf_counter()
     launches = {}
     for r in (lm, xd, gc):
         for k, v in r["launches"].items():
@@ -4637,7 +4834,7 @@ def phase_training(device, smi: str) -> dict:
     torch.cuda.empty_cache()
     records = []
     for name, source, of, rec in (
-            ("flash_attention_bwd", "flash_attention_bwd.cu",
+            ("flash_attention_bwd", "flash_attention_bwd_sm90.cu",
              "src/repro/kernels/flash_attention.py:110", k4),
             ("embedding_bag_bwd", "embedding_bag_bwd.cu",
              "src/repro/kernels/embedding_bag.py:52", k6),
@@ -4647,7 +4844,10 @@ def phase_training(device, smi: str) -> dict:
             # the TPU kernel has no backward: the kernel it is the backward of
             "replaces": of, "backward_of": of, "launches": launches.get(name, 0),
             "matches_plain": True, **{kk: rec.get(kk) for kk in HEAD_KEYS}, "configs": [rec]})
-    record({"phase": "training", "seconds": time.perf_counter() - t_start, "card": smi,
+    t_end = time.perf_counter()
+    record({"phase": "training", "seconds": t_end - t_start, "card": smi,
+            "seconds_by_part": {"granite": t_lm - t_start, "xdeepfm": t_xd - t_lm,
+                                "gcn": t_gc - t_xd, "records": t_end - t_gc},
             "launches": launches, "granite": lm, "xdeepfm": xd, "gcn": gc})
     return {"launches": launches, "records": records}
 
@@ -4655,7 +4855,11 @@ def phase_training(device, smi: str) -> dict:
 def merge_training(library: list, train: dict, cases: dict) -> None:
     """The forward kernels' records count phase 4k's launches beside their
     other paths'; the backward kernels' records join the list with their
-    phase 3 cases."""
+    phase 3 cases, K4's taking phase 3b's backward configurations after its
+    own (phase 4k's call heads the record)."""
+    names = {rec["name"] for rec in train["records"]}
+    extra = {rec["name"]: rec["configs"] for rec in library if rec["name"] in names}
+    library[:] = [rec for rec in library if rec["name"] not in names]
     for rec in library:
         n = train["launches"].get(rec["name"], 0)
         if n:
@@ -4663,7 +4867,8 @@ def merge_training(library: list, train: dict, cases: dict) -> None:
             rec["launches_by_path"]["training"] = n
             rec["launches"] += n
     for rec in train["records"]:
-        rec["cases_checked"] = cases.get(rec["name"], 0) + 1
+        rec["configs"] += extra.get(rec["name"], [])
+        rec["cases_checked"] = cases.get(rec["name"], 0) + len(rec["configs"])
         library.append(rec)
 
 

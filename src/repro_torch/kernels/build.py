@@ -79,7 +79,13 @@ SIGNATURES = {
         _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,
         _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,
         _C.c_int64, _C.c_int64, _C.c_int64, _C.c_int64, _C.c_int64, _C.c_int64, _C.c_int64,
-        _C.c_int32, _C.c_int32, _C.c_int32, _C.c_int64, _C.c_float, _C.c_void_p,
+        _C.c_int32, _C.c_int32, _C.c_int64, _C.c_float, _C.c_void_p,
+    ], _C.c_int),
+    "flash_attention_bwd_sm90": ("flash_attention_bwd_sm90_launch", [
+        _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,
+        _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,
+        _C.c_int64, _C.c_int64, _C.c_int64, _C.c_int64, _C.c_int64, _C.c_int64, _C.c_int64,
+        _C.c_int32, _C.c_int32, _C.c_int64, _C.c_float, _C.c_void_p,
     ], _C.c_int),
     "flash_attention": ("flash_attention_launch", [
         _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,
@@ -87,7 +93,7 @@ SIGNATURES = {
         _C.c_int64, _C.c_int32, _C.c_int32, _C.c_int64, _C.c_float, _C.c_void_p,
     ], _C.c_int),
     "flash_attention_sm90": ("flash_attention_sm90_launch", [
-        _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,
+        _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,
         _C.c_int64, _C.c_int64, _C.c_int64, _C.c_int64, _C.c_int64, _C.c_int64, _C.c_int64,
         _C.c_int64, _C.c_int32, _C.c_int32, _C.c_int64, _C.c_float, _C.c_void_p,
     ], _C.c_int),

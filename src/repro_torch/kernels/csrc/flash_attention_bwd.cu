@@ -1,31 +1,30 @@
-// K4 flash_attention, backward: the gradients dq, dk and dv of online-softmax attention
-// with causal, sliding-window and GQA masks, on the CUDA cores, for float32 and bfloat16.
+// K4 flash_attention, backward, float32: the gradients dq, dk and dv of online-softmax
+// attention with causal, sliding-window and GQA masks, on the CUDA cores.
 //
 // Replaces no TPU kernel: src/repro/kernels/flash_attention.py::flash_attention_pallas has
 // no backward, and the JAX package's training differentiates its XLA attention
 // (src/repro/models/transformer.py::_attention_scores) with jax.grad.  The port's models
 // attend through K4 (flash_attention_sm90.cu, flash_attention.cu), so training needs K4's
-// backward on the card: this is it, behind ops.flash_attention's autograd Function.
+// backward on the card: this is it for float32, behind ops.flash_attention's autograd
+// Function.  bfloat16 runs on the tensor cores (flash_attention_bwd_sm90.cu); float32
+// stays here, as its forward stays on the CUDA cores: the tensor cores would run it as
+// TF32, far outside float32's tolerance.
 //
 // Computes, for q [B, Hq, S, D], k [B, Hkv, T, D], v [B, Hkv, T, Dv], the forward's output
-// o [B, Hq, S, Dv] and its gradient do (all float32 or all bfloat16; Hq a multiple of Hkv;
-// 8 <= Dv <= D <= 192, Dv <= 128), with P the softmax of scale q k^T over the keys the masks
-// keep (query positions right-aligned to the T keys, qpos = s + T - S; causal keeps
-// t <= qpos, a window keeps t > qpos - window):
+// o [B, Hq, S, Dv] and its gradient do (all float32; Hq a multiple of Hkv; 8 <= Dv <= D <=
+// 192, Dv <= 128), with P the softmax of scale q k^T over the keys the masks keep (query
+// positions right-aligned to the T keys, qpos = s + T - S; causal keeps t <= qpos, a window
+// keeps t > qpos - window):
 //     delta = rowsum(do o o),  dv = P^T do,  ds = P o (do v^T - delta),
 //     dq = scale ds k,  dk = scale ds^T q,
 // with dk and dv summed over the Hq / Hkv q heads of each kv head.  A row that keeps no key
-// has P = 0 and no gradient.  Everything accumulates in float32; the gradients are written
-// in the inputs' dtype.  Every key exists (kv_len = T): the wrapper refuses a backward
-// through a call over a prefix.
+// has P = 0 and no gradient.  Everything accumulates in float32.  Every key exists
+// (kv_len = T): the wrapper refuses a backward through a call over a prefix.
 //
 // Bound on an H100: five products (q k^T recomputed, do v^T, P^T do, dS k, dS^T q), 2 pairs
-// (3 D + 2 Dv) Hq B operations (pairs: the (query, key) pairs the masks keep), against the
-// peak of the inputs' type: 989 TFLOP/s in bfloat16 (the tensor cores, which this design does
-// not use: it widens bfloat16 to float32 on load) and 67 in float32; at training shapes it is
-// bound by operations.  This design does eight products (the logits three times: in each
-// launch) on the CUDA cores: granite-3-2b's training call takes 3.98 ms on an H100 80GB HBM3
-// at 700 W, 1.1% of its bfloat16 bound, against SDPA's backward's 0.26 (PERF.md, §6).
+// (3 D + 2 Dv) Hq B operations (pairs: the (query, key) pairs the masks keep) at the 67
+// TFLOP/s of float32 outside the tensor cores; at training shapes it is bound by
+// operations.  This design does eight products (the logits three times: in each launch).
 //
 // Design: FlashAttention-2's first backward, with no atomics, in three launches from one
 // launch function.  All three tile 64 query rows by 64 keys and hold their tiles in shared
@@ -33,8 +32,8 @@
 // hit 16 banks; 256 threads, thread (r, c) = (t / 16, t % 16) owning the 4 x 4 micro-tile of
 // rows 4r .. 4r + 3 and columns c, c + 16, c + 32, c + 48 of a 64 x 64 product.
 //   1. preprocess, a block for each (b, q head, query tile): the rows' log-sum-exp in base 2
-//      (lse, recomputed over the visible key tiles with a running max: the forward kernels
-//      keep none, and the serving paths' kernels stay as they are) and delta, into float32
+//      (lse, recomputed over the visible key tiles with a running max: the float32 forward
+//      keeps none, and the serving paths' kernels stay as they are) and delta, into float32
 //      scratch [B, Hq, S]; +inf for a row with no key, so that its P is exp2(-inf) = 0.
 //   2. dk/dv, a block for each (b, kv head, key tile), looping over the group's q heads and
 //      the query tiles the masks let see the tile: S = q k^T and dP = do v^T as 4 x 4
@@ -46,10 +45,9 @@
 // The widths are template parameters, the smallest of (64, 64), (128, 128) and (192, 128)
 // that covers (D, Dv), zero-filled past D and Dv.  Shared memory (float32): 2 x 64 x (DK + 1)
 // + 2 x 64 x (DV + 1) + 2 x 64 x 65 + 128 words: 100,352 bytes at (64, 64) (two blocks an
-// SM), 165,888 at (128, 128), 198,656 at (192, 128) (one block an SM).  A first design on
-// the CUDA cores, as K4's float32 forward began: no wgmma, TMA, or pipelined loads yet.
+// SM), 165,888 at (128, 128), 198,656 at (192, 128) (one block an SM).  It serves the
+// float32 checks of training (phase 4k's gradients at 2 layers, the card tests).
 #include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -78,17 +76,6 @@ struct Params {
   float scale, scale_log2;
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
 __device__ __forceinline__ int64_t max64(int64_t a, int64_t b) { return a > b ? a : b; }
 
@@ -99,13 +86,13 @@ __device__ __forceinline__ bool visible(const Params& p, int64_t qpos, int64_t t
 
 // dst[r * P + c] = the row (row0 + r) of a head's [rows, width] matrix, zero past its rows
 // and past width (c < W)
-template <typename T, int W, int P>
-__device__ __forceinline__ void load_tile(float* dst, const T* head, int64_t row0,
+template <int W, int P>
+__device__ __forceinline__ void load_tile(float* dst, const float* head, int64_t row0,
                                           int64_t rows, int64_t width) {
   for (int i = threadIdx.x; i < kTile * W; i += kThreads) {
     const int r = i / W, c = i - r * W;
     const int64_t row = row0 + r;
-    dst[r * P + c] = row < rows && c < width ? to_f(head[row * width + c]) : 0.0f;
+    dst[r * P + c] = row < rows && c < width ? head[row * width + c] : 0.0f;
   }
 }
 
@@ -157,7 +144,7 @@ __device__ __forceinline__ void mask_logits(const Params& p, float (&s)[4][4], i
 
 // ---------------------------------------------------------------- 1. lse and delta
 
-template <typename T, int DK, int DV>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads)
     attention_bwd_pre_kernel(const Params p, int64_t q_tiles) {
   constexpr int PK = DK + 1;
@@ -168,9 +155,9 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t b = bh / p.Hq, h = bh % p.Hq, kvh = h / p.rep;
   const int64_t s0 = tile * kTile;
   const int r = threadIdx.x / 16, cb = threadIdx.x % 16;
-  const T* qh = static_cast<const T*>(p.q) + bh * p.S * p.D;
-  const T* kh = static_cast<const T*>(p.k) + (b * p.Hkv + kvh) * p.T * p.D;
-  load_tile<T, DK, PK>(qs, qh, s0, p.S, p.D);
+  const float* qh = static_cast<const float*>(p.q) + bh * p.S * p.D;
+  const float* kh = static_cast<const float*>(p.k) + (b * p.Hkv + kvh) * p.T * p.D;
+  load_tile<DK, PK>(qs, qh, s0, p.S, p.D);
   float m[4], l[4];
 #pragma unroll
   for (int a = 0; a < 4; ++a) m[a] = -INFINITY, l[a] = 0.0f;
@@ -178,7 +165,7 @@ __global__ void __launch_bounds__(kThreads)
   key_tiles(p, s0, &k_lo, &k_hi);
   for (int64_t kt = k_lo; kt < k_hi; ++kt) {
     __syncthreads();  // the last tile's keys are read
-    load_tile<T, DK, PK>(ks, kh, kt * kTile, p.T, p.D);
+    load_tile<DK, PK>(ks, kh, kt * kTile, p.T, p.D);
     __syncthreads();
     float s[4][4] = {};
     micro_abt<DK, PK>(s, qs, ks, r, cb);
@@ -198,15 +185,15 @@ __global__ void __launch_bounds__(kThreads)
       m[a] = mn;
     }
   }
-  const T* oh = static_cast<const T*>(p.o) + bh * p.S * p.Dv;
-  const T* dh = static_cast<const T*>(p.dout) + bh * p.S * p.Dv;
+  const float* oh = static_cast<const float*>(p.o) + bh * p.S * p.Dv;
+  const float* dh = static_cast<const float*>(p.dout) + bh * p.S * p.Dv;
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     float sum = l[a], dl = 0.0f;
     const int64_t row = s0 + 4 * r + a;
     if (row < p.S) {
       for (int64_t c = cb; c < p.Dv; c += 16)
-        dl += to_f(oh[row * p.Dv + c]) * to_f(dh[row * p.Dv + c]);
+        dl += oh[row * p.Dv + c] * dh[row * p.Dv + c];
     }
 #pragma unroll
     for (int o = 8; o > 0; o >>= 1) {
@@ -222,7 +209,7 @@ __global__ void __launch_bounds__(kThreads)
 
 // ---------------------------------------------------------------- 2. dk and dv
 
-template <typename T, int DK, int DV>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads)
     attention_bwd_dkdv_kernel(const Params p, int64_t k_tiles) {
   constexpr int PK = DK + 1, PV = DV + 1, MK = DK / 16, MV = DV / 16;
@@ -239,10 +226,10 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t b = bh / p.Hkv, kvh = bh % p.Hkv;
   const int64_t t0 = tile * kTile;
   const int r = threadIdx.x / 16, cb = threadIdx.x % 16;
-  const T* kh = static_cast<const T*>(p.k) + bh * p.T * p.D;
-  const T* vh = static_cast<const T*>(p.v) + bh * p.T * p.Dv;
-  load_tile<T, DK, PK>(ks, kh, t0, p.T, p.D);
-  load_tile<T, DV, PV>(vs, vh, t0, p.T, p.Dv);
+  const float* kh = static_cast<const float*>(p.k) + bh * p.T * p.D;
+  const float* vh = static_cast<const float*>(p.v) + bh * p.T * p.Dv;
+  load_tile<DK, PK>(ks, kh, t0, p.T, p.D);
+  load_tile<DV, PV>(vs, vh, t0, p.T, p.Dv);
   float dk[4][MK] = {}, dv[4][MV] = {};
   // the query rows that see a key of [t0, t1]: causal needs qpos >= t0, a window qpos < t1 + window
   const int64_t t1 = min64(t0 + kTile, p.T) - 1;
@@ -251,13 +238,13 @@ __global__ void __launch_bounds__(kThreads)
   if (p.has_window) s_hi = min64(s_hi, t1 + p.window - 1 - (p.T - p.S));
   for (int64_t g = 0; g < p.rep && s_lo <= s_hi; ++g) {
     const int64_t hq = b * p.Hq + kvh * p.rep + g;
-    const T* qh = static_cast<const T*>(p.q) + hq * p.S * p.D;
-    const T* dh = static_cast<const T*>(p.dout) + hq * p.S * p.Dv;
+    const float* qh = static_cast<const float*>(p.q) + hq * p.S * p.D;
+    const float* dh = static_cast<const float*>(p.dout) + hq * p.S * p.Dv;
     for (int64_t qt = s_lo / kTile; qt <= s_hi / kTile; ++qt) {
       const int64_t s0 = qt * kTile;
       __syncthreads();  // the last tile's q, do, P and dS are read
-      load_tile<T, DK, PK>(qs, qh, s0, p.S, p.D);
-      load_tile<T, DV, PV>(dos, dh, s0, p.S, p.Dv);
+      load_tile<DK, PK>(qs, qh, s0, p.S, p.D);
+      load_tile<DV, PV>(dos, dh, s0, p.S, p.Dv);
       if (threadIdx.x < kTile) {
         const int64_t row = s0 + threadIdx.x;
         lse_s[threadIdx.x] = row < p.S ? p.lse[hq * p.S + row] : INFINITY;
@@ -303,8 +290,8 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   }
-  T* dkh = static_cast<T*>(p.dk) + bh * p.T * p.D;
-  T* dvh = static_cast<T*>(p.dv) + bh * p.T * p.Dv;
+  float* dkh = static_cast<float*>(p.dk) + bh * p.T * p.D;
+  float* dvh = static_cast<float*>(p.dv) + bh * p.T * p.Dv;
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int64_t t = t0 + 4 * r + a;
@@ -312,19 +299,19 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int mm = 0; mm < MK; ++mm) {
       const int64_t c = cb + 16 * mm;
-      if (c < p.D) dkh[t * p.D + c] = from_f<T>(dk[a][mm] * p.scale);
+      if (c < p.D) dkh[t * p.D + c] = dk[a][mm] * p.scale;
     }
 #pragma unroll
     for (int mm = 0; mm < MV; ++mm) {
       const int64_t c = cb + 16 * mm;
-      if (c < p.Dv) dvh[t * p.Dv + c] = from_f<T>(dv[a][mm]);
+      if (c < p.Dv) dvh[t * p.Dv + c] = dv[a][mm];
     }
   }
 }
 
 // ---------------------------------------------------------------- 3. dq
 
-template <typename T, int DK, int DV>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads)
     attention_bwd_dq_kernel(const Params p, int64_t q_tiles) {
   constexpr int PK = DK + 1, PV = DV + 1, MK = DK / 16;
@@ -340,12 +327,12 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t b = bh / p.Hq, h = bh % p.Hq, kvh = h / p.rep;
   const int64_t s0 = tile * kTile;
   const int r = threadIdx.x / 16, cb = threadIdx.x % 16;
-  const T* qh = static_cast<const T*>(p.q) + bh * p.S * p.D;
-  const T* dh = static_cast<const T*>(p.dout) + bh * p.S * p.Dv;
-  const T* kh = static_cast<const T*>(p.k) + (b * p.Hkv + kvh) * p.T * p.D;
-  const T* vh = static_cast<const T*>(p.v) + (b * p.Hkv + kvh) * p.T * p.Dv;
-  load_tile<T, DK, PK>(qs, qh, s0, p.S, p.D);
-  load_tile<T, DV, PV>(dos, dh, s0, p.S, p.Dv);
+  const float* qh = static_cast<const float*>(p.q) + bh * p.S * p.D;
+  const float* dh = static_cast<const float*>(p.dout) + bh * p.S * p.Dv;
+  const float* kh = static_cast<const float*>(p.k) + (b * p.Hkv + kvh) * p.T * p.D;
+  const float* vh = static_cast<const float*>(p.v) + (b * p.Hkv + kvh) * p.T * p.Dv;
+  load_tile<DK, PK>(qs, qh, s0, p.S, p.D);
+  load_tile<DV, PV>(dos, dh, s0, p.S, p.Dv);
   if (threadIdx.x < kTile) {
     const int64_t row = s0 + threadIdx.x;
     lse_s[threadIdx.x] = row < p.S ? p.lse[bh * p.S + row] : INFINITY;
@@ -357,8 +344,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int64_t kt = k_lo; kt < k_hi; ++kt) {
     const int64_t t0 = kt * kTile;
     __syncthreads();  // the last tile's k, v and dS are read
-    load_tile<T, DK, PK>(ks, kh, t0, p.T, p.D);
-    load_tile<T, DV, PV>(vs, vh, t0, p.T, p.Dv);
+    load_tile<DK, PK>(ks, kh, t0, p.T, p.D);
+    load_tile<DV, PV>(vs, vh, t0, p.T, p.Dv);
     __syncthreads();
     float s[4][4] = {}, dp[4][4] = {};
     micro_abt<DK, PK>(s, qs, ks, r, cb);
@@ -388,7 +375,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   }
-  T* dqh = static_cast<T*>(p.dq) + bh * p.S * p.D;
+  float* dqh = static_cast<float*>(p.dq) + bh * p.S * p.D;
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int64_t row = s0 + 4 * r + a;
@@ -396,7 +383,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int mm = 0; mm < MK; ++mm) {
       const int64_t c = cb + 16 * mm;
-      if (c < p.D) dqh[row * p.D + c] = from_f<T>(dq[a][mm] * p.scale);
+      if (c < p.D) dqh[row * p.D + c] = dq[a][mm] * p.scale;
     }
   }
 }
@@ -419,39 +406,38 @@ int launch_one(K kernel, int64_t blocks, size_t smem, const Params& p, int64_t t
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int DK, int DV>
+template <int DK, int DV>
 int launch_all(const Params& p, int64_t B, cudaStream_t s) {
   static_assert(main_smem(DK, DV) <= kMaxSmem, "the backward's shared memory");
   const int64_t q_tiles = (p.S + kTile - 1) / kTile, k_tiles = (p.T + kTile - 1) / kTile;
-  int rc = launch_one(attention_bwd_pre_kernel<T, DK, DV>, B * p.Hq * q_tiles, pre_smem(DK), p,
+  int rc = launch_one(attention_bwd_pre_kernel<DK, DV>, B * p.Hq * q_tiles, pre_smem(DK), p,
                       q_tiles, s);
   if (rc) return rc;
-  rc = launch_one(attention_bwd_dkdv_kernel<T, DK, DV>, B * p.Hkv * k_tiles, main_smem(DK, DV),
+  rc = launch_one(attention_bwd_dkdv_kernel<DK, DV>, B * p.Hkv * k_tiles, main_smem(DK, DV),
                   p, k_tiles, s);
   if (rc) return rc;
-  return launch_one(attention_bwd_dq_kernel<T, DK, DV>, B * p.Hq * q_tiles, main_smem(DK, DV), p,
+  return launch_one(attention_bwd_dq_kernel<DK, DV>, B * p.Hq * q_tiles, main_smem(DK, DV), p,
                     q_tiles, s);
 }
 
-template <typename T>
 int launch_widths(const Params& p, int64_t B, cudaStream_t s) {
-  if (p.D <= 64) return launch_all<T, 64, 64>(p, B, s);
-  if (p.D <= 128) return launch_all<T, 128, 128>(p, B, s);
-  return launch_all<T, 192, 128>(p, B, s);
+  if (p.D <= 64) return launch_all<64, 64>(p, B, s);
+  if (p.D <= 128) return launch_all<128, 128>(p, B, s);
+  return launch_all<192, 128>(p, B, s);
 }
 
 }  // namespace
 
 // Launches the three kernels on `stream` in order and returns a CUDA error code as an int
-// (0 = success).  q, k, v, o, dout, dq, dk, dv are device pointers to contiguous tensors of
-// one dtype (bf16 != 0: bfloat16, else float32); lse and delta are float32 scratch of B * Hq * S
-// words.  The caller has checked the shapes (Hq % Hkv == 0, D and Dv multiples of 8,
-// 8 <= Dv <= D <= 192, Dv <= 128, S and T at least 1).
+// (0 = success).  q, k, v, o, dout, dq, dk, dv are device pointers to contiguous float32
+// tensors; lse and delta are float32 scratch of B * Hq * S words.  The caller has checked
+// the shapes (Hq % Hkv == 0, D and Dv multiples of 8, 8 <= Dv <= D <= 192, Dv <= 128, S and
+// T at least 1).
 extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                           const void* o, const void* dout, void* dq, void* dk,
                                           void* dv, float* lse, float* delta, int64_t B,
                                           int64_t Hq, int64_t Hkv, int64_t S, int64_t T,
-                                          int64_t D, int64_t Dv, int32_t bf16, int32_t causal,
+                                          int64_t D, int64_t Dv, int32_t causal,
                                           int32_t has_window, int64_t window, float scale,
                                           void* stream) {
   if (B <= 0 || S <= 0 || T <= 0) return 0;
@@ -460,5 +446,5 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
   Params p{q, k, v, o, dout, dq, dk, dv, lse, delta, Hq, Hkv, S, T, D, Dv, Hq / Hkv,
            causal, has_window, window, scale, scale * kLog2e};
   const auto s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_widths<__nv_bfloat16>(p, B, s) : launch_widths<float>(p, B, s);
+  return launch_widths(p, B, s);
 }

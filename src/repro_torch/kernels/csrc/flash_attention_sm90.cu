@@ -14,8 +14,11 @@
 // the heads' stride: a decode step passes its preallocated cache and the filled length);
 // keys t >= L are never read, the tensor maps ending at L.  Query positions are
 // right-aligned to them, qpos = s + L - S; causal keeps t <= qpos, a window keeps
-// t > qpos - window (also without causal).  A row that keeps no key gives 0.  Logits, the softmax statistics and the
-// accumulator are float32; the output is bfloat16.
+// t > qpos - window (also without causal).  A row that keeps no key gives 0.  Logits, the
+// softmax statistics and the accumulator are float32; the output is bfloat16.  Given an
+// lse buffer (training: the backward in flash_attention_bwd_sm90.cu reads it), the kernel
+// also writes each row's base-2 log-sum-exp of scale * log2(e) * q . k, m + log2(l) over
+// the kept keys and +inf for a row that keeps none; serving passes none.
 //
 // Bound on an H100: prefill by operations, 2 (D + Dv) Hq B (visible pairs) at the 989
 // TFLOP/s of the bf16 tensor cores; decode (S = 1) by bytes, K and V read once at 3.35 TB/s.
@@ -42,24 +45,26 @@
 //     bf16 high part and a bf16 low part (P - high) and both are multiplied: the error
 //     falls to 2^-16, for 1.5x the tensor work of a single bf16 P.
 //   * Epilogue: divide by the row sum (0 -> output 0), round to bf16 in shared memory and
-//     store each row's Dv values 16 bytes at a time.
-// Layout.  A tile's D columns, padded to DP, lie in column chunks of 64 columns and a last
-// one of 64, 32 or 16; each chunk holds the tile's rows at 128, 64 or 32 bytes a row with
-// the matching TMA and wgmma swizzle (128B, 64B or 32B), so a TMA box row is a whole chunk
-// row; the unswizzled layout would need boxes 16 bytes wide, each row a copy request of
-// its own, and on an H100 held the copies to about 1.9 TB/s.  V's Dv columns, padded to
-// DV, lie in chunks the same way.  The pairs (DP, DV) built: (16, 16), (32, 32), (64, 64),
-// (80, 80), (96, 96), (128, 128) for D <= 128 (a Dv < D zero-fills V's columns past Dv),
-// and (192, 128) for D > 128: MLA's 192-wide q and k in three chunks and its 128-wide v in
-// two.  There a block holds 1 KB + 24 KB of Q + two stages of 24 KB of K and 16 KB of V,
-// 107.5 KB, so two blocks fit an SM where D = 128 (81 KB) fits two as well and D <= 80
-// four.  The heaviest row tiles (the latest positions under causal) are scheduled first.
+//     store each row's Dv values 16 bytes at a time; the lse of each row from the thread
+//     of its quad that holds column 0.
+// Layout (sm90_tiles.cuh).  A tile's D columns, padded to DP, lie in column chunks of 64
+// columns and a last one of 64, 32 or 16; each chunk holds the tile's rows at 128, 64 or 32
+// bytes a row with the matching TMA and wgmma swizzle (128B, 64B or 32B), so a TMA box row
+// is a whole chunk row; the unswizzled layout would need boxes 16 bytes wide, each row a
+// copy request of its own, and on an H100 held the copies to about 1.9 TB/s.  V's Dv
+// columns, padded to DV, lie in chunks the same way.  The pairs (DP, DV) built: (16, 16),
+// (32, 32), (64, 64), (80, 80), (96, 96), (128, 128) for D <= 128 (a Dv < D zero-fills
+// V's columns past Dv), and (192, 128) for D > 128: MLA's 192-wide q and k in three chunks
+// and its 128-wide v in two.  There a block holds 1 KB + 24 KB of Q + two stages of 24 KB
+// of K and 16 KB of V, 107.5 KB, so two blocks fit an SM where D = 128 (81 KB) fits two as
+// well and D <= 80 four.  The heaviest row tiles (the latest positions under causal) are
+// scheduled first.
 #include <cstdint>
-#include <cuda.h>  // CUtensorMap and cuTensorMapEncodeTiled's types; the function itself is
-                   // found through the runtime, so the library needs no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "sm90_tiles.cuh"
 
 namespace {
 
@@ -67,11 +72,12 @@ constexpr int kRows = 64;     // query rows a block: one warpgroup's wgmma M
 constexpr int kKeys = 64;     // keys a tile: S's wgmma N
 constexpr int kThreads = 128;
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kTensorMapError = 100000;  // + CUresult: the launch code of a failed tensor map
+static_assert(kRows == kBoxRows && kKeys == kBoxRows, "a tile is one TMA box of rows");
 
 struct Params {
   const __nv_bfloat16* q;
   __nv_bfloat16* out;
+  float* lse;    // null, or [B, Hq, S]: each row's base-2 log-sum-exp (+inf without a key)
   int64_t Hq, Hkv, S, T, D, Dv;
   int64_t L;     // kv_len: the keys that exist, the first L of each head's T rows
   int64_t rep;   // Hq / Hkv
@@ -81,169 +87,6 @@ struct Params {
   int64_t window;
   float scale_log2;  // scale * log2(e): the softmax runs in base 2
 };
-
-__device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
-__device__ __forceinline__ int64_t max64(int64_t a, int64_t b) { return a > b ? a : b; }
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading- and stride-dimension
-// byte offsets (in 16-byte units) and the swizzle (1: 128B, 2: 64B, 3: 32B).  The stride
-// offset is the distance between 8-row (K-major) or 8-key (MN-major) groups; the leading
-// offset is not read while an operand's K (K-major) or N (MN-major) extent stays inside
-// one swizzled row, as it does here
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t sbo, int layout) {
-  return static_cast<uint64_t>((addr & 0x3ffff) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>((sbo & 0x3ffff) >> 4) << 32) |
-         (static_cast<uint64_t>(layout) << 62);
-}
-
-// the column chunks of a tile with DP padded columns: every chunk but the last holds 64
-// columns, the last the rest (64, 32 or 16); a chunk of w columns has rows of 2 w bytes
-template <int DP>
-struct Chunks {
-  static constexpr int n = (DP + 63) / 64;
-  __host__ __device__ static constexpr int width(int c) { return c < n - 1 ? 64 : DP - 64 * c; }
-  // byte offset of chunk c in a tile of `rows` rows (1024-byte aligned: the swizzle
-  // pattern repeats every 1024 bytes)
-  __host__ __device__ static constexpr uint32_t offset(int c, int rows) {
-    return static_cast<uint32_t>(c) * rows * 128u;
-  }
-};
-__host__ __device__ constexpr int swizzle_layout(int w) { return w == 64 ? 1 : w == 32 ? 2 : 3; }
-// the TMA / wgmma swizzle of a chunk with rows of 2 w bytes: 16-byte unit bits [4, 7)
-// XOR address bits [7, 10), as many bits as the row has units
-__device__ __forceinline__ uint32_t swizzle(uint32_t a, int w) {
-  const uint32_t mask = w == 64 ? 7u : w == 32 ? 3u : 1u;
-  return a ^ (((a >> 7) & mask) << 4);
-}
-// byte offset of the 16-byte unit u (columns 8 u ... 8 u + 7) of row r in a tile
-template <int DP>
-__device__ __forceinline__ uint32_t unit_offset(int r, int u, int rows) {
-  const int c = u / 8;
-  const int w = Chunks<DP>::width(c);
-  return Chunks<DP>::offset(c, rows) + swizzle(r * w * 2 + (u - 8 * c) * 16, w);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keep the compiler from moving reads or writes of wgmma operands across the fence and
-// the wait: every access of d before this point happens before it
-template <int N>
-__device__ __forceinline__ void pin(float* d) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void pin(uint32_t* d) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
-}
-
-// wgmma wrappers.  Inline PTX names every accumulator register, so each shape is written
-// out.  wgmma_ss: S (+)= A B, both operands K-major in shared memory.  wgmma_rs: D += A B,
-// A from registers (4 x bf16x2 a thread), B MN-major in shared memory (transposed).
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float* d, uint64_t a, uint64_t b, int accumulate);
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t a, uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t b);
-template <>
-__device__ __forceinline__ void wgmma_rs<16>(float* d, const uint32_t* a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t* a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
 
 struct Maps {
   CUtensorMap k[3];  // K's column chunks (a chunk past K's last maps chunk 0 again)
@@ -258,13 +101,8 @@ __device__ __forceinline__ void load_tile(uint8_t* stage, uint32_t bar, const Ma
   constexpr uint32_t kKBytes = kKeys * DP * 2;
   const uint32_t dst = smem_u32(stage);
   mbar_expect_tx(bar, kKBytes + kKeys * DV * 2u);
-#pragma unroll
-  for (int c = 0; c < Chunks<DP>::n; ++c)
-    tma_load_3d(dst + Chunks<DP>::offset(c, kKeys), &maps.k[c], bar, 64 * c, key0, head);
-#pragma unroll
-  for (int c = 0; c < Chunks<DV>::n; ++c)
-    tma_load_3d(dst + kKBytes + Chunks<DV>::offset(c, kKeys), &maps.v[c], bar, 64 * c, key0,
-                head);
+  load_chunks<DP>(dst, maps.k, bar, key0, head);
+  load_chunks<DV>(dst + kKBytes, maps.v, bar, key0, head);
 }
 
 // O += P V for key step ks, V's column chunk C and the chunks after it: the chunk's key
@@ -430,13 +268,8 @@ __global__ void __launch_bounds__(kThreads, DP <= 80 ? 4 : 1)
 #pragma unroll
     for (int ks = 0; ks < kKeys / 16; ++ks)
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const float a = s[8 * ks + 2 * jj], c = s[8 * ks + 2 * jj + 1];
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(a, c);
-        const float2 hf = __bfloat1622float2(hi);
-        p_hi[ks][jj] = bf16x2_bits(hi);
-        p_lo[ks][jj] = bf16x2_bits(__floats2bfloat162_rn(a - hf.x, c - hf.y));
-      }
+      for (int jj = 0; jj < 4; ++jj)
+        split_bf16x2(s[8 * ks + 2 * jj], s[8 * ks + 2 * jj + 1], &p_hi[ks][jj], &p_lo[ks][jj]);
 
     // ---- O += P V, V MN-major: one instruction per column chunk of V (columns 64 c ...,
     // accumulator elements from 32 c)
@@ -464,6 +297,17 @@ __global__ void __launch_bounds__(kThreads, DP <= 80 ? 4 : 1)
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
     inv[h] = l[h] > 0.0f ? 1.0f / l[h] : 0.0f;
   }
+  // training keeps each row's base-2 log-sum-exp for the backward: exp2(s - lse) is then
+  // P, and 0 on a row with no key
+  if (p.lse != nullptr && (lane & 3) == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (row0 + 8 * h < nr) {
+        const int64_t R = r0 + row0 + 8 * h, s = R / p.rep, g = R - s * p.rep;
+        p.lse[(b * p.Hq + kvh * p.rep + g) * p.S + s] =
+            l[h] > 0.0f ? m[h] + log2f(l[h]) : INFINITY;
+      }
+  }
   __syncthreads();  // no wgmma reads the Q tile any more
 #pragma unroll
   for (int i = 0; i < DV / 8; ++i)
@@ -484,50 +328,6 @@ __global__ void __launch_bounds__(kThreads, DP <= 80 ? 4 : 1)
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = []() -> EncodeTiled {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr,
-                                                             12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    return reinterpret_cast<EncodeTiled>(ptr);
-  }();
-  return fn;
-}
-
-// a 3-D tensor map over the first L keys of each head of a contiguous [B * Hkv, T, D]
-// bfloat16 tensor (D: K's width or V's): boxes of {w columns, kKeys keys, 1 head} with the
-// swizzle of a 2 w-byte row; zero fill past L and past D, so no key t >= L is read
-int tensor_map(CUtensorMap* map, const void* base, int64_t heads, int64_t T, int64_t L,
-               int64_t D, int w) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(L),
-                              static_cast<cuuint64_t>(heads)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D * 2),
-                                 static_cast<cuuint64_t>(T * D * 2)};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(w), kKeys, 1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  const CUtensorMapSwizzle swz = w == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                 : w == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                           : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-                            dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kTensorMapError + static_cast<int>(r);
-}
-
 template <int DP, int DV>
 int launch(const Params& p, const void* k, const void* v, int64_t B, cudaStream_t stream) {
   // two stages: one tile loads while the other is used; the shared memory a deeper ring
@@ -535,17 +335,9 @@ int launch(const Params& p, const void* k, const void* v, int64_t B, cudaStream_
   // warps to hide latency
   constexpr int STAGES = 2;
   Maps maps;
-  // a chunk past the last is never read: it maps chunk 0 again
-  for (int c = 0; c < 3; ++c) {
-    const int rc = tensor_map(&maps.k[c], k, B * p.Hkv, p.T, p.L, p.D,
-                              Chunks<DP>::width(c < Chunks<DP>::n ? c : 0));
-    if (rc != 0) return rc;
-  }
-  for (int c = 0; c < 2; ++c) {
-    const int rc = tensor_map(&maps.v[c], v, B * p.Hkv, p.T, p.L, p.Dv,
-                              Chunks<DV>::width(c < Chunks<DV>::n ? c : 0));
-    if (rc != 0) return rc;
-  }
+  int rc = chunk_maps<DP>(maps.k, 3, k, B * p.Hkv, p.T, p.L, p.D);
+  if (rc == 0) rc = chunk_maps<DV>(maps.v, 2, v, B * p.Hkv, p.T, p.L, p.Dv);
+  if (rc != 0) return rc;
   const size_t smem = 1024 + static_cast<size_t>(kRows) * DP * 2 +
                       STAGES * static_cast<size_t>(kKeys) * (DP + DV) * 2 + STAGES * 8;
   auto kernel = flash_attention_sm90_kernel<DP, DV, STAGES>;
@@ -562,14 +354,16 @@ int launch(const Params& p, const void* k, const void* v, int64_t B, cudaStream_
 
 // Launches on `stream` and returns 0, a CUDA runtime error code, or kTensorMapError plus
 // the CUresult of cuTensorMapEncodeTiled when a tensor map cannot be made.  All pointers
-// are device pointers to contiguous bfloat16 tensors, 16-byte aligned; the caller has
+// are device pointers to contiguous bfloat16 tensors, 16-byte aligned, but lse: null, or
+// float32 [B, Hq, S] (each row's base-2 log-sum-exp, for the backward); the caller has
 // checked the shapes (Hq % Hkv == 0, D and Dv multiples of 8, 8 <= Dv <= D <= 192,
 // Dv <= 128, B and Hkv at most 65,535, S and T at least 1, 1 <= kv_len <= T).
 extern "C" int flash_attention_sm90_launch(const void* q, const void* k, const void* v,
-                                           void* out, int64_t B, int64_t Hq, int64_t Hkv,
-                                           int64_t S, int64_t T, int64_t kv_len, int64_t D,
-                                           int64_t Dv, int32_t causal, int32_t has_window,
-                                           int64_t window, float scale, void* stream) {
+                                           void* out, float* lse, int64_t B, int64_t Hq,
+                                           int64_t Hkv, int64_t S, int64_t T, int64_t kv_len,
+                                           int64_t D, int64_t Dv, int32_t causal,
+                                           int32_t has_window, int64_t window, float scale,
+                                           void* stream) {
   if (B <= 0 || S <= 0) return 0;
   if (kv_len < 1 || kv_len > T || Dv < 8 || Dv > D || Dv > 128)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -577,7 +371,7 @@ extern "C" int flash_attention_sm90_launch(const void* q, const void* k, const v
   const int64_t row_tiles = (rows + kRows - 1) / kRows;
   if (row_tiles > 0x7fffffff || T > 0x7fffffff || B * Hkv > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidConfiguration);
-  const Params p{static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(out),
+  const Params p{static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(out), lse,
                  Hq, Hkv, S, T, D, Dv, kv_len, Hq / Hkv, rows, row_tiles, causal, has_window,
                  window, scale * kLog2e};
   const auto s = static_cast<cudaStream_t>(stream);

@@ -24,12 +24,16 @@ the LM family, decode over its preallocated cache through ``kv_len``), K5
 (GCN's aggregation) and K6 (xDeepFM's two gathers); K3 has no caller.
 
 K4, K5 and K6 are ``torch.autograd.Function``s, so training differentiates
-through the kernels: K4's backward is ``flash_attention_bwd``
-(``csrc/flash_attention_bwd.cu``), K5's is K5 itself over the transposed
-rows, K6's is ``embedding_bag_bwd`` (``csrc/embedding_bag_bwd.cu``).  A
-backward, like a forward, launches its kernel for CUDA tensors and runs its
-plain version for CPU tensors; its launches count under its own name
-(``flash_attention_bwd``, ``ell_spmm_bwd``, ``embedding_bag_bwd``).
+through the kernels: K4's backward is ``flash_attention_bwd`` (two kernels,
+chosen by dtype in ``attention_bwd_kernel``: bfloat16
+``csrc/flash_attention_bwd_sm90.cu``, which reads the log-sum-exp K4's
+bfloat16 forward keeps for it, float32 ``csrc/flash_attention_bwd.cu``),
+K5's is K5 itself over the transposed rows, K6's is ``embedding_bag_bwd``
+(``csrc/embedding_bag_bwd.cu``).  A backward, like a forward, launches its
+kernel for CUDA tensors and runs its plain version for CPU tensors; its
+launches count under its own name (``flash_attention_bwd``, and the bfloat16
+kernel's also under ``flash_attention_bwd_sm90``; ``ell_spmm_bwd``,
+``embedding_bag_bwd``).
 """
 from __future__ import annotations
 
@@ -45,8 +49,8 @@ from repro_torch.kernels import ref
 # kernel name -> launches since the last reset_launches()
 LAUNCHES = {"serve_batch": 0, "label_intersect": 0, "frontier_expand": 0, "frontier_or": 0,
             "bitset_mm": 0, "flash_attention": 0, "flash_attention_sm90": 0, "ell_spmm": 0,
-            "embedding_bag": 0, "flash_attention_bwd": 0, "ell_spmm_bwd": 0,
-            "embedding_bag_bwd": 0}
+            "embedding_bag": 0, "flash_attention_bwd": 0, "flash_attention_bwd_sm90": 0,
+            "ell_spmm_bwd": 0, "embedding_bag_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -612,8 +616,11 @@ def embedding_bag_bwd(idx: torch.Tensor, dout: torch.Tensor, V: int) -> torch.Te
 
 
 # K4's kernel for each input dtype: bfloat16 on the tensor cores (wgmma),
-# float32 on the CUDA cores (the tensor cores would run it as TF32)
+# float32 on the CUDA cores (the tensor cores would run it as TF32); its
+# backward's likewise
 ATTENTION_KERNELS = {torch.bfloat16: "flash_attention_sm90", torch.float32: "flash_attention"}
+ATTENTION_BWD_KERNELS = {torch.bfloat16: "flash_attention_bwd_sm90",
+                         torch.float32: "flash_attention_bwd"}
 
 
 def attention_kernel(dtype: torch.dtype) -> str:
@@ -623,6 +630,15 @@ def attention_kernel(dtype: torch.dtype) -> str:
         return ATTENTION_KERNELS[dtype]
     except KeyError:
         raise ValueError(f"flash_attention takes float32 or bfloat16, not {dtype}") from None
+
+
+def attention_bwd_kernel(dtype: torch.dtype) -> str:
+    """The kernel ``flash_attention_bwd`` launches for inputs of ``dtype``,
+    by dtype alone as ``attention_kernel``."""
+    try:
+        return ATTENTION_BWD_KERNELS[dtype]
+    except KeyError:
+        raise ValueError(f"flash_attention_bwd takes float32 or bfloat16, not {dtype}") from None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -652,7 +668,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     float32 ``csrc/flash_attention.cu`` (the CUDA cores, counted as
     ``flash_attention``); ``attention_kernel`` picks by dtype.
     Differentiable in q, k and v where ``kv_len`` is T: the backward is
-    ``flash_attention_bwd``."""
+    ``flash_attention_bwd``; a bfloat16 call that needs a gradient also keeps
+    each row's log-sum-exp for it (``[B, Hq, S]`` float32)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if (t.dim() != 4 or not t.is_contiguous()
                 or t.dtype not in (torch.float32, torch.bfloat16)):
@@ -690,64 +707,92 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dev = _device("flash_attention", q, k, v)
     if dev.type == "cuda" and (B > 65535 or Hkv > 65535):
         raise ValueError(f"B = {B} and Hkv = {Hkv} must be at most 65,535 (grid size)")
-    return _FlashAttention.apply(q, k, v, bool(causal), window, scale, kv_len)
+    # the bfloat16 backward reads the forward's log-sum-exp (the float32 one
+    # recomputes it): kept where autograd will call the backward
+    keep_lse = (q.dtype == torch.bfloat16 and torch.is_grad_enabled()
+                and any(t.requires_grad for t in (q, k, v)))
+    return _FlashAttention.apply(q, k, v, bool(causal), window, scale, kv_len, keep_lse)
 
 
-def _flash_attention(q, k, v, causal: bool, window, scale: float, kv_len: int) -> torch.Tensor:
+def _flash_attention(q, k, v, causal: bool, window, scale: float, kv_len: int,
+                     return_lse: bool = False):
     """K4's forward on checked inputs: the kernel of q's dtype on the card,
-    the plain version on the CPU."""
+    the plain version on the CPU.  With ``return_lse`` (bfloat16 on the card)
+    also each row's base-2 log-sum-exp: ``(out, lse)``."""
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale,
-                                       kv_len=kv_len)
+                                       kv_len=kv_len, return_lse=return_lse)
     dev = q.device
     B, Hq, S, D = q.shape
     Hkv, T, Dv = k.shape[1], k.shape[2], v.shape[3]
     kernel = attention_kernel(q.dtype)
+    if return_lse and kernel != "flash_attention_sm90":
+        raise ValueError(f"K4's {q.dtype} kernel keeps no log-sum-exp")
     # aligned: the sm90 kernel writes 16 bytes at a time
     out = torch.empty((B, Hq, S, Dv), dtype=q.dtype, device=dev)
-    if B:
+    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=dev) if return_lse else None
+    if B:   # the float32 kernel takes no lse pointer; a null one asks the sm90 kernel for none
+        lse_arg = () if kernel == "flash_attention" else (lse.data_ptr() if return_lse else None,)
         _launch(kernel, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                B, Hq, Hkv, S, T, kv_len, D, Dv, int(bool(causal)), window is not None,
-                0 if window is None else int(window), scale)
-    return out
+                *lse_arg, B, Hq, Hkv, S, T, kv_len, D, Dv, int(bool(causal)),
+                window is not None, 0 if window is None else int(window), scale)
+    return (out, lse) if return_lse else out
 
 
 class _FlashAttention(torch.autograd.Function):
     """K4 with its backward ``flash_attention_bwd`` (over all T keys: a call
-    with ``kv_len < T``, a decode step's, has no backward)."""
+    with ``kv_len < T``, a decode step's, has no backward).  With
+    ``keep_lse`` (a bfloat16 call that needs a gradient) the forward keeps
+    each row's log-sum-exp for the backward (under
+    ``torch.utils.checkpoint`` the recomputed forward keeps it again)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, scale, kv_len):
-        out = _flash_attention(q, k, v, causal, window, scale, kv_len)
-        ctx.save_for_backward(q, k, v, out)
+    def forward(ctx, q, k, v, causal, window, scale, kv_len, keep_lse):
+        lse = None
+        if keep_lse:
+            out, lse = _flash_attention(q, k, v, causal, window, scale, kv_len,
+                                        return_lse=True)
+        else:
+            out = _flash_attention(q, k, v, causal, window, scale, kv_len)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (causal, window, scale, kv_len)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         causal, window, scale, kv_len = ctx.args
         if kv_len != k.shape[2]:
             raise ValueError(f"flash_attention's backward takes kv_len = T only, not "
                              f"{kv_len} of {k.shape[2]}")
         dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(), causal=causal,
-                                         window=window, scale=scale)
-        return dq, dk, dv, None, None, None, None
+                                         window=window, scale=scale, lse=lse)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
                         do: torch.Tensor, causal: bool = True, window=None,
-                        scale=None) -> tuple:
+                        scale=None, lse=None) -> tuple:
     """K4's backward: the gradients (dq, dk, dv) of ``flash_attention(q, k,
     v, causal, window, scale)`` over all T keys, given its output ``o`` and
     the output's gradient ``do`` ([B, Hq, S, Dv], q's dtype).  dk and dv sum
     over each GQA group; a row that sees no key adds nothing.  Each gradient
-    is in its input's dtype, accumulated in float32.
+    is in its input's dtype, accumulated in float32.  ``lse`` is the
+    forward's float32 ``[B, Hq, S]`` base-2 log-sum-exp of ``scale log2(e)
+    q k^T`` per row (+inf without a key), as K4's bfloat16 forward keeps it
+    in training; None recomputes it.
 
-    On the card ``csrc/flash_attention_bwd.cu`` (three launches from one
-    call, counted once as ``flash_attention_bwd``: each row's log-sum-exp and
-    ``rowsum(do o o)`` into float32 scratch, then dk and dv a key tile, then
-    dq a query tile, no atomics); on the CPU ``ref.flash_attention_bwd_ref``."""
+    On the card ``attention_bwd_kernel`` picks by dtype, and each call counts
+    once as ``flash_attention_bwd``.  bfloat16:
+    ``csrc/flash_attention_bwd_sm90.cu`` (the tensor cores; three launches:
+    delta and a zeroed float32 dq accumulator, dk and dv a 64-key tile with
+    dq's parts added atomically, dq rounded), also counted as
+    ``flash_attention_bwd_sm90``; without ``lse`` one launch of K4's
+    forward first makes it (counted as ``flash_attention_sm90``).  float32:
+    ``csrc/flash_attention_bwd.cu`` (the CUDA cores; three launches: lse and
+    delta, dk and dv a key tile, dq a query tile, no atomics), which
+    recomputes lse and takes none.  On the CPU ``ref.flash_attention_bwd_ref``
+    with ``lse``."""
     B, Hq, S, D = q.shape
     Hkv, T, Dv = k.shape[1], k.shape[2], v.shape[3]
     for name, t, shape in (("k", k, (B, Hkv, T, D)), ("v", v, (B, Hkv, T, Dv)),
@@ -759,19 +804,35 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
         raise ValueError(f"q must be contiguous and Hq = {Hq} a multiple of Hkv = {Hkv}")
     if D % 8 or Dv % 8 or not 8 <= Dv <= min(D, 128) or D > 192:
         raise ValueError(f"widths D = {D}, Dv = {Dv} outside 8 <= Dv <= D <= 192, Dv <= 128")
+    if lse is not None and (tuple(lse.shape) != (B, Hq, S) or lse.dtype != torch.float32
+                            or not lse.is_contiguous()):
+        raise ValueError(f"lse must be a contiguous float32 {(B, Hq, S)}, got {lse.dtype} "
+                         f"{tuple(lse.shape)} contiguous={lse.is_contiguous()}")
+    kernel = attention_bwd_kernel(q.dtype)
     scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
-    dev = _device("flash_attention_bwd", q, k, v, o, do)
+    tensors = (q, k, v, o, do) + (() if lse is None else (lse,))
+    dev = _device("flash_attention_bwd", *tensors)
     if dev.type == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal, window=window,
-                                           scale=scale)
-    attention_kernel(q.dtype)   # float32 or bfloat16
+                                           scale=scale, lse=lse)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=dev)
-    delta = torch.empty_like(lse)
-    if B:
-        _launch("flash_attention_bwd", dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                o.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), B, Hq, Hkv, S, T, D, Dv,
-                int(q.dtype == torch.bfloat16), int(bool(causal)), window is not None,
-                0 if window is None else int(window), scale)
+    if not B:
+        return dq, dk, dv
+    masks = (int(bool(causal)), window is not None, 0 if window is None else int(window))
+    if kernel == "flash_attention_bwd":   # float32: lse recomputed into scratch
+        lse = torch.empty((B, Hq, S), dtype=torch.float32, device=dev)
+        delta = torch.empty_like(lse)
+        _launch(kernel, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), B, Hq, Hkv, S, T, D, Dv, *masks, scale)
+        return dq, dk, dv
+    if lse is None:
+        _, lse = _flash_attention(q, k, v, causal, window, scale, T, return_lse=True)
+    delta = torch.empty((B, Hq, S), dtype=torch.float32, device=dev)
+    dq_acc = torch.empty((B, Hq, S, D), dtype=torch.float32, device=dev)   # zeroed by the kernel
+    _launch(kernel, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Hq, Hkv, S, T, D, Dv, *masks,
+            scale, count="flash_attention_bwd")
+    LAUNCHES[kernel] += 1
     return dq, dk, dv

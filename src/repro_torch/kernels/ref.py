@@ -346,7 +346,7 @@ def attention_mask(S: int, T: int, causal: bool, window, device) -> torch.Tensor
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window=None, scale=None,
-                        kv_len=None) -> torch.Tensor:
+                        kv_len=None, return_lse: bool = False):
     """K4's plain version: softmax attention in float32 with the semantics of
     ``repro.kernels.ops.flash_attention`` (the Pallas kernel's), not of
     ``repro.kernels.ref.flash_attention_ref``: a query row with no visible
@@ -359,8 +359,11 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``1/sqrt(D)``, q's width.  Only keys
     ``t < kv_len`` (default T) exist: the queries are right-aligned to
     ``kv_len`` and the rest of k and v is never read, which is attention over
-    the contiguous prefix ``k[:, :, :kv_len]``.  Holds the
-    ``[B, Hq, S, kv_len]`` logits whole."""
+    the contiguous prefix ``k[:, :, :kv_len]``.  With ``return_lse``,
+    ``(out, lse)``: lse float32 ``[B, Hq, S]``, each row's base-2
+    log-sum-exp of ``scale log2(e) q k^T`` over its kept keys (``+inf``
+    for a row that keeps none), as K4's bfloat16 kernel keeps it for the
+    backward.  Holds the ``[B, Hq, S, kv_len]`` logits whole."""
     if kv_len is not None:
         k, v = k[:, :, :kv_len], v[:, :, :kv_len]
     B, Hq, S, D = q.shape
@@ -376,19 +379,27 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.exp(logits - torch.where(torch.isinf(m), 0.0, m))   # masked -> 0
     l = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bhgst,bhtd->bhgsd", p, v.float()) / torch.where(l == 0, 1.0, l)
-    return out.reshape(B, Hq, S, v.shape[3]).to(q.dtype)
+    out = out.reshape(B, Hq, S, v.shape[3]).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(l == 0, math.inf, (torch.where(torch.isinf(m), 0.0, m) + torch.log(l))
+                      / math.log(2.0))
+    return out, lse.reshape(B, Hq, S)
 
 
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             o: torch.Tensor, do: torch.Tensor, causal: bool = True,
-                            window=None, scale=None) -> tuple:
+                            window=None, scale=None, lse=None) -> tuple:
     """K4's plain backward: the gradients (dq, dk, dv) of
     ``flash_attention_ref(q, k, v, causal, window, scale)`` (over all T keys)
     given its output ``o`` and the output's gradient ``do``, in float32 by
     the explicit formulas: P recomputed, ``delta = rowsum(dO o O)``,
     ``dV = P^T dO``, ``dS = P o (dO V^T - delta)``, ``dQ = dS K scale``,
     ``dK = dS^T Q scale``; dK and dV summed over each GQA group.  A row that
-    sees no key has P = 0 and so no gradient, as its output is 0.
+    sees no key has P = 0 and so no gradient, as its output is 0.  Given the
+    forward's ``lse`` (``flash_attention_ref(..., return_lse=True)``'s, or
+    the kernel's), P is ``exp2(scale log2(e) q k^T - lse)`` over the kept
+    keys instead of a softmax recomputed whole.
 
     Shapes as ``flash_attention_ref``'s, ``o`` and ``do`` [B, Hq, S, Dv];
     each gradient in its input's dtype.  Holds the ``[B, Hq, S, T]`` logits
@@ -404,10 +415,14 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logits = torch.einsum("bhgsd,bhtd->bhgst", qg, kf) * scale
     mask = attention_mask(S, T, causal, window, q.device)
     logits = logits.masked_fill(~mask, -math.inf)
-    m = logits.amax(dim=-1, keepdim=True)
-    p = torch.exp(logits - torch.where(torch.isinf(m), 0.0, m))   # masked -> 0
-    l = p.sum(dim=-1, keepdim=True)
-    p = p / torch.where(l == 0, 1.0, l)
+    if lse is None:
+        m = logits.amax(dim=-1, keepdim=True)
+        p = torch.exp(logits - torch.where(torch.isinf(m), 0.0, m))   # masked -> 0
+        l = p.sum(dim=-1, keepdim=True)
+        p = p / torch.where(l == 0, 1.0, l)
+    else:   # masked or keyless -> exp2(-inf) = 0
+        p = torch.exp2(logits * (1.0 / math.log(2.0))
+                       - lse.float().reshape(B, Hkv, rep, S, 1))
     delta = (dog * o.float().reshape(B, Hkv, rep, S, Dv)).sum(dim=-1, keepdim=True)
     dv = torch.einsum("bhgst,bhgsd->bhtd", p, dog)
     ds = p * (torch.einsum("bhgsd,bhtd->bhgst", dog, vf) - delta)

@@ -188,12 +188,15 @@ ATTENTION_DV_CASES = [(1, 16, 16, 256, 256, None, 192, 128, True, None),
 
 
 
-# (B, Hq, Hkv, S, T, D, Dv, causal, window): K4's backward
-# (kernels/csrc/flash_attention_bwd.cu: 64 query rows by 64 keys a tile, the
+# (B, Hq, Hkv, S, T, D, Dv, causal, window): K4's backward (both kernels,
+# kernels/csrc/flash_attention_bwd_sm90.cu for bfloat16 and
+# flash_attention_bwd.cu for float32: 64 query rows by 64 keys a tile, the
 # widths padded to (64, 64), (128, 128) or (192, 128)) at its edges: one tile,
 # a tile and one row, GQA, deepseek-7b's width, danube's (80, padded to 128)
 # under a window, S < T, MLA's (192, 128), rows that see no key (S > T causal;
-# window 0), no mask with Dv < D, D = 8 with a window alone
+# window 0), no mask with Dv < D, D = 8 with a window alone, and eight key
+# tiles adding into each dq row of the last query tiles (the bfloat16
+# kernel's atomics)
 ATTENTION_BWD_CASES = [(1, 2, 2, 64, 64, 64, 64, True, None),
                        (1, 2, 2, 65, 65, 64, 64, True, None),
                        (2, 8, 2, 130, 130, 64, 64, True, None),
@@ -205,7 +208,8 @@ ATTENTION_BWD_CASES = [(1, 2, 2, 64, 64, 64, 64, True, None),
                        (1, 2, 1, 150, 100, 64, 64, True, None),
                        (1, 4, 2, 100, 100, 32, 32, True, 0),
                        (1, 4, 4, 64, 200, 24, 8, False, None),
-                       (1, 2, 2, 33, 33, 8, 8, False, 5)]
+                       (1, 2, 2, 33, 33, 8, 8, False, 5),
+                       (2, 8, 2, 512, 512, 64, 64, True, None)]
 
 
 def make_attention_bwd_case(rng, B, Hq, Hkv, S, T, D, Dv, causal, window):
@@ -299,4 +303,9 @@ def make_spmm_bwd_case(rng, n, m, F, edge):
 # last bits) and 1e-3 of the largest.  K5's and K6's backwards: 1e-5 (rtol
 # and atol), float32 sums in other orders (K6's in atomic order).
 ATTENTION_BWD_TOL = {"float32": (0.0, 1e-4), "bfloat16": (2.0 ** -7, 1e-3)}
+# K4's bfloat16 forward's log-sum-exp (base 2, values O(10) at these
+# shapes) against the plain version's from the same bfloat16 inputs, where a
+# row sees a key (+inf exactly where it sees none): float32 logits and sums
+# of up to 512 exp2 terms in other orders
+ATTENTION_LSE_TOL = 1e-5
 SPMM_BAG_BWD_TOL = 1e-5

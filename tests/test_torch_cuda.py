@@ -31,8 +31,8 @@ import torch
 
 from frontier_cases import ARRAYS, CASES, ORDER, assert_same_level, make_case
 from library_cases import (ATTENTION_BWD_CASES, ATTENTION_BWD_TOL, ATTENTION_DV_CASES,
-                           ATTENTION_F32_CASES, BAG_BWD_CASES, BAG_CASES, BITSET_CASES,
-                           KV_LEN_CASES, SPMM_BAG_BWD_TOL, SPMM_BWD_CASES, SPMM_CASES,
+                           ATTENTION_F32_CASES, ATTENTION_LSE_TOL, BAG_BWD_CASES, BAG_CASES,
+                           BITSET_CASES, KV_LEN_CASES, SPMM_BAG_BWD_TOL, SPMM_BWD_CASES, SPMM_CASES,
                            attention_rows_seeing_a_key, case_id, make_attention_bwd_case,
                            make_bag_bwd_case, make_bag_case, make_bitset_case,
                            make_kv_len_case, make_spmm_bwd_case, make_spmm_case,
@@ -1090,16 +1090,17 @@ def test_embedding_bag_kernel_refuses_bad_ids(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", ATTENTION_BWD_CASES, ids=case_id)
 def test_flash_attention_bwd_kernel_matches_plain(cuda, rng, case, dtype):
-    """K4's backward (one ``flash_attention_bwd`` launch) against its plain
-    version on the same inputs and output, within ATTENTION_BWD_TOL; rows
-    that see no key get no gradient."""
+    """K4's backward (one ``flash_attention_bwd`` launch, through the kernel
+    of its dtype: bfloat16 ``flash_attention_bwd_sm90``, float32 the CUDA
+    cores') against its plain version on the same inputs and output, within
+    ATTENTION_BWD_TOL; rows that see no key get no gradient."""
     B, Hq, Hkv, S, T, D, Dv, causal, window = case
     q, k, v, do = (torch.from_numpy(a).to(cuda, dtype)
                    for a in make_attention_bwd_case(rng, *case))
     o = ops.flash_attention(q, k, v, causal=causal, window=window)
-    got = _launched("flash_attention_bwd",
-                    lambda: ops.flash_attention_bwd(q, k, v, o, do, causal=causal,
-                                                    window=window))
+    got = _launched(ops.attention_bwd_kernel(dtype), lambda: _launched(
+        "flash_attention_bwd",
+        lambda: ops.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)))
     exp = ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal, window=window)
     rtol, atol = ATTENTION_BWD_TOL[str(dtype).removeprefix("torch.")]
     for name, g, e in zip(("dq", "dk", "dv"), got, exp):
@@ -1133,6 +1134,55 @@ def test_flash_attention_bwd_through_autograd_on_the_card(cuda, rng):
     out = ops.flash_attention(q, k, v, kv_len=50)
     with pytest.raises(ValueError, match="kv_len"):
         out.sum().backward()
+
+
+@pytest.mark.parametrize("case", ATTENTION_BWD_CASES, ids=case_id)
+def test_flash_attention_lse_matches_plain(cuda, rng, case):
+    """K4's bfloat16 forward keeps each row's base-2 log-sum-exp for the
+    backward: within ATTENTION_LSE_TOL of the plain version's where a row
+    sees a key, +inf where it sees none; its output equal, bit for bit, to
+    the call that keeps none (serving's)."""
+    B, Hq, Hkv, S, T, D, Dv, causal, window = case
+    q, k, v, _ = (torch.from_numpy(a).to(cuda, torch.bfloat16)
+                  for a in make_attention_bwd_case(rng, *case))
+    out, lse = _launched("flash_attention_sm90", lambda: ops._flash_attention(
+        q, k, v, causal, window, D ** -0.5, T, return_lse=True))
+    assert lse.dtype == torch.float32 and lse.shape == (B, Hq, S)
+    assert torch.equal(out, ops.flash_attention(q, k, v, causal=causal, window=window))
+    _, exp = ref.flash_attention_ref(q, k, v, causal=causal, window=window, return_lse=True)
+    seen = torch.from_numpy(attention_rows_seeing_a_key(S, T, causal, window)).to(cuda)
+    assert torch.isposinf(lse[:, :, ~seen]).all()
+    torch.testing.assert_close(lse[:, :, seen], exp[:, :, seen], rtol=0, atol=ATTENTION_LSE_TOL)
+
+
+def test_flash_attention_bwd_bf16_keeps_lse_on_the_card(cuda, rng):
+    """``loss.backward()`` through a bfloat16 ``ops.flash_attention`` launches
+    the forward once (keeping lse) and the tensor-core backward once, no
+    plain version; the gradients within ATTENTION_BWD_TOL of the plain
+    backward's; a call under ``torch.no_grad`` keeps no lse."""
+    from unittest import mock
+
+    q, k, v, do = (torch.from_numpy(a).to(cuda, torch.bfloat16)
+                   for a in make_attention_bwd_case(rng, 2, 8, 2, 300, 300, 64, 64, True, None))
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    with mock.patch.object(ref, "flash_attention_bwd_ref", side_effect=AssertionError), \
+            mock.patch.object(ref, "flash_attention_ref", side_effect=AssertionError), \
+            mock.patch.object(ops, "_flash_attention", wraps=ops._flash_attention) as fwd:
+        ops.reset_launches()
+        out = ops.flash_attention(q, k, v)
+        (out * do).sum().backward()
+        torch.cuda.synchronize()
+        assert [c.kwargs.get("return_lse") for c in fwd.call_args_list] == [True]
+        with torch.no_grad():
+            ops.flash_attention(q, k, v)
+        assert fwd.call_args_list[-1].kwargs.get("return_lse") in (None, False)
+    assert {n: c for n, c in ops.LAUNCHES.items() if c} == {
+        "flash_attention_sm90": 2, "flash_attention_bwd": 1, "flash_attention_bwd_sm90": 1}
+    exp = ref.flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(), out.detach(), do)
+    rtol, atol = ATTENTION_BWD_TOL["bfloat16"]
+    for g, e in zip((q.grad, k.grad, v.grad), exp):
+        e = e.float()
+        torch.testing.assert_close(g.float(), e, rtol=rtol, atol=atol * float(e.abs().max()))
 
 
 @pytest.mark.parametrize("case", BAG_BWD_CASES, ids=case_id)

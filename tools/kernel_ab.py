@@ -1,7 +1,8 @@
 """Time versions of one of the port's CUDA kernels on one card, in turns.
 
     python3 tools/kernel_ab.py {bitset_mm,ell_spmm,flash_attention,embedding_bag,
-                                label_intersect,frontier_or} SOURCE.cu [SOURCE.cu ...]
+                                label_intersect,frontier_or,flash_attention_bwd_sm90}
+                               SOURCE.cu [SOURCE.cu ...]
 
 Each SOURCE exports the launch function that ``kernels/build.py``'s
 ``SIGNATURES`` gives the kernel: this checkout's ``csrc/<kernel>.cu``, an
@@ -21,7 +22,10 @@ serve_bulk batch for embedding_bag, 1e-5; phase 5's, exact:
 label_intersect on citeseer@1.0's labels from a host build at width 16, B =
 2,293, 4,096 and 2^20 queries of phase 4's intersection residue;
 frontier_or, fused, on the out-slab and first-wave frontier of citeseer@1.0
-and of citeseer@0.5, built as ``chip_smoke.real_out_slab`` builds them),
+and of citeseer@0.5, built as ``chip_smoke.real_out_slab`` builds them;
+flash_attention_bwd_sm90, K4's bf16 backward, at granite-3-2b's training
+call and phase 3b's ``ATTENTION_BWD_CONFIGS``, each gradient within
+``ATTENTION_BWD_TOL``, its device time the sum of its three kernels),
 then at each shape all are timed by CUDA events, first to last and back,
 twice, so every version sees the same card, and each one's kernel time is
 read from torch.profiler (for label_intersect and frontier_or also with
@@ -56,7 +60,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
 REPS = {"bitset_mm": 20, "ell_spmm": 10, "flash_attention": 5, "embedding_bag": 50,
-        "label_intersect": 200, "frontier_or": 200}
+        "label_intersect": 200, "frontier_or": 200, "flash_attention_bwd_sm90": 10}
 TIER_BATCHES = (2293, 4096, 1 << 20)   # phase 4h's median pinned residue, a batch, 2^20
 SLAB_SCALES = (1.0, 0.5)
 MAX_WAVE = 256   # the device build's wave size: 8 frontier words a row
@@ -228,6 +232,54 @@ def _slab_inputs(device) -> list:
     return shapes
 
 
+def _attention_bwd_inputs(device) -> list:
+    """K4's bf16 backward at granite-3-2b's training call (4 x 1,024, 32/8
+    heads of 64, causal) and at phase 3b's ``ATTENTION_BWD_CONFIGS``: inputs
+    from a seed, the forward's output and lse through this checkout's K4."""
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(13)
+    configs = [("granite-3-2b training call", dict(B=4, Hq=32, Hkv=8, S=1024, T=1024, D=64,
+                                                    Dv=64))] + cs.ATTENTION_BWD_CONFIGS
+    shapes = []
+    for label, c in configs:
+        B, Hq, Hkv, S, T, D, Dv = (c[k] for k in ("B", "Hq", "Hkv", "S", "T", "D", "Dv"))
+        q, k, v, do = (torch.randn(sh, generator=gen, device=device, dtype=torch.bfloat16)
+                       for sh in ((B, Hq, S, D), (B, Hkv, T, D), (B, Hkv, T, Dv),
+                                  (B, Hq, S, Dv)))
+        o, lse = ops._flash_attention(q, k, v, True, None, 1.0 / math.sqrt(D), T,
+                                      return_lse=True)
+        delta = torch.empty_like(lse)
+        dq_acc = torch.empty((B, Hq, S, D), dtype=torch.float32, device=device)
+        out = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+        exp = ref.flash_attention_bwd_ref(q, k, v, o, do, causal=True)
+
+        def check(got, exp):
+            excess = max(cs._bwd_excess(g, e) for g, e in zip(got, exp))
+            cs.check(excess <= 1, f"flash_attention_bwd_sm90 differs from its plain version: "
+                                  f"{excess} x ATTENTION_BWD_TOL")
+            return max(float((g.float() - e.float()).abs().max()) for g, e in zip(got, exp))
+
+        def reset(out=out):
+            for t in out:
+                t.zero_()
+        flops = 2 * cs._attention_pairs(S, T, True, None) * (3 * D + 2 * Dv) * Hq * B
+        shapes.append({
+            "shape": {"config": label, **c},
+            "args": [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                     lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(),
+                     *(t.data_ptr() for t in out), B, Hq, Hkv, S, T, D, Dv, 1, 0, 0,
+                     1.0 / math.sqrt(D)],
+            "out": out, "exp": exp, "check": check, "reset": reset,
+            "keep": (q, k, v, do, o, lse, delta, dq_acc), "bound": None,
+            "operations_bound_ms": flops / cs.PEAK_BF16_FLOPS_PER_S * 1e3})
+    return shapes
+
+
 def _inputs(kernel: str, device, bag_width=None) -> list:
     """One dict a shape: the arguments of one launch but the stream, the
     output, the plain result, check(out, exp) -> max abs error, reset() of
@@ -237,6 +289,8 @@ def _inputs(kernel: str, device, bag_width=None) -> list:
         return _tier_inputs(device)
     if kernel == "frontier_or":
         return _slab_inputs(device)
+    if kernel == "flash_attention_bwd_sm90":
+        return _attention_bwd_inputs(device)
     args, out, exp, check, keep = _library_inputs(kernel, device, bag_width)
     return [{"shape": None, "args": args, "out": out, "exp": exp, "check": check,
              "reset": out.zero_, "keep": keep, "bound": None}]
@@ -319,8 +373,13 @@ def main(argv=None) -> int:
             times[i].append(cs._event_ms(lambda: call(launches[i]), reps, warmup=2))
             calls[i] += (call_ms(launches[i])
                          if args.kernel in ("embedding_bag", "label_intersect") else [])
-        device_ms = [cs._kernel_device_ms(lambda: call(launch), symbols, min(reps, 50))
-                     for launch in launches]
+        if args.kernel == "flash_attention_bwd_sm90":   # a call launches three kernels
+            device_ms = [sum(cs._each_kernel_device_ms(
+                lambda: call(launch), cs.ATTENTION_BWD_SYMBOLS["bfloat16"], 50).values())
+                for launch in launches]
+        else:
+            device_ms = [cs._kernel_device_ms(lambda: call(launch), symbols, min(reps, 50))
+                         for launch in launches]
         bound = shape["bound"] or {}
         cold_ms = [cs._cold_device_ms(lambda: call(launch), symbols, min(reps, 50), flush)
                    for launch in launches] if bound else [None] * len(launches)
@@ -334,6 +393,10 @@ def main(argv=None) -> int:
                              "bound_by": bound["bound_by"], "bytes": bound["bytes"],
                              "bound_share": bound["bound_ms"] / cold,
                              "bound_share_l2_warm": bound["bound_ms"] / dev_ms})
+            if "operations_bound_ms" in shape:
+                line.update({"bound_ms": shape["operations_bound_ms"],
+                             "bound_by": "operations",
+                             "bound_share": shape["operations_bound_ms"] / dev_ms})
             if "gather_floor_ms" in bound:
                 line.update({"gather_floor_bytes": bound["gather_floor_bytes"],
                              "gather_floor_share": bound["gather_floor_ms"] / cold})
