@@ -65,7 +65,7 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      this run (``serve_batch`` once a batch, ``label_intersect`` never); the
      batch latency p50/p99 of this run;
   4b. the device wave build: ``build_oracle(g, device="cuda", impl="device")``
-     on the citeseer analogue at ``FULL_RUN_DEVICE_BUILD_SCALE`` (0.15; 1.0
+     on the citeseer analogue at ``FULL_RUN_DEVICE_BUILD_SCALE`` (0.1; 1.0
      with ``--only-device-build``), the launch counts read around exactly this
      build (``frontier_expand`` once a BFS level, ``frontier_or`` never); its
      labels byte for byte against the reference build (by ``DL_SHA256``
@@ -110,7 +110,7 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      printed, not asserted;
   4h. the dynamic oracle on phase 4's graph: ``DurableDynamicOracle(g,
      state_dir, device="cuda")``, whose epoch 0 gives phase 4's verdict on
-     all of phase 4's traffic; ``DYN_ROUNDS`` (10) rounds of ``DYN_UPDATES``
+     all of phase 4's traffic; ``DYN_ROUNDS`` (4) rounds of ``DYN_UPDATES``
      (100) DAG-preserving updates at insert share 0.6, each applied and
      published (a repair publish, a snapshot and a WAL marker), then 4,096
      of phase 4's queries on the current epoch (``serve_batch``, one launch)
@@ -149,7 +149,8 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      really split, every verdict equal to phase 4's on every rank;
   4j. the substrate's serving paths, before 4d, at ``full_config()`` widths
      with weights from the port's ``init_params`` and a seeded generator:
-     granite-3-2b in bfloat16 (prefill 1 x 4,096 and 1 x 32,768, its
+     each LM at ``SUBSTRATE_LAYERS`` (10) of its layers: granite-3-2b in
+     bfloat16 (prefill 1 x 4,096 and 1 x 32,768, its
      logits at 4,096 against the same model through K4's plain version,
      max abs and top-1 agreement within ``SUBSTRATE_BF16``; 8 prompts of
      256 fed through ``decode_step`` and 64 greedy tokens, a cache of 320),
@@ -207,6 +208,27 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      transpose): the kernels line's ``flash_attention_bwd``,
      ``embedding_bag_bwd`` and ``ell_spmm_bwd``, and 4k's launches join the
      forward kernels' counts;
+  4l. training across ranks, after 4k and before 4d: ``DIST_WORLD`` (4)
+     gloo ranks on the one card, spawned once 4i (b)'s have ended (they warm
+     up beside 4e) and let go once 4k has ended (see ``DIST_WORLD``'s comment): (a)
+     granite-3-2b at full width through ``lm_cells.make_train_step`` over a
+     (4, 1) data mesh with ZeRO-sharded AdamW, ``n_accum`` 2: in float32 at
+     2 layers one step against a one-rank step over the whole batch (loss,
+     master and moments within ``TRAIN_F32_REL``; a step without the last
+     rank's gradient rejected), in bfloat16 at ``DIST_LM["layers"]`` (2)
+     layers 2 timed steps with every rank's params equal byte for byte
+     after each (sha256), and ``quantized_psum_grads`` over a step's
+     gradient tree held to a numpy model of its formula; (b)
+     ``dist.pipeline_apply`` over 4 stages of one granite layer each, 8
+     microbatches of 1 x 1,024, float32 and bfloat16, output and gradients
+     against the sequential run (``DIST_GPIPE_REL``; two stages swapped
+     rejected); (c) ``gatedgcn.make_dstlocal_loss`` at ``full_config()`` on
+     full_graph_sm's padded shape against ``loss_fn`` on one rank within
+     JAX's bounds (the node stream in the wrong rank order rejected), and a
+     ``make_gnn_train_step`` step.  K4 and its backward counted on every
+     rank around exactly the 4-rank steps and pipeline runs; a step's
+     seconds, tokens/s, peak memory a rank, the collectives' seconds and the
+     bytes on the wire by route;
   4d. cold start and budget, on phase 4's oracle and traffic: the oracle
      saved (``persist.save_oracle``) and cold-started
      (``core.api.oracle_from_snapshot``), labels byte for byte and every
@@ -234,7 +256,8 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      (every rank's), timed at phase 4h's pinned batch size, at 4,096 and at
      2^20 queries, where its byte bound binds; K2's slab form those of
      phase 4i's mesh= build (every rank's); K4's, K5's and K6's those of
-     phases 4j and 4k (phase 3b's beside them); K1's tier form
+     phases 4j, 4k and 4l (phase 3b's beside them; 4l's every rank's); K1's
+     tier form
      and K2's slab form also after an L2 flush, the time their shares of
      the DRAM-rate bound are taken from, the tier form beside its gather
      floor too);
@@ -245,6 +268,7 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      second path on the card: its own launch counts, every degradation
      counter 0.
 
+``--only-distributed-training`` runs phases 1-3 and 4l alone.
 ``--only-device-build`` runs phases 1-3 and 4b alone, at
 ``--device-build-scale`` (default 1.0), and times
 ``frontier_expand``; in the full script the flag sets phase 4b's scale.
@@ -326,9 +350,11 @@ SPEC_COUNTS = {"spec_waves": 9144, "spec_members": 401152, "clean_waves": 753,
 DL_SHA256 = {1.0: "7168b6766ec19b8c4e564c3a445567e3465a8cec40edcf7bdebb4ec6377d01f6",
              0.5: "21dbb15a4e65983ef94b29b3501f29ee79c0e1f4dbbcd2132637998ab021007c",
              # phase 4b's device build: ``--scale 0.25 --impl reference auto
-             # --package both`` (both packages, both impls equal), and 0.15 the same way
+             # --package both`` (both packages, both impls equal), and 0.15 and
+             # 0.1 the same way
              0.25: "2fe11bfe8066e54ac280caf9c69faa2e73d14db01f525add04a7cad6bc611f09",
              0.15: "047490a39da4915250a1fbcbf4bb3275b7ac06b73e368bcef3464d2d4865090c",
+             0.1: "3deb7d508256e17ce0d102744148def36a05424dcbb3d0bdd15653631fcc790d",
              # phase 4i's mesh= build: ``--scale 0.02 --package both``
              0.02: "935b2f82fa6fd7575bf3d0efd999fa5b37bd5e5f64146369d9ab3a2b542d9174"}
 # phase 4c's host engines at citeseer@0.5, held to DL_SHA256[0.5]
@@ -357,11 +383,11 @@ HL_SHA256 = "ec4fa5ca0a742737c74f01dae1ee23eea2d790831fb9125337fc9dfa39307790"
 # at the 3,001st optimistic chunk, past the middle of the build
 CKPT_EVERY = 512
 KILL_AT_CHUNK = 3000
-# the device build (phase 4b) of the full script at 0.15 of the main graph,
-# held to DL_SHA256 there: at 1.0 it took 77-153 s, at 0.5 62-76 s and at
-# 0.25 34-48 s of a script that must end within 330 s beside phases 4j and
-# 4k; ``--only-device-build`` keeps 1.0 as its default
-FULL_RUN_DEVICE_BUILD_SCALE = 0.15
+# the device build (phase 4b) of the full script at 0.1 of the main graph,
+# held to DL_SHA256 there: at 1.0 it took 77-153 s, at 0.5 62-76 s, at 0.25
+# 34-48 s and at 0.15 30-35 s of a script that must end within 330 s beside
+# phases 4j, 4k and 4l; ``--only-device-build`` keeps 1.0 as its default
+FULL_RUN_DEVICE_BUILD_SCALE = 0.1
 
 
 def log(msg: str) -> None:
@@ -2845,9 +2871,10 @@ def phase_daemon(g, co) -> dict:
 
 # ------------------------------------------------------------------ phase 4h
 
-# benchmarks/dynamic_sweep.py's defaults: 10 rounds of 100 DAG-preserving
-# updates at an insert share of 0.6
-DYN_ROUNDS = 10
+# benchmarks/dynamic_sweep.py's defaults (100 DAG-preserving updates a round
+# at an insert share of 0.6), over 4 of its 10 rounds: about 1.6 s a round,
+# four keep the script within its target beside phase 4l
+DYN_ROUNDS = 4
 DYN_UPDATES = 100
 DYN_INSERT_FRAC = 0.6
 DYN_SEED = 0
@@ -3377,6 +3404,11 @@ SUBSTRATE_LMS = {
     "deepseek-v2-lite-16b": {"prefill": (4096,), "fill": "random",
                              "logits_vs_plain": False, "float32": True},
 }
+# 4j's LM depth: each LM keeps at most SUBSTRATE_LAYERS of its layers
+# (granite-3-2b's 320 decode steps took 16 of 4j's 50 s at all 40), widths,
+# vocabulary, prompt and cache lengths as they are; the float32 re-checks
+# run the same depth (deepseek-v2-lite's MLA_F32_LAYERS, fewer)
+SUBSTRATE_LAYERS = 10
 # deepseek-v2-lite's float32 re-check keeps 2 of its 27 layers (27 would be
 # 64 GB of float32 weights) and a capacity factor of E / k, so that no token
 # is dropped: decode against forward holds only where both route alike
@@ -3750,7 +3782,7 @@ def _lm_float32(count, mod, gen, device, cache, tok, kv_len: int) -> tuple:
 
     from repro_torch.models import transformer as tf
 
-    cfg = dataclasses.replace(mod.full_config(), dtype=torch.float32)
+    cfg = dataclasses.replace(_substrate_config(mod), dtype=torch.float32)
     rec = {}
     if cfg.mla is not None:
         mo = cfg.moe
@@ -3797,6 +3829,14 @@ def _lm_float32(count, mod, gen, device, cache, tok, kv_len: int) -> tuple:
     return rec, calls
 
 
+def _substrate_config(mod):
+    """``mod.full_config()`` at 4j's depth (SUBSTRATE_LAYERS)."""
+    import dataclasses
+
+    cfg = mod.full_config()
+    return dataclasses.replace(cfg, n_layers=min(cfg.n_layers, SUBSTRATE_LAYERS))
+
+
 def _lm(count, device, gen, mod) -> tuple:
     """An LM at full_config() in bfloat16, as SUBSTRATE_LMS says: prefill at
     each length (its last layer's K4 call captured), the logits of a prefill
@@ -3808,12 +3848,13 @@ def _lm(count, device, gen, mod) -> tuple:
     from repro_torch.models import transformer as tf
 
     run = SUBSTRATE_LMS[mod.ARCH_ID]
-    cfg = mod.full_config()
+    cfg = _substrate_config(mod)
     V = getattr(mod, "VOCAB_REAL", cfg.vocab)
     t0 = time.perf_counter()
     params = tf.init_params(cfg, gen, device)
     torch.cuda.synchronize()
-    rec = {"arch": cfg.name, "dtype": "bfloat16", "init_seconds": time.perf_counter() - t0,
+    rec = {"arch": cfg.name, "dtype": "bfloat16", "n_layers": cfg.n_layers,
+           "init_seconds": time.perf_counter() - t0,
            "param_count": cfg.param_count(), "active_param_count": cfg.active_param_count(),
            "prefill": []}
     calls = []
@@ -4620,7 +4661,7 @@ def _lm_training(device, gen, smi: str) -> tuple:
           f"the float32 gradient bound passes a dk without its last key tile: "
           f"{f32['control_dropped_key_tile_max_rel']}")
     del params
-    marks.append(("float32_check", time.perf_counter()))
+    marks.append(("float32_control_step", time.perf_counter()))
     # bfloat16 at all 40 layers, every K4 backward call held to its plain version
     params = tf.init_params(full, gen, device)
     every = _EveryBwdCall()
@@ -4843,6 +4884,7 @@ def phase_training(device, smi: str) -> dict:
             "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
             # the TPU kernel has no backward: the kernel it is the backward of
             "replaces": of, "backward_of": of, "launches": launches.get(name, 0),
+            "launches_by_path": {"training": launches.get(name, 0)},
             "matches_plain": True, **{kk: rec.get(kk) for kk in HEAD_KEYS}, "configs": [rec]})
     t_end = time.perf_counter()
     record({"phase": "training", "seconds": t_end - t_start, "card": smi,
@@ -4870,6 +4912,656 @@ def merge_training(library: list, train: dict, cases: dict) -> None:
         rec["configs"] += extra.get(rec["name"], [])
         rec["cases_checked"] = cases.get(rec["name"], 0) + len(rec["configs"])
         library.append(rec)
+
+
+# ------------------------------------------------------------------ phase 4l
+
+# Training across ranks: DIST_WORLD gloo ranks on the one card (NCCL puts no
+# two ranks on one device), spawned once phase 4i (b)'s have ended (they load
+# the kernels the script built, reach the card and warm up beside phase 4e)
+# and let go once phase 4k has ended, so that nothing runs beside them.  Each rank:
+#  (a) granite-3-2b at full_config() widths through lm_cells.make_train_step
+#      over a (DIST_WORLD, 1) data mesh, n_accum DIST_LM["n_accum"], a batch
+#      of DIST_LM["batch"] x DIST_LM["seq"] tokens (one row a rank a
+#      microbatch), the optimizer state ZeRO-sharded; first in float32 at
+#      TRAIN_F32_LAYERS layers, one step against a one-rank step over the
+#      whole batch (mesh None): its loss, and each leaf's slice of master,
+#      mu and nu, within TRAIN_F32_REL (||mine - ref|| / ||ref||), which the
+#      step with the last rank's gradient dropped from the average must
+#      exceed; then in bfloat16 at DIST_LM["layers"] layers for
+#      DIST_LM["steps"] steps (223M parameters: the depth cut to what the
+#      script's time allows, gloo moving the gradients through the host),
+#      every rank's params equal byte for byte after every step (their sha256
+#      gathered), and quantized_psum_grads over step 1's gradient tree: held
+#      to a numpy model of its formula on DIST_QUANT_MODEL_LEAVES (all ranks'
+#      gradients gathered) and its distance from the float32 average
+#      recorded;
+#  (b) dist.pipeline_apply over a (DIST_WORLD,) stage mesh: the
+#      DIST_GPIPE["layers"] layers of granite-3-2b at full width spread
+#      evenly over the stages, fn a stage's transformer._layer calls,
+#      DIST_GPIPE["microbatches"] microbatches of 1 x DIST_GPIPE["seq"]
+#      random hidden states, in float32
+#      and in bfloat16: the output and the gradients of a fixed projection of
+#      it against the sequential run in this process (each microbatch through
+#      the same layers in turn) within DIST_GPIPE_REL, which the pipeline with
+#      stages 0 and 1 swapped must exceed;
+#  (c) gatedgcn.make_dstlocal_loss at full_config() (16 layers, d 70, d_in
+#      1,433) on full_graph_sm's padded shape (a random DAG of Cora's n and m,
+#      nodes padded by _pad_to and masked), the edges laid out by
+#      graph.partition: its loss and gradients against loss_fn on this rank
+#      alone within JAX's own bounds (DIST_GNN_TOL), which the loss with the
+#      node stream gathered in the wrong rank order must exceed; one
+#      make_gnn_train_step step, its params equal on every rank.
+# K4 and its backward are counted on every rank around exactly the 4-rank
+# steps and pipeline runs (never the references).
+DIST_WORLD = 4
+DIST_RANK_TIMEOUT_S = 300     # a rank left in a collective raises after this
+DIST_WAIT_S = 900.0           # how long a rank waits for the script's go
+DIST_LM = dict(batch=8, seq=1024, n_accum=2, steps=2, layers=2)
+DIST_GPIPE = dict(microbatches=8, seq=1024, layers=4)
+# the pipeline runs the sequential run's calls on the same inputs; its
+# gradients sum the microbatches' parts in another order (the bfloat16
+# params' gradients in bfloat16, a step 2^-8), and K4's bfloat16 backward
+# adds dq in atomic order
+DIST_GPIPE_REL = {"float32": 1e-5, "bfloat16": 2e-2}
+DIST_GNN_TOL = {"loss": 5e-3, "grads": 2e-2}   # tests/test_dist.py's, max abs
+DIST_QUANT_MODEL_LEAVES = ("final_ln", "layers/ln1", "layers/ln2", "layers/wk", "layers/wv")
+
+
+def _leaf_names(tree, prefix: str = "") -> list:
+    """The leaves' paths ("layers/wk"), in tree_leaves order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in _leaf_names(tree[k], f"{prefix}{k}/")]
+    return [prefix.rstrip("/")]
+
+
+def _params_sha256(params) -> str:
+    import hashlib
+
+    import torch
+
+    from repro_torch.tree import tree_leaves
+
+    h = hashlib.sha256()
+    for p in tree_leaves(params):
+        x = p.detach()
+        x = x.view(torch.int16) if x.dtype == torch.bfloat16 else x
+        h.update(x.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _same_on_every_rank(digest: str, ag) -> bool:
+    """Whether every rank of ``ag`` holds the same sha256 digest."""
+    import torch
+
+    from repro_torch.launch.mesh import gather_rows
+
+    mine = torch.tensor(list(bytes.fromhex(digest)), dtype=torch.uint8, device="cuda")
+    every = gather_rows(mine.unsqueeze(0), ag)
+    return bool((every == every[0]).all())
+
+
+def _state_rel(state, ref_state, layout) -> float:
+    """The largest ||mine - ref|| / ||ref|| over each leaf's slice of
+    master, mu and nu, ``ref_state`` whole."""
+    from repro_torch.tree import tree_leaves
+
+    worst = 0.0
+    for part in ("master", "mu", "nu"):
+        for i, (a, b) in enumerate(zip(tree_leaves(getattr(state, part)),
+                                       tree_leaves(getattr(ref_state, part)))):
+            b = layout.part(b, i)
+            worst = max(worst, float((a - b).norm() / b.norm().clamp_min(1e-30)))
+    return worst
+
+
+def _numpy_quantized_mean(parts: list, block: int = 256) -> np.ndarray:
+    """JAX's quantized_psum_grads formula in numpy over every rank's gradient
+    of one leaf: each rank's int8 codes and block scales, the codes summed in
+    int32, the mean scale, the division by the ranks."""
+    qs, ss = [], []
+    for a in parts:
+        flat = np.pad(a.reshape(-1), (0, (-a.size) % block)).reshape(-1, block)
+        s = np.abs(flat).max(1, keepdims=True) / np.float32(127.0)
+        s = np.where(s == 0, np.float32(1.0), s).astype(np.float32)
+        qs.append(np.clip(np.round(flat / s), -127, 127).astype(np.int32))
+        ss.append(s)
+    n = len(parts)
+    deq = sum(qs).astype(np.float32) * (sum(ss) / np.float32(n))
+    return deq.reshape(-1)[:parts[0].size].reshape(parts[0].shape) / np.float32(n)
+
+
+def _dist_lm(rank: int, world: int, timeout) -> tuple:
+    """Phase 4l (a) on this rank: see the comment above DIST_WORLD.  Returns
+    the record and the launches of the 4-rank steps."""
+    import contextlib
+    import dataclasses
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.configs import granite_3_2b, lm_cells
+    from repro_torch.data.synth import lm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import axis_group, form_mesh, gather_rows, sum_over
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw as adamw_mod
+    from repro_torch.optim import quantized_psum_grads, zero_init
+    from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
+
+    device = torch.device("cuda", 0)
+    mesh = form_mesh((world, 1), ("data", "model"), device_type="cuda", timeout=timeout)
+    ag = axis_group(mesh, ("data",))
+    full = granite_3_2b.full_config()
+    B, S, A, steps = DIST_LM["batch"], DIST_LM["seq"], DIST_LM["n_accum"], DIST_LM["steps"]
+    rec = {"mesh": [world, 1], **DIST_LM}
+    marks = [("start", time.perf_counter())]
+    # the step's two exchanges timed apart (synchronised around), by step
+    original, gather = lm_cells._mean_parts, adamw_mod.gather_rows
+    coll, kept, label = {}, {}, [None]
+
+    def timed(kind, fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        book = coll.setdefault(label[0], {"grads_reduce_scatter": 0.0, "params_all_gather": 0.0})
+        book[kind] += time.perf_counter() - t0
+        return out
+
+    def timed_mean(acc, lay, n_accum):
+        first = label[0] == "bfloat16 step 0"
+        if first:   # its gradient tree: this rank's estimate, then its slice of the mean
+            kept["local"] = [a / n_accum for a in acc]
+        parts = timed("grads_reduce_scatter", original, acc, lay, n_accum)
+        if first:
+            kept["mean"] = parts
+        return parts
+
+    def timed_gather(part, group):
+        return timed("params_all_gather", gather, part, group)
+
+    def fresh(cfg):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(29)
+        return tf.init_params(cfg, gen, device)
+
+    def run_step(cfg, step_mesh, batch, name):
+        params = fresh(cfg)
+        layout = lm_cells.opt_layout(cfg, params, step_mesh)
+        state = zero_init(params, layout)
+        label[0] = name
+        params, state, metrics = lm_cells.make_train_step(cfg, A, step_mesh)(params, state,
+                                                                             batch)
+        torch.cuda.synchronize()
+        marks.append((name, time.perf_counter()))
+        return params, state, metrics, layout
+
+    patches = contextlib.ExitStack()
+    patches.enter_context(mock.patch.object(lm_cells, "_mean_parts", timed_mean))
+    patches.enter_context(mock.patch.object(adamw_mod, "gather_rows", timed_gather))
+    with patches:
+        # ---- float32 at TRAIN_F32_LAYERS: 4 ranks against one, and the control
+        cfg = dataclasses.replace(full, n_layers=TRAIN_F32_LAYERS, dtype=torch.float32)
+        batch = lm_batch(0, 0, B, S, full.vocab, device=device)
+        ops.reset_launches()
+        _, state, metrics, layout = run_step(cfg, mesh, batch, "float32 step")
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        want = {"flash_attention": 2 * cfg.n_layers * A, "flash_attention_bwd": cfg.n_layers * A}
+        check(launches == want, f"rank {rank} float32 step launches {launches}, not {want}")
+        _, ref_state, ref_metrics, _ = run_step(cfg, None, batch, "float32 one-rank step")
+        loss_rel = abs(float(metrics["loss"]) - float(ref_metrics["loss"])) / abs(
+            float(ref_metrics["loss"]))
+        state_rel = _state_rel(state, ref_state, layout)
+        del state
+
+        def dropped(acc, lay, n_accum):   # the last rank's gradient left out of the sum
+            if lay.group.index == lay.group.size - 1:
+                for a in acc:
+                    a.zero_()
+            return timed_mean(acc, lay, n_accum)
+
+        with mock.patch.object(lm_cells, "_mean_parts", dropped):
+            _, state, _, _ = run_step(cfg, mesh, batch, "float32 control step")
+        control_rel = _state_rel(state, ref_state, layout)
+        del state, ref_state
+        torch.cuda.empty_cache()
+        check(loss_rel <= TRAIN_F32_REL and state_rel <= TRAIN_F32_REL,
+              f"rank {rank}: the float32 4-rank step against one rank: loss {loss_rel}, state "
+              f"{state_rel}, bound {TRAIN_F32_REL}")
+        check(control_rel > TRAIN_F32_REL, f"rank {rank}: the bound passes a step without "
+              f"the last rank's gradient: {control_rel}")
+        rec["float32_check"] = {
+            "n_layers": cfg.n_layers, "loss": float(metrics["loss"]),
+            "loss_one_rank": float(ref_metrics["loss"]), "loss_rel": loss_rel,
+            "state_max_rel": state_rel, "bound": TRAIN_F32_REL,
+            "control_dropped_rank_max_rel": control_rel, "launches": launches}
+        # ---- bfloat16 at DIST_LM["layers"], timed
+        cfg = dataclasses.replace(full, n_layers=DIST_LM["layers"])
+        params = fresh(cfg)
+        layout = lm_cells.opt_layout(cfg, params, mesh)
+        state = zero_init(params, layout)
+        step = lm_cells.make_train_step(cfg, A, mesh)
+        secs, losses, equal = [], [], []
+        want = {"flash_attention_sm90": 2 * cfg.n_layers * A,
+                "flash_attention_bwd": cfg.n_layers * A,
+                "flash_attention_bwd_sm90": cfg.n_layers * A}
+        torch.cuda.reset_peak_memory_stats()
+        for s in range(steps):
+            batch = lm_batch(0, s, B, S, full.vocab, device=device)
+            label[0] = f"bfloat16 step {s}"
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            params, state, metrics = step(params, state, batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+            check(launches == want, f"rank {rank} bfloat16 step {s} launches {launches}")
+            losses.append(float(metrics["loss"]))
+            equal.append(_same_on_every_rank(_params_sha256(params), ag))
+            check(equal[-1], f"rank {rank}: the params differ between ranks after step {s}")
+        check(all(math.isfinite(x) for x in losses), f"rank {rank}: losses {losses}")
+        peak = torch.cuda.max_memory_allocated()
+        marks.append(("bfloat16_steps", time.perf_counter()))
+    # ---- the int8 all-reduce over step 0's gradient tree
+    local, mean = kept.pop("local"), kept.pop("mean")
+    names = _leaf_names(params)
+    _, treedef = tree_flatten(params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    q = tree_leaves(quantized_psum_grads(tree_unflatten(treedef, local), mesh))
+    torch.cuda.synchronize()
+    q_secs = time.perf_counter() - t0
+    # its distance from the float32 average, whose slices this rank holds:
+    # the sharded leaves' squares summed over the ranks, the whole ones' once
+    sq = torch.zeros((2, 2), dtype=torch.float64, device=device)
+    for i, (a, b) in enumerate(zip(q, mean)):
+        sq[int(layout.dims[i] is None)] += torch.stack(
+            [(layout.part(a, i) - b).double().square().sum(), b.double().square().sum()])
+    sq = sum_over(sq[0], ag) + sq[1]
+    diff, base = float(sq[0].sqrt()), float(sq[1].sqrt())
+    model = {}
+    for name in DIST_QUANT_MODEL_LEAVES:
+        i = names.index(name)
+        every = gather_rows(local[i].unsqueeze(0), ag).cpu().numpy()
+        want_q = _numpy_quantized_mean(list(every))
+        got_q = q[i].cpu().numpy()
+        model[name] = {"elements": int(got_q.size),
+                       "max_abs_vs_model": float(np.abs(got_q - want_q).max())}
+        check(np.array_equal(got_q, want_q), f"rank {rank}: quantized_psum_grads on {name} "
+              f"differs from the numpy model by {model[name]['max_abs_vs_model']}")
+    del local, mean, q
+    torch.cuda.empty_cache()
+    marks.append(("quantized_psum_grads", time.perf_counter()))
+    rec["seconds_by_part"] = {b: t - a for (_, a), (b, t) in zip(marks, marks[1:])}
+    P = world
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    n_blocks = sum(-(-p.numel() // 256) for p in tree_leaves(params))
+    n_sharded = sum(p.numel() for p, d in zip(tree_leaves(params), layout.dims)
+                    if d is not None)
+    n_whole = n_params - n_sharded
+    rec["bfloat16"] = {
+        "n_layers": cfg.n_layers, "param_count": n_params, "zero_sharded_params": n_sharded,
+        "step_seconds": secs, "tokens_per_s": B * S / min(secs), "losses": losses,
+        "grad_norm": float(metrics["grad_norm"]), "params_equal_every_step": equal,
+        "peak_memory_bytes": peak, "launches_a_step": want,
+        # the bytes this rank sends a step, as a ring algorithm sends them
+        "wire_bytes_a_step": {
+            "reduce_scatter float32 gradients (the ZeRO-sharded leaves)":
+                (P - 1) * 4 * n_sharded // P,
+            "all_reduce float32 gradients (the whole leaves)": 2 * (P - 1) * 4 * n_whole // P,
+            "all_gather bfloat16 params (the ZeRO-sharded leaves)": (P - 1) * 2 * n_sharded // P,
+            "all_reduce small (label counts, losses, the norm's squares)":
+                2 * (P - 1) * (8 * A + 4 * A + 4) // P},
+        "quantized_psum_grads": {
+            "seconds": q_secs, "rel_distance_from_float32_average": diff / base,
+            "wire_bytes": {"all_gather int8 codes": (P - 1) * 256 * n_blocks,
+                           "all_gather float32 scales": (P - 1) * 4 * n_blocks},
+            "numpy_model": model}}
+    rec["collective_seconds"] = coll
+    return rec, _add_counts({k: v * steps for k, v in want.items()},
+                            rec["float32_check"]["launches"])
+
+
+def _add_counts(a: dict, b: dict) -> dict:
+    return {k: a.get(k, 0) + b.get(k, 0) for k in {**a, **b}}
+
+
+def _dist_gpipe(rank: int, world: int, timeout) -> tuple:
+    """Phase 4l (b) on this rank: see the comment above DIST_WORLD."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import granite_3_2b
+    from repro_torch.dist import pipeline_apply
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import form_mesh
+    from repro_torch.models import transformer as tf
+
+    device = torch.device("cuda", 0)
+    mesh = form_mesh((world,), ("stage",), device_type="cuda", timeout=timeout)
+    M, S = DIST_GPIPE["microbatches"], DIST_GPIPE["seq"]
+    per = DIST_GPIPE["layers"] // world
+    rec, total = {"mesh": [world], "layers_a_stage": per, **DIST_GPIPE}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        cfg = dataclasses.replace(granite_3_2b.full_config(), n_layers=DIST_GPIPE["layers"],
+                                  dtype=dtype, remat=False)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(31)
+        layers = tf.init_params(cfg, gen, device)["layers"]
+        x = torch.randn((M, 1, S, cfg.d_model), generator=gen, device=device).to(dtype)
+        proj = torch.randn((M, 1, S, cfg.d_model), generator=gen, device=device)
+        cos, sin = tf._angles(torch.arange(S, device=device), tf._rope_dim(cfg), cfg.rope_theta)
+
+        def fn(p, mb):
+            for l in range(per):
+                mb = tf._layer(cfg, {k: v[l] for k, v in p.items()}, mb, cos, sin)[0]
+            return mb
+
+        def stage(s):
+            return {k: v[s * per:(s + 1) * per][None].detach().clone().requires_grad_(True)
+                    for k, v in layers.items()}
+
+        mine = stage(rank)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        out = pipeline_apply(mine, x, fn, mesh)
+        grads = torch.autograd.grad((out.float() * proj).sum(), list(mine.values()))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        calls = (M + world - 1) * per
+        want = {ops.attention_kernel(dtype): calls, "flash_attention_bwd": calls}
+        if dtype == torch.bfloat16:
+            want["flash_attention_bwd_sm90"] = calls
+        check(launches == want, f"rank {rank} GPipe {name} launches {launches}, not {want}")
+        total = _add_counts(total, launches)
+        # the sequential run in this process: each microbatch through the layers in turn
+        whole = {k: v.detach().clone().requires_grad_(True) for k, v in layers.items()}
+        ref = []
+        for i in range(M):
+            h = x[i]
+            for l in range(DIST_GPIPE["layers"]):
+                h = tf._layer(cfg, {k: v[l] for k, v in whole.items()}, h, cos, sin)[0]
+            ref.append(h)
+        ref = torch.stack(ref)
+        ref_grads = torch.autograd.grad((ref.float() * proj).sum(), list(whole.values()))
+
+        def rel(a, b):
+            return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+
+        out_rel = rel(out, ref)
+        grad_rel = max(rel(g[0], r[rank * per:(rank + 1) * per])
+                       for g, r in zip(grads, ref_grads))
+        # the control: stages 0 and 1 swapped
+        swap = {0: 1, 1: 0}.get(rank, rank)
+        with torch.no_grad():
+            control = pipeline_apply(stage(swap), x, fn, mesh)
+        control_rel = rel(control, ref)
+        bound = DIST_GPIPE_REL[name]
+        check(out_rel <= bound and grad_rel <= bound,
+              f"rank {rank} GPipe {name}: output {out_rel}, gradients {grad_rel}, bound {bound}")
+        check(control_rel > bound, f"rank {rank} GPipe {name}: the bound passes two stages "
+              f"swapped: {control_rel}")
+        rec[name] = {"seconds": secs, "tokens_per_s": M * S / secs, "launches": launches,
+                     "out_rel": out_rel, "grad_max_rel": grad_rel, "bound": bound,
+                     "control_swapped_stages_rel": control_rel}
+        del out, grads, ref, ref_grads, control, whole, mine, layers
+        torch.cuda.empty_cache()
+    return rec, total
+
+
+def _dist_gatedgcn(rank: int, world: int, timeout) -> dict:
+    """Phase 4l (c) on this rank: see the comment above DIST_WORLD."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.configs import gatedgcn_cfg
+    from repro_torch.configs.gnn_cells import GNN_SHAPES, make_gnn_train_step, shape_dims
+    from repro_torch.graph.generators import random_dag
+    from repro_torch.graph.partition import partition_edges_by_dst
+    from repro_torch.launch.mesh import axis_group, form_mesh
+    from repro_torch.models.gnn import gatedgcn
+    from repro_torch.models.gnn.layers import GraphBatch
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_leaves
+
+    device = torch.device("cuda", 0)
+    mesh = form_mesh((world,), ("data",), device_type="cuda", timeout=timeout)
+    cfg = gatedgcn_cfg.full_config()
+    info = GNN_SHAPES["full_graph_sm"]
+    n_pad = shape_dims("full_graph_sm")[0]
+    g = random_dag(info["n"], info["m"], seed=7)
+    src, dst, mask, width = partition_edges_by_dst(g, world, n_pad=n_pad)
+    rng = np.random.default_rng(7)
+
+    def t(a):
+        return torch.from_numpy(a).to(device)
+
+    batch = GraphBatch(
+        x=t(rng.standard_normal((n_pad, cfg.d_in)).astype(np.float32)), edge_src=t(src),
+        edge_dst=t(dst), edge_mask=t(mask), node_mask=t(np.arange(n_pad) < g.n),
+        edge_attr=t(rng.standard_normal((src.shape[0], cfg.d_edge_in)).astype(np.float32)),
+        y=t(rng.integers(0, cfg.n_classes, n_pad).astype(np.int32)))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(33)
+    params = gatedgcn.init_params(cfg, gen, device)
+    leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+
+    def loss_and_grads(loss_fn):
+        loss = loss_fn(params, batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+        torch.cuda.synchronize()
+        return float(loss), grads
+
+    def err(got):   # each bound's share reached, the larger
+        loss, grads = got
+        return max(abs(loss - base[0]) / DIST_GNN_TOL["loss"],
+                   max(float((a - b).abs().max()) for a, b in zip(grads, base[1]))
+                   / DIST_GNN_TOL["grads"])
+
+    base = loss_and_grads(lambda p, b: gatedgcn.loss_fn(cfg, p, b))
+    dstlocal = gatedgcn.make_dstlocal_loss(cfg, mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = loss_and_grads(dstlocal)
+    secs = time.perf_counter() - t0
+    excess = err(got)
+    gather = gatedgcn._gather_nodes
+    with mock.patch.object(gatedgcn, "_gather_nodes",
+                           lambda h, ag: gather(h, ag).roll(h.shape[0], 0)):
+        control = err(loss_and_grads(dstlocal))
+    check(excess <= 1, f"rank {rank} gatedgcn dst-local: {excess} x {DIST_GNN_TOL}")
+    check(control > 1, f"rank {rank} gatedgcn dst-local: the bounds pass the node stream "
+          f"in the wrong rank order ({control} x)")
+    state = adamw_init(params)
+    params, state, metrics = make_gnn_train_step(dstlocal, mesh)(params, state, batch)
+    check(abs(float(metrics["loss"]) - got[0]) <= 1e-6, "the step's loss differs")
+    equal = _same_on_every_rank(_params_sha256(params), axis_group(mesh, ("data",)))
+    check(equal, f"rank {rank}: gatedgcn's params differ between ranks after a step")
+    return {"mesh": [world], "n": g.n, "n_pad": n_pad, "m": g.m, "edges_a_rank": width,
+            "loss": got[0], "loss_one_rank": base[0], "seconds_loss_and_grads": secs,
+            "max_share_of_bounds": excess, "control_wrong_order_share": control,
+            "bounds": DIST_GNN_TOL, "params_equal_after_step": equal}
+
+
+def _dist_rank(rank: int, tmp: str, t0: float) -> None:
+    """Phase 4l, one rank (spawned): waits for the script's go, then (a),
+    (b) and (c); exits non-zero on any failure."""
+    global _T0
+    _T0 = t0
+    d = pathlib.Path(tmp)
+    with open(d / f"rank{rank}.log", "w") as logf, contextlib.redirect_stdout(logf):
+        try:
+            _dist_rank_phases(rank, d)
+        except BaseException:
+            import traceback
+
+            traceback.print_exc(file=logf)
+            logf.flush()
+            os._exit(1)
+
+
+def _dist_warm_up(device) -> None:
+    """This process's first use of what phase 4l's steps run (the kernels'
+    modules, cuBLAS, K4 in both dtypes forward and backward, gloo's path for
+    CUDA tensors), at toy size, before the wait: it cost the first measured
+    step about 9 s otherwise."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import granite_3_2b
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_leaves
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = dataclasses.replace(granite_3_2b.full_config(), n_layers=1, vocab=256, dtype=dtype)
+        params = tf.init_params(cfg, gen, device)
+        tok = torch.randint(0, cfg.vocab, (1, 128), generator=gen, device=device)
+        leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+        torch.autograd.grad(tf.lm_loss(cfg, params, {"tokens": tok, "labels": tok}), leaves)
+    x = torch.ones(4 * DIST_WORLD, device=device)
+    dist.all_reduce(x)
+    dist.all_gather_into_tensor(torch.empty(4 * DIST_WORLD ** 2, device=device), x)
+    dist.reduce_scatter_tensor(torch.empty(4, device=device), x)
+    torch.cuda.synchronize()
+
+
+def _dist_rank_phases(rank: int, d: pathlib.Path) -> None:
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(2)
+    torch.cuda.set_device(0)
+    torch.cuda.init()
+    timeout = datetime.timedelta(seconds=DIST_RANK_TIMEOUT_S)
+    dist.init_process_group("gloo", store=dist.FileStore(str(d / "store"), DIST_WORLD),
+                            rank=rank, world_size=DIST_WORLD, timeout=timeout)
+    try:
+        t0 = time.perf_counter()
+        _dist_warm_up(torch.device("cuda", 0))
+        warm_up = time.perf_counter() - t0
+        while not (d / "go").exists():
+            check(time.perf_counter() - t0 < DIST_WAIT_S, "the script never let us go")
+            time.sleep(0.05)
+        rec = {"rank": rank, "warm_up_seconds": warm_up,
+               "waited_seconds": time.perf_counter() - t0 - warm_up}
+        t0 = time.perf_counter()
+        rec["lm"], lm_launches = _dist_lm(rank, DIST_WORLD, timeout)
+        t1 = time.perf_counter()
+        rec["gpipe"], pipe_launches = _dist_gpipe(rank, DIST_WORLD, timeout)
+        t2 = time.perf_counter()
+        rec["gatedgcn"] = _dist_gatedgcn(rank, DIST_WORLD, timeout)
+        rec["seconds_by_part"] = {"lm": t1 - t0, "gpipe": t2 - t1,
+                                  "gatedgcn": time.perf_counter() - t2}
+        rec["launches"] = _add_counts(lm_launches, pipe_launches)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    (d / f"rank{rank}.json").write_text(json.dumps(rec))
+
+
+def start_dist_ranks() -> tuple:
+    """Spawn phase 4l's ranks (their output to files in a temporary
+    directory); they reach the card and wait for ``release_dist_ranks``."""
+    import multiprocessing
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_4l_")
+    ctx = multiprocessing.get_context("spawn")
+    ranks = [ctx.Process(target=_dist_rank, args=(r, tmp, _T0), daemon=True)
+             for r in range(DIST_WORLD)]
+    for p in ranks:
+        p.start()
+    return ranks, tmp
+
+
+def release_dist_ranks(started) -> None:
+    """Let phase 4l's ranks run: the script runs nothing beside them from
+    here until ``finish_dist_ranks`` returns."""
+    (pathlib.Path(started[1]) / "go").touch()
+
+
+def finish_dist_ranks(started, smi: str, timeout: float = 300.0) -> dict:
+    """Wait for phase 4l's ranks, relay their records, fail if any failed;
+    returns the launches their paths made, summed over the ranks."""
+    ranks, tmp = started
+    t_start = time.perf_counter()
+    t_end = t_start + timeout
+    for p in ranks:
+        p.join(max(t_end - time.perf_counter(), 0.0))
+    d = pathlib.Path(tmp)
+    recs = []
+    for r, p in enumerate(ranks):
+        out = d / f"rank{r}.json"
+        if p.exitcode != 0 or not out.exists():
+            log((d / f"rank{r}.log").read_text() if (d / f"rank{r}.log").exists() else "")
+        check(p.exitcode == 0 and out.exists(), f"phase 4l rank {r} failed, exit {p.exitcode}")
+        recs.append(json.loads(out.read_text()))
+    launches = {}
+    for r in recs:
+        launches = _add_counts(launches, r["launches"])
+    for name in ("flash_attention_sm90", "flash_attention_bwd"):
+        check(all(r["launches"].get(name, 0) > 0 for r in recs),
+              f"phase 4l: a rank launched no {name}")
+    record({"phase": "distributed_training", "world": DIST_WORLD, "process_group": "gloo",
+            "seconds": time.perf_counter() - t_start, "card": smi, "launches": launches,
+            "ranks": recs})
+    r0 = recs[0]
+    lm, bf = r0["lm"], r0["lm"]["bfloat16"]
+    log(f"4l granite-3-2b on {DIST_WORLD} gloo ranks, ZeRO AdamW: float32 at "
+        f"{lm['float32_check']['n_layers']} layers {lm['float32_check']['state_max_rel']:.2e} of a "
+        f"one-rank step (bound {TRAIN_F32_REL}, a dropped rank "
+        f"{lm['float32_check']['control_dropped_rank_max_rel']:.3f}); bfloat16 at "
+        f"{bf['n_layers']} layers, step {min(bf['step_seconds']):.3f} s "
+        f"({bf['tokens_per_s']:.0f} tokens/s), gradient reduce-scatter "
+        f"{lm['collective_seconds']['bfloat16 step 1']['grads_reduce_scatter']:.3f} s, params "
+        f"all-gather {lm['collective_seconds']['bfloat16 step 1']['params_all_gather']:.3f} s, "
+        f"peak {bf['peak_memory_bytes'] / 2**30:.2f} GiB a rank; int8 all-reduce "
+        f"{bf['quantized_psum_grads']['rel_distance_from_float32_average']:.4f} from float32 "
+        f"[{smi}]")
+    gp, gc = r0["gpipe"], r0["gatedgcn"]
+    log("4l GPipe over " + ", ".join(
+        f"{k}: output {gp[k]['out_rel']:.2e}, gradients {gp[k]['grad_max_rel']:.2e} (swapped "
+        f"stages {gp[k]['control_swapped_stages_rel']:.3f}), {gp[k]['seconds']:.3f} s"
+        for k in ("float32", "bfloat16")) + f" [{smi}]")
+    log(f"4l gatedgcn dst-local: {gc['max_share_of_bounds']:.3f} of the bounds (wrong rank "
+        f"order {gc['control_wrong_order_share']:.1f} x), {gc['seconds_loss_and_grads']:.3f} s "
+        f"[{smi}]")
+    return launches
+
+
+def stop_dist_ranks(started) -> None:
+    import shutil
+
+    ranks, tmp = started
+    for p in ranks:
+        if p.is_alive():
+            p.kill()
+        p.join()
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def merge_distributed(library: list, launches: dict) -> None:
+    """The K4 records count phase 4l's launches (every rank's) beside
+    their other paths'."""
+    for rec in library:
+        n = launches.get(rec["name"], 0)
+        if n:
+            rec.setdefault("launches_by_path", {"kernel_library": rec["launches"]})
+            rec["launches_by_path"]["distributed_training"] = n
+            rec["launches"] += n
 
 
 # ------------------------------------------------------------------ phase 4d
@@ -5631,6 +6323,8 @@ def main(argv=None) -> int:
                     help="run phases 1-3, 4 and 4h (the dynamic oracle) only")
     ap.add_argument("--only-multi-device", action="store_true",
                     help="run phases 1-4 and 4i (the multi-device modes) only")
+    ap.add_argument("--only-distributed-training", action="store_true",
+                    help="run phases 1-3 and 4l (training across ranks) only")
     ap.add_argument("--publish-stall", type=float, default=0.0, metavar="S",
                     help="stall phase 4h's daemon publish S seconds more at its fault "
                          "site dynamic.publish (default 0: the publish as it is)")
@@ -5645,9 +6339,10 @@ def main(argv=None) -> int:
     # the way out, however the run ends
     child = None
     if not (args.only_device_build or args.only_kernels or args.only_dynamic
-            or args.only_multi_device or args.only_substrate or args.only_training):
+            or args.only_multi_device or args.only_substrate or args.only_training
+            or args.only_distributed_training):
         child = start_host_engines()
-    children = {"host_engines": child, "mesh_ranks": None}
+    children = {"host_engines": child, "mesh_ranks": None, "dist_ranks": None}
     try:
         return run(args, children)
     finally:
@@ -5655,12 +6350,14 @@ def main(argv=None) -> int:
             stop_host_engines(child)
         if children["mesh_ranks"] is not None:
             stop_mesh_ranks(children["mesh_ranks"])
+        if children["dist_ranks"] is not None:
+            stop_dist_ranks(children["dist_ranks"])
 
 
 def run(args, children: dict) -> int:
     """The phases of ``main``'s arguments; ``children`` holds phase 4c's
-    child process (the full script) and phase 4i's ranks, started here
-    after 4i (a) (they load the kernels the script built)."""
+    child process (the full script) and phase 4i's and 4l's ranks, started
+    here after 4i (a) (they load the kernels the script built)."""
     import torch
 
     t_start = time.perf_counter()
@@ -5680,6 +6377,11 @@ def run(args, children: dict) -> int:
     elif args.only_training:
         kernels = []
         merge_training(kernels, phase_training(device, smi_line), cases)
+    elif args.only_distributed_training:
+        dist_ranks = children["dist_ranks"] = start_dist_ranks()
+        release_dist_ranks(dist_ranks)
+        finish_dist_ranks(dist_ranks, smi_line)
+        kernels = None
     elif args.only_dynamic:
         g, co, queries, cq, rest, launches, verdicts = phase_main_path(device)
         dyn = phase_dynamic(device, g, queries, verdicts, args.publish_stall)
@@ -5716,6 +6418,9 @@ def run(args, children: dict) -> int:
         finish_host_engines(children["host_engines"])
         release_mesh_ranks(mesh_ranks)
         ranks = finish_mesh_ranks(mesh_ranks)
+        # 4l's ranks reach the card and warm up beside 4e, and wait until 4k
+        # has ended
+        dist_ranks = children["dist_ranks"] = start_dist_ranks()
         # the paths of this slice, each with its own counts: HL, the
         # quickstart, the daemon, the dynamic oracle; before 4d, whose
         # budgeted run is cut to the script's target on the clock they leave
@@ -5728,6 +6433,8 @@ def run(args, children: dict) -> int:
         k1_launches["dynamic"] = dyn["launches"]["serve_batch"]
         merge_substrate(library, phase_substrate(device, smi_line))
         merge_training(library, phase_training(device, smi_line), cases)
+        release_dist_ranks(dist_ranks)
+        merge_distributed(library, finish_dist_ranks(dist_ranks, smi_line))
         budgeted = phase_cold_start_and_budget(g, co, queries, verdicts)
         cases["frontier_or"] += built["frontier_or_cases"]
         kernels = [timing_serve_batch(co, cq, k1_launches, cases["serve_batch"], budgeted)]

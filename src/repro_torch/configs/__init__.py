@@ -8,8 +8,10 @@ Each arch module exposes:
   smoke_config() a reduced same-family config (CPU tests)
   SHAPES         tuple of shape names valid for this arch
 
-The JAX package's ``cells`` (dry-run lowering specs) are not ported.  The
-one id of the JAX package's registry that is not ported yet raises
+The JAX package's ``cells`` (dry-run lowering specs) wait for the dry run
+(ROADMAP.md Queue 1, item 12.5); what they lower runs here: ``cell``'s mesh
+helpers, ``lm_cells.make_train_step`` and ``gnn_cells.make_gnn_train_step``.
+The one id of the JAX package's registry that is not ported yet raises
 ``KeyError`` in ``get_arch``, naming the ROADMAP item that ports it.
 """
 from __future__ import annotations

@@ -1,7 +1,9 @@
 """gatedgcn [arXiv:2003.00982]: 16 layers, d_hidden=70, gated aggregator.
 
-The port of ``repro.configs.gatedgcn_cfg``; ``cells`` (and its dst-local
-variant) waits for the dry-run port and for training's multi-device half.
+The port of ``repro.configs.gatedgcn_cfg``; ``cells`` waits for the dry-run
+port (ROADMAP.md Queue 1, item 12.5).  Its dst-local variant's loss is
+``models.gnn.gatedgcn.make_dstlocal_loss``, its step
+``configs.gnn_cells.make_gnn_train_step``.
 """
 from __future__ import annotations
 

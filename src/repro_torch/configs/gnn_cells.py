@@ -1,5 +1,6 @@
-"""The GNN family's shapes, the port of ``repro.configs.gnn_cells``'s
-``GNN_SHAPES``, ``_pad_to`` and ``shape_dims``.
+"""The GNN family's shapes and training step, the port of
+``repro.configs.gnn_cells``'s ``GNN_SHAPES``, ``_pad_to``, ``shape_dims``
+and the ``train_step`` of ``gnn_train_cell``.
 
 Shapes (assignment):
   full_graph_sm  n=2,708   m=10,556       d_feat=1,433  (full-batch, Cora)
@@ -10,11 +11,18 @@ Shapes (assignment):
 Sampled training takes the per-step block (1024 seeds -> 16,384 1-hop ->
 153,600 2-hop nodes, 168,960 edges) that the neighbour sampler
 (``repro_torch.graph.sampler``) produces.  ``gnn_train_cell`` and
-``graph_specs`` (the dry run's lowering specs) wait for the dry-run port.
+``graph_specs`` (the dry run's lowering specs) wait for the dry-run port
+(ROADMAP.md Queue 1, item 12.5).
 """
 from __future__ import annotations
 
+from typing import Callable
+
+import torch
+
 from repro_torch.graph.sampler import block_shapes
+from repro_torch.optim import adamw_update, cosine_schedule
+from repro_torch.tree import tree_leaves
 
 GNN_SHAPES = {
     "full_graph_sm": dict(n=2708, m=10556, d_feat=1433, kind="train"),
@@ -40,3 +48,27 @@ def shape_dims(shape: str):
         n, m = block_shapes(info["batch_nodes"], info["fanout"])
         return _pad_to(n), _pad_to(m), info["d_feat"]
     return _pad_to(info["n"]), _pad_to(info["m"]), info["d_feat"]
+
+
+def make_gnn_train_step(loss_fn: Callable, mesh):
+    """The ``train_step`` of JAX's ``gnn_train_cell``: ``train_step(params,
+    opt_state, g) -> (params, opt_state, metrics)``, the loss and its
+    gradient, the warmup + cosine learning rate (base 1e-3, warmup 100,
+    total 10,000) and AdamW, params and optimizer state replicated over
+    ``mesh`` and updated in place.  ``loss_fn(params, g)`` gives the same
+    loss and the whole gradient on every rank of ``mesh`` (as
+    ``gatedgcn.make_dstlocal_loss``'s does), so the step adds no exchange
+    of its own; every rank calls it."""
+    del mesh   # the replication is loss_fn's: its gradient is the same on every rank
+
+    def train_step(params, opt_state, g):
+        leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+        loss = loss_fn(params, g)
+        # a leaf the loss does not reach (gatedgcn's last edge update) gets 0, as jax.grad's
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+        lr = cosine_schedule(opt_state.step, 1e-3, warmup=100, total=10_000)
+        params, opt_state, metrics = adamw_update(grads, opt_state, params, lr)
+        metrics["loss"] = loss.detach()
+        return params, opt_state, metrics
+
+    return train_step

@@ -11,7 +11,15 @@ gloo (on CPU and CUDA tensors) and NCCL take:
   * an OR of bool or uint8 results is an ``all_reduce`` ``MAX``
     (``or_over``): NCCL has no bitwise-OR reduction;
   * a gather of row blocks that each rank owns alone is an
-    ``all_gather_into_tensor`` (``gather_rows``), bool travelling as uint8.
+    ``all_gather_into_tensor`` (``gather_rows``), bool travelling as uint8;
+  * a sum over the ranks is an ``all_reduce`` ``SUM`` (``sum_over``), and
+    the sum of row blocks that lands each block on the rank that owns it a
+    ``reduce_scatter_tensor`` (``scatter_sum_rows``): training's exchanges.
+
+``PartitionSpec`` (``P``) is JAX's placement of a tensor on a mesh, one
+entry a dimension: ``None``, an axis name or a tuple of axis names.  The
+port keeps it as data (``models.transformer.param_pspecs``,
+``configs.cell.zero_pspecs``); it places nothing by itself.
 
 The meshes are made by FUNCTIONS, never at import: importing this module
 touches no process group.  ``form_mesh`` (the counterpart of
@@ -53,6 +61,23 @@ class AxisGroup:
 
 
 MODEL_AXIS = "model"
+
+# the group of a run without a mesh: one rank, no process group
+ONE_RANK = AxisGroup((), None, 1, 0)
+
+
+class PartitionSpec(tuple):
+    """JAX's ``PartitionSpec``: a tuple with one entry a dimension (``None``,
+    an axis name, or a tuple of axis names sharing that dimension)."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"P{tuple(self)!r}"
+
+
+P = PartitionSpec
 
 # mesh -> {axes: AxisGroup}; weak, so a dropped mesh drops its entries
 _GROUPS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
@@ -181,3 +206,26 @@ def gather_rows(part: torch.Tensor, ag: AxisGroup) -> torch.Tensor:
                       device=part.device)
     dist.all_gather_into_tensor(buf, wire.contiguous(), group=ag.group)
     return buf.bool() if part.dtype == torch.bool else buf
+
+
+def sum_over(t: torch.Tensor, ag: AxisGroup) -> torch.Tensor:
+    """The sum of ``t`` over the ranks of ``ag`` (an ``all_reduce`` SUM of
+    a copy); ``t`` itself for a group of one."""
+    if ag.size == 1:
+        return t
+    buf = t.detach().clone().contiguous()
+    dist.all_reduce(buf, group=ag.group)
+    return buf
+
+
+def scatter_sum_rows(full: torch.Tensor, ag: AxisGroup) -> torch.Tensor:
+    """The sum over the ranks of ``ag`` of ``full`` ([size * rows, ...] on
+    every rank), of which this rank keeps its own block of ``rows`` (the
+    group's order, as ``gather_rows`` lays blocks out): a
+    ``reduce_scatter_tensor``."""
+    if ag.size == 1:
+        return full
+    out = torch.empty((full.shape[0] // ag.size,) + tuple(full.shape[1:]), dtype=full.dtype,
+                      device=full.device)
+    dist.reduce_scatter_tensor(out, full.contiguous(), group=ag.group)
+    return out

@@ -31,7 +31,10 @@ without a host read a step.  ``forward`` and ``lm_loss`` are differentiable
 recomputes each layer in the backward (``torch.utils.checkpoint``, as JAX's
 ``jax.checkpoint``), and only there.  ``attn_impl``, ``chunk_q``,
 ``chunk_k`` and ``logical_batch_axes`` are kept so that configs read the
-same; they change nothing here.  The cast points are the JAX package's:
+same; they change nothing here.  ``param_pspecs`` is JAX's tensor-parallel
+layout kept as data (the ZeRO layout of ``configs.cell`` reads it); the
+layer functions take an optional data group, over whose batch the MoE's aux
+loss is then formed (``configs.lm_cells.make_train_step``).  The cast points are the JAX package's:
 ``rms_norm`` and ``rope`` in float32, the router in float32, the logits in
 the model dtype and then float32.
 """
@@ -48,6 +51,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import P, sum_over
 from repro_torch.models.jax_params import tree_from_jax
 
 
@@ -210,6 +214,47 @@ def params_from_jax(cfg: LMConfig, params, device="cuda") -> Dict[str, Any]:
     return tree_from_jax(params, resolve_device(device))
 
 
+def param_pspecs(cfg: LMConfig, model_axis: str = "model") -> Dict[str, Any]:
+    """JAX's Megatron TP layout, as data: column-shard in-projections,
+    row-shard out-projections; experts sharded over the model axis (EP);
+    embedding vocab-sharded.  ``configs.cell.zero_pspecs`` reads it to pick
+    each leaf's ZeRO dimension; the port places no leaf by it yet."""
+    M = model_axis
+    layer: Dict[str, Any] = {}
+    if cfg.mla is None:
+        layer["wq"] = P(None, None, M)
+        layer["wk"] = P(None, None, M)
+        layer["wv"] = P(None, None, M)
+        layer["wo"] = P(None, M, None)
+    else:
+        layer["wq"] = P(None, None, M)
+        layer["w_dkv"] = P(None, None, None)   # latent projection replicated
+        layer["w_krope"] = P(None, None, None)
+        layer["w_uk"] = P(None, None, M)
+        layer["w_uv"] = P(None, None, M)
+        layer["wo"] = P(None, M, None)
+    if cfg.moe is None:
+        layer["w_in"] = P(None, None, M)
+        layer["w_gate"] = P(None, None, M)
+        layer["w_out"] = P(None, M, None)
+    else:
+        layer["router"] = P(None, None, None)
+        layer["e_in"] = P(None, M, None, None)    # EP: experts over model axis
+        layer["e_gate"] = P(None, M, None, None)
+        layer["e_out"] = P(None, M, None, None)
+        if cfg.moe.n_shared:
+            layer["s_in"] = P(None, None, M)
+            layer["s_gate"] = P(None, None, M)
+            layer["s_out"] = P(None, M, None)
+    layer["ln1"] = P(None, None)
+    layer["ln2"] = P(None, None)
+    return {
+        "embed": P(M, None),
+        "final_ln": P(None),
+        "layers": layer,
+    }
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
@@ -241,9 +286,15 @@ def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
     return _rotate(x, *_angles(pos, x.shape[-1], theta))
 
 
-def _moe_ffn(x: torch.Tensor, lw, cfg: LMConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+def _moe_ffn(x: torch.Tensor, lw, cfg: LMConfig,
+             data_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Grouped capacity-based one-hot dispatch MoE (GShard-style), JAX's
     ``_moe_ffn``.  x: [B, S, d] -> ([B, S, d], aux load-balance loss).
+
+    With ``data_group`` (a ``launch.mesh.AxisGroup`` whose ranks each hold an
+    equal slice of one batch), the aux loss is over the group's tokens: the
+    top-1 density is summed over the ranks first, and the aux returned is
+    this rank's share, the shares summing to the batch's aux.
 
     Tokens split into groups of ``group_size``; each group routes on its own
     with capacity ceil(Tg * k / E * cf).  A token's slot in an expert is the
@@ -298,6 +349,9 @@ def _moe_ffn(x: torch.Tensor, lw, cfg: LMConfig) -> Tuple[torch.Tensor, torch.Te
     # load-balance aux loss (Switch style)
     density = F.one_hot(gate_idx[..., 0], E).float().mean(dim=(0, 1))
     router_prob = probs.mean(dim=(0, 1))
+    if data_group is not None:
+        density = sum_over(density, data_group) / data_group.size
+        router_prob = router_prob / data_group.size
     aux = E * torch.sum(density * router_prob)
     return out.reshape(B, S, d), aux
 
@@ -307,11 +361,11 @@ def _dense_ffn(x: torch.Tensor, lw) -> torch.Tensor:
     return h @ lw["w_out"]
 
 
-def _ffn(cfg: LMConfig, lw, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _ffn(cfg: LMConfig, lw, x: torch.Tensor, data_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     h = rms_norm(x, lw["ln2"], cfg.norm_eps)
     if cfg.moe is None:
         return x + _dense_ffn(h, lw), torch.zeros((), dtype=torch.float32, device=x.device)
-    y, aux = _moe_ffn(h, lw, cfg)
+    y, aux = _moe_ffn(h, lw, cfg, data_group)
     return x + y, aux
 
 
@@ -343,8 +397,10 @@ def _mla_qkv(cfg: LMConfig, lw, h: torch.Tensor, cos, sin) -> tuple:
     return q, k, _heads(c_kv @ lw["w_uv"], H, m.v_dim)
 
 
-def _layer(cfg: LMConfig, lw, x: torch.Tensor, cos, sin) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One transformer block over the full sequence; attention through K4."""
+def _layer(cfg: LMConfig, lw, x: torch.Tensor, cos, sin,
+           data_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One transformer block over the full sequence; attention through K4.
+    ``data_group``: the MoE's aux over a data group's batch (``_moe_ffn``)."""
     B, S, d = x.shape
     h = rms_norm(x, lw["ln1"], cfg.norm_eps)
     if cfg.mla is None:
@@ -356,16 +412,18 @@ def _layer(cfg: LMConfig, lw, x: torch.Tensor, cos, sin) -> Tuple[torch.Tensor, 
         q, k, v = _mla_qkv(cfg, lw, h, cos, sin)
     attn = ops.flash_attention(q, k, v, causal=True, window=cfg.window)
     x = x + attn.transpose(1, 2).reshape(B, S, -1) @ lw["wo"]
-    return _ffn(cfg, lw, x)
+    return _ffn(cfg, lw, x, data_group)
 
 
 def _layer_weights(params, l: int) -> Dict[str, torch.Tensor]:
     return {k: v[l] for k, v in params["layers"].items()}
 
 
-def _hidden(cfg: LMConfig, params, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _hidden(cfg: LMConfig, params, tokens: torch.Tensor,
+            data_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The residual stream after the last layer, [B, S, d], and the summed
-    aux loss.  The stacked layer leaves are unbound once, so a backward
+    aux loss (with ``data_group``, this rank's share of the group's:
+    ``_moe_ffn``).  The stacked layer leaves are unbound once, so a backward
     stacks each leaf's gradient once (a select a layer would add a whole
     [L, ...] zero-filled gradient a layer); with ``remat`` and autograd on,
     each layer is a ``torch.utils.checkpoint`` (its activations recomputed
@@ -379,10 +437,10 @@ def _hidden(cfg: LMConfig, params, tokens: torch.Tensor) -> Tuple[torch.Tensor, 
     for l in range(cfg.n_layers):
         lw = {k: v[l] for k, v in layers.items()}
         if remat:
-            x, a = checkpoint(_layer, cfg, lw, x, cos, sin, use_reentrant=False,
+            x, a = checkpoint(_layer, cfg, lw, x, cos, sin, data_group, use_reentrant=False,
                               preserve_rng_state=False)
         else:
-            x, a = _layer(cfg, lw, x, cos, sin)
+            x, a = _layer(cfg, lw, x, cos, sin, data_group)
         aux = aux + a
     return x, aux
 

@@ -6,15 +6,31 @@ The update is the JAX package's, with one difference in how, not what: it
 writes the first and second moments, the master copy and the params in
 place, one leaf at a time, so a step holds no second copy of the optimizer
 state (granite-3-2b's is 30 GB) and at most one leaf's float32 temporaries.
+
+ZeRO (``zero_init``, ``ZeroLayout.mean_part``, ``zero_update``): the
+counterpart of the optimizer state the JAX package's LM cells shard by
+``configs.cell.zero_pspecs``.  Each rank of a data group keeps only its
+slice of ``master``, ``mu`` and ``nu`` along each leaf's ZeRO dimension (a
+leaf that nothing divides stays whole on every rank, as JAX falls back),
+receives only that slice of the averaged gradient (a
+``reduce_scatter_tensor``; an ``all_reduce`` for a whole leaf), clips by
+the norm of the whole gradient (the slices' squares summed over the
+ranks, so every rank takes the same scale), updates its slice and
+all-gathers the params, rounded to their dtype.  ``zero_gather`` and
+``zero_shard`` move between that state and the whole one that checkpoints
+keep (the JAX package's layout).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.launch.mesh import (ONE_RANK, AxisGroup, axis_group, data_axes_of, gather_rows,
+                                    scatter_sum_rows, sum_over)
+from repro_torch.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 
 class AdamWState(NamedTuple):
@@ -62,22 +78,160 @@ def adamw_update(grads, state: AdamWState, params, lr, b1: float = 0.9, b2: floa
     moments, decoupled weight decay on the float32 master, the params the
     master cast to their dtypes.  ``params`` and ``state``'s moments and
     master are updated in place and returned."""
-    g_leaves = tree_leaves(grads)
     gnorm = global_norm(grads)
+    step, leaf = _prepare(gnorm, state, lr, b1, b2, eps, weight_decay, clip_norm)
+    for p, g, m, v, w in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state.mu),
+                             tree_leaves(state.nu), tree_leaves(state.master)):
+        leaf(g, m, v, w)
+        p.copy_(w)
+    return params, _advanced(state, step), {"grad_norm": gnorm, "lr": float(lr)}
+
+
+def _prepare(gnorm, state: AdamWState, lr, b1, b2, eps, weight_decay, clip_norm):
+    """The new step and the in-place update of one leaf's moments and
+    master from its gradient, clipped by the global norm ``gnorm``."""
     scale = torch.clamp(clip_norm / (gnorm + 1e-9), max=1.0)
     step = int(state.step) + 1
     bc1, bc2 = 1 - b1 ** step, 1 - b2 ** step
     lr = float(lr)
-    for p, g, m, v, w in zip(tree_leaves(params), g_leaves, tree_leaves(state.mu),
-                             tree_leaves(state.nu), tree_leaves(state.master)):
+
+    def leaf(g, m, v, w):
         g32 = g.float() * scale
         m.mul_(b1).add_(g32, alpha=1 - b1)
         v.mul_(b2).addcmul_(g32, g32, value=1 - b2)
         del g32
         upd = (m / bc1).div_((v / bc2).sqrt_().add_(eps))
         w.sub_(upd.add_(w, alpha=weight_decay), alpha=lr)
-        del upd
-        p.copy_(w)
-    new_state = AdamWState(step=torch.full_like(state.step, step), mu=state.mu, nu=state.nu,
-                           master=state.master)
-    return params, new_state, {"grad_norm": gnorm, "lr": lr}
+
+    return step, leaf
+
+
+def _advanced(state: AdamWState, step: int) -> AdamWState:
+    return AdamWState(step=torch.full_like(state.step, step), mu=state.mu, nu=state.nu,
+                      master=state.master)
+
+
+# ---------------------------------------------------------------------------
+# ZeRO: the optimizer state sharded over a data group
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ZeroLayout:
+    """Where each param leaf's optimizer state lives: ``dims[i]`` is the
+    dimension of leaf i (``tree_leaves`` order) that ``group``'s ranks split
+    evenly, in the group's order, or ``None`` for a leaf whole on every rank."""
+    dims: Tuple[Optional[int], ...]
+    group: AxisGroup
+
+    def part(self, x: torch.Tensor, i: int) -> torch.Tensor:
+        """This rank's slice of leaf ``i``'s whole tensor ``x`` (a view)."""
+        d = self.dims[i]
+        if d is None:
+            return x
+        n = x.shape[d] // self.group.size
+        return x.narrow(d, self.group.index * n, n)
+
+    def mean_part(self, acc: torch.Tensor, i: int, denom: int) -> torch.Tensor:
+        """This rank's slice of leaf ``i``'s ``acc`` summed over the ranks and
+        divided by ``denom``: a ``reduce_scatter_tensor`` along its dimension
+        (an ``all_reduce`` of the whole for a leaf without one).  The sums
+        are the same bits on every rank.  Collective."""
+        d = self.dims[i]
+        if d is None:
+            return sum_over(acc, self.group) / denom
+        return scatter_sum_rows(acc.movedim(d, 0).contiguous(), self.group).movedim(0, d) / denom
+
+    def whole(self, part: torch.Tensor, i: int) -> torch.Tensor:
+        """Leaf ``i``'s whole tensor from every rank's ``part``: an
+        ``all_gather_into_tensor`` over the group along its dimension.
+        Collective."""
+        d = self.dims[i]
+        if d is None or self.group.size == 1:
+            return part
+        return gather_rows(part.movedim(d, 0).contiguous(), self.group).movedim(0, d)
+
+
+def _spec_leaves(specs) -> list:
+    """The ``PartitionSpec`` leaves of a tree of dicts and lists, in
+    ``tree_leaves`` order (dict keys sorted)."""
+    if isinstance(specs, dict):
+        return [s for k in sorted(specs) for s in _spec_leaves(specs[k])]
+    if isinstance(specs, list):
+        return [s for x in specs for s in _spec_leaves(x)]
+    return [specs]
+
+
+def zero_layout(opt_pspecs, mesh) -> ZeroLayout:
+    """The layout of ``configs.cell.zero_pspecs``' tree over ``mesh``'s data
+    group (``None``: one rank, every leaf whole)."""
+    if mesh is None:
+        return ZeroLayout(tuple(None for _ in _spec_leaves(opt_pspecs)), ONE_RANK)
+    axes = data_axes_of(mesh)
+    lead = axes if len(axes) > 1 else axes[0]
+    dims = tuple(next((i for i, e in enumerate(spec) if e == lead), None)
+                 for spec in _spec_leaves(opt_pspecs))
+    return ZeroLayout(dims, axis_group(mesh, axes))
+
+
+def zero_init(params, layout: ZeroLayout) -> AdamWState:
+    """``adamw_init`` of this rank's slices: zero moments and a float32 copy
+    of each param's slice."""
+    leaves, treedef = tree_flatten(params)
+    parts = [layout.part(p.detach(), i) for i, p in enumerate(leaves)]
+    zeros = [torch.zeros(x.shape, dtype=torch.float32, device=x.device) for x in parts]
+    return AdamWState(
+        step=torch.zeros((), dtype=torch.int32, device=leaves[0].device),
+        mu=tree_unflatten(treedef, zeros),
+        nu=tree_unflatten(treedef, [torch.zeros_like(z) for z in zeros]),
+        master=tree_unflatten(treedef, [x.to(torch.float32, copy=True) for x in parts]),
+    )
+
+
+@torch.no_grad()
+def zero_update(grad_parts, state: AdamWState, params, lr, layout: ZeroLayout,
+                b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
+                weight_decay: float = 0.1, clip_norm: float = 1.0):
+    """``adamw_update`` over ZeRO-sharded state: ``grad_parts`` (a list in
+    ``tree_leaves`` order) holds this rank's slice of each leaf's averaged
+    gradient (``ZeroLayout.mean_part``; the whole for a leaf without a
+    dimension), ``state`` this rank's slices (``zero_init``).  The clip takes
+    the whole gradient's norm: the slices' squares summed over the ranks,
+    the whole leaves' once.  Each rank updates its slices; ``params`` are
+    all-gathered in place.  Collective."""
+    sharded = [g for g, d in zip(grad_parts, layout.dims) if d is not None]
+    whole = [g for g, d in zip(grad_parts, layout.dims) if d is None]
+    sq = torch.zeros((), dtype=torch.float32, device=grad_parts[0].device)
+    if sharded:
+        sq = sum_over(global_norm(sharded).square(), layout.group)
+    if whole:
+        sq = sq + global_norm(whole).square()
+    gnorm = sq.sqrt()
+    step, leaf = _prepare(gnorm, state, lr, b1, b2, eps, weight_decay, clip_norm)
+    for i, (p, g, m, v, w) in enumerate(zip(tree_leaves(params), grad_parts,
+                                            tree_leaves(state.mu), tree_leaves(state.nu),
+                                            tree_leaves(state.master))):
+        leaf(g, m, v, w)
+        p.copy_(layout.whole(w.to(p.dtype), i))
+    return params, _advanced(state, step), {"grad_norm": gnorm, "lr": float(lr)}
+
+
+@torch.no_grad()
+def zero_gather(state: AdamWState, layout: ZeroLayout) -> AdamWState:
+    """The whole state from every rank's slices (what a checkpoint saves,
+    the JAX package's layout).  Collective."""
+    def whole(tree):
+        leaves, treedef = tree_flatten(tree)
+        return tree_unflatten(treedef, [layout.whole(x, i) for i, x in enumerate(leaves)])
+
+    return AdamWState(step=state.step, mu=whole(state.mu), nu=whole(state.nu),
+                      master=whole(state.master))
+
+
+def zero_shard(state: AdamWState, layout: ZeroLayout) -> AdamWState:
+    """This rank's slices of a whole state (a restored checkpoint's)."""
+    def part(tree):
+        leaves, treedef = tree_flatten(tree)
+        return tree_unflatten(treedef, [layout.part(x, i).clone() for i, x in enumerate(leaves)])
+
+    return AdamWState(step=state.step, mu=part(state.mu), nu=part(state.nu),
+                      master=part(state.master))

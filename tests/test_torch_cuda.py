@@ -1255,3 +1255,163 @@ def test_train_steps_on_card_match_cpu(cuda, arch):
     for g, e in zip(logs["cuda"], logs["cpu"]):
         np.testing.assert_allclose(g["loss"], e["loss"], rtol=1e-4, atol=1e-4)
         np.testing.assert_allclose(g["grad_norm"], e["grad_norm"], rtol=1e-3, atol=1e-4)
+
+
+# ------------------------------------------------------------------ training across ranks
+
+CARD_RANKS_SNIPPET = r"""
+import datetime, sys, numpy as np, torch, torch.distributed as dist
+from repro_torch.configs import granite_3_2b, gatedgcn_cfg
+from repro_torch.configs.lm_cells import make_train_step, opt_layout
+from repro_torch.dist import pipeline_apply
+from repro_torch.graph.generators import random_dag
+from repro_torch.graph.partition import partition_edges_by_dst
+from repro_torch.launch.mesh import form_mesh
+from repro_torch.models import transformer as tf
+from repro_torch.models.gnn import gatedgcn
+from repro_torch.models.gnn.layers import GraphBatch
+from repro_torch.optim import quantized_psum_grads, zero_init
+from repro_torch.tree import tree_leaves
+rank, world, store = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+torch.cuda.set_device(0)
+dev = torch.device('cuda', 0)
+dist.init_process_group('gloo', store=dist.FileStore(store, world), rank=rank, world_size=world,
+                        timeout=datetime.timedelta(seconds=60))
+# every collective this slice takes, on CUDA tensors under gloo
+g = dist.new_group(list(range(world)))
+for dt in (torch.int8, torch.uint8, torch.bfloat16, torch.float32):
+    out = torch.empty(3 * world, dtype=dt, device=dev)
+    dist.all_gather_into_tensor(out, torch.full((3,), rank + 1, dtype=dt, device=dev), group=g)
+    assert out.view(world, 3).float().tolist() == [[r + 1.0] * 3 for r in range(world)], dt
+for dt in (torch.float32, torch.int64):
+    t = torch.full((2,), rank + 1, dtype=dt, device=dev)
+    dist.all_reduce(t, group=g)
+    assert t.tolist() == [world * (world + 1) // 2] * 2, dt
+out = torch.empty(2, dtype=torch.float32, device=dev)
+dist.reduce_scatter_tensor(out, torch.arange(2 * world, dtype=torch.float32, device=dev), group=g)
+assert out.tolist() == [world * (2 * rank), world * (2 * rank + 1)]
+for dt in (torch.bfloat16, torch.float32):
+    t = torch.full((4,), float(rank), dtype=dt, device=dev)
+    dist.broadcast(t, src=world - 1, group=g)
+    assert t.tolist() == [world - 1.0] * 4, dt
+# make_train_step over the ranks against one rank, on the card
+cfg = granite_3_2b.smoke_config()
+gen = torch.Generator(device=dev).manual_seed(0)
+p0 = tf.init_params(cfg, gen, dev)
+tok = torch.randint(0, cfg.vocab, (8, 64), generator=gen, device=dev)
+lab = torch.randint(0, cfg.vocab, (8, 64), generator=gen, device=dev)
+lab[0, :50] = -1
+batch = {'tokens': tok, 'labels': lab}
+res = {}
+for m in (form_mesh((world, 1), ('data', 'model'), device_type='cuda'), None):
+    p = {k: (v.clone() if not isinstance(v, dict) else {a: b.clone() for a, b in v.items()})
+         for k, v in p0.items()}
+    st = zero_init(p, opt_layout(cfg, p, m))
+    step = make_train_step(cfg, 2, m)
+    for _ in range(2):
+        p, st, met = step(p, st, batch)
+    res[m is None] = (float(met['loss']), [x.detach().cpu() for x in tree_leaves(p)])
+assert abs(res[True][0] - res[False][0]) <= 1e-5 * abs(res[True][0]), res
+for a, b in zip(res[True][1], res[False][1]):
+    assert torch.allclose(a, b, rtol=1e-5, atol=1e-6)
+# quantized_psum_grads against its formula on the host
+dm = form_mesh((world,), ('data',), device_type='cuda')
+x = torch.randn(1000, generator=gen, device=dev) * (rank + 1)
+got = quantized_psum_grads({'x': x}, dm)['x'].cpu().numpy()
+parts = [torch.empty_like(x) for _ in range(world)]
+dist.all_gather(parts, x)
+qs, ss = [], []
+for a in parts:
+    flat = np.pad(a.cpu().numpy(), (0, 24)).reshape(-1, 256)
+    s = np.abs(flat).max(1, keepdims=True) / np.float32(127.0)
+    qs.append(np.clip(np.round(flat / s), -127, 127).astype(np.int32))
+    ss.append(s.astype(np.float32))
+want = (sum(qs).astype(np.float32) * (sum(ss) / np.float32(world))).reshape(-1)[:1000] / world
+assert np.array_equal(got, want), np.abs(got - want).max()
+# pipeline_apply against the sequential run
+sm = form_mesh((world,), ('stage',), device_type='cuda')
+w = torch.randn((world, 2, 16, 16), generator=gen, device=dev) * 0.3
+xs = torch.randn((8, 4, 16), generator=gen, device=dev)
+def stage(p, h):
+    for i in range(2):
+        h = torch.tanh(h @ p['w'][i])
+    return h
+mine = w[rank:rank + 1].clone().requires_grad_(True)
+out = pipeline_apply({'w': mine}, xs, stage, sm)
+(gw,) = torch.autograd.grad(out.sum(), [mine])
+ref = xs
+wr = w.clone().requires_grad_(True)
+for s in range(world):
+    ref = stage({'w': wr[s]}, ref)
+(rw,) = torch.autograd.grad(ref.sum(), [wr])
+assert torch.allclose(out, ref, atol=1e-5) and torch.allclose(gw[0], rw[rank], atol=1e-5)
+# gatedgcn's dst-local loss against loss_fn
+gc = gatedgcn_cfg.smoke_config()
+gg = random_dag(64, 200, seed=1)
+src, dst, mask, _ = partition_edges_by_dst(gg, world, n_pad=64)
+rng = np.random.default_rng(0)
+t = lambda a: torch.from_numpy(a).to(dev)
+b = GraphBatch(x=t(rng.standard_normal((64, gc.d_in)).astype(np.float32)), edge_src=t(src),
+               edge_dst=t(dst), edge_mask=t(mask), node_mask=torch.ones(64, dtype=torch.bool, device=dev),
+               edge_attr=t(rng.standard_normal((src.shape[0], gc.d_edge_in)).astype(np.float32)),
+               y=t(rng.integers(0, gc.n_classes, 64).astype(np.int32)))
+params = gatedgcn.init_params(gc, gen, dev)
+leaves = [q.requires_grad_(True) for q in tree_leaves(params)]
+base = gatedgcn.loss_fn(gc, params, b)
+bg = torch.autograd.grad(base, leaves, allow_unused=True, materialize_grads=True)
+loss = gatedgcn.make_dstlocal_loss(gc, dm)(params, b)
+assert abs(float(loss) - float(base)) < 5e-3
+# the exchange in float32 (the same Function without the bfloat16 rounding):
+# loss and gradients those of loss_fn on one rank
+from unittest import mock
+from repro_torch.launch.mesh import gather_rows, scatter_sum_rows
+class Gather32(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, ag):
+        ctx.ag = ag
+        return gather_rows(h, ag)
+    @staticmethod
+    def backward(ctx, grad):
+        return scatter_sum_rows(grad, ctx.ag), None
+with mock.patch.object(gatedgcn, '_gather_nodes', Gather32.apply):
+    loss = gatedgcn.make_dstlocal_loss(gc, dm)(params, b)
+    lg = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+assert abs(float(loss) - float(base)) < 1e-5
+for a, c in zip(lg, bg):
+    assert float((a - c).abs().max()) <= 1e-5 * max(float(c.abs().max()), 1e-30) + 1e-7
+dist.destroy_process_group()
+print('CARD_RANKS_OK')
+"""
+
+
+def test_training_across_gloo_ranks_on_the_card(cuda, tmp_path):
+    """Two gloo ranks on the one card (NCCL puts no two ranks on one
+    device): every collective this slice takes on CUDA tensors
+    (``all_gather_into_tensor`` of int8, uint8, bfloat16 and float32,
+    ``all_reduce`` SUM of float32 and int64, ``reduce_scatter_tensor``,
+    ``broadcast``), then ``make_train_step`` over the ranks against one
+    rank (1e-5), ``quantized_psum_grads`` against its formula bit for bit,
+    ``pipeline_apply`` against the sequential run and
+    ``make_dstlocal_loss`` against ``loss_fn`` (the loss at JAX's bound;
+    with the node stream exchanged in float32, loss and gradients at
+    1e-5)."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    src = pathlib.Path(__file__).resolve().parent.parent / "src"
+    env = {**os.environ, "PYTHONPATH": str(src)}
+    procs = [subprocess.Popen([sys.executable, "-c", CARD_RANKS_SNIPPET, str(r), "2",
+                               str(tmp_path / "store")], env=env, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0 and "CARD_RANKS_OK" in log, log[-3000:]

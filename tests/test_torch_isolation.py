@@ -1,7 +1,8 @@
 """``repro_torch`` stands alone and runs on the card unless told otherwise.
 
-  * importing every module of the port loads neither ``jax`` nor any module
-    of the JAX package ``repro`` (checked in a fresh interpreter);
+  * importing every module of the port (training across ranks and the
+    frontier-vector BFS among them) loads neither ``jax`` nor any module of
+    the JAX package ``repro`` (checked in a fresh interpreter);
   * the entry points (the dynamic oracle's, the chaos driver's and the
     substrate models' too) raise
     ``RuntimeError`` on a box without CUDA unless the caller passes
@@ -64,7 +65,11 @@ for name in ("repro_torch.build.bitset", "repro_torch.build.waves",
              # training: the optimizer, checkpoints, the loop, trees, the driver
              "repro_torch.tree", "repro_torch.optim", "repro_torch.optim.adamw",
              "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt", "repro_torch.ft.loop",
-             "repro_torch.launch.train", "repro_torch.data.synth"):
+             "repro_torch.launch.train", "repro_torch.data.synth",
+             # training across ranks and the frontier-vector BFS
+             "repro_torch.configs.cell", "repro_torch.configs.gnn_cells",
+             "repro_torch.optim.compression", "repro_torch.dist", "repro_torch.dist.pipeline",
+             "repro_torch.graph.partition", "repro_torch.graph.bfs"):
     assert name in names, name
 from repro_torch.core.api import oracle_from_snapshot
 from repro_torch.core import hierarchical_labeling
@@ -80,6 +85,11 @@ from repro_torch.configs import ALL_ARCHS, get_arch
 for arch in ALL_ARCHS:
     get_arch(arch).full_config()
 from repro_torch.optim import AdamWState, adamw_init, adamw_update, cosine_schedule, global_norm
+from repro_torch.optim import quantized_psum_grads, zero_gather, zero_init, zero_shard, zero_update
+from repro_torch.dist import pipeline_apply
+from repro_torch.configs.lm_cells import make_train_step, opt_layout
+from repro_torch.configs.gnn_cells import make_gnn_train_step
+from repro_torch.models.gnn.gatedgcn import make_dstlocal_loss
 from repro_torch.checkpoint import (AsyncCheckpointer, latest_step, restore_checkpoint,
                                     save_checkpoint)
 from repro_torch.ft import FaultTolerantLoop
