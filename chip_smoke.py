@@ -229,6 +229,27 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      rank around exactly the 4-rank steps and pipeline runs; a step's
      seconds, tokens/s, peak memory a rank, the collectives' seconds and the
      bytes on the wire by route;
+  4m. the paper's production cells (``configs/reachability.py``), after 4l
+     and before 4d: each cell's own ``fn`` once at its global shapes on the
+     card, on one rank (``mesh`` None, the single-device program), data
+     from ``PRODUCTION_SEED`` made on the card.  ``serve_1m`` (n = 10M,
+     L 64) and ``serve_xl`` (n = 25M, L 32): label rows sorted and
+     INVALID-padded, lengths uniform in [1, L], hops skewed to the first
+     ``PRODUCTION_HOPS`` ranks (20-80% of the verdicts true, a gate), 1M
+     uniform queries through one K1 tier-form launch at the full width,
+     every verdict equal to ``ref.tier_intersect_ref`` in chunks, queries
+     reading rows past byte 2^31 counted (> 0, a gate) and the plain
+     version at width L - 1 rejected; a K1 record each.  ``build_sweep``
+     (n = 10M, m = 30M, L 64) and ``build_sweep_xl`` (25M, 25M, L 32): a
+     random DAG made on the card (``production_dag``), ``distribute_one``
+     from the top vertex of the §5.2 order on a fresh state, its labels
+     equal to a 64-level BFS both ways (``bfs_levels_device``; the truth
+     less its last level rejected); at ``build_sweep`` a second iteration
+     from the next vertex, pruning > 0, equal to a numpy transcription on
+     the host.  Each cell also traced by the dry run on a one-rank fake
+     mesh: its argument bytes equal to the card's tensors', its
+     bytes-accessed bound beside the measured time.  The full script runs
+     all four (``FULL_RUN_PRODUCTION``);
   4d. cold start and budget, on phase 4's oracle and traffic: the oracle
      saved (``persist.save_oracle``) and cold-started
      (``core.api.oracle_from_snapshot``), labels byte for byte and every
@@ -268,7 +289,8 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      second path on the card: its own launch counts, every degradation
      counter 0.
 
-``--only-distributed-training`` runs phases 1-3 and 4l alone.
+``--only-distributed-training`` runs phases 1-3 and 4l alone;
+``--only-production-cells`` phases 1-3 and 4m, all four cells.
 ``--only-device-build`` runs phases 1-3 and 4b alone, at
 ``--device-build-scale`` (default 1.0), and times
 ``frontier_expand``; in the full script the flag sets phase 4b's scale.
@@ -1277,30 +1299,19 @@ def _attention_excess(got, exp) -> float:
     return float(((got.float() - exp).abs() / (atol + rtol * exp.abs())).max())
 
 
-def _attention_rows(S: int, T: int, causal: bool, window) -> tuple:
-    """Each query's lowest and highest visible key (queries right-aligned
-    to the T keys); a row whose highest is below its lowest sees none."""
-    qpos = np.arange(S, dtype=np.int64) + T - S
-    hi = np.minimum(qpos, T - 1) if causal else np.full(S, T - 1)
-    lo = np.maximum(qpos - window + 1, 0) if window is not None else np.zeros(S, np.int64)
-    return lo, hi
-
-
 def _attention_pairs(S: int, T: int, causal: bool, window) -> int:
     """The (query, key) pairs the masks keep: what the computation needs."""
-    lo, hi = _attention_rows(S, T, causal, window)
-    return int(np.maximum(hi - lo + 1, 0).sum())
+    from repro_torch.kernels.ops import attention_pairs
+
+    return attention_pairs(S, T, causal, window)[0]
 
 
 def _attention_keys(S: int, T: int, causal: bool, window) -> int:
     """The keys some query sees, the union of the mask's rows: what the
     computation must read of k and v."""
-    lo, hi = _attention_rows(S, T, causal, window)
-    ok = hi >= lo
-    edges = np.zeros(T + 1, np.int64)
-    np.add.at(edges, lo[ok], 1)
-    np.add.at(edges, hi[ok] + 1, -1)
-    return int((np.cumsum(edges[:T]) > 0).sum())
+    from repro_torch.kernels.ops import attention_pairs
+
+    return attention_pairs(S, T, causal, window)[1]
 
 
 def _attention_plain_chunked(q, k, v, causal, window):
@@ -6277,6 +6288,345 @@ def phase_serving_profile(co, queries: np.ndarray, n_batches: int = 64) -> None:
 # ------------------------------------------------------------------ phase 7
 
 
+# ----------------------------------------------------------------- phase 4m
+#
+# The paper's own production cells (configs/reachability.py), each cell's
+# own ``fn`` run once at its global shapes on the card: the cell on one rank
+# (``mesh`` None), whose program is the single-device one.  Data from
+# ``PRODUCTION_SEED`` on the card.
+
+PRODUCTION_SEED = 0
+PRODUCTION_CELLS = ("serve_1m", "serve_xl", "build_sweep", "build_sweep_xl")
+# the full script runs all four (8.1 s of it on an H100)
+FULL_RUN_PRODUCTION = PRODUCTION_CELLS
+# a label row's hops: its length's i.i.d. draws u^PRODUCTION_SKEW x H (u
+# uniform), skewed to the first ranks, sorted, a repeat dropped; H sets the
+# share of true verdicts, which the gate holds in PRODUCTION_TRUE_SHARE
+# (32.0% at serve_1m with 3,000, 26.5% at serve_xl with 1,000 on an H100).
+# Not the smallest of L sorted draws: full rows alone would then hold high
+# ranks, and the width L - 1 control would almost never differ
+PRODUCTION_SKEW = 1.5
+PRODUCTION_HOPS = {"serve_1m": 3_000, "serve_xl": 1_000}
+PRODUCTION_TRUE_SHARE = (0.2, 0.8)
+PRODUCTION_CHUNK = 1 << 16     # queries a chunk of the plain version
+
+
+def production_labels(gen, n: int, L: int, H: int, device):
+    """int32[n, L] label rows: a length uniform in [1, L], that many hops
+    drawn i.i.d. (``PRODUCTION_HOPS``' comment), sorted, a repeat dropped,
+    INVALID (-1) after the row's entries."""
+    import torch
+
+    big = torch.iinfo(torch.int32).max
+    lens = torch.randint(1, L + 1, (n, 1), generator=gen, device=device, dtype=torch.int32)
+    x = torch.rand((n, L), generator=gen, device=device).pow_(PRODUCTION_SKEW).mul_(H)
+    x = x.to(torch.int32)
+    cols = torch.arange(L, device=device, dtype=torch.int32)[None, :]
+    x = torch.sort(x.masked_fill_(cols >= lens, big), dim=1).values
+    x[:, 1:].masked_fill_(x[:, 1:] == x[:, :-1], big)
+    x = torch.sort(x, dim=1).values
+    return x.masked_fill_(x == big, -1)
+
+
+def _dry_trace_one_rank(shape: str) -> dict:
+    """The dry run of ``shape``'s cell on a one-rank fake mesh
+    (``launch.dryrun``): its trace's argument bytes and bytes accessed."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import reachability
+    from repro_torch.launch.dryrun import fake_mesh, trace_cell
+
+    mesh = fake_mesh((1, 1), ("data", "model"))
+    try:
+        traced = trace_cell(reachability.cells(shape, mesh), mesh)
+    finally:
+        dist.destroy_process_group()
+    traced.pop("top")
+    return traced
+
+
+def _past_2_31(ids, width: int):
+    """bool[B]: the row ``ids`` of an int32[n, width] matrix ends past byte 2^31."""
+    return (ids.long() + 1) * width * 4 > 2 ** 31
+
+
+def _serve_cell(shape: str, device) -> tuple:
+    """``shape``'s serve cell: labels and 1,000,000 queries made on the card,
+    the cell's ``fn`` once (one K1 tier-form launch at the full width), its
+    verdicts against ``ref.tier_intersect_ref`` on every query, in chunks;
+    a control at width L - 1 that must differ; the dry run beside it."""
+    import torch
+
+    from repro_torch.configs import reachability
+    from repro_torch.kernels import ops, ref
+
+    info = reachability.ORACLE_SHAPES[shape]
+    n, L, B = info["n"], info["l_max"], info["queries"]
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(PRODUCTION_SEED)
+    L_out = production_labels(gen, n, L, PRODUCTION_HOPS[shape], device)
+    L_in = production_labels(gen, n, L, PRODUCTION_HOPS[shape], device)
+    q = torch.randint(0, n, (B, 2), generator=gen, device=device, dtype=torch.int32)
+    torch.cuda.synchronize()
+    made_s = time.perf_counter() - t0
+    cell = reachability.cells(shape, None)
+    ops.reset_launches()
+    fn_ms, got = _timed_once(lambda: cell.fn(L_out, L_in, q))
+    launches = dict(ops.LAUNCHES)
+    check(launches["label_intersect"] == 1 and sum(launches.values()) == 1,
+          f"[{shape}] the cell's fn launched {launches}, not one label_intersect")
+    plain = lambda w: _rows_chunked(  # noqa: E731
+        lambda s: ref.tier_intersect_ref(L_out, L_in, q[s], w), B, PRODUCTION_CHUNK)
+    plain_ms, exp = _timed_once(lambda: plain(L))
+    wrong = int((got != exp).sum())
+    check(wrong == 0, f"[{shape}] {wrong} of {B} verdicts differ from the plain version")
+    past = _past_2_31(q[:, 0], L) | _past_2_31(q[:, 1], L)
+    n_past = int(past.sum())
+    check(n_past > 0, f"[{shape}] no query reads a row past byte 2^31")
+    share = float(got.float().mean())
+    check(PRODUCTION_TRUE_SHARE[0] <= share <= PRODUCTION_TRUE_SHARE[1],
+          f"[{shape}] {share:.1%} of the verdicts are true, outside {PRODUCTION_TRUE_SHARE}")
+    control = int((plain(L - 1) != exp).sum())
+    check(control > 0, f"[{shape}] the plain version at width {L - 1} matched at width {L}: "
+                       "the gate cannot tell a row's last entry")
+    kern = lambda: ops.tier_intersect(L_out, L_in, q, L)  # noqa: E731
+    k1, k2 = _event_ms(kern, 20, 3), _event_ms(kern, 20, 3)
+    device_ms = _kernel_device_ms(kern, "label_intersect_kernel", 10)
+    bound = tier_intersect_bound(L_out, L_in, q, L)
+    dry = _dry_trace_one_rank(shape)
+    held = L_out.nbytes + L_in.nbytes + q.nbytes
+    check(dry["memory"]["argument_size_in_bytes"] == held,
+          f"[{shape}] the dry run's argument bytes {dry['memory']['argument_size_in_bytes']} "
+          f"are not the card's {held}")
+    dry_ms = dry["cost"]["bytes_accessed"] / PEAK_BYTES_PER_S * 1e3
+    rec = {"name": "label_intersect", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/label_intersect.cu",
+           "replaces": "src/repro/kernels/label_intersect.py:48",
+           "config": f"{shape} (configs/reachability.py)",
+           "launches": launches["label_intersect"],
+           "launches_by_path": {f"production_{shape}": launches["label_intersect"]},
+           "matches_plain": True, "max_abs_err": 0,
+           "shape": {"B": B, "width": L, "L_out": [n, L], "L_in": [n, L]},
+           "ms": min(k1, k2), "ms_runs": [k1, k2], "fn_ms": fn_ms, "device_ms": device_ms,
+           "plain_ms": plain_ms, **bound, "library_ms": None,
+           "bound_share": bound["bound_ms"] / device_ms,
+           "rows_read_once_bytes": B * 2 * L * 4,
+           "queries_past_2_31": n_past, "true_share": share,
+           "control_width_minus_1_differs": control}
+    log(f"4m {shape}: n = {n:,}, L {L}, {B:,} queries ({share:.1%} true, {n_past:,} read a "
+        f"row past byte 2^31): {wrong} wrong; width {L - 1} differs on {control:,}; K1 "
+        f"{rec['ms']:.6f} ms (device {device_ms:.6f}, bound {bound['bound_ms']:.6f} by "
+        f"{bound['bound_by']}), plain {plain_ms:.3f} ms; dry run {dry_ms:.6f} ms of bytes, "
+        f"{dry_ms / rec['ms']:.1%} of the call")
+    cell_rec = {"shape": shape, "kind": "serve", "made_s": made_s, "fn_ms": fn_ms,
+                "wrong": wrong, "true_share": share, "queries_past_2_31": n_past,
+                "control_differs": control, "held_bytes": held,
+                "dry_run": {k: dry[k] for k in ("memory", "cost", "collectives", "kernels")},
+                "dry_bytes_ms": dry_ms, "dry_bytes_share": dry_ms / rec["ms"],
+                "seconds": time.perf_counter() - t0}
+    del L_out, L_in, q, got, exp
+    return cell_rec, rec
+
+
+def production_dag(gen, n: int, m: int, device) -> tuple:
+    """int32 edges of a random DAG with ``n`` vertices and ``m`` edges, made
+    on the card: a uniform in [0, n), a span s log-uniform in [1, n), the
+    edge joining a and (a + s) mod n from the lower id to the higher (every
+    edge goes up in id; duplicates kept, as an edge list may hold them)."""
+    import torch
+
+    a = torch.randint(0, n, (m,), generator=gen, device=device, dtype=torch.int64)
+    span = torch.exp(torch.rand(m, generator=gen, device=device, dtype=torch.float64)
+                     * math.log(n)).long().clamp(1, n - 1)
+    b = (a + span) % n
+    return torch.minimum(a, b).to(torch.int32), torch.maximum(a, b).to(torch.int32)
+
+
+def _csr_host(src, dst, n: int) -> tuple:
+    """(indptr int64[n + 1], indices int32[m]) on the host of the edges by
+    ``src``, sorted on the card."""
+    import torch
+
+    order = torch.argsort(src, stable=True)
+    indptr = torch.zeros(n + 1, dtype=torch.int64, device=src.device)
+    indptr[1:] = torch.cumsum(torch.bincount(src, minlength=n), 0)
+    return indptr.cpu().numpy(), dst[order].cpu().numpy()
+
+
+def _np_reach(source: int, pruned: np.ndarray, indptr: np.ndarray, indices: np.ndarray,
+              max_steps: int) -> np.ndarray:
+    """The masked BFS of ``distribute_one`` on the host, level by level over
+    a CSR: the visited set, where pruned vertices are visited but do not
+    expand."""
+    visited = np.zeros(pruned.shape[0], dtype=bool)
+    visited[source] = True
+    fresh = np.zeros_like(visited)
+    frontier = np.array([] if pruned[source] else [source], dtype=np.int64)
+    for _ in range(max_steps):
+        if frontier.size == 0:
+            break
+        starts, counts = indptr[frontier], indptr[frontier + 1] - indptr[frontier]
+        idx = np.repeat(starts - np.cumsum(counts) + counts, counts) + np.arange(counts.sum())
+        nb = indices[idx]
+        nb = nb[~visited[nb]]
+        fresh[:] = False
+        fresh[nb] = True
+        visited |= fresh
+        frontier = np.flatnonzero(fresh & ~pruned)
+    return visited
+
+
+def _np_pass(L: np.ndarray, lens: np.ndarray, row: np.ndarray, vi: int, csr: tuple,
+             max_steps: int) -> tuple:
+    """One pass of ``distribute_one`` on the host: (L, lens, pruned count)."""
+    n = L.shape[0]
+    lut = np.zeros(n + 1, dtype=bool)
+    lut[np.where(row == -1, n, row)] = True
+    lut[n] = False
+    pruned = lut[np.where(L == -1, n, L)].any(1)
+    labeled = _np_reach(vi, pruned, *csr, max_steps) & ~pruned
+    L = L.copy()
+    rows = np.flatnonzero(labeled)
+    L[rows, np.minimum(lens[rows], L.shape[1] - 1)] = vi
+    return L, lens + labeled.astype(np.int32), int(pruned.sum())
+
+
+def _state_cols(state, k: int) -> tuple:
+    """The first ``k`` columns of a label state on the host, after checking
+    on the card that every later column is INVALID."""
+    for name in ("L_out", "L_in"):
+        check(bool((getattr(state, name)[:, k:] == -1).all()),
+              f"{name} holds an entry past column {k}")
+    return (state.L_out[:, :k].cpu().numpy(), state.L_in[:, :k].cpu().numpy(),
+            state.out_len.cpu().numpy(), state.in_len.cpu().numpy())
+
+
+def _build_cell(shape: str, device, second: bool) -> dict:
+    """``shape``'s build cell: a random DAG made on the card, the cell's
+    ``fn`` (``distribute_one`` over the one-rank state) from the top vertex
+    of the §5.2 order on a fresh state, held to a 64-level BFS both ways
+    (``graph.bfs.bfs_levels_device``), with the truth less its last level
+    as a control that must be rejected; with ``second``, an iteration from
+    the next vertex of the order held to a numpy transcription of the step.
+    The dry run beside it."""
+    import torch
+
+    from repro_torch.configs import reachability
+    from repro_torch.core.distribution_device import init_state
+    from repro_torch.graph.bfs import bfs_levels_device
+    from repro_torch.kernels import ops
+
+    info = reachability.ORACLE_SHAPES[shape]
+    n, m, L = info["n"], info["m"], info["l_max"]
+    steps = reachability.MAX_STEPS
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(PRODUCTION_SEED)
+    src, dst = production_dag(gen, n, m, device)
+    score = ((torch.bincount(src, minlength=n) + 1) * (torch.bincount(dst, minlength=n) + 1))
+    order = torch.argsort(-score, stable=True)[:2].tolist()
+    state = init_state(n, L, device)
+    vi = torch.tensor(order[0], dtype=torch.int32, device=device)
+    torch.cuda.synchronize()
+    made_s = time.perf_counter() - t0
+    cell = reachability.cells(shape, None)
+    held = sum(t.nbytes for t in state) + vi.nbytes + 4 * src.nbytes
+    ops.reset_launches()
+    t1 = time.perf_counter()
+    state = cell.fn(state, vi, src, dst, dst, src)
+    torch.cuda.synchronize()
+    fn_s = time.perf_counter() - t1
+    check(not any(ops.LAUNCHES.values()), f"[{shape}] distribute_one launched {ops.LAUNCHES}")
+    check(not bool(state.overflow), f"[{shape}] overflow")
+    rec = {"shape": shape, "kind": "build", "n": n, "m": m, "l_max": L, "vi": order[0],
+           "made_s": made_s, "fn_s": fn_s}
+    for name, lens, col, a, b in (("L_out", state.out_len, state.L_out, dst, src),
+                                  ("L_in", state.in_len, state.L_in, src, dst)):
+        level = bfs_levels_device(order[0], a, b, n, steps)
+        truth = level >= 0
+        deepest = int(level.max())
+        want = torch.where(truth, vi, torch.tensor(-1, dtype=torch.int32, device=device))
+        ok = (bool(torch.equal(lens, truth.to(torch.int32))) and bool(torch.equal(col[:, 0], want))
+              and bool((col[:, 1:] == -1).all()))
+        check(ok, f"[{shape}] {name} after distribute_one differs from the BFS truth")
+        short = (level >= 0) & (level < deepest)
+        check(not torch.equal(lens, short.to(torch.int32)),
+              f"[{shape}] {name}: the truth without its last level ({deepest}) passed too")
+        # the steps the pass ran: a level each, and one that found nothing new
+        rec[name] = {"labeled": int(truth.sum()), "levels": deepest,
+                     "steps": min(deepest + 1, steps)}
+    if second:
+        check(max(int(state.out_len.max()), int(state.in_len.max())) == 1,
+              f"[{shape}] a row holds more than one label after one iteration")
+        host = _state_cols(state, 1)
+        fwd, rev = _csr_host(src, dst, n), _csr_host(dst, src, n)
+        wi = order[1]
+        t2 = time.perf_counter()
+        state = cell.fn(state, torch.tensor(wi, dtype=torch.int32, device=device),
+                        src, dst, dst, src)
+        torch.cuda.synchronize()
+        rec["second_fn_s"] = time.perf_counter() - t2
+        Lo, Li, olen, ilen = (np.concatenate([x, np.full((n, 1), -1, np.int32)], 1)
+                              if x.ndim == 2 else x for x in host)
+        t3 = time.perf_counter()
+        Lo, olen, pruned_r = _np_pass(Lo, olen, Li[wi], wi, rev, steps)
+        Li, ilen, pruned_f = _np_pass(Li, ilen, Lo[wi], wi, fwd, steps)
+        rec["numpy_s"] = time.perf_counter() - t3
+        got = _state_cols(state, 2)
+        check(all(np.array_equal(x, y) for x, y in zip(got, (Lo, Li, olen, ilen))),
+              f"[{shape}] the second iteration differs from its numpy transcription")
+        check(pruned_r + pruned_f > 0, f"[{shape}] the second iteration pruned nothing")
+        rec["second"] = {"vi": wi, "pruned": [pruned_r, pruned_f],
+                         "labeled": [int(olen.sum() - host[2].sum()),
+                                     int(ilen.sum() - host[3].sum())]}
+    dry = _dry_trace_one_rank(shape)
+    check(dry["memory"]["argument_size_in_bytes"] == held,
+          f"[{shape}] the dry run's argument bytes {dry['memory']['argument_size_in_bytes']} "
+          f"are not the card's {held}")
+    dry_ms = dry["cost"]["bytes_accessed"] / PEAK_BYTES_PER_S * 1e3
+    # the trace runs every pass its 64 steps (a meta tensor has no flag to
+    # stop on); the card ran ``steps``: the bound scaled to them, the
+    # bytes of a step dominating
+    ran = (rec["L_out"]["steps"] + rec["L_in"]["steps"]) / (2 * steps)
+    rec.update(held_bytes=held, dry_run={k: dry[k] for k in ("memory", "cost", "collectives")},
+               dry_bytes_ms=dry_ms, dry_bytes_share=dry_ms / (fn_s * 1e3),
+               dry_bytes_ms_at_card_steps=dry_ms * ran,
+               dry_bytes_share_at_card_steps=dry_ms * ran / (fn_s * 1e3),
+               seconds=time.perf_counter() - t0)
+    log(f"4m {shape}: n = {n:,}, m = {m:,}, L {L}: distribute_one from {order[0]} "
+        f"{fn_s:.3f} s, {rec['L_out']['labeled']:,} ancestors ({rec['L_out']['levels']} "
+        f"levels), {rec['L_in']['labeled']:,} descendants ({rec['L_in']['levels']}) = BFS "
+        + (f"; from {order[1]}: pruned {rec['second']['pruned']} = numpy "
+           if second else "")
+        + f"; dry run {dry_ms:.3f} ms of bytes (64 steps a pass; "
+          f"{rec['dry_bytes_ms_at_card_steps']:.3f} at the card's steps, "
+          f"{rec['dry_bytes_share_at_card_steps']:.1%} of the call)")
+    del state, src, dst
+    return rec
+
+
+def phase_production_cells(device, shapes) -> tuple:
+    """Phase 4m: each of ``shapes`` (configs/reachability.py's cells) run
+    once on the card; (record, K1 records)."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(device)
+    cells, kernels = [], []
+    for shape in shapes:
+        if shape.startswith("serve"):
+            cell, k1 = _serve_cell(shape, device)
+            kernels.append(k1)
+        else:
+            cell = _build_cell(shape, device, second=shape == "build_sweep")
+        cells.append(cell)
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec = {"phase": "production_cells", "seconds": time.perf_counter() - t0, "cells": cells,
+           "peak_bytes": torch.cuda.max_memory_allocated(device)}
+    record(rec)
+    return rec, kernels
+
+
 def phase_driver():
     """The serve driver's sweep on the card, a path of its own: the launch
     counts are read around exactly this run."""
@@ -6325,6 +6675,8 @@ def main(argv=None) -> int:
                     help="run phases 1-4 and 4i (the multi-device modes) only")
     ap.add_argument("--only-distributed-training", action="store_true",
                     help="run phases 1-3 and 4l (training across ranks) only")
+    ap.add_argument("--only-production-cells", action="store_true",
+                    help="run phases 1-3 and 4m (the oracle's production cells, all four) only")
     ap.add_argument("--publish-stall", type=float, default=0.0, metavar="S",
                     help="stall phase 4h's daemon publish S seconds more at its fault "
                          "site dynamic.publish (default 0: the publish as it is)")
@@ -6340,7 +6692,7 @@ def main(argv=None) -> int:
     child = None
     if not (args.only_device_build or args.only_kernels or args.only_dynamic
             or args.only_multi_device or args.only_substrate or args.only_training
-            or args.only_distributed_training):
+            or args.only_distributed_training or args.only_production_cells):
         child = start_host_engines()
     children = {"host_engines": child, "mesh_ranks": None, "dist_ranks": None}
     try:
@@ -6382,6 +6734,8 @@ def run(args, children: dict) -> int:
         release_dist_ranks(dist_ranks)
         finish_dist_ranks(dist_ranks, smi_line)
         kernels = None
+    elif args.only_production_cells:
+        _, kernels = phase_production_cells(device, PRODUCTION_CELLS)
     elif args.only_dynamic:
         g, co, queries, cq, rest, launches, verdicts = phase_main_path(device)
         dyn = phase_dynamic(device, g, queries, verdicts, args.publish_stall)
@@ -6435,6 +6789,7 @@ def run(args, children: dict) -> int:
         merge_training(library, phase_training(device, smi_line), cases)
         release_dist_ranks(dist_ranks)
         merge_distributed(library, finish_dist_ranks(dist_ranks, smi_line))
+        _, production = phase_production_cells(device, FULL_RUN_PRODUCTION)
         budgeted = phase_cold_start_and_budget(g, co, queries, verdicts)
         cases["frontier_or"] += built["frontier_or_cases"]
         kernels = [timing_serve_batch(co, cq, k1_launches, cases["serve_batch"], budgeted)]
@@ -6450,7 +6805,7 @@ def run(args, children: dict) -> int:
                                           {"device_build": built["launches"]["frontier_or"],
                                            "mesh_build": ranks["frontier_or"]},
                                           cases["frontier_or"]))
-        kernels += library
+        kernels += library + production
         phase_serving_profile(co, queries)
         phase_driver()
     record({"phase": "done", "seconds": time.perf_counter() - t_start,

@@ -15,6 +15,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import tempfile
 import threading
 from typing import Any, Optional
 
@@ -48,21 +49,27 @@ def _leaf(arr: np.ndarray, like):
 
 
 def save_checkpoint(ckpt_dir: str, step: int, tree: Any, keep: int = 3) -> str:
-    """Blocking save. Returns the final checkpoint path."""
+    """Blocking save. Returns the final checkpoint path.  A save writes into
+    a directory of its own and publishes it by one rename, so two writers of
+    one step (a failed run's save still in flight beside its restart, in one
+    process) never share a file; where the other publishes the step between
+    this one's removal of it and its rename, the other's copy stands."""
     leaves, treedef = tree_flatten(tree)
     arrays = {f"leaf_{i}": _host(x) for i, x in enumerate(leaves)}
     os.makedirs(ckpt_dir, exist_ok=True)
-    tmp = os.path.join(ckpt_dir, f".tmp_step_{step}")
+    tmp = tempfile.mkdtemp(prefix=f".tmp_step_{step}_", dir=ckpt_dir)
     final = os.path.join(ckpt_dir, f"step_{step}")
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
     np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
     with open(os.path.join(tmp, "tree.json"), "w") as f:
         json.dump({"treedef": treedef_str(treedef), "n_leaves": len(leaves), "step": step}, f)
     if os.path.exists(final):
-        shutil.rmtree(final)
-    os.rename(tmp, final)  # atomic publish
+        shutil.rmtree(final, ignore_errors=True)
+    try:
+        os.rename(tmp, final)  # atomic publish
+    except OSError:
+        if not os.path.isdir(final):
+            raise
+        shutil.rmtree(tmp, ignore_errors=True)
     _gc(ckpt_dir, keep)
     return final
 
@@ -72,8 +79,16 @@ def _steps(ckpt_dir: str) -> list:
 
 
 def _gc(ckpt_dir: str, keep: int) -> None:
-    for s in _steps(ckpt_dir)[:-keep]:
+    """Drop all but the last ``keep`` steps, and the unpublished directories
+    (a crashed save's) of steps older than the oldest kept."""
+    steps = _steps(ckpt_dir)
+    for s in steps[:-keep]:
         shutil.rmtree(os.path.join(ckpt_dir, f"step_{s}"), ignore_errors=True)
+    oldest = steps[-keep:][0] if steps[-keep:] else None
+    for d in os.listdir(ckpt_dir):
+        if d.startswith(".tmp_step_") and oldest is not None and \
+                int(d.split("_")[2]) < oldest:
+            shutil.rmtree(os.path.join(ckpt_dir, d), ignore_errors=True)
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:

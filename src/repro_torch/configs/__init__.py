@@ -3,16 +3,13 @@ architecture, under the JAX package's ids.
 
 Each arch module exposes:
   ARCH_ID        str
-  FAMILY         'lm' | 'gnn' | 'recsys'
+  FAMILY         'lm' | 'gnn' | 'recsys' | 'oracle'
   full_config()  the published config
   smoke_config() a reduced same-family config (CPU tests)
   SHAPES         tuple of shape names valid for this arch
-
-The JAX package's ``cells`` (dry-run lowering specs) wait for the dry run
-(ROADMAP.md Queue 1, item 12.5); what they lower runs here: ``cell``'s mesh
-helpers, ``lm_cells.make_train_step`` and ``gnn_cells.make_gnn_train_step``.
-The one id of the JAX package's registry that is not ported yet raises
-``KeyError`` in ``get_arch``, naming the ROADMAP item that ports it.
+  cells(shape, mesh, variant='baseline') -> CellSpec (see configs.cell):
+                 one rank's step, its global argument specs and placements,
+                 what ``launch.dryrun`` traces
 """
 from __future__ import annotations
 
@@ -29,17 +26,12 @@ _ARCH_MODULES = {
     "schnet": "repro_torch.configs.schnet_cfg",
     "gatedgcn": "repro_torch.configs.gatedgcn_cfg",
     "xdeepfm": "repro_torch.configs.xdeepfm_cfg",
-}
-# the JAX registry's other ids -> what ports them
-_NOT_PORTED = {
-    "reachability-oracle": "the dry run and its cells (ROADMAP.md Queue 1, item 12.5)",
+    "reachability-oracle": "repro_torch.configs.reachability",
 }
 
 ALL_ARCHS = tuple(_ARCH_MODULES)
-ASSIGNED_ARCHS = ALL_ARCHS
+ASSIGNED_ARCHS = tuple(a for a in ALL_ARCHS if a != "reachability-oracle")
 
 
 def get_arch(arch_id: str):
-    if arch_id in _NOT_PORTED:
-        raise KeyError(f"{arch_id!r} is not ported yet: {_NOT_PORTED[arch_id]}")
     return importlib.import_module(_ARCH_MODULES[arch_id])

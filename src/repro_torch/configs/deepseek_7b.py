@@ -1,11 +1,11 @@
 """deepseek-7b [arXiv:2401.02954; hf]: 30L d=4096 32H (GQA kv=32 = MHA)
 d_ff=11008 vocab=102400 — llama-architecture.  The port of
-``repro.configs.deepseek_7b`` (``cells`` waits for the dry-run port)."""
+``repro.configs.deepseek_7b``."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.lm_cells import LM_SHAPES
+from repro_torch.configs.lm_cells import LM_SHAPES, lm_cell
 from repro_torch.models.transformer import LMConfig
 
 ARCH_ID = "deepseek-7b"
@@ -37,4 +37,11 @@ def smoke_config() -> LMConfig:
         vocab=128,
         dtype=torch.float32,
         remat=False,
+    )
+
+
+def cells(shape: str, mesh, variant: str = "baseline"):
+    return lm_cell(
+        full_config(), ARCH_ID, shape, mesh, variant,
+        accum_micro_per_device=1, sub_quadratic=False,
     )

@@ -2,9 +2,7 @@
 (kv_lora=512, qk_nope 128, qk_rope 64, v 128), MoE: 64 routed experts top-6
 + 2 shared, expert d_ff=1408, vocab=102400.
 
-The port of ``repro.configs.deepseek_v2_lite_16b``, as data: the port's
-model raises ``NotImplementedError`` for MLA until K4 takes its widths
-(ROADMAP.md Queue 1, item 12).  ``cells`` waits for the dry-run port.
+The port of ``repro.configs.deepseek_v2_lite_16b``.
 
 NOTE on the assignment line: the bracket spec says "MoE 64e top-6" while the
 comment says "160 routed" (that is full V2, not Lite). We follow the
@@ -14,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.lm_cells import LM_SHAPES
+from repro_torch.configs.lm_cells import LM_SHAPES, lm_cell
 from repro_torch.models.transformer import LMConfig, MLACfg, MoECfg
 
 ARCH_ID = "deepseek-v2-lite-16b"
@@ -54,4 +52,11 @@ def smoke_config() -> LMConfig:
                    d_ff_shared=32, capacity_factor=4.0, group_size=32),
         dtype=torch.float32,
         remat=False,
+    )
+
+
+def cells(shape: str, mesh, variant: str = "baseline"):
+    return lm_cell(
+        full_config(), ARCH_ID, shape, mesh, variant,
+        accum_micro_per_device=1, sub_quadratic=False,
     )

@@ -10,17 +10,27 @@ Shapes (assignment):
 
 Sampled training takes the per-step block (1024 seeds -> 16,384 1-hop ->
 153,600 2-hop nodes, 168,960 edges) that the neighbour sampler
-(``repro_torch.graph.sampler``) produces.  ``gnn_train_cell`` and
-``graph_specs`` (the dry run's lowering specs) wait for the dry-run port
-(ROADMAP.md Queue 1, item 12.5).
+(``repro_torch.graph.sampler``) produces.  Full-batch cells take the whole
+padded graph; vertices and edges shard over the DP axes.
+
+``gnn_train_cell`` gives a dry-run cell (``launch.dryrun``) whose ``fn`` is
+one rank's step over its block of the graph.  A loss that has no per-rank
+program over a graph split over the data axes (schnet's, graphcast's,
+gatedgcn's without its dst-local variant) makes the cell ``skip`` there
+(``DATA_SHARDED_SKIP``, ROADMAP.md Queue 1, item 12.6); GCN's per-rank loss
+is ``gcn.make_sharded_loss``, gatedgcn's ``make_dstlocal_loss``.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Dict, Optional
 
 import torch
 
+from repro_torch.configs.cell import (CellSpec, TensorSpec, data_axes_of, dp_size, host_step,
+                                      specs_of)
 from repro_torch.graph.sampler import block_shapes
+from repro_torch.launch.mesh import P
+from repro_torch.models.gnn.layers import GraphBatch
 from repro_torch.optim import adamw_update, cosine_schedule
 from repro_torch.tree import tree_leaves
 
@@ -72,3 +82,76 @@ def make_gnn_train_step(loss_fn: Callable, mesh):
         return params, opt_state, metrics
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# dry-run cells
+# ---------------------------------------------------------------------------
+
+DATA_SHARDED_SKIP = ("the port has no per-rank program of this loss over a graph split over "
+                     "the data axes ({dp} ranks; ROADMAP.md Queue 1, item 12.6: the "
+                     "data-sharded GNN losses)")
+
+
+def graph_specs(n: int, m: int, d_feat: int, with_pos: bool, d_edge, n_classes: int = 8):
+    """The ``TensorSpec`` GraphBatch (JAX's ``graph_specs``)."""
+    del n_classes
+    return GraphBatch(
+        x=TensorSpec((n, d_feat), torch.float32),
+        edge_src=TensorSpec((m,), torch.int32),
+        edge_dst=TensorSpec((m,), torch.int32),
+        edge_mask=TensorSpec((m,), torch.bool),
+        node_mask=TensorSpec((n,), torch.bool),
+        edge_attr=TensorSpec((m, d_edge), torch.float32) if d_edge else None,
+        pos=TensorSpec((n, 3), torch.float32) if with_pos else None,
+        y=TensorSpec((n,), torch.int32),
+    )
+
+
+def graph_pspecs(mesh, with_pos: bool, d_edge):
+    """Vertices and edges both shard over the DP axes (model axis free for
+    feature-dim sharding on wide GNNs)."""
+    axes = data_axes_of(mesh)
+    lead = axes if len(axes) > 1 else axes[0]
+    return GraphBatch(
+        x=P(lead, None),
+        edge_src=P(lead),
+        edge_dst=P(lead),
+        edge_mask=P(lead),
+        node_mask=P(lead),
+        edge_attr=P(lead, None) if d_edge else None,
+        pos=P(lead, None) if with_pos else None,
+        y=P(lead),
+    )
+
+
+def gnn_train_cell(arch_id: str, shape: str, mesh, loss_fn: Optional[Callable],
+                   init_fn: Callable, with_pos: bool = False, d_edge=None,
+                   extra_meta: Optional[Dict] = None) -> CellSpec:
+    """JAX's ``gnn_train_cell``.  ``loss_fn(params, g)`` is one rank's loss
+    over its block of the graph, or ``None`` where the loss has no per-rank
+    program over ``mesh``'s data axes (the cell is then ``skip``; one data
+    rank runs the single-device loss, which the caller passes).  ``init_fn()``
+    makes the params on ``meta``.  Params and optimizer state are whole on
+    every rank; ``fn`` is ``make_gnn_train_step``'s step."""
+    from repro_torch.optim import adamw_init
+
+    n, m, d_feat = shape_dims(shape)
+    g_specs = graph_specs(n, m, d_feat, with_pos, d_edge)
+    params = init_fn()
+    params_specs = specs_of(params)
+    opt_specs = specs_of(adamw_init(params))
+    skip, fn = None, None
+    if loss_fn is None:
+        skip = DATA_SHARDED_SKIP.format(dp=dp_size(mesh))
+    else:
+        step = make_gnn_train_step(loss_fn, mesh)
+        fn = lambda params, opt_state, g: step(params, host_step(opt_state), g)  # noqa: E731
+    return CellSpec(
+        arch=arch_id, shape=shape, kind="train", fn=fn,
+        args=(params_specs, opt_specs, g_specs),
+        placements=(P(), P(), graph_pspecs(mesh, with_pos, d_edge)),
+        out_placements=(P(), P(), None),
+        donate=(0, 1), skip=skip,
+        meta=dict(n_nodes=n, n_edges=m, d_feat=d_feat, **(extra_meta or {})),
+    )

@@ -1,13 +1,12 @@
 """granite-3-2b [hf:ibm-granite/granite-3.0-2b-base]: 40L d=2048 32H
 (GQA kv=8) d_ff=8192 vocab=49155 (padded to 49408 for TP divisibility —
 Megatron-style vocab padding; logits over pad ids are never selected by
-data with labels < 49155).  The port of ``repro.configs.granite_3_2b``
-(``cells`` waits for the dry-run port)."""
+data with labels < 49155).  The port of ``repro.configs.granite_3_2b``."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.lm_cells import LM_SHAPES
+from repro_torch.configs.lm_cells import LM_SHAPES, lm_cell
 from repro_torch.models.transformer import LMConfig
 
 ARCH_ID = "granite-3-2b"
@@ -40,4 +39,11 @@ def smoke_config() -> LMConfig:
         vocab=128,
         dtype=torch.float32,
         remat=False,
+    )
+
+
+def cells(shape: str, mesh, variant: str = "baseline"):
+    return lm_cell(
+        full_config(), ARCH_ID, shape, mesh, variant,
+        accum_micro_per_device=2, sub_quadratic=False,
     )

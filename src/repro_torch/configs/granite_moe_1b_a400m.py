@@ -1,13 +1,12 @@
 """granite-moe-1b-a400m [hf:ibm-granite/granite-3.0-1b-a400m-base]: 24L
 d=1024 16H (GQA kv=8) expert d_ff=512, 32 experts top-8, vocab=49155
 (padded to 49408 for TP divisibility).  The port of
-``repro.configs.granite_moe_1b_a400m`` (``cells`` waits for the dry-run
-port)."""
+``repro.configs.granite_moe_1b_a400m``."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.lm_cells import LM_SHAPES
+from repro_torch.configs.lm_cells import LM_SHAPES, lm_cell
 from repro_torch.models.transformer import LMConfig, MoECfg
 
 ARCH_ID = "granite-moe-1b-a400m"
@@ -44,4 +43,11 @@ def smoke_config() -> LMConfig:
                    capacity_factor=4.0, group_size=32),
         dtype=torch.float32,
         remat=False,
+    )
+
+
+def cells(shape: str, mesh, variant: str = "baseline"):
+    return lm_cell(
+        full_config(), ARCH_ID, shape, mesh, variant,
+        accum_micro_per_device=4, sub_quadratic=False,
     )

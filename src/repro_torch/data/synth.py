@@ -19,6 +19,22 @@ from repro_torch.graph.csr import CSRGraph
 from repro_torch.models.gnn.layers import GraphBatch
 
 
+def lm_batch_specs(batch: int, seq: int) -> dict:
+    """The global specs of ``lm_batch``'s batch (JAX's ``lm_batch_specs``)."""
+    from repro_torch.configs.cell import TensorSpec
+
+    return {"tokens": TensorSpec((batch, seq), torch.int32),
+            "labels": TensorSpec((batch, seq), torch.int32)}
+
+
+def recsys_batch_specs(batch: int, n_fields: int) -> dict:
+    """The global specs of ``recsys_batch``'s batch (JAX's ``recsys_batch_specs``)."""
+    from repro_torch.configs.cell import TensorSpec
+
+    return {"ids": TensorSpec((batch, n_fields), torch.int32),
+            "y": TensorSpec((batch,), torch.float32)}
+
+
 def graph_batch_from_csr(g: CSRGraph, d_feat: int, seed: int = 0, n_classes: int = 8,
                          with_pos: bool = False, d_edge: int | None = None,
                          pad_edges_to: int | None = None, device="cuda") -> GraphBatch:

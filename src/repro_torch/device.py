@@ -15,7 +15,8 @@ def resolve_device(device) -> torch.device:
 
     ``"cuda"`` resolves to the current CUDA device index, so one card has one
     key wherever a tensor cache is keyed by device.  Raises ``RuntimeError``
-    when a CUDA device is asked for and torch sees none."""
+    when a CUDA device is asked for and torch sees none.  ``"meta"`` (shapes
+    and dtypes, no data) is for a dry run's trace (``launch.dryrun``)."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -24,6 +25,6 @@ def resolve_device(device) -> torch.device:
                 "device; pass device='cpu' to run on the CPU")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {str(device)!r}: expected cuda or cpu")
+    elif dev.type not in ("cpu", "meta"):
+        raise ValueError(f"unsupported device {str(device)!r}: expected cuda, cpu or meta")
     return dev

@@ -4,7 +4,12 @@ A wrapper checks device, dtype, shape and contiguity, then:
 
   * for CUDA tensors it launches its kernel on the current stream, checks the
     launch's ``cudaGetLastError()`` code and raises on a failure;
-  * for CPU tensors it runs the kernel's plain version (``ref``).
+  * for CPU tensors it runs the kernel's plain version (``ref``);
+  * for ``meta`` tensors (a dry run's trace, ``launch.dryrun``) it returns
+    outputs of the kernel's shapes and dtypes, adds the kernel's operations
+    and bytes (the bound formulas of PERF.md §6, for every entry the inputs
+    allow: a dry run has no data) to ``META_COST``, and neither launches
+    nor runs the plain version.
 
 There is no fall-back from the kernel to the plain version: which one runs
 depends only on where the tensors lie.  ``LAUNCHES`` counts kernel launches
@@ -58,6 +63,28 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+# kernel name -> {"calls", "flops", "bytes"} of its calls on meta tensors since
+# the last reset_meta_cost(): what a dry run's trace would have the card do
+META_COST: dict = {}
+
+
+def reset_meta_cost() -> None:
+    META_COST.clear()
+
+
+def _meta_cost(name: str, flops: int, nbytes: int) -> None:
+    """Add one meta call of kernel ``name`` doing ``flops`` operations over
+    ``nbytes`` bytes (each input read once, each output written once)."""
+    c = META_COST.setdefault(name, {"calls": 0, "flops": 0, "bytes": 0})
+    c["calls"] += 1
+    c["flops"] += int(flops)
+    c["bytes"] += int(nbytes)
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def _check_matrix(name: str, t: torch.Tensor, dtype=torch.int32) -> None:
     if t.dtype != dtype or t.dim() != 2 or not t.is_contiguous():
         raise ValueError(f"{name} must be a contiguous 2-D {dtype} tensor, got "
@@ -67,13 +94,13 @@ def _check_matrix(name: str, t: torch.Tensor, dtype=torch.int32) -> None:
 
 
 def _device(name: str, *tensors: torch.Tensor) -> torch.device:
-    """The one device every tensor lies on: cpu (the plain version runs) or
-    cuda (the kernel launches)."""
+    """The one device every tensor lies on: cpu (the plain version runs),
+    cuda (the kernel launches) or meta (a dry run: shapes and costs only)."""
     dev = tensors[0].device
     if any(t.device != dev for t in tensors):
         raise ValueError(f"tensors on different devices: {[str(t.device) for t in tensors]}")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name} runs on cuda or cpu, not {dev}")
+    if dev.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"{name} runs on cuda, cpu or meta, not {dev}")
     return dev
 
 
@@ -121,6 +148,11 @@ def tier_intersect(L_out: torch.Tensor, L_in: torch.Tensor,
         return ref.tier_intersect_ref(L_out, L_in, queries, width)
     B = queries.shape[0]
     out = torch.empty(B, dtype=torch.bool, device=dev)
+    if dev.type == "meta":
+        # every query's two truncated rows read whole, a compare per pair
+        wa, wb = min(width, L_out.shape[1]), min(width, L_in.shape[1])
+        _meta_cost("label_intersect", B * wa * wb, B * (8 + 4 * (wa + wb) + 1))
+        return out
     if B == 0:
         return out
     n, Lo = L_out.shape
@@ -197,6 +229,8 @@ class ServeBatch:
         # it in a row that a call reads
         for name, L, lens, unread in (("L_out", L_out, out_len, unread_out),
                                       ("L_in", L_in, in_len, unread_in)):
+            if self.dev.type == "meta":   # no entries to check
+                break
             if unread is None:
                 unread = torch.zeros(n, dtype=torch.bool, device=self.dev)
             else:
@@ -233,12 +267,21 @@ class ServeBatch:
         self._cap = cap
 
     def __call__(self, queries: np.ndarray) -> np.ndarray:
-        """uint8[B] codes of int32[B, 2] host queries (condensation ids)."""
+        """uint8[B] codes of int32[B, 2] host queries (condensation ids).  On
+        meta state: a meta uint8[B] tensor (there are no codes to copy back)."""
         if not (isinstance(queries, np.ndarray) and queries.dtype == np.int32
                 and queries.ndim == 2 and queries.shape[1] == 2):
             raise ValueError("queries must be a numpy int32[B, 2] array, got "
                              f"{getattr(queries, 'dtype', type(queries))} "
                              f"{getattr(queries, 'shape', '')}")
+        if self.dev.type == "meta":
+            # a query's ids in, its two lengths (and levels) and two rows at
+            # full width read, a code out; a compare per pair of entries
+            B = queries.shape[0]
+            Lo, Li = self.L_out.shape[1], self.L_in.shape[1]
+            per = 8 + 8 + (8 if self.level is not None else 0) + 4 * (Lo + Li) + 1
+            _meta_cost("serve_batch", B * Lo * Li, B * per)
+            return torch.empty(B, dtype=torch.uint8, device="meta")
         if self.dev.type == "cpu":
             return ref.serve_batch_ref(self.L_out, self.L_in, self.out_len, self.in_len,
                                        self.level, self.widths, torch.from_numpy(queries),
@@ -308,6 +351,12 @@ def frontier_or(nbr: torch.Tensor, f: torch.Tensor, out=None, perm=None,
         return ref.frontier_or_ref(nbr, f, out, perm, flags)
     r, d = nbr.shape
     n_src, wm = f.shape
+    if dev.type == "meta":
+        # the ids, every slot's frontier words and the out rows read, the out
+        # rows written; an OR per gathered word
+        _meta_cost("frontier_or", r * d * wm,
+                   r * d * 4 + r * d * wm * 4 + (r * 8 + 2 * r * wm * 4 if fused else r * wm * 4))
+        return out if fused else torch.empty((r, wm), dtype=torch.int32, device=dev)
     if not fused:
         out = torch.empty((r, wm), dtype=torch.int32, device=dev)
         flags = torch.zeros(2, dtype=torch.int32, device=dev)
@@ -394,6 +443,12 @@ class FrontierExpand:
                              f"[{lo}, {hi}) and the next level's up to n = {n}")
         if not (0 <= sweep < 2**31 and 0 <= level < 2**31):
             raise ValueError(f"sweep {sweep} and level {level} must be int32 ids >= 0")
+        if dev.type == "meta":
+            # the rows pushed: each one's ring entry, CSR bounds and v, pruned
+            # and delta words read, its delta words written
+            rows = hi - lo
+            _meta_cost("frontier_expand", rows * wm, rows * (4 + 16 + 4 * wm * 4))
+            return
         if dev.type == "cpu":
             ref.frontier_expand_ref(self.frontier, lo, hi, self.indptr, self.indices, self.v,
                                     self.pruned, delta_cur, delta_next, L_tgt, self.hop_mask,
@@ -443,6 +498,10 @@ def bitset_mm(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return ref.bitset_mm_ref(a, x)
     n = a.shape[0]
     out = torch.empty((n, wm), dtype=torch.int32, device=dev)
+    if dev.type == "meta":
+        # a and x read once, out written; an AND-OR per (row, column, word)
+        _meta_cost("bitset_mm", n * k * wm, _nbytes(a, x, out))
+        return out
     if n:
         _launch("bitset_mm", dev, a.data_ptr(), n, a.shape[1], x.data_ptr(), k, wm,
                 out.data_ptr())
@@ -458,6 +517,11 @@ def _ell_spmm(nbr: torch.Tensor, wgt: torch.Tensor, x: torch.Tensor,
         return ref.ell_spmm_ref(nbr, wgt, x)
     (n, d), (n_src, F) = nbr.shape, x.shape
     out = torch.empty((n, F), dtype=torch.float32, device=dev)
+    if dev.type == "meta":
+        # every slot valid: its id and weight, its source row gathered; a
+        # multiply-add per slot and column; out written
+        _meta_cost(count, 2 * n * d * F, n * d * 8 + n * d * F * 4 + n * F * 4)
+        return out
     if n == 0:
         return out
     flags = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -545,6 +609,10 @@ def _embedding_bag(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return ref.embedding_bag_ref(table, idx)
     (V, D), (B, bag) = table.shape, idx.shape
     out = torch.empty((B, D), dtype=torch.float32, device=dev)
+    if dev.type == "meta":
+        # every slot an id: its row gathered, an add per slot and column
+        _meta_cost("embedding_bag", B * bag * D, B * bag * 4 + B * bag * D * 4 + B * D * 4)
+        return out
     if B == 0:
         return out
     flag, flag_np, lock = _flag_word(dev)
@@ -610,6 +678,10 @@ def embedding_bag_bwd(idx: torch.Tensor, dout: torch.Tensor, V: int) -> torch.Te
         return ref.embedding_bag_bwd_ref(idx, dout, V)
     (B, bag), D = idx.shape, dout.shape[1]
     dtable = torch.empty((V, D), dtype=torch.float32, device=dev)
+    if dev.type == "meta":
+        # the ids and dout read, the table written; an add per slot and column
+        _meta_cost("embedding_bag_bwd", B * bag * D, _nbytes(idx, dout, dtable))
+        return dtable
     _launch("embedding_bag_bwd", dev, idx.data_ptr(), B, bag, dout.data_ptr(), D,
             dtable.data_ptr(), V)
     return dtable
@@ -639,6 +711,23 @@ def attention_bwd_kernel(dtype: torch.dtype) -> str:
         return ATTENTION_BWD_KERNELS[dtype]
     except KeyError:
         raise ValueError(f"flash_attention_bwd takes float32 or bfloat16, not {dtype}") from None
+
+
+def attention_pairs(S: int, T: int, causal: bool, window) -> tuple:
+    """(pairs, keys) of K4's masks over S queries right-aligned to T keys:
+    the (query, key) pairs kept, what the computation needs, and the keys
+    some query sees, what it must read of k and v."""
+    qpos = np.arange(S, dtype=np.int64) + T - S
+    hi = np.minimum(qpos, T - 1) if causal else np.full(S, T - 1, np.int64)
+    lo = np.maximum(qpos - window + 1, 0) if window is not None else np.zeros(S, np.int64)
+    ok = hi >= lo
+    pairs = int(np.maximum(hi - lo + 1, 0).sum())
+    if not ok.any():
+        return pairs, 0
+    # the rows' intervals are sorted by both ends: their union's length
+    lo, hi = lo[ok], hi[ok]
+    start = np.maximum(lo, np.concatenate([[lo[0]], np.maximum.accumulate(hi)[:-1] + 1]))
+    return pairs, int(np.maximum(hi - start + 1, 0).sum())
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -731,6 +820,13 @@ def _flash_attention(q, k, v, causal: bool, window, scale: float, kv_len: int,
     # aligned: the sm90 kernel writes 16 bytes at a time
     out = torch.empty((B, Hq, S, Dv), dtype=q.dtype, device=dev)
     lse = torch.empty((B, Hq, S), dtype=torch.float32, device=dev) if return_lse else None
+    if dev.type == "meta":
+        pairs, keys = attention_pairs(S, kv_len, causal, window)
+        e = q.element_size()
+        _meta_cost(kernel, 2 * pairs * (D + Dv) * Hq * B,
+                   B * Hq * S * (D + Dv) * e + B * Hkv * keys * (D + Dv) * e
+                   + (lse.numel() * 4 if return_lse else 0))
+        return (out, lse) if return_lse else out
     if B:   # the float32 kernel takes no lse pointer; a null one asks the sm90 kernel for none
         lse_arg = () if kernel == "flash_attention" else (lse.data_ptr() if return_lse else None,)
         _launch(kernel, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -816,6 +912,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
         return ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal, window=window,
                                            scale=scale, lse=lse)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if dev.type == "meta":
+        # q, k, v, o, do (and lse) read, dq, dk, dv written; the logits, dP and
+        # the three products over the pairs the masks keep
+        pairs, _ = attention_pairs(S, T, causal, window)
+        _meta_cost("flash_attention_bwd", 2 * pairs * (3 * D + 2 * Dv) * Hq * B,
+                   2 * _nbytes(q, k, v) + _nbytes(o, do) + (B * Hq * S * 4))
+        return dq, dk, dv
     if not B:
         return dq, dk, dv
     masks = (int(bool(causal)), window is not None, 0 if window is None else int(window))

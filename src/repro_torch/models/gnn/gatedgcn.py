@@ -157,7 +157,8 @@ def _gather_nodes(h: torch.Tensor, ag: AxisGroup) -> torch.Tensor:
     return _GatherNodes.apply(h, ag)
 
 
-def make_dstlocal_loss(cfg: GatedGCNConfig, mesh, data_axes: Sequence[str] = ("data",)):
+def make_dstlocal_loss(cfg: GatedGCNConfig, mesh, data_axes: Sequence[str] = ("data",),
+                       local: bool = False):
     """JAX's ``make_dstlocal_loss``: ``loss(params, g)`` over a GraphBatch
     ``g`` in the dst-local layout (``graph.partition.partition_edges_by_dst``:
     edge block p holds the edges into vertex block p), the whole batch on
@@ -167,17 +168,21 @@ def make_dstlocal_loss(cfg: GatedGCNConfig, mesh, data_axes: Sequence[str] = ("d
     messages into its own rows (``index_add_``).  The loss, a global sum
     over a global count, is the same on every rank, and
     ``torch.autograd.grad`` of it gives each rank the whole gradient of the
-    params.  Collective: every rank calls it, forward and backward."""
+    params.  With ``local`` each rank is given only its own node block and
+    edge block (as a dry-run cell places the graph).  Collective: every rank
+    calls it, forward and backward."""
     ag = axis_group(mesh, data_axes)
 
     def loss(params, g: GraphBatch) -> torch.Tensor:
         leaves, treedef = tree_flatten(params)
         params = tree_unflatten(treedef, list(_Replicated.apply(ag, *leaves)))
-        n_local = g.x.shape[0] // ag.size
-        m_local = g.edge_src.shape[0] // ag.size
+        parts = 1 if local else ag.size
+        n_local = g.x.shape[0] // parts
+        m_local = g.edge_src.shape[0] // parts
         offset = ag.index * n_local
-        rows, edges = slice(offset, offset + n_local), slice(ag.index * m_local,
-                                                             (ag.index + 1) * m_local)
+        first_row, first_edge = (0, 0) if local else (offset, ag.index * m_local)
+        rows = slice(first_row, first_row + n_local)
+        edges = slice(first_edge, first_edge + m_local)
         src, dst = g.edge_src[edges].long(), g.edge_dst[edges].long()
         emask, nmask, y = g.edge_mask[edges], g.node_mask[rows], g.y[rows]
         e_attr = g.edge_attr[edges] if g.edge_attr is not None else torch.zeros(

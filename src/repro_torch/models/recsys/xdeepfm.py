@@ -124,6 +124,22 @@ def forward(cfg: XDeepFMConfig, params, ids: torch.Tensor) -> torch.Tensor:
     return logit.float()
 
 
+def param_pspecs(cfg: XDeepFMConfig, model_axis: str = "model"):
+    """JAX's placement of the params: the table and the linear term
+    row-sharded over ``model_axis``, the rest whole (as data: the port
+    places nothing by it)."""
+    from repro_torch.launch.mesh import P
+
+    return {
+        "table": P(model_axis, None),
+        "linear": P(model_axis),
+        "cin": [P(None, None) for _ in cfg.cin_layers],
+        "mlp": [{"w": P(None, None), "b": P(None)} for _ in range(len(cfg.mlp_layers) + 1)],
+        "cin_out": P(None, None),
+        "bias": P(),
+    }
+
+
 def loss_fn(cfg: XDeepFMConfig, params, batch) -> torch.Tensor:
     """batch: {ids int32[B, m], y float32[B]}: the mean binary cross-entropy
     with logits (JAX's ``loss_fn``)."""

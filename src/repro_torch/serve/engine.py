@@ -28,6 +28,11 @@ Backends:
                form, and the hits are ORed over the model axis, then
                gathered over the data axes
 
+``make_row_sharded_serve_step`` is the serve step of the production cells
+(``configs.reachability``): label rows split over the data axes, each
+query's two rows fetched from their owners, K1's tier form, the verdicts
+gathered.  It is a step of its own, not an engine backend.
+
 ``backend="auto"`` picks ``sharded`` when a mesh is given, ``kernel`` when
 the engine's device is CUDA and ``dense`` on the CPU.  The sharded backends
 run one process a rank (``repro_torch.launch.mesh``): every rank of the
@@ -217,6 +222,77 @@ def make_hop_sharded_serve_step(mesh, model_axis="model", data_axes=("pod", "dat
     data = {ax: 0 for ax in data_axes}
     labels = _placements(mesh, {model_axis: 1})
     return fn, (labels, labels, _placements(mesh, data)), _placements(mesh, data)
+
+
+def _owner_rows(L_local: torch.Tensor, ids: torch.Tensor, dg) -> torch.Tensor:
+    """The rows ``ids`` (global, int32[b]) of a matrix whose rows are split
+    evenly over the data group ``dg``, this rank holding ``L_local``: each
+    id goes to its owner (``all_to_all_single``, the counts first), the
+    owner reads its rows and sends them back.  On a group of one, a read.
+    On ``meta`` tensors (a dry run) the ids are taken as spread evenly over
+    the owners, the split uniform traffic gives."""
+    import torch.distributed as dist
+
+    if dg.size == 1:
+        return L_local.index_select(0, ids)
+    n_local, P, b = L_local.shape[0], dg.size, ids.shape[0]
+    owner = torch.div(ids, n_local, rounding_mode="floor")
+    order = torch.argsort(owner, stable=True)
+    send_ids = (ids - owner * n_local).index_select(0, order)
+    counts = torch.zeros(P, dtype=torch.int64, device=ids.device).index_add_(
+        0, owner, torch.ones_like(owner, dtype=torch.int64))
+    recv_counts = torch.empty_like(counts)
+    dist.all_to_all_single(recv_counts, counts, group=dg.group)
+    if ids.device.type == "meta":
+        send = [b // P + (r < b % P) for r in range(P)]
+        recv = send
+    else:
+        send, recv = counts.tolist(), recv_counts.tolist()
+    asked = torch.empty(sum(recv), dtype=ids.dtype, device=ids.device)
+    dist.all_to_all_single(asked, send_ids, recv, send, group=dg.group)
+    rows = L_local.index_select(0, asked)
+    back = torch.empty((b, L_local.shape[1]), dtype=L_local.dtype, device=L_local.device)
+    dist.all_to_all_single(back, rows, send, recv, group=dg.group)
+    out = torch.empty_like(back)
+    out[order] = back
+    return out
+
+
+def make_row_sharded_serve_step(mesh, data_axes=None):
+    """The serve step of the ``serve_1m`` / ``serve_xl`` cells
+    (``configs.reachability``), JAX's layout: label ROWS split over the
+    data axes (a vertex's rows lie with its vertex block), queries split
+    over them too; the row gather crosses shards.  ``mesh`` ``None`` is one
+    rank.  Returns ``fn(L_out, L_in, queries) -> bool[B]``.
+
+    ``fn`` takes this rank's row blocks (int32[n / P, Lo] and [n / P, Li],
+    INVALID padded) and its slice of the batch (int32[B / P, 2], global
+    ids).  On one rank it is ``serve_step`` through the kernel: K1's tier
+    form at the full width over the resident matrices.  On more, each
+    query's ``u`` goes to the owner of its ``L_out`` row and ``v`` to the
+    owner of its ``L_in`` row (``_owner_rows``), the rows come back, and K1's
+    tier form intersects them at the full width.  The verdicts are gathered
+    over the data axes: every rank returns the whole bool[B], equal to
+    ``serve_step``'s.  Collective: every rank calls it."""
+    from repro_torch.configs.cell import data_axes_of
+    from repro_torch.launch.mesh import ONE_RANK, axis_group, gather_rows
+
+    if mesh is None:
+        dg = ONE_RANK
+    else:
+        dg = axis_group(mesh, data_axes_of(mesh) if data_axes is None else data_axes)
+
+    def fn(L_out, L_in, queries):
+        width = max(L_out.shape[1], L_in.shape[1])
+        if dg.size == 1:
+            return ops.tier_intersect(L_out, L_in, queries, width)
+        a = _owner_rows(L_out, queries[:, 0].contiguous(), dg)
+        b = _owner_rows(L_in, queries[:, 1].contiguous(), dg)
+        rows = torch.arange(queries.shape[0], dtype=torch.int32, device=queries.device)
+        hit = ops.tier_intersect(a, b, torch.stack([rows, rows], 1), width)
+        return gather_rows(hit, dg)
+
+    return fn
 
 
 # ----------------------------------------------------------------- engine

@@ -13,7 +13,12 @@ job, with the ZeRO layout, the gathered state and a checkpoint round trip;
 ``configs.cell``'s mesh helpers and ``zero_pspecs`` on the job's param
 shapes; a model axis of more than one rank (which must raise);
 ``make_dstlocal_loss`` and a ``make_gnn_train_step`` step on it;
-``pipeline_apply`` against the sequential run in torch.  It imports the
+``pipeline_apply`` against the sequential run in torch; with a job's
+``cells`` entry (``tests/test_torch_distribution_sharded.py``), the
+per-rank programs of the dry-run cells: the oracle's row-sharded
+``distribute_one`` and serve step, GCN's per-rank loss, xDeepFM's train
+step and the LM step on each rank's own rows (``local_batch``).  A job runs
+the parts it has entries for.  It imports the
 port only.
 """
 import datetime
@@ -167,6 +172,86 @@ def run_pipeline(job, world, rank, res):
                        "ref_gx": rx.numpy()}
 
 
+def run_cells(job, world, rank, res):
+    """On (world, 1) and, at 4 ranks, (2, 2): the row-sharded steps (every
+    case's state after each iteration, this rank's rows, and the serve
+    step's verdicts, in both ``row_extract`` modes); GCN's per-rank loss and
+    gradients over this rank's block of a graph; an xDeepFM train step and
+    LM train steps over this rank's rows of the batch."""
+    from repro_torch.configs import xdeepfm_cfg
+    from repro_torch.core.distribution_device import LabelState, make_sharded_distribute_one
+    from repro_torch.models.gnn import gcn
+    from repro_torch.models.recsys import xdeepfm
+    from repro_torch.optim.adamw import zero_layout
+    from repro_torch.serve.engine import make_row_sharded_serve_step
+
+    shapes = [(world, 1)] + ([(2, 2)] if world == 4 else [])
+    res["oracle"] = {}
+    for shape in shapes:
+        mesh = form_mesh(shape, ("data", "model"), timeout=TIMEOUT)
+        P, d = shape[0], dist.get_rank() // shape[1]   # data index: row-major, model last
+        for ci, case in enumerate(job["oracle"]["cases"]):
+            n, L = case["n"], case["l_max"]
+            nl = n // P
+            rows = slice(d * nl, (d + 1) * nl)
+            edges = [torch.from_numpy(e.reshape(P, -1)[d].copy()) for e in case["edges"]]
+            for mode in ("gather", "onehot"):
+                step = make_sharded_distribute_one(mesh, n, case["max_steps"], mode)
+                state = LabelState(torch.full((nl, L), -1, dtype=torch.int32),
+                                   torch.full((nl, L), -1, dtype=torch.int32),
+                                   torch.zeros(nl, dtype=torch.int32),
+                                   torch.zeros(nl, dtype=torch.int32),
+                                   torch.zeros((), dtype=torch.bool))
+                states = []
+                for vi in case["order"]:
+                    state = step(state, torch.tensor(int(vi), dtype=torch.int32), *edges)
+                    states.append([t.numpy().copy() for t in state])
+                res["oracle"][(shape, ci, mode)] = states
+            L_out, L_in = (torch.from_numpy(case[k][rows].copy()) for k in ("L_out", "L_in"))
+            q = case["queries"]
+            b = q.shape[0] // P
+            fn = make_row_sharded_serve_step(mesh)
+            res["oracle"][(shape, ci, "serve")] = fn(
+                L_out, L_in, torch.from_numpy(q[d * b:(d + 1) * b].copy())).numpy()
+        g = job["oracle"]["gcn"]
+        cfg = get_arch("gcn-cora").smoke_config()
+        params = [{"w": torch.from_numpy(w.copy()).requires_grad_(True)} for w in g["params"]]
+        nl, ml = g["x"].shape[0] // P, g["src"].shape[0] // P
+        block = GraphBatch(
+            x=torch.from_numpy(g["x"][d * nl:(d + 1) * nl].copy()),
+            edge_src=torch.from_numpy(g["src"][d * ml:(d + 1) * ml].copy()),
+            edge_dst=torch.from_numpy(g["dst"][d * ml:(d + 1) * ml].copy()),
+            edge_mask=torch.from_numpy(g["emask"][d * ml:(d + 1) * ml].copy()),
+            node_mask=torch.from_numpy(g["nmask"][d * nl:(d + 1) * nl].copy()),
+            y=torch.from_numpy(g["y"][d * nl:(d + 1) * nl].copy()))
+        loss = gcn.make_sharded_loss(cfg, mesh, ("data",))(params, block)
+        grads = torch.autograd.grad(loss, [p["w"] for p in params])
+        res["oracle"][(shape, "gcn")] = (float(loss), [x.numpy() for x in grads])
+        if shape[1] > 1:
+            continue   # the LM and xDeepFM steps take no model axis (their cells skip)
+        x = job["oracle"]["xdeepfm"]
+        cfg = xdeepfm_cfg.smoke_config()
+        params = _torch(x["params"])
+        opt_p = zero_pspecs(params, xdeepfm.param_pspecs(cfg), mesh)
+        state = zero_init(params, zero_layout(opt_p, mesh))
+        b = x["batch"]["ids"].shape[0] // P
+        rows = {k: torch.from_numpy(v[d * b:(d + 1) * b].copy()) for k, v in x["batch"].items()}
+        params, state, metrics = xdeepfm_cfg.make_train_step(cfg, mesh, opt_p)(params, state,
+                                                                               rows)
+        res["oracle"][(shape, "xdeepfm")] = (float(metrics["loss"]), _np(params))
+        for n_accum in (1, 2):
+            lm = job["oracle"]["lm"]
+            cfg = get_arch("granite-3-2b").smoke_config()
+            params = _torch(lm["params"])
+            state = zero_init(params, opt_layout(cfg, params, mesh))
+            b = lm["batch"]["tokens"].shape[0] // P
+            rows = {k: torch.from_numpy(v[d * b:(d + 1) * b].copy())
+                    for k, v in lm["batch"].items()}
+            params, state, metrics = make_train_step(cfg, n_accum, mesh, local_batch=True)(
+                params, state, rows)
+            res["oracle"][(shape, "lm", n_accum)] = (float(metrics["loss"]), _np(params))
+
+
 def main(argv) -> int:
     rank, world, store, job_path, out = argv
     rank, world = int(rank), int(world)
@@ -177,11 +262,18 @@ def main(argv) -> int:
         with open(job_path, "rb") as f:
             job = pickle.load(f)
         res = {}
-        run_compress(job, world, rank, res)
-        run_train(job, world, rank, res, out)
-        run_zero_specs(job, world, res)
-        run_dstlocal(job, world, res)
-        run_pipeline(job, world, rank, res)
+        if "compress" in job:
+            run_compress(job, world, rank, res)
+        if "train" in job:
+            run_train(job, world, rank, res, out)
+        if "zero_shapes" in job:
+            run_zero_specs(job, world, res)
+        if "dstlocal" in job:
+            run_dstlocal(job, world, res)
+        if "pipeline" in job:
+            run_pipeline(job, world, rank, res)
+        if "oracle" in job:
+            run_cells(job, world, rank, res)
         with open(f"{out}/rank{rank}.pkl", "wb") as f:
             pickle.dump(res, f)
     except Exception:

@@ -15,8 +15,10 @@ preallocated cache with ``kv_len`` and at MLA's widths, D = 192 and
 Dv = 128, K5 ell_spmm, K6 embedding_bag) against its plain versions, the
 backwards of K4, K5 and K6 (training) against theirs, the LM family's (MLA
 included), the GNN family's and xDeepFM's smoke configs on the card against
-the same weights on the CPU, and a training step of granite-3-2b's,
-xDeepFM's and GCN's on the card against the CPU's.
+the same weights on the CPU, a training step of granite-3-2b's,
+xDeepFM's and GCN's on the card against the CPU's, and the production
+cells' programs on one rank (``distribute_one`` over a vertex-partitioned
+state, the row-sharded serve step) against the CPU's.
 
 These tests need a CUDA card and the CUDA toolkit (the kernels build with
 ``nvcc`` on first use); they carry the ``cuda`` marker and, without a card,
@@ -1415,3 +1417,33 @@ def test_training_across_gloo_ranks_on_the_card(cuda, tmp_path):
                 p.wait()
     for p, log in zip(procs, logs):
         assert p.returncode == 0 and "CARD_RANKS_OK" in log, log[-3000:]
+
+
+@pytest.mark.parametrize("row_extract", ["gather", "onehot"])
+def test_production_cell_programs_on_the_card(cuda, rng, row_extract):
+    """The production cells' programs on one rank (``mesh`` None) on the
+    card: ``make_sharded_distribute_one`` over a random DAG's first 20
+    vertices of the §5.2 order gives the CPU run's state exactly after each
+    (no kernel launched), and ``make_row_sharded_serve_step`` answers with
+    one K1 tier-form launch at the full width, equal to its plain version."""
+    from repro_torch.core.distribution_device import init_state, make_sharded_distribute_one
+    from repro_torch.core.order import get_order
+    from repro_torch.graph.generators import random_dag
+    from repro_torch.serve.engine import make_row_sharded_serve_step
+
+    g = random_dag(400, 1200, seed=5)
+    fs, fd = (torch.from_numpy(np.asarray(x, np.int32)) for x in g.edges())
+    step = make_sharded_distribute_one(None, g.n, 64, row_extract)
+    host, card = init_state(g.n, 16, device="cpu"), init_state(g.n, 16, device=cuda)
+    ops.reset_launches()
+    for vi in get_order(g, "degree_product")[:20]:
+        v = torch.tensor(int(vi), dtype=torch.int32)
+        host = step(host, v, fs, fd, fd, fs)
+        card = step(card, v.to(cuda), fs.to(cuda), fd.to(cuda), fd.to(cuda), fs.to(cuda))
+        for a, b in zip(host, card):
+            assert torch.equal(a, b.cpu())
+    assert not any(ops.LAUNCHES.values())
+    q = torch.from_numpy(rng.integers(0, g.n, (5000, 2)).astype(np.int32)).to(cuda)
+    got = make_row_sharded_serve_step(None)(card.L_out, card.L_in, q)
+    assert ops.LAUNCHES["label_intersect"] == 1
+    assert torch.equal(got, ref.tier_intersect_ref(card.L_out, card.L_in, q, 16))

@@ -1,8 +1,9 @@
 """``repro_torch`` stands alone and runs on the card unless told otherwise.
 
-  * importing every module of the port (training across ranks and the
-    frontier-vector BFS among them) loads neither ``jax`` nor any module of
-    the JAX package ``repro`` (checked in a fresh interpreter);
+  * importing every module of the port (training across ranks, the
+    frontier-vector BFS and the dry run among them), and tracing a cell,
+    loads neither ``jax`` nor any module of the JAX package ``repro``
+    (checked in a fresh interpreter);
   * the entry points (the dynamic oracle's, the chaos driver's and the
     substrate models' too) raise
     ``RuntimeError`` on a box without CUDA unless the caller passes
@@ -69,8 +70,17 @@ for name in ("repro_torch.build.bitset", "repro_torch.build.waves",
              # training across ranks and the frontier-vector BFS
              "repro_torch.configs.cell", "repro_torch.configs.gnn_cells",
              "repro_torch.optim.compression", "repro_torch.dist", "repro_torch.dist.pipeline",
-             "repro_torch.graph.partition", "repro_torch.graph.bfs"):
+             "repro_torch.graph.partition", "repro_torch.graph.bfs",
+             # the dry run: the cells, the tracer, its analysis and reports
+             "repro_torch.configs.reachability", "repro_torch.configs.gcn_cora",
+             "repro_torch.configs.gatedgcn_cfg", "repro_torch.configs.schnet_cfg",
+             "repro_torch.configs.graphcast_cfg", "repro_torch.launch.dryrun",
+             "repro_torch.launch.trace_analysis", "repro_torch.launch.trace_top",
+             "repro_torch.launch.roofline", "repro_torch.launch.analytic"):
     assert name in names, name
+# a cell traced on a fake process group loads neither either
+from repro_torch.launch.dryrun import run_cell
+assert run_cell("reachability-oracle", "serve_1m", "single", "baseline", None)["status"] == "ok"
 from repro_torch.core.api import oracle_from_snapshot
 from repro_torch.core import hierarchical_labeling
 from repro_torch.core.baselines import Grail, IntervalTC, KReach, PWAHBitvector, TwoHopSetCover
@@ -122,7 +132,7 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                        capture_output=True, text=True, timeout=240)
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
-    assert n_modules >= 56, r.stdout
+    assert n_modules >= 104, r.stdout
 
 
 def _no_cuda():

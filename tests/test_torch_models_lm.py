@@ -300,7 +300,9 @@ def _fields(cfg) -> dict:
     return out
 
 
-@pytest.mark.parametrize("arch", [a for a in ALL_ARCHS if a not in GNN_ARCHS])
+# the oracle's config (a dict of shapes) is held to JAX's in tests/test_torch_cells.py
+@pytest.mark.parametrize("arch", [a for a in ALL_ARCHS
+                                  if a not in GNN_ARCHS + ("reachability-oracle",)])
 def test_registry_configs_equal_jax(arch):
     """Every ported config equals the JAX package's field by field (nested
     MoE and MLA configs too), the dtype mapped by name; so do the shapes."""
@@ -326,10 +328,10 @@ def test_registry_configs_equal_jax(arch):
 
 
 def test_registry_names_what_is_not_ported():
-    assert set(ALL_ARCHS) < set(JAX_ARCHS)
-    for arch in set(JAX_ARCHS) - set(ALL_ARCHS):
-        with pytest.raises(KeyError, match="ROADMAP.md Queue 1"):
-            get_arch(arch)
+    # every id of the JAX registry is ported (the oracle's cells since the dry run)
+    assert ALL_ARCHS == JAX_ARCHS
+    for arch in ALL_ARCHS:
+        assert get_arch(arch).ARCH_ID == arch
 
 
 def test_params_from_jax_keeps_the_tree():
