@@ -65,7 +65,7 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      this run (``serve_batch`` once a batch, ``label_intersect`` never); the
      batch latency p50/p99 of this run;
   4b. the device wave build: ``build_oracle(g, device="cuda", impl="device")``
-     on the citeseer analogue at ``FULL_RUN_DEVICE_BUILD_SCALE`` (0.1; 1.0
+     on the citeseer analogue at ``FULL_RUN_DEVICE_BUILD_SCALE`` (0.05; 1.0
      with ``--only-device-build``), the launch counts read around exactly this
      build (``frontier_expand`` once a BFS level, ``frontier_or`` never); its
      labels byte for byte against the reference build (by ``DL_SHA256``
@@ -110,7 +110,7 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      printed, not asserted;
   4h. the dynamic oracle on phase 4's graph: ``DurableDynamicOracle(g,
      state_dir, device="cuda")``, whose epoch 0 gives phase 4's verdict on
-     all of phase 4's traffic; ``DYN_ROUNDS`` (4) rounds of ``DYN_UPDATES``
+     all of phase 4's traffic; ``DYN_ROUNDS`` (1) rounds of ``DYN_UPDATES``
      (100) DAG-preserving updates at insert share 0.6, each applied and
      published (a repair publish, a snapshot and a WAL marker), then 4,096
      of phase 4's queries on the current epoch (``serve_batch``, one launch)
@@ -149,7 +149,7 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      really split, every verdict equal to phase 4's on every rank;
   4j. the substrate's serving paths, before 4d, at ``full_config()`` widths
      with weights from the port's ``init_params`` and a seeded generator:
-     each LM at ``SUBSTRATE_LAYERS`` (10) of its layers: granite-3-2b in
+     each LM at ``SUBSTRATE_LAYERS`` (6) of its layers: granite-3-2b in
      bfloat16 (prefill 1 x 4,096 and 1 x 32,768, its
      logits at 4,096 against the same model through K4's plain version,
      max abs and top-1 agreement within ``SUBSTRATE_BF16``; 8 prompts of
@@ -193,7 +193,7 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      last key tile dropped must exceed) and in bfloat16 at 40
      (``TRAIN_BF16_REL``; each of the step's 40 K4 backward calls held to
      its plain version at ``ATTENTION_BWD_TOL`` as it happens, a dk without
-     its last key tile rejected on each), then ``launch.train.main`` for 4
+     its last key tile rejected on each), then ``launch.train.main`` for 3
      steps of 4 x 1,024 tokens with every plain version refused (K4 2 x 40
      launches a step with the layers recomputed, its backward 40, each on
      the tensor cores: ``flash_attention_bwd_sm90``), the step time and the
@@ -216,19 +216,36 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      2 layers one step against a one-rank step over the whole batch (loss,
      master and moments within ``TRAIN_F32_REL``; a step without the last
      rank's gradient rejected), in bfloat16 at ``DIST_LM["layers"]`` (2)
-     layers 2 timed steps with every rank's params equal byte for byte
-     after each (sha256), and ``quantized_psum_grads`` over a step's
+     layers ``DIST_LM["steps"]`` (1) timed step with every rank's params
+     equal byte for byte after each (sha256), and ``quantized_psum_grads`` over a step's
      gradient tree held to a numpy model of its formula; (b)
-     ``dist.pipeline_apply`` over 4 stages of one granite layer each, 8
+     ``dist.pipeline_apply`` over 4 stages of one granite layer each, 4
      microbatches of 1 x 1,024, float32 and bfloat16, output and gradients
      against the sequential run (``DIST_GPIPE_REL``; two stages swapped
      rejected); (c) ``gatedgcn.make_dstlocal_loss`` at ``full_config()`` on
      full_graph_sm's padded shape against ``loss_fn`` on one rank within
      JAX's bounds (the node stream in the wrong rank order rejected), and a
-     ``make_gnn_train_step`` step.  K4 and its backward counted on every
-     rank around exactly the 4-rank steps and pipeline runs; a step's
-     seconds, tokens/s, peak memory a rank, the collectives' seconds and the
-     bytes on the wire by route;
+     ``make_gnn_train_step`` step; (d) the data-sharded GNN losses
+     (``make_sharded_loss``: a rank's node rows and edges, JAX's layout) on
+     4 data ranks at ``full_config()``: schnet at molecule and gatedgcn at
+     full_graph_sm in float32, graphcast at its mesh_dims in float64 (its
+     float32 run measured beside the one-rank program's own spread), loss
+     and every gradient leaf within ``TRAIN_F32_REL`` of ``loss_fn`` on one
+     rank (the partials scattered onto the wrong owners rejected),
+     graphcast once more in bfloat16 (``DIST_GRAPHCAST_BF16_REL``), a step
+     on schnet, gatedgcn and graphcast bfloat16 with the params equal on
+     every rank; (e) xDeepFM over a (2, 2) ("data",
+     "model") mesh, its 39M x 10 table row-sharded over "model": serve_p99
+     and a 25,000-candidate retrieval chunk within ``XDEEPFM_MESH_TOL`` of
+     the one-rank forward (no model all-reduce rejected), a train step at
+     batch 4,096 whose gradient norm passes the clip against the one-rank
+     step within ``TRAIN_F32_REL`` (the table cut to
+     ``DIST_XDEEPFM["train_vocab_per_field"]`` for the step alone), K6 and
+     its backward timed at the path's shapes.  K4 and its backward counted
+     on every rank around exactly the 4-rank steps and pipeline runs, K6
+     and its backward around (e)'s 4-rank calls; a step's seconds,
+     tokens/s, peak memory a rank, the collectives' seconds and the bytes
+     on the wire by route;
   4m. the paper's production cells (``configs/reachability.py``), after 4l
      and before 4d: each cell's own ``fn`` once at its global shapes on the
      card, on one rank (``mesh`` None, the single-device program), data
@@ -372,11 +389,12 @@ SPEC_COUNTS = {"spec_waves": 9144, "spec_members": 401152, "clean_waves": 753,
 DL_SHA256 = {1.0: "7168b6766ec19b8c4e564c3a445567e3465a8cec40edcf7bdebb4ec6377d01f6",
              0.5: "21dbb15a4e65983ef94b29b3501f29ee79c0e1f4dbbcd2132637998ab021007c",
              # phase 4b's device build: ``--scale 0.25 --impl reference auto
-             # --package both`` (both packages, both impls equal), and 0.15 and
-             # 0.1 the same way
+             # --package both`` (both packages, both impls equal), and 0.15,
+             # 0.1 and 0.05 the same way
              0.25: "2fe11bfe8066e54ac280caf9c69faa2e73d14db01f525add04a7cad6bc611f09",
              0.15: "047490a39da4915250a1fbcbf4bb3275b7ac06b73e368bcef3464d2d4865090c",
              0.1: "3deb7d508256e17ce0d102744148def36a05424dcbb3d0bdd15653631fcc790d",
+             0.05: "d95ad1a030d4ddeaa892b34f4ffd023386f043dca7cb5ed63859a41c2c4c7e9f",
              # phase 4i's mesh= build: ``--scale 0.02 --package both``
              0.02: "935b2f82fa6fd7575bf3d0efd999fa5b37bd5e5f64146369d9ab3a2b542d9174"}
 # phase 4c's host engines at citeseer@0.5, held to DL_SHA256[0.5]
@@ -405,11 +423,13 @@ HL_SHA256 = "ec4fa5ca0a742737c74f01dae1ee23eea2d790831fb9125337fc9dfa39307790"
 # at the 3,001st optimistic chunk, past the middle of the build
 CKPT_EVERY = 512
 KILL_AT_CHUNK = 3000
-# the device build (phase 4b) of the full script at 0.1 of the main graph,
+# the device build (phase 4b) of the full script at 0.05 of the main graph,
 # held to DL_SHA256 there: at 1.0 it took 77-153 s, at 0.5 62-76 s, at 0.25
-# 34-48 s and at 0.15 30-35 s of a script that must end within 330 s beside
-# phases 4j, 4k and 4l; ``--only-device-build`` keeps 1.0 as its default
-FULL_RUN_DEVICE_BUILD_SCALE = 0.1
+# 34-48 s, at 0.15 30-35 s and at 0.1 22-25 s of a script that must end
+# within 330 s beside phases 4j, 4k and 4l (0.1 until phase 4l gained (d)
+# and (e), 0.05 since, for their time); ``--only-device-build`` keeps 1.0
+# as its default
+FULL_RUN_DEVICE_BUILD_SCALE = 0.05
 
 
 def log(msg: str) -> None:
@@ -2885,7 +2905,7 @@ def phase_daemon(g, co) -> dict:
 # benchmarks/dynamic_sweep.py's defaults (100 DAG-preserving updates a round
 # at an insert share of 0.6), over 4 of its 10 rounds: about 1.6 s a round,
 # four keep the script within its target beside phase 4l
-DYN_ROUNDS = 4
+DYN_ROUNDS = 1   # 4 before phase 4l's (d) and (e) (see SUBSTRATE_LAYERS' comment)
 DYN_UPDATES = 100
 DYN_INSERT_FRAC = 0.6
 DYN_SEED = 0
@@ -3419,7 +3439,10 @@ SUBSTRATE_LMS = {
 # (granite-3-2b's 320 decode steps took 16 of 4j's 50 s at all 40), widths,
 # vocabulary, prompt and cache lengths as they are; the float32 re-checks
 # run the same depth (deepseek-v2-lite's MLA_F32_LAYERS, fewer)
-SUBSTRATE_LAYERS = 10
+# (10 until phase 4l gained (d) and (e), 6 since, as phase 4h's DYN_ROUNDS
+# 1, phase 4k's 3 granite steps, phase 4l (a)'s one bfloat16 step and (b)'s
+# 4 microbatches, for their time)
+SUBSTRATE_LAYERS = 6
 # deepseek-v2-lite's float32 re-check keeps 2 of its 27 layers (27 would be
 # 64 GB of float32 weights) and a capacity factor of E / k, so that no token
 # is dropped: decode against forward holds only where both route alike
@@ -3468,6 +3491,14 @@ GNN_CPU_TOL = 1e-4          # rtol and atol: the card's index_add_ sums as its a
 # difference (random weights grow the residual stream ~16x a layer; bfloat16
 # keeps about 3 digits a product)
 GRAPHCAST_BF16 = {"max_abs_over_rms": 0.5, "rms_over_rms": 0.05}
+# phase 4l (d): graphcast's per-rank loss in its own bfloat16 on 4 ranks
+# against loss_fn on one, ||mine - ref|| / ||ref|| for the loss and each
+# gradient leaf.  The partials are summed in float32 and rounded once as on
+# one rank, but each rank's products see a quarter of the edges and the
+# card's atomics land in another order: bfloat16 roundings (a step 2^-8)
+# that differ and grow through 16 layers, as granite's bf16 training check
+# (TRAIN_BF16_REL) allows
+DIST_GRAPHCAST_BF16_REL = 0.05
 MOLECULES, MOLECULE_ATOMS, MOLECULE_EDGES, ATOM_TYPES = 128, 30, 64, 10
 
 
@@ -4260,14 +4291,14 @@ def merge_substrate(library: list, sub: dict) -> None:
 
 # Training at full_config() widths (src/repro/configs/granite_3_2b.py,
 # xdeepfm_cfg.py, gcn_cora.py), through launch.train's setup and step, the
-# weights from a seed.  granite-3-2b in bfloat16 at all 40 layers, 4 steps of
+# weights from a seed.  granite-3-2b in bfloat16 at all 40 layers, 3 steps of
 # 4 x 1,024 tokens through the entry point itself (launch.train.main), so
 # K4's backward sees 16 key tiles under the causal mask; xDeepFM 3 steps at
 # batch 4,096 over its whole 39M-row table; GCN 6 steps on random_dag(N, 3N)
 # at d_in 1,433 (launch.train's graph; N cut to TRAIN_GCN_NODES, the host
 # draws x), then the same 6 with --ckpt-dir --fail-at 3 restarting to the
 # same losses.
-TRAIN_LM = dict(batch=4, seq=1024, steps=4)
+TRAIN_LM = dict(batch=4, seq=1024, steps=3)   # 4 before phase 4l's (d) and (e)
 TRAIN_XDEEPFM = dict(batch=4096, steps=3)
 TRAIN_GCN_NODES, TRAIN_GCN_STEPS, TRAIN_GCN_FAIL_AT = 50_000, 6, 3
 TRAIN_F32_LAYERS = 2
@@ -4962,14 +4993,51 @@ def merge_training(library: list, train: dict, cases: dict) -> None:
 #      graph.partition: its loss and gradients against loss_fn on this rank
 #      alone within JAX's own bounds (DIST_GNN_TOL), which the loss with the
 #      node stream gathered in the wrong rank order must exceed; one
-#      make_gnn_train_step step, its params equal on every rank.
+#      make_gnn_train_step step, its params equal on every rank;
+#  (d) the data-sharded GNN losses (make_sharded_loss: a rank's n/P node
+#      rows and m/P edges with global ids, JAX's layout) over a
+#      (DIST_WORLD,) data mesh at full_config() widths, the graphs from
+#      DIST_GNN_SEED: schnet at molecule (3 interactions, d 64, 300 RBFs; 128
+#      molecules of 30 atoms, padded to 4,096 nodes) and gatedgcn at
+#      full_graph_sm's padded shape (16 layers, d 70, d_in 1,433) in
+#      float32, graphcast at full_graph_sm's mesh_dims (16 layers, d 512,
+#      n_vars 227) in float64: the loss and every gradient leaf against
+#      loss_fn on this rank over the whole graph within TRAIN_F32_REL
+#      (||mine - ref|| / ||ref||), which the partials reduce-scattered onto
+#      the wrong owners (each rank handed the next rank's rows) must exceed.
+#      graphcast's 16 random layers grow its residual stream ~16x a layer
+#      (the loss ~1e25): in float32 the one-rank loss_fn's own gradient
+#      moves by 1e-4 to 6e-4 between two runs on the card (the atomics'
+#      order), so the float32 run is measured beside that spread, not gated,
+#      and the gate is held in float64.  graphcast once more in its own
+#      bfloat16 within DIST_GRAPHCAST_BF16_REL (the same control rejected);
+#      one make_gnn_train_step step on schnet, gatedgcn and graphcast
+#      bfloat16, the params equal on every rank (sha256);
+#  (e) xDeepFM at full_config() over a (2, 2) ("data", "model") mesh, the
+#      tables row-sharded over "model" (a rank's 19.5M rows of the 39M x 10
+#      table, 780 MB, and of the linear term): serve_p99's 512 rows and a
+#      retrieval_score chunk of DIST_XDEEPFM["candidates"] candidates (a
+#      data rank's half of each) against the one-rank forward over the
+#      whole table within XDEEPFM_MESH_TOL, which the forward without the
+#      model all-reduce must exceed; one train step at batch 4,096, the
+#      table scaled by DIST_XDEEPFM["clip_scale"] so that the gradient norm
+#      passes the clip (summed over both model ranks' blocks), against the
+#      one-rank step: the loss, the gradient norm, the params and each
+#      rank's slice of master, mu and nu within TRAIN_F32_REL, the
+#      replicated params equal on every rank.  The train step's table is cut
+#      to DIST_XDEEPFM["train_vocab_per_field"] a field: at 1M its gradient's
+#      reduce-scatter and the params' all-gather move 780 MB a rank through
+#      the host under gloo, and each rank's one-rank reference holds the
+#      whole table five times over.  K6 and its backward are timed once at
+#      the path's shapes on rank 0, the other ranks waiting.
 # K4 and its backward are counted on every rank around exactly the 4-rank
-# steps and pipeline runs (never the references).
+# steps and pipeline runs, K6 and its backward around the 4-rank forward,
+# retrieval and step (never the references).
 DIST_WORLD = 4
 DIST_RANK_TIMEOUT_S = 300     # a rank left in a collective raises after this
 DIST_WAIT_S = 900.0           # how long a rank waits for the script's go
-DIST_LM = dict(batch=8, seq=1024, n_accum=2, steps=2, layers=2)
-DIST_GPIPE = dict(microbatches=8, seq=1024, layers=4)
+DIST_LM = dict(batch=8, seq=1024, n_accum=2, steps=1, layers=2)
+DIST_GPIPE = dict(microbatches=4, seq=1024, layers=4)   # 8 before (d) and (e)
 # the pipeline runs the sequential run's calls on the same inputs; its
 # gradients sum the microbatches' parts in another order (the bfloat16
 # params' gradients in bfloat16, a step 2^-8), and K4's bfloat16 backward
@@ -4977,6 +5045,11 @@ DIST_GPIPE = dict(microbatches=8, seq=1024, layers=4)
 DIST_GPIPE_REL = {"float32": 1e-5, "bfloat16": 2e-2}
 DIST_GNN_TOL = {"loss": 5e-3, "grads": 2e-2}   # tests/test_dist.py's, max abs
 DIST_QUANT_MODEL_LEAVES = ("final_ln", "layers/ln1", "layers/ln2", "layers/wk", "layers/wv")
+DIST_GNN_SEED = 41
+DIST_XDEEPFM_SEED = 43
+DIST_XDEEPFM = dict(serve_batch=512, candidates=25_000, train_batch=4096,
+                    train_vocab_per_field=100_000, clip_scale=100.0)
+XDEEPFM_MESH_TOL = 1e-5   # tests/test_torch_xdeepfm.py's, max abs
 
 
 def _leaf_names(tree, prefix: str = "") -> list:
@@ -5401,6 +5474,346 @@ def _dist_gatedgcn(rank: int, world: int, timeout) -> dict:
             "bounds": DIST_GNN_TOL, "params_equal_after_step": equal}
 
 
+def _rel(a, b) -> float:
+    """||a - b|| / ||b||, in float64 (graphcast's gradients at 16 random
+    layers pass 1e20, whose squares overflow float32); NaN where either
+    holds a value that is not finite."""
+    import torch
+
+    a, b = a.double(), b.double()
+    if not bool(torch.isfinite(a).all() and torch.isfinite(b).all()):
+        return math.nan
+    return float((a - b).norm() / b.norm().clamp_min(1e-300))
+
+
+def _dist_gnn_graphs(device) -> dict:
+    """Phase 4l (d)'s whole graphs, the same on every rank (from
+    DIST_GNN_SEED): SchNet's molecule batch (128 molecules of 30 atoms and
+    64 edges, nodes padded to the cell's 4,096 and masked), GatedGCN's
+    full_graph_sm (a random DAG of Cora's n and m, padded to the cell's
+    3,072 nodes and 10,752 edges and masked, d_in 1,433, 8 edge features),
+    GraphCast's full_graph_sm mesh_dims (3,072 grid rows, 512 mesh nodes,
+    6,144 / 8,192 / 6,144 edges)."""
+    import torch
+
+    from repro_torch.configs import gatedgcn_cfg, graphcast_cfg
+    from repro_torch.configs.gnn_cells import GNN_SHAPES, shape_dims
+    from repro_torch.data.synth import graph_batch_from_csr
+    from repro_torch.graph.generators import random_dag
+    from repro_torch.models.gnn import graphcast
+    from repro_torch.models.gnn.layers import GraphBatch
+
+    rng = np.random.default_rng(DIST_GNN_SEED)
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    B, A, E = MOLECULES, MOLECULE_ATOMS, MOLECULE_EDGES
+    n_pad, m_pad, d_feat = shape_dims("molecule")
+    base = np.repeat(np.arange(B) * A, E)
+    x = np.zeros((n_pad, d_feat), np.float32)
+    x[:B * A, 0] = rng.integers(0, ATOM_TYPES, B * A)
+    y = np.zeros(n_pad, np.float32)
+    y[:B * A] = rng.standard_normal(B * A)
+    schnet_g = GraphBatch(
+        x=t(x), edge_src=t((base + rng.integers(0, A, B * E)).astype(np.int32)),
+        edge_dst=t((base + rng.integers(0, A, B * E)).astype(np.int32)),
+        edge_mask=t(np.arange(m_pad) < B * E), node_mask=t(np.arange(n_pad) < B * A),
+        pos=t(3.0 * rng.standard_normal((n_pad, 3)).astype(np.float32)), y=t(y))
+    info, (n_pad, m_pad, d_feat) = GNN_SHAPES["full_graph_sm"], shape_dims("full_graph_sm")
+    g = graph_batch_from_csr(random_dag(info["n"], info["m"], seed=DIST_GNN_SEED), d_feat,
+                             seed=DIST_GNN_SEED, n_classes=gatedgcn_cfg.full_config().n_classes,
+                             d_edge=gatedgcn_cfg.D_EDGE, pad_edges_to=m_pad, device=device)
+    pad = n_pad - g.x.shape[0]
+    gated_g = g._replace(
+        x=torch.cat([g.x, torch.zeros((pad, d_feat), device=device)]),
+        node_mask=torch.cat([g.node_mask, torch.zeros(pad, dtype=torch.bool, device=device)]),
+        y=torch.cat([g.y, torch.zeros(pad, dtype=g.y.dtype, device=device)]))
+    n_g, n_m, m_g2m, m_mesh, m_m2g = graphcast_cfg.mesh_dims("full_graph_sm")
+    n_vars = graphcast_cfg.full_config().n_vars
+    ri = lambda hi, m: t(rng.integers(0, hi, m).astype(np.int32))  # noqa: E731
+    grid = rng.standard_normal((n_g, n_vars)).astype(np.float32)
+    mesh_b = graphcast.MeshBatch(
+        grid_x=t(grid), g2m_src=ri(n_g, m_g2m), g2m_dst=ri(n_m, m_g2m), mesh_src=ri(n_m, m_mesh),
+        mesh_dst=ri(n_m, m_mesh), m2g_src=ri(n_m, m_m2g), m2g_dst=ri(n_g, m_m2g),
+        target=t(grid + 0.1 * rng.standard_normal((n_g, n_vars)).astype(np.float32)))
+    return {"schnet": schnet_g, "gatedgcn": gated_g, "graphcast": (mesh_b, n_m)}
+
+
+def _rank_block(batch, index: int, parts: int):
+    """This rank's block of a whole GraphBatch or MeshBatch (JAX's layout):
+    each node array's n/P rows, each edge array's m/P edges."""
+    def cut(a):
+        if a is None:
+            return None
+        k = a.shape[0] // parts
+        return a[index * k:(index + 1) * k]
+
+    return type(batch)(*(cut(a) for a in batch))
+
+
+def _dist_gnn_sharded(rank: int, world: int, timeout) -> dict:
+    """Phase 4l (d) on this rank: see the comment above DIST_WORLD."""
+    import dataclasses
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.configs import gatedgcn_cfg, gnn_cells, graphcast_cfg, schnet_cfg
+    from repro_torch.dist import sharded
+    from repro_torch.launch.mesh import axis_group, form_mesh
+    from repro_torch.models.gnn import gatedgcn, graphcast, schnet
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_leaves
+
+    device = torch.device("cuda", 0)
+    mesh = form_mesh((world,), ("data",), device_type="cuda", timeout=timeout)
+    ag = axis_group(mesh, ("data",))
+    graphs = _dist_gnn_graphs(device)
+    mesh_b, n_m = graphs["graphcast"]
+    wide = mesh_b._replace(grid_x=mesh_b.grid_x.double(), target=mesh_b.target.double())
+    gc_full = graphcast_cfg.full_config()
+    gc = (lambda c, p, b: graphcast.loss_fn(c, p, b, n_m),
+          lambda c: graphcast.make_sharded_loss(c, mesh, n_m))
+    # name, module, config, whole batch, one-rank loss, per-rank loss, bound,
+    # gated, stepped (AdamW's float32 master takes no float64 params)
+    cases = [
+        ("schnet", schnet, schnet_cfg.full_config(), graphs["schnet"],
+         lambda c, p, b: schnet.loss_fn(c, p, b),
+         lambda c: schnet.make_sharded_loss(c, mesh), TRAIN_F32_REL, True, True),
+        ("gatedgcn", gatedgcn, gatedgcn_cfg.full_config(), graphs["gatedgcn"],
+         lambda c, p, b: gatedgcn.loss_fn(c, p, b),
+         lambda c: gatedgcn.make_sharded_loss(c, mesh), TRAIN_F32_REL, True, True),
+        ("graphcast float64", graphcast, dataclasses.replace(gc_full, dtype=torch.float64),
+         wide, *gc, TRAIN_F32_REL, True, False),
+        ("graphcast float32", graphcast, dataclasses.replace(gc_full, dtype=torch.float32),
+         mesh_b, *gc, TRAIN_F32_REL, False, False),
+        ("graphcast bfloat16", graphcast, gc_full, mesh_b, *gc, DIST_GRAPHCAST_BF16_REL, True,
+         True)]
+    scatter, update = sharded.scatter_sum, gnn_cells.adamw_update
+
+    def wrong_owners(partial, ag_):   # each rank handed the next rank's rows
+        return scatter(partial.roll(-(partial.shape[0] // ag_.size), 0), ag_)
+
+    def kept_update(grads, *args, **kw):   # the step's gradients, kept for the check
+        kept["grads"] = grads
+        return update(grads, *args, **kw)
+
+    rec = {"mesh": [world], "seed": DIST_GNN_SEED}
+    for name, mod, cfg, whole, one_rank, per_rank, bound, gated, stepped in cases:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(DIST_GNN_SEED)
+        params = mod.init_params(cfg, gen, device)
+        leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+        block = _rank_block(whole, ag.index, ag.size)
+        loss_fn = per_rank(cfg)
+
+        def loss_and_grads(fn, batch):
+            loss = fn(params, batch)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+            torch.cuda.synchronize()
+            return loss.detach(), grads
+
+        def err(got):   # the loss's and the worst leaf's relative error; NaN beats all
+            errs = [_rel(got[0], ref[0])] + [_rel(a, b) for a, b in zip(got[1], ref[1])]
+            return math.nan if any(math.isnan(e) for e in errs) else max(errs)
+
+        ref = loss_and_grads(lambda p, b: one_rank(cfg, p, b), whole)
+        out = {"bound": bound, "nodes": whole[0].shape[0],
+               "param_count": sum(p.numel() for p in leaves)}
+        if gated:
+            with mock.patch.object(sharded, "scatter_sum", wrong_owners), torch.no_grad():
+                # the loss alone: the bound must reject it already
+                out["control_wrong_owners_max_rel"] = _rel(loss_fn(params, block), ref[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if stepped:   # the step's own loss and gradients are the ones held to one rank
+            kept = {}
+            with mock.patch.object(gnn_cells, "adamw_update", kept_update):
+                params, _, metrics = gnn_cells.make_gnn_train_step(loss_fn, mesh)(
+                    params, adamw_init(params), block)
+            torch.cuda.synchronize()
+            got = (metrics["loss"], kept.pop("grads"))
+            out["seconds_step"] = time.perf_counter() - t0
+        else:
+            got = loss_and_grads(loss_fn, block)
+            out["seconds_loss_and_grads"] = time.perf_counter() - t0
+        out.update(loss=float(got[0]), max_rel=err(got))
+        if not gated:   # measured only: the one-rank program's own spread beside it
+            out["one_rank_rerun_max_rel"] = err(loss_and_grads(
+                lambda p, b: one_rank(cfg, p, b), whole))
+        log(f"rank {rank} {name}: {out}")
+        del ref, got
+        if gated:
+            check(out["max_rel"] <= bound,
+                  f"rank {rank} {name} on {world} ranks: {out['max_rel']}, bound {bound}")
+            check(out["control_wrong_owners_max_rel"] > bound, f"rank {rank} {name}: the "
+                  f"bound passes the partials scattered onto the wrong owners")
+        if stepped:
+            out["params_equal_after_step"] = _same_on_every_rank(_params_sha256(params), ag)
+            check(out["params_equal_after_step"],
+                  f"rank {rank}: {name}'s params differ between ranks after a step")
+        rec[name] = out
+        del params, leaves, block
+        torch.cuda.empty_cache()
+    return rec
+
+
+def _dist_xdeepfm(rank: int, world: int, timeout) -> tuple:
+    """Phase 4l (e) on this rank: see the comment above DIST_WORLD.
+    Returns the record, the K6 launches of the 4-rank calls and, on rank 0,
+    K6's and its backward's records at the path's shapes."""
+    import dataclasses
+    from unittest import mock
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import xdeepfm_cfg
+    from repro_torch.configs.cell import zero_pspecs
+    from repro_torch.data.synth import recsys_batch
+    from repro_torch.dist import sharded
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import AxisGroup, axis_group, form_mesh
+    from repro_torch.models.recsys import xdeepfm
+    from repro_torch.optim import zero_init
+    from repro_torch.optim.adamw import AdamWState, zero_layout
+    from repro_torch.tree import tree_leaves, tree_map
+
+    device = torch.device("cuda", 0)
+    mesh = form_mesh((world // 2, 2), ("data", "model"), device_type="cuda", timeout=timeout)
+    data, model = axis_group(mesh, ("data",)), xdeepfm.model_group(mesh)
+    P, X = data.size, DIST_XDEEPFM
+    launches = dict.fromkeys(("embedding_bag", "embedding_bag_bwd"), 0)
+
+    def counted(fn):   # the K6 launches of a 4-rank call, every rank's own
+        before = dict(ops.LAUNCHES)
+        out = fn()
+        torch.cuda.synchronize()
+        for k in launches:
+            launches[k] += ops.LAUNCHES[k] - before[k]
+        return out
+
+    def rows_of(t):   # this data rank's rows
+        k = t.shape[0] // P
+        return t[data.index * k:(data.index + 1) * k]
+
+    cfg = xdeepfm_cfg.full_config()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(DIST_XDEEPFM_SEED)
+    whole = xdeepfm.init_params(cfg, gen, device)
+    params = xdeepfm.shard_params(cfg, whole, mesh)
+    ids = rows_of(torch.randint(0, cfg.vocab_per_field, (X["serve_batch"], cfg.n_fields),
+                                generator=gen, device=device, dtype=torch.int32))
+    user = torch.randint(0, cfg.vocab_per_field, (1, cfg.n_fields), generator=gen,
+                         device=device, dtype=torch.int32)
+    cands = rows_of(torch.randint(0, cfg.vocab_per_field, (X["candidates"],), generator=gen,
+                                  device=device, dtype=torch.int32))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serve = counted(lambda: xdeepfm.forward(cfg, params, ids, mesh))
+    serve_s = time.perf_counter() - t0
+    serve_err = float((serve - xdeepfm.forward(cfg, whole, ids)).abs().max())
+    with mock.patch.object(sharded, "sum_over_ranks", lambda x, ag: x):   # no model all-reduce
+        control = float((xdeepfm.forward(cfg, params, ids, mesh)
+                         - xdeepfm.forward(cfg, whole, ids)).abs().max())
+    t0 = time.perf_counter()
+    scores = counted(lambda: xdeepfm.retrieval_score(cfg, params, user, cands, mesh=mesh))
+    retrieval_s = time.perf_counter() - t0
+    retrieval_err = float((scores - xdeepfm.retrieval_score(cfg, whole, user, cands))
+                          .abs().max())
+    log(f"rank {rank} xDeepFM serve {serve_err}, retrieval {retrieval_err}, no model "
+        f"all-reduce {control}")
+    check(serve_err <= XDEEPFM_MESH_TOL and retrieval_err <= XDEEPFM_MESH_TOL,
+          f"rank {rank} xDeepFM on a (2, 2) mesh: serve {serve_err}, retrieval "
+          f"{retrieval_err}, bound {XDEEPFM_MESH_TOL}")
+    check(control > XDEEPFM_MESH_TOL, f"rank {rank} xDeepFM: the bound passes the forward "
+          f"without the model all-reduce ({control})")
+    serve_rows = xdeepfm.local_rows(cfg, xdeepfm._field_ids(cfg, ids), params["table"].shape[0],
+                                    model).reshape(-1, 1).contiguous()
+    serve_table = params["table"]
+    del whole, scores
+    torch.cuda.empty_cache()
+    # the train step, vocab_per_field cut (DIST_XDEEPFM's comment); the table
+    # scaled so that the gradient's norm passes the clip
+    tcfg = dataclasses.replace(cfg, vocab_per_field=X["train_vocab_per_field"])
+    gen.manual_seed(DIST_XDEEPFM_SEED + 1)
+    whole = xdeepfm.init_params(tcfg, gen, device)
+    whole["table"].mul_(X["clip_scale"])
+    batch = recsys_batch(DIST_XDEEPFM_SEED, 0, X["train_batch"], cfg.n_fields,
+                         tcfg.vocab_per_field, device=device)
+    opt_p = zero_pspecs(whole, xdeepfm.param_pspecs(tcfg), mesh)
+    layout = zero_layout(opt_p, mesh)
+    mine = tree_map(lambda t: t.clone(), xdeepfm.shard_params(tcfg, whole, mesh))
+    state = zero_init(mine, layout)
+    one = zero_pspecs(whole, xdeepfm.param_pspecs(tcfg), None)
+    ref_params = tree_map(lambda t: t.clone(), whole)
+    ref_params, ref_state, ref_metrics = xdeepfm_cfg.make_train_step(tcfg, None, one)(
+        ref_params, zero_init(ref_params, zero_layout(one, None)), batch)
+    rows = {k: rows_of(v) for k, v in batch.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mine, state, metrics = counted(
+        lambda: xdeepfm_cfg.make_train_step(tcfg, mesh, opt_p)(mine, state, rows))
+    step_s = time.perf_counter() - t0
+    blocks = lambda tree: xdeepfm.shard_params(tcfg, tree, mesh)  # noqa: E731
+    loss_rel = abs(float(metrics["loss"]) - float(ref_metrics["loss"])) / abs(
+        float(ref_metrics["loss"]))
+    params_rel = max(_rel(a, b) for a, b in zip(tree_leaves(mine), tree_leaves(blocks(ref_params))))
+    state_rel = _state_rel(state, AdamWState(ref_state.step, blocks(ref_state.mu),
+                                             blocks(ref_state.nu), blocks(ref_state.master)),
+                           layout)
+    norm_rel = abs(float(metrics["grad_norm"]) - float(ref_metrics["grad_norm"])) / float(
+        ref_metrics["grad_norm"])
+    log(f"rank {rank} xDeepFM step: loss {loss_rel}, params {params_rel}, state {state_rel}, "
+        f"norm {norm_rel} ({float(ref_metrics['grad_norm'])}), {step_s:.3f} s")
+    check(float(ref_metrics["grad_norm"]) > 1.0, f"the forced gradient norm "
+          f"{float(ref_metrics['grad_norm'])} does not pass the clip")
+    check(max(loss_rel, params_rel, state_rel, norm_rel) <= TRAIN_F32_REL,
+          f"rank {rank} xDeepFM's step on (2, 2) against one rank: loss {loss_rel}, params "
+          f"{params_rel}, state {state_rel}, norm {norm_rel}, bound {TRAIN_F32_REL}")
+    equal = _same_on_every_rank(_params_sha256({k: v for k, v in mine.items()
+                                                if k not in ("table", "linear")}),
+                                AxisGroup(("data", "model"), None, world, rank))
+    check(equal, f"rank {rank}: xDeepFM's replicated params differ between ranks")
+    check(all(v > 0 for v in launches.values()), f"rank {rank} launched no K6: {launches}")
+    rec = {"mesh": [P, model.size], "table_rows_a_rank": serve_table.shape[0],
+           "serve": {"rows_a_rank": ids.shape[0], "max_abs_err": serve_err,
+                     "control_no_model_all_reduce": control, "seconds": serve_s},
+           "retrieval": {"candidates_a_rank": cands.shape[0], "max_abs_err": retrieval_err,
+                         "seconds": retrieval_s},
+           "bound": XDEEPFM_MESH_TOL,
+           "train": {"batch": X["train_batch"], "vocab_per_field": tcfg.vocab_per_field,
+                     "cut": "vocab_per_field for the train step alone (DIST_XDEEPFM)",
+                     "table_scaled_by": X["clip_scale"],
+                     "grad_norm": float(metrics["grad_norm"]),
+                     "grad_norm_one_rank": float(ref_metrics["grad_norm"]),
+                     "loss_rel": loss_rel, "params_max_rel": params_rel,
+                     "state_max_rel": state_rel, "grad_norm_rel": norm_rel,
+                     "bound": TRAIN_F32_REL, "seconds": step_s,
+                     "replicated_params_equal": equal},
+           "launches": dict(launches)}
+    records = None
+    dist.barrier()
+    if rank == 0:   # K6 and its backward at the path's shapes, the other ranks waiting
+        bag_out = ops.embedding_bag(serve_table, serve_rows)
+        train_rows = xdeepfm.local_rows(tcfg, xdeepfm._field_ids(tcfg, rows["ids"]),
+                                        mine["table"].shape[0], model).reshape(-1, 1)
+        dout = torch.randn((train_rows.shape[0], tcfg.embed_dim), generator=gen, device=device)
+        V = mine["table"].shape[0]
+        records = {
+            "embedding_bag": _bag_record(
+                f"xDeepFM serve_p99 over a (2, 2) mesh: a rank's {serve_rows.shape[0]:,} "
+                f"bags of one id over its {serve_table.shape[0]:,}-row block, ids outside "
+                f"it -1 (phase 4l (e))", serve_table, serve_rows, bag_out),
+            "embedding_bag_bwd": _bag_bwd_record(
+                f"xDeepFM's train step over a (2, 2) mesh: a rank's {train_rows.shape[0]:,} "
+                f"bags of one id into its {V:,}-row block (vocab_per_field "
+                f"{tcfg.vocab_per_field:,}), ids outside it -1 (phase 4l (e))",
+                train_rows, dout, V, ops.embedding_bag_bwd(train_rows, dout, V))}
+    dist.barrier()
+    del mine, state, ref_params, ref_state, whole, params, serve_table
+    torch.cuda.empty_cache()
+    return rec, dict(launches), records
+
+
 def _dist_rank(rank: int, tmp: str, t0: float) -> None:
     """Phase 4l, one rank (spawned): waits for the script's go, then (a),
     (b) and (c); exits non-zero on any failure."""
@@ -5474,9 +5887,15 @@ def _dist_rank_phases(rank: int, d: pathlib.Path) -> None:
         rec["gpipe"], pipe_launches = _dist_gpipe(rank, DIST_WORLD, timeout)
         t2 = time.perf_counter()
         rec["gatedgcn"] = _dist_gatedgcn(rank, DIST_WORLD, timeout)
-        rec["seconds_by_part"] = {"lm": t1 - t0, "gpipe": t2 - t1,
-                                  "gatedgcn": time.perf_counter() - t2}
-        rec["launches"] = _add_counts(lm_launches, pipe_launches)
+        t3 = time.perf_counter()
+        rec["gnn_sharded"] = _dist_gnn_sharded(rank, DIST_WORLD, timeout)
+        t4 = time.perf_counter()
+        rec["xdeepfm"], bag_launches, rec["k6_records"] = _dist_xdeepfm(rank, DIST_WORLD,
+                                                                        timeout)
+        rec["seconds_by_part"] = {"lm": t1 - t0, "gpipe": t2 - t1, "gatedgcn": t3 - t2,
+                                  "gnn_sharded": t4 - t3,
+                                  "xdeepfm": time.perf_counter() - t4}
+        rec["launches"] = _add_counts(_add_counts(lm_launches, pipe_launches), bag_launches)
         dist.barrier()
     finally:
         dist.destroy_process_group()
@@ -5506,39 +5925,46 @@ def release_dist_ranks(started) -> None:
 
 def finish_dist_ranks(started, smi: str, timeout: float = 300.0) -> dict:
     """Wait for phase 4l's ranks, relay their records, fail if any failed;
-    returns the launches their paths made, summed over the ranks."""
+    returns {"launches": the launches their paths made, summed over the
+    ranks, "configs": {kernel: rank 0's records of K6 and its backward at
+    (e)'s shapes}}."""
     ranks, tmp = started
     t_start = time.perf_counter()
     t_end = t_start + timeout
     for p in ranks:
         p.join(max(t_end - time.perf_counter(), 0.0))
     d = pathlib.Path(tmp)
-    recs = []
-    for r, p in enumerate(ranks):
-        out = d / f"rank{r}.json"
-        if p.exitcode != 0 or not out.exists():
-            log((d / f"rank{r}.log").read_text() if (d / f"rank{r}.log").exists() else "")
-        check(p.exitcode == 0 and out.exists(), f"phase 4l rank {r} failed, exit {p.exitcode}")
-        recs.append(json.loads(out.read_text()))
+    failed = [r for r, p in enumerate(ranks)
+              if p.exitcode != 0 or not (d / f"rank{r}.json").exists()]
+    for r in failed:   # every failed rank's log: the first fault may be any rank's
+        log((d / f"rank{r}.log").read_text() if (d / f"rank{r}.log").exists() else "")
+    check(not failed, f"phase 4l ranks {failed} failed, exits "
+          f"{[ranks[r].exitcode for r in failed]}")
+    recs = [json.loads((d / f"rank{r}.json").read_text()) for r in range(len(ranks))]
     launches = {}
     for r in recs:
         launches = _add_counts(launches, r["launches"])
-    for name in ("flash_attention_sm90", "flash_attention_bwd"):
+    for name in ("flash_attention_sm90", "flash_attention_bwd", "embedding_bag",
+                 "embedding_bag_bwd"):
         check(all(r["launches"].get(name, 0) > 0 for r in recs),
               f"phase 4l: a rank launched no {name}")
+    configs = recs[0].pop("k6_records")
+    for r in recs[1:]:
+        r.pop("k6_records")
     record({"phase": "distributed_training", "world": DIST_WORLD, "process_group": "gloo",
             "seconds": time.perf_counter() - t_start, "card": smi, "launches": launches,
             "ranks": recs})
     r0 = recs[0]
     lm, bf = r0["lm"], r0["lm"]["bfloat16"]
+    last = f"bfloat16 step {DIST_LM['steps'] - 1}"
     log(f"4l granite-3-2b on {DIST_WORLD} gloo ranks, ZeRO AdamW: float32 at "
         f"{lm['float32_check']['n_layers']} layers {lm['float32_check']['state_max_rel']:.2e} of a "
         f"one-rank step (bound {TRAIN_F32_REL}, a dropped rank "
         f"{lm['float32_check']['control_dropped_rank_max_rel']:.3f}); bfloat16 at "
         f"{bf['n_layers']} layers, step {min(bf['step_seconds']):.3f} s "
         f"({bf['tokens_per_s']:.0f} tokens/s), gradient reduce-scatter "
-        f"{lm['collective_seconds']['bfloat16 step 1']['grads_reduce_scatter']:.3f} s, params "
-        f"all-gather {lm['collective_seconds']['bfloat16 step 1']['params_all_gather']:.3f} s, "
+        f"{lm['collective_seconds'][last]['grads_reduce_scatter']:.3f} s, params "
+        f"all-gather {lm['collective_seconds'][last]['params_all_gather']:.3f} s, "
         f"peak {bf['peak_memory_bytes'] / 2**30:.2f} GiB a rank; int8 all-reduce "
         f"{bf['quantized_psum_grads']['rel_distance_from_float32_average']:.4f} from float32 "
         f"[{smi}]")
@@ -5550,7 +5976,24 @@ def finish_dist_ranks(started, smi: str, timeout: float = 300.0) -> dict:
     log(f"4l gatedgcn dst-local: {gc['max_share_of_bounds']:.3f} of the bounds (wrong rank "
         f"order {gc['control_wrong_order_share']:.1f} x), {gc['seconds_loss_and_grads']:.3f} s "
         f"[{smi}]")
-    return launches
+    gs = r0["gnn_sharded"]
+    log("4l data-sharded GNN losses on 4 ranks: " + ", ".join(
+        f"{k} {v['max_rel']:.2e} of one rank ("
+        + (f"bound {v['bound']}, wrong owners {v['control_wrong_owners_max_rel']:.3f}"
+           if "control_wrong_owners_max_rel" in v
+           else f"not gated: one rank against itself {v['one_rank_rerun_max_rel']:.2e}")
+        + (f"), a step {v['seconds_step']:.3f} s" if "seconds_step" in v
+           else f"), a loss and its gradients {v['seconds_loss_and_grads']:.3f} s")
+        for k, v in gs.items() if isinstance(v, dict)) + f" [{smi}]")
+    xd = r0["xdeepfm"]
+    log(f"4l xDeepFM on (2, 2), {xd['table_rows_a_rank']:,} table rows a rank: serve "
+        f"{xd['serve']['max_abs_err']:.2e} ({xd['serve']['seconds'] * 1e3:.1f} ms; no model "
+        f"all-reduce {xd['serve']['control_no_model_all_reduce']:.3f}), retrieval "
+        f"{xd['retrieval']['max_abs_err']:.2e} ({xd['retrieval']['seconds']:.3f} s), step at "
+        f"vocab {xd['train']['vocab_per_field']:,}: gradient norm "
+        f"{xd['train']['grad_norm']:.3f}, state {xd['train']['state_max_rel']:.2e} of one rank, "
+        f"{xd['train']['seconds']:.3f} s; K6 launches {xd['launches']} a rank [{smi}]")
+    return {"launches": launches, "configs": configs}
 
 
 def stop_dist_ranks(started) -> None:
@@ -5564,15 +6007,20 @@ def stop_dist_ranks(started) -> None:
     shutil.rmtree(tmp, ignore_errors=True)
 
 
-def merge_distributed(library: list, launches: dict) -> None:
-    """The K4 records count phase 4l's launches (every rank's) beside
-    their other paths'."""
+def merge_distributed(library: list, dist_out: dict) -> None:
+    """The K4 and K6 records count phase 4l's launches (every rank's)
+    beside their other paths'; K6's and its backward's take (e)'s records
+    at the path's shapes after their own."""
     for rec in library:
-        n = launches.get(rec["name"], 0)
+        n = dist_out["launches"].get(rec["name"], 0)
         if n:
             rec.setdefault("launches_by_path", {"kernel_library": rec["launches"]})
             rec["launches_by_path"]["distributed_training"] = n
             rec["launches"] += n
+        mine = dist_out["configs"].get(rec["name"])
+        if mine is not None:
+            rec["configs"].append(mine)
+            rec["cases_checked"] += 1
 
 
 # ------------------------------------------------------------------ phase 4d

@@ -3,16 +3,14 @@
 The port of ``repro.configs.gatedgcn_cfg``.  Its dst-local variant's loss
 (``variant`` "dstlocal" or "opt", JAX's choice) is
 ``models.gnn.gatedgcn.make_dstlocal_loss``, its step
-``configs.gnn_cells.make_gnn_train_step``; the baseline's ``loss_fn`` has
-no per-rank program over more than one data rank.
+``configs.gnn_cells.make_gnn_train_step``; the baseline's,
+``gatedgcn.make_sharded_loss`` (JAX's layout).
 """
 from __future__ import annotations
 
-from functools import partial
-
 import torch
 
-from repro_torch.configs.cell import data_axes_of, dp_size
+from repro_torch.configs.cell import data_axes_of
 from repro_torch.configs.gnn_cells import GNN_SHAPES, gnn_train_cell, shape_dims
 from repro_torch.models.gnn import gatedgcn
 
@@ -42,7 +40,7 @@ def cells(shape: str, mesh, variant: str = "baseline"):
         # all-gather a layer
         loss = gatedgcn.make_dstlocal_loss(cfg, mesh, data_axes_of(mesh), local=True)
     else:
-        loss = partial(gatedgcn.loss_fn, cfg) if dp_size(mesh) == 1 else None
+        loss = gatedgcn.make_sharded_loss(cfg, mesh, data_axes_of(mesh))
     return gnn_train_cell(
         ARCH_ID, shape, mesh,
         loss_fn=loss,

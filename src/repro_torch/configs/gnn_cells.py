@@ -14,11 +14,9 @@ Sampled training takes the per-step block (1024 seeds -> 16,384 1-hop ->
 padded graph; vertices and edges shard over the DP axes.
 
 ``gnn_train_cell`` gives a dry-run cell (``launch.dryrun``) whose ``fn`` is
-one rank's step over its block of the graph.  A loss that has no per-rank
-program over a graph split over the data axes (schnet's, graphcast's,
-gatedgcn's without its dst-local variant) makes the cell ``skip`` there
-(``DATA_SHARDED_SKIP``, ROADMAP.md Queue 1, item 12.6); GCN's per-rank loss
-is ``gcn.make_sharded_loss``, gatedgcn's ``make_dstlocal_loss``.
+one rank's step over its block of the graph: each arch's loss is its
+``make_sharded_loss`` (gatedgcn's dst-local variant ``make_dstlocal_loss``),
+one rank's program over a graph split over the data axes.
 """
 from __future__ import annotations
 
@@ -26,8 +24,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from repro_torch.configs.cell import (CellSpec, TensorSpec, data_axes_of, dp_size, host_step,
-                                      specs_of)
+from repro_torch.configs.cell import CellSpec, TensorSpec, data_axes_of, host_step, specs_of
 from repro_torch.graph.sampler import block_shapes
 from repro_torch.launch.mesh import P
 from repro_torch.models.gnn.layers import GraphBatch
@@ -88,11 +85,6 @@ def make_gnn_train_step(loss_fn: Callable, mesh):
 # dry-run cells
 # ---------------------------------------------------------------------------
 
-DATA_SHARDED_SKIP = ("the port has no per-rank program of this loss over a graph split over "
-                     "the data axes ({dp} ranks; ROADMAP.md Queue 1, item 12.6: the "
-                     "data-sharded GNN losses)")
-
-
 def graph_specs(n: int, m: int, d_feat: int, with_pos: bool, d_edge, n_classes: int = 8):
     """The ``TensorSpec`` GraphBatch (JAX's ``graph_specs``)."""
     del n_classes
@@ -125,15 +117,13 @@ def graph_pspecs(mesh, with_pos: bool, d_edge):
     )
 
 
-def gnn_train_cell(arch_id: str, shape: str, mesh, loss_fn: Optional[Callable],
+def gnn_train_cell(arch_id: str, shape: str, mesh, loss_fn: Callable,
                    init_fn: Callable, with_pos: bool = False, d_edge=None,
                    extra_meta: Optional[Dict] = None) -> CellSpec:
     """JAX's ``gnn_train_cell``.  ``loss_fn(params, g)`` is one rank's loss
-    over its block of the graph, or ``None`` where the loss has no per-rank
-    program over ``mesh``'s data axes (the cell is then ``skip``; one data
-    rank runs the single-device loss, which the caller passes).  ``init_fn()``
-    makes the params on ``meta``.  Params and optimizer state are whole on
-    every rank; ``fn`` is ``make_gnn_train_step``'s step."""
+    over its block of the graph.  ``init_fn()`` makes the params on
+    ``meta``.  Params and optimizer state are whole on every rank; ``fn``
+    is ``make_gnn_train_step``'s step."""
     from repro_torch.optim import adamw_init
 
     n, m, d_feat = shape_dims(shape)
@@ -141,17 +131,13 @@ def gnn_train_cell(arch_id: str, shape: str, mesh, loss_fn: Optional[Callable],
     params = init_fn()
     params_specs = specs_of(params)
     opt_specs = specs_of(adamw_init(params))
-    skip, fn = None, None
-    if loss_fn is None:
-        skip = DATA_SHARDED_SKIP.format(dp=dp_size(mesh))
-    else:
-        step = make_gnn_train_step(loss_fn, mesh)
-        fn = lambda params, opt_state, g: step(params, host_step(opt_state), g)  # noqa: E731
+    step = make_gnn_train_step(loss_fn, mesh)
     return CellSpec(
-        arch=arch_id, shape=shape, kind="train", fn=fn,
+        arch=arch_id, shape=shape, kind="train",
+        fn=lambda params, opt_state, g: step(params, host_step(opt_state), g),
         args=(params_specs, opt_specs, g_specs),
         placements=(P(), P(), graph_pspecs(mesh, with_pos, d_edge)),
         out_placements=(P(), P(), None),
-        donate=(0, 1), skip=skip,
+        donate=(0, 1),
         meta=dict(n_nodes=n, n_edges=m, d_feat=d_feat, **(extra_meta or {})),
     )

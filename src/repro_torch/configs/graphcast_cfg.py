@@ -7,17 +7,16 @@ the 1-degree 65k-cell grid -- the /8 ratio mirrors that), g2m/m2g edge counts
 are 2x grid nodes (nearest-mesh-triangle connectivity). n_vars=227 always
 (the arch defines its feature width; the shape's d_feat is superseded).
 
-The port of ``repro.configs.graphcast_cfg``.  Its ``loss_fn`` has no
-per-rank program over more than one data rank.
+The port of ``repro.configs.graphcast_cfg``.  A cell's loss is
+``graphcast.make_sharded_loss``, one rank's over its grid rows and its block
+of each edge list, the mesh latents split over the data ranks too.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.cell import (CellSpec, TensorSpec, data_axes_of, dp_size, host_step,
-                                      specs_of)
-from repro_torch.configs.gnn_cells import (DATA_SHARDED_SKIP, GNN_SHAPES, _pad_to,
-                                           make_gnn_train_step, shape_dims)
+from repro_torch.configs.cell import CellSpec, TensorSpec, data_axes_of, host_step, specs_of
+from repro_torch.configs.gnn_cells import GNN_SHAPES, _pad_to, make_gnn_train_step, shape_dims
 from repro_torch.launch.mesh import P
 from repro_torch.models.gnn import graphcast
 
@@ -79,18 +78,14 @@ def cells(shape: str, mesh, variant: str = "baseline"):
         target=P(lead, None),
     )
     params = graphcast.init_params(cfg, torch.Generator(), device="meta")
-    skip, fn = None, None
-    if dp_size(mesh) > 1:
-        skip = DATA_SHARDED_SKIP.format(dp=dp_size(mesh))
-    else:
-        step = make_gnn_train_step(lambda p, b: graphcast.loss_fn(cfg, p, b, n_m), mesh)
-        fn = lambda params, opt_state, b: step(params, host_step(opt_state), b)  # noqa: E731
+    step = make_gnn_train_step(graphcast.make_sharded_loss(cfg, mesh, n_m, axes), mesh)
     return CellSpec(
-        arch=ARCH_ID, shape=shape, kind="train", fn=fn,
+        arch=ARCH_ID, shape=shape, kind="train",
+        fn=lambda params, opt_state, b: step(params, host_step(opt_state), b),
         args=(specs_of(params), specs_of(adamw_init(params)), batch_specs(shape, cfg)),
         placements=(P(), P(), b_p),
         out_placements=(P(), P(), None),
-        donate=(0, 1), skip=skip,
+        donate=(0, 1),
         meta=dict(n_grid=n_g, n_mesh=n_m, m_mesh=m_mesh,
                   note="n_vars=227 supersedes shape d_feat"),
     )

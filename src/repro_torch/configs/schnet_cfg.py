@@ -1,16 +1,14 @@
 """schnet [arXiv:1706.08566]: 3 interactions, d=64, 300 RBFs, cutoff 10.
 Positions are synthesized for non-molecular shape cells.
 
-The port of ``repro.configs.schnet_cfg``.  Its ``loss_fn`` has no
-per-rank program over more than one data rank.
+The port of ``repro.configs.schnet_cfg``.  A cell's loss is
+``schnet.make_sharded_loss``, one rank's over its block of the graph.
 """
 from __future__ import annotations
 
-from functools import partial
-
 import torch
 
-from repro_torch.configs.cell import dp_size
+from repro_torch.configs.cell import data_axes_of
 from repro_torch.configs.gnn_cells import GNN_SHAPES, gnn_train_cell
 from repro_torch.models.gnn import schnet
 
@@ -35,7 +33,7 @@ def cells(shape: str, mesh, variant: str = "baseline"):
     cfg = full_config()
     return gnn_train_cell(
         ARCH_ID, shape, mesh,
-        loss_fn=partial(schnet.loss_fn, cfg) if dp_size(mesh) == 1 else None,
+        loss_fn=schnet.make_sharded_loss(cfg, mesh, data_axes_of(mesh)),
         init_fn=lambda: schnet.init_params(cfg, torch.Generator(), device="meta"),
         with_pos=True,
     )

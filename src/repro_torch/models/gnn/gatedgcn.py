@@ -9,8 +9,10 @@ Assigned config: 16 layers, d_hidden=70, gated aggregator.
 
 The messages are per-feature vectors (eta is [m, d]), not one weight an
 edge, so the aggregation is torch's ``index_add_`` (``segment_agg``), not K5.
-``make_dstlocal_loss`` is the JAX package's dst-local distributed loss, one
-process a rank over a mesh's data group.
+Over a mesh's data group, one process a rank: ``make_sharded_loss`` is
+``loss_fn`` over a graph split in JAX's layout (node blocks, edge blocks
+whatever their ends), ``make_dstlocal_loss`` the JAX package's dst-local
+variant; both exchange through ``repro_torch.dist.sharded``.
 """
 from __future__ import annotations
 
@@ -22,10 +24,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import AxisGroup, axis_group, gather_rows, scatter_sum_rows, sum_over
-from repro_torch.models.gnn.layers import GraphBatch, segment_agg
+from repro_torch.dist import sharded
+from repro_torch.launch.mesh import ONE_RANK, AxisGroup, axis_group
+from repro_torch.models.gnn.layers import GraphBatch, masked_nll, segment_agg
 from repro_torch.models.jax_params import tree_from_jax
-from repro_torch.tree import tree_flatten, tree_unflatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,30 +70,74 @@ def _norm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x - mu) * torch.rsqrt(var + 1e-5) * w
 
 
-def forward(cfg: GatedGCNConfig, params, g: GraphBatch) -> torch.Tensor:
-    """[n, n_classes] logits."""
-    n = g.x.shape[0]
-    h = g.x.to(cfg.dtype) @ params["embed_x"]
-    e_attr = g.edge_attr if g.edge_attr is not None else torch.zeros(
-        (g.edge_src.shape[0], cfg.d_edge_in), dtype=cfg.dtype, device=h.device)
-    e = e_attr.to(cfg.dtype) @ params["embed_e"]
+def _layer(lw, h: torch.Tensor, h_all: torch.Tensor, e: torch.Tensor, src: torch.Tensor,
+           dst: torch.Tensor, aggregate):
+    """One layer over a rank's edges (global ids ``src``, ``dst``): ``h``
+    its node rows, ``h_all`` the whole node stream, ``e`` its edges' state;
+    ``aggregate(messages, eta)`` sums both into (num, den) at h's rows.
+    Returns the new (h, e)."""
+    h_src, h_dst = h_all[src], h_all[dst]
+    e_new = h_dst @ lw["A"] + h_src @ lw["B"] + e @ lw["C"]
+    eta = torch.sigmoid(e_new)
+    num, den = aggregate(eta * (h_src @ lw["V"]), eta)
+    h = h + F.relu(_norm(h @ lw["U"] + num / (den + 1e-6), lw["ln_h"]))
+    return h, e + F.relu(_norm(e_new, lw["ln_e"]))
+
+
+def _edge_state(cfg: GatedGCNConfig, params, edge_attr, m: int, device) -> torch.Tensor:
+    e_attr = edge_attr if edge_attr is not None else torch.zeros(
+        (m, cfg.d_edge_in), dtype=cfg.dtype, device=device)
+    return e_attr.to(cfg.dtype) @ params["embed_e"]
+
+
+def _logits(cfg: GatedGCNConfig, params, g: GraphBatch, ag: AxisGroup) -> torch.Tensor:
+    """This rank's [n/P, n_classes] logits, ``g`` its node rows and its
+    block of edges with global ids (JAX's layout); each layer gathers the
+    node stream (``dist.sharded.gather``, in the model's dtype), sums the
+    rank's messages and gates into an n-wide partial in the model's dtype
+    and reduce-scatters both at once onto their owners' rows.  The edge
+    state stays with its edges.  One rank: ``forward``."""
+    n = g.x.shape[0] * ag.size
+    d = cfg.d_hidden
     src, dst = g.edge_src.long(), g.edge_dst.long()
+    h = g.x.to(cfg.dtype) @ params["embed_x"]
+    e = _edge_state(cfg, params, g.edge_attr, src.shape[0], h.device)
+
+    def aggregate(messages, eta):
+        both = segment_agg(torch.cat([messages, eta], dim=-1), g.edge_dst, g.edge_mask, n, "sum")
+        return sharded.scatter_sum(both, ag).split(d, dim=-1)
+
     for lw in params["layers"]:
-        h_src, h_dst = h[src], h[dst]
-        e_new = h_dst @ lw["A"] + h_src @ lw["B"] + e @ lw["C"]
-        eta = torch.sigmoid(e_new)
-        num = segment_agg(eta * (h_src @ lw["V"]), g.edge_dst, g.edge_mask, n, "sum")
-        den = segment_agg(eta, g.edge_dst, g.edge_mask, n, "sum")
-        h_new = h @ lw["U"] + num / (den + 1e-6)
-        h = h + F.relu(_norm(h_new, lw["ln_h"]))
-        e = e + F.relu(_norm(e_new, lw["ln_e"]))
+        h, e = _layer(lw, h, sharded.gather(h, ag), e, src, dst, aggregate)
     return h @ params["readout"]
 
 
+def forward(cfg: GatedGCNConfig, params, g: GraphBatch) -> torch.Tensor:
+    """[n, n_classes] logits."""
+    return _logits(cfg, params, g, ONE_RANK)
+
+
 def loss_fn(cfg: GatedGCNConfig, params, g: GraphBatch) -> torch.Tensor:
-    logp = torch.log_softmax(forward(cfg, params, g).float(), dim=-1)
-    ll = logp.gather(1, g.y.long()[:, None])[:, 0]
-    return -torch.where(g.node_mask, ll, 0.0).sum() / g.node_mask.sum().clamp_min(1)
+    return masked_nll(forward(cfg, params, g), g.y, g.node_mask)
+
+
+def make_sharded_loss(cfg: GatedGCNConfig, mesh, data_axes: Sequence[str] = ("data",)):
+    """JAX's ``loss_fn`` as one rank's program over a graph split over
+    ``mesh``'s ``data_axes`` (``None``: one rank) in JAX's layout, the
+    baseline beside the dst-local variant: ``g`` holds this rank's node
+    block (x, node_mask, y: n/P rows) and its block of m/P edges (global
+    ids, edge_attr, edge_mask), whatever their ends (``_logits``).  The
+    loss is ``loss_fn``'s, the same on every rank, and
+    ``torch.autograd.grad`` of it gives each rank the whole gradient of the
+    params (``dist.sharded.Replicated``).  Collective: every rank calls it,
+    forward and backward."""
+    ag = ONE_RANK if mesh is None else axis_group(mesh, data_axes)
+
+    def loss(params, g: GraphBatch) -> torch.Tensor:
+        params = sharded.replicated(params, ag)
+        return masked_nll(_logits(cfg, params, g, ag), g.y, g.node_mask, ag)
+
+    return loss
 
 
 # ---------------------------------------------------------------------------
@@ -103,58 +149,13 @@ def loss_fn(cfg: GatedGCNConfig, params, g: GraphBatch) -> torch.Tensor:
 # is a reduce-scatter of its gradient.
 # ---------------------------------------------------------------------------
 
-class _GatherNodes(torch.autograd.Function):
-    """Every rank's node rows h [n/P, d] -> the whole stream [n, d]: gathered
-    in bfloat16 (``gather_rows``, the group's order) and returned in h's
-    dtype.  Backward: the stream's gradient summed over the ranks in
-    float32, each rank keeping its own rows (``scatter_sum_rows``)."""
-
-    @staticmethod
-    def forward(ctx, h, ag):
-        ctx.ag = ag
-        return gather_rows(h.to(torch.bfloat16), ag).to(h.dtype)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return scatter_sum_rows(grad.float(), ctx.ag).to(grad.dtype), None
-
-
-class _Replicated(torch.autograd.Function):
-    """The params, held whole on every rank: the identity forward; backward,
-    their gradients summed over the ranks in one ``all_reduce`` of them all
-    flattened, so each rank gets the whole gradient of the global loss
-    (JAX's adjoint of a replicated input)."""
-
-    @staticmethod
-    def forward(ctx, ag, *params):
-        ctx.ag = ag
-        return tuple(p.view_as(p) for p in params)
-
-    @staticmethod
-    def backward(ctx, *grads):
-        flat = sum_over(torch.cat([g.reshape(-1) for g in grads]), ctx.ag)
-        return (None, *(x.view_as(g) for x, g in zip(flat.split([g.numel() for g in grads]),
-                                                      grads)))
-
-
-class _SumOver(torch.autograd.Function):
-    """A scalar summed over the ranks (``all_reduce``); backward the
-    identity: every rank holds the same loss, and its gradient reaches
-    each rank's own terms once."""
-
-    @staticmethod
-    def forward(ctx, x, ag):
-        return sum_over(x, ag)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return grad, None
-
-
 def _gather_nodes(h: torch.Tensor, ag: AxisGroup) -> torch.Tensor:
-    """The layer's exchange (``_GatherNodes``), looked up at each call, so
-    that a check can put a wrong exchange in its place."""
-    return _GatherNodes.apply(h, ag)
+    """The layer's exchange: every rank's node rows h [n/P, d] -> the whole
+    stream [n, d], gathered in bfloat16 and returned in h's dtype; backward
+    the stream's gradient summed over the ranks in float32
+    (``dist.sharded.Gather``).  Looked up at each call, so that a check can
+    put a wrong exchange in its place."""
+    return sharded.gather(h, ag, torch.bfloat16)
 
 
 def make_dstlocal_loss(cfg: GatedGCNConfig, mesh, data_axes: Sequence[str] = ("data",),
@@ -164,7 +165,7 @@ def make_dstlocal_loss(cfg: GatedGCNConfig, mesh, data_axes: Sequence[str] = ("d
     edge block p holds the edges into vertex block p), the whole batch on
     every rank.  Each rank of ``mesh``'s ``data_axes`` (``("data",)`` or
     ``("pod", "data")``) takes its n/P node rows and its edge block, gathers
-    the node stream in bfloat16 each layer (``_GatherNodes``) and sums its
+    the node stream in bfloat16 each layer (``_gather_nodes``) and sums its
     messages into its own rows (``index_add_``).  The loss, a global sum
     over a global count, is the same on every rank, and
     ``torch.autograd.grad`` of it gives each rank the whole gradient of the
@@ -174,8 +175,7 @@ def make_dstlocal_loss(cfg: GatedGCNConfig, mesh, data_axes: Sequence[str] = ("d
     ag = axis_group(mesh, data_axes)
 
     def loss(params, g: GraphBatch) -> torch.Tensor:
-        leaves, treedef = tree_flatten(params)
-        params = tree_unflatten(treedef, list(_Replicated.apply(ag, *leaves)))
+        params = sharded.replicated(params, ag)
         parts = 1 if local else ag.size
         n_local = g.x.shape[0] // parts
         m_local = g.edge_src.shape[0] // parts
@@ -185,24 +185,17 @@ def make_dstlocal_loss(cfg: GatedGCNConfig, mesh, data_axes: Sequence[str] = ("d
         edges = slice(first_edge, first_edge + m_local)
         src, dst = g.edge_src[edges].long(), g.edge_dst[edges].long()
         emask, nmask, y = g.edge_mask[edges], g.node_mask[rows], g.y[rows]
-        e_attr = g.edge_attr[edges] if g.edge_attr is not None else torch.zeros(
-            (m_local, cfg.d_edge_in), dtype=cfg.dtype, device=g.x.device)
         dst_local = (dst - offset).clamp(0, n_local - 1)
         h = g.x[rows].to(cfg.dtype) @ params["embed_x"]
-        e = e_attr.to(cfg.dtype) @ params["embed_e"]
+        e = _edge_state(cfg, params, g.edge_attr[edges] if g.edge_attr is not None else None,
+                        m_local, g.x.device)
+
+        def aggregate(messages, eta):
+            return (segment_agg(messages, dst_local, emask, n_local, "sum"),
+                    segment_agg(eta, dst_local, emask, n_local, "sum"))
+
         for lw in params["layers"]:
-            h_full = _gather_nodes(h, ag)
-            h_src, h_dst = h_full[src], h_full[dst]
-            e_new = h_dst @ lw["A"] + h_src @ lw["B"] + e @ lw["C"]
-            eta = torch.sigmoid(e_new)
-            num = segment_agg(eta * (h_src @ lw["V"]), dst_local, emask, n_local, "sum")
-            den = segment_agg(eta, dst_local, emask, n_local, "sum")
-            h = h + F.relu(_norm(h @ lw["U"] + num / (den + 1e-6), lw["ln_h"]))
-            e = e + F.relu(_norm(e_new, lw["ln_e"]))
-        logp = torch.log_softmax((h @ params["readout"]).float(), dim=-1)
-        ll = logp.gather(1, y.long()[:, None])[:, 0]
-        total = _SumOver.apply(torch.where(nmask, ll, 0.0).sum(), ag)
-        count = sum_over(nmask.sum(), ag)
-        return -total / count.clamp_min(1)
+            h, e = _layer(lw, h, _gather_nodes(h, ag), e, src, dst, aggregate)
+        return masked_nll(h @ params["readout"], y, nmask, ag)
 
     return loss

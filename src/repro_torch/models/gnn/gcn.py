@@ -17,7 +17,8 @@ whatever their ends): the node stream is all-gathered a layer, each rank
 sums its edges' messages into an n-wide partial (``index_add_``: K5's ELL
 rows are cut from a whole destination set, which a rank's edge block is
 not), and the partials are reduce-scattered onto the owners' rows -- what
-JAX's partitioner does with the same program.
+JAX's partitioner does with the same program (``repro_torch.dist.sharded``'s
+exchanges).
 """
 from __future__ import annotations
 
@@ -29,9 +30,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.dist import sharded
 from repro_torch.kernels import ops
-from repro_torch.launch.mesh import ONE_RANK, axis_group, gather_rows, scatter_sum_rows, sum_over
-from repro_torch.models.gnn.layers import GraphBatch, ell_from_edges, gcn_sym_coeff, segment_sum
+from repro_torch.launch.mesh import ONE_RANK, axis_group, sum_over
+from repro_torch.models.gnn.layers import (GraphBatch, ell_from_edges, gcn_sym_coeff, masked_nll,
+                                           segment_sum)
 from repro_torch.models.jax_params import tree_from_jax
 
 
@@ -99,37 +102,7 @@ def forward(cfg: GCNConfig, params, g: GraphBatch,
 
 def loss_fn(cfg: GCNConfig, params, g: GraphBatch, ell=None) -> torch.Tensor:
     """Node classification cross-entropy over ``g.node_mask``'s nodes."""
-    logp = torch.log_softmax(forward(cfg, params, g, ell).float(), dim=-1)
-    ll = logp.gather(1, g.y.long()[:, None])[:, 0]
-    return -torch.where(g.node_mask, ll, 0.0).sum() / g.node_mask.sum().clamp_min(1)
-
-
-class _Gather(torch.autograd.Function):
-    """This rank's rows [n/P, F] -> the whole [n, F] (``gather_rows``);
-    backward: the gradient summed over the ranks, each keeping its rows."""
-
-    @staticmethod
-    def forward(ctx, h, ag):
-        ctx.ag = ag
-        return gather_rows(h, ag) if ag.size > 1 else h
-
-    @staticmethod
-    def backward(ctx, grad):
-        return (scatter_sum_rows(grad.contiguous(), ctx.ag) if ctx.ag.size > 1 else grad), None
-
-
-class _ScatterSum(torch.autograd.Function):
-    """An [n, F] partial summed over the ranks, each keeping its own rows
-    (``scatter_sum_rows``); backward: the rows' gradients gathered."""
-
-    @staticmethod
-    def forward(ctx, partial, ag):
-        ctx.ag = ag
-        return scatter_sum_rows(partial.contiguous(), ag) if ag.size > 1 else partial
-
-    @staticmethod
-    def backward(ctx, grad):
-        return (gather_rows(grad.contiguous(), ctx.ag) if ctx.ag.size > 1 else grad), None
+    return masked_nll(forward(cfg, params, g, ell), g.y, g.node_mask)
 
 
 def make_sharded_loss(cfg: GCNConfig, mesh, data_axes=("data",)):
@@ -141,15 +114,10 @@ def make_sharded_loss(cfg: GCNConfig, mesh, data_axes=("data",)):
     gradients all-reduced).  The degrees count every rank's edges (one
     ``all_reduce`` each).  Collective: every rank calls it, forward and
     backward."""
-    from repro_torch.models.gnn.gatedgcn import _Replicated, _SumOver
-    from repro_torch.tree import tree_flatten, tree_unflatten
-
     ag = ONE_RANK if mesh is None else axis_group(mesh, data_axes)
 
     def loss(params, g: GraphBatch) -> torch.Tensor:
-        leaves, treedef = tree_flatten(params)
-        if ag.size > 1:
-            params = tree_unflatten(treedef, list(_Replicated.apply(ag, *leaves)))
+        params = sharded.replicated(params, ag)
         n = g.x.shape[0] * ag.size
         src, dst = g.edge_src.long(), g.edge_dst.long()
         ones = g.edge_mask.to(torch.float32)
@@ -160,15 +128,10 @@ def make_sharded_loss(cfg: GCNConfig, mesh, data_axes=("data",)):
         x = g.x.to(cfg.dtype)
         for i, layer in enumerate(params):
             h = x @ layer["w"]
-            partial = segment_sum(_Gather.apply(h, ag)[src] * coeff, dst, n)
-            x = _ScatterSum.apply(partial, ag) + h
+            partial = segment_sum(sharded.gather(h, ag)[src] * coeff, dst, n)
+            x = sharded.scatter_sum(partial, ag) + h
             if i < len(params) - 1:
                 x = F.relu(x)
-        logp = torch.log_softmax(x.float(), dim=-1)
-        ll = logp.gather(1, g.y.long()[:, None])[:, 0]
-        total = torch.where(g.node_mask, ll, 0.0).sum()
-        if ag.size > 1:
-            total = _SumOver.apply(total, ag)
-        return -total / sum_over(g.node_mask.sum(), ag).clamp_min(1)
+        return masked_nll(x, g.y, g.node_mask, ag)
 
     return loss

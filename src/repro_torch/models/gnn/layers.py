@@ -18,6 +18,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import sharded
+from repro_torch.launch.mesh import ONE_RANK, AxisGroup, sum_over
+
 
 class GraphBatch(NamedTuple):
     """Static-shape batched graph.
@@ -72,6 +75,18 @@ def segment_agg(messages: torch.Tensor, edge_dst: torch.Tensor, edge_mask: torch
         out.scatter_reduce_(0, edge_dst.long()[:, None].expand_as(neg), neg, "amax")
         return torch.where(torch.isfinite(out), out, 0.0)
     raise ValueError(agg)
+
+
+def masked_nll(logits: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
+               ag: AxisGroup = ONE_RANK) -> torch.Tensor:
+    """Node classification's loss: the mean negative log-likelihood of the
+    labels ``y`` over ``mask``'s nodes, in float32.  Over the ranks of
+    ``ag``, each holding its own rows, the global sum over the global count,
+    the same on every rank (the sum through ``dist.sharded.SumOver``)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = logp.gather(1, y.long()[:, None])[:, 0]
+    total = sharded.sum_over_ranks(torch.where(mask, ll, 0.0).sum(), ag)
+    return -total / sum_over(mask.sum(), ag).clamp_min(1)
 
 
 def gcn_sym_coeff(edge_src: torch.Tensor, edge_dst: torch.Tensor, edge_mask: torch.Tensor,

@@ -16,6 +16,16 @@ the card, its plain version on the CPU) where the JAX package takes
 CIN layer k:  Z = X^k (outer) X^0 -> [B, H_k * m, D];  X^{k+1} = W_k Z
 (1x1 conv over the H_k*m axis), sum-pool over D per layer -> logits.
 
+Over a mesh (``mesh=``, one process a rank) the table and the linear term
+are row-sharded over ``"model"`` as JAX's ``param_pspecs`` place them: a
+rank holds its row block of each (``shard_params``), maps every row id
+outside it to -1 (K6 skips a negative id, forward and backward) and the
+others to its local rows, gathers with K6 and sums the partial over the
+model ranks (``dist.sharded.SumOver``: every model rank then computes the
+same CIN and MLP, the whole gradient of the sum reaching each rank's
+partial).  Each rank's table gradient (``embedding_bag_bwd``) covers its
+own block alone.
+
 retrieval_cand: one user context scored against C candidate items by
 swapping field 0 (item id) per candidate, in chunks of ``chunk`` rows (the
 CIN intermediate of a chunk of 25,000 is 7.8 GB).
@@ -29,7 +39,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.dist import sharded
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import MODEL_AXIS, ONE_RANK, AxisGroup, axis_group
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,14 +118,66 @@ def _cin(cfg: XDeepFMConfig, params, x0: torch.Tensor) -> torch.Tensor:
     return torch.cat(pooled, dim=-1)
 
 
-def forward(cfg: XDeepFMConfig, params, ids: torch.Tensor) -> torch.Tensor:
+def model_group(mesh) -> AxisGroup:
+    """The ranks of ``mesh``'s model axis, over which the tables are split
+    (one rank without a mesh or without the axis)."""
+    if mesh is None or MODEL_AXIS not in mesh.mesh_dim_names:
+        return ONE_RANK
+    return axis_group(mesh, (MODEL_AXIS,))
+
+
+def shard_params(cfg: XDeepFMConfig, params, mesh):
+    """This rank's params on ``mesh`` from the whole ones: its row block of
+    the table and of the linear term (``param_pspecs``), copies; the rest
+    the same tensors."""
+    ag = model_group(mesh)
+    rows = cfg.n_fields * cfg.vocab_per_field
+    if rows % ag.size:
+        raise ValueError(f"{rows} table rows do not split over {ag.size} model ranks")
+    block = rows // ag.size
+    out = dict(params)
+    for k in ("table", "linear"):
+        out[k] = params[k].narrow(0, ag.index * block, block).clone()
+    return out
+
+
+def local_rows(cfg: XDeepFMConfig, rows: torch.Tensor, block: int, ag: AxisGroup) -> torch.Tensor:
+    """Global table rows -> the rows of this model rank's block of ``block``
+    rows, -1 outside it (K6 skips a negative id)."""
+    if block * ag.size != cfg.n_fields * cfg.vocab_per_field:
+        raise ValueError(f"a table block of {block} rows over {ag.size} model ranks is not "
+                         f"the table's {cfg.n_fields * cfg.vocab_per_field}")
+    rows = rows - ag.index * block
+    return torch.where((rows >= 0) & (rows < block), rows, -1)
+
+
+def _gather_rows(cfg: XDeepFMConfig, params, rows: torch.Tensor, ag: AxisGroup):
+    """The embedding rows [B, m * D] and the linear term [B, 1] of global
+    table rows ``rows`` [B, m]: two K6 launches over this rank's blocks,
+    the partial summed over the model ranks."""
+    B, m = rows.shape
+    if ag.size > 1:
+        rows = local_rows(cfg, rows, params["table"].shape[0], ag)
+    rows = rows.contiguous()
+    emb = ops.embedding_bag(params["table"], rows.view(B * m, 1)).view(B, m * cfg.embed_dim)
+    lin = ops.embedding_bag(params["linear"].view(-1, 1), rows)
+    if ag.size == 1:
+        return emb, lin
+    return sharded.sum_over_ranks(torch.cat([emb, lin], dim=1), ag).split(
+        [m * cfg.embed_dim, 1], dim=1)
+
+
+def forward(cfg: XDeepFMConfig, params, ids: torch.Tensor, mesh=None) -> torch.Tensor:
     """ids: int32[B, n_fields] -> logits float32[B].  Two K6 launches: the
     embedding rows and the linear term; differentiable in ``params`` (K6's
-    backward scatters into the table and the linear weights)."""
+    backward scatters into the table and the linear weights).  With
+    ``mesh`` the table and the linear term are this rank's row blocks over
+    its model axis (``shard_params``): one ``all_reduce`` over the model
+    ranks besides.  Collective then: every rank calls it."""
     B, m = ids.shape
-    rows = _field_ids(cfg, ids.to(torch.int32)).contiguous()
-    emb = ops.embedding_bag(params["table"], rows.view(B * m, 1)).view(B, m, cfg.embed_dim)
-    lin = ops.embedding_bag(params["linear"].view(-1, 1), rows)          # [B, 1]
+    rows = _field_ids(cfg, ids.to(torch.int32))
+    emb, lin = _gather_rows(cfg, params, rows, model_group(mesh))
+    emb = emb.reshape(B, m, cfg.embed_dim)
     cin_feat = _cin(cfg, params, emb)
     h = emb.reshape(B, -1)
     for i, layer in enumerate(params["mlp"]):
@@ -140,10 +204,10 @@ def param_pspecs(cfg: XDeepFMConfig, model_axis: str = "model"):
     }
 
 
-def loss_fn(cfg: XDeepFMConfig, params, batch) -> torch.Tensor:
+def loss_fn(cfg: XDeepFMConfig, params, batch, mesh=None) -> torch.Tensor:
     """batch: {ids int32[B, m], y float32[B]}: the mean binary cross-entropy
-    with logits (JAX's ``loss_fn``)."""
-    logit = forward(cfg, params, batch["ids"])
+    with logits (JAX's ``loss_fn``); ``mesh`` as ``forward``'s."""
+    logit = forward(cfg, params, batch["ids"], mesh)
     y = batch["y"].float()
     return torch.mean(torch.clamp_min(logit, 0) - logit * y
                       + torch.log1p(torch.exp(-logit.abs())))
@@ -151,14 +215,14 @@ def loss_fn(cfg: XDeepFMConfig, params, batch) -> torch.Tensor:
 
 @torch.no_grad()
 def retrieval_score(cfg: XDeepFMConfig, params, user_ids: torch.Tensor,
-                    cand_ids: torch.Tensor, chunk: int = 25_000) -> torch.Tensor:
+                    cand_ids: torch.Tensor, chunk: int = 25_000, mesh=None) -> torch.Tensor:
     """Score one user context against C candidates (the retrieval_cand shape).
 
     user_ids: int32[1, n_fields]; cand_ids: int32[C] (field-0 item ids) ->
     float32[C].  Each candidate row is the user's ids with field 0 swapped;
     candidates stream through in ``chunk``-sized slabs, one at a time, so the
     CIN intermediate [chunk, H*m, D] stays bounded.  C above ``chunk`` must
-    be a multiple of it (as in the JAX package)."""
+    be a multiple of it (as in the JAX package).  ``mesh`` as ``forward``'s."""
     C = cand_ids.shape[0]
     if C > chunk and C % chunk:
         raise ValueError(f"{C} candidates are not a multiple of the chunk {chunk}")
@@ -167,5 +231,5 @@ def retrieval_score(cfg: XDeepFMConfig, params, user_ids: torch.Tensor,
     for i in range(0, C, step):
         ids = user_ids.to(torch.int32).expand(step, cfg.n_fields).clone()
         ids[:, 0] = cand_ids[i:i + step]
-        out.append(forward(cfg, params, ids))
+        out.append(forward(cfg, params, ids, mesh))
     return torch.cat(out)

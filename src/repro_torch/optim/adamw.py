@@ -15,10 +15,11 @@ leaf that nothing divides stays whole on every rank, as JAX falls back),
 receives only that slice of the averaged gradient (a
 ``reduce_scatter_tensor``; an ``all_reduce`` for a whole leaf), clips by
 the norm of the whole gradient (the slices' squares summed over the
-ranks, so every rank takes the same scale), updates its slice and
-all-gathers the params, rounded to their dtype.  ``zero_gather`` and
-``zero_shard`` move between that state and the whole one that checkpoints
-keep (the JAX package's layout).
+ranks, so every rank takes the same scale; a leaf split over ``"model"``
+as well, as xDeepFM's tables, has its squares summed over the model ranks
+too), updates its slice and all-gathers the params, rounded to their
+dtype.  ``zero_gather`` and ``zero_shard`` move between that state and the
+whole one that checkpoints keep (the JAX package's layout).
 """
 from __future__ import annotations
 
@@ -28,8 +29,8 @@ from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.launch.mesh import (ONE_RANK, AxisGroup, axis_group, data_axes_of, gather_rows,
-                                    scatter_sum_rows, sum_over)
+from repro_torch.launch.mesh import (MODEL_AXIS, ONE_RANK, AxisGroup, axis_group, data_axes_of,
+                                    gather_rows, scatter_sum_rows, sum_over)
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 
@@ -119,9 +120,14 @@ def _advanced(state: AdamWState, step: int) -> AdamWState:
 class ZeroLayout:
     """Where each param leaf's optimizer state lives: ``dims[i]`` is the
     dimension of leaf i (``tree_leaves`` order) that ``group``'s ranks split
-    evenly, in the group's order, or ``None`` for a leaf whole on every rank."""
+    evenly, in the group's order, or ``None`` for a leaf whole on every
+    rank of ``group``.  ``over_model[i]``: leaf i is a block of a param
+    split over ``model`` (the ranks of the mesh's model axis, when they
+    are more than one), whose gradient norm sums over them too."""
     dims: Tuple[Optional[int], ...]
     group: AxisGroup
+    over_model: Tuple[bool, ...]
+    model: AxisGroup = ONE_RANK
 
     def part(self, x: torch.Tensor, i: int) -> torch.Tensor:
         """This rank's slice of leaf ``i``'s whole tensor ``x`` (a view)."""
@@ -161,16 +167,26 @@ def _spec_leaves(specs) -> list:
     return [specs]
 
 
+def _names_axis(entry, axis: str) -> bool:
+    return entry == axis or (isinstance(entry, tuple) and axis in entry)
+
+
 def zero_layout(opt_pspecs, mesh) -> ZeroLayout:
     """The layout of ``configs.cell.zero_pspecs``' tree over ``mesh``'s data
-    group (``None``: one rank, every leaf whole)."""
+    group (``None``: one rank, every leaf whole), the leaves whose spec
+    names ``"model"`` split over a model axis of more than one rank."""
+    specs = _spec_leaves(opt_pspecs)
     if mesh is None:
-        return ZeroLayout(tuple(None for _ in _spec_leaves(opt_pspecs)), ONE_RANK)
+        return ZeroLayout(tuple(None for _ in specs), ONE_RANK, tuple(False for _ in specs))
     axes = data_axes_of(mesh)
     lead = axes if len(axes) > 1 else axes[0]
-    dims = tuple(next((i for i, e in enumerate(spec) if e == lead), None)
-                 for spec in _spec_leaves(opt_pspecs))
-    return ZeroLayout(dims, axis_group(mesh, axes))
+    dims = tuple(next((i for i, e in enumerate(spec) if e == lead), None) for spec in specs)
+    model = ONE_RANK
+    if MODEL_AXIS in mesh.mesh_dim_names:
+        model = axis_group(mesh, (MODEL_AXIS,))
+    over = tuple(model.size > 1 and any(_names_axis(e, MODEL_AXIS) for e in spec)
+                 for spec in specs)
+    return ZeroLayout(dims, axis_group(mesh, axes), over, model)
 
 
 def zero_init(params, layout: ZeroLayout) -> AdamWState:
@@ -196,15 +212,23 @@ def zero_update(grad_parts, state: AdamWState, params, lr, layout: ZeroLayout,
     gradient (``ZeroLayout.mean_part``; the whole for a leaf without a
     dimension), ``state`` this rank's slices (``zero_init``).  The clip takes
     the whole gradient's norm: the slices' squares summed over the ranks,
-    the whole leaves' once.  Each rank updates its slices; ``params`` are
-    all-gathered in place.  Collective."""
-    sharded = [g for g, d in zip(grad_parts, layout.dims) if d is not None]
-    whole = [g for g, d in zip(grad_parts, layout.dims) if d is None]
-    sq = torch.zeros((), dtype=torch.float32, device=grad_parts[0].device)
-    if sharded:
-        sq = sum_over(global_norm(sharded).square(), layout.group)
-    if whole:
-        sq = sq + global_norm(whole).square()
+    the whole leaves' once; a leaf split over the model ranks
+    (``over_model``) has its squares summed over them as well, the others
+    count once.  Each rank updates its slices; ``params`` are all-gathered
+    in place.  Collective."""
+    zero = torch.zeros((), dtype=torch.float32, device=grad_parts[0].device)
+
+    def squares(model_split: bool) -> torch.Tensor:
+        sharded = [g for g, d, o in zip(grad_parts, layout.dims, layout.over_model)
+                   if d is not None and o == model_split]
+        whole = [g for g, d, o in zip(grad_parts, layout.dims, layout.over_model)
+                 if d is None and o == model_split]
+        sq = sum_over(global_norm(sharded).square(), layout.group) if sharded else zero
+        return sq + global_norm(whole).square() if whole else sq
+
+    sq = squares(False)
+    if any(layout.over_model):
+        sq = sq + sum_over(squares(True), layout.model)
     gnorm = sq.sqrt()
     step, leaf = _prepare(gnorm, state, lr, b1, b2, eps, weight_decay, clip_norm)
     for i, (p, g, m, v, w) in enumerate(zip(tree_leaves(params), grad_parts,

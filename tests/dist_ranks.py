@@ -12,12 +12,17 @@ and stochastic); ``make_train_step`` for two steps on every case of the
 job, with the ZeRO layout, the gathered state and a checkpoint round trip;
 ``configs.cell``'s mesh helpers and ``zero_pspecs`` on the job's param
 shapes; a model axis of more than one rank (which must raise);
-``make_dstlocal_loss`` and a ``make_gnn_train_step`` step on it;
+``make_dstlocal_loss`` and a ``make_gnn_train_step`` step on it; with a
+job's ``gnn_sharded`` entry, SchNet's, GatedGCN's and GraphCast's
+``make_sharded_loss`` over each rank's block of a graph, a step on each and
+the same losses with a gather whose adjoint does not sum (the control);
 ``pipeline_apply`` against the sequential run in torch; with a job's
 ``cells`` entry (``tests/test_torch_distribution_sharded.py``), the
 per-rank programs of the dry-run cells: the oracle's row-sharded
 ``distribute_one`` and serve step, GCN's per-rank loss, xDeepFM's train
-step and the LM step on each rank's own rows (``local_batch``).  A job runs
+step and the LM step on each rank's own rows (``local_batch``), and on
+(2, 2) xDeepFM's forward, ``retrieval_score`` and train step with the
+tables row-sharded over ``"model"``.  A job runs
 the parts it has entries for.  It imports the
 port only.
 """
@@ -36,7 +41,7 @@ from repro_torch.configs.cell import batch_pspec, data_axes_of, dp_size, zero_ps
 from repro_torch.configs.gnn_cells import make_gnn_train_step
 from repro_torch.configs.lm_cells import make_train_step, opt_layout
 from repro_torch.dist import pipeline_apply
-from repro_torch.launch.mesh import form_mesh
+from repro_torch.launch.mesh import axis_group, form_mesh, gather_rows
 from repro_torch.models import transformer as tf
 from repro_torch.models.gnn import gatedgcn
 from repro_torch.models.gnn.layers import GraphBatch
@@ -143,6 +148,83 @@ def run_dstlocal(job, world, res):
         params, state, metrics = step(params, state, g)
         res["dstlocal"][key] = {"loss": float(loss), "grads": _np(list(grads)),
                                 "step_loss": float(metrics["loss"]), "params": _np(params)}
+    if "gnn_sharded" in job:
+        run_gnn_sharded(job["gnn_sharded"], world, res)
+
+
+class _UnsummedGather(torch.autograd.Function):
+    """The control's exchange: ``dist.sharded.Gather``'s forward with a
+    wrong adjoint, each rank keeping its own rows of its own gradient
+    instead of their sum over the ranks."""
+
+    @staticmethod
+    def forward(ctx, h, ag):
+        ctx.ag, ctx.rows = ag, h.shape[0]
+        return gather_rows(h, ag) if ag.size > 1 else h.view_as(h)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(0, ctx.ag.index * ctx.rows, ctx.rows), None
+
+
+def _block(batch: dict, index: int, parts: int):
+    """This rank's block of a whole batch of numpy arrays: the node arrays'
+    n/P rows and the edge arrays' m/P edges (JAX's layout)."""
+    out = {}
+    for k, v in batch.items():
+        if v is None:
+            out[k] = None
+            continue
+        size = v.shape[0] // parts
+        out[k] = torch.from_numpy(v[index * size:(index + 1) * size].copy())
+    return out
+
+
+def run_gnn_sharded(job, world, res):
+    """The three per-rank GNN losses on each mesh of ``world`` ranks: loss
+    and gradients over this rank's block, one ``make_gnn_train_step``
+    step, and, on more than one rank, the loss and gradients through
+    ``_UnsummedGather`` (the control)."""
+    from unittest import mock
+
+    from repro_torch.dist import sharded
+    from repro_torch.models.gnn import graphcast, schnet
+
+    res["gnn_sharded"] = {}
+    for key, (shape, names) in job["meshes"].items():
+        if int(np.prod(shape)) != world:
+            continue
+        mesh = form_mesh(shape, names, timeout=TIMEOUT)
+        axes = tuple(a for a in names if a != "model")
+        ag = axis_group(mesh, axes)
+        for name, case in job["models"].items():
+            mod = {"schnet": schnet, "gatedgcn": gatedgcn, "graphcast": graphcast}[name]
+            cfg = get_arch(case["arch"]).smoke_config()
+            mine = _block(case["batch"], ag.index, ag.size)
+            if name == "graphcast":
+                b = graphcast.MeshBatch(**mine)
+                loss_fn = graphcast.make_sharded_loss(cfg, mesh, case["n_mesh"], axes)
+            else:
+                b = GraphBatch(**mine)
+                loss_fn = mod.make_sharded_loss(cfg, mesh, axes)
+            params = mod.params_from_jax(cfg, case["params"], device="cpu")
+            leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+
+            def loss_and_grads():
+                loss = loss_fn(params, b)
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                            materialize_grads=True)
+                return float(loss), _np(list(grads))
+
+            out = dict(zip(("loss", "grads"), loss_and_grads()))
+            if ag.size > 1:
+                wrong = lambda h, ag_, wire=None: _UnsummedGather.apply(h, ag_)  # noqa: E731
+                with mock.patch.object(sharded, "gather", wrong):
+                    out["control"] = loss_and_grads()
+            step = make_gnn_train_step(loss_fn, mesh)
+            params, _, metrics = step(params, adamw_init(params), b)
+            out.update(step_loss=float(metrics["loss"]), params=_np(params))
+            res["gnn_sharded"][(key, name)] = out
 
 
 def _stage(p, x):
@@ -172,12 +254,53 @@ def run_pipeline(job, world, rank, res):
                        "ref_gx": rx.numpy()}
 
 
+def _xdeepfm_model_axis(x, cfg, mesh, P: int, d: int) -> dict:
+    """xDeepFM with the tables row-sharded over the mesh's model axis (this
+    rank's blocks, ``shard_params``): the forward over this data rank's
+    rows of the batch, ``retrieval_score`` over its candidates, and a train
+    step from the job's params and from them with the table scaled by
+    ``clip_scale`` (a gradient norm above the clip): loss, gradient norm,
+    this rank's params and its model block of the state (gathered over the
+    data ranks), with the step's ZeRO layout."""
+    from repro_torch.configs import xdeepfm_cfg
+    from repro_torch.models.recsys import xdeepfm
+    from repro_torch.optim.adamw import zero_layout
+
+    whole = _torch(x["params"])
+    params = xdeepfm.shard_params(cfg, whole, mesh)
+    b = x["batch"]["ids"].shape[0] // P
+    c = x["cands"].shape[0] // P
+    out = {"forward": xdeepfm.forward(cfg, params, torch.from_numpy(
+               x["batch"]["ids"][d * b:(d + 1) * b].copy()), mesh).numpy(),
+           "retrieval": xdeepfm.retrieval_score(
+               cfg, params, torch.from_numpy(x["user"]),
+               torch.from_numpy(x["cands"][d * c:(d + 1) * c].copy()), x["chunk"], mesh).numpy(),
+           "steps": {}}
+    rows = {k: torch.from_numpy(v[d * b:(d + 1) * b].copy()) for k, v in x["batch"].items()}
+    for name, scale in (("plain", 1.0), ("clipped", x["clip_scale"])):
+        start = _torch(x["params"])   # the step updates the params in place
+        start["table"] = start["table"] * scale
+        opt_p = zero_pspecs(start, xdeepfm.param_pspecs(cfg), mesh)
+        layout = zero_layout(opt_p, mesh)
+        mine = xdeepfm.shard_params(cfg, start, mesh)
+        state = zero_init(mine, layout)
+        mine, state, metrics = xdeepfm_cfg.make_train_step(cfg, mesh, opt_p)(mine, state, rows)
+        gathered = zero_gather(state, layout)
+        out["steps"][name] = {
+            "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+            "params": _np(mine), "state": _np((gathered.mu, gathered.nu, gathered.master)),
+            "dims": layout.dims, "over_model": layout.over_model}
+    return out
+
+
 def run_cells(job, world, rank, res):
     """On (world, 1) and, at 4 ranks, (2, 2): the row-sharded steps (every
     case's state after each iteration, this rank's rows, and the serve
     step's verdicts, in both ``row_extract`` modes); GCN's per-rank loss and
-    gradients over this rank's block of a graph; an xDeepFM train step and
-    LM train steps over this rank's rows of the batch."""
+    gradients over this rank's block of a graph; an xDeepFM train step over
+    this rank's rows of the batch (on (2, 2) with the tables row-sharded
+    over ``"model"``: ``_xdeepfm_model_axis``) and LM train steps over its
+    rows (on (world, 1))."""
     from repro_torch.configs import xdeepfm_cfg
     from repro_torch.core.distribution_device import LabelState, make_sharded_distribute_one
     from repro_torch.models.gnn import gcn
@@ -227,10 +350,11 @@ def run_cells(job, world, rank, res):
         loss = gcn.make_sharded_loss(cfg, mesh, ("data",))(params, block)
         grads = torch.autograd.grad(loss, [p["w"] for p in params])
         res["oracle"][(shape, "gcn")] = (float(loss), [x.numpy() for x in grads])
-        if shape[1] > 1:
-            continue   # the LM and xDeepFM steps take no model axis (their cells skip)
         x = job["oracle"]["xdeepfm"]
         cfg = xdeepfm_cfg.smoke_config()
+        if shape[1] > 1:
+            res["oracle"][(shape, "xdeepfm_model_axis")] = _xdeepfm_model_axis(x, cfg, mesh, P, d)
+            continue   # the LM step takes no model axis (its cells skip, item 12.3)
         params = _torch(x["params"])
         opt_p = zero_pspecs(params, xdeepfm.param_pspecs(cfg), mesh)
         state = zero_init(params, zero_layout(opt_p, mesh))

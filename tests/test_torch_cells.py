@@ -8,8 +8,8 @@ lowering them, and dumps each argument leaf's global shape, dtype and
 ``spec_bytes``.  The port builds its cells on fake process groups of the
 same meshes (``launch.dryrun.fake_mesh``) and must match leaf for leaf.
 The skips the port adds are listed in ``PORT_SKIPS``: tensor parallelism
-over ``"model"`` (LM), the tables' model-axis sharding (xDeepFM), the
-data-sharded GNN losses and decode over a sequence-split cache.
+over ``"model"`` (LM) and decode over a sequence-split cache; the GNN and
+xDeepFM cells run wherever JAX's do.
 """
 import json
 import os
@@ -24,9 +24,7 @@ import torch
 from repro_torch.configs import ALL_ARCHS, get_arch
 from repro_torch.configs import reachability
 from repro_torch.configs.cell import TensorSpec, map_specs, spec_bytes
-from repro_torch.configs.gnn_cells import DATA_SHARDED_SKIP
 from repro_torch.configs.lm_cells import SEQ_SKIP, TP_SKIP
-from repro_torch.configs.xdeepfm_cfg import TABLE_SKIP
 from repro_torch.core.distribution_device import (build_sweep_specs, init_state,
                                                   make_sharded_distribute_one)
 from repro_torch.core.order import get_order
@@ -40,7 +38,9 @@ HERE = pathlib.Path(__file__).resolve().parent
 SRC = HERE.parent / "src"
 MESHES = (("single", "baseline"), ("multi", "baseline"), ("single", "tp1"))
 # the skips the port adds to JAX's, each naming the ROADMAP item that lifts it
-PORT_SKIPS = tuple(s.split("{")[0] for s in (TP_SKIP, TABLE_SKIP, DATA_SHARDED_SKIP, SEQ_SKIP))
+PORT_SKIPS = tuple(s.split("{")[0] for s in (TP_SKIP, SEQ_SKIP))
+# the families whose every cell has JAX's skip (None on every mesh here)
+NO_PORT_SKIP = ("gcn-cora", "gatedgcn", "schnet", "graphcast", "xdeepfm")
 
 JAX_DUMP = r"""
 import json, sys
@@ -148,19 +148,24 @@ def test_cells_match_jax(arch, jax_records, port_records):
         assert p["fn"] == (p["skip"] is None), key
 
 
-def test_port_skips_are_the_listed_ones(port_records):
+def test_port_skips_are_the_listed_ones(port_records, jax_records):
     """Where the port runs a cell and where it skips: on ``single`` (model
-    16) every LM and xDeepFM cell is skipped, on ``tp1`` (model 1) the LM
-    train cells, xDeepFM and every GCN and oracle cell run."""
+    16) every LM cell is skipped, on ``tp1`` (model 1) the LM train cells
+    run; every GNN cell (the data-sharded losses) and every xDeepFM cell
+    (the tables row-sharded over ``"model"``) has JAX's skip on all three
+    meshes, as every oracle cell does."""
     run = {k for k, r in port_records.items() if r["skip"] is None}
     assert "granite-3-2b|train_4k|single|tp1" in run
-    assert "xdeepfm|train_batch|single|tp1" in run
-    assert not any(k.startswith(("granite", "xdeepfm")) and k.endswith("|single|baseline")
-                   for k in run)
+    assert not any(k.startswith("granite") and k.endswith("|single|baseline") for k in run)
+    for key, rec in port_records.items():
+        if key.startswith(NO_PORT_SKIP + ("reachability-oracle",)):
+            assert rec["skip"] == jax_records[key]["skip"], key
     for mk, var in MESHES:
         for shape in reachability.SHAPES:
             assert f"reachability-oracle|{shape}|{mk}|{var}" in run
-        assert f"gcn-cora|full_graph_sm|{mk}|{var}" in run
+        for arch in NO_PORT_SKIP:
+            for shape in get_arch(arch).SHAPES:
+                assert f"{arch}|{shape}|{mk}|{var}" in run, (arch, shape, mk)
 
 
 def test_oracle_config_and_build_sweep_specs_match_jax():

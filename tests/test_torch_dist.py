@@ -30,6 +30,15 @@ axes: ``jax.make_mesh``'s Explicit axes break its ``shard_map`` code on JAX
     loss and gradients against JAX's, and against the single-process
     ``loss_fn`` at JAX's own bounds; a ``make_gnn_train_step`` step on it,
     and that step against JAX's ``gnn_train_cell`` step in one process;
+  * SchNet's, GatedGCN's and GraphCast's ``make_sharded_loss`` (each rank
+    its node block and its edge block, JAX's layout) on (1, 1), (2, 1),
+    (4, 1) and a (pod, data) mesh: the loss within 1e-5 relative and each
+    gradient leaf within 1e-4 of its largest magnitude of JAX's
+    ``loss_fn`` and ``jax.grad`` over the whole graph, with JAX's params;
+    one ``make_gnn_train_step`` step equal on every rank and to JAX's
+    ``gnn_train_cell`` step; and the control, the same losses with a
+    gather whose adjoint keeps each rank's own gradient rows unsummed,
+    rejected by the gradients' bound on 2 and 4 ranks;
   * ``pipeline_apply`` over 1, 2 and 4 stages against the sequential run,
     in JAX and in torch, output and gradients.
 """
@@ -54,6 +63,8 @@ from repro.graph.generators import random_dag
 from repro.graph.partition import partition_edges_by_dst as jax_partition
 from repro.models import transformer as jtf
 from repro.models.gnn import gatedgcn as jgatedgcn
+from repro.models.gnn import graphcast as jgraphcast
+from repro.models.gnn import schnet as jschnet
 from repro.models.gnn.layers import GraphBatch as JGraphBatch
 from repro.optim import adamw_init as jax_adamw_init
 from repro.optim import compression as jcomp
@@ -101,6 +112,15 @@ DSTLOCAL_LOSS_TOL, DSTLOCAL_GRAD_TOL = 5e-3, 2e-2
 DSTLOCAL_VS_JAX_TOL = 1e-4
 DSTLOCAL_VS_JAX_GRAD_REL = 2.0 ** -8
 PIPELINE_TOL = 1e-5
+# the per-rank losses of SchNet, GatedGCN and GraphCast in JAX's layout
+GNN_SHARDED_MESHES = {"w1": ((1, 1), ("data", "model")), "w2": ((2, 1), ("data", "model")),
+                      "w4": ((4, 1), ("data", "model")), "pd22": ((2, 2), ("pod", "data"))}
+GNN_SHARDED = {"schnet": jschnet, "gatedgcn": jgatedgcn, "graphcast": jgraphcast}
+GNN_SHARDED_N, GNN_SHARDED_M, GNN_SHARDED_N_MESH = 48, 160, 16
+GNN_SHARDED_LOSS_REL, GNN_SHARDED_GRAD_REL = 1e-5, 1e-4
+# the step's params against JAX's: float32 sums in other orders, through
+# one AdamW step (test_gnn_train_step_matches_jax's bounds)
+GNN_SHARDED_STEP_RTOL, GNN_SHARDED_STEP_ATOL = 1e-5, 1e-6
 
 JAX_SNIPPET = """
 import os, pickle, sys
@@ -196,6 +216,54 @@ def _dstlocal_job(rng) -> dict:
             "params": _np(jgatedgcn.init_params(cfg, jax.random.PRNGKey(0)))}
 
 
+def _with_biases(tree, rng):
+    """JAX's params with every MLP bias ("b", zeros at init) drawn instead."""
+    if isinstance(tree, dict):
+        return {k: (np.asarray(rng.standard_normal(v.shape) * 0.1, np.float32) if k == "b"
+                    else _with_biases(v, rng)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_with_biases(v, rng) for v in tree]
+    return np.asarray(tree)
+
+
+def _gnn_sharded_job(rng) -> dict:
+    """Each model's smoke config, JAX's params (the MLP biases drawn) and a
+    whole graph made with numpy: 48 nodes and 160 edges (masked nodes and
+    edges); GraphCast 48 grid rows, 16 mesh nodes and 96 / 64 / 96 edges."""
+    n, m = GNN_SHARDED_N, GNN_SHARDED_M
+    models = {}
+    for name, jmod in GNN_SHARDED.items():
+        cfg = jax_arch(name).smoke_config()
+        params = _with_biases(jmod.init_params(cfg, jax.random.PRNGKey(3)), rng)
+        if name == "graphcast":
+            nm = GNN_SHARDED_N_MESH
+            batch = dict(
+                grid_x=rng.standard_normal((n, cfg.n_vars)).astype(np.float32),
+                g2m_src=rng.integers(0, n, 96).astype(np.int32),
+                g2m_dst=rng.integers(0, nm, 96).astype(np.int32),
+                mesh_src=rng.integers(0, nm, 64).astype(np.int32),
+                mesh_dst=rng.integers(0, nm, 64).astype(np.int32),
+                m2g_src=rng.integers(0, nm, 96).astype(np.int32),
+                m2g_dst=rng.integers(0, n, 96).astype(np.int32),
+                target=rng.standard_normal((n, cfg.n_vars)).astype(np.float32))
+            models[name] = {"arch": name, "params": params, "batch": batch, "n_mesh": nm}
+            continue
+        batch = dict(edge_src=rng.integers(0, n, m).astype(np.int32),
+                     edge_dst=rng.integers(0, n, m).astype(np.int32),
+                     edge_mask=rng.random(m) < 0.85, node_mask=rng.random(n) < 0.9,
+                     edge_attr=None, pos=None)
+        if name == "schnet":   # atom types 0-4 in column 0, positions within the cutoff
+            batch.update(x=rng.integers(0, 5, (n, 1)).astype(np.float32),
+                         pos=(rng.standard_normal((n, 3)) * 1.5).astype(np.float32),
+                         y=np.linspace(-1, 1, n, dtype=np.float32))
+        else:
+            batch.update(x=rng.standard_normal((n, cfg.d_in)).astype(np.float32),
+                         edge_attr=rng.standard_normal((m, cfg.d_edge_in)).astype(np.float32),
+                         y=rng.integers(0, cfg.n_classes, n).astype(np.int32))
+        models[name] = {"arch": name, "params": params, "batch": batch}
+    return {"meshes": GNN_SHARDED_MESHES, "models": models}
+
+
 def _pipeline_job(rng) -> dict:
     return {w: {"w": (rng.standard_normal((w, 2, 16, 16)) * 0.3).astype(np.float32),
                 "x": rng.standard_normal((8, 4, 16)).astype(np.float32),
@@ -253,7 +321,8 @@ def runs(tmp_path_factory):
            "compress": [{"a": rng.standard_normal((300,)).astype(np.float32),
                          "b": [(rng.standard_normal((7, 50)) * 10.0 ** -k).astype(np.float32)
                                for k in range(3)]} for _ in range(4)],
-           "dstlocal": _dstlocal_job(rng), "pipeline": _pipeline_job(rng),
+           "dstlocal": _dstlocal_job(rng), "gnn_sharded": _gnn_sharded_job(rng),
+           "pipeline": _pipeline_job(rng),
            "zero_shapes": _zero_shapes(), "zero_meshes": ZERO_MESHES}
     job_path = tmp / "job.pkl"
     with open(job_path, "wb") as f:
@@ -555,6 +624,64 @@ def test_gnn_train_step_matches_jax():
         np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), rtol=1e-5, atol=1e-6)
     for a, b in zip(tree_leaves(st.nu), jax.tree.leaves(jst.nu)):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4, atol=1e-12)
+
+
+@pytest.fixture(scope="module")
+def gnn_sharded_jax(runs):
+    """JAX's loss, gradients (``jax.grad``) and one ``gnn_train_cell`` step
+    of each model over the whole graph, in this process."""
+    out = {}
+    mesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
+    for name, case in runs["job"]["gnn_sharded"]["models"].items():
+        jmod = GNN_SHARDED[name]
+        cfg = jax_arch(name).smoke_config()
+        params = jax.tree.map(jnp.asarray, case["params"])
+        arrays = {k: (jnp.asarray(v) if v is not None else None)
+                  for k, v in case["batch"].items()}
+        if name == "graphcast":
+            b = jgraphcast.MeshBatch(**arrays)
+            loss_fn = partial(jmod.loss_fn, cfg, n_mesh=case["n_mesh"])
+        else:
+            b = JGraphBatch(**arrays)
+            loss_fn = partial(jmod.loss_fn, cfg)
+        loss, grads = jax.value_and_grad(lambda p: loss_fn(p, b))(params)
+        cell = gnn_train_cell(name, "full_graph_sm", mesh, loss_fn=lambda p, g: loss_fn(p, g),
+                              init_fn=lambda: params)
+        stepped, _, _ = cell.fn(params, jax_adamw_init(params), b)
+        out[name] = (float(loss), [np.asarray(x) for x in jax.tree.leaves(grads)],
+                     [np.asarray(x) for x in jax.tree.leaves(stepped)])
+    return out
+
+
+@pytest.mark.parametrize("key", list(GNN_SHARDED_MESHES))
+@pytest.mark.parametrize("name", list(GNN_SHARDED))
+def test_sharded_gnn_loss_matches_jax(runs, gnn_sharded_jax, name, key):
+    """A model's per-rank loss over each rank's block of the graph: the
+    loss, the gradients and one step's params against JAX's over the whole
+    graph, the params the same bytes on every rank; on 2 and 4 ranks the
+    control (a gather's adjoint that does not sum over the ranks) exceeds
+    the gradients' bound on some leaf."""
+    shape, _ = GNN_SHARDED_MESHES[key]
+    world = int(np.prod(shape))
+    want_loss, want_grads, want_params = gnn_sharded_jax[name]
+    first = runs["port"][world][0]["gnn_sharded"][(key, name)]
+
+    def grad_excess(grads):
+        return max(float(np.abs(g - w).max()) / max(float(np.abs(w).max()), 1e-30)
+                   for g, w in zip(grads, want_grads))
+
+    for r, res in enumerate(runs["port"][world]):
+        got = res["gnn_sharded"][(key, name)]
+        assert abs(got["loss"] - want_loss) <= GNN_SHARDED_LOSS_REL * abs(want_loss), r
+        assert len(got["grads"]) == len(want_grads)
+        assert grad_excess(got["grads"]) <= GNN_SHARDED_GRAD_REL, (r, grad_excess(got["grads"]))
+        assert got["step_loss"] == got["loss"]
+        for i, (a, b) in enumerate(zip(tree_leaves(got["params"]), want_params)):
+            np.testing.assert_allclose(a, b, rtol=GNN_SHARDED_STEP_RTOL,
+                                       atol=GNN_SHARDED_STEP_ATOL, err_msg=f"{r} {i}")
+            assert a.tobytes() == tree_leaves(first["params"])[i].tobytes()
+        if world > 1:
+            assert grad_excess(got["control"][1]) > GNN_SHARDED_GRAD_REL
 
 
 # ------------------------------------------------------------------ GPipe

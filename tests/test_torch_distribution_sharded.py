@@ -8,7 +8,11 @@ on every rank; GCN's per-rank loss (``gcn.make_sharded_loss``) gives
 ``loss_fn``'s loss and gradients; xDeepFM's cell step
 (``xdeepfm_cfg.make_train_step``) and the LM step over each rank's own rows
 (``make_train_step(..., local_batch=True)``) give one process's step over
-the whole batch.  On (4, 1) and, at 4 ranks, (2, 2).
+the whole batch.  On (4, 1) and, at 4 ranks, (2, 2), where xDeepFM's
+tables are row-sharded over ``"model"``: its forward, ``retrieval_score``
+and train step (one with a gradient norm above the clip) against the JAX
+package's single-device ``forward``, ``retrieval_score``, ``loss_fn`` and
+``adamw_update``.
 """
 import os
 import pathlib
@@ -88,10 +92,21 @@ def _xdeepfm_job(rng) -> dict:
 
     cfg = xdeepfm_cfg.smoke_config()
     params = xdeepfm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    # the MLP biases and the global bias start at 0: give them values, so that
+    # a term left out shows
+    params["mlp"] = [dict(layer, b=torch.from_numpy(
+        (rng.standard_normal(layer["b"].shape) * 0.1).astype(np.float32)))
+        for layer in params["mlp"]]
+    params["bias"] = torch.tensor(0.25)
     return dict(params=tree_map(lambda t: t.numpy().copy(), params),
                 batch=dict(ids=rng.integers(0, cfg.vocab_per_field, (16, cfg.n_fields))
                            .astype(np.int32),
-                           y=(rng.random(16) < 0.5).astype(np.float32)))
+                           y=(rng.random(16) < 0.5).astype(np.float32)),
+                user=rng.integers(0, cfg.vocab_per_field, (1, cfg.n_fields)).astype(np.int32),
+                cands=rng.integers(0, cfg.vocab_per_field, 24).astype(np.int32),
+                # a data rank's 12 candidates in chunks of 4; the table scaled
+                # by 100 gives the step a gradient norm above the clip (1.0)
+                chunk=4, clip_scale=100.0)
 
 
 def _lm_job(rng) -> dict:
@@ -211,8 +226,9 @@ def _torch(tree):
 def test_xdeepfm_cell_step_equals_one_process(runs, world):
     """xDeepFM's cell step over each rank's rows of 16 (the gradients
     averaged onto each rank's ZeRO slice, the params all-gathered) gives
-    one process's step over the whole batch: loss and params within 1e-6.
-    On (world, 1): a model axis of more than one rank skips its cells."""
+    one process's step over the whole batch: loss and params within 1e-6,
+    on (world, 1) and, at 4 ranks, on (2, 2) with the tables row-sharded
+    over ``"model"`` (each rank's blocks against the same rows)."""
     from repro_torch.configs import xdeepfm_cfg
     from repro_torch.configs.cell import zero_pspecs
     from repro_torch.models.recsys import xdeepfm
@@ -227,12 +243,99 @@ def test_xdeepfm_cell_step_equals_one_process(runs, world):
     state = zero_init(params, zero_layout(opt_p, None))
     params, _, metrics = xdeepfm_cfg.make_train_step(cfg, None, opt_p)(params, state,
                                                                        _torch(x["batch"]))
-    for shape in [(world, 1)]:
+    for shape in _shapes(world):
         for rank in range(world):
-            loss, got = out[world][rank][(shape, "xdeepfm")]
+            if shape[1] > 1:
+                step = out[world][rank][(shape, "xdeepfm_model_axis")]["steps"]["plain"]
+                loss, got = step["loss"], step["params"]
+                want = _rows_of(params, rank % shape[1], shape[1])
+            else:
+                (loss, got), want = out[world][rank][(shape, "xdeepfm")], params
             assert loss == pytest.approx(float(metrics["loss"]), rel=1e-6)
-            for a, b in zip(tree_leaves(got), tree_leaves(params)):
+            for a, b in zip(tree_leaves(got), tree_leaves(want)):
                 np.testing.assert_allclose(a, b.detach().numpy(), rtol=1e-6, atol=1e-7)
+
+
+def _rows_of(whole, index: int, parts: int):
+    """``whole``'s params (numpy or tensors) cut to a model rank's blocks."""
+    out = dict(whole)
+    for k in ("table", "linear"):
+        n = whole[k].shape[0] // parts
+        out[k] = whole[k][index * n:(index + 1) * n]
+    return out
+
+
+def test_xdeepfm_model_axis_matches_jax(runs):
+    """On a (2, 2) ("data", "model") mesh, each rank holding its row block
+    of the table and the linear term: the forward over each data rank's rows
+    and ``retrieval_score`` over its candidates within 1e-5 of the JAX
+    package's single-device ones over the whole table; a train step's loss
+    and gradient norm, each rank's params and its block of mu, nu and
+    master within 1e-5 of JAX's ``loss_fn``, ``jax.grad`` and
+    ``adamw_update`` over the whole batch, from the job's params and with
+    the table scaled by ``clip_scale``, whose gradient norm (above 1.0)
+    the clip takes, summed over both model ranks' blocks; the step's ZeRO
+    dimensions are those of JAX's ``zero_pspecs`` on the same mesh shape."""
+    from functools import partial
+
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import xdeepfm_cfg as jcfg_mod
+    from repro.configs.cell import zero_pspecs as jax_zero_pspecs
+    from repro.models.recsys import xdeepfm as jx
+    from repro.optim import adamw_init, adamw_update, cosine_schedule
+
+    job, out = runs
+    x = job["oracle"]["xdeepfm"]
+    cfg = jcfg_mod.smoke_config()
+    params = jax.tree.map(jnp.asarray, x["params"])
+    shape, (P, M) = (2, 2), (2, 2)
+    want_fwd = np.asarray(jx.forward(cfg, params, jnp.asarray(x["batch"]["ids"])))
+    want_ret = np.asarray(jx.retrieval_score(cfg, params, jnp.asarray(x["user"]),
+                                             jnp.asarray(x["cands"]), chunk=8))
+    b, c = x["batch"]["ids"].shape[0] // P, x["cands"].shape[0] // P
+    batch = {k: jnp.asarray(v) for k, v in x["batch"].items()}
+    want_steps = {}
+    for name, scale in (("plain", 1.0), ("clipped", x["clip_scale"])):
+        start = dict(params, table=params["table"] * scale)
+        loss, grads = jax.value_and_grad(partial(jx.loss_fn, cfg))(start, batch)
+        lr = cosine_schedule(jnp.int32(0), 1e-3, warmup=500, total=50_000)
+        new, st, metrics = adamw_update(grads, adamw_init(start), start, lr, weight_decay=1e-5)
+        want_steps[name] = (float(loss), float(metrics["grad_norm"]),
+                            jax.tree.map(np.asarray, new),
+                            jax.tree.map(np.asarray, (st.mu, st.nu, st.master)))
+    assert want_steps["plain"][1] < 1.0 < want_steps["clipped"][1]
+
+    class StubMesh:   # all that JAX's zero_pspecs reads of a mesh
+        axis_names = ("data", "model")
+        shape = {"data": P, "model": M}
+
+    specs = jax.tree.leaves(jax_zero_pspecs(params, jx.param_pspecs(cfg), StubMesh),
+                            is_leaf=lambda s: isinstance(s, jax.sharding.PartitionSpec))
+    want_dims = tuple(next((i for i, e in enumerate(s) if e == "data"), None) for s in specs)
+    assert any(d is not None for d in want_dims)
+
+    def close(a, w, what):
+        np.testing.assert_allclose(a, w, rtol=1e-5, atol=1e-5 * max(float(np.abs(w).max()),
+                                                                     1e-30), err_msg=what)
+
+    for rank in range(4):
+        d, k = rank // M, rank % M
+        got = out[4][rank][(shape, "xdeepfm_model_axis")]
+        close(got["forward"], want_fwd[d * b:(d + 1) * b], f"forward {rank}")
+        close(got["retrieval"], want_ret[d * c:(d + 1) * c], f"retrieval {rank}")
+        for name, (loss, gnorm, new, state) in want_steps.items():
+            step = got["steps"][name]
+            assert step["loss"] == pytest.approx(loss, rel=1e-5), (name, rank)
+            assert step["grad_norm"] == pytest.approx(gnorm, rel=1e-5), (name, rank)
+            # the table and the linear term split over "model"
+            assert sum(step["over_model"]) == 2 and step["dims"] == want_dims
+            for a, w in zip(tree_leaves(step["params"]), tree_leaves(_rows_of(new, k, M))):
+                close(a, w, f"{name} params {rank}")
+            for part, g, w in zip(("mu", "nu", "master"), step["state"], state):
+                for a, ww in zip(tree_leaves(g), tree_leaves(_rows_of(w, k, M))):
+                    close(a, ww, f"{name} {part} {rank}")
 
 
 @pytest.mark.parametrize("world", WORLDS)
