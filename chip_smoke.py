@@ -241,8 +241,19 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      batch 4,096 whose gradient norm passes the clip against the one-rank
      step within ``TRAIN_F32_REL`` (the table cut to
      ``DIST_XDEEPFM["train_vocab_per_field"]`` for the step alone), K6 and
-     its backward timed at the path's shapes.  K4 and its backward counted
-     on every rank around exactly the 4-rank steps and pipeline runs, K6
+     its backward timed at the path's shapes; (f) Megatron tensor
+     parallelism over a (2, 2) ("data", "model") mesh: granite-3-2b at full
+     width, a float32 step at 2 layers against one rank (loss, gradient
+     norm, each rank's slice of master and moments gathered over the
+     model ranks by ``gather_params``, within
+     ``TRAIN_F32_REL``; the step without ``wo``'s ``reduce_from_model``
+     rejected), a timed bfloat16 step with the params equal over each data
+     group, a bfloat16 prefill of 1 x 4,096 against one rank within 4j's
+     bound; granite-moe's expert-parallel float32 step against one rank;
+     deepseek-7b's 16 decode steps over a cache split by kv heads within
+     1e-3.  K4 and its backward counted
+     on every rank around exactly the 4-rank steps and pipeline runs and
+     (f)'s calls, K6
      and its backward around (e)'s 4-rank calls; a step's seconds,
      tokens/s, peak memory a rank, the collectives' seconds and the bytes
      on the wire by route;
@@ -5030,9 +5041,31 @@ def merge_training(library: list, train: dict, cases: dict) -> None:
 #      the host under gloo, and each rank's one-rank reference holds the
 #      whole table five times over.  K6 and its backward are timed once at
 #      the path's shapes on rank 0, the other ranks waiting.
+#  (f), run right after (a): Megatron tensor parallelism
+#      (dist.tensor_parallel) over a (2, 2) ("data", "model") mesh, each
+#      rank its param_pspecs blocks
+#      (transformer.shard_params), ZeRO over the 2 data ranks: granite-3-2b
+#      at full width in float32 at TRAIN_F32_LAYERS layers, one
+#      make_train_step step from (a)'s float32 weights on (a)'s batch
+#      against (a)'s one-rank step: the loss, the gradient norm and this
+#      rank's ZeRO slice of master, mu and nu, gathered whole over the model
+#      ranks (gather_params), against the same slice of the one-rank state
+#      within TRAIN_F32_REL, which the step with wo's reduce_from_model left
+#      out must exceed (its blocks against the one-rank state's); in bfloat16 at
+#      DIST_LM["layers"] layers one timed step, the params equal byte for
+#      byte over each data group (sha256); a bfloat16 prefill of 1 x
+#      DIST_TP["prefill"] tokens, the last position's logits against the
+#      one-rank prefill within SUBSTRATE_BF16's max abs (one position: no
+#      top-1 share); granite-moe-1b-a400m at full width, 2 layers, float32,
+#      its 32 experts 16 a model rank (expert parallelism): the same step
+#      check against a one-rank step run here; deepseek-7b at full width, 2 layers, float32:
+#      DIST_TP["decode_steps"] decode steps of DIST_TP["decode_batch"]
+#      tokens over a cache split by kv heads (16 a model rank), each step's
+#      logits against the one-rank decode within SUBSTRATE_F32_ATOL.
 # K4 and its backward are counted on every rank around exactly the 4-rank
-# steps and pipeline runs, K6 and its backward around the 4-rank forward,
-# retrieval and step (never the references).
+# steps and pipeline runs and (f)'s tensor-parallel calls (apart), K6 and
+# its backward around the 4-rank forward, retrieval and step (never the
+# references).
 DIST_WORLD = 4
 DIST_RANK_TIMEOUT_S = 300     # a rank left in a collective raises after this
 DIST_WAIT_S = 900.0           # how long a rank waits for the script's go
@@ -5050,6 +5083,7 @@ DIST_XDEEPFM_SEED = 43
 DIST_XDEEPFM = dict(serve_batch=512, candidates=25_000, train_batch=4096,
                     train_vocab_per_field=100_000, clip_scale=100.0)
 XDEEPFM_MESH_TOL = 1e-5   # tests/test_torch_xdeepfm.py's, max abs
+DIST_TP = dict(prefill=4096, decode_batch=4, decode_steps=16, seed=47)
 
 
 def _leaf_names(tree, prefix: str = "") -> list:
@@ -5117,7 +5151,8 @@ def _numpy_quantized_mean(parts: list, block: int = 256) -> np.ndarray:
 
 def _dist_lm(rank: int, world: int, timeout) -> tuple:
     """Phase 4l (a) on this rank: see the comment above DIST_WORLD.  Returns
-    the record and the launches of the 4-rank steps."""
+    the record, the launches of the 4-rank steps and the float32 one-rank
+    step (its batch, state and metrics: (f) holds its step to it)."""
     import contextlib
     import dataclasses
     from unittest import mock
@@ -5208,6 +5243,9 @@ def _dist_lm(rank: int, world: int, timeout) -> tuple:
         with mock.patch.object(lm_cells, "_mean_parts", dropped):
             _, state, _, _ = run_step(cfg, mesh, batch, "float32 control step")
         control_rel = _state_rel(state, ref_state, layout)
+        # (f)'s float32 check holds its tensor-parallel step to this one-rank
+        # step: the same weights (seed 29) and batch
+        one_rank = {"batch": batch, "state": ref_state, "metrics": ref_metrics}
         del state, ref_state
         torch.cuda.empty_cache()
         check(loss_rel <= TRAIN_F32_REL and state_rel <= TRAIN_F32_REL,
@@ -5305,7 +5343,7 @@ def _dist_lm(rank: int, world: int, timeout) -> tuple:
             "numpy_model": model}}
     rec["collective_seconds"] = coll
     return rec, _add_counts({k: v * steps for k, v in want.items()},
-                            rec["float32_check"]["launches"])
+                            rec["float32_check"]["launches"]), one_rank
 
 
 def _add_counts(a: dict, b: dict) -> dict:
@@ -5814,9 +5852,216 @@ def _dist_xdeepfm(rank: int, world: int, timeout) -> tuple:
     return rec, dict(launches), records
 
 
+def _dist_tp(rank: int, world: int, timeout, one_rank: dict) -> tuple:
+    """Phase 4l (f) on this rank: see the comment above DIST_WORLD.
+    ``one_rank`` is (a)'s float32 one-rank step (granite at
+    TRAIN_F32_LAYERS, seed 29), which granite's float32 check is held to.
+    Returns the record and the K4 launches of the tensor-parallel calls."""
+    import dataclasses
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.configs import deepseek_7b, granite_3_2b, granite_moe_1b_a400m, lm_cells
+    from repro_torch.data.synth import lm_batch
+    from repro_torch.dist import tensor_parallel
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import axis_group, form_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import zero_init
+    from repro_torch.tree import tree_leaves
+
+    device = torch.device("cuda", 0)
+    mesh = form_mesh((world // 2, 2), ("data", "model"), device_type="cuda", timeout=timeout)
+    data, model = axis_group(mesh, ("data",)), tensor_parallel.model_group(mesh)
+    B, S, A = DIST_LM["batch"], DIST_LM["seq"], DIST_LM["n_accum"]
+    launches: dict = {}
+
+    def counted(fn):   # fn's K4 launches, added to the path's
+        torch.cuda.synchronize()
+        before = dict(ops.LAUNCHES)
+        out = fn()
+        torch.cuda.synchronize()
+        diff = {k: v - before[k] for k, v in ops.LAUNCHES.items() if v != before[k]}
+        for k, v in diff.items():
+            launches[k] = launches.get(k, 0) + v
+        return out, diff
+
+    def fresh(cfg, seed=DIST_TP["seed"]):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        return tf.init_params(cfg, gen, device)
+
+    def tp_step(cfg, batch, seed=DIST_TP["seed"]):
+        params = tf.shard_params(cfg, fresh(cfg, seed), mesh)
+        layout = lm_cells.opt_layout(cfg, params, mesh)
+        state = zero_init(params, layout)
+        step = lm_cells.make_train_step(cfg, A, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, batch)
+        torch.cuda.synchronize()
+        return params, state, metrics, layout, time.perf_counter() - t0
+
+    def step_check(cfg, name, one, seed=DIST_TP["seed"]):
+        """The float32 tensor-parallel step against the one-rank step
+        (``one``: (a)'s, else run here), and with ``one`` given the same
+        step without wo's reduce_from_model (the control)."""
+        control = one is not None
+        if one is None:
+            batch = lm_batch(seed, 0, B, S, cfg.vocab, device=device)
+            ref = fresh(cfg, seed)
+            ref_layout = lm_cells.opt_layout(cfg, ref, None)
+            _, ref_state, ref_m = lm_cells.make_train_step(cfg, A, None)(
+                ref, zero_init(ref, ref_layout), batch)
+            del ref
+        else:
+            batch, ref_state, ref_m = one["batch"], one["state"], one["metrics"]
+        want = {"flash_attention": 2 * cfg.n_layers * A, "flash_attention_bwd": cfg.n_layers * A}
+
+        def scalars_rel(metrics) -> dict:
+            return {"loss_rel": abs(float(metrics["loss"]) - float(ref_m["loss"]))
+                    / abs(float(ref_m["loss"])),
+                    "grad_norm_rel": abs(float(metrics["grad_norm"]) - float(ref_m["grad_norm"]))
+                    / float(ref_m["grad_norm"])}
+
+        def rel_to_one_rank(state, metrics, layout) -> dict:
+            """This rank's ZeRO slice of master, mu and nu, gathered whole
+            over the model ranks (gather_params), against the same slice
+            of the one-rank state (the data ranks' slices cover it)."""
+            state_rel = 0.0
+            for part in ("master", "mu", "nu"):
+                whole = tf.gather_params(cfg, getattr(state, part), mesh)
+                for i, (a, b) in enumerate(zip(tree_leaves(whole),
+                                               tree_leaves(getattr(ref_state, part)))):
+                    state_rel = max(state_rel, _rel(a, layout.part(b, i)))
+                del whole
+            return {**scalars_rel(metrics), "state_max_rel": state_rel}
+
+        (_, state, metrics, layout, secs), diff = counted(lambda: tp_step(cfg, batch, seed))
+        check(diff == want, f"rank {rank} {name} tensor-parallel step launches {diff}, not {want}")
+        got = rel_to_one_rank(state, metrics, layout)
+        del state
+        worst = max(got.values())
+        log(f"rank {rank} 4l (f) {name}: {got} of the one-rank step, {secs:.3f} s")
+        check(worst <= TRAIN_F32_REL, f"rank {rank} 4l (f) {name} against one rank: {got}, "
+              f"bound {TRAIN_F32_REL}")
+        rec = {"n_layers": cfg.n_layers, "loss": float(metrics["loss"]),
+               "loss_one_rank": float(ref_m["loss"]), "grad_norm": float(metrics["grad_norm"]),
+               "grad_norm_one_rank": float(ref_m["grad_norm"]), **got,
+               "bound": TRAIN_F32_REL, "seconds": secs, "launches": diff}
+        if control:
+            real = tf.reduce_from_model
+
+            def no_wo_reduce(x, ag):   # the attention's partial output left unsummed
+                return x if sys._getframe(1).f_code.co_name == "_layer" else real(x, ag)
+
+            with mock.patch.object(tf, "reduce_from_model", no_wo_reduce):
+                _, cstate, cm, clayout, _ = tp_step(cfg, batch, seed)
+            # the control's slices against the same slices of the one-rank
+            # state (no gather: it only has to exceed the bound)
+            ctrl = max(scalars_rel(cm).values())
+            for part in ("master", "mu", "nu"):
+                blocks = tf.shard_params(cfg, getattr(ref_state, part), mesh)
+                for i, (a, b) in enumerate(zip(tree_leaves(getattr(cstate, part)),
+                                               tree_leaves(blocks))):
+                    ctrl = max(ctrl, _rel(a, clayout.part(b, i)))
+                del blocks
+            del cstate
+            check(ctrl > TRAIN_F32_REL, f"rank {rank} 4l (f): the bound passes the step without "
+                  f"wo's reduce_from_model ({ctrl})")
+            rec["control_no_wo_reduce_max_rel"] = ctrl
+        del ref_state
+        torch.cuda.empty_cache()
+        return rec
+
+    full = granite_3_2b.full_config()
+    rec = {"mesh": [data.size, model.size], "batch": B, "seq": S, "n_accum": A}
+    marks = [("start", time.perf_counter())]
+    # ---- granite float32: the step against one rank, and the control
+    rec["granite_float32"] = step_check(
+        dataclasses.replace(full, n_layers=TRAIN_F32_LAYERS, dtype=torch.float32),
+        "granite float32 step", one_rank, seed=29)
+    marks.append(("granite_float32", time.perf_counter()))
+    # ---- granite bfloat16: a timed step, the params equal over each data group
+    cfg = dataclasses.replace(full, n_layers=DIST_LM["layers"])
+    batch = lm_batch(DIST_TP["seed"], 1, B, S, cfg.vocab, device=device)
+    want = {"flash_attention_sm90": 2 * cfg.n_layers * A, "flash_attention_bwd": cfg.n_layers * A,
+            "flash_attention_bwd_sm90": cfg.n_layers * A}
+    torch.cuda.reset_peak_memory_stats()
+    (params, _, metrics, _, secs), diff = counted(lambda: tp_step(cfg, batch))
+    check(diff == want, f"rank {rank} 4l (f) bfloat16 step launches {diff}, not {want}")
+    equal = _same_on_every_rank(_params_sha256(params), data)
+    check(equal, f"rank {rank}: the params differ over the data group after the bf16 step")
+    check(math.isfinite(float(metrics["loss"])), f"rank {rank}: loss {metrics['loss']}")
+    rec["granite_bfloat16"] = {
+        "n_layers": cfg.n_layers, "param_count_a_rank": sum(p.numel()
+                                                            for p in tree_leaves(params)),
+        "step_seconds": secs, "tokens_per_s": B * S / secs, "loss": float(metrics["loss"]),
+        "grad_norm": float(metrics["grad_norm"]), "params_equal_over_data_group": equal,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(), "launches": diff}
+    del params
+    torch.cuda.empty_cache()
+    marks.append(("granite_bfloat16", time.perf_counter()))
+    # ---- granite bfloat16 prefill of 1 x DIST_TP["prefill"], its last logits
+    whole = fresh(cfg)
+    local = tf.shard_params(cfg, whole, mesh)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(DIST_TP["seed"])
+    toks = torch.randint(0, cfg.vocab, (1, DIST_TP["prefill"]), generator=gen, device=device,
+                         dtype=torch.int32)
+    t0 = time.perf_counter()
+    got, diff = counted(lambda: tf.prefill(cfg, local, toks, model))
+    prefill_s = time.perf_counter() - t0
+    check(diff == {"flash_attention_sm90": cfg.n_layers},
+          f"rank {rank} 4l (f) prefill launches {diff}")
+    agree = _agreement(got.float(), tf.prefill(cfg, whole, toks).float())
+    check(got.shape == (1, 1, cfg.vocab) and _within(agree, top1=False),
+          f"rank {rank} 4l (f) prefill against one rank: {agree}, bound {SUBSTRATE_BF16}")
+    rec["granite_prefill_bfloat16"] = {"tokens": DIST_TP["prefill"], **agree,
+                                       "bound": SUBSTRATE_BF16["max_abs_over_rms"],
+                                       "seconds": prefill_s, "launches": diff}
+    del whole, local, got
+    torch.cuda.empty_cache()
+    marks.append(("granite_prefill", time.perf_counter()))
+    # ---- granite-moe float32: expert parallelism, 16 of 32 experts a rank
+    rec["granite_moe_float32"] = step_check(
+        dataclasses.replace(granite_moe_1b_a400m.full_config(), n_layers=2, dtype=torch.float32),
+        "granite-moe float32 step", None)
+    marks.append(("granite_moe_float32", time.perf_counter()))
+    # ---- deepseek-7b float32: decode over a cache split by kv heads
+    cfg = dataclasses.replace(deepseek_7b.full_config(), n_layers=2, dtype=torch.float32)
+    whole = fresh(cfg)
+    local = tf.shard_params(cfg, whole, mesh)
+    Bd, T = DIST_TP["decode_batch"], DIST_TP["decode_steps"]
+    toks = torch.randint(0, cfg.vocab, (Bd, T), generator=gen, device=device, dtype=torch.int32)
+    cache = tf.init_cache(cfg, Bd, T, device, model)
+    ref_cache = tf.init_cache(cfg, Bd, T, device)
+    errs, ms = [], []
+    for t in range(T):
+        t0 = time.perf_counter()
+        (got, _), diff = counted(lambda: tf.decode_step(cfg, local, cache, toks[:, t:t + 1],
+                                                        model))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        check(diff == {"flash_attention": cfg.n_layers}, f"rank {rank} decode launches {diff}")
+        exp, _ = tf.decode_step(cfg, whole, ref_cache, toks[:, t:t + 1])
+        errs.append(float((got - exp).abs().max()))
+    check(max(errs) <= SUBSTRATE_F32_ATOL, f"rank {rank} 4l (f) deepseek-7b decode against one "
+          f"rank: {max(errs)}, bound {SUBSTRATE_F32_ATOL}")
+    rec["deepseek_decode_float32"] = {
+        "n_layers": cfg.n_layers, "batch": Bd, "steps": T,
+        "kv_heads_a_rank": cache["k"].shape[2], "max_abs_err": max(errs),
+        "bound": SUBSTRATE_F32_ATOL, "ms_a_step_median": float(np.median(ms))}
+    del whole, local, cache, ref_cache
+    torch.cuda.empty_cache()
+    marks.append(("deepseek_decode", time.perf_counter()))
+    rec["seconds_by_part"] = {b: t - a for (_, a), (b, t) in zip(marks, marks[1:])}
+    return rec, launches
+
+
 def _dist_rank(rank: int, tmp: str, t0: float) -> None:
     """Phase 4l, one rank (spawned): waits for the script's go, then (a),
-    (b) and (c); exits non-zero on any failure."""
+    (f), (b), (c), (d) and (e); exits non-zero on any failure."""
     global _T0
     _T0 = t0
     d = pathlib.Path(tmp)
@@ -5882,19 +6127,26 @@ def _dist_rank_phases(rank: int, d: pathlib.Path) -> None:
         rec = {"rank": rank, "warm_up_seconds": warm_up,
                "waited_seconds": time.perf_counter() - t0 - warm_up}
         t0 = time.perf_counter()
-        rec["lm"], lm_launches = _dist_lm(rank, DIST_WORLD, timeout)
+        rec["lm"], lm_launches, one_rank = _dist_lm(rank, DIST_WORLD, timeout)
         t1 = time.perf_counter()
-        rec["gpipe"], pipe_launches = _dist_gpipe(rank, DIST_WORLD, timeout)
+        # (f) right after (a): it holds its float32 step to (a)'s one-rank
+        # step, whose state (2.7 GB a rank) is then dropped before (b)-(e)
+        rec["tensor_parallel"], rec["launches_tensor_parallel"] = _dist_tp(rank, DIST_WORLD,
+                                                                           timeout, one_rank)
+        del one_rank
+        torch.cuda.empty_cache()
         t2 = time.perf_counter()
-        rec["gatedgcn"] = _dist_gatedgcn(rank, DIST_WORLD, timeout)
+        rec["gpipe"], pipe_launches = _dist_gpipe(rank, DIST_WORLD, timeout)
         t3 = time.perf_counter()
-        rec["gnn_sharded"] = _dist_gnn_sharded(rank, DIST_WORLD, timeout)
+        rec["gatedgcn"] = _dist_gatedgcn(rank, DIST_WORLD, timeout)
         t4 = time.perf_counter()
+        rec["gnn_sharded"] = _dist_gnn_sharded(rank, DIST_WORLD, timeout)
+        t5 = time.perf_counter()
         rec["xdeepfm"], bag_launches, rec["k6_records"] = _dist_xdeepfm(rank, DIST_WORLD,
                                                                         timeout)
-        rec["seconds_by_part"] = {"lm": t1 - t0, "gpipe": t2 - t1, "gatedgcn": t3 - t2,
-                                  "gnn_sharded": t4 - t3,
-                                  "xdeepfm": time.perf_counter() - t4}
+        rec["seconds_by_part"] = {"lm": t1 - t0, "tensor_parallel": t2 - t1,
+                                  "gpipe": t3 - t2, "gatedgcn": t4 - t3, "gnn_sharded": t5 - t4,
+                                  "xdeepfm": time.perf_counter() - t5}
         rec["launches"] = _add_counts(_add_counts(lm_launches, pipe_launches), bag_launches)
         dist.barrier()
     finally:
@@ -5941,19 +6193,24 @@ def finish_dist_ranks(started, smi: str, timeout: float = 300.0) -> dict:
     check(not failed, f"phase 4l ranks {failed} failed, exits "
           f"{[ranks[r].exitcode for r in failed]}")
     recs = [json.loads((d / f"rank{r}.json").read_text()) for r in range(len(ranks))]
-    launches = {}
+    launches, tp_launches = {}, {}
     for r in recs:
         launches = _add_counts(launches, r["launches"])
+        tp_launches = _add_counts(tp_launches, r["launches_tensor_parallel"])
     for name in ("flash_attention_sm90", "flash_attention_bwd", "embedding_bag",
                  "embedding_bag_bwd"):
         check(all(r["launches"].get(name, 0) > 0 for r in recs),
               f"phase 4l: a rank launched no {name}")
+    for name in ("flash_attention", "flash_attention_sm90", "flash_attention_bwd",
+                 "flash_attention_bwd_sm90"):
+        check(all(r["launches_tensor_parallel"].get(name, 0) > 0 for r in recs),
+              f"phase 4l (f): a tensor-parallel rank launched no {name}")
     configs = recs[0].pop("k6_records")
     for r in recs[1:]:
         r.pop("k6_records")
     record({"phase": "distributed_training", "world": DIST_WORLD, "process_group": "gloo",
             "seconds": time.perf_counter() - t_start, "card": smi, "launches": launches,
-            "ranks": recs})
+            "launches_tensor_parallel": tp_launches, "ranks": recs})
     r0 = recs[0]
     lm, bf = r0["lm"], r0["lm"]["bfloat16"]
     last = f"bfloat16 step {DIST_LM['steps'] - 1}"
@@ -5993,7 +6250,17 @@ def finish_dist_ranks(started, smi: str, timeout: float = 300.0) -> dict:
         f"vocab {xd['train']['vocab_per_field']:,}: gradient norm "
         f"{xd['train']['grad_norm']:.3f}, state {xd['train']['state_max_rel']:.2e} of one rank, "
         f"{xd['train']['seconds']:.3f} s; K6 launches {xd['launches']} a rank [{smi}]")
-    return {"launches": launches, "configs": configs}
+    tp = r0["tensor_parallel"]
+    g32, gbf, gpf = tp["granite_float32"], tp["granite_bfloat16"], tp["granite_prefill_bfloat16"]
+    moe, dec = tp["granite_moe_float32"], tp["deepseek_decode_float32"]
+    log(f"4l (f) tensor parallelism on (2, 2): granite f32 step {g32['state_max_rel']:.2e} of "
+        f"one rank (grad norm {g32['grad_norm_rel']:.2e}; no wo reduce "
+        f"{g32['control_no_wo_reduce_max_rel']:.3f}), bf16 step {gbf['step_seconds']:.3f} s "
+        f"({gbf['tokens_per_s']:.0f} tokens/s), prefill 1 x {gpf['tokens']:,} max abs "
+        f"{gpf['max_abs']:.4f} (rms {gpf['exp_rms']:.3f}) {gpf['seconds']:.3f} s; granite-moe "
+        f"EP step {moe['state_max_rel']:.2e}; deepseek-7b decode {dec['max_abs_err']:.2e}, "
+        f"{dec['ms_a_step_median']:.1f} ms a step; K4 launches {tp_launches} [{smi}]")
+    return {"launches": launches, "tensor_parallel": tp_launches, "configs": configs}
 
 
 def stop_dist_ranks(started) -> None:
@@ -6009,14 +6276,17 @@ def stop_dist_ranks(started) -> None:
 
 def merge_distributed(library: list, dist_out: dict) -> None:
     """The K4 and K6 records count phase 4l's launches (every rank's)
-    beside their other paths'; K6's and its backward's take (e)'s records
-    at the path's shapes after their own."""
+    beside their other paths', (f)'s tensor-parallel K4 and K4-backward
+    launches under their own key; K6's and its backward's take (e)'s
+    records at the path's shapes after their own."""
     for rec in library:
-        n = dist_out["launches"].get(rec["name"], 0)
-        if n:
-            rec.setdefault("launches_by_path", {"kernel_library": rec["launches"]})
-            rec["launches_by_path"]["distributed_training"] = n
-            rec["launches"] += n
+        for path, counts in (("distributed_training", dist_out["launches"]),
+                             ("tensor_parallel", dist_out["tensor_parallel"])):
+            n = counts.get(rec["name"], 0)
+            if n:
+                rec.setdefault("launches_by_path", {"kernel_library": rec["launches"]})
+                rec["launches_by_path"][path] = n
+                rec["launches"] += n
         mine = dist_out["configs"].get(rec["name"])
         if mine is not None:
             rec["configs"].append(mine)

@@ -12,12 +12,15 @@ step, the port of ``repro.configs.lm_cells``' ``LM_SHAPES`` and
 ``make_train_step`` runs one process a rank over a mesh's data group
 (``launch.mesh``), its optimizer state ZeRO-sharded
 (``optim.adamw.zero_update``, the layout ``opt_layout``, JAX's
-``_opt_pspecs``).  ``lm_cell`` gives the family's dry-run cells
-(``launch.dryrun``): JAX's specs, placements and ``meta``, with one rank's
-train step, prefill or decode step as ``fn``.  The port has no tensor
-parallelism over ``"model"`` (ROADMAP.md Queue 1, item 12.3's
-tensor-parallel half), so a cell on a mesh whose model axis has more than
-one rank is ``skip``, its specs and ``meta`` still filled.
+``_opt_pspecs``), and over the mesh's model axis with Megatron tensor
+parallelism (each rank its ``param_pspecs`` blocks: ``transformer
+.shard_params``; ``dist.tensor_parallel``).  ``lm_cell`` gives the family's
+dry-run cells (``launch.dryrun``): JAX's specs, placements and ``meta``,
+with one rank's train step, prefill or decode step as ``fn``.  A decode
+cell whose cache JAX splits along ``head_dim`` or MLA's ``kv_lora`` over
+the model ranks (ROADMAP.md Queue 1, item 12.10) or along its sequence over
+the data ranks (item 12.9) is ``skip``, its specs and ``meta`` still
+filled.
 """
 from __future__ import annotations
 
@@ -27,7 +30,8 @@ import torch
 
 from repro_torch.configs.cell import (CellSpec, TensorSpec, batch_pspec, data_axes_of, dp_size,
                                       host_step, model_size, specs_of, zero_pspecs)
-from repro_torch.launch.mesh import MODEL_AXIS, ONE_RANK, AxisGroup, P, axis_group, sum_over
+from repro_torch.dist.tensor_parallel import model_group, vocab_parallel_log_softmax_gather
+from repro_torch.launch.mesh import ONE_RANK, AxisGroup, P, axis_group, sum_over
 from repro_torch.models import transformer as tf
 from repro_torch.optim import cosine_schedule
 from repro_torch.optim.adamw import ZeroLayout, zero_layout, zero_update
@@ -50,30 +54,25 @@ def opt_layout(cfg: tf.LMConfig, params, mesh) -> ZeroLayout:
 
 
 def _data_group(mesh) -> AxisGroup:
-    """The data group a step averages over; ``ValueError`` on a mesh whose
-    model axis has more than one rank."""
-    if mesh is None:
-        return ONE_RANK
-    names = tuple(mesh.mesh_dim_names)
-    if MODEL_AXIS in names and mesh.size(names.index(MODEL_AXIS)) > 1:
-        raise ValueError(
-            "tensor parallelism over the 'model' axis is not ported yet (ROADMAP.md Queue 1, "
-            f"item 12.3's tensor-parallel half): mesh {names} of shape {tuple(mesh.shape)}")
-    return axis_group(mesh, data_axes_of(mesh))
+    """The data group a step averages over (one rank without a mesh)."""
+    return ONE_RANK if mesh is None else axis_group(mesh, data_axes_of(mesh))
 
 
-def _loss_share(cfg: tf.LMConfig, params, mb, ag: AxisGroup) -> torch.Tensor:
+def _loss_share(cfg: tf.LMConfig, params, mb, ag: AxisGroup,
+                mg: AxisGroup = ONE_RANK) -> torch.Tensor:
     """This rank's share of ``lm_loss`` over the whole microbatch, of which
     it holds ``mb``: its labels' cross-entropy over the microbatch's count
     of labels >= 0 (all ranks'), plus 0.01 x its share of the MoE's aux over
-    the microbatch's tokens.  The shares sum to JAX's loss, their gradients
-    to its gradient."""
+    the microbatch's tokens.  The shares over the data group ``ag`` sum to
+    JAX's loss, their gradients to its gradient; the model ranks ``mg``
+    (each its blocks of ``params``) hold the same share, the cross-entropy
+    over their vocabulary blocks (``vocab_parallel_log_softmax_gather``)."""
     labels = mb["labels"].long()
     mask = labels >= 0
     count = sum_over(mask.sum(), ag).clamp_min(1)
-    x, aux = tf._hidden(cfg, params, mb["tokens"], data_group=ag)
-    logp = torch.log_softmax(tf._logits(cfg, params, x), dim=-1)
-    ll = logp.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    x, aux = tf._hidden(cfg, params, mb["tokens"], data_group=ag, model_group=mg)
+    ll = vocab_parallel_log_softmax_gather(tf._logits(cfg, params, x, mg), labels.clamp_min(0),
+                                           mg)
     return -torch.where(mask, ll, 0.0).sum() / count + 0.01 * aux
 
 
@@ -104,9 +103,16 @@ def make_train_step(cfg: tf.LMConfig, n_accum: int, mesh, local_batch: bool = Fa
     microbatches' losses, as JAX's.  ``mesh`` ``None`` runs one rank with no
     collective.  With ``local_batch`` each rank is given its own rows of the
     batch alone (its ``batch_pspec`` block, as a dry-run cell places it) and
-    microbatch i is its i-th run of rows.  Collective: every rank of the
-    mesh calls each step."""
-    ag = _data_group(mesh)
+    microbatch i is its i-th run of rows.
+
+    On a mesh whose model axis has more than one rank, ``params`` are this
+    rank's ``param_pspecs`` blocks (``transformer.shard_params``), the
+    ranks of a model group take the same rows, and the layers run with
+    their collectives over the model axis (``transformer._hidden``);
+    ``opt_layout`` marks the split leaves, whose squares the clip's norm
+    sums over the model ranks.  Collective: every rank of the mesh calls
+    each step."""
+    ag, mg = _data_group(mesh), model_group(mesh)
 
     def train_step(params, opt_state, batch):
         B, S = batch["tokens"].shape
@@ -125,7 +131,8 @@ def make_train_step(cfg: tf.LMConfig, n_accum: int, mesh, local_batch: bool = Fa
         shares = []
         for i in range(n_accum):
             lo = i * b if local_batch else i * bm + ag.index * b
-            share = _loss_share(cfg, params, {k: v[lo:lo + b] for k, v in batch.items()}, ag)
+            share = _loss_share(cfg, params, {k: v[lo:lo + b] for k, v in batch.items()}, ag,
+                                mg)
             grads = torch.autograd.grad(share * ag.size, leaves, allow_unused=True,
                                         materialize_grads=True)
             for a, g in zip(acc, grads):
@@ -148,8 +155,8 @@ def make_train_step(cfg: tf.LMConfig, n_accum: int, mesh, local_batch: bool = Fa
 # dry-run cells
 # ---------------------------------------------------------------------------
 
-TP_SKIP = ("tensor parallelism over the 'model' axis is not ported (ROADMAP.md Queue 1, "
-           "item 12.3's tensor-parallel half): a mesh whose model axis has {tp} ranks")
+KV_SPLIT_SKIP = ("a decode step over a cache split along {dim} over {tp} model ranks (not by kv "
+                 "heads) is not ported (ROADMAP.md Queue 1, item 12.10)")
 
 
 SEQ_SKIP = ("a decode step over a cache split along its sequence over the data axes (batch "
@@ -224,7 +231,7 @@ def lm_cell(cfg: tf.LMConfig, arch_id: str, shape: str, mesh, variant: str = "ba
     pspecs = tf.param_pspecs(cfg)
     dp = dp_size(mesh)
     tp = model_size(mesh)
-    skip = TP_SKIP.format(tp=tp) if tp > 1 else None
+    mg = model_group(mesh)
     common = dict(model_params=cfg.param_count(), active_params=cfg.active_param_count())
 
     if kind == "train":
@@ -234,26 +241,24 @@ def lm_cell(cfg: tf.LMConfig, arch_id: str, shape: str, mesh, variant: str = "ba
         opt_p = _opt_pspecs(params_specs, pspecs, mesh)
         batch_specs = lm_batch_specs(batch, seq)
         batch_p = {k: batch_pspec(mesh, 1) for k in batch_specs}
-        fn = None
-        if skip is None:
-            step = make_train_step(cfg, n_accum, mesh, local_batch=True)
-            fn = lambda params, opt_state, b: step(params, host_step(opt_state), b)  # noqa: E731
+        step = make_train_step(cfg, n_accum, mesh, local_batch=True)
+        fn = lambda params, opt_state, b: step(params, host_step(opt_state), b)  # noqa: E731
         return CellSpec(
             arch=arch_id, shape=shape, kind=kind, fn=fn,
             args=(params_specs, opt_specs, batch_specs),
             placements=(pspecs, opt_p, batch_p),
             out_placements=(pspecs, opt_p, None),
-            donate=(0, 1), skip=skip,
+            donate=(0, 1),
             meta=dict(n_accum=n_accum, tokens=batch * seq, **common,
                       analytic=lm_train_terms(cfg, batch, seq, n_accum, dp, tp)),
         )
 
     if kind == "prefill":
-        fn = None if skip else (lambda params, tokens: tf.prefill(cfg, params, tokens))
         return CellSpec(
-            arch=arch_id, shape=shape, kind=kind, fn=fn,
+            arch=arch_id, shape=shape, kind=kind,
+            fn=lambda params, tokens: tf.prefill(cfg, params, tokens, mg),
             args=(params_specs, TensorSpec((batch, seq), torch.int32)),
-            placements=(pspecs, batch_pspec(mesh, 1)), skip=skip,
+            placements=(pspecs, batch_pspec(mesh, 1)),
             meta=dict(tokens=batch * seq, **common,
                       analytic=lm_prefill_terms(cfg, batch, seq, dp, tp)),
         )
@@ -264,14 +269,17 @@ def lm_cell(cfg: tf.LMConfig, arch_id: str, shape: str, mesh, variant: str = "ba
                    "pos": TensorSpec((), torch.int32)}
     cache_p = _cache_pspecs(cfg, mesh, batch)
     tok_p = batch_pspec(mesh, 1) if batch % dp == 0 and batch >= dp else P(None, None)
-    if skip is None and dp > 1 and not (batch % dp == 0 and batch >= dp):
+    skip = None
+    if dp > 1 and not (batch % dp == 0 and batch >= dp):
         skip = SEQ_SKIP.format(batch=batch, dp=dp)
+    elif tp > 1 and (cfg.mla is not None or cfg.n_kv_heads % tp):
+        skip = KV_SPLIT_SKIP.format(dim="kv_lora" if cfg.mla is not None else "head_dim", tp=tp)
 
     def decode(params, cache, tokens):
         pos = cache["pos"]
         if isinstance(pos, torch.Tensor) and pos.device.type == "meta":
             pos = seq - 1
-        return tf.decode_step(cfg, params, {**cache, "pos": pos}, tokens)
+        return tf.decode_step(cfg, params, {**cache, "pos": pos}, tokens, mg)
 
     return CellSpec(
         arch=arch_id, shape=shape, kind=kind, fn=None if skip else decode,

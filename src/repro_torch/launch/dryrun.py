@@ -14,9 +14,10 @@ written out (``configs.cell``).  So the dry run forms a ``fake`` process
 group of the mesh's world (``torch.distributed``'s fake backend: the
 collectives return at once), lays a ``launch.mesh`` mesh over it, makes
 ``meta`` tensors of rank 0's blocks (``local_specs``) and runs ``fn``
-under three counters: ``FlopCounterMode`` (FLOPs), ``CollectiveCounter``
-(a ``CommDebugMode``: collective bytes by kind) and ``TraceCounter``
-(bytes accessed, the peak of live storage); the kernel wrappers add their
+under two dispatch modes: ``CollectiveCounter`` (the collectives by op,
+their bytes by kind) and ``TraceCounter`` (FLOPs by
+``torch.utils.flop_counter``'s formulas, bytes accessed, the peak of live
+storage); the kernel wrappers add their
 kernels' FLOPs and bytes on ``meta`` (``kernels.ops.META_COST``).
 
 Each cell writes experiments/dryrun_torch/<arch>__<shape>__<mesh>[__variant].json
@@ -75,8 +76,6 @@ def trace_cell(cell, mesh) -> dict:
     """Run ``cell.fn`` on meta tensors of rank 0's blocks under the three
     counters; returns the record's ``memory``, ``cost``, ``collectives``,
     ``kernels`` and ``roofline_trace``, and the top ops (``top``)."""
-    from torch.utils.flop_counter import FlopCounterMode
-
     from repro_torch.configs.cell import local_specs, meta_tensors, spec_bytes
     from repro_torch.kernels import ops
     from repro_torch.launch.trace_analysis import (CollectiveCounter, TraceCounter,
@@ -86,11 +85,11 @@ def trace_cell(cell, mesh) -> dict:
     args = meta_tensors(local)
     ops.reset_meta_cost()
     t0 = time.perf_counter()
-    with FlopCounterMode(display=False) as fc, CollectiveCounter() as cc, TraceCounter() as tc:
+    with CollectiveCounter() as cc, TraceCounter() as tc:
         out = cell.fn(*args)
     del out
     kernels = {k: dict(v) for k, v in ops.META_COST.items()}
-    flops = float(fc.get_total_flops() + sum(v["flops"] for v in kernels.values()))
+    flops = float(tc.flops + sum(v["flops"] for v in kernels.values()))
     nbytes = float(tc.bytes_accessed + sum(v["bytes"] for v in kernels.values()))
     coll = cc.summary()
     counts = {str(k): v for k, v in cc.get_comm_counts().items()}
@@ -98,8 +97,7 @@ def trace_cell(cell, mesh) -> dict:
         trace_s=time.perf_counter() - t0,
         memory=dict(argument_size_in_bytes=spec_bytes(local),
                     temp_size_in_bytes=int(tc.peak)),
-        cost=dict(flops=flops, bytes_accessed=nbytes,
-                  matmul_flops=float(fc.get_total_flops())),
+        cost=dict(flops=flops, bytes_accessed=nbytes, matmul_flops=float(tc.flops)),
         collectives=coll, comm_counts=counts, kernels=kernels,
         roofline_trace=roofline_terms(flops, nbytes, coll["total"], 1),
         top=dict(rows=sorted(tc.rows, reverse=True), by_op=dict(tc.by_op), order=cc.order),

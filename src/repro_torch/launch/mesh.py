@@ -79,8 +79,10 @@ class PartitionSpec(tuple):
 
 P = PartitionSpec
 
-# mesh -> {axes: AxisGroup}; weak, so a dropped mesh drops its entries
-_GROUPS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+# id(mesh) -> {axes: AxisGroup}, dropped with the mesh.  Keyed by identity:
+# two meshes of one shape compare equal, and a dict keyed by the mesh would
+# keep the first one's key, dropping the second one's groups with the first
+_GROUPS: dict = {}
 
 
 def _register(mesh, timeout: datetime.timedelta):
@@ -102,7 +104,8 @@ def _register(mesh, timeout: datetime.timedelta):
         table = ranks.permute(*rest, *dims).reshape(-1, math.prod(ranks.shape[d] for d in dims))
         group, _ = dist.new_subgroups_by_enumeration(table.tolist(), timeout=timeout)
         entry[axes] = AxisGroup(axes, group, table.shape[1], dist.get_rank(group))
-    _GROUPS[mesh] = entry
+    _GROUPS[id(mesh)] = entry
+    weakref.finalize(mesh, _GROUPS.pop, id(mesh), None)
     return mesh
 
 
@@ -158,7 +161,7 @@ def data_parallel_size(mesh) -> int:
 
 
 def _groups(mesh) -> dict:
-    entry = _GROUPS.get(mesh) if getattr(mesh, "mesh_dim_names", None) else None
+    entry = _GROUPS.get(id(mesh)) if getattr(mesh, "mesh_dim_names", None) else None
     if entry is None:
         raise ValueError(f"{mesh!r} is not a mesh made by form_mesh or make_production_mesh")
     return entry

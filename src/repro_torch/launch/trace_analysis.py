@@ -14,13 +14,15 @@ datasheet: 989 TFLOP/s dense bf16 on the tensor cores, 3.35 TB/s HBM3,
 NVLink 4 at 900 GB/s a card, 450 GB/s each direction (one direction taken:
 a collective's bytes leave a card one way).
 
-FLOPs are ``torch.utils.flop_counter.FlopCounterMode``'s (the products and
-attention it knows) plus what each kernel wrapper records on ``meta``
+FLOPs are ``torch.utils.flop_counter.FlopCounterMode``'s, counted by
+``TraceCounter`` from the same formulas (the products and attention they
+know; on the dry run's cells no op reaches ``FlopCounterMode`` undecomposed
+but ``silu_backward``, which has none) plus what each kernel wrapper records on ``meta``
 (``kernels.ops.META_COST``).  Bytes accessed are each dispatched op's input
 and output bytes, counted once an op, as ``HloCostAnalysis`` counts an
 instruction's operands and result (views, which move nothing, and
 allocations are left out), plus the kernels' ``META_COST`` bytes.
-Collective bytes are counted under ``CommDebugMode``: each collective is
+Collective bytes are counted by ``CollectiveCounter``: each collective is
 sized by the largest buffer it touches (an all-gather's gathered result, a
 reduce-scatter's whole input, an all-reduce's tensor, an all-to-all's send
 or receive buffer), per kind.
@@ -32,8 +34,8 @@ from collections import defaultdict
 from typing import Dict
 
 import torch
-from torch.distributed.tensor.debug import CommDebugMode
 from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import flop_registry
 from torch.utils._pytree import tree_flatten
 
 PEAK_FLOPS = 989e12       # dense bf16 per card
@@ -57,24 +59,27 @@ def _bytes(t: torch.Tensor) -> int:
 
 
 def collective_kind(func) -> str | None:
-    name = func._overloadpacket.__name__ if hasattr(func, "_overloadpacket") else str(func)
-    ns = getattr(func, "namespace", "")
-    if ns not in ("c10d", "_c10d_functional", "c10d_functional"):
+    if getattr(func, "namespace", "") not in ("c10d", "_c10d_functional", "c10d_functional"):
         return None
+    name = func._overloadpacket.__name__ if hasattr(func, "_overloadpacket") else str(func)
     for frag, kind in _KINDS:
         if frag in name:
             return kind
     return None
 
 
-class CollectiveCounter(CommDebugMode):
-    """``CommDebugMode`` that also sums each collective's bytes by kind and
-    keeps the collectives in the order the rank issued them."""
+class CollectiveCounter(TorchDispatchMode):
+    """Counts the collectives a rank issues, as ``CommDebugMode``'s
+    ``get_comm_counts`` does (by op), sums their bytes by kind and keeps
+    them in the order the rank issued them.  A plain dispatch mode: it
+    sees every op once and looks no further than its namespace, where
+    ``CommDebugMode`` tracks modules and DTensor calls at each op."""
 
     def __init__(self):
         super().__init__()
         self.bytes = {k: 0 for k in COLLECTIVES}
         self.order = []
+        self.counts = defaultdict(int)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kind = collective_kind(func)
@@ -83,7 +88,11 @@ class CollectiveCounter(CommDebugMode):
             b = max((_bytes(x) for x in leaves if isinstance(x, torch.Tensor)), default=0)
             self.bytes[kind] += b
             self.order.append((kind, b))
-        return super().__torch_dispatch__(func, types, args, kwargs)
+            self.counts[func._overloadpacket] += 1
+        return func(*args, **(kwargs or {}))
+
+    def get_comm_counts(self) -> dict:
+        return dict(self.counts)
 
     def summary(self) -> Dict[str, int]:
         out = dict(self.bytes)
@@ -93,12 +102,16 @@ class CollectiveCounter(CommDebugMode):
 
 
 class TraceCounter(TorchDispatchMode):
-    """Bytes accessed (each op's inputs and outputs, once an op), the peak
-    of live storage the traced ops made, and each op's result bytes (for
-    ``trace_top``).  Collectives are left to ``CollectiveCounter``."""
+    """FLOPs (``FlopCounterMode``'s: the formulas of
+    ``torch.utils.flop_counter``'s registry for the products and attention
+    ops it knows, the others 0), bytes accessed (each op's inputs and
+    outputs, once an op), the peak of live storage the traced ops made, and
+    each op's result bytes (for ``trace_top``).  Collectives are left to
+    ``CollectiveCounter``."""
 
     def __init__(self):
         super().__init__()
+        self.flops = 0
         self.bytes_accessed = 0
         self.live = 0
         self.peak = 0
@@ -125,6 +138,9 @@ class TraceCounter(TorchDispatchMode):
         out = func(*args, **(kwargs or {}))
         if collective_kind(func) is not None:
             return out
+        formula = flop_registry.get(func._overloadpacket)
+        if formula is not None:
+            self.flops += formula(*args, **(kwargs or {}), out_val=out)
         name = func._overloadpacket.__name__
         outs = [x for x in tree_flatten(out)[0] if isinstance(x, torch.Tensor)]
         for t in outs:

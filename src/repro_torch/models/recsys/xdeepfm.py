@@ -40,8 +40,9 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.dist import sharded
+from repro_torch.dist.tensor_parallel import model_group
 from repro_torch.kernels import ops
-from repro_torch.launch.mesh import MODEL_AXIS, ONE_RANK, AxisGroup, axis_group
+from repro_torch.launch.mesh import AxisGroup
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,14 +117,6 @@ def _cin(cfg: XDeepFMConfig, params, x0: torch.Tensor) -> torch.Tensor:
         xk = torch.relu(torch.einsum("hk,bkd->bhd", w, z))   # [B, H, D]
         pooled.append(xk.sum(dim=-1))
     return torch.cat(pooled, dim=-1)
-
-
-def model_group(mesh) -> AxisGroup:
-    """The ranks of ``mesh``'s model axis, over which the tables are split
-    (one rank without a mesh or without the axis)."""
-    if mesh is None or MODEL_AXIS not in mesh.mesh_dim_names:
-        return ONE_RANK
-    return axis_group(mesh, (MODEL_AXIS,))
 
 
 def shard_params(cfg: XDeepFMConfig, params, mesh):

@@ -32,9 +32,13 @@ recomputes each layer in the backward (``torch.utils.checkpoint``, as JAX's
 ``jax.checkpoint``), and only there.  ``attn_impl``, ``chunk_q``,
 ``chunk_k`` and ``logical_batch_axes`` are kept so that configs read the
 same; they change nothing here.  ``param_pspecs`` is JAX's tensor-parallel
-layout kept as data (the ZeRO layout of ``configs.cell`` reads it); the
-layer functions take an optional data group, over whose batch the MoE's aux
-loss is then formed (``configs.lm_cells.make_train_step``).  The cast points are the JAX package's:
+layout: ``shard_params`` takes the whole params to a rank's blocks by it
+and ``gather_params`` back, and the layer functions, ``prefill`` and
+``decode_step`` take an optional model group (``dist.tensor_parallel``:
+each rank its block of the heads, the FFN's columns, the experts and the
+vocabulary, the collectives written out; ``ONE_RANK``, the default, calls
+none) and an optional data group, over whose batch the MoE's aux loss is
+then formed (``configs.lm_cells.make_train_step``).  The cast points are the JAX package's:
 ``rms_norm`` and ``rope`` in float32, the router in float32, the logits in
 the model dtype and then float32.
 """
@@ -50,8 +54,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.dist.tensor_parallel import (copy_to_model, gather_from_model, model_group,
+                                             reduce_from_model, vocab_parallel_embed)
 from repro_torch.kernels import ops
-from repro_torch.launch.mesh import P, sum_over
+from repro_torch.launch.mesh import MODEL_AXIS, ONE_RANK, AxisGroup, P, gather_rows, sum_over
 from repro_torch.models.jax_params import tree_from_jax
 
 
@@ -217,8 +223,9 @@ def params_from_jax(cfg: LMConfig, params, device="cuda") -> Dict[str, Any]:
 def param_pspecs(cfg: LMConfig, model_axis: str = "model") -> Dict[str, Any]:
     """JAX's Megatron TP layout, as data: column-shard in-projections,
     row-shard out-projections; experts sharded over the model axis (EP);
-    embedding vocab-sharded.  ``configs.cell.zero_pspecs`` reads it to pick
-    each leaf's ZeRO dimension; the port places no leaf by it yet."""
+    embedding vocab-sharded.  ``shard_params`` places the leaves by it and
+    ``configs.cell.zero_pspecs`` reads it to pick each leaf's ZeRO
+    dimension."""
     M = model_axis
     layer: Dict[str, Any] = {}
     if cfg.mla is None:
@@ -255,6 +262,61 @@ def param_pspecs(cfg: LMConfig, model_axis: str = "model") -> Dict[str, Any]:
     }
 
 
+def _model_dims(cfg: LMConfig) -> Dict[str, Any]:
+    """Each leaf's dimension that ``param_pspecs`` splits over the model
+    axis (``None``: replicated), in the params' tree."""
+    def dim(spec):
+        return next((i for i, e in enumerate(spec) if e == MODEL_AXIS), None)
+
+    specs = param_pspecs(cfg)
+    return {"embed": dim(specs["embed"]), "final_ln": dim(specs["final_ln"]),
+            "layers": {k: dim(v) for k, v in specs["layers"].items()}}
+
+
+def _map_model_leaves(cfg: LMConfig, tree, fn):
+    dims = _model_dims(cfg)
+    out = {k: fn(tree[k], dims[k]) for k in ("embed", "final_ln")}
+    out["layers"] = {k: fn(v, dims["layers"][k]) for k, v in tree["layers"].items()}
+    return out
+
+
+def shard_params(cfg: LMConfig, params, mesh) -> Dict[str, Any]:
+    """This rank's blocks of the whole ``params`` (``init_params``'s or
+    ``params_from_jax``'s tree, or a state tree of the same shape) on
+    ``mesh``'s model axis, by ``param_pspecs``: copies of the split leaves,
+    the replicated ones the same tensors.  ``configs.cell.UnevenShard``
+    where the model ranks do not divide a dimension."""
+    from repro_torch.configs.cell import UnevenShard
+
+    ag = model_group(mesh)
+
+    def block(x, d):
+        if d is None or ag.size == 1:
+            return x
+        if x.shape[d] % ag.size:
+            raise UnevenShard(f"dimension {d} of {tuple(x.shape)} ({x.shape[d]}) does not "
+                              f"split over {ag.size} model ranks")
+        n = x.shape[d] // ag.size
+        return x.narrow(d, ag.index * n, n).clone()
+
+    return _map_model_leaves(cfg, params, block)
+
+
+def gather_params(cfg: LMConfig, local, mesh) -> Dict[str, Any]:
+    """The whole params from every model rank's blocks (``shard_params``'
+    inverse; a state tree of the same shape too): one
+    ``all_gather_into_tensor`` a split leaf over the model ranks, the
+    replicated leaves as they are.  Collective over the model axis."""
+    ag = model_group(mesh)
+
+    def whole(x, d):
+        if d is None or ag.size == 1:
+            return x
+        return gather_rows(x.detach().movedim(d, 0).contiguous(), ag).movedim(0, d).contiguous()
+
+    return _map_model_leaves(cfg, local, whole)
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
@@ -286,8 +348,8 @@ def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
     return _rotate(x, *_angles(pos, x.shape[-1], theta))
 
 
-def _moe_ffn(x: torch.Tensor, lw, cfg: LMConfig,
-             data_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+def _moe_ffn(x: torch.Tensor, lw, cfg: LMConfig, data_group=None,
+             model_group: AxisGroup = ONE_RANK) -> Tuple[torch.Tensor, torch.Tensor]:
     """Grouped capacity-based one-hot dispatch MoE (GShard-style), JAX's
     ``_moe_ffn``.  x: [B, S, d] -> ([B, S, d], aux load-balance loss).
 
@@ -295,6 +357,14 @@ def _moe_ffn(x: torch.Tensor, lw, cfg: LMConfig,
     equal slice of one batch), the aux loss is over the group's tokens: the
     top-1 density is summed over the ranks first, and the aux returned is
     this rank's share, the shares summing to the batch's aux.
+
+    Over ``model_group`` (expert parallelism) the router and the dispatch
+    run whole on every rank; a rank holds ``E / size`` experts (``e_in``,
+    ``e_gate``, ``e_out``: its block of the experts) and the shared
+    experts' columns, forms their part of the output and
+    ``reduce_from_model`` sums the parts.  The tokens and the gate weights
+    enter through ``copy_to_model``, so the router's gradient is whole on
+    every rank; the aux loss is the same on every model rank, counted once.
 
     Tokens split into groups of ``group_size``; each group routes on its own
     with capacity ceil(Tg * k / E * cf).  A token's slot in an expert is the
@@ -332,19 +402,26 @@ def _moe_ffn(x: torch.Tensor, lw, cfg: LMConfig,
     disp.scatter_reduce_(0, slot.reshape(-1), within.to(x.dtype).reshape(-1), "amax")
     disp = disp.view(G, g_sz, E, cap)
 
-    xs = torch.einsum("gtec,gtd->gecd", disp, xt)
+    # this rank's experts [e0, e0 + El): all of them on one rank
+    El = lw["e_in"].shape[0]
+    e0 = model_group.index * El
+    disp = disp[:, :, e0:e0 + El]
+    xm = copy_to_model(xt, model_group)
+    xs = torch.einsum("gtec,gtd->gecd", disp, xm)
     h = torch.einsum("gecd,edf->gecf", xs, lw["e_in"])
     g = torch.einsum("gecd,edf->gecf", xs, lw["e_gate"])
     h = F.silu(g) * h
-    ys = torch.einsum("gecf,efd->gecd", h, lw["e_out"])            # [G, E, cap, d]
+    ys = torch.einsum("gecf,efd->gecd", h, lw["e_out"])            # [G, El, cap, d]
 
-    gate_per_slot = torch.einsum("gtk,gtke->gte", gate_vals, onehot.to(gate_vals.dtype))
+    gate_per_slot = torch.einsum("gtk,gtke->gte", copy_to_model(gate_vals, model_group),
+                                 onehot[..., e0:e0 + El].to(gate_vals.dtype))
     comb = disp * gate_per_slot[..., None].to(x.dtype)
     out = torch.einsum("gtec,gecd->gtd", comb, ys)
 
     if mo.n_shared:
-        hs = F.silu(xt @ lw["s_gate"]) * (xt @ lw["s_in"])
+        hs = F.silu(xm @ lw["s_gate"]) * (xm @ lw["s_in"])
         out = out + hs @ lw["s_out"]
+    out = reduce_from_model(out, model_group)
 
     # load-balance aux loss (Switch style)
     density = F.one_hot(gate_idx[..., 0], E).float().mean(dim=(0, 1))
@@ -356,16 +433,21 @@ def _moe_ffn(x: torch.Tensor, lw, cfg: LMConfig,
     return out.reshape(B, S, d), aux
 
 
-def _dense_ffn(x: torch.Tensor, lw) -> torch.Tensor:
+def _dense_ffn(x: torch.Tensor, lw, model_group: AxisGroup = ONE_RANK) -> torch.Tensor:
+    """The gated FFN; over ``model_group`` a rank holds its columns of
+    ``w_in``, ``w_gate`` and its rows of ``w_out``."""
+    x = copy_to_model(x, model_group)
     h = F.silu(x @ lw["w_gate"]) * (x @ lw["w_in"])
-    return h @ lw["w_out"]
+    return reduce_from_model(h @ lw["w_out"], model_group)
 
 
-def _ffn(cfg: LMConfig, lw, x: torch.Tensor, data_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+def _ffn(cfg: LMConfig, lw, x: torch.Tensor, data_group=None,
+         model_group: AxisGroup = ONE_RANK) -> Tuple[torch.Tensor, torch.Tensor]:
     h = rms_norm(x, lw["ln2"], cfg.norm_eps)
     if cfg.moe is None:
-        return x + _dense_ffn(h, lw), torch.zeros((), dtype=torch.float32, device=x.device)
-    y, aux = _moe_ffn(h, lw, cfg, data_group)
+        return (x + _dense_ffn(h, lw, model_group),
+                torch.zeros((), dtype=torch.float32, device=x.device))
+    y, aux = _moe_ffn(h, lw, cfg, data_group, model_group)
     return x + y, aux
 
 
@@ -380,56 +462,91 @@ def _rope_dim(cfg: LMConfig) -> int:
     return cfg.head_dim if cfg.mla is None else cfg.mla.qk_rope_dim
 
 
-def _mla_qkv(cfg: LMConfig, lw, h: torch.Tensor, cos, sin) -> tuple:
+def _mla_qkv(cfg: LMConfig, lw, h: torch.Tensor, cos, sin,
+             model_group: AxisGroup = ONE_RANK) -> tuple:
     """MLA's attention inputs over the full sequence: q [B, H, S, nope +
     rope] (its rope part rotated), k [B, H, S, nope + rope] (the up-projected
     latent, then the one rope key every head shares) and v [B, H, S, v_dim],
-    each contiguous: K4 takes them as they are."""
+    each contiguous: K4 takes them as they are.  Over ``model_group`` H is
+    the rank's heads (its columns of ``wq``, ``w_uk``, ``w_uv``); the
+    latent and the rope key, from the replicated ``w_dkv`` and ``w_krope``,
+    enter the rank's heads through ``copy_to_model``."""
     m = cfg.mla
     B, S = h.shape[:2]
-    H, nope = cfg.n_heads, m.qk_nope_dim
-    q = _heads(h @ lw["wq"], H, nope + m.qk_rope_dim)
+    nope = m.qk_nope_dim
+    H = lw["wq"].shape[-1] // (nope + m.qk_rope_dim)
+    q = _heads(copy_to_model(h, model_group) @ lw["wq"], H, nope + m.qk_rope_dim)
     q = torch.cat([q[..., :nope], _rotate(q[..., nope:], cos, sin)], dim=-1)
-    c_kv = h @ lw["w_dkv"]                                          # [B, S, kv_lora]
-    k_rope = _rotate((h @ lw["w_krope"])[:, None], cos, sin)        # [B, 1, S, rope]
+    c_kv = copy_to_model(h @ lw["w_dkv"], model_group)                 # [B, S, kv_lora]
+    k_rope = copy_to_model(_rotate((h @ lw["w_krope"])[:, None], cos, sin),
+                           model_group)                                # [B, 1, S, rope]
     k = torch.cat([_heads(c_kv @ lw["w_uk"], H, nope),
                    k_rope.expand(B, H, S, m.qk_rope_dim)], dim=-1)
     return q, k, _heads(c_kv @ lw["w_uv"], H, m.v_dim)
 
 
-def _layer(cfg: LMConfig, lw, x: torch.Tensor, cos, sin,
-           data_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+def _kv_columns(cfg: LMConfig, lw, h: torch.Tensor,
+                model_group: AxisGroup) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """``h @ wk`` and ``h @ wv`` [B, S, n * hd] over the kv heads this rank's
+    q heads read, and n.  With ``n_kv_heads`` a multiple of the model
+    ranks, a rank's columns are those heads.  Otherwise a kv head's columns
+    lie over several ranks: the columns are gathered over the model ranks
+    (before ``rope``, which rotates a head's two halves against each other)
+    and the heads of the rank's block of q heads taken."""
+    hk, hv = h @ lw["wk"], h @ lw["wv"]
+    tp, Hkv = model_group.size, cfg.n_kv_heads
+    if Hkv % tp == 0:
+        return hk, hv, Hkv // tp
+    hq, g = cfg.n_heads // tp, cfg.n_heads // Hkv
+    if hq % g and g % hq:
+        raise ValueError(f"{cfg.n_heads} q heads over {tp} model ranks straddle the "
+                         f"{Hkv} kv heads")
+    n, hd = max(hq // g, 1), cfg.head_dim
+    lo = (model_group.index * hq // g) * hd
+    return (gather_from_model(hk, model_group)[..., lo:lo + n * hd],
+            gather_from_model(hv, model_group)[..., lo:lo + n * hd], n)
+
+
+def _layer(cfg: LMConfig, lw, x: torch.Tensor, cos, sin, data_group=None,
+           model_group: AxisGroup = ONE_RANK) -> Tuple[torch.Tensor, torch.Tensor]:
     """One transformer block over the full sequence; attention through K4.
-    ``data_group``: the MoE's aux over a data group's batch (``_moe_ffn``)."""
+    ``data_group``: the MoE's aux over a data group's batch (``_moe_ffn``).
+    ``model_group``: tensor parallelism, K4 over the rank's q heads (a
+    contiguous block of ``n_heads / size``) and the kv heads they read,
+    ``wo``'s rows then ``reduce_from_model``."""
     B, S, d = x.shape
     h = rms_norm(x, lw["ln1"], cfg.norm_eps)
     if cfg.mla is None:
         hd = cfg.head_dim
-        q = _rotate(_heads(h @ lw["wq"], cfg.n_heads, hd), cos, sin)
-        k = _rotate(_heads(h @ lw["wk"], cfg.n_kv_heads, hd), cos, sin)
-        v = _heads(h @ lw["wv"], cfg.n_kv_heads, hd)
+        hm = copy_to_model(h, model_group)
+        q = _rotate(_heads(hm @ lw["wq"], lw["wq"].shape[-1] // hd, hd), cos, sin)
+        hk, hv, n_kv = _kv_columns(cfg, lw, hm, model_group)
+        k = _rotate(_heads(hk, n_kv, hd), cos, sin)
+        v = _heads(hv, n_kv, hd)
     else:
-        q, k, v = _mla_qkv(cfg, lw, h, cos, sin)
+        q, k, v = _mla_qkv(cfg, lw, h, cos, sin, model_group)
     attn = ops.flash_attention(q, k, v, causal=True, window=cfg.window)
-    x = x + attn.transpose(1, 2).reshape(B, S, -1) @ lw["wo"]
-    return _ffn(cfg, lw, x, data_group)
+    x = x + reduce_from_model(attn.transpose(1, 2).reshape(B, S, -1) @ lw["wo"], model_group)
+    return _ffn(cfg, lw, x, data_group, model_group)
 
 
 def _layer_weights(params, l: int) -> Dict[str, torch.Tensor]:
     return {k: v[l] for k, v in params["layers"].items()}
 
 
-def _hidden(cfg: LMConfig, params, tokens: torch.Tensor,
-            data_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+def _hidden(cfg: LMConfig, params, tokens: torch.Tensor, data_group=None,
+            model_group: AxisGroup = ONE_RANK) -> Tuple[torch.Tensor, torch.Tensor]:
     """The residual stream after the last layer, [B, S, d], and the summed
     aux loss (with ``data_group``, this rank's share of the group's:
-    ``_moe_ffn``).  The stacked layer leaves are unbound once, so a backward
-    stacks each leaf's gradient once (a select a layer would add a whole
-    [L, ...] zero-filled gradient a layer); with ``remat`` and autograd on,
-    each layer is a ``torch.utils.checkpoint`` (its activations recomputed
-    in the backward)."""
+    ``_moe_ffn``).  ``params`` are this rank's blocks over ``model_group``
+    (``shard_params``); the stream is whole on every model rank.  The
+    stacked layer leaves are unbound once, so a backward stacks each leaf's
+    gradient once (a select a layer would add a whole [L, ...] zero-filled
+    gradient a layer); with ``remat`` and autograd on, each layer is a
+    ``torch.utils.checkpoint`` (its activations, and its forward's
+    collectives, recomputed in the backward)."""
     B, S = tokens.shape
-    x = params["embed"][tokens.long()]
+    x = vocab_parallel_embed(params["embed"], tokens, model_group)
     cos, sin = _angles(torch.arange(S, device=x.device), _rope_dim(cfg), cfg.rope_theta)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     layers = {k: v.unbind(0) for k, v in params["layers"].items()}
@@ -437,16 +554,19 @@ def _hidden(cfg: LMConfig, params, tokens: torch.Tensor,
     for l in range(cfg.n_layers):
         lw = {k: v[l] for k, v in layers.items()}
         if remat:
-            x, a = checkpoint(_layer, cfg, lw, x, cos, sin, data_group, use_reentrant=False,
-                              preserve_rng_state=False)
+            x, a = checkpoint(_layer, cfg, lw, x, cos, sin, data_group, model_group,
+                              use_reentrant=False, preserve_rng_state=False)
         else:
-            x, a = _layer(cfg, lw, x, cos, sin, data_group)
+            x, a = _layer(cfg, lw, x, cos, sin, data_group, model_group)
         aux = aux + a
     return x, aux
 
 
-def _logits(cfg: LMConfig, params, x: torch.Tensor) -> torch.Tensor:
-    x = rms_norm(x, params["final_ln"], cfg.norm_eps)
+def _logits(cfg: LMConfig, params, x: torch.Tensor,
+            model_group: AxisGroup = ONE_RANK) -> torch.Tensor:
+    """float32 logits over this rank's block of the vocabulary (the whole
+    on one rank)."""
+    x = copy_to_model(rms_norm(x, params["final_ln"], cfg.norm_eps), model_group)
     return (x @ params["embed"].T).float()
 
 
@@ -471,25 +591,31 @@ def lm_loss(cfg: LMConfig, params, batch) -> torch.Tensor:
 
 
 @torch.no_grad()
-def prefill(cfg: LMConfig, params, tokens: torch.Tensor) -> torch.Tensor:
+def prefill(cfg: LMConfig, params, tokens: torch.Tensor,
+            model_group: AxisGroup = ONE_RANK) -> torch.Tensor:
     """Prefill = the full forward over the prompt; returns the last
     position's logits [B, 1, V].  Only that position goes through the final
     norm and the vocabulary product (the JAX package computes every
-    position's and slices)."""
-    x, _ = _hidden(cfg, params, tokens)
-    return _logits(cfg, params, x[:, -1:])
+    position's and slices).  Over ``model_group`` (``params`` this rank's
+    blocks) the ranks' vocabulary blocks of that position are all-gathered,
+    the same [B, 1, V] on every rank."""
+    x, _ = _hidden(cfg, params, tokens, model_group=model_group)
+    return gather_from_model(_logits(cfg, params, x[:, -1:], model_group), model_group)
 
 
 # ---------------------------------------------------------------------------
 # decode / serve path
 # ---------------------------------------------------------------------------
 
-def init_cache(cfg: LMConfig, batch: int, max_len: int, device="cuda") -> Dict[str, Any]:
+def init_cache(cfg: LMConfig, batch: int, max_len: int, device="cuda",
+               model_group: AxisGroup = ONE_RANK) -> Dict[str, Any]:
     """An empty KV cache in the model dtype, ``pos`` 0 (a Python int): ``k``
     and ``v`` zeros [L, batch, Hkv, max_len, Dh]; MLA's compressed cache
     ``c_kv`` [L, batch, max_len, kv_lora] and ``k_rope`` [L, batch, max_len,
-    rope]."""
+    rope].  Over ``model_group`` the rank's block of the kv heads
+    (``_decode_tp``)."""
     dev = resolve_device(device)
+    _decode_tp(cfg, model_group)
     L = cfg.n_layers
     if cfg.mla is not None:
         m = cfg.mla
@@ -497,27 +623,39 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, device="cuda") -> Dict[s
                 "k_rope": torch.zeros((L, batch, max_len, m.qk_rope_dim), dtype=cfg.dtype,
                                       device=dev),
                 "pos": 0}
-    shape = (L, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+    shape = (L, batch, cfg.n_kv_heads // model_group.size, max_len, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
             "pos": 0}
 
 
+def _decode_tp(cfg: LMConfig, model_group: AxisGroup) -> None:
+    """``ValueError`` for a decode over more than one model rank whose cache
+    does not split by kv heads: JAX then splits it along ``head_dim`` or
+    MLA's ``kv_lora`` (``configs.lm_cells._cache_pspecs``)."""
+    if model_group.size > 1 and (cfg.mla is not None or cfg.n_kv_heads % model_group.size):
+        raise ValueError(
+            f"a decode step over {model_group.size} model ranks whose cache splits along "
+            f"{'kv_lora' if cfg.mla is not None else 'head_dim'} is not ported (ROADMAP.md "
+            "Queue 1, item 12.10)")
+
+
 def _decode_layer(cfg: LMConfig, lw, x: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
-                  pos: int, cos, sin) -> torch.Tensor:
+                  pos: int, cos, sin, model_group: AxisGroup = ONE_RANK) -> torch.Tensor:
     """One block for a single new token at position ``pos``. x: [B, 1, d];
-    ck, cv: this layer's [B, Hkv, max_len, Dh] cache, written in place at
-    ``pos``.  K4 attends over keys [0, pos] (``kv_len = pos + 1``) and, with a
-    window, over the last ``window`` of them: JAX's sliding-window slice."""
+    ck, cv: this layer's [B, Hkv, max_len, Dh] cache (over ``model_group``
+    the rank's kv heads), written in place at ``pos``.  K4 attends over
+    keys [0, pos] (``kv_len = pos + 1``) and, with a window, over the last
+    ``window`` of them: JAX's sliding-window slice."""
     B = x.shape[0]
     hd = cfg.head_dim
-    h = rms_norm(x, lw["ln1"], cfg.norm_eps)
-    q = _rotate(_heads(h @ lw["wq"], cfg.n_heads, hd), cos, sin)
-    ck[:, :, pos:pos + 1] = _rotate(_heads(h @ lw["wk"], cfg.n_kv_heads, hd), cos, sin)
-    cv[:, :, pos:pos + 1] = _heads(h @ lw["wv"], cfg.n_kv_heads, hd)
+    h = copy_to_model(rms_norm(x, lw["ln1"], cfg.norm_eps), model_group)
+    q = _rotate(_heads(h @ lw["wq"], lw["wq"].shape[-1] // hd, hd), cos, sin)
+    ck[:, :, pos:pos + 1] = _rotate(_heads(h @ lw["wk"], ck.shape[1], hd), cos, sin)
+    cv[:, :, pos:pos + 1] = _heads(h @ lw["wv"], cv.shape[1], hd)
     attn = ops.flash_attention(q, ck, cv, causal=True, window=cfg.window, kv_len=pos + 1)
-    x = x + attn.transpose(1, 2).reshape(B, 1, cfg.n_heads * hd) @ lw["wo"]
-    return _ffn(cfg, lw, x)[0]
+    x = x + reduce_from_model(attn.transpose(1, 2).reshape(B, 1, -1) @ lw["wo"], model_group)
+    return _ffn(cfg, lw, x, model_group=model_group)[0]
 
 
 def _decode_layer_mla(cfg: LMConfig, lw, x: torch.Tensor, c_kv: torch.Tensor,
@@ -549,20 +687,30 @@ def _decode_layer_mla(cfg: LMConfig, lw, x: torch.Tensor, c_kv: torch.Tensor,
 
 
 @torch.no_grad()
-def decode_step(cfg: LMConfig, params, cache: Dict[str, Any], tokens: torch.Tensor):
+def decode_step(cfg: LMConfig, params, cache: Dict[str, Any], tokens: torch.Tensor,
+                model_group: AxisGroup = ONE_RANK):
     """One-token decode. tokens: int[B, 1] -> (logits float32[B, 1, V],
     cache).  The new keys and values are written into ``cache`` in place and
-    ``cache["pos"]`` advances by one; the cache returned is the one given."""
+    ``cache["pos"]`` advances by one; the cache returned is the one given.
+    Over ``model_group`` (``params`` this rank's blocks, ``cache`` its kv
+    heads: ``init_cache``) each rank attends over its heads and the logits'
+    vocabulary blocks are all-gathered, the same on every rank; a cache
+    that does not split by kv heads raises (``_decode_tp``)."""
+    _decode_tp(cfg, model_group)
     pos = int(cache["pos"])
     mla = cfg.mla is not None
     max_len = cache["c_kv"].shape[2] if mla else cache["k"].shape[3]
     if pos >= max_len:
         raise ValueError(f"the cache is full: pos {pos} of max_len {max_len}")
-    x = params["embed"][tokens.long()]
+    x = vocab_parallel_embed(params["embed"], tokens, model_group)
     cos, sin = _angles(torch.arange(pos, pos + 1, device=x.device), _rope_dim(cfg),
                        cfg.rope_theta)
-    layer, a, b = ((_decode_layer_mla, "c_kv", "k_rope") if mla else (_decode_layer, "k", "v"))
     for l in range(cfg.n_layers):
-        x = layer(cfg, _layer_weights(params, l), x, cache[a][l], cache[b][l], pos, cos, sin)
+        lw = _layer_weights(params, l)
+        if mla:
+            x = _decode_layer_mla(cfg, lw, x, cache["c_kv"][l], cache["k_rope"][l], pos, cos, sin)
+        else:
+            x = _decode_layer(cfg, lw, x, cache["k"][l], cache["v"][l], pos, cos, sin,
+                              model_group)
     cache["pos"] = pos + 1
-    return _logits(cfg, params, x), cache
+    return gather_from_model(_logits(cfg, params, x, model_group), model_group), cache

@@ -11,8 +11,7 @@ On each mesh of ``world`` ranks it runs: ``quantized_psum_grads`` (rounded
 and stochastic); ``make_train_step`` for two steps on every case of the
 job, with the ZeRO layout, the gathered state and a checkpoint round trip;
 ``configs.cell``'s mesh helpers and ``zero_pspecs`` on the job's param
-shapes; a model axis of more than one rank (which must raise);
-``make_dstlocal_loss`` and a ``make_gnn_train_step`` step on it; with a
+shapes; ``make_dstlocal_loss`` and a ``make_gnn_train_step`` step on it; with a
 job's ``gnn_sharded`` entry, SchNet's, GatedGCN's and GraphCast's
 ``make_sharded_loss`` over each rank's block of a graph, a step on each and
 the same losses with a gather whose adjoint does not sum (the control);
@@ -22,7 +21,9 @@ per-rank programs of the dry-run cells: the oracle's row-sharded
 ``distribute_one`` and serve step, GCN's per-rank loss, xDeepFM's train
 step and the LM step on each rank's own rows (``local_batch``), and on
 (2, 2) xDeepFM's forward, ``retrieval_score`` and train step with the
-tables row-sharded over ``"model"``.  A job runs
+tables row-sharded over ``"model"``; with a ``tp`` entry
+(``tests/test_torch_tensor_parallel.py``), the LM family with Megatron
+tensor parallelism over ``"model"`` (``run_tp``).  A job runs
 the parts it has entries for.  It imports the
 port only.
 """
@@ -117,14 +118,6 @@ def run_zero_specs(job, world, res):
             cfg = get_arch(arch).full_config()
             specs = zero_pspecs(shapes, tf.param_pspecs(cfg), mesh)
             res["zero"][(arch, shape, names)] = _spec_tree(specs)
-    if world > 1:
-        mesh = form_mesh((world // 2, 2), ("data", "model"), timeout=TIMEOUT)
-        cfg = get_arch("granite-3-2b").smoke_config()
-        try:
-            make_train_step(cfg, 1, mesh)
-            res["model_axis"] = None
-        except ValueError as e:
-            res["model_axis"] = str(e)
 
 
 def run_dstlocal(job, world, res):
@@ -354,7 +347,7 @@ def run_cells(job, world, rank, res):
         cfg = xdeepfm_cfg.smoke_config()
         if shape[1] > 1:
             res["oracle"][(shape, "xdeepfm_model_axis")] = _xdeepfm_model_axis(x, cfg, mesh, P, d)
-            continue   # the LM step takes no model axis (its cells skip, item 12.3)
+            continue   # the LM step over a model axis: run_tp
         params = _torch(x["params"])
         opt_p = zero_pspecs(params, xdeepfm.param_pspecs(cfg), mesh)
         state = zero_init(params, zero_layout(opt_p, mesh))
@@ -374,6 +367,71 @@ def run_cells(job, world, rank, res):
             params, state, metrics = make_train_step(cfg, n_accum, mesh, local_batch=True)(
                 params, state, rows)
             res["oracle"][(shape, "lm", n_accum)] = (float(metrics["loss"]), _np(params))
+
+
+def _tp_train(cfg, whole, n_accum, mesh, batch, steps=2) -> dict:
+    """``steps`` of ``make_train_step`` from this rank's blocks of
+    ``whole``: the losses, the gradient norm, the params and the state
+    gathered whole (``zero_gather`` over the data ranks, then
+    ``gather_params`` over the model ranks) and the layout's marks."""
+    params = tf.shard_params(cfg, whole, mesh)
+    layout = opt_layout(cfg, params, mesh)
+    state = zero_init(params, layout)
+    step = make_train_step(cfg, n_accum, mesh)
+    losses, metrics = [], None
+    for _ in range(steps):
+        params, state, metrics = step(params, state, batch)
+        losses.append(float(metrics["loss"]))
+    st = zero_gather(state, layout)
+    return {"loss": losses, "grad_norm": float(metrics["grad_norm"]),
+            "params": _np(tf.gather_params(cfg, params, mesh)),
+            "state": _np(tuple(tf.gather_params(cfg, t, mesh) for t in (st.mu, st.nu, st.master))),
+            "over_model": layout.over_model}
+
+
+def run_tp(job, world, res):
+    """The LM family with tensor parallelism over ``"model"`` on each mesh
+    of ``world`` ranks, for every case (arch) of the job, from JAX's params:
+    ``shard_params`` then ``gather_params`` (the blocks' shapes, and the
+    round trip byte for byte), ``prefill``'s last logits, the decode steps'
+    logits (where the cache splits by kv heads; else the error), two train
+    steps, and the same steps with ``copy_to_model``'s backward the
+    identity (the control)."""
+    from unittest import mock
+
+    from repro_torch.dist import tensor_parallel
+
+    tpj = job["tp"]
+    res["tp"] = {}
+    for key, shape in tpj["meshes"].items():
+        if int(np.prod(shape)) != world:
+            continue
+        mesh = form_mesh(shape, ("data", "model"), timeout=TIMEOUT)
+        mg = tensor_parallel.model_group(mesh)
+        for arch, case in tpj["cases"].items():
+            cfg = get_arch(arch).smoke_config()
+            whole = lambda: tf.params_from_jax(cfg, case["params"], device="cpu")  # noqa: E731
+            w = whole()
+            local = tf.shard_params(cfg, w, mesh)
+            back = tf.gather_params(cfg, local, mesh)
+            out = {"local_shapes": [tuple(x.shape) for x in tree_leaves(local)],
+                   "round_trip": [a.dtype == b.dtype and a.numpy().tobytes() == b.numpy().tobytes()
+                                  for a, b in zip(tree_leaves(back), tree_leaves(w))],
+                   "prefill": tf.prefill(cfg, local, torch.from_numpy(case["prompt"]), mg).numpy()}
+            toks = torch.from_numpy(case["decode"])
+            try:
+                cache = tf.init_cache(cfg, toks.shape[0], toks.shape[1], "cpu", mg)
+                out["decode"] = np.stack([
+                    tf.decode_step(cfg, local, cache, toks[:, t:t + 1], mg)[0].numpy()
+                    for t in range(toks.shape[1])])
+            except ValueError as e:
+                out["decode"] = str(e)
+            batch = _torch(case["batch"])
+            out["train"] = _tp_train(cfg, whole(), case["n_accum"], mesh, batch)
+            with mock.patch.object(tensor_parallel._CopyToModel, "backward",
+                                   staticmethod(lambda ctx, g: (g, None))):
+                out["control"] = _tp_train(cfg, whole(), case["n_accum"], mesh, batch)
+            res["tp"][(key, arch)] = out
 
 
 def main(argv) -> int:
@@ -398,6 +456,8 @@ def main(argv) -> int:
             run_pipeline(job, world, rank, res)
         if "oracle" in job:
             run_cells(job, world, rank, res)
+        if "tp" in job:
+            run_tp(job, world, res)
         with open(f"{out}/rank{rank}.pkl", "wb") as f:
             pickle.dump(res, f)
     except Exception:

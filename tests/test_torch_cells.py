@@ -7,9 +7,10 @@ lowering them, and dumps each argument leaf's global shape, dtype and
 ``PartitionSpec``, ``skip``, ``meta``, ``donate_argnums`` and
 ``spec_bytes``.  The port builds its cells on fake process groups of the
 same meshes (``launch.dryrun.fake_mesh``) and must match leaf for leaf.
-The skips the port adds are listed in ``PORT_SKIPS``: tensor parallelism
-over ``"model"`` (LM) and decode over a sequence-split cache; the GNN and
-xDeepFM cells run wherever JAX's do.
+The skips the port adds are listed in ``PORT_SKIPS``: decode over a cache
+split along ``head_dim`` or ``kv_lora`` over ``"model"`` and decode over a
+sequence-split cache; the LM train and prefill cells (tensor parallelism
+over ``"model"``), the GNN and xDeepFM cells run wherever JAX's do.
 """
 import json
 import os
@@ -24,7 +25,7 @@ import torch
 from repro_torch.configs import ALL_ARCHS, get_arch
 from repro_torch.configs import reachability
 from repro_torch.configs.cell import TensorSpec, map_specs, spec_bytes
-from repro_torch.configs.lm_cells import SEQ_SKIP, TP_SKIP
+from repro_torch.configs.lm_cells import KV_SPLIT_SKIP, SEQ_SKIP
 from repro_torch.core.distribution_device import (build_sweep_specs, init_state,
                                                   make_sharded_distribute_one)
 from repro_torch.core.order import get_order
@@ -38,7 +39,7 @@ HERE = pathlib.Path(__file__).resolve().parent
 SRC = HERE.parent / "src"
 MESHES = (("single", "baseline"), ("multi", "baseline"), ("single", "tp1"))
 # the skips the port adds to JAX's, each naming the ROADMAP item that lifts it
-PORT_SKIPS = tuple(s.split("{")[0] for s in (TP_SKIP, SEQ_SKIP))
+PORT_SKIPS = tuple(s.split("{")[0] for s in (KV_SPLIT_SKIP, SEQ_SKIP))
 # the families whose every cell has JAX's skip (None on every mesh here)
 NO_PORT_SKIP = ("gcn-cora", "gatedgcn", "schnet", "graphcast", "xdeepfm")
 
@@ -149,14 +150,34 @@ def test_cells_match_jax(arch, jax_records, port_records):
 
 
 def test_port_skips_are_the_listed_ones(port_records, jax_records):
-    """Where the port runs a cell and where it skips: on ``single`` (model
-    16) every LM cell is skipped, on ``tp1`` (model 1) the LM train cells
-    run; every GNN cell (the data-sharded losses) and every xDeepFM cell
-    (the tables row-sharded over ``"model"``) has JAX's skip on all three
-    meshes, as every oracle cell does."""
+    """Where the port runs a cell and where it skips: on ``single`` and
+    ``multi`` (model 16) every LM train_4k and prefill_32k cell runs
+    (tensor parallelism over ``"model"``) and so does deepseek-7b's
+    decode_32k (32 kv heads, 2 a model rank); the other four decode_32k
+    cells, whose cache JAX splits along ``head_dim`` or ``kv_lora``, skip
+    for item 12.10 and danube's long_500k for item 12.9.  On ``tp1`` (model
+    1) the LM train cells run.  Every GNN cell (the data-sharded losses) and
+    every xDeepFM cell (the tables row-sharded over ``"model"``) has JAX's
+    skip on all three meshes, as every oracle cell does."""
     run = {k for k, r in port_records.items() if r["skip"] is None}
     assert "granite-3-2b|train_4k|single|tp1" in run
-    assert not any(k.startswith("granite") and k.endswith("|single|baseline") for k in run)
+    lm = [a for a in ALL_ARCHS if get_arch(a).FAMILY == "lm"]
+    assert len(lm) == 5
+    for mk in ("single", "multi"):
+        tag = f"|{mk}|baseline"
+        for arch in lm:
+            for shape in ("train_4k", "prefill_32k"):
+                assert f"{arch}|{shape}{tag}" in run, (arch, shape, mk)
+            dec = port_records[f"{arch}|decode_32k{tag}"]["skip"]
+            if arch == "deepseek-7b":
+                assert dec is None
+            else:
+                assert dec.startswith(KV_SPLIT_SKIP.split("{")[0]) and "item 12.10" in dec, dec
+        assert port_records[f"h2o-danube-1.8b|long_500k{tag}"]["skip"].startswith(
+            SEQ_SKIP.split("{")[0])
+        ok = sum(k.endswith(tag) for k in run)
+        skipped = sum(k.endswith(tag) and k not in run for k in port_records)
+        assert (ok, skipped) == (35, 9), (mk, ok, skipped)
     for key, rec in port_records.items():
         if key.startswith(NO_PORT_SKIP + ("reachability-oracle",)):
             assert rec["skip"] == jax_records[key]["skip"], key

@@ -1419,6 +1419,83 @@ def test_training_across_gloo_ranks_on_the_card(cuda, tmp_path):
         assert p.returncode == 0 and "CARD_RANKS_OK" in log, log[-3000:]
 
 
+CARD_TP_SNIPPET = r"""
+import datetime, sys, torch, torch.distributed as dist
+from repro_torch.configs import granite_3_2b
+from repro_torch.configs.lm_cells import make_train_step, opt_layout
+from repro_torch.dist.tensor_parallel import model_group
+from repro_torch.kernels import ops
+from repro_torch.launch.mesh import form_mesh
+from repro_torch.models import transformer as tf
+from repro_torch.optim import zero_init
+from repro_torch.tree import tree_leaves
+rank, world, store = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+torch.cuda.set_device(0)
+dev = torch.device('cuda', 0)
+dist.init_process_group('gloo', store=dist.FileStore(store, world), rank=rank, world_size=world,
+                        timeout=datetime.timedelta(seconds=60))
+mesh = form_mesh((1, world), ('data', 'model'), device_type='cuda')
+mg = model_group(mesh)
+# granite's smoke config, 2 kv heads over the model ranks, float32
+cfg = granite_3_2b.smoke_config()
+def fresh():
+    return tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+gen = torch.Generator(device=dev).manual_seed(1)
+tok = torch.randint(0, cfg.vocab, (4, 64), generator=gen, device=dev)
+lab = torch.randint(0, cfg.vocab, (4, 64), generator=gen, device=dev)
+batch = {'tokens': tok, 'labels': lab}
+ref = fresh()
+ref, _, ref_m = make_train_step(cfg, 2, None)(ref, zero_init(ref, opt_layout(cfg, ref, None)),
+                                               batch)
+p = tf.shard_params(cfg, fresh(), mesh)
+st = zero_init(p, opt_layout(cfg, p, mesh))
+ops.reset_launches()
+p, st, met = make_train_step(cfg, 2, mesh)(p, st, batch)
+torch.cuda.synchronize()
+assert ops.LAUNCHES['flash_attention'] == 2 * cfg.n_layers, ops.LAUNCHES
+assert ops.LAUNCHES['flash_attention_bwd'] == 2 * cfg.n_layers, ops.LAUNCHES
+assert abs(float(met['loss']) - float(ref_m['loss'])) <= 1e-5 * abs(float(ref_m['loss']))
+for a, b in zip(tree_leaves(tf.gather_params(cfg, p, mesh)), tree_leaves(ref)):
+    assert torch.allclose(a, b, rtol=1e-5, atol=1e-6), float((a - b).abs().max())
+# prefill, each rank K4 over its own heads
+toks = torch.randint(0, cfg.vocab, (2, 96), generator=gen, device=dev)
+whole = fresh()
+got = tf.prefill(cfg, tf.shard_params(cfg, whole, mesh), toks, mg)
+assert (got - tf.prefill(cfg, whole, toks)).abs().max() <= 1e-4
+dist.destroy_process_group()
+print('CARD_TP_OK')
+"""
+
+
+def test_tensor_parallel_on_the_card(cuda, tmp_path):
+    """Two gloo ranks on the one card over a (1, 2) ("data", "model") mesh:
+    granite's smoke config in float32 (2 kv heads, one a rank) through
+    ``make_train_step`` with each rank's ``param_pspecs`` blocks, the params
+    gathered whole against the one-rank step (1e-5), K4 and its backward
+    launched on every rank over its own heads; ``prefill`` over the ranks
+    against one rank (1e-4)."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    src = pathlib.Path(__file__).resolve().parent.parent / "src"
+    env = {**os.environ, "PYTHONPATH": str(src)}
+    procs = [subprocess.Popen([sys.executable, "-c", CARD_TP_SNIPPET, str(r), "2",
+                               str(tmp_path / "store")], env=env, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0 and "CARD_TP_OK" in log, log[-3000:]
+
+
 @pytest.mark.parametrize("row_extract", ["gather", "onehot"])
 def test_production_cell_programs_on_the_card(cuda, rng, row_extract):
     """The production cells' programs on one rank (``mesh`` None) on the

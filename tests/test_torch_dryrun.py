@@ -72,6 +72,58 @@ def test_small_mesh_dryrun_cell():
     assert rec["cost"]["matmul_flops"] == 2 * n_local * (2 * d_in * h + 3 * h * c)
 
 
+def test_equal_meshes_keep_their_own_groups():
+    """Two meshes of one shape compare equal: the groups ``form_mesh`` made
+    for the second outlive the first (a dry run forms a mesh a cell, and
+    the last cell's may be collected while the next runs)."""
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import axis_group, form_mesh
+
+    try:
+        first = dryrun.fake_mesh((2, 2), ("data", "model"))
+        second = form_mesh((2, 2), ("data", "model"), device_type="cpu")
+        assert first == second
+        del first
+        gc.collect()
+        assert axis_group(second, ("model",)).size == 2
+        assert axis_group(second, ("data",)).size == 2
+    finally:
+        dist.destroy_process_group()
+
+
+def test_tensor_parallel_cell_counts_its_backward_collectives():
+    """A tensor-parallel LM train cell (granite's smoke config, 3 layers, at
+    train_4k's shapes in one microbatch) on a (1, 4) fake mesh: the
+    collectives of the forward and those of the autograd Functions'
+    backwards are counted.  With 2 kv heads over 4 model ranks each layer
+    gathers k and v (all-gathers; their adjoints reduce-scatters); the
+    all-reduces: the embedding, each layer's two row-split outputs, the
+    cross-entropy's max, sum and target, the backward's ``copy_to_model``
+    of each layer's two inputs and of the logits' input, and the clip's
+    norm over the model ranks."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import granite_3_2b, lm_cells
+
+    cfg = granite_3_2b.smoke_config()
+    try:
+        mesh = dryrun.fake_mesh((1, 4), ("data", "model"))
+        cell = lm_cells.lm_cell(cfg, "granite-3-2b", "train_4k", mesh, accum_micro_per_device=256)
+        rec = dryrun.trace_cell(cell, mesh)
+    finally:
+        dist.destroy_process_group()
+    L = cfg.n_layers
+    assert cell.meta["n_accum"] == 1
+    assert rec["comm_counts"] == {"c10d.allreduce_": 4 * L + 6, "c10d._allgather_base_": 2 * L,
+                                  "c10d._reduce_scatter_base_": 2 * L}
+    # k and v: [256, 4096, 2 kv heads x 16] float32 gathered, each layer
+    assert rec["collectives"]["all-gather"] == rec["collectives"]["reduce-scatter"] == \
+        2 * L * 256 * 4096 * 32 * 4
+
+
 @pytest.mark.parametrize("mesh_kind,variant", [("single", "baseline"), ("multi", "baseline"),
                                                ("single", "tp1")])
 @pytest.mark.parametrize("arch", ALL_ARCHS)
