@@ -251,9 +251,20 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      group, a bfloat16 prefill of 1 x 4,096 against one rank within 4j's
      bound; granite-moe's expert-parallel float32 step against one rank;
      deepseek-7b's 16 decode steps over a cache split by kv heads within
-     1e-3.  K4 and its backward counted
+     1e-3; (g) decode over a cache split along its sequence over the data
+     ranks and along ``head_dim`` or ``kv_lora`` over the model ranks
+     (``SPLIT_DECODE``), every step against the one-rank ``decode_step`` on
+     the whole cache: h2o-danube-1.8b at full width over a (4, 1) sequence
+     split in bfloat16 and float32 (K4 with its lse on each rank that keeps
+     a key), deepseek-v2-lite-16b at full width over ``kv_lora`` on (1, 4)
+     and with the sequence on (2, 2), then granite-3-2b at full width over
+     ``head_dim`` on 16 model ranks (JAX's single mesh's model axis),
+     ``SPLIT_WORLD`` ranks of their own, forked once 4l's have ended from a
+     server that imported what they run beside 4l (their start-up timed);
+     K4's lse at danube's
+     decode shapes in both kernels.  K4 and its backward counted
      on every rank around exactly the 4-rank steps and pipeline runs and
-     (f)'s calls, K6
+     (f)'s and (g)'s calls, K6
      and its backward around (e)'s 4-rank calls; a step's seconds,
      tokens/s, peak memory a rank, the collectives' seconds and the bytes
      on the wire by route;
@@ -317,7 +328,8 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      second path on the card: its own launch counts, every degradation
      counter 0.
 
-``--only-distributed-training`` runs phases 1-3 and 4l alone;
+``--only-distributed-training`` runs phases 1-3 and 4l alone (with (g)'s
+16 ranks);
 ``--only-production-cells`` phases 1-3 and 4m, all four cells.
 ``--only-device-build`` runs phases 1-3 and 4b alone, at
 ``--device-build-scale`` (default 1.0), and times
@@ -5062,10 +5074,36 @@ def merge_training(library: list, train: dict, cases: dict) -> None:
 #      DIST_TP["decode_steps"] decode steps of DIST_TP["decode_batch"]
 #      tokens over a cache split by kv heads (16 a model rank), each step's
 #      logits against the one-rank decode within SUBSTRATE_F32_ATOL.
+#  (g), run right after (f): decode over a cache split along head_dim or
+#      kv_lora over the model ranks and along its sequence over the data
+#      ranks (transformer.decode_step with dist.split_softmax), each case
+#      one random cache drawn whole from SPLIT_DECODE["seed"] on every rank
+#      and placed by transformer.shard_cache, every step's logits against
+#      the one-rank decode_step on the whole cache: h2o-danube-1.8b at full
+#      width (window 4,096), SPLIT_DECODE["danube_layers"] layers, batch 1,
+#      a cache of SPLIT_DECODE["danube_cache"] positions over a (4, 1) mesh,
+#      4,096 a rank, one step at each of SPLIT_DECODE["danube_positions"]
+#      (the window inside rank 0's block, ranks 1-3 keeping no key; exactly
+#      rank 1's block, the last position of a slice; across ranks 1 and 2;
+#      rank 1 keeping one key, K4 over a window of 1; rank 3's block at the
+#      last position), in bfloat16 through flash_attention_sm90 (within
+#      SUBSTRATE_BF16's max abs) and in float32 through flash_attention
+#      (within SUBSTRATE_F32_ATOL), both keeping their lse, each rank's
+#      launches those of the steps where it keeps a key; deepseek-v2-lite-16b
+#      at full width, 2 layers, float32 (MLA's decode runs no kernel) on
+#      (1, 4) (kv_lora 512, 128 a rank; batch 4) and on (2, 2) with batch 1
+#      (the sequence and kv_lora together), within SUBSTRATE_F32_ATOL; then
+#      rank 0 holds K4's lse and output at danube's decode shapes against
+#      ref.flash_attention_ref(..., return_lse=True) (both dtypes; a rank's
+#      whole block, a window across it, a window of one key), and times
+#      each call with and without its lse, the other ranks waiting.
+#      granite-3-2b's case on 16 model ranks runs on SPLIT_WORLD ranks of its own,
+#      forked once this world has ended from a server that imported what they
+#      run beside it (``prepare_split_ranks``).
 # K4 and its backward are counted on every rank around exactly the 4-rank
-# steps and pipeline runs and (f)'s tensor-parallel calls (apart), K6 and
-# its backward around the 4-rank forward, retrieval and step (never the
-# references).
+# steps and pipeline runs and (f)'s tensor-parallel calls (apart), (g)'s
+# split decode steps (apart), K6 and its backward around the 4-rank forward,
+# retrieval and step (never the references).
 DIST_WORLD = 4
 DIST_RANK_TIMEOUT_S = 300     # a rank left in a collective raises after this
 DIST_WAIT_S = 900.0           # how long a rank waits for the script's go
@@ -5084,6 +5122,15 @@ DIST_XDEEPFM = dict(serve_batch=512, candidates=25_000, train_batch=4096,
                     train_vocab_per_field=100_000, clip_scale=100.0)
 XDEEPFM_MESH_TOL = 1e-5   # tests/test_torch_xdeepfm.py's, max abs
 DIST_TP = dict(prefill=4096, decode_batch=4, decode_steps=16, seed=47)
+SPLIT_DECODE = dict(danube_layers=2, danube_cache=16384,
+                    danube_positions=(100, 8191, 10000, 12286, 16383),
+                    mla_layers=2, mla_cache=2048, mla_batch=4, mla_positions=(1000, 2047),
+                    mla_seq_positions=(500, 1023, 1500, 2047),
+                    granite_layers=1, granite_cache=2048, granite_batch=4,
+                    granite_positions=(1023, 2047), seed=53)
+# granite-3-2b's decode over a cache split along head_dim as JAX's single
+# mesh splits it: 16 model ranks, 4 of its 64 dims a rank
+SPLIT_WORLD = 16
 
 
 def _leaf_names(tree, prefix: str = "") -> list:
@@ -6059,6 +6106,186 @@ def _dist_tp(rank: int, world: int, timeout, one_rank: dict) -> tuple:
     return rec, launches
 
 
+def _split_case(cfg, mesh, batch: int, length: int, positions, seq_split: bool, counted,
+                expect=None) -> dict:
+    """One case of phase 4l (g) (see the comment above DIST_WORLD) on this
+    rank: the whole weights and a random whole cache from
+    SPLIT_DECODE["seed"] (the same on every rank), this rank's blocks of
+    both, one decode step at each position of ``positions`` on the split
+    cache and on the whole one; each step's logits against the one-rank
+    step's, and its kernel launches (``counted``) against ``expect(pos)``
+    where given (``mesh`` may be the model axis alone).  Returns the
+    largest error, the launches and the steps' milliseconds."""
+    import torch
+
+    from repro_torch.dist.tensor_parallel import model_group
+    from repro_torch.launch.mesh import ONE_RANK, axis_group
+    from repro_torch.models import transformer as tf
+
+    device = torch.device("cuda", 0)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SPLIT_DECODE["seed"])
+    whole = tf.init_params(cfg, gen, device)
+    ref = tf.init_cache(cfg, batch, length, device)
+    for k in ref:
+        if k != "pos":
+            ref[k].copy_(torch.randn(ref[k].shape, generator=gen, device=device))
+    mg = model_group(mesh)
+    dg = axis_group(mesh, ("data",)) if seq_split else ONE_RANK
+    local = tf.shard_params(cfg, whole, mesh)
+    cache = tf.shard_cache(cfg, ref, mg, dg)
+    toks = torch.randint(0, cfg.vocab, (batch, len(positions)), generator=gen, device=device,
+                         dtype=torch.int32)
+    steps, launches = [], {}
+    for i, pos in enumerate(positions):
+        cache["pos"] = ref["pos"] = pos
+        t0 = time.perf_counter()
+        (got, _), diff = counted(lambda: tf.decode_step(cfg, local, cache, toks[:, i:i + 1], mg,
+                                                        dg))
+        ms = (time.perf_counter() - t0) * 1e3
+        if expect is not None:
+            check(diff == expect(pos), f"split decode {cfg.name} at {pos}: launches {diff}, "
+                                       f"not {expect(pos)}")
+        for k, v in diff.items():
+            launches[k] = launches.get(k, 0) + v
+        exp, _ = tf.decode_step(cfg, whole, ref, toks[:, i:i + 1])
+        steps.append({"pos": pos, "ms": ms, **_agreement(got.float(), exp.float())})
+    del whole, local, ref, cache
+    torch.cuda.empty_cache()
+    return {"layers": cfg.n_layers, "batch": batch, "cache_positions": length,
+            "mesh": list(mesh.mesh.shape), "seq_split": seq_split,
+            "cache_split": tf.cache_split(cfg, mg.size),
+            "max_abs_err": max(x["max_abs"] for x in steps), "steps": steps,
+            "launches": launches, "ms_a_step_median": float(np.median([x["ms"] for x in steps]))}
+
+
+def _lse_records(device) -> list:
+    """Phase 4l (g)'s K4 records on rank 0: each kernel at danube's decode
+    shapes over a rank's 4,096-key block (32 q heads over 8 kv heads of 80)
+    with its lse, against ref.flash_attention_ref(..., return_lse=True):
+    the whole block, a window across it, a window of one key.  Each record
+    is ``_attention_record``'s (the call without lse: times, bound, SDPA)
+    plus the lse's error and the call's time with it."""
+    import torch
+
+    import library_cases as lc
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SPLIT_DECODE["seed"])
+    out = []
+    for dtype in (torch.bfloat16, torch.float32):
+        name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+        q = torch.randn((1, 32, 1, 80), generator=gen, device=device).to(dtype)
+        k, v = (torch.randn((1, 8, 4096, 80), generator=gen, device=device).to(dtype)
+                for _ in range(2))
+        # the window of one key over a prefix of 4,000: its key lies in a 32-key
+        # chunk that _attention_record's dropped-chunks control removes
+        for window, kv_len in ((None, 4096), (2287, 4096), (1, 4000)):
+            c = dict(B=1, Hq=32, Hkv=8, S=1, T=4096, D=80, causal=True, window=window,
+                     dtype=name, kv_len=kv_len)
+            o, lse = ops.flash_attention(q, k, v, window=window, kv_len=kv_len,
+                                         return_lse=True)
+            rec = _attention_record(
+                f"h2o-danube-1.8b decode over a rank's block of a cache split along its "
+                f"sequence: {kv_len:,} filled keys, window {window} (phase 4l (g))", c, q, k, v,
+                o, device)
+            _, exp = ref.flash_attention_ref(q, k, v, window=window, kv_len=kv_len,
+                                             return_lse=True)
+            lse_err = float((lse - exp).abs().max())
+            check(lse_err <= lc.ATTENTION_LSE_TOL, f"K4 {name} lse at window {window}: "
+                  f"{lse_err}, bound {lc.ATTENTION_LSE_TOL}")
+            with_lse = lambda: ops.flash_attention(q, k, v, window=window,  # noqa: E731
+                                                   kv_len=kv_len, return_lse=True)
+            w1, w2 = _event_ms(with_lse, 3, warmup=1), _event_ms(with_lse, 3, warmup=1)
+            rec.update(lse_max_abs_err=lse_err, lse_tolerance=lc.ATTENTION_LSE_TOL,
+                       ms_with_lse=min(w1, w2), ms_with_lse_runs=[w1, w2])
+            log(f"K4 {rec['kernel']} lse at danube's decode, window {window}: {lse_err:.2e}, "
+                f"{min(w1, w2):.4f} ms with lse, {rec['ms']:.4f} ms without")
+            out.append(rec)
+    return out
+
+
+def _dist_split_decode(rank: int, world: int, timeout) -> tuple:
+    """Phase 4l (g) on this rank: see the comment above DIST_WORLD.
+    Returns the record, the K4 launches of the split steps and (rank 0)
+    K4's lse records."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import deepseek_v2_lite_16b, h2o_danube_1_8b
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import form_mesh
+
+    device = torch.device("cuda", 0)
+    launches: dict = {}
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        before = dict(ops.LAUNCHES)
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: v - before[k] for k, v in ops.LAUNCHES.items() if v != before[k]}
+
+    t_start = time.perf_counter()
+    rec = {}
+    mesh = form_mesh((world, 1), ("data", "model"), device_type="cuda", timeout=timeout)
+    block = SPLIT_DECODE["danube_cache"] // world
+    full = h2o_danube_1_8b.full_config()
+
+    def keeps_a_key(pos) -> bool:   # this rank's block meets the window [pos - w + 1, pos]
+        lo, base = pos - full.window + 1, rank * block
+        return base <= pos and lo < base + block
+
+    for dtype, bound in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
+        cfg = dataclasses.replace(full, n_layers=SPLIT_DECODE["danube_layers"], dtype=dtype)
+        kernel = ops.attention_kernel(dtype)
+        case = _split_case(cfg, mesh, 1, SPLIT_DECODE["danube_cache"],
+                           SPLIT_DECODE["danube_positions"], True, counted,
+                           lambda pos: {kernel: cfg.n_layers} if keeps_a_key(pos) else {})
+        if dtype == torch.bfloat16:
+            ok = all(_within(x, top1=False) for x in case["steps"])
+            case["bound"] = {"max_abs_over_rms": SUBSTRATE_BF16["max_abs_over_rms"]}
+        else:
+            ok = case["max_abs_err"] <= SUBSTRATE_F32_ATOL
+            case["bound"] = SUBSTRATE_F32_ATOL
+        check(ok, f"rank {rank} 4l (g) danube {bound} split decode against one rank: "
+                  f"{case['steps']}, bound {case['bound']}")
+        log(f"rank {rank} 4l (g) danube {bound}: {case['max_abs_err']:.2e} of one rank, "
+            f"{case['ms_a_step_median']:.1f} ms a step, launches {case['launches']}")
+        launches = _add_counts(launches, case["launches"])
+        rec[f"danube_{bound}"] = case
+    del mesh
+    cfg = dataclasses.replace(deepseek_v2_lite_16b.full_config(),
+                              n_layers=SPLIT_DECODE["mla_layers"], dtype=torch.float32)
+    for key, shape, batch, positions, seq in (
+            ("deepseek_v2_lite_kv_lora", (1, world), SPLIT_DECODE["mla_batch"],
+             SPLIT_DECODE["mla_positions"], False),
+            ("deepseek_v2_lite_seq_kv_lora", (2, world // 2), 1,
+             SPLIT_DECODE["mla_seq_positions"], True)):
+        mesh = form_mesh(shape, ("data", "model"), device_type="cuda", timeout=timeout)
+        case = _split_case(cfg, mesh, batch, SPLIT_DECODE["mla_cache"], positions, seq, counted,
+                           lambda pos: {})
+        check(case["max_abs_err"] <= SUBSTRATE_F32_ATOL,
+              f"rank {rank} 4l (g) {key} against one rank: {case['steps']}, "
+              f"bound {SUBSTRATE_F32_ATOL}")
+        case["bound"] = SUBSTRATE_F32_ATOL
+        rec[key] = case
+        log(f"rank {rank} 4l (g) {key} on {shape}: {case['max_abs_err']:.2e} of one rank, "
+            f"{case['ms_a_step_median']:.1f} ms a step")
+        del mesh
+    torch.cuda.empty_cache()
+    records = None
+    dist.barrier()
+    if rank == 0:   # K4's lse at the path's shapes, the other ranks waiting
+        records = _lse_records(device)
+    dist.barrier()
+    rec["seconds"] = time.perf_counter() - t_start
+    return rec, launches, records
+
+
 def _dist_rank(rank: int, tmp: str, t0: float) -> None:
     """Phase 4l, one rank (spawned): waits for the script's go, then (a),
     (f), (b), (c), (d) and (e); exits non-zero on any failure."""
@@ -6135,6 +6362,9 @@ def _dist_rank_phases(rank: int, d: pathlib.Path) -> None:
                                                                            timeout, one_rank)
         del one_rank
         torch.cuda.empty_cache()
+        t_tp = time.perf_counter()
+        rec["split_decode"], rec["launches_split_decode"], rec["k4_lse_records"] = \
+            _dist_split_decode(rank, DIST_WORLD, timeout)
         t2 = time.perf_counter()
         rec["gpipe"], pipe_launches = _dist_gpipe(rank, DIST_WORLD, timeout)
         t3 = time.perf_counter()
@@ -6144,7 +6374,8 @@ def _dist_rank_phases(rank: int, d: pathlib.Path) -> None:
         t5 = time.perf_counter()
         rec["xdeepfm"], bag_launches, rec["k6_records"] = _dist_xdeepfm(rank, DIST_WORLD,
                                                                         timeout)
-        rec["seconds_by_part"] = {"lm": t1 - t0, "tensor_parallel": t2 - t1,
+        rec["seconds_by_part"] = {"lm": t1 - t0, "tensor_parallel": t_tp - t1,
+                                  "split_decode": t2 - t_tp,
                                   "gpipe": t3 - t2, "gatedgcn": t4 - t3, "gnn_sharded": t5 - t4,
                                   "xdeepfm": time.perf_counter() - t5}
         rec["launches"] = _add_counts(_add_counts(lm_launches, pipe_launches), bag_launches)
@@ -6178,8 +6409,9 @@ def release_dist_ranks(started) -> None:
 def finish_dist_ranks(started, smi: str, timeout: float = 300.0) -> dict:
     """Wait for phase 4l's ranks, relay their records, fail if any failed;
     returns {"launches": the launches their paths made, summed over the
-    ranks, "configs": {kernel: rank 0's records of K6 and its backward at
-    (e)'s shapes}}."""
+    ranks, "tensor_parallel" and "split_decode": (f)'s and (g)'s launches,
+    "configs": {kernel: rank 0's records of K6 and its backward at (e)'s
+    shapes and of K4's two kernels' lse at (g)'s}}."""
     ranks, tmp = started
     t_start = time.perf_counter()
     t_end = t_start + timeout
@@ -6193,10 +6425,11 @@ def finish_dist_ranks(started, smi: str, timeout: float = 300.0) -> dict:
     check(not failed, f"phase 4l ranks {failed} failed, exits "
           f"{[ranks[r].exitcode for r in failed]}")
     recs = [json.loads((d / f"rank{r}.json").read_text()) for r in range(len(ranks))]
-    launches, tp_launches = {}, {}
+    launches, tp_launches, split_launches = {}, {}, {}
     for r in recs:
         launches = _add_counts(launches, r["launches"])
         tp_launches = _add_counts(tp_launches, r["launches_tensor_parallel"])
+        split_launches = _add_counts(split_launches, r["launches_split_decode"])
     for name in ("flash_attention_sm90", "flash_attention_bwd", "embedding_bag",
                  "embedding_bag_bwd"):
         check(all(r["launches"].get(name, 0) > 0 for r in recs),
@@ -6205,12 +6438,18 @@ def finish_dist_ranks(started, smi: str, timeout: float = 300.0) -> dict:
                  "flash_attention_bwd_sm90"):
         check(all(r["launches_tensor_parallel"].get(name, 0) > 0 for r in recs),
               f"phase 4l (f): a tensor-parallel rank launched no {name}")
-    configs = recs[0].pop("k6_records")
+    for name in ("flash_attention", "flash_attention_sm90"):
+        check(all(r["launches_split_decode"].get(name, 0) > 0 for r in recs),
+              f"phase 4l (g): a split-decode rank launched no {name}")
+    configs = {k: [v] for k, v in recs[0].pop("k6_records").items()}
+    lse_records = recs[0].pop("k4_lse_records")
     for r in recs[1:]:
         r.pop("k6_records")
+        r.pop("k4_lse_records")
     record({"phase": "distributed_training", "world": DIST_WORLD, "process_group": "gloo",
             "seconds": time.perf_counter() - t_start, "card": smi, "launches": launches,
-            "launches_tensor_parallel": tp_launches, "ranks": recs})
+            "launches_tensor_parallel": tp_launches, "launches_split_decode": split_launches,
+            "ranks": recs})
     r0 = recs[0]
     lm, bf = r0["lm"], r0["lm"]["bfloat16"]
     last = f"bfloat16 step {DIST_LM['steps'] - 1}"
@@ -6260,7 +6499,154 @@ def finish_dist_ranks(started, smi: str, timeout: float = 300.0) -> dict:
         f"{gpf['max_abs']:.4f} (rms {gpf['exp_rms']:.3f}) {gpf['seconds']:.3f} s; granite-moe "
         f"EP step {moe['state_max_rel']:.2e}; deepseek-7b decode {dec['max_abs_err']:.2e}, "
         f"{dec['ms_a_step_median']:.1f} ms a step; K4 launches {tp_launches} [{smi}]")
-    return {"launches": launches, "tensor_parallel": tp_launches, "configs": configs}
+    sd = r0["split_decode"]
+    log("4l (g) split decode against one rank: " + ", ".join(
+        f"{k} on {tuple(v['mesh'])} max abs {v['max_abs_err']:.2e}, "
+        f"{v['ms_a_step_median']:.1f} ms a step" for k, v in sd.items() if isinstance(v, dict))
+        + f"; {sd['seconds']:.1f} s; K4 launches {split_launches} [{smi}]")
+    for rec in lse_records:
+        configs.setdefault(rec["kernel"], []).append(rec)
+    return {"launches": launches, "tensor_parallel": tp_launches,
+            "split_decode": split_launches, "configs": configs}
+
+
+def _split_rank(rank: int, tmp: str, t0: float) -> None:
+    """Phase 4l (g)'s granite case, one of SPLIT_WORLD ranks (forked from
+    ``prepare_split_ranks``' server, what it runs already imported): reaches
+    the card, joins the world, forms its mesh and runs the case; exits
+    non-zero on any failure."""
+    global _T0
+    _T0 = t0
+    d = pathlib.Path(tmp)
+    with open(d / f"rank{rank}.log", "w") as logf, contextlib.redirect_stdout(logf):
+        try:
+            _split_rank_phase(rank, d)
+        except BaseException:
+            import traceback
+
+            traceback.print_exc(file=logf)
+            logf.flush()
+            os._exit(1)
+
+
+def _split_rank_phase(rank: int, d: pathlib.Path) -> None:
+    marks = {"started": time.perf_counter() - _T0}
+    import dataclasses
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import granite_3_2b
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import form_mesh
+
+    torch.set_num_threads(1)
+    torch.cuda.set_device(0)
+    torch.cuda.init()
+    torch.empty(1, device="cuda")
+    marks["on_the_card"] = time.perf_counter() - _T0
+    timeout = datetime.timedelta(seconds=DIST_RANK_TIMEOUT_S)
+    dist.init_process_group("gloo", store=dist.FileStore(str(d / "store"), SPLIT_WORLD),
+                            rank=rank, world_size=SPLIT_WORLD, timeout=timeout)
+    marks["process_group"] = time.perf_counter() - _T0
+    try:
+        # the model axis alone: JAX's single mesh's 16 model ranks, with no
+        # data group of one rank each to make
+        mesh = form_mesh((SPLIT_WORLD,), ("model",), device_type="cuda", timeout=timeout)
+        marks["mesh"] = time.perf_counter() - _T0
+        t0 = time.perf_counter()
+
+        def counted(fn):
+            torch.cuda.synchronize()
+            before = dict(ops.LAUNCHES)
+            out = fn()
+            torch.cuda.synchronize()
+            return out, {k: v - before[k] for k, v in ops.LAUNCHES.items() if v != before[k]}
+
+        cfg = dataclasses.replace(granite_3_2b.full_config(),
+                                  n_layers=SPLIT_DECODE["granite_layers"], dtype=torch.float32)
+        case = _split_case(cfg, mesh, SPLIT_DECODE["granite_batch"],
+                           SPLIT_DECODE["granite_cache"], SPLIT_DECODE["granite_positions"],
+                           False, counted, lambda pos: {})
+        check(case["cache_split"] == "head_dim" and case["max_abs_err"] <= SUBSTRATE_F32_ATOL,
+              f"rank {rank} 4l (g) granite on {SPLIT_WORLD} model ranks against one rank: "
+              f"{case['cache_split']} {case['steps']}, bound {SUBSTRATE_F32_ATOL}")
+        case["bound"] = SUBSTRATE_F32_ATOL
+        rec = {"rank": rank, "granite_head_dim": case, "seconds": time.perf_counter() - t0,
+               "start_up_at_seconds": marks}
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    (d / f"rank{rank}.json").write_text(json.dumps(rec))
+
+
+# what phase 4l (g)'s 16 ranks run, imported once in the fork server they
+# are forked from: 16 spawned processes importing torch took 21.5-25 s on
+# the 8 host cores beside an NVIDIA H100 80GB HBM3 (700.00 W)
+SPLIT_PRELOAD = ["__main__", "torch", "torch.distributed", "repro_torch.configs",
+                 "repro_torch.models.transformer", "repro_torch.kernels.ops",
+                 "repro_torch.launch.mesh"]
+
+
+def prepare_split_ranks() -> float:
+    """Start the fork server phase 4l (g)'s ranks are forked from, its
+    imports (SPLIT_PRELOAD) running in the background from here on (one
+    process; nothing there touches the card).  Returns the time it was
+    asked for."""
+    import multiprocessing
+    from multiprocessing import forkserver
+
+    multiprocessing.get_context("forkserver").set_forkserver_preload(SPLIT_PRELOAD)
+    forkserver.ensure_running()
+    return time.perf_counter()
+
+
+def start_split_ranks() -> tuple:
+    """Fork phase 4l (g)'s SPLIT_WORLD ranks from ``prepare_split_ranks``'
+    server (waiting for its imports where they have not ended)."""
+    import multiprocessing
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_4lg_")
+    ctx = multiprocessing.get_context("forkserver")
+    ranks = [ctx.Process(target=_split_rank, args=(r, tmp, _T0), daemon=True)
+             for r in range(SPLIT_WORLD)]
+    t0 = time.perf_counter()
+    for p in ranks:
+        p.start()
+    return ranks, tmp, t0
+
+
+def finish_split_ranks(started, smi: str, timeout: float = 240.0) -> dict:
+    """Wait at most ``timeout`` s for the ranks of ``start_split_ranks``,
+    relay their records; fail if any failed.  Their start-up is the last
+    rank's mesh mark since their fork (the card, gloo and the mesh)."""
+    ranks, tmp, t_fork = started
+    d = pathlib.Path(tmp)
+    for p in ranks:
+        p.join(max(t_fork + timeout - time.perf_counter(), 0.0))
+    failed = [r for r, p in enumerate(ranks)
+              if p.exitcode != 0 or not (d / f"rank{r}.json").exists()]
+    for r in failed:
+        log((d / f"rank{r}.log").read_text() if (d / f"rank{r}.log").exists() else "")
+    check(not failed, f"phase 4l (g) ranks {failed} failed, exits "
+          f"{[ranks[r].exitcode for r in failed]}")
+    recs = [json.loads((d / f"rank{r}.json").read_text()) for r in range(SPLIT_WORLD)]
+    since = {k: max(r["start_up_at_seconds"][k] for r in recs) - (t_fork - _T0)
+             for k in ("started", "on_the_card", "process_group", "mesh")}
+    out = {"phase": "split_decode_16_ranks", "world": SPLIT_WORLD, "process_group": "gloo",
+           "start_up_seconds": since, "seconds": time.perf_counter() - t_fork, "card": smi,
+           "ranks": recs}
+    record(out)
+    g = recs[0]["granite_head_dim"]
+    log(f"4l (g) granite-3-2b f32 on {SPLIT_WORLD} model ranks, split {g['cache_split']}: max abs "
+        f"{max(r['granite_head_dim']['max_abs_err'] for r in recs):.2e} of one rank, "
+        f"{g['ms_a_step_median']:.1f} ms a step; the last of {SPLIT_WORLD} ranks forked "
+        f"{since['started']:.1f} s, on the card {since['on_the_card']:.1f}, in the process group "
+        f"{since['process_group']:.1f}, its mesh {since['mesh']:.1f} s after the fork; "
+        f"{out['seconds']:.1f} s in all [{smi}]")
+    return out
 
 
 def stop_dist_ranks(started) -> None:
@@ -6277,20 +6663,22 @@ def stop_dist_ranks(started) -> None:
 def merge_distributed(library: list, dist_out: dict) -> None:
     """The K4 and K6 records count phase 4l's launches (every rank's)
     beside their other paths', (f)'s tensor-parallel K4 and K4-backward
-    launches under their own key; K6's and its backward's take (e)'s
-    records at the path's shapes after their own."""
+    launches and (g)'s split-decode K4 launches under their own keys; K6's
+    and its backward's take (e)'s records at the path's shapes after their
+    own, K4's two kernels (g)'s lse records."""
     for rec in library:
         for path, counts in (("distributed_training", dist_out["launches"]),
-                             ("tensor_parallel", dist_out["tensor_parallel"])):
+                             ("tensor_parallel", dist_out["tensor_parallel"]),
+                             ("split_decode", dist_out["split_decode"])):
             n = counts.get(rec["name"], 0)
             if n:
                 rec.setdefault("launches_by_path", {"kernel_library": rec["launches"]})
                 rec["launches_by_path"][path] = n
                 rec["launches"] += n
         mine = dist_out["configs"].get(rec["name"])
-        if mine is not None:
-            rec["configs"].append(mine)
-            rec["cases_checked"] += 1
+        if mine:
+            rec["configs"] += mine
+            rec["cases_checked"] += len(mine)
 
 
 # ------------------------------------------------------------------ phase 4d
@@ -7412,7 +7800,8 @@ def main(argv=None) -> int:
             or args.only_multi_device or args.only_substrate or args.only_training
             or args.only_distributed_training or args.only_production_cells):
         child = start_host_engines()
-    children = {"host_engines": child, "mesh_ranks": None, "dist_ranks": None}
+    children = {"host_engines": child, "mesh_ranks": None, "dist_ranks": None,
+                "split_ranks": None}
     try:
         return run(args, children)
     finally:
@@ -7422,6 +7811,15 @@ def main(argv=None) -> int:
             stop_mesh_ranks(children["mesh_ranks"])
         if children["dist_ranks"] is not None:
             stop_dist_ranks(children["dist_ranks"])
+        if children["split_ranks"] is not None:
+            stop_dist_ranks(children["split_ranks"][:2])
+
+
+def _started(children: dict, key: str, start):
+    """``start()``'s ranks, kept in ``children[key]`` so that ``main`` stops
+    them however the run ends."""
+    children[key] = start()
+    return children[key]
 
 
 def run(args, children: dict) -> int:
@@ -7450,7 +7848,9 @@ def run(args, children: dict) -> int:
     elif args.only_distributed_training:
         dist_ranks = children["dist_ranks"] = start_dist_ranks()
         release_dist_ranks(dist_ranks)
+        prepare_split_ranks()
         finish_dist_ranks(dist_ranks, smi_line)
+        finish_split_ranks(_started(children, "split_ranks", start_split_ranks), smi_line)
         kernels = None
     elif args.only_production_cells:
         _, kernels = phase_production_cells(device, PRODUCTION_CELLS)
@@ -7506,7 +7906,12 @@ def run(args, children: dict) -> int:
         merge_substrate(library, phase_substrate(device, smi_line))
         merge_training(library, phase_training(device, smi_line), cases)
         release_dist_ranks(dist_ranks)
+        # 4l (g)'s 16 ranks: their fork server imports beside 4l, they are
+        # forked once 4l's ranks have ended (16 contexts beside 4j-4l ran
+        # the card out of memory)
+        prepare_split_ranks()
         merge_distributed(library, finish_dist_ranks(dist_ranks, smi_line))
+        finish_split_ranks(_started(children, "split_ranks", start_split_ranks), smi_line)
         _, production = phase_production_cells(device, FULL_RUN_PRODUCTION)
         budgeted = phase_cold_start_and_budget(g, co, queries, verdicts)
         cases["frontier_or"] += built["frontier_or_cases"]

@@ -17,10 +17,11 @@ parallelism (each rank its ``param_pspecs`` blocks: ``transformer
 .shard_params``; ``dist.tensor_parallel``).  ``lm_cell`` gives the family's
 dry-run cells (``launch.dryrun``): JAX's specs, placements and ``meta``,
 with one rank's train step, prefill or decode step as ``fn``.  A decode
-cell whose cache JAX splits along ``head_dim`` or MLA's ``kv_lora`` over
-the model ranks (ROADMAP.md Queue 1, item 12.10) or along its sequence over
-the data ranks (item 12.9) is ``skip``, its specs and ``meta`` still
-filled.
+cell runs ``transformer.decode_step`` on the cache as JAX places it
+(``_cache_pspecs``): by kv heads, along ``head_dim`` or MLA's ``kv_lora``
+over the model ranks, and along its sequence over the data ranks where the
+batch is smaller than them (the tokens then the same on every data rank,
+the softmax merged over them: ``dist.split_softmax``).
 """
 from __future__ import annotations
 
@@ -155,15 +156,6 @@ def make_train_step(cfg: tf.LMConfig, n_accum: int, mesh, local_batch: bool = Fa
 # dry-run cells
 # ---------------------------------------------------------------------------
 
-KV_SPLIT_SKIP = ("a decode step over a cache split along {dim} over {tp} model ranks (not by kv "
-                 "heads) is not ported (ROADMAP.md Queue 1, item 12.10)")
-
-
-SEQ_SKIP = ("a decode step over a cache split along its sequence over the data axes (batch "
-            "{batch} < {dp} data ranks) is not ported (ROADMAP.md Queue 1, item 12.9: "
-            "split-softmax decode)")
-
-
 def _params_specs(cfg: tf.LMConfig):
     return specs_of(tf.init_params(cfg, torch.Generator(), device="meta"))
 
@@ -172,26 +164,22 @@ def _cache_pspecs(cfg: tf.LMConfig, mesh, batch: int):
     """Mesh-aware cache sharding, JAX's. GQA cache [L, B, Hkv, T, Dh]:
     prefer kv-head sharding over the model axis; fall back to head_dim; for
     batch==1 (long-context) shard T over data. MLA cache [L, B, T, lora]
-    shards lora over model."""
+    shards lora over model.  The model axis' dimension is
+    ``transformer.cache_split``'s, by which ``decode_step`` reads it."""
     axes = data_axes_of(mesh)
     dlead = axes if len(axes) > 1 else axes[0]
-    msz = model_size(mesh)
+    split = tf.cache_split(cfg, model_size(mesh))
     dp = dp_size(mesh)
     bspec = dlead if batch % dp == 0 and batch >= dp else None
     tspec = None if bspec is not None else dlead
     if cfg.mla is not None:
         return {
-            "c_kv": P(None, bspec, tspec, "model" if cfg.mla.kv_lora % msz == 0 else None),
+            "c_kv": P(None, bspec, tspec, "model" if split else None),
             "k_rope": P(None, bspec, tspec, None),
             "pos": P(),
         }
-    if cfg.n_kv_heads % msz == 0:
-        head_axis, hd_axis = "model", None
-    elif cfg.head_dim % msz == 0:
-        head_axis, hd_axis = None, "model"
-    else:
-        head_axis = hd_axis = None
-    spec = P(None, bspec, head_axis, tspec, hd_axis)
+    spec = P(None, bspec, "model" if split == "heads" else None, tspec,
+             "model" if split == "head_dim" else None)
     return {"k": spec, "v": spec, "pos": P()}
 
 
@@ -268,25 +256,23 @@ def lm_cell(cfg: tf.LMConfig, arch_id: str, shape: str, mesh, variant: str = "ba
     cache_specs = {**specs_of({k: v for k, v in cache.items() if k != "pos"}),
                    "pos": TensorSpec((), torch.int32)}
     cache_p = _cache_pspecs(cfg, mesh, batch)
-    tok_p = batch_pspec(mesh, 1) if batch % dp == 0 and batch >= dp else P(None, None)
-    skip = None
-    if dp > 1 and not (batch % dp == 0 and batch >= dp):
-        skip = SEQ_SKIP.format(batch=batch, dp=dp)
-    elif tp > 1 and (cfg.mla is not None or cfg.n_kv_heads % tp):
-        skip = KV_SPLIT_SKIP.format(dim="kv_lora" if cfg.mla is not None else "head_dim", tp=tp)
+    by_batch = batch % dp == 0 and batch >= dp
+    tok_p = batch_pspec(mesh, 1) if by_batch else P(None, None)
+    # the sequence split: the data ranks hold blocks of the cache's positions
+    seq_group = ONE_RANK if by_batch else _data_group(mesh)
 
     def decode(params, cache, tokens):
         pos = cache["pos"]
         if isinstance(pos, torch.Tensor) and pos.device.type == "meta":
             pos = seq - 1
-        return tf.decode_step(cfg, params, {**cache, "pos": pos}, tokens, mg)
+        return tf.decode_step(cfg, params, {**cache, "pos": pos}, tokens, mg, seq_group)
 
     return CellSpec(
-        arch=arch_id, shape=shape, kind=kind, fn=None if skip else decode,
+        arch=arch_id, shape=shape, kind=kind, fn=decode,
         args=(params_specs, cache_specs, TensorSpec((batch, 1), torch.int32)),
         placements=(pspecs, cache_p, tok_p),
         out_placements=(None, cache_p),
-        donate=(1,), skip=skip,
+        donate=(1,),
         meta=dict(tokens=batch, cache_len=seq, **common,
                   analytic=lm_decode_terms(cfg, batch, seq, dp, tp)),
     )

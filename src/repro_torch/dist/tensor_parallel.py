@@ -13,11 +13,13 @@ through ``reduce_from_model``:
   * ``reduce_from_model`` (*g*): the partials summed over the model ranks
     (``all_reduce``); backward the identity, every rank holding the whole
     gradient of the stream.
-  * ``gather_from_model``: the ranks' blocks of the last dimension
-    all-gathered (``dist.sharded.Gather`` along it); adjoint a
+  * ``gather_from_model``: the ranks' blocks of a dimension (the last by
+    default) all-gathered (``dist.sharded.Gather`` along it); adjoint a
     reduce-scatter, the ranks' gradients of the whole summed, each keeping
     its own block.  Right where each rank reads its own part of the whole
-    (a kv head that spans several ranks' columns).
+    (a kv head that spans several ranks' columns; in a decode over a cache
+    split along ``head_dim`` or ``kv_lora``, the new key row, every head's
+    query, and the heads' outputs from every rank's slice of their width).
   * ``vocab_parallel_embed``: a rank's block of the vocabulary's rows; ids
     outside it give 0, then ``reduce_from_model``.
   * ``vocab_parallel_log_softmax_gather``: log p(label) over logits split
@@ -78,13 +80,13 @@ def reduce_from_model(x: torch.Tensor, ag: AxisGroup) -> torch.Tensor:
     return x if ag.size == 1 else _ReduceFromModel.apply(x, ag)
 
 
-def gather_from_model(x: torch.Tensor, ag: AxisGroup) -> torch.Tensor:
-    """Every model rank's ``x`` [..., c] laid side by side along the last
-    dimension, [..., ag.size * c] in the group's order; the adjoint sums
-    the ranks' gradients and keeps this rank's block."""
+def gather_from_model(x: torch.Tensor, ag: AxisGroup, dim: int = -1) -> torch.Tensor:
+    """Every model rank's ``x`` [..., c] laid side by side along dimension
+    ``dim`` (the last by default), [..., ag.size * c] in the group's order;
+    the adjoint sums the ranks' gradients and keeps this rank's block."""
     if ag.size == 1:
         return x
-    return sharded.Gather.apply(x.movedim(-1, 0).contiguous(), ag, None).movedim(0, -1)
+    return sharded.Gather.apply(x.movedim(dim, 0).contiguous(), ag, None).movedim(0, dim)
 
 
 def vocab_parallel_embed(embed: torch.Tensor, tokens: torch.Tensor,

@@ -88,7 +88,7 @@ SIGNATURES = {
         _C.c_int32, _C.c_int32, _C.c_int64, _C.c_float, _C.c_void_p,
     ], _C.c_int),
     "flash_attention": ("flash_attention_launch", [
-        _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,
+        _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,
         _C.c_int64, _C.c_int64, _C.c_int64, _C.c_int64, _C.c_int64, _C.c_int64, _C.c_int64,
         _C.c_int64, _C.c_int32, _C.c_int32, _C.c_int64, _C.c_float, _C.c_void_p,
     ], _C.c_int),

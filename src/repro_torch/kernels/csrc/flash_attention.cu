@@ -17,7 +17,10 @@
 // qpos = s + L - S (one kernel for training, chunked prefill and decode); causal keeps
 // t <= qpos, a window keeps t > qpos - window (from below only, also without causal).  A
 // row that keeps no key gives 0, as the TPU kernel's division by 1 when the sum is 0
-// does.  Logits, the softmax and the output are accumulated in float32.
+// does.  Logits, the softmax and the output are accumulated in float32.  Given an lse
+// buffer, each row's base-2 log-sum-exp of scale log2(e) q k^T over its kept keys goes
+// there (+inf for a row with none): a decode over a cache split along its sequence
+// merges the ranks' rows by it.
 //
 // Bound on an H100: 2 S T (D + Dv) Hq B operations (two products), halved for causal, against
 // the 67 TFLOP/s of float32 outside the tensor cores, or the bytes of q, k, v and out:
@@ -105,6 +108,7 @@ struct Params {
   const void* k;
   const void* v;
   void* out;
+  float* lse;    // null, or [B, Hq, S]: each row's base-2 log-sum-exp (+inf without a key)
   int64_t Hq, Hkv, S, T, D, Dv;
   int64_t L;     // kv_len: the keys that exist, the first L of each head's T rows
   int64_t rep;   // Hq / Hkv
@@ -309,7 +313,7 @@ __global__ void __launch_bounds__(kThreads)
   T* out = static_cast<T*>(p.out);
   for (int64_t e = threadIdx.x; e < nr * Dv; e += kThreads) {
     const int64_t r = e / Dv, d = e - r * Dv;
-    float mx = -INFINITY;
+    float mx = -INFINITY, lse_r = INFINITY;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, m_part[w * R + r]);
     float val = 0.0f;
@@ -324,9 +328,11 @@ __global__ void __launch_bounds__(kThreads)
         num += sc * o_part[(w * R + r) * Dv + d];
       }
       val = den > 0.0f ? num / den : 0.0f;
+      lse_r = den > 0.0f ? mx + log2f(den) : INFINITY;
     }
     const int64_t s = (r0 + r) / p.rep, g = (r0 + r) - s * p.rep;
     store(out + ((b * p.Hq + kvh * p.rep + g) * p.S + s) * Dv + d, val);
+    if (p.lse != nullptr && d == 0) p.lse[(b * p.Hq + kvh * p.rep + g) * p.S + s] = lse_r;
   }
 }
 
@@ -618,6 +624,8 @@ __global__ void __launch_bounds__(kTiledThreads)
     if (r >= nr) continue;
     const int64_t s = (r0 + r) / p.rep, gq = (r0 + r) - s * p.rep;
     float* orow = out + ((b * p.Hq + kvh * p.rep + gq) * p.S + s) * Dv;
+    if (p.lse != nullptr && c == 0)
+      p.lse[(b * p.Hq + kvh * p.rep + gq) * p.S + s] = den > 0.0f ? m[i] + log2f(den) : INFINITY;
 #pragma unroll
     for (int j = 0; j < C4; ++j) {
       if (!col_ok[j]) continue;
@@ -760,16 +768,18 @@ int launch_tiled_d(const Params& p, int64_t B, cudaStream_t stream) {
 // Launches on `stream` and returns a CUDA error code as an int (0 = success).  All
 // pointers are device pointers to contiguous float32 tensors; the caller has checked the
 // shapes (Hq % Hkv == 0, D and Dv multiples of 8, 8 <= Dv <= D <= 192, Dv <= 128, B and
-// Hkv at most 65,535, S and T at least 1, 1 <= kv_len <= T).
+// Hkv at most 65,535, S and T at least 1, 1 <= kv_len <= T); lse is null or a float32
+// [B, Hq, S] that both kernels fill with each row's base-2 log-sum-exp (+inf for a row
+// that keeps no key), the convention of flash_attention_sm90.cu.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
-                                      int64_t B, int64_t Hq, int64_t Hkv,
+                                      float* lse, int64_t B, int64_t Hq, int64_t Hkv,
                                       int64_t S, int64_t T, int64_t kv_len, int64_t D,
                                       int64_t Dv, int32_t causal, int32_t has_window,
                                       int64_t window, float scale, void* stream) {
   if (B <= 0 || S <= 0) return 0;
   if (kv_len < 1 || kv_len > T || D > 192 || Dv < 8 || Dv > D || Dv > 128)
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p{q, k, v, out, Hq, Hkv, S, T, D, Dv, kv_len, Hq / Hkv, (Hq / Hkv) * S,
+  Params p{q, k, v, out, lse, Hq, Hkv, S, T, D, Dv, kv_len, Hq / Hkv, (Hq / Hkv) * S,
            causal, has_window, window, scale * kLog2e};
   const auto s = static_cast<cudaStream_t>(stream);
   return p.rows < kTileRows ? launch_t<float>(p, B, s) : launch_tiled_d(p, B, s);

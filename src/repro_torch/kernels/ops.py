@@ -732,7 +732,7 @@ def attention_pairs(S: int, T: int, causal: bool, window) -> tuple:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window=None, scale=None,
-                    kv_len=None) -> torch.Tensor:
+                    kv_len=None, return_lse: bool = False):
     """K4: softmax attention with causal, sliding-window and GQA masks, the
     semantics of ``repro.kernels.ops.flash_attention``.
 
@@ -758,7 +758,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``flash_attention``); ``attention_kernel`` picks by dtype.
     Differentiable in q, k and v where ``kv_len`` is T: the backward is
     ``flash_attention_bwd``; a bfloat16 call that needs a gradient also keeps
-    each row's log-sum-exp for it (``[B, Hq, S]`` float32)."""
+    each row's log-sum-exp for it (``[B, Hq, S]`` float32).
+
+    With ``return_lse`` the call is inference, outside autograd: ``(out,
+    lse)``, lse float32 ``[B, Hq, S]``, each row's base-2 log-sum-exp of
+    ``scale log2(e) q k^T`` over its kept keys, ``+inf`` for a row that keeps
+    none (both kernels write it; on the CPU
+    ``ref.flash_attention_ref(..., return_lse=True)``).  A decode over a
+    cache split along its sequence merges the ranks' rows by it
+    (``dist.split_softmax.combine``)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if (t.dim() != 4 or not t.is_contiguous()
                 or t.dtype not in (torch.float32, torch.bfloat16)):
@@ -796,6 +804,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dev = _device("flash_attention", q, k, v)
     if dev.type == "cuda" and (B > 65535 or Hkv > 65535):
         raise ValueError(f"B = {B} and Hkv = {Hkv} must be at most 65,535 (grid size)")
+    if return_lse:
+        with torch.no_grad():
+            return _flash_attention(q, k, v, bool(causal), window, scale, kv_len,
+                                    return_lse=True)
     # the bfloat16 backward reads the forward's log-sum-exp (the float32 one
     # recomputes it): kept where autograd will call the backward
     keep_lse = (q.dtype == torch.bfloat16 and torch.is_grad_enabled()
@@ -806,8 +818,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _flash_attention(q, k, v, causal: bool, window, scale: float, kv_len: int,
                      return_lse: bool = False):
     """K4's forward on checked inputs: the kernel of q's dtype on the card,
-    the plain version on the CPU.  With ``return_lse`` (bfloat16 on the card)
-    also each row's base-2 log-sum-exp: ``(out, lse)``."""
+    the plain version on the CPU.  With ``return_lse`` also each row's
+    base-2 log-sum-exp: ``(out, lse)``."""
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale,
                                        kv_len=kv_len, return_lse=return_lse)
@@ -815,8 +827,6 @@ def _flash_attention(q, k, v, causal: bool, window, scale: float, kv_len: int,
     B, Hq, S, D = q.shape
     Hkv, T, Dv = k.shape[1], k.shape[2], v.shape[3]
     kernel = attention_kernel(q.dtype)
-    if return_lse and kernel != "flash_attention_sm90":
-        raise ValueError(f"K4's {q.dtype} kernel keeps no log-sum-exp")
     # aligned: the sm90 kernel writes 16 bytes at a time
     out = torch.empty((B, Hq, S, Dv), dtype=q.dtype, device=dev)
     lse = torch.empty((B, Hq, S), dtype=torch.float32, device=dev) if return_lse else None
@@ -827,11 +837,11 @@ def _flash_attention(q, k, v, causal: bool, window, scale: float, kv_len: int,
                    B * Hq * S * (D + Dv) * e + B * Hkv * keys * (D + Dv) * e
                    + (lse.numel() * 4 if return_lse else 0))
         return (out, lse) if return_lse else out
-    if B:   # the float32 kernel takes no lse pointer; a null one asks the sm90 kernel for none
-        lse_arg = () if kernel == "flash_attention" else (lse.data_ptr() if return_lse else None,)
+    if B:   # a null lse pointer asks either kernel for none
         _launch(kernel, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                *lse_arg, B, Hq, Hkv, S, T, kv_len, D, Dv, int(bool(causal)),
-                window is not None, 0 if window is None else int(window), scale)
+                lse.data_ptr() if return_lse else None, B, Hq, Hkv, S, T, kv_len, D, Dv,
+                int(bool(causal)), window is not None, 0 if window is None else int(window),
+                scale)
     return (out, lse) if return_lse else out
 
 

@@ -26,7 +26,13 @@ compressed ``c_kv`` ``[L, B, max_len, kv_lora]`` and ``k_rope``
 ``[L, B, max_len, rope]``), written in place (``decode_step`` returns the
 cache it was given), with ``pos`` a Python int: attention reads the filled
 prefix (K4 through ``kv_len``, MLA through a view) without a copy and
-without a host read a step.  ``forward`` and ``lm_loss`` are differentiable
+without a host read a step.  Over several ranks the cache is placed as
+JAX's ``configs.lm_cells._cache_pspecs`` places it (``init_cache``,
+``shard_cache``, ``gather_cache``): over the model ranks by kv heads, along
+``head_dim`` or along MLA's ``kv_lora`` (``cache_split``), and over the data
+ranks along its sequence where the batch is smaller than them; the softmax
+over a split contraction or a split sequence is merged by
+``dist.split_softmax``.  ``forward`` and ``lm_loss`` are differentiable
 (K4's autograd Function runs its backward kernel on the card); ``remat``
 recomputes each layer in the backward (``torch.utils.checkpoint``, as JAX's
 ``jax.checkpoint``), and only there.  ``attn_impl``, ``chunk_q``,
@@ -54,6 +60,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.dist import split_softmax
 from repro_torch.dist.tensor_parallel import (copy_to_model, gather_from_model, model_group,
                                              reduce_from_model, vocab_parallel_embed)
 from repro_torch.kernels import ops
@@ -607,99 +614,269 @@ def prefill(cfg: LMConfig, params, tokens: torch.Tensor,
 # decode / serve path
 # ---------------------------------------------------------------------------
 
+def cache_split(cfg: LMConfig, tp: int) -> Optional[str]:
+    """The cache dimension split over ``tp`` model ranks, JAX's choice
+    (``configs.lm_cells._cache_pspecs`` places the cache by it): ``"heads"``
+    (GQA's kv heads, where ``tp`` divides them), else ``"head_dim"`` (where
+    it divides the head width), MLA's ``"kv_lora"`` (where it divides the
+    latent width), or ``None``: the cache whole on every model rank
+    (nothing divides)."""
+    if cfg.mla is not None:
+        return "kv_lora" if cfg.mla.kv_lora % tp == 0 else None
+    if cfg.n_kv_heads % tp == 0:
+        return "heads"
+    return "head_dim" if cfg.head_dim % tp == 0 else None
+
+
+def _cache_dims(cfg: LMConfig, tp: int) -> Dict[str, Tuple[Optional[int], int]]:
+    """Each cache leaf's (dimension split over the model ranks or None,
+    sequence dimension)."""
+    split = cache_split(cfg, tp)
+    if cfg.mla is not None:
+        return {"c_kv": (3 if split else None, 2), "k_rope": (None, 2)}
+    d = {"heads": 2, "head_dim": 4}.get(split)
+    return {"k": (d, 3), "v": (d, 3)}
+
+
 def init_cache(cfg: LMConfig, batch: int, max_len: int, device="cuda",
-               model_group: AxisGroup = ONE_RANK) -> Dict[str, Any]:
+               model_group: AxisGroup = ONE_RANK,
+               data_group: AxisGroup = ONE_RANK) -> Dict[str, Any]:
     """An empty KV cache in the model dtype, ``pos`` 0 (a Python int): ``k``
     and ``v`` zeros [L, batch, Hkv, max_len, Dh]; MLA's compressed cache
     ``c_kv`` [L, batch, max_len, kv_lora] and ``k_rope`` [L, batch, max_len,
-    rope].  Over ``model_group`` the rank's block of the kv heads
-    (``_decode_tp``)."""
+    rope].  ``batch`` is this rank's rows.  Over ``model_group`` the rank's
+    block of the dimension ``cache_split`` names (kv heads, ``head_dim`` or
+    ``kv_lora``); over ``data_group`` its block of ``max_len / size``
+    positions (the sequence split, where the batch is smaller than the data
+    ranks), rank i positions ``[i T, (i + 1) T)``."""
+    from repro_torch.configs.cell import UnevenShard
+
     dev = resolve_device(device)
-    _decode_tp(cfg, model_group)
+    if max_len % data_group.size:
+        raise UnevenShard(f"a cache of {max_len} positions does not split over "
+                          f"{data_group.size} data ranks")
+    whole = _whole_cache_shapes(cfg, batch, max_len)
+    out: Dict[str, Any] = {}
+    for key, (md, sd) in _cache_dims(cfg, model_group.size).items():
+        shape = list(whole[key])
+        shape[sd] //= data_group.size
+        if md is not None:
+            shape[md] //= model_group.size
+        out[key] = torch.zeros(shape, dtype=cfg.dtype, device=dev)
+    out["pos"] = 0
+    return out
+
+
+def _whole_cache_shapes(cfg: LMConfig, batch: int, max_len: int) -> Dict[str, tuple]:
     L = cfg.n_layers
     if cfg.mla is not None:
         m = cfg.mla
-        return {"c_kv": torch.zeros((L, batch, max_len, m.kv_lora), dtype=cfg.dtype, device=dev),
-                "k_rope": torch.zeros((L, batch, max_len, m.qk_rope_dim), dtype=cfg.dtype,
-                                      device=dev),
-                "pos": 0}
-    shape = (L, batch, cfg.n_kv_heads // model_group.size, max_len, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-            "pos": 0}
+        return {"c_kv": (L, batch, max_len, m.kv_lora),
+                "k_rope": (L, batch, max_len, m.qk_rope_dim)}
+    shape = (L, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+    return {"k": shape, "v": shape}
 
 
-def _decode_tp(cfg: LMConfig, model_group: AxisGroup) -> None:
-    """``ValueError`` for a decode over more than one model rank whose cache
-    does not split by kv heads: JAX then splits it along ``head_dim`` or
-    MLA's ``kv_lora`` (``configs.lm_cells._cache_pspecs``)."""
-    if model_group.size > 1 and (cfg.mla is not None or cfg.n_kv_heads % model_group.size):
-        raise ValueError(
-            f"a decode step over {model_group.size} model ranks whose cache splits along "
-            f"{'kv_lora' if cfg.mla is not None else 'head_dim'} is not ported (ROADMAP.md "
-            "Queue 1, item 12.10)")
+def shard_cache(cfg: LMConfig, cache, model_group: AxisGroup = ONE_RANK,
+                data_group: AxisGroup = ONE_RANK) -> Dict[str, Any]:
+    """This rank's blocks (copies) of a whole cache (``init_cache``'s on
+    one rank, or ``gather_cache``'s), placed as ``init_cache`` places a
+    cache over the two groups; ``pos`` as it is."""
+    out: Dict[str, Any] = {"pos": cache["pos"]}
+    for key, (md, sd) in _cache_dims(cfg, model_group.size).items():
+        x = cache[key]
+        for d, ag in ((md, model_group), (sd, data_group)):
+            if d is not None and ag.size > 1:
+                n = x.shape[d] // ag.size
+                x = x.narrow(d, ag.index * n, n)
+        out[key] = x.clone()
+    return out
+
+
+def gather_cache(cfg: LMConfig, local, model_group: AxisGroup = ONE_RANK,
+                 data_group: AxisGroup = ONE_RANK) -> Dict[str, Any]:
+    """The whole cache from every rank's blocks (``shard_cache``'s
+    inverse): one ``all_gather_into_tensor`` a leaf over each group that
+    splits it.  Collective over both groups."""
+    out: Dict[str, Any] = {"pos": local["pos"]}
+    for key, (md, sd) in _cache_dims(cfg, model_group.size).items():
+        x = local[key]
+        for d, ag in ((md, model_group), (sd, data_group)):
+            if d is not None and ag.size > 1:
+                x = gather_rows(x.movedim(d, 0).contiguous(), ag).movedim(0, d).contiguous()
+        out[key] = x
+    return out
+
+
+def _key_range(pos: int, window, T: int, seq_group: AxisGroup) -> Tuple[int, int, int]:
+    """(base, a, n) of this rank's block of ``T`` positions ``[base, base +
+    T)`` (the sequence split over ``seq_group``): the attention at ``pos``
+    keeps its keys ``[a, n)``, the filled prefix ``n`` less the keys before
+    the window ``[pos - window + 1, pos]``; ``a == n`` where it keeps none."""
+    base = seq_group.index * T
+    n = min(max(pos + 1 - base, 0), T)
+    lo = 0 if window is None else pos - window + 1
+    return base, min(max(lo - base, 0), n), n
+
+
+def _write_row(cache: torch.Tensor, row: torch.Tensor, pos: int, base: int, dim: int) -> None:
+    """The new row at global position ``pos`` into this rank's block of the
+    sequence (``dim``) starting at ``base``, where the block holds it."""
+    if base <= pos < base + cache.shape[dim]:
+        cache.narrow(dim, pos - base, 1).copy_(row)
 
 
 def _decode_layer(cfg: LMConfig, lw, x: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
-                  pos: int, cos, sin, model_group: AxisGroup = ONE_RANK) -> torch.Tensor:
+                  pos: int, cos, sin, model_group: AxisGroup = ONE_RANK,
+                  seq_group: AxisGroup = ONE_RANK) -> torch.Tensor:
     """One block for a single new token at position ``pos``. x: [B, 1, d];
-    ck, cv: this layer's [B, Hkv, max_len, Dh] cache (over ``model_group``
-    the rank's kv heads), written in place at ``pos``.  K4 attends over
-    keys [0, pos] (``kv_len = pos + 1``) and, with a window, over the last
-    ``window`` of them: JAX's sliding-window slice."""
+    ck, cv: this layer's [B, Hkv, T, Dh] cache, this rank's block of it
+    (``init_cache``), written in place at ``pos``.  The attention keeps keys
+    ``[0, pos]`` and, with a window, the last ``window`` of them: JAX's
+    sliding-window slice.
+
+    Split by kv heads (or on one model rank) K4 attends over the rank's q
+    heads and the kv heads they read.  Otherwise every head's query and
+    the new key and value rows are gathered whole over the model ranks (the
+    rows are rotated whole: ``rope`` turns a head's two halves against each
+    other): over a cache split along ``head_dim`` each rank forms the
+    partial logits of its slice of the width, summed over the model ranks
+    (``split_softmax.sum_scores``) before the softmax, its slice of every
+    head's output, gathered whole; over a cache whole on every model rank K4
+    attends over every head.  A rank keeps its own heads' outputs for
+    ``wo``'s rows.  Over ``seq_group`` (the cache split along its sequence)
+    each rank attends over its keys, K4 keeping each row's log-sum-exp, and
+    ``split_softmax.combine`` merges the ranks' rows; a rank with no key
+    kept calls no kernel."""
     B = x.shape[0]
-    hd = cfg.head_dim
+    hd, tp = cfg.head_dim, model_group.size
+    split = cache_split(cfg, tp)
     h = copy_to_model(rms_norm(x, lw["ln1"], cfg.norm_eps), model_group)
-    q = _rotate(_heads(h @ lw["wq"], lw["wq"].shape[-1] // hd, hd), cos, sin)
-    ck[:, :, pos:pos + 1] = _rotate(_heads(h @ lw["wk"], ck.shape[1], hd), cos, sin)
-    cv[:, :, pos:pos + 1] = _heads(h @ lw["wv"], cv.shape[1], hd)
-    attn = ops.flash_attention(q, ck, cv, causal=True, window=cfg.window, kv_len=pos + 1)
+    hq, hk, hv = h @ lw["wq"], h @ lw["wk"], h @ lw["wv"]
+    n_local = hq.shape[-1] // hd          # this rank's q heads
+    if tp > 1 and split != "heads":       # every head whole on every model rank
+        hq, hk, hv = (gather_from_model(t, model_group) for t in (hq, hk, hv))
+    q = _rotate(_heads(hq, hq.shape[-1] // hd, hd), cos, sin)
+    k_new = _rotate(_heads(hk, hk.shape[-1] // hd, hd), cos, sin)
+    v_new = _heads(hv, hv.shape[-1] // hd, hd)
+    dims = slice(0, hd)
+    if split == "head_dim":
+        w = hd // tp
+        dims = slice(model_group.index * w, (model_group.index + 1) * w)
+    base, a, n = _key_range(pos, cfg.window, ck.shape[2], seq_group)
+    _write_row(ck, k_new[..., dims], pos, base, 2)
+    _write_row(cv, v_new[..., dims], pos, base, 2)
+    if split == "head_dim":
+        attn = _head_dim_attention(q[..., dims], ck[:, :, a:n], cv[:, :, a:n], hd,
+                                   model_group, seq_group, x.dtype)
+    elif seq_group.size == 1:
+        attn = ops.flash_attention(q, ck, cv, causal=True, window=cfg.window, kv_len=pos + 1)
+    else:
+        if n > a:
+            o, lse = ops.flash_attention(q, ck, cv, causal=True, window=None if a == 0 else n - a,
+                                         kv_len=n, return_lse=True)
+        else:   # no key of this rank is kept: no kernel, weight 0 in the combine
+            o = q.new_zeros(q.shape)
+            lse = torch.full(q.shape[:3], math.inf, device=q.device)
+        attn = split_softmax.combine(o, lse, seq_group).to(x.dtype)
+    if attn.shape[1] != n_local:          # this rank's heads of every head's output
+        attn = attn[:, model_group.index * n_local:(model_group.index + 1) * n_local]
     x = x + reduce_from_model(attn.transpose(1, 2).reshape(B, 1, -1) @ lw["wo"], model_group)
     return _ffn(cfg, lw, x, model_group=model_group)[0]
 
 
+def _head_dim_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, hd: int,
+                        model_group: AxisGroup, seq_group: AxisGroup, dtype) -> torch.Tensor:
+    """Attention over a cache split along ``head_dim``, in plain torch (the
+    JAX package runs this step in XLA, not Pallas; K4 needs whole heads).
+    q [B, Hq, 1, w]: every head's query, this rank's slice of the width; k,
+    v [B, Hkv, t, w]: this rank's kept keys (``t`` may be 0).  The partial
+    logits in float32, summed over ``model_group``, scaled by ``1/sqrt(hd)``,
+    the softmax over the rank's keys merged over ``seq_group``, the output
+    slices gathered whole over ``model_group`` -> [B, Hq, 1, hd]."""
+    B, Hq, S, w = q.shape
+    Hkv, t = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Hkv, Hq // Hkv, S, w).float()
+    logits = torch.einsum("bkrsd,bktd->bkrst", qg, k.float())
+    if t:   # the same on every model rank: they hold the same positions
+        logits = split_softmax.sum_scores(logits, model_group)
+    out, lse = split_softmax.local_attention(logits * (1.0 / math.sqrt(hd)), v[:, :, None])
+    out = split_softmax.combine(out, lse, seq_group).to(dtype)
+    return gather_from_model(out.reshape(B, Hq, S, w), model_group)
+
+
 def _decode_layer_mla(cfg: LMConfig, lw, x: torch.Tensor, c_kv: torch.Tensor,
-                      k_rope: torch.Tensor, pos: int, cos, sin) -> torch.Tensor:
+                      k_rope: torch.Tensor, pos: int, cos, sin,
+                      model_group: AxisGroup = ONE_RANK,
+                      seq_group: AxisGroup = ONE_RANK) -> torch.Tensor:
     """MLA's block for a single new token at position ``pos``, JAX's absorbed
-    attention. x: [B, 1, d]; c_kv [B, max_len, kv_lora] and k_rope [B,
-    max_len, rope]: this layer's compressed cache, written in place at
-    ``pos``.  W_uk folds into the query and W_uv into the context, so the
-    scores and the context are float32 einsums over the latent prefix
-    ``[:pos + 1]`` (a view: JAX masks the whole cache instead, the same
-    softmax).  No kernel: the JAX package runs this step in none."""
+    attention. x: [B, 1, d]; c_kv [B, T, kv_lora] and k_rope [B, T, rope]:
+    this layer's compressed cache, this rank's block of it (``init_cache``),
+    written in place at ``pos``.  W_uk folds into the query and W_uv into
+    the context, so the logits and the context are float32 einsums over the
+    filled latent prefix (a view: JAX masks the whole cache instead, the
+    same softmax).  No kernel: the JAX package runs this step in none.
+
+    Over ``model_group`` a rank holds its heads' columns of ``wq``, ``w_uk``
+    and ``w_uv``; the new latent and rope rows, from the replicated
+    ``w_dkv`` and ``w_krope``, are whole on every rank.  Over a cache split
+    along ``kv_lora`` a rank gathers every head's latent and rope query
+    over the model ranks, forms the logits of its slice of the latent width
+    (summed over the model ranks, the rope term added once after), its slice
+    of every head's context (gathered whole), and keeps its heads'.  Over
+    ``seq_group`` the softmax over the rank's positions is merged by
+    ``split_softmax.combine``."""
     m = cfg.mla
-    B, H, nope = x.shape[0], cfg.n_heads, m.qk_nope_dim
-    h = rms_norm(x, lw["ln1"], cfg.norm_eps)
+    B, nope = x.shape[0], m.qk_nope_dim
+    H = lw["wq"].shape[-1] // (nope + m.qk_rope_dim)           # this rank's heads
+    split = cache_split(cfg, model_group.size) == "kv_lora"
+    h = copy_to_model(rms_norm(x, lw["ln1"], cfg.norm_eps), model_group)
     q = _heads(h @ lw["wq"], H, nope + m.qk_rope_dim)               # [B, H, 1, qk]
     q_nope, q_rope = q[..., :nope], _rotate(q[..., nope:], cos, sin)
-    c_kv[:, pos:pos + 1] = h @ lw["w_dkv"]
-    k_rope[:, pos:pos + 1] = _rotate(h @ lw["w_krope"], cos, sin)
-    c, kr = c_kv[:, :pos + 1].float(), k_rope[:, :pos + 1].float()
+    kl = c_kv.shape[-1]
+    lat = slice(model_group.index * kl, (model_group.index + 1) * kl) if split else slice(0, kl)
+    base, _, n = _key_range(pos, None, c_kv.shape[1], seq_group)
+    _write_row(c_kv, (h @ lw["w_dkv"])[..., lat], pos, base, 1)
+    _write_row(k_rope, _rotate(h @ lw["w_krope"], cos, sin), pos, base, 1)
+    c, kr = c_kv[:, :n].float(), k_rope[:, :n].float()
     q_lat = torch.einsum("bhsd,khd->bhsk", q_nope, lw["w_uk"].view(m.kv_lora, H, nope))
-    logits = (torch.einsum("bhsk,btk->bhst", q_lat.float(), c)
-              + torch.einsum("bhsd,btd->bhst", q_rope.float(), kr))
+    if split:   # every head, this rank's slice of the latent width
+        q_lat = gather_from_model(q_lat, model_group, dim=1)[..., lat]
+        q_rope = gather_from_model(q_rope, model_group, dim=1)
+    logits = torch.einsum("bhsk,btk->bhst", q_lat.float(), c)
+    if split and n:   # the same on every model rank: they hold the same positions
+        logits = split_softmax.sum_scores(logits, model_group)
+    logits = logits + torch.einsum("bhsd,btd->bhst", q_rope.float(), kr)
     logits *= 1.0 / np.sqrt(nope + m.qk_rope_dim)
-    ctx = torch.einsum("bhst,btk->bhsk", torch.softmax(logits, dim=-1), c)
+    ctx, lse = split_softmax.local_attention(logits, c[:, None])
+    ctx = split_softmax.combine(ctx, lse, seq_group)
+    if split:   # the whole latent width, this rank's heads
+        ctx = gather_from_model(ctx, model_group)[:, model_group.index * H:
+                                                  (model_group.index + 1) * H]
     w_uv = lw["w_uv"].view(m.kv_lora, H, m.v_dim).float()
     attn = torch.einsum("bhsk,khd->bhsd", ctx, w_uv).to(x.dtype)
-    x = x + attn.transpose(1, 2).reshape(B, 1, H * m.v_dim) @ lw["wo"]
-    return _ffn(cfg, lw, x)[0]
+    x = x + reduce_from_model(attn.transpose(1, 2).reshape(B, 1, H * m.v_dim) @ lw["wo"],
+                              model_group)
+    return _ffn(cfg, lw, x, model_group=model_group)[0]
 
 
 @torch.no_grad()
 def decode_step(cfg: LMConfig, params, cache: Dict[str, Any], tokens: torch.Tensor,
-                model_group: AxisGroup = ONE_RANK):
+                model_group: AxisGroup = ONE_RANK, data_group: AxisGroup = ONE_RANK):
     """One-token decode. tokens: int[B, 1] -> (logits float32[B, 1, V],
     cache).  The new keys and values are written into ``cache`` in place and
     ``cache["pos"]`` advances by one; the cache returned is the one given.
-    Over ``model_group`` (``params`` this rank's blocks, ``cache`` its kv
-    heads: ``init_cache``) each rank attends over its heads and the logits'
-    vocabulary blocks are all-gathered, the same on every rank; a cache
-    that does not split by kv heads raises (``_decode_tp``)."""
-    _decode_tp(cfg, model_group)
+    Over ``model_group`` (``params`` this rank's blocks, ``cache`` its block
+    of the dimension ``cache_split`` names: ``init_cache``) each rank
+    attends over its heads and the logits' vocabulary blocks are
+    all-gathered, the same on every rank.  ``data_group``: the ranks over
+    which the cache is split along its sequence (JAX's placement where the
+    batch is smaller than the data ranks), every one given the same
+    ``tokens``; where the batch is split instead, each rank steps alone on
+    its rows and its cache (the default, one rank)."""
     pos = int(cache["pos"])
     mla = cfg.mla is not None
-    max_len = cache["c_kv"].shape[2] if mla else cache["k"].shape[3]
+    max_len = (cache["c_kv"].shape[2] if mla else cache["k"].shape[3]) * data_group.size
     if pos >= max_len:
         raise ValueError(f"the cache is full: pos {pos} of max_len {max_len}")
     x = vocab_parallel_embed(params["embed"], tokens, model_group)
@@ -708,9 +885,10 @@ def decode_step(cfg: LMConfig, params, cache: Dict[str, Any], tokens: torch.Tens
     for l in range(cfg.n_layers):
         lw = _layer_weights(params, l)
         if mla:
-            x = _decode_layer_mla(cfg, lw, x, cache["c_kv"][l], cache["k_rope"][l], pos, cos, sin)
+            x = _decode_layer_mla(cfg, lw, x, cache["c_kv"][l], cache["k_rope"][l], pos, cos, sin,
+                                  model_group, data_group)
         else:
             x = _decode_layer(cfg, lw, x, cache["k"][l], cache["v"][l], pos, cos, sin,
-                              model_group)
+                              model_group, data_group)
     cache["pos"] = pos + 1
     return gather_from_model(_logits(cfg, params, x, model_group), model_group), cache

@@ -27,6 +27,7 @@ tensor parallelism over ``"model"`` (``run_tp``).  A job runs
 the parts it has entries for.  It imports the
 port only.
 """
+import dataclasses
 import datetime
 import pickle
 import sys
@@ -394,9 +395,11 @@ def run_tp(job, world, res):
     of ``world`` ranks, for every case (arch) of the job, from JAX's params:
     ``shard_params`` then ``gather_params`` (the blocks' shapes, and the
     round trip byte for byte), ``prefill``'s last logits, the decode steps'
-    logits (where the cache splits by kv heads; else the error), two train
-    steps, and the same steps with ``copy_to_model``'s backward the
-    identity (the control)."""
+    logits and the cache gathered whole (the cache by kv heads, along
+    ``head_dim`` or along ``kv_lora``), two train steps, and the same steps
+    with ``copy_to_model``'s backward the identity (the control); then the job's ``seq`` cases on this world's
+    meshes: the decode over a cache split along its sequence over the data
+    ranks (``_tp_decode``)."""
     from unittest import mock
 
     from repro_torch.dist import tensor_parallel
@@ -418,20 +421,51 @@ def run_tp(job, world, res):
                    "round_trip": [a.dtype == b.dtype and a.numpy().tobytes() == b.numpy().tobytes()
                                   for a, b in zip(tree_leaves(back), tree_leaves(w))],
                    "prefill": tf.prefill(cfg, local, torch.from_numpy(case["prompt"]), mg).numpy()}
-            toks = torch.from_numpy(case["decode"])
-            try:
-                cache = tf.init_cache(cfg, toks.shape[0], toks.shape[1], "cpu", mg)
-                out["decode"] = np.stack([
-                    tf.decode_step(cfg, local, cache, toks[:, t:t + 1], mg)[0].numpy()
-                    for t in range(toks.shape[1])])
-            except ValueError as e:
-                out["decode"] = str(e)
+            out["decode"], out["decode_cache"], _, _ = _tp_decode(cfg, local, case["decode"], mg)
             batch = _torch(case["batch"])
             out["train"] = _tp_train(cfg, whole(), case["n_accum"], mesh, batch)
             with mock.patch.object(tensor_parallel._CopyToModel, "backward",
                                    staticmethod(lambda ctx, g: (g, None))):
                 out["control"] = _tp_train(cfg, whole(), case["n_accum"], mesh, batch)
             res["tp"][(key, arch)] = out
+    meshes = {}
+    for name, case in tpj["seq"].items():
+        shape = tuple(case["mesh"])
+        if int(np.prod(shape)) != world:
+            continue
+        if shape not in meshes:
+            meshes[shape] = form_mesh(shape, ("data", "model"), timeout=TIMEOUT)
+        mesh = meshes[shape]
+        cfg = get_arch(case["arch"]).smoke_config()
+        if case["n_kv_heads"]:
+            cfg = dataclasses.replace(cfg, n_kv_heads=case["n_kv_heads"])
+        local = tf.shard_params(cfg, tf.params_from_jax(cfg, case["params"], device="cpu"), mesh)
+        decode, whole, round_trip, block = _tp_decode(
+            cfg, local, case["tokens"], tensor_parallel.model_group(mesh),
+            axis_group(mesh, ("data",)))
+        res["tp"][("seq", name)] = {"decode": decode, "cache": whole, "round_trip": round_trip,
+                                    "block": block}
+
+
+def _tp_decode(cfg, local, tokens, mg, dg=None):
+    """Every step of ``decode_step`` over ``tokens`` (int[B, steps]) from an
+    empty cache of ``steps`` positions placed over ``mg`` (and its sequence
+    over ``dg``): the logits, the cache gathered whole, whether
+    ``shard_cache`` of it gives back this rank's blocks byte for byte, and
+    the positions a block."""
+    from repro_torch.launch.mesh import ONE_RANK
+
+    dg = dg or ONE_RANK
+    toks = torch.from_numpy(tokens)
+    cache = tf.init_cache(cfg, toks.shape[0], toks.shape[1], "cpu", mg, dg)
+    logits = np.stack([tf.decode_step(cfg, local, cache, toks[:, t:t + 1], mg, dg)[0].numpy()
+                       for t in range(toks.shape[1])])
+    whole = tf.gather_cache(cfg, cache, mg, dg)
+    again = tf.shard_cache(cfg, whole, mg, dg)
+    leaves = [k for k in whole if k != "pos"]
+    round_trip = all(again[k].numpy().tobytes() == cache[k].numpy().tobytes() for k in leaves)
+    block = cache[leaves[0]].shape[3 if cfg.mla is None else 2]
+    return logits, _np({k: whole[k] for k in leaves}), round_trip, block
 
 
 def main(argv) -> int:

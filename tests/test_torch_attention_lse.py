@@ -14,6 +14,15 @@ and its refusals.  Tolerances: 1e-5 of the largest |value| between the plain
 versions (float32, the same arithmetic in another order: exp2 of a
 difference against a softmax), 1e-4 against JAX (float32 products in other
 orders over up to 512 keys); lse within 1e-5 of JAX's (its values are O(10)).
+
+At inference (a decode over a cache split along its sequence):
+``ops.flash_attention(..., return_lse=True)`` is the plain version's
+``(out, lse)`` on the CPU, outside autograd; the merge of the ranks'
+``(out, lse)`` (``dist.split_softmax.merge``, the ranks stacked on one
+process and its all-reduces over them) over the keys split into blocks, with
+blocks past the position or outside the window holding no key, equals the
+attention over all the keys within 1e-6 (float32), from K4's rows and from
+``split_softmax.local_attention``'s alike.
 """
 import math
 from unittest import mock
@@ -27,6 +36,7 @@ import torch
 from library_cases import (ATTENTION_BWD_CASES, attention_rows_seeing_a_key, case_id,
                            make_attention_bwd_case)
 from repro.models.transformer import _attention_scores
+from repro_torch.dist import split_softmax
 from repro_torch.kernels import ops, ref
 
 TORCH_TOL = 1e-5
@@ -161,3 +171,79 @@ def test_attention_bwd_kernels_dispatch_by_dtype(rng):
     ops.reset_launches()
     got = ops.flash_attention_bwd(q, k, v, o, do)
     assert all(g.dtype == torch.float32 for g in got) and not any(ops.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_len,window", [(None, None), (70, None), (90, 40), (33, 1)])
+def test_return_lse_is_the_plain_version(rng, dtype, kv_len, window):
+    """``ops.flash_attention(..., return_lse=True)`` on the CPU: the plain
+    version's ``(out, lse)`` exactly, out the same as without the flag, no
+    autograd even for inputs that need a gradient."""
+    q, k, v, _ = (_t(a).to(dtype) for a in make_attention_bwd_case(
+        rng, 2, 4, 2, 6, 90, 32, 16, True, window))
+    q.requires_grad_(True)
+    out, lse = ops.flash_attention(q, k, v, window=window, kv_len=kv_len, return_lse=True)
+    exp_out, exp_lse = ref.flash_attention_ref(q.detach(), k, v, window=window, kv_len=kv_len,
+                                               return_lse=True)
+    assert not out.requires_grad and not lse.requires_grad
+    assert (lse.dtype, tuple(lse.shape)) == (torch.float32, (2, 4, 6))
+    assert torch.equal(out, exp_out) and torch.equal(lse, exp_lse)
+    assert torch.equal(out, ops.flash_attention(q, k, v, window=window, kv_len=kv_len))
+
+
+def _stacked_all_reduce(t, op):
+    """The ranks stacked along dim 0 on one process: each rank's slice
+    replaced by the reduction over the ranks."""
+    red = t.amax(dim=0) if op == torch.distributed.ReduceOp.MAX else t.sum(dim=0)
+    t.copy_(red.expand_as(t))
+
+
+# (ranks, positions a rank, pos, window): every block full; blocks past pos
+# empty; a window inside one block; across two; exactly one block ending at
+# pos (the last position of a slice); a window of one key; odd sizes
+SPLITS = [(2, 8, 15, None), (4, 8, 9, None), (4, 8, 30, 5), (4, 8, 20, 10), (4, 8, 23, 8),
+          (4, 8, 24, 1), (3, 5, 14, None), (4, 16, 63, 32)]
+
+
+@pytest.mark.parametrize("source", ["k4", "local"])
+@pytest.mark.parametrize("ranks,block,pos,window", SPLITS)
+def test_merge_of_key_blocks_is_whole_attention(rng, ranks, block, pos, window, source):
+    """A decode row at ``pos`` over keys split into ``ranks`` blocks of
+    ``block`` positions: each block's ``(out, lse)`` over the keys it holds
+    in ``[pos - window + 1, pos]`` (K4 over its filled prefix with the
+    window's count of keys, or ``local_attention`` over the kept keys; a
+    block with none gives 0 and ``+inf``), merged, equals the attention over
+    the filled prefix of the whole cache within 1e-6."""
+    B, Hq, Hkv, D = 2, 4, 2, 16
+    T = ranks * block
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((B, Hq, 1, D), (B, Hkv, T, D), (B, Hkv, T, D)))
+    want = ref.flash_attention_ref(q, k, v, window=window, kv_len=pos + 1)
+    lo = 0 if window is None else max(pos - window + 1, 0)
+    outs, lses, kept = [], [], []
+    for r in range(ranks):
+        base = r * block
+        n = min(max(pos + 1 - base, 0), block)
+        a = min(max(lo - base, 0), n)
+        kb, vb = k[:, :, base:base + block].contiguous(), v[:, :, base:base + block].contiguous()
+        kept.append(n - a)
+        if n == a:
+            o, lse = torch.zeros(B, Hq, 1, D), torch.full((B, Hq, 1), math.inf)
+        elif source == "k4":
+            o, lse = ops.flash_attention(q, kb, vb, window=n - a, kv_len=n, return_lse=True)
+        else:
+            logits = torch.einsum("bkrsd,bktd->bkrst", q.reshape(B, Hkv, 2, 1, D),
+                                  kb[:, :, a:n]) / math.sqrt(D)
+            o, lse = split_softmax.local_attention(logits, vb[:, :, None, a:n])
+            o, lse = o.reshape(B, Hq, 1, D), lse.reshape(B, Hq, 1)
+        outs.append(o)
+        lses.append(lse)
+    assert sum(kept) == pos + 1 - lo
+    got = split_softmax.merge(torch.stack(outs), torch.stack(lses), _stacked_all_reduce)
+    for r in range(ranks):
+        _close(got[r].numpy(), want.numpy(), 1e-6, f"rank {r}")
+    if 0 in kept:   # the control: an empty block weighted as if it held keys
+        bad = split_softmax.merge(torch.stack(outs), torch.stack(lses).nan_to_num(posinf=0.0),
+                                  _stacked_all_reduce)
+        with pytest.raises(AssertionError):
+            _close(bad[0].numpy(), want.numpy(), 1e-6)

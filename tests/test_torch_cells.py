@@ -7,10 +7,11 @@ lowering them, and dumps each argument leaf's global shape, dtype and
 ``PartitionSpec``, ``skip``, ``meta``, ``donate_argnums`` and
 ``spec_bytes``.  The port builds its cells on fake process groups of the
 same meshes (``launch.dryrun.fake_mesh``) and must match leaf for leaf.
-The skips the port adds are listed in ``PORT_SKIPS``: decode over a cache
-split along ``head_dim`` or ``kv_lora`` over ``"model"`` and decode over a
-sequence-split cache; the LM train and prefill cells (tensor parallelism
-over ``"model"``), the GNN and xDeepFM cells run wherever JAX's do.
+The port adds no skip of its own (``PORT_SKIPS`` is empty): the LM train
+and prefill cells (tensor parallelism over ``"model"``), every decode cell
+(its cache split by kv heads, along ``head_dim`` or ``kv_lora`` over
+``"model"``, along its sequence over the data ranks, or both), the GNN and
+xDeepFM cells run wherever JAX's do.
 """
 import json
 import os
@@ -25,7 +26,6 @@ import torch
 from repro_torch.configs import ALL_ARCHS, get_arch
 from repro_torch.configs import reachability
 from repro_torch.configs.cell import TensorSpec, map_specs, spec_bytes
-from repro_torch.configs.lm_cells import KV_SPLIT_SKIP, SEQ_SKIP
 from repro_torch.core.distribution_device import (build_sweep_specs, init_state,
                                                   make_sharded_distribute_one)
 from repro_torch.core.order import get_order
@@ -38,8 +38,9 @@ from repro_torch.tree import tree_leaves
 HERE = pathlib.Path(__file__).resolve().parent
 SRC = HERE.parent / "src"
 MESHES = (("single", "baseline"), ("multi", "baseline"), ("single", "tp1"))
-# the skips the port adds to JAX's, each naming the ROADMAP item that lifts it
-PORT_SKIPS = tuple(s.split("{")[0] for s in (KV_SPLIT_SKIP, SEQ_SKIP))
+# the skips the port adds to JAX's: none since decode runs over every cache
+# placement (ROADMAP.md Queue 1, items 12.10 and 12.9)
+PORT_SKIPS = ()
 # the families whose every cell has JAX's skip (None on every mesh here)
 NO_PORT_SKIP = ("gcn-cora", "gatedgcn", "schnet", "graphcast", "xdeepfm")
 
@@ -132,8 +133,8 @@ def port_records(jax_cells):
 def test_cells_match_jax(arch, jax_records, port_records):
     """Every cell of ``arch`` on the three meshes: kind, argument leaves
     (global shape, dtype, PartitionSpec), donated arguments, spec bytes and
-    meta equal JAX's; JAX's skips are the port's, and each skip the port adds
-    is one of ``PORT_SKIPS`` and keeps the specs and meta."""
+    meta equal JAX's; JAX's skips are the port's, and the port adds none
+    (``PORT_SKIPS``): every cell JAX runs has a ``fn``."""
     keys = [k for k in jax_records if k.startswith(arch + "|")]
     assert keys and set(keys) == {k for k in port_records if k.startswith(arch + "|")}
     for key in keys:
@@ -141,22 +142,20 @@ def test_cells_match_jax(arch, jax_records, port_records):
         assert (p["kind"], p["donate"], p["leaves"], p["bytes"]) == (
             j["kind"], j["donate"], j["leaves"], j["bytes"]), key
         assert p["meta"] == j["meta"], key
-        if j["skip"] is not None:
-            assert p["skip"] == j["skip"], key
-        elif p["skip"] is not None:
-            assert p["skip"].startswith(PORT_SKIPS), (key, p["skip"])
-            assert "ROADMAP.md Queue 1, item" in p["skip"]
-        assert p["fn"] == (p["skip"] is None), key
+        assert p["skip"] == j["skip"], key
+        assert not PORT_SKIPS and p["fn"] == (p["skip"] is None), key
 
 
 def test_port_skips_are_the_listed_ones(port_records, jax_records):
     """Where the port runs a cell and where it skips: on ``single`` and
-    ``multi`` (model 16) every LM train_4k and prefill_32k cell runs
-    (tensor parallelism over ``"model"``) and so does deepseek-7b's
-    decode_32k (32 kv heads, 2 a model rank); the other four decode_32k
-    cells, whose cache JAX splits along ``head_dim`` or ``kv_lora``, skip
-    for item 12.10 and danube's long_500k for item 12.9.  On ``tp1`` (model
-    1) the LM train cells run.  Every GNN cell (the data-sharded losses) and
+    ``multi`` (model 16) every LM train_4k, prefill_32k and decode_32k cell
+    runs (deepseek-7b's cache by kv heads, the other four's along
+    ``head_dim`` or ``kv_lora``: item 12.10) and so does danube's long_500k
+    (batch 1: the cache along its sequence over the data ranks and along
+    ``head_dim``, items 12.9 and 12.10); the 4 cells left skipped are JAX's
+    own long_500k notes.  On ``tp1`` (model 1, 256 data ranks) the LM train
+    cells run and so do the 6 decode cells whose batch is smaller than the
+    data ranks (item 12.9).  Every GNN cell (the data-sharded losses) and
     every xDeepFM cell (the tables row-sharded over ``"model"``) has JAX's
     skip on all three meshes, as every oracle cell does."""
     run = {k for k, r in port_records.items() if r["skip"] is None}
@@ -168,16 +167,16 @@ def test_port_skips_are_the_listed_ones(port_records, jax_records):
         for arch in lm:
             for shape in ("train_4k", "prefill_32k"):
                 assert f"{arch}|{shape}{tag}" in run, (arch, shape, mk)
-            dec = port_records[f"{arch}|decode_32k{tag}"]["skip"]
-            if arch == "deepseek-7b":
-                assert dec is None
-            else:
-                assert dec.startswith(KV_SPLIT_SKIP.split("{")[0]) and "item 12.10" in dec, dec
-        assert port_records[f"h2o-danube-1.8b|long_500k{tag}"]["skip"].startswith(
-            SEQ_SKIP.split("{")[0])
+            assert f"{arch}|decode_32k{tag}" in run, (arch, mk)
+        assert f"h2o-danube-1.8b|long_500k{tag}" in run
         ok = sum(k.endswith(tag) for k in run)
-        skipped = sum(k.endswith(tag) and k not in run for k in port_records)
-        assert (ok, skipped) == (35, 9), (mk, ok, skipped)
+        skipped = [k for k in port_records if k.endswith(tag) and k not in run]
+        assert (ok, len(skipped)) == (40, 4), (mk, ok, skipped)
+        assert all("DESIGN.md" in port_records[k]["skip"] and "|long_500k|" in k
+                   for k in skipped), skipped
+    seq_split = [f"{arch}|decode_32k|single|tp1" for arch in lm] + [
+        "h2o-danube-1.8b|long_500k|single|tp1"]
+    assert set(seq_split) <= run and len(seq_split) == 6
     for key, rec in port_records.items():
         if key.startswith(NO_PORT_SKIP + ("reachability-oracle",)):
             assert rec["skip"] == jax_records[key]["skip"], key

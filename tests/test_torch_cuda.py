@@ -1157,6 +1157,49 @@ def test_flash_attention_lse_matches_plain(cuda, rng, case):
     torch.testing.assert_close(lse[:, :, seen], exp[:, :, seen], rtol=0, atol=ATTENTION_LSE_TOL)
 
 
+# decode rows of the float32 short-row kernel with their lse: (B, Hq, Hkv, T,
+# D, kv_len, window); danube's 32 q heads over 8 kv heads of 80, a window
+# inside the prefix, a window of one key, the whole cache
+F32_LSE_DECODE_CASES = [(1, 32, 8, 4096, 80, 4096, None), (1, 32, 8, 4096, 80, 1000, 300),
+                        (1, 32, 8, 4096, 80, 4096, 1), (2, 4, 2, 100, 64, 37, None)]
+
+
+@pytest.mark.parametrize("case", ATTENTION_BWD_CASES, ids=case_id)
+def test_flash_attention_f32_lse_matches_plain(cuda, rng, case):
+    """K4's float32 kernel writes each row's base-2 log-sum-exp when asked
+    (``return_lse``, at inference): within ATTENTION_LSE_TOL of the plain
+    version's where a row sees a key, +inf where it sees none; its output equal, bit for
+    bit, to the call that keeps none."""
+    B, Hq, Hkv, S, T, D, Dv, causal, window = case
+    q, k, v, _ = (torch.from_numpy(a).to(cuda) for a in make_attention_bwd_case(rng, *case))
+    out, lse = _launched("flash_attention", lambda: ops.flash_attention(
+        q, k, v, causal=causal, window=window, return_lse=True))
+    assert lse.dtype == torch.float32 and lse.shape == (B, Hq, S)
+    assert torch.equal(out, ops.flash_attention(q, k, v, causal=causal, window=window))
+    _, exp = ref.flash_attention_ref(q, k, v, causal=causal, window=window, return_lse=True)
+    seen = torch.from_numpy(attention_rows_seeing_a_key(S, T, causal, window)).to(cuda)
+    assert torch.isposinf(lse[:, :, ~seen]).all()
+    torch.testing.assert_close(lse[:, :, seen], exp[:, :, seen], rtol=0, atol=ATTENTION_LSE_TOL)
+
+
+@pytest.mark.parametrize("case", F32_LSE_DECODE_CASES)
+def test_flash_attention_f32_decode_lse_matches_plain(cuda, rng, case):
+    """The float32 short-row kernel's lse at decode (one query row a q head
+    over a filled prefix ``kv_len`` of a longer cache, a window), as a
+    rank of a sequence-split decode asks for it: out (2e-5) and lse
+    (ATTENTION_LSE_TOL) against the plain version."""
+    B, Hq, Hkv, T, D, kv_len, window = case
+    q = torch.from_numpy(rng.standard_normal((B, Hq, 1, D)).astype(np.float32)).to(cuda)
+    k, v = (torch.from_numpy(rng.standard_normal((B, Hkv, T, D)).astype(np.float32)).to(cuda)
+            for _ in range(2))
+    out, lse = _launched("flash_attention", lambda: ops.flash_attention(
+        q, k, v, window=window, kv_len=kv_len, return_lse=True))
+    exp_out, exp = ref.flash_attention_ref(q, k, v, window=window, kv_len=kv_len,
+                                           return_lse=True)
+    torch.testing.assert_close(out, exp_out, rtol=0, atol=2e-5)
+    torch.testing.assert_close(lse, exp, rtol=0, atol=ATTENTION_LSE_TOL)
+
+
 def test_flash_attention_bwd_bf16_keeps_lse_on_the_card(cuda, rng):
     """``loss.backward()`` through a bfloat16 ``ops.flash_attention`` launches
     the forward once (keeping lse) and the tensor-core backward once, no

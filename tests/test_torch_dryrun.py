@@ -272,3 +272,63 @@ def test_attention_pairs_count_the_masks(S, T, causal, window):
         keep &= t > qpos - window
     assert ops.attention_pairs(S, T, causal, window) == (int(keep.sum()),
                                                          int(keep.any(0).sum()))
+
+
+def test_head_dim_split_decode_counts_its_collectives():
+    """A decode over a cache split along ``head_dim`` (granite's smoke
+    config at decode_32k's shapes: 2 kv heads over 4 model ranks, 4 of 16
+    dims a rank) on a (1, 4) fake mesh: each layer gathers q, k and v whole
+    and the heads' output slices (4 all-gathers), and all-reduces the
+    partial logits ([128, 4 heads, 32,768 keys] float32), wo's and the
+    FFN's partial outputs (3); the embedding's all-reduce and the logits'
+    all-gather once.  No K4 launch: the step is plain torch."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import granite_3_2b, lm_cells
+    from repro_torch.models import transformer as tf
+
+    cfg = granite_3_2b.smoke_config()
+    try:
+        mesh = dryrun.fake_mesh((1, 4), ("data", "model"))
+        cell = lm_cells.lm_cell(cfg, "granite-3-2b", "decode_32k", mesh)
+        rec = dryrun.trace_cell(cell, mesh)
+    finally:
+        dist.destroy_process_group()
+    L, B, T, d = cfg.n_layers, 128, 32768, cfg.d_model
+    assert tf.cache_split(cfg, 4) == "head_dim"
+    assert rec["comm_counts"] == {"c10d.allreduce_": 3 * L + 1,
+                                  "c10d._allgather_base_": 4 * L + 1}
+    assert rec["collectives"]["all-reduce"] == B * d * 4 + L * (B * 4 * T * 4 + 2 * B * d * 4)
+    assert "flash_attention" not in rec["kernels"]
+
+
+@pytest.mark.parametrize("arch,launches", [("granite-3-2b", True), ("h2o-danube-1.8b", False)])
+def test_seq_split_decode_counts_its_collectives(arch, launches):
+    """A decode over a cache split along its sequence (long_500k's batch of
+    1 and 524,288 positions, 131,072 a rank) on a (4, 1) fake mesh, rank 0
+    at the last position: each layer merges the ranks' rows by two
+    all-reduces, the max of the lse ([1, 4, 1] float32) and the weighted
+    outputs beside their weights ([1, 4, 1, 17]).  Granite's rank 0 holds
+    all its keys (K4 once a layer, with its lse); danube's window of 32
+    keeps none of rank 0's, which calls no kernel."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import lm_cells
+
+    cfg = get_arch(arch).smoke_config()
+    try:
+        mesh = dryrun.fake_mesh((4, 1), ("data", "model"))
+        cell = lm_cells.lm_cell(cfg, arch, "long_500k", mesh, sub_quadratic=True)
+        rec = dryrun.trace_cell(cell, mesh)
+    finally:
+        dist.destroy_process_group()
+    L = cfg.n_layers
+    assert rec["comm_counts"] == {"c10d.allreduce_": 2 * L}
+    assert rec["collectives"]["all-reduce"] == L * (4 * 4 + 4 * 17 * 4)
+    if launches:
+        k4 = rec["kernels"]["flash_attention"]
+        assert k4["calls"] == L
+        # q, the 131,072 keys and values of 2 kv heads, out and the lse
+        assert k4["bytes"] == L * (4 * 16 * 4 * 2 + 2 * 131072 * 32 * 4 + 4 * 4)
+    else:
+        assert "flash_attention" not in rec["kernels"]

@@ -17,15 +17,26 @@ with JAX's params (``params_from_jax``) taken to each rank's blocks by
     ``param_pspecs`` splits over ``"model"``;
   * the control: the same steps with ``copy_to_model``'s backward the
     identity (the replicated parameters' gradients partial) rejected;
-  * ``prefill``'s last logits and, where the cache splits by kv heads
-    (deepseek-7b on every mesh, the GQA archs at 2 model ranks), every
-    ``decode_step``'s logits against JAX's within the float32 bound of
-    ``tests/test_torch_models_lm.py``; elsewhere the decode raises naming
-    ROADMAP.md Queue 1, item 12.10;
+  * ``prefill``'s last logits and every ``decode_step``'s logits against
+    JAX's within the float32 bound of ``tests/test_torch_models_lm.py``, the
+    cache placed as JAX's ``_cache_pspecs`` places it: by kv heads
+    (deepseek-7b on every mesh, the GQA archs at 2 model ranks), along
+    ``head_dim`` (the GQA archs at 4 model ranks: 2 kv heads, 4 of 16 dims a
+    rank) or along ``kv_lora`` (MLA on every mesh); the cache gathered whole
+    (``gather_cache``) against JAX's after the last step;
+  * the cache split along its sequence over the data ranks (batch 1), in
+    the same worlds (``SEQ_CASES``): (2, 1) and (4, 1) with steps past
+    every block's boundary and ranks with no key kept (danube's window of
+    32 across a boundary), (2, 2) for MLA (the sequence and ``kv_lora``)
+    and for GQA with one kv head (the sequence and ``head_dim``), each
+    step's logits and the gathered cache against JAX's ``decode_step`` on
+    the whole cache, ``shard_cache(gather_cache(c))`` the rank's blocks
+    byte for byte;
   * ``gather_params(shard_params(p))`` equal to ``p`` byte for byte, the
     blocks of ``param_pspecs``' shapes; ``UnevenShard`` where the model
     ranks do not divide a dimension.
 """
+import dataclasses
 import os
 import pickle
 import subprocess
@@ -52,9 +63,20 @@ N_ACCUM = 2
 # MoE's dispatch groups of 32 evenly), a prompt of 2 x 48, 16 decode steps
 BATCH, SEQ, PROMPT, DECODE = 8, 48, (2, 48), (2, 16)
 ATOL = 1e-4   # float32 logits, tests/test_torch_models_lm.py's
+# decode over a cache split along its sequence (batch 1): name -> (arch,
+# mesh, cache length = steps, n_kv_heads or None for the smoke config's).
+# danube's window is 32: at 64 positions over 2 ranks the last step keeps
+# rank 1's block alone, over 4 ranks it spans three blocks of 16
+SEQ_CASES = {"s21_granite": ("granite-3-2b", (2, 1), 32, None),
+             "s21_danube": ("h2o-danube-1.8b", (2, 1), 64, None),
+             "s41_danube": ("h2o-danube-1.8b", (4, 1), 64, None),
+             "s41_mla": ("deepseek-v2-lite-16b", (4, 1), 32, None),
+             "s22_mla": ("deepseek-v2-lite-16b", (2, 2), 32, None),
+             "s22_granite_kv1": ("granite-3-2b", (2, 2), 32, 1),
+             "s22_danube_kv1": ("h2o-danube-1.8b", (2, 2), 64, 1)}
 
 JAX_SNIPPET = """
-import pickle, sys
+import dataclasses, pickle, sys
 import jax, jax.numpy as jnp, numpy as np
 from jax.sharding import Mesh
 from repro.configs import get_arch
@@ -62,6 +84,17 @@ from repro.configs.lm_cells import make_train_step
 from repro.models import transformer as jtf
 from repro.optim import adamw_init
 job = pickle.load(open(sys.argv[1], 'rb'))['tp']
+
+def decode(cfg, params, toks):
+    # every step's logits over a cache as long as the steps, and the cache
+    cache = jtf.init_cache(cfg, toks.shape[0], toks.shape[1])
+    dec = jax.jit(lambda c, t: jtf.decode_step(cfg, params, c, t))
+    logits = []
+    for t in range(toks.shape[1]):
+        lg, cache = dec(cache, jnp.asarray(toks[:, t:t + 1]))
+        logits.append(np.asarray(lg))
+    return np.stack(logits), {k: np.asarray(v) for k, v in cache.items() if k != 'pos'}
+
 mesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ('data', 'model'))
 res = {}
 for arch, case in job['cases'].items():
@@ -77,15 +110,14 @@ for arch, case in job['cases'].items():
            'params': jax.tree.map(np.asarray, p),
            'state': jax.tree.map(np.asarray, (st.mu, st.nu, st.master)),
            'prefill': np.asarray(jtf.prefill(cfg, params, jnp.asarray(case['prompt'])))}
-    toks = case['decode']
-    cache = jtf.init_cache(cfg, toks.shape[0], toks.shape[1])
-    dec = jax.jit(lambda c, t: jtf.decode_step(cfg, params, c, t))
-    logits = []
-    for t in range(toks.shape[1]):
-        lg, cache = dec(cache, jnp.asarray(toks[:, t:t + 1]))
-        logits.append(np.asarray(lg))
-    out['decode'] = np.stack(logits)
+    out['decode'], out['decode_cache'] = decode(cfg, params, case['decode'])
     res[arch] = out
+for name, case in job['seq'].items():
+    cfg = get_arch(case['arch']).smoke_config()
+    if case['n_kv_heads']:
+        cfg = dataclasses.replace(cfg, n_kv_heads=case['n_kv_heads'])
+    params = jax.tree.map(jnp.asarray, case['params'])
+    res[('seq', name)] = dict(zip(('decode', 'cache'), decode(cfg, params, case['tokens'])))
 pickle.dump(res, open(sys.argv[2], 'wb'))
 print('JAX_TP_OK')
 """
@@ -105,7 +137,16 @@ def _tp_job(rng) -> dict:
                       "labels": lab},
             "prompt": rng.integers(0, cfg.vocab, PROMPT).astype(np.int32),
             "decode": rng.integers(0, cfg.vocab, DECODE).astype(np.int32)}
-    return {"meshes": MESHES, "cases": cases}
+    seq = {}
+    for name, (arch, mesh, steps, n_kv) in SEQ_CASES.items():
+        cfg = jax_arch(arch).smoke_config()
+        if n_kv:
+            cfg = dataclasses.replace(cfg, n_kv_heads=n_kv)
+        seq[name] = {"arch": arch, "mesh": mesh, "n_kv_heads": n_kv,
+                     "params": jax.tree.map(np.asarray, jtf.init_params(cfg,
+                                                                        jax.random.PRNGKey(1))),
+                     "tokens": rng.integers(0, cfg.vocab, (1, steps)).astype(np.int32)}
+    return {"meshes": MESHES, "cases": cases, "seq": seq}
 
 
 @pytest.fixture(scope="module")
@@ -201,25 +242,59 @@ def test_prefill_matches_jax(runs, mesh, arch):
         np.testing.assert_allclose(res["prefill"], want, rtol=0, atol=ATOL)
 
 
+def _check_cache(got: dict, want: dict, what: str) -> None:
+    """The port's cache gathered whole against JAX's: the same leaves and
+    shapes, within ``ATOL``.  (Not byte for byte: the layers past the first
+    read a residual stream that differs from JAX's in its last bits, as the
+    logits do.)"""
+    assert sorted(got) == sorted(want), what
+    for k in want:
+        assert got[k].shape == want[k].shape, (what, k)
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=ATOL, err_msg=f"{what} {k}")
+
+
 @pytest.mark.parametrize("arch", LM_ARCHS)
 @pytest.mark.parametrize("mesh", list(MESHES))
 def test_decode_steps_match_jax(runs, mesh, arch):
-    """Where the cache splits by kv heads over the model ranks (as
-    ``configs.lm_cells.lm_cell`` runs a decode cell), every step's logits
-    against JAX's ``decode_step``; elsewhere the step raises, naming the
-    ROADMAP item that would lift it."""
+    """Every step's logits against JAX's ``decode_step``, the cache placed
+    over the model ranks as ``configs.lm_cells._cache_pspecs`` places it
+    (``transformer.cache_split``): by kv heads, along ``head_dim`` (GQA's 2
+    kv heads over 4 ranks) or along ``kv_lora`` (MLA); the cache gathered
+    whole against JAX's after the last step."""
     cfg = get_arch(arch).smoke_config()
     tp = MESHES[mesh][1]
-    by_heads = cfg.mla is None and cfg.n_kv_heads % tp == 0
-    want = runs["jax"][arch]["decode"]
-    for res in runs["port"][(mesh, arch)]:
-        if by_heads:
-            assert res["decode"].shape == want.shape
-            np.testing.assert_allclose(res["decode"], want, rtol=0, atol=ATOL)
-        else:
-            assert "ROADMAP.md Queue 1, item 12.10" in res["decode"]
+    split = tf.cache_split(cfg, tp)
+    assert split == ("kv_lora" if cfg.mla is not None else
+                     "heads" if cfg.n_kv_heads % tp == 0 else "head_dim")
     if arch == "deepseek-7b":
-        assert by_heads
+        assert split == "heads"
+    want = runs["jax"][arch]
+    for r, res in enumerate(runs["port"][(mesh, arch)]):
+        assert res["decode"].shape == want["decode"].shape
+        np.testing.assert_allclose(res["decode"], want["decode"], rtol=0, atol=ATOL)
+        _check_cache(res["decode_cache"], want["decode_cache"], f"{mesh} {arch} rank {r}")
+
+
+@pytest.mark.parametrize("case", list(SEQ_CASES))
+def test_seq_split_decode_matches_jax(runs, case):
+    """A decode over a cache split along its sequence over the data ranks
+    (batch 1, the tokens the same on every rank), and along ``head_dim`` or
+    ``kv_lora`` over the model ranks where the mesh has two: every step's
+    logits on every rank and the cache gathered whole against JAX's
+    ``decode_step`` on the whole cache; each rank's blocks the same bytes
+    after ``shard_cache(gather_cache(...))``; the rank of the last block
+    holding no filled key before its block starts."""
+    arch, mesh, steps, _ = SEQ_CASES[case]
+    want = runs["jax"][("seq", case)]
+    ranks = runs["port"][("seq", case)]
+    assert len(ranks) == mesh[0] * mesh[1]
+    for r, res in enumerate(ranks):
+        assert res["decode"].shape == want["decode"].shape == (steps, 1, 1,
+                                                               want["decode"].shape[-1])
+        np.testing.assert_allclose(res["decode"], want["decode"], rtol=0, atol=ATOL,
+                                   err_msg=f"{case} rank {r}")
+        _check_cache(res["cache"], want["cache"], f"{case} rank {r}")
+        assert res["round_trip"] and res["block"] == steps // mesh[0]
 
 
 @pytest.mark.parametrize("arch", LM_ARCHS)

@@ -139,7 +139,7 @@ def _library_inputs(kernel: str, device, bag_width=None):
             excess = cs._attention_excess(out, exp)
             cs.check(excess <= 1, f"flash_attention differs from its plain version: {excess}")
             return float((out - exp).abs().max())
-        args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), c["B"], c["Hq"],
+        args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, c["B"], c["Hq"],
                 c["Hkv"], c["S"], c["T"], c["T"], c["D"], c["D"], int(c["causal"]), 0, 0,
                 1.0 / math.sqrt(c["D"])]
         return args, out, exp, attention, (q, k, v)
@@ -354,9 +354,10 @@ def main(argv=None) -> int:
                 fn.argtypes = argtypes[:-2] + [ctypes.c_void_p] + argtypes[-2:]
                 full = full[:-1] + [d_flag.data_ptr()] + full[-1:]
             elif args.kernel == "flash_attention" and _arity(src, symbol) < len(argtypes):
-                # a source from before Dv (the argument after D) and, one fewer, from
+                # a source from before the lse pointer (the argument after out), one
+                # fewer from before Dv (the argument after D), one fewer again from
                 # before kv_len (the argument after T)
-                drop = {11} if _arity(src, symbol) == len(argtypes) - 1 else {9, 11}
+                drop = set((4, 12, 10)[:len(argtypes) - _arity(src, symbol)])
                 fn.argtypes = [a for i, a in enumerate(argtypes) if i not in drop]
                 full = [a for i, a in enumerate(full) if i not in drop]
             launches.append(lambda fn=fn, full=full: fn(*full, stream.cuda_stream))
