@@ -18,9 +18,12 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      backwards of K4 (``flash_attention_bwd``, both dtypes, each through the
      kernel of its dtype: bfloat16 ``flash_attention_bwd_sm90`` on the
      tensor cores, reading the lse K4's bfloat16 forward keeps (held to the
-     plain lse within ``ATTENTION_LSE_TOL``), float32 on the CUDA cores;
-     within ``ATTENTION_BWD_TOL``, rows that see no key without a gradient, a
-     dk missing its last key tile rejected), K5 (its transposed launch) and K6
+     plain lse within ``ATTENTION_LSE_TOL``), float32 ``flash_attention_bwd``
+     on the CUDA cores, reading the float32 forward's lse with no forward
+     launch; within ``ATTENTION_BWD_TOL``, rows that see no key without a
+     gradient, a dk missing its last key tile rejected, in float32 a dq
+     missing the last key tile's parts too), K5 and its transposed launch
+     (the narrow-row kernel's widths among them) and K6
      (``embedding_bag_bwd``, repeated ids) at 1e-5 on ``ATTENTION_BWD_CASES``,
      ``SPMM_BWD_CASES`` and ``BAG_BWD_CASES``.  K1 has two
      kernels: its batch form ``serve_batch`` (the engine's kernel backend,
@@ -43,10 +46,10 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      granite decode_32k and in float32 (the CUDA-core kernel
      ``flash_attention``) at granite prefill, ELL SpMM at ogb_products,
      embedding bags at xDeepFM's serve_bulk batch; the launch counts read
-     around exactly that drive; K4's bfloat16 backward at deepseek-7b's
-     heads of 128 and MLA's (192, 128), 1 x 4,096 causal
-     (``ATTENTION_BWD_CONFIGS``, comparison launches, beside SDPA's
-     backward); each kernel against its plain version, timed
+     around exactly that drive; K4's backward kernels, bfloat16 and
+     float32, at deepseek-7b's heads of 128 and MLA's (192, 128), 1 x 4,096
+     causal (``ATTENTION_BWD_CONFIGS``, comparison launches, beside SDPA's
+     backward in the same dtype); each kernel against its plain version, timed
      beside its bound, its plain version and the PyTorch library call (K3,
      K5 and K6 also beside their gather floor: the bytes a gather moves when
      no source row is reused from L2, K6's in whole 32-byte sectors);
@@ -205,9 +208,10 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      kernels at the path's own calls against their plain versions, timed
      beside their bound, their plain versions and the PyTorch call (SDPA's
      backward, ``F.embedding_bag``'s, ``torch.sparse.mm`` on the
-     transpose): the kernels line's ``flash_attention_bwd``,
-     ``embedding_bag_bwd`` and ``ell_spmm_bwd``, and 4k's launches join the
-     forward kernels' counts;
+     transpose): the kernels line's ``flash_attention_bwd_sm90`` (the
+     bfloat16 step's layer 0), ``flash_attention_bwd`` (float32: the float32
+     check's layer 0, its launches that check's), ``embedding_bag_bwd`` and
+     ``ell_spmm_bwd``, and 4k's launches join the forward kernels' counts;
   4l. training across ranks, after 4k and before 4d: ``DIST_WORLD`` (4)
      gloo ranks on the one card, spawned once 4i (b)'s have ended (they warm
      up beside 4e) and let go once 4k has ended (see ``DIST_WORLD``'s comment): (a)
@@ -1030,12 +1034,15 @@ def _backwards_vs_plain(rng, device) -> dict:
     MLA's (192, 128), rows that see no key: no gradient there; the bfloat16
     kernel also counted as ``flash_attention_bwd_sm90``, with the lse it
     reads made by K4's bfloat16 forward, held against the plain lse within
-    ``ATTENTION_LSE_TOL``) within ``ATTENTION_BWD_TOL``, the plain backward
-    recomputing its softmax, and a control it must reject (the dk of the
-    last key tile zeroed); K6's ``embedding_bag_bwd`` (repeated ids, padding,
-    xDeepFM's two layouts) and K5 over the transposed rows (empty rows, a
-    row past a warp's slots) within 1e-5, each through its autograd Function
-    too, one launch counted under its own name.  Returns {kernel: cases}."""
+    ``ATTENTION_LSE_TOL``; the float32 kernel given its forward's lse, with
+    no forward launch) within ``ATTENTION_BWD_TOL``, the plain backward
+    recomputing its softmax, and the controls it must reject (the dk of the
+    last key tile zeroed; in float32 a dq without the last key tile's
+    parts); K6's ``embedding_bag_bwd`` (repeated ids, padding, xDeepFM's two
+    layouts) and K5 and K5 over the transposed rows (empty rows, rows past a
+    warp's slots both ways, the narrow-row kernel's widths and F = 65)
+    within 1e-5, each through its autograd Function too, one launch counted
+    under its own name.  Returns {kernel: cases}."""
     import library_cases as lc
     import torch
 
@@ -1050,14 +1057,22 @@ def _backwards_vs_plain(rng, device) -> dict:
         blind = t(~lc.attention_rows_seeing_a_key(S, T, causal, window))
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, do = (t(a).to(dtype) for a in arrays)
-            o = ops.flash_attention(q, k, v, causal=causal, window=window)
+            f32 = dtype == torch.float32
+            # float32: the forward's lse, as training hands it over (no forward launch)
+            o, f_lse = (ops.flash_attention(q, k, v, causal=causal, window=window,
+                                            return_lse=True) if f32 else
+                        (ops.flash_attention(q, k, v, causal=causal, window=window), None))
+            torch.cuda.synchronize()
             before = dict(ops.LAUNCHES)
-            got = ops.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+            got = ops.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window,
+                                          lse=f_lse)
             torch.cuda.synchronize()
             what = f"flash_attention_bwd {dtype} {lc.case_id(case)}"
             own = ops.attention_bwd_kernel(dtype)
             check(ops.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
                   and ops.LAUNCHES[own] == before[own] + 1, f"{what}: not one launch")
+            check(not f32 or ops.LAUNCHES["flash_attention"] == before["flash_attention"],
+                  f"{what}: a forward launch beside the backward given the forward's lse")
             if dtype == torch.bfloat16:
                 _, lse = ops._flash_attention(q, k, v, causal, window, 1 / math.sqrt(D), T,
                                               return_lse=True)
@@ -1076,6 +1091,12 @@ def _backwards_vs_plain(rng, device) -> dict:
                 cut[:, :, -64:] = 0
                 check(_bwd_excess(cut, exp[1]) > 1,
                       f"{what}: the check passes a dk without its last key tile")
+            if f32:   # dq without the last key tile's parts (its keys keep their positions)
+                last = ref.flash_attention_bwd_ref(
+                    q, k[:, :, -64:].contiguous(), v[:, :, -64:].contiguous(), o, do,
+                    causal=causal, window=window, lse=f_lse)[0]
+                check(not bool(last.abs().max() > 0) or _bwd_excess(got[0] - last, exp[0]) > 1,
+                      f"{what}: the check passes a dq without its last key tile's parts")
             cases["flash_attention_bwd"] += 1
     for case in lc.BAG_BWD_CASES:
         V = case[0]
@@ -1096,8 +1117,12 @@ def _backwards_vs_plain(rng, device) -> dict:
         nbr, wgt, nbr_t, wgt_t, x, dout = (t(a) for a in lc.make_spmm_bwd_case(rng, *case))
         x.requires_grad_(True)
         before = dict(ops.LAUNCHES)
-        (ops.ell_spmm(nbr, wgt, x, nbr_t, wgt_t) * dout).sum().backward()
+        out = ops.ell_spmm(nbr, wgt, x, nbr_t, wgt_t)
+        (out * dout).sum().backward()
         torch.cuda.synchronize()
+        fwd = ref.ell_spmm_ref(nbr, wgt, x.detach())
+        check(torch.allclose(out.detach(), fwd, rtol=tol, atol=tol),
+              f"ell_spmm {lc.case_id(case)}: {float((out.detach() - fwd).abs().max())}")
         exp = ref.ell_spmm_ref(nbr_t, wgt_t, dout)
         check(ops.LAUNCHES["ell_spmm_bwd"] == before["ell_spmm_bwd"] + 1
               and ops.LAUNCHES["ell_spmm"] == before["ell_spmm"] + 1,
@@ -1154,6 +1179,26 @@ ATTENTION_BWD_CONFIGS = [
 ATTENTION_SYMBOLS = {"flash_attention_sm90": ("flash_attention_sm90_kernel",),
                      "flash_attention": ("flash_attention_tiled_kernel",
                                          "flash_attention_kernel")}
+# K4's two backward kernels, each a record of the kernels line (by its source
+# file's name) and the dtype it runs: ops counts every backward call as
+# flash_attention_bwd and the bfloat16 ones also as flash_attention_bwd_sm90,
+# so the float32 kernel's launches are the difference (_own_launches)
+BWD_RECORD_KERNELS = (("flash_attention_bwd_sm90", "bfloat16"),
+                      ("flash_attention_bwd", "float32"))
+
+
+def _own_launches(counts: dict) -> dict:
+    """Launch counts by the kernels line's records: ``flash_attention_bwd``
+    the float32 backward's alone (every backward call less the bfloat16
+    ones)."""
+    out = dict(counts)
+    if "flash_attention_bwd" in out:
+        out["flash_attention_bwd"] -= out.get("flash_attention_bwd_sm90", 0)
+    return out
+
+
+# K5's kernels, of which a call launches one: narrow rows (F <= 64) and wide
+SPMM_SYMBOLS = ("ell_spmm_narrow_kernel", "ell_spmm_kernel")
 # K5 at ogb_products (src/repro/configs/gnn_cells.py): n, m, d_feat; ELL width 32
 PRODUCTS = dict(n=2_449_029, m=61_859_140, F=100, d=32)
 # K6 at xDeepFM's table (src/repro/configs/xdeepfm_cfg.py: 39 fields x
@@ -1565,7 +1610,7 @@ def _spmm_record(label: str, nbr, wgt, x, out, device) -> dict:
     F_ = x.shape[1]
     # fifty calls, as K4's record traces: a trace of five held none of GCN's F = 16
     # launches three times running once
-    device_ms = _kernel_device_ms(kern, "ell_spmm_kernel", 50)
+    device_ms = _kernel_device_ms(kern, SPMM_SYMBOLS, 50)
     # ids, weights and out once, and one source row per valid slot: uniform ids
     # leave x no reuse from the 50 MB L2 where it is larger
     floor_ms = (n * d * 8 + n * F_ * 4 + valid * F_ * 4) / PEAK_BYTES_PER_S * 1e3
@@ -1704,33 +1749,35 @@ def phase_kernel_library(device, cases: dict) -> list:
             "cases_checked": cases[kernel] + len(mine),
             **{k: head[k] for k in HEAD_KEYS}, "configs": mine})
 
-    # ---- K4's backward at ATTENTION_BWD_CONFIGS: inputs from the seed, the
-    # forward's output and lse through K4 (comparison launches, not counted)
+    # ---- K4's backward at ATTENTION_BWD_CONFIGS, each kernel in its dtype:
+    # inputs from the seed, the forward's output and lse through K4
+    # (comparison launches, not counted)
     t_bwd = time.perf_counter()
-    bwd = []
-    for label, c in ATTENTION_BWD_CONFIGS:
-        q, k, v, do = (torch.randn(sh, generator=gen, device=device, dtype=torch.bfloat16)
-                       for sh in ((c["B"], c["Hq"], c["S"], c["D"]),
-                                  (c["B"], c["Hkv"], c["T"], c["D"]),
-                                  (c["B"], c["Hkv"], c["T"], c["Dv"]),
-                                  (c["B"], c["Hq"], c["S"], c["Dv"])))
-        o, lse = ops._flash_attention(q, k, v, True, None, 1 / math.sqrt(c["D"]), c["T"],
-                                      return_lse=True)
-        kw = dict(causal=True, window=None, lse=lse)
-        got = ops.flash_attention_bwd(q, k, v, o, do, **kw)
-        bwd.append(_attention_bwd_record(label + " (phase 3b)", (q, k, v, o, do), kw, got,
-                                         device))
-        del q, k, v, do, o, lse, got
-        torch.cuda.empty_cache()
-    records.append({
-        "name": "flash_attention_bwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:110",
-        "backward_of": "src/repro/kernels/flash_attention.py:110",
-        # no path of this phase trains: phase 4k's training counts its launches
-        "launches": 0, "matches_plain": True,
-        "cases_checked": cases["flash_attention_bwd"] + len(bwd),
-        **{k: bwd[0][k] for k in HEAD_KEYS}, "configs": bwd})
+    for name, dtype in BWD_RECORD_KERNELS:
+        bwd = []
+        for label, c in ATTENTION_BWD_CONFIGS:
+            q, k, v, do = (torch.randn(sh, generator=gen, device=device,
+                                       dtype=getattr(torch, dtype))
+                           for sh in ((c["B"], c["Hq"], c["S"], c["D"]),
+                                      (c["B"], c["Hkv"], c["T"], c["D"]),
+                                      (c["B"], c["Hkv"], c["T"], c["Dv"]),
+                                      (c["B"], c["Hq"], c["S"], c["Dv"])))
+            o, lse = ops._flash_attention(q, k, v, True, None, 1 / math.sqrt(c["D"]), c["T"],
+                                          return_lse=True)
+            kw = dict(causal=True, window=None, lse=lse)
+            got = ops.flash_attention_bwd(q, k, v, o, do, **kw)
+            bwd.append(_attention_bwd_record(label + " (phase 3b)", (q, k, v, o, do), kw, got,
+                                             device))
+            del q, k, v, do, o, lse, got
+            torch.cuda.empty_cache()
+        records.append({
+            "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:110",
+            "backward_of": "src/repro/kernels/flash_attention.py:110",
+            # no path of this phase trains: phase 4k's training counts its launches
+            "launches": 0, "matches_plain": True,
+            "cases_checked": cases["flash_attention_bwd"] // 2 + len(bwd),
+            **{k: bwd[0][k] for k in HEAD_KEYS}, "configs": bwd})
     t_bwd = time.perf_counter() - t_bwd
 
     # ---- K5: ogb_products against the plain version (row chunks) and CSR SpMM
@@ -4446,15 +4493,19 @@ def _dropped_key_tile():
 class _LastCall(_Calls):
     """``ops.<name>`` for the block, keeping the arguments and output of its
     last call that ``when(args)`` accepts (one call's tensors, not every
-    call's)."""
+    call's), detached: a tensor that kept its grad_fn would keep its step's
+    graph, and the parameters the graph reaches, on the card."""
 
     def __init__(self, name: str, when=lambda args: True):
         super().__init__(name)
         self.when, self.last = when, None
 
     def keep(self, args, kw, out) -> None:
+        import torch
+
         if self.when(args):
-            self.last = (args, kw, out)
+            det = lambda x: x.detach() if isinstance(x, torch.Tensor) else x  # noqa: E731
+            self.last = (tuple(det(a) for a in args), {k: det(v) for k, v in kw.items()}, out)
 
 
 class _EveryBwdCall(_Calls):
@@ -4551,17 +4602,16 @@ def _grad_check(name: str, loss_of, params, bound: float, control: bool = False,
 ATTENTION_BWD_SYMBOLS = {
     "bfloat16": ("attention_bwd_sm90_delta_kernel", "attention_bwd_sm90_kernel",
                  "attention_bwd_sm90_dq_kernel"),
-    "float32": ("attention_bwd_pre_kernel", "attention_bwd_dkdv_kernel",
-                "attention_bwd_dq_kernel")}
+    "float32": ("attention_bwd_f32_delta_kernel", "attention_bwd_f32_kernel")}
 
 
 def _attention_bwd_record(label: str, args: tuple, kw: dict, out: tuple, device) -> dict:
     """K4's backward at one call (captured on the training path, or made
     beside it): against its plain version (``ATTENTION_BWD_TOL``, the plain
     version recomputing its softmax); the wrapper's time with the call's
-    lse (three launches a call), its device time (the three kernels' sum),
-    the plain version's and SDPA's backward through autograd on the same
-    inputs; the bound."""
+    lse (three launches a call in bfloat16, two in float32), its device
+    time (their sum), the plain version's and SDPA's backward through
+    autograd on the same inputs in the same dtype; the bound."""
     import library_cases as lc
     import torch
     import torch.nn.functional as F
@@ -4594,7 +4644,9 @@ def _attention_bwd_record(label: str, args: tuple, kw: dict, out: tuple, device)
     lib_err = max(float((g.float() - e.float()).abs().max()) for g, e in zip(lib(), out))
     l1, l2 = _event_ms(lib, 3, warmup=1), _event_ms(lib, 3, warmup=1)
     dtype = str(q.dtype).removeprefix("torch.")
-    device_ms_by_kernel = _each_kernel_device_ms(kern, ATTENTION_BWD_SYMBOLS[dtype], 50)
+    # a float32 call takes milliseconds: ten make a trace as steady as fifty bf16 ones
+    device_ms_by_kernel = _each_kernel_device_ms(kern, ATTENTION_BWD_SYMBOLS[dtype],
+                                                 10 if dtype == "float32" else 50)
     device_ms = sum(device_ms_by_kernel.values())
     pairs = _attention_pairs(S, T, causal, window)
     # five products, a multiply and an add each: over D q k^T (recomputed),
@@ -4698,8 +4750,9 @@ def _lm_training(device, gen, smi: str) -> tuple:
     """granite-3-2b: the float32 check at TRAIN_F32_LAYERS layers (and its
     control), the bfloat16 check at 40, then launch.train.main for
     TRAIN_LM's steps; the step times and the peak memory; a profiled step.
-    Returns the record and the last K4 backward call of the run (for its
-    kernel record)."""
+    Returns the record, the last K4 backward call of the run (for its
+    kernel record) and the float32 K4 backward's record at the float32
+    check's last call."""
     import dataclasses
 
     import torch
@@ -4716,16 +4769,25 @@ def _lm_training(device, gen, smi: str) -> tuple:
     # float32 at 2 layers: a tight bound, and the control it must reject
     cfg = dataclasses.replace(full, n_layers=TRAIN_F32_LAYERS, dtype=torch.float32)
     params = tf.init_params(cfg, gen, device)
+    f32_call = _LastCall("flash_attention_bwd")   # layer 0's backward, the last
     f32 = rec["float32_check"] = _grad_check(
         "granite-3-2b float32", lambda p: tf.lm_loss(cfg, p, batch), params, TRAIN_F32_REL,
-        control=True)
+        control=True, every_call=f32_call)
     check(f32["launches"] == {"flash_attention": 2 * cfg.n_layers,
                               "flash_attention_bwd": cfg.n_layers},
           f"granite float32 step launches {f32['launches']}")
     check(f32["control_dropped_key_tile_max_rel"] > TRAIN_F32_REL,
           f"the float32 gradient bound passes a dk without its last key tile: "
           f"{f32['control_dropped_key_tile_max_rel']}")
-    del params
+    # the float32 K4 backward's record at its layer-0 call, made here so that
+    # nothing of the float32 step stays on the card through the rest of 4k
+    args, kw, out = f32_call.last
+    f32_call.last = None
+    k4_f32 = _attention_bwd_record(
+        f"granite-3-2b float32 training at {TRAIN_F32_LAYERS} layers, layer 0's backward, "
+        f"4 x 1,024 (phase 4k)", args, kw, out, device)
+    del params, args, kw, out
+    torch.cuda.empty_cache()
     marks.append(("float32_control_step", time.perf_counter()))
     # bfloat16 at all 40 layers, every K4 backward call held to its plain version
     params = tf.init_params(full, gen, device)
@@ -4780,7 +4842,7 @@ def _lm_training(device, gen, smi: str) -> tuple:
     torch.cuda.empty_cache()
     marks.append(("profiled_step", time.perf_counter()))
     rec["seconds_by_part"] = {b: t - a for (_, a), (b, t) in zip(marks, marks[1:])}
-    return rec, call
+    return rec, call, k4_f32
 
 
 # xDeepFM's and GCN's launches in ``steps`` steps: two gathers, two layers'
@@ -4914,7 +4976,7 @@ def phase_training(device, smi: str) -> dict:
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
     gen = torch.Generator(device=device)
     gen.manual_seed(27)
-    lm, k4_call = _lm_training(device, gen, smi)
+    lm, k4_call, k4_f32 = _lm_training(device, gen, smi)
     t_lm = time.perf_counter()
     xd, k6_call = _xdeepfm_training(device, smi)
     t_xd = time.perf_counter()
@@ -4924,10 +4986,13 @@ def phase_training(device, smi: str) -> dict:
     for r in (lm, xd, gc):
         for k, v in r["launches"].items():
             launches[k] = launches.get(k, 0) + v
-    # the backward kernels at the path's calls
+    # the backward kernels at the path's calls (the float32 K4 backward's at the
+    # float32 check's, whose launches it counts as its path's)
     (q, k, v, o, do), kw, out = k4_call
     k4 = _attention_bwd_record("granite-3-2b training, layer 0's backward, 4 x 1,024 "
                                "(phase 4k)", (q, k, v, o, do), kw, out, device)
+    del q, k, v, o, do, kw, out
+    f32_check = _own_launches(lm["float32_check"]["launches"])
     (idx, dout, V), _, out6 = k6_call
     k6 = _bag_bwd_record("xDeepFM training, the embedding rows' backward, batch 4,096 "
                          "(phase 4k)", idx, dout, V, out6)
@@ -4939,18 +5004,24 @@ def phase_training(device, smi: str) -> dict:
     del k4_call, k6_call, k5_call
     torch.cuda.empty_cache()
     records = []
-    for name, source, of, rec in (
-            ("flash_attention_bwd", "flash_attention_bwd_sm90.cu",
-             "src/repro/kernels/flash_attention.py:110", k4),
+    own = _own_launches(launches)
+    for name, source, of, rec, paths in (
+            ("flash_attention_bwd_sm90", "flash_attention_bwd_sm90.cu",
+             "src/repro/kernels/flash_attention.py:110", k4, {}),
+            ("flash_attention_bwd", "flash_attention_bwd.cu",
+             "src/repro/kernels/flash_attention.py:110", k4_f32,
+             {"training_float32_check": f32_check["flash_attention_bwd"]}),
             ("embedding_bag_bwd", "embedding_bag_bwd.cu",
-             "src/repro/kernels/embedding_bag.py:52", k6),
-            ("ell_spmm_bwd", "ell_spmm.cu", "src/repro/kernels/ell_spmm.py:61", k5)):
+             "src/repro/kernels/embedding_bag.py:52", k6, {}),
+            ("ell_spmm_bwd", "ell_spmm.cu", "src/repro/kernels/ell_spmm.py:61", k5, {})):
+        by_path = {"training": own.get(name, 0), **paths}
         records.append({
             "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
             # the TPU kernel has no backward: the kernel it is the backward of
-            "replaces": of, "backward_of": of, "launches": launches.get(name, 0),
-            "launches_by_path": {"training": launches.get(name, 0)},
+            "replaces": of, "backward_of": of, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "matches_plain": True, **{kk: rec.get(kk) for kk in HEAD_KEYS}, "configs": [rec]})
+        check(records[-1]["launches"] > 0, f"phase 4k's paths launched no {name}")
     t_end = time.perf_counter()
     record({"phase": "training", "seconds": t_end - t_start, "card": smi,
             "seconds_by_part": {"granite": t_lm - t_start, "xdeepfm": t_xd - t_lm,
@@ -4967,15 +5038,19 @@ def merge_training(library: list, train: dict, cases: dict) -> None:
     names = {rec["name"] for rec in train["records"]}
     extra = {rec["name"]: rec["configs"] for rec in library if rec["name"] in names}
     library[:] = [rec for rec in library if rec["name"] not in names]
+    own = _own_launches(train["launches"])
     for rec in library:
-        n = train["launches"].get(rec["name"], 0)
+        n = own.get(rec["name"], 0)
         if n:
             rec.setdefault("launches_by_path", {"kernel_library": rec["launches"]})
             rec["launches_by_path"]["training"] = n
             rec["launches"] += n
+    # phase 3's K4 backward cases, half of them in each dtype
+    k4_bwd = cases.get("flash_attention_bwd", 0) // 2
+    checked = {**cases, "flash_attention_bwd": k4_bwd, "flash_attention_bwd_sm90": k4_bwd}
     for rec in train["records"]:
         rec["configs"] += extra.get(rec["name"], [])
-        rec["cases_checked"] = cases.get(rec["name"], 0) + len(rec["configs"])
+        rec["cases_checked"] = checked.get(rec["name"], 0) + len(rec["configs"])
         library.append(rec)
 
 
@@ -6670,7 +6745,7 @@ def merge_distributed(library: list, dist_out: dict) -> None:
         for path, counts in (("distributed_training", dist_out["launches"]),
                              ("tensor_parallel", dist_out["tensor_parallel"]),
                              ("split_decode", dist_out["split_decode"])):
-            n = counts.get(rec["name"], 0)
+            n = _own_launches(counts).get(rec["name"], 0)
             if n:
                 rec.setdefault("launches_by_path", {"kernel_library": rec["launches"]})
                 rec["launches_by_path"][path] = n

@@ -11,42 +11,60 @@
 // TF32, far outside float32's tolerance.
 //
 // Computes, for q [B, Hq, S, D], k [B, Hkv, T, D], v [B, Hkv, T, Dv], the forward's output
-// o [B, Hq, S, Dv] and its gradient do (all float32; Hq a multiple of Hkv; 8 <= Dv <= D <=
-// 192, Dv <= 128), with P the softmax of scale q k^T over the keys the masks keep (query
-// positions right-aligned to the T keys, qpos = s + T - S; causal keeps t <= qpos, a window
-// keeps t > qpos - window):
+// o [B, Hq, S, Dv], its gradient do (all float32; Hq a multiple of Hkv; 8 <= Dv <= D <= 192,
+// Dv <= 128, multiples of 8) and the forward's lse [B, Hq, S] (each row's base-2
+// log-sum-exp of scale log2(e) q k^T over its kept keys, +inf without one; written by
+// flash_attention.cu), with P = exp2(scale log2(e) q k^T - lse) over the keys the masks keep
+// (query positions right-aligned to the T keys, qpos = s + T - S; causal keeps t <= qpos, a
+// window keeps t > qpos - window):
 //     delta = rowsum(do o o),  dv = P^T do,  ds = P o (do v^T - delta),
 //     dq = scale ds k,  dk = scale ds^T q,
 // with dk and dv summed over the Hq / Hkv q heads of each kv head.  A row that keeps no key
-// has P = 0 and no gradient.  Everything accumulates in float32.  Every key exists
-// (kv_len = T): the wrapper refuses a backward through a call over a prefix.
+// has P = 0 and no gradient.  Everything accumulates in float32; dq's parts are added in
+// the order the blocks reach them, so its last bits vary from run to run.  Every key
+// exists (kv_len = T): the wrapper refuses a backward through a call over a prefix.
 //
-// Bound on an H100: five products (q k^T recomputed, do v^T, P^T do, dS k, dS^T q), 2 pairs
-// (3 D + 2 Dv) Hq B operations (pairs: the (query, key) pairs the masks keep) at the 67
-// TFLOP/s of float32 outside the tensor cores; at training shapes it is bound by
-// operations.  This design does eight products (the logits three times: in each launch).
+// Bound on an H100: five products (q k^T recomputed, do v^T, P^T do, dS^T q, dS k),
+// 2 pairs (3 D + 2 Dv) Hq B operations (pairs: the (query, key) pairs the masks keep) at the
+// 67 TFLOP/s of float32 outside the tensor cores; at training shapes it is bound by
+// operations (granite-3-2b's training call, 4 x 1,024, 32/8 heads of 64, causal: 0.642 ms).
 //
-// Design: FlashAttention-2's first backward, with no atomics, in three launches from one
-// launch function.  All three tile 64 query rows by 64 keys and hold their tiles in shared
-// memory as float32, rows padded by one float so that 16 lanes reading 16 rows at one column
-// hit 16 banks; 256 threads, thread (r, c) = (t / 16, t % 16) owning the 4 x 4 micro-tile of
-// rows 4r .. 4r + 3 and columns c, c + 16, c + 32, c + 48 of a 64 x 64 product.
-//   1. preprocess, a block for each (b, q head, query tile): the rows' log-sum-exp in base 2
-//      (lse, recomputed over the visible key tiles with a running max: the float32 forward
-//      keeps none, and the serving paths' kernels stay as they are) and delta, into float32
-//      scratch [B, Hq, S]; +inf for a row with no key, so that its P is exp2(-inf) = 0.
-//   2. dk/dv, a block for each (b, kv head, key tile), looping over the group's q heads and
-//      the query tiles the masks let see the tile: S = q k^T and dP = do v^T as 4 x 4
-//      micro-tiles, P and dS into shared memory, then dv += P^T do and dk += dS^T q into
-//      register accumulators, each thread 4 key rows by the columns c + 16 m.  The block
-//      owns its key tile's dk and dv, so each is written once, with no atomics.
-//   3. dq, a block for each (b, q head, query tile), looping over the key tiles the masks
-//      let it see: S, dP and dS as in 2, dq += dS k in registers.
+// Design: two launches from one launch function, the logits computed once, every product
+// on the CUDA cores (FFMA).
+//   1. delta, 16 lanes a row (16-byte loads of o and do), into float32 scratch [B, Hq, S];
+//      the same lanes zero the row of dq, which launch 2 adds into.
+//   2. The main kernel, a block of 256 threads for each (b, kv head, 64-key tile), key
+//      tile 0 first (under causal it has the most query tiles).  The block loads its K and
+//      V tiles once, rows padded by 16 bytes, and walks the group's q heads and the 64-row
+//      query tiles the masks let see its keys; each step's q, do, lse and delta tiles come
+//      in by cp.async (16 bytes a copy; lse and delta 4, their rows need not be 16-byte
+//      aligned), into two stages where a block has an SM to itself, step n + 1 loading
+//      while step n computes, else into one that two blocks an SM overlap.  A step:
+//        * S = q k^T on warps 0-3 and dP = do v^T on warps 4-7 at once, thread (g, c)
+//          holding the 8 x 4 register micro-tile of rows 8g .. 8g + 7 and keys c, c + 16,
+//          c + 32, c + 48 (16-byte loads of q or do rows and of K or V rows: 128 FMAs for
+//          12 loads, as the forward's);
+//        * P = exp2(scale log2(e) S - lse) on warps 0-3 into shared memory (0 where
+//          masked: the masks apply only on tiles that straddle an edge, S or T), then
+//          dS = P o (dP - delta) on warps 4-7 into shared memory;
+//        * dv += P^T do and dk += dS^T q, all 256 threads, thread (r, c) holding keys 4r ..
+//          4r + 3 and columns 4c + 64 m in registers for the whole block: dk and dv are
+//          written once (dk times scale), with no atomics;
+//        * dq's part dS k (keys 4 at a time, 16-byte loads of dS rows and K rows), rows
+//          4r .. 4r + 3 and columns 4c + 64 m, times scale, added into dq four columns a
+//          reduction (red.global.add.v4.f32).
+//      Five products, where this file's first design did eight (the logits in each of
+//      its three launches, with the lse recomputed in the first).
 // The widths are template parameters, the smallest of (64, 64), (128, 128) and (192, 128)
-// that covers (D, Dv), zero-filled past D and Dv.  Shared memory (float32): 2 x 64 x (DK + 1)
-// + 2 x 64 x (DV + 1) + 2 x 64 x 65 + 128 words: 100,352 bytes at (64, 64) (two blocks an
-// SM), 165,888 at (128, 128), 198,656 at (192, 128) (one block an SM).  It serves the
-// float32 checks of training (phase 4k's gradients at 2 layers, the card tests).
+// that covers (D, Dv), zero-filled past D and Dv.  Shared memory (float32): K and V
+// (64 x (DK + 4), 64 x (DV + 4)), STAGES stages of q, do (64 x DK, 64 x DV), lse and delta,
+// P and dS (64 x 64 each).  At (64, 64) one stage, 100,864 bytes, and two blocks an SM (at
+// most 128 registers a thread): on an NVIDIA H100 80GB HBM3 at 700.00 W it took 1.464 ms
+// at granite-3-2b's training call against 1.690 with two stages (134,144 bytes, one block
+// an SM; tools/kernel_ab.py, PERF.md §6).  At (128, 128) two stages, 232,448 bytes
+// (the most a block may have), one block an SM.  At (192, 128) two stages would take
+// 281,600 bytes: one stage, 199,168, one block an SM.  With one stage the next step's
+// tiles load after this one's products.
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -54,22 +72,21 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTile = 64;      // query rows and keys of a tile
-constexpr int kPadS = kTile + 1;
+constexpr int kTile = 64;          // query rows and keys of a tile
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr size_t kMaxSmem = 232448;
+constexpr size_t kMaxSmem = 232448;    // a block's most
+constexpr size_t kSmemPerSm = 233472;  // an SM's
 
 struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* o;
-  const void* dout;
-  void* dq;
-  void* dk;
-  void* dv;
-  float* lse;    // [B, Hq, S]: base-2 log-sum-exp of scale_log2 * q k^T, +inf without a key
-  float* delta;  // [B, Hq, S]: rowsum(do o o)
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* dout;
+  const float* lse;    // [B, Hq, S]: the forward's base-2 log-sum-exp, +inf without a key
+  const float* delta;  // [B, Hq, S]: rowsum(do o o), from launch 1
+  float* dq;           // zeroed by launch 1, dq's parts added into it
+  float* dk;
+  float* dv;
   int64_t Hq, Hkv, S, T, D, Dv, rep;
   int32_t causal, has_window;
   int64_t window;
@@ -79,372 +96,385 @@ struct Params {
 __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
 __device__ __forceinline__ int64_t max64(int64_t a, int64_t b) { return a > b ? a : b; }
 
-// whether query position qpos sees key t
-__device__ __forceinline__ bool visible(const Params& p, int64_t qpos, int64_t t) {
-  return t < p.T && (!p.causal || t <= qpos) && (!p.has_window || t > qpos - p.window);
+// whether query row s (qpos = s + T - S) sees key t
+__device__ __forceinline__ bool visible(const Params& p, int64_t s, int64_t t) {
+  const int64_t qpos = s + p.T - p.S;
+  return s < p.S && t < p.T && (!p.causal || t <= qpos) &&
+         (!p.has_window || t > qpos - p.window);
 }
 
-// dst[r * P + c] = the row (row0 + r) of a head's [rows, width] matrix, zero past its rows
-// and past width (c < W)
-template <int W, int P>
-__device__ __forceinline__ void load_tile(float* dst, const float* head, int64_t row0,
+// a copy from global to shared memory that does not block; zeros if !valid
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// at[0 .. 3] += v: one float32 reduction of four values (no value returned)
+__device__ __forceinline__ void red_add4(float* at, float4 v) {
+  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"l"(at), "f"(v.x),
+               "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+__device__ __forceinline__ float at4(const float4 v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// rows row0 .. row0 + 63 of a head's [rows, width] matrix into dst ([64][W + pad]), 16
+// bytes a copy; rows past `rows` and columns past `width` zero-filled, not read
+template <int W, int STRIDE>
+__device__ __forceinline__ void load_rows(float* dst, const float* head, int64_t row0,
                                           int64_t rows, int64_t width) {
-  for (int i = threadIdx.x; i < kTile * W; i += kThreads) {
-    const int r = i / W, c = i - r * W;
-    const int64_t row = row0 + r;
-    dst[r * P + c] = row < rows && c < width ? head[row * width + c] : 0.0f;
+  for (int e = threadIdx.x; e < kTile * (W / 4); e += kThreads) {
+    const int r = e / (W / 4), c = (e - r * (W / 4)) * 4;
+    const bool ok = row0 + r < rows && c < width;
+    cp_async16(dst + r * STRIDE + c, head + (ok ? (row0 + r) * width + c : 0), ok);
   }
 }
 
-// acc[a][j] += sum_c A[4 r + a][c] B[cb + 16 j][c] over c < W: the 4 x 4 micro-tile of A B^T
-template <int W, int P>
-__device__ __forceinline__ void micro_abt(float (&acc)[4][4], const float* A, const float* Bm,
-                                          int r, int cb) {
+// acc[i][j] += sum over d < W of A[i][d] B[c + 16 j][d]: the 8 x 4 micro-tile of A B^T,
+// A's 8 rows RA apart, B's rows RB apart
+template <int W, int RA, int RB>
+__device__ __forceinline__ void micro_abt(float (&acc)[8][4], const float* A, const float* Bm,
+                                          int c) {
 #pragma unroll 4
-  for (int c = 0; c < W; ++c) {
-    float a[4], b[4];
+  for (int d = 0; d < W; d += 4) {
+    float4 bf[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(4 * r + i) * P + c];
+    for (int j = 0; j < 4; ++j) bf[j] = *reinterpret_cast<const float4*>(Bm + (c + 16 * j) * RB + d);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = Bm[(cb + 16 * j) * P + c];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-// The key tiles [k_lo, k_hi) some row of the query tile at s0 can see
-__device__ __forceinline__ void key_tiles(const Params& p, int64_t s0, int64_t* k_lo,
-                                          int64_t* k_hi) {
-  const int64_t s1 = min64(s0 + kTile, p.S) - 1;
-  const int64_t qlo = s0 + p.T - p.S, qhi = s1 + p.T - p.S;
-  int64_t lo = 0, hi = p.T;                       // keys [lo, hi)
-  if (p.causal) hi = min64(hi, qhi + 1);
-  if (p.has_window) lo = max64(lo, qlo - p.window + 1);
-  *k_lo = lo < hi ? lo / kTile : 0;
-  *k_hi = lo < hi ? (hi + kTile - 1) / kTile : 0;
-}
-
-// The logits of the (query tile s0 of head h, key tile t0) micro-tile in base 2, -inf where
-// masked: s[a][j] for row 4r + a and key cb + 16 j
-__device__ __forceinline__ void mask_logits(const Params& p, float (&s)[4][4], int64_t s0,
-                                            int64_t t0, int r, int cb) {
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int64_t row = s0 + 4 * r + a;
-    const int64_t qpos = row + p.T - p.S;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const bool ok = row < p.S && visible(p, qpos, t0 + cb + 16 * j);
-      s[a][j] = ok ? s[a][j] * p.scale_log2 : -INFINITY;
-    }
-  }
-}
-
-// ---------------------------------------------------------------- 1. lse and delta
-
-template <int DK, int DV>
-__global__ void __launch_bounds__(kThreads)
-    attention_bwd_pre_kernel(const Params p, int64_t q_tiles) {
-  constexpr int PK = DK + 1;
-  extern __shared__ float smem[];
-  float* qs = smem;                   // [64][PK]
-  float* ks = qs + kTile * PK;        // [64][PK]
-  const int64_t tile = blockIdx.x % q_tiles, bh = blockIdx.x / q_tiles;
-  const int64_t b = bh / p.Hq, h = bh % p.Hq, kvh = h / p.rep;
-  const int64_t s0 = tile * kTile;
-  const int r = threadIdx.x / 16, cb = threadIdx.x % 16;
-  const float* qh = static_cast<const float*>(p.q) + bh * p.S * p.D;
-  const float* kh = static_cast<const float*>(p.k) + (b * p.Hkv + kvh) * p.T * p.D;
-  load_tile<DK, PK>(qs, qh, s0, p.S, p.D);
-  float m[4], l[4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) m[a] = -INFINITY, l[a] = 0.0f;
-  int64_t k_lo, k_hi;
-  key_tiles(p, s0, &k_lo, &k_hi);
-  for (int64_t kt = k_lo; kt < k_hi; ++kt) {
-    __syncthreads();  // the last tile's keys are read
-    load_tile<DK, PK>(ks, kh, kt * kTile, p.T, p.D);
-    __syncthreads();
-    float s[4][4] = {};
-    micro_abt<DK, PK>(s, qs, ks, r, cb);
-    mask_logits(p, s, s0, kt * kTile, r, cb);
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      float mt = fmaxf(fmaxf(s[a][0], s[a][1]), fmaxf(s[a][2], s[a][3]));
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, o));
-      const float mn = fmaxf(m[a], mt);
-      if (mn == -INFINITY) continue;  // the row has seen no key yet (the lanes agree)
-      const float alpha = m[a] == -INFINITY ? 0.0f : exp2f(m[a] - mn);
-      float add = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) add += exp2f(s[a][j] - mn);  // exp2(-inf) = 0
-      l[a] = l[a] * alpha + add;
-      m[a] = mn;
-    }
-  }
-  const float* oh = static_cast<const float*>(p.o) + bh * p.S * p.Dv;
-  const float* dh = static_cast<const float*>(p.dout) + bh * p.S * p.Dv;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    float sum = l[a], dl = 0.0f;
-    const int64_t row = s0 + 4 * r + a;
-    if (row < p.S) {
-      for (int64_t c = cb; c < p.Dv; c += 16)
-        dl += oh[row * p.Dv + c] * dh[row * p.Dv + c];
-    }
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1) {
-      sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      dl += __shfl_xor_sync(0xffffffffu, dl, o);
-    }
-    if (cb == 0 && row < p.S) {
-      p.lse[bh * p.S + row] = sum > 0.0f ? m[a] + log2f(sum) : INFINITY;
-      p.delta[bh * p.S + row] = dl;
-    }
-  }
-}
-
-// ---------------------------------------------------------------- 2. dk and dv
-
-template <int DK, int DV>
-__global__ void __launch_bounds__(kThreads)
-    attention_bwd_dkdv_kernel(const Params p, int64_t k_tiles) {
-  constexpr int PK = DK + 1, PV = DV + 1, MK = DK / 16, MV = DV / 16;
-  extern __shared__ float smem[];
-  float* ks = smem;                    // [64][PK] this block's keys
-  float* vs = ks + kTile * PK;         // [64][PV]
-  float* qs = vs + kTile * PV;         // [64][PK] a query tile
-  float* dos = qs + kTile * PK;        // [64][PV]
-  float* ps = dos + kTile * PV;        // [64 rows][65] P
-  float* dss = ps + kTile * kPadS;     // [64 rows][65] dS
-  float* lse_s = dss + kTile * kPadS;  // [64]
-  float* delta_s = lse_s + kTile;      // [64]
-  const int64_t tile = blockIdx.x % k_tiles, bh = blockIdx.x / k_tiles;
-  const int64_t b = bh / p.Hkv, kvh = bh % p.Hkv;
-  const int64_t t0 = tile * kTile;
-  const int r = threadIdx.x / 16, cb = threadIdx.x % 16;
-  const float* kh = static_cast<const float*>(p.k) + bh * p.T * p.D;
-  const float* vh = static_cast<const float*>(p.v) + bh * p.T * p.Dv;
-  load_tile<DK, PK>(ks, kh, t0, p.T, p.D);
-  load_tile<DV, PV>(vs, vh, t0, p.T, p.Dv);
-  float dk[4][MK] = {}, dv[4][MV] = {};
-  // the query rows that see a key of [t0, t1]: causal needs qpos >= t0, a window qpos < t1 + window
-  const int64_t t1 = min64(t0 + kTile, p.T) - 1;
-  int64_t s_lo = 0, s_hi = p.S - 1;
-  if (p.causal) s_lo = max64(s_lo, t0 - (p.T - p.S));
-  if (p.has_window) s_hi = min64(s_hi, t1 + p.window - 1 - (p.T - p.S));
-  for (int64_t g = 0; g < p.rep && s_lo <= s_hi; ++g) {
-    const int64_t hq = b * p.Hq + kvh * p.rep + g;
-    const float* qh = static_cast<const float*>(p.q) + hq * p.S * p.D;
-    const float* dh = static_cast<const float*>(p.dout) + hq * p.S * p.Dv;
-    for (int64_t qt = s_lo / kTile; qt <= s_hi / kTile; ++qt) {
-      const int64_t s0 = qt * kTile;
-      __syncthreads();  // the last tile's q, do, P and dS are read
-      load_tile<DK, PK>(qs, qh, s0, p.S, p.D);
-      load_tile<DV, PV>(dos, dh, s0, p.S, p.Dv);
-      if (threadIdx.x < kTile) {
-        const int64_t row = s0 + threadIdx.x;
-        lse_s[threadIdx.x] = row < p.S ? p.lse[hq * p.S + row] : INFINITY;
-        delta_s[threadIdx.x] = row < p.S ? p.delta[hq * p.S + row] : 0.0f;
-      }
-      __syncthreads();
-      float s[4][4] = {}, dp[4][4] = {};
-      micro_abt<DK, PK>(s, qs, ks, r, cb);
-      micro_abt<DV, PV>(dp, dos, vs, r, cb);
-      mask_logits(p, s, s0, t0, r, cb);
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int i = 4 * r + a;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float pr = exp2f(s[a][j] - lse_s[i]);  // 0 where masked or keyless
-          ps[i * kPadS + cb + 16 * j] = pr;
-          dss[i * kPadS + cb + 16 * j] = pr * (dp[a][j] - delta_s[i]);
-        }
-      }
-      __syncthreads();
-      // dv[key 4r + a][cb + 16 m] += sum_i P[i][key] do[i][cb + 16 m]; dk likewise with dS, q
-#pragma unroll 4
-      for (int i = 0; i < kTile; ++i) {
-        float pa[4], da[4];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          pa[a] = ps[i * kPadS + 4 * r + a];
-          da[a] = dss[i * kPadS + 4 * r + a];
-        }
-#pragma unroll
-        for (int mm = 0; mm < MV; ++mm) {
-          const float x = dos[i * PV + cb + 16 * mm];
-#pragma unroll
-          for (int a = 0; a < 4; ++a) dv[a][mm] = fmaf(pa[a], x, dv[a][mm]);
-        }
-#pragma unroll
-        for (int mm = 0; mm < MK; ++mm) {
-          const float x = qs[i * PK + cb + 16 * mm];
-#pragma unroll
-          for (int a = 0; a < 4; ++a) dk[a][mm] = fmaf(da[a], x, dk[a][mm]);
-        }
-      }
-    }
-  }
-  float* dkh = static_cast<float*>(p.dk) + bh * p.T * p.D;
-  float* dvh = static_cast<float*>(p.dv) + bh * p.T * p.Dv;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int64_t t = t0 + 4 * r + a;
-    if (t >= p.T) continue;
-#pragma unroll
-    for (int mm = 0; mm < MK; ++mm) {
-      const int64_t c = cb + 16 * mm;
-      if (c < p.D) dkh[t * p.D + c] = dk[a][mm] * p.scale;
-    }
-#pragma unroll
-    for (int mm = 0; mm < MV; ++mm) {
-      const int64_t c = cb + 16 * mm;
-      if (c < p.Dv) dvh[t * p.Dv + c] = dv[a][mm];
-    }
-  }
-}
-
-// ---------------------------------------------------------------- 3. dq
-
-template <int DK, int DV>
-__global__ void __launch_bounds__(kThreads)
-    attention_bwd_dq_kernel(const Params p, int64_t q_tiles) {
-  constexpr int PK = DK + 1, PV = DV + 1, MK = DK / 16;
-  extern __shared__ float smem[];
-  float* qs = smem;                    // [64][PK] this block's queries
-  float* dos = qs + kTile * PK;        // [64][PV]
-  float* ks = dos + kTile * PV;        // [64][PK] a key tile
-  float* vs = ks + kTile * PK;         // [64][PV]
-  float* dss = vs + kTile * PV;        // [64 rows][65] dS
-  float* lse_s = dss + kTile * kPadS;  // [64]
-  float* delta_s = lse_s + kTile;      // [64]
-  const int64_t tile = blockIdx.x % q_tiles, bh = blockIdx.x / q_tiles;
-  const int64_t b = bh / p.Hq, h = bh % p.Hq, kvh = h / p.rep;
-  const int64_t s0 = tile * kTile;
-  const int r = threadIdx.x / 16, cb = threadIdx.x % 16;
-  const float* qh = static_cast<const float*>(p.q) + bh * p.S * p.D;
-  const float* dh = static_cast<const float*>(p.dout) + bh * p.S * p.Dv;
-  const float* kh = static_cast<const float*>(p.k) + (b * p.Hkv + kvh) * p.T * p.D;
-  const float* vh = static_cast<const float*>(p.v) + (b * p.Hkv + kvh) * p.T * p.Dv;
-  load_tile<DK, PK>(qs, qh, s0, p.S, p.D);
-  load_tile<DV, PV>(dos, dh, s0, p.S, p.Dv);
-  if (threadIdx.x < kTile) {
-    const int64_t row = s0 + threadIdx.x;
-    lse_s[threadIdx.x] = row < p.S ? p.lse[bh * p.S + row] : INFINITY;
-    delta_s[threadIdx.x] = row < p.S ? p.delta[bh * p.S + row] : 0.0f;
-  }
-  float dq[4][MK] = {};
-  int64_t k_lo, k_hi;
-  key_tiles(p, s0, &k_lo, &k_hi);
-  for (int64_t kt = k_lo; kt < k_hi; ++kt) {
-    const int64_t t0 = kt * kTile;
-    __syncthreads();  // the last tile's k, v and dS are read
-    load_tile<DK, PK>(ks, kh, t0, p.T, p.D);
-    load_tile<DV, PV>(vs, vh, t0, p.T, p.Dv);
-    __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
-    micro_abt<DK, PK>(s, qs, ks, r, cb);
-    micro_abt<DV, PV>(dp, dos, vs, r, cb);
-    mask_logits(p, s, s0, t0, r, cb);
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int i = 4 * r + a;
+    for (int i = 0; i < 8; ++i) {
+      const float4 af = *reinterpret_cast<const float4*>(A + i * RA + d);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float pr = exp2f(s[a][j] - lse_s[i]);
-        dss[i * kPadS + cb + 16 * j] = pr * (dp[a][j] - delta_s[i]);
-      }
-    }
-    __syncthreads();
-    // dq[row 4r + a][cb + 16 m] += sum_key dS[row][key] k[key][cb + 16 m]
-#pragma unroll 4
-    for (int key = 0; key < kTile; ++key) {
-      float da[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) da[a] = dss[(4 * r + a) * kPadS + key];
-#pragma unroll
-      for (int mm = 0; mm < MK; ++mm) {
-        const float x = ks[key * PK + cb + 16 * mm];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) dq[a][mm] = fmaf(da[a], x, dq[a][mm]);
+        acc[i][j] = fmaf(af.x, bf[j].x, acc[i][j]);
+        acc[i][j] = fmaf(af.y, bf[j].y, acc[i][j]);
+        acc[i][j] = fmaf(af.z, bf[j].z, acc[i][j]);
+        acc[i][j] = fmaf(af.w, bf[j].w, acc[i][j]);
       }
     }
   }
-  float* dqh = static_cast<float*>(p.dq) + bh * p.S * p.D;
+}
+
+// ---------------------------------------------------------------- 1. delta
+
+// delta[row] = sum over Dv of do o o, 16 lanes a row, a 16-byte unit of o and of do a lane
+// at a time; the lanes also zero the row's D floats of dq
+__global__ void __launch_bounds__(256)
+    attention_bwd_f32_delta_kernel(const float* o, const float* dout, float* delta, float* dq,
+                                   int64_t rows, int64_t D, int64_t Dv) {
+  const int64_t gid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t row = gid / 16;
+  const int u = static_cast<int>(gid % 16);
+  float sum = 0.0f;
+  if (row < rows) {
+    const float4* o4 = reinterpret_cast<const float4*>(o + row * Dv);
+    const float4* d4 = reinterpret_cast<const float4*>(dout + row * Dv);
+    for (int64_t i = u; i < Dv / 4; i += 16) {
+      const float4 a = o4[i], c = d4[i];
+      sum = fmaf(a.x, c.x, fmaf(a.y, c.y, fmaf(a.z, c.z, fmaf(a.w, c.w, sum))));
+    }
+    float4* q4 = reinterpret_cast<float4*>(dq + row * D);
+    for (int64_t i = u; i < D / 4; i += 16) q4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (row < rows && u == 0) delta[row] = sum;
+}
+
+// ---------------------------------------------------------------- 2. dk, dv and dq's parts
+
+template <int DK, int DV, int STAGES>
+constexpr size_t main_smem() {
+  return static_cast<size_t>(kTile * (DK + 4) + kTile * (DV + 4) + STAGES * kTile * (DK + DV) +
+                             2 * kTile * kTile + 2 * STAGES * kTile) * sizeof(float);
+}
+
+// DK, DV: D and Dv padded (64, 128 or 192; 64 or 128); STAGES: stages of the step tiles;
+// BLOCKS: blocks an SM (it caps the registers).  The grid is one dimension: block x owns
+// key tile x / heads of (batch, kv head) x % heads.
+template <int DK, int DV, int STAGES, int BLOCKS>
+__global__ void __launch_bounds__(kThreads, BLOCKS)
+    attention_bwd_f32_kernel(const Params p, const int64_t heads) {
+  constexpr int KP = DK + 4, VP = DV + 4;  // K and V rows, padded: 16 lanes read 16 rows
+  constexpr int MK = DK / 64, MV = DV / 64;
+  extern __shared__ float4 smem4[];
+  float* ks = reinterpret_cast<float*>(smem4);  // [64][KP] this block's keys
+  float* vs = ks + kTile * KP;                  // [64][VP]
+  float* qs = vs + kTile * VP;                  // [STAGES][64][DK] a step's queries
+  float* dos = qs + STAGES * kTile * DK;        // [STAGES][64][DV]
+  float* ps = dos + STAGES * kTile * DV;        // [64 rows][64 keys] P
+  float* dss = ps + kTile * kTile;              // [64 rows][64 keys] dS
+  float* lse_s = dss + kTile * kTile;           // [STAGES][64]
+  float* delta_s = lse_s + STAGES * kTile;      // [STAGES][64]
+
+  const int tid = threadIdx.x;
+  const int64_t bh = static_cast<int64_t>(blockIdx.x) % heads;  // b * Hkv + kvh
+  const int64_t t0 = static_cast<int64_t>(blockIdx.x) / heads * kTile;
+  const int64_t b = bh / p.Hkv, kvh = bh - b * p.Hkv;
+  const int64_t shift = p.T - p.S;  // qpos = s + shift
+  // the query rows that see a key of [t0, t1]: causal needs qpos >= t0, a window
+  // qpos < t1 + window
+  const int64_t t1 = min64(t0 + kTile, p.T) - 1;
+  int64_t s_lo = 0, s_hi = p.S - 1;
+  if (p.causal) s_lo = max64(s_lo, t0 - shift);
+  if (p.has_window) s_hi = min64(s_hi, t1 + p.window - 1 - shift);
+  const int64_t qt_lo = s_lo / kTile;
+  const int64_t nq = s_lo <= s_hi ? s_hi / kTile - qt_lo + 1 : 0;
+  const int64_t steps = nq * p.rep;  // (q head of the group, query tile) pairs
+
+  const float* kh = p.k + bh * p.T * p.D;
+  const float* vh = p.v + bh * p.T * p.Dv;
+  // step n: q head b * Hq + kvh * rep + n / nq, query tile qt_lo + n % nq
+  auto load_step = [&](int64_t n, int st) {
+    const int64_t hq = b * p.Hq + kvh * p.rep + n / nq, s0 = (qt_lo + n % nq) * kTile;
+    load_rows<DK, DK>(qs + st * kTile * DK, p.q + hq * p.S * p.D, s0, p.S, p.D);
+    load_rows<DV, DV>(dos + st * kTile * DV, p.dout + hq * p.S * p.Dv, s0, p.S, p.Dv);
+    if (tid < 2 * kTile) {   // lse, then delta: a word a thread
+      const int r = tid & (kTile - 1);
+      const bool ok = s0 + r < p.S;
+      const float* src = tid < kTile ? p.lse : p.delta;
+      cp_async4((tid < kTile ? lse_s : delta_s) + st * kTile + r,
+                src + (ok ? hq * p.S + s0 + r : 0), ok);
+    }
+    cp_async_commit();
+  };
+
+  float dka[4][4 * MK], dva[4][4 * MV];  // keys 4r + a, columns 4c + 64 m + e at [a][4 m + e]
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
-    const int64_t row = s0 + 4 * r + a;
-    if (row >= p.S) continue;
 #pragma unroll
-    for (int mm = 0; mm < MK; ++mm) {
-      const int64_t c = cb + 16 * mm;
-      if (c < p.D) dqh[row * p.D + c] = dq[a][mm] * p.scale;
+    for (int e = 0; e < 4 * MK; ++e) dka[a][e] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < 4 * MV; ++e) dva[a][e] = 0.0f;
+  }
+  const int r4 = tid >> 4;        // products: keys (dk, dv) or rows (dq) 4 r4 .. 4 r4 + 3
+  const int c4 = tid & 15;        // products: columns 4 c4 + 64 m
+  const int half = tid >> 7;      // S (0) or dP (1): warp-uniform
+  const int g = (tid >> 4) & 7;   // S and dP: rows 8g .. 8g + 7
+  const int c = tid & 15;         // S and dP: keys c + 16 j
+
+  if (steps > 0) {
+    load_rows<DK, KP>(ks, kh, t0, p.T, p.D);
+    load_rows<DV, VP>(vs, vh, t0, p.T, p.Dv);
+    load_step(0, 0);
+  }
+  for (int64_t n = 0; n < steps; ++n) {
+    const int st = STAGES == 2 ? static_cast<int>(n & 1) : 0;
+    cp_async_wait_all();
+    __syncthreads();  // step n's tiles (the first time K and V too) are in shared memory,
+                      // and every thread is done with step n - 1's
+    if (STAGES == 2 && n + 1 < steps) load_step(n + 1, st ^ 1);
+    const int64_t hq = b * p.Hq + kvh * p.rep + n / nq, s0 = (qt_lo + n % nq) * kTile;
+    const float* qt = qs + st * kTile * DK;
+    const float* dot = dos + st * kTile * DV;
+    const float* lse_t = lse_s + st * kTile;
+    const float* delta_t = delta_s + st * kTile;
+    // whether some pair of the tile is masked (block-uniform)
+    const bool edge = s0 + kTile > p.S || t0 + kTile > p.T ||
+                      (p.causal && t0 + kTile - 1 > s0 + shift) ||
+                      (p.has_window && t0 <= s0 + kTile - 1 + shift - p.window);
+
+    // ---- S = q k^T (warps 0-3) and dP = do v^T (warps 4-7)
+    float acc[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+    if (half == 0)
+      micro_abt<DK, DK, KP>(acc, qt + 8 * g * DK, ks, c);
+    else
+      micro_abt<DV, DV, VP>(acc, dot + 8 * g * DV, vs, c);
+    if (half == 0) {  // P, 0 where masked
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int row = 8 * g + i;
+        const float l = lse_t[row];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int key = c + 16 * j;
+          float sv = acc[i][j] * p.scale_log2;
+          if (edge && !visible(p, s0 + row, t0 + key)) sv = -INFINITY;
+          ps[row * kTile + key] = exp2f(sv - l);  // exp2(-inf) = 0; a keyless row's lse is +inf
+        }
+      }
+    }
+    __syncthreads();  // P is whole
+    if (half == 1) {  // dS = P o (dP - delta)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int row = 8 * g + i;
+        const float dl = delta_t[row];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int at = row * kTile + c + 16 * j;
+          dss[at] = ps[at] * (acc[i][j] - dl);
+        }
+      }
+    }
+    __syncthreads();  // dS is whole
+
+    // ---- dv += P^T do, dk += dS^T q: keys 4 r4 + a, columns 4 c4 + 64 m
+#pragma unroll 2
+    for (int i = 0; i < kTile; ++i) {
+      const float4 pa = *reinterpret_cast<const float4*>(ps + i * kTile + 4 * r4);
+      const float4 da = *reinterpret_cast<const float4*>(dss + i * kTile + 4 * r4);
+#pragma unroll
+      for (int m = 0; m < MV; ++m) {
+        const float4 x = *reinterpret_cast<const float4*>(dot + i * DV + 4 * c4 + 64 * m);
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const float w = at4(pa, a);
+          dva[a][4 * m] = fmaf(w, x.x, dva[a][4 * m]);
+          dva[a][4 * m + 1] = fmaf(w, x.y, dva[a][4 * m + 1]);
+          dva[a][4 * m + 2] = fmaf(w, x.z, dva[a][4 * m + 2]);
+          dva[a][4 * m + 3] = fmaf(w, x.w, dva[a][4 * m + 3]);
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < MK; ++m) {
+        const float4 x = *reinterpret_cast<const float4*>(qt + i * DK + 4 * c4 + 64 * m);
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const float w = at4(da, a);
+          dka[a][4 * m] = fmaf(w, x.x, dka[a][4 * m]);
+          dka[a][4 * m + 1] = fmaf(w, x.y, dka[a][4 * m + 1]);
+          dka[a][4 * m + 2] = fmaf(w, x.z, dka[a][4 * m + 2]);
+          dka[a][4 * m + 3] = fmaf(w, x.w, dka[a][4 * m + 3]);
+        }
+      }
+    }
+
+    // ---- dq's part dS k: rows 4 r4 + a, columns 4 c4 + 64 m, four keys at a time
+    float dqa[4][4 * MK];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int e = 0; e < 4 * MK; ++e) dqa[a][e] = 0.0f;
+#pragma unroll 2
+    for (int j0 = 0; j0 < kTile; j0 += 4) {
+      float4 dsr[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+        dsr[a] = *reinterpret_cast<const float4*>(dss + (4 * r4 + a) * kTile + j0);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+        for (int m = 0; m < MK; ++m) {
+          const float4 x = *reinterpret_cast<const float4*>(ks + (j0 + jj) * KP + 4 * c4 + 64 * m);
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+            const float w = at4(dsr[a], jj);
+            dqa[a][4 * m] = fmaf(w, x.x, dqa[a][4 * m]);
+            dqa[a][4 * m + 1] = fmaf(w, x.y, dqa[a][4 * m + 1]);
+            dqa[a][4 * m + 2] = fmaf(w, x.z, dqa[a][4 * m + 2]);
+            dqa[a][4 * m + 3] = fmaf(w, x.w, dqa[a][4 * m + 3]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int64_t row = s0 + 4 * r4 + a;
+      if (row >= p.S) continue;
+      float* dst = p.dq + (hq * p.S + row) * p.D;
+#pragma unroll
+      for (int m = 0; m < MK; ++m) {
+        const int col = 4 * c4 + 64 * m;
+        if (col < p.D)
+          red_add4(dst + col, make_float4(dqa[a][4 * m] * p.scale, dqa[a][4 * m + 1] * p.scale,
+                                          dqa[a][4 * m + 2] * p.scale,
+                                          dqa[a][4 * m + 3] * p.scale));
+      }
+    }
+    if (STAGES == 1 && n + 1 < steps) {
+      __syncthreads();  // every thread is done with this step's tiles
+      load_step(n + 1, 0);
+    }
+  }
+
+  // ---- dk (times scale) and dv, written once
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int64_t t = t0 + 4 * r4 + a;
+    if (t >= p.T) continue;
+#pragma unroll
+    for (int m = 0; m < MK; ++m) {
+      const int col = 4 * c4 + 64 * m;
+      if (col < p.D)
+        *reinterpret_cast<float4*>(p.dk + (bh * p.T + t) * p.D + col) =
+            make_float4(dka[a][4 * m] * p.scale, dka[a][4 * m + 1] * p.scale,
+                        dka[a][4 * m + 2] * p.scale, dka[a][4 * m + 3] * p.scale);
+    }
+#pragma unroll
+    for (int m = 0; m < MV; ++m) {
+      const int col = 4 * c4 + 64 * m;
+      if (col < p.Dv)
+        *reinterpret_cast<float4*>(p.dv + (bh * p.T + t) * p.Dv + col) =
+            make_float4(dva[a][4 * m], dva[a][4 * m + 1], dva[a][4 * m + 2], dva[a][4 * m + 3]);
     }
   }
 }
 
-constexpr size_t pre_smem(int DK) { return static_cast<size_t>(2 * kTile * (DK + 1)) * 4; }
-constexpr size_t main_smem(int DK, int DV) {
-  return static_cast<size_t>(2 * kTile * (DK + 1) + 2 * kTile * (DV + 1) + 2 * kTile * kPadS +
-                             2 * kTile) * 4;
-}
-
-template <typename K>
-int launch_one(K kernel, int64_t blocks, size_t smem, const Params& p, int64_t tiles,
-               cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+template <int DK, int DV, int STAGES, int BLOCKS>
+int launch_main(const Params& p, int64_t B, cudaStream_t s) {
+  constexpr size_t smem = main_smem<DK, DV, STAGES>();
+  // an SM's 228 KB hold BLOCKS blocks, each with 1 KB the system keeps
+  static_assert(smem <= kMaxSmem && BLOCKS * (smem + 1024) <= kSmemPerSm,
+                "the backward's shared memory");
+  auto kernel = attention_bwd_f32_kernel<DK, DV, STAGES, BLOCKS>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (blocks <= 0) return 0;
+  const int64_t heads = B * p.Hkv, blocks = heads * ((p.T + kTile - 1) / kTile);
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
-  kernel<<<static_cast<unsigned int>(blocks), kThreads, smem, s>>>(p, tiles);
+  kernel<<<static_cast<unsigned int>(blocks), kThreads, smem, s>>>(p, heads);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <int DK, int DV>
-int launch_all(const Params& p, int64_t B, cudaStream_t s) {
-  static_assert(main_smem(DK, DV) <= kMaxSmem, "the backward's shared memory");
-  const int64_t q_tiles = (p.S + kTile - 1) / kTile, k_tiles = (p.T + kTile - 1) / kTile;
-  int rc = launch_one(attention_bwd_pre_kernel<DK, DV>, B * p.Hq * q_tiles, pre_smem(DK), p,
-                      q_tiles, s);
-  if (rc) return rc;
-  rc = launch_one(attention_bwd_dkdv_kernel<DK, DV>, B * p.Hkv * k_tiles, main_smem(DK, DV),
-                  p, k_tiles, s);
-  if (rc) return rc;
-  return launch_one(attention_bwd_dq_kernel<DK, DV>, B * p.Hq * q_tiles, main_smem(DK, DV), p,
-                    q_tiles, s);
-}
-
-int launch_widths(const Params& p, int64_t B, cudaStream_t s) {
-  if (p.D <= 64) return launch_all<64, 64>(p, B, s);
-  if (p.D <= 128) return launch_all<128, 128>(p, B, s);
-  return launch_all<192, 128>(p, B, s);
 }
 
 }  // namespace
 
-// Launches the three kernels on `stream` in order and returns a CUDA error code as an int
+// Launches the two kernels on `stream` in order and returns a CUDA error code as an int
 // (0 = success).  q, k, v, o, dout, dq, dk, dv are device pointers to contiguous float32
-// tensors; lse and delta are float32 scratch of B * Hq * S words.  The caller has checked
-// the shapes (Hq % Hkv == 0, D and Dv multiples of 8, 8 <= Dv <= D <= 192, Dv <= 128, S and
-// T at least 1).
+// tensors, 16-byte aligned; lse is the forward's float32 [B, Hq, S] and delta float32
+// scratch of B * Hq * S words.  The caller has checked the shapes (Hq % Hkv == 0, D and Dv
+// multiples of 8, 8 <= Dv <= D <= 192, Dv <= 128, S and T at least 1).
 extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                           const void* o, const void* dout, void* dq, void* dk,
-                                          void* dv, float* lse, float* delta, int64_t B,
+                                          void* dv, const float* lse, float* delta, int64_t B,
                                           int64_t Hq, int64_t Hkv, int64_t S, int64_t T,
                                           int64_t D, int64_t Dv, int32_t causal,
                                           int32_t has_window, int64_t window, float scale,
                                           void* stream) {
   if (B <= 0 || S <= 0 || T <= 0) return 0;
-  if (D > 192 || Dv < 8 || Dv > D || Dv > 128 || Hkv < 1 || Hq % Hkv)
+  if (D > 192 || D % 8 || Dv % 8 || Dv < 8 || Dv > D || Dv > 128 || Hkv < 1 || Hq % Hkv)
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p{q, k, v, o, dout, dq, dk, dv, lse, delta, Hq, Hkv, S, T, D, Dv, Hq / Hkv,
-           causal, has_window, window, scale, scale * kLog2e};
   const auto s = static_cast<cudaStream_t>(stream);
-  return launch_widths(p, B, s);
+  // 1. delta and the zeroed dq
+  const int64_t rows = B * Hq * S, blocks = (rows * 16 + 255) / 256;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
+  attention_bwd_f32_delta_kernel<<<static_cast<unsigned int>(blocks), 256, 0, s>>>(
+      static_cast<const float*>(o), static_cast<const float*>(dout), delta,
+      static_cast<float*>(dq), rows, D, Dv);
+  int rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  // 2. dk, dv and dq's parts
+  const Params p{static_cast<const float*>(q), static_cast<const float*>(k),
+                 static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta,
+                 static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv),
+                 Hq, Hkv, S, T, D, Dv, Hq / Hkv, causal, has_window, window, scale,
+                 scale * kLog2e};
+  if (D <= 64) return launch_main<64, 64, 1, 2>(p, B, s);
+  if (D <= 128) return launch_main<128, 128, 2, 1>(p, B, s);
+  return launch_main<192, 128, 1, 1>(p, B, s);
 }

@@ -31,8 +31,8 @@ the LM family, decode over its preallocated cache through ``kv_len``), K5
 K4, K5 and K6 are ``torch.autograd.Function``s, so training differentiates
 through the kernels: K4's backward is ``flash_attention_bwd`` (two kernels,
 chosen by dtype in ``attention_bwd_kernel``: bfloat16
-``csrc/flash_attention_bwd_sm90.cu``, which reads the log-sum-exp K4's
-bfloat16 forward keeps for it, float32 ``csrc/flash_attention_bwd.cu``),
+``csrc/flash_attention_bwd_sm90.cu``, float32 ``csrc/flash_attention_bwd.cu``,
+each reading the log-sum-exp K4's forward keeps for it),
 K5's is K5 itself over the transposed rows, K6's is ``embedding_bag_bwd``
 (``csrc/embedding_bag_bwd.cu``).  A backward, like a forward, launches its
 kernel for CUDA tensors and runs its plain version for CPU tensors; its
@@ -508,6 +508,22 @@ def bitset_mm(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# device -> the bad-id flag word of ell_spmm and embedding_bag there: (pinned
+# host memory, which the kernels write through its mapping, its numpy view,
+# the lock the calls on the device share)
+_FLAG_WORDS: dict = {}
+_FLAG_WORDS_LOCK = threading.Lock()
+
+
+def _flag_word(dev: torch.device) -> tuple:
+    with _FLAG_WORDS_LOCK:
+        word = _FLAG_WORDS.get(dev)
+        if word is None:
+            host = torch.zeros(1, dtype=torch.int32, pin_memory=True)
+            word = _FLAG_WORDS[dev] = (host, host.numpy(), threading.Lock())
+    return word
+
+
 def _ell_spmm(nbr: torch.Tensor, wgt: torch.Tensor, x: torch.Tensor,
               count: str = "ell_spmm") -> torch.Tensor:
     """K5 on checked inputs: the kernel on the card (counted as ``count``),
@@ -524,10 +540,15 @@ def _ell_spmm(nbr: torch.Tensor, wgt: torch.Tensor, x: torch.Tensor,
         return out
     if n == 0:
         return out
-    flags = torch.zeros(1, dtype=torch.int32, device=dev)
-    _launch("ell_spmm", dev, nbr.data_ptr(), wgt.data_ptr(), n, d, x.data_ptr(), n_src, F,
-            out.data_ptr(), flags.data_ptr(), count=count)
-    if int(flags[0]):
+    flag, flag_np, lock = _flag_word(dev)
+    stream = torch.cuda.current_stream(dev)
+    with lock:
+        flag_np[0] = 0
+        _launch("ell_spmm", dev, nbr.data_ptr(), wgt.data_ptr(), n, d, x.data_ptr(), n_src, F,
+                out.data_ptr(), flag.data_ptr(), stream=stream, count=count)
+        stream.synchronize()
+        bad = bool(flag_np[0])
+    if bad:
         raise ValueError(f"ell_spmm: neighbor ids outside [-1, {n_src})")
     return out
 
@@ -558,8 +579,10 @@ def ell_spmm(nbr: torch.Tensor, wgt: torch.Tensor, x: torch.Tensor,
 
     nbr: int32[n, d], wgt: float32[n, d], x: float32[n_src, F] ->
     float32[n, F].  Only -1 is padding: any other id outside [0, n_src)
-    raises ``ValueError`` (the kernel skips and flags it; the wrapper reads
-    the flag, one host read per call).
+    raises ``ValueError`` (the kernel skips it and sets a flag word in
+    pinned host memory).  On the card a call is one launch on the current
+    stream and one synchronisation of that stream, after which the flag is
+    read on the host, as ``embedding_bag``'s.
 
     Differentiable in ``x`` (not in ``wgt``, fixed coefficients: a ``wgt``
     that requires grad raises): the backward is K5 over the same matrix
@@ -582,23 +605,9 @@ def ell_spmm(nbr: torch.Tensor, wgt: torch.Tensor, x: torch.Tensor,
         if wgt_t.shape != nbr_t.shape or nbr_t.shape[0] != x.shape[0]:
             raise ValueError(f"nbr_t {tuple(nbr_t.shape)} and wgt_t {tuple(wgt_t.shape)} must "
                              f"be [n_src = {x.shape[0]}, d_t]")
+    if not (torch.is_grad_enabled() and x.requires_grad):   # no gradient: no Function
+        return _ell_spmm(nbr, wgt, x)
     return _EllSpmm.apply(nbr, wgt, x, nbr_t, wgt_t)
-
-
-# device -> embedding_bag's flag word there: (pinned host memory, which the
-# kernel writes through its mapping, its numpy view, the lock the calls on
-# the device share)
-_FLAG_WORDS: dict = {}
-_FLAG_WORDS_LOCK = threading.Lock()
-
-
-def _flag_word(dev: torch.device) -> tuple:
-    with _FLAG_WORDS_LOCK:
-        word = _FLAG_WORDS.get(dev)
-        if word is None:
-            host = torch.zeros(1, dtype=torch.int32, pin_memory=True)
-            word = _FLAG_WORDS[dev] = (host, host.numpy(), threading.Lock())
-    return word
 
 
 def _embedding_bag(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -757,8 +766,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     float32 ``csrc/flash_attention.cu`` (the CUDA cores, counted as
     ``flash_attention``); ``attention_kernel`` picks by dtype.
     Differentiable in q, k and v where ``kv_len`` is T: the backward is
-    ``flash_attention_bwd``; a bfloat16 call that needs a gradient also keeps
-    each row's log-sum-exp for it (``[B, Hq, S]`` float32).
+    ``flash_attention_bwd``; a call that needs a gradient also keeps each
+    row's log-sum-exp for it (``[B, Hq, S]`` float32).
 
     With ``return_lse`` the call is inference, outside autograd: ``(out,
     lse)``, lse float32 ``[B, Hq, S]``, each row's base-2 log-sum-exp of
@@ -808,10 +817,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         with torch.no_grad():
             return _flash_attention(q, k, v, bool(causal), window, scale, kv_len,
                                     return_lse=True)
-    # the bfloat16 backward reads the forward's log-sum-exp (the float32 one
-    # recomputes it): kept where autograd will call the backward
-    keep_lse = (q.dtype == torch.bfloat16 and torch.is_grad_enabled()
-                and any(t.requires_grad for t in (q, k, v)))
+    # the backward of either dtype reads the forward's log-sum-exp: kept where
+    # autograd will call the backward
+    keep_lse = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
     return _FlashAttention.apply(q, k, v, bool(causal), window, scale, kv_len, keep_lse)
 
 
@@ -848,9 +856,9 @@ def _flash_attention(q, k, v, causal: bool, window, scale: float, kv_len: int,
 class _FlashAttention(torch.autograd.Function):
     """K4 with its backward ``flash_attention_bwd`` (over all T keys: a call
     with ``kv_len < T``, a decode step's, has no backward).  With
-    ``keep_lse`` (a bfloat16 call that needs a gradient) the forward keeps
-    each row's log-sum-exp for the backward (under
-    ``torch.utils.checkpoint`` the recomputed forward keeps it again)."""
+    ``keep_lse`` (a call that needs a gradient) the forward keeps each row's
+    log-sum-exp for the backward (under ``torch.utils.checkpoint`` the
+    recomputed forward keeps it again)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale, kv_len, keep_lse):
@@ -885,19 +893,19 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     over each GQA group; a row that sees no key adds nothing.  Each gradient
     is in its input's dtype, accumulated in float32.  ``lse`` is the
     forward's float32 ``[B, Hq, S]`` base-2 log-sum-exp of ``scale log2(e)
-    q k^T`` per row (+inf without a key), as K4's bfloat16 forward keeps it
-    in training; None recomputes it.
+    q k^T`` per row (+inf without a key), as K4's forward keeps it in
+    training; without it one launch of K4's forward first makes it on the
+    card (counted under the forward's name).
 
     On the card ``attention_bwd_kernel`` picks by dtype, and each call counts
     once as ``flash_attention_bwd``.  bfloat16:
     ``csrc/flash_attention_bwd_sm90.cu`` (the tensor cores; three launches:
     delta and a zeroed float32 dq accumulator, dk and dv a 64-key tile with
     dq's parts added atomically, dq rounded), also counted as
-    ``flash_attention_bwd_sm90``; without ``lse`` one launch of K4's
-    forward first makes it (counted as ``flash_attention_sm90``).  float32:
-    ``csrc/flash_attention_bwd.cu`` (the CUDA cores; three launches: lse and
-    delta, dk and dv a key tile, dq a query tile, no atomics), which
-    recomputes lse and takes none.  On the CPU ``ref.flash_attention_bwd_ref``
+    ``flash_attention_bwd_sm90``.  float32: ``csrc/flash_attention_bwd.cu``
+    (the CUDA cores; two launches: delta and dq zeroed, dk and dv a 64-key
+    tile with dq's parts added atomically).  Atomic order leaves dq's last
+    bits varying from run to run.  On the CPU ``ref.flash_attention_bwd_ref``
     with ``lse``."""
     B, Hq, S, D = q.shape
     Hkv, T, Dv = k.shape[1], k.shape[2], v.shape[3]
@@ -932,16 +940,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     if not B:
         return dq, dk, dv
     masks = (int(bool(causal)), window is not None, 0 if window is None else int(window))
-    if kernel == "flash_attention_bwd":   # float32: lse recomputed into scratch
-        lse = torch.empty((B, Hq, S), dtype=torch.float32, device=dev)
-        delta = torch.empty_like(lse)
+    if lse is None:
+        _, lse = _flash_attention(q, k, v, causal, window, scale, T, return_lse=True)
+    delta = torch.empty((B, Hq, S), dtype=torch.float32, device=dev)
+    if kernel == "flash_attention_bwd":   # float32: dq zeroed and added into by the kernel
+        # its tiles come in 16 bytes a copy: a view off a 16-byte line is copied
+        q, k, v, o, do = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v, o, do))
         _launch(kernel, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), B, Hq, Hkv, S, T, D, Dv, *masks, scale)
         return dq, dk, dv
-    if lse is None:
-        _, lse = _flash_attention(q, k, v, causal, window, scale, T, return_lse=True)
-    delta = torch.empty((B, Hq, S), dtype=torch.float32, device=dev)
     dq_acc = torch.empty((B, Hq, S, D), dtype=torch.float32, device=dev)   # zeroed by the kernel
     _launch(kernel, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(),

@@ -257,9 +257,14 @@ def make_bag_bwd_case(rng, V, D, B, bag, edge):
 # of n nodes and m edges laid out by destination and by source; "empty" puts
 # every edge into the second half of the nodes (rows of the first half empty
 # both ways), "hub" sends a third of the edges to node 0 (a row wider than a
-# warp's 32 slots), "masked" drops a third of the edges by the mask
+# warp's 32 slots), "hubs" also takes the next third from node 1 (a transposed
+# row as wide), "masked" drops a third of the edges by the mask.  F = 1, 2, 4,
+# 16 (16-byte loads: 1, 1, 1 and 4 lanes a row) and 64 take K5's narrow-row
+# kernel (F <= 64), F = 65 and 128 the warp-a-row kernel
 SPMM_BWD_CASES = [(50, 200, 8, None), (64, 300, 16, "empty"), (100, 600, 7, "hub"),
-                  (80, 240, 33, "masked"), (1, 1, 4, None), (300, 2000, 128, None)]
+                  (80, 240, 33, "masked"), (1, 1, 4, None), (300, 2000, 128, None),
+                  (100, 600, 1, "hubs"), (100, 600, 2, "hubs"), (100, 600, 4, "hubs"),
+                  (100, 600, 16, "hubs"), (200, 1200, 64, None), (200, 1200, 65, None)]
 
 
 def ell_rows(src, dst, w, n):
@@ -285,8 +290,10 @@ def make_spmm_bwd_case(rng, n, m, F, edge):
     src, dst = rng.integers(0, n, m), rng.integers(0, n, m)
     if edge == "empty":
         src, dst = n // 2 + src % (n - n // 2), n // 2 + dst % (n - n // 2)
-    elif edge == "hub":
+    elif edge in ("hub", "hubs"):
         dst[: m // 3] = 0
+        if edge == "hubs":
+            src[m // 3: 2 * m // 3] = 1
     keep = rng.random(m) >= (1 / 3 if edge == "masked" else 0)
     src, dst = src[keep], dst[keep]
     w = rng.standard_normal(src.size).astype(np.float32)

@@ -1,5 +1,6 @@
-"""K4's log-sum-exp on the CPU: the interface between its bfloat16 forward
-and its bfloat16 backward (``csrc/flash_attention_bwd_sm90.cu``).
+"""K4's log-sum-exp on the CPU: the interface between its forward and its
+backward (``csrc/flash_attention_bwd_sm90.cu`` for bfloat16,
+``csrc/flash_attention_bwd.cu`` for float32).
 
 On ``tests/library_cases.py``'s numpy-made backward cases (causal, windows,
 GQA, MLA's (192, 128), rows that see no key, eight key tiles a dq row):
@@ -8,8 +9,8 @@ GQA, MLA's (192, 128), rows that see no key, eight key tiles a dq row):
 with no key), its output unchanged by the flag; ``ref.flash_attention_bwd_ref``
 with the forward's lse against itself without it and against ``jax.grad``
 through what the JAX package's training differentiates (``_attention_scores``);
-the autograd Function keeping lse only for a bfloat16 call that needs a
-gradient and handing it to the backward; the backward's dispatch by dtype
+the autograd Function keeping lse only for a call that needs a gradient
+and handing it to the backward; the backward's dispatch by dtype
 and its refusals.  Tolerances: 1e-5 of the largest |value| between the plain
 versions (float32, the same arithmetic in another order: exp2 of a
 difference against a softmax), 1e-4 against JAX (float32 products in other
@@ -116,11 +117,11 @@ def test_bwd_ref_from_lse_matches_recomputed_and_jax(case, rng):
         _close(from_lse[2].numpy(), np.asarray(jv), JAX_TOL, "dv vs jax")
 
 
-@pytest.mark.parametrize("dtype,keeps", [(torch.bfloat16, True), (torch.float32, False)])
+@pytest.mark.parametrize("dtype,keeps", [(torch.bfloat16, True), (torch.float32, True)])
 def test_function_keeps_lse_only_for_a_gradient(rng, dtype, keeps):
     """The autograd Function asks the forward for lse when a gradient is
-    needed and its dtype's backward reads one (bfloat16), and hands it to
-    the backward; without a gradient, or in float32, it asks for none."""
+    needed (the backward of either dtype reads one) and hands it to the
+    backward; without a gradient it asks for none."""
     q, k, v, do = (_t(a).to(dtype) for a in make_attention_bwd_case(
         rng, 1, 4, 2, 70, 90, 32, 16, True, 40))
     with mock.patch.object(ref, "flash_attention_ref", wraps=ref.flash_attention_ref) as fwd, \

@@ -1230,6 +1230,84 @@ def test_flash_attention_bwd_bf16_keeps_lse_on_the_card(cuda, rng):
         torch.testing.assert_close(g.float(), e, rtol=rtol, atol=atol * float(e.abs().max()))
 
 
+@pytest.mark.parametrize("case", ATTENTION_BWD_CASES, ids=case_id)
+def test_flash_attention_f32_bwd_reads_the_forwards_lse(cuda, rng, case):
+    """K4's float32 backward given the forward's lse: exactly one
+    ``flash_attention_bwd`` launch and no forward launch, within
+    ATTENTION_BWD_TOL of the plain version; the control, a dq without the
+    last key tile's parts (the plain parts of keys T - 64 .. T - 1, which keep
+    their right-aligned positions), must be rejected where those parts are
+    not zero."""
+    B, Hq, Hkv, S, T, D, Dv, causal, window = case
+    q, k, v, do = (torch.from_numpy(a).to(cuda) for a in make_attention_bwd_case(rng, *case))
+    o, lse = ops.flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    got = ops.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window, lse=lse)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in ops.LAUNCHES.items() if c} == {"flash_attention_bwd": 1}
+    exp = ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal, window=window)
+    rtol, atol = ATTENTION_BWD_TOL["float32"]
+    for name, g, e in zip(("dq", "dk", "dv"), got, exp):
+        assert g.dtype == torch.float32 and g.shape == e.shape, name
+        torch.testing.assert_close(g, e, rtol=rtol, atol=atol * max(float(e.abs().max()), 1e-30),
+                                   msg=name)
+    last = ref.flash_attention_bwd_ref(q, k[:, :, -64:].contiguous(), v[:, :, -64:].contiguous(),
+                                       o, do, causal=causal, window=window, lse=lse)[0]
+    if bool(last.abs().max() > 0):
+        with pytest.raises(AssertionError):
+            torch.testing.assert_close(got[0] - last, exp[0], rtol=rtol,
+                                       atol=atol * float(exp[0].abs().max()))
+
+
+def test_flash_attention_bwd_f32_keeps_lse_on_the_card(cuda, rng):
+    """``loss.backward()`` through a float32 ``ops.flash_attention`` launches
+    the forward once (keeping lse) and the backward once, no plain version;
+    the gradients within ATTENTION_BWD_TOL of the plain backward's; a call
+    under ``torch.no_grad`` keeps no lse."""
+    from unittest import mock
+
+    q, k, v, do = (torch.from_numpy(a).to(cuda)
+                   for a in make_attention_bwd_case(rng, 2, 8, 2, 300, 300, 64, 64, True, None))
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    with mock.patch.object(ref, "flash_attention_bwd_ref", side_effect=AssertionError), \
+            mock.patch.object(ref, "flash_attention_ref", side_effect=AssertionError), \
+            mock.patch.object(ops, "_flash_attention", wraps=ops._flash_attention) as fwd:
+        ops.reset_launches()
+        out = ops.flash_attention(q, k, v)
+        (out * do).sum().backward()
+        torch.cuda.synchronize()
+        assert [c.kwargs.get("return_lse") for c in fwd.call_args_list] == [True]
+        with torch.no_grad():
+            ops.flash_attention(q, k, v)
+        assert fwd.call_args_list[-1].kwargs.get("return_lse") in (None, False)
+    assert {n: c for n, c in ops.LAUNCHES.items() if c} == {
+        "flash_attention": 2, "flash_attention_bwd": 1}
+    exp = ref.flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(), out.detach(), do)
+    rtol, atol = ATTENTION_BWD_TOL["float32"]
+    for g, e in zip((q.grad, k.grad, v.grad), exp):
+        torch.testing.assert_close(g, e, rtol=rtol, atol=atol * float(e.abs().max()))
+
+
+@pytest.mark.parametrize("F", [1, 7, 16, 64])
+def test_ell_spmm_narrow_rows_refuse_bad_ids(cuda, rng, F):
+    """K5's narrow-row kernel (F <= 64) through the flag word: a bad id past
+    the first 32 slots of a row, beside good rows, raises ``ValueError``; the
+    next good call passes (the wrapper clears the flag) and matches the plain
+    version."""
+    n, d, ns = 70, 40, 50
+    x = torch.randn(ns, F, device=cuda)
+    nbr = torch.from_numpy(rng.integers(-1, ns, size=(n, d)).astype(np.int32)).to(cuda)
+    wgt = torch.randn(n, d, device=cuda)
+    bad = nbr.clone()
+    bad[33, 37] = ns
+    with pytest.raises(ValueError, match="outside"):
+        ops.ell_spmm(bad, wgt, x)
+    got = _launched("ell_spmm", lambda: ops.ell_spmm(nbr, wgt, x))
+    torch.testing.assert_close(got, ref.ell_spmm_ref(nbr, wgt, x), rtol=SPMM_BAG_BWD_TOL,
+                               atol=SPMM_BAG_BWD_TOL)
+
+
 @pytest.mark.parametrize("case", BAG_BWD_CASES, ids=case_id)
 def test_embedding_bag_bwd_kernel_matches_plain(cuda, rng, case):
     """K6's backward (one ``embedding_bag_bwd`` launch: a zeroed table and
