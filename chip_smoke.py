@@ -14,7 +14,10 @@ toolkit (``nvcc``).  Phases, each raising on failure:
      with ``kv_len`` 1, a 64-key tile's edge and one past it and T, NaN past
      kv_len (``tests/library_cases.py``'s ``KV_LEN_CASES``), and with a value
      width of its own, MLA's D = 192 and Dv = 128 among them
-     (``ATTENTION_DV_CASES``, also over a cache), K5 and K6 at 1e-5); the
+     (``ATTENTION_DV_CASES``, also over a cache), in float32 on the
+     short-row kernel's pieces and merge (``SPLIT_CASES``: decode over
+     4,096 and 4,097 keys, windows at a piece's edge, S = 15 at rep 4; out
+     and lse, one launch a call), K5 and K6 at 1e-5); the
      backwards of K4 (``flash_attention_bwd``, both dtypes, each through the
      kernel of its dtype: bfloat16 ``flash_attention_bwd_sm90`` on the
      tensor cores, reading the lse K4's bfloat16 forward keeps (held to the
@@ -893,6 +896,9 @@ ATTENTION_CASES = [(1, 2, 2, 128, 128, 32, True, None), (2, 4, 2, 256, 256, 64, 
                    (1, 2, 2, 65, 65, 112, True, 30)]        # D = 112
 
 
+SPLIT_CASES_SEED = 36   # the inputs of phase 3's SPLIT_CASES
+
+
 def _library_vs_plain(rng, device) -> dict:
     """K3-K6 against their plain versions on the card: exact for K3 (bit
     patterns); K4 against the float32 plain version on the same values
@@ -970,6 +976,29 @@ def _library_vs_plain(rng, device) -> dict:
                   f"{what}: shape {tuple(got.shape)} or a key past kv_len was read")
             check(_attention_excess(got, exp) <= 1, what)
             cases[name] += 1
+    # float32 rows of a head cut into pieces over blocks and merged, with the
+    # lse; inputs made on the card (a 1 GB case) from a generator of their
+    # own, so that the cases after them keep theirs; NaN past kv_len
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SPLIT_CASES_SEED)
+    for B, Hq, Hkv, S, T, kv_len, D, Dv, causal, window in lc.SPLIT_CASES:
+        q, k, v = (torch.randn(shape, generator=gen, device=device)
+                   for shape in ((B, Hq, S, D), (B, Hkv, T, D), (B, Hkv, T, Dv)))
+        k[:, :, kv_len:], v[:, :, kv_len:] = math.nan, math.nan
+        before = ops.LAUNCHES["flash_attention"]
+        got, lse = ops.flash_attention(q, k, v, causal=causal, window=window, kv_len=kv_len,
+                                       return_lse=True)
+        exp, exp_lse = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                               kv_len=kv_len, return_lse=True)
+        torch.cuda.synchronize()
+        what = f"flash_attention float32 {lc.case_id((B, Hq, Hkv, S, T, kv_len, D, Dv))} " \
+               f"causal={causal} window={window}"
+        seen = torch.isfinite(exp_lse)
+        check(ops.LAUNCHES["flash_attention"] == before + 1, f"{what}: not one launch")
+        check(bool(torch.isfinite(got).all()) and _attention_excess(got, exp) <= 1, what)
+        check(torch.equal(torch.isfinite(lse), seen) and not bool(
+            (lse[seen] - exp_lse[seen]).abs().gt(lc.ATTENTION_LSE_TOL).any()), f"{what}: lse")
+        cases["flash_attention"] += 1
     for B, Hq, Hkv, S, T, D, causal, window in lc.ATTENTION_F32_CASES:
         q = t(rng.standard_normal((B, Hq, S, D)).astype(np.float32))
         k = t(rng.standard_normal((B, Hkv, T, D)).astype(np.float32))
@@ -1175,10 +1204,13 @@ ATTENTION_BWD_CONFIGS = [
      "Dv 128), 1 x 4,096", dict(B=1, Hq=16, Hkv=16, S=4096, T=4096, D=192, Dv=128)),
 ]
 # the kernels each K4 kernel name counts: float32 has a tiled kernel for
-# heads of 64 packed rows or more and one for fewer (decode)
+# heads of 64 packed rows or more and, for fewer (decode), the short-row
+# kernel over pieces of the keys and, where it cut them into more than one,
+# the merge of the pieces; a call's device time is the sum of its launches
 ATTENTION_SYMBOLS = {"flash_attention_sm90": ("flash_attention_sm90_kernel",),
                      "flash_attention": ("flash_attention_tiled_kernel",
-                                         "flash_attention_kernel")}
+                                         "flash_attention_split_kernel",
+                                         "flash_attention_merge_kernel")}
 # K4's two backward kernels, each a record of the kernels line (by its source
 # file's name) and the dtype it runs: ops counts every backward call as
 # flash_attention_bwd and the bfloat16 ones also as flash_attention_bwd_sm90,
@@ -1266,22 +1298,26 @@ def _timed_once(fn) -> tuple:
 
 def _kernel_device_ms(fn, symbols, calls: int, attempts: int = 3) -> float:
     """torch.profiler's device time of one call of ``fn``, over ``calls``
-    calls: the mean over the trace's launches of the kernel ``symbols`` (a
-    name, or a tuple of names of which a call launches one, as K4 in float32
-    picks its kernel by the rows a head has), matched as whole identifiers.
-    The mean is taken over the launches the trace holds: a trace has been
-    seen to hold one of two, and once none of 50, so a trace that holds none
-    is taken again, up to ``attempts`` times."""
+    calls: for each of the kernels ``symbols`` (a name, or a tuple of names
+    of which a call launches some, as K4 in float32 picks its kernels by the
+    rows a head has and by the pieces it cuts the keys into), matched as
+    whole identifiers, the mean over the trace's launches of it, summed over
+    the kernels the trace holds.  The means are taken over the launches the
+    trace holds: a trace has been seen to hold one of two, and once none of
+    50, so a trace that holds none is taken again, up to ``attempts``
+    times."""
     symbols = (symbols,) if isinstance(symbols, str) else tuple(symbols)
-    pattern = re.compile("|".join(rf"(?<!\w){re.escape(s)}[<(]" for s in symbols))
+    patterns = [re.compile(rf"(?<!\w){re.escape(s)}[<(]") for s in symbols]
     for _ in range(attempts):
         _, events = _device_events(lambda: [fn() for _ in range(calls)])
-        times = [us for cat, name, us in events if cat == "kernel" and pattern.search(name)]
-        if times:
+        times = [[us for cat, name, us in events if cat == "kernel" and pat.search(name)]
+                 for pat in patterns]
+        if any(times):
             break
-    check(1 <= len(times) <= calls, f"torch.profiler recorded {len(times)} launches of "
-                                    f"{symbols} in {calls} calls, {attempts} times")
-    return sum(times) / len(times) / 1e3
+    check(any(times) and all(len(t) <= calls for t in times),
+          f"torch.profiler recorded {[len(t) for t in times]} launches of {symbols} in "
+          f"{calls} calls, {attempts} times")
+    return sum(sum(t) / len(t) for t in times if t) / 1e3
 
 
 def _each_kernel_device_ms(fn, symbols: tuple, calls: int, attempts: int = 3) -> dict:
@@ -1427,6 +1463,25 @@ def _attention_plain_chunked(q, k, v, causal, window):
     return out
 
 
+def attention_bound(c: dict) -> dict:
+    """K4's bound at a record's configuration ``c`` (``_attention_record``'s
+    keys; ``c["dtype"]`` "float32" or "bfloat16"): two products, q k^T over
+    D and p v over Dv, a multiply and an add each, over the (query, key)
+    pairs the masks keep, at the dtype's peak; q and out, and the keys some
+    query sees of k and v (``_attention_keys``: a window cuts the rest of the
+    prefix), read or written once.  Also ``visible_pairs`` and
+    ``visible_keys``."""
+    kv_len = c.get("kv_len") or c["T"]
+    pairs = _attention_pairs(c["S"], kv_len, c["causal"], c["window"])
+    keys = _attention_keys(c["S"], kv_len, c["causal"], c["window"])
+    D, Dv = c["D"], c.get("Dv", c["D"])
+    size, peak = ((2, PEAK_BF16_FLOPS_PER_S) if c["dtype"] == "bfloat16" else
+                  (4, PEAK_F32_FLOPS_PER_S))
+    nbytes = size * (c["B"] * c["Hq"] * c["S"] * (D + Dv) + c["B"] * c["Hkv"] * keys * (D + Dv))
+    return {**_bound(nbytes, 2 * pairs * (D + Dv) * c["Hq"] * c["B"], peak),
+            "visible_pairs": pairs, "visible_keys": keys}
+
+
 # the keys of a kernel record taken from its head configuration
 HEAD_KEYS = ("config", "shape", "max_abs_err", "ms", "ms_runs", "device_ms", "plain_ms",
              "plain_ms_runs", "bound_ms", "bound_by", "bytes", "operations", "library_ms")
@@ -1486,15 +1541,9 @@ def _attention_record(label: str, c: dict, q, k, v, out, device) -> dict:
     k1, k2 = _event_ms(kern, 3, warmup=1), _event_ms(kern, 3, warmup=1)
     p2, _ = _timed_once(plain)
     l1, l2 = _event_ms(lib, 3, warmup=1), _event_ms(lib, 3, warmup=1)
-    pairs = _attention_pairs(c["S"], kv_len, c["causal"], c["window"])
-    D, Dv = c["D"], c.get("Dv", c["D"])
-    # two products: q k^T over D, p v over Dv, a multiply and an add each
-    flops = 2 * pairs * (D + Dv) * c["Hq"] * c["B"]
-    keys = _attention_keys(c["S"], kv_len, c["causal"], c["window"])
-    nbytes = q.element_size() * (q.numel() + c["B"] * c["Hkv"] * keys * (D + Dv)
-                                 + out.numel())
-    bound = _bound(nbytes, flops, PEAK_BF16_FLOPS_PER_S if q.dtype == torch.bfloat16
-                   else PEAK_F32_FLOPS_PER_S)
+    bound = attention_bound(c)
+    pairs, keys = bound["visible_pairs"], bound["visible_keys"]
+    flops, nbytes = bound["operations"], bound["bytes"]
     # a trace of two launches has been seen to hold none, three times in a
     # row, both of a 10 us decode call and, late in the script, of a 1 ms
     # prefill call (alone in a process, two of the latter are traced); fifty
@@ -3928,13 +3977,18 @@ def _lm_float32(count, mod, gen, device, cache, tok, kv_len: int) -> tuple:
         toks = torch.randint(0, V, (b, n), generator=gen, device=device, dtype=torch.int32)
         fwd = tf.forward(cfg, params, toks)[0]
         dec_cache = tf.init_cache(cfg, b, n, device)
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter()
         dec = count(lambda: torch.cat([tf.decode_step(cfg, params, dec_cache, toks[:, t:t + 1])[0]
                                        for t in range(n)], dim=1),
                     _decode_launches(cfg, n), f"{cfg.name} float32 decode")
+        torch.cuda.synchronize()
+        dec_ms = (time.perf_counter() - t_dec) * 1e3 / n
         agree = _agreement(dec, fwd)
         check(agree["max_abs"] <= SUBSTRATE_F32_ATOL, f"{cfg.name} float32 decode against "
               f"forward: {agree}, atol {SUBSTRATE_F32_ATOL}")
-        rec["decode_vs_forward"] = {**agree, "tokens": [b, n], "atol": SUBSTRATE_F32_ATOL}
+        rec["decode_vs_forward"] = {**agree, "tokens": [b, n], "atol": SUBSTRATE_F32_ATOL,
+                                    "ms_a_step_mean": dec_ms}
         del fwd, dec, dec_cache
     del params
     torch.cuda.empty_cache()

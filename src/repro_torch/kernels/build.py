@@ -90,7 +90,8 @@ SIGNATURES = {
     "flash_attention": ("flash_attention_launch", [
         _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,
         _C.c_int64, _C.c_int64, _C.c_int64, _C.c_int64, _C.c_int64, _C.c_int64, _C.c_int64,
-        _C.c_int64, _C.c_int32, _C.c_int32, _C.c_int64, _C.c_float, _C.c_void_p,
+        _C.c_int64, _C.c_int32, _C.c_int32, _C.c_int64, _C.c_float, _C.c_void_p, _C.c_int64,
+        _C.c_void_p,
     ], _C.c_int),
     "flash_attention_sm90": ("flash_attention_sm90_launch", [
         _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,

@@ -33,7 +33,7 @@
 // packed position-major (row r is position r / rep of q head kvh * rep + r % rep), so one
 // K/V tile serves all of them.  Only the kv head index is computed for GQA: k and v are
 // not copied per q head.  Key tiles that no row of a block can see (past the causal
-// end, before the window) are never loaded.  Two kernels, chosen by the rows a (batch,
+// end, before the window) are never loaded.  Two designs, chosen by the rows a (batch,
 // kv head) has:
 //
 // Tiled (rows >= 64: prefill), flash_attention_tiled_kernel, tiled as an SGEMM on the
@@ -65,22 +65,38 @@
 // shared-memory loads (PERF.md §6).
 //
 // Short rows (rows < 64: decode, S = 1 with rep rows, and chunked prefill of a few
-// positions), flash_attention_kernel: a block owns R query rows and splits the keys
-// across its four warps: warp w takes the 32-key chunks w, w + 4, ...; each warp keeps
-// its own running max, sum and accumulator and the block merges the four at the end.
-// Inside a warp, lane j computes the R logits of key j (its K row staged in shared
-// memory with one 16-byte pad per row), the warp takes the max, rescales, and then
-// walks the 32 keys with each lane accumulating the columns lane, lane + 32, ... of
-// every row (V staged beside K, Dv wide).  Decode has only Hq/Hkv rows a block, but still
-// 128 threads that share its keys, not one.  At (192, 128) a block of 8 rows takes 178,176
-// bytes of shared memory, one block an SM.
+// positions): flash_attention_split_kernel, then flash_attention_merge_kernel.  A decode has
+// a few rows a kv head, so a block a (batch, kv head) would leave most of the card idle and
+// stream each head's keys through one SM (danube's decode over a 4,096-key block: 8 blocks
+// on 132 SMs).  Instead the keys some row of a block can see are cut into `splits` pieces of
+// whole 32-key chunks (flash-decoding), a block a (row tile, piece, kv head, batch):
+// kernels/ops.py's attention_split_plan picks splits so that the grid fills the SMs about
+// twice, and 1 where the row tiles of B x Hkv heads already give each SM a block.  A block
+// owns R = 1, 2, 4, 8 or 16 rows (the least power of two >= rows, at most 16) and walks its
+// piece's chunks through three cp.async stages of K and V (16 bytes a copy, keys past kv_len
+// zero-filled), two chunks in flight while one computes.  Its four warps spread a chunk so
+// that no lane waits on a row that is not there: for R >= 4 warp w owns rows w, w + 4, ...
+// and lane j key j (its logits from 16-byte loads of its K row, rows padded by 16 bytes so
+// a quarter-warp's loads do not collide); for R < 4 the 4 / R warps of a row take 8 R keys
+// of a chunk each, 4 / R lanes a key, each lane a slice of D, summed by shuffles (a rep-1
+// decode: four warps on its one row, 8 keys each, 4 lanes a key).  Each warp keeps a running
+// max, sum and accumulator a row (lane + 32 c of Dv), and the warps of a row merge through
+// shared memory.  With splits = 1 the block writes out and the lse; else each row's partial
+// (m, l, o[Dv]) in base 2 goes to a float32 workspace the wrapper allocates, and the merge
+// kernel (a block a row) combines the pieces as dist/split_softmax.py's merge does: M the
+// largest m, a piece's weight 2^(m - M), 0 for a piece that kept no key; out = sum w o /
+// sum w l and lse = M + log2(sum w l), 0 and +inf for a row that keeps no key.  Decode is
+// bound by the bytes of k and v, each key read once: 21 MB at danube's decode over 4,096
+// keys (8 kv heads of 80), 6.3 us at 3.35 TB/s; both launches take about 17 us on the device
+// of an NVIDIA H100 80GB HBM3 at 700 W with the keys left in L2 by the call before, 19 us
+// with L2 flushed.  At (192, 128) a block of 16 rows takes 136,704 bytes of shared memory.
 //
 // Build.  The 17 tiled instantiations dominate the compile (about 50 s in one nvcc on the
 // card's host), so kernels/build.py compiles this file as K4_PARTS translation units at once,
-// each with -DK4_PART=i, and links them into one library: part 0 holds the launch function
-// and the short-row kernels, parts 1 .. K4_PARTS - 1 the tiled widths, width i in part
-// 1 + i % (K4_PARTS - 1), each exported as flash_attention_tiled_part<i> (it returns -1 for a
-// width it does not hold).  Compiled whole (no K4_PARTS), the file holds everything.
+// each with -DK4_PART=i, and links them into one library: part 0 holds the launch function,
+// the short-row kernels and their merge, parts 1 .. K4_PARTS - 1 the tiled widths, width i
+// in part 1 + i % (K4_PARTS - 1), each exported as flash_attention_tiled_part<i> (it returns
+// -1 for a width it does not hold).  Compiled whole (no K4_PARTS), the file holds everything.
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -98,9 +114,6 @@
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kKeys = 32;  // keys per warp chunk, one per lane
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
@@ -118,256 +131,8 @@ struct Params {
   float scale_log2;  // scale * log2(e): the softmax runs in base 2
 };
 
-__device__ __forceinline__ float as_float(float x) { return x; }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-
-// 16 bytes of elements -> float
-__device__ __forceinline__ void unpack(const uint4 raw, float* f, float) {
-  f[0] = __uint_as_float(raw.x);
-  f[1] = __uint_as_float(raw.y);
-  f[2] = __uint_as_float(raw.z);
-  f[3] = __uint_as_float(raw.w);
-}
-
 __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
 __device__ __forceinline__ int64_t max64(int64_t a, int64_t b) { return a > b ? a : b; }
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-template <typename T, int R>
-constexpr size_t smem_bytes(int64_t D, int64_t Dv) {
-  // q rows (float) + probabilities (float) + K and V chunks of every warp (T, padded)
-  return static_cast<size_t>(R * D) * 4 + static_cast<size_t>(kWarps * kKeys * R) * 4 +
-         static_cast<size_t>(kWarps * kKeys) * (D + Dv + 2 * (16 / sizeof(T))) * sizeof(T);
-}
-
-// T: element type; R: query rows a block (a multiple of 4); C: value columns a lane holds
-// in the output accumulator (Dv <= 32 C)
-template <typename T, int R, int C>
-__global__ void __launch_bounds__(kThreads)
-    flash_attention_kernel(const Params p) {
-  constexpr int E = 16 / sizeof(T);  // elements in 16 bytes
-  extern __shared__ float4 smem4[];
-  const int64_t D = p.D, Dv = p.Dv;
-  const int64_t DPK = D + E, DPV = Dv + E;  // padded rows of a K and a V chunk
-  float* q_s = reinterpret_cast<float*>(smem4);   // [R][D]
-  float* p_s = q_s + R * D;                       // [kWarps][kKeys][R]
-  // [kWarps][kKeys][DPK] of K, then [kKeys][DPV] of V, a warp
-  T* kv_s = reinterpret_cast<T*>(p_s + kWarps * kKeys * R);
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int64_t b = blockIdx.z;
-  const int64_t kvh = blockIdx.y;
-  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * R;
-  const int64_t nr = min64(R, p.rows - r0);
-  const T* q = static_cast<const T*>(p.q);
-  const T* kb = static_cast<const T*>(p.k) + (b * p.Hkv + kvh) * p.T * D;
-  const T* vb = static_cast<const T*>(p.v) + (b * p.Hkv + kvh) * p.T * Dv;
-
-  // stage the block's query rows, scaled into the base-2 softmax; row r is position
-  // (r0 + r) / rep of q head kvh * rep + (r0 + r) % rep
-  for (int64_t e = threadIdx.x; e < R * D; e += kThreads) {
-    const int64_t r = e / D, d = e - r * D;
-    float val = 0.0f;
-    if (r < nr) {
-      const int64_t s = (r0 + r) / p.rep, g = (r0 + r) - s * p.rep;
-      val = as_float(q[((b * p.Hq + kvh * p.rep + g) * p.S + s) * D + d]) * p.scale_log2;
-    }
-    q_s[e] = val;
-  }
-
-  // the keys some row of the block can see: [k_begin, k_end)
-  const int64_t shift = p.L - p.S;
-  const int64_t s_first = r0 / p.rep, s_last = (r0 + nr - 1) / p.rep;
-  const int64_t k_end = p.causal ? min64(p.L, s_last + shift + 1) : p.L;
-  const int64_t k_begin = p.has_window ? max64(0, s_first + shift - p.window + 1) : 0;
-  int64_t qpos[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) qpos[r] = (r0 + r) / p.rep + shift;
-  __syncthreads();
-
-  float m[R], l[R], o[R][C];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) o[r][c] = 0.0f;
-  }
-  T* ks = kv_s + warp * kKeys * (DPK + DPV);
-  T* vs = ks + kKeys * DPK;
-  float* pw = p_s + warp * kKeys * R;
-  const int64_t vecs = D / E, v_vecs = Dv / E;  // 16-byte vectors a K and a V row
-
-  for (int64_t c0 = (k_begin / kKeys) * kKeys + warp * kKeys; c0 < k_end;
-       c0 += kWarps * kKeys) {
-    const int nk = static_cast<int>(min64(kKeys, k_end - c0));
-    __syncwarp();  // the warp is done with the previous chunk
-    // the chunk's K and V rows are contiguous in memory: 16 bytes a lane, coalesced;
-    // rows past the end are zero, so no garbage reaches a product
-    for (int64_t e = lane; e < kKeys * vecs; e += 32) {
-      const int64_t j = e / vecs, dv = e - j * vecs;
-      uint4 kk = make_uint4(0u, 0u, 0u, 0u);
-      if (j < nk) kk = __ldg(reinterpret_cast<const uint4*>(kb + (c0 + j) * D + dv * E));
-      *reinterpret_cast<uint4*>(ks + j * DPK + dv * E) = kk;
-    }
-    for (int64_t e = lane; e < kKeys * v_vecs; e += 32) {
-      const int64_t j = e / v_vecs, dv = e - j * v_vecs;
-      uint4 vv = make_uint4(0u, 0u, 0u, 0u);
-      if (j < nk) vv = __ldg(reinterpret_cast<const uint4*>(vb + (c0 + j) * Dv + dv * E));
-      *reinterpret_cast<uint4*>(vs + j * DPV + dv * E) = vv;
-    }
-    __syncwarp();
-
-    // logits of key c0 + lane for every row (base 2, already scaled)
-    float s[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) s[r] = 0.0f;
-    const T* krow = ks + lane * DPK;
-    for (int64_t d = 0; d < D; d += E) {
-      float kf[E];
-      unpack(*reinterpret_cast<const uint4*>(krow + d), kf, T());
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float4* qv = reinterpret_cast<const float4*>(q_s + r * D + d);
-#pragma unroll
-        for (int h = 0; h < E / 4; ++h) {
-          const float4 qq = qv[h];
-          s[r] += qq.x * kf[4 * h] + qq.y * kf[4 * h + 1] + qq.z * kf[4 * h + 2] +
-                  qq.w * kf[4 * h + 3];
-        }
-      }
-    }
-    // online softmax, per row (warp-uniform branches)
-    const int64_t key = c0 + lane;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const bool ok = r < nr && lane < nk && (!p.causal || key <= qpos[r]) &&
-                      (!p.has_window || key > qpos[r] - p.window);
-      const float sr = ok ? s[r] : -INFINITY;
-      const float mn = fmaxf(m[r], warp_max(sr));
-      float pr = 0.0f, alpha = 1.0f;
-      if (mn != -INFINITY) {
-        pr = exp2f(sr - mn);
-        alpha = exp2f(m[r] - mn);
-      }
-      m[r] = mn;
-      l[r] = l[r] * alpha + pr;
-#pragma unroll
-      for (int c = 0; c < C; ++c) o[r][c] *= alpha;
-      pw[lane * R + r] = pr;
-    }
-    __syncwarp();
-    // o[r] += sum_j p[j, r] v[j]; lane holds columns lane + 32 c
-    for (int j = 0; j < nk; ++j) {
-      float pj[R];
-#pragma unroll
-      for (int r4 = 0; r4 < R / 4; ++r4) {
-        const float4 pp = reinterpret_cast<const float4*>(pw + j * R)[r4];
-        pj[4 * r4] = pp.x;
-        pj[4 * r4 + 1] = pp.y;
-        pj[4 * r4 + 2] = pp.z;
-        pj[4 * r4 + 3] = pp.w;
-      }
-      const T* vrow = vs + j * DPV;
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const int64_t d = lane + 32 * c;
-        const float vf = d < Dv ? as_float(vrow[d]) : 0.0f;
-#pragma unroll
-        for (int r = 0; r < R; ++r) o[r][c] += pj[r] * vf;
-      }
-    }
-  }
-
-  // merge the warps' partial results; the K/V area is reused for them
-#pragma unroll
-  for (int r = 0; r < R; ++r) l[r] = warp_sum(l[r]);
-  __syncthreads();
-  float* o_part = reinterpret_cast<float*>(kv_s);  // [kWarps][R][Dv]
-  float* m_part = o_part + kWarps * R * Dv;        // [kWarps][R]
-  float* l_part = m_part + kWarps * R;             // [kWarps][R]
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int64_t d = lane + 32 * c;
-      if (d < Dv) o_part[(warp * R + r) * Dv + d] = o[r][c];
-    }
-    if (lane == 0) {
-      m_part[warp * R + r] = m[r];
-      l_part[warp * R + r] = l[r];
-    }
-  }
-  __syncthreads();
-  T* out = static_cast<T*>(p.out);
-  for (int64_t e = threadIdx.x; e < nr * Dv; e += kThreads) {
-    const int64_t r = e / Dv, d = e - r * Dv;
-    float mx = -INFINITY, lse_r = INFINITY;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, m_part[w * R + r]);
-    float val = 0.0f;
-    if (mx != -INFINITY) {
-      float num = 0.0f, den = 0.0f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        const float mw = m_part[w * R + r];
-        if (mw == -INFINITY) continue;
-        const float sc = exp2f(mw - mx);
-        den += sc * l_part[w * R + r];
-        num += sc * o_part[(w * R + r) * Dv + d];
-      }
-      val = den > 0.0f ? num / den : 0.0f;
-      lse_r = den > 0.0f ? mx + log2f(den) : INFINITY;
-    }
-    const int64_t s = (r0 + r) / p.rep, g = (r0 + r) - s * p.rep;
-    store(out + ((b * p.Hq + kvh * p.rep + g) * p.S + s) * Dv + d, val);
-    if (p.lse != nullptr && d == 0) p.lse[(b * p.Hq + kvh * p.rep + g) * p.S + s] = lse_r;
-  }
-}
-
-template <typename T, int R, int C>
-int launch(const Params& p, int64_t B, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T, R>(p.D, p.Dv);
-  auto kernel = flash_attention_kernel<T, R, C>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t blocks = (p.rows + R - 1) / R;
-  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const dim3 grid(static_cast<unsigned int>(blocks), static_cast<unsigned int>(p.Hkv),
-                  static_cast<unsigned int>(B));
-  kernel<<<grid, kThreads, smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, int R>
-int launch_r(const Params& p, int64_t B, cudaStream_t stream) {
-  switch ((p.Dv + 31) / 32) {
-    case 1: return launch<T, R, 1>(p, B, stream);
-    case 2: return launch<T, R, 2>(p, B, stream);
-    case 3: return launch<T, R, 3>(p, B, stream);
-    case 4: return launch<T, R, 4>(p, B, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-template <typename T>
-int launch_t(const Params& p, int64_t B, cudaStream_t stream) {
-  // decode and other short rows: 4 rows a block, so little of the block is idle
-  return p.rows <= 4 ? launch_r<T, 4>(p, B, stream) : launch_r<T, 8>(p, B, stream);
-}
 
 // ---- the tiled kernel (rows >= kTileRows)
 
@@ -745,6 +510,387 @@ extern "C" int flash_attention_tiled_part4(const void* p, int64_t B, void* strea
 
 namespace {
 
+// ---- the short-row kernel (rows < kTileRows) and its merge
+
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kChunk = 32;        // keys a tile, the unit a piece is cut in
+constexpr int kStages = 3;        // cp.async stages of K and V tiles
+constexpr int kMaxSplits = 128;   // pieces a head's keys may be cut into
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// the rows a short-row block owns: the least power of two >= rows, at most 16 (the
+// rule of kernels/ops.py's attention_rows_a_block)
+int rows_a_block(int64_t rows) {
+  return rows <= 1 ? 1 : rows <= 2 ? 2 : rows <= 4 ? 4 : rows <= 8 ? 8 : 16;
+}
+
+// how a block of R rows spreads a 32-key tile over its four warps: R >= 4, warp w owns
+// rows w, w + 4, ... (RW of them) and lane j key j of every tile; R < 4, WR = 4 / R warps
+// share a row, each KW = 32 / WR keys of a tile, LK = WR lanes a key, each a slice of D
+template <int R>
+struct RowMap {
+  static constexpr int WR = R >= 4 ? 1 : 4 / R;  // warps a row
+  static constexpr int RW = R >= 4 ? R / 4 : 1;  // rows a warp
+  static constexpr int LK = WR;                  // lanes a key
+  static constexpr int KW = kChunk / WR;         // keys of a tile a warp takes
+};
+
+// the dynamic shared memory of flash_attention_split_kernel<R>: q, then kStages stages of
+// a K tile (rows padded by 4 LK floats, so the lanes' 16-byte loads do not collide) and
+// a V tile
+template <int R>
+size_t split_smem_bytes(int64_t D, int64_t Dv) {
+  return static_cast<size_t>(R * D + kStages * kChunk * (D + 4 * RowMap<R>::LK + Dv)) * 4;
+}
+
+// keys t0 .. t0 + 31 of K (D wide) and V (Dv wide) into a stage, 16 bytes a copy, keys
+// past L zero-filled and not read; commits nothing
+__device__ __forceinline__ void load_chunk(float* ks, float* vs, const float* kb,
+                                           const float* vb, int64_t t0, int64_t L, int D,
+                                           int Dv, int dpk) {
+  const int k4 = D / 4, v4 = Dv / 4;
+  for (int e = threadIdx.x; e < kChunk * k4; e += kThreads) {
+    const int j = e / k4, d = (e - j * k4) * 4;
+    const bool ok = t0 + j < L;
+    cp_async16(ks + j * dpk + d, kb + (ok ? (t0 + j) * D + d : 0), ok);
+  }
+  for (int e = threadIdx.x; e < kChunk * v4; e += kThreads) {
+    const int j = e / v4, d = (e - j * v4) * 4;
+    const bool ok = t0 + j < L;
+    cp_async16(vs + j * Dv + d, vb + (ok ? (t0 + j) * Dv + d : 0), ok);
+  }
+}
+
+// Block (tile * splits + piece, kvh, b): rows r0 .. r0 + R - 1 (r0 = tile R) of (b, kvh)
+// over piece `piece` of the keys they can see.  With splits = 1 it writes out (and lse);
+// else each row's partial (m, l, o[Dv]) to work: o at work[(row * splits + piece) * Dv],
+// (m, l) at work[total * Dv + 2 (row * splits + piece)], row = (b Hkv + kvh) rows + r0 + r.
+template <int R>
+__global__ void __launch_bounds__(kThreads)
+    flash_attention_split_kernel(const Params p, const int splits, float* __restrict__ work) {
+  using Map = RowMap<R>;
+  constexpr int WR = Map::WR, RW = Map::RW, LK = Map::LK, KW = Map::KW;
+  constexpr int C = 4;  // value columns a lane holds: lane + 32 c (Dv <= 128)
+  extern __shared__ float4 smem4[];
+  const int D = static_cast<int>(p.D), Dv = static_cast<int>(p.Dv), D4 = D / 4;
+  const int dpk = D + 4 * LK;                  // a K row in shared memory
+  const int stage = kChunk * (dpk + Dv);       // floats a stage
+  float* q_s = reinterpret_cast<float*>(smem4);  // [R][D], scaled
+  float* kv_s = q_s + R * D;                     // [kStages][K tile, V tile]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t tile = blockIdx.x / splits, piece = blockIdx.x - tile * splits;
+  const int64_t b = blockIdx.z, kvh = blockIdx.y, bh = b * p.Hkv + kvh;
+  const int64_t r0 = tile * R;
+  const int64_t nr = min64(R, p.rows - r0);
+  const float* q = static_cast<const float*>(p.q);
+  const float* kb = static_cast<const float*>(p.k) + bh * p.T * D;
+  const float* vb = static_cast<const float*>(p.v) + bh * p.T * Dv;
+
+  // the keys some row of the block can see, [k_begin, k_end), as n_chunks 32-key chunks
+  // from chunk c_lo; this block's piece is chunks piece * per .. of them (none past the end)
+  const int64_t shift = p.L - p.S;
+  const int64_t s_first = r0 / p.rep, s_last = (r0 + nr - 1) / p.rep;
+  const int64_t k_end = p.causal ? min64(p.L, s_last + shift + 1) : p.L;
+  const int64_t k_begin = p.has_window ? max64(0, s_first + shift - p.window + 1) : 0;
+  const int64_t c_lo = k_begin / kChunk;
+  const int64_t n_chunks = k_end > k_begin ? (k_end + kChunk - 1) / kChunk - c_lo : 0;
+  const int64_t per = (n_chunks + splits - 1) / splits;
+  const int64_t t_first = (c_lo + min64(piece * per, n_chunks)) * kChunk;
+  const int64_t n_tiles = max64(0, min64(per, n_chunks - piece * per));
+
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_tiles) {
+      float* st = kv_s + s * stage;
+      load_chunk(st, st + kChunk * dpk, kb, vb, t_first + s * kChunk, p.L, D, Dv, dpk);
+    }
+    cp_async_commit();  // empty groups too, so the wait below counts tiles
+  }
+  // the block's query rows, scaled into the base-2 softmax, while the first tiles load;
+  // row r is position (r0 + r) / rep of q head kvh * rep + (r0 + r) % rep
+  for (int e = tid; e < R * D4; e += kThreads) {
+    const int r = e / D4, d = (e - r * D4) * 4;
+    float4 val = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (r < nr) {
+      const int64_t s = (r0 + r) / p.rep, g = (r0 + r) - s * p.rep;
+      val = __ldg(reinterpret_cast<const float4*>(
+          q + ((b * p.Hq + kvh * p.rep + g) * p.S + s) * D + d));
+      val.x *= p.scale_log2;
+      val.y *= p.scale_log2;
+      val.z *= p.scale_log2;
+      val.w *= p.scale_log2;
+    }
+    *reinterpret_cast<float4*>(q_s + r * D + d) = val;
+  }
+
+  // this warp's rows and keys: row(i) of the block, keys key0 .. key0 + KW - 1 of a tile;
+  // this lane's key kt and its slice sl of D
+  int row[RW];
+  int64_t lo[RW], hi[RW];  // the keys row i keeps, [lo, hi] (empty for a row past nr)
+#pragma unroll
+  for (int i = 0; i < RW; ++i) {
+    row[i] = R >= 4 ? warp + 4 * i : warp / WR;
+    const int64_t qpos = (r0 + row[i]) / p.rep + shift;
+    hi[i] = p.causal ? min64(p.L - 1, qpos) : p.L - 1;
+    lo[i] = p.has_window ? qpos - p.window + 1 : 0;
+    if (row[i] >= nr) lo[i] = hi[i] + 1;
+  }
+  const int key0 = R >= 4 ? 0 : (warp % WR) * KW;
+  const int sl = lane % LK, kt = key0 + lane / LK;
+
+  float m[RW], l[RW], o[RW][C];
+#pragma unroll
+  for (int i = 0; i < RW; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.0f;  // this lane's share: the probabilities of its key when sl == 0
+#pragma unroll
+    for (int c = 0; c < C; ++c) o[i][c] = 0.0f;
+  }
+
+  for (int64_t t = 0; t < n_tiles; ++t) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // tile t (and q) is in shared memory; tile t - 1's stage is free
+    if (t + kStages - 1 < n_tiles) {
+      float* st = kv_s + ((t + kStages - 1) % kStages) * stage;
+      load_chunk(st, st + kChunk * dpk, kb, vb, t_first + (t + kStages - 1) * kChunk, p.L,
+                 D, Dv, dpk);
+    }
+    cp_async_commit();
+    const float* ks = kv_s + (t % kStages) * stage;
+    const float* vs = ks + kChunk * dpk;
+    const int64_t key = t_first + t * kChunk + kt;
+
+    // logits of key kt for the warp's rows (base 2, already scaled), LK lanes a key
+    float s[RW];
+#pragma unroll
+    for (int i = 0; i < RW; ++i) s[i] = 0.0f;
+    const float4* krow = reinterpret_cast<const float4*>(ks + kt * dpk);
+    for (int j = sl; j < D4; j += LK) {
+      const float4 kk = krow[j];
+#pragma unroll
+      for (int i = 0; i < RW; ++i) {
+        const float4 qq = reinterpret_cast<const float4*>(q_s + row[i] * D)[j];
+        s[i] = fmaf(qq.x, kk.x, s[i]);
+        s[i] = fmaf(qq.y, kk.y, s[i]);
+        s[i] = fmaf(qq.z, kk.z, s[i]);
+        s[i] = fmaf(qq.w, kk.w, s[i]);
+      }
+    }
+    // online softmax, per row (warp-uniform branches)
+    float pr[RW];
+#pragma unroll
+    for (int i = 0; i < RW; ++i) {
+#pragma unroll
+      for (int x = 1; x < LK; x <<= 1) s[i] += __shfl_xor_sync(0xffffffffu, s[i], x);
+      const float si = key >= lo[i] && key <= hi[i] ? s[i] : -INFINITY;
+      const float mn = fmaxf(m[i], warp_max(si));
+      float alpha = 1.0f;
+      pr[i] = 0.0f;
+      if (mn != -INFINITY) {
+        pr[i] = exp2f(si - mn);
+        alpha = exp2f(m[i] - mn);
+      }
+      m[i] = mn;
+      l[i] = l[i] * alpha + (sl == 0 ? pr[i] : 0.0f);
+#pragma unroll
+      for (int c = 0; c < C; ++c) o[i][c] *= alpha;
+    }
+    // o[i] += sum_j p[i, j] v[j] over the warp's keys; lane holds columns lane + 32 c
+#pragma unroll 8
+    for (int j = 0; j < KW; ++j) {
+      const float* vrow = vs + (key0 + j) * Dv;
+      float vv[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) vv[c] = lane + 32 * c < Dv ? vrow[lane + 32 * c] : 0.0f;
+#pragma unroll
+      for (int i = 0; i < RW; ++i) {
+        const float pj = __shfl_sync(0xffffffffu, pr[i], j * LK);
+#pragma unroll
+        for (int c = 0; c < C; ++c) o[i][c] = fmaf(pj, vv[c], o[i][c]);
+      }
+    }
+  }
+
+  // the warps' parts of each row, merged through the stage memory
+#pragma unroll
+  for (int i = 0; i < RW; ++i) l[i] = warp_sum(l[i]);
+  cp_async_wait<0>();
+  __syncthreads();
+  float* o_part = kv_s;                          // [kWarps][RW][Dv]
+  float* m_part = o_part + kWarps * RW * Dv;     // [kWarps][RW]
+  float* l_part = m_part + kWarps * RW;          // [kWarps][RW]
+#pragma unroll
+  for (int i = 0; i < RW; ++i) {
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      if (lane + 32 * c < Dv) o_part[(warp * RW + i) * Dv + lane + 32 * c] = o[i][c];
+    if (lane == 0) {
+      m_part[warp * RW + i] = m[i];
+      l_part[warp * RW + i] = l[i];
+    }
+  }
+  __syncthreads();
+  const int64_t total = static_cast<int64_t>(gridDim.z) * p.Hkv * p.rows * splits;
+  for (int e = tid; e < nr * Dv; e += kThreads) {
+    const int r = e / Dv, d = e - r * Dv;
+    // row r's warps: r % 4 (its row r / 4) for R >= 4, else r WR .. r WR + WR - 1
+    const int w0 = R >= 4 ? r % 4 : r * WR, i = R >= 4 ? r / 4 : 0;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < WR; ++w) mx = fmaxf(mx, m_part[(w0 + w) * RW + i]);
+    float num = 0.0f, den = 0.0f;
+    if (mx != -INFINITY) {
+#pragma unroll
+      for (int w = 0; w < WR; ++w) {
+        const float mw = m_part[(w0 + w) * RW + i];
+        if (mw == -INFINITY) continue;
+        const float sc = exp2f(mw - mx);
+        den += sc * l_part[(w0 + w) * RW + i];
+        num += sc * o_part[((w0 + w) * RW + i) * Dv + d];
+      }
+    }
+    const int64_t rr = r0 + r;
+    if (splits == 1) {
+      const int64_t s = rr / p.rep, g = rr - s * p.rep;
+      const int64_t orow = (b * p.Hq + kvh * p.rep + g) * p.S + s;
+      static_cast<float*>(p.out)[orow * Dv + d] = den > 0.0f ? num / den : 0.0f;
+      if (p.lse != nullptr && d == 0) p.lse[orow] = den > 0.0f ? mx + log2f(den) : INFINITY;
+    } else {
+      const int64_t idx = (bh * p.rows + rr) * splits + piece;
+      work[idx * Dv + d] = num;
+      if (d == 0) {
+        work[total * Dv + 2 * idx] = den > 0.0f ? mx : -INFINITY;
+        work[total * Dv + 2 * idx + 1] = den;
+      }
+    }
+  }
+}
+
+// over the 128 threads of a block; every thread gets the result
+__device__ __forceinline__ float block_max(float x, float* red) {
+  x = warp_max(x);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
+  __syncthreads();
+  x = fmaxf(fmaxf(red[0], red[1]), fmaxf(red[2], red[3]));
+  __syncthreads();  // red is free again
+  return x;
+}
+__device__ __forceinline__ float block_sum(float x, float* red) {
+  x = warp_sum(x);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
+  __syncthreads();
+  x = (red[0] + red[1]) + (red[2] + red[3]);
+  __syncthreads();
+  return x;
+}
+
+// Block `row` = (b Hkv + kvh) rows + rr: the row's `splits` partials merged as
+// dist/split_softmax.py's merge does, M = the largest m over the pieces that kept a key,
+// a piece's weight 2^(m - M) (0 for a piece without one):
+//     out = sum w o / sum w l,  lse = M + log2(sum w l);  0 and +inf without a key
+__global__ void __launch_bounds__(kThreads)
+    flash_attention_merge_kernel(const Params p, const int splits, const float* __restrict__ work,
+                                 const int64_t total) {
+  __shared__ float w_s[kMaxSplits];
+  __shared__ float red[kWarps];
+  __shared__ float4 acc_s[kThreads];
+  const int tid = threadIdx.x;
+  const int64_t row = blockIdx.x;
+  const int64_t bh = row / p.rows, rr = row - bh * p.rows;
+  const int64_t b = bh / p.Hkv, kvh = bh - b * p.Hkv;
+  const int64_t s = rr / p.rep, g = rr - s * p.rep;
+  const int Dv = static_cast<int>(p.Dv);
+  const float* o_w = work + row * splits * Dv;
+  const float* ml = work + total * Dv + row * splits * 2;
+
+  float mx = -INFINITY;
+  for (int j = tid; j < splits; j += kThreads) mx = fmaxf(mx, ml[2 * j]);
+  mx = block_max(mx, red);
+  float den = 0.0f;
+  for (int j = tid; j < splits; j += kThreads) {
+    const float mj = ml[2 * j];
+    const float w = mj == -INFINITY ? 0.0f : exp2f(mj - mx);
+    w_s[j] = w;
+    den += w * ml[2 * j + 1];
+  }
+  den = block_sum(den, red);  // its syncs also publish w_s
+  // thread (gi, c) sums the pieces gi, gi + P, ... of 16-byte column c
+  const int v4 = Dv / 4, P = kThreads / v4;
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (tid < P * v4) {
+    const int c = tid % v4, gi = tid / v4;
+    for (int j = gi; j < splits; j += P) {
+      const float w = w_s[j];
+      if (w == 0.0f) continue;
+      const float4 x = reinterpret_cast<const float4*>(o_w + j * Dv)[c];
+      acc.x = fmaf(w, x.x, acc.x);
+      acc.y = fmaf(w, x.y, acc.y);
+      acc.z = fmaf(w, x.z, acc.z);
+      acc.w = fmaf(w, x.w, acc.w);
+    }
+  }
+  acc_s[tid] = acc;
+  __syncthreads();
+  const int64_t orow = (b * p.Hq + kvh * p.rep + g) * p.S + s;
+  if (tid < v4) {
+    float4 sum = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int gi = 0; gi < P; ++gi) {
+      const float4 x = acc_s[gi * v4 + tid];
+      sum.x += x.x;
+      sum.y += x.y;
+      sum.z += x.z;
+      sum.w += x.w;
+    }
+    float4 val = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (den > 0.0f) val = make_float4(sum.x / den, sum.y / den, sum.z / den, sum.w / den);
+    reinterpret_cast<float4*>(static_cast<float*>(p.out) + orow * Dv)[tid] = val;
+  }
+  if (p.lse != nullptr && tid == 0) p.lse[orow] = den > 0.0f ? mx + log2f(den) : INFINITY;
+}
+
+template <int R>
+int launch_split(const Params& p, int64_t B, int splits, float* work, cudaStream_t stream) {
+  const size_t smem = split_smem_bytes<R>(p.D, p.Dv);
+  auto kernel = flash_attention_split_kernel<R>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t tiles = (p.rows + R - 1) / R;
+  const int64_t rows_all = B * p.Hkv * p.rows;
+  if (tiles * splits > 0x7fffffff || rows_all > 0x7fffffff)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  const dim3 grid(static_cast<unsigned int>(tiles * splits), static_cast<unsigned int>(p.Hkv),
+                  static_cast<unsigned int>(B));
+  kernel<<<grid, kThreads, smem, stream>>>(p, splits, work);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  flash_attention_merge_kernel<<<static_cast<unsigned int>(rows_all), kThreads, 0, stream>>>(
+      p, splits, work, rows_all * splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_short(const Params& p, int64_t B, int splits, float* work, cudaStream_t stream) {
+  switch (rows_a_block(p.rows)) {
+    case 1: return launch_split<1>(p, B, splits, work, stream);
+    case 2: return launch_split<2>(p, B, splits, work, stream);
+    case 4: return launch_split<4>(p, B, splits, work, stream);
+    case 8: return launch_split<8>(p, B, splits, work, stream);
+    default: return launch_split<16>(p, B, splits, work, stream);
+  }
+}
+
 // the tiled kernel of (D, Dv), from whichever translation unit holds it
 int launch_tiled_d(const Params& p, int64_t B, cudaStream_t stream) {
   int rc = launch_tiled_mine(p, B, stream);
@@ -769,19 +915,27 @@ int launch_tiled_d(const Params& p, int64_t B, cudaStream_t stream) {
 // pointers are device pointers to contiguous float32 tensors; the caller has checked the
 // shapes (Hq % Hkv == 0, D and Dv multiples of 8, 8 <= Dv <= D <= 192, Dv <= 128, B and
 // Hkv at most 65,535, S and T at least 1, 1 <= kv_len <= T); lse is null or a float32
-// [B, Hq, S] that both kernels fill with each row's base-2 log-sum-exp (+inf for a row
-// that keeps no key), the convention of flash_attention_sm90.cu.
+// [B, Hq, S] that every kernel fills with each row's base-2 log-sum-exp (+inf for a row
+// that keeps no key), the convention of flash_attention_sm90.cu.  splits: the pieces a
+// head's keys are cut into on the short-row kernel (kernels/ops.py's
+// attention_split_plan), 1 on the tiled one; with splits > 1, work is a float32 workspace
+// of B Hkv rows splits (Dv + 2) values that the call overwrites.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                                       float* lse, int64_t B, int64_t Hq, int64_t Hkv,
                                       int64_t S, int64_t T, int64_t kv_len, int64_t D,
                                       int64_t Dv, int32_t causal, int32_t has_window,
-                                      int64_t window, float scale, void* stream) {
+                                      int64_t window, float scale, float* work, int64_t splits,
+                                      void* stream) {
   if (B <= 0 || S <= 0) return 0;
   if (kv_len < 1 || kv_len > T || D > 192 || Dv < 8 || Dv > D || Dv > 128)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{q, k, v, out, lse, Hq, Hkv, S, T, D, Dv, kv_len, Hq / Hkv, (Hq / Hkv) * S,
            causal, has_window, window, scale * kLog2e};
   const auto s = static_cast<cudaStream_t>(stream);
-  return p.rows < kTileRows ? launch_t<float>(p, B, s) : launch_tiled_d(p, B, s);
+  if (p.rows >= kTileRows)
+    return splits == 1 ? launch_tiled_d(p, B, s) : static_cast<int>(cudaErrorInvalidValue);
+  if (splits < 1 || splits > kMaxSplits || (splits > 1 && work == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_short(p, B, static_cast<int>(splits), work, s);
 }
 #endif  // K4_PART

@@ -43,6 +43,7 @@ kernel's also under ``flash_attention_bwd_sm90``; ``ell_spmm_bwd``,
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
 
@@ -739,6 +740,87 @@ def attention_pairs(S: int, T: int, causal: bool, window) -> tuple:
     return pairs, int(np.maximum(hi - start + 1, 0).sum())
 
 
+# K4's float32 short-row kernel (csrc/flash_attention.cu): a (batch, kv head)
+# with fewer packed query rows (rep * S) than ATTENTION_TILE_ROWS is read in
+# 32-key chunks by blocks of ``attention_rows_a_block`` rows; the keys a block
+# can see are cut into ``splits`` pieces of whole chunks, a block a piece, so
+# that a decode's few heads still spread over the card, and a second launch
+# merges the pieces' partial softmaxes.  The rules below are the kernel's.
+ATTENTION_TILE_ROWS = 64     # packed rows from which the tiled kernel runs
+ATTENTION_CHUNK = 32         # keys a tile of the short-row kernel, a piece's unit
+ATTENTION_MIN_PIECE = 2      # chunks a piece holds at least, unless the keys are fewer
+ATTENTION_MAX_SPLITS = 128   # the merge kernel's limit
+H100_SMS = 132
+_SMS: dict = {}
+
+
+def attention_rows_a_block(rows: int) -> int:
+    """The query rows a block of the short-row kernel owns: the least power
+    of two at least ``rows``, at most 16."""
+    return next(r for r in (1, 2, 4, 8, 16) if rows <= r or r == 16)
+
+
+def attention_key_chunks(S: int, rep: int, kv_len: int, causal: bool, window) -> list:
+    """For each row tile of the short-row kernel (``attention_rows_a_block``
+    rows of the ``rep * S`` packed rows, row r at position ``r // rep``):
+    ``(k_begin, k_end, c_lo, n_chunks)``, the keys some row of the tile can
+    see and the 32-key chunks from chunk ``c_lo`` that hold them (0 chunks
+    where no row sees a key)."""
+    rows = rep * S
+    R = attention_rows_a_block(rows)
+    out = []
+    for r0 in range(0, rows, R):
+        nr = min(R, rows - r0)
+        s_first, s_last = r0 // rep, (r0 + nr - 1) // rep
+        k_end = min(kv_len, s_last + kv_len - S + 1) if causal else kv_len
+        k_begin = max(0, s_first + kv_len - S - window + 1) if window is not None else 0
+        c_lo = k_begin // ATTENTION_CHUNK
+        n = -(-k_end // ATTENTION_CHUNK) - c_lo if k_end > k_begin else 0
+        out.append((k_begin, k_end, c_lo, n))
+    return out
+
+
+@functools.lru_cache(maxsize=4096)   # a decode step asks once a layer
+def attention_split_plan(B: int, Hkv: int, rep: int, S: int, kv_len: int, causal: bool,
+                         window, sms: int = H100_SMS) -> int:
+    """``splits``, the pieces the short-row kernel cuts each tile's keys into
+    (1 on the tiled kernel): enough that B x Hkv x row tiles x splits blocks
+    fill the ``sms`` multiprocessors about twice, each piece at least
+    ATTENTION_MIN_PIECE chunks, at most ATTENTION_MAX_SPLITS, then as few as
+    give the longest tile the same piece length.  A grid that already has a
+    block for each multiprocessor takes 1."""
+    if rep * S >= ATTENTION_TILE_ROWS:
+        return 1
+    tiles = attention_key_chunks(S, rep, kv_len, causal, window)
+    base = B * Hkv * len(tiles)
+    n_max = max(n for *_, n in tiles)
+    if base >= sms or n_max <= 1:
+        return 1
+    splits = min(-(-2 * sms // base), -(-n_max // ATTENTION_MIN_PIECE), ATTENTION_MAX_SPLITS)
+    per = -(-n_max // splits)
+    return -(-n_max // per)
+
+
+def attention_pieces(S: int, rep: int, kv_len: int, causal: bool, window, splits: int) -> list:
+    """The short-row kernel's pieces: for each row tile, ``(k_begin, k_end,
+    [(first, end), ...])``, piece i holding the keys ``[first, end)`` of
+    whole 32-key chunks (``first == end``: an empty piece), as its blocks
+    cut them: ``per = ceil(n_chunks / splits)`` chunks a piece."""
+    out = []
+    for k_begin, k_end, c_lo, n in attention_key_chunks(S, rep, kv_len, causal, window):
+        per = -(-n // splits)
+        pieces = [((c_lo + min(i * per, n)) * ATTENTION_CHUNK,
+                   (c_lo + min((i + 1) * per, n)) * ATTENTION_CHUNK) for i in range(splits)]
+        out.append((k_begin, k_end, pieces))
+    return out
+
+
+def _sm_count(dev: torch.device) -> int:
+    if dev.index not in _SMS:
+        _SMS[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SMS[dev.index]
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window=None, scale=None,
                     kv_len=None, return_lse: bool = False):
@@ -764,7 +846,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     On the card, bfloat16 runs ``csrc/flash_attention_sm90.cu`` (both
     products on the tensor cores, counted as ``flash_attention_sm90``) and
     float32 ``csrc/flash_attention.cu`` (the CUDA cores, counted as
-    ``flash_attention``); ``attention_kernel`` picks by dtype.
+    ``flash_attention``); ``attention_kernel`` picks by dtype.  A float32
+    head of fewer than 64 packed rows (decode) runs the short-row kernel
+    over ``attention_split_plan``'s pieces of its keys and, for more than
+    one, a merge launch with a workspace this wrapper allocates; each call
+    counts once, whatever it launches.
     Differentiable in q, k and v where ``kv_len`` is T: the backward is
     ``flash_attention_bwd``; a call that needs a gradient also keeps each
     row's log-sum-exp for it (``[B, Hq, S]`` float32).
@@ -845,11 +931,19 @@ def _flash_attention(q, k, v, causal: bool, window, scale: float, kv_len: int,
                    B * Hq * S * (D + Dv) * e + B * Hkv * keys * (D + Dv) * e
                    + (lse.numel() * 4 if return_lse else 0))
         return (out, lse) if return_lse else out
-    if B:   # a null lse pointer asks either kernel for none
-        _launch(kernel, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                lse.data_ptr() if return_lse else None, B, Hq, Hkv, S, T, kv_len, D, Dv,
-                int(bool(causal)), window is not None, 0 if window is None else int(window),
-                scale)
+    if not B:
+        return (out, lse) if return_lse else out
+    # a null lse pointer asks either kernel for none
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if return_lse else None, B, Hq, Hkv, S, T, kv_len, D, Dv,
+            int(bool(causal)), window is not None, 0 if window is None else int(window), scale)
+    if kernel == "flash_attention":   # the pieces' partials go to a workspace, merged after
+        splits = attention_split_plan(B, Hkv, Hq // Hkv, S, kv_len, causal, window,
+                                      _sm_count(dev))
+        work = (torch.empty(B * Hq * S * splits * (Dv + 2), dtype=torch.float32, device=dev)
+                if splits > 1 else None)
+        args += (None if work is None else work.data_ptr(), splits)
+    _launch(kernel, dev, *args)
     return (out, lse) if return_lse else out
 
 

@@ -14,7 +14,9 @@ tables, rows wider than 32 loads in column chunks), then the shapes of
 
 Shared by ``test_torch_cuda.py`` and ``chip_smoke.py`` (each kernel against
 its plain version, on the card) and ``test_torch_kernel_library.py`` (the
-plain versions against the JAX package on the CPU).  numpy only.
+plain versions against the JAX package on the CPU).  numpy only, but for
+``split_partials`` and ``merge_partials``, a plain-torch mirror of K4's
+float32 short-row kernel and its merge (``test_torch_attention_split.py``).
 """
 import numpy as np
 
@@ -186,6 +188,114 @@ ATTENTION_DV_CASES = [(1, 16, 16, 256, 256, None, 192, 128, True, None),
                       (1, 4, 2, 100, 100, None, 128, 64, True, None),
                       (1, 4, 2, 64, 90, None, 24, 8, True, 33)]
 
+
+
+# (B, Hq, Hkv, S, T, kv_len, D, Dv, causal, window): K4's float32 short-row
+# kernel (kernels/csrc/flash_attention.cu: fewer than 64 packed rows a (batch,
+# kv head), the keys cut into pieces of whole 32-key chunks over blocks, the
+# pieces' partials merged by a second launch; ops.attention_split_plan) at its
+# edges: decode over 4,096 and 4,097 keys (a last chunk of one key) at rep 1, 4
+# and 8, D 80 and 128 and (192, 128); danube's windows whose first key is a
+# piece's first key (2,048: 64 chunks in 32 pieces of 2) and one key either
+# side of it; kv_len off a piece (callers put NaN past it); a window of one
+# key; S = 15 at rep 4 (60 rows, four row tiles of 16) with and without a
+# window and with rows that see no key (S > kv_len); B x Hkv of 256 blocks,
+# which fill the card alone (splits 1)
+SPLIT_CASES = [(1, 32, 8, 1, 4096, 4096, 80, 80, True, None),
+               (1, 32, 8, 1, 4097, 4097, 80, 80, True, None),
+               (1, 8, 8, 1, 4096, 4096, 128, 128, True, None),
+               (2, 8, 8, 1, 4097, 4097, 128, 128, True, None),
+               (1, 32, 4, 1, 4096, 4096, 128, 128, True, None),
+               (1, 16, 2, 1, 4097, 4097, 80, 80, True, None),
+               (1, 16, 16, 1, 4096, 4096, 192, 128, True, None),
+               (1, 32, 8, 1, 4097, 4097, 192, 128, True, None),
+               (1, 32, 8, 1, 4096, 4096, 80, 80, True, 2048),
+               (1, 32, 8, 1, 4096, 4096, 80, 80, True, 2047),
+               (1, 32, 8, 1, 4096, 4096, 80, 80, True, 2049),
+               (1, 32, 8, 1, 4176, 4161, 80, 80, True, None),
+               (2, 32, 8, 1, 4176, 4100, 128, 128, True, 1000),
+               (1, 32, 8, 1, 4096, 4000, 80, 80, True, 1),
+               (1, 32, 8, 15, 4096, 4096, 80, 80, True, None),
+               (1, 32, 8, 15, 4176, 4161, 64, 64, True, 700),
+               (1, 8, 2, 15, 4096, 4096, 80, 80, False, 300),
+               (1, 32, 8, 15, 4096, 10, 80, 80, True, None),
+               (8, 32, 32, 1, 4161, 4161, 128, 128, True, None)]
+
+
+def split_partials(q, k, v, causal, window, kv_len, splits, scale=None, dtype=None) -> list:
+    """K4's float32 short-row kernel as plain torch: for each row tile of
+    ``ops.attention_pieces``' plan, ``(r0, r1, m, l, o)``, the partial
+    softmax of packed rows r0 .. r1 - 1 (row r: position r // rep of q head
+    kvh * rep + r % rep) over each piece's keys, in base 2 (q scaled by
+    ``scale log2(e)``): m, l [B, Hkv, r1 - r0, splits], o [..., splits, Dv],
+    unnormalised; a piece where a row keeps no key has m = -inf, l = 0,
+    o = 0.  Keys past kv_len are not read.  In ``dtype`` (default float64,
+    so that what differs from a float32 reference is the plan and the merge,
+    not the rounding)."""
+    import math
+
+    import torch
+
+    from repro_torch.kernels.ops import attention_pieces, attention_rows_a_block
+
+    B, Hq, S, D = q.shape
+    Hkv, Dv = k.shape[1], v.shape[3]
+    rep, rows = Hq // Hkv, Hq // Hkv * S
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    dtype = torch.float64 if dtype is None else dtype
+    qp = (q.to(dtype).reshape(B, Hkv, rep, S, D).transpose(2, 3).reshape(B, Hkv, rows, D)
+          * (scale * 1.4426950408889634))
+    qpos = torch.arange(rows) // rep + kv_len - S
+    R = attention_rows_a_block(rows)
+    tiles = []
+    for t, (_, _, pieces) in enumerate(attention_pieces(S, rep, kv_len, causal, window,
+                                                        splits)):
+        r0, r1 = t * R, min(t * R + R, rows)
+        hi = torch.clamp(qpos[r0:r1], max=kv_len - 1) if causal else torch.full(
+            (r1 - r0,), kv_len - 1)
+        lo = (qpos[r0:r1] - window + 1 if window is not None else
+              torch.zeros(r1 - r0, dtype=torch.long))
+        m = torch.full((B, Hkv, r1 - r0, splits), -math.inf, dtype=dtype)
+        l = torch.zeros((B, Hkv, r1 - r0, splits), dtype=dtype)
+        o = torch.zeros((B, Hkv, r1 - r0, splits, Dv), dtype=dtype)
+        for i, (first, end) in enumerate(pieces):
+            end = min(end, kv_len)
+            if end <= first:
+                continue
+            keys = torch.arange(first, end)
+            s = qp[:, :, r0:r1] @ k[:, :, first:end].to(dtype).transpose(-1, -2)
+            s = s.masked_fill(~((keys >= lo[:, None]) & (keys <= hi[:, None])), -math.inf)
+            mi = s.amax(-1)
+            p = torch.exp2(s - torch.where(torch.isinf(mi), 0.0, mi)[..., None])
+            m[..., i], l[..., i], o[..., i, :] = mi, p.sum(-1), p @ v[:, :, first:end].to(dtype)
+        tiles.append((r0, r1, m, l, o))
+    return tiles
+
+
+def merge_partials(tiles, B, Hq, S) -> tuple:
+    """The kernel's merge of ``split_partials``' pieces, as
+    ``dist.split_softmax.merge`` weighs ranks: M the largest m, a piece's
+    weight 2^(m - M), 0 where it kept no key; out = sum w o / sum w l, lse =
+    M + log2(sum w l), 0 and +inf where no piece kept a key.  Returns (out
+    [B, Hq, S, Dv], lse [B, Hq, S]) in the partials' dtype."""
+    import math
+
+    import torch
+
+    m = torch.cat([t[2] for t in tiles], dim=2)
+    l = torch.cat([t[3] for t in tiles], dim=2)
+    o = torch.cat([t[4] for t in tiles], dim=2)
+    top = m.amax(-1, keepdim=True)
+    w = torch.where(torch.isinf(m), 0.0, torch.exp2(m - torch.where(torch.isinf(top), 0.0, top)))
+    den = (w * l).sum(-1)
+    num = (w[..., None] * o).sum(-2)
+    out = torch.where(den[..., None] > 0, num / torch.where(den > 0, den, 1.0)[..., None], 0.0)
+    lse = torch.where(den > 0, top[..., 0] + torch.log2(torch.where(den > 0, den, 1.0)),
+                      math.inf)
+    Hkv, rows, Dv = m.shape[1], m.shape[2], o.shape[-1]
+    rep = Hq // Hkv
+    out = out.reshape(B, Hkv, S, rep, Dv).transpose(2, 3).reshape(B, Hq, S, Dv)
+    return out, lse.reshape(B, Hkv, S, rep).transpose(2, 3).reshape(B, Hq, S)
 
 
 # (B, Hq, Hkv, S, T, D, Dv, causal, window): K4's backward (both kernels,

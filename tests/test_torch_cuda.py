@@ -34,7 +34,8 @@ import torch
 from frontier_cases import ARRAYS, CASES, ORDER, assert_same_level, make_case
 from library_cases import (ATTENTION_BWD_CASES, ATTENTION_BWD_TOL, ATTENTION_DV_CASES,
                            ATTENTION_F32_CASES, ATTENTION_LSE_TOL, BAG_BWD_CASES, BAG_CASES,
-                           BITSET_CASES, KV_LEN_CASES, SPMM_BAG_BWD_TOL, SPMM_BWD_CASES, SPMM_CASES,
+                           BITSET_CASES, KV_LEN_CASES, SPLIT_CASES, SPMM_BAG_BWD_TOL,
+                           SPMM_BWD_CASES, SPMM_CASES,
                            attention_rows_seeing_a_key, case_id, make_attention_bwd_case,
                            make_bag_bwd_case, make_bag_case, make_bitset_case,
                            make_kv_len_case, make_spmm_bwd_case, make_spmm_case,
@@ -840,6 +841,32 @@ def test_flash_attention_value_width_matches_plain(cuda, rng, case, dtype):
         torch.testing.assert_close(got, exp, rtol=2e-5, atol=2e-5)
     else:
         torch.testing.assert_close(got.float(), exp.to(dtype).float(), rtol=2**-7, atol=1e-4)
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=case_id)
+def test_flash_attention_split_matches_plain(cuda, rng, case):
+    """The float32 short-row kernel with its keys cut into pieces over blocks
+    and merged (``SPLIT_CASES``: decode over 4,096 and 4,097 keys, windows
+    on and beside a piece's edge, kv_len off a piece with NaN past it, S = 15
+    at rep 4, a grid that fills the card unsplit): out within 2e-5 and lse
+    within ATTENTION_LSE_TOL of the plain version (+inf exactly where a row
+    sees no key), the out of a call without lse equal to it bit for bit,
+    each call one ``flash_attention`` launch."""
+    B, Hq, Hkv, S, T, kv_len, D, Dv, causal, window = case
+    q, k, v = (torch.from_numpy(x).to(cuda)
+               for x in make_kv_len_case(rng, B, Hq, Hkv, S, T, kv_len, D, Dv))
+    out, lse = _launched("flash_attention", lambda: ops.flash_attention(
+        q, k, v, causal=causal, window=window, kv_len=kv_len, return_lse=True))
+    plain = _launched("flash_attention", lambda: ops.flash_attention(
+        q, k, v, causal=causal, window=window, kv_len=kv_len))
+    assert out.shape == (B, Hq, S, Dv) and torch.isfinite(out).all()
+    assert torch.equal(out, plain)
+    exp, exp_lse = ref.flash_attention_ref(q, k, v, causal=causal, window=window, kv_len=kv_len,
+                                           return_lse=True)
+    torch.testing.assert_close(out, exp, rtol=2e-5, atol=2e-5)
+    seen = torch.isfinite(exp_lse)
+    assert torch.equal(torch.isfinite(lse), seen)
+    torch.testing.assert_close(lse[seen], exp_lse[seen], rtol=0, atol=ATTENTION_LSE_TOL)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

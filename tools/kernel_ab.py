@@ -18,7 +18,12 @@ source's own directory, for the ``csrc/*.cuh`` headers a copy of it
 includes) and loaded with ctypes; each is held against the kernel's plain
 version at ``chip_smoke.py``'s shapes (phase 3b's: the closure step of the
 "human" analogue for bitset_mm, exact; ogb_products for ell_spmm, 1e-5;
-granite-3-2b prefill in float32 for flash_attention, 2e-5; xDeepFM's
+granite-3-2b prefill in float32 for flash_attention, 2e-5, and phase 4l
+(g)'s three danube decodes and a deepseek-7b decode step (the short-row
+kernel: a source given a workspace and ``ops.attention_split_plan``'s
+pieces, a source from before them neither; the device time of a call the
+sum of its kernels, the first design's short-row kernel among them, each
+with its bound and its time after an L2 flush); xDeepFM's
 serve_bulk batch for embedding_bag, 1e-5; phase 5's, exact:
 label_intersect on citeseer@1.0's labels from a host build at width 16, B =
 2,293, 4,096 and 2^20 queries of phase 4's intersection residue;
@@ -76,6 +81,8 @@ REPS = {"bitset_mm": 20, "ell_spmm": 10, "ell_spmm_bwd": 200, "flash_attention":
 SYMBOL_OF = {"ell_spmm_bwd": "ell_spmm"}
 SPMM_WIDTHS = (100, 16, 7)   # ogb_products' F, then GCN's hidden and output widths
 BWD_PATTERN = r"attention_bwd_\w*kernel"   # every kernel of a K4 backward call
+# K4's float32 short-row kernel of the design before its pieces and merge
+FIRST_SHORT_ROW = ("flash_attention_kernel",)
 TIER_BATCHES = (2293, 4096, 1 << 20)   # phase 4h's median pinned residue, a batch, 2^20
 SLAB_SCALES = (1.0, 0.5)
 MAX_WAVE = 256   # the device build's wave size: 8 frontier words a row
@@ -132,23 +139,6 @@ def _library_inputs(kernel: str, device, bag_width=None):
             return 0
         return [R.data_ptr(), n, wm, R.data_ptr(), n, wm, out.data_ptr()], out, exp, exact, \
             (R,)
-    if kernel == "flash_attention":
-        c = dict(cs.ATTENTION_CONFIGS)[
-            "granite-3-2b prefill in float32 (configs/granite_3_2b.py, train_4k length)"]
-        q = torch.randn((c["B"], c["Hq"], c["S"], c["D"]), generator=gen, device=device)
-        k, v = (torch.randn((c["B"], c["Hkv"], c["T"], c["D"]), generator=gen, device=device)
-                for _ in range(2))
-        out = torch.empty_like(q)
-        exp = cs._attention_plain_chunked(q, k, v, c["causal"], c["window"])
-
-        def attention(out, exp):
-            excess = cs._attention_excess(out, exp)
-            cs.check(excess <= 1, f"flash_attention differs from its plain version: {excess}")
-            return float((out - exp).abs().max())
-        args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, c["B"], c["Hq"],
-                c["Hkv"], c["S"], c["T"], c["T"], c["D"], c["D"], int(c["causal"]), 0, 0,
-                1.0 / math.sqrt(c["D"])]
-        return args, out, exp, attention, (q, k, v)
     table, idx = cs.xdeepfm_inputs(gen, device, bag_width)
     (V, D), (B, bag) = table.shape, idx.shape
     out = torch.empty((B, D), dtype=torch.float32, device=device)
@@ -156,6 +146,58 @@ def _library_inputs(kernel: str, device, bag_width=None):
     exp = ref.embedding_bag_ref(table, idx)
     args = [table.data_ptr(), V, D, idx.data_ptr(), B, bag, out.data_ptr(), flag.data_ptr()]
     return args, out, exp, close(1e-5), (table, idx, flag)
+
+
+def _attention_inputs(device) -> list:
+    """K4 in float32: granite-3-2b's prefill (the tiled kernel), phase 4l
+    (g)'s three danube decodes over a rank's 4,096-key block (32 q heads
+    over 8 kv heads of 80: the whole block, a window of 2,287, a window of
+    one key over a prefix of 4,000) and one deepseek-7b decode step (phase
+    4j's: batch 8, 32 heads of 128, rep 1, kv_len 4,161 of a 4,176 cache,
+    NaN past it), each within 2e-5 of the plain version; the decodes on the
+    short-row kernel, given the workspace and pieces of
+    ``ops.attention_split_plan``, each shape with its bound."""
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(13)
+    granite = dict(cs.ATTENTION_CONFIGS)[
+        "granite-3-2b prefill in float32 (configs/granite_3_2b.py, train_4k length)"]
+    danube = dict(B=1, Hq=32, Hkv=8, S=1, T=4096, D=80, causal=True, dtype="float32")
+    configs = [dict(granite, dtype="float32")] + [
+        dict(danube, window=w, kv_len=n) for w, n in ((None, 4096), (2287, 4096), (1, 4000))
+    ] + [dict(B=8, Hq=32, Hkv=32, S=1, T=4176, kv_len=4161, D=128, causal=True, window=None,
+              dtype="float32")]
+
+    def attention(out, exp):
+        excess = cs._attention_excess(out, exp)
+        cs.check(excess <= 1, f"flash_attention differs from its plain version: {excess}")
+        return float((out - exp).abs().max())
+    shapes = []
+    for c in configs:
+        B, Hq, Hkv, S, T, D = (c[k] for k in ("B", "Hq", "Hkv", "S", "T", "D"))
+        kv_len = c.get("kv_len") or T
+        q = torch.randn((B, Hq, S, D), generator=gen, device=device)
+        k, v = (torch.randn((B, Hkv, T, D), generator=gen, device=device) for _ in range(2))
+        k[:, :, kv_len:], v[:, :, kv_len:] = math.nan, math.nan
+        out = torch.empty_like(q)
+        exp = (cs._attention_plain_chunked(q, k, v, c["causal"], c["window"]) if S > 1 else
+               ref.flash_attention_ref(q, k, v, causal=c["causal"], window=c["window"],
+                                       kv_len=kv_len))
+        splits = ops.attention_split_plan(B, Hkv, Hq // Hkv, S, kv_len, c["causal"],
+                                          c["window"], ops._sm_count(device))
+        work = torch.empty(B * Hq * S * splits * (D + 2), device=device)
+        window = c["window"]
+        args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, B, Hq, Hkv, S,
+                T, kv_len, D, D, int(c["causal"]), window is not None, window or 0,
+                1.0 / math.sqrt(D), work.data_ptr() if splits > 1 else None, splits]
+        shapes.append({"shape": {**c, "splits": splits}, "args": args, "out": out, "exp": exp,
+                       "check": attention, "reset": out.zero_, "keep": (q, k, v, work),
+                       "bound": cs.attention_bound(c), "reps": 50 if S == 1 else None})
+    return shapes
 
 
 def _tier_inputs(device) -> list:
@@ -433,6 +475,8 @@ def _inputs(kernel: str, device, bag_width=None) -> list:
         return _attention_f32_bwd_inputs(device)
     if kernel == "ell_spmm":
         return _spmm_inputs(device)
+    if kernel == "flash_attention":
+        return _attention_inputs(device)
     if kernel == "ell_spmm_bwd":
         return _spmm_bwd_inputs(device)
     args, out, exp, check, keep = _library_inputs(kernel, device, bag_width)
@@ -471,7 +515,8 @@ def main(argv=None) -> int:
     # a call launches one of these kernels
     symbols = (cs.SPMM_SYMBOLS if args.kernel in ("ell_spmm", "ell_spmm_bwd") else
                cs.ATTENTION_SYMBOLS.get(args.kernel, f"{args.kernel}_kernel"))
-    reps = REPS[args.kernel]
+    if args.kernel == "flash_attention":   # and the short-row kernel of the first design
+        symbols += FIRST_SHORT_ROW
     flush = cs._l2_flush(device)
 
     def call(launch):
@@ -488,6 +533,7 @@ def main(argv=None) -> int:
         return ts
 
     for shape in _inputs(args.kernel, device, args.bag_width):
+        reps = shape.get("reps") or REPS[args.kernel]
         launches, wrapped = [], []
         for src, lib in zip(args.sources, libs):
             fn = getattr(lib, symbol)
@@ -526,10 +572,11 @@ def main(argv=None) -> int:
                 fn.argtypes = argtypes[:-2] + [ctypes.c_void_p] + argtypes[-2:]
                 full = full[:-1] + [d_flag.data_ptr()] + full[-1:]
             elif args.kernel == "flash_attention" and _arity(src, symbol) < len(argtypes):
-                # a source from before the lse pointer (the argument after out), one
-                # fewer from before Dv (the argument after D), one fewer again from
-                # before kv_len (the argument after T)
-                drop = set((4, 12, 10)[:len(argtypes) - _arity(src, symbol)])
+                # a source from before the workspace and its pieces (the two arguments
+                # after scale), one fewer from before the lse pointer (the argument
+                # after out), one fewer again from before Dv (the argument after D),
+                # one fewer again from before kv_len (the argument after T)
+                drop = set((17, 18, 4, 12, 10)[:len(argtypes) - _arity(src, symbol)])
                 fn.argtypes = [a for i, a in enumerate(argtypes) if i not in drop]
                 full = [a for i, a in enumerate(full) if i not in drop]
             launches.append(lambda fn=fn, full=full: fn(*full, stream.cuda_stream))
