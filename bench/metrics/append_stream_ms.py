@@ -1,0 +1,8 @@
+"""append_stream_ms: the card's stream time of the window's ``build.append``
+spans over its iterations (the append of ``vi`` over the n x L state), the
+card's idle time inside them included."""
+from bench import spans
+
+
+def read(run):
+    return spans.stream_ms_per_iteration(run, "build.append")

@@ -32,6 +32,16 @@ the data axes.  ``vi``'s label row reaches every rank by one [L]
 all-reduce (``row_extract="onehot"``) or an all-gather of the matrix
 (``"gather"``, what JAX's SPMD does for ``M[vi]``).  The prune test and the
 append stay local.  ``build_sweep_specs`` gives the cells' global shapes.
+
+With ``obs`` on, its iteration traces itself (category ``build``):
+``build.iteration`` a call, ``build.pass`` a pass (``args["pass"]``:
+``rev`` / ``fwd``), and inside it ``build.prune``, one ``build.bfs_step``
+a loop turn and ``build.append``.  With ``TRACER.profiler_annotations`` on
+as well, each span is also a ``record_function`` range, and the last three
+carry the card's stream time of their block in ``args["device_ms"]``.  A
+pass's first step resolves, just before its read of "changed" and while
+the card still runs the prune test, the timings that earlier reads left
+complete: tracing adds no host read and no synchronise.
 """
 from __future__ import annotations
 
@@ -47,6 +57,8 @@ from repro_torch.core.order import get_order
 from repro_torch.device import resolve_device
 from repro_torch.graph.csr import CSRGraph, INVALID
 from repro_torch.launch.mesh import gather_rows, or_over, sum_over
+from repro_torch.obs import trace
+from repro_torch.obs.state import ON
 
 _INVALID = int(INVALID)
 
@@ -260,38 +272,54 @@ def _sharded_reach(rows: _Rows, vi: torch.Tensor, pruned: torch.Tensor, src: tor
     j = src - owner * rows.n_local
     word = owner * rows.words + (j >> 5)
     bit = j & 31
-    for _ in range(max_steps):
-        words = rows.gather(_pack_words(visited & ~pruned, rows.words))
-        active = (words.index_select(0, word) >> bit) & 1
-        hits = torch.zeros(rows.n, dtype=torch.int32, device=dev).index_add_(0, dst, active)
-        hit = rows.reduce_max((hits > 0).to(torch.uint8)).bool()
-        new = visited | hit
-        changed = rows.any((new != visited).any().reshape(1))
-        visited = new
-        if host_read and not bool(changed):
+    for step in range(max_steps):
+        with (trace.span("build.bfs_step", cat="build", annotate=True, device=dev)
+              if ON.enabled else trace.NOOP_SPAN):
+            words = rows.gather(_pack_words(visited & ~pruned, rows.words))
+            active = (words.index_select(0, word) >> bit) & 1
+            hits = torch.zeros(rows.n, dtype=torch.int32, device=dev).index_add_(0, dst, active)
+            hit = rows.reduce_max((hits > 0).to(torch.uint8)).bool()
+            new = visited | hit
+            changed = rows.any((new != visited).any().reshape(1))
+            visited = new
+            if ON.enabled and step == 0:
+                # once a pass, where the card still runs the prune test and
+                # the host would wait: the timings earlier reads left complete
+                trace.TRACER.resolve()
+            done = host_read and not bool(changed)
+        if done:
             break
     return visited
 
 
 def _sharded_pass(rows: _Rows, L: torch.Tensor, lens: torch.Tensor, L_other: torch.Tensor,
                   vi: torch.Tensor, src: torch.Tensor, dst: torch.Tensor, max_steps: int,
-                  row_extract: str, host_read: bool) -> tuple:
+                  row_extract: str, host_read: bool, direction: str) -> tuple:
     """One BFS pass of ``distribute_one`` on this rank's rows: the prune test
     against ``vi``'s row of ``L_other``, the masked reach and the append of
-    ``vi`` into ``L``; returns (L, lens, this rank's overflow flag)."""
-    n = rows.n
-    lut = _membership_lut(n, rows.row(L_other, vi, row_extract))
-    # pruned[w] = L(w) cap row(vi) != empty, looked up through int32 ids
-    ids = torch.where(L == _INVALID, n, L)
-    pruned = lut.index_select(0, ids.reshape(-1)).view(L.shape).any(1)
-    del ids
-    labeled = _sharded_reach(rows, vi, pruned, src, dst, max_steps, host_read) & ~pruned
-    l_max = L.shape[1]
-    pos = torch.clamp(lens, max=l_max - 1)
-    col = torch.arange(l_max, device=L.device)[None, :] == pos[:, None]
-    L = torch.where(col & labeled[:, None], vi.to(L.dtype), L)
-    over = (labeled & (lens >= l_max)).any()
-    return L, lens + labeled.to(torch.int32), over
+    ``vi`` into ``L``; returns (L, lens, this rank's overflow flag).
+    ``direction`` (``rev`` / ``fwd``) names the pass in its trace."""
+    n, dev = rows.n, L.device
+    with (trace.span("build.pass", cat="build", args={"pass": direction}, annotate=True)
+          if ON.enabled else trace.NOOP_SPAN):
+        with (trace.span("build.prune", cat="build", annotate=True, device=dev)
+              if ON.enabled else trace.NOOP_SPAN):
+            lut = _membership_lut(n, rows.row(L_other, vi, row_extract))
+            # pruned[w] = L(w) cap row(vi) != empty, looked up through int32 ids
+            ids = torch.where(L == _INVALID, n, L)
+            pruned = lut.index_select(0, ids.reshape(-1)).view(L.shape).any(1)
+            del ids
+        reached = _sharded_reach(rows, vi, pruned, src, dst, max_steps, host_read)
+        with (trace.span("build.append", cat="build", annotate=True, device=dev)
+              if ON.enabled else trace.NOOP_SPAN):
+            labeled = reached & ~pruned
+            l_max = L.shape[1]
+            pos = torch.clamp(lens, max=l_max - 1)
+            col = torch.arange(l_max, device=dev)[None, :] == pos[:, None]
+            L = torch.where(col & labeled[:, None], vi.to(L.dtype), L)
+            over = (labeled & (lens >= l_max)).any()
+            lens = lens + labeled.to(torch.int32)
+    return L, lens, over
 
 
 def make_sharded_distribute_one(mesh, n: int, max_steps: int, row_extract: str = "gather"):
@@ -318,14 +346,16 @@ def make_sharded_distribute_one(mesh, n: int, max_steps: int, row_extract: str =
         rows = _Rows(ag, n, n_local)
         vi = torch.as_tensor(vi, dtype=torch.int32, device=state.L_out.device)
         host_read = state.L_out.device.type != "meta"
-        L_out, out_len, over_r = _sharded_pass(rows, state.L_out, state.out_len, state.L_in,
-                                               vi, rev_src, rev_dst, max_steps, row_extract,
-                                               host_read)
-        L_in, in_len, over_f = _sharded_pass(rows, state.L_in, state.in_len, L_out, vi,
-                                             fwd_src, fwd_dst, max_steps, row_extract,
-                                             host_read)
-        over = rows.any((over_r | over_f).reshape(1))[0]
-        return LabelState(L_out=L_out, L_in=L_in, out_len=out_len, in_len=in_len,
-                          overflow=state.overflow | over)
+        with (trace.span("build.iteration", cat="build", annotate=True)
+              if ON.enabled else trace.NOOP_SPAN):
+            L_out, out_len, over_r = _sharded_pass(rows, state.L_out, state.out_len,
+                                                   state.L_in, vi, rev_src, rev_dst, max_steps,
+                                                   row_extract, host_read, "rev")
+            L_in, in_len, over_f = _sharded_pass(rows, state.L_in, state.in_len, L_out, vi,
+                                                 fwd_src, fwd_dst, max_steps, row_extract,
+                                                 host_read, "fwd")
+            over = rows.any((over_r | over_f).reshape(1))[0]
+            return LabelState(L_out=L_out, L_in=L_in, out_len=out_len, in_len=in_len,
+                              overflow=state.overflow | over)
 
     return fn
